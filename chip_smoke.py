@@ -4,16 +4,23 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card (``nvidia-smi``) and the torch/CUDA versions, and builds
-   every CUDA kernel of the main path from ``vitok_torch/csrc`` with ``nvcc``;
-2. holds each kernel against its plain PyTorch version on the card in bf16
-   at the main path's shapes and at the 5B width, and times the kernel, the
-   plain version and one PyTorch library call for the same function;
+   every CUDA kernel of the main path from ``vitok_torch/csrc`` with ``nvcc``
+   (one process per source, all at once);
+2. holds each kernel against its plain PyTorch version on the card at the
+   main path's shapes, at the 5B width and at a ragged row count, and times
+   the kernel, the plain version and, where there is one, a PyTorch library
+   call for the same function (for the fused FFN: ``torch._int_mm`` on its
+   fc1 product alone);
 3. drives the main path, preprocess -> AE.encode -> AE.decode -> postprocess,
    for 350M-f16x64 (``Ld4-Ld24/1x16x64``) at full width and depth with
-   random weights from a seed, at 256p (batch 64) and 512p (batch 16),
-   counts the kernel launches of that run, checks the output, compares it
-   with the same model on the unfused attention path, times it, and
-   profiles one step (device time by kernel group, the device's busy share);
+   random weights from a seed, at 256p (batch 64) and 512p (batch 16), in
+   bf16 and then int8 (``AE.quantize()``), and an int8 run at a width the
+   fused FFN refuses (``Gd2-Gd2/1x16x64``), which takes the SwiGLU +
+   quantize kernel. Each run sets every launch count to 0 before it and
+   reads them after it; each checks the output, compares it with the same
+   model on the plain path (unfused attention for bf16, the quantize
+   kernels' plain versions for int8), is timed, and has one step profiled
+   (device time by kernel group, the device's busy share);
 4. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -23,8 +30,10 @@ outside a checkout of the repository, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -33,15 +42,21 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor-core flop/s.
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core flop/s and
+# int8 tensor-core op/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 
 KERNEL_MAX_ABS = 2e-2   # both sides round P to bf16 before PV, but the online
 KERNEL_MEAN_ABS = 2e-3  # softmax rescales at running maxima, in another order
 MODEL_REL_L2 = 2e-2     # decoded patches, fused kernel vs unfused path, bf16
+CODE_SHARE = 1e-3       # quantize kernels: codes differ by <= 1 step in <= 0.1% of entries
+SCALE_RTOL = 1e-5       # ... and per-token scales agree to this
 
 VARIANT = "Ld4-Ld24/1x16x64"  # 350M-f16x64
+SILU_VARIANT = "Gd2-Gd2/1x16x64"  # width 1728: the fused FFN's gate refuses it
+SILU_BATCH = 8  # at 256p
 RESOLUTIONS = (  # (name, pp max tokens, batch, image sizes cycled over the batch)
     ("256p", 256, 64, [(256, 256), (240, 200), (192, 256), (256, 160), (100, 130), (224, 224)]),
     ("512p", 1024, 16, [(512, 512), (480, 360), (304, 512), (512, 384), (200, 330), (448, 448)]),
@@ -197,6 +212,109 @@ def kernel_phase(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Quantize kernels: rmsnorm_quant (#9), ffn_int8 (#7), silu_quant (#8)
+# ---------------------------------------------------------------------------
+
+QUANT_SHAPES = (  # (label, B, N, C, F): M = B * N token rows; F is padded to F' = 128k
+    ("350M@256p main", 64, 256, 1024, 2736),
+    ("350M@512p main", 16, 1024, 1024, 2736),
+    ("5B width", 16, 256, 3072, 8208),
+    ("ragged M", 1, 1000, 1024, 2736),  # a multiple of 8, not of the 128-row tile
+)
+SILU_MAIN = ("G@256p main", SILU_BATCH, 256, 1728, 4608)  # Gd2-Gd2: what its path gives it
+FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+# fp32 operations per element of the row kernels (norm or gate, absmax,
+# divide, round, clip), for their operation bound.
+ROW_KERNEL_OPS = 8
+
+
+def _bound_ms(nbytes: float, ops: float, ops_per_s: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _compare_codes(what, got, want, pad_from=None) -> dict:
+    """Codes within one step in at most CODE_SHARE of the entries, scales
+    within SCALE_RTOL, and pad columns exactly 0."""
+    (q, s), (q_ref, s_ref) = got, want
+    diff = (q.int() - q_ref.int()).abs()
+    max_diff = int(diff.max().item())
+    share = (diff > 0).float().mean().item()
+    rel = ((s - s_ref).abs() / s_ref.abs()).max().item()
+    pad_zero = pad_from is None or not q[..., pad_from:].any().item()
+    if not (max_diff <= 1 and share <= CODE_SHARE and rel <= SCALE_RTOL and pad_zero):
+        raise AssertionError(
+            f"{what}: kernel disagrees with its plain version: max code diff {max_diff}, "
+            f"share {share:.2e} (limits 1, {CODE_SHARE}), scale rel err {rel:.2e} "
+            f"(limit {SCALE_RTOL}), pad columns zero: {pad_zero}")
+    return dict(max_abs_err=max_diff, code_mismatch_share=share, scale_max_rel_err=rel)
+
+
+def quant_kernel_phase(device) -> dict:
+    import torch
+    from vitok_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    rows = {"rmsnorm_quant": [], "ffn_int8": [], "silu_quant": []}
+    log("kernel phase: rmsnorm_quant, ffn_int8, silu_quant (CUDA) vs their plain versions")
+    log(f"{'kernel':14s} {'shape':16s} {'M':>6s} {'C':>5s} {'Fp':>5s} {'code_err':>8s} {'share':>9s} "
+        f"{'scale_rel':>9s} {'ms':>8s} {'plain_ms':>9s} {'bound_ms':>9s} {'int_mm_ms':>9s}")
+
+    def record(kernel, label, m, c, fp, err, ms, plain_ms, bound, extra=None):
+        row = dict(shape=label, M=m, C=c, Fp=fp, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                   bound_by=bound[1], library_ms=None, **err, **(extra or {}))
+        rows[kernel].append(row)
+        lib = (extra or {}).get("int_mm_fc1_ms")
+        log(f"{kernel:14s} {label:16s} {m:6d} {c:5d} {fp:5d} {err['max_abs_err']:8d} "
+            f"{err['code_mismatch_share']:9.2e} {err['scale_max_rel_err']:9.2e} {ms:8.4f} "
+            f"{plain_ms:9.4f} {bound[0]:9.5f} {'' if lib is None else f'{lib:9.4f}'}")
+
+    for label, b, n, c, f in (SILU_MAIN,) + QUANT_SHAPES:
+        m, fp = b * n, quant.pad_ffn_dim(f)
+        # #9: the residual stream [B, N, C] -> int8 + per-token scales.
+        x = (randn(b, n, c) * 2).to(torch.bfloat16)
+        gain = 0.5 + torch.rand(c, generator=gen, device=device)
+        err = _compare_codes(f"rmsnorm_quant {label}", quant.fused_rmsnorm_quant(x, gain),
+                             quant.fused_rmsnorm_quant_plain(x, gain))
+        record("rmsnorm_quant", label, m, c, c, err,
+               time_ms(lambda: quant.fused_rmsnorm_quant(x, gain)),
+               time_ms(lambda: quant.fused_rmsnorm_quant_plain(x, gain)),
+               _bound_ms(m * c * 2 + c * 4 + m * c + m * 4, ROW_KERNEL_OPS * m * c, FP32_OPS_PER_S))
+        del x
+
+        # #8: the bf16 fc1 output [M, 2F'] (pad columns of both halves 0).
+        hid = torch.zeros(m, 2 * fp, dtype=torch.bfloat16, device=device)
+        hid[:, :f] = randn(m, f).to(torch.bfloat16)
+        hid[:, fp:fp + f] = (2 * randn(m, f)).to(torch.bfloat16)
+        err = _compare_codes(f"silu_quant {label}", quant.fused_silu_quant(hid),
+                             quant.fused_silu_quant_plain(hid), pad_from=f)
+        record("silu_quant", label, m, c, fp, err,
+               time_ms(lambda: quant.fused_silu_quant(hid)),
+               time_ms(lambda: quant.fused_silu_quant_plain(hid)),
+               _bound_ms(m * 2 * fp * 2 + m * fp + m * 4, ROW_KERNEL_OPS * m * fp, FP32_OPS_PER_S))
+        del hid
+
+        if not quant.can_fuse_ffn(m, c, 2 * fp):
+            continue  # the G width: its path takes silu_quant instead
+        # #7: int8 activations x the padded int8 fc1 weight.
+        hq, hs = quant.quantize_activation(randn(m, c))
+        w, ws = quant.quantize_weight(quant.pad_fc1_weight(0.05 * randn(2 * f, c)))
+        err = _compare_codes(f"ffn_int8 {label}", quant.fused_ffn_int8(hq, hs, w, ws),
+                             quant.fused_ffn_int8_plain(hq, hs, w, ws), pad_from=f)
+        nbytes = m * c + m * 4 + 2 * fp * c + 2 * fp * 4 + m * fp + m * 4
+        record("ffn_int8", label, m, c, fp, err,
+               time_ms(lambda: quant.fused_ffn_int8(hq, hs, w, ws)),
+               time_ms(lambda: quant.fused_ffn_int8_plain(hq, hs, w, ws)),
+               _bound_ms(nbytes, 2.0 * m * c * 2 * fp, INT8_OPS_PER_S),
+               dict(int_mm_fc1_ms=time_ms(lambda: torch._int_mm(hq, w.t()))))
+        del hq, hs, w, ws
+    log("  (int_mm_ms: torch._int_mm on the fc1 product only, no SwiGLU or requantize)")
+    return rows
+
+
+
+# ---------------------------------------------------------------------------
 # Main path phase
 # ---------------------------------------------------------------------------
 
@@ -211,56 +329,123 @@ def _images(rng, sizes, batch):
     return out
 
 
-def main_path_phase(device, card: str) -> dict:
-    import torch
-    from vitok_torch import AE, decode_variant, postprocess, preprocess
+def launch_counts() -> dict:
     from vitok_torch.ops import fused_attention as fa
+    from vitok_torch.ops import quant
 
-    cfg_kw = decode_variant(VARIANT)
-    model = AE(**cfg_kw, seed=0, device=device)
+    return {"fused_attention": fa.LAUNCHES, **quant.LAUNCHES}
+
+
+def reset_counts() -> None:
+    from vitok_torch.ops import fused_attention as fa
+    from vitok_torch.ops import quant
+
+    fa.LAUNCHES = 0
+    for k in quant.LAUNCHES:
+        quant.LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def plain_quant_kernels():
+    """The quantize kernels' wrappers swapped for their plain versions: the
+    int8 reference run (a switch of this script, not of the package)."""
+    from vitok_torch.ops import quant
+
+    names = ("fused_rmsnorm_quant", "fused_ffn_int8", "fused_silu_quant")
+    saved = {n: getattr(quant, n) for n in names}
+    for n in names:
+        setattr(quant, n, getattr(quant, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(quant, n, fn)
+
+
+def _random_gates(model, device) -> None:
+    """LayerScale gains ~ U(0.5, 1.5) from a seed: every block matters."""
+    import torch
+
     gen = torch.Generator(device=device).manual_seed(1)
-    with torch.no_grad():  # LayerScale gains ~ U(0.5, 1.5): blocks matter
+    with torch.no_grad():
         for blk in [*model.encoder_blocks, *model.decoder_blocks]:
             g = blk.layer_scale.gamma
             g.copy_(0.5 + torch.rand(g.shape, generator=gen, device=device))
+
+
+def main_path_cases(device, resolutions=RESOLUTIONS, seed=0) -> list:
+    """(name, max tokens, batch, images, NaFlex batch on the card) per resolution."""
+    from vitok_torch import preprocess
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for name, max_tokens, batch, sizes in resolutions:
+        pp = f"to_tensor|normalize(minus_one_to_one)|patchify(16, {max_tokens})"
+        images = _images(rng, sizes, batch)
+        cases.append((name, max_tokens, batch, images, preprocess(images, pp=pp, device=device)))
+    return cases
+
+
+def _run_counted(model, cases, expect: dict, what: str) -> tuple:
+    """Every count set to 0, the model run once per case, and the counts read:
+    each case must add ``expect`` launches. Returns (outputs, counts)."""
+    import torch
+
+    reset_counts()
+    outs = []
+    for name, _, _, _, inputs in cases:
+        before = launch_counts()
+        outs.append(model.decode(model.encode(inputs)))
+        torch.cuda.synchronize()
+        per_forward = {k: v - before[k] for k, v in launch_counts().items()}
+        if per_forward != expect:
+            raise AssertionError(f"{what} {name}: launches per forward {per_forward}, expected {expect}")
+    return outs, launch_counts()
+
+
+def _check_output(name, max_tokens, batch, images, inputs, out) -> None:
+    """Shape and finiteness, each unpacked image at its original size, and the
+    postprocessed input patches bit for bit the input images."""
+    import torch
+    from vitok_torch import postprocess
+
+    patches = out["patches"]
+    if tuple(patches.shape) != (batch, max_tokens, 768) or not torch.isfinite(patches).all():
+        raise AssertionError(f"{name}: bad decoder output {tuple(patches.shape)} or non-finite")
+    recon = postprocess(out, output_format="0_255", do_unpack=True)
+    for img, r in zip(images, recon):
+        if tuple(r.shape) != (3, img.size[1], img.size[0]):
+            raise AssertionError(f"{name}: unpacked {tuple(r.shape)} for a {img.size} image")
+    ident = postprocess(dict(inputs), output_format="0_255", do_unpack=True)
+    for img, r in zip(images, ident):
+        if not np.array_equal(r.numpy().transpose(1, 2, 0), np.asarray(img)):
+            raise AssertionError(f"{name}: postprocess of the input is not the input image")
+
+
+def _valid_rel_l2(out, ref, inputs) -> float:
+    valid = inputs["patch_mask"]
+    a, r = out["patches"][valid].float(), ref["patches"][valid].float()
+    return ((a - r).norm() / r.norm()).item()
+
+
+def main_path_phase(device, card: str, cases) -> dict:
+    from vitok_torch import AE, decode_variant
+
+    cfg_kw = decode_variant(VARIANT)
+    model = AE(**cfg_kw, seed=0, device=device)
+    _random_gates(model, device)
     reference = AE(**{**cfg_kw, "attn_impl": "xla"}, state_dict=model.state_dict(), device=device)
     depth = model.cfg.encoder_depth + model.cfg.decoder_depth
     n_params = sum(p.numel() for p in model.parameters())
     log(f"main path: {VARIANT} ({n_params / 1e6:.1f}M params), bf16, {depth} blocks, device={device}")
 
-    rng = np.random.default_rng(0)
-    results = []
-    fa.LAUNCHES = 0
-    for name, max_tokens, batch, sizes in RESOLUTIONS:
-        pp = f"to_tensor|normalize(minus_one_to_one)|patchify(16, {max_tokens})"
-        images = _images(rng, sizes, batch)
-        inputs = preprocess(images, pp=pp, device=device)
-        before = fa.LAUNCHES
-        out = model.decode(model.encode(inputs))
-        torch.cuda.synchronize()
-        per_forward = fa.LAUNCHES - before
-        if per_forward != depth:
-            raise AssertionError(f"{name}: {per_forward} fused kernel launches, expected {depth}")
-        results.append((name, max_tokens, batch, images, inputs, out))
-    launches = fa.LAUNCHES  # the main path's run, read before any timing
+    expect = {"fused_attention": depth, "rmsnorm_quant": 0, "ffn_int8": 0, "silu_quant": 0}
+    outs, launches = _run_counted(model, cases, expect, "bf16")  # the main path's run
 
     rows = []
-    for name, max_tokens, batch, images, inputs, out in results:
-        patches = out["patches"]
-        if tuple(patches.shape) != (batch, max_tokens, 768) or not torch.isfinite(patches).all():
-            raise AssertionError(f"{name}: bad decoder output {tuple(patches.shape)} or non-finite")
-        recon = postprocess(out, output_format="0_255", do_unpack=True)
-        for img, r in zip(images, recon):
-            if tuple(r.shape) != (3, img.size[1], img.size[0]):
-                raise AssertionError(f"{name}: unpacked {tuple(r.shape)} for a {img.size} image")
-        ident = postprocess(dict(inputs), output_format="0_255", do_unpack=True)
-        for img, r in zip(images, ident):
-            if not np.array_equal(r.numpy().transpose(1, 2, 0), np.asarray(img)):
-                raise AssertionError(f"{name}: postprocess of the input is not the input image")
-        ref = reference.decode(reference.encode(inputs))["patches"]
-        valid = inputs["patch_mask"]
-        a, r_ = patches[valid].float(), ref[valid].float()
-        rel = ((a - r_).norm() / r_.norm()).item()
+    for (name, max_tokens, batch, images, inputs), out in zip(cases, outs):
+        _check_output(name, max_tokens, batch, images, inputs, out)
+        rel = _valid_rel_l2(out, reference.decode(reference.encode(inputs)), inputs)
         if not rel <= MODEL_REL_L2:
             raise AssertionError(f"{name}: rel L2 vs unfused path {rel:.3e} > {MODEL_REL_L2}")
         ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=5, warmup=1)
@@ -273,12 +458,105 @@ def main_path_phase(device, card: str) -> dict:
             f"encode+decode {ms / batch:.4f} ms/img, {batch / ms * 1e3:.1f} img/s "
             f"(unfused attention: {ref_ms / batch:.4f} ms/img) on {card}")
         profile_step(name, lambda: model.decode(model.encode(inputs)))
+    del reference
+    return dict(rows=rows, launches=launches["fused_attention"], model=model, outputs=outs)
+
+
+def int8_path_phase(device, card: str, cases, bf16: dict) -> dict:
+    """The same 350M model, ``AE.quantize()``d, through the same batches."""
+    from vitok_torch import AE, decode_variant
+
+    model = AE(**decode_variant(VARIANT), state_dict=bf16["model"].state_dict(), device=device)
+    model.quantize()
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    log(f"int8 path: {VARIANT} after AE.quantize(), {depth} blocks, device={device}")
+    expect = {"fused_attention": depth, "rmsnorm_quant": depth, "ffn_int8": depth, "silu_quant": 0}
+    outs, launches = _run_counted(model, cases, expect, "int8")  # the int8 path's run
+
+    rows = []
+    for (name, max_tokens, batch, images, inputs), out, bf_out, bf_row in zip(
+            cases, outs, bf16["outputs"], bf16["rows"]):
+        _check_output(name, max_tokens, batch, images, inputs, out)
+        with plain_quant_kernels():
+            rel = _valid_rel_l2(out, model.decode(model.encode(inputs)), inputs)
+        if not rel <= MODEL_REL_L2:
+            raise AssertionError(f"int8 {name}: rel L2 vs the plain versions {rel:.3e} > {MODEL_REL_L2}")
+        # For information: the int8 reconstruction against the bf16 one.
+        valid = inputs["patch_mask"]
+        mse = (out["patches"][valid].float() - bf_out["patches"][valid].float()).square().mean().item()
+        psnr = 10 * np.log10(4.0 / mse) if mse > 0 else float("inf")  # pixels in [-1, 1]
+        rel_bf16 = _valid_rel_l2(out, bf_out, inputs)
+        ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=5, warmup=1)
+        row = dict(res=name, tokens=max_tokens, batch=batch, rel_l2_vs_plain=rel,
+                   rel_l2_vs_bf16=rel_bf16, psnr_vs_bf16=psnr, ms_per_img=ms / batch,
+                   img_per_s=batch / ms * 1e3, bf16_ms_per_img=bf_row["ms_per_img"], card=card)
+        rows.append(row)
+        log(f"  int8 {name}: batch {batch}: rel L2 vs plain versions {rel:.3e}; vs bf16 rel L2 "
+            f"{rel_bf16:.3e}, PSNR {psnr:.2f} dB; encode+decode {ms / batch:.4f} ms/img, "
+            f"{batch / ms * 1e3:.1f} img/s (bf16 {bf_row['ms_per_img']:.4f} ms/img, "
+            f"{bf_row['img_per_s']:.1f} img/s) on {card}")
+        profile_step(f"int8 {name}", lambda: model.decode(model.encode(inputs)))
     return dict(rows=rows, launches=launches)
+
+
+def silu_path_phase(device, card: str) -> dict:
+    """An int8 model at a width the fused FFN's gate refuses (C % 128 != 0):
+    its blocks take the int8 fc1 product and then the SwiGLU + quantize
+    kernel. Head dim 72, so attention takes the unfused composition."""
+    from vitok_torch import AE, decode_variant
+
+    model = AE(**decode_variant(SILU_VARIANT), seed=0, device=device)
+    _random_gates(model, device)
+    model.quantize()
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    name, max_tokens, _, sizes = RESOLUTIONS[0]
+    cases = main_path_cases(device, [(name, max_tokens, SILU_BATCH, sizes)], seed=1)
+    log(f"int8 SwiGLU-quantize path: {SILU_VARIANT} after AE.quantize(), {depth} blocks, "
+        f"{name} batch {SILU_BATCH}")
+    expect = {"fused_attention": 0, "rmsnorm_quant": depth, "ffn_int8": 0, "silu_quant": depth}
+    (out,), launches = _run_counted(model, cases, expect, "int8 G")
+    name, max_tokens, batch, images, inputs = cases[0]
+    _check_output(name, max_tokens, batch, images, inputs, out)
+    with plain_quant_kernels():
+        rel = _valid_rel_l2(out, model.decode(model.encode(inputs)), inputs)
+    if not rel <= MODEL_REL_L2:
+        raise AssertionError(f"int8 G {name}: rel L2 vs the plain versions {rel:.3e} > {MODEL_REL_L2}")
+    ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=5, warmup=1)
+    log(f"  int8 G {name}: rel L2 vs plain versions {rel:.3e}; encode+decode {ms / batch:.4f} "
+        f"ms/img on {card}")
+    return dict(launches=launches, rel_l2_vs_plain=rel, ms_per_img=ms / batch)
+
+
+# Profile groups: each port kernel by its exact __global__ name, then the
+# library's matrix products (cuBLAS/cuBLASLt, torch._int_mm included) by
+# markers in their names, then everything else.
+PORT_KERNEL_GROUPS = {
+    "fused_attention_kernel": "fused_attention",
+    "rmsnorm_quant_kernel": "rmsnorm_quant",
+    "ffn_int8_gemm_kernel": "ffn_int8",
+    "ffn_int8_quant_kernel": "ffn_int8",
+    "silu_quant_kernel": "silu_quant",
+}
+MATMUL_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "matmul", "imma")
+
+
+def kernel_base_name(name: str) -> str:
+    """``void (anonymous namespace)::ffn_int8_gemm_kernel<2>(signed char...)``
+    -> ``ffn_int8_gemm_kernel``."""
+    name = re.sub(r"^void\s+", "", name.replace("(anonymous namespace)::", ""))
+    return re.split(r"[<(]", name, maxsplit=1)[0].rsplit("::", 1)[-1].strip()
+
+
+def kernel_group(name: str) -> str:
+    group = PORT_KERNEL_GROUPS.get(kernel_base_name(name))
+    if group is not None:
+        return group
+    return "matmul" if any(w in name.lower() for w in MATMUL_MARKERS) else "other"
 
 
 def profile_step(name: str, step) -> None:
     """Where one encode+decode spends the card's time: device kernel time by
-    group (the fused attention kernel, matrix products, everything else) from
+    group (each port kernel, matrix products, everything else) from
     ``torch.profiler``, and the device's busy share of the step's wall time
     (CUDA events around the profiled step)."""
     import torch
@@ -300,20 +578,57 @@ def profile_step(name: str, step) -> None:
     if total <= 0:
         log(f"  {name} profile: the profiler recorded no device time (not measured)")
         return
-    groups = {"fused_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = dict.fromkeys([*dict.fromkeys(PORT_KERNEL_GROUPS.values()), "matmul", "other"], 0.0)
     for kname, t in by_name.items():
-        low = kname.lower()
-        if "fused_attention_kernel" in low:
-            groups["fused_attention"] += t
-        elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
-            groups["matmul"] += t
-        else:
-            groups["other"] += t
-    shares = ", ".join(f"{g} {t:.3f} ms ({t / total:.1%})" for g, t in groups.items())
+        groups[kernel_group(kname)] += t
+    shares = ", ".join(f"{g} {t:.3f} ms ({t / total:.1%})" for g, t in groups.items() if t > 0)
     log(f"  {name} profile: device kernels {total:.3f} ms in a {wall_ms:.3f} ms step "
         f"(busy {total / wall_ms:.1%}): {shares}")
-    for kname, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"    {t:9.3f} ms  {kname[:110]}")
+    for kname, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {t:9.3f} ms  [{kernel_group(kname)}] {kname[:110]}")
+
+
+def kernel_entries(kern, qkern, main_path, int8_path, silu_path) -> list:
+    """The kernels line: one entry per kernel, its launches from its path's run."""
+    head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
+    entries = [{
+        "name": "fused_attention",
+        "route": "cuda",
+        "source": "vitok_torch/csrc/fused_attention.cu",
+        "replaces": "vitok_tpu/ops/fused_attention.py:317",
+        "launches": main_path["launches"],
+        "max_abs_err": kern["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+    }]
+    for name, replaces, shape, launches in (
+        ("rmsnorm_quant", "vitok_tpu/ops/quant.py:385", "350M@512p main", int8_path["launches"]),
+        ("ffn_int8", "vitok_tpu/ops/quant.py:130", "350M@512p main", int8_path["launches"]),
+        ("silu_quant", "vitok_tpu/ops/quant.py:317", SILU_MAIN[0], silu_path["launches"]),
+    ):
+        rows = qkern[name]
+        row = next(r for r in rows if r["shape"] == shape)
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"vitok_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "code_mismatch_share": max(r["code_mismatch_share"] for r in rows),
+        }
+        if "int_mm_fc1_ms" in row:
+            entry["int_mm_fc1_ms"] = row["int_mm_fc1_ms"]  # torch._int_mm, the fc1 product only
+        entries.append(entry)
+    return entries
 
 
 def main() -> int:
@@ -336,28 +651,19 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
-    _build.build(["fused_attention"])
+    _build.build(["fused_attention", "rmsnorm_quant", "ffn_int8", "silu_quant"])
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 
     kern = kernel_phase(device)
-    main_path = main_path_phase(device, card)
+    qkern = quant_kernel_phase(device)
+    cases = main_path_cases(device)
+    main_path = main_path_phase(device, card, cases)
+    int8_path = int8_path_phase(device, card, cases, main_path)
+    silu_path = silu_path_phase(device, card)
 
-    head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
-    entry = {
-        "name": "fused_attention",
-        "route": "cuda",
-        "source": "vitok_torch/csrc/fused_attention.cu",
-        "replaces": "vitok_tpu/ops/fused_attention.py:317",
-        "launches": main_path["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-    }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    entries = kernel_entries(kern, qkern, main_path, int8_path, silu_path)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": info}), flush=True)

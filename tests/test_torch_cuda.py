@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, held against its plain PyTorch version.
+"""The port's CUDA kernels on the card, held against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip without one.
 The file imports neither JAX nor ``vitok_tpu``, so it also runs on a machine
@@ -7,10 +7,13 @@ there run it as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerance, bf16 on the card, valid rows: max abs 2e-2 and mean abs 2e-3.
-Both sides round P to bf16 before PV, but the kernel's online softmax rounds
-it at running row maxima, in another order than the plain version's
-full-row softmax.
+Tolerances. Attention, bf16 on the card, valid rows: max abs 2e-2 and mean
+abs 2e-3. Both sides round P to bf16 before PV, but the kernel's online
+softmax rounds it at running row maxima, in another order than the plain
+version's full-row softmax. The quantize kernels: codes within one step in
+at most 0.1% of the entries and scales within rtol 1e-5 (on the H100 they
+agree bit for bit); pad columns exactly 0. Small int8 models: rel L2 2e-2
+against the same model on the plain versions.
 """
 
 import dataclasses
@@ -21,6 +24,7 @@ import torch
 
 from vitok_torch.models import ae as t_ae
 from vitok_torch.ops import fused_attention as t_fa
+from vitok_torch.ops import quant as t_q
 from vitok_torch.ops.rope import compute_2d_freqs_cis
 
 torch.set_num_threads(1)
@@ -114,6 +118,118 @@ class TestKernelOnCard:
         got = model(batch)["patches"]
         assert t_fa.LAUNCHES - before == cfg.encoder_depth + cfg.decoder_depth
         want = reference(batch)["patches"]
+        valid = batch["patch_mask"]
+        a, r = got[valid].float(), want[valid].float()
+        assert torch.isfinite(a).all()
+        assert ((a - r).norm() / r.norm()).item() <= 2e-2
+
+
+def assert_codes_close(got, want, pad_from=None):
+    (q, s), (q_ref, s_ref) = got, want
+    torch.cuda.synchronize()
+    diff = (q.int() - q_ref.int()).abs()
+    assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3
+    assert ((s - s_ref).abs() / s_ref.abs()).max().item() <= 1e-5
+    if pad_from is not None:
+        assert not q[..., pad_from:].any().item()
+
+
+def _quant_inputs(device, m, c, f, seed=0):
+    """bf16 residual rows, a gain, the padded bf16 fc1 output, and int8
+    activations with a padded int8 fc1 weight, from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    fp = t_q.pad_ffn_dim(f)
+    x = (2 * torch.randn(m, c, generator=gen)).bfloat16()
+    gain = 0.5 + torch.rand(c, generator=gen)
+    hid = torch.zeros(m, 2 * fp)
+    hid[:, :f] = torch.randn(m, f, generator=gen)
+    hid[:, fp:fp + f] = 2 * torch.randn(m, f, generator=gen)
+    hq, hs = t_q.quantize_activation(torch.randn(m, c, generator=gen))
+    w, ws = t_q.quantize_weight(t_q.pad_fc1_weight(0.05 * torch.randn(2 * f, c, generator=gen)))
+    return [t.to(device) for t in (x, gain, hid.bfloat16(), hq, hs, w, ws)]
+
+
+@pytest.mark.cuda
+class TestQuantKernelsOnCard:
+    @pytest.mark.parametrize("m,c", [(40, 1024), (200, 1728)])
+    def test_rmsnorm_quant_matches_plain(self, cuda_device, m, c):
+        x, gain, *_ = _quant_inputs(cuda_device, m, c, 136)
+        before = t_q.LAUNCHES["rmsnorm_quant"]
+        got = t_q.fused_rmsnorm_quant(x.view(2, m // 2, c), gain)
+        assert t_q.LAUNCHES["rmsnorm_quant"] == before + 1
+        assert got[0].shape == (2, m // 2, c) and got[1].shape == (2, m // 2, 1)
+        assert_codes_close(got, t_q.fused_rmsnorm_quant_plain(x.view(2, m // 2, c), gain))
+
+    @pytest.mark.parametrize("m,f", [(40, 2736), (200, 4608)])
+    def test_silu_quant_matches_plain(self, cuda_device, m, f):
+        _, _, hid, *_ = _quant_inputs(cuda_device, m, 128, f)
+        before = t_q.LAUNCHES["silu_quant"]
+        got = t_q.fused_silu_quant(hid)
+        assert t_q.LAUNCHES["silu_quant"] == before + 1
+        assert_codes_close(got, t_q.fused_silu_quant_plain(hid), pad_from=f)
+
+    @pytest.mark.parametrize("m,c,f", [(200, 1024, 2736), (24, 256, 136)])
+    def test_ffn_int8_matches_plain(self, cuda_device, m, c, f):
+        """A ragged last row tile (200 = 128 + 72) and a padded F."""
+        *_, hq, hs, w, ws = _quant_inputs(cuda_device, m, c, f)
+        before = t_q.LAUNCHES["ffn_int8"]
+        got = t_q.fused_ffn_int8(hq, hs, w, ws)
+        assert t_q.LAUNCHES["ffn_int8"] == before + 1
+        assert got[0].shape == (m, t_q.pad_ffn_dim(f)) and got[1].shape == (m, 1)
+        assert_codes_close(got, t_q.fused_ffn_int8_plain(hq, hs, w, ws), pad_from=f)
+
+    def test_kernels_reject_what_they_do_not_take(self, cuda_device):
+        x, gain, hid, hq, hs, w, ws = _quant_inputs(cuda_device, 24, 256, 136)
+        with pytest.raises(TypeError, match="bfloat16"):
+            t_q.fused_rmsnorm_quant(x.float(), gain)
+        with pytest.raises(TypeError, match="bfloat16"):
+            t_q.fused_silu_quant(hid.float())
+        with pytest.raises(ValueError, match="can_fuse_ffn"):
+            t_q.fused_ffn_int8(hq[:20], hs[:20], w, ws)  # 20 rows: not a multiple of 8
+        with pytest.raises(ValueError, match="M > 16"):
+            t_q.int8_matmul_prequant(hq[:8], hs[:8], w, ws, torch.bfloat16)
+
+    @pytest.mark.parametrize("variant,route", [
+        ("w1024_d1_h16-w1024_d1_h16/1x16x8", "ffn_int8"),    # the 350M width
+        ("w1728_d1_h24-w1728_d1_h24/1x16x8", "silu_quant"),  # the G width: C % 128 != 0
+    ])
+    def test_int8_blocks_route_through_the_kernels(self, cuda_device, monkeypatch, variant, route):
+        """An int8 AE on the card: per block one RMSNorm + quantize launch and
+        one launch of the FFN route's kernel (fused attention where head_dim
+        64 allows it), and decoded patches within rel L2 2e-2 of the same
+        model with the quantize kernels swapped for their plain versions."""
+        cfg = t_ae.AEConfig.from_variant(variant)
+        gen = torch.Generator().manual_seed(0)
+        n, grids = 64, [(8, 8), (5, 7)]
+        batch = {
+            "patches": torch.randn(2, n, 768, generator=gen),
+            "patch_mask": torch.zeros(2, n, dtype=torch.bool),
+            "row_idx": torch.zeros(2, n, dtype=torch.int32),
+            "col_idx": torch.zeros(2, n, dtype=torch.int32),
+        }
+        for i, (gr, gc) in enumerate(grids):
+            batch["patch_mask"][i, : gr * gc] = True
+            batch["row_idx"][i, : gr * gc] = torch.arange(gr * gc) // gc
+            batch["col_idx"][i, : gr * gc] = torch.arange(gr * gc) % gc
+        batch = {k: v.to(cuda_device) for k, v in batch.items()}
+        model = t_ae.AE(**dataclasses.asdict(cfg), device=cuda_device)
+        card_gen = torch.Generator(device=cuda_device).manual_seed(1)
+        with torch.no_grad():
+            for blk in [*model.encoder_blocks, *model.decoder_blocks]:
+                blk.layer_scale.gamma.uniform_(0.5, 1.5, generator=card_gen)
+        model.quantize()
+        depth = cfg.encoder_depth + cfg.decoder_depth
+        before = dict(t_q.LAUNCHES)
+        attn_before = t_fa.LAUNCHES
+        got = model(batch)["patches"]
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in t_q.LAUNCHES.items()}
+        other = "silu_quant" if route == "ffn_int8" else "ffn_int8"
+        assert launched == {"rmsnorm_quant": depth, route: depth, other: 0}
+        assert t_fa.LAUNCHES - attn_before == (depth if route == "ffn_int8" else 0)
+        for name in ("fused_rmsnorm_quant", "fused_ffn_int8", "fused_silu_quant"):
+            monkeypatch.setattr(t_q, name, getattr(t_q, name + "_plain"))
+        want = model(batch)["patches"]
         valid = batch["patch_mask"]
         a, r = got[valid].float(), want[valid].float()
         assert torch.isfinite(a).all()

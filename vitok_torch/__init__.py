@@ -1,10 +1,11 @@
 """vitok_torch: ViTok-v2 NaFlex image tokenizer in PyTorch for one NVIDIA H100.
 
-A port of ``vitok_tpu`` (JAX/Pallas), which stays the reference. bf16
-tokenizer inference: ``preprocess`` -> ``AE.encode`` -> ``AE.decode`` ->
-``postprocess``, with the fused QK-norm + RoPE + masked attention in a
-hand-written Hopper kernel. Entry points run on the card unless the caller
-passes ``device="cpu"``.
+A port of ``vitok_tpu`` (JAX/Pallas), which stays the reference. Tokenizer
+inference in bf16, and in int8 after ``AE.quantize()``: ``preprocess`` ->
+``AE.encode`` -> ``AE.decode`` -> ``postprocess``, with the fused QK-norm +
+RoPE + masked attention and the int8 block's RMSNorm + quantize, fused fc1 +
+SwiGLU + requantize and SwiGLU + quantize in hand-written Hopper kernels.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from vitok_torch.models.ae import AE, AEConfig, decode_variant

@@ -16,7 +16,13 @@ the same numbers. RMSNorm gains stay fp32, as the norms multiply in fp32.
 Attention in a block at ``N <= 1024`` tokens goes to the fused Hopper kernel
 (``ops/fused_attention.py``), as the JAX package routes it to its Pallas
 kernel; ``attn_impl="xla"`` asks for the unfused composition instead.
-Training paths (drop path, remat) and int8 (``AE.quantize``) are not ported.
+
+``AE.quantize()`` gives int8 block linears (``Int8Linear``); a quantized
+block then runs the JAX package's int8 block as it is routed on the TPU:
+RMSNorm + quantize in one kernel, the int8 QKV product, the fused attention,
+the int8 out-projection, and the fused int8 fc1 + SwiGLU + requantize kernel
+(or the fc1 product and the SwiGLU + quantize kernel) before the int8 fc2
+product (``ops/quant.py``). Training paths (drop path, remat) are not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vitok_torch.ops import quant as q8
 from vitok_torch.ops.fused_attention import fused_qkv_attention
 from vitok_torch.ops.mlp import round_hidden_dim, swiglu
 from vitok_torch.ops.norms import layer_norm, layer_scale, rms_norm
@@ -208,6 +215,27 @@ class _FFN(nn.Module):
         self.fc2 = nn.Linear(ffn_dim, width, **kw)
 
 
+class Int8Linear(nn.Module):
+    """A quantized block linear: buffers ``weight_int8 [out, in]`` int8 and
+    ``scale [out]`` fp32 (per output channel); no bias, as block linears."""
+
+    def __init__(self, weight_int8: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("weight_int8", weight_int8)
+        self.register_buffer("scale", scale)
+
+    @property
+    def out_features(self) -> int:
+        return self.weight_int8.shape[0]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return q8.int8_linear(x, self.weight_int8, self.scale)
+
+
+def _prequant(xq, a_scale, lin: Int8Linear, dtype) -> torch.Tensor:
+    return q8.int8_matmul_prequant(xq, a_scale, lin.weight_int8, lin.scale, dtype)
+
+
 class Block(nn.Module):
     """Parallel block: ``x + ls(attn(norm(x)) + mlp(norm(x)))``."""
 
@@ -229,8 +257,12 @@ class Block(nn.Module):
         sliding_window: Optional[int],
         attn_impl: str,
     ) -> torch.Tensor:
-        h = rms_norm(x, self.norm1.weight)
-        qkv = F.linear(h, self.attn.qkv_proj.weight)
+        int8 = isinstance(self.attn.qkv_proj, Int8Linear)
+        if int8:
+            qkv, hid = self._int8_qkv_fc1(x)
+        else:
+            h = rms_norm(x, self.norm1.weight)
+            qkv = F.linear(h, self.attn.qkv_proj.weight)
         # At inference "fused" asks for the kernel where its gate opens and
         # degrades to auto routing elsewhere, as in the JAX package.
         attn = fused_qkv_attention(
@@ -238,12 +270,43 @@ class Block(nn.Module):
             num_heads=self.heads, sliding_window=sliding_window,
             impl="auto" if attn_impl == "fused" else attn_impl,
         )
-        out = F.linear(attn, self.attn.out_proj.weight) + swiglu(
-            h, self.ffn.fc1.weight, self.ffn.fc2.weight
-        )
+        if int8:
+            out = self.attn.out_proj(attn) + self._int8_mlp(hid, x)
+        else:
+            out = F.linear(attn, self.attn.out_proj.weight) + swiglu(
+                h, self.ffn.fc1.weight, self.ffn.fc2.weight
+            )
         if self.layer_scale is not None:
             out = layer_scale(out, self.layer_scale.gamma)
         return x + out
+
+    def _int8_qkv_fc1(self, x: torch.Tensor):
+        """qkv and fc1 read one int8 copy of the normed input (``_block_body``'s
+        shared-int8 branch). Returns the QKV output and either the fused FFN's
+        ``(tq, t_scale)`` or the compute-dtype fc1 output."""
+        b, n, c = x.shape
+        if q8.can_fuse_silu_quant(n):
+            hq, h_scale = q8.fused_rmsnorm_quant(x, self.norm1.weight)
+        else:
+            hq, h_scale = q8.quantize_activation(rms_norm(x, self.norm1.weight))
+        qkv = _prequant(hq, h_scale, self.attn.qkv_proj, x.dtype)
+        fc1 = self.ffn.fc1
+        if q8.can_fuse_ffn(b * n, c, fc1.out_features):
+            hid = q8.fused_ffn_int8(hq.reshape(b * n, c), h_scale.reshape(b * n, 1),
+                                    fc1.weight_int8, fc1.scale)
+        else:
+            hid = _prequant(hq, h_scale, fc1, x.dtype)
+        return qkv, hid
+
+    def _int8_mlp(self, hid, x: torch.Tensor) -> torch.Tensor:
+        """SwiGLU and the int8 fc2 product on what :meth:`_int8_qkv_fc1` gave."""
+        fc2 = self.ffn.fc2
+        if isinstance(hid, tuple):  # already gated and quantized
+            return _prequant(*hid, fc2, x.dtype).reshape(x.shape)
+        if q8.can_fuse_silu_quant(x.shape[1]):
+            return _prequant(*q8.fused_silu_quant(hid), fc2, x.dtype)
+        v, g = hid.chunk(2, -1)
+        return fc2(F.silu(g) * v)
 
 
 # Metadata carried through encode/decode outputs, as in the JAX package.
@@ -276,8 +339,8 @@ class AE(nn.Module):
     ``AE(**decode_variant("Ld4-Ld24/1x16x64"))`` as in the JAX package
     (unknown kwargs are dropped). Weights are random from ``seed`` unless a
     ``state_dict`` (this module's layout, e.g. from
-    ``utils.params_io.from_jax_params``) is given. Runs on the card unless
-    ``device="cpu"``.
+    ``utils.params_io.from_jax_params``; int8 block weights make an int8
+    model) is given. Runs on the card unless ``device="cpu"``.
     """
 
     def __init__(
@@ -313,6 +376,8 @@ class AE(nn.Module):
         if state_dict is None:
             self._init_weights(seed)
         else:
+            if q8.is_quantized(state_dict):
+                self.quantize()  # the int8 layout; the state dict overwrites it
             self.load_state_dict(state_dict)
 
     @torch.no_grad()
@@ -327,6 +392,24 @@ class AE(nn.Module):
                     if p is not None:
                         u = torch.rand(p.shape, generator=gen, device=self.device)
                         p.copy_((u * 2 - 1) * bound)
+
+    @torch.no_grad()
+    def quantize(self) -> "AE":
+        """Int8 block linears (``qkv_proj``, ``out_proj``, ``fc1``, ``fc2``),
+        per-output-channel scales, fc1/fc2 padded to 128-aligned SwiGLU halves
+        first, as ``quantize_block_params`` does; embeds and heads keep the
+        compute dtype. Converts layer by layer on the model's device and drops
+        each full-precision weight as it goes. Idempotent; returns ``self``.
+        """
+        for blk in [*getattr(self, "encoder_blocks", ()), *getattr(self, "decoder_blocks", ())]:
+            for path in q8.QUANT_LINEARS:
+                parent_name, name = path.split(".")
+                parent = getattr(blk, parent_name)
+                lin = getattr(parent, name)
+                if not isinstance(lin, Int8Linear):
+                    setattr(parent, name, Int8Linear(*q8.quantize_block_linear(name, lin.weight)))
+                del lin  # the full-precision weight goes with its module
+        return self
 
     def _blocks(self, x, blocks, patch_dict, head_dim):
         cfg = self.cfg
@@ -368,4 +451,4 @@ class AE(nn.Module):
         return out
 
 
-__all__ = ["AE", "AEConfig", "Block", "decode_variant"]
+__all__ = ["AE", "AEConfig", "Block", "Int8Linear", "decode_variant"]

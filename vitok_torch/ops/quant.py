@@ -1,0 +1,526 @@
+"""Int8 inference: dynamic per-token int8 activations x int8 weights.
+
+Port of ``vitok_tpu/ops/quant.py``, the JAX package's stand-in for the
+reference's torchao ``quantize()``:
+
+* weights: per-output-channel symmetric int8 (absmax / 127, floor 1e-12);
+* activations: per-token symmetric int8, computed on the fly;
+* products accumulate in int32 and rescale in fp32.
+
+Weights keep ``nn.Linear``'s ``[out, in]`` layout (the JAX package stores
+``[in, out]``): ``weight_int8 [out, in]`` int8 and ``scale [out]`` fp32, so
+``torch._int_mm(xq, weight_int8.t())`` is the TN product cuBLASLt's int8
+path takes. That product (``int8_matmul_prequant``) is an XLA op outside any
+Pallas kernel in the JAX package, and here a library call.
+
+Three block kernels are hand-written for Hopper (``vitok_torch/csrc``), each
+with its plain PyTorch version beside it:
+
+* :func:`fused_rmsnorm_quant` (``rmsnorm_quant.cu``, replaces
+  ``_rmsnorm_quant_kernel``): fp32 RMSNorm x gain, then per-token int8;
+* :func:`fused_ffn_int8` (``ffn_int8.cu``, replaces ``_ffn_int8_kernel``):
+  the int8 fc1 product over both SwiGLU halves, dequantize, f32
+  ``silu(g) * v``, exact per-token requantization;
+* :func:`fused_silu_quant` (``silu_quant.cu``, replaces
+  ``_silu_quant_kernel``): f32 ``silu(g) * v`` over the bf16 fc1 output,
+  then per-token int8.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises, and adds one to its entry of ``LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from vitok_torch.ops import _build
+
+# Block linears that are quantized (embeds and heads stay in the compute
+# dtype), as module paths inside a block.
+QUANT_LINEARS = ("attn.qkv_proj", "attn.out_proj", "ffn.fc1", "ffn.fc2")
+_BLOCK_STACKS = ("encoder_blocks", "decoder_blocks")
+_SCALE_FLOOR = 1e-12
+
+# Kernel launches since each count was last set to 0.
+LAUNCHES: Dict[str, int] = {"rmsnorm_quant": 0, "ffn_int8": 0, "silu_quant": 0}
+
+
+# ---------------------------------------------------------------------------
+# The recipe
+# ---------------------------------------------------------------------------
+
+
+def _div(t: torch.Tensor, d: float) -> torch.Tensor:
+    """``t / d`` as an IEEE division, as the JAX package and the kernels
+    divide: PyTorch's CUDA kernels multiply by the reciprocal of a Python
+    number divisor, and ``1 / 127`` is not exact."""
+    return t / torch.full((), d, dtype=t.dtype, device=t.device)
+
+
+def _absmax_scale(t: torch.Tensor) -> torch.Tensor:
+    """``max(absmax(t) / 127, 1e-12)`` over the last axis, kept."""
+    return torch.clamp_min(_div(t.abs().amax(-1, keepdim=True), 127.0), _SCALE_FLOOR)
+
+
+def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of ``[..., out, in]``.
+
+    Returns ``(weight_int8 [..., out, in], scale [..., out] fp32)``: absmax
+    over ``in`` / 127, floored at 1e-12, ``round(w / scale)`` (half to even)
+    clipped to +-127. The same codes and scales as the JAX package's
+    ``quantize_weight`` on the transposed kernel.
+    """
+    w32 = weight.float()
+    scale = _absmax_scale(w32)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return q, scale.squeeze(-1)
+
+
+def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token dynamic symmetric int8: ``x -> (x_int8, scale [..., 1])``,
+    dividing by the scale."""
+    x32 = x.float()
+    scale = _absmax_scale(x32)
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
+
+
+def _int_mm(x2: torch.Tensor, w_int8: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``x2 [M, K] @ w_int8 [N, K]^T``.
+
+    ``torch._int_mm`` on either device: cuBLASLt's int8 path on the card
+    (which takes M > 16 and K, N multiples of 8), integer arithmetic on
+    the CPU.
+    """
+    m, k = x2.shape
+    n = w_int8.shape[0]
+    if w_int8.shape[1] != k:
+        raise ValueError(f"int8 product: x is [{m}, {k}] but the weight is {tuple(w_int8.shape)}")
+    if x2.is_cuda and (m <= 16 or k % 8 or n % 8):
+        raise ValueError(
+            f"torch._int_mm on CUDA takes M > 16 and K, N multiples of 8; got M={m}, K={k}, N={n}"
+        )
+    if not x2.is_cuda and x2.device.type != "cpu":
+        raise RuntimeError(f"no int8 product for device {x2.device}")
+    return torch._int_mm(x2.contiguous(), w_int8.t())
+
+
+def int8_matmul_prequant(
+    xq: torch.Tensor,
+    a_scale: torch.Tensor,
+    w_int8: torch.Tensor,
+    w_scale: torch.Tensor,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """int8 x int8 product of pre-quantized activations, int32 accumulation,
+    then ``(acc * a_scale) * w_scale`` in fp32, cast to ``out_dtype``.
+
+    ``xq [..., K]`` int8, ``a_scale [..., 1]``; ``w_int8 [N, K]``,
+    ``w_scale [N]``. Returns ``[..., N]``.
+    """
+    k = xq.shape[-1]
+    acc = _int_mm(xq.reshape(-1, k), w_int8)
+    out = acc.float() * a_scale.reshape(-1, 1).float() * w_scale
+    return out.to(out_dtype).reshape(*xq.shape[:-1], w_int8.shape[0])
+
+
+def int8_linear(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """Dynamic per-token int8 activations x int8 weights; ``x.dtype`` out."""
+    xq, a_scale = quantize_activation(x)
+    return int8_matmul_prequant(xq, a_scale, w_int8, w_scale, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Padded SwiGLU layout
+# ---------------------------------------------------------------------------
+
+
+def pad_ffn_dim(f: int) -> int:
+    """Next multiple of 128 (``8208 -> 8320``)."""
+    return ((f + 127) // 128) * 128
+
+
+def pad_fc1_weight(weight: torch.Tensor) -> torch.Tensor:
+    """Zero-pad both SwiGLU halves of an fc1 weight ``[..., 2F, C]`` to
+    ``[..., 2F', C]`` (``F' = pad_ffn_dim(F)``): rows ``[v | 0 | g | 0]``.
+
+    The JAX package's ``pad_fc1_kernel`` in this layout. Exact: a pad row
+    gives ``silu(0) * 0 = 0``, and splitting the hidden at ``F'`` keeps v
+    and g paired.
+    """
+    f = weight.shape[-2] // 2
+    fp = pad_ffn_dim(f)
+    if fp == f:
+        return weight
+    pad = (0, 0, 0, fp - f)
+    return torch.cat([F.pad(weight[..., :f, :], pad), F.pad(weight[..., f:, :], pad)], dim=-2)
+
+
+def pad_fc2_weight(weight: torch.Tensor) -> torch.Tensor:
+    """Zero-pad fc2's input columns ``[..., C, F] -> [..., C, F']`` to match
+    :func:`pad_fc1_weight` (``pad_fc2_kernel`` in this layout)."""
+    f = weight.shape[-1]
+    fp = pad_ffn_dim(f)
+    return weight if fp == f else F.pad(weight, (0, fp - f))
+
+
+def quantize_block_linear(name: str, weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_weight` of a block linear's weight, fc1 and fc2
+    (``name``) padded to 128-aligned SwiGLU halves first, as
+    ``quantize_block_params`` does."""
+    if name == "fc1":
+        weight = pad_fc1_weight(weight)
+    elif name == "fc2":
+        weight = pad_fc2_weight(weight)
+    return quantize_weight(weight)
+
+
+# ---------------------------------------------------------------------------
+# Gates: the JAX package's shape conditions, without its TPU backend check
+# ---------------------------------------------------------------------------
+
+
+def can_fuse_ffn(m: int, c: int, f2: int) -> bool:
+    """Whether ``M`` token rows of width ``c`` with a padded fc1 of ``f2``
+    outputs take :func:`fused_ffn_int8` (``_ffn_shapes_fusable``)."""
+    fp = f2 // 2
+    return f2 % 256 == 0 and fp % 128 == 0 and c % 128 == 0 and m % 8 == 0
+
+
+def can_fuse_silu_quant(n: int) -> bool:
+    """Whether a block of ``n`` tokens takes the one-pass norm/SwiGLU
+    quantize kernels (``can_fuse_silu_quant``'s shape condition)."""
+    return n % 8 == 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel #9: RMSNorm + quantize
+# ---------------------------------------------------------------------------
+
+
+def _silu(g: torch.Tensor) -> torch.Tensor:
+    """``g * sigmoid(g)``, ``jax.nn.silu``'s definition; the kernels compute
+    ``sigmoid`` as PyTorch's CUDA kernel does, ``1 / (1 + exp(-g))`` in IEEE
+    fp32 ops, so kernel and plain version give the same bits on the card."""
+    return g * torch.sigmoid(g)
+
+
+def fused_rmsnorm_quant_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """``_rmsnorm_quant_kernel`` in plain PyTorch: ``var = mean(x^2)``,
+    ``y = x * rsqrt(var + eps) * gain`` in fp32, per-token absmax scale,
+    then ``round(y / scale)``. The fp32 normed value is quantized directly
+    (no round trip through the compute dtype).
+
+    The sum of squares is taken in fp64, which holds it exactly for these
+    inputs, and rounded once to fp32; rsqrt is an IEEE square root and
+    division. The kernel does the same, so both give the same bits: one
+    code in a million off by a step is enough to move a 28-block int8
+    model's output by a few percent (PERF.md).
+    """
+    x32 = x.float()
+    var = _div(x32.double().square().sum(-1, keepdim=True), x.shape[-1]).float()
+    y = x32 * torch.reciprocal(torch.sqrt(var + eps)) * scale.float()
+    a_scale = _absmax_scale(y)
+    q = torch.clamp(torch.round(y / a_scale), -127, 127).to(torch.int8)
+    return q, a_scale
+
+
+def fused_rmsnorm_quant(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """``quantize_activation(rms_norm(x, scale))`` in one pass over x.
+
+    Args:
+        x: ``[..., C]`` residual stream (bf16 on the card).
+        scale: ``[C]`` norm gain.
+
+    Returns:
+        ``(q [..., C] int8, a_scale [..., 1] fp32)``.
+    """
+    if not x.is_cuda:
+        _require_cpu(x, "rmsnorm_quant")
+        return fused_rmsnorm_quant_plain(x, scale, eps)
+    c = x.shape[-1]
+    _require_bf16_rows(x, "rmsnorm_quant")
+    if c % 8 or c > _MAX_ROW_CHUNKS * 8 * _NORM_THREADS:
+        raise ValueError(f"rmsnorm_quant takes C a multiple of 8 up to "
+                         f"{_MAX_ROW_CHUNKS * 8 * _NORM_THREADS}, got {c}")
+    gain = _aligned(_on(scale, x.device, (c,), "scale").float().contiguous())
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    a_scale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    rows = x.numel() // c
+    lib = _lib("rmsnorm_quant")
+    with torch.cuda.device(x.device):
+        err = lib.vitok_rmsnorm_quant_bf16(
+            x.data_ptr(), gain.data_ptr(), q.data_ptr(), a_scale.data_ptr(),
+            rows, c, float(eps), _stream(x),
+        )
+    _build.check(lib, err, "rmsnorm_quant launch")
+    LAUNCHES["rmsnorm_quant"] += 1
+    return q, a_scale
+
+
+# ---------------------------------------------------------------------------
+# Kernel #7: int8 fc1 + SwiGLU + requantize
+# ---------------------------------------------------------------------------
+
+
+def fused_ffn_int8_plain(
+    hq: torch.Tensor, h_scale: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor
+):
+    """``_ffn_int8_kernel`` in plain PyTorch.
+
+    Exact int32 accumulation; ``v = (acc_v * hs) * sv`` and the same for g;
+    ``t = silu(g) * v`` in f32; the row absmax over the f32 ``t``; then ``t``
+    staged as bf16 and quantized as ``round(bf16(t) * rcp)`` with
+    ``rcp = 1 / scale``: a multiplication by the reciprocal, where
+    :func:`quantize_activation` and :func:`fused_silu_quant` divide. Both are
+    kept as the JAX package has them. ``silu(g) = g * sigmoid(g)``.
+    """
+    fp = w_int8.shape[0] // 2
+    acc = _int_mm(hq, w_int8).float()
+    hs = h_scale.reshape(-1, 1).float()
+    v = acc[:, :fp] * hs * w_scale[:fp]
+    g = acc[:, fp:] * hs * w_scale[fp:]
+    t = _silu(g) * v
+    t_scale = _absmax_scale(t)
+    rcp = torch.reciprocal(t_scale)
+    tq = torch.clamp(torch.round(t.to(torch.bfloat16).float() * rcp), -127, 127).to(torch.int8)
+    return tq, t_scale
+
+
+def fused_ffn_int8(
+    hq: torch.Tensor, h_scale: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor
+):
+    """Fused int8 fc1 product + SwiGLU + per-token int8 requantization.
+
+    Replaces ``int8_matmul_prequant(hq, h_scale, fc1) -> fused_silu_quant``
+    without the ``[M, 2F']`` bf16 hidden. The fc1 weight must be in the
+    padded layout (:func:`pad_fc1_weight`), and the shapes must pass
+    :func:`can_fuse_ffn`.
+
+    Args:
+        hq: ``[M, C]`` int8 activations; h_scale: ``[M, 1]`` fp32.
+        w_int8: ``[2F', C]`` int8 (v rows, then g rows); w_scale: ``[2F']``.
+
+    Returns:
+        ``(tq [M, F'] int8, t_scale [M, 1] fp32)`` for fc2's
+        :func:`int8_matmul_prequant`.
+    """
+    if not hq.is_cuda:
+        _require_cpu(hq, "ffn_int8")
+        return fused_ffn_int8_plain(hq, h_scale, w_int8, w_scale)
+    if hq.dim() != 2 or w_int8.dim() != 2 or hq.dtype != torch.int8 or w_int8.dtype != torch.int8:
+        raise ValueError("ffn_int8 takes int8 hq [M, C] and int8 w_int8 [2F', C]")
+    m, c = hq.shape
+    f2 = w_int8.shape[0]
+    if w_int8.shape[1] != c or not can_fuse_ffn(m, c, f2):
+        raise ValueError(f"ffn_int8 does not take M={m}, C={c}, w_int8 {tuple(w_int8.shape)} "
+                         "(can_fuse_ffn: C and F' multiples of 128, M of 8)")
+    dev = hq.device
+    hq = hq.contiguous()
+    w_int8 = _on(w_int8, dev, (f2, c), "w_int8").contiguous()
+    if hq.data_ptr() % 16 or w_int8.data_ptr() % 16:
+        raise ValueError("ffn_int8: hq and w_int8 must be 16-byte aligned")
+    hs = _on(h_scale.reshape(-1), dev, (m,), "h_scale").float().contiguous()
+    ws = _aligned(_on(w_scale, dev, (f2,), "w_scale").float().contiguous())
+    fp = f2 // 2
+    t = torch.empty((m, fp), dtype=torch.bfloat16, device=dev)  # staged silu(g) * v
+    amax = torch.zeros((m,), dtype=torch.int32, device=dev)     # row absmax, float bits
+    tq = torch.empty((m, fp), dtype=torch.int8, device=dev)
+    t_scale = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    lib = _lib("ffn_int8")
+    with torch.cuda.device(dev):
+        err = lib.vitok_ffn_int8(
+            hq.data_ptr(), hs.data_ptr(), w_int8.data_ptr(), ws.data_ptr(), t.data_ptr(),
+            amax.data_ptr(), tq.data_ptr(), t_scale.data_ptr(), m, c, fp, _stream(hq),
+        )
+    _build.check(lib, err, "ffn_int8 launch")
+    LAUNCHES["ffn_int8"] += 1
+    return tq, t_scale
+
+
+# ---------------------------------------------------------------------------
+# Kernel #8: SwiGLU + quantize
+# ---------------------------------------------------------------------------
+
+
+def fused_silu_quant_plain(hid: torch.Tensor):
+    """``_silu_quant_kernel`` in plain PyTorch: ``t = silu(g) * v`` in f32
+    (``silu(g) = g * sigmoid(g)``), absmax over the f32 ``t``,
+    ``round(t / scale)`` (division)."""
+    fp = hid.shape[-1] // 2
+    v, g = hid[..., :fp].float(), hid[..., fp:].float()
+    t = _silu(g) * v
+    scale = _absmax_scale(t)
+    return torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8), scale
+
+
+def fused_silu_quant(hid: torch.Tensor):
+    """``quantize_activation(silu(g) * v)`` in one pass over the fc1 output.
+
+    Args:
+        hid: ``[..., 2F']`` (v in the first F' channels, g in the rest).
+
+    Returns:
+        ``(q [..., F'] int8, scale [..., 1] fp32)``.
+    """
+    if not hid.is_cuda:
+        _require_cpu(hid, "silu_quant")
+        return fused_silu_quant_plain(hid)
+    _require_bf16_rows(hid, "silu_quant")
+    f2 = hid.shape[-1]
+    fp = f2 // 2
+    if f2 % 16 or fp > _MAX_ROW_CHUNKS * 8 * _SILU_THREADS:
+        raise ValueError(f"silu_quant takes 2F' a multiple of 16 with F' up to "
+                         f"{_MAX_ROW_CHUNKS * 8 * _SILU_THREADS}, got 2F'={f2}")
+    q = torch.empty((*hid.shape[:-1], fp), dtype=torch.int8, device=hid.device)
+    scale = torch.empty((*hid.shape[:-1], 1), dtype=torch.float32, device=hid.device)
+    lib = _lib("silu_quant")
+    with torch.cuda.device(hid.device):
+        err = lib.vitok_silu_quant_bf16(
+            hid.data_ptr(), q.data_ptr(), scale.data_ptr(), hid.numel() // f2, fp, _stream(hid)
+        )
+    _build.check(lib, err, "silu_quant launch")
+    LAUNCHES["silu_quant"] += 1
+    return q, scale
+
+
+# ---------------------------------------------------------------------------
+# Launch helpers
+# ---------------------------------------------------------------------------
+
+# Row kernels: threads per row and the most 8-element chunks a thread holds
+# (the sources' kNormThreads / kSiluThreads and their largest instance).
+_NORM_THREADS = 128
+_SILU_THREADS = 256
+_MAX_ROW_CHUNKS = 8
+
+_ARGTYPES = {  # C entry point: (library, argument types)
+    "vitok_rmsnorm_quant_bf16": ("rmsnorm_quant", "ppppiifp"),
+    "vitok_ffn_int8": ("ffn_int8", "ppppppppiiip"),
+    "vitok_silu_quant_bf16": ("silu_quant", "pppiip"),
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    for fn_name, (lib_name, sig) in _ARGTYPES.items():
+        if lib_name == name:
+            fn = getattr(lib, fn_name)
+            if fn.argtypes is None:
+                fn.argtypes = [_CTYPES[ch] for ch in sig]
+                fn.restype = ctypes.c_int
+    return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cpu(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cpu":
+        raise RuntimeError(f"no {what} kernel for device {t.device}")
+
+
+def _require_bf16_rows(x: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the {what} CUDA kernel takes bfloat16, got {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: input must be contiguous and 16-byte aligned")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous parameter vector the kernels read 8 or 16 bytes at a
+    time, copied if a view left it unaligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _on(t: torch.Tensor, dev: torch.device, shape, name: str) -> torch.Tensor:
+    if t.device != dev or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)} on {dev}, got {tuple(t.shape)} on {t.device}")
+    return t
+
+
+# ---------------------------------------------------------------------------
+# State-dict helpers (gates for the quality tests, and the negative control)
+# ---------------------------------------------------------------------------
+
+
+def _is_block_linear_weight(key: str) -> bool:
+    parts = key.split(".")
+    return (
+        len(parts) == 5 and parts[0] in _BLOCK_STACKS and parts[-1] == "weight"
+        and ".".join(parts[2:4]) in QUANT_LINEARS
+    )
+
+
+def gate_sensitive_params(
+    state: Mapping[str, torch.Tensor], seed: int = 0, lo: float = 0.5, hi: float = 1.5
+) -> Dict[str, torch.Tensor]:
+    """Every ``layer_scale.gamma`` replaced by U(lo, hi) values (numpy,
+    ``seed``); every other entry shared, not copied.
+
+    The reference LayerScale init (1e-4) scales every quantized block's
+    contribution down by four orders of magnitude, which makes an
+    int8-vs-full-precision quality gate near-vacuous: gates run at the O(1)
+    gains trained checkpoints reach.
+    """
+    rng = np.random.default_rng(seed)
+    out = dict(state)
+    for key in sorted(state):
+        if key.endswith("layer_scale.gamma"):
+            g = state[key]
+            draw = torch.from_numpy(rng.uniform(lo, hi, tuple(g.shape)).astype(np.float32))
+            out[key] = draw.to(dtype=g.dtype, device=g.device)
+    return out
+
+
+def degrade_block_weights(state: Mapping[str, torch.Tensor], bits: int = 4) -> Dict[str, torch.Tensor]:
+    """Negative control for quality gates: every block linear weight snapped
+    to a symmetric per-output-channel ``bits``-bit grid, kept in its dtype
+    (the model still runs its full-precision path). At 4 bits the weight
+    noise is about 8x the int8 level: a gate that does not fail on it is
+    vacuous."""
+    qmax = float(2 ** (bits - 1) - 1)
+    out = dict(state)
+    for key, w in state.items():
+        if _is_block_linear_weight(key):
+            w32 = w.float()
+            scale = torch.clamp_min(w32.abs().amax(-1, keepdim=True) / qmax, _SCALE_FLOOR)
+            out[key] = (torch.round(w32 / scale) * scale).to(w.dtype)
+    return out
+
+
+def is_quantized(state_or_module) -> bool:
+    """Whether a state dict (or a module's) holds int8 block weights."""
+    state = state_or_module
+    if isinstance(state_or_module, torch.nn.Module):
+        state = state_or_module.state_dict()
+    return any(k.endswith(".weight_int8") for k in state)
+
+
+def quantize_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's ``quantize_block_params``: every block linear ``weight``
+    (fc1/fc2 padded first) becomes ``weight_int8`` + ``scale``; every other
+    entry, and entries already quantized, are kept. Idempotent."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, w in state.items():
+        if not _is_block_linear_weight(key):
+            out[key] = w
+            continue
+        prefix = key[: -len("weight")]
+        name = prefix.split(".")[-2]
+        out[prefix + "weight_int8"], out[prefix + "scale"] = quantize_block_linear(name, w)
+    return out
+
+
+__all__ = [
+    "quantize_weight",
+    "int8_linear",
+    "quantize_state_dict",
+    "is_quantized",
+]

@@ -5,7 +5,7 @@ Two sources:
 * the JAX package's stacked params pytree (numpy arrays, depth leading,
   Linear kernels ``[in, out]``, q/k channels already in rotate-half order):
   :func:`from_jax_params` unstacks and transposes to ``nn.Linear``'s
-  ``[out, in]``;
+  ``[out, in]``; a quantized pytree's int8 block kernels stay int8;
 * released flat checkpoints (``encoder_blocks.N.attn.qkv_proj.weight`` ...,
   q/k channels in the interleaved RoPE order): :func:`released_state_to_module_state`
   permutes the q/k projection rows and QK-norm gains to rotate-half order,
@@ -34,16 +34,31 @@ _BLOCK_ENTRIES = [
     ("ffn.fc2.weight", ("ffn", "fc2", "kernel"), True),
     ("layer_scale.gamma", ("layer_scale", "gamma"), False),
 ]
+# A quantized block linear (``quantize_block_params``): ``kernel_int8
+# [depth, in, out]`` becomes ``weight_int8 [out, in]`` (int8), ``scale
+# [depth, out]`` the fp32 ``scale``.
+_INT8_ENTRIES = [
+    (suffix[: -len("weight")], path[:-1]) for suffix, path, transpose in _BLOCK_ENTRIES if transpose
+]
 _TOP_LINEAR = ("patch_embed", "to_code", "decoder_embed", "to_pixels")
 _STACKS = ("encoder_blocks", "decoder_blocks")
 
 
-def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))  # a writable, contiguous copy
+def _tensor(a, dtype=np.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype))  # a writable, contiguous copy
+
+
+def _node(tree, path):
+    for p in path:
+        tree = tree.get(p) if isinstance(tree, Mapping) else None
+        if tree is None:
+            return None
+    return tree
 
 
 def from_jax_params(params: Mapping[str, Any], cfg=None) -> Dict[str, torch.Tensor]:
-    """JAX params pytree (numpy leaves) -> ``AE`` state dict (fp32 CPU tensors).
+    """JAX params pytree (numpy leaves) -> ``AE`` state dict (CPU tensors:
+    fp32, and int8 for the block kernels of a quantized pytree).
 
     ``cfg`` (an ``AEConfig``), when given, checks the stacked depths.
     """
@@ -59,17 +74,22 @@ def from_jax_params(params: Mapping[str, Any], cfg=None) -> Dict[str, torch.Tens
         stack = params[stack_name]
         depth = None
         for suffix, path, transpose in _BLOCK_ENTRIES:
-            node = stack
-            for p in path:
-                node = node.get(p) if isinstance(node, Mapping) else None
-                if node is None:
-                    break
+            node = _node(stack, path)
             if node is None:
-                continue  # e.g. no layer_scale
+                continue  # e.g. no layer_scale, or an int8 linear
             arr = np.asarray(node)
             depth = arr.shape[0]
             for i in range(depth):
                 state[f"{stack_name}.{i}.{suffix}"] = _tensor(arr[i].T if transpose else arr[i])
+        for prefix, path in _INT8_ENTRIES:
+            node = _node(stack, path)
+            if node is None or "kernel_int8" not in node:
+                continue
+            q, scale = np.asarray(node["kernel_int8"]), np.asarray(node["scale"])
+            depth = q.shape[0]
+            for i in range(depth):
+                state[f"{stack_name}.{i}.{prefix}weight_int8"] = _tensor(q[i].T, np.int8)
+                state[f"{stack_name}.{i}.{prefix}scale"] = _tensor(scale[i])
         if cfg is not None and depth is not None:
             expected = cfg.encoder_depth if stack_name == "encoder_blocks" else cfg.decoder_depth
             if depth != expected:
