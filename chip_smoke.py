@@ -7,7 +7,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    every CUDA kernel of the main path from ``vitok_torch/csrc`` with ``nvcc``
    (one process per source, all at once);
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes, at the 5B width and at a ragged row count, and times
+   shapes its path gives it, at the 5B width and at a ragged size, and times
    the kernel, the plain version and, where there is one, a PyTorch library
    call for the same function (for the fused FFN: ``torch._int_mm`` on its
    fc1 product alone);
@@ -21,7 +21,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    model on the plain path (unfused attention for bf16, the quantize
    kernels' plain versions for int8), is timed, and has one step profiled
    (device time by kernel group, the device's busy share);
-4. prints a JSON line describing each kernel, the card's name and power
+4. serves an ordered stream of twelve mixed-size images through
+   ``ServingPipeline`` over the default buckets (64 to 4096 tokens) with the
+   bf16 350M model: every image back in order at its size, both attention
+   kernels launched;
+5. drives the high-resolution path: 350M with a sliding window of 1024 at
+   1024p (batch 2) and 2048p (batch 1), bf16 and int8, where every block's
+   attention takes the flash kernel; bf16 against the unfused composition
+   at 1024p and against the flash kernel's plain version at 2048p, int8
+   against its plain quantize kernels; then both once at 4096p;
+6. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -313,6 +322,112 @@ def quant_kernel_phase(device) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Flash attention kernel (#4)
+# ---------------------------------------------------------------------------
+
+FLASH_SW = 1024  # the high-resolution runs' sliding window
+FLASH_SHAPES = (  # (label, B, N, H, D, cases)
+    ("350M@1024p", 2, 4096, 16, 64, ("none", "tail", "sw1024", "tail+sw1024")),
+    ("350M@2048p", 1, 16384, 16, 64, ("sw1024", "tail+sw1024")),
+    ("5B width", 1, 4096, 24, 128, ("none", "tail+sw1024")),
+    ("ragged", 3, 2100, 16, 64, ("tail", "tail+sw1024")),  # sample 2 all padding
+)
+# Valid-row limits, about four and six times the worst readings over every
+# shape below on an H100 (max 1.95e-3, mean 3.3e-5): a typical output value
+# is about 0.03 here, so #1's limits would hide a window one key too wide.
+FLASH_MAX_ABS = 8e-3
+FLASH_MEAN_ABS = 2e-4
+LSE_ATOL = 1e-3  # fp32 row sums in another order, exp2 against exp
+
+
+def _flash_inputs(gen, b, n, h, d, masked, device):
+    """bf16 q, k, v as views of one ``[B, N, 3, H, D]`` tensor (v strided as
+    the model hands it over), and the tail-suffix valid count per sample: all
+    N, or fewer per sample, and none in the third sample of three."""
+    import torch
+
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device=device).to(torch.bfloat16)
+    valid = [n] * b
+    mask = None
+    if masked:
+        valid = [n - (i * n) // (b + 2) - (n // 4 if b == 1 else 0) for i in range(b)]
+        if b >= 3:
+            valid[2] = 0
+        mask = torch.arange(n, device=device)[None, :] < torch.tensor(valid, device=device)[:, None]
+    return (*qkv.unbind(2), mask, valid)
+
+
+def _flash_pairs(valid, n, sw) -> int:
+    """(query, key) pairs the function needs on this data: each valid query
+    row (the first ``valid`` of its sample) times the valid keys inside its
+    window. Padded rows and rows with no live key come out 0 and need none."""
+    total = 0
+    for vb in valid:
+        rows = np.arange(vb)
+        if sw is None:
+            total += vb * vb
+        else:
+            total += int(np.clip(np.minimum(vb, rows + sw + 1) - np.maximum(0, rows - sw), 0, None).sum())
+    return total
+
+
+def flash_kernel_phase(device) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops.attention import make_attention_mask
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    rows, worst = [], 0.0
+    log("kernel phase: flash_attention (CUDA) vs flash_attention_plain, bf16")
+    log(f"{'shape':12s} {'B':>2s} {'N':>6s} {'H':>3s} {'D':>4s} {'case':12s} {'max_abs':>9s} "
+        f"{'mean_abs':>9s} {'lse_err':>9s} {'ms':>8s} {'plain_ms':>9s} {'sdpa_ms':>8s} {'bound_ms':>9s}")
+    for label, b, n, h, d, cases in FLASH_SHAPES:
+        for case in cases:
+            q, k, v, mask, valid = _flash_inputs(gen, b, n, h, d, "tail" in case, device)
+            sw = FLASH_SW if "sw" in case else None
+            got, lse = fl.flash_attention(q, k, v, mask, sw, return_lse=True)
+            want, want_lse = fl.flash_attention_plain(q, k, v, mask, sw, return_lse=True)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if mask is not None:
+                if got[~mask].any() or want[~mask].any():
+                    raise AssertionError(f"flash {label} {case}: padded rows are not exactly 0")
+                err = err[mask]
+            live = want_lse < 1e29
+            lse_err = (lse[live] - want_lse[live]).abs().max().item() if live.any() else 0.0
+            dead_ok = torch.equal(lse < 1e29, live) and bool((lse[~live] == 1e30).all())
+            max_abs, mean_abs = err.max().item(), err.mean().item()
+            if not (max_abs <= FLASH_MAX_ABS and mean_abs <= FLASH_MEAN_ABS
+                    and lse_err <= LSE_ATOL and dead_ok):
+                raise AssertionError(
+                    f"flash kernel disagrees with its plain version at {label} B={b} N={n} H={h} "
+                    f"D={d} {case}: valid rows max {max_abs:.3e} mean {mean_abs:.3e} (limits "
+                    f"{FLASH_MAX_ABS}, {FLASH_MEAN_ABS}); lse {lse_err:.3e} (limit {LSE_ATOL}), "
+                    f"dead rows +1e30 on both sides: {dead_ok}")
+            del got, lse, want, want_lse, err
+            # Library yardstick: SDPA with the equivalent boolean mask.
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            am = make_attention_mask(None, n, sw, device)
+            if mask is not None:
+                key_ok = mask[:, None, None, :]
+                am = key_ok if am is None else (am & key_ok)
+            ms = time_ms(lambda: fl.flash_attention(q, k, v, mask, sw))
+            plain_ms = time_ms(lambda: fl.flash_attention_plain(q, k, v, mask, sw), runs=3, warmup=1)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), runs=3)
+            del qt, kt, vt, am
+            nbytes = 4 * b * n * h * d * 2 + (0 if mask is None else b * n)
+            bound, bound_by = _bound_ms(nbytes, 4.0 * h * d * _flash_pairs(valid, n, sw), BF16_FLOPS_PER_S)
+            worst = max(worst, max_abs)
+            rows.append(dict(shape=label, B=b, N=n, H=h, D=d, case=case, max_abs_err=max_abs,
+                             mean_abs_err=mean_abs, lse_max_abs_err=lse_err, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+            log(f"{label:12s} {b:2d} {n:6d} {h:3d} {d:4d} {case:12s} {max_abs:9.2e} {mean_abs:9.2e} "
+                f"{lse_err:9.2e} {ms:8.4f} {plain_ms:9.4f} {lib_ms:8.4f} {bound:9.5f}")
+    return dict(rows=rows, max_abs_err=worst)
+
+
 
 # ---------------------------------------------------------------------------
 # Main path phase
@@ -330,17 +445,20 @@ def _images(rng, sizes, batch):
 
 
 def launch_counts() -> dict:
+    from vitok_torch.ops import flash_attention as fl
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
 
-    return {"fused_attention": fa.LAUNCHES, **quant.LAUNCHES}
+    return {"fused_attention": fa.LAUNCHES, "flash_attention": fl.LAUNCHES, **quant.LAUNCHES}
 
 
 def reset_counts() -> None:
+    from vitok_torch.ops import flash_attention as fl
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
 
     fa.LAUNCHES = 0
+    fl.LAUNCHES = 0
     for k in quant.LAUNCHES:
         quant.LAUNCHES[k] = 0
 
@@ -439,7 +557,8 @@ def main_path_phase(device, card: str, cases) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"main path: {VARIANT} ({n_params / 1e6:.1f}M params), bf16, {depth} blocks, device={device}")
 
-    expect = {"fused_attention": depth, "rmsnorm_quant": 0, "ffn_int8": 0, "silu_quant": 0}
+    expect = {"fused_attention": depth, "flash_attention": 0, "rmsnorm_quant": 0, "ffn_int8": 0,
+              "silu_quant": 0}
     outs, launches = _run_counted(model, cases, expect, "bf16")  # the main path's run
 
     rows = []
@@ -470,7 +589,8 @@ def int8_path_phase(device, card: str, cases, bf16: dict) -> dict:
     model.quantize()
     depth = model.cfg.encoder_depth + model.cfg.decoder_depth
     log(f"int8 path: {VARIANT} after AE.quantize(), {depth} blocks, device={device}")
-    expect = {"fused_attention": depth, "rmsnorm_quant": depth, "ffn_int8": depth, "silu_quant": 0}
+    expect = {"fused_attention": depth, "flash_attention": 0, "rmsnorm_quant": depth,
+              "ffn_int8": depth, "silu_quant": 0}
     outs, launches = _run_counted(model, cases, expect, "int8")  # the int8 path's run
 
     rows = []
@@ -513,7 +633,8 @@ def silu_path_phase(device, card: str) -> dict:
     cases = main_path_cases(device, [(name, max_tokens, SILU_BATCH, sizes)], seed=1)
     log(f"int8 SwiGLU-quantize path: {SILU_VARIANT} after AE.quantize(), {depth} blocks, "
         f"{name} batch {SILU_BATCH}")
-    expect = {"fused_attention": 0, "rmsnorm_quant": depth, "ffn_int8": 0, "silu_quant": depth}
+    expect = {"fused_attention": 0, "flash_attention": 0, "rmsnorm_quant": depth, "ffn_int8": 0,
+              "silu_quant": depth}
     (out,), launches = _run_counted(model, cases, expect, "int8 G")
     name, max_tokens, batch, images, inputs = cases[0]
     _check_output(name, max_tokens, batch, images, inputs, out)
@@ -527,11 +648,167 @@ def silu_path_phase(device, card: str) -> dict:
     return dict(launches=launches, rel_l2_vs_plain=rel, ms_per_img=ms / batch)
 
 
+# ---------------------------------------------------------------------------
+# High-resolution path (flash attention) and bucketed serving
+# ---------------------------------------------------------------------------
+
+HIGHRES = (  # (name, pp max tokens, batch, image sizes): 350M with sw=FLASH_SW
+    ("1024p", 4096, 2, [(1024, 1024), (960, 800)]),
+    ("2048p", 16384, 1, [(2048, 1920)]),
+)
+HIGHRES_MAX = ("4096p", 65536, 1, [(4096, 3840)])  # counted, checked and timed, no reference run
+# Up to this many tokens the bf16 reference is the unfused composition (about
+# 2 GB of fp32 logits a block at 1024p, batch 2); beyond it, the same model
+# with the flash wrapper swapped for its plain version.
+UNFUSED_REF_MAX_TOKENS = 4096
+SERVING_BATCH = 4
+SERVING_SIZES = [  # (width, height): four in the 64-token bucket, three in 256 and 1024, two in 4096
+    (128, 128), (512, 512), (100, 80), (256, 256), (1024, 1024), (200, 240),
+    (480, 360), (64, 64), (256, 192), (800, 600), (96, 128), (512, 384),
+]
+
+
+@contextlib.contextmanager
+def plain_flash_kernel():
+    """The attention router's flash wrapper swapped for its plain version:
+    the bf16 reference run beyond ``UNFUSED_REF_MAX_TOKENS``."""
+    from vitok_torch.ops import attention
+    from vitok_torch.ops import flash_attention as fl
+
+    saved = attention.flash_attention
+    attention.flash_attention = fl.flash_attention_plain
+    try:
+        yield
+    finally:
+        attention.flash_attention = saved
+
+
+def _expect(**counts) -> dict:
+    return {k: counts.get(k, 0) for k in launch_counts()}
+
+
+def highres_phase(device, card: str) -> dict:
+    """350M-f16x64 with ``sw=FLASH_SW`` at 1024p and 2048p, and at 4096p
+    without a reference, bf16 and int8: every block's attention goes to the
+    flash kernel."""
+    import torch
+    from vitok_torch import AE, decode_variant
+
+    cfg_kw = {**decode_variant(VARIANT), "sw": FLASH_SW}
+    model = AE(**cfg_kw, seed=0, device=device)
+    _random_gates(model, device)
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    cases = main_path_cases(device, HIGHRES, seed=2)
+    log(f"high-resolution path: {VARIANT}, sw={FLASH_SW}, bf16, {depth} blocks")
+    outs, launches = _run_counted(model, cases, _expect(flash_attention=depth), "bf16 high-res")
+
+    rows = []
+    for (name, max_tokens, batch, images, inputs), out in zip(cases, outs):
+        _check_output(name, max_tokens, batch, images, inputs, out)
+        if max_tokens <= UNFUSED_REF_MAX_TOKENS:
+            what = "unfused attention"
+            reference = AE(**{**cfg_kw, "attn_impl": "xla"}, state_dict=model.state_dict(), device=device)
+            ref = reference.decode(reference.encode(inputs))
+            del reference
+        else:
+            what = "flash plain version"
+            with plain_flash_kernel():
+                ref = model.decode(model.encode(inputs))
+        rel = _valid_rel_l2(out, ref, inputs)
+        del ref
+        if not rel <= MODEL_REL_L2:
+            raise AssertionError(f"bf16 {name}: rel L2 vs the {what} {rel:.3e} > {MODEL_REL_L2}")
+        step = lambda: model.decode(model.encode(inputs))
+        ms = time_ms(step, runs=3, warmup=1)
+        rows.append(dict(res=name, tokens=max_tokens, batch=batch, dtype="bf16", reference=what,
+                         rel_l2=rel, ms_per_img=ms / batch, card=card))
+        log(f"  bf16 {name}: batch {batch}, {max_tokens} tokens: rel L2 vs the {what} {rel:.3e}; "
+            f"encode+decode {ms / batch:.4f} ms/img on {card}")
+        profile_step(f"bf16 {name}", step)
+    del outs
+
+    (big,) = main_path_cases(device, [HIGHRES_MAX], seed=3)
+    rows.append(_largest_run(model, big, _expect(flash_attention=depth), "bf16", card))
+
+    qmodel = AE(**cfg_kw, state_dict=model.state_dict(), device=device).quantize()
+    del model
+    torch.cuda.empty_cache()
+    log(f"high-resolution path: {VARIANT}, sw={FLASH_SW}, int8 after AE.quantize()")
+    expect = _expect(flash_attention=depth, rmsnorm_quant=depth, ffn_int8=depth)
+    outs, int8_launches = _run_counted(qmodel, cases, expect, "int8 high-res")
+    for (name, max_tokens, batch, images, inputs), out in zip(cases, outs):
+        _check_output(name, max_tokens, batch, images, inputs, out)
+        with plain_quant_kernels():  # the flash kernel stays: see PERF.md
+            rel = _valid_rel_l2(out, qmodel.decode(qmodel.encode(inputs)), inputs)
+        if not rel <= MODEL_REL_L2:
+            raise AssertionError(f"int8 {name}: rel L2 vs the plain quantize kernels {rel:.3e} > {MODEL_REL_L2}")
+        step = lambda: qmodel.decode(qmodel.encode(inputs))
+        ms = time_ms(step, runs=3, warmup=1)
+        rows.append(dict(res=name, tokens=max_tokens, batch=batch, dtype="int8",
+                         reference="plain quantize kernels", rel_l2=rel, ms_per_img=ms / batch, card=card))
+        log(f"  int8 {name}: batch {batch}: rel L2 vs the plain quantize kernels {rel:.3e}; "
+            f"encode+decode {ms / batch:.4f} ms/img on {card}")
+        profile_step(f"int8 {name}", step)
+    del outs
+    rows.append(_largest_run(qmodel, big, expect, "int8", card))
+    return dict(rows=rows, launches=launches, int8_launches=int8_launches)
+
+
+def _largest_run(model, case, expect: dict, dtype: str, card: str) -> dict:
+    """One counted, checked and timed forward at ``HIGHRES_MAX`` (no
+    reference run: the unfused composition cannot hold it, the plain flash
+    version would take minutes)."""
+    name, max_tokens, batch, _, inputs = case
+    (out,), _ = _run_counted(model, [case], expect, f"{dtype} {name}")
+    _check_output(*case, out)
+    del out
+    ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+    log(f"  {dtype} {name}: batch {batch}, {max_tokens} tokens: finite, {ms / batch:.4f} ms/img on {card}")
+    return dict(res=name, tokens=max_tokens, batch=batch, dtype=dtype, reference=None,
+                rel_l2=None, ms_per_img=ms / batch, card=card)
+
+
+def serving_phase(device, card: str, model) -> dict:
+    """``ServingPipeline`` over the default buckets with the bf16 350M model
+    (no window): an ordered stream of mixed sizes that uses every bucket,
+    two images in the 4096-token one (the flash kernel)."""
+    import torch
+    from vitok_torch import ServingPipeline
+    from vitok_torch.serving import DEFAULT_BUCKETS, bucket_for_tokens
+
+    images = _images(np.random.default_rng(4), SERVING_SIZES, len(SERVING_SIZES))
+    buckets = [bucket_for_tokens(-(-w // 16) * -(-h // 16), DEFAULT_BUCKETS) for w, h in SERVING_SIZES]
+    if set(buckets) != set(DEFAULT_BUCKETS) or buckets.count(max(DEFAULT_BUCKETS)) != 2:
+        raise AssertionError(f"serving stream buckets {buckets} do not cover {DEFAULT_BUCKETS}")
+    pipe = ServingPipeline(model, buckets=DEFAULT_BUCKETS, batch_size=SERVING_BATCH)
+    log(f"serving: {VARIANT} bf16, buckets {DEFAULT_BUCKETS}, batch {SERVING_BATCH}, "
+        f"{len(images)} images")
+    reset_counts()
+    got = list(pipe.stream(images, ordered=True))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if [i for i, _ in got] != list(range(len(images))):
+        raise AssertionError(f"serving: stream order {[i for i, _ in got]}")
+    for (i, recon), img in zip(got, images):
+        if tuple(recon.shape) != (3, img.size[1], img.size[0]) or not torch.isfinite(recon).all():
+            raise AssertionError(f"serving: image {i} {img.size} came back {tuple(recon.shape)} or non-finite")
+    if not (launches["flash_attention"] > 0 and launches["fused_attention"] > 0):
+        raise AssertionError(f"serving: launches {launches}: both attention kernels must run")
+    t0 = time.perf_counter()
+    n = sum(1 for _ in pipe.stream(images, ordered=True))
+    seconds = time.perf_counter() - t0
+    log(f"  serving: {n} images in order at their sizes, launches {launches}; for information "
+        f"only (a functional stream, too short to measure throughput): {n / seconds:.2f} img/s "
+        f"host clock, preprocessing included, on {card}")
+    return dict(launches=launches, img_per_s=n / seconds, stats=pipe.stats)
+
+
 # Profile groups: each port kernel by its exact __global__ name, then the
 # library's matrix products (cuBLAS/cuBLASLt, torch._int_mm included) by
 # markers in their names, then everything else.
 PORT_KERNEL_GROUPS = {
     "fused_attention_kernel": "fused_attention",
+    "flash_attention_kernel": "flash_attention",
     "rmsnorm_quant_kernel": "rmsnorm_quant",
     "ffn_int8_gemm_kernel": "ffn_int8",
     "ffn_int8_quant_kernel": "ffn_int8",
@@ -588,7 +865,7 @@ def profile_step(name: str, step) -> None:
         log(f"    {t:9.3f} ms  [{kernel_group(kname)}] {kname[:110]}")
 
 
-def kernel_entries(kern, qkern, main_path, int8_path, silu_path) -> list:
+def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres) -> list:
     """The kernels line: one entry per kernel, its launches from its path's run."""
     head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
     entries = [{
@@ -604,6 +881,20 @@ def kernel_entries(kern, qkern, main_path, int8_path, silu_path) -> list:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
     }]
+    flash = next(r for r in fkern["rows"] if r["shape"] == "350M@2048p" and r["case"] == "sw1024")
+    entries.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "vitok_torch/csrc/flash_attention.cu",
+        "replaces": "vitok_tpu/ops/flash_attention.py:67",
+        "launches": highres["launches"]["flash_attention"],
+        "max_abs_err": fkern["max_abs_err"],
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
+    })
     for name, replaces, shape, launches in (
         ("rmsnorm_quant", "vitok_tpu/ops/quant.py:385", "350M@512p main", int8_path["launches"]),
         ("ffn_int8", "vitok_tpu/ops/quant.py:130", "350M@512p main", int8_path["launches"]),
@@ -646,23 +937,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from vitok_torch.ops import _build
 
+    started = time.time()
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
-    _build.build(["fused_attention", "rmsnorm_quant", "ffn_int8", "silu_quant"])
+    _build.build(["fused_attention", "flash_attention", "rmsnorm_quant", "ffn_int8", "silu_quant"])
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 
     kern = kernel_phase(device)
     qkern = quant_kernel_phase(device)
+    fkern = flash_kernel_phase(device)
     cases = main_path_cases(device)
     main_path = main_path_phase(device, card, cases)
     int8_path = int8_path_phase(device, card, cases, main_path)
     silu_path = silu_path_phase(device, card)
+    serving_phase(device, card, main_path["model"])
+    del cases, main_path["model"], main_path["outputs"]
+    highres = highres_phase(device, card)
 
-    entries = kernel_entries(kern, qkern, main_path, int8_path, silu_path)
+    entries = kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
+    log(f"chip_smoke.py ran for {time.time() - started:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

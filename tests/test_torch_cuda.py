@@ -10,7 +10,9 @@ there run it as
 Tolerances. Attention, bf16 on the card, valid rows: max abs 2e-2 and mean
 abs 2e-3. Both sides round P to bf16 before PV, but the kernel's online
 softmax rounds it at running row maxima, in another order than the plain
-version's full-row softmax. The quantize kernels: codes within one step in
+version's (full-row for the fused kernel, 512-key blocks for the flash
+kernel). The flash kernel's padded rows are exactly 0 on both sides, and its
+log-sum-exp agrees within 1e-3 on live rows (+1e30 on dead rows). The quantize kernels: codes within one step in
 at most 0.1% of the entries and scales within rtol 1e-5 (on the H100 they
 agree bit for bit); pad columns exactly 0. Small int8 models: rel L2 2e-2
 against the same model on the plain versions.
@@ -23,9 +25,11 @@ import pytest
 import torch
 
 from vitok_torch.models import ae as t_ae
+from vitok_torch.ops import flash_attention as t_fl
 from vitok_torch.ops import fused_attention as t_fa
 from vitok_torch.ops import quant as t_q
-from vitok_torch.ops.rope import compute_2d_freqs_cis
+from vitok_torch.ops.norms import rms_norm
+from vitok_torch.ops.rope import apply_rotary_emb, compute_2d_freqs_cis
 
 torch.set_num_threads(1)
 
@@ -75,10 +79,19 @@ class TestKernelOnCard:
         # Padded rows may see few keys: one bf16 step there is 2^-7 * |out|.
         assert (err / want.abs().clamp(min=1.0)).max().item() <= 2e-2
 
-    def test_long_sequence_raises(self, cuda_device):
+    def test_long_sequence_routes_through_flash(self, cuda_device):
+        """At N = 2048 the fused kernel's gate refuses: q and k are normed and
+        rotated, and the flash kernel takes them with v as a view of qkv."""
         qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=1, n=2048, heads=1, d=64)
-        with pytest.raises(NotImplementedError, match="flash"):
-            t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, num_heads=1)
+        fused, flash = t_fa.LAUNCHES, t_fl.LAUNCHES
+        got = t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, num_heads=1)
+        assert (t_fa.LAUNCHES, t_fl.LAUNCHES) == (fused, flash + 1)
+        q, k, v = qkv.view(1, 2048, 3, 1, 64).unbind(2)
+        q, k = apply_rotary_emb(rms_norm(q, qs), rms_norm(k, ks), cos, sin, convention="half")
+        want = t_fl.flash_attention_plain(q, k, v).reshape(got.shape).float()
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
     def test_kernel_rejects_fp32(self, cuda_device):
         qkv, *rest = make_inputs(cuda_device)
@@ -122,6 +135,54 @@ class TestKernelOnCard:
         a, r = got[valid].float(), want[valid].float()
         assert torch.isfinite(a).all()
         assert ((a - r).norm() / r.norm()).item() <= 2e-2
+
+
+def flash_inputs(device, b=3, n=300, heads=2, d=64, masked=False, seed=0):
+    """bf16 q, k, v as strided views of one [B, N, 3, H, D] tensor (as the
+    model hands them) and a tail-suffix mask in which sample 1 keeps a third
+    of its tokens and sample 2 none, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3, heads, d), dtype=np.float32))
+    q, k, v = qkv.to(device).bfloat16().unbind(2)
+    mask = None
+    if masked:
+        valid = np.array([n, n // 3, 0] + [n // 2] * (b - 3))
+        mask = torch.from_numpy(np.arange(n)[None, :] < valid[:, None]).to(device)
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+class TestFlashKernelOnCard:
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n,sw", [(300, 40), (2100, 256)])
+    @pytest.mark.parametrize("case", ["none", "tail", "sw", "tail+sw"])
+    def test_kernel_matches_plain_bf16(self, cuda_device, d, n, sw, case):
+        q, k, v, mask = flash_inputs(cuda_device, n=n, d=d, masked="tail" in case)
+        sw = sw if "sw" in case else None
+        before = t_fl.LAUNCHES
+        got, lse = t_fl.flash_attention(q, k, v, mask, sw, return_lse=True)
+        assert t_fl.LAUNCHES == before + 1
+        want, want_lse = t_fl.flash_attention_plain(q, k, v, mask, sw, return_lse=True)
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == torch.bfloat16 and lse.shape == (3, 2, n)
+        err = (got.float() - want.float()).abs()
+        if mask is not None:
+            assert not got[~mask].any() and not want[~mask].any()  # padded rows exactly 0
+            err = err[mask]
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+        live = want_lse < 1e29
+        assert torch.equal(lse < 1e29, live) and (lse[~live] == 1e30).all()
+        assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-3
+
+    def test_kernel_rejects_fp32(self, cuda_device):
+        q, k, v, _ = flash_inputs(cuda_device)
+        with pytest.raises(TypeError, match="bfloat16"):
+            t_fl.flash_attention(q.float(), k.float(), v.float())
+
+    def test_kernel_rejects_unsupported_head_dim(self, cuda_device):
+        q, k, v, _ = flash_inputs(cuda_device, d=32)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_fl.flash_attention(q, k, v)
 
 
 def assert_codes_close(got, want, pad_from=None):

@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int kBM = 128;              // token rows per block
@@ -62,24 +64,6 @@ constexpr int kStageBytes = (kBM + 2 * kBN) * kStride;
 constexpr int kSmemBytes = kStages * kStageBytes;
 constexpr int kQuantThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; with valid == false the destination is zero-filled
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Four 8x8 matrices of 16-bit elements = four 8-row x 16-byte int8 blocks;
 // lane l gives the row address of matrix l / 8.

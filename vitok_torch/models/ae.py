@@ -15,7 +15,12 @@ the same numbers. RMSNorm gains stay fp32, as the norms multiply in fp32.
 
 Attention in a block at ``N <= 1024`` tokens goes to the fused Hopper kernel
 (``ops/fused_attention.py``), as the JAX package routes it to its Pallas
-kernel; ``attn_impl="xla"`` asks for the unfused composition instead.
+kernel; at ``N >= 2048`` (head dim a multiple of 64) the block normalises
+and rotates q and k and hands them, with v as a strided view into the QKV
+output, to the flash kernel (``ops/flash_attention.py``); in between, and
+at other head dims, the unfused composition runs. ``attn_impl="xla"`` asks
+for the unfused composition everywhere, ``attn_impl="flash"`` for the flash
+kernel everywhere (the JAX package's ``"pallas"``).
 
 ``AE.quantize()`` gives int8 block linears (``Int8Linear``); a quantized
 block then runs the JAX package's int8 block as it is routed on the TPU:
@@ -42,7 +47,7 @@ from vitok_torch.ops.norms import layer_norm, layer_scale, rms_norm
 from vitok_torch.ops.rope import compute_2d_freqs_cis
 from vitok_torch.utils.device import resolve_device
 
-ATTN_IMPLS = ("auto", "fused", "xla")
+ATTN_IMPLS = ("auto", "fused", "flash", "xla")
 
 
 @dataclasses.dataclass(frozen=True)

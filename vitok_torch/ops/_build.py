@@ -2,7 +2,8 @@
 
 Each ``vitok_torch/csrc/<name>.cu`` is compiled on first use with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, cached under
-``vitok_torch/build/`` by a hash of the source and the flags, and loaded with
+``vitok_torch/build/`` by a hash of the source, the shared headers and the
+flags, and loaded with
 ``ctypes``. Several sources build in parallel, one ``nvcc`` each.
 Nothing here runs at import time.
 """
@@ -44,9 +45,13 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """The cached library's path, keyed by the source, every shared header
+    in ``csrc/`` (``*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> None:

@@ -1,10 +1,10 @@
 """Multi-head attention for NaFlex patch sequences (``vitok_tpu/ops/attention.py``).
 
 Layout ``[B, N, H, D]``. One interface takes the patch mask and a sliding
-window together. Routing follows the JAX package: its flash kernel serves
-``N >= 2048``; below that the unfused composition here runs. The flash
-kernel has no Hopper port yet, so a CUDA tensor at ``N >= 2048`` raises
-rather than falling back to the ``[B, H, N, N]`` composition in silence.
+window together. Routing follows the JAX package: the flash kernel
+(``ops/flash_attention.py``) serves ``N >= FLASH_MIN_TOKENS`` at head dims
+that are a multiple of 64; below that, and at other head dims, the unfused
+composition here runs.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from vitok_torch.ops.flash_attention import flash_attention
 
 FLASH_MIN_TOKENS = 2048
 
@@ -75,22 +77,18 @@ def dot_product_attention(
         q, k, v: ``[B, N, H, D]``.
         patch_mask: optional ``[B, N]`` bool, True = valid token.
         sliding_window: optional half-width; query i sees keys ``|i-j| <= sw``.
-        impl: ``"auto"`` or ``"xla"`` (the unfused composition, named as in
-            the JAX package).
+        impl: ``"auto"``, ``"flash"`` (the flash kernel at any N: the JAX
+            package's ``"pallas"``) or ``"xla"`` (the unfused composition,
+            named as in the JAX package).
 
     Returns:
         ``[B, N, H, D]`` in the dtype of ``v``.
     """
     n, d = q.shape[1], q.shape[-1]
-    if impl not in ("auto", "xla"):
-        raise ValueError(f"Unknown attention impl: {impl!r}. Use 'auto' or 'xla'.")
-    if impl == "auto" and q.is_cuda and n >= FLASH_MIN_TOKENS and d % 64 == 0:
-        raise NotImplementedError(
-            f"attention at N={n} >= {FLASH_MIN_TOKENS} tokens needs the flash forward "
-            "kernel (vitok_tpu/ops/flash_attention.py::_attn_kernel), which has no "
-            "Hopper port yet: see ROADMAP.md Queue 2, 'flash forward'. "
-            "Pass impl='xla' to run the unfused composition explicitly."
-        )
+    if impl not in ("auto", "flash", "xla"):
+        raise ValueError(f"Unknown attention impl: {impl!r}. Use 'auto', 'flash' or 'xla'.")
+    if impl == "flash" or (impl == "auto" and n >= FLASH_MIN_TOKENS and d % 64 == 0):
+        return flash_attention(q, k, v, patch_mask=patch_mask, sliding_window=sliding_window)
     return _xla_attention(q, k, v, make_attention_mask(patch_mask, n, sliding_window, q.device))
 
 

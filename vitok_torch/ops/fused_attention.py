@@ -193,7 +193,7 @@ def fused_qkv_attention(
         sliding_window: optional half-width ``|i-j| <= sw``.
         impl: ``"auto"`` (the fused kernel where :func:`can_fuse`, else the
             unfused composition), ``"fused"`` (force the kernel), or an
-            attention impl name for the unfused path (``"xla"``).
+            attention impl name for the unfused path (``"flash"``, ``"xla"``).
 
     Returns:
         ``[B, N, C]`` in qkv's dtype.
