@@ -30,7 +30,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    attention takes the flash kernel; bf16 against the unfused composition
    at 1024p and against the flash kernel's plain version at 2048p, int8
    against its plain quantize kernels; then both once at 4096p;
-6. prints a JSON line describing each kernel, the card's name and power
+6. holds the two flash backward kernels (dq, dk/dv) against their plain
+   version on the forward kernel's shapes, and trains: 350M at full width
+   and depth, fp32 master weights, bf16 compute, sliding window 1024,
+   1024p (batch 2, 4096 tokens), Charbonnier + SSIM, AdamW + EMA, five
+   steps on one batch (28 forward, 28 dq and 28 dk/dv launches a step, a
+   falling loss, the first step's gradients against the same step on the
+   plain backward), a step with every block recomputed (56 forward
+   launches, the same loss), and one step at 2048p (16384 tokens);
+7. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -40,6 +48,7 @@ outside a checkout of the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -339,6 +348,13 @@ FLASH_SHAPES = (  # (label, B, N, H, D, cases)
 FLASH_MAX_ABS = 8e-3
 FLASH_MEAN_ABS = 2e-4
 LSE_ATOL = 1e-3  # fp32 row sums in another order, exp2 against exp
+# Backward kernels, each gradient's error on valid rows relative to its
+# largest entry: about four and five times the worst readings over every
+# shape below on an H100 (max 2.81e-3, mean 1.30e-6). The outputs are bf16
+# (one rounding step is 2^-8 of a value) and most entries are far smaller
+# than the largest, hence the small mean.
+FLASH_BWD_MAX_REL = 1e-2
+FLASH_BWD_MEAN_REL = 6e-6
 
 
 def _flash_inputs(gen, b, n, h, d, masked, device):
@@ -449,7 +465,9 @@ def launch_counts() -> dict:
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
 
-    return {"fused_attention": fa.LAUNCHES, "flash_attention": fl.LAUNCHES, **quant.LAUNCHES}
+    return {"fused_attention": fa.LAUNCHES, "flash_attention": fl.LAUNCHES,
+            "flash_attention_dq": fl.DQ_LAUNCHES, "flash_attention_dkv": fl.DKV_LAUNCHES,
+            **quant.LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -458,9 +476,14 @@ def reset_counts() -> None:
     from vitok_torch.ops import quant
 
     fa.LAUNCHES = 0
-    fl.LAUNCHES = 0
+    fl.LAUNCHES = fl.DQ_LAUNCHES = fl.DKV_LAUNCHES = 0
     for k in quant.LAUNCHES:
         quant.LAUNCHES[k] = 0
+
+
+def _expect(**counts) -> dict:
+    """Expected launches of one run: the named counts, every other kernel 0."""
+    return {k: counts.get(k, 0) for k in launch_counts()}
 
 
 @contextlib.contextmanager
@@ -557,9 +580,7 @@ def main_path_phase(device, card: str, cases) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"main path: {VARIANT} ({n_params / 1e6:.1f}M params), bf16, {depth} blocks, device={device}")
 
-    expect = {"fused_attention": depth, "flash_attention": 0, "rmsnorm_quant": 0, "ffn_int8": 0,
-              "silu_quant": 0}
-    outs, launches = _run_counted(model, cases, expect, "bf16")  # the main path's run
+    outs, launches = _run_counted(model, cases, _expect(fused_attention=depth), "bf16")  # the main path's run
 
     rows = []
     for (name, max_tokens, batch, images, inputs), out in zip(cases, outs):
@@ -589,8 +610,7 @@ def int8_path_phase(device, card: str, cases, bf16: dict) -> dict:
     model.quantize()
     depth = model.cfg.encoder_depth + model.cfg.decoder_depth
     log(f"int8 path: {VARIANT} after AE.quantize(), {depth} blocks, device={device}")
-    expect = {"fused_attention": depth, "flash_attention": 0, "rmsnorm_quant": depth,
-              "ffn_int8": depth, "silu_quant": 0}
+    expect = _expect(fused_attention=depth, rmsnorm_quant=depth, ffn_int8=depth)
     outs, launches = _run_counted(model, cases, expect, "int8")  # the int8 path's run
 
     rows = []
@@ -633,8 +653,7 @@ def silu_path_phase(device, card: str) -> dict:
     cases = main_path_cases(device, [(name, max_tokens, SILU_BATCH, sizes)], seed=1)
     log(f"int8 SwiGLU-quantize path: {SILU_VARIANT} after AE.quantize(), {depth} blocks, "
         f"{name} batch {SILU_BATCH}")
-    expect = {"fused_attention": 0, "flash_attention": 0, "rmsnorm_quant": depth, "ffn_int8": 0,
-              "silu_quant": depth}
+    expect = _expect(rmsnorm_quant=depth, silu_quant=depth)
     (out,), launches = _run_counted(model, cases, expect, "int8 G")
     name, max_tokens, batch, images, inputs = cases[0]
     _check_output(name, max_tokens, batch, images, inputs, out)
@@ -681,10 +700,6 @@ def plain_flash_kernel():
         yield
     finally:
         attention.flash_attention = saved
-
-
-def _expect(**counts) -> dict:
-    return {k: counts.get(k, 0) for k in launch_counts()}
 
 
 def highres_phase(device, card: str) -> dict:
@@ -803,12 +818,282 @@ def serving_phase(device, card: str, model) -> dict:
     return dict(launches=launches, img_per_s=n / seconds, stats=pipe.stats)
 
 
+# ---------------------------------------------------------------------------
+# Flash attention backward kernels (#5 dq, #6 dk/dv) and the training path
+# ---------------------------------------------------------------------------
+
+
+def flash_bwd_kernel_phase(device) -> dict:
+    """The dq and dk/dv kernels against ``flash_attention_bwd_plain`` on the
+    forward phase's shapes; the library yardstick is SDPA's backward with
+    the boolean mask (forward + backward, minus the forward)."""
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops.attention import make_attention_mask
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    rows, worst = [], {"dq": 0.0, "dkv": 0.0}
+    log("kernel phase: flash attention backward, dq and dk/dv (CUDA) vs flash_attention_bwd_plain, bf16")
+    log(f"{'shape':12s} {'B':>2s} {'N':>6s} {'H':>3s} {'D':>4s} {'case':12s} {'dq max/mean rel':>17s} "
+        f"{'dk max/mean rel':>17s} {'dv max/mean rel':>17s} {'dq_ms':>8s} {'dkv_ms':>8s} {'plain_ms':>9s} "
+        f"{'sdpa_bwd':>9s} {'dq_bound':>9s} {'dkv_bound':>9s}")
+    for label, b, n, h, d, cases in FLASH_SHAPES:
+        for case in cases:
+            q, k, v, mask, valid = _flash_inputs(gen, b, n, h, d, "tail" in case, device)
+            sw = FLASH_SW if "sw" in case else None
+            out, lse = fl.flash_attention(q, k, v, mask, sw, return_lse=True)
+            # The cotangent as the model hands it over: a [B, N, C] tensor viewed per head.
+            g = torch.randn((b, n, h * d), generator=gen, device=device).to(torch.bfloat16).view(b, n, h, d)
+            dq, delta = fl.flash_dq_cuda(q, k, v, out, lse, g, mask, sw)
+            dk, dv = fl.flash_dkv_cuda(q, k, v, lse, delta, g, mask, sw)
+            again = fl.flash_attention_bwd(q, k, v, out, lse, g, mask, sw)
+            want = fl.flash_attention_bwd_plain(q, k, v, out, lse, g, mask, sw)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, a2, r in zip(("dq", "dk", "dv"), (dq, dk, dv), again, want):
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"flash backward {label} {case}: {name} differs between two runs")
+                if mask is not None and (a[~mask].any() or r[~mask].any()):
+                    raise AssertionError(f"flash backward {label} {case}: padded rows of {name} are not exactly 0")
+                err = (a.float() - r.float()).abs()
+                scale = r.float().abs().max().item()
+                if mask is not None:
+                    err = err[mask]
+                errs[name] = (err.max().item() / scale, err.mean().item() / scale,
+                              err.max().item(), bool(torch.isfinite(a).all()))
+            bad = {name: e for name, e in errs.items()
+                   if not (e[3] and e[0] <= FLASH_BWD_MAX_REL and e[1] <= FLASH_BWD_MEAN_REL)}
+            if bad:
+                raise AssertionError(
+                    f"flash backward kernels disagree with their plain version at {label} B={b} N={n} "
+                    f"H={h} D={d} {case}: (max rel, mean rel, max abs, finite) {bad} (limits "
+                    f"{FLASH_BWD_MAX_REL}, {FLASH_BWD_MEAN_REL} of the gradient's largest entry)")
+            del again, want, dq, dk, dv
+            dq_ms = time_ms(lambda: fl.flash_dq_cuda(q, k, v, out, lse, g, mask, sw))
+            dkv_ms = time_ms(lambda: fl.flash_dkv_cuda(q, k, v, lse, delta, g, mask, sw))
+            plain_ms = time_ms(lambda: fl.flash_attention_bwd_plain(q, k, v, out, lse, g, mask, sw),
+                               runs=2, warmup=1)
+            # Library yardstick: SDPA forward + backward with the equivalent
+            # boolean mask, minus its forward.
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+            gt = g.transpose(1, 2).contiguous()
+            am = make_attention_mask(None, n, sw, device)
+            if mask is not None:
+                key_ok = mask[:, None, None, :]
+                am = key_ok if am is None else (am & key_ok)
+
+            def sdpa_step():
+                o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+                torch.autograd.grad(o, (qt, kt, vt), gt)
+
+            with torch.no_grad():
+                fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), runs=3)
+            lib_ms = time_ms(sdpa_step, runs=3) - fwd_ms
+            del qt, kt, vt, gt, am
+            pairs = _flash_pairs(valid, n, sw)
+            tensor, vec = b * n * h * d * 2, b * h * n * 4
+            mask_bytes = 0 if mask is None else b * n
+            # dq: q, k, v, dO, O in, dq out, lse in; three products a pair.
+            dq_bound = _bound_ms(6 * tensor + vec + mask_bytes, 3 * 2.0 * h * d * pairs, BF16_FLOPS_PER_S)
+            # dk/dv: q, k, v, dO in, dk and dv out, lse and delta in; four products a pair.
+            dkv_bound = _bound_ms(6 * tensor + 2 * vec + mask_bytes, 4 * 2.0 * h * d * pairs, BF16_FLOPS_PER_S)
+            worst["dq"] = max(worst["dq"], errs["dq"][2])
+            worst["dkv"] = max(worst["dkv"], errs["dk"][2], errs["dv"][2])
+            rows.append(dict(shape=label, B=b, N=n, H=h, D=d, case=case,
+                             **{f"{name}_max_rel_err": e[0] for name, e in errs.items()},
+                             **{f"{name}_mean_rel_err": e[1] for name, e in errs.items()},
+                             **{f"{name}_max_abs_err": e[2] for name, e in errs.items()},
+                             dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+                             dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1]))
+            rel = lambda name: f"{errs[name][0]:8.2e}/{errs[name][1]:8.2e}"
+            log(f"{label:12s} {b:2d} {n:6d} {h:3d} {d:4d} {case:12s} {rel('dq')} {rel('dk')} {rel('dv')} "
+                f"{dq_ms:8.4f} {dkv_ms:8.4f} {plain_ms:9.4f} {lib_ms:9.4f} {dq_bound[0]:9.5f} {dkv_bound[0]:9.5f}")
+    log("  (plain_ms: dq, dk and dv together; sdpa_bwd: SDPA forward + backward minus its forward)")
+    return dict(rows=rows, max_abs_err=worst)
+
+
+@contextlib.contextmanager
+def plain_flash_backward():
+    """The autograd Function's backward swapped for the plain version (the
+    forward kernel stays): the reference for the training gradients."""
+    from vitok_torch.ops import flash_attention as fl
+
+    saved = fl.flash_attention_bwd
+    fl.flash_attention_bwd = fl.flash_attention_bwd_plain
+    try:
+        yield
+    finally:
+        fl.flash_attention_bwd = saved
+
+
+TRAIN = ("1024p", 4096, 2, [(1024, 1024), (960, 800)])  # the high-resolution run's first batch shape
+TRAIN_BIG = ("2048p", 16384, 1, [(2048, 1920)])          # one step, every block recomputed
+TRAIN_STEPS = 5
+TRAIN_LR = 2e-5
+TRAIN_GRAD_REL_L2 = 2e-2  # all parameter gradients, backward kernels vs the plain backward
+
+
+def _with_checkpoint(model, every: int) -> None:
+    model.cfg = dataclasses.replace(model.cfg, checkpoint=every)
+
+
+def training_phase(device, card: str) -> dict:
+    """Train 350M-f16x64 at full width and depth with ``sw=FLASH_SW``: fp32
+    master weights, bf16 compute, 4096-token batches, Charbonnier 1.0 + SSIM
+    0.1 on two 256-tiles, AdamW + EMA, every activation stored."""
+    import torch
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.train_lib import (LossConfig, compute_loss, create_optimizer, create_schedule,
+                                       create_train_state, make_train_step)
+
+    cfg_kw = {**decode_variant(VARIANT), "sw": FLASH_SW}
+    model = AE(**cfg_kw, seed=0, device=device, param_dtype=torch.float32, trainable=True)
+    _random_gates(model, device)
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    (case,) = main_path_cases(device, [TRAIN], seed=5)
+    name, max_tokens, batch, _, inputs = case
+    side = int(max_tokens ** 0.5)
+    loss_cfg = LossConfig(ssim_weight=0.1, tile_size=256, n_tiles=2, ssim_grid=(side, side))
+    log(f"training path: {VARIANT} ({n_params / 1e6:.1f}M fp32 master params), sw={FLASH_SW}, bf16 compute, "
+        f"{name} batch {batch} ({max_tokens} tokens), Charbonnier 1.0 + SSIM 0.1, AdamW lr {TRAIN_LR} + EMA")
+
+    def grads_of(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        loss, _ = compute_loss(model, inputs, loss_cfg, gen)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    def rel_l2(got, want):
+        num = sum((a.double() - b.double()).square().sum() for a, b in zip(got, want))
+        return (num / sum(b.double().square().sum() for b in want)).sqrt().item()
+
+    # The first step's gradients: backward kernels against the plain backward.
+    loss_k, g_kernel = grads_of(11)
+    with plain_flash_backward():
+        loss_p, g_plain = grads_of(11)
+    torch.cuda.synchronize()
+    grad_rel = rel_l2(g_kernel, g_plain)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_kernel)
+    if not (finite and loss_k.item() == loss_p.item() and grad_rel <= TRAIN_GRAD_REL_L2):
+        raise AssertionError(
+            f"training: gradients with the backward kernels vs the plain backward: rel L2 {grad_rel:.3e} "
+            f"(limit {TRAIN_GRAD_REL_L2}), finite {finite}, loss {loss_k.item()} vs {loss_p.item()}")
+    del g_kernel, g_plain
+    log(f"  first-step gradients, kernels vs plain backward: rel L2 {grad_rel:.3e} over all parameters")
+
+    tx = create_optimizer(create_schedule("constant", TRAIN_LR, TRAIN_STEPS, warmup_frac=0.0))
+    state = create_train_state(model, tx)
+    train_step = make_train_step(tx, loss_cfg)
+    per_step = _expect(flash_attention=depth, flash_attention_dq=depth, flash_attention_dkv=depth)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the training path's run
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, inputs, 3)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        if got != per_step:
+            raise AssertionError(f"training step {i + 1}: launches {got}, expected {per_step}")
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    totals = [m["loss/total"] for m in losses]
+    if not (all(np.isfinite(list(m.values())).all() for m in losses) and totals[-1] < totals[0]):
+        raise AssertionError(f"training: losses {totals} must be finite and fall from the first to the fifth step")
+    ema_gap = max((state.ema_params[n] - p.detach()).abs().max().item() for n, p in model.named_parameters())
+    if not ema_gap > 0:
+        raise AssertionError("training: the EMA equals the parameters after five steps")
+    ms = float(np.median(step_ms[1:]))
+    log(f"  {TRAIN_STEPS} steps: loss " + " -> ".join(f"{t:.5f}" for t in totals)
+        + f" (charbonnier {losses[0]['loss/charbonnier']:.5f} -> {losses[-1]['loss/charbonnier']:.5f}, ssim "
+        f"{losses[0]['loss/ssim']:.5f} -> {losses[-1]['loss/ssim']:.5f}), grad norm "
+        f"{losses[0]['grad_norm']:.4f} -> {losses[-1]['grad_norm']:.4f}; launches a step {per_step}")
+    log(f"  {ms:.3f} ms/step (host clock, median of steps 2-{TRAIN_STEPS}; first step {step_ms[0]:.3f}), "
+        f"{batch * max_tokens / ms * 1e3:.1f} tokens/s, peak memory {peak_gb:.3f} GB, "
+        f"max |EMA - params| {ema_gap:.3e} on {card}")
+    profile_step(f"train {name}", lambda: train_step(state, inputs, 3))
+
+    # Every block recomputed in the backward: twice the forward launches, the same loss.
+    with torch.no_grad():
+        want_loss, _ = compute_loss(model, inputs, loss_cfg,
+                                    torch.Generator(device=device).manual_seed(3 * 1_000_003 + state.step))
+    _with_checkpoint(model, 1)
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = train_step(state, inputs, 3)
+    torch.cuda.synchronize()
+    remat_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v - before[k] for k, v in launch_counts().items()}
+    expect = _expect(flash_attention=2 * depth, flash_attention_dq=depth, flash_attention_dkv=depth)
+    if got != expect or float(metrics["loss/total"]) != want_loss.item():
+        raise AssertionError(f"training with checkpoint=1: launches {got} (expected {expect}), loss "
+                             f"{float(metrics['loss/total'])} vs {want_loss.item()} with every activation stored")
+    remat_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  checkpoint=1: launches {got}, loss {want_loss.item():.5f} as with every activation stored; "
+        f"{remat_ms:.3f} ms/step, peak memory {remat_peak:.3f} GB on {card}")
+
+    # One step at 2048p (16384 tokens), every block recomputed.
+    (big,) = main_path_cases(device, [TRAIN_BIG], seed=6)
+    bname, btokens, bbatch, _, binputs = big
+    bside = int(btokens ** 0.5)
+    big_step = make_train_step(tx, LossConfig(ssim_weight=0.1, tile_size=256, n_tiles=2, ssim_grid=(bside, bside)))
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = big_step(state, binputs, 3)
+    torch.cuda.synchronize()
+    big_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v - before[k] for k, v in launch_counts().items()}
+    big_loss = float(metrics["loss/total"])
+    if got != expect or not np.isfinite(big_loss) or not np.isfinite(float(metrics["grad_norm"])):
+        raise AssertionError(f"training {bname}: launches {got} (expected {expect}), loss {big_loss}")
+    big_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {bname} batch {bbatch} ({btokens} tokens), checkpoint=1: loss {big_loss:.5f}, launches {got}; "
+        f"{big_ms:.3f} ms (one step), {bbatch * btokens / big_ms * 1e3:.1f} tokens/s, peak memory "
+        f"{big_peak:.3f} GB on {card}")
+    return dict(launches=launches, losses=totals, grad_rel_l2=grad_rel, ms_per_step=ms,
+                tokens_per_s=batch * max_tokens / ms * 1e3, peak_gb=peak_gb, remat_ms=remat_ms,
+                big_ms=big_ms, big_peak_gb=big_peak)
+
+
+def flash_bwd_entries(bkern: dict, training: dict) -> list:
+    """The kernels-line entries of the two backward kernels: launches from
+    the training run, times at 2048p with the window (B = 1)."""
+    row = next(r for r in bkern["rows"] if r["shape"] == "350M@2048p" and r["case"] == "sw1024")
+    entries = []
+    for name, key, line in (("flash_attention_dq", "dq", 427), ("flash_attention_dkv", "dkv", 556)):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vitok_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"vitok_tpu/ops/flash_attention.py:{line}",
+            "launches": training["launches"][name],
+            "max_abs_err": bkern["max_abs_err"][key],
+            "ms": row[f"{key}_ms"],
+            "plain_ms": row["plain_ms"],     # dq, dk and dv together
+            "bound_ms": row[f"{key}_bound_ms"],
+            "bound_by": row[f"{key}_bound_by"],
+            "library_ms": row["library_ms"],  # SDPA's whole backward (dq, dk and dv)
+        })
+    return entries
+
+
 # Profile groups: each port kernel by its exact __global__ name, then the
 # library's matrix products (cuBLAS/cuBLASLt, torch._int_mm included) by
 # markers in their names, then everything else.
 PORT_KERNEL_GROUPS = {
     "fused_attention_kernel": "fused_attention",
     "flash_attention_kernel": "flash_attention",
+    "flash_bwd_delta_kernel": "flash_attention_dq",  # dq's prologue
+    "flash_bwd_dq_kernel": "flash_attention_dq",
+    "flash_bwd_dkv_kernel": "flash_attention_dkv",
     "rmsnorm_quant_kernel": "rmsnorm_quant",
     "ffn_int8_gemm_kernel": "ffn_int8",
     "ffn_int8_quant_kernel": "ffn_int8",
@@ -943,7 +1228,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
-    _build.build(["fused_attention", "flash_attention", "rmsnorm_quant", "ffn_int8", "silu_quant"])
+    _build.build(["fused_attention", "flash_attention", "flash_attention_bwd", "rmsnorm_quant",
+                  "ffn_int8", "silu_quant"])
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 
@@ -957,8 +1243,12 @@ def main() -> int:
     serving_phase(device, card, main_path["model"])
     del cases, main_path["model"], main_path["outputs"]
     highres = highres_phase(device, card)
+    torch.cuda.empty_cache()
+    bkern = flash_bwd_kernel_phase(device)
+    training = training_phase(device, card)
 
     entries = kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
+    entries[2:2] = flash_bwd_entries(bkern, training)
     log(f"chip_smoke.py ran for {time.time() - started:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

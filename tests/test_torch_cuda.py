@@ -185,6 +185,85 @@ class TestFlashKernelOnCard:
             t_fl.flash_attention(q, k, v)
 
 
+def _bwd_case(device, n, d, case, sw):
+    """q, k, v, mask, window, then the forward's output and log-sum-exp and a
+    seed-made cotangent that reaches the wrapper as a strided view."""
+    q, k, v, mask = flash_inputs(device, n=n, d=d, masked="tail" in case or "hole" in case)
+    if "hole" in case:  # a run of padding inside sample 0's valid range
+        mask[0, 100:140] = False
+    sw = sw if "sw" in case else None
+    out, lse = t_fl.flash_attention(q, k, v, mask, sw, return_lse=True)
+    rng = np.random.default_rng(7)
+    g = torch.from_numpy(rng.standard_normal((*q.shape[:3], 2 * d), dtype=np.float32))
+    g = g.to(device).bfloat16()[..., :d]  # token and head strides of 2d: not contiguous
+    return q, k, v, mask, sw, out, lse, g
+
+
+@pytest.mark.cuda
+class TestFlashBackwardOnCard:
+    """The dq and dk/dv kernels against ``flash_attention_bwd_plain``. Both
+    sides round p and ds to bf16 before the products that contract them; the
+    kernel sums 64-row tiles, the plain version 1024-query blocks, and the
+    kernel takes exp2 of a fused multiply-add. Limits relative to each
+    gradient's largest entry: max 2e-2, mean 2e-3."""
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n,sw", [(300, 40), (2100, 256)])
+    @pytest.mark.parametrize("case", ["none", "tail", "sw", "tail+sw", "hole+sw"])
+    def test_kernels_match_plain_bf16(self, cuda_device, d, n, sw, case):
+        q, k, v, mask, sw, out, lse, g = _bwd_case(cuda_device, n, d, case, sw)
+        before = (t_fl.LAUNCHES, t_fl.DQ_LAUNCHES, t_fl.DKV_LAUNCHES)
+        got = t_fl.flash_attention_bwd(q, k, v, out, lse, g, mask, sw)
+        assert (t_fl.LAUNCHES, t_fl.DQ_LAUNCHES, t_fl.DKV_LAUNCHES) == (
+            before[0], before[1] + 1, before[2] + 1)
+        again = t_fl.flash_attention_bwd(q, k, v, out, lse, g, mask, sw)
+        want = t_fl.flash_attention_bwd_plain(q, k, v, out, lse, g, mask, sw)
+        torch.cuda.synchronize()
+        for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, want):
+            assert a.shape == q.shape and a.dtype == torch.bfloat16 and a.is_contiguous()
+            assert torch.equal(a, a2), f"{name}: two runs differ"
+            assert torch.isfinite(a).all()
+            if mask is not None:  # padded rows exactly 0 on both sides
+                assert not a[~mask].any() and not r[~mask].any(), name
+            err = (a.float() - r.float()).abs()
+            scale = r.float().abs().max().item()
+            assert scale > 0
+            assert err.max().item() <= 2e-2 * scale and err.mean().item() <= 2e-3 * scale, (
+                name, err.max().item(), err.mean().item(), scale)
+
+    def test_autograd_function_launches_both_kernels(self, cuda_device):
+        q, k, v, mask = flash_inputs(cuda_device, n=300, masked=True)
+        q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        before = (t_fl.LAUNCHES, t_fl.DQ_LAUNCHES, t_fl.DKV_LAUNCHES)
+        out = t_fl.flash_attention(q, k, v, mask, 40)
+        w = torch.linspace(0.5, 1.5, 300, device=cuda_device)[None, :, None, None]
+        (out.float() * w).square().sum().backward()
+        torch.cuda.synchronize()
+        assert (t_fl.LAUNCHES, t_fl.DQ_LAUNCHES, t_fl.DKV_LAUNCHES) == tuple(x + 1 for x in before)
+        for t in (q, k, v):
+            assert t.grad is not None and torch.isfinite(t.grad).all() and t.grad.any()
+            assert not t.grad[~mask].any()
+
+    def test_fused_kernel_refuses_a_gradient(self, cuda_device):
+        """The fused attention kernel has no backward kernel yet: asked for
+        by name under grad it raises; ``impl="auto"`` takes the unfused
+        composition, and no fused launch is counted."""
+        qkv, *rest = make_inputs(cuda_device, masked=True)
+        qkv.requires_grad_(True)
+        before = t_fa.LAUNCHES
+        with pytest.raises(NotImplementedError, match="_fused_bwd_kernel"):
+            t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, impl="fused")
+        out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2)
+        out.float().square().sum().backward()
+        assert t_fa.LAUNCHES == before and torch.isfinite(qkv.grad).all() and qkv.grad.any()
+
+    def test_backward_rejects_fp32(self, cuda_device):
+        q, k, v, _ = flash_inputs(cuda_device)
+        out, lse = t_fl.flash_attention(q, k, v, return_lse=True)
+        with pytest.raises(TypeError, match="bfloat16"):
+            t_fl.flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse, out.float())
+
+
 def assert_codes_close(got, want, pad_from=None):
     (q, s), (q_ref, s_ref) = got, want
     torch.cuda.synchronize()

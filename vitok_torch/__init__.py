@@ -3,12 +3,14 @@
 A port of ``vitok_tpu`` (JAX/Pallas), which stays the reference. Tokenizer
 inference in bf16, and in int8 after ``AE.quantize()``: ``preprocess`` ->
 ``AE.encode`` -> ``AE.decode`` -> ``postprocess``, at any resolution and
-with sliding windows, and bucketed serving (``ServingPipeline``). The fused
-QK-norm + RoPE + masked attention (up to 1024 tokens), the flash attention
-forward (2048 tokens and up) and the int8 block's RMSNorm + quantize, fused
-fc1 + SwiGLU + requantize and SwiGLU + quantize are hand-written Hopper
-kernels. Entry points run on the card unless the caller passes
-``device="cpu"``.
+with sliding windows, and bucketed serving (``ServingPipeline``); and
+single-device tokenizer training (``train_lib``, ``losses``, ``data``,
+``python -m vitok_torch.scripts.train_vae``). The fused QK-norm + RoPE +
+masked attention (up to 1024 tokens), the flash attention forward and its
+two backward kernels (2048 tokens and up) and the int8 block's RMSNorm +
+quantize, fused fc1 + SwiGLU + requantize and SwiGLU + quantize are
+hand-written Hopper kernels. Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from vitok_torch.models.ae import AE, AEConfig, decode_variant

@@ -1,6 +1,7 @@
 // Inline-PTX helpers shared by the port's sm_90a kernels: shared-memory
 // addresses, 16-byte cp.async copies, ldmatrix and the bf16 mma.sync tile.
-// Included by fused_attention.cu, flash_attention.cu and ffn_int8.cu;
+// Included by fused_attention.cu, flash_attention.cu, flash_attention_bwd.cu
+// and ffn_int8.cu;
 // vitok_torch/ops/_build.py hashes this header into every library's cache
 // key, so an edit here rebuilds them all.
 

@@ -1,4 +1,5 @@
-"""Vision Transformer autoencoder (NaFlex), bf16 inference in PyTorch.
+"""Vision Transformer autoencoder (NaFlex) in PyTorch: bf16 and int8
+inference, and training with fp32 master weights.
 
 Port of ``vitok_tpu/models/ae.py``: asymmetric encoder/decoder ViT over
 NaFlex patch dicts, parallel blocks (one RMSNorm feeding both attention and
@@ -9,9 +10,11 @@ Parameters live in ``nn.Module``s named as the released flat checkpoints
 (``encoder_blocks.N.attn.qkv_proj.weight`` ...), with q/k channels in
 rotate-half order (``utils/params_io.py`` permutes released weights on load).
 The JAX package keeps fp32 params and casts each matmul kernel to the compute
-dtype on every use; this port casts the Linear weights, biases and LayerScale
-gains to the compute dtype once, when they are made or loaded, which gives
-the same numbers. RMSNorm gains stay fp32, as the norms multiply in fp32.
+dtype on every use. For inference this port casts the Linear weights, biases
+and LayerScale gains to the compute dtype once, when they are made or loaded,
+which gives the same numbers; with ``param_dtype=torch.float32`` they stay
+fp32 master weights and are cast where they are used, as in the JAX package
+(what training needs). RMSNorm gains stay fp32, as the norms multiply in fp32.
 
 Attention in a block at ``N <= 1024`` tokens goes to the fused Hopper kernel
 (``ops/fused_attention.py``), as the JAX package routes it to its Pallas
@@ -27,7 +30,17 @@ block then runs the JAX package's int8 block as it is routed on the TPU:
 RMSNorm + quantize in one kernel, the int8 QKV product, the fused attention,
 the int8 out-projection, and the fused int8 fc1 + SwiGLU + requantize kernel
 (or the fc1 product and the SwiGLU + quantize kernel) before the int8 fc2
-product (``ops/quant.py``). Training paths (drop path, remat) are not ported.
+product (``ops/quant.py``).
+
+Training: ``AE(..., param_dtype=torch.float32, trainable=True)`` and
+``model(batch, deterministic=False)`` is the JAX package's
+``forward_apply(deterministic=False)``: grad enabled, per-sample drop path
+on the decoder blocks, activation checkpointing per ``cfg.checkpoint``.
+Under training the fused kernel is not taken with ``attn_impl="auto"`` (it
+has no backward kernel yet); blocks at ``N >= 2048`` run the flash kernel
+forward and its two backward kernels, below that the unfused composition
+under autograd. ``encode``/``decode`` and ``model(batch)`` stay inference
+calls under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -39,9 +52,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from vitok_torch.ops import quant as q8
-from vitok_torch.ops.fused_attention import fused_qkv_attention
+from vitok_torch.ops.fused_attention import can_fuse, fused_qkv_attention, unfused_qkv_attention
 from vitok_torch.ops.mlp import round_hidden_dim, swiglu
 from vitok_torch.ops.norms import layer_norm, layer_scale, rms_norm
 from vitok_torch.ops.rope import compute_2d_freqs_cis
@@ -52,8 +66,14 @@ ATTN_IMPLS = ("auto", "fused", "flash", "xla")
 
 @dataclasses.dataclass(frozen=True)
 class AEConfig:
-    """Static architecture configuration (the inference fields of the JAX
-    package's ``AEConfig``)."""
+    """Static architecture configuration (the JAX package's ``AEConfig``).
+
+    ``checkpoint``: 0 stores every activation, 1 recomputes every block in
+    the backward, k > 1 every k-th block (those with ``i % k == 0``); -1
+    and -2, the JAX package's unrolled forms of 1 and 0, mean 1 and 0 here,
+    where the block loop is always unrolled. ``remat_save`` is accepted and
+    changes no value (selective saving is not ported).
+    """
 
     pixels_per_token: int = 768
     channels_per_token: int = 32
@@ -64,10 +84,13 @@ class AEConfig:
     encoder_heads: int = 12
     decoder_heads: int = 12
     mlp_factor: float = 2.67
+    checkpoint: int = 0
+    remat_save: Tuple[str, ...] = ()
     spatial_stride: int = 16
     temporal_stride: int = 1
     use_layer_scale: bool = True
     layer_scale_init: float = 1e-4
+    drop_path_rate: float = 0.0
     encoder: bool = True
     decoder: bool = True
     sw: Optional[int] = None
@@ -79,6 +102,8 @@ class AEConfig:
             raise ValueError("At least one of encoder or decoder must be True")
         if self.sw is not None and self.sw <= 0:  # sw <= 0 disables the window
             object.__setattr__(self, "sw", None)
+        if not isinstance(self.remat_save, tuple):
+            object.__setattr__(self, "remat_save", tuple(self.remat_save))
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
 
@@ -184,8 +209,8 @@ def decode_variant(variant: str) -> Dict[str, Any]:
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """``x @ W^T`` rounded to x's dtype, then the bias added in that dtype
     (the JAX ``_linear``'s two rounding points)."""
-    y = F.linear(x, lin.weight)
-    return y if lin.bias is None else y + lin.bias
+    y = F.linear(x, lin.weight.to(x.dtype))
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
 
 
 class _Gain(nn.Module):
@@ -261,28 +286,43 @@ class Block(nn.Module):
         patch_mask: Optional[torch.Tensor],
         sliding_window: Optional[int],
         attn_impl: str,
+        deterministic: bool = True,
+        drop_gate: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        """``drop_gate``: per-sample stochastic-depth factor ``[B, 1, 1]``
+        (``floor(keep + U) / keep``), or None for no drop path."""
         int8 = isinstance(self.attn.qkv_proj, Int8Linear)
         if int8:
             qkv, hid = self._int8_qkv_fc1(x)
         else:
             h = rms_norm(x, self.norm1.weight)
-            qkv = F.linear(h, self.attn.qkv_proj.weight)
-        # At inference "fused" asks for the kernel where its gate opens and
-        # degrades to auto routing elsewhere, as in the JAX package.
-        attn = fused_qkv_attention(
-            qkv, self.attn.norm_q.weight, self.attn.norm_k.weight, rope[0], rope[1], patch_mask,
-            num_heads=self.heads, sliding_window=sliding_window,
-            impl="auto" if attn_impl == "fused" else attn_impl,
+            qkv = F.linear(h, self.attn.qkv_proj.weight.to(h.dtype))
+        # The fused kernel is an inference path (the JAX package's gate):
+        # "auto" takes it only when deterministic, "fused" asks for it where
+        # its gate opens and degrades to auto routing elsewhere.
+        n, c = x.shape[1], x.shape[2]
+        fused = (
+            attn_impl in ("auto", "fused")
+            and (deterministic or attn_impl == "fused")
+            and can_fuse(n, c, self.heads)
         )
+        args = (qkv, self.attn.norm_q.weight, self.attn.norm_k.weight, rope[0], rope[1], patch_mask)
+        if fused:
+            attn = fused_qkv_attention(*args, num_heads=self.heads, sliding_window=sliding_window,
+                                       impl="fused")
+        else:
+            attn = unfused_qkv_attention(*args, self.heads, sliding_window,
+                                         attn_impl="auto" if attn_impl == "fused" else attn_impl)
         if int8:
             out = self.attn.out_proj(attn) + self._int8_mlp(hid, x)
         else:
-            out = F.linear(attn, self.attn.out_proj.weight) + swiglu(
+            out = F.linear(attn, self.attn.out_proj.weight.to(attn.dtype)) + swiglu(
                 h, self.ffn.fc1.weight, self.ffn.fc2.weight
             )
         if self.layer_scale is not None:
             out = layer_scale(out, self.layer_scale.gamma)
+        if drop_gate is not None:
+            out = out * drop_gate.to(out.dtype)
         return x + out
 
     def _int8_qkv_fc1(self, x: torch.Tensor):
@@ -346,6 +386,11 @@ class AE(nn.Module):
     ``state_dict`` (this module's layout, e.g. from
     ``utils.params_io.from_jax_params``; int8 block weights make an int8
     model) is given. Runs on the card unless ``device="cpu"``.
+
+    ``param_dtype`` is the dtype the Linear weights, biases and LayerScale
+    gains are held in: the compute dtype by default (inference), or
+    ``torch.float32`` for master weights that are cast where they are used.
+    Parameters require no grad unless ``trainable=True``.
     """
 
     def __init__(
@@ -354,13 +399,15 @@ class AE(nn.Module):
         seed: int = 0,
         compute_dtype: torch.dtype = torch.bfloat16,
         device="cuda",
+        param_dtype: Optional[torch.dtype] = None,
+        trainable: bool = False,
         **kwargs,
     ):
         super().__init__()
         self.cfg = cfg = AEConfig(**_filter_known(kwargs))
         self.device = device = resolve_device(device)
         self.compute_dtype = compute_dtype
-        dt = compute_dtype
+        self.param_dtype = dt = compute_dtype if param_dtype is None else param_dtype
         blocks = lambda width, depth, heads, ffn: nn.ModuleList(
             Block(width, heads, ffn, cfg.use_layer_scale, cfg.layer_scale_init, device, dt)
             for _ in range(depth)
@@ -384,6 +431,14 @@ class AE(nn.Module):
             if q8.is_quantized(state_dict):
                 self.quantize()  # the int8 layout; the state dict overwrites it
             self.load_state_dict(state_dict)
+        if trainable:
+            if self.is_quantized:
+                raise ValueError("an int8 model cannot be trained: build it from full-precision weights")
+            self.requires_grad_(True)
+
+    @property
+    def is_quantized(self) -> bool:
+        return any(isinstance(m, Int8Linear) for m in self.modules())
 
     @torch.no_grad()
     def _init_weights(self, seed: int) -> None:
@@ -416,43 +471,109 @@ class AE(nn.Module):
                 del lin  # the full-precision weight goes with its module
         return self
 
-    def _blocks(self, x, blocks, patch_dict, head_dim):
+    def _blocks(self, x, blocks, patch_dict, head_dim, deterministic=True, drop_gates=None):
+        """The block stack. ``drop_gates``: None, or one ``[B, 1, 1]`` factor
+        per block. When grad is enabled, blocks picked by ``cfg.checkpoint``
+        store only their input and are recomputed in the backward."""
         cfg = self.cfg
         rope = _rope_tables(patch_dict, head_dim, cfg.rope_theta, self.device)
         mask = patch_dict.get("patch_mask")
         if mask is not None:
             mask = torch.as_tensor(mask, device=self.device).bool()
-        for blk in blocks:
-            x = blk(x, rope, mask, cfg.sw, cfg.attn_impl)
+        every = {-1: 1, -2: 0}.get(cfg.checkpoint, max(cfg.checkpoint, 0))
+        remat = every > 0 and torch.is_grad_enabled()
+        for i, blk in enumerate(blocks):
+            gate = None if drop_gates is None else drop_gates[i]
+            args = (x, rope, mask, cfg.sw, cfg.attn_impl, deterministic, gate)
+            if remat and i % every == 0:
+                x = _checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = blk(*args)
         return x
 
-    @torch.no_grad()
-    def encode(self, patch_dict: Dict[str, Any]) -> Dict[str, Any]:
-        """NaFlex patch dict -> ``{"z": [B, N, c], **metadata}``."""
+    def _encode(self, patch_dict, deterministic=True):
         x = torch.as_tensor(patch_dict["patches"], device=self.device).to(self.compute_dtype)
         x = _linear(x, self.patch_embed)
-        x = self._blocks(x, self.encoder_blocks, patch_dict, self.cfg.encoder_head_dim)
+        # The encoder never drops a path (the JAX package ramps the decoder only).
+        x = self._blocks(x, self.encoder_blocks, patch_dict, self.cfg.encoder_head_dim, deterministic)
         out = _meta(patch_dict)
         out["z"] = layer_norm(_linear(x, self.to_code))
         return out
 
-    @torch.no_grad()
-    def decode(self, encode_dict: Dict[str, Any]) -> Dict[str, Any]:
-        """Latents -> ``{"patches": [B, N, pixels_per_token], **metadata}``."""
+    def _decode(self, encode_dict, deterministic=True, drop_gates=None):
         x = torch.as_tensor(encode_dict["z"], device=self.device).to(self.compute_dtype)
         x = _linear(x, self.decoder_embed)
-        x = self._blocks(x, self.decoder_blocks, encode_dict, self.cfg.decoder_head_dim)
+        x = self._blocks(x, self.decoder_blocks, encode_dict, self.cfg.decoder_head_dim,
+                         deterministic, drop_gates)
         out = _meta(encode_dict)
         out["patches"] = _linear(x, self.to_pixels)
         return out
 
-    def forward(self, patch_dict: Dict[str, Any]) -> Dict[str, Any]:
-        """Encode then decode (whichever halves the config has)."""
+    @torch.no_grad()
+    def encode(self, patch_dict: Dict[str, Any]) -> Dict[str, Any]:
+        """NaFlex patch dict -> ``{"z": [B, N, c], **metadata}`` (inference)."""
+        return self._encode(patch_dict)
+
+    @torch.no_grad()
+    def decode(self, encode_dict: Dict[str, Any]) -> Dict[str, Any]:
+        """Latents -> ``{"patches": [B, N, pixels_per_token], **metadata}`` (inference)."""
+        return self._decode(encode_dict)
+
+    def drop_path_gates(self, batch: int, generator: Optional[torch.Generator] = None,
+                        uniforms: Optional[torch.Tensor] = None) -> Optional[list]:
+        """Per-sample stochastic-depth factors of the decoder blocks, or None
+        when ``cfg.drop_path_rate`` is 0: block ``i`` keeps a sample with
+        probability ``keep_i = 1 - rate * i / (depth - 1)`` and scales it by
+        ``1 / keep_i``, i.e. ``floor(keep_i + U) / keep_i``. ``U`` is drawn
+        from ``generator``, or given as ``uniforms`` ``[depth, B]``."""
+        cfg = self.cfg
+        if cfg.drop_path_rate <= 0.0:
+            return None
+        d = cfg.decoder_depth
+        if uniforms is None:
+            uniforms = torch.rand((d, batch), generator=generator,
+                                  device=None if generator is None else generator.device)
+        u = torch.as_tensor(uniforms, dtype=torch.float32).to(self.device).reshape(d, batch, 1, 1)
+        gates = []
+        for i in range(d):
+            keep = 1.0 - cfg.drop_path_rate * i / max(d - 1, 1)
+            scale = 1.0 / max(keep, 1e-8) if keep > 0.0 else 0.0
+            gates.append(torch.floor(keep + u[i]) * scale)
+        return gates
+
+    def forward(
+        self,
+        patch_dict: Dict[str, Any],
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+        drop_uniforms: Optional[torch.Tensor] = None,
+    ) -> Dict[str, Any]:
+        """Encode then decode (whichever halves the config has).
+
+        ``deterministic=True`` is inference, under ``torch.no_grad()``.
+        ``deterministic=False`` is the training forward: grad follows the
+        caller's mode, the fused attention kernel is not taken, the decoder
+        blocks drop paths per sample (uniforms from ``generator``, or given
+        as ``drop_uniforms`` ``[decoder_depth, B]``), and ``cfg.checkpoint``
+        picks the blocks to recompute in the backward.
+        """
+        if deterministic:
+            with torch.no_grad():
+                out = patch_dict
+                if self.cfg.encoder:
+                    out = self._encode(out)
+                if self.cfg.decoder:
+                    out = self._decode(out)
+                return out
+        if self.is_quantized:
+            raise ValueError("an int8 model cannot be trained: its block linears hold int8 codes")
         out = patch_dict
         if self.cfg.encoder:
-            out = self.encode(out)
+            out = self._encode(out, deterministic=False)
         if self.cfg.decoder:
-            out = self.decode(out)
+            batch = (out["z"] if "z" in out else out["patches"]).shape[0]
+            gates = self.drop_path_gates(batch, generator, drop_uniforms)
+            out = self._decode(out, deterministic=False, drop_gates=gates)
         return out
 
 

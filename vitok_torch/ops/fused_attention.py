@@ -191,17 +191,31 @@ def fused_qkv_attention(
         patch_mask: optional ``[B, N]`` bool validity mask.
         num_heads: head count H (``D = C // H``).
         sliding_window: optional half-width ``|i-j| <= sw``.
-        impl: ``"auto"`` (the fused kernel where :func:`can_fuse`, else the
-            unfused composition), ``"fused"`` (force the kernel), or an
-            attention impl name for the unfused path (``"flash"``, ``"xla"``).
+        impl: ``"auto"`` (the fused kernel where :func:`can_fuse` and no
+            gradient is asked for, else the unfused composition), ``"fused"``
+            (force the kernel), or an attention impl name for the unfused
+            path (``"flash"``, ``"xla"``).
+
+    The fused kernel has no backward kernel yet (``_fused_bwd_kernel``,
+    ROADMAP.md Open items): when grad is enabled and ``qkv`` requires it,
+    ``"auto"`` takes the unfused composition, and ``"fused"`` on a CUDA
+    tensor raises ``NotImplementedError`` (on a CPU tensor the plain version
+    runs under autograd).
 
     Returns:
         ``[B, N, C]`` in qkv's dtype.
     """
     n, c = qkv.shape[1], qkv.shape[-1] // 3
-    if impl == "fused" or (impl == "auto" and can_fuse(n, c, num_heads)):
+    needs_grad = torch.is_grad_enabled() and qkv.requires_grad
+    if impl == "fused" or (impl == "auto" and not needs_grad and can_fuse(n, c, num_heads)):
         args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
         if qkv.is_cuda:
+            if needs_grad:
+                raise NotImplementedError(
+                    "the fused attention kernel has no backward on the card yet: its backward "
+                    "kernel (_fused_bwd_kernel, #3) is still to port (ROADMAP.md Open items); "
+                    "train with attn_impl='auto'"
+                )
             return _fused_cuda(*args, num_heads, sliding_window)
         if qkv.device.type != "cpu":
             raise RuntimeError(f"no fused attention kernel for device {qkv.device}")

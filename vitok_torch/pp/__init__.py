@@ -7,6 +7,8 @@ from vitok_torch.pp.ops import (
     patchify,
     patchify_array,
     patchify_image,
+    sample_tile_indices,
+    sample_tiles,
     unpack,
     unpatchify,
 )
@@ -19,6 +21,8 @@ __all__ = [
     "patchify_image",
     "unpatchify",
     "unpack",
+    "sample_tile_indices",
+    "sample_tiles",
     "fit_to_token_budget",
     "build_transform",
     "parse_op",

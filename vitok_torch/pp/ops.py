@@ -2,14 +2,18 @@
 
 Port of ``vitok_tpu/pp/ops.py``. Host ops run in the input pipeline and
 produce numpy patch dicts with static ``max_tokens`` padding; ``unpatchify``
-runs on tensors wherever the model output lives. Every factory
-``op(args) -> callable`` composes in the pp-string DSL (``pp/registry.py``).
+and ``sample_tiles`` run on tensors wherever the model output lives. Every
+factory ``op(args) -> callable`` composes in the pp-string DSL
+(``pp/registry.py``). The random host ops (``random_resized_crop``, ``flip``,
+``random_choice``) draw from Python's ``random`` module in the same order as
+the JAX package's, so one ``random.seed`` gives both the same augmentations.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Tuple
+import random as _random
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +49,72 @@ def center_crop(size: int):
     return _center_crop
 
 
+def random_resized_crop(
+    size: int,
+    scale: Tuple[float, float] = (0.8, 1.0),
+    ratio: Tuple[float, float] = (0.75, 1.333),
+):
+    """Random resized crop (ImageNet-style augmentation), Lanczos resample."""
+
+    def _rrc(img):
+        w, h = img.size
+        area = w * h
+        for _ in range(10):
+            target_area = area * _random.uniform(*scale)
+            log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
+            aspect = math.exp(_random.uniform(*log_ratio))
+            cw = int(round(math.sqrt(target_area * aspect)))
+            ch = int(round(math.sqrt(target_area / aspect)))
+            if 0 < cw <= w and 0 < ch <= h:
+                x0 = _random.randint(0, w - cw)
+                y0 = _random.randint(0, h - ch)
+                img = img.crop((x0, y0, x0 + cw, y0 + ch))
+                return img.resize((size, size), resample=Image.LANCZOS)
+        # Fallback: center crop to the limiting aspect, then resize.
+        in_ratio = w / h
+        if in_ratio < ratio[0]:
+            cw, ch = w, int(round(w / ratio[0]))
+        elif in_ratio > ratio[1]:
+            cw, ch = int(round(h * ratio[1])), h
+        else:
+            cw, ch = w, h
+        x0, y0 = (w - cw) // 2, (h - ch) // 2
+        img = img.crop((x0, y0, x0 + cw, y0 + ch))
+        return img.resize((size, size), resample=Image.LANCZOS)
+
+    return _rrc
+
+
+def flip(p: float = 0.5):
+    """Random horizontal flip with probability p."""
+
+    def _flip(img):
+        if _random.random() < p:
+            return img.transpose(Image.FLIP_LEFT_RIGHT)
+        return img
+
+    return _flip
+
+
 def identity() -> Callable:
     return lambda x: x
+
+
+def random_choice(ops: Sequence[str], probs: Sequence[float]) -> Callable:
+    """Randomly apply one of several op-spec strings (recursively parsed)."""
+    if not ops:
+        raise ValueError("ops cannot be empty")
+    if len(ops) != len(probs):
+        raise ValueError(f"ops and probs must have same length: {len(ops)} != {len(probs)}")
+    from vitok_torch.pp.registry import parse_op_spec
+
+    resolved = [parse_op_spec(op).build() for op in ops]
+
+    def _random_choice(x):
+        idx = _random.choices(range(len(resolved)), weights=probs, k=1)[0]
+        return resolved[idx](x)
+
+    return _random_choice
 
 
 def to_tensor():
@@ -253,11 +321,80 @@ def unpack(images, orig_h, orig_w) -> List[torch.Tensor]:
     return [img[:, : int(h), : int(w)] for img, h, w in zip(images, hs, ws)]
 
 
+def sample_tile_indices(
+    orig_h: torch.Tensor,
+    orig_w: torch.Tensor,
+    n_tiles: int = 2,
+    tile_size: Tuple[int, int] = (256, 256),
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-image tile origins ``(start_y, start_x)``, each ``[B, n_tiles]``
+    int32, uniform over the origins that keep a tile inside the image:
+    ``floor(U * (max(size - tile, 0) + 1))``. The uniforms come from
+    ``generator`` (a generator seeded with 0 when None), drawn on the
+    generator's device."""
+    orig_h, orig_w = torch.as_tensor(orig_h), torch.as_tensor(orig_w)
+    b, dev = orig_h.shape[0], orig_h.device
+    th, tw = tile_size
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    max_sy = (orig_h.float() - th).clamp(min=0)
+    max_sx = (orig_w.float() - tw).clamp(min=0)
+    r_y = torch.rand((b, n_tiles), generator=generator, device=generator.device).to(dev)
+    r_x = torch.rand((b, n_tiles), generator=generator, device=generator.device).to(dev)
+    start_y = torch.floor(r_y * (max_sy[:, None] + 1)).to(torch.int32)
+    start_x = torch.floor(r_x * (max_sx[:, None] + 1)).to(torch.int32)
+    return start_y, start_x
+
+
+def sample_tiles(
+    images: torch.Tensor,
+    orig_h: torch.Tensor,
+    orig_w: torch.Tensor,
+    n_tiles: int = 2,
+    tile_size: Tuple[int, int] = (256, 256),
+    indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Random tiles of each image for the perceptual-style losses.
+
+    Images smaller than a tile are padded with -1.0 on the bottom and right;
+    origins are clipped so every tile lies inside. Passing the returned
+    ``indices`` crops a second tensor at the same places. Each tile is a
+    slice (the origins are read back to the host once per call), so
+    gradients flow back into ``images`` without a scatter.
+
+    Returns tiles ``[B, n_tiles, C, th, tw]`` and ``(start_y, start_x)``.
+    """
+    b, c, h, w = images.shape
+    th, tw = tile_size
+    pad_h, pad_w = max(th - h, 0), max(tw - w, 0)
+    if pad_h or pad_w:
+        images = torch.nn.functional.pad(images, (0, pad_w, 0, pad_h), value=-1.0)
+    ph, pw = images.shape[2], images.shape[3]
+    if indices is None:
+        start_y, start_x = sample_tile_indices(
+            orig_h, orig_w, n_tiles=n_tiles, tile_size=tile_size, generator=generator)
+    else:
+        start_y, start_x = indices
+    start_y = torch.as_tensor(start_y).to(torch.int32).clamp(0, ph - th)
+    start_x = torch.as_tensor(start_x).to(torch.int32).clamp(0, pw - tw)
+    origins = torch.stack([start_y, start_x], -1).tolist()
+    tiles = torch.stack([
+        torch.stack([images[i, :, sy:sy + th, sx:sx + tw] for sy, sx in per_image])
+        for i, per_image in enumerate(origins)
+    ])
+    return tiles, (start_y, start_x)
+
+
 OPS = {
     "center_crop": center_crop,
+    "random_resized_crop": random_resized_crop,
     "resize_longest_side": resize_longest_side,
     "resize_to_token_budget": resize_to_token_budget,
+    "flip": flip,
     "identity": identity,
+    "random_choice": random_choice,
     "to_tensor": to_tensor,
     "normalize": normalize,
     "patchify": patchify,
@@ -266,6 +403,11 @@ OPS = {
 
 __all__ = [
     "center_crop",
+    "random_resized_crop",
+    "flip",
+    "random_choice",
+    "sample_tile_indices",
+    "sample_tiles",
     "resize_longest_side",
     "resize_to_token_budget",
     "fit_to_token_budget",

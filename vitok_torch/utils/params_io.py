@@ -1,6 +1,7 @@
-"""Checkpoint interchange into the port's ``AE`` state dict.
+"""Checkpoint interchange into and out of the port's ``AE`` state dict.
 
-Two sources:
+Two sources, each with its way back (:func:`to_jax_params`,
+:func:`module_state_to_released_state`):
 
 * the JAX package's stacked params pytree (numpy arrays, depth leading,
   Linear kernels ``[in, out]``, q/k channels already in rotate-half order):
@@ -99,35 +100,81 @@ def from_jax_params(params: Mapping[str, Any], cfg=None) -> Dict[str, torch.Tens
     return state
 
 
+def to_jax_params(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """``AE`` state dict (full precision) -> the JAX package's stacked params
+    pytree of fp32 numpy arrays: the inverse of :func:`from_jax_params`, so
+    trained weights go back. Optimizer state is not carried across."""
+    params: Dict[str, Any] = {}
+    for name in _TOP_LINEAR:
+        if f"{name}.weight" in state:
+            params[name] = {"kernel": np.ascontiguousarray(_to_numpy(state[f"{name}.weight"]).T)}
+            if f"{name}.bias" in state:
+                params[name]["bias"] = _to_numpy(state[f"{name}.bias"])
+    for stack_name in _STACKS:
+        depth = 1 + max((int(k.split(".")[1]) for k in state if k.startswith(stack_name + ".")), default=-1)
+        if depth == 0:
+            continue
+        stack: Dict[str, Any] = {}
+        for suffix, path, transpose in _BLOCK_ENTRIES:
+            if f"{stack_name}.0.{suffix}" not in state:
+                continue
+            layers = [_to_numpy(state[f"{stack_name}.{i}.{suffix}"]) for i in range(depth)]
+            node = stack
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = np.stack([a.T if transpose else a for a in layers])
+        params[stack_name] = stack
+    if not params:
+        raise ValueError("No recognizable ViTok params found")
+    return params
+
+
 def _to_numpy(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().float().numpy()
     return np.asarray(v)
 
 
-def released_state_to_module_state(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Released flat state dict (interleaved q/k order) -> ``AE`` state dict.
-
-    Permutes the q and k output rows of every ``attn.qkv_proj.weight``
-    (``[3W, W]``) and the ``norm_q``/``norm_k`` gains to rotate-half order.
-    A ``_orig_mod.`` prefix (``torch.compile``) is stripped.
-    """
-    out: Dict[str, torch.Tensor] = {}
+def _permute_qk(state: Mapping[str, Any], inverse: bool) -> Dict[str, torch.Tensor]:
+    """Reorder the q and k output rows of every ``attn.qkv_proj.weight``
+    (``[3W, W]``) and the ``norm_q``/``norm_k`` gains between the released
+    interleaved RoPE order and rotate-half order (``inverse``: back)."""
+    out: Dict[str, np.ndarray] = {}
     for key, v in state.items():
         key = key[len("_orig_mod."):] if key.startswith("_orig_mod.") else key
-        arr = _to_numpy(v).astype(np.float32)
-        if key.endswith(("attn.norm_q.weight", "attn.norm_k.weight")):
-            arr = arr[rope_half_permutation(arr.shape[-1])]
-        out[key] = arr
+        out[key] = _to_numpy(v).astype(np.float32)
+    perm = lambda d: np.argsort(rope_half_permutation(d)) if inverse else rope_half_permutation(d)
     for key in list(out):
-        if key.endswith("attn.qkv_proj.weight"):
+        if key.endswith(("attn.norm_q.weight", "attn.norm_k.weight")):
+            out[key] = out[key][perm(out[key].shape[-1])]
+        elif key.endswith("attn.qkv_proj.weight"):
             head_dim = out[key.replace("qkv_proj", "norm_q")].shape[-1]
             w = out[key]
             three_w, fan_in = w.shape
             a = w.reshape(3, three_w // 3 // head_dim, head_dim, fan_in).copy()
-            a[:2] = a[:2][:, :, rope_half_permutation(head_dim)]
+            a[:2] = a[:2][:, :, perm(head_dim)]
             out[key] = a.reshape(three_w, fan_in)
     return {k: _tensor(v) for k, v in out.items()}
 
 
-__all__ = ["from_jax_params", "released_state_to_module_state"]
+def released_state_to_module_state(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Released flat state dict (interleaved q/k order) -> ``AE`` state dict
+    (rotate-half order). A ``_orig_mod.`` prefix (``torch.compile``) is
+    stripped."""
+    return _permute_qk(state, inverse=False)
+
+
+def module_state_to_released_state(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``AE`` state dict (full precision) -> released flat layout, fp32: the
+    inverse of :func:`released_state_to_module_state`."""
+    if any(k.endswith("weight_int8") for k in state):
+        raise ValueError("an int8 state dict has no released layout: export the full-precision weights")
+    return _permute_qk(state, inverse=True)
+
+
+__all__ = [
+    "from_jax_params",
+    "to_jax_params",
+    "released_state_to_module_state",
+    "module_state_to_released_state",
+]
