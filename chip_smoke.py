@@ -38,7 +38,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    falling loss, the first step's gradients against the same step on the
    plain backward), a step with every block recomputed (56 forward
    launches, the same loss), and one step at 2048p (16384 tokens);
-7. prints a JSON line describing each kernel, the card's name and power
+7. holds the fused attention's backward kernel and its int8-epilogue
+   instance against their plain versions (and the epilogue's codes against
+   ``quantize_activation`` of the forward kernel's output, bit for bit);
+   trains 350M at 256 tokens, batch 32, on the fused kernel and its backward
+   kernel (28 + 28 launches a step) beside the unfused composition under
+   autograd; runs the int8 350M path with the quantize epilogue switched on;
+   samples DiT-L/256 latents with 20 UniPC steps under classifier-free
+   guidance (host loop and device loop), decodes them to 256 x 256 images
+   with the 350M decoder, repeats a call after ``DiT.quantize()``; and
+   takes three flow-matching training steps of DiT-L on the fused kernels;
+8. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -146,6 +156,26 @@ def _attention_inputs(rng, b, n, c, h, masked, device):
     return (to(qkv).to(torch.bfloat16), to(qs), to(ks), to(cos), to(sin), to(mask))
 
 
+def _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d):
+    """q, k normalised and rotated, and v, as ``[B, H, N, D]`` for SDPA."""
+    from vitok_torch.ops.norms import rms_norm
+    from vitok_torch.ops.rope import apply_rotary_emb
+
+    q, k, v = qkv.view(b, n, 3, h, d).unbind(2)
+    q, k = apply_rotary_emb(rms_norm(q, qs), rms_norm(k, ks), cos, sin, convention="half")
+    return tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+
+def _sdpa_mask(mask, n, sw, device):
+    from vitok_torch.ops.attention import make_attention_mask
+
+    am = make_attention_mask(None, n, sw, device) if sw is not None else None
+    if mask is not None:
+        key_ok = mask[:, None, None, :]
+        am = key_ok if am is None else (am & key_ok)
+    return am
+
+
 def _needed_pairs(b, mask, n, sw) -> int:
     """(query, key) pairs the function needs on this data, over the batch:
     valid keys inside each row's window; a row with none averages over all N."""
@@ -172,9 +202,6 @@ def kernel_phase(device) -> dict:
     import torch
     import torch.nn.functional as F
     from vitok_torch.ops import fused_attention as fa
-    from vitok_torch.ops.attention import make_attention_mask
-    from vitok_torch.ops.norms import rms_norm
-    from vitok_torch.ops.rope import apply_rotary_emb
 
     rng = np.random.default_rng(0)
     rows, worst = [], 0.0
@@ -206,16 +233,8 @@ def kernel_phase(device) -> dict:
                     f"max |err|/max(1,|out|) {rel_all:.3e} (limit {KERNEL_MAX_ABS})"
                 )
             # Library yardstick: SDPA on pre-normed, pre-rotated q/k/v.
-            d = c // h
-            q, k, v = qkv.view(b, n, 3, h, d).unbind(2)
-            q, k = apply_rotary_emb(rms_norm(q, qs), rms_norm(k, ks), cos, sin, convention="half")
-            q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            am = None
-            if mask is not None or sw is not None:
-                am = make_attention_mask(None, n, sw, device)
-                if mask is not None:
-                    key_ok = mask[:, None, None, :]
-                    am = key_ok if am is None else (am & key_ok)
+            q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, c // h)
+            am = _sdpa_mask(mask, n, sw, device)
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)
             ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), time_ms(library)
             bound, bound_by = _bound(b, n, c, h, mask, sw)
@@ -392,7 +411,6 @@ def flash_kernel_phase(device) -> dict:
     import torch
     import torch.nn.functional as F
     from vitok_torch.ops import flash_attention as fl
-    from vitok_torch.ops.attention import make_attention_mask
 
     gen = torch.Generator(device=device).manual_seed(3)
     rows, worst = [], 0.0
@@ -425,10 +443,7 @@ def flash_kernel_phase(device) -> dict:
             del got, lse, want, want_lse, err
             # Library yardstick: SDPA with the equivalent boolean mask.
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            am = make_attention_mask(None, n, sw, device)
-            if mask is not None:
-                key_ok = mask[:, None, None, :]
-                am = key_ok if am is None else (am & key_ok)
+            am = _sdpa_mask(mask, n, sw, device)
             ms = time_ms(lambda: fl.flash_attention(q, k, v, mask, sw))
             plain_ms = time_ms(lambda: fl.flash_attention_plain(q, k, v, mask, sw), runs=3, warmup=1)
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), runs=3)
@@ -465,7 +480,8 @@ def launch_counts() -> dict:
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
 
-    return {"fused_attention": fa.LAUNCHES, "flash_attention": fl.LAUNCHES,
+    return {"fused_attention": fa.LAUNCHES, "fused_attention_bwd": fa.BWD_LAUNCHES,
+            "fused_attention_q8": fa.Q8_LAUNCHES, "flash_attention": fl.LAUNCHES,
             "flash_attention_dq": fl.DQ_LAUNCHES, "flash_attention_dkv": fl.DKV_LAUNCHES,
             **quant.LAUNCHES}
 
@@ -475,7 +491,7 @@ def reset_counts() -> None:
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
 
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_LAUNCHES = fa.Q8_LAUNCHES = 0
     fl.LAUNCHES = fl.DQ_LAUNCHES = fl.DKV_LAUNCHES = 0
     for k in quant.LAUNCHES:
         quant.LAUNCHES[k] = 0
@@ -509,7 +525,7 @@ def _random_gates(model, device) -> None:
 
     gen = torch.Generator(device=device).manual_seed(1)
     with torch.no_grad():
-        for blk in [*model.encoder_blocks, *model.decoder_blocks]:
+        for blk in [*getattr(model, "encoder_blocks", ()), *getattr(model, "decoder_blocks", ())]:
             g = blk.layer_scale.gamma
             g.copy_(0.5 + torch.rand(g.shape, generator=gen, device=device))
 
@@ -830,7 +846,6 @@ def flash_bwd_kernel_phase(device) -> dict:
     import torch
     import torch.nn.functional as F
     from vitok_torch.ops import flash_attention as fl
-    from vitok_torch.ops.attention import make_attention_mask
 
     gen = torch.Generator(device=device).manual_seed(5)
     rows, worst = [], {"dq": 0.0, "dkv": 0.0}
@@ -878,10 +893,7 @@ def flash_bwd_kernel_phase(device) -> dict:
             # boolean mask, minus its forward.
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
             gt = g.transpose(1, 2).contiguous()
-            am = make_attention_mask(None, n, sw, device)
-            if mask is not None:
-                key_ok = mask[:, None, None, :]
-                am = key_ok if am is None else (am & key_ok)
+            am = _sdpa_mask(mask, n, sw, device)
 
             def sdpa_step():
                 o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
@@ -1085,11 +1097,657 @@ def flash_bwd_entries(bkern: dict, training: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The fused attention's backward kernel (#3) and int8-epilogue instance (#2)
+# ---------------------------------------------------------------------------
+
+FUSED_BWD_SHAPES = (  # (label, B, N, C, H): the last is ragged, N a multiple of 8 and not of 64
+    ("350M@256t", 32, 256, 1024, 16),
+    ("350M@1024t", 8, 1024, 1024, 16),
+    ("5B@256t", 8, 256, 3072, 24),
+    ("ragged", 3, 200, 1024, 16),
+)
+FUSED_BWD_SW = 64
+# Each gradient's error on valid rows relative to its largest entry, about
+# three times the worst first readings on an H100 (dq/dk/dv max 1.5e-2, mean
+# 5.2e-4; gain gradients 8.9e-3). Kernel and plain version round p, ds and the
+# outputs to bf16 at the same points but form p by another route (exp2 of an
+# online max/sum against exp of the full row), and the gradients are sums of
+# cancelling bf16-rounded terms, so the noise is that of bf16 products; the
+# phase prints both sides' distance from the fp32 gradient beside it.
+FUSED_BWD_MAX_REL = 4e-2
+FUSED_BWD_MEAN_REL = 1.5e-3
+FUSED_BWD_GAIN_REL = 3e-2
+
+
+def _tail_mask(b, n, device, dead_last: bool):
+    """A different tail-suffix valid count per sample; with ``dead_last`` the
+    last sample is all padding."""
+    import torch
+
+    valid = [n - (i * n) // (b + 2) - (n // 4 if b == 1 else 0) for i in range(b)]
+    if dead_last:
+        valid[-1] = 0
+    mask = torch.arange(n, device=device)[None, :] < torch.tensor(valid, device=device)[:, None]
+    return mask, valid
+
+
+FUSED_BWD_CASES = ("none", "tail", "sw", "tail+sw")
+
+
+def fused_bwd_kernel_phase(device, shapes=FUSED_BWD_SHAPES, cases=FUSED_BWD_CASES) -> dict:
+    """The fused backward kernel against ``fused_qkv_attention_bwd_plain``:
+    dqkv plane by plane and the two gain gradients, padded rows exactly 0,
+    two runs bit-identical. The library yardstick is SDPA forward + backward
+    on the already normalised and rotated q/k: it computes less (no norm, no
+    RoPE, nor their backward)."""
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.ops import fused_attention as fa
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=device).manual_seed(7)
+    rows, worst = [], 0.0
+    log("kernel phase: fused attention backward (CUDA) vs fused_qkv_attention_bwd_plain, bf16")
+    log(f"{'shape':11s} {'B':>3s} {'N':>5s} {'C':>5s} {'H':>3s} {'case':10s} {'dq max/mean rel':>17s} "
+        f"{'dk max/mean rel':>17s} {'dv max/mean rel':>17s} {'dqs rel':>8s} {'dks rel':>8s} {'ms':>8s} "
+        f"{'plain_ms':>9s} {'sdpa_fb':>8s} {'bound_ms':>9s}")
+    for label, b, n, c, h in shapes:
+        d = c // h
+        for case in cases:
+            qkv, qs, ks, cos, sin, _ = _attention_inputs(rng, b, n, c, h, False, device)
+            mask, valid = (None, [n] * b)
+            if "tail" in case:
+                mask, valid = _tail_mask(b, n, device, dead_last=b >= 3)
+            sw = FUSED_BWD_SW if "sw" in case else None
+            g = torch.randn((b, n, c), generator=gen, device=device).to(torch.bfloat16)
+            kw = dict(num_heads=h, sliding_window=sw)
+            kernel = lambda: fa.fused_qkv_attention_bwd(qkv, qs, ks, cos, sin, mask, g, **kw)
+            plain = lambda: fa.fused_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, mask, g, **kw)
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            ms = time_ms(kernel, runs=20, warmup=3)  # before the plain version's multi-GB temporaries
+            want = plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                raise AssertionError(f"fused backward {label} {case}: two runs differ")
+            if mask is not None and (got[0][~mask].any() or want[0][~mask].any()):
+                raise AssertionError(f"fused backward {label} {case}: padded rows of dqkv are not exactly 0")
+            errs = {}
+            for i, name in enumerate(("dq", "dk", "dv")):
+                a, r = got[0][..., i * c:(i + 1) * c].float(), want[0][..., i * c:(i + 1) * c].float()
+                err = (a - r).abs() if mask is None else (a - r).abs()[mask]
+                scale = r.abs().max().item()
+                errs[name] = (err.max().item() / scale, err.mean().item() / scale, err.max().item(),
+                              bool(torch.isfinite(a).all()))
+            gains = {}
+            for i, name in ((1, "dqs"), (2, "dks")):
+                gains[name] = ((got[i] - want[i]).abs().max() / want[i].abs().max()).item()
+            bad = {k_: e for k_, e in errs.items()
+                   if not (e[3] and e[0] <= FUSED_BWD_MAX_REL and e[1] <= FUSED_BWD_MEAN_REL)}
+            bad.update({k_: e for k_, e in gains.items() if not e <= FUSED_BWD_GAIN_REL})
+            if bad:
+                raise AssertionError(
+                    f"fused backward kernel disagrees with its plain version at {label} B={b} N={n} C={c} "
+                    f"H={h} {case}: {bad} (limits: dqkv max {FUSED_BWD_MAX_REL}, mean {FUSED_BWD_MEAN_REL}, "
+                    f"gain gradients {FUSED_BWD_GAIN_REL}, of each gradient's largest entry)")
+            del got, again, want
+            plain_ms = time_ms(plain, runs=3, warmup=1)
+            q, k, v = (t.requires_grad_(True) for t in _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d))
+            gt = g.view(b, n, h, d).transpose(1, 2).contiguous()
+            am = _sdpa_mask(mask, n, sw, device)
+
+            def sdpa_step():
+                o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+                torch.autograd.grad(o, (q, k, v), gt)
+
+            lib_ms = time_ms(sdpa_step, runs=5)
+            del q, k, v, gt, am
+            nbytes = 7 * b * n * c * 2 + 2 * b * n * (d // 2) * 4 + (0 if mask is None else b * n)
+            bound = _bound_ms(nbytes, 10.0 * h * d * _flash_pairs(valid, n, sw), BF16_FLOPS_PER_S)
+            worst = max(worst, *(e[2] for e in errs.values()))
+            rows.append(dict(shape=label, B=b, N=n, C=c, H=h, case=case,
+                             **{f"{k_}_max_rel_err": e[0] for k_, e in errs.items()},
+                             **{f"{k_}_mean_rel_err": e[1] for k_, e in errs.items()},
+                             **{f"{k_}_rel_err": e for k_, e in gains.items()},
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0], bound_by=bound[1]))
+            rel = lambda k_: f"{errs[k_][0]:8.2e}/{errs[k_][1]:8.2e}"
+            log(f"{label:11s} {b:3d} {n:5d} {c:5d} {h:3d} {case:10s} {rel('dq')} {rel('dk')} {rel('dv')} "
+                f"{gains['dqs']:8.2e} {gains['dks']:8.2e} {ms:8.4f} {plain_ms:9.4f} {lib_ms:8.4f} {bound[0]:9.5f}")
+        if label in ("350M@256t", "5B@256t"):
+            _fused_bwd_vs_fp32(fa, rng, gen, label, min(b, 4), n, c, h, device)
+    log("  (sdpa_fb: SDPA forward + backward on already normalised q/k: no norm, no RoPE, nor their backward)")
+    return dict(rows=rows, max_abs_err=worst)
+
+
+def _fused_bwd_vs_fp32(fa, rng, gen, label, b, n, c, h, device) -> None:
+    """For information: kernel and plain version each against the fp32
+    gradient of the same bf16 inputs (the plain version run in fp32)."""
+    import torch
+
+    qkv, qs, ks, cos, sin, _ = _attention_inputs(rng, b, n, c, h, False, device)
+    g = torch.randn((b, n, c), generator=gen, device=device).to(torch.bfloat16)
+    kw = dict(num_heads=h, sliding_window=None)
+    exact = fa.fused_qkv_attention_bwd_plain(qkv.float(), qs, ks, cos, sin, None, g.float(), **kw)[0]
+    top = exact.abs().max().item()
+    dist = lambda t: ((t.float() - exact).abs().mean().item() / top, (t.float() - exact).abs().max().item() / top)
+    kern = dist(fa.fused_qkv_attention_bwd(qkv, qs, ks, cos, sin, None, g, **kw)[0])
+    plain = dist(fa.fused_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, None, g, **kw)[0])
+    log(f"  {label} B={b}: distance of dqkv from the fp32 gradient (mean, max of its largest entry): "
+        f"kernel {kern[0]:.2e}, {kern[1]:.2e}; plain version {plain[0]:.2e}, {plain[1]:.2e}")
+
+
+Q8_SHAPES = (  # (label, B, N, C, H)
+    ("350M@256t main", 64, 256, 1024, 16),
+    ("350M@1024t", 16, 1024, 1024, 16),
+    ("5B@256t", 16, 256, 3072, 24),
+)
+Q8_DEQUANT_MAX_ABS = 3e-2   # #1's limits against its plain version (2e-2, 2e-3)
+Q8_DEQUANT_MEAN_ABS = 3e-3  # plus half a quantization step
+Q8_SCALE_RTOL = 2e-2        # a scale is a row's largest |value| / 127
+
+
+def q8_kernel_phase(device, shapes=Q8_SHAPES) -> dict:
+    """The int8-epilogue kernel: codes and scales equal to
+    ``quantize_activation`` of the forward kernel's output bit for bit, and
+    its dequantized values against the plain version's; timed beside the
+    forward kernel plus the eager quantize it replaces."""
+    import torch
+    from vitok_torch.ops import fused_attention as fa
+    from vitok_torch.ops.quant import quantize_activation
+
+    rng = np.random.default_rng(8)
+    rows, worst = [], 0.0
+    log("kernel phase: fused attention + int8 epilogue (CUDA) vs quantize_activation(fused kernel) "
+        "and vs fused_qkv_attention_q8_plain")
+    log(f"{'shape':15s} {'B':>3s} {'N':>5s} {'C':>5s} {'H':>3s} {'case':5s} {'codes!=':>8s} {'scales!=':>8s} "
+        f"{'deq max':>9s} {'deq mean':>9s} {'ms':>8s} {'fwd+quant':>9s} {'fwd_ms':>8s} {'plain_ms':>9s} {'bound_ms':>9s}")
+    for label, b, n, c, h in shapes:
+        for case in ("none", "tail"):
+            qkv, qs, ks, cos, sin, mask = _attention_inputs(rng, b, n, c, h, case == "tail", device)
+            kw = dict(num_heads=h, sliding_window=None)
+            kernel = lambda: fa.fused_qkv_attention_q8(qkv, qs, ks, cos, sin, mask, **kw)
+            fwd = lambda: fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, impl="fused", **kw)
+            chain = lambda: quantize_activation(fwd())
+            codes, scales = kernel()
+            ref_codes, ref_scales = chain()
+            p_codes, p_scales = fa.fused_qkv_attention_q8_plain(qkv, qs, ks, cos, sin, mask, **kw)
+            torch.cuda.synchronize()
+            n_codes = int((codes != ref_codes).sum().item())
+            n_scales = int((scales != ref_scales).sum().item())
+            deq = (codes.float() * scales - p_codes.float() * p_scales).abs()
+            srel = ((scales - p_scales).abs() / p_scales)
+            if mask is not None:
+                deq, srel = deq[mask], srel[mask]
+            deq_max, deq_mean, srel_max = deq.max().item(), deq.mean().item(), srel.max().item()
+            if not (n_codes == 0 and n_scales == 0 and deq_max <= Q8_DEQUANT_MAX_ABS
+                    and deq_mean <= Q8_DEQUANT_MEAN_ABS and srel_max <= Q8_SCALE_RTOL):
+                raise AssertionError(
+                    f"q8 kernel at {label} B={b} N={n} C={c} H={h} {case}: {n_codes} codes and {n_scales} "
+                    f"scales differ from quantize_activation of the forward kernel's output (expected 0); "
+                    f"dequantized vs the plain version max {deq_max:.3e} mean {deq_mean:.3e} (limits "
+                    f"{Q8_DEQUANT_MAX_ABS}, {Q8_DEQUANT_MEAN_ABS}), scales rel {srel_max:.3e} (limit {Q8_SCALE_RTOL})")
+            del codes, scales, ref_codes, ref_scales, p_codes, p_scales, deq, srel
+            ms, chain_ms, fwd_ms = time_ms(kernel), time_ms(chain), time_ms(fwd)
+            plain_ms = time_ms(lambda: fa.fused_qkv_attention_q8_plain(qkv, qs, ks, cos, sin, mask, **kw),
+                               runs=3, warmup=1)
+            d = c // h
+            nbytes = (b * n * 3 * c * 2 + b * n * (c + 4) + 2 * b * n * (d // 2) * 4 + 2 * d * 4
+                      + (0 if mask is None else b * n))
+            bound = _bound_ms(nbytes, 4.0 * h * d * _needed_pairs(b, mask, n, None), BF16_FLOPS_PER_S)
+            worst = max(worst, deq_max)
+            rows.append(dict(shape=label, B=b, N=n, C=c, H=h, case=case, codes_differ=n_codes,
+                             scales_differ=n_scales, max_abs_err=deq_max, mean_abs_err=deq_mean, ms=ms,
+                             fused_plus_quantize_ms=chain_ms, fused_ms=fwd_ms, plain_ms=plain_ms,
+                             bound_ms=bound[0], bound_by=bound[1]))
+            log(f"{label:15s} {b:3d} {n:5d} {c:5d} {h:3d} {case:5s} {n_codes:8d} {n_scales:8d} {deq_max:9.2e} "
+                f"{deq_mean:9.2e} {ms:8.4f} {chain_ms:9.4f} {fwd_ms:8.4f} {plain_ms:9.4f} {bound[0]:9.5f}")
+    log("  (fwd+quant: the forward kernel and the eager quantize_activation the epilogue replaces)")
+    return dict(rows=rows, max_abs_err=worst)
+
+
+# ---------------------------------------------------------------------------
+# Training on the fused kernel and its backward; int8 with the epilogue
+# ---------------------------------------------------------------------------
+
+FUSED_TRAIN = ("256p", 256, 32, RESOLUTIONS[0][3])  # 8192 tokens a step, as TRAIN
+
+
+def _set_attn_impl(model, impl: str) -> None:
+    model.cfg = dataclasses.replace(model.cfg, attn_impl=impl)
+
+
+def _timed_steps(train_step, state, inputs, steps: int):
+    """``steps`` train steps on one batch: (state, metrics per step, host ms
+    per step each ending in a synchronise, launches per step)."""
+    import torch
+
+    metrics_all, step_ms, per_step = [], [], []
+    for _ in range(steps):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, inputs, 3)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+        metrics_all.append({k: float(v) for k, v in metrics.items()})
+    return state, metrics_all, step_ms, per_step
+
+
+def fused_training_phase(device, card: str) -> dict:
+    """Train 350M-f16x64 at 256 tokens, batch 32 (8192 tokens a step), no
+    window, fp32 master weights, with ``attn_impl="fused"``: the fused kernel
+    forward and its backward kernel in every block; then the same steps with
+    ``"auto"`` (the unfused composition under autograd) beside it."""
+    import torch
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.train_lib import (LossConfig, compute_loss, create_optimizer, create_schedule,
+                                       create_train_state, make_train_step)
+
+    model = AE(**{**decode_variant(VARIANT), "attn_impl": "fused"}, seed=0, device=device,
+               param_dtype=torch.float32, trainable=True)
+    _random_gates(model, device)
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    params = list(model.parameters())
+    (case,) = main_path_cases(device, [FUSED_TRAIN], seed=7)
+    name, max_tokens, batch, _, inputs = case
+    side = int(max_tokens ** 0.5)
+    loss_cfg = LossConfig(ssim_weight=0.1, tile_size=256, n_tiles=2, ssim_grid=(side, side))
+    log(f"fused training path: {VARIANT}, fp32 master weights, bf16 compute, {name} batch {batch} "
+        f"({batch * max_tokens} tokens a step), attn_impl='fused', Charbonnier 1.0 + SSIM 0.1, AdamW lr {TRAIN_LR} + EMA")
+
+    def grads_of(impl):
+        _set_attn_impl(model, impl)
+        gen = torch.Generator(device=device).manual_seed(11)
+        loss, _ = compute_loss(model, inputs, loss_cfg, gen)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    def rel_l2(got, want):
+        num = sum((a.double() - b.double()).square().sum() for a, b in zip(got, want))
+        return (num / sum(b.double().square().sum() for b in want)).sqrt().item()
+
+    # The first step's gradients: the fused kernels against the unfused composition under autograd.
+    reset_counts()
+    loss_f, g_fused = grads_of("fused")
+    first = launch_counts()
+    loss_a, g_auto = grads_of("auto")
+    torch.cuda.synchronize()
+    grad_rel = rel_l2(g_fused, g_auto)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_fused)
+    loss_gap = abs(loss_f.item() - loss_a.item()) / abs(loss_a.item())
+    want_first = _expect(fused_attention=depth, fused_attention_bwd=depth)
+    if not (finite and first == want_first and launch_counts() == want_first
+            and grad_rel <= TRAIN_GRAD_REL_L2 and loss_gap <= 1e-2):
+        raise AssertionError(
+            f"fused training: gradients vs attn_impl='auto': rel L2 {grad_rel:.3e} (limit {TRAIN_GRAD_REL_L2}), "
+            f"finite {finite}, loss {loss_f.item()} vs {loss_a.item()}, launches {first} then {launch_counts()} "
+            f"(expected {want_first}, and none more under 'auto')")
+    del g_fused, g_auto
+    log(f"  first-step gradients, fused kernels vs the unfused composition under autograd: rel L2 "
+        f"{grad_rel:.3e} over all parameters; loss {loss_f.item():.5f} vs {loss_a.item():.5f}")
+
+    _set_attn_impl(model, "fused")
+    tx = create_optimizer(create_schedule("constant", TRAIN_LR, 2 * TRAIN_STEPS, warmup_frac=0.0))
+    state = create_train_state(model, tx)
+    train_step = make_train_step(tx, loss_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the fused training path's run
+    state, metrics, step_ms, per_step = _timed_steps(train_step, state, inputs, TRAIN_STEPS)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(got != want_first for got in per_step):
+        raise AssertionError(f"fused training: launches per step {per_step}, expected {want_first}")
+    totals = [m["loss/total"] for m in metrics]
+    if not (all(np.isfinite(list(m.values())).all() for m in metrics) and totals[-1] < totals[0]):
+        raise AssertionError(f"fused training: losses {totals} must be finite and fall from the first to the fifth step")
+    ms = float(np.median(step_ms[1:]))
+    tokens = batch * max_tokens
+    log(f"  'fused', {TRAIN_STEPS} steps: loss " + " -> ".join(f"{t:.5f}" for t in totals)
+        + f"; launches a step {want_first}")
+    log(f"  'fused': {ms:.3f} ms/step (host clock, median of steps 2-{TRAIN_STEPS}; first {step_ms[0]:.3f}), "
+        f"{tokens / ms * 1e3:.1f} tokens/s, peak memory {peak_gb:.3f} GB on {card}")
+    profile_step(f"fused train {name}", lambda: train_step(state, inputs, 3))
+
+    # Every block recomputed in the backward: twice the forward launches.
+    _with_checkpoint(model, 1)
+    torch.cuda.reset_peak_memory_stats()
+    state, remat_metrics, remat_ms, remat_launches = _timed_steps(train_step, state, inputs, 1)
+    expect = _expect(fused_attention=2 * depth, fused_attention_bwd=depth)
+    if remat_launches[0] != expect or not np.isfinite(remat_metrics[0]["loss/total"]):
+        raise AssertionError(f"fused training with checkpoint=1: launches {remat_launches[0]} (expected {expect}), "
+                             f"loss {remat_metrics[0]['loss/total']}")
+    remat_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  'fused', checkpoint=1: launches {remat_launches[0]}, loss {remat_metrics[0]['loss/total']:.5f}; "
+        f"{remat_ms[0]:.3f} ms (one step), peak memory {remat_peak:.3f} GB on {card}")
+    _with_checkpoint(model, 0)
+
+    # The same steps on the unfused composition under autograd.
+    _set_attn_impl(model, "auto")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    state, auto_metrics, auto_step_ms, _ = _timed_steps(train_step, state, inputs, TRAIN_STEPS - 1)
+    if launch_counts() != before or not all(np.isfinite(m["loss/total"]) for m in auto_metrics):
+        raise AssertionError(f"training with attn_impl='auto': launches moved to {launch_counts()} or a loss is not finite")
+    auto_peak = torch.cuda.max_memory_allocated() / 1e9
+    auto_ms = float(np.median(auto_step_ms[1:]))
+    log(f"  'auto' (unfused attention under autograd, no kernel launch): {auto_ms:.3f} ms/step (median of "
+        f"steps 2-{TRAIN_STEPS - 1}; first {auto_step_ms[0]:.3f}), {tokens / auto_ms * 1e3:.1f} tokens/s, "
+        f"peak memory {auto_peak:.3f} GB on {card}")
+    profile_step(f"auto train {name}", lambda: train_step(state, inputs, 3))
+    return dict(launches=launches, losses=totals, grad_rel_l2=grad_rel, ms_per_step=ms, peak_gb=peak_gb,
+                auto_ms_per_step=auto_ms, auto_peak_gb=auto_peak, remat_ms=remat_ms[0], remat_peak_gb=remat_peak)
+
+
+@contextlib.contextmanager
+def q8_epilogue(on: bool):
+    """The opt-in of the int8 epilogue (``VITOK_Q8_EPILOGUE``, read when the
+    package is imported) set for a run of this script."""
+    from vitok_torch.ops import fused_attention as fa
+
+    saved, fa._ENABLE_Q8 = fa._ENABLE_Q8, on
+    try:
+        yield
+    finally:
+        fa._ENABLE_Q8 = saved
+
+
+def q8_path_phase(device, card: str) -> dict:
+    """The int8 350M path with the quantize epilogue switched on: where the
+    gate opens (256 tokens; it stays closed at 1024, as in the JAX package)
+    every block's attention is one launch of the int8-epilogue kernel and
+    none of the forward kernel, and the output equals the run with the
+    opt-in off."""
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.ops import fused_attention as fa
+
+    model = AE(**decode_variant(VARIANT), seed=0, device=device)
+    _random_gates(model, device)
+    model.quantize()
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    cases = main_path_cases(device, RESOLUTIONS)
+    log(f"int8 path with the quantize epilogue (VITOK_Q8_EPILOGUE on): {VARIANT} after AE.quantize()")
+    rows, launches = [], None
+    for case in cases:
+        name, max_tokens, batch, images, inputs = case
+        with q8_epilogue(True):
+            opened = fa.can_fuse_q8(max_tokens, model.cfg.encoder_width, model.cfg.encoder_heads)
+            attn = dict(fused_attention_q8=depth) if opened else dict(fused_attention=depth)
+            expect = _expect(rmsnorm_quant=depth, ffn_int8=depth, **attn)
+            (out,), counts = _run_counted(model, [case], expect, "int8 + epilogue")
+            ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=5, warmup=1)
+        if opened and launches is None:
+            launches = counts  # the epilogue path's run
+        _check_output(name, max_tokens, batch, images, inputs, out)
+        with q8_epilogue(False):
+            ref = model.decode(model.encode(inputs))
+            off_ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=5, warmup=1)
+        rel = _valid_rel_l2(out, ref, inputs)
+        if not rel <= MODEL_REL_L2:
+            raise AssertionError(f"int8 + epilogue {name}: rel L2 vs the opt-in off {rel:.3e} > {MODEL_REL_L2}")
+        rows.append(dict(res=name, batch=batch, gate_open=opened, rel_l2_vs_off=rel,
+                         ms_per_img=ms / batch, off_ms_per_img=off_ms / batch))
+        log(f"  int8 + epilogue {name}: batch {batch}: gate {'open' if opened else 'closed'}, launches a "
+            f"forward {attn}; rel L2 vs the opt-in off {rel:.3e}; encode+decode {ms / batch:.4f} ms/img "
+            f"(opt-in off {off_ms / batch:.4f} ms/img) on {card}")
+    if launches is None:
+        raise AssertionError("int8 + epilogue: the gate opened at no resolution")
+    return dict(rows=rows, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# Generation: DiT-L + UniPC + the 350M decoder; DiT training
+# ---------------------------------------------------------------------------
+
+DIT_VARIANT = "L/256"  # width 1024, 24 blocks, 16 heads of 64
+DIT_CODE_WIDTH = 64    # the 350M-f16x64 latent
+DIT_CLASSES = (1, 207, 360, 417, 555, 812, 933, 999)
+DIT_TOKENS = 256
+DIT_STEPS = 20
+DIT_SHIFT = 3.0
+DIT_CFG_SCALE = 4.0
+DIT_CALL_REL_L2 = 2e-2    # one guided DiT call, fused kernel vs unfused attention
+DIT_SAMPLE_REL_L2 = 1e-1  # 20 solver steps apart: loops and attention paths
+DIT_TRAIN_BATCH = 64
+DIT_TRAIN_STEPS = 3
+
+
+def _random_mod(dit, device, seed: int = 1) -> None:
+    """adaLN-zero starts every block's ``mod`` at zero, which closes its
+    residual gate: draw them from a seed so that every block matters."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for blk in dit.blocks:
+            w, bias = blk.mod.weight, blk.mod.bias
+            w.copy_(0.02 * torch.randn(w.shape, generator=gen, device=device))
+            bias.zero_()
+            c = bias.shape[0] // 3
+            bias[2 * c:].copy_(0.2 + 0.4 * torch.rand(c, generator=gen, device=device))  # the gate
+
+
+def generation_phase(device, card: str) -> dict:
+    """Class-conditional generation: DiT-L/256 over 64-channel latents, 8
+    classes with classifier-free guidance (16 rows a call), 256 tokens, 20
+    UniPC steps with shift 3.0, host loop and device loop, then the 350M
+    decoder and ``postprocess`` to 256 x 256 images; then ``DiT.quantize()``."""
+    import torch
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.models.dit import DiT, decode_variant as dit_variant
+    from vitok_torch.scripts.generate import (_guided_velocity, _setup, decode_latents, sample_latents,
+                                              sample_latents_device)
+    from vitok_torch.unipc import FlowUniPCMultistepScheduler
+
+    kw = dict(**dit_variant(DIT_VARIANT), code_width=DIT_CODE_WIDTH, text_dim=1000)
+    dit = DiT(**kw, seed=0, device=device)
+    _random_mod(dit, device)
+    depth, b = dit.cfg.depth, len(DIT_CLASSES)
+    unfused = DiT(**kw, attn_impl="xla", state_dict=dit.state_dict(), device=device)
+    decoder = AE(**decode_variant(VARIANT), encoder=False, seed=0, device=device)
+    _random_gates(decoder, device)
+    log(f"generation: DiT-{DIT_VARIANT} ({dit.num_params() / 1e6:.1f}M params), bf16, {depth} blocks, "
+        f"{b} classes with CFG {DIT_CFG_SCALE} ({2 * b} rows a call), {DIT_TOKENS} tokens, "
+        f"{DIT_STEPS} UniPC steps, shift {DIT_SHIFT}; decoder {VARIANT}")
+    z0 = torch.randn((b, DIT_TOKENS, DIT_CODE_WIDTH), device=device,
+                     generator=torch.Generator(device=device).manual_seed(9))
+    sample_kw = dict(cfg_scale=DIT_CFG_SCALE, steps=DIT_STEPS, z0=z0)
+    sched = lambda: FlowUniPCMultistepScheduler(shift=DIT_SHIFT)
+    rel = lambda a, r: ((a.float() - r.float()).norm() / r.float().norm()).item()
+
+    # One DiT call (16 rows): 24 launches of the fused kernel, against the unfused attention.
+    # The raw prediction is compared: guidance multiplies the difference of two rows by its scale.
+    _, row, col, ctx = _setup(dit, DIT_CLASSES, DIT_TOKENS)
+    call_in = {"z": torch.cat([z0, z0]), "t": torch.full((2 * b,), 500.0, device=device), "context": ctx,
+               "row_idx": row, "col_idx": col}
+    reset_counts()
+    v_raw = dit(call_in)
+    torch.cuda.synchronize()
+    per_call = launch_counts()
+    call_rel = rel(v_raw, unfused(call_in))
+    log(f"  one DiT call: launches {per_call['fused_attention']} of the fused kernel; rel L2 vs unfused "
+        f"attention {call_rel:.3e} (limit {DIT_CALL_REL_L2})")
+    if per_call != _expect(fused_attention=depth) or not call_rel <= DIT_CALL_REL_L2:
+        raise AssertionError(f"generation: one DiT call launched {per_call} (expected {depth} of the fused "
+                             f"kernel); rel L2 vs unfused attention {call_rel:.3e} (limit {DIT_CALL_REL_L2})")
+    v = _guided_velocity(dit, z0, 500.0, ctx, row, col, DIT_CFG_SCALE)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset_counts()  # the generation path's run
+    z_host, host_ms = timed(lambda: sample_latents(dit, sched(), DIT_CLASSES, DIT_TOKENS, DIT_CODE_WIDTH, **sample_kw))
+    host_launches = launch_counts()
+    z_dev, dev_ms = timed(lambda: sample_latents_device(dit, sched(), DIT_CLASSES, DIT_TOKENS, DIT_CODE_WIDTH, **sample_kw))
+    launches = launch_counts()
+    want = _expect(fused_attention=depth * DIT_STEPS)
+    if host_launches != want or launches != _expect(fused_attention=2 * depth * DIT_STEPS):
+        raise AssertionError(f"generation: launches {host_launches} after the host loop, {launches} after both "
+                             f"(expected {depth} of the fused kernel per DiT call, {DIT_STEPS} calls a loop)")
+    z_unf = sample_latents_device(unfused, sched(), DIT_CLASSES, DIT_TOKENS, DIT_CODE_WIDTH, **sample_kw)
+    loop_rel, path_rel = rel(z_dev, z_host), rel(z_dev, z_unf)
+    log(f"  sampled latents: device loop vs host loop rel L2 {loop_rel:.3e}; fused vs unfused attention "
+        f"{path_rel:.3e} (limit {DIT_SAMPLE_REL_L2} after {DIT_STEPS} steps)")
+    if not (torch.isfinite(z_dev).all() and loop_rel <= DIT_SAMPLE_REL_L2 and path_rel <= DIT_SAMPLE_REL_L2):
+        raise AssertionError(f"generation: device loop vs host loop rel L2 {loop_rel:.3e}, fused vs unfused "
+                             f"attention {path_rel:.3e} (limit {DIT_SAMPLE_REL_L2}), finite "
+                             f"{bool(torch.isfinite(z_dev).all())}")
+    # A second, warm timing of each loop.
+    _, host_ms2 = timed(lambda: sample_latents(dit, sched(), DIT_CLASSES, DIT_TOKENS, DIT_CODE_WIDTH, **sample_kw))
+    _, dev_ms2 = timed(lambda: sample_latents_device(dit, sched(), DIT_CLASSES, DIT_TOKENS, DIT_CODE_WIDTH, **sample_kw))
+    host_ms, dev_ms = min(host_ms, host_ms2), min(dev_ms, dev_ms2)
+
+    images, decode_ms = timed(lambda: decode_latents(decoder, z_dev, DIT_TOKENS))
+    _, decode_ms2 = timed(lambda: decode_latents(decoder, z_dev, DIT_TOKENS))
+    decode_ms = min(decode_ms, decode_ms2)
+    side = int(DIT_TOKENS ** 0.5) * 16
+    for img in images:
+        if tuple(img.shape) != (3, side, side) or img.dtype != torch.uint8:
+            raise AssertionError(f"generation: image {tuple(img.shape)} {img.dtype}, expected (3, {side}, {side}) uint8")
+    if len(images) != b or len({bytes(i.numpy().tobytes()) for i in images}) != b:
+        raise AssertionError("generation: the decoded images are not 8 distinct images")
+    log(f"  host loop {host_ms / DIT_STEPS:.3f} ms per sample step, device loop {dev_ms / DIT_STEPS:.3f} ms "
+        f"(host clock, best of two); decode + postprocess {decode_ms:.3f} ms; {(dev_ms + decode_ms) / b:.3f} "
+        f"ms per {side}x{side} image with the device loop, {(host_ms + decode_ms) / b:.3f} with the host loop, on {card}")
+    profile_step("generation, one guided DiT call", lambda: _guided_velocity(dit, z0, 500.0, ctx, row, col, DIT_CFG_SCALE))
+
+    # int8: DiT.quantize(), the AE's int8 recipe inside the DiT block.
+    dit.quantize()
+    reset_counts()
+    vq = _guided_velocity(dit, z0, 500.0, ctx, row, col, DIT_CFG_SCALE)
+    torch.cuda.synchronize()
+    q_call = launch_counts()
+    q_rel = rel(vq, v)
+    if q_call != _expect(fused_attention=depth, ffn_int8=depth) or not torch.isfinite(vq).all():
+        raise AssertionError(f"generation after DiT.quantize(): one call launched {q_call} (expected {depth} each "
+                             f"of the fused attention and the fused int8 FFN), finite {bool(torch.isfinite(vq).all())}")
+    with plain_quant_kernels():
+        q_plain_rel = rel(vq, _guided_velocity(dit, z0, 500.0, ctx, row, col, DIT_CFG_SCALE))
+    if not q_plain_rel <= MODEL_REL_L2:
+        raise AssertionError(f"generation int8: rel L2 vs the plain quantize kernels {q_plain_rel:.3e} > {MODEL_REL_L2}")
+    sample_latents_device(dit, sched(), DIT_CLASSES, DIT_TOKENS, DIT_CODE_WIDTH, **sample_kw)
+    zq, q_ms = timed(lambda: sample_latents_device(dit, sched(), DIT_CLASSES, DIT_TOKENS, DIT_CODE_WIDTH, **sample_kw))
+    if not torch.isfinite(zq).all():
+        raise AssertionError("generation int8: sampled latents are not finite")
+    log(f"  after DiT.quantize(): one call launches {q_call['fused_attention']} fused attention + "
+        f"{q_call['ffn_int8']} fused int8 FFN; rel L2 vs the plain quantize kernels {q_plain_rel:.3e}, vs the "
+        f"bf16 call {q_rel:.3e}; device loop {q_ms / DIT_STEPS:.3f} ms per sample step on {card}")
+    return dict(launches=launches, host_ms_per_step=host_ms / DIT_STEPS, device_ms_per_step=dev_ms / DIT_STEPS,
+                ms_per_image=(dev_ms + decode_ms) / b, int8_ms_per_step=q_ms / DIT_STEPS)
+
+
+def dit_training_phase(device, card: str) -> dict:
+    """Three flow-matching steps of DiT-L/256 on a batch of 64 seeded latents
+    (16384 tokens a step) with ``attn_impl="fused"``: 24 forward and 24
+    backward launches of the fused kernels a step; then a step with
+    ``"auto"``."""
+    import torch
+    from vitok_torch.models.dit import DiT, decode_variant as dit_variant
+    from vitok_torch.scripts.train_dit import make_dit_train_step
+    from vitok_torch.train_lib import create_optimizer, create_schedule, create_train_state
+
+    dit = DiT(**dit_variant(DIT_VARIANT), code_width=DIT_CODE_WIDTH, text_dim=1000, attn_impl="fused",
+              seed=0, device=device, param_dtype=torch.float32, trainable=True)
+    _random_mod(dit, device)
+    depth = dit.cfg.depth
+    gen = torch.Generator(device=device).manual_seed(12)
+    z = torch.randn((DIT_TRAIN_BATCH, DIT_TOKENS, DIT_CODE_WIDTH), generator=gen, device=device)
+    labels = torch.randint(0, 1000, (DIT_TRAIN_BATCH,), generator=gen, device=device)
+    tx = create_optimizer(create_schedule("constant", 1e-4, 2 * DIT_TRAIN_STEPS, warmup_frac=0.0), weight_decay=0.0)
+    state = create_train_state(dit, tx)
+    step = make_dit_train_step(tx, num_classes=1000, cfg_dropout=0.1, shift=1.0)
+    tokens = DIT_TRAIN_BATCH * DIT_TOKENS
+    log(f"DiT training: DiT-{DIT_VARIANT}, fp32 master weights, bf16 compute, batch {DIT_TRAIN_BATCH} of seeded "
+        f"latents ({tokens} tokens a step), rectified flow + CFG dropout 0.1, AdamW lr 1e-4 + EMA, attn_impl='fused'")
+
+    def run(steps):
+        losses, step_ms, per_step = [], [], []
+        nonlocal state
+        for _ in range(steps):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            state, loss = step(state, z, labels, 5)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: v_ - before[k] for k, v_ in launch_counts().items()})
+            losses.append(float(loss))
+        return losses, step_ms, per_step
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the DiT training path's run
+    losses, step_ms, per_step = run(DIT_TRAIN_STEPS)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = _expect(fused_attention=depth, fused_attention_bwd=depth)
+    if any(got != want for got in per_step) or not np.isfinite(losses).all():
+        raise AssertionError(f"DiT training: launches per step {per_step} (expected {want}), losses {losses}")
+    ms = float(np.median(step_ms[1:]))
+    log(f"  'fused', {DIT_TRAIN_STEPS} steps: loss " + " -> ".join(f"{t:.5f}" for t in losses)
+        + f"; launches a step {want}; {ms:.3f} ms/step (host clock, median of steps 2-{DIT_TRAIN_STEPS}; first "
+        f"{step_ms[0]:.3f}), {tokens / ms * 1e3:.1f} tokens/s, peak memory {peak_gb:.3f} GB on {card}")
+    profile_step("DiT train, 'fused'", lambda: step(state, z, labels, 5))
+
+    _set_attn_impl(dit, "auto")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    auto_losses, auto_ms, _ = run(2)
+    if launch_counts() != before or not np.isfinite(auto_losses).all():
+        raise AssertionError(f"DiT training with attn_impl='auto': launches moved to {launch_counts()} or losses {auto_losses}")
+    auto_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  'auto' (unfused attention under autograd): loss {auto_losses[-1]:.5f}; {auto_ms[-1]:.3f} ms (second "
+        f"step; first {auto_ms[0]:.3f}), {tokens / auto_ms[-1] * 1e3:.1f} tokens/s, peak memory {auto_peak:.3f} GB on {card}")
+    return dict(launches=launches, losses=losses, ms_per_step=ms, peak_gb=peak_gb, auto_ms=auto_ms[-1])
+
+
+def fused_family_entries(q8kern: dict, q8_path: dict, fbkern: dict, fused_training: dict) -> list:
+    """The kernels-line entries of the int8-epilogue instance (launches from
+    the int8 run with the epilogue on, times at 256 tokens with a tail mask)
+    and of the fused backward kernel (launches from the fused training run,
+    times at 256 tokens, batch 32, with a tail mask: the training shape)."""
+    q8 = next(r for r in q8kern["rows"] if r["shape"] == "350M@256t main" and r["case"] == "tail")
+    bw = next(r for r in fbkern["rows"] if r["shape"] == "350M@256t" and r["case"] == "tail")
+    return [{
+        "name": "fused_attention_q8",
+        "route": "cuda",
+        "source": "vitok_torch/csrc/fused_attention.cu",
+        "replaces": "vitok_tpu/ops/fused_attention.py:340",
+        "launches": q8_path["launches"]["fused_attention_q8"],
+        "max_abs_err": q8kern["max_abs_err"],  # dequantized, against the plain version
+        "codes_differ_from_quantized_forward": max(r["codes_differ"] for r in q8kern["rows"]),
+        "ms": q8["ms"],
+        "plain_ms": q8["plain_ms"],
+        "bound_ms": q8["bound_ms"],
+        "bound_by": q8["bound_by"],
+        "library_ms": None,
+        "fused_plus_quantize_ms": q8["fused_plus_quantize_ms"],  # what the epilogue replaces
+    }, {
+        "name": "fused_attention_bwd",
+        "route": "cuda",
+        "source": "vitok_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "vitok_tpu/ops/fused_attention.py:645",
+        "launches": fused_training["launches"]["fused_attention_bwd"],
+        "max_abs_err": fbkern["max_abs_err"],
+        "ms": bw["ms"],
+        "plain_ms": bw["plain_ms"],
+        "bound_ms": bw["bound_ms"],
+        "bound_by": bw["bound_by"],
+        "library_ms": bw["library_ms"],  # SDPA forward + backward on normalised q/k: computes less
+    }]
+
+
 # Profile groups: each port kernel by its exact __global__ name, then the
 # library's matrix products (cuBLAS/cuBLASLt, torch._int_mm included) by
 # markers in their names, then everything else.
 PORT_KERNEL_GROUPS = {
     "fused_attention_kernel": "fused_attention",
+    "fused_attention_q8_kernel": "fused_attention_q8",
+    "fused_bwd_dq_kernel": "fused_attention_bwd",
+    "fused_bwd_dkv_kernel": "fused_attention_bwd",
     "flash_attention_kernel": "flash_attention",
     "flash_bwd_delta_kernel": "flash_attention_dq",  # dq's prologue
     "flash_bwd_dq_kernel": "flash_attention_dq",
@@ -1228,8 +1886,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
-    _build.build(["fused_attention", "flash_attention", "flash_attention_bwd", "rmsnorm_quant",
-                  "ffn_int8", "silu_quant"])
+    _build.build(["fused_attention", "fused_attention_bwd", "flash_attention", "flash_attention_bwd",
+                  "rmsnorm_quant", "ffn_int8", "silu_quant"])
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 
@@ -1246,9 +1904,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     bkern = flash_bwd_kernel_phase(device)
     training = training_phase(device, card)
+    torch.cuda.empty_cache()
+    fbkern = fused_bwd_kernel_phase(device)
+    q8kern = q8_kernel_phase(device)
+    fused_training = fused_training_phase(device, card)
+    torch.cuda.empty_cache()
+    q8_path = q8_path_phase(device, card)
+    generation_phase(device, card)
+    torch.cuda.empty_cache()
+    dit_training_phase(device, card)
 
     entries = kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
     entries[2:2] = flash_bwd_entries(bkern, training)
+    entries[1:1] = fused_family_entries(q8kern, q8_path, fbkern, fused_training)
     log(f"chip_smoke.py ran for {time.time() - started:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -15,7 +15,8 @@ kernel). The flash kernel's padded rows are exactly 0 on both sides, and its
 log-sum-exp agrees within 1e-3 on live rows (+1e30 on dead rows). The quantize kernels: codes within one step in
 at most 0.1% of the entries and scales within rtol 1e-5 (on the H100 they
 agree bit for bit); pad columns exactly 0. Small int8 models: rel L2 2e-2
-against the same model on the plain versions.
+against the same model on the plain versions. The fused backward kernel and
+the int8-epilogue kernel state their limits on their test classes.
 """
 
 import dataclasses
@@ -245,23 +246,178 @@ class TestFlashBackwardOnCard:
             assert not t.grad[~mask].any()
 
     def test_fused_kernel_refuses_a_gradient(self, cuda_device):
-        """The fused attention kernel has no backward kernel yet: asked for
-        by name under grad it raises; ``impl="auto"`` takes the unfused
-        composition, and no fused launch is counted."""
+        """Asked for by name under grad, the fused attention kernel runs with
+        its backward kernel (it refused a gradient until that kernel was
+        written); ``impl="auto"`` still takes the unfused composition under
+        grad, and then no fused launch is counted."""
         qkv, *rest = make_inputs(cuda_device, masked=True)
         qkv.requires_grad_(True)
-        before = t_fa.LAUNCHES
-        with pytest.raises(NotImplementedError, match="_fused_bwd_kernel"):
-            t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, impl="fused")
+        before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES)
+        out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, impl="fused")
+        out.float().square().sum().backward()
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        fused_grad, qkv.grad = qkv.grad, None
         out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2)
         out.float().square().sum().backward()
-        assert t_fa.LAUNCHES == before and torch.isfinite(qkv.grad).all() and qkv.grad.any()
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        assert torch.isfinite(qkv.grad).all() and qkv.grad.any() and torch.isfinite(fused_grad).all()
 
     def test_backward_rejects_fp32(self, cuda_device):
         q, k, v, _ = flash_inputs(cuda_device)
         out, lse = t_fl.flash_attention(q, k, v, return_lse=True)
         with pytest.raises(TypeError, match="bfloat16"):
             t_fl.flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse, out.float())
+
+
+def _fused_bwd_case(device, d, case, n=200, sw=12):
+    """The forward kernel's inputs (sample 1 keeps 23 tokens; with "dead" the
+    last sample is all padding) and a bf16 cotangent."""
+    qkv, qs, ks, cos, sin, mask = make_inputs(device, d=d, n=n, masked=case != "none" and "sw" != case)
+    if "dead" in case:
+        mask[-1] = False
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((*qkv.shape[:2], 2 * d), dtype=np.float32))
+    return (qkv, qs, ks, cos, sin, mask), g.to(device).bfloat16(), (sw if "sw" in case else None)
+
+
+@pytest.mark.cuda
+class TestFusedBackwardOnCard:
+    """The fused backward kernel against ``fused_qkv_attention_bwd_plain``.
+    Both sides round p and ds to bf16 before the products that contract them
+    and the outputs to bf16; the kernel forms p from an online max and sum in
+    log2 units, the plain version from the full row. Limits relative to each
+    gradient's largest entry: dq, dk, dv max 4e-2 and mean 1.5e-3, the gain
+    gradients 3e-2 (about three times the readings on an H100)."""
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n", [200, 1000])
+    @pytest.mark.parametrize("case", ["none", "tail", "sw", "tail+sw", "tail+sw+dead"])
+    def test_kernel_matches_plain_bf16(self, cuda_device, d, n, case):
+        args, g, sw = _fused_bwd_case(cuda_device, d, case, n=n)
+        mask = args[5]
+        before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES, t_fa.Q8_LAUNCHES)
+        got = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw)
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES, t_fa.Q8_LAUNCHES) == (before[0], before[1] + 1, before[2])
+        again = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw)
+        want = t_fa.fused_qkv_attention_bwd_plain(*args, g, num_heads=2, sliding_window=sw)
+        torch.cuda.synchronize()
+        for a, a2 in zip(got, again):
+            assert torch.equal(a, a2), "two runs differ"
+        dqkv, dqs, dks = got
+        assert dqkv.shape == args[0].shape and dqkv.dtype == torch.bfloat16
+        assert dqs.dtype == dks.dtype == torch.float32 and dqs.shape == (d,)
+        assert torch.isfinite(dqkv).all()
+        if mask is not None:
+            assert not dqkv[~mask].any() and not want[0][~mask].any()
+        c = 2 * d
+        for i, name in enumerate(("dq", "dk", "dv")):
+            a, r = dqkv[..., i * c:(i + 1) * c].float(), want[0][..., i * c:(i + 1) * c].float()
+            err, scale = (a - r).abs(), r.abs().max().item()
+            assert err.max().item() <= 4e-2 * scale and err.mean().item() <= 1.5e-3 * scale, (
+                name, err.max().item(), err.mean().item(), scale)
+        for a, r in ((dqs, want[1]), (dks, want[2])):
+            assert (a - r).abs().max().item() <= 3e-2 * r.abs().max().item()
+
+    def test_autograd_function_runs_both_kernels(self, cuda_device):
+        (qkv, qs, ks, cos, sin, mask), g, sw = _fused_bwd_case(cuda_device, 64, "tail+sw")
+        qkv, qs, ks = (t.detach().clone().requires_grad_(True) for t in (qkv, qs, ks))
+        before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES)
+        out = t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=sw, impl="fused")
+        dqkv, dqs, dks = torch.autograd.grad(out, (qkv, qs, ks), g)
+        torch.cuda.synchronize()
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        want = t_fa.fused_qkv_attention_bwd(qkv.detach(), qs.detach(), ks.detach(), cos, sin, mask, g,
+                                            num_heads=2, sliding_window=sw)
+        assert torch.equal(dqkv, want[0]) and torch.equal(dqs, want[1]) and torch.equal(dks, want[2])
+        assert not dqkv[~mask].any()
+
+    def test_backward_rejects_fp32_and_other_head_dims(self, cuda_device):
+        args, g, _ = _fused_bwd_case(cuda_device, 64, "none")
+        with pytest.raises(TypeError, match="bfloat16"):
+            t_fa.fused_qkv_attention_bwd(args[0].float(), *args[1:], g.float(), num_heads=2)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_fa.fused_qkv_attention_bwd(*args, g, num_heads=4)  # d = 32
+        with pytest.raises(ValueError, match="dout"):
+            t_fa.fused_qkv_attention_bwd(*args, g[:, :-8], num_heads=2)
+
+    def test_training_blocks_launch_forward_and_backward(self, cuda_device):
+        """A training forward + backward with ``attn_impl="fused"`` launches
+        the fused kernel and its backward once per block, and its parameter
+        gradients agree with ``attn_impl="auto"`` (rel L2 2e-2)."""
+        cfg = t_ae.AEConfig.from_variant("w128_d1_h2-w128_d2_h2/1x16x8", attn_impl="fused")
+        model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=cuda_device,
+                        param_dtype=torch.float32, trainable=True)
+        rng = np.random.default_rng(0)
+        batch = {"patches": torch.from_numpy(rng.standard_normal((2, 64, 768), dtype=np.float32)),
+                 "patch_mask": torch.from_numpy(np.arange(64)[None, :] < np.array([[64], [40]])),
+                 "row_idx": torch.from_numpy(np.tile(np.arange(64) // 8, (2, 1))),
+                 "col_idx": torch.from_numpy(np.tile(np.arange(64) % 8, (2, 1)))}
+        params = list(model.parameters())
+
+        def grads():
+            out = model(batch, deterministic=False)["patches"]
+            return torch.autograd.grad(out.float().square().mean(), params)
+
+        before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES)
+        fused = grads()
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 3, before[1] + 3)
+        model.cfg = dataclasses.replace(model.cfg, attn_impl="auto")
+        auto = grads()
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 3, before[1] + 3)
+        num = sum((a.double() - b.double()).square().sum() for a, b in zip(fused, auto))
+        den = sum(b.double().square().sum() for b in auto)
+        assert (num / den).sqrt().item() <= 2e-2
+
+
+@pytest.mark.cuda
+class TestQ8OnCard:
+    """The int8-epilogue kernel: its codes and scales are
+    ``quantize_activation`` of the forward kernel's output bit for bit (one
+    attention body, the same IEEE divisions); against the plain version its
+    dequantized values are held to the forward kernel's limits plus half a
+    quantization step (max 3e-2, mean 3e-3)."""
+
+    @pytest.mark.parametrize("heads,d", [(2, 64), (16, 64), (3, 128), (24, 128), (7, 64)])
+    @pytest.mark.parametrize("case,masked,sw", CASES)
+    def test_codes_equal_quantized_forward(self, cuda_device, heads, d, case, masked, sw):
+        qkv, *rest = make_inputs(cuda_device, heads=heads, d=d, masked=masked)
+        before = (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES)
+        codes, scales = t_fa.fused_qkv_attention_q8(qkv, *rest, num_heads=heads, sliding_window=sw)
+        assert (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES) == (before[0], before[1] + 1)
+        fwd = t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
+        want_codes, want_scales = t_q.quantize_activation(fwd)
+        torch.cuda.synchronize()
+        assert codes.dtype == torch.int8 and scales.shape == (*qkv.shape[:2], 1)
+        assert torch.equal(codes, want_codes) and torch.equal(scales, want_scales)
+        p_codes, p_scales = t_fa.fused_qkv_attention_q8_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
+        err = (codes.float() * scales - p_codes.float() * p_scales).abs()
+        mask = rest[-1]
+        if mask is not None:
+            err = err[mask]
+        assert err.max().item() <= 3e-2 and err.mean().item() <= 3e-3
+
+    def test_rejects_fp32_and_thirteen_wide_heads(self, cuda_device):
+        qkv, *rest = make_inputs(cuda_device)
+        with pytest.raises(TypeError, match="bfloat16"):
+            t_fa.fused_qkv_attention_q8(qkv.float(), *rest, num_heads=2)
+        qkv, *rest = make_inputs(cuda_device, b=1, n=64, heads=13, d=128)
+        with pytest.raises(ValueError, match="cluster"):
+            t_fa.fused_qkv_attention_q8(qkv, *rest, num_heads=13)
+
+    def test_int8_blocks_take_the_epilogue_when_opted_in(self, cuda_device, monkeypatch):
+        cfg = t_ae.AEConfig.from_variant("w256_d1_h4-w256_d2_h4/1x16x8")
+        model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=cuda_device).quantize()
+        rng = np.random.default_rng(0)
+        batch = {"patches": torch.from_numpy(rng.standard_normal((2, 64, 768), dtype=np.float32)),
+                 "patch_mask": torch.from_numpy(np.arange(64)[None, :] < np.array([[64], [40]])),
+                 "row_idx": torch.from_numpy(np.tile(np.arange(64) // 8, (2, 1))),
+                 "col_idx": torch.from_numpy(np.tile(np.arange(64) % 8, (2, 1)))}
+        off = model(batch)["patches"]
+        monkeypatch.setattr(t_fa, "_ENABLE_Q8", True)
+        before = (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES)
+        on = model(batch)["patches"]
+        torch.cuda.synchronize()
+        assert (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES) == (before[0], before[1] + 3)
+        assert torch.equal(on, off)
 
 
 def assert_codes_close(got, want, pad_from=None):

@@ -141,6 +141,13 @@ class TestImportBoundary:
         """The training slice's modules are among the files the import check reads."""
         assert REPO / "vitok_torch" / module in _port_files()
 
+    @pytest.mark.parametrize("module", [
+        "models/dit.py", "unipc.py", "scripts/generate.py", "scripts/train_dit.py",
+        "ops/fused_attention.py", "utils/params_io.py"])
+    def test_generation_modules_are_inside_the_boundary(self, module):
+        """The DiT, the sampler and their CLIs are among the files the import check reads."""
+        assert REPO / "vitok_torch" / module in _port_files()
+
     def test_port_imports_no_jax(self):
         """No file of the port, nor chip_smoke.py, imports jax, jaxlib, flax
         or vitok_tpu."""

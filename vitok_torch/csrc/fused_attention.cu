@@ -42,17 +42,23 @@
 // O += P V run on mma.sync m16n8k16 bf16 -> fp32, with V's B fragments read
 // by ldmatrix.trans.
 //
+// A second instance, fused_attention_q8_kernel further down, runs the same
+// body and quantizes the result per token to int8 before it leaves the chip
+// (it replaces _fused_kernel_q8).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry points, bound
 // with ctypes; the launch is asynchronous on the caller's stream and the
 // entry returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
 
+#include "norm_rope.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -62,7 +68,6 @@ constexpr int kWarps = 4;      // 16 query rows per warp
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;        // bf16 row padding: conflict-free fragment loads
 constexpr float kNegFill = -1e30f;
-constexpr float kRmsEps = 1e-6f;
 constexpr unsigned kFull = 0xffffffffu;
 
 template <int D>
@@ -77,130 +82,20 @@ struct Smem {
   static constexpr size_t kBytes = kKeyState + kTile;
 };
 
-// Normalises and rotates rows [r0, r0 + 64) of one head's q or k channels
-// (`src` points at row 0, channel 0 of that head) into `dst` (row stride
-// Smem<D>::kRow). Rows at or past N become zeros. Two passes' loads are in
-// flight at once: the whole tile at D = 64, half of it at D = 128.
+// What a block sets up once: the gains in shared memory and, in *sKvEnd, one
+// past the last valid key (NaFlex padding is a tail suffix, but the per-key
+// mask in attend_tile keeps any mask exact; this only bounds the loop). The
+// caller synchronises the block before it reads either.
 template <int D>
-__device__ __forceinline__ void norm_rope_tile(
-    const __nv_bfloat16* __restrict__ src, long long row_stride, int r0, int N,
-    const float* gain, const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-    __nv_bfloat16* dst, int tid) {
-  constexpr int kHalf = D / 2;
-  constexpr int kPieces = D / 16;                  // threads per row
-  constexpr int kRowsPerPass = kThreads / kPieces;
-  constexpr int kPasses = kTile / kRowsPerPass;    // 2 (D = 64) or 4 (D = 128)
-  constexpr int kBatch = 2;
-  const int c0 = (tid % kPieces) * 8;
-#pragma unroll
-  for (int p0 = 0; p0 < kPasses; p0 += kBatch) {
-    uint4 xr[kBatch], xi[kBatch];
-    float4 cs[kBatch][2], sn[kBatch][2];
-    int rows[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      rows[u] = (p0 + u) * kRowsPerPass + tid / kPieces;
-      const int n = r0 + rows[u];
-      xr[u] = xi[u] = make_uint4(0, 0, 0, 0);
-      cs[u][0] = cs[u][1] = sn[u][0] = sn[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (n < N) {
-        const __nv_bfloat16* x = src + (long long)n * row_stride + c0;
-        const float* c = cos_t + (long long)n * kHalf + c0;
-        const float* s = sin_t + (long long)n * kHalf + c0;
-        xr[u] = *reinterpret_cast<const uint4*>(x);
-        xi[u] = *reinterpret_cast<const uint4*>(x + kHalf);
-        cs[u][0] = *reinterpret_cast<const float4*>(c);
-        cs[u][1] = *reinterpret_cast<const float4*>(c + 4);
-        sn[u][0] = *reinterpret_cast<const float4*>(s);
-        sn[u][1] = *reinterpret_cast<const float4*>(s + 4);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const __nv_bfloat16* hr = reinterpret_cast<const __nv_bfloat16*>(&xr[u]);
-      const __nv_bfloat16* hi = reinterpret_cast<const __nv_bfloat16*>(&xi[u]);
-      const float* c = reinterpret_cast<const float*>(&cs[u][0]);
-      const float* s = reinterpret_cast<const float*>(&sn[u][0]);
-      float a[8], b[8];
-      float ss = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        a[e] = __bfloat162float(hr[e]);
-        b[e] = __bfloat162float(hi[e]);
-        ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
-        ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
-      }
-#pragma unroll
-      for (int off = 1; off < kPieces; off <<= 1) ss += __shfl_xor_sync(kFull, ss, off);
-      const float r = rsqrtf(__fadd_rn(ss / D, kRmsEps));
-      const float* gr = gain + c0;
-      const float* gi = gain + kHalf + c0;
-      uint32_t out_r[4], out_i[4];
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        const __nv_bfloat162 yr = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(a[e], r), gr[e]),
-                                                        __fmul_rn(__fmul_rn(a[e + 1], r), gr[e + 1]));
-        const __nv_bfloat162 yi = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(b[e], r), gi[e]),
-                                                        __fmul_rn(__fmul_rn(b[e + 1], r), gi[e + 1]));
-        const __nv_bfloat162 ce = __floats2bfloat162_rn(c[e], c[e + 1]);
-        const __nv_bfloat162 se = __floats2bfloat162_rn(s[e], s[e + 1]);
-        const __nv_bfloat162 vr = __hsub2(__hmul2(yr, ce), __hmul2(yi, se));  // xr*cos - xi*sin
-        const __nv_bfloat162 vi = __hadd2(__hmul2(yr, se), __hmul2(yi, ce));  // xr*sin + xi*cos
-        out_r[e / 2] = *reinterpret_cast<const uint32_t*>(&vr);
-        out_i[e / 2] = *reinterpret_cast<const uint32_t*>(&vi);
-      }
-      __nv_bfloat16* d = dst + rows[u] * Smem<D>::kRow + c0;
-      *reinterpret_cast<uint4*>(d) = make_uint4(out_r[0], out_r[1], out_r[2], out_r[3]);
-      *reinterpret_cast<uint4*>(d + kHalf) = make_uint4(out_i[0], out_i[1], out_i[2], out_i[3]);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fused_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
-                       const float* __restrict__ q_scale,
-                       const float* __restrict__ k_scale,
-                       const float* __restrict__ cos_t,
-                       const float* __restrict__ sin_t,
-                       const unsigned char* __restrict__ mask,  // [B, N] or null
-                       __nv_bfloat16* __restrict__ out, int N, int H,
-                       int sw,  // < 0: no window
-                       float score_scale) {
-  using S = Smem<D>;
-  constexpr int kRow = S::kRow;
-  constexpr int kD2 = D / 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + S::kQ);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + S::kK);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + S::kV);
-  float* sGainQ = reinterpret_cast<float*>(smem + S::kGainQ);
-  float* sGainK = reinterpret_cast<float*>(smem + S::kGainK);
-  unsigned char* sKeyState = smem + S::kKeyState;  // 0 valid, 1 masked, 2 past N
-  __shared__ int sKvEnd;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // mma group id
-  const int t = lane & 3;    // thread in group
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int C = H * D;
-  const long long row_stride = 3LL * C;
-  const __nv_bfloat16* qkv_b = qkv + (long long)b * N * row_stride;
-  const float* cos_b = cos_t + (long long)b * N * kD2;
-  const float* sin_b = sin_t + (long long)b * N * kD2;
-  const unsigned char* mask_b = mask ? mask + (long long)b * N : nullptr;
-
+__device__ __forceinline__ void block_setup(const float* __restrict__ q_scale,
+                                            const float* __restrict__ k_scale,
+                                            const unsigned char* mask_b, int N, float* sGainQ,
+                                            float* sGainK, int* sKvEnd, int tid) {
   for (int i = tid; i < D; i += kThreads) {
     sGainQ[i] = q_scale[i];
     sGainK[i] = k_scale[i];
   }
-  // One past the last valid key (NaFlex padding is a tail suffix, but the
-  // per-key mask below keeps any mask exact; this only bounds the loop).
-  if (tid == 0) sKvEnd = mask_b ? 0 : N;
+  if (tid == 0) *sKvEnd = mask_b ? 0 : N;
   __syncthreads();
   if (mask_b) {
     int last = 0;
@@ -209,10 +104,39 @@ fused_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       last = max(last, __shfl_xor_sync(kFull, last, off));
-    if (lane == 0) atomicMax(&sKvEnd, last);
+    if ((tid & 31) == 0) atomicMax(sKvEnd, last);
   }
+}
 
-  norm_rope_tile<D>(qkv_b + h * D, row_stride, q0, N, sGainQ, cos_b, sin_b, sQ, tid);
+// Attention of query rows [q0, q0 + 64) of head h of one sample (`qkv_b`,
+// `cos_b`, `sin_b`, `mask_b` point at that sample): the bf16 result of row
+// q0 + r goes to out_rows[r * out_stride + channel], rows at or past N are
+// not written. Both kernels below run this one body, so their bf16 values
+// are the same bits.
+template <int D>
+__device__ __forceinline__ void attend_tile(
+    unsigned char* smem, const int* sKvEnd, const __nv_bfloat16* __restrict__ qkv_b,
+    const float* __restrict__ cos_b, const float* __restrict__ sin_b,
+    const unsigned char* __restrict__ mask_b, int q0, int h, int N, int H, int sw,
+    float score_scale, __nv_bfloat16* out_rows, long long out_stride) {
+  using S = Smem<D>;
+  constexpr int kRow = S::kRow;
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + S::kQ);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + S::kK);
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + S::kV);
+  float* sGainQ = reinterpret_cast<float*>(smem + S::kGainQ);
+  float* sGainK = reinterpret_cast<float*>(smem + S::kGainK);
+  unsigned char* sKeyState = smem + S::kKeyState;  // 0 valid, 1 masked, 2 past N
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;   // mma group id
+  const int t = lane & 3;    // thread in group
+  const int C = H * D;
+  const long long row_stride = 3LL * C;
+
+  norm_rope_tile<D, kThreads>(qkv_b + h * D, row_stride, q0, N, sGainQ, cos_b, sin_b, sQ, tid);
   __syncthreads();
 
   // Q as mma A fragments (rows warp*16 + g and + 8).
@@ -230,7 +154,7 @@ fused_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
   }
 
-  const int kv_end = sKvEnd;
+  const int kv_end = *sKvEnd;
   const int n_tiles = (N + kTile - 1) / kTile;
   const int q_last = min(q0 + kTile, N) - 1;
   int lo_key = 0, hi_key = kv_end;
@@ -285,7 +209,7 @@ fused_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
         else
           *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
       }
-      norm_rope_tile<D>(qkv_b + C + h * D, row_stride, k0, N, sGainK, cos_b, sin_b, sK, tid);
+      norm_rope_tile<D, kThreads>(qkv_b + C + h * D, row_stride, k0, N, sGainK, cos_b, sin_b, sK, tid);
       if (tid < kTile) {
         const int j = k0 + tid;
         sKeyState[tid] = j >= N ? 2 : ((mask_b && !mask_b[j]) ? 1 : 0);
@@ -379,17 +303,165 @@ fused_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
     l0 += __shfl_xor_sync(kFull, l0, off);
     l1 += __shfl_xor_sync(kFull, l1, off);
   }
-  __nv_bfloat16* out_b = out + (long long)b * N * C + h * D;
+  __nv_bfloat16* out0 = out_rows + (long long)(qrow0 - q0) * out_stride;
+  __nv_bfloat16* out1 = out0 + 8 * out_stride;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * t;
     if (qrow0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out_b + (long long)qrow0 * C + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out0 + col) =
           __floats2bfloat162_rn(o[dt][0] / l0, o[dt][1] / l0);
     if (qrow1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out_b + (long long)qrow1 * C + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out1 + col) =
           __floats2bfloat162_rn(o[dt][2] / l1, o[dt][3] / l1);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fused_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
+                       const float* __restrict__ q_scale,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ cos_t,
+                       const float* __restrict__ sin_t,
+                       const unsigned char* __restrict__ mask,  // [B, N] or null
+                       __nv_bfloat16* __restrict__ out, int N, int H,
+                       int sw,  // < 0: no window
+                       float score_scale) {
+  using S = Smem<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sKvEnd;
+  const int q0 = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int C = H * D;
+  const unsigned char* mask_b = mask ? mask + (long long)b * N : nullptr;
+  block_setup<D>(q_scale, k_scale, mask_b, N, reinterpret_cast<float*>(smem + S::kGainQ),
+                 reinterpret_cast<float*>(smem + S::kGainK), &sKvEnd, threadIdx.x);
+  attend_tile<D>(smem, &sKvEnd, qkv + (long long)b * N * 3 * C, cos_t + (long long)b * N * (D / 2),
+                 sin_t + (long long)b * N * (D / 2), mask_b, q0, h, N, H, sw, score_scale,
+                 out + ((long long)b * N + q0) * C + h * D, C);
+}
+
+// ---------------------------------------------------------------------------
+// The int8-epilogue instance: replaces the TPU kernel
+// vitok_tpu/ops/fused_attention.py::_fused_kernel_q8. The attention is
+// attend_tile above, so each bf16 value is the bits fused_attention_kernel
+// would have written; the epilogue is quantize_activation over the full C
+// channels of a token: scale = max(absmax / 127, 1e-12) (IEEE division),
+// code = clip(rint(x / scale), -127, 127). The bf16 result never reaches
+// device memory.
+//
+// The absmax runs over every head of a row. The TPU revisits a VMEM scratch
+// across its sequential head-group axis; here the heads of a (64-query tile,
+// sample) are shared out over a thread block cluster of `cs` blocks along
+// grid y (cs divides H, at most 8). Each block loops over its H / cs heads
+// and keeps its [64, (H / cs) * D] bf16 slab in shared memory, takes its own
+// row maxima, and reads the other blocks' maxima through distributed shared
+// memory between two cluster barriers; then each quantizes its slab and
+// rank 0 writes the scales.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+template <int D>
+struct SmemQ8 {
+  static constexpr size_t kSlab = (Smem<D>::kBytes + 15) / 16 * 16;  // then [64, W + 8] bf16
+  __host__ __device__ static size_t row_max(int W) { return kSlab + sizeof(__nv_bfloat16) * kTile * (W + kPad); }
+  __host__ __device__ static size_t bytes(int W) { return row_max(W) + sizeof(float) * kTile; }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fused_attention_q8_kernel(const __nv_bfloat16* __restrict__ qkv,
+                          const float* __restrict__ q_scale,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ cos_t,
+                          const float* __restrict__ sin_t,
+                          const unsigned char* __restrict__ mask,  // [B, N] or null
+                          int8_t* __restrict__ out_q,              // [B, N, C]
+                          float* __restrict__ out_scale,           // [B, N]
+                          int N, int H, int heads_per_block,
+                          int sw,  // < 0: no window
+                          float score_scale) {
+  namespace cg = cooperative_groups;
+  using S = Smem<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sKvEnd;
+  const int W = heads_per_block * D;   // this block's slab of channels
+  const int slab_row = W + kPad;
+  __nv_bfloat16* sO = reinterpret_cast<__nv_bfloat16*>(smem + SmemQ8<D>::kSlab);
+  float* sRowMax = reinterpret_cast<float*>(smem + SmemQ8<D>::row_max(W));
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * kTile;
+  const int h0 = blockIdx.y * heads_per_block;
+  const int b = blockIdx.z;
+  const int C = H * D;
+  const unsigned char* mask_b = mask ? mask + (long long)b * N : nullptr;
+  const __nv_bfloat16* qkv_b = qkv + (long long)b * N * 3 * C;
+  const float* cos_b = cos_t + (long long)b * N * (D / 2);
+  const float* sin_b = sin_t + (long long)b * N * (D / 2);
+
+  block_setup<D>(q_scale, k_scale, mask_b, N, reinterpret_cast<float*>(smem + S::kGainQ),
+                 reinterpret_cast<float*>(smem + S::kGainK), &sKvEnd, tid);
+  for (int hl = 0; hl < heads_per_block; ++hl)
+    attend_tile<D>(smem, &sKvEnd, qkv_b, cos_b, sin_b, mask_b, q0, h0 + hl, N, H, sw, score_scale,
+                   sO + hl * D, slab_row);
+  __syncthreads();
+
+  // Row maxima of this block's slab: warp w takes rows w, w + 4, ...
+  const int chunks = W / 8;
+  for (int r = warp; r < kTile; r += kWarps) {
+    float amax = 0.f;
+    if (q0 + r < N) {
+      for (int ch = lane; ch < chunks; ch += 32) {
+        const uint4 u = *reinterpret_cast<const uint4*>(sO + r * slab_row + ch * 8);
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h2[e]);
+          amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+        }
+      }
+    }
+    amax = warp_max(amax);
+    if (lane == 0) sRowMax[r] = amax;
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's maxima are written
+  const unsigned ranks = cluster.num_blocks();
+  for (int r = warp; r < kTile; r += kWarps) {
+    const int n = q0 + r;
+    if (n >= N) continue;
+    float amax = 0.f;
+    for (unsigned k = 0; k < ranks; ++k) amax = fmaxf(amax, cluster.map_shared_rank(sRowMax, k)[r]);
+    const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
+    int8_t* dst = out_q + ((long long)b * N + n) * C + h0 * D;
+    for (int ch = lane; ch < chunks; ch += 32) {
+      const uint4 u = *reinterpret_cast<const uint4*>(sO + r * slab_row + ch * 8);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        const float qx = fminf(fmaxf(rintf(__fdiv_rn(f.x, scale)), -127.f), 127.f);
+        const float qy = fminf(fmaxf(rintf(__fdiv_rn(f.y, scale)), -127.f), 127.f);
+        w[e >> 1] |= (uint32_t)(uint8_t)(int8_t)qx << (16 * (e & 1));
+        w[e >> 1] |= (uint32_t)(uint8_t)(int8_t)qy << (16 * (e & 1) + 8);
+      }
+      *reinterpret_cast<uint2*>(dst + ch * 8) = make_uint2(w[0], w[1]);
+    }
+    if (lane == 0 && cluster.block_rank() == 0) out_scale[(long long)b * N + n] = scale;
+  }
+  cluster.sync();  // no block leaves while another may still read its maxima
 }
 
 template <int D>
@@ -410,6 +482,40 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_q8(const void* qkv, const void* q_scale, const void* k_scale,
+                      const void* cos_t, const void* sin_t, const void* mask, void* out_q,
+                      void* out_scale, int B, int N, int H, int cs, int sw, cudaStream_t stream) {
+  if (cs < 1 || cs > 8 || H % cs) return cudaErrorInvalidValue;
+  const int heads_per_block = H / cs;
+  const size_t smem = SmemQ8<D>::bytes(heads_per_block * D);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_attention_q8_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const float score_scale = (float)(1.0 / std::sqrt((double)D) * 1.4426950408889634);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kTile - 1) / kTile, cs, B);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cs;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, fused_attention_q8_kernel<D>, static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<const unsigned char*>(mask), static_cast<int8_t*>(out_q),
+      static_cast<float*>(out_scale), N, H, heads_per_block, sw, score_scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -424,6 +530,24 @@ int vitok_fused_attention_bf16(const void* qkv, const void* q_scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch<64>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
   if (D == 128) return launch<128>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As vitok_fused_attention_bf16, with the per-token int8 quantize over all
+// H*D channels as the epilogue: out_q [B, N, H*D] int8, out_scale [B, N] f32.
+// `cs` blocks of a cluster share a row's heads (cs divides H, 1 <= cs <= 8,
+// and 64 * (H / cs * D + 8) * 2 bytes of slab must fit beside the tiles).
+int vitok_fused_attention_q8_bf16(const void* qkv, const void* q_scale, const void* k_scale,
+                                  const void* cos_t, const void* sin_t, const void* mask,
+                                  void* out_q, void* out_scale, int B, int N, int H, int D,
+                                  int cs, int sw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_q8<64>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out_q, out_scale, B, N, H,
+                         cs, sw, s);
+  if (D == 128)
+    return launch_q8<128>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out_q, out_scale, B, N, H,
+                          cs, sw, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,17 +30,20 @@ block then runs the JAX package's int8 block as it is routed on the TPU:
 RMSNorm + quantize in one kernel, the int8 QKV product, the fused attention,
 the int8 out-projection, and the fused int8 fc1 + SwiGLU + requantize kernel
 (or the fc1 product and the SwiGLU + quantize kernel) before the int8 fc2
-product (``ops/quant.py``).
+product (``ops/quant.py``). With the opt-in ``VITOK_Q8_EPILOGUE`` the fused
+attention quantizes its own output (``fused_qkv_attention_q8``) and the
+out-projection reads the codes directly.
 
 Training: ``AE(..., param_dtype=torch.float32, trainable=True)`` and
 ``model(batch, deterministic=False)`` is the JAX package's
 ``forward_apply(deterministic=False)``: grad enabled, per-sample drop path
 on the decoder blocks, activation checkpointing per ``cfg.checkpoint``.
-Under training the fused kernel is not taken with ``attn_impl="auto"`` (it
-has no backward kernel yet); blocks at ``N >= 2048`` run the flash kernel
-forward and its two backward kernels, below that the unfused composition
-under autograd. ``encode``/``decode`` and ``model(batch)`` stay inference
-calls under ``torch.no_grad()``.
+Under training the fused kernel is not taken with ``attn_impl="auto"`` (the
+JAX package's gate): blocks at ``N >= 2048`` run the flash kernel forward
+and its two backward kernels, below that the unfused composition under
+autograd. ``attn_impl="fused"`` trains on the fused kernel and its backward
+kernel where the gate opens. ``encode``/``decode`` and ``model(batch)`` stay
+inference calls under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from vitok_torch.ops import quant as q8
+from vitok_torch.ops import fused_attention as fa
 from vitok_torch.ops.fused_attention import can_fuse, fused_qkv_attention, unfused_qkv_attention
 from vitok_torch.ops.mlp import round_hidden_dim, swiglu
 from vitok_torch.ops.norms import layer_norm, layer_scale, rms_norm
@@ -307,6 +311,13 @@ class Block(nn.Module):
             and can_fuse(n, c, self.heads)
         )
         args = (qkv, self.attn.norm_q.weight, self.attn.norm_k.weight, rope[0], rope[1], patch_mask)
+        if fused and int8 and deterministic and fa.can_fuse_q8(n, c, self.heads):
+            # The kernel's epilogue quantizes per token, so the out-projection
+            # reads int8 codes and the bf16 attention output is never written.
+            aq, a_scale = fa.fused_qkv_attention_q8(*args, num_heads=self.heads,
+                                                    sliding_window=sliding_window)
+            return self._residual(x, _prequant(aq, a_scale, self.attn.out_proj, x.dtype)
+                                  + self._int8_mlp(hid, x), drop_gate)
         if fused:
             attn = fused_qkv_attention(*args, num_heads=self.heads, sliding_window=sliding_window,
                                        impl="fused")
@@ -319,6 +330,9 @@ class Block(nn.Module):
             out = F.linear(attn, self.attn.out_proj.weight.to(attn.dtype)) + swiglu(
                 h, self.ffn.fc1.weight, self.ffn.fc2.weight
             )
+        return self._residual(x, out, drop_gate)
+
+    def _residual(self, x, out, drop_gate):
         if self.layer_scale is not None:
             out = layer_scale(out, self.layer_scale.gamma)
         if drop_gate is not None:

@@ -1,4 +1,5 @@
-"""Checkpoint interchange into and out of the port's ``AE`` state dict.
+"""Checkpoint interchange into and out of the port's ``AE`` and ``DiT`` state
+dicts.
 
 Two sources, each with its way back (:func:`to_jax_params`,
 :func:`module_state_to_released_state`):
@@ -13,6 +14,11 @@ Two sources, each with its way back (:func:`to_jax_params`,
   as ``vitok_tpu/utils/params_io.py::torch_state_to_pytree`` does.
 
 The module's state dict uses the released names, so nothing else is renamed.
+
+A DiT's pytree (:func:`dit_from_jax_params`, :func:`dit_to_jax_params`) has
+the same block entries plus the adaLN ``mod`` linear with its bias; both
+packages keep a DiT's q/k channels in rotate-half order, so nothing is
+permuted. Int8 pytrees go both ways.
 """
 
 from __future__ import annotations
@@ -43,6 +49,20 @@ _INT8_ENTRIES = [
 ]
 _TOP_LINEAR = ("patch_embed", "to_code", "decoder_embed", "to_pixels")
 _STACKS = ("encoder_blocks", "decoder_blocks")
+# A DiT block adds the adaLN modulation linear (with a bias).
+_DIT_BLOCK_ENTRIES = _BLOCK_ENTRIES + [
+    ("mod.weight", ("mod", "kernel"), True),
+    ("mod.bias", ("mod", "bias"), False),
+]
+# DiT linears outside the blocks: (module path, pytree path).
+_DIT_LINEARS = [
+    ("input_proj", ("input_proj",)),
+    ("t_embed.fc1", ("t_embed", "fc1")),
+    ("t_embed.fc2", ("t_embed", "fc2")),
+    ("final.mod", ("final", "mod")),
+    ("final.proj", ("final", "proj")),
+]
+_DIT_TENSORS = ("ctx_embed", "cls_token", "reg_token")
 
 
 def _tensor(a, dtype=np.float32) -> torch.Tensor:
@@ -55,6 +75,57 @@ def _node(tree, path):
         if tree is None:
             return None
     return tree
+
+
+def _stack_to_state(stack, stack_name: str, state: Dict[str, torch.Tensor], entries):
+    """Unstack one depth-leading block stack into ``state``; returns its depth."""
+    depth = None
+    for suffix, path, transpose in entries:
+        node = _node(stack, path)
+        if node is None:
+            continue  # e.g. no layer_scale, or an int8 linear
+        arr = np.asarray(node)
+        depth = arr.shape[0]
+        for i in range(depth):
+            state[f"{stack_name}.{i}.{suffix}"] = _tensor(arr[i].T if transpose else arr[i])
+    for prefix, path in _INT8_ENTRIES:
+        node = _node(stack, path)
+        if node is None or "kernel_int8" not in node:
+            continue
+        q, scale = np.asarray(node["kernel_int8"]), np.asarray(node["scale"])
+        depth = q.shape[0]
+        for i in range(depth):
+            state[f"{stack_name}.{i}.{prefix}weight_int8"] = _tensor(q[i].T, np.int8)
+            state[f"{stack_name}.{i}.{prefix}scale"] = _tensor(scale[i])
+    return depth
+
+
+def _state_to_stack(state: Mapping[str, Any], stack_name: str, entries) -> Dict[str, Any]:
+    """Stack the blocks of ``stack_name`` depth-leading; {} if there are none."""
+    depth = 1 + max((int(k.split(".")[1]) for k in state if k.startswith(stack_name + ".")), default=-1)
+    stack: Dict[str, Any] = {}
+    if depth == 0:
+        return stack
+
+    def put(path, value):
+        node = stack
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for suffix, path, transpose in entries:
+        if f"{stack_name}.0.{suffix}" not in state:
+            continue
+        layers = [_to_numpy(state[f"{stack_name}.{i}.{suffix}"]) for i in range(depth)]
+        put(path, np.stack([a.T if transpose else a for a in layers]))
+    for prefix, path in _INT8_ENTRIES:
+        if f"{stack_name}.0.{prefix}weight_int8" not in state:
+            continue
+        codes = [state[f"{stack_name}.{i}.{prefix}weight_int8"] for i in range(depth)]
+        put(path + ("kernel_int8",), np.stack([np.asarray(c.detach().cpu().numpy()).T for c in codes]))
+        put(path + ("scale",), np.stack([_to_numpy(state[f"{stack_name}.{i}.{prefix}scale"])
+                                         for i in range(depth)]))
+    return stack
 
 
 def from_jax_params(params: Mapping[str, Any], cfg=None) -> Dict[str, torch.Tensor]:
@@ -72,25 +143,7 @@ def from_jax_params(params: Mapping[str, Any], cfg=None) -> Dict[str, torch.Tens
     for stack_name in _STACKS:
         if stack_name not in params:
             continue
-        stack = params[stack_name]
-        depth = None
-        for suffix, path, transpose in _BLOCK_ENTRIES:
-            node = _node(stack, path)
-            if node is None:
-                continue  # e.g. no layer_scale, or an int8 linear
-            arr = np.asarray(node)
-            depth = arr.shape[0]
-            for i in range(depth):
-                state[f"{stack_name}.{i}.{suffix}"] = _tensor(arr[i].T if transpose else arr[i])
-        for prefix, path in _INT8_ENTRIES:
-            node = _node(stack, path)
-            if node is None or "kernel_int8" not in node:
-                continue
-            q, scale = np.asarray(node["kernel_int8"]), np.asarray(node["scale"])
-            depth = q.shape[0]
-            for i in range(depth):
-                state[f"{stack_name}.{i}.{prefix}weight_int8"] = _tensor(q[i].T, np.int8)
-                state[f"{stack_name}.{i}.{prefix}scale"] = _tensor(scale[i])
+        depth = _stack_to_state(params[stack_name], stack_name, state, _BLOCK_ENTRIES)
         if cfg is not None and depth is not None:
             expected = cfg.encoder_depth if stack_name == "encoder_blocks" else cfg.decoder_depth
             if depth != expected:
@@ -101,9 +154,10 @@ def from_jax_params(params: Mapping[str, Any], cfg=None) -> Dict[str, torch.Tens
 
 
 def to_jax_params(state: Mapping[str, Any]) -> Dict[str, Any]:
-    """``AE`` state dict (full precision) -> the JAX package's stacked params
-    pytree of fp32 numpy arrays: the inverse of :func:`from_jax_params`, so
-    trained weights go back. Optimizer state is not carried across."""
+    """``AE`` state dict -> the JAX package's stacked params pytree of numpy
+    arrays (fp32; int8 block kernels stay int8): the inverse of
+    :func:`from_jax_params`, so trained weights go back. Optimizer state is
+    not carried across."""
     params: Dict[str, Any] = {}
     for name in _TOP_LINEAR:
         if f"{name}.weight" in state:
@@ -111,21 +165,52 @@ def to_jax_params(state: Mapping[str, Any]) -> Dict[str, Any]:
             if f"{name}.bias" in state:
                 params[name]["bias"] = _to_numpy(state[f"{name}.bias"])
     for stack_name in _STACKS:
-        depth = 1 + max((int(k.split(".")[1]) for k in state if k.startswith(stack_name + ".")), default=-1)
-        if depth == 0:
-            continue
-        stack: Dict[str, Any] = {}
-        for suffix, path, transpose in _BLOCK_ENTRIES:
-            if f"{stack_name}.0.{suffix}" not in state:
-                continue
-            layers = [_to_numpy(state[f"{stack_name}.{i}.{suffix}"]) for i in range(depth)]
-            node = stack
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = np.stack([a.T if transpose else a for a in layers])
-        params[stack_name] = stack
+        stack = _state_to_stack(state, stack_name, _BLOCK_ENTRIES)
+        if stack:
+            params[stack_name] = stack
     if not params:
         raise ValueError("No recognizable ViTok params found")
+    return params
+
+
+def dit_from_jax_params(params: Mapping[str, Any], cfg=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's DiT params pytree (numpy leaves; ``blocks`` stacked
+    depth-leading, Linear kernels ``[in, out]``) -> ``DiT`` state dict (CPU
+    tensors). ``cfg`` (a ``DiTConfig``), when given, checks the depth."""
+    if "blocks" not in params or "input_proj" not in params:
+        raise ValueError("No recognizable DiT params found")
+    state: Dict[str, torch.Tensor] = {}
+    for name, path in _DIT_LINEARS:
+        node = _node(params, path)
+        state[f"{name}.weight"] = _tensor(np.asarray(node["kernel"]).T)
+        state[f"{name}.bias"] = _tensor(node["bias"])
+    for name in _DIT_TENSORS:
+        if name in params:
+            state[name] = _tensor(params[name])
+    depth = _stack_to_state(params["blocks"], "blocks", state, _DIT_BLOCK_ENTRIES)
+    if cfg is not None and depth != cfg.depth:
+        raise ValueError(f"blocks: params depth {depth} != config {cfg.depth}")
+    return state
+
+
+def dit_to_jax_params(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """``DiT`` state dict -> the JAX package's DiT params pytree of numpy
+    arrays: the inverse of :func:`dit_from_jax_params`."""
+    if "input_proj.weight" not in state:
+        raise ValueError("No recognizable DiT params found")
+    params: Dict[str, Any] = {}
+    for name, path in _DIT_LINEARS:
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = {
+            "kernel": np.ascontiguousarray(_to_numpy(state[f"{name}.weight"]).T),
+            "bias": _to_numpy(state[f"{name}.bias"]),
+        }
+    for name in _DIT_TENSORS:
+        if name in state:
+            params[name] = _to_numpy(state[name])
+    params["blocks"] = _state_to_stack(state, "blocks", _DIT_BLOCK_ENTRIES)
     return params
 
 
@@ -175,6 +260,8 @@ def module_state_to_released_state(state: Mapping[str, Any]) -> Dict[str, torch.
 __all__ = [
     "from_jax_params",
     "to_jax_params",
+    "dit_from_jax_params",
+    "dit_to_jax_params",
     "released_state_to_module_state",
     "module_state_to_released_state",
 ]
