@@ -48,7 +48,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    guidance (host loop and device loop), decodes them to 256 x 256 images
    with the 350M decoder, repeats a call after ``DiT.quantize()``; and
    takes three flow-matching training steps of DiT-L on the fused kernels;
-8. prints a JSON line describing each kernel, the card's name and power
+8. holds the A/B kernels of ``vitok_torch.benchmarks`` (batch blocks,
+   packs, int8 input, all heads of a tile) against the fused forward kernel,
+   bit for bit, and against their plain versions, and the forward's fp32
+   instance against its plain version, at the JAX A/B scripts' recorded
+   shapes and at the 350M width with a dead image; runs the 350M AE in fp32
+   on the fp32 instance against the unfused composition; and runs both A/B
+   entry points at the recorded shapes with fewer timed calls;
+9. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -476,6 +483,8 @@ def _images(rng, sizes, batch):
 
 
 def launch_counts() -> dict:
+    from vitok_torch.benchmarks import ab_batch_block as abb
+    from vitok_torch.benchmarks import ab_q8_input as ab8
     from vitok_torch.ops import flash_attention as fl
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
@@ -483,18 +492,21 @@ def launch_counts() -> dict:
     return {"fused_attention": fa.LAUNCHES, "fused_attention_bwd": fa.BWD_LAUNCHES,
             "fused_attention_q8": fa.Q8_LAUNCHES, "flash_attention": fl.LAUNCHES,
             "flash_attention_dq": fl.DQ_LAUNCHES, "flash_attention_dkv": fl.DKV_LAUNCHES,
-            **quant.LAUNCHES}
+            **quant.LAUNCHES, **abb.LAUNCHES, **ab8.LAUNCHES}
 
 
 def reset_counts() -> None:
+    from vitok_torch.benchmarks import ab_batch_block as abb
+    from vitok_torch.benchmarks import ab_q8_input as ab8
     from vitok_torch.ops import flash_attention as fl
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
 
     fa.LAUNCHES = fa.BWD_LAUNCHES = fa.Q8_LAUNCHES = 0
     fl.LAUNCHES = fl.DQ_LAUNCHES = fl.DKV_LAUNCHES = 0
-    for k in quant.LAUNCHES:
-        quant.LAUNCHES[k] = 0
+    for counts in (quant.LAUNCHES, abb.LAUNCHES, ab8.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _expect(**counts) -> dict:
@@ -1740,6 +1752,319 @@ def fused_family_entries(q8kern: dict, q8_path: dict, fbkern: dict, fused_traini
     }]
 
 
+# ---------------------------------------------------------------------------
+# The A/B kernels of vitok_torch.benchmarks (#10-#13) and the fp32 instance
+# ---------------------------------------------------------------------------
+
+AB_SHAPES = (  # (label, B, N, C, H, dtype, mask): the two recorded invocations, then 350M width
+    ("5B@256t bf16", 64, 256, 3072, 24, "bfloat16", "ones"),
+    ("5B@64t fp32", 256, 64, 3072, 24, "float32", "ones"),
+    ("350M@256t bf16", 16, 256, 1024, 16, "bfloat16", "tail+dead"),
+    ("350M@256t fp32", 16, 256, 1024, 16, "float32", "tail+dead"),
+)
+AB_F32_MAX_REL = 1e-5  # fp32 kernels against their plain version (tf32 off): of the largest entry
+AB_ENTRY = (3072, 24, (("bfloat16", 256, 64), ("float32", 64, 256)))  # C, H, (dtype, N, B) recorded
+AB_ENTRY_ARGS = ("--iters", "2", "--layers", "16")
+F32_AE = ("256p", 256, 16, RESOLUTIONS[0][3])
+F32_MODEL_REL_L2 = 1e-4  # fp32 AE on the fp32 instance against the unfused composition
+
+
+def _ab_inputs(gen, b, n, c, h, dtype, mask_kind, device):
+    """qkv N(0, 1) in ``dtype``, gains U(0.5, 1.5), 2D RoPE tables; the mask
+    all ones (as the A/B scripts pass it) or a tail per sample with the last
+    sample all masked."""
+    import torch
+    from vitok_torch.ops.rope import compute_2d_freqs_cis
+
+    d = c // h
+    qkv = torch.randn(b, n, 3 * c, generator=gen, device=device).to(getattr(torch, dtype))
+    qs = 0.5 + torch.rand(d, generator=gen, device=device)
+    ks = 0.5 + torch.rand(d, generator=gen, device=device)
+    side = int(round(n ** 0.5))
+    idx = torch.arange(n, device=device)
+    cos, sin = compute_2d_freqs_cis((idx // side).expand(b, n), (idx % side).expand(b, n), d)
+    valid = torch.full((b,), n, device=device)
+    if mask_kind == "tail+dead":
+        valid = torch.tensor([n - (i * n) // (b + 2) for i in range(b)], device=device)
+        valid[-1] = 0
+    return qkv, qs, ks, cos, sin, idx[None, :] < valid[:, None]
+
+
+def _ab_bound(b, n, c, h, mask, isz, in_bytes=None, pairs=None):
+    """Least time: qkv read (``in_bytes`` a token; 3C elements of ``isz``
+    bytes by default), out written, tables, gains and mask read once; or the
+    needed QK^T and PV products over the peak for the type (bf16 tensor
+    cores, fp32 FMA)."""
+    d = c // h
+    in_bytes = 3 * c * isz if in_bytes is None else in_bytes
+    nbytes = b * n * (in_bytes + c * isz) + 2 * b * n * (d // 2) * 4 + 2 * d * 4 + b * n
+    pairs = _needed_pairs(b, mask, n, None) if pairs is None else pairs
+    return _bound_ms(nbytes, 4.0 * h * d * pairs, FP32_OPS_PER_S if isz == 4 else BF16_FLOPS_PER_S)
+
+
+def _pack_pairs(mask, n, bb) -> int:
+    """Pairs the pack needs: a row's own valid keys, or all bb*N keys of its
+    pack where its image has none."""
+    per_image = mask.sum(1).cpu().numpy()
+    return int(np.where(per_image > 0, per_image, bb * n).sum() * n)
+
+
+def _check_ab(what, got, want, rows, f32) -> float:
+    """fp32: within AB_F32_MAX_REL of the largest entry on every row; bf16:
+    #1's limits on ``rows``. Returns the largest |error|."""
+    err_all = (got.float() - want.float()).abs()
+    if f32:
+        top = want.float().abs().max().item()
+        max_abs = err_all.max().item()
+        if not max_abs <= AB_F32_MAX_REL * top:
+            raise AssertionError(f"{what}: fp32 max |err| {max_abs:.3e} > {AB_F32_MAX_REL} x {top:.3f}")
+        return max_abs
+    err = err_all[rows]
+    max_abs, mean_abs = err.max().item(), err.mean().item()
+    if not (max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
+        raise AssertionError(f"{what}: max {max_abs:.3e} mean {mean_abs:.3e} against the plain version "
+                             f"(limits {KERNEL_MAX_ABS}, {KERNEL_MEAN_ABS})")
+    return max_abs
+
+
+def _one_launch(counts: dict, name: str, fn):
+    """``fn()`` with ``counts[name]`` going up by exactly one."""
+    before = counts[name]
+    out = fn()
+    if counts[name] != before + 1:
+        raise AssertionError(f"{name}: {counts[name] - before} launches counted for one call")
+    return out
+
+
+def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
+    """#10 (every arm of ab_batch_block), #11, #12 and #13 against the fused
+    forward kernel (bit for bit: #11 on images with a valid key, #12 on the
+    assembled tensor) and against their plain versions; the fp32 instance of
+    #1 against its plain version; times beside bounds and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.benchmarks import ab_batch_block as abb
+    from vitok_torch.benchmarks import ab_q8_input as ab8
+    from vitok_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    rows = []
+    counts = {}
+    log("kernel phase: A/B kernels (fused_attention_ab.cu) vs the fused forward kernel (bit for bit) and "
+        "vs their plain versions; the fp32 instance of the forward vs its plain version")
+    for label, b, n, c, h, dtype, mask_kind in shapes:
+        qkv, qs, ks, cos, sin, mask = _ab_inputs(gen, b, n, c, h, dtype, mask_kind, device)
+        d, f32 = c // h, dtype == "float32"
+        isz = qkv.element_size()
+        args = (qkv, qs, ks, cos, sin, mask)
+        fwd = lambda: fa.fused_qkv_attention(*args, num_heads=h, impl="fused")
+        ref = fwd()
+        plain = fa.fused_qkv_attention_plain(*args, num_heads=h)
+        live = mask.any(1)  # images with a valid key
+        # rows held to #1's limits: valid rows, and every row of an image with
+        # no valid key (each is the mean of v there: over N, or over the pack)
+        valid = mask | ~live[:, None]
+        errs = {"fused_attention_f32" if f32 else "fused_attention": _check_ab(f"#1 {label}", ref, plain, valid, f32)}
+        q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)
+        am = mask[:, None, None, :]
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+        del q, k, v
+        plain_ms = time_ms(lambda: fa.fused_qkv_attention_plain(*args, num_heads=h), runs=3, warmup=1)
+        bound = _ab_bound(b, n, c, h, mask, isz)
+        row = dict(shape=label, B=b, N=n, C=c, H=h, dtype=dtype, mask=mask_kind, fused_ms=time_ms(fwd),
+                   fused_plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1], arms={})
+        # #10, every arm of ab_batch_block that this shape takes (B is #1 itself)
+        for name, bb, cg, _ in abb.arm_defs(c, d, n, b, h):
+            if cg is None:
+                continue
+            try:
+                abb.check_arm(qkv.shape, h, bb, cg, pack=name.startswith("P"))
+            except ValueError:
+                continue
+            pack = name.startswith("P")
+            kname = "fused_attention_pack" if pack else "fused_attention_bb"
+            call = lambda: abb.fused_attention_bb(*args, num_heads=h, bb=bb, cg=cg, pack=pack)
+            got = _one_launch(abb.LAUNCHES, kname, call)
+            rows_eq = live if pack else slice(None)
+            if not torch.equal(got[rows_eq], ref[rows_eq]):
+                raise AssertionError(f"{kname} {name} at {label}: not bit-identical to the fused forward kernel")
+            want = plain if not pack else abb.fused_attention_bb_plain(*args, num_heads=h, bb=bb, cg=cg, pack=True)
+            key = f"{kname}_f32" if f32 else kname
+            err = _check_ab(f"{kname} {name} {label}", got, want, valid, f32)
+            errs[key] = max(errs.get(key, 0.0), err)
+            arm = dict(bb=bb, cg=cg, ms=time_ms(call), max_abs_err=err)
+            if pack:
+                arm["plain_ms"] = time_ms(lambda: abb.fused_attention_bb_plain(*args, num_heads=h, bb=bb, cg=cg,
+                                                                               pack=True), runs=3, warmup=1)
+                arm["bound_ms"], arm["bound_by"] = _ab_bound(b, n, c, h, mask, isz, pairs=_pack_pairs(mask, n, bb))
+            row["arms"][name] = arm
+            del got
+        # #13
+        call = lambda: ab8.fused_attention_contig(*args, num_heads=h)
+        got = _one_launch(ab8.LAUNCHES, "fused_attention_contig", call)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"fused_attention_contig at {label}: not bit-identical to the fused forward kernel")
+        key = "fused_attention_contig_f32" if f32 else "fused_attention_contig"
+        errs[key] = _check_ab(f"contig {label}", got, plain, valid, f32)
+        row["contig_ms"] = time_ms(call)
+        # #12, bf16 only
+        if not f32:
+            codes, scale = ab8.quantize_qkv(qkv)
+            q8args = (codes, scale, qs, ks, cos, sin, mask)
+            call = lambda: ab8.fused_attention_q8in(*q8args, num_heads=h)
+            got = _one_launch(ab8.LAUNCHES, "fused_attention_q8in", call)
+            assembled = ab8.assemble_q8in(codes, scale)
+            chain = lambda: fa.fused_qkv_attention(ab8.assemble_q8in(codes, scale), qs, ks, cos, sin, mask,
+                                                   num_heads=h, impl="fused")
+            if not torch.equal(got, fa.fused_qkv_attention(assembled, qs, ks, cos, sin, mask, num_heads=h,
+                                                           impl="fused")):
+                raise AssertionError(f"fused_attention_q8in at {label}: not bit-identical to the fused forward "
+                                     "kernel on the assembled tensor")
+            q8plain = lambda: ab8.fused_attention_q8in_plain(*q8args, num_heads=h)
+            errs["fused_attention_q8in"] = _check_ab(f"q8in {label}", got, q8plain(), valid, False)
+            del got, assembled
+            row.update(q8in_ms=time_ms(call), q8in_plain_ms=time_ms(q8plain, runs=3, warmup=1),
+                       dequantize_plus_fused_ms=time_ms(chain))
+            row["q8in_bound_ms"], row["q8in_bound_by"] = _ab_bound(b, n, c, h, mask, 2, in_bytes=3 * c + 4)
+        row["max_abs_err"] = errs
+        rows.append(row)
+        arms = ", ".join(f"{k} {a['ms']:.4f}" + (f" (plain {a['plain_ms']:.4f}, bound {a['bound_ms']:.5f})"
+                                                     if "plain_ms" in a else "") for k, a in row["arms"].items())
+        log(f"  {label} (B={b} N={n} C={c} H={h}, mask {mask_kind}): fused {row['fused_ms']:.4f} ms, plain "
+            f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound[0]:.5f} ({bound[1]}); contig "
+            f"{row['contig_ms']:.4f}; arms (ms): {arms}"
+            + (f"; q8in {row['q8in_ms']:.4f} (plain {row['q8in_plain_ms']:.4f}, dequantize + fused "
+               f"{row['dequantize_plus_fused_ms']:.4f}, bound {row['q8in_bound_ms']:.5f})" if not f32 else ""))
+        log(f"    max |err| vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        del qkv, plain, ref
+        torch.cuda.empty_cache()
+    return dict(rows=rows)
+
+
+def ab_entry_phase(device) -> dict:
+    """Both A/B entry points at the recorded invocations' shapes with fewer
+    timed runs (``AB_ENTRY_ARGS``): every arm builds, the numeric legs read
+    0, and each kernel is launched exactly as often as the runs call it."""
+    from vitok_torch.benchmarks import ab_batch_block as abb
+    from vitok_torch.benchmarks import ab_q8_input as ab8
+
+    iters, layers = int(AB_ENTRY_ARGS[1]), int(AB_ENTRY_ARGS[3])
+    per_arm = 1 + layers * (1 + iters)  # the numeric call, the warm-up run, the timed runs
+    c, h, runs_at = AB_ENTRY
+    reset_counts()
+    runs = {}
+    for dtype, n, b in runs_at:
+        flags = ["--c", str(c), "--heads", str(h), "--tokens", str(n), "--batch", str(b), "--dtype", dtype,
+                 *AB_ENTRY_ARGS]
+        log(f"entry point: python -m vitok_torch.benchmarks.ab_batch_block {' '.join(flags)}")
+        res = abb.main([*flags, "--device", device.type])
+        if res["skipped"] or len(res["arms"]) != 11 or any(v != 0.0 for v in res["numeric"].values()):
+            raise AssertionError(f"ab_batch_block {dtype}: skipped {res['skipped']}, arms {list(res['arms'])}, "
+                                 f"numeric {res['numeric']}")
+        runs[f"ab_batch_block {dtype}"] = res
+    _, n, b = runs_at[0]
+    flags = ["--c", str(c), "--heads", str(h), "--tokens", str(n), "--batch", str(b), *AB_ENTRY_ARGS]
+    log(f"entry point: python -m vitok_torch.benchmarks.ab_q8_input {' '.join(flags)}")
+    res = ab8.main([*flags, "--device", device.type])
+    if res["numeric"]["A_assembled"] != 0.0 or res["numeric"]["C"] != 0.0:
+        raise AssertionError(f"ab_q8_input numeric legs {res['numeric']}")
+    runs["ab_q8_input"] = res
+    launches = launch_counts()
+    # per ab_batch_block run: B on the fused forward, P2 on the pack kernel, nine arms on #10;
+    # ab_q8_input: one arm each, and #1 once more on the assembled tensor
+    runs_bb = len(runs_at)
+    expect = _expect(fused_attention_bb=runs_bb * 9 * per_arm, fused_attention_pack=runs_bb * per_arm,
+                     fused_attention=runs_bb * per_arm + per_arm + 1, fused_attention_q8in=per_arm,
+                     fused_attention_contig=per_arm)
+    if launches != expect:
+        raise AssertionError(f"A/B entry points: launches {launches}, expected {expect}")
+    log(f"  launches: {dict((k, v) for k, v in launches.items() if v)}")
+    return dict(runs=runs, launches=launches)
+
+
+def f32_ae_phase(device, card: str) -> dict:
+    """350M in fp32 at 256p: every block's attention on the fp32 instance of
+    the fused forward, decoded patches within F32_MODEL_REL_L2 of the same
+    weights on the unfused composition."""
+    import torch
+    from vitok_torch import AE, decode_variant
+
+    name, max_tokens, batch, sizes = F32_AE
+    cases = main_path_cases(device, resolutions=(F32_AE,), seed=3)
+    cfg_kw = decode_variant(VARIANT)
+    model = AE(**cfg_kw, seed=0, device=device, compute_dtype=torch.float32)
+    _random_gates(model, device)
+    reference = AE(**{**cfg_kw, "attn_impl": "xla"}, state_dict=model.state_dict(), device=device,
+                   compute_dtype=torch.float32)
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    log(f"fp32 path: {VARIANT} with compute_dtype float32, {name} batch {batch}")
+    outs, launches = _run_counted(model, cases, _expect(fused_attention=depth), "fp32")
+    inputs = cases[0][4]
+    out = outs[0]
+    if out["patches"].dtype != torch.float32:
+        raise AssertionError(f"fp32 AE decoded {out['patches'].dtype}")
+    _check_output(name, max_tokens, batch, cases[0][3], inputs, out)
+    rel = _valid_rel_l2(out, reference.decode(reference.encode(inputs)), inputs)
+    if not rel <= F32_MODEL_REL_L2:
+        raise AssertionError(f"fp32 AE: rel L2 vs the unfused composition {rel:.3e} > {F32_MODEL_REL_L2}")
+    ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=3, warmup=1)
+    ref_ms = time_ms(lambda: reference.decode(reference.encode(inputs)), runs=3, warmup=1)
+    log(f"  {depth} launches of the fp32 instance a forward; rel L2 vs unfused {rel:.3e} (limit "
+        f"{F32_MODEL_REL_L2}); encode+decode {ms / batch:.4f} ms/img (unfused {ref_ms / batch:.4f}) on {card}")
+    del model, reference
+    return dict(launches=launches["fused_attention"], rel_l2=rel, ms_per_img=ms / batch,
+                unfused_ms_per_img=ref_ms / batch)
+
+
+def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict) -> list:
+    """Kernels-line entries of #10-#13 (times at the recorded bf16 shape, C =
+    3072, N = 256, B = 64; #10 the D2 arm, every arm beside it) and of the fp32
+    instance of #1 (times at the recorded fp32 shape, N = 64, B = 256);
+    launches from the A/B entry points' runs, the fp32 instance's from the
+    fp32 AE."""
+    bf = next(r for r in abkern["rows"] if r["shape"] == "5B@256t bf16")
+    f32 = next(r for r in abkern["rows"] if r["shape"] == "5B@64t fp32")
+    errs = {}
+    for r in abkern["rows"]:
+        for k, v in r["max_abs_err"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    launches = ab_runs["launches"]
+    src = "vitok_torch/csrc/fused_attention_ab.cu"
+    bb, pack = bf["arms"]["D2"], bf["arms"]["P2"]
+    return [{
+        "name": "fused_attention_bb", "route": "cuda", "source": src,
+        "replaces": "benchmarks/ab_batch_block.py:78", "launches": launches["fused_attention_bb"],
+        "max_abs_err": errs["fused_attention_bb"], "ms": bb["ms"], "plain_ms": bf["fused_plain_ms"],
+        "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
+        "arm": "D2 (bb=2, cg=1536)", "arms_ms": {k: a["ms"] for k, a in bf["arms"].items()},
+        "fp32_arms_ms": {k: a["ms"] for k, a in f32["arms"].items()},
+        "max_abs_err_f32": errs["fused_attention_bb_f32"],
+    }, {
+        "name": "fused_attention_pack", "route": "cuda", "source": src,
+        "replaces": "benchmarks/ab_batch_block.py:105", "launches": launches["fused_attention_pack"],
+        "max_abs_err": errs["fused_attention_pack"], "ms": pack["ms"], "plain_ms": pack["plain_ms"],
+        "bound_ms": pack["bound_ms"], "bound_by": pack["bound_by"], "library_ms": bf["library_ms"],
+        "max_abs_err_f32": errs["fused_attention_pack_f32"],
+    }, {
+        "name": "fused_attention_q8in", "route": "cuda", "source": src,
+        "replaces": "benchmarks/ab_q8_input.py:64", "launches": launches["fused_attention_q8in"],
+        "max_abs_err": errs["fused_attention_q8in"], "ms": bf["q8in_ms"], "plain_ms": bf["q8in_plain_ms"],
+        "bound_ms": bf["q8in_bound_ms"], "bound_by": bf["q8in_bound_by"], "library_ms": None,
+        "dequantize_plus_fused_ms": bf["dequantize_plus_fused_ms"],  # #1 on the assembled tensor
+    }, {
+        "name": "fused_attention_contig", "route": "cuda", "source": src,
+        "replaces": "benchmarks/ab_q8_input.py:164", "launches": launches["fused_attention_contig"],
+        "max_abs_err": errs["fused_attention_contig"], "ms": bf["contig_ms"], "plain_ms": bf["fused_plain_ms"],
+        "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
+        "max_abs_err_f32": errs["fused_attention_contig_f32"],
+    }, {
+        "name": "fused_attention_f32", "route": "cuda", "source": "vitok_torch/csrc/fused_attention.cu",
+        "replaces": "vitok_tpu/ops/fused_attention.py:317", "launches": f32_ae["launches"],
+        "max_abs_err": errs["fused_attention_f32"], "ms": f32["fused_ms"], "plain_ms": f32["fused_plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+    }]
+
+
 # Profile groups: each port kernel by its exact __global__ name, then the
 # library's matrix products (cuBLAS/cuBLASLt, torch._int_mm included) by
 # markers in their names, then everything else.
@@ -1756,6 +2081,10 @@ PORT_KERNEL_GROUPS = {
     "ffn_int8_gemm_kernel": "ffn_int8",
     "ffn_int8_quant_kernel": "ffn_int8",
     "silu_quant_kernel": "silu_quant",
+    "fused_attention_bb_kernel": "fused_attention_bb",
+    "fused_attention_pack_kernel": "fused_attention_pack",
+    "fused_attention_q8in_kernel": "fused_attention_q8in",
+    "fused_attention_contig_kernel": "fused_attention_contig",
 }
 MATMUL_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "matmul", "imma")
 
@@ -1887,7 +2216,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
     _build.build(["fused_attention", "fused_attention_bwd", "flash_attention", "flash_attention_bwd",
-                  "rmsnorm_quant", "ffn_int8", "silu_quant"])
+                  "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_ab"])
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 
@@ -1913,10 +2242,21 @@ def main() -> int:
     generation_phase(device, card)
     torch.cuda.empty_cache()
     dit_training_phase(device, card)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    abkern = ab_kernel_phase(device)
+    log(f"A/B kernel phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    f32_ae = f32_ae_phase(device, card)
+    log(f"fp32 path: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ab_runs = ab_entry_phase(device)
+    log(f"A/B entry points: {time.time() - t0:.1f} s")
 
     entries = kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
     entries[2:2] = flash_bwd_entries(bkern, training)
     entries[1:1] = fused_family_entries(q8kern, q8_path, fbkern, fused_training)
+    entries += ab_entries(abkern, ab_runs, f32_ae)
     log(f"chip_smoke.py ran for {time.time() - started:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -16,7 +16,8 @@ log-sum-exp agrees within 1e-3 on live rows (+1e30 on dead rows). The quantize k
 at most 0.1% of the entries and scales within rtol 1e-5 (on the H100 they
 agree bit for bit); pad columns exactly 0. Small int8 models: rel L2 2e-2
 against the same model on the plain versions. The fused backward kernel and
-the int8-epilogue kernel state their limits on their test classes.
+the int8-epilogue kernel state their limits on their test classes, as do
+the fp32 instance and the A/B kernels of ``vitok_torch.benchmarks``.
 """
 
 import dataclasses
@@ -25,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from vitok_torch.benchmarks import ab_batch_block as t_bb
+from vitok_torch.benchmarks import ab_q8_input as t_ab8
 from vitok_torch.models import ae as t_ae
 from vitok_torch.ops import flash_attention as t_fl
 from vitok_torch.ops import fused_attention as t_fa
@@ -95,9 +98,15 @@ class TestKernelOnCard:
         assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
     def test_kernel_rejects_fp32(self, cuda_device):
+        """fp32 has an instance of the forward only: a gradient through it
+        raises in the backward, and fp16 has no instance at all."""
         qkv, *rest = make_inputs(cuda_device)
         with pytest.raises(TypeError, match="bfloat16"):
-            t_fa.fused_qkv_attention(qkv.float(), *rest, num_heads=2, impl="fused")
+            t_fa.fused_qkv_attention(qkv.half(), *rest, num_heads=2, impl="fused")
+        x = qkv.float().requires_grad_()
+        out = t_fa.fused_qkv_attention(x, *rest, num_heads=2, impl="fused")
+        with pytest.raises(TypeError, match="bfloat16"):
+            out.sum().backward()
 
     def test_kernel_rejects_unsupported_head_dim(self, cuda_device):
         qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, heads=4, d=32)
@@ -530,3 +539,156 @@ class TestQuantKernelsOnCard:
         a, r = got[valid].float(), want[valid].float()
         assert torch.isfinite(a).all()
         assert ((a - r).norm() / r.norm()).item() <= 2e-2
+
+
+def ab_inputs(device, dtype, b=4, n=200, heads=2, d=64, case="tail+dead", seed=0):
+    """``make_inputs`` in ``dtype`` with a mask where sample 1 keeps 23 tokens,
+    sample 2 half and sample 3 none ("tail+dead"), or no mask ("none")."""
+    qkv, qs, ks, cos, sin, _ = make_inputs(device, b=b, n=n, heads=heads, d=d, seed=seed)
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal(tuple(qkv.shape), dtype=np.float32)).to(device).to(dtype)
+    mask = None
+    if case != "none":
+        valid = np.array([n, 23, n // 2, 0] + [n] * (b - 4))
+        mask = torch.from_numpy(np.arange(n)[None, :] < valid[:, None]).to(device)
+    return qkv, qs, ks, cos, sin, mask
+
+
+def assert_fp32_close(got, want):
+    """fp32 kernel against its plain version on the card (tf32 off): the same
+    function with sums in another order, within 1e-5 of the largest entry."""
+    assert got.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+class TestFp32ForwardOnCard:
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 12), ("none", 40)])
+    def test_fp32_instance_matches_plain(self, cuda_device, no_tf32, d, case, sw):
+        qkv, *rest = ab_inputs(cuda_device, torch.float32, d=d, case=case)
+        before = t_fa.LAUNCHES
+        got = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=sw, impl="fused")
+        assert t_fa.LAUNCHES == before + 1
+        want = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=2, sliding_window=sw)
+        torch.cuda.synchronize()
+        assert_fp32_close(got, want)
+
+    def test_fp32_model_routes_through_the_instance(self, cuda_device, no_tf32):
+        """A small fp32 AE on the card: one fp32 launch per block, decoded
+        patches within rel L2 1e-4 of the unfused composition."""
+        cfg = t_ae.AEConfig.from_variant("w128_d1_h2-w128_d2_h2/1x16x8")
+        rng = np.random.default_rng(0)
+        batch = {"patches": torch.from_numpy(rng.standard_normal((2, 64, 768), dtype=np.float32)),
+                 "patch_mask": torch.from_numpy(np.arange(64)[None, :] < np.array([[64], [40]])),
+                 "row_idx": torch.from_numpy(np.tile(np.arange(64) // 8, (2, 1))),
+                 "col_idx": torch.from_numpy(np.tile(np.arange(64) % 8, (2, 1)))}
+        batch = {k: v.to(cuda_device) for k, v in batch.items()}
+        model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=cuda_device, compute_dtype=torch.float32)
+        reference = t_ae.AE(**{**dataclasses.asdict(cfg), "attn_impl": "xla"}, state_dict=model.state_dict(),
+                            device=cuda_device, compute_dtype=torch.float32)
+        before = t_fa.LAUNCHES
+        got = model(batch)["patches"]
+        assert t_fa.LAUNCHES - before == cfg.encoder_depth + cfg.decoder_depth
+        want = reference(batch)["patches"]
+        valid = batch["patch_mask"]
+        a, r = got[valid], want[valid]
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert ((a - r).norm() / r.norm()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+class TestABKernelsOnCard:
+    """The A/B kernels (``csrc/fused_attention_ab.cu``) run the fused
+    forward's body: bit for bit the forward kernel's output (the pack on
+    images with a valid key, the int8-input kernel on the assembled tensor),
+    and within the forward's limits of their plain versions (bf16: max 2e-2,
+    mean 2e-3 on valid rows; fp32: 1e-5 of the largest entry)."""
+
+    @staticmethod
+    def _forward(qkv, rest, heads, sw=None):
+        return t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("d,heads,bb,hpb", [(64, 4, 1, 2), (64, 4, 2, 4), (128, 2, 4, 1), (128, 2, 2, 2)])
+    @pytest.mark.parametrize("sw", [None, 24])
+    def test_batch_block_equals_the_forward_kernel(self, cuda_device, no_tf32, dtype, d, heads, bb, hpb, sw):
+        qkv, *rest = ab_inputs(cuda_device, dtype, d=d, heads=heads)
+        before = dict(t_bb.LAUNCHES)
+        got = t_bb.fused_attention_bb(qkv, *rest, num_heads=heads, bb=bb, cg=hpb * d, sliding_window=sw)
+        assert t_bb.LAUNCHES == {**before, "fused_attention_bb": before["fused_attention_bb"] + 1}
+        assert torch.equal(got, self._forward(qkv, rest, heads, sw))
+        want = t_bb.fused_attention_bb_plain(qkv, *rest, num_heads=heads, bb=bb, cg=hpb * d, sliding_window=sw)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            assert_fp32_close(got, want)
+        else:
+            err = (got.float() - want.float()).abs()[rest[-1]]
+            assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("d,heads,n", [(64, 4, 200), (128, 2, 64)])
+    def test_pack_equals_the_forward_where_an_image_has_a_valid_key(self, cuda_device, no_tf32, dtype, d, heads, n):
+        qkv, *rest = ab_inputs(cuda_device, dtype, d=d, heads=heads, n=n)
+        before = t_bb.LAUNCHES["fused_attention_pack"]
+        got = t_bb.fused_attention_bb(qkv, *rest, num_heads=heads, bb=2, cg=heads * d, pack=True)
+        assert t_bb.LAUNCHES["fused_attention_pack"] == before + 1
+        assert torch.equal(got[:3], self._forward(qkv, rest, heads)[:3])
+        want = t_bb.fused_attention_bb_plain(qkv, *rest, num_heads=heads, bb=2, cg=heads * d, pack=True)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            assert_fp32_close(got, want)
+        else:  # image 3: the mean of v over the pack, bf16 P = 1
+            err = (got.float() - want.float()).abs()
+            assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+        mean_pack = qkv.float()[2:4, :, 2 * heads * d:].reshape(-1, heads * d).mean(0)
+        assert (got[3].float() - mean_pack).abs().max().item() <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("d,heads", [(64, 16), (128, 3)])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", 24)])
+    def test_contig_equals_the_forward_kernel(self, cuda_device, no_tf32, dtype, d, heads, case, sw):
+        qkv, *rest = ab_inputs(cuda_device, dtype, d=d, heads=heads, case=case)
+        before = t_ab8.LAUNCHES["fused_attention_contig"]
+        got = t_ab8.fused_attention_contig(qkv, *rest, num_heads=heads, sliding_window=sw)
+        assert t_ab8.LAUNCHES["fused_attention_contig"] == before + 1
+        assert torch.equal(got, self._forward(qkv, rest, heads, sw))
+        want = t_ab8.fused_attention_contig_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            assert_fp32_close(got, want)
+
+    @pytest.mark.parametrize("d,heads", [(64, 4), (128, 2)])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 24)])
+    def test_int8_input_equals_the_forward_on_the_assembled_tensor(self, cuda_device, d, heads, case, sw):
+        qkv, *rest = ab_inputs(cuda_device, torch.bfloat16, d=d, heads=heads, case=case)
+        codes, scale = t_ab8.quantize_qkv(qkv)
+        before = t_ab8.LAUNCHES["fused_attention_q8in"]
+        got = t_ab8.fused_attention_q8in(codes, scale, *rest, num_heads=heads, sliding_window=sw)
+        assert t_ab8.LAUNCHES["fused_attention_q8in"] == before + 1
+        assembled = t_ab8.assemble_q8in(codes, scale)
+        assert torch.equal(got, self._forward(assembled, rest, heads, sw))
+        want = t_ab8.fused_attention_q8in_plain(codes, scale, *rest, num_heads=heads, sliding_window=sw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if rest[-1] is not None:
+            err = err[rest[-1]]
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+
+    def test_kernels_refuse_what_they_do_not_take(self, cuda_device):
+        qkv, *rest = ab_inputs(cuda_device, torch.bfloat16)
+        with pytest.raises(ValueError, match="bb=3"):
+            t_bb.fused_attention_bb(qkv, *rest, num_heads=2, bb=3, cg=128)
+        with pytest.raises(TypeError, match="int8"):
+            t_ab8.fused_attention_q8in(qkv, rest[0].new_ones(4, 200, 1), *rest, num_heads=2)
+        with pytest.raises(TypeError, match="bfloat16"):
+            t_ab8.fused_attention_contig(qkv.half(), *rest, num_heads=2)

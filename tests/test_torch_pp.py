@@ -148,6 +148,12 @@ class TestImportBoundary:
         """The DiT, the sampler and their CLIs are among the files the import check reads."""
         assert REPO / "vitok_torch" / module in _port_files()
 
+    @pytest.mark.parametrize("module", [
+        "benchmarks/__init__.py", "benchmarks/ab_batch_block.py", "benchmarks/ab_q8_input.py"])
+    def test_ab_benchmark_modules_are_inside_the_boundary(self, module):
+        """The A/B entry points and their kernel wrappers are among the files the import check reads."""
+        assert REPO / "vitok_torch" / module in _port_files()
+
     def test_port_imports_no_jax(self):
         """No file of the port, nor chip_smoke.py, imports jax, jaxlib, flax
         or vitok_tpu."""

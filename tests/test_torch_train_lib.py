@@ -16,6 +16,8 @@ JAX package draws from its key are fed to the port. Tolerances:
   straddle zero, so the movement agrees far less tightly than the values;
   with a bf16 first moment a float32 difference can also flip a bf16
   rounding (2^-8 of the moment), so parameters and EMA are held to 5e-4;
+  three AdamW steps of the small DiT with ``weight_decay=0.1`` on the same
+  numpy gradients: every parameter rel L2 <= 1e-4 (``ctx_embed`` decayed);
 * inside the port: grad accumulation and activation checkpointing give the
   plain gradients within 1e-6, and a resumed run repeats an uninterrupted
   one bit for bit.
@@ -34,15 +36,18 @@ import jax.numpy as jnp
 
 import vitok_tpu.ops.flash_attention as j_fl
 from tests.test_torch_ae import jax_params, make_batch, port_model
+from tests.test_torch_dit import jax_dit_params
 from vitok_tpu import train_lib as j_tl
 from vitok_tpu.models import ae as j_ae
+from vitok_tpu.models import dit as j_dit
 from vitok_tpu.pp import ops as j_ops
 from vitok_tpu.utils import params_io as j_io
 from vitok_torch import train_lib as t_tl
 from vitok_torch.models import ae as t_ae
+from vitok_torch.models import dit as t_dit
 from vitok_torch.ops import flash_attention as t_fl
 from vitok_torch.utils import checkpoint as t_ckpt
-from vitok_torch.utils.params_io import from_jax_params, to_jax_params
+from vitok_torch.utils.params_io import dit_from_jax_params, dit_to_jax_params, from_jax_params, to_jax_params
 
 torch.set_num_threads(1)
 
@@ -50,6 +55,7 @@ VARIANT = "w128_d2_h2-w128_d2_h2/1x16x8"
 TOKENS, PATCH = 64, 16
 GRIDS = [(8, 8), (6, 5)]
 LOSS = dict(ssim_weight=0.1, tile_size=64, n_tiles=2, patch=PATCH, ssim_grid=(8, 8))
+DIT_SMALL = dict(width=128, depth=2, heads=2, code_width=8, text_dim=10)
 
 
 def rel_l2(a, b):
@@ -121,6 +127,21 @@ class TestOptimizerPieces:
         j_mask = leaves(j_tl._decay_mask(jax_params(cfg)))
         assert sum(mask.values()) == 4 + 4 * (cfg.encoder_depth + cfg.decoder_depth)
         assert sum(bool(v) for v in j_mask.values()) == 4 + 4 * 2  # stacked over depth
+
+    def test_decay_mask_is_the_linear_weights_and_the_dit_class_table(self):
+        """The DiT's ``ctx_embed`` (a bare parameter) is decayed, as the JAX
+        package's leaf-name mask decays its ``ctx_embed`` leaf."""
+        cfg = j_dit.DiTConfig(**DIT_SMALL)
+        model = t_dit.DiT(state_dict=dit_from_jax_params(jax_dit_params(cfg)), device="cpu",
+                          compute_dtype=torch.float32, **DIT_SMALL)
+        mask = t_tl.decay_mask(model)
+        linears = {f"{n}.weight" for n, m in model.named_modules() if isinstance(m, torch.nn.Linear)}
+        assert mask["ctx_embed"]
+        assert {n for n, d in mask.items() if d} == linears | {"ctx_embed"}
+        j_mask = leaves(j_tl._decay_mask(jax_dit_params(cfg)))
+        decayed = {k for k, v in j_mask.items() if v}
+        assert "['ctx_embed']" in decayed
+        assert all(k.endswith("['kernel']") for k in decayed - {"['ctx_embed']"})
 
     def test_muon_is_not_ported(self):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -322,6 +343,38 @@ class TestTrainStep:
         if moment_dtype:
             assert all(m.dtype == torch.bfloat16 for m in state.opt_state["mu"])
             assert all(v.dtype == torch.float32 for v in state.opt_state["nu"])
+
+    def test_three_adamw_steps_of_the_dit_with_weight_decay_match_jax(self):
+        """``create_optimizer(weight_decay=0.1)`` on the small DiT against the
+        JAX package's for three steps of the same numpy gradients: every
+        parameter within rel L2 1e-4, ``ctx_embed`` included (its table is
+        drawn N(0, 1), so leaving it undecayed would miss by about 1e-3)."""
+        cfg = j_dit.DiTConfig(**DIT_SMALL)
+        params = jax_dit_params(cfg)
+        rng = np.random.default_rng(7)
+        params["ctx_embed"] = rng.standard_normal(params["ctx_embed"].shape).astype(np.float32)
+        grads = [jax.tree_util.tree_map(lambda p: (0.1 * rng.standard_normal(p.shape)).astype(np.float32), params)
+                 for _ in range(3)]
+
+        jtx = j_tl.create_optimizer(j_tl.create_schedule("constant", 1e-2, 10), weight_decay=0.1)
+        jparams = jax.tree_util.tree_map(jnp.asarray, params)
+        jstate = jtx.init(jparams)
+        for g in grads:
+            updates, jstate = jtx.update(jax.tree_util.tree_map(jnp.asarray, g), jstate, jparams)
+            jparams = optax.apply_updates(jparams, updates)
+
+        model = t_dit.DiT(state_dict=dit_from_jax_params(params), device="cpu",
+                          compute_dtype=torch.float32, **DIT_SMALL)
+        tx = t_tl.create_optimizer(t_tl.create_schedule("constant", 1e-2, 10), weight_decay=0.1)
+        opt_state = tx.init(model)
+        names = [n for n, _ in model.named_parameters()]
+        for g in grads:
+            gstate = dit_from_jax_params(g)
+            tx.update(list(model.parameters()), [gstate[n].clone() for n in names], opt_state)
+        got, want = leaves(dit_to_jax_params(model.state_dict())), leaves(jparams)
+        assert set(want) <= set(got)
+        for key in want:
+            assert rel_l2(got[key], want[key]) <= 1e-4, f"{key}: rel L2 {rel_l2(got[key], want[key]):.3e}"
 
     def test_grad_accum_equals_the_full_batch(self):
         cfg = j_ae.AEConfig.from_variant(VARIANT)

@@ -1,0 +1,139 @@
+"""The port's counterparts of the JAX project's A/B attention experiments.
+
+``benchmarks/ab_batch_block.py`` and ``benchmarks/ab_q8_input.py`` (JAX)
+time variants of the fused attention kernel against it. Here each variant
+is a hand-written Hopper kernel in ``vitok_torch/csrc/fused_attention_ab.cu``
+beside its plain PyTorch version, and each module's ``main()`` takes the JAX
+script's flags (plus ``--device``) and builds, checks and times the same
+arms:
+
+    python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 24 --tokens 256 --batch 64 --layers 256 --iters 6
+    python -m vitok_torch.benchmarks.ab_q8_input --c 3072 --heads 24 --tokens 256 --batch 64
+
+Shared here: the kernel library's binding, the JAX package's head-group
+pick (for the arms' descriptions), the inputs and the chained timing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import time
+from typing import Callable, Optional
+
+import torch
+
+from vitok_torch.ops import _build
+
+_VMEM_BUDGET = 13 * 1024 * 1024  # the JAX package's per-cell budget (bytes)
+
+
+def pick_group_channels(c: int, d: int, n: int) -> int:
+    """The JAX package's head-group pick for its fused forward
+    (``vitok_tpu/ops/fused_attention.py`` ``_pick_group_channels`` with the
+    forward estimate and 128-lane alignment): the channels one TPU grid cell
+    takes. 0 if no group fits."""
+    best = 0
+    cg = d
+    while cg <= c:
+        if c % cg == 0 and cg % 128 == 0:
+            if best == 0:
+                best = cg
+            elif 16 * n * cg + 10 * n * n <= _VMEM_BUDGET and (cg < c or c == d):
+                best = cg
+        cg += d
+    if n <= 64 and best > 4 * d:
+        cand = 4 * d
+        if cand < c and c % cand == 0 and cand % 128 == 0:
+            best = cand
+    return best
+
+
+def kernel_lib() -> ctypes.CDLL:
+    """``csrc/fused_attention_ab.cu``, built on first use."""
+    lib = _build.load("fused_attention_ab")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+        (lib.vitok_fused_attention_bb, [ptr] * 7 + [i] * 9 + [ptr]),
+        (lib.vitok_fused_attention_contig, [ptr] * 7 + [i] * 6 + [ptr]),
+        (lib.vitok_fused_attention_q8in, [ptr] * 8 + [i] * 5 + [ptr]),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def check_device(t: torch.Tensor) -> None:
+    """The wrappers run their kernel on a CUDA tensor and their plain version
+    on a CPU tensor; any other device raises."""
+    if not t.is_cuda and t.device.type != "cpu":
+        raise RuntimeError(f"no fused attention kernel for device {t.device}")
+
+
+def card_line(device: torch.device) -> str:
+    """``name, power limit`` of the card from ``nvidia-smi`` (the CPU says so)."""
+    if device.type != "cuda":
+        return "cpu (plain versions, host clock: no device time)"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run the plain versions")
+    return device
+
+
+def rope_inputs(b: int, n: int, d: int, device, gen: torch.Generator):
+    """The JAX scripts' gains (1 + 0.1 N(0, 1)) and rope tables
+    (``cos(pos * exp(-i / (d/2)))``, one row per token, the same for every
+    sample), drawn from ``gen``."""
+    q_scale = 1.0 + 0.1 * torch.randn(d, generator=gen)
+    k_scale = 1.0 + 0.1 * torch.randn(d, generator=gen)
+    pos = torch.arange(n, dtype=torch.float32)[:, None]
+    freq = torch.exp(-torch.arange(d // 2, dtype=torch.float32) / (d // 2))
+    cos = torch.cos(pos * freq)[None].expand(b, n, d // 2).contiguous()
+    sin = torch.sin(pos * freq)[None].expand(b, n, d // 2).contiguous()
+    return q_scale.to(device), k_scale.to(device), cos.to(device), sin.to(device)
+
+
+def chained_ms(call: Callable[[torch.Tensor], torch.Tensor], cos: torch.Tensor, layers: int,
+               tick: float) -> float:
+    """Milliseconds per call of ``layers`` chained calls: each call's input
+    table is ``cos + dep``, with ``dep`` zero times a probe of the previous
+    output, so the calls run in order and the dependency pass touches only
+    the small table, never qkv. CUDA events on the card (the probes summed on
+    the device, read once at the end), the host clock on the CPU."""
+    cuda = cos.is_cuda
+    dep = torch.full((), tick, device=cos.device)
+    acc = torch.zeros((), device=cos.device)
+    if cuda:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    else:
+        t0 = time.perf_counter()
+    for _ in range(layers):
+        out = call(cos + dep)
+        probe = (out[0, 0, 0] + out[-1, -1, -1]).float()
+        dep = probe * 0.0
+        acc = acc + probe
+    if cuda:
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+    else:
+        ms = (time.perf_counter() - t0) * 1e3
+    float(acc)
+    return ms / layers
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor, rows: Optional[torch.Tensor] = None) -> float:
+    d = (a.float() - b.float()).abs()
+    return float((d if rows is None else d[rows]).max())
+
+
+__all__ = ["pick_group_channels", "kernel_lib", "check_device", "card_line", "resolve_device",
+           "rope_inputs", "chained_ms", "max_abs_diff"]

@@ -42,9 +42,14 @@
 // O += P V run on mma.sync m16n8k16 bf16 -> fp32, with V's B fragments read
 // by ldmatrix.trans.
 //
-// A second instance, fused_attention_q8_kernel further down, runs the same
-// body and quantizes the result per token to int8 before it leaves the chip
-// (it replaces _fused_kernel_q8).
+// The body (attend_tile) lives in fused_attend.cuh, shared with the A/B
+// kernels of fused_attention_ab.cu. fused_attention_q8_kernel further down
+// runs it and quantizes the result per token to int8 before it leaves the
+// chip (it replaces _fused_kernel_q8). The fp32 instance of
+// fused_attention_kernel (vitok_fused_attention_f32) is the TPU kernel's f32
+// case: fp32 norm and rotation, fp32 FMA products (no tensor cores, no tf32),
+// P kept in fp32; it is bound by its 4-byte reads at N <= 256 and by the
+// FMA rate (67 TFLOP/s) above.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry points, bound
@@ -58,277 +63,22 @@
 
 #include <cmath>
 
-#include "norm_rope.cuh"
-#include "ptx.cuh"
+#include "fused_attend.cuh"
 
 namespace {
 
-constexpr int kTile = 64;      // query rows per block and keys per tile
-constexpr int kWarps = 4;      // 16 query rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;        // bf16 row padding: conflict-free fragment loads
-constexpr float kNegFill = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <int D>
-struct Smem {
-  static constexpr int kRow = D + kPad;          // sQ, sK, sV row stride (bf16)
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + sizeof(__nv_bfloat16) * kTile * kRow;
-  static constexpr size_t kV = kK + sizeof(__nv_bfloat16) * kTile * kRow;
-  static constexpr size_t kGainQ = kV + sizeof(__nv_bfloat16) * kTile * kRow;
-  static constexpr size_t kGainK = kGainQ + sizeof(float) * D;
-  static constexpr size_t kKeyState = kGainK + sizeof(float) * D;
-  static constexpr size_t kBytes = kKeyState + kTile;
-};
-
-// What a block sets up once: the gains in shared memory and, in *sKvEnd, one
-// past the last valid key (NaFlex padding is a tail suffix, but the per-key
-// mask in attend_tile keeps any mask exact; this only bounds the loop). The
-// caller synchronises the block before it reads either.
-template <int D>
-__device__ __forceinline__ void block_setup(const float* __restrict__ q_scale,
-                                            const float* __restrict__ k_scale,
-                                            const unsigned char* mask_b, int N, float* sGainQ,
-                                            float* sGainK, int* sKvEnd, int tid) {
-  for (int i = tid; i < D; i += kThreads) {
-    sGainQ[i] = q_scale[i];
-    sGainK[i] = k_scale[i];
-  }
-  if (tid == 0) *sKvEnd = mask_b ? 0 : N;
-  __syncthreads();
-  if (mask_b) {
-    int last = 0;
-    for (int j = tid; j < N; j += kThreads)
-      if (mask_b[j]) last = j + 1;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      last = max(last, __shfl_xor_sync(kFull, last, off));
-    if ((tid & 31) == 0) atomicMax(sKvEnd, last);
-  }
-}
-
-// Attention of query rows [q0, q0 + 64) of head h of one sample (`qkv_b`,
-// `cos_b`, `sin_b`, `mask_b` point at that sample): the bf16 result of row
-// q0 + r goes to out_rows[r * out_stride + channel], rows at or past N are
-// not written. Both kernels below run this one body, so their bf16 values
-// are the same bits.
-template <int D>
-__device__ __forceinline__ void attend_tile(
-    unsigned char* smem, const int* sKvEnd, const __nv_bfloat16* __restrict__ qkv_b,
-    const float* __restrict__ cos_b, const float* __restrict__ sin_b,
-    const unsigned char* __restrict__ mask_b, int q0, int h, int N, int H, int sw,
-    float score_scale, __nv_bfloat16* out_rows, long long out_stride) {
-  using S = Smem<D>;
-  constexpr int kRow = S::kRow;
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + S::kQ);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + S::kK);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + S::kV);
-  float* sGainQ = reinterpret_cast<float*>(smem + S::kGainQ);
-  float* sGainK = reinterpret_cast<float*>(smem + S::kGainK);
-  unsigned char* sKeyState = smem + S::kKeyState;  // 0 valid, 1 masked, 2 past N
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // mma group id
-  const int t = lane & 3;    // thread in group
-  const int C = H * D;
-  const long long row_stride = 3LL * C;
-
-  norm_rope_tile<D, kThreads>(qkv_b + h * D, row_stride, q0, N, sGainQ, cos_b, sin_b, sQ, tid);
-  __syncthreads();
-
-  // Q as mma A fragments (rows warp*16 + g and + 8).
-  uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* r0 = sQ + (warp * 16 + g) * kRow;
-    const __nv_bfloat16* r1 = r0 + 8 * kRow;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c0 = kk * 16 + 2 * t;
-      qf[kk][0] = ld_u32(r0 + c0);
-      qf[kk][1] = ld_u32(r1 + c0);
-      qf[kk][2] = ld_u32(r0 + c0 + 8);
-      qf[kk][3] = ld_u32(r1 + c0 + 8);
-    }
-  }
-
-  const int kv_end = *sKvEnd;
-  const int n_tiles = (N + kTile - 1) / kTile;
-  const int q_last = min(q0 + kTile, N) - 1;
-  int lo_key = 0, hi_key = kv_end;
-  if (sw >= 0) {
-    lo_key = max(0, q0 - sw);
-    hi_key = min(kv_end, q_last + sw + 1);
-  }
-  int lo_tile = lo_key / kTile;
-  int hi_tile = (hi_key + kTile - 1) / kTile;
-  if (hi_tile <= lo_tile) lo_tile = hi_tile = 0;
-
-  const int qrow0 = q0 + warp * 16 + g;  // this thread's two query rows
-  const int qrow1 = qrow0 + 8;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running row max (log2 units)
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sum
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-
-  // This lane's ldmatrix row address inside a 16-key x 16-channel block of V.
-  const int v_key = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int v_col = (lane >> 4) * 8;
-
-  // Pass 0 walks the tiles that hold a valid key inside some row's window.
-  // A row that saw none there (a padded query row beyond the window's reach,
-  // or an all-padding sample) averages v uniformly over all N keys on the
-  // TPU, so pass 1 then walks the skipped tiles as well; for every other row
-  // their keys are all filled and add exactly zero.
-  const int main_tiles = hi_tile - lo_tile;
-  for (int pass = 0; pass < 2; ++pass) {
-    int count = main_tiles;
-    if (pass == 1) {
-      const bool dead = (qrow0 < N && m0 <= kNegFill) || (qrow1 < N && m1 <= kNegFill);
-      if (!__syncthreads_or(dead)) break;
-      count = n_tiles - main_tiles;
-    }
-    for (int it = 0; it < count; ++it) {
-      const int kt = pass == 0 ? lo_tile + it : (it < lo_tile ? it : it + main_tiles);
-      const int k0 = kt * kTile;
-      __syncthreads();  // previous tile's sK / sV reads are done
-      // V tile, row-major, 16-byte copies in flight while K is normalised.
-      constexpr int kChunks = D / 8;
-#pragma unroll
-      for (int u = 0; u < kTile * kChunks / kThreads; ++u) {
-        const int i = tid + u * kThreads;
-        const int row = i / kChunks;
-        const int ch = (i % kChunks) * 8;
-        const int j = k0 + row;
-        __nv_bfloat16* dst = sV + row * kRow + ch;
-        if (j < N)
-          cp_async16(dst, qkv_b + (long long)j * row_stride + 2 * C + h * D + ch);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
-      norm_rope_tile<D, kThreads>(qkv_b + C + h * D, row_stride, k0, N, sGainK, cos_b, sin_b, sK, tid);
-      if (tid < kTile) {
-        const int j = k0 + tid;
-        sKeyState[tid] = j >= N ? 2 : ((mask_b && !mask_b[j]) ? 1 : 0);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-
-      // S = Q K^T for this warp's 16 rows x 64 keys.
-      float s[kTile / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        const __nv_bfloat16* krow = sK + (nt * 8 + g) * kRow + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          mma_bf16(s[nt], qf[kk], ld_u32(krow + kk * 16), ld_u32(krow + kk * 16 + 8));
-      }
-
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          const int qrow = (e < 2) ? qrow0 : qrow1;
-          const int state = sKeyState[col];
-          float v = __fmul_rn(s[nt][e], score_scale);
-          if (state == 2) {
-            v = -INFINITY;
-          } else if (state == 1 || (sw >= 0 && abs(qrow - (k0 + col)) > sw)) {
-            v = kNegFill;
-          }
-          s[nt][e] = v;
-        }
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
-      }
-      // Key k0 < N is in every tile, so the new max is finite.
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float ls0 = 0.f, ls1 = 0.f;
-      uint32_t pa[kTile / 16][4];
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        const float p0 = exp2f(__fsub_rn(s[nt][0], mn0));
-        const float p1 = exp2f(__fsub_rn(s[nt][1], mn0));
-        const float p2 = exp2f(__fsub_rn(s[nt][2], mn1));
-        const float p3 = exp2f(__fsub_rn(s[nt][3], mn1));
-        ls0 += p0 + p1;
-        ls1 += p2 + p3;
-        // C fragment of key tiles (2j, 2j+1) is the A fragment of k-step j.
-        const int j = nt >> 1;
-        const int hi = (nt & 1) * 2;
-        pa[j][hi + 0] = pack_bf16(p0, p1);
-        pa[j][hi + 1] = pack_bf16(p2, p3);
-      }
-      l0 = l0 * a0 + ls0;
-      l1 = l1 * a1 + ls1;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        o[dt][0] *= a0;
-        o[dt][1] *= a0;
-        o[dt][2] *= a1;
-        o[dt][3] *= a1;
-      }
-      // O += P V: one ldmatrix.x4.trans gives the B fragments of two
-      // 8-channel tiles for one 16-key step.
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-#pragma unroll
-        for (int j = 0; j < kTile / 16; ++j) {
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, sV + (j * 16 + v_key) * kRow + dt * 8 + v_col);
-          mma_bf16(o[dt], pa[j], vb[0], vb[1]);
-          mma_bf16(o[dt + 1], pa[j], vb[2], vb[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(kFull, l0, off);
-    l1 += __shfl_xor_sync(kFull, l1, off);
-  }
-  __nv_bfloat16* out0 = out_rows + (long long)(qrow0 - q0) * out_stride;
-  __nv_bfloat16* out1 = out0 + 8 * out_stride;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (qrow0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out0 + col) =
-          __floats2bfloat162_rn(o[dt][0] / l0, o[dt][1] / l0);
-    if (qrow1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out1 + col) =
-          __floats2bfloat162_rn(o[dt][2] / l1, o[dt][3] / l1);
-  }
-}
-
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
+fused_attention_kernel(const T* __restrict__ qkv,
                        const float* __restrict__ q_scale,
                        const float* __restrict__ k_scale,
                        const float* __restrict__ cos_t,
                        const float* __restrict__ sin_t,
                        const unsigned char* __restrict__ mask,  // [B, N] or null
-                       __nv_bfloat16* __restrict__ out, int N, int H,
+                       T* __restrict__ out, int N, int H,
                        int sw,  // < 0: no window
                        float score_scale) {
-  using S = Smem<D>;
+  using S = Smem<D, T>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sKvEnd;
   const int q0 = blockIdx.x * kTile;
@@ -464,21 +214,21 @@ fused_attention_q8_kernel(const __nv_bfloat16* __restrict__ qkv,
   cluster.sync();  // no block leaves while another may still read its maxima
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale,
                    const void* cos_t, const void* sin_t, const void* mask,
                    void* out, int B, int N, int H, int sw, cudaStream_t stream) {
-  const size_t smem = Smem<D>::kBytes;
+  const size_t smem = Smem<D, T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_attention_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const float score_scale = (float)(1.0 / std::sqrt((double)D) * 1.4426950408889634);
   dim3 grid((N + kTile - 1) / kTile, H, B);
-  fused_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(q_scale),
+  fused_attention_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(q_scale),
       static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask),
-      static_cast<__nv_bfloat16*>(out), N, H, sw, score_scale);
+      static_cast<T*>(out), N, H, sw, score_scale);
   return cudaGetLastError();
 }
 
@@ -528,8 +278,21 @@ int vitok_fused_attention_bf16(const void* qkv, const void* q_scale,
                                const void* sin_t, const void* mask, void* out,
                                int B, int N, int H, int D, int sw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
-  if (D == 128) return launch<128>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
+  if (D == 64)
+    return launch<64, __nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
+  if (D == 128)
+    return launch<128, __nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fp32 instance: qkv and out fp32, the other arguments as above.
+int vitok_fused_attention_f32(const void* qkv, const void* q_scale,
+                              const void* k_scale, const void* cos_t,
+                              const void* sin_t, const void* mask, void* out,
+                              int B, int N, int H, int D, int sw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch<64, float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
+  if (D == 128) return launch<128, float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // QK-RMSNorm + rotate-half RoPE on a 64-row tile of one head's channels, and
 // its backward, shared by the fused attention kernels (fused_attention.cu:
-// the forward and its int8-epilogue instance; fused_attention_bwd.cu).
+// the forward, its int8-epilogue and fp32 instances; fused_attention_bwd.cu;
+// fused_attention_ab.cu, which also reads int8 codes).
 //
 // A row of D channels is cut into D/16 pieces, one thread each: channels
 // [8p, 8p + 8) and their rotate-half partners [D/2 + 8p, D/2 + 8p + 8), so
@@ -26,12 +27,14 @@ constexpr unsigned kNrFull = 0xffffffffu;
 // Normalises and rotates rows [r0, r0 + 64) of one head's q or k channels
 // (`src` points at row 0, channel 0 of that head) into `dst` (row stride
 // D + 8). Rows at or past N become zeros. Two passes' loads are in flight at
-// once.
-template <int D, int THREADS>
+// once. `Src` is bf16, or int8 codes, which are exact in bf16 and are normed
+// as they are (8-byte loads).
+template <int D, int THREADS, typename Src>
 __device__ __forceinline__ void norm_rope_tile(
-    const __nv_bfloat16* __restrict__ src, long long row_stride, int r0, int N,
+    const Src* __restrict__ src, long long row_stride, int r0, int N,
     const float* gain, const float* __restrict__ cos_t, const float* __restrict__ sin_t,
     __nv_bfloat16* dst, int tid) {
+  constexpr bool kCodes = sizeof(Src) == 1;
   constexpr int kRow = D + kNrPad;
   constexpr int kHalf = D / 2;
   constexpr int kPieces = D / 16;                  // threads per row
@@ -52,11 +55,18 @@ __device__ __forceinline__ void norm_rope_tile(
       xr[u] = xi[u] = make_uint4(0, 0, 0, 0);
       cs[u][0] = cs[u][1] = sn[u][0] = sn[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (n < N) {
-        const __nv_bfloat16* x = src + (long long)n * row_stride + c0;
+        const Src* x = src + (long long)n * row_stride + c0;
         const float* c = cos_t + (long long)n * kHalf + c0;
         const float* s = sin_t + (long long)n * kHalf + c0;
-        xr[u] = *reinterpret_cast<const uint4*>(x);
-        xi[u] = *reinterpret_cast<const uint4*>(x + kHalf);
+        if constexpr (kCodes) {
+          const uint2 lo = *reinterpret_cast<const uint2*>(x);
+          const uint2 hi = *reinterpret_cast<const uint2*>(x + kHalf);
+          xr[u] = make_uint4(lo.x, lo.y, 0, 0);
+          xi[u] = make_uint4(hi.x, hi.y, 0, 0);
+        } else {
+          xr[u] = *reinterpret_cast<const uint4*>(x);
+          xi[u] = *reinterpret_cast<const uint4*>(x + kHalf);
+        }
         cs[u][0] = *reinterpret_cast<const float4*>(c);
         cs[u][1] = *reinterpret_cast<const float4*>(c + 4);
         sn[u][0] = *reinterpret_cast<const float4*>(s);
@@ -65,16 +75,19 @@ __device__ __forceinline__ void norm_rope_tile(
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const __nv_bfloat16* hr = reinterpret_cast<const __nv_bfloat16*>(&xr[u]);
-      const __nv_bfloat16* hi = reinterpret_cast<const __nv_bfloat16*>(&xi[u]);
       const float* c = reinterpret_cast<const float*>(&cs[u][0]);
       const float* s = reinterpret_cast<const float*>(&sn[u][0]);
       float a[8], b[8];
       float ss = 0.f;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        a[e] = __bfloat162float(hr[e]);
-        b[e] = __bfloat162float(hi[e]);
+        if constexpr (kCodes) {
+          a[e] = (float)reinterpret_cast<const int8_t*>(&xr[u])[e];
+          b[e] = (float)reinterpret_cast<const int8_t*>(&xi[u])[e];
+        } else {
+          a[e] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&xr[u])[e]);
+          b[e] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&xi[u])[e]);
+        }
         ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
         ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
       }
@@ -101,6 +114,76 @@ __device__ __forceinline__ void norm_rope_tile(
       *reinterpret_cast<uint4*>(d) = make_uint4(out_r[0], out_r[1], out_r[2], out_r[3]);
       *reinterpret_cast<uint4*>(d + kHalf) = make_uint4(out_i[0], out_i[1], out_i[2], out_i[3]);
     }
+  }
+}
+
+// Eight floats through two 16-byte accesses (`p` 16-byte aligned).
+__device__ __forceinline__ void ld_f4x2(float (&v)[8], const float* p) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void st_f4x2(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The fp32 instance of norm_rope_tile: the same rows, thread layout and
+// order of the sum of squares; the normed value times the gain and the
+// rotation stay in fp32 (each product and sum rounded once, as the plain
+// version's separate tensor operations round them). `dst` has row stride
+// D + 4 floats.
+template <int D, int THREADS>
+__device__ __forceinline__ void norm_rope_tile_f32(
+    const float* __restrict__ src, long long row_stride, int r0, int N,
+    const float* gain, const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+    float* dst, int tid) {
+  constexpr int kRow = D + 4;
+  constexpr int kHalf = D / 2;
+  constexpr int kPieces = D / 16;
+  constexpr int kRowsPerPass = THREADS / kPieces;
+  constexpr int kPasses = kNrTile / kRowsPerPass;
+  const int c0 = (tid % kPieces) * 8;
+#pragma unroll 2
+  for (int p = 0; p < kPasses; ++p) {
+    const int row = p * kRowsPerPass + tid / kPieces;
+    const int n = r0 + row;
+    float a[8], b[8], c[8], s[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a[e] = b[e] = c[e] = s[e] = 0.f;
+    if (n < N) {
+      const float* x = src + (long long)n * row_stride + c0;
+      const float* cp = cos_t + (long long)n * kHalf + c0;
+      const float* sp = sin_t + (long long)n * kHalf + c0;
+      ld_f4x2(a, x);
+      ld_f4x2(b, x + kHalf);
+      ld_f4x2(c, cp);
+      ld_f4x2(s, sp);
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
+      ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
+    }
+#pragma unroll
+    for (int off = 1; off < kPieces; off <<= 1) ss += __shfl_xor_sync(kNrFull, ss, off);
+    const float r = rsqrtf(__fadd_rn(ss / D, kNrEps));
+    const float* gr = gain + c0;
+    const float* gi = gain + kHalf + c0;
+    float vr[8], vi[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float yr = __fmul_rn(__fmul_rn(a[e], r), gr[e]);
+      const float yi = __fmul_rn(__fmul_rn(b[e], r), gi[e]);
+      vr[e] = __fsub_rn(__fmul_rn(yr, c[e]), __fmul_rn(yi, s[e]));  // xr*cos - xi*sin
+      vi[e] = __fadd_rn(__fmul_rn(yr, s[e]), __fmul_rn(yi, c[e]));  // xr*sin + xi*cos
+    }
+    float* d = dst + row * kRow + c0;
+    st_f4x2(d, vr);
+    st_f4x2(d + kHalf, vi);
   }
 }
 

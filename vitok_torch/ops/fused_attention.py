@@ -5,8 +5,9 @@ Port of ``vitok_tpu/ops/fused_attention.py``: the input is the raw
 output the flat ``[B, N, C]`` attention result. On a CUDA tensor
 :func:`fused_qkv_attention` launches the hand-written Hopper kernel in
 ``vitok_torch/csrc/fused_attention.cu`` (it replaces the TPU kernel
-``_fused_kernel``); on a CPU tensor it runs :func:`fused_qkv_attention_plain`,
-the same function in plain PyTorch. The CUDA path never falls back.
+``_fused_kernel``; bf16, or its fp32 instance on fp32 qkv); on a CPU tensor it
+runs :func:`fused_qkv_attention_plain`, the same function in plain PyTorch.
+The CUDA path never falls back.
 
 Under autograd the kernel's backward is a kernel too
 (:func:`fused_qkv_attention_bwd`, ``csrc/fused_attention_bwd.cu``, replacing
@@ -112,9 +113,11 @@ def fused_qkv_attention_plain(
     return o.to(qkv.dtype).reshape(b, n, c3 // 3)
 
 
-def _check_cuda_args(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
+def _check_cuda_args(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
+                     dtypes=(torch.bfloat16,)):
     """Validates a CUDA call and returns ``(b, n, c, d, q_scale, k_scale, cos,
-    sin, mask, sw)`` in the types and layouts the kernels read."""
+    sin, mask, sw)`` in the types and layouts the kernels read. ``dtypes``:
+    the qkv types the kernel has instances for."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, N, 3C], got {tuple(qkv.shape)}")
     b, n, c3 = qkv.shape
@@ -124,11 +127,11 @@ def _check_cuda_args(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sli
     d = c // num_heads
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the fused CUDA kernels take head_dim in {KERNEL_HEAD_DIMS}, got {d}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(
-            f"the fused CUDA kernels take bfloat16 qkv, got {qkv.dtype} "
-            "(fp32 has no kernel instance yet: ROADMAP.md Queue 3)"
-        )
+    if qkv.dtype not in dtypes:
+        names = " or ".join(str(t).replace("torch.", "") for t in dtypes)
+        why = "" if torch.float32 in dtypes or torch.int8 in dtypes else (
+            " (fp32 has an instance of the forward kernel only: ROADMAP.md Queue 3)")
+        raise TypeError(f"this fused CUDA kernel takes {names} qkv, got {qkv.dtype}{why}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     dev = qkv.device
@@ -155,13 +158,15 @@ def _ptr(t: Optional[torch.Tensor]):
 def _fused_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
     global LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
-        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
+        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
+        dtypes=(torch.bfloat16, torch.float32),
     )
     dev = qkv.device
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=dev)
     lib = _kernel_lib()
+    entry = lib.vitok_fused_attention_f32 if qkv.dtype == torch.float32 else lib.vitok_fused_attention_bf16
     with torch.cuda.device(dev):  # the C entry launches on the current device
-        err = lib.vitok_fused_attention_bf16(
+        err = entry(
             qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(),
             sin.data_ptr(), _ptr(mask), out.data_ptr(),
             b, n, num_heads, d, sw, torch.cuda.current_stream(dev).cuda_stream,
@@ -176,6 +181,7 @@ def _kernel_lib() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
         (lib.vitok_fused_attention_bf16, [ptr] * 7 + [i] * 5 + [ptr]),
+        (lib.vitok_fused_attention_f32, [ptr] * 7 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_q8_bf16, [ptr] * 8 + [i] * 6 + [ptr]),
     ):
         if fn.argtypes is None:

@@ -88,10 +88,11 @@ def create_schedule(
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> whether it gets weight decay: the weight of every
-    ``nn.Linear`` and nothing else (the JAX package's leaf-name mask keeps
-    ``kernel`` leaves)."""
+    ``nn.Linear`` and the DiT's class table ``ctx_embed``, nothing else (the
+    JAX package's leaf-name mask keeps ``kernel`` and ``ctx_embed`` leaves)."""
     decayed = {id(m.weight) for m in model.modules() if isinstance(m, nn.Linear)}
-    return {name: id(p) in decayed for name, p in model.named_parameters()}
+    return {name: id(p) in decayed or name.rsplit(".", 1)[-1] == "ctx_embed"
+            for name, p in model.named_parameters()}
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
