@@ -10,7 +10,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    shapes its path gives it, at the 5B width and at a ragged size, and times
    the kernel, the plain version and, where there is one, a PyTorch library
    call for the same function (for the fused FFN: ``torch._int_mm`` on its
-   fc1 product alone);
+   fc1 product alone); the fused forward is the q/k prologue and the wgmma
+   kernel (with its row log-sum-exp against the plain one), timed beside the
+   kept mma.sync forward;
 3. drives the main path, preprocess -> AE.encode -> AE.decode -> postprocess,
    for 350M-f16x64 (``Ld4-Ld24/1x16x64``) at full width and depth with
    random weights from a seed, at 256p (batch 64) and 512p (batch 16), in
@@ -38,9 +40,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    falling loss, the first step's gradients against the same step on the
    plain backward), a step with every block recomputed (56 forward
    launches, the same loss), and one step at 2048p (16384 tokens);
-7. holds the fused attention's backward kernel and its int8-epilogue
-   instance against their plain versions (and the epilogue's codes against
-   ``quantize_activation`` of the forward kernel's output, bit for bit);
+7. holds the fused attention's backward (the prologue, then the wgmma dq
+   and dk/dv kernels, given the forward's output and log-sum-exp) and its
+   int8-epilogue instance against their plain versions (and the epilogue's
+   codes against ``quantize_activation`` of the mma.sync forward's output,
+   bit for bit);
    trains 350M at 256 tokens, batch 32, on the fused kernel and its backward
    kernel (28 + 28 launches a step) beside the unfused composition under
    autograd; runs the int8 350M path with the quantize epilogue switched on;
@@ -49,7 +53,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    with the 350M decoder, repeats a call after ``DiT.quantize()``; and
    takes three flow-matching training steps of DiT-L on the fused kernels;
 8. holds the A/B kernels of ``vitok_torch.benchmarks`` (batch blocks,
-   packs, int8 input, all heads of a tile) against the fused forward kernel,
+   packs, int8 input, all heads of a tile) against the mma.sync forward,
    bit for bit, and against their plain versions, and the forward's fp32
    instance against its plain version, at the JAX A/B scripts' recorded
    shapes and at the 350M width with a dead image; runs the 350M AE in fp32
@@ -85,6 +89,11 @@ INT8_OPS_PER_S = 1979e12
 
 KERNEL_MAX_ABS = 2e-2   # both sides round P to bf16 before PV, but the online
 KERNEL_MEAN_ABS = 2e-3  # softmax rescales at running maxima, in another order
+# The prologue's normed q/k against the plain version's: the same bf16
+# rounding points, but the kernel's rsqrtf and sum order may move a value by
+# one bf16 step (2^-5 at |x| < 8) in a few entries.
+PROLOGUE_MAX_ABS = 2 ** -5
+PROLOGUE_DIFFER_SHARE = 1e-3
 MODEL_REL_L2 = 2e-2     # decoded patches, fused kernel vs unfused path, bf16
 CODE_SHARE = 1e-3       # quantize kernels: codes differ by <= 1 step in <= 0.1% of entries
 SCALE_RTOL = 1e-5       # ... and per-token scales agree to this
@@ -103,20 +112,43 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, runs: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` over ``runs`` launches (CUDA events)."""
+    """Milliseconds a call of ``fn()``: ``runs`` calls enqueued back to back
+    between two CUDA events, after ``warmup`` calls; the median of three such
+    chains. Where the device is slower than the host's enqueueing, the
+    enqueueing overlaps it and this is the device's time; where the host is
+    slower, the host's."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(runs):
+    for _ in range(3):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(runs):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / runs)
     return float(np.median(times))
+
+
+def device_ms(fn, runs: int = 5) -> float:
+    """Device time of a call of ``fn()``: the CUDA kernels' times that
+    ``torch.profiler`` records over ``runs`` calls, summed, per call. Host
+    time between the kernels does not count (``time_ms`` counts it where the
+    host is the slower side); 0.0 where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3 / runs
 
 
 def card_line() -> str:
@@ -205,54 +237,111 @@ def _bound(b, n, c, h, mask, sw):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _prologue_bound(b, n, c, d):
+    """The forward's prologue's least time: k read, its normed copy written,
+    the tables and the gain read once, over HBM bandwidth (it does a few
+    operations a byte)."""
+    nbytes = 2 * b * n * c * 2 + 2 * b * n * (d // 2) * 4 + d * 4
+    return _bound_ms(nbytes, 0.0, BF16_FLOPS_PER_S)
+
+
 def kernel_phase(device) -> dict:
+    """The redesigned forward (the prologue, then the wgmma kernel) against
+    ``fused_qkv_attention_plain``, its log-sum-exp (asked for under grad)
+    against the plain one, the prologue against its plain version, and the
+    kept mma.sync forward against the same plain version; each timed beside
+    the bound and SDPA."""
     import torch
     import torch.nn.functional as F
     from vitok_torch.ops import fused_attention as fa
 
     rng = np.random.default_rng(0)
-    rows, worst = [], 0.0
-    log("kernel phase: fused_attention (CUDA) vs fused_qkv_attention_plain, bf16")
-    log(f"{'shape':16s} {'B':>3s} {'N':>5s} {'C':>5s} {'H':>3s} {'case':10s} "
-        f"{'max_abs':>9s} {'mean_abs':>9s} {'max_all':>9s} {'ms':>8s} {'plain_ms':>9s} {'sdpa_ms':>8s} {'bound_ms':>9s}")
+    rows, worst = [], {"fused_attention": 0.0, "fused_attention_mma": 0.0, "fused_qk_prologue": 0.0}
+    log("kernel phase: fused attention (prologue + wgmma kernel, and the kept mma.sync kernel) vs "
+        "fused_qkv_attention_plain, bf16")
+    log(f"{'shape':16s} {'B':>3s} {'N':>5s} {'C':>5s} {'H':>3s} {'case':10s} {'max_abs':>9s} {'mean_abs':>9s} "
+        f"{'max_all':>9s} {'lse_err':>9s} {'mma_max':>9s} {'pro_max':>9s} {'ms':>8s} {'dev_ms':>8s} {'kern_ms':>8s} "
+        f"{'pro_ms':>8s} {'mma_ms':>8s} {'plain_ms':>9s} {'sdpa_ms':>8s} {'sdpa_dev':>8s} {'bound_ms':>9s}")
+
+    def check(what, got, want, mask, label, b, n, c, h, case):
+        err_all = (got.float() - want.float()).abs()
+        err = err_all if mask is None else err_all[mask]  # valid rows
+        max_abs, mean_abs = err.max().item(), err.mean().item()
+        # Padded rows follow the same function (key-side mask) but may see
+        # only a few valid keys, so |out| nears max|v| where one bf16 step is
+        # 2^-7 * |out|: hold them to the bound relative to |out|.
+        max_all = err_all.max().item()
+        rel_all = (err_all / want.float().abs().clamp(min=1.0)).max().item()
+        if not (max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS and rel_all <= KERNEL_MAX_ABS):
+            raise AssertionError(
+                f"{what} disagrees with its plain version at {label} B={b} N={n} C={c} H={h} {case}: valid "
+                f"rows max {max_abs:.3e} mean {mean_abs:.3e} (limits {KERNEL_MAX_ABS}, {KERNEL_MEAN_ABS}); all "
+                f"rows max {max_all:.3e}, max |err|/max(1,|out|) {rel_all:.3e} (limit {KERNEL_MAX_ABS})")
+        return max_abs, mean_abs, max_all
+
     for label, b, n, c, h in KERNEL_SHAPES:
+        d = c // h
         for case, masked, sw in KERNEL_CASES:
             qkv, qs, ks, cos, sin, mask = _attention_inputs(rng, b, n, c, h, masked, device)
             kw = dict(num_heads=h, sliding_window=sw)
             kernel = lambda: fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, impl="fused", **kw)
             plain = lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, **kw)
-            got, want = kernel().float(), plain().float()
+            mma = lambda: fa.fused_qkv_attention_mma(qkv, qs, ks, cos, sin, mask, **kw)
+            # The forward's prologue: k alone (the backward's also writes q and delta).
+            prologue = lambda: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, with_q=False)
+            prologue_plain = lambda: fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h, with_q=False)
+            got = kernel()
+            got_l, lse = fa._fused_cuda(qkv, qs, ks, cos, sin, mask, h, sw, want_lse=True)
+            want, want_lse = fa.fused_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, return_lse=True, **kw)
             torch.cuda.synchronize()
-            err_all = (got - want).abs()
-            err = err_all if mask is None else err_all[mask]  # valid rows
-            max_abs, mean_abs = err.max().item(), err.mean().item()
-            # Padded rows follow the same function (key-side mask) but may
-            # see only a few valid keys, so |out| nears max|v| where one bf16
-            # step is 2^-7 * |out|: hold them to the bound relative to |out|.
-            max_all = err_all.max().item()
-            rel_all = (err_all / want.abs().clamp(min=1.0)).max().item()
-            if not (max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS
-                    and rel_all <= KERNEL_MAX_ABS):
-                raise AssertionError(
-                    f"kernel disagrees with its plain version at {label} B={b} N={n} C={c} "
-                    f"H={h} {case}: valid rows max {max_abs:.3e} mean {mean_abs:.3e} (limits "
-                    f"{KERNEL_MAX_ABS}, {KERNEL_MEAN_ABS}); all rows max {max_all:.3e}, "
-                    f"max |err|/max(1,|out|) {rel_all:.3e} (limit {KERNEL_MAX_ABS})"
-                )
+            if not torch.equal(got, got_l):
+                raise AssertionError(f"fused forward at {label} {case}: the output moved when lse was asked for")
+            max_abs, mean_abs, max_all = check("fused forward", got, want, mask, label, b, n, c, h, case)
+            valid = torch.ones(b, n, dtype=torch.bool, device=device) if mask is None else mask
+            lse_err = (lse - want_lse).abs().transpose(1, 2)[valid].max().item()
+            if not (lse_err <= LSE_ATOL and bool((lse.transpose(1, 2)[~valid] == 1e30).all())):
+                raise AssertionError(f"fused forward lse at {label} {case}: max |err| {lse_err:.3e} on valid rows "
+                                     f"(limit {LSE_ATOL}), padded rows 1e30: "
+                                     f"{bool((lse.transpose(1, 2)[~valid] == 1e30).all())}")
+            mma_max = check("mma.sync forward", mma(), want, mask, label, b, n, c, h, case)[0]
+            qk, _ = prologue()
+            qk_want, _ = prologue_plain()
+            pro_err = (qk.float() - qk_want.float()).abs()
+            pro_max, pro_share = pro_err.max().item(), (pro_err > 0).float().mean().item()
+            if not (pro_max <= PROLOGUE_MAX_ABS and pro_share <= PROLOGUE_DIFFER_SHARE):
+                raise AssertionError(f"prologue at {label}: normed q/k max |err| {pro_max:.3e} (limit "
+                                     f"{PROLOGUE_MAX_ABS}), {pro_share:.2e} of entries differ (limit "
+                                     f"{PROLOGUE_DIFFER_SHARE})")
+            del got, got_l, lse, want, want_lse
             # Library yardstick: SDPA on pre-normed, pre-rotated q/k/v.
-            q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, c // h)
+            q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)
             am = _sdpa_mask(mask, n, sw, device)
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)
-            ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), time_ms(library)
+            ms, pro_ms, mma_ms = time_ms(kernel), time_ms(prologue), time_ms(mma)
+            kern_ms = time_ms(lambda: fa._attend_sm90(qkv, qk, qs, cos, sin, mask, h, sw))
+            plain_ms, lib_ms, pro_plain_ms = time_ms(plain), time_ms(library), time_ms(prologue_plain)
+            dev_ms, lib_dev_ms = device_ms(kernel), device_ms(library)
             bound, bound_by = _bound(b, n, c, h, mask, sw)
-            worst = max(worst, max_abs)
+            pro_bound = _prologue_bound(b, n, c, d)
+            for key, err in (("fused_attention", max_abs), ("fused_attention_mma", mma_max),
+                             ("fused_qk_prologue", pro_max)):
+                worst[key] = max(worst[key], err)
             row = dict(shape=label, B=b, N=n, C=c, H=h, case=case, max_abs_err=max_abs,
-                       mean_abs_err=mean_abs, max_abs_err_all_rows=max_all, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound, bound_by=bound_by)
+                       mean_abs_err=mean_abs, max_abs_err_all_rows=max_all, lse_max_abs_err=lse_err,
+                       ms=ms, kernel_ms=kern_ms, prologue_ms=pro_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                       bound_ms=bound, bound_by=bound_by, mma_ms=mma_ms, mma_max_abs_err=mma_max,
+                       prologue_max_abs_err=pro_max, prologue_differ_share=pro_share, prologue_plain_ms=pro_plain_ms,
+                       prologue_bound_ms=pro_bound[0], prologue_bound_by=pro_bound[1])
             rows.append(row)
-            log(f"{label:16s} {b:3d} {n:5d} {c:5d} {h:3d} {case:10s} {max_abs:9.2e} "
-                f"{mean_abs:9.2e} {max_all:9.2e} {ms:8.4f} {plain_ms:9.4f} {lib_ms:8.4f} {bound:9.5f}")
-    return dict(rows=rows, max_abs_err=worst)
+            log(f"{label:16s} {b:3d} {n:5d} {c:5d} {h:3d} {case:10s} {max_abs:9.2e} {mean_abs:9.2e} "
+                f"{max_all:9.2e} {lse_err:9.2e} {mma_max:9.2e} {pro_max:9.2e} {ms:8.4f} {dev_ms:8.4f} {kern_ms:8.4f} "
+                f"{pro_ms:8.4f} {mma_ms:8.4f} {plain_ms:9.4f} {lib_ms:8.4f} {lib_dev_ms:8.4f} {bound:9.5f}")
+            del q, k, v, qk, qk_want
+    log("  (ms: the prologue and the wgmma kernel, as the wrapper launches them, CUDA events around chained calls; "
+        "dev_ms the same calls' device time (profiler); kern_ms the wgmma kernel alone; pro_ms the prologue alone "
+        "(k); mma_ms the kept mma.sync kernel, which norms q/k itself; sdpa_dev SDPA's device time)")
+    return dict(rows=rows, max_abs_err=worst["fused_attention"], worst=worst)
 
 
 # ---------------------------------------------------------------------------
@@ -489,8 +578,10 @@ def launch_counts() -> dict:
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
 
-    return {"fused_attention": fa.LAUNCHES, "fused_attention_bwd": fa.BWD_LAUNCHES,
-            "fused_attention_q8": fa.Q8_LAUNCHES, "flash_attention": fl.LAUNCHES,
+    return {"fused_attention": fa.LAUNCHES, "fused_qk_prologue": fa.PROLOGUE_LAUNCHES,
+            "fused_attention_bwd": fa.BWD_LAUNCHES, "fused_attention_q8": fa.Q8_LAUNCHES,
+            "fused_attention_mma": fa.MMA_LAUNCHES, "fused_attention_f32": fa.F32_LAUNCHES,
+            "flash_attention": fl.LAUNCHES,
             "flash_attention_dq": fl.DQ_LAUNCHES, "flash_attention_dkv": fl.DKV_LAUNCHES,
             **quant.LAUNCHES, **abb.LAUNCHES, **ab8.LAUNCHES}
 
@@ -502,7 +593,8 @@ def reset_counts() -> None:
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
 
-    fa.LAUNCHES = fa.BWD_LAUNCHES = fa.Q8_LAUNCHES = 0
+    fa.LAUNCHES = fa.PROLOGUE_LAUNCHES = fa.BWD_LAUNCHES = fa.Q8_LAUNCHES = 0
+    fa.MMA_LAUNCHES = fa.F32_LAUNCHES = 0
     fl.LAUNCHES = fl.DQ_LAUNCHES = fl.DKV_LAUNCHES = 0
     for counts in (quant.LAUNCHES, abb.LAUNCHES, ab8.LAUNCHES):
         for k in counts:
@@ -510,7 +602,10 @@ def reset_counts() -> None:
 
 
 def _expect(**counts) -> dict:
-    """Expected launches of one run: the named counts, every other kernel 0."""
+    """Expected launches of one run: the named counts, every other kernel 0.
+    The q/k prologue runs before every launch of the wgmma forward and of the
+    backward, unless its count is named."""
+    counts.setdefault("fused_qk_prologue", counts.get("fused_attention", 0) + counts.get("fused_attention_bwd", 0))
     return {k: counts.get(k, 0) for k in launch_counts()}
 
 
@@ -627,7 +722,8 @@ def main_path_phase(device, card: str, cases) -> dict:
             f"(unfused attention: {ref_ms / batch:.4f} ms/img) on {card}")
         profile_step(name, lambda: model.decode(model.encode(inputs)))
     del reference
-    return dict(rows=rows, launches=launches["fused_attention"], model=model, outputs=outs)
+    return dict(rows=rows, launches=launches["fused_attention"], prologue_launches=launches["fused_qk_prologue"],
+                model=model, outputs=outs)
 
 
 def int8_path_phase(device, card: str, cases, bf16: dict) -> dict:
@@ -1148,11 +1244,13 @@ FUSED_BWD_CASES = ("none", "tail", "sw", "tail+sw")
 
 
 def fused_bwd_kernel_phase(device, shapes=FUSED_BWD_SHAPES, cases=FUSED_BWD_CASES) -> dict:
-    """The fused backward kernel against ``fused_qkv_attention_bwd_plain``:
-    dqkv plane by plane and the two gain gradients, padded rows exactly 0,
-    two runs bit-identical. The library yardstick is SDPA forward + backward
-    on the already normalised and rotated q/k: it computes less (no norm, no
-    RoPE, nor their backward)."""
+    """The fused backward (the prologue, then the dq and dk/dv kernels), given
+    the forward kernel's output and log-sum-exp, against
+    ``fused_qkv_attention_bwd_plain`` given the same output: dqkv plane by
+    plane and the two gain gradients, padded rows exactly 0, two runs
+    bit-identical. The library yardstick is SDPA forward + backward on the
+    already normalised and rotated q/k: it computes less (no norm, no RoPE,
+    nor their backward)."""
     import torch
     import torch.nn.functional as F
     from vitok_torch.ops import fused_attention as fa
@@ -1160,10 +1258,11 @@ def fused_bwd_kernel_phase(device, shapes=FUSED_BWD_SHAPES, cases=FUSED_BWD_CASE
     rng = np.random.default_rng(7)
     gen = torch.Generator(device=device).manual_seed(7)
     rows, worst = [], 0.0
-    log("kernel phase: fused attention backward (CUDA) vs fused_qkv_attention_bwd_plain, bf16")
+    log("kernel phase: fused attention backward (prologue + dq + dk/dv kernels, given the forward's output and "
+        "lse) vs fused_qkv_attention_bwd_plain given the same output, bf16")
     log(f"{'shape':11s} {'B':>3s} {'N':>5s} {'C':>5s} {'H':>3s} {'case':10s} {'dq max/mean rel':>17s} "
         f"{'dk max/mean rel':>17s} {'dv max/mean rel':>17s} {'dqs rel':>8s} {'dks rel':>8s} {'ms':>8s} "
-        f"{'plain_ms':>9s} {'sdpa_fb':>8s} {'bound_ms':>9s}")
+        f"{'dev_ms':>8s} {'plain_ms':>9s} {'sdpa_fb':>8s} {'fb_dev':>8s} {'bound_ms':>9s}")
     for label, b, n, c, h in shapes:
         d = c // h
         for case in cases:
@@ -1174,8 +1273,9 @@ def fused_bwd_kernel_phase(device, shapes=FUSED_BWD_SHAPES, cases=FUSED_BWD_CASE
             sw = FUSED_BWD_SW if "sw" in case else None
             g = torch.randn((b, n, c), generator=gen, device=device).to(torch.bfloat16)
             kw = dict(num_heads=h, sliding_window=sw)
-            kernel = lambda: fa.fused_qkv_attention_bwd(qkv, qs, ks, cos, sin, mask, g, **kw)
-            plain = lambda: fa.fused_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, mask, g, **kw)
+            out, lse = fa._fused_cuda(qkv, qs, ks, cos, sin, mask, h, sw, want_lse=True)
+            kernel = lambda: fa.fused_qkv_attention_bwd(qkv, qs, ks, cos, sin, mask, g, out=out, lse=lse, **kw)
+            plain = lambda: fa.fused_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, mask, g, out=out, **kw)
             got, again = kernel(), kernel()
             torch.cuda.synchronize()
             ms = time_ms(kernel, runs=20, warmup=3)  # before the plain version's multi-GB temporaries
@@ -1214,7 +1314,8 @@ def fused_bwd_kernel_phase(device, shapes=FUSED_BWD_SHAPES, cases=FUSED_BWD_CASE
                 torch.autograd.grad(o, (q, k, v), gt)
 
             lib_ms = time_ms(sdpa_step, runs=5)
-            del q, k, v, gt, am
+            dev_ms, lib_dev_ms = device_ms(kernel), device_ms(sdpa_step)
+            del q, k, v, gt, am, out, lse
             nbytes = 7 * b * n * c * 2 + 2 * b * n * (d // 2) * 4 + (0 if mask is None else b * n)
             bound = _bound_ms(nbytes, 10.0 * h * d * _flash_pairs(valid, n, sw), BF16_FLOPS_PER_S)
             worst = max(worst, *(e[2] for e in errs.values()))
@@ -1222,19 +1323,24 @@ def fused_bwd_kernel_phase(device, shapes=FUSED_BWD_SHAPES, cases=FUSED_BWD_CASE
                              **{f"{k_}_max_rel_err": e[0] for k_, e in errs.items()},
                              **{f"{k_}_mean_rel_err": e[1] for k_, e in errs.items()},
                              **{f"{k_}_rel_err": e for k_, e in gains.items()},
-                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0], bound_by=bound[1]))
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
+                             library_device_ms=lib_dev_ms, bound_ms=bound[0], bound_by=bound[1]))
             rel = lambda k_: f"{errs[k_][0]:8.2e}/{errs[k_][1]:8.2e}"
             log(f"{label:11s} {b:3d} {n:5d} {c:5d} {h:3d} {case:10s} {rel('dq')} {rel('dk')} {rel('dv')} "
-                f"{gains['dqs']:8.2e} {gains['dks']:8.2e} {ms:8.4f} {plain_ms:9.4f} {lib_ms:8.4f} {bound[0]:9.5f}")
+                f"{gains['dqs']:8.2e} {gains['dks']:8.2e} {ms:8.4f} {dev_ms:8.4f} {plain_ms:9.4f} {lib_ms:8.4f} "
+                f"{lib_dev_ms:8.4f} {bound[0]:9.5f}")
         if label in ("350M@256t", "5B@256t"):
             _fused_bwd_vs_fp32(fa, rng, gen, label, min(b, 4), n, c, h, device)
-    log("  (sdpa_fb: SDPA forward + backward on already normalised q/k: no norm, no RoPE, nor their backward)")
+    log("  (ms: the prologue, dq and dk/dv kernels, CUDA events around chained calls; dev_ms their device time "
+        "(profiler); sdpa_fb: SDPA forward + backward on already normalised q/k: no norm, no RoPE, nor their "
+        "backward; fb_dev its device time)")
     return dict(rows=rows, max_abs_err=worst)
 
 
 def _fused_bwd_vs_fp32(fa, rng, gen, label, b, n, c, h, device) -> None:
-    """For information: kernel and plain version each against the fp32
-    gradient of the same bf16 inputs (the plain version run in fp32)."""
+    """For information: kernel and plain version (both given the forward
+    kernel's output) each against the fp32 gradient of the same bf16 inputs
+    (the plain version run in fp32)."""
     import torch
 
     qkv, qs, ks, cos, sin, _ = _attention_inputs(rng, b, n, c, h, False, device)
@@ -1243,8 +1349,9 @@ def _fused_bwd_vs_fp32(fa, rng, gen, label, b, n, c, h, device) -> None:
     exact = fa.fused_qkv_attention_bwd_plain(qkv.float(), qs, ks, cos, sin, None, g.float(), **kw)[0]
     top = exact.abs().max().item()
     dist = lambda t: ((t.float() - exact).abs().mean().item() / top, (t.float() - exact).abs().max().item() / top)
-    kern = dist(fa.fused_qkv_attention_bwd(qkv, qs, ks, cos, sin, None, g, **kw)[0])
-    plain = dist(fa.fused_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, None, g, **kw)[0])
+    out, lse = fa._fused_cuda(qkv, qs, ks, cos, sin, None, h, None, want_lse=True)
+    kern = dist(fa.fused_qkv_attention_bwd(qkv, qs, ks, cos, sin, None, g, out=out, lse=lse, **kw)[0])
+    plain = dist(fa.fused_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, None, g, out=out, **kw)[0])
     log(f"  {label} B={b}: distance of dqkv from the fp32 gradient (mean, max of its largest entry): "
         f"kernel {kern[0]:.2e}, {kern[1]:.2e}; plain version {plain[0]:.2e}, {plain[1]:.2e}")
 
@@ -1261,32 +1368,39 @@ Q8_SCALE_RTOL = 2e-2        # a scale is a row's largest |value| / 127
 
 def q8_kernel_phase(device, shapes=Q8_SHAPES) -> dict:
     """The int8-epilogue kernel: codes and scales equal to
-    ``quantize_activation`` of the forward kernel's output bit for bit, and
-    its dequantized values against the plain version's; timed beside the
-    forward kernel plus the eager quantize it replaces."""
+    ``quantize_activation`` of the mma.sync forward's output bit for bit (the
+    two kernels run one attention body), and its dequantized values against
+    the plain version's; the codes' agreement with ``quantize_activation`` of
+    the redesigned forward's output for information. Timed beside the
+    redesigned forward plus the eager quantize it replaces where its gate
+    opens."""
     import torch
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops.quant import quantize_activation
 
     rng = np.random.default_rng(8)
     rows, worst = [], 0.0
-    log("kernel phase: fused attention + int8 epilogue (CUDA) vs quantize_activation(fused kernel) "
+    log("kernel phase: fused attention + int8 epilogue (CUDA) vs quantize_activation(mma.sync forward) "
         "and vs fused_qkv_attention_q8_plain")
     log(f"{'shape':15s} {'B':>3s} {'N':>5s} {'C':>5s} {'H':>3s} {'case':5s} {'codes!=':>8s} {'scales!=':>8s} "
-        f"{'deq max':>9s} {'deq mean':>9s} {'ms':>8s} {'fwd+quant':>9s} {'fwd_ms':>8s} {'plain_ms':>9s} {'bound_ms':>9s}")
+        f"{'new!=':>8s} {'deq max':>9s} {'deq mean':>9s} {'ms':>8s} {'fwd+quant':>9s} {'fwd_ms':>8s} "
+        f"{'mma_ms':>8s} {'plain_ms':>9s} {'bound_ms':>9s}")
     for label, b, n, c, h in shapes:
         for case in ("none", "tail"):
             qkv, qs, ks, cos, sin, mask = _attention_inputs(rng, b, n, c, h, case == "tail", device)
             kw = dict(num_heads=h, sliding_window=None)
             kernel = lambda: fa.fused_qkv_attention_q8(qkv, qs, ks, cos, sin, mask, **kw)
+            mma = lambda: fa.fused_qkv_attention_mma(qkv, qs, ks, cos, sin, mask, **kw)
             fwd = lambda: fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, impl="fused", **kw)
             chain = lambda: quantize_activation(fwd())
             codes, scales = kernel()
-            ref_codes, ref_scales = chain()
+            ref_codes, ref_scales = quantize_activation(mma())
+            new_codes = chain()[0]
             p_codes, p_scales = fa.fused_qkv_attention_q8_plain(qkv, qs, ks, cos, sin, mask, **kw)
             torch.cuda.synchronize()
             n_codes = int((codes != ref_codes).sum().item())
             n_scales = int((scales != ref_scales).sum().item())
+            n_new = int((codes != new_codes).sum().item())
             deq = (codes.float() * scales - p_codes.float() * p_scales).abs()
             srel = ((scales - p_scales).abs() / p_scales)
             if mask is not None:
@@ -1296,11 +1410,11 @@ def q8_kernel_phase(device, shapes=Q8_SHAPES) -> dict:
                     and deq_mean <= Q8_DEQUANT_MEAN_ABS and srel_max <= Q8_SCALE_RTOL):
                 raise AssertionError(
                     f"q8 kernel at {label} B={b} N={n} C={c} H={h} {case}: {n_codes} codes and {n_scales} "
-                    f"scales differ from quantize_activation of the forward kernel's output (expected 0); "
+                    f"scales differ from quantize_activation of the mma.sync forward's output (expected 0); "
                     f"dequantized vs the plain version max {deq_max:.3e} mean {deq_mean:.3e} (limits "
                     f"{Q8_DEQUANT_MAX_ABS}, {Q8_DEQUANT_MEAN_ABS}), scales rel {srel_max:.3e} (limit {Q8_SCALE_RTOL})")
-            del codes, scales, ref_codes, ref_scales, p_codes, p_scales, deq, srel
-            ms, chain_ms, fwd_ms = time_ms(kernel), time_ms(chain), time_ms(fwd)
+            del codes, scales, ref_codes, ref_scales, new_codes, p_codes, p_scales, deq, srel
+            ms, chain_ms, fwd_ms, mma_ms = time_ms(kernel), time_ms(chain), time_ms(fwd), time_ms(mma)
             plain_ms = time_ms(lambda: fa.fused_qkv_attention_q8_plain(qkv, qs, ks, cos, sin, mask, **kw),
                                runs=3, warmup=1)
             d = c // h
@@ -1309,12 +1423,16 @@ def q8_kernel_phase(device, shapes=Q8_SHAPES) -> dict:
             bound = _bound_ms(nbytes, 4.0 * h * d * _needed_pairs(b, mask, n, None), BF16_FLOPS_PER_S)
             worst = max(worst, deq_max)
             rows.append(dict(shape=label, B=b, N=n, C=c, H=h, case=case, codes_differ=n_codes,
-                             scales_differ=n_scales, max_abs_err=deq_max, mean_abs_err=deq_mean, ms=ms,
-                             fused_plus_quantize_ms=chain_ms, fused_ms=fwd_ms, plain_ms=plain_ms,
-                             bound_ms=bound[0], bound_by=bound[1]))
-            log(f"{label:15s} {b:3d} {n:5d} {c:5d} {h:3d} {case:5s} {n_codes:8d} {n_scales:8d} {deq_max:9.2e} "
-                f"{deq_mean:9.2e} {ms:8.4f} {chain_ms:9.4f} {fwd_ms:8.4f} {plain_ms:9.4f} {bound[0]:9.5f}")
-    log("  (fwd+quant: the forward kernel and the eager quantize_activation the epilogue replaces)")
+                             scales_differ=n_scales, codes_differ_from_redesigned=n_new, max_abs_err=deq_max,
+                             mean_abs_err=deq_mean, ms=ms, fused_plus_quantize_ms=chain_ms, fused_ms=fwd_ms,
+                             mma_ms=mma_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1]))
+            log(f"{label:15s} {b:3d} {n:5d} {c:5d} {h:3d} {case:5s} {n_codes:8d} {n_scales:8d} {n_new:8d} "
+                f"{deq_max:9.2e} {deq_mean:9.2e} {ms:8.4f} {chain_ms:9.4f} {fwd_ms:8.4f} {mma_ms:8.4f} "
+                f"{plain_ms:9.4f} {bound[0]:9.5f}")
+    log("  (codes!=, scales!=: against quantize_activation of the mma.sync forward, whose body the epilogue "
+        "shares; new!=: codes that differ from quantize_activation of the redesigned forward, for information; "
+        "fwd+quant: the redesigned forward and the eager quantize_activation the epilogue replaces; mma_ms: the "
+        "mma.sync forward)")
     return dict(rows=rows, max_abs_err=worst)
 
 
@@ -1464,12 +1582,37 @@ def q8_epilogue(on: bool):
         fa._ENABLE_Q8 = saved
 
 
+@contextlib.contextmanager
+def mma_forward():
+    """The bf16 forward's wrapper routed to the mma.sync kernel for a
+    reference run of this script (a switch of this script, not of the
+    package)."""
+    from vitok_torch.ops import fused_attention as fa
+
+    saved = fa._fused_cuda
+
+    def mma(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
+        if want_lse:
+            raise RuntimeError("the mma.sync forward writes no log-sum-exp")
+        return fa._mma_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window), None
+
+    fa._fused_cuda = mma
+    try:
+        yield
+    finally:
+        fa._fused_cuda = saved
+
+
 def q8_path_phase(device, card: str) -> dict:
     """The int8 350M path with the quantize epilogue switched on: where the
     gate opens (256 tokens; it stays closed at 1024, as in the JAX package)
     every block's attention is one launch of the int8-epilogue kernel and
     none of the forward kernel, and the output equals the run with the
-    opt-in off."""
+    opt-in off on the same attention: where the gate opened the mma.sync
+    forward, whose body the epilogue kernel shares (an int8 model is held
+    only against itself with one kernel swapped: a code flipped at a rounding
+    tie grows over 28 blocks). The distance from the opt-in off on the
+    redesigned forward is printed beside it."""
     from vitok_torch import AE, decode_variant
     from vitok_torch.ops import fused_attention as fa
 
@@ -1492,16 +1635,24 @@ def q8_path_phase(device, card: str) -> dict:
             launches = counts  # the epilogue path's run
         _check_output(name, max_tokens, batch, images, inputs, out)
         with q8_epilogue(False):
-            ref = model.decode(model.encode(inputs))
+            # Where the gate opened the epilogue kernel shares the mma.sync
+            # forward's body; where it stayed closed both runs take the
+            # redesigned forward.
+            with mma_forward() if opened else contextlib.nullcontext():
+                ref = model.decode(model.encode(inputs))
+            off = model.decode(model.encode(inputs))
             off_ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=5, warmup=1)
         rel = _valid_rel_l2(out, ref, inputs)
+        rel_new = _valid_rel_l2(out, off, inputs)
         if not rel <= MODEL_REL_L2:
-            raise AssertionError(f"int8 + epilogue {name}: rel L2 vs the opt-in off {rel:.3e} > {MODEL_REL_L2}")
+            raise AssertionError(f"int8 + epilogue {name}: rel L2 vs the opt-in off on the same attention "
+                                 f"{rel:.3e} > {MODEL_REL_L2}")
         rows.append(dict(res=name, batch=batch, gate_open=opened, rel_l2_vs_off=rel,
-                         ms_per_img=ms / batch, off_ms_per_img=off_ms / batch))
+                         rel_l2_vs_off_redesigned=rel_new, ms_per_img=ms / batch, off_ms_per_img=off_ms / batch))
         log(f"  int8 + epilogue {name}: batch {batch}: gate {'open' if opened else 'closed'}, launches a "
-            f"forward {attn}; rel L2 vs the opt-in off {rel:.3e}; encode+decode {ms / batch:.4f} ms/img "
-            f"(opt-in off {off_ms / batch:.4f} ms/img) on {card}")
+            f"forward {attn}; rel L2 vs the opt-in off on the same attention {rel:.3e} (on the redesigned "
+            f"forward {rel_new:.3e}); encode+decode {ms / batch:.4f} ms/img (opt-in off {off_ms / batch:.4f} "
+            f"ms/img) on {card}")
     if launches is None:
         raise AssertionError("int8 + epilogue: the gate opened at no resolution")
     return dict(rows=rows, launches=launches)
@@ -1749,6 +1900,8 @@ def fused_family_entries(q8kern: dict, q8_path: dict, fbkern: dict, fused_traini
         "bound_ms": bw["bound_ms"],
         "bound_by": bw["bound_by"],
         "library_ms": bw["library_ms"],  # SDPA forward + backward on normalised q/k: computes less
+        "device_ms": bw["device_ms"],
+        "library_device_ms": bw["library_device_ms"],
     }]
 
 
@@ -1837,10 +1990,11 @@ def _one_launch(counts: dict, name: str, fn):
 
 
 def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
-    """#10 (every arm of ab_batch_block), #11, #12 and #13 against the fused
-    forward kernel (bit for bit: #11 on images with a valid key, #12 on the
-    assembled tensor) and against their plain versions; the fp32 instance of
-    #1 against its plain version; times beside bounds and SDPA."""
+    """#10 (every arm of ab_batch_block), #11, #12 and #13 against the
+    mma.sync forward whose body they share (bit for bit: #11 on images with a
+    valid key, #12 on the assembled tensor) and against their plain versions;
+    the fp32 instance of #1 against its plain version; times beside bounds,
+    SDPA and, in bf16, the redesigned forward."""
     import torch
     import torch.nn.functional as F
     from vitok_torch.benchmarks import ab_batch_block as abb
@@ -1850,21 +2004,22 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
     gen = torch.Generator(device=device).manual_seed(10)
     rows = []
     counts = {}
-    log("kernel phase: A/B kernels (fused_attention_ab.cu) vs the fused forward kernel (bit for bit) and "
+    log("kernel phase: A/B kernels (fused_attention_ab.cu) vs the mma.sync forward (bit for bit) and "
         "vs their plain versions; the fp32 instance of the forward vs its plain version")
     for label, b, n, c, h, dtype, mask_kind in shapes:
         qkv, qs, ks, cos, sin, mask = _ab_inputs(gen, b, n, c, h, dtype, mask_kind, device)
         d, f32 = c // h, dtype == "float32"
         isz = qkv.element_size()
         args = (qkv, qs, ks, cos, sin, mask)
-        fwd = lambda: fa.fused_qkv_attention(*args, num_heads=h, impl="fused")
+        fwd = lambda: fa.fused_qkv_attention_mma(*args, num_heads=h)
         ref = fwd()
         plain = fa.fused_qkv_attention_plain(*args, num_heads=h)
         live = mask.any(1)  # images with a valid key
         # rows held to #1's limits: valid rows, and every row of an image with
         # no valid key (each is the mean of v there: over N, or over the pack)
         valid = mask | ~live[:, None]
-        errs = {"fused_attention_f32" if f32 else "fused_attention": _check_ab(f"#1 {label}", ref, plain, valid, f32)}
+        errs = {"fused_attention_f32" if f32 else "fused_attention_mma": _check_ab(f"#1 {label}", ref, plain, valid,
+                                                                                  f32)}
         q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)
         am = mask[:, None, None, :]
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
@@ -1873,6 +2028,10 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         bound = _ab_bound(b, n, c, h, mask, isz)
         row = dict(shape=label, B=b, N=n, C=c, H=h, dtype=dtype, mask=mask_kind, fused_ms=time_ms(fwd),
                    fused_plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1], arms={})
+        if not f32:  # the redesigned forward beside the arms
+            new = lambda: fa.fused_qkv_attention(*args, num_heads=h, impl="fused")
+            row["redesigned_max_abs_vs_mma"] = (new().float() - ref.float()).abs()[valid].max().item()
+            row["redesigned_ms"] = time_ms(new)
         # #10, every arm of ab_batch_block that this shape takes (B is #1 itself)
         for name, bb, cg, _ in abb.arm_defs(c, d, n, b, h):
             if cg is None:
@@ -1887,7 +2046,7 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
             got = _one_launch(abb.LAUNCHES, kname, call)
             rows_eq = live if pack else slice(None)
             if not torch.equal(got[rows_eq], ref[rows_eq]):
-                raise AssertionError(f"{kname} {name} at {label}: not bit-identical to the fused forward kernel")
+                raise AssertionError(f"{kname} {name} at {label}: not bit-identical to the mma.sync forward")
             want = plain if not pack else abb.fused_attention_bb_plain(*args, num_heads=h, bb=bb, cg=cg, pack=True)
             key = f"{kname}_f32" if f32 else kname
             err = _check_ab(f"{kname} {name} {label}", got, want, valid, f32)
@@ -1903,7 +2062,7 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         call = lambda: ab8.fused_attention_contig(*args, num_heads=h)
         got = _one_launch(ab8.LAUNCHES, "fused_attention_contig", call)
         if not torch.equal(got, ref):
-            raise AssertionError(f"fused_attention_contig at {label}: not bit-identical to the fused forward kernel")
+            raise AssertionError(f"fused_attention_contig at {label}: not bit-identical to the mma.sync forward")
         key = "fused_attention_contig_f32" if f32 else "fused_attention_contig"
         errs[key] = _check_ab(f"contig {label}", got, plain, valid, f32)
         row["contig_ms"] = time_ms(call)
@@ -1914,12 +2073,11 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
             call = lambda: ab8.fused_attention_q8in(*q8args, num_heads=h)
             got = _one_launch(ab8.LAUNCHES, "fused_attention_q8in", call)
             assembled = ab8.assemble_q8in(codes, scale)
-            chain = lambda: fa.fused_qkv_attention(ab8.assemble_q8in(codes, scale), qs, ks, cos, sin, mask,
-                                                   num_heads=h, impl="fused")
-            if not torch.equal(got, fa.fused_qkv_attention(assembled, qs, ks, cos, sin, mask, num_heads=h,
-                                                           impl="fused")):
-                raise AssertionError(f"fused_attention_q8in at {label}: not bit-identical to the fused forward "
-                                     "kernel on the assembled tensor")
+            chain = lambda: fa.fused_qkv_attention_mma(ab8.assemble_q8in(codes, scale), qs, ks, cos, sin, mask,
+                                                       num_heads=h)
+            if not torch.equal(got, fa.fused_qkv_attention_mma(assembled, qs, ks, cos, sin, mask, num_heads=h)):
+                raise AssertionError(f"fused_attention_q8in at {label}: not bit-identical to the mma.sync forward "
+                                     "on the assembled tensor")
             q8plain = lambda: ab8.fused_attention_q8in_plain(*q8args, num_heads=h)
             errs["fused_attention_q8in"] = _check_ab(f"q8in {label}", got, q8plain(), valid, False)
             del got, assembled
@@ -1930,8 +2088,10 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         rows.append(row)
         arms = ", ".join(f"{k} {a['ms']:.4f}" + (f" (plain {a['plain_ms']:.4f}, bound {a['bound_ms']:.5f})"
                                                      if "plain_ms" in a else "") for k, a in row["arms"].items())
-        log(f"  {label} (B={b} N={n} C={c} H={h}, mask {mask_kind}): fused {row['fused_ms']:.4f} ms, plain "
-            f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound[0]:.5f} ({bound[1]}); contig "
+        log(f"  {label} (B={b} N={n} C={c} H={h}, mask {mask_kind}): mma.sync forward {row['fused_ms']:.4f} ms"
+            + (f", redesigned {row['redesigned_ms']:.4f} (max |diff| {row['redesigned_max_abs_vs_mma']:.2e})"
+               if not f32 else "")
+            + f", plain {plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound[0]:.5f} ({bound[1]}); contig "
             f"{row['contig_ms']:.4f}; arms (ms): {arms}"
             + (f"; q8in {row['q8in_ms']:.4f} (plain {row['q8in_plain_ms']:.4f}, dequantize + fused "
                f"{row['dequantize_plus_fused_ms']:.4f}, bound {row['q8in_bound_ms']:.5f})" if not f32 else ""))
@@ -1944,7 +2104,8 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
 def ab_entry_phase(device) -> dict:
     """Both A/B entry points at the recorded invocations' shapes with fewer
     timed runs (``AB_ENTRY_ARGS``): every arm builds, the numeric legs read
-    0, and each kernel is launched exactly as often as the runs call it."""
+    0, the redesigned forward's row (bf16) is within #1's limits of arm B, and
+    each kernel is launched exactly as often as the runs call it."""
     from vitok_torch.benchmarks import ab_batch_block as abb
     from vitok_torch.benchmarks import ab_q8_input as ab8
 
@@ -1961,6 +2122,7 @@ def ab_entry_phase(device) -> dict:
         if res["skipped"] or len(res["arms"]) != 11 or any(v != 0.0 for v in res["numeric"].values()):
             raise AssertionError(f"ab_batch_block {dtype}: skipped {res['skipped']}, arms {list(res['arms'])}, "
                                  f"numeric {res['numeric']}")
+        _check_redesigned_row(f"ab_batch_block {dtype}", res, dtype == "bfloat16")
         runs[f"ab_batch_block {dtype}"] = res
     _, n, b = runs_at[0]
     flags = ["--c", str(c), "--heads", str(h), "--tokens", str(n), "--batch", str(b), *AB_ENTRY_ARGS]
@@ -1968,18 +2130,32 @@ def ab_entry_phase(device) -> dict:
     res = ab8.main([*flags, "--device", device.type])
     if res["numeric"]["A_assembled"] != 0.0 or res["numeric"]["C"] != 0.0:
         raise AssertionError(f"ab_q8_input numeric legs {res['numeric']}")
+    _check_redesigned_row("ab_q8_input", res, True)
     runs["ab_q8_input"] = res
     launches = launch_counts()
-    # per ab_batch_block run: B on the fused forward, P2 on the pack kernel, nine arms on #10;
-    # ab_q8_input: one arm each, and #1 once more on the assembled tensor
+    # per ab_batch_block run: B on the mma.sync forward (its fp32 instance in fp32), P2 on the pack
+    # kernel, nine arms on #10, and in bf16 the redesigned forward's row; ab_q8_input: one arm each,
+    # the mma.sync forward once more on the assembled tensor, and the redesigned forward's row
     runs_bb = len(runs_at)
+    bf16_runs = sum(dtype == "bfloat16" for dtype, _, _ in runs_at)
     expect = _expect(fused_attention_bb=runs_bb * 9 * per_arm, fused_attention_pack=runs_bb * per_arm,
-                     fused_attention=runs_bb * per_arm + per_arm + 1, fused_attention_q8in=per_arm,
+                     fused_attention_mma=bf16_runs * per_arm + per_arm + 1,
+                     fused_attention_f32=(runs_bb - bf16_runs) * per_arm,
+                     fused_attention=(bf16_runs + 1) * per_arm, fused_attention_q8in=per_arm,
                      fused_attention_contig=per_arm)
     if launches != expect:
         raise AssertionError(f"A/B entry points: launches {launches}, expected {expect}")
     log(f"  launches: {dict((k, v) for k, v in launches.items() if v)}")
     return dict(runs=runs, launches=launches)
+
+
+def _check_redesigned_row(what, res, bf16: bool) -> None:
+    """An entry point's row of the redesigned forward: present in bf16 (absent
+    in fp32, which has no instance of it), within #1's limit of arm B."""
+    row = res.get("redesigned")
+    if (row is not None) != bf16 or (bf16 and not row["max_abs_vs_B"] <= KERNEL_MAX_ABS):
+        raise AssertionError(f"{what}: redesigned forward's row {row} (expected in bf16 only, max |X-B| <= "
+                             f"{KERNEL_MAX_ABS})")
 
 
 def f32_ae_phase(device, card: str) -> dict:
@@ -1998,7 +2174,7 @@ def f32_ae_phase(device, card: str) -> dict:
                    compute_dtype=torch.float32)
     depth = model.cfg.encoder_depth + model.cfg.decoder_depth
     log(f"fp32 path: {VARIANT} with compute_dtype float32, {name} batch {batch}")
-    outs, launches = _run_counted(model, cases, _expect(fused_attention=depth), "fp32")
+    outs, launches = _run_counted(model, cases, _expect(fused_attention_f32=depth), "fp32")
     inputs = cases[0][4]
     out = outs[0]
     if out["patches"].dtype != torch.float32:
@@ -2012,16 +2188,17 @@ def f32_ae_phase(device, card: str) -> dict:
     log(f"  {depth} launches of the fp32 instance a forward; rel L2 vs unfused {rel:.3e} (limit "
         f"{F32_MODEL_REL_L2}); encode+decode {ms / batch:.4f} ms/img (unfused {ref_ms / batch:.4f}) on {card}")
     del model, reference
-    return dict(launches=launches["fused_attention"], rel_l2=rel, ms_per_img=ms / batch,
+    return dict(launches=launches["fused_attention_f32"], rel_l2=rel, ms_per_img=ms / batch,
                 unfused_ms_per_img=ref_ms / batch)
 
 
-def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict) -> list:
+def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     """Kernels-line entries of #10-#13 (times at the recorded bf16 shape, C =
-    3072, N = 256, B = 64; #10 the D2 arm, every arm beside it) and of the fp32
-    instance of #1 (times at the recorded fp32 shape, N = 64, B = 256);
-    launches from the A/B entry points' runs, the fp32 instance's from the
-    fp32 AE."""
+    3072, N = 256, B = 64; #10 the D2 arm, every arm beside it), of the
+    mma.sync forward they share a body with (times at the 512p main shape, as
+    #1's), and of the fp32 instance of #1 (times at the recorded fp32 shape,
+    N = 64, B = 256); launches from the A/B entry points' runs, the fp32
+    instance's from the fp32 AE."""
     bf = next(r for r in abkern["rows"] if r["shape"] == "5B@256t bf16")
     f32 = next(r for r in abkern["rows"] if r["shape"] == "5B@64t fp32")
     errs = {}
@@ -2031,7 +2208,14 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict) -> list:
     launches = ab_runs["launches"]
     src = "vitok_torch/csrc/fused_attention_ab.cu"
     bb, pack = bf["arms"]["D2"], bf["arms"]["P2"]
+    head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
     return [{
+        "name": "fused_attention_mma", "route": "cuda", "source": "vitok_torch/csrc/fused_attention.cu",
+        "replaces": "vitok_tpu/ops/fused_attention.py:317", "launches": launches["fused_attention_mma"],
+        "max_abs_err": kern["worst"]["fused_attention_mma"], "ms": head["mma_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "ab_bf16_ms": bf["fused_ms"], "ab_bf16_redesigned_ms": bf["redesigned_ms"],
+    }, {
         "name": "fused_attention_bb", "route": "cuda", "source": src,
         "replaces": "benchmarks/ab_batch_block.py:78", "launches": launches["fused_attention_bb"],
         "max_abs_err": errs["fused_attention_bb"], "ms": bb["ms"], "plain_ms": bf["fused_plain_ms"],
@@ -2069,7 +2253,9 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict) -> list:
 # library's matrix products (cuBLAS/cuBLASLt, torch._int_mm included) by
 # markers in their names, then everything else.
 PORT_KERNEL_GROUPS = {
-    "fused_attention_kernel": "fused_attention",
+    "fused_attention_sm90_kernel": "fused_attention",
+    "fused_qk_prologue_kernel": "fused_qk_prologue",
+    "fused_attention_kernel": "fused_attention_mma",  # the mma.sync forward, bf16 or fp32
     "fused_attention_q8_kernel": "fused_attention_q8",
     "fused_bwd_dq_kernel": "fused_attention_bwd",
     "fused_bwd_dkv_kernel": "fused_attention_bwd",
@@ -2143,15 +2329,32 @@ def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
     entries = [{
         "name": "fused_attention",
         "route": "cuda",
-        "source": "vitok_torch/csrc/fused_attention.cu",
+        "source": "vitok_torch/csrc/fused_attention_sm90.cu",
         "replaces": "vitok_tpu/ops/fused_attention.py:317",
         "launches": main_path["launches"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": head["ms"],
+        "ms": head["ms"],  # the prologue and the wgmma kernel, as the wrapper launches them
+        "kernel_ms": head["kernel_ms"],
+        "device_ms": head["device_ms"],
+        "library_device_ms": head["library_device_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+        "lse_max_abs_err": max(r["lse_max_abs_err"] for r in kern["rows"]),
+    }, {
+        "name": "fused_qk_prologue",
+        "route": "cuda",
+        "source": "vitok_torch/csrc/fused_attention_sm90.cu",
+        "replaces": "vitok_tpu/ops/fused_attention.py:124",  # _norm_rope_half inside #1 (:317) and #3 (:645)
+        "launches": main_path["prologue_launches"],
+        "max_abs_err": kern["worst"]["fused_qk_prologue"],
+        "ms": head["prologue_ms"],
+        "plain_ms": head["prologue_plain_ms"],
+        "bound_ms": head["prologue_bound_ms"],
+        "bound_by": head["prologue_bound_by"],
+        "library_ms": None,
+        "differ_share": max(r["prologue_differ_share"] for r in kern["rows"]),
     }]
     flash = next(r for r in fkern["rows"] if r["shape"] == "350M@2048p" and r["case"] == "sw1024")
     entries.append({
@@ -2215,8 +2418,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
-    _build.build(["fused_attention", "fused_attention_bwd", "flash_attention", "flash_attention_bwd",
-                  "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_ab"])
+    _build.build(["fused_attention_sm90", "fused_attention", "fused_attention_bwd", "flash_attention",
+                  "flash_attention_bwd", "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_ab"])
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 
@@ -2256,7 +2459,7 @@ def main() -> int:
     entries = kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
     entries[2:2] = flash_bwd_entries(bkern, training)
     entries[1:1] = fused_family_entries(q8kern, q8_path, fbkern, fused_training)
-    entries += ab_entries(abkern, ab_runs, f32_ae)
+    entries += ab_entries(abkern, ab_runs, f32_ae, kern)
     log(f"chip_smoke.py ran for {time.time() - started:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

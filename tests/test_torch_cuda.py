@@ -15,9 +15,12 @@ kernel). The flash kernel's padded rows are exactly 0 on both sides, and its
 log-sum-exp agrees within 1e-3 on live rows (+1e30 on dead rows). The quantize kernels: codes within one step in
 at most 0.1% of the entries and scales within rtol 1e-5 (on the H100 they
 agree bit for bit); pad columns exactly 0. Small int8 models: rel L2 2e-2
-against the same model on the plain versions. The fused backward kernel and
-the int8-epilogue kernel state their limits on their test classes, as do
-the fp32 instance and the A/B kernels of ``vitok_torch.benchmarks``.
+against the same model on the plain versions. The fused forward's
+log-sum-exp agrees within 1e-3 on valid rows (1e30 on padded rows), and its
+q/k prologue with the plain version's normed q/k to one bf16 step in at most
+0.1% of the entries. The fused backward kernel and the int8-epilogue kernel
+state their limits on their test classes, as do the fp32 instance and the
+A/B kernels of ``vitok_torch.benchmarks``.
 """
 
 import dataclasses
@@ -40,11 +43,32 @@ torch.set_num_threads(1)
 CASES = [("none", False, None), ("tail", True, None), ("sw", False, 12), ("tail+sw", True, 12)]
 
 
+def counts():
+    """The fused attention kernels' launch counts."""
+    return dict(fwd=t_fa.LAUNCHES, prologue=t_fa.PROLOGUE_LAUNCHES, bwd=t_fa.BWD_LAUNCHES, q8=t_fa.Q8_LAUNCHES,
+                mma=t_fa.MMA_LAUNCHES, f32=t_fa.F32_LAUNCHES)
+
+
+def added(before, **more):
+    """``before`` with the named counts raised."""
+    return {k: v + more.get(k, 0) for k, v in before.items()}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     return torch.device("cuda")
+
+
+def assert_forward_close(got, want, mask):
+    """Valid rows max abs 2e-2, mean 2e-3; padded rows, which may see few
+    keys, within one bf16 step of |out| (2^-7 * |out|) against 2e-2."""
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs()
+    valid = err if mask is None else err[mask]
+    assert valid.max().item() <= 2e-2 and valid.mean().item() <= 2e-3
+    assert (err / want.abs().clamp(min=1.0)).max().item() <= 2e-2
 
 
 def make_inputs(device, b=3, n=200, heads=2, d=64, masked=False, seed=0):
@@ -71,17 +95,74 @@ class TestKernelOnCard:
     @pytest.mark.parametrize("d", [64, 128])
     @pytest.mark.parametrize("case,masked,sw", CASES)
     def test_kernel_matches_plain_bf16(self, cuda_device, d, case, masked, sw):
+        """The redesigned forward: the q/k prologue, then the wgmma kernel."""
         qkv, *rest = make_inputs(cuda_device, d=d, masked=masked)
-        before = t_fa.LAUNCHES
+        before = counts()
         got = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=sw, impl="fused")
-        assert t_fa.LAUNCHES == before + 1
+        assert counts() == added(before, fwd=1, prologue=1)
         want = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=2, sliding_window=sw).float()
+        assert_forward_close(got, want, rest[-1])
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("case,masked,sw", CASES)
+    def test_mma_kernel_matches_plain_bf16(self, cuda_device, d, case, masked, sw):
+        """The mma.sync forward kept beside the redesign."""
+        qkv, *rest = make_inputs(cuda_device, d=d, masked=masked)
+        before = counts()
+        got = t_fa.fused_qkv_attention_mma(qkv, *rest, num_heads=2, sliding_window=sw)
+        assert counts() == added(before, mma=1)
+        want = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=2, sliding_window=sw).float()
+        assert_forward_close(got, want, rest[-1])
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n", [200, 1024])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("none", 12), ("tail+dead", 40)])
+    def test_lse_matches_plain(self, cuda_device, d, n, case, sw):
+        """Asked for under grad, the forward also writes each row's
+        log-sum-exp (log2 units; 1e30 on padded rows, an all-padding sample
+        included) and the same output."""
+        qkv, qs, ks, cos, sin, mask = make_inputs(cuda_device, d=d, n=n, masked=case != "none")
+        if mask is not None:
+            mask[-1] = False
+        out, lse = t_fa._fused_cuda(qkv, qs, ks, cos, sin, mask, 2, sw, want_lse=True)
+        want, want_lse = t_fa.fused_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, num_heads=2,
+                                                        sliding_window=sw, return_lse=True)
+        assert torch.equal(out, t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=2,
+                                                         sliding_window=sw, impl="fused"))
+        assert_forward_close(out, want.float(), mask)
+        valid = torch.ones(out.shape[:2], dtype=torch.bool, device=cuda_device) if mask is None else mask
+        assert (lse - want_lse).abs().transpose(1, 2)[valid].max().item() <= 1e-3
+        assert (lse.transpose(1, 2)[~valid] == 1e30).all()
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("with_q", [True, False])
+    def test_prologue_matches_plain(self, cuda_device, d, with_q):
+        """q and k normed and rotated once (the forward's k alone), and the
+        backward's delta."""
+        qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, d=d)
+        out = torch.randn(qkv.shape[0], qkv.shape[1], 2 * d, device=cuda_device).bfloat16()
+        g = torch.randn_like(out)
+        kw = dict(num_heads=2, out=out, dout=g, with_q=with_q)
+        before = counts()
+        qk, delta = t_fa.fused_qk_prologue(qkv, qs, ks, cos, sin, **kw)
+        assert counts() == added(before, prologue=1)
+        want, want_delta = t_fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, **kw)
         torch.cuda.synchronize()
-        err = (got.float() - want).abs()
-        valid = err if rest[-1] is None else err[rest[-1]]
-        assert valid.max().item() <= 2e-2 and valid.mean().item() <= 2e-3
-        # Padded rows may see few keys: one bf16 step there is 2^-7 * |out|.
-        assert (err / want.abs().clamp(min=1.0)).max().item() <= 2e-2
+        assert qk.shape == want.shape
+        err = (qk.float() - want.float()).abs()
+        assert err.max().item() <= 2 ** -5 and (err > 0).float().mean().item() <= 1e-3
+        assert (delta - want_delta).abs().max().item() <= 1e-5 * want_delta.abs().max().item() + 1e-6
+
+    def test_ragged_and_dead_rows(self, cuda_device):
+        """N a multiple of 8 and not of 64, a window, an all-padding sample
+        (every row the mean of v over all N keys)."""
+        qkv, qs, ks, cos, sin, mask = make_inputs(cuda_device, b=3, n=136, d=128, masked=True)
+        mask[-1] = False
+        got = t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=20, impl="fused")
+        want = t_fa.fused_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=20)
+        assert_forward_close(got, want.float(), mask)
+        mean_v = qkv[-1, :, 4 * 128:].float().mean(0)
+        assert (got[-1].float() - mean_v).abs().max().item() <= 2e-2
 
     def test_long_sequence_routes_through_flash(self, cuda_device):
         """At N = 2048 the fused kernel's gate refuses: q and k are normed and
@@ -107,6 +188,12 @@ class TestKernelOnCard:
         out = t_fa.fused_qkv_attention(x, *rest, num_heads=2, impl="fused")
         with pytest.raises(TypeError, match="bfloat16"):
             out.sum().backward()
+
+    def test_kernel_rejects_ragged_rows(self, cuda_device):
+        """N must be a multiple of 8 (the gate's own condition)."""
+        qkv, *rest = make_inputs(cuda_device, n=100)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, impl="fused")
 
     def test_kernel_rejects_unsupported_head_dim(self, cuda_device):
         qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, heads=4, d=32)
@@ -290,12 +377,14 @@ def _fused_bwd_case(device, d, case, n=200, sw=12):
 
 @pytest.mark.cuda
 class TestFusedBackwardOnCard:
-    """The fused backward kernel against ``fused_qkv_attention_bwd_plain``.
-    Both sides round p and ds to bf16 before the products that contract them
-    and the outputs to bf16; the kernel forms p from an online max and sum in
-    log2 units, the plain version from the full row. Limits relative to each
-    gradient's largest entry: dq, dk, dv max 4e-2 and mean 1.5e-3, the gain
-    gradients 3e-2 (about three times the readings on an H100)."""
+    """The fused backward (the q/k prologue, then the dq and dk/dv kernels),
+    given the forward kernel's output and log-sum-exp, against
+    ``fused_qkv_attention_bwd_plain`` given the same output. Both sides round
+    p and ds to bf16 before the products that contract them and the outputs
+    to bf16; the kernel forms p from the forward's log-sum-exp in log2 units,
+    the plain version from the full row. Limits relative to each gradient's
+    largest entry: dq, dk, dv max 4e-2 and mean 1.5e-3, the gain gradients
+    3e-2 (about three times the readings on an H100)."""
 
     @pytest.mark.parametrize("d", [64, 128])
     @pytest.mark.parametrize("n", [200, 1000])
@@ -303,11 +392,12 @@ class TestFusedBackwardOnCard:
     def test_kernel_matches_plain_bf16(self, cuda_device, d, n, case):
         args, g, sw = _fused_bwd_case(cuda_device, d, case, n=n)
         mask = args[5]
-        before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES, t_fa.Q8_LAUNCHES)
-        got = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw)
-        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES, t_fa.Q8_LAUNCHES) == (before[0], before[1] + 1, before[2])
-        again = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw)
-        want = t_fa.fused_qkv_attention_bwd_plain(*args, g, num_heads=2, sliding_window=sw)
+        out, lse = t_fa._fused_cuda(*args, 2, sw, want_lse=True)
+        before = counts()
+        got = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw, out=out, lse=lse)
+        assert counts() == added(before, bwd=1, prologue=1)
+        again = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw, out=out, lse=lse)
+        want = t_fa.fused_qkv_attention_bwd_plain(*args, g, num_heads=2, sliding_window=sw, out=out)
         torch.cuda.synchronize()
         for a, a2 in zip(got, again):
             assert torch.equal(a, a2), "two runs differ"
@@ -329,11 +419,12 @@ class TestFusedBackwardOnCard:
     def test_autograd_function_runs_both_kernels(self, cuda_device):
         (qkv, qs, ks, cos, sin, mask), g, sw = _fused_bwd_case(cuda_device, 64, "tail+sw")
         qkv, qs, ks = (t.detach().clone().requires_grad_(True) for t in (qkv, qs, ks))
-        before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES)
+        before = counts()
         out = t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=sw, impl="fused")
         dqkv, dqs, dks = torch.autograd.grad(out, (qkv, qs, ks), g)
         torch.cuda.synchronize()
-        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        assert counts() == added(before, fwd=1, bwd=1, prologue=2)
+        # Without out and lse the backward runs the forward first: the same bits.
         want = t_fa.fused_qkv_attention_bwd(qkv.detach(), qs.detach(), ks.detach(), cos, sin, mask, g,
                                             num_heads=2, sliding_window=sw)
         assert torch.equal(dqkv, want[0]) and torch.equal(dqs, want[1]) and torch.equal(dks, want[2])
@@ -380,7 +471,7 @@ class TestFusedBackwardOnCard:
 @pytest.mark.cuda
 class TestQ8OnCard:
     """The int8-epilogue kernel: its codes and scales are
-    ``quantize_activation`` of the forward kernel's output bit for bit (one
+    ``quantize_activation`` of the mma.sync forward's output bit for bit (one
     attention body, the same IEEE divisions); against the plain version its
     dequantized values are held to the forward kernel's limits plus half a
     quantization step (max 3e-2, mean 3e-3)."""
@@ -392,7 +483,7 @@ class TestQ8OnCard:
         before = (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES)
         codes, scales = t_fa.fused_qkv_attention_q8(qkv, *rest, num_heads=heads, sliding_window=sw)
         assert (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES) == (before[0], before[1] + 1)
-        fwd = t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
+        fwd = t_fa.fused_qkv_attention_mma(qkv, *rest, num_heads=heads, sliding_window=sw)
         want_codes, want_scales = t_q.quantize_activation(fwd)
         torch.cuda.synchronize()
         assert codes.dtype == torch.int8 and scales.shape == (*qkv.shape[:2], 1)
@@ -413,6 +504,9 @@ class TestQ8OnCard:
             t_fa.fused_qkv_attention_q8(qkv, *rest, num_heads=13)
 
     def test_int8_blocks_take_the_epilogue_when_opted_in(self, cuda_device, monkeypatch):
+        """With the opt-in each int8 block launches the epilogue kernel and no
+        forward; the output equals the opt-in off on the mma.sync forward,
+        whose attention body the epilogue kernel shares."""
         cfg = t_ae.AEConfig.from_variant("w256_d1_h4-w256_d2_h4/1x16x8")
         model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=cuda_device).quantize()
         rng = np.random.default_rng(0)
@@ -420,7 +514,9 @@ class TestQ8OnCard:
                  "patch_mask": torch.from_numpy(np.arange(64)[None, :] < np.array([[64], [40]])),
                  "row_idx": torch.from_numpy(np.tile(np.arange(64) // 8, (2, 1))),
                  "col_idx": torch.from_numpy(np.tile(np.arange(64) % 8, (2, 1)))}
-        off = model(batch)["patches"]
+        with monkeypatch.context() as m:
+            m.setattr(t_fa, "_fused_cuda", lambda *a: (t_fa._mma_cuda(*a[:8]), None))  # no lse in inference
+            off = model(batch)["patches"]
         monkeypatch.setattr(t_fa, "_ENABLE_Q8", True)
         before = (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES)
         on = model(batch)["patches"]
@@ -576,9 +672,9 @@ class TestFp32ForwardOnCard:
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 12), ("none", 40)])
     def test_fp32_instance_matches_plain(self, cuda_device, no_tf32, d, case, sw):
         qkv, *rest = ab_inputs(cuda_device, torch.float32, d=d, case=case)
-        before = t_fa.LAUNCHES
+        before = counts()
         got = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=sw, impl="fused")
-        assert t_fa.LAUNCHES == before + 1
+        assert counts() == added(before, f32=1)
         want = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=2, sliding_window=sw)
         torch.cuda.synchronize()
         assert_fp32_close(got, want)
@@ -596,9 +692,9 @@ class TestFp32ForwardOnCard:
         model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=cuda_device, compute_dtype=torch.float32)
         reference = t_ae.AE(**{**dataclasses.asdict(cfg), "attn_impl": "xla"}, state_dict=model.state_dict(),
                             device=cuda_device, compute_dtype=torch.float32)
-        before = t_fa.LAUNCHES
+        before = t_fa.F32_LAUNCHES
         got = model(batch)["patches"]
-        assert t_fa.LAUNCHES - before == cfg.encoder_depth + cfg.decoder_depth
+        assert t_fa.F32_LAUNCHES - before == cfg.encoder_depth + cfg.decoder_depth
         want = reference(batch)["patches"]
         valid = batch["patch_mask"]
         a, r = got[valid], want[valid]
@@ -608,15 +704,15 @@ class TestFp32ForwardOnCard:
 
 @pytest.mark.cuda
 class TestABKernelsOnCard:
-    """The A/B kernels (``csrc/fused_attention_ab.cu``) run the fused
-    forward's body: bit for bit the forward kernel's output (the pack on
-    images with a valid key, the int8-input kernel on the assembled tensor),
-    and within the forward's limits of their plain versions (bf16: max 2e-2,
-    mean 2e-3 on valid rows; fp32: 1e-5 of the largest entry)."""
+    """The A/B kernels (``csrc/fused_attention_ab.cu``) run the mma.sync
+    forward's body: bit for bit that kernel's output (the pack on images with
+    a valid key, the int8-input kernel on the assembled tensor), and within
+    the forward's limits of their plain versions (bf16: max 2e-2, mean 2e-3
+    on valid rows; fp32: 1e-5 of the largest entry)."""
 
     @staticmethod
     def _forward(qkv, rest, heads, sw=None):
-        return t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
+        return t_fa.fused_qkv_attention_mma(qkv, *rest, num_heads=heads, sliding_window=sw)
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("d,heads,bb,hpb", [(64, 4, 1, 2), (64, 4, 2, 4), (128, 2, 4, 1), (128, 2, 2, 2)])

@@ -154,6 +154,29 @@ class TestImportBoundary:
         """The A/B entry points and their kernel wrappers are among the files the import check reads."""
         assert REPO / "vitok_torch" / module in _port_files()
 
+    @pytest.mark.parametrize("module", [
+        "ops/fused_attention.py", "ops/_build.py", "benchmarks/fused_bits.py"])
+    def test_fused_attention_modules_are_inside_the_boundary(self, module):
+        """The fused attention's wrappers (the q/k prologue, the wgmma forward
+        and backward, the mma.sync forward), their build and the checkouts'
+        comparison are among the files the import check reads."""
+        assert REPO / "vitok_torch" / module in _port_files()
+
+    def test_kernel_sources_include_only_their_own_headers(self):
+        """Every quoted include of a CUDA source is a header in csrc/ (the
+        build hashes those into each library's key), and no source includes
+        PyTorch's headers (the kernels bind through a plain C interface)."""
+        csrc = REPO / "vitok_torch" / "csrc"
+        sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+        assert {"fused_attention_sm90.cu", "sm90.cuh"} <= {p.name for p in sources}
+        for path in sources:
+            for line in path.read_text().splitlines():
+                if line.startswith("#include"):
+                    target = line.split()[1]
+                    assert not target.strip('<>"').startswith(("torch/", "ATen/", "c10/")), f"{path}: {line}"
+                    if target.startswith('"'):
+                        assert (csrc / target.strip('"')).is_file(), f"{path}: {line}"
+
     def test_port_imports_no_jax(self):
         """No file of the port, nor chip_smoke.py, imports jax, jaxlib, flax
         or vitok_tpu."""

@@ -2,23 +2,66 @@
 
 Runs the fused forward (#1), its int8 epilogue (#2) and its backward (#3)
 of the ``vitok_torch`` under ``--root`` on seeded inputs at the 350M and 5B
-widths (with and without a tail mask and a window), times #1 there (CUDA
-events, 20 calls after 3), saves the outputs, and with ``--against`` checks
-them bit for bit against a file an earlier run saved. Run by path, once per
-checkout, in turns (parent, change, change, parent):
+widths (with and without a tail mask and a window), times #1 and #3 there
+(CUDA events, 20 calls after 3; #3 given the forward's output and
+log-sum-exp where its checkout takes them, so that the time is the
+backward's alone), saves the outputs, and with ``--against``
+compares them with a file an earlier run saved: #2 bit for bit; #1 and #3,
+which a checkout may compute on another kernel with the same rounding
+points, by their largest distance (valid rows) and rel L2 against the
+limits ``chip_smoke.py`` holds each kernel to against its plain version
+(#1: 2e-2 absolute; #3: 4e-2 of each gradient's largest entry, 3e-2 for the
+gains). Run by path, once per checkout, in turns (parent, change, change,
+parent):
 
     python vitok_torch/benchmarks/fused_bits.py --root PARENT --save /tmp/p.pt
     python vitok_torch/benchmarks/fused_bits.py --root . --save /tmp/c.pt --against /tmp/p.pt
 
-Exits 1 if any output differs. Needs a card.
+Exits 1 if #2 differs or #1 or #3 is past its limit. Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import sys
 
 SHAPES = ((64, 256, 1024, 16), (16, 1024, 1024, 16), (64, 256, 3072, 24))  # B, N, C, H
+FWD_MAX_ABS = 2e-2   # chip_smoke.py's KERNEL_MAX_ABS
+BWD_MAX_REL = 4e-2   # chip_smoke.py's FUSED_BWD_MAX_REL
+GAIN_MAX_REL = 3e-2  # chip_smoke.py's FUSED_BWD_GAIN_REL
+
+
+def _time_ms(fn) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 20
+
+
+def _distances(key, new, old, mask):
+    """(max |new - old| over valid rows, relative to the old tensor's largest
+    entry for the backward; rel L2; limit) per output tensor."""
+    out = []
+    for i, (a, b) in enumerate(zip(new, old)):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        if mask is not None and a.dim() == 3:
+            err = err[mask]
+        rel_l2 = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+        if key.endswith("fwd"):
+            out.append((err.max().item(), rel_l2, FWD_MAX_ABS))
+        else:
+            out.append((err.max().item() / b.abs().max().clamp(min=1e-30).item(), rel_l2,
+                        BWD_MAX_REL if i == 0 else GAIN_MAX_REL))
+    return out
 
 
 def main(argv=None) -> int:
@@ -33,7 +76,7 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the kernels run only on the card")
-    outputs, times = {}, {}
+    outputs, times, masks = {}, {}, {}
     for b, n, c, h in SHAPES:
         for case in ("none", "tail+sw"):
             gen = torch.Generator(device="cuda").manual_seed(b * n + c)
@@ -48,30 +91,40 @@ def main(argv=None) -> int:
                 valid = torch.tensor([n - (i * n) // (b + 2) for i in range(b)], device="cuda")
                 mask, sw = torch.arange(n, device="cuda")[None] < valid[:, None], 64
             key = f"{b}x{n}x{c} {case}"
+            masks[key] = mask
             fwd_args = (qkv, qs, ks, cos, sin, mask)
             fwd = lambda: fa.fused_qkv_attention(*fwd_args, num_heads=h, sliding_window=sw, impl="fused")
             outputs[key + " fwd"] = fwd()
             outputs[key + " q8"] = fa.fused_qkv_attention_q8(*fwd_args, num_heads=h, sliding_window=sw)
             dout = torch.randn(b, n, c, generator=gen, device="cuda").bfloat16()
-            outputs[key + " bwd"] = fa.fused_qkv_attention_bwd(*fwd_args, dout, num_heads=h, sliding_window=sw)
-            for _ in range(3):
-                fwd()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                fwd()
-            end.record()
-            torch.cuda.synchronize()
-            times[key] = start.elapsed_time(end) / 20
+            saved = {}
+            if "lse" in inspect.signature(fa.fused_qkv_attention_bwd).parameters:
+                out, lse = fa._fused_cuda(*fwd_args, h, sw, want_lse=True)
+                saved = dict(out=out, lse=lse)
+            bwd = lambda: fa.fused_qkv_attention_bwd(*fwd_args, dout, num_heads=h, sliding_window=sw, **saved)
+            outputs[key + " bwd"] = bwd()
+            times[key + " #1"] = _time_ms(fwd)
+            times[key + " #3"] = _time_ms(bwd)
     torch.save(outputs, args.save)
-    print(f"{args.root}: #1 ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    print(f"{args.root}: ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
     if args.against:
         old = torch.load(args.against)
         as_tuple = lambda x: x if isinstance(x, (tuple, list)) else (x,)
-        differ = [k for k in outputs if not all(torch.equal(a, b) for a, b in zip(as_tuple(outputs[k]), as_tuple(old[k])))]
-        print(f"bit-identical to {args.against}: {len(outputs) - len(differ)} of {len(outputs)}; differ: {differ}",
-              flush=True)
-        return 1 if differ else 0
+        bad = []
+        for k in outputs:
+            new_t, old_t = as_tuple(outputs[k]), as_tuple(old[k])
+            if k.endswith("q8"):
+                same = all(torch.equal(a, b) for a, b in zip(new_t, old_t))
+                print(f"  {k}: bit-identical {same}", flush=True)
+                bad += [] if same else [k]
+                continue
+            dist = _distances(k, new_t, old_t, masks[k.rsplit(" ", 1)[0]])
+            print(f"  {k}: " + "; ".join(f"max {m:.3e} (limit {lim}) rel L2 {r:.3e}" for m, r, lim in dist),
+                  flush=True)
+            bad += [k] if any(m > lim for m, _, lim in dist) else []
+        print(f"against {args.against}: {len(outputs) - len(bad)} of {len(outputs)} within their limits "
+              f"(#2 bit for bit); past them: {bad}", flush=True)
+        return 1 if bad else 0
     return 0
 
 

@@ -1,5 +1,13 @@
 // Fused QK-RMSNorm + rotate-half 2D RoPE + masked (optionally sliding-window)
-// attention, read straight from the flat [B, N, 3C] QKV projection output.
+// attention, read straight from the flat [B, N, 3C] QKV projection output:
+// the mma.sync family of the forward. The bf16 main path runs the Hopper
+// redesign in fused_attention_sm90.cu (same function and rounding points);
+// this file keeps the mma.sync kernels built:
+//   * vitok_fused_attention_mma_bf16, the mma.sync bf16 forward: arm B of the
+//     A/B entry points (vitok_torch/benchmarks), and the reference the int8
+//     epilogue below is held to bit for bit (both run attend_tile);
+//   * vitok_fused_attention_f32, the fp32 instance (the TPU kernel's f32 case);
+//   * vitok_fused_attention_q8_bf16, the int8-epilogue kernel.
 //
 // Replaces the TPU kernel vitok_tpu/ops/fused_attention.py::_fused_kernel
 // (body _attend_cell, per-head math _norm_rope_half). Same function and the
@@ -273,10 +281,10 @@ extern "C" {
 // qkv [B, N, 3*H*D] bf16; q_scale, k_scale [D] f32; cos, sin [B, N, D/2] f32;
 // mask [B, N] bool bytes or null; out [B, N, H*D] bf16. sw < 0: no window.
 // Returns the cudaError_t of the launch (0 = success).
-int vitok_fused_attention_bf16(const void* qkv, const void* q_scale,
-                               const void* k_scale, const void* cos_t,
-                               const void* sin_t, const void* mask, void* out,
-                               int B, int N, int H, int D, int sw, void* stream) {
+int vitok_fused_attention_mma_bf16(const void* qkv, const void* q_scale,
+                                   const void* k_scale, const void* cos_t,
+                                   const void* sin_t, const void* mask, void* out,
+                                   int B, int N, int H, int D, int sw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch<64, __nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
@@ -296,7 +304,7 @@ int vitok_fused_attention_f32(const void* qkv, const void* q_scale,
   return (int)cudaErrorInvalidValue;
 }
 
-// As vitok_fused_attention_bf16, with the per-token int8 quantize over all
+// As vitok_fused_attention_mma_bf16, with the per-token int8 quantize over all
 // H*D channels as the epilogue: out_q [B, N, H*D] int8, out_scale [B, N] f32.
 // `cs` blocks of a cluster share a row's heads (cs divides H, 1 <= cs <= 8,
 // and 64 * (H / cs * D + 8) * 2 bytes of slab must fit beside the tiles).

@@ -28,8 +28,12 @@ constexpr unsigned kNrFull = 0xffffffffu;
 // (`src` points at row 0, channel 0 of that head) into `dst` (row stride
 // D + 8). Rows at or past N become zeros. Two passes' loads are in flight at
 // once. `Src` is bf16, or int8 codes, which are exact in bf16 and are normed
-// as they are (8-byte loads).
-template <int D, int THREADS, typename Src>
+// as they are (8-byte loads). With RoundEach the rotation's bf16 products
+// are rounded before their sum (__hmul2_rn: no contraction into an fma), as
+// the plain version's separate tensor operations round them; without it
+// the compiler may contract them, which the mma.sync kernels keep for their
+// bits.
+template <int D, int THREADS, typename Src, bool RoundEach = false>
 __device__ __forceinline__ void norm_rope_tile(
     const Src* __restrict__ src, long long row_stride, int r0, int N,
     const float* gain, const float* __restrict__ cos_t, const float* __restrict__ sin_t,
@@ -105,8 +109,14 @@ __device__ __forceinline__ void norm_rope_tile(
                                                         __fmul_rn(__fmul_rn(b[e + 1], r), gi[e + 1]));
         const __nv_bfloat162 ce = __floats2bfloat162_rn(c[e], c[e + 1]);
         const __nv_bfloat162 se = __floats2bfloat162_rn(s[e], s[e + 1]);
-        const __nv_bfloat162 vr = __hsub2(__hmul2(yr, ce), __hmul2(yi, se));  // xr*cos - xi*sin
-        const __nv_bfloat162 vi = __hadd2(__hmul2(yr, se), __hmul2(yi, ce));  // xr*sin + xi*cos
+        __nv_bfloat162 vr, vi;
+        if constexpr (RoundEach) {
+          vr = __hsub2(__hmul2_rn(yr, ce), __hmul2_rn(yi, se));  // xr*cos - xi*sin
+          vi = __hadd2(__hmul2_rn(yr, se), __hmul2_rn(yi, ce));  // xr*sin + xi*cos
+        } else {
+          vr = __hsub2(__hmul2(yr, ce), __hmul2(yi, se));
+          vi = __hadd2(__hmul2(yr, se), __hmul2(yi, ce));
+        }
         out_r[e / 2] = *reinterpret_cast<const uint32_t*>(&vr);
         out_i[e / 2] = *reinterpret_cast<const uint32_t*>(&vi);
       }

@@ -2,19 +2,25 @@
 
 Port of ``vitok_tpu/ops/fused_attention.py``: the input is the raw
 ``[B, N, 3C]`` QKV projection output (q | k | v planes along channels), the
-output the flat ``[B, N, C]`` attention result. On a CUDA tensor
-:func:`fused_qkv_attention` launches the hand-written Hopper kernel in
-``vitok_torch/csrc/fused_attention.cu`` (it replaces the TPU kernel
-``_fused_kernel``; bf16, or its fp32 instance on fp32 qkv); on a CPU tensor it
-runs :func:`fused_qkv_attention_plain`, the same function in plain PyTorch.
-The CUDA path never falls back.
+output the flat ``[B, N, C]`` attention result. On a bf16 CUDA tensor
+:func:`fused_qkv_attention` launches two hand-written Hopper kernels of
+``vitok_torch/csrc/fused_attention_sm90.cu`` (together they replace the TPU
+kernel ``_fused_kernel``): :func:`fused_qk_prologue`, which normalises and
+rotates k once into a bf16 scratch, and the wgmma attention kernel, which
+normalises its own q tile. On
+an fp32 CUDA tensor it launches the fp32 instance of ``csrc/fused_attention.cu``;
+on a CPU tensor it runs :func:`fused_qkv_attention_plain`, the same function
+in plain PyTorch. The CUDA path never falls back.
 
-Under autograd the kernel's backward is a kernel too
-(:func:`fused_qkv_attention_bwd`, ``csrc/fused_attention_bwd.cu``, replacing
-``_fused_bwd_kernel``), and :func:`fused_qkv_attention_q8`
+Under autograd the forward also writes each row's log-sum-exp, and the
+backward is a kernel too (:func:`fused_qkv_attention_bwd`: the prologue, then
+``csrc/fused_attention_bwd.cu``, replacing ``_fused_bwd_kernel``); it takes
+the forward's output and log-sum-exp. :func:`fused_qkv_attention_q8`
 (``fused_attention_q8_kernel`` in ``csrc/fused_attention.cu``, replacing
 ``_fused_kernel_q8``) is the forward with a per-token int8 quantize as its
-epilogue, for the int8 block's out-projection. Each has its plain version
+epilogue, for the int8 block's out-projection; it shares its attention body
+with :func:`fused_qkv_attention_mma`, the mma.sync forward kept beside the
+redesign (the A/B entry points' arm B). Each kernel has its plain version
 beside it and its own launch count.
 
 Masking is key-side only, as in the TPU kernel: padded query rows attend to
@@ -40,15 +46,21 @@ from vitok_torch.ops.rope import apply_rotary_emb
 MAX_FUSED_TOKENS = 1024
 KERNEL_HEAD_DIMS = (64, 128)
 _NEG_FILL = -1e30
+_DEAD_LSE = 1e30  # the log-sum-exp of a padded query row: the backward's p is 0 there
 _LOG2E = 1.4426950408889634
 
 _RMS_EPS = 1e-6
 
-# Launches of each CUDA kernel since its count was last set to 0: the
-# forward, its backward, and the forward with the int8 epilogue.
+# Launches of each CUDA kernel since its count was last set to 0: the bf16
+# forward (wgmma), the q/k prologue it and the backward run first, the
+# backward, the forward with the int8 epilogue, and the mma.sync forward's
+# bf16 and fp32 instances.
 LAUNCHES = 0
+PROLOGUE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 Q8_LAUNCHES = 0
+MMA_LAUNCHES = 0
+F32_LAUNCHES = 0
 
 # The int8 epilogue is opt-in, as in the JAX package (``VITOK_Q8_EPILOGUE``).
 _ENABLE_Q8 = os.environ.get("VITOK_Q8_EPILOGUE", "0") not in ("", "0")
@@ -72,6 +84,34 @@ def can_fuse(n: int, c: int, num_heads: int) -> bool:
     return n <= MAX_FUSED_TOKENS and n % 8 == 0 and d % 64 == 0 and c % group == 0
 
 
+def _rms_inv(x32: torch.Tensor) -> torch.Tensor:
+    """``rsqrt(mean(x^2) + eps)`` over the last axis (fp32 ``[..., 1]``),
+    summed in the order of the kernels' tile code (``csrc/norm_rope.cuh``):
+    a thread's 8 channels and their rotate-half partners squared and added
+    in turn, then the D/16 threads' sums pairwise. So the plain versions
+    round q and k to bf16 where the kernels do; other head dims take
+    ``mean``."""
+    d = x32.shape[-1]
+    if d % 16:
+        return torch.rsqrt(x32.square().mean(-1, keepdim=True) + _RMS_EPS)
+    xr = x32[..., : d // 2].unflatten(-1, (d // 16, 8))
+    xi = x32[..., d // 2:].unflatten(-1, (d // 16, 8))
+    ss = torch.zeros(xr.shape[:-1], dtype=torch.float32, device=x32.device)
+    for e in range(8):
+        ss = ss + xr[..., e] * xr[..., e]
+        ss = ss + xi[..., e] * xi[..., e]
+    while ss.shape[-1] > 1:
+        ss = ss[..., 0::2] + ss[..., 1::2]
+    return torch.rsqrt(ss / d + _RMS_EPS)
+
+
+def _qk_norm_rope(q, k, q_scale, k_scale, cos, sin):
+    """QK-RMSNorm (``_rms_inv``'s statistics, times the fp32 gain, cast to
+    the input dtype) and the rotate-half RoPE in that dtype."""
+    norm = lambda x, scale: ((x.float() * _rms_inv(x.float())) * scale.float()).to(x.dtype)
+    return apply_rotary_emb(norm(q, q_scale), norm(k, k_scale), cos, sin, convention="half")
+
+
 def _split_qkv(qkv, num_heads):
     b, n, c3 = qkv.shape
     c = c3 // 3
@@ -88,18 +128,24 @@ def fused_qkv_attention_plain(
     *,
     num_heads: int,
     sliding_window: Optional[int] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The kernel's function in plain PyTorch (``_attend_cell``).
 
-    fp32 norm statistics, rotation in ``qkv.dtype``, fp32 logits scaled by
+    fp32 norm statistics (summed in the kernels' order: ``_rms_inv``),
+    rotation in ``qkv.dtype``, fp32 logits scaled by
     ``log2(e)/sqrt(d)``, key-side mask and window filled with -1e30, ``exp2``
     against the full-row max, P cast to v's dtype before PV, fp32
     accumulation, then division by the fp32 row sum.
+
+    With ``return_lse`` it returns ``(out, lse)``: each row's log-sum-exp of
+    those logits in log2 units, fp32 ``[B, H, N]``, and 1e30 on padded query
+    rows (what the kernel writes for the backward).
     """
     b, n, c3 = qkv.shape
     q, k, v = _split_qkv(qkv, num_heads)
     d = q.shape[-1]
-    q, k = apply_rotary_emb(rms_norm(q, q_scale), rms_norm(k, k_scale), cos, sin, convention="half")
+    q, k = _qk_norm_rope(q, k, q_scale, k_scale, cos, sin)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / d ** 0.5 * _LOG2E)
     if patch_mask is not None:
         s = s.masked_fill(~patch_mask.bool()[:, None, None, :], _NEG_FILL)
@@ -107,10 +153,17 @@ def fused_qkv_attention_plain(
         idx = torch.arange(n, device=qkv.device)
         outside = (idx[:, None] - idx[None, :]).abs() > sliding_window
         s = s.masked_fill(outside, _NEG_FILL)
-    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     o = o / p.sum(-1).transpose(1, 2)[..., None]
-    return o.to(qkv.dtype).reshape(b, n, c3 // 3)
+    out = o.to(qkv.dtype).reshape(b, n, c3 // 3)
+    if not return_lse:
+        return out
+    lse = m[..., 0] + torch.log2(p.sum(-1))
+    if patch_mask is not None:
+        lse = lse.masked_fill(~patch_mask.bool()[:, None, :], _DEAD_LSE)
+    return out, lse
 
 
 def _check_cuda_args(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
@@ -151,12 +204,140 @@ def _check_cuda_args(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sli
             cos.detach().float().contiguous(), sin.detach().float().contiguous(), mask, sw)
 
 
+def _check_rows(n: int) -> None:
+    """The wgmma kernels copy a tile's row statistics 16 bytes at a time."""
+    if n % 8:
+        raise ValueError(f"the wgmma fused attention kernels take N a multiple of 8, got {n}")
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
-def _fused_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
+def fused_qk_prologue_plain(
+    qkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    *,
+    num_heads: int,
+    out: Optional[torch.Tensor] = None,
+    dout: Optional[torch.Tensor] = None,
+    with_q: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The prologue kernel's function in plain PyTorch: q and k normalised
+    and rotated as the forward does (``_norm_rope_half``), as ``[B, N, 2C]``
+    in ``qkv.dtype`` (q channels, then k; without ``with_q`` k alone,
+    ``[B, N, C]``, as the forward asks for it); with ``out`` and ``dout``
+    (the forward's output and its cotangent, ``[B, N, C]``) also
+    ``delta [B, H, N]`` in fp32, each row's sum over a head's channels of
+    ``dout * out``."""
+    b, n, _ = qkv.shape
+    q, k, _v = _split_qkv(qkv, num_heads)
+    q, k = _qk_norm_rope(q, k, q_scale, k_scale, cos, sin)
+    qk = torch.cat([q.reshape(b, n, -1), k.reshape(b, n, -1)], dim=-1) if with_q else k.reshape(b, n, -1)
+    if out is None:
+        return qk, None
+    prod = dout.float() * out.float()
+    return qk, prod.view(b, n, num_heads, -1).sum(-1).transpose(1, 2).contiguous()
+
+
+def _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, out=None, dout=None, with_q=True):
+    global PROLOGUE_LAUNCHES
+    b, n, c, d, q_scale, k_scale, cos, sin, _, _ = _check_cuda_args(
+        qkv, q_scale, k_scale, cos, sin, None, num_heads, None
+    )
+    dev = qkv.device
+    parts = 2 if with_q else 1
+    qk = torch.empty((b, n, parts * c), dtype=qkv.dtype, device=dev)
+    delta = None
+    if out is not None:
+        for name, t in (("out", out), ("dout", dout)):
+            if t.device != dev or tuple(t.shape) != (b, n, c) or t.dtype != qkv.dtype or not t.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous {(b, n, c)} {qkv.dtype} tensor on {dev}")
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+        delta = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev)
+    lib = _sm90_lib()
+    with torch.cuda.device(dev):  # the C entry launches on the current device
+        err = lib.vitok_fused_qk_prologue_bf16(
+            qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            _ptr(out), _ptr(dout), qk.data_ptr(), _ptr(delta), b, n, num_heads, d, parts,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, err, "fused_qk_prologue launch")
+    PROLOGUE_LAUNCHES += 1
+    return qk, delta
+
+
+def fused_qk_prologue(
+    qkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    *,
+    num_heads: int,
+    out: Optional[torch.Tensor] = None,
+    dout: Optional[torch.Tensor] = None,
+    with_q: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """q and k normalised and rotated once (``[B, N, 2C]``; k alone,
+    ``[B, N, C]``, without ``with_q``), and with ``out``/``dout`` the
+    backward's ``delta``: the prologue the redesigned forward (k alone) and
+    backward (q, k and delta) run first. On a CUDA tensor this launches the
+    prologue kernel (bf16, head dim 64 or 128) or raises; on a CPU tensor it
+    runs :func:`fused_qk_prologue_plain`."""
+    if (out is None) != (dout is None):
+        raise ValueError("give both out and dout, or neither")
+    args = (qkv, q_scale, k_scale, cos, sin)
+    if qkv.is_cuda:
+        return _prologue_cuda(*args, num_heads, out, dout, with_q)
+    if qkv.device.type != "cpu":
+        raise RuntimeError(f"no fused attention kernel for device {qkv.device}")
+    return fused_qk_prologue_plain(*args, num_heads=num_heads, out=out, dout=dout, with_q=with_q)
+
+
+def _fused_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
+    """The redesigned forward on a bf16 tensor (the prologue, then the wgmma
+    kernel): ``(out, lse or None)``; an fp32 tensor takes the fp32 instance,
+    which writes no lse."""
+    if qkv.dtype == torch.float32:
+        return _mma_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window), None
+    _check_rows(qkv.shape[1])
+    kn, _ = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=False)
+    return _attend_sm90(qkv, kn, q_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse)
+
+
+def _attend_sm90(qkv, kn, q_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
+    """The wgmma attention kernel on the prologue's normed k ``kn`` and the
+    q and v planes of ``qkv``: ``(out, lse or None)``."""
     global LAUNCHES
+    b, n, c, d, q_scale, _, cos, sin, mask, sw = _check_cuda_args(
+        qkv, q_scale, q_scale, cos, sin, patch_mask, num_heads, sliding_window
+    )
+    dev = qkv.device
+    _check_rows(n)
+    if kn.shape != (b, n, c) or kn.dtype != qkv.dtype or kn.device != dev or not kn.is_contiguous():
+        raise ValueError(f"kn must be a contiguous {(b, n, c)} {qkv.dtype} tensor on {dev}")
+    out = torch.empty((b, n, c), dtype=qkv.dtype, device=dev)
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev) if want_lse else None
+    lib = _sm90_lib()
+    with torch.cuda.device(dev):
+        err = lib.vitok_fused_attention_sm90_bf16(
+            kn.data_ptr(), qkv.data_ptr(), q_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(), _ptr(mask),
+            out.data_ptr(), _ptr(lse), b, n, num_heads, d, sw, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, err, "fused_attention launch")
+    LAUNCHES += 1
+    return out, lse
+
+
+def _mma_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
+    """The mma.sync forward of ``csrc/fused_attention.cu``: its bf16
+    instance, or its fp32 one."""
+    global MMA_LAUNCHES, F32_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
         dtypes=(torch.bfloat16, torch.float32),
@@ -164,25 +345,66 @@ def _fused_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_
     dev = qkv.device
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=dev)
     lib = _kernel_lib()
-    entry = lib.vitok_fused_attention_f32 if qkv.dtype == torch.float32 else lib.vitok_fused_attention_bf16
+    f32 = qkv.dtype == torch.float32
+    entry = lib.vitok_fused_attention_f32 if f32 else lib.vitok_fused_attention_mma_bf16
     with torch.cuda.device(dev):  # the C entry launches on the current device
         err = entry(
             qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(),
             sin.data_ptr(), _ptr(mask), out.data_ptr(),
             b, n, num_heads, d, sw, torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check(lib, err, "fused_attention launch")
-    LAUNCHES += 1
+    _build.check(lib, err, "fused_attention_mma launch")
+    if f32:
+        F32_LAUNCHES += 1
+    else:
+        MMA_LAUNCHES += 1
     return out
+
+
+def fused_qkv_attention_mma(
+    qkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    patch_mask: Optional[torch.Tensor] = None,
+    *,
+    num_heads: int,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """The forward on the mma.sync kernel of ``csrc/fused_attention.cu``
+    (bf16 or fp32), kept beside the redesign: the A/B entry points' arm B,
+    whose body the A/B kernels and the int8 epilogue share bit for bit. On a
+    CUDA tensor it launches that kernel or raises; on a CPU tensor it runs
+    :func:`fused_qkv_attention_plain`."""
+    args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
+    if qkv.is_cuda:
+        return _mma_cuda(*args, num_heads, sliding_window)
+    if qkv.device.type != "cpu":
+        raise RuntimeError(f"no fused attention kernel for device {qkv.device}")
+    return fused_qkv_attention_plain(*args, num_heads=num_heads, sliding_window=sliding_window)
 
 
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("fused_attention")
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
-        (lib.vitok_fused_attention_bf16, [ptr] * 7 + [i] * 5 + [ptr]),
+        (lib.vitok_fused_attention_mma_bf16, [ptr] * 7 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_f32, [ptr] * 7 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_q8_bf16, [ptr] * 8 + [i] * 6 + [ptr]),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _sm90_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_attention_sm90")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+        (lib.vitok_fused_qk_prologue_bf16, [ptr] * 9 + [i] * 5 + [ptr]),
+        (lib.vitok_fused_attention_sm90_bf16, [ptr] * 8 + [i] * 5 + [ptr]),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
@@ -195,7 +417,7 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     fn = lib.vitok_fused_attention_bwd_bf16
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 12 + [i] * 5 + [ptr]
+        fn.argtypes = [ptr] * 13 + [i] * 5 + [ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -230,6 +452,7 @@ def fused_qkv_attention_bwd_plain(
     *,
     num_heads: int,
     sliding_window: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's function in plain PyTorch (``_fused_bwd_kernel``
     behind ``_fused_op_bwd``), product by product with its rounding points.
@@ -241,6 +464,11 @@ def fused_qkv_attention_bwd_plain(
     ``qkv.dtype``; ``delta = sum_k dp * p`` in fp32; ``ds`` cast to
     ``qkv.dtype`` for ``dqrot`` and ``dkrot``; the rotation's transpose and
     the RMSNorm backward in fp32 on the raw q/k. cos/sin get no gradient.
+
+    Given the forward's output ``out [B, N, C]``, ``delta`` is instead
+    ``sum_c dO * out`` in fp32 over each head's channels (the same quantity,
+    since ``out = sum_k p v``, from the output rounded to ``qkv.dtype``): the
+    redesigned kernel's function, as the JAX package's flash backward forms it.
 
     Returns ``(dqkv [B, N, 3C] in qkv.dtype, dq_scale [D], dk_scale [D])``
     with the gain gradients in fp32.
@@ -260,7 +488,7 @@ def fused_qkv_attention_bwd_plain(
 
     def norm_rope(x, scale):
         x32 = x.float()
-        r = torch.rsqrt(x32.square().mean(-1, keepdim=True) + _RMS_EPS)
+        r = _rms_inv(x32)
         yb = (x32 * r * scale.float()).to(dt)
         xr, xi = yb[..., :d2], yb[..., d2:]
         rot = torch.cat([xr * cos_b - xi * sin_b, xr * sin_b + xi * cos_b], dim=-1)
@@ -281,7 +509,10 @@ def fused_qkv_attention_bwd_plain(
 
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do32)
     dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
-    delta = (dp * p).sum(-1, keepdim=True)
+    if out is None:
+        delta = (dp * p).sum(-1, keepdim=True)
+    else:
+        delta = (do32 * out.reshape(b, n, num_heads, d).float()).sum(-1).transpose(1, 2)[..., None]
     dsb = (p * (dp - delta) * inv_sqrt_d).to(dt).float()
     dqrot = torch.einsum("bhqk,bkhd->bqhd", dsb, krot)
     dkrot = torch.einsum("bhqk,bqhd->bkhd", dsb, qrot)
@@ -301,12 +532,13 @@ def fused_qkv_attention_bwd_plain(
     return dqkv, dqs, dks
 
 
-def _fused_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_heads, sliding_window):
+def _fused_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_heads, sliding_window, out, lse):
     global BWD_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
     )
     dev = qkv.device
+    _check_rows(n)
     if dout.device != dev or tuple(dout.shape) != (b, n, c) or dout.dtype != qkv.dtype:
         raise ValueError(
             f"dout must be {(b, n, c)} {qkv.dtype} on {dev}, got {tuple(dout.shape)} {dout.dtype}"
@@ -314,18 +546,22 @@ def _fused_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_heads
     dout = dout.contiguous()
     if dout.data_ptr() % 16:
         dout = dout.clone()
+    if out is None or lse is None:  # the forward first: its output and row log-sum-exp
+        out, lse = _fused_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
+                               want_lse=True)
+    if tuple(lse.shape) != (b, num_heads, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous {(b, num_heads, n)} float32 tensor")
+    qk, delta = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, out.contiguous(), dout)
     tiles = (n + 63) // 64
     dqkv = torch.empty_like(qkv)
-    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev)
-    delta = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev)
     part_q = torch.empty((b, num_heads, tiles, d), dtype=torch.float32, device=dev)
     part_k = torch.empty((b, num_heads, tiles, d), dtype=torch.float32, device=dev)
     lib = _bwd_kernel_lib()
     with torch.cuda.device(dev):
         err = lib.vitok_fused_attention_bwd_bf16(
-            qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(),
-            sin.data_ptr(), _ptr(mask), dout.data_ptr(), dqkv.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), part_q.data_ptr(), part_k.data_ptr(),
+            qkv.data_ptr(), qk.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), _ptr(mask), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(), part_q.data_ptr(), part_k.data_ptr(),
             b, n, num_heads, d, sw, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "fused_attention_bwd launch")
@@ -345,57 +581,70 @@ def fused_qkv_attention_bwd(
     *,
     num_heads: int,
     sliding_window: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
+    lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of the fused kernel: ``(dqkv, dq_scale, dk_scale)`` from the
     forward's inputs and the cotangent ``dout [B, N, C]`` of its output.
 
-    The cotangent is zeroed on padded query rows first, as the JAX package's
-    ``_fused_op_bwd`` does. On a CUDA tensor this launches the backward
-    kernel (bf16, head dim 64 or 128) or raises; on a CPU tensor it runs
-    :func:`fused_qkv_attention_bwd_plain`. The gain gradients are fp32.
+    ``out`` and ``lse`` are the forward's output and row log-sum-exp
+    (``fused_qkv_attention_plain(..., return_lse=True)`` or the kernel's);
+    without them the forward runs first. The cotangent is zeroed on padded
+    query rows first, as the JAX package's ``_fused_op_bwd`` does. On a CUDA
+    tensor this launches the prologue and the backward kernel (bf16, head dim
+    64 or 128) or raises; on a CPU tensor it runs
+    :func:`fused_qkv_attention_bwd_plain` with ``out``. The gain gradients
+    are fp32.
     """
     args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
+    kw = dict(num_heads=num_heads, sliding_window=sliding_window)
     if qkv.is_cuda:
         if patch_mask is not None:
             dout = dout * patch_mask.to(dout.dtype)[..., None]
-        return _fused_bwd_cuda(*args, dout, num_heads, sliding_window)
+        return _fused_bwd_cuda(*args, dout, num_heads, sliding_window, out, lse)
     if qkv.device.type != "cpu":
         raise RuntimeError(f"no fused attention kernel for device {qkv.device}")
-    return fused_qkv_attention_bwd_plain(
-        *args, dout, num_heads=num_heads, sliding_window=sliding_window
-    )
+    if out is None:
+        out = fused_qkv_attention_plain(*args, **kw)
+    return fused_qkv_attention_bwd_plain(*args, dout, out=out, **kw)
 
 
-def _fused_forward(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+def _fused_forward(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
+    """The kernels on a CUDA tensor, the plain version on a CPU tensor:
+    ``(out, lse)``, lse None unless asked for (and on the fp32 instance)."""
     args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
     if qkv.is_cuda:
-        return _fused_cuda(*args, num_heads, sliding_window)
+        return _fused_cuda(*args, num_heads, sliding_window, want_lse)
     if qkv.device.type != "cpu":
         raise RuntimeError(f"no fused attention kernel for device {qkv.device}")
-    return fused_qkv_attention_plain(*args, num_heads=num_heads, sliding_window=sliding_window)
+    kw = dict(num_heads=num_heads, sliding_window=sliding_window)
+    if want_lse:
+        return fused_qkv_attention_plain(*args, return_lse=True, **kw)
+    return fused_qkv_attention_plain(*args, **kw), None
 
 
 class _FusedAttention(torch.autograd.Function):
     """The fused forward with :func:`fused_qkv_attention_bwd` as its backward
-    (the JAX package's ``_fused_op`` custom VJP). Saves only its inputs: the
-    backward recomputes the probabilities. cos/sin get no gradient."""
+    (the JAX package's ``_fused_op`` custom VJP). Saves its inputs, its
+    output and the rows' log-sum-exp: the backward forms p from them without
+    a statistics pass. cos/sin get no gradient."""
 
     @staticmethod
     def forward(ctx, qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
-        ctx.save_for_backward(qkv, q_scale, k_scale, cos, sin, patch_mask)
+        out, lse = _fused_forward(
+            qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=True
+        )
+        ctx.save_for_backward(qkv, q_scale, k_scale, cos, sin, patch_mask, out, lse)
         ctx.num_heads = num_heads
         ctx.sliding_window = sliding_window
-        return _fused_forward(
-            qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
-        )
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, q_scale, k_scale, cos, sin, patch_mask = ctx.saved_tensors
+        qkv, q_scale, k_scale, cos, sin, patch_mask, out, lse = ctx.saved_tensors
         dqkv, dqs, dks = fused_qkv_attention_bwd(
             qkv, q_scale, k_scale, cos, sin, patch_mask, dout,
-            num_heads=ctx.num_heads, sliding_window=ctx.sliding_window,
+            num_heads=ctx.num_heads, sliding_window=ctx.sliding_window, out=out, lse=lse,
         )
         return dqkv, dqs.to(q_scale.dtype), dks.to(k_scale.dtype), None, None, None, None, None
 
@@ -589,7 +838,7 @@ def fused_qkv_attention(
             )
         return _fused_forward(
             qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
-        )
+        )[0]
     return unfused_qkv_attention(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, attn_impl=impl
     )
@@ -600,6 +849,9 @@ __all__ = [
     "fused_qkv_attention_plain",
     "fused_qkv_attention_bwd",
     "fused_qkv_attention_bwd_plain",
+    "fused_qkv_attention_mma",
+    "fused_qk_prologue",
+    "fused_qk_prologue_plain",
     "fused_qkv_attention_q8",
     "fused_qkv_attention_q8_plain",
     "unfused_qkv_attention",
