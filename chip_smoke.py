@@ -53,8 +53,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    with the 350M decoder, repeats a call after ``DiT.quantize()``; and
    takes three flow-matching training steps of DiT-L on the fused kernels;
 8. holds the A/B kernels of ``vitok_torch.benchmarks`` (batch blocks,
-   packs, int8 input, all heads of a tile) against the mma.sync forward,
-   bit for bit, and against their plain versions, and the forward's fp32
+   packs, int8 input, all heads of a tile) against the forward whose body
+   each runs (the mma.sync forward; for packs and all heads of a tile in
+   bf16, the wgmma walker's, the redesigned forward), bit for bit, and
+   against their plain versions, and the forward's fp32
    instance against its plain version, at the JAX A/B scripts' recorded
    shapes and at the 350M width with a dead image; runs the 350M AE in fp32
    on the fp32 instance against the unfused composition; and runs both A/B
@@ -1991,21 +1993,28 @@ def _one_launch(counts: dict, name: str, fn):
 
 def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
     """#10 (every arm of ab_batch_block), #11, #12 and #13 against the
-    mma.sync forward whose body they share (bit for bit: #11 on images with a
-    valid key, #12 on the assembled tensor) and against their plain versions;
-    the fp32 instance of #1 against its plain version; times beside bounds,
-    SDPA and, in bf16, the redesigned forward."""
+    forward whose body each runs, bit for bit: #10, #12 (on the assembled
+    tensor) and the fp32 #11 and #13 the mma.sync forward (its fp32 instance
+    in fp32); #11 (on images with a valid key) and #13 in bf16 the redesigned
+    forward (the wgmma body). Each against its plain version; the fp32
+    instance of #1 against its plain version; times beside bounds, SDPA and,
+    in bf16, the redesigned forward, with device times, the wgmma kernels
+    alone on the prologue's k, and the q/k prologue's (k alone, as #1, #11
+    and #13 run it; q and k, the walkers' rejected feed). Where the shape
+    refuses arm P2 (C = 1024), the pack runs at bb = 2 with half the heads
+    ("P2h")."""
     import torch
     import torch.nn.functional as F
     from vitok_torch.benchmarks import ab_batch_block as abb
     from vitok_torch.benchmarks import ab_q8_input as ab8
+    from vitok_torch.benchmarks import walk_sm90
     from vitok_torch.ops import fused_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(10)
     rows = []
-    counts = {}
-    log("kernel phase: A/B kernels (fused_attention_ab.cu) vs the mma.sync forward (bit for bit) and "
-        "vs their plain versions; the fp32 instance of the forward vs its plain version")
+    log("kernel phase: A/B kernels (fused_attention_ab.cu, and fused_attention_ab_sm90.cu for #11 and #13 in bf16) "
+        "vs the forward whose body each runs (bit for bit) and vs their plain versions; the fp32 instance of the "
+        "forward vs its plain version")
     for label, b, n, c, h, dtype, mask_kind in shapes:
         qkv, qs, ks, cos, sin, mask = _ab_inputs(gen, b, n, c, h, dtype, mask_kind, device)
         d, f32 = c // h, dtype == "float32"
@@ -2013,6 +2022,8 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         args = (qkv, qs, ks, cos, sin, mask)
         fwd = lambda: fa.fused_qkv_attention_mma(*args, num_heads=h)
         ref = fwd()
+        new = lambda: fa.fused_qkv_attention(*args, num_heads=h, impl="fused")
+        new_ref = ref if f32 else new()  # fp32: the same instance
         plain = fa.fused_qkv_attention_plain(*args, num_heads=h)
         live = mask.any(1)  # images with a valid key
         # rows held to #1's limits: valid rows, and every row of an image with
@@ -2022,50 +2033,69 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
                                                                                   f32)}
         q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)
         am = mask[:, None, None, :]
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+        library_ms = time_ms(library)
+        library_dev_ms = device_ms(library)
         del q, k, v
         plain_ms = time_ms(lambda: fa.fused_qkv_attention_plain(*args, num_heads=h), runs=3, warmup=1)
         bound = _ab_bound(b, n, c, h, mask, isz)
         row = dict(shape=label, B=b, N=n, C=c, H=h, dtype=dtype, mask=mask_kind, fused_ms=time_ms(fwd),
-                   fused_plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1], arms={})
-        if not f32:  # the redesigned forward beside the arms
-            new = lambda: fa.fused_qkv_attention(*args, num_heads=h, impl="fused")
-            row["redesigned_max_abs_vs_mma"] = (new().float() - ref.float()).abs()[valid].max().item()
-            row["redesigned_ms"] = time_ms(new)
-        # #10, every arm of ab_batch_block that this shape takes (B is #1 itself)
-        for name, bb, cg, _ in abb.arm_defs(c, d, n, b, h):
-            if cg is None:
-                continue
+                   fused_plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_dev_ms,
+                   bound_ms=bound[0], bound_by=bound[1], arms={})
+        if not f32:  # the redesigned forward, its prologue and its wgmma kernel alone beside the arms
+            row["redesigned_max_abs_vs_mma"] = (new_ref.float() - ref.float()).abs()[valid].max().item()
+            row.update(redesigned_ms=time_ms(new), redesigned_device_ms=device_ms(new))
+            # the prologue as #1, #11 and #13 run it (k alone), and with q, the rejected way to feed the walkers
+            prologue = lambda with_q: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, with_q=with_q)
+            row.update(prologue_qk_ms=time_ms(lambda: prologue(True)), prologue_k_ms=time_ms(lambda: prologue(False)))
+            kn, _ = prologue(False)
+            row["redesigned_kernel_ms"] = time_ms(lambda: fa._attend_sm90(qkv, kn, qs, cos, sin, mask, h, None))
+            walk = lambda **kw: walk_sm90(qkv, kn, qs.float(), cos.float(), sin.float(), mask, h, **kw)
+        # #10, every arm of ab_batch_block that this shape takes (B is #1 itself), and #11
+        splits = [(name, bb, cg) for name, bb, cg, _ in abb.arm_defs(c, d, n, b, h) if cg is not None]
+        try:
+            abb.check_arm(qkv.shape, h, 2, 1536, pack=True)
+        except ValueError:
+            splits.append(("P2h", 2, c // 2))
+        for name, bb, cg in splits:
+            pack = name.startswith("P")
             try:
-                abb.check_arm(qkv.shape, h, bb, cg, pack=name.startswith("P"))
+                abb.check_arm(qkv.shape, h, bb, cg, pack=pack)
             except ValueError:
                 continue
-            pack = name.startswith("P")
-            kname = "fused_attention_pack" if pack else "fused_attention_bb"
+            kname = ("fused_attention_pack_f32" if f32 else "fused_attention_pack") if pack else "fused_attention_bb"
             call = lambda: abb.fused_attention_bb(*args, num_heads=h, bb=bb, cg=cg, pack=pack)
             got = _one_launch(abb.LAUNCHES, kname, call)
             rows_eq = live if pack else slice(None)
-            if not torch.equal(got[rows_eq], ref[rows_eq]):
-                raise AssertionError(f"{kname} {name} at {label}: not bit-identical to the mma.sync forward")
+            want_bits, body = (new_ref, "redesigned") if pack and not f32 else (ref, "mma.sync")
+            if not torch.equal(got[rows_eq], want_bits[rows_eq]):
+                raise AssertionError(f"{kname} {name} at {label}: not bit-identical to the {body} forward")
             want = plain if not pack else abb.fused_attention_bb_plain(*args, num_heads=h, bb=bb, cg=cg, pack=True)
-            key = f"{kname}_f32" if f32 else kname
+            key = f"{kname}_f32" if f32 and not pack else kname
             err = _check_ab(f"{kname} {name} {label}", got, want, valid, f32)
             errs[key] = max(errs.get(key, 0.0), err)
             arm = dict(bb=bb, cg=cg, ms=time_ms(call), max_abs_err=err)
             if pack:
+                arm["device_ms"] = device_ms(call)
+                if not f32:  # the walker alone, on the prologue's k
+                    arm["kernel_ms"] = time_ms(lambda: walk(bb=bb, hpb=cg // d))
                 arm["plain_ms"] = time_ms(lambda: abb.fused_attention_bb_plain(*args, num_heads=h, bb=bb, cg=cg,
                                                                                pack=True), runs=3, warmup=1)
                 arm["bound_ms"], arm["bound_by"] = _ab_bound(b, n, c, h, mask, isz, pairs=_pack_pairs(mask, n, bb))
             row["arms"][name] = arm
             del got
         # #13
+        kname = "fused_attention_contig_f32" if f32 else "fused_attention_contig"
         call = lambda: ab8.fused_attention_contig(*args, num_heads=h)
-        got = _one_launch(ab8.LAUNCHES, "fused_attention_contig", call)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"fused_attention_contig at {label}: not bit-identical to the mma.sync forward")
-        key = "fused_attention_contig_f32" if f32 else "fused_attention_contig"
-        errs[key] = _check_ab(f"contig {label}", got, plain, valid, f32)
-        row["contig_ms"] = time_ms(call)
+        got = _one_launch(ab8.LAUNCHES, kname, call)
+        if not torch.equal(got, new_ref):
+            raise AssertionError(f"{kname} at {label}: not bit-identical to the "
+                                 f"{'mma.sync' if f32 else 'redesigned'} forward")
+        errs[kname] = _check_ab(f"contig {label}", got, plain, valid, f32)
+        row.update(contig_ms=time_ms(call), contig_device_ms=device_ms(call))
+        if not f32:
+            row["contig_kernel_ms"] = time_ms(lambda: walk())
+            del kn
         # #12, bf16 only
         if not f32:
             codes, scale = ab8.quantize_qkv(qkv)
@@ -2086,28 +2116,49 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
             row["q8in_bound_ms"], row["q8in_bound_by"] = _ab_bound(b, n, c, h, mask, 2, in_bytes=3 * c + 4)
         row["max_abs_err"] = errs
         rows.append(row)
-        arms = ", ".join(f"{k} {a['ms']:.4f}" + (f" (plain {a['plain_ms']:.4f}, bound {a['bound_ms']:.5f})"
-                                                     if "plain_ms" in a else "") for k, a in row["arms"].items())
+        arms = ", ".join(f"{k} {a['ms']:.4f}" + (f" (dev {a['device_ms']:.4f}, plain {a['plain_ms']:.4f}, bound "
+                                                     f"{a['bound_ms']:.5f}" + (f", walker alone {a['kernel_ms']:.4f}"
+                                                                               if "kernel_ms" in a else "") + ")"
+                                                     if "plain_ms" in a else "")
+                         for k, a in row["arms"].items())
         log(f"  {label} (B={b} N={n} C={c} H={h}, mask {mask_kind}): mma.sync forward {row['fused_ms']:.4f} ms"
-            + (f", redesigned {row['redesigned_ms']:.4f} (max |diff| {row['redesigned_max_abs_vs_mma']:.2e})"
-               if not f32 else "")
-            + f", plain {plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound[0]:.5f} ({bound[1]}); contig "
-            f"{row['contig_ms']:.4f}; arms (ms): {arms}"
+            + (f", redesigned {row['redesigned_ms']:.4f} (dev {row['redesigned_device_ms']:.4f}, wgmma kernel alone "
+               f"{row['redesigned_kernel_ms']:.4f}; max |diff| {row['redesigned_max_abs_vs_mma']:.2e}; prologue k "
+               f"{row['prologue_k_ms']:.4f}, q+k {row['prologue_qk_ms']:.4f})" if not f32 else "")
+            + f", plain {plain_ms:.4f}, SDPA {library_ms:.4f} (dev {library_dev_ms:.4f}), bound {bound[0]:.5f} "
+            f"({bound[1]}); contig {row['contig_ms']:.4f} (dev {row['contig_device_ms']:.4f}"
+            + (f", walker alone {row['contig_kernel_ms']:.4f}" if not f32 else "") + f"); arms (ms): {arms}"
             + (f"; q8in {row['q8in_ms']:.4f} (plain {row['q8in_plain_ms']:.4f}, dequantize + fused "
                f"{row['dequantize_plus_fused_ms']:.4f}, bound {row['q8in_bound_ms']:.5f})" if not f32 else ""))
         log(f"    max |err| vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-        del qkv, plain, ref
+        del qkv, plain, ref, new_ref
         torch.cuda.empty_cache()
-    return dict(rows=rows)
+    attributes = {}
+    if device.type == "cuda":  # what the compiler and the card make of each wgmma walker instance
+        from vitok_torch.benchmarks import sm90_attributes
+
+        for d in (64, 128):
+            for kind in ("pack", "contig"):
+                attributes[f"{kind} d{d}"] = sm90_attributes(d, kind == "pack", bb=2)
+        log("  wgmma walkers (registers, local bytes a thread, blocks an SM, shared bytes a block): "
+            + "; ".join(f"{k} {a['registers']}, {a['local_bytes']}, {a['blocks_per_sm']}, {a['smem_bytes']}"
+                        for k, a in attributes.items()))
+    return dict(rows=rows, sm90_attributes=attributes)
 
 
 def ab_entry_phase(device) -> dict:
     """Both A/B entry points at the recorded invocations' shapes with fewer
-    timed runs (``AB_ENTRY_ARGS``): every arm builds, the numeric legs read
-    0, the redesigned forward's row (bf16) is within #1's limits of arm B, and
-    each kernel is launched exactly as often as the runs call it."""
+    timed runs (``AB_ENTRY_ARGS``): every arm builds, every numeric leg reads
+    0 against the reference it names (P2 and C in bf16 the redesigned
+    forward, every other leg the mma.sync forward), the redesigned forward's
+    row (bf16) is within #1's limits of arm B, and each kernel is launched
+    exactly as often as the runs call it. Neither entry point runs #13 in
+    fp32 (ab_q8_input is bf16 only), so its wrapper is then called
+    ``--layers`` times at the recorded fp32 shape."""
+    import torch
     from vitok_torch.benchmarks import ab_batch_block as abb
     from vitok_torch.benchmarks import ab_q8_input as ab8
+    from vitok_torch.benchmarks import rope_inputs
 
     iters, layers = int(AB_ENTRY_ARGS[1]), int(AB_ENTRY_ARGS[3])
     per_arm = 1 + layers * (1 + iters)  # the numeric call, the warm-up run, the timed runs
@@ -2119,30 +2170,49 @@ def ab_entry_phase(device) -> dict:
                  *AB_ENTRY_ARGS]
         log(f"entry point: python -m vitok_torch.benchmarks.ab_batch_block {' '.join(flags)}")
         res = abb.main([*flags, "--device", device.type])
-        if res["skipped"] or len(res["arms"]) != 11 or any(v != 0.0 for v in res["numeric"].values()):
+        p2_ref = "X" if dtype == "bfloat16" else "B"
+        if (res["skipped"] or len(res["arms"]) != 11 or any(v != 0.0 for v in res["numeric"].values())
+                or not res["references"]["P2"].startswith(p2_ref)
+                or any(not r.startswith("B") for k, r in res["references"].items() if k != "P2")):
             raise AssertionError(f"ab_batch_block {dtype}: skipped {res['skipped']}, arms {list(res['arms'])}, "
-                                 f"numeric {res['numeric']}")
+                                 f"numeric {res['numeric']}, references {res['references']}")
         _check_redesigned_row(f"ab_batch_block {dtype}", res, dtype == "bfloat16")
         runs[f"ab_batch_block {dtype}"] = res
     _, n, b = runs_at[0]
     flags = ["--c", str(c), "--heads", str(h), "--tokens", str(n), "--batch", str(b), *AB_ENTRY_ARGS]
     log(f"entry point: python -m vitok_torch.benchmarks.ab_q8_input {' '.join(flags)}")
     res = ab8.main([*flags, "--device", device.type])
-    if res["numeric"]["A_assembled"] != 0.0 or res["numeric"]["C"] != 0.0:
-        raise AssertionError(f"ab_q8_input numeric legs {res['numeric']}")
+    if (res["numeric"]["A_assembled"] != 0.0 or res["numeric"]["C"] != 0.0
+            or not res["references"]["C"].startswith("X")):
+        raise AssertionError(f"ab_q8_input numeric legs {res['numeric']}, references {res['references']}")
     _check_redesigned_row("ab_q8_input", res, True)
     runs["ab_q8_input"] = res
+    f32_runs = [(n, b) for dtype, n, b in runs_at if dtype == "float32"]
+    for n, b in f32_runs:
+        gen = torch.Generator().manual_seed(0)
+        qkv = torch.randn(b, n, 3 * c, generator=gen).to(device)
+        q_scale, k_scale, cos, sin = rope_inputs(b, n, c // h, device, gen)
+        mask = torch.ones(b, n, dtype=torch.bool, device=device)
+        log(f"#13 in fp32 through its wrapper, {layers} calls at C {c}, N {n}, B {b}")
+        for _ in range(layers):
+            ab8.fused_attention_contig(qkv, q_scale, k_scale, cos, sin, mask, num_heads=h)
+        torch.cuda.synchronize()
+        del qkv
     launches = launch_counts()
     # per ab_batch_block run: B on the mma.sync forward (its fp32 instance in fp32), P2 on the pack
-    # kernel, nine arms on #10, and in bf16 the redesigned forward's row; ab_q8_input: one arm each,
-    # the mma.sync forward once more on the assembled tensor, and the redesigned forward's row
+    # kernel (bf16: after the q/k prologue), nine arms on #10, and in bf16 the redesigned forward's
+    # row; ab_q8_input: one arm each (C after the prologue), the mma.sync forward once more on the
+    # assembled tensor, and the redesigned forward's row; then #13 in fp32
     runs_bb = len(runs_at)
     bf16_runs = sum(dtype == "bfloat16" for dtype, _, _ in runs_at)
-    expect = _expect(fused_attention_bb=runs_bb * 9 * per_arm, fused_attention_pack=runs_bb * per_arm,
+    walkers = bf16_runs * per_arm + per_arm  # the bf16 pack and contig launches, each after a prologue
+    expect = _expect(fused_attention_bb=runs_bb * 9 * per_arm, fused_attention_pack=bf16_runs * per_arm,
+                     fused_attention_pack_f32=(runs_bb - bf16_runs) * per_arm,
                      fused_attention_mma=bf16_runs * per_arm + per_arm + 1,
                      fused_attention_f32=(runs_bb - bf16_runs) * per_arm,
                      fused_attention=(bf16_runs + 1) * per_arm, fused_attention_q8in=per_arm,
-                     fused_attention_contig=per_arm)
+                     fused_attention_contig=per_arm, fused_attention_contig_f32=len(f32_runs) * layers,
+                     fused_qk_prologue=(bf16_runs + 1) * per_arm + walkers)
     if launches != expect:
         raise AssertionError(f"A/B entry points: launches {launches}, expected {expect}")
     log(f"  launches: {dict((k, v) for k, v in launches.items() if v)}")
@@ -2194,10 +2264,13 @@ def f32_ae_phase(device, card: str) -> dict:
 
 def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     """Kernels-line entries of #10-#13 (times at the recorded bf16 shape, C =
-    3072, N = 256, B = 64; #10 the D2 arm, every arm beside it), of the
-    mma.sync forward they share a body with (times at the 512p main shape, as
-    #1's), and of the fp32 instance of #1 (times at the recorded fp32 shape,
-    N = 64, B = 256); launches from the A/B entry points' runs, the fp32
+    3072, N = 256, B = 64; #10 the D2 arm, every arm beside it; #11 and #13
+    in bf16 with their device times, the q/k prologue they run first, and
+    the walker instances' registers, spills and blocks an SM), of the fp32
+    instances of #11 and #13 (times at the recorded fp32 shape, N = 64, B =
+    256), of the mma.sync forward #10 and #12 share a body with (times at the
+    512p main shape, as #1's), and of the fp32 instance of #1 (the recorded
+    fp32 shape); launches from the A/B entry points' runs, the fp32
     instance's from the fp32 AE."""
     bf = next(r for r in abkern["rows"] if r["shape"] == "5B@256t bf16")
     f32 = next(r for r in abkern["rows"] if r["shape"] == "5B@64t fp32")
@@ -2206,9 +2279,12 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
         for k, v in r["max_abs_err"].items():
             errs[k] = max(errs.get(k, 0.0), v)
     launches = ab_runs["launches"]
-    src = "vitok_torch/csrc/fused_attention_ab.cu"
-    bb, pack = bf["arms"]["D2"], bf["arms"]["P2"]
+    src, src_sm90 = "vitok_torch/csrc/fused_attention_ab.cu", "vitok_torch/csrc/fused_attention_ab_sm90.cu"
+    bb, pack, pack32 = bf["arms"]["D2"], bf["arms"]["P2"], f32["arms"]["P2"]
     head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
+    walker = dict(prologue_k_ms=bf["prologue_k_ms"], prologue_qk_ms=bf["prologue_qk_ms"],
+                  redesigned_forward_ms=bf["redesigned_ms"], redesigned_forward_device_ms=bf["redesigned_device_ms"],
+                  redesigned_kernel_ms=bf["redesigned_kernel_ms"], library_device_ms=bf["library_device_ms"])
     return [{
         "name": "fused_attention_mma", "route": "cuda", "source": "vitok_torch/csrc/fused_attention.cu",
         "replaces": "vitok_tpu/ops/fused_attention.py:317", "launches": launches["fused_attention_mma"],
@@ -2224,11 +2300,18 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
         "fp32_arms_ms": {k: a["ms"] for k, a in f32["arms"].items()},
         "max_abs_err_f32": errs["fused_attention_bb_f32"],
     }, {
-        "name": "fused_attention_pack", "route": "cuda", "source": src,
+        "name": "fused_attention_pack", "route": "cuda", "source": src_sm90,
         "replaces": "benchmarks/ab_batch_block.py:105", "launches": launches["fused_attention_pack"],
-        "max_abs_err": errs["fused_attention_pack"], "ms": pack["ms"], "plain_ms": pack["plain_ms"],
-        "bound_ms": pack["bound_ms"], "bound_by": pack["bound_by"], "library_ms": bf["library_ms"],
-        "max_abs_err_f32": errs["fused_attention_pack_f32"],
+        "max_abs_err": errs["fused_attention_pack"], "ms": pack["ms"], "device_ms": pack["device_ms"],
+        "kernel_ms": pack["kernel_ms"],
+        "plain_ms": pack["plain_ms"], "bound_ms": pack["bound_ms"], "bound_by": pack["bound_by"],
+        "library_ms": bf["library_ms"], **walker,
+        "attributes": {k: a for k, a in abkern["sm90_attributes"].items() if k.startswith("pack")},
+    }, {
+        "name": "fused_attention_pack_f32", "route": "cuda", "source": src,
+        "replaces": "benchmarks/ab_batch_block.py:105", "launches": launches["fused_attention_pack_f32"],
+        "max_abs_err": errs["fused_attention_pack_f32"], "ms": pack32["ms"], "plain_ms": pack32["plain_ms"],
+        "bound_ms": pack32["bound_ms"], "bound_by": pack32["bound_by"], "library_ms": f32["library_ms"],
     }, {
         "name": "fused_attention_q8in", "route": "cuda", "source": src,
         "replaces": "benchmarks/ab_q8_input.py:64", "launches": launches["fused_attention_q8in"],
@@ -2236,11 +2319,18 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
         "bound_ms": bf["q8in_bound_ms"], "bound_by": bf["q8in_bound_by"], "library_ms": None,
         "dequantize_plus_fused_ms": bf["dequantize_plus_fused_ms"],  # #1 on the assembled tensor
     }, {
-        "name": "fused_attention_contig", "route": "cuda", "source": src,
+        "name": "fused_attention_contig", "route": "cuda", "source": src_sm90,
         "replaces": "benchmarks/ab_q8_input.py:164", "launches": launches["fused_attention_contig"],
-        "max_abs_err": errs["fused_attention_contig"], "ms": bf["contig_ms"], "plain_ms": bf["fused_plain_ms"],
-        "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
-        "max_abs_err_f32": errs["fused_attention_contig_f32"],
+        "max_abs_err": errs["fused_attention_contig"], "ms": bf["contig_ms"], "device_ms": bf["contig_device_ms"],
+        "kernel_ms": bf["contig_kernel_ms"],
+        "plain_ms": bf["fused_plain_ms"], "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
+        "library_ms": bf["library_ms"], **walker,
+        "attributes": {k: a for k, a in abkern["sm90_attributes"].items() if k.startswith("contig")},
+    }, {
+        "name": "fused_attention_contig_f32", "route": "cuda", "source": src,
+        "replaces": "benchmarks/ab_q8_input.py:164", "launches": launches["fused_attention_contig_f32"],
+        "max_abs_err": errs["fused_attention_contig_f32"], "ms": f32["contig_ms"], "plain_ms": f32["fused_plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
     }, {
         "name": "fused_attention_f32", "route": "cuda", "source": "vitok_torch/csrc/fused_attention.cu",
         "replaces": "vitok_tpu/ops/fused_attention.py:317", "launches": f32_ae["launches"],
@@ -2268,9 +2358,11 @@ PORT_KERNEL_GROUPS = {
     "ffn_int8_quant_kernel": "ffn_int8",
     "silu_quant_kernel": "silu_quant",
     "fused_attention_bb_kernel": "fused_attention_bb",
-    "fused_attention_pack_kernel": "fused_attention_pack",
+    "fused_attention_pack_sm90_kernel": "fused_attention_pack",
+    "fused_attention_pack_kernel": "fused_attention_pack_f32",
     "fused_attention_q8in_kernel": "fused_attention_q8in",
-    "fused_attention_contig_kernel": "fused_attention_contig",
+    "fused_attention_contig_sm90_kernel": "fused_attention_contig",
+    "fused_attention_contig_kernel": "fused_attention_contig_f32",
 }
 MATMUL_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "matmul", "imma")
 
@@ -2419,7 +2511,8 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
     _build.build(["fused_attention_sm90", "fused_attention", "fused_attention_bwd", "flash_attention",
-                  "flash_attention_bwd", "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_ab"])
+                  "flash_attention_bwd", "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_ab",
+                  "fused_attention_ab_sm90"])
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 

@@ -11,8 +11,8 @@ q/k to the bf16 grid, where one rounding flip moves a value by 2^-8 of its
 size, and the JAX kernel's d = 64 head pairs take a packed variance).
 
 The pack kernel's trap is asserted explicitly: on an image with no valid key
-it averages v over the whole pack, not over its own tokens as the fused
-forward does. The int8-input kernel takes the same int8 codes on both sides.
+it averages v over the whole pack (bb = 2 at N = 64, bb = 4 at N = 200), not
+over its own tokens as the fused forward does. The int8-input kernel takes the same int8 codes on both sides.
 Both ``main()``s run with ``--device cpu`` at small sizes. The kernels
 themselves are held against these plain versions on the card in
 ``tests/test_torch_cuda.py``.
@@ -98,19 +98,19 @@ class TestPlainAgainstJax:
         assert_close(got, want, dtype)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("d", [64, 128])
-    def test_pack_matches_kernel_pack_and_averages_a_dead_image_over_its_pack(self, dtype, d):
-        args = make_inputs(d)
+    @pytest.mark.parametrize("d,bb,n", [(64, 2, 64), (128, 2, 64), (64, 4, 200)])
+    def test_pack_matches_kernel_pack_and_averages_a_dead_image_over_its_pack(self, dtype, d, bb, n):
+        args = make_inputs(d, n=n)
         port, jax_args = both(args, dtype)
-        got = t_bb.fused_attention_bb(*port, num_heads=H, bb=2, cg=H * d, pack=True)
-        want = j_bb.fused_attention_bb(*jax_args, num_heads=H, bb=2, cg=H * d, pack=True, interpret=True)
+        got = t_bb.fused_attention_bb(*port, num_heads=H, bb=bb, cg=H * d, pack=True)
+        want = j_bb.fused_attention_bb(*jax_args, num_heads=H, bb=bb, cg=H * d, pack=True, interpret=True)
         assert_close(got, want, dtype)
         # Images 0-2 have a valid key: the fused forward's function there.
         fused = t_fa.fused_qkv_attention_plain(*port, num_heads=H)
         assert_close(got[:3], jnp.asarray(fused[:3].float().numpy()), dtype)
-        # Image 3 has none: every row is the mean of v over both images of
-        # its pack (2N keys), where the fused forward averages over its own N.
-        v = port[0].float()[2:4, :, 2 * H * d:].reshape(-1, H * d)
+        # Image 3 has none: every row is the mean of v over all images of its
+        # pack (bb*N keys), where the fused forward averages over its own N.
+        v = port[0].float()[4 - bb:4, :, 2 * H * d:].reshape(-1, H * d)
         mean_pack = v.mean(0)
         tol = 2e-5 if dtype == "float32" else 2e-2
         assert (got[3].float() - mean_pack).abs().max() <= tol
@@ -175,16 +175,32 @@ class TestEntryPoints:
         for name in names:
             assert f"\n{name} (" in out and "ms/call" in out
             if name != "B":
-                assert f"numeric {name}: max|{name}-B| = 0.000000 (expect 0.0)" in out
+                # P2 in bf16 runs the redesigned forward's (wgmma) body: held to it (X)
+                ref = "X" if name == "P2" else "B"
+                assert f"numeric {name}: max|{name}-{ref}| = 0.000000 (expect 0.0)" in out
+                assert result["references"][name].startswith(f"{ref}: ")
                 assert f"delta {name}/B = " in out
         assert all(v == 0.0 for v in result["numeric"].values())
+        assert "redesigned forward" in result["references"]["P2"]
+        assert set(result["references"]) == set(result["numeric"])
+
+    def test_batch_block_main_holds_the_fp32_pack_to_arm_b(self, capsys):
+        result = t_bb.main(["--c", "1536", "--heads", "12", "--tokens", "64", "--batch", "2", "--dtype", "float32",
+                            "--iters", "1", "--layers", "1", "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert "numeric P2: max|P2-B| = 0.000000 (expect 0.0)" in out
+        assert all(r.startswith("B: ") for r in result["references"].values())
+        assert "redesigned" not in result and all(v == 0.0 for v in result["numeric"].values())
 
     def test_q8_input_main_prints_every_arm(self, capsys):
         result = t_q8.main(["--c", "256", "--heads", "2", "--tokens", "64", "--batch", "2",
                             "--iters", "1", "--layers", "1", "--device", "cpu"])
         out = capsys.readouterr().out
-        assert "max|A-B(assembled)|=0.000000" in out and "max|C-B|=0.000000" in out
+        assert "max|A-B(assembled)|=0.000000" in out and "max|C-X|=0.000000" in out
         assert result["numeric"]["A_assembled"] == 0.0 and result["numeric"]["C"] == 0.0
+        # C runs the redesigned forward's body and is held to it; A to the mma.sync forward
+        assert result["references"]["C"].startswith("X: the redesigned forward")
+        assert result["references"]["A"].startswith("B: ") and set(result["references"]) == set(result["numeric"])
         assert 0.0 < result["numeric"]["A"] < 0.1  # the input quantization
         for name in ("A", "B", "C"):
             assert f"\n{name} (" in out

@@ -704,15 +704,31 @@ class TestFp32ForwardOnCard:
 
 @pytest.mark.cuda
 class TestABKernelsOnCard:
-    """The A/B kernels (``csrc/fused_attention_ab.cu``) run the mma.sync
-    forward's body: bit for bit that kernel's output (the pack on images with
-    a valid key, the int8-input kernel on the assembled tensor), and within
-    the forward's limits of their plain versions (bf16: max 2e-2, mean 2e-3
-    on valid rows; fp32: 1e-5 of the largest entry)."""
+    """The A/B kernels hold the bits of the forward whose body they run: #10,
+    #12 (on the assembled tensor) and the fp32 instances of #11 and #13 the
+    mma.sync forward's (``csrc/fused_attention_ab.cu``, body
+    ``fused_attend.cuh``); #11 (on images with a valid key) and #13 in bf16
+    the redesigned forward's (``csrc/fused_attention_ab_sm90.cu``, the wgmma
+    body of ``fused_attend_sm90.cuh``, after the q/k prologue). Each is
+    within the forward's limits of its plain version (bf16: max 2e-2, mean
+    2e-3 on valid rows, a dead image's rows included; fp32: 1e-5 of the
+    largest entry)."""
 
     @staticmethod
     def _forward(qkv, rest, heads, sw=None):
         return t_fa.fused_qkv_attention_mma(qkv, *rest, num_heads=heads, sliding_window=sw)
+
+    @staticmethod
+    def _redesigned(qkv, rest, heads, sw=None):
+        return t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
+
+    @staticmethod
+    def _assert_bf16_close(got, want, mask):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if mask is not None:  # valid rows, and every row of an image with no valid key
+            err = err[mask | ~mask.any(1)[:, None]]
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("d,heads,bb,hpb", [(64, 4, 1, 2), (64, 4, 2, 4), (128, 2, 4, 1), (128, 2, 2, 2)])
@@ -735,33 +751,81 @@ class TestABKernelsOnCard:
     @pytest.mark.parametrize("d,heads,n", [(64, 4, 200), (128, 2, 64)])
     def test_pack_equals_the_forward_where_an_image_has_a_valid_key(self, cuda_device, no_tf32, dtype, d, heads, n):
         qkv, *rest = ab_inputs(cuda_device, dtype, d=d, heads=heads, n=n)
-        before = t_bb.LAUNCHES["fused_attention_pack"]
+        f32 = dtype == torch.float32
+        name = "fused_attention_pack_f32" if f32 else "fused_attention_pack"
+        before, prologue = t_bb.LAUNCHES[name], t_fa.PROLOGUE_LAUNCHES
         got = t_bb.fused_attention_bb(qkv, *rest, num_heads=heads, bb=2, cg=heads * d, pack=True)
-        assert t_bb.LAUNCHES["fused_attention_pack"] == before + 1
-        assert torch.equal(got[:3], self._forward(qkv, rest, heads)[:3])
+        assert t_bb.LAUNCHES[name] == before + 1 and t_fa.PROLOGUE_LAUNCHES == prologue + (0 if f32 else 1)
+        forward = self._forward if f32 else self._redesigned
+        assert torch.equal(got[:3], forward(qkv, rest, heads)[:3])
         want = t_bb.fused_attention_bb_plain(qkv, *rest, num_heads=heads, bb=2, cg=heads * d, pack=True)
-        torch.cuda.synchronize()
-        if dtype == torch.float32:
+        if f32:
+            torch.cuda.synchronize()
             assert_fp32_close(got, want)
         else:  # image 3: the mean of v over the pack, bf16 P = 1
-            err = (got.float() - want.float()).abs()
-            assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+            self._assert_bf16_close(got, want, None)
         mean_pack = qkv.float()[2:4, :, 2 * heads * d:].reshape(-1, heads * d).mean(0)
-        assert (got[3].float() - mean_pack).abs().max().item() <= (1e-5 if dtype == torch.float32 else 2e-2)
+        assert (got[3].float() - mean_pack).abs().max().item() <= (1e-5 if f32 else 2e-2)
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("d,heads", [(64, 16), (128, 3)])
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", 24)])
     def test_contig_equals_the_forward_kernel(self, cuda_device, no_tf32, dtype, d, heads, case, sw):
         qkv, *rest = ab_inputs(cuda_device, dtype, d=d, heads=heads, case=case)
-        before = t_ab8.LAUNCHES["fused_attention_contig"]
+        f32 = dtype == torch.float32
+        name = "fused_attention_contig_f32" if f32 else "fused_attention_contig"
+        before = t_ab8.LAUNCHES[name]
         got = t_ab8.fused_attention_contig(qkv, *rest, num_heads=heads, sliding_window=sw)
-        assert t_ab8.LAUNCHES["fused_attention_contig"] == before + 1
-        assert torch.equal(got, self._forward(qkv, rest, heads, sw))
+        assert t_ab8.LAUNCHES[name] == before + 1
+        assert torch.equal(got, (self._forward if f32 else self._redesigned)(qkv, rest, heads, sw))
         want = t_ab8.fused_attention_contig_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
-        torch.cuda.synchronize()
-        if dtype == torch.float32:
+        if f32:
+            torch.cuda.synchronize()
             assert_fp32_close(got, want)
+        else:
+            self._assert_bf16_close(got, want, rest[-1])
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n", [200, 256, 1024])
+    @pytest.mark.parametrize("case", ["none", "tail+dead"])
+    @pytest.mark.parametrize("bb,hpb", [(1, 1), (2, 2), (4, 1), (4, 2)])
+    def test_pack_walker_equals_the_redesigned_forward(self, cuda_device, d, n, case, bb, hpb):
+        """The bf16 pack on the wgmma walker: the redesigned forward's bits
+        on every image with a valid key; a dead image (sample 3, in a pack
+        of bb = 2 or 4) the mean of v over its pack's bb * N keys."""
+        qkv, *rest = ab_inputs(cuda_device, torch.bfloat16, n=n, heads=2, d=d, case=case)
+        before = counts()
+        got = t_bb.fused_attention_bb(qkv, *rest, num_heads=2, bb=bb, cg=hpb * d, pack=True)
+        assert counts() == added(before, prologue=1)
+        live = slice(None) if case == "none" else slice(0, 3)
+        assert torch.equal(got[live], self._redesigned(qkv, rest, 2)[live])
+        want = t_bb.fused_attention_bb_plain(qkv, *rest, num_heads=2, bb=bb, cg=hpb * d, pack=True)
+        self._assert_bf16_close(got, want, rest[-1])
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n", [200, 256, 1024])
+    @pytest.mark.parametrize("case", ["none", "tail+dead"])
+    @pytest.mark.parametrize("sw", [None, 64])
+    def test_contig_walker_equals_the_redesigned_forward(self, cuda_device, d, n, case, sw):
+        """The bf16 contig on the wgmma walker: the redesigned forward's bits
+        on every row (padded rows, rows past a window's reach and a dead
+        sample's included)."""
+        heads = 3
+        qkv, *rest = ab_inputs(cuda_device, torch.bfloat16, n=n, heads=heads, d=d, case=case)
+        before = counts()
+        got = t_ab8.fused_attention_contig(qkv, *rest, num_heads=heads, sliding_window=sw)
+        assert counts() == added(before, prologue=1)
+        assert torch.equal(got, self._redesigned(qkv, rest, heads, sw))
+        want = t_ab8.fused_attention_contig_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
+        self._assert_bf16_close(got, want, rest[-1])
+
+    def test_walkers_report_their_attributes(self, cuda_device):
+        from vitok_torch.benchmarks import sm90_attributes
+
+        for d in (64, 128):
+            for pack in (True, False):
+                a = sm90_attributes(d, pack, bb=2)
+                assert 0 < a["registers"] <= 255 and a["blocks_per_sm"] >= 1 and a["smem_bytes"] > 0
 
     @pytest.mark.parametrize("d,heads", [(64, 4), (128, 2)])
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 24)])
@@ -788,3 +852,7 @@ class TestABKernelsOnCard:
             t_ab8.fused_attention_q8in(qkv, rest[0].new_ones(4, 200, 1), *rest, num_heads=2)
         with pytest.raises(TypeError, match="bfloat16"):
             t_ab8.fused_attention_contig(qkv.half(), *rest, num_heads=2)
+        ragged, *rrest = ab_inputs(cuda_device, torch.bfloat16, n=60)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            t_bb.fused_attention_bb(ragged[:, :58].contiguous(), rrest[0], rrest[1], rrest[2][:, :58].contiguous(),
+                                    rrest[3][:, :58].contiguous(), None, num_heads=2, bb=2, cg=128, pack=True)

@@ -3,6 +3,7 @@
 ``benchmarks/ab_batch_block.py`` and ``benchmarks/ab_q8_input.py`` (JAX)
 time variants of the fused attention kernel against it. Here each variant
 is a hand-written Hopper kernel in ``vitok_torch/csrc/fused_attention_ab.cu``
+(the pack and contig variants in bf16: ``fused_attention_ab_sm90.cu``)
 beside its plain PyTorch version, and each module's ``main()`` takes the JAX
 script's flags (plus ``--device``) and builds, checks and times the same
 arms:
@@ -10,7 +11,7 @@ arms:
     python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 24 --tokens 256 --batch 64 --layers 256 --iters 6
     python -m vitok_torch.benchmarks.ab_q8_input --c 3072 --heads 24 --tokens 256 --batch 64
 
-Shared here: the kernel library's binding, the JAX package's head-group
+Shared here: the kernel libraries' bindings, the JAX package's head-group
 pick (for the arms' descriptions), the inputs and the chained timing.
 """
 
@@ -55,13 +56,64 @@ def kernel_lib() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
         (lib.vitok_fused_attention_bb, [ptr] * 7 + [i] * 9 + [ptr]),
-        (lib.vitok_fused_attention_contig, [ptr] * 7 + [i] * 6 + [ptr]),
+        (lib.vitok_fused_attention_contig_f32, [ptr] * 7 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_q8in, [ptr] * 8 + [i] * 5 + [ptr]),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def sm90_lib() -> ctypes.CDLL:
+    """``csrc/fused_attention_ab_sm90.cu`` (the bf16 pack and contig
+    kernels on the wgmma body), built on first use."""
+    lib = _build.load("fused_attention_ab_sm90")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+        (lib.vitok_fused_attention_pack_sm90, [ptr] * 7 + [i] * 6 + [ptr]),
+        (lib.vitok_fused_attention_contig_sm90, [ptr] * 7 + [i] * 5 + [ptr]),
+        (lib.vitok_fused_attention_ab_sm90_attributes, [i] * 3 + [ptr]),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def walk_sm90(qkv: torch.Tensor, kn: torch.Tensor, q_scale: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+              mask: Optional[torch.Tensor], num_heads: int, *, sw: int = -1, bb: int = 0,
+              hpb: int = 0) -> torch.Tensor:
+    """One launch of a bf16 wgmma walker on ``kn``, the q/k prologue's
+    normed k (``[B, N, C]``): with ``bb`` > 0 the pack kernel (``bb`` images
+    x ``hpb`` heads a block), else the contig kernel (window ``sw``, -1 for
+    none). The other arguments as ``fused_attention._check_cuda_args``
+    returns them. Counts nothing: its callers count."""
+    b, n, c3 = qkv.shape
+    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lib = sm90_lib()
+    d = c3 // 3 // num_heads
+    ptrs = (kn.data_ptr(), qkv.data_ptr(), q_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    with torch.cuda.device(qkv.device):
+        if bb > 0:
+            err = lib.vitok_fused_attention_pack_sm90(*ptrs, b, n, num_heads, d, bb, hpb, stream)
+        else:
+            err = lib.vitok_fused_attention_contig_sm90(*ptrs, b, n, num_heads, d, sw, stream)
+    _build.check(lib, err, "fused_attention_" + ("pack" if bb > 0 else "contig") + "_sm90 launch")
+    return out
+
+
+def sm90_attributes(d: int, pack: bool, bb: int = 1) -> dict:
+    """Registers and local memory (spills) a thread, blocks an SM and shared
+    memory a block of the pack (``bb`` images a block) or contig kernel at
+    head dim ``d``, as the compiler and the card report them."""
+    lib = sm90_lib()
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.vitok_fused_attention_ab_sm90_attributes(d, int(pack), bb, out),
+                 "fused_attention_ab_sm90 attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
 def check_device(t: torch.Tensor) -> None:
@@ -135,5 +187,5 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor, rows: Optional[torch.Tensor] 
     return float((d if rows is None else d[rows]).max())
 
 
-__all__ = ["pick_group_channels", "kernel_lib", "check_device", "card_line", "resolve_device",
-           "rope_inputs", "chained_ms", "max_abs_diff"]
+__all__ = ["pick_group_channels", "kernel_lib", "sm90_lib", "walk_sm90", "sm90_attributes", "check_device",
+           "card_line", "resolve_device", "rope_inputs", "chained_ms", "max_abs_diff"]

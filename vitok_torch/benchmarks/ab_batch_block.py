@@ -9,12 +9,17 @@ On the card a block of :func:`fused_attention_bb` walks ``bb`` samples x
 replacing ``_kernel_bb``), and with ``pack=True`` the ``bb`` samples are
 images packed along the token axis of one score tile (``_kernel_pack``):
 the same question of a block's fixed cost against its serial work. Every arm
-computes the fused forward's function on the mma.sync body of
-``csrc/fused_attend.cuh``, so on the card every arm equals arm B (the
-mma.sync forward, :func:`fused_qkv_attention_mma`) bit for bit, P2 on images
-with a valid key. In bf16 one more row times the redesigned forward
-(:func:`fused_qkv_attention`: the q/k prologue and the wgmma kernel) beside
-the arms, with its delta and its largest distance from B.
+computes the fused forward's function on the body of one of its kernels, so
+on the card it equals that kernel bit for bit, and each numeric leg names
+the kernel it is held to. The #10 arms run the mma.sync body of
+``csrc/fused_attend.cuh`` and are held to arm B (the mma.sync forward,
+:func:`fused_qkv_attention_mma`). P2 in bf16 runs the wgmma body of
+``csrc/fused_attend_sm90.cuh`` in a block that walks its cells on one tile
+ring (``csrc/fused_attention_ab_sm90.cu``) and is held to the redesigned
+forward (:func:`fused_qkv_attention`: the q/k prologue and the wgmma kernel;
+X in the printed lines), on images with a valid key; in fp32 it runs the
+FMA body and is held to B. In bf16 one more row times the redesigned
+forward beside the arms, with its delta and its largest distance from B.
 
 Arms: B (the mma.sync forward), G (the largest 128-aligned group below C), S2,
 D2, D4, C768 ... C128 and P2, as in JAX. Recorded invocations:
@@ -34,12 +39,19 @@ import numpy as np
 import torch
 
 from vitok_torch.benchmarks import (card_line, chained_ms, check_device, kernel_lib, max_abs_diff,
-                                    pick_group_channels, resolve_device, rope_inputs)
+                                    pick_group_channels, resolve_device, rope_inputs, walk_sm90)
 from vitok_torch.ops import _build
 from vitok_torch.ops import fused_attention as fa
 
-# Launches of each kernel since its count was last set to 0.
-LAUNCHES = {"fused_attention_bb": 0, "fused_attention_pack": 0}
+# Launches of each kernel since its count was last set to 0: #10 (bf16 and
+# fp32), #11 in bf16 (the wgmma walker; its q/k prologue counts in
+# ``fused_attention.PROLOGUE_LAUNCHES``) and #11's fp32 instance.
+LAUNCHES = {"fused_attention_bb": 0, "fused_attention_pack": 0, "fused_attention_pack_f32": 0}
+
+
+# The references a numeric leg is held to, by the symbol its line prints.
+REFERENCES = {"B": "B: the mma.sync forward (fused_qkv_attention_mma)",
+              "X": "X: the redesigned forward (fused_qkv_attention: q/k prologue + wgmma kernel)"}
 
 
 def check_arm(shape, num_heads: int, bb: int, cg: int, sliding_window=None, pack: bool = False):
@@ -131,8 +143,11 @@ def fused_attention_bb(
     ``qkv`` is ``[B, N, 3C]`` bf16 or fp32; the other arguments are those of
     :func:`~vitok_torch.ops.fused_attention.fused_qkv_attention`. A split the
     kernels do not take raises ValueError before anything runs. On a CUDA
-    tensor it launches ``fused_attention_bb_kernel`` (or the pack kernel) or
-    raises; on a CPU tensor it runs :func:`fused_attention_bb_plain`.
+    tensor it launches ``fused_attention_bb_kernel`` (bf16 and fp32), or
+    with ``pack`` in bf16 the q/k prologue and then
+    ``fused_attention_pack_sm90_kernel`` (the wgmma body; N a multiple of 8),
+    in fp32 ``fused_attention_pack_kernel``; or raises. On a CPU tensor it
+    runs :func:`fused_attention_bb_plain`.
     """
     check_arm(qkv.shape, num_heads, bb, cg, sliding_window, pack)
     check_device(qkv)
@@ -142,6 +157,12 @@ def fused_attention_bb(
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = fa._check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
         dtypes=(torch.bfloat16, torch.float32))
+    if pack and qkv.dtype == torch.bfloat16:  # the wgmma walker, after the q/k prologue
+        fa._check_rows(n)
+        kn, _ = fa._prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=False)
+        out = walk_sm90(qkv, kn, q_scale, cos, sin, mask, num_heads, bb=bb, hpb=cg // d)
+        LAUNCHES["fused_attention_pack"] += 1
+        return out
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     lib = kernel_lib()
     with torch.cuda.device(qkv.device):
@@ -149,7 +170,7 @@ def fused_attention_bb(
             qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             fa._ptr(mask), out.data_ptr(), b, n, num_heads, d, bb, cg // d, sw, int(pack),
             int(qkv.dtype == torch.float32), torch.cuda.current_stream(qkv.device).cuda_stream)
-    name = "fused_attention_pack" if pack else "fused_attention_bb"
+    name = "fused_attention_pack_f32" if pack else "fused_attention_bb"
     _build.check(lib, err, f"{name} launch")
     LAUNCHES[name] += 1
     return out
@@ -208,37 +229,46 @@ def main(argv=None) -> dict:
         return lambda cos_: fused_attention_bb(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h,
                                                bb=bb, cg=cg, pack=pack)
 
-    arms, numeric, skipped = [], {}, {}
+    new_call = new_out = None
+    if dtype == torch.bfloat16:  # the redesigned forward: bf16 only
+        new_call = lambda cos_: fa.fused_qkv_attention(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h,
+                                                       impl="fused")
+        new_out = new_call(cos)
+    arms, numeric, references, skipped = [], {}, {}, {}
     ref_out = None
     for name, bb, cg, desc in arm_defs(c, d, n, b, h):
         if name != "B" and cg is None:
             print(f"arm {name} skipped: no lane-aligned group for c={c} d={d}")
             skipped[name] = "no lane-aligned group"
             continue
+        pack = name.startswith("P")
         if cg is not None:
             try:
-                check_arm(qkv.shape, h, bb, cg, pack=name.startswith("P"))
+                check_arm(qkv.shape, h, bb, cg, pack=pack)
             except ValueError as e:  # refused up front: nothing ran
                 print(f"arm {name} skipped: {e}")
                 skipped[name] = str(e)
                 continue
-        call = make_call(bb, cg, name.startswith("P"))
+        call = make_call(bb, cg, pack)
         out = call(cos)
         if ref_out is None:
             ref_out = out
         else:
-            numeric[name] = max_abs_diff(out, ref_out)
-            print(f"numeric {name}: max|{name}-B| = {numeric[name]:.6f} (expect 0.0)")
+            # The arm's reference is the forward whose body it runs: the bf16 pack
+            # runs the redesigned forward's (wgmma), every other arm B's (mma.sync).
+            ref = "X" if pack and new_out is not None else "B"
+            numeric[name] = max_abs_diff(out, new_out if ref == "X" else ref_out)
+            references[name] = ref
+            print(f"numeric {name}: max|{name}-{ref}| = {numeric[name]:.6f} (expect 0.0)")
         chained_ms(call, cos, layers, 0.0)  # warm the chained run
         arms.append((name, call, desc))
     new_diff = None
-    if dtype == torch.bfloat16:  # the redesigned forward: bf16 only
-        call = lambda cos_: fa.fused_qkv_attention(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h,
-                                                   impl="fused")
-        new_diff = max_abs_diff(call(cos), ref_out)
+    if new_out is not None:
+        new_diff = max_abs_diff(new_out, ref_out)
         print(f"numeric redesigned: max|X-B| = {new_diff:.6f} (another kernel: within #1's limits, not 0)")
-        chained_ms(call, cos, layers, 0.0)
-        redesigned = ("redesigned", call, "the redesigned forward: q/k prologue + wgmma kernel")
+        chained_ms(new_call, cos, layers, 0.0)
+        redesigned = ("redesigned", new_call, "the redesigned forward: q/k prologue + wgmma kernel")
+    del out, new_out, ref_out
 
     times = {name: [] for name, _, _ in arms}
     if new_diff is not None:
@@ -251,7 +281,8 @@ def main(argv=None) -> dict:
 
     isz = qkv.element_size()
     byts = b * n * (3 * c * isz + c * isz)  # qkv in + attn out
-    result = {"device": card_line(device), "arms": {}, "numeric": numeric, "skipped": skipped}
+    result = {"device": card_line(device), "arms": {}, "numeric": numeric,
+              "references": {k: REFERENCES[v] for k, v in references.items()}, "skipped": skipped}
     for name, _, desc in arms:
         ms = np.array(times[name])
         result["arms"][name] = {"ms": float(ms.mean()), "min_ms": float(ms.min()), "n": len(ms), "desc": desc}

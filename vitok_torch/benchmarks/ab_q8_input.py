@@ -12,9 +12,11 @@ bf16 tensor (:func:`assemble_q8in`), and on the card it equals the mma.sync
 forward there bit for bit. Arm B: the mma.sync forward
 (:func:`fused_qkv_attention_mma`) on the bf16 qkv. Arm C,
 :func:`fused_attention_contig` (replacing ``_kernel_contig``): the forward's
-function with one block per (sample, 64-query tile) walking all heads. One
-more row times the redesigned forward (:func:`fused_qkv_attention`: the q/k
-prologue and the wgmma kernel) with its delta and its distance from B.
+function with one block per (sample, 64-query tile) walking all heads; in
+bf16 on the wgmma body (``csrc/fused_attention_ab_sm90.cu``), so it is held
+to the redesigned forward (:func:`fused_qkv_attention`: the q/k prologue and
+the wgmma kernel; X in the printed lines), which one more row times with its
+delta and its distance from B. Each numeric leg names its reference.
 
     python -m vitok_torch.benchmarks.ab_q8_input --c 3072 --heads 24 --tokens 256 --batch 64
 
@@ -30,12 +32,14 @@ import numpy as np
 import torch
 
 from vitok_torch.benchmarks import (card_line, chained_ms, check_device, kernel_lib, max_abs_diff,
-                                    resolve_device, rope_inputs)
+                                    resolve_device, rope_inputs, walk_sm90)
 from vitok_torch.ops import _build
 from vitok_torch.ops import fused_attention as fa
 
-# Launches of each kernel since its count was last set to 0.
-LAUNCHES = {"fused_attention_q8in": 0, "fused_attention_contig": 0}
+# Launches of each kernel since its count was last set to 0: #12, #13 in
+# bf16 (the wgmma walker; its q/k prologue counts in
+# ``fused_attention.PROLOGUE_LAUNCHES``) and #13's fp32 instance.
+LAUNCHES = {"fused_attention_q8in": 0, "fused_attention_contig": 0, "fused_attention_contig_f32": 0}
 
 
 def assemble_q8in(qkv8: torch.Tensor, tok_scale: torch.Tensor) -> torch.Tensor:
@@ -123,9 +127,10 @@ def fused_attention_contig(
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """The fused forward with one block per (sample, 64-query tile) walking
-    all heads (bf16 or fp32 qkv). On a CUDA tensor it launches
-    ``fused_attention_contig_kernel`` or raises; on a CPU tensor it runs
-    :func:`fused_attention_contig_plain`."""
+    all heads (bf16 or fp32 qkv). On a CUDA tensor it launches, in bf16, the
+    q/k prologue and then ``fused_attention_contig_sm90_kernel`` (the wgmma
+    body; N a multiple of 8), in fp32 ``fused_attention_contig_kernel``; or
+    raises. On a CPU tensor it runs :func:`fused_attention_contig_plain`."""
     check_device(qkv)
     if not qkv.is_cuda:
         return fused_attention_contig_plain(qkv, q_scale, k_scale, cos, sin, patch_mask,
@@ -133,15 +138,21 @@ def fused_attention_contig(
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = fa._check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
         dtypes=(torch.bfloat16, torch.float32))
+    if qkv.dtype == torch.bfloat16:  # the wgmma walker, after the q/k prologue
+        fa._check_rows(n)
+        kn, _ = fa._prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=False)
+        out = walk_sm90(qkv, kn, q_scale, cos, sin, mask, num_heads, sw=sw)
+        LAUNCHES["fused_attention_contig"] += 1
+        return out
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     lib = kernel_lib()
     with torch.cuda.device(qkv.device):
-        err = lib.vitok_fused_attention_contig(
+        err = lib.vitok_fused_attention_contig_f32(
             qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            fa._ptr(mask), out.data_ptr(), b, n, num_heads, d, sw, int(qkv.dtype == torch.float32),
-            torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(lib, err, "fused_attention_contig launch")
-    LAUNCHES["fused_attention_contig"] += 1
+            fa._ptr(mask), out.data_ptr(), b, n, num_heads, d, sw, torch.cuda.current_stream(qkv.device).cuda_stream)
+    name = "fused_attention_contig_f32"
+    _build.check(lib, err, f"{name} launch")
+    LAUNCHES[name] += 1
     return out
 
 
@@ -192,8 +203,8 @@ def main(argv=None) -> dict:
                                            num_heads=h)
     dq = max_abs_diff(oa, assembled)
     print(f"numeric A: max|A-B(assembled)|={dq:.6f} (same function, expect 0.0)")
-    dc = max_abs_diff(oc, ob)
-    print(f"numeric C: max|C-B|={dc:.6f} (same math, expect 0.0)")
+    dc = max_abs_diff(oc, onew)
+    print(f"numeric C: max|C-X|={dc:.6f} (the redesigned forward's body, expect 0.0)")
     dn = max_abs_diff(onew, ob)
     print(f"numeric redesigned: max|X-B|={dn:.6f} (another kernel: within #1's limits, not 0)")
     del oa, ob, oc, onew, assembled
@@ -212,7 +223,10 @@ def main(argv=None) -> dict:
     labels = {"A": "int8-in strided", "B": "bf16-in strided", "C": "bf16-in contiguous",
               "redesigned": "bf16-in, q/k prologue + wgmma kernel"}
     result = {"device": card_line(device), "arms": {},
-              "numeric": {"A": da, "A_assembled": dq, "C": dc}}
+              "numeric": {"A": da, "A_assembled": dq, "C": dc},
+              "references": {"A": "B: the mma.sync forward (fused_qkv_attention_mma; A's input is quantized)",
+                             "A_assembled": "B on the assembled tensor (assemble_q8in)",
+                             "C": "X: the redesigned forward (fused_qkv_attention: q/k prologue + wgmma kernel)"}}
     for name, byts in (("A", bytes_a), ("B", bytes_b), ("C", bytes_b), ("redesigned", bytes_b)):
         ms = np.array(times[name])
         row = {"ms": float(ms.mean()), "min_ms": float(ms.min()), "n": len(ms)}

@@ -2,22 +2,26 @@
 
 Runs the fused forward (#1), its int8 epilogue (#2) and its backward (#3)
 of the ``vitok_torch`` under ``--root`` on seeded inputs at the 350M and 5B
-widths (with and without a tail mask and a window), times #1 and #3 there
+widths (with and without a tail mask and a window), and at the 350M width
+and the recorded A/B shape (B 64, N 256) the A/B kernels #11 (the pack,
+P2's split: two images a pack, half the heads a block; no window) and #13
+(all heads of a tile), bf16; times #1, #3, #11 and #13 there
 (CUDA events, 20 calls after 3; #3 given the forward's output and
 log-sum-exp where its checkout takes them, so that the time is the
 backward's alone), saves the outputs, and with ``--against``
-compares them with a file an earlier run saved: #2 bit for bit; #1 and #3,
-which a checkout may compute on another kernel with the same rounding
-points, by their largest distance (valid rows) and rel L2 against the
-limits ``chip_smoke.py`` holds each kernel to against its plain version
-(#1: 2e-2 absolute; #3: 4e-2 of each gradient's largest entry, 3e-2 for the
-gains). Run by path, once per checkout, in turns (parent, change, change,
+compares them with a file an earlier run saved: #2 bit for bit; #1, #3,
+#11 and #13, which a checkout may compute on another kernel with the same
+rounding points, by their largest distance (valid rows) and rel L2 against
+the limits ``chip_smoke.py`` holds #1 and #3 to against their plain
+versions (#1, #11, #13: 2e-2 absolute; #3: 4e-2 of each gradient's largest
+entry, 3e-2 for the gains); and says whether #1 is bit for bit the earlier
+run's. Run by path, once per checkout, in turns (parent, change, change,
 parent):
 
     python vitok_torch/benchmarks/fused_bits.py --root PARENT --save /tmp/p.pt
     python vitok_torch/benchmarks/fused_bits.py --root . --save /tmp/c.pt --against /tmp/p.pt
 
-Exits 1 if #2 differs or #1 or #3 is past its limit. Needs a card.
+Exits 1 if #2 differs or #1, #3, #11 or #13 is past its limit. Needs a card.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import inspect
 import sys
 
 SHAPES = ((64, 256, 1024, 16), (16, 1024, 1024, 16), (64, 256, 3072, 24))  # B, N, C, H
+AB_SHAPES = (SHAPES[0], SHAPES[2])  # #11 and #13: the 350M width and the recorded A/B shape
 FWD_MAX_ABS = 2e-2   # chip_smoke.py's KERNEL_MAX_ABS
 BWD_MAX_REL = 4e-2   # chip_smoke.py's FUSED_BWD_MAX_REL
 GAIN_MAX_REL = 3e-2  # chip_smoke.py's FUSED_BWD_GAIN_REL
@@ -56,7 +61,7 @@ def _distances(key, new, old, mask):
         if mask is not None and a.dim() == 3:
             err = err[mask]
         rel_l2 = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
-        if key.endswith("fwd"):
+        if not key.endswith("bwd"):  # #1, #11, #13
             out.append((err.max().item(), rel_l2, FWD_MAX_ABS))
         else:
             out.append((err.max().item() / b.abs().max().clamp(min=1e-30).item(), rel_l2,
@@ -72,6 +77,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
     import torch
+    from vitok_torch.benchmarks import ab_batch_block as abb
+    from vitok_torch.benchmarks import ab_q8_input as ab8
     from vitok_torch.ops import fused_attention as fa
 
     if not torch.cuda.is_available():
@@ -105,25 +112,35 @@ def main(argv=None) -> int:
             outputs[key + " bwd"] = bwd()
             times[key + " #1"] = _time_ms(fwd)
             times[key + " #3"] = _time_ms(bwd)
+            if (b, n, c, h) in AB_SHAPES:
+                pack = lambda: abb.fused_attention_bb(*fwd_args, num_heads=h, bb=2, cg=c // 2, pack=True)
+                contig = lambda: ab8.fused_attention_contig(*fwd_args, num_heads=h, sliding_window=sw)
+                outputs[key + " pack"], outputs[key + " contig"] = pack(), contig()
+                times[key + " #11"], times[key + " #13"] = _time_ms(pack), _time_ms(contig)
     torch.save(outputs, args.save)
     print(f"{args.root}: ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
     if args.against:
         old = torch.load(args.against)
         as_tuple = lambda x: x if isinstance(x, (tuple, list)) else (x,)
-        bad = []
+        bad, same_fwd = [], []
         for k in outputs:
             new_t, old_t = as_tuple(outputs[k]), as_tuple(old[k])
+            same = all(torch.equal(a, b) for a, b in zip(new_t, old_t))
             if k.endswith("q8"):
-                same = all(torch.equal(a, b) for a, b in zip(new_t, old_t))
                 print(f"  {k}: bit-identical {same}", flush=True)
                 bad += [] if same else [k]
                 continue
+            same_fwd += [same] if k.endswith("fwd") else []
             dist = _distances(k, new_t, old_t, masks[k.rsplit(" ", 1)[0]])
-            print(f"  {k}: " + "; ".join(f"max {m:.3e} (limit {lim}) rel L2 {r:.3e}" for m, r, lim in dist),
-                  flush=True)
+            print(f"  {k}: " + "; ".join(f"max {m:.3e} (limit {lim}) rel L2 {r:.3e}" for m, r, lim in dist)
+                  + f"; bit-identical {same}", flush=True)
             bad += [k] if any(m > lim for m, _, lim in dist) else []
-        print(f"against {args.against}: {len(outputs) - len(bad)} of {len(outputs)} within their limits "
-              f"(#2 bit for bit); past them: {bad}", flush=True)
+        earlier = [k for k in outputs if k.rsplit(" ", 1)[1] in ("fwd", "q8", "bwd")]
+        ab = [k for k in outputs if k not in earlier]
+        print(f"against {args.against}: {sum(k not in bad for k in earlier)} of {len(earlier)} outputs of #1-#3 "
+              f"within their limits (#2 bit for bit); #1 bit-identical at {sum(same_fwd)} of {len(same_fwd)}; "
+              f"#11/#13 {sum(k not in bad for k in ab)} of {len(ab)} within #1's limits; past them: {bad}",
+              flush=True)
         return 1 if bad else 0
     return 0
 

@@ -2,8 +2,9 @@
 // one 64-query tile of one head of one sample, read straight from the flat
 // [B, N, 3C] QKV projection output. Every kernel of the family runs it:
 // fused_attention.cu (the forward in bf16 and fp32, and the int8-epilogue
-// instance) and fused_attention_ab.cu (the A/B kernels: batch blocks, packs,
-// int8 input, all heads of a tile), so their results are the same bits.
+// instance) and fused_attention_ab.cu (the A/B kernels: batch blocks and int8
+// input, and in fp32 packs and all heads of a tile), so their results are
+// the same bits.
 //
 // Rounding points of the TPU kernel (vitok_tpu/ops/fused_attention.py,
 // _attend_cell and _norm_rope_half):

@@ -1,6 +1,8 @@
 // The four attention kernels of the JAX project's A/B experiments
 // (benchmarks/ab_batch_block.py and benchmarks/ab_q8_input.py), as Hopper
-// kernels around the fused attention body (attend_tile, fused_attend.cuh).
+// kernels around the fused attention body (attend_tile, fused_attend.cuh):
+// #10 and #12, and the fp32 instances of #11 and #13, whose bf16 instances
+// run the wgmma body in fused_attention_ab_sm90.cu.
 // Each computes the function of the fused forward (fused_attention.cu; TPU
 // _fused_kernel) on its own work split, so their results on a row are the
 // bits the forward writes there: the A/B question each asks is one of cost.
@@ -19,7 +21,7 @@
 //   image's tiles and equal the forward's bits; a row whose image has no
 //   valid key averages v over all bb*N keys of the pack (the TPU kernel's
 //   full-row softmax over the pack), and only such a row walks the other
-//   images' V tiles. bf16 and fp32.
+//   images' V tiles. fp32 here.
 // * fused_attention_q8in_kernel replaces benchmarks/ab_q8_input.py
 //   _kernel_q8in: the input is int8 QKV codes [B, N, 3C] and a per-token fp32
 //   scale [B, N, 1]. q and k are normed as raw codes (exact in bf16; the
@@ -30,6 +32,7 @@
 // * fused_attention_contig_kernel replaces _kernel_contig: one block per
 //   (sample, query tile) walks all H heads, so a block sweeps its tokens'
 //   whole 3C-wide rows (the TPU arm reads them as one contiguous region).
+//   fp32 here.
 //
 // What bounds them on an H100: the forward's work, (3C + C) * B * N bytes of
 // the element type against 4 * B * H * N^2 * d products; #12 reads
@@ -50,6 +53,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "fused_attend.cuh"
 
@@ -160,9 +164,11 @@ cudaError_t launch_bb(const void* qkv, const void* qs, const void* ks, const voi
   const auto* sn = static_cast<const float*>(sin_t);
   const auto* m = static_cast<const unsigned char*>(mask);
   auto* o = static_cast<T*>(out);
-  if (pack)
-    return launch(fused_attention_pack_kernel<D, T>, Smem<D, T>::kBytes, grid, s, q, fq, fk, c, sn, m, o,
-                  N, H, bb, hpb, score_scale<D>());
+  if constexpr (std::is_same<T, float>::value) {
+    if (pack)
+      return launch(fused_attention_pack_kernel<D, T>, Smem<D, T>::kBytes, grid, s, q, fq, fk, c, sn, m, o,
+                    N, H, bb, hpb, score_scale<D>());
+  }
   return launch(fused_attention_bb_kernel<D, T>, Smem<D, T>::kBytes, grid, s, q, fq, fk, c, sn, m, o, N,
                 H, bb, hpb, sw, score_scale<D>());
 }
@@ -198,12 +204,12 @@ extern "C" {
 // cos, sin [B, N, D/2] f32; mask [B, N] bool bytes or null; out [B, N, H*D] in
 // qkv's type. A block takes bb samples x hpb heads (bb divides B, hpb
 // divides H). pack != 0: the bb samples of a block are one pack
-// (_kernel_pack; sw must be < 0). sw < 0: no window.
+// (_kernel_pack; fp32 only, sw must be < 0). sw < 0: no window.
 int vitok_fused_attention_bb(const void* qkv, const void* q_scale, const void* k_scale,
                              const void* cos_t, const void* sin_t, const void* mask, void* out, int B,
                              int N, int H, int D, int bb, int hpb, int sw, int pack, int fp32,
                              void* stream) {
-  if (bb < 1 || hpb < 1 || B % bb || H % hpb || (pack && sw >= 0)) return (int)cudaErrorInvalidValue;
+  if (bb < 1 || hpb < 1 || B % bb || H % hpb || (pack && (sw >= 0 || !fp32))) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool pk = pack != 0;
   if (D == 64 && !fp32)
@@ -217,16 +223,12 @@ int vitok_fused_attention_bb(const void* qkv, const void* q_scale, const void* k
   return (int)cudaErrorInvalidValue;
 }
 
-// As vitok_fused_attention_bb with one block per (64-query tile, sample)
-// walking all H heads.
-int vitok_fused_attention_contig(const void* qkv, const void* q_scale, const void* k_scale,
-                                 const void* cos_t, const void* sin_t, const void* mask, void* out,
-                                 int B, int N, int H, int D, int sw, int fp32, void* stream) {
+// As vitok_fused_attention_bb in fp32 with one block per (64-query tile,
+// sample) walking all H heads.
+int vitok_fused_attention_contig_f32(const void* qkv, const void* q_scale, const void* k_scale,
+                                     const void* cos_t, const void* sin_t, const void* mask, void* out,
+                                     int B, int N, int H, int D, int sw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64 && !fp32)
-    return launch_contig<64, __nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
-  if (D == 128 && !fp32)
-    return launch_contig<128, __nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
   if (D == 64) return launch_contig<64, float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
   if (D == 128) return launch_contig<128, float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
   return (int)cudaErrorInvalidValue;

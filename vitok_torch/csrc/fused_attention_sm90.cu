@@ -49,7 +49,9 @@
 // kernels; at 256p it costs bytes, and PERF.md records what that costs.
 //
 // The attention kernel: one block per (64-query tile, head, sample), one
-// warpgroup of 128 threads. Its Q tile is normed into shared memory; each
+// warpgroup of 128 threads, on the wgmma body of fused_attend_sm90.cuh
+// (which the A/B kernels of fused_attention_ab_sm90.cu share). Its Q tile
+// is normed into shared memory; each
 // key tile's K and V come by 16-byte cp.async into a two-stage ring of
 // 128-byte-swizzled tiles (sm90.cuh): tile j + 1 is in flight while tile
 // j's products run.
@@ -75,17 +77,12 @@
 
 #include <cmath>
 
+#include "fused_attend_sm90.cuh"
 #include "norm_rope.cuh"
-#include "sm90.cuh"
 
 namespace {
 
-constexpr int kTile = 64;      // query rows per block, keys per tile
-constexpr int kThreads = 128;  // one warpgroup
-constexpr int kStages = 2;     // key tiles in the ring
-constexpr float kNegFill = -1e30f;
 constexpr float kDeadLse = 1e30f;  // a padded query row: p = exp2(x - 1e30) = 0
-constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // The prologue: k (and for the backward q) normalised and rotated once;
@@ -196,10 +193,6 @@ fused_attention_sm90_kernel(const __nv_bfloat16* __restrict__ kn,   // [B, N, C]
   float* sGain = reinterpret_cast<float*>(smem + S::kGain);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -230,141 +223,28 @@ fused_attention_sm90_kernel(const __nv_bfloat16* __restrict__ kn,   // [B, N, C]
     __syncthreads();  // the K slots are free for the ring; the ring's fence orders sQ before wgmma
   }
 
-  const int n_tiles = (N + kTile - 1) / kTile;
-  const int q_last = min(q0 + kTile, N) - 1;
-  int lo_key = 0, hi_key = kv_end;
-  if (sw >= 0) {
-    lo_key = max(0, q0 - sw);
-    hi_key = min(kv_end, q_last + sw + 1);
-  }
-  int lo_tile = lo_key / kTile;
-  int hi_tile = (hi_key + kTile - 1) / kTile;
-  if (hi_tile <= lo_tile) lo_tile = hi_tile = 0;
-  const int main_tiles = hi_tile - lo_tile;
-
-  const int qrow0 = q0 + warp * 16 + g;  // this thread's two query rows
-  const int qrow1 = qrow0 + 8;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running row max (log2 units)
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sum
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-
+  const KeyTiles tiles = key_tiles(q0, N, kv_end, sw);
+  const int qrow0 = cell_row0(q0);  // this thread's two query rows: qrow0 and qrow0 + 8
+  CellRows<D> r;
+  r.reset();
   auto issue = [&](int kt, int stage) {
-    const int k0 = kt * kTile;
-    load_tile_sw128<kTile, D, kThreads>(sK + stage * S::kTileBytes, k_src, C, k0, N, nullptr, tid);
-    load_tile_sw128<kTile, D, kThreads>(sV + stage * S::kTileBytes, v_src, 3LL * C, k0, N, nullptr, tid);
-    if (tid < kTile) {
-      const int j = k0 + tid;
-      sState[stage * kTile + tid] = j >= N ? 2 : ((mask_b && !mask_b[j]) ? 1 : 0);
-    }
+    issue_kv_tile<D>(sK + stage * S::kTileBytes, sV + stage * S::kTileBytes, sState + stage * kTile, k_src, C,
+                     v_src, 3LL * C, kt * kTile, N, true, mask_b, kv_end, false, tid);
   };
-
-  auto compute = [&](int tile, int stage) {
-    const int k0 = tile * kTile;
-    const unsigned char* kt = sK + stage * S::kTileBytes;
-    const unsigned char* vt = sV + stage * S::kTileBytes;
-    const unsigned char* st = sState + stage * kTile;
-    float s[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, kmajor_desc<kTile>(sQ, kk), kmajor_desc<kTile>(kt, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const int qrow = (e < 2) ? qrow0 : qrow1;
-        const int state = st[col];
-        float v = __fmul_rn(s[4 * nt + e], score_scale);
-        if (state == 2) {
-          v = -INFINITY;
-        } else if (state == 1 || (sw >= 0 && abs(qrow - (k0 + col)) > sw)) {
-          v = kNegFill;
-        }
-        s[4 * nt + e] = v;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[4 * nt], s[4 * nt + 1]));
-      mx1 = fmaxf(mx1, fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
-    }
-    // Key k0 < N is in every tile, so the new max is finite.
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ls0 = 0.f, ls1 = 0.f;
-    uint32_t pa[kTile / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      const float p0 = exp2f(__fsub_rn(s[4 * nt], mn0));
-      const float p1 = exp2f(__fsub_rn(s[4 * nt + 1], mn0));
-      const float p2 = exp2f(__fsub_rn(s[4 * nt + 2], mn1));
-      const float p3 = exp2f(__fsub_rn(s[4 * nt + 3], mn1));
-      ls0 += p0 + p1;
-      ls1 += p2 + p3;
-      // C fragment of key tiles (2j, 2j+1) is the A fragment of k-step j.
-      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l0 = l0 * a0 + ls0;
-    l1 = l1 * a1 + ls1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[4 * dt] *= a0;
-      o[4 * dt + 1] *= a0;
-      o[4 * dt + 2] *= a1;
-      o[4 * dt + 3] *= a1;
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) wgmma_rs<D>(o, pa[j], mnmajor_desc<kTile>(vt, j), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
+  auto compute = [&](int kt, int stage) {
+    attend_kv_tile<D>(r, sQ, sK + stage * S::kTileBytes, sV + stage * S::kTileBytes, sState + stage * kTile,
+                      kt * kTile, qrow0, sw, score_scale);
   };
+  walk_cell<D>(tiles, r, qrow0, N, issue, compute);
 
-  // Pass 0 walks the tiles that hold a valid key inside some row's window.
-  // A row that saw none there (a padded query row beyond the window's
-  // reach, or an all-padding sample) averages v over all N keys, so pass 1
-  // then walks the skipped tiles; for every other row their keys are all
-  // filled and add exactly zero.
-  cp_async_ring<kStages>(main_tiles, [&](int i) { return lo_tile + i; }, issue, compute);
-  const bool dead = (qrow0 < N && m0 <= kNegFill) || (qrow1 < N && m1 <= kNegFill);
-  if (__syncthreads_or(dead))
-    cp_async_ring<kStages>(n_tiles - main_tiles, [&](int i) { return i < lo_tile ? i : i + main_tiles; }, issue,
-                           compute);
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(kFull, l0, off);
-    l1 += __shfl_xor_sync(kFull, l1, off);
-  }
+  sum_rows<D>(r);
   __nv_bfloat16* out0 = out + ((long long)b * N + qrow0) * C + h * D;
-  __nv_bfloat16* out1 = out0 + 8LL * C;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (qrow0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out0 + col) = __floats2bfloat162_rn(o[4 * dt] / l0, o[4 * dt + 1] / l0);
-    if (qrow1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out1 + col) =
-          __floats2bfloat162_rn(o[4 * dt + 2] / l1, o[4 * dt + 3] / l1);
-  }
-  if (lse != nullptr && t == 0) {
+  store_rows<D>(r, out0, out0 + 8LL * C, qrow0, N);
+  if (lse != nullptr && (tid & 3) == 0) {
     float* lse_bh = lse + ((long long)b * H + h) * N;
-    if (qrow0 < N) lse_bh[qrow0] = (mask_b == nullptr || mask_b[qrow0]) ? m0 + log2f(l0) : kDeadLse;
-    if (qrow1 < N) lse_bh[qrow1] = (mask_b == nullptr || mask_b[qrow1]) ? m1 + log2f(l1) : kDeadLse;
+    const int qrow1 = qrow0 + 8;
+    if (qrow0 < N) lse_bh[qrow0] = (mask_b == nullptr || mask_b[qrow0]) ? r.m0 + log2f(r.l0) : kDeadLse;
+    if (qrow1 < N) lse_bh[qrow1] = (mask_b == nullptr || mask_b[qrow1]) ? r.m1 + log2f(r.l1) : kDeadLse;
   }
 }
 

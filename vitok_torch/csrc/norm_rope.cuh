@@ -1,7 +1,8 @@
 // QK-RMSNorm + rotate-half RoPE on a 64-row tile of one head's channels, and
 // its backward, shared by the fused attention kernels (fused_attention.cu:
 // the forward, its int8-epilogue and fp32 instances; fused_attention_bwd.cu;
-// fused_attention_ab.cu, which also reads int8 codes).
+// fused_attention_ab.cu, which also reads int8 codes; the wgmma body of
+// fused_attend_sm90.cuh, whose in-place q norm shares norm_rope_piece).
 //
 // A row of D channels is cut into D/16 pieces, one thread each: channels
 // [8p, 8p + 8) and their rotate-half partners [D/2 + 8p, D/2 + 8p + 8), so
@@ -23,6 +24,59 @@ constexpr int kNrTile = 64;   // rows per tile
 constexpr int kNrPad = 8;     // bf16 row padding of the shared-memory tiles
 constexpr float kNrEps = 1e-6f;
 constexpr unsigned kNrFull = 0xffffffffu;
+
+// The rotation's tables at eight channels of a row, rounded to bf16 (the
+// rounding point of the rotation): four bf16 pairs each of cos and sin.
+__device__ __forceinline__ void rope_pairs(const float* c, const float* s, __nv_bfloat162 (&ce)[4],
+                                           __nv_bfloat162 (&se)[4]) {
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    ce[e / 2] = __floats2bfloat162_rn(c[e], c[e + 1]);
+    se[e / 2] = __floats2bfloat162_rn(s[e], s[e + 1]);
+  }
+}
+
+// One thread's piece of a row: channels [8p, 8p + 8) (raw values a) and
+// their rotate-half partners (b), with the row's cos / sin at those channels
+// (ce, se: rope_pairs) and the gains of the two halves (gr, gi). The row's
+// sum of squares is reduced over the D/16 neighbouring threads that hold its
+// pieces. Writes the normed, rotated bf16 values of both halves.
+template <int D, bool RoundEach>
+__device__ __forceinline__ void norm_rope_piece(const float (&a)[8], const float (&b)[8],
+                                                const __nv_bfloat162 (&ce4)[4], const __nv_bfloat162 (&se4)[4],
+                                                const float* gr, const float* gi, uint4& out_r, uint4& out_i) {
+  constexpr int kPieces = D / 16;
+  float ss = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
+    ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
+  }
+#pragma unroll
+  for (int off = 1; off < kPieces; off <<= 1) ss += __shfl_xor_sync(kNrFull, ss, off);
+  const float r = rsqrtf(__fadd_rn(ss / D, kNrEps));
+  uint32_t* o_r = reinterpret_cast<uint32_t*>(&out_r);
+  uint32_t* o_i = reinterpret_cast<uint32_t*>(&out_i);
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const __nv_bfloat162 yr = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(a[e], r), gr[e]),
+                                                    __fmul_rn(__fmul_rn(a[e + 1], r), gr[e + 1]));
+    const __nv_bfloat162 yi = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(b[e], r), gi[e]),
+                                                    __fmul_rn(__fmul_rn(b[e + 1], r), gi[e + 1]));
+    const __nv_bfloat162 ce = ce4[e / 2];
+    const __nv_bfloat162 se = se4[e / 2];
+    __nv_bfloat162 vr, vi;
+    if constexpr (RoundEach) {
+      vr = __hsub2(__hmul2_rn(yr, ce), __hmul2_rn(yi, se));  // xr*cos - xi*sin
+      vi = __hadd2(__hmul2_rn(yr, se), __hmul2_rn(yi, ce));  // xr*sin + xi*cos
+    } else {
+      vr = __hsub2(__hmul2(yr, ce), __hmul2(yi, se));
+      vi = __hadd2(__hmul2(yr, se), __hmul2(yi, ce));
+    }
+    o_r[e / 2] = *reinterpret_cast<const uint32_t*>(&vr);
+    o_i[e / 2] = *reinterpret_cast<const uint32_t*>(&vi);
+  }
+}
 
 // Normalises and rotates rows [r0, r0 + 64) of one head's q or k channels
 // (`src` points at row 0, channel 0 of that head) into `dst` (row stride
@@ -79,10 +133,7 @@ __device__ __forceinline__ void norm_rope_tile(
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const float* c = reinterpret_cast<const float*>(&cs[u][0]);
-      const float* s = reinterpret_cast<const float*>(&sn[u][0]);
       float a[8], b[8];
-      float ss = 0.f;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         if constexpr (kCodes) {
@@ -92,37 +143,14 @@ __device__ __forceinline__ void norm_rope_tile(
           a[e] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&xr[u])[e]);
           b[e] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&xi[u])[e]);
         }
-        ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
-        ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
       }
-#pragma unroll
-      for (int off = 1; off < kPieces; off <<= 1) ss += __shfl_xor_sync(kNrFull, ss, off);
-      const float r = rsqrtf(__fadd_rn(ss / D, kNrEps));
-      const float* gr = gain + c0;
-      const float* gi = gain + kHalf + c0;
-      uint32_t out_r[4], out_i[4];
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        const __nv_bfloat162 yr = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(a[e], r), gr[e]),
-                                                        __fmul_rn(__fmul_rn(a[e + 1], r), gr[e + 1]));
-        const __nv_bfloat162 yi = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(b[e], r), gi[e]),
-                                                        __fmul_rn(__fmul_rn(b[e + 1], r), gi[e + 1]));
-        const __nv_bfloat162 ce = __floats2bfloat162_rn(c[e], c[e + 1]);
-        const __nv_bfloat162 se = __floats2bfloat162_rn(s[e], s[e + 1]);
-        __nv_bfloat162 vr, vi;
-        if constexpr (RoundEach) {
-          vr = __hsub2(__hmul2_rn(yr, ce), __hmul2_rn(yi, se));  // xr*cos - xi*sin
-          vi = __hadd2(__hmul2_rn(yr, se), __hmul2_rn(yi, ce));  // xr*sin + xi*cos
-        } else {
-          vr = __hsub2(__hmul2(yr, ce), __hmul2(yi, se));
-          vi = __hadd2(__hmul2(yr, se), __hmul2(yi, ce));
-        }
-        out_r[e / 2] = *reinterpret_cast<const uint32_t*>(&vr);
-        out_i[e / 2] = *reinterpret_cast<const uint32_t*>(&vi);
-      }
+      __nv_bfloat162 ce[4], se[4];
+      rope_pairs(reinterpret_cast<const float*>(&cs[u][0]), reinterpret_cast<const float*>(&sn[u][0]), ce, se);
+      uint4 yr, yi;
+      norm_rope_piece<D, RoundEach>(a, b, ce, se, gain + c0, gain + kHalf + c0, yr, yi);
       __nv_bfloat16* d = dst + rows[u] * kRow + c0;
-      *reinterpret_cast<uint4*>(d) = make_uint4(out_r[0], out_r[1], out_r[2], out_r[3]);
-      *reinterpret_cast<uint4*>(d + kHalf) = make_uint4(out_i[0], out_i[1], out_i[2], out_i[3]);
+      *reinterpret_cast<uint4*>(d) = yr;
+      *reinterpret_cast<uint4*>(d + kHalf) = yi;
     }
   }
 }
