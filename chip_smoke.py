@@ -1993,27 +1993,30 @@ def _one_launch(counts: dict, name: str, fn):
 
 def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
     """#10 (every arm of ab_batch_block), #11, #12 and #13 against the
-    forward whose body each runs, bit for bit: #10, #12 (on the assembled
-    tensor) and the fp32 #11 and #13 the mma.sync forward (its fp32 instance
-    in fp32); #11 (on images with a valid key) and #13 in bf16 the redesigned
-    forward (the wgmma body). Each against its plain version; the fp32
-    instance of #1 against its plain version; times beside bounds, SDPA and,
-    in bf16, the redesigned forward, with device times, the wgmma kernels
-    alone on the prologue's k, and the q/k prologue's (k alone, as #1, #11
-    and #13 run it; q and k, the walkers' rejected feed). Where the shape
-    refuses arm P2 (C = 1024), the pack runs at bb = 2 with half the heads
-    ("P2h")."""
+    forward whose body each runs, bit for bit: #10 and #11 (on images with a
+    valid key) in bf16 and #13 in bf16 the redesigned forward (the wgmma
+    body); #10 and #11 in fp32 the fp32 walker with one cell a block, itself
+    within AB_F32_MAX_REL of the fp32 instance of the mma.sync forward; #12
+    (on the assembled tensor) and #13 in fp32 the mma.sync forward (its fp32
+    instance in fp32). Each against its plain version; the fp32 instance of
+    #1 against its plain version; times beside bounds, SDPA and, in bf16, the
+    redesigned forward, with device times, the walkers alone (bf16: on the
+    prologue's k) for #10's arm D2, #11 and #13, and the q/k prologue's (k
+    alone, as #1, #10, #11 and #13 run it; q and k, the walkers' rejected
+    feed). Where the shape refuses arm P2 (C = 1024), the pack runs at bb = 2
+    with half the heads ("P2h")."""
     import torch
     import torch.nn.functional as F
     from vitok_torch.benchmarks import ab_batch_block as abb
     from vitok_torch.benchmarks import ab_q8_input as ab8
-    from vitok_torch.benchmarks import walk_sm90
+    from vitok_torch.benchmarks import walk_f32, walk_sm90
     from vitok_torch.ops import fused_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(10)
     rows = []
-    log("kernel phase: A/B kernels (fused_attention_ab.cu, and fused_attention_ab_sm90.cu for #11 and #13 in bf16) "
-        "vs the forward whose body each runs (bit for bit) and vs their plain versions; the fp32 instance of the "
+    log("kernel phase: A/B kernels (fused_attention_ab_sm90.cu for #10, #11 and #13 in bf16, "
+        "fused_attention_ab_f32_sm90.cu for #10 and #11 in fp32, fused_attention_ab.cu for #12 and #13 in fp32) vs "
+        "the forward whose body each runs (bit for bit) and vs their plain versions; the fp32 instance of the "
         "forward vs its plain version")
     for label, b, n, c, h, dtype, mask_kind in shapes:
         qkv, qs, ks, cos, sin, mask = _ab_inputs(gen, b, n, c, h, dtype, mask_kind, device)
@@ -2023,7 +2026,6 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         fwd = lambda: fa.fused_qkv_attention_mma(*args, num_heads=h)
         ref = fwd()
         new = lambda: fa.fused_qkv_attention(*args, num_heads=h, impl="fused")
-        new_ref = ref if f32 else new()  # fp32: the same instance
         plain = fa.fused_qkv_attention_plain(*args, num_heads=h)
         live = mask.any(1)  # images with a valid key
         # rows held to #1's limits: valid rows, and every row of an image with
@@ -2031,6 +2033,12 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         valid = mask | ~live[:, None]
         errs = {"fused_attention_f32" if f32 else "fused_attention_mma": _check_ab(f"#1 {label}", ref, plain, valid,
                                                                                   f32)}
+        if f32:  # the fp32 walker with one cell a block: every fp32 #10 arm's bits, within 1e-5 of #1's instance
+            new_ref = _one_launch(abb.LAUNCHES, "fused_attention_bb_f32",
+                                  lambda: abb.fused_attention_bb(*args, num_heads=h, bb=1, cg=d))
+            walker_vs_b = _check_ab(f"fp32 walker vs #1 {label}", new_ref, ref, valid, True)
+        else:
+            new_ref = new()
         q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)
         am = mask[:, None, None, :]
         library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)
@@ -2042,10 +2050,13 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         row = dict(shape=label, B=b, N=n, C=c, H=h, dtype=dtype, mask=mask_kind, fused_ms=time_ms(fwd),
                    fused_plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_dev_ms,
                    bound_ms=bound[0], bound_by=bound[1], arms={})
-        if not f32:  # the redesigned forward, its prologue and its wgmma kernel alone beside the arms
+        if f32:
+            row["walker_max_abs_vs_mma"] = walker_vs_b
+            walk = lambda **kw: walk_f32(qkv, qs.float(), ks.float(), cos.float(), sin.float(), mask, h, **kw)
+        else:  # the redesigned forward, its prologue and its wgmma kernel alone beside the arms
             row["redesigned_max_abs_vs_mma"] = (new_ref.float() - ref.float()).abs()[valid].max().item()
             row.update(redesigned_ms=time_ms(new), redesigned_device_ms=device_ms(new))
-            # the prologue as #1, #11 and #13 run it (k alone), and with q, the rejected way to feed the walkers
+            # the prologue as #1, #10, #11 and #13 run it (k alone), and with q, the rejected way to feed the walkers
             prologue = lambda with_q: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, with_q=with_q)
             row.update(prologue_qk_ms=time_ms(lambda: prologue(True)), prologue_k_ms=time_ms(lambda: prologue(False)))
             kn, _ = prologue(False)
@@ -2063,32 +2074,32 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
                 abb.check_arm(qkv.shape, h, bb, cg, pack=pack)
             except ValueError:
                 continue
-            kname = ("fused_attention_pack_f32" if f32 else "fused_attention_pack") if pack else "fused_attention_bb"
+            kname = ("fused_attention_pack" if pack else "fused_attention_bb") + ("_f32" if f32 else "")
             call = lambda: abb.fused_attention_bb(*args, num_heads=h, bb=bb, cg=cg, pack=pack)
             got = _one_launch(abb.LAUNCHES, kname, call)
             rows_eq = live if pack else slice(None)
-            want_bits, body = (new_ref, "redesigned") if pack and not f32 else (ref, "mma.sync")
-            if not torch.equal(got[rows_eq], want_bits[rows_eq]):
-                raise AssertionError(f"{kname} {name} at {label}: not bit-identical to the {body} forward")
+            if not torch.equal(got[rows_eq], new_ref[rows_eq]):
+                raise AssertionError(f"{kname} {name} at {label}: not bit-identical to the "
+                                     f"{'fp32 walker with one cell a block' if f32 else 'redesigned forward'}")
             want = plain if not pack else abb.fused_attention_bb_plain(*args, num_heads=h, bb=bb, cg=cg, pack=True)
-            key = f"{kname}_f32" if f32 and not pack else kname
             err = _check_ab(f"{kname} {name} {label}", got, want, valid, f32)
-            errs[key] = max(errs.get(key, 0.0), err)
+            errs[kname] = max(errs.get(kname, 0.0), err)
             arm = dict(bb=bb, cg=cg, ms=time_ms(call), max_abs_err=err)
-            if pack:
+            if pack or name == "D2":  # #11 and #10's recorded arm: device time, the walker alone, plain, bound
                 arm["device_ms"] = device_ms(call)
-                if not f32:  # the walker alone, on the prologue's k
-                    arm["kernel_ms"] = time_ms(lambda: walk(bb=bb, hpb=cg // d))
-                arm["plain_ms"] = time_ms(lambda: abb.fused_attention_bb_plain(*args, num_heads=h, bb=bb, cg=cg,
-                                                                               pack=True), runs=3, warmup=1)
-                arm["bound_ms"], arm["bound_by"] = _ab_bound(b, n, c, h, mask, isz, pairs=_pack_pairs(mask, n, bb))
+                arm["kernel_ms"] = time_ms(lambda: walk(bb=bb, hpb=cg // d, pack=pack))
+                arm["plain_ms"] = plain_ms if not pack else time_ms(
+                    lambda: abb.fused_attention_bb_plain(*args, num_heads=h, bb=bb, cg=cg, pack=True), runs=3,
+                    warmup=1)
+                arm["bound_ms"], arm["bound_by"] = (bound if not pack else
+                                                    _ab_bound(b, n, c, h, mask, isz, pairs=_pack_pairs(mask, n, bb)))
             row["arms"][name] = arm
             del got
         # #13
         kname = "fused_attention_contig_f32" if f32 else "fused_attention_contig"
         call = lambda: ab8.fused_attention_contig(*args, num_heads=h)
         got = _one_launch(ab8.LAUNCHES, kname, call)
-        if not torch.equal(got, new_ref):
+        if not torch.equal(got, ref if f32 else new_ref):
             raise AssertionError(f"{kname} at {label}: not bit-identical to the "
                                  f"{'mma.sync' if f32 else 'redesigned'} forward")
         errs[kname] = _check_ab(f"contig {label}", got, plain, valid, f32)
@@ -2124,7 +2135,8 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         log(f"  {label} (B={b} N={n} C={c} H={h}, mask {mask_kind}): mma.sync forward {row['fused_ms']:.4f} ms"
             + (f", redesigned {row['redesigned_ms']:.4f} (dev {row['redesigned_device_ms']:.4f}, wgmma kernel alone "
                f"{row['redesigned_kernel_ms']:.4f}; max |diff| {row['redesigned_max_abs_vs_mma']:.2e}; prologue k "
-               f"{row['prologue_k_ms']:.4f}, q+k {row['prologue_qk_ms']:.4f})" if not f32 else "")
+               f"{row['prologue_k_ms']:.4f}, q+k {row['prologue_qk_ms']:.4f})" if not f32 else
+               f", fp32 walker (one cell a block) max |diff| {row['walker_max_abs_vs_mma']:.2e}")
             + f", plain {plain_ms:.4f}, SDPA {library_ms:.4f} (dev {library_dev_ms:.4f}), bound {bound[0]:.5f} "
             f"({bound[1]}); contig {row['contig_ms']:.4f} (dev {row['contig_device_ms']:.4f}"
             + (f", walker alone {row['contig_kernel_ms']:.4f}" if not f32 else "") + f"); arms (ms): {arms}"
@@ -2134,13 +2146,13 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         del qkv, plain, ref, new_ref
         torch.cuda.empty_cache()
     attributes = {}
-    if device.type == "cuda":  # what the compiler and the card make of each wgmma walker instance
-        from vitok_torch.benchmarks import sm90_attributes
+    if device.type == "cuda":  # what the compiler and the card make of each walker instance
+        from vitok_torch.benchmarks import WALKER_KINDS, sm90_attributes
 
         for d in (64, 128):
-            for kind in ("pack", "contig"):
-                attributes[f"{kind} d{d}"] = sm90_attributes(d, kind == "pack", bb=2)
-        log("  wgmma walkers (registers, local bytes a thread, blocks an SM, shared bytes a block): "
+            for kind in WALKER_KINDS:
+                attributes[f"{kind} d{d}"] = sm90_attributes(d, kind, bb=2)
+        log("  walkers, bb = 2 (registers, local bytes a thread, blocks an SM, shared bytes a block): "
             + "; ".join(f"{k} {a['registers']}, {a['local_bytes']}, {a['blocks_per_sm']}, {a['smem_bytes']}"
                         for k, a in attributes.items()))
     return dict(rows=rows, sm90_attributes=attributes)
@@ -2149,12 +2161,14 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
 def ab_entry_phase(device) -> dict:
     """Both A/B entry points at the recorded invocations' shapes with fewer
     timed runs (``AB_ENTRY_ARGS``): every arm builds, every numeric leg reads
-    0 against the reference it names (P2 and C in bf16 the redesigned
-    forward, every other leg the mma.sync forward), the redesigned forward's
-    row (bf16) is within #1's limits of arm B, and each kernel is launched
-    exactly as often as the runs call it. Neither entry point runs #13 in
-    fp32 (ab_q8_input is bf16 only), so its wrapper is then called
-    ``--layers`` times at the recorded fp32 shape."""
+    0 against the reference it names (in bf16 every arm but B the redesigned
+    forward, X, as C of ab_q8_input; in fp32 the fp32 walker with one cell a
+    block, W; A the mma.sync forward on the assembled tensor), the
+    reference's row is within its limit of arm B (X: #1's; W: AB_F32_MAX_REL
+    of B's largest entry), and each kernel is launched exactly as often as
+    the runs call it. Neither entry point runs #13 in fp32 (ab_q8_input is
+    bf16 only), so its wrapper is then called ``--layers`` times at the
+    recorded fp32 shape."""
     import torch
     from vitok_torch.benchmarks import ab_batch_block as abb
     from vitok_torch.benchmarks import ab_q8_input as ab8
@@ -2170,13 +2184,13 @@ def ab_entry_phase(device) -> dict:
                  *AB_ENTRY_ARGS]
         log(f"entry point: python -m vitok_torch.benchmarks.ab_batch_block {' '.join(flags)}")
         res = abb.main([*flags, "--device", device.type])
-        p2_ref = "X" if dtype == "bfloat16" else "B"
+        ref = "X" if dtype == "bfloat16" else "W"
         if (res["skipped"] or len(res["arms"]) != 11 or any(v != 0.0 for v in res["numeric"].values())
-                or not res["references"]["P2"].startswith(p2_ref)
-                or any(not r.startswith("B") for k, r in res["references"].items() if k != "P2")):
+                or set(res["references"]) != set(res["arms"]) - {"B"}
+                or any(not r.startswith(ref) for r in res["references"].values())):
             raise AssertionError(f"ab_batch_block {dtype}: skipped {res['skipped']}, arms {list(res['arms'])}, "
                                  f"numeric {res['numeric']}, references {res['references']}")
-        _check_redesigned_row(f"ab_batch_block {dtype}", res, dtype == "bfloat16")
+        _check_reference_row(f"ab_batch_block {dtype}", res, dtype == "bfloat16")
         runs[f"ab_batch_block {dtype}"] = res
     _, n, b = runs_at[0]
     flags = ["--c", str(c), "--heads", str(h), "--tokens", str(n), "--batch", str(b), *AB_ENTRY_ARGS]
@@ -2185,7 +2199,7 @@ def ab_entry_phase(device) -> dict:
     if (res["numeric"]["A_assembled"] != 0.0 or res["numeric"]["C"] != 0.0
             or not res["references"]["C"].startswith("X")):
         raise AssertionError(f"ab_q8_input numeric legs {res['numeric']}, references {res['references']}")
-    _check_redesigned_row("ab_q8_input", res, True)
+    _check_reference_row("ab_q8_input", res, True)
     runs["ab_q8_input"] = res
     f32_runs = [(n, b) for dtype, n, b in runs_at if dtype == "float32"]
     for n, b in f32_runs:
@@ -2199,17 +2213,19 @@ def ab_entry_phase(device) -> dict:
         torch.cuda.synchronize()
         del qkv
     launches = launch_counts()
-    # per ab_batch_block run: B on the mma.sync forward (its fp32 instance in fp32), P2 on the pack
-    # kernel (bf16: after the q/k prologue), nine arms on #10, and in bf16 the redesigned forward's
-    # row; ab_q8_input: one arm each (C after the prologue), the mma.sync forward once more on the
-    # assembled tensor, and the redesigned forward's row; then #13 in fp32
-    runs_bb = len(runs_at)
+    # per ab_batch_block run: B on the mma.sync forward (its fp32 instance in fp32), nine arms on #10
+    # and P2 on #11 (bf16: the wgmma walker after the q/k prologue; fp32: the fp32 walker), and the
+    # reference: in bf16 the redesigned forward's row, in fp32 one call of the fp32 walker with one
+    # cell a block; ab_q8_input: one arm each (C after the prologue), the mma.sync forward once more
+    # on the assembled tensor, and the redesigned forward's row; then #13 in fp32
     bf16_runs = sum(dtype == "bfloat16" for dtype, _, _ in runs_at)
-    walkers = bf16_runs * per_arm + per_arm  # the bf16 pack and contig launches, each after a prologue
-    expect = _expect(fused_attention_bb=runs_bb * 9 * per_arm, fused_attention_pack=bf16_runs * per_arm,
-                     fused_attention_pack_f32=(runs_bb - bf16_runs) * per_arm,
+    f32_bb_runs = len(runs_at) - bf16_runs
+    walkers = bf16_runs * 10 * per_arm + per_arm  # the bf16 #10, #11 and #13 launches, each after a prologue
+    expect = _expect(fused_attention_bb=bf16_runs * 9 * per_arm, fused_attention_pack=bf16_runs * per_arm,
+                     fused_attention_bb_f32=f32_bb_runs * (9 * per_arm + 1),
+                     fused_attention_pack_f32=f32_bb_runs * per_arm,
                      fused_attention_mma=bf16_runs * per_arm + per_arm + 1,
-                     fused_attention_f32=(runs_bb - bf16_runs) * per_arm,
+                     fused_attention_f32=f32_bb_runs * per_arm,
                      fused_attention=(bf16_runs + 1) * per_arm, fused_attention_q8in=per_arm,
                      fused_attention_contig=per_arm, fused_attention_contig_f32=len(f32_runs) * layers,
                      fused_qk_prologue=(bf16_runs + 1) * per_arm + walkers)
@@ -2219,13 +2235,19 @@ def ab_entry_phase(device) -> dict:
     return dict(runs=runs, launches=launches)
 
 
-def _check_redesigned_row(what, res, bf16: bool) -> None:
-    """An entry point's row of the redesigned forward: present in bf16 (absent
-    in fp32, which has no instance of it), within #1's limit of arm B."""
-    row = res.get("redesigned")
-    if (row is not None) != bf16 or (bf16 and not row["max_abs_vs_B"] <= KERNEL_MAX_ABS):
-        raise AssertionError(f"{what}: redesigned forward's row {row} (expected in bf16 only, max |X-B| <= "
-                             f"{KERNEL_MAX_ABS})")
+def _check_reference_row(what, res, bf16: bool) -> None:
+    """An entry point's reference against arm B: in bf16 the redesigned
+    forward's timed row, within #1's limit; in fp32 (ab_batch_block) the fp32
+    walker's, within AB_F32_MAX_REL of B's largest entry. Neither in the
+    other type."""
+    row, walker = res.get("redesigned"), res.get("walker_f32")
+    if bf16:
+        ok = walker is None and row is not None and row["max_abs_vs_B"] <= KERNEL_MAX_ABS
+    else:
+        ok = row is None and walker is not None and walker["max_abs_vs_B"] <= AB_F32_MAX_REL * walker["max_abs_B"]
+    if not ok:
+        raise AssertionError(f"{what}: reference rows {row}, {walker} (bf16: the redesigned forward's, max |X-B| <= "
+                             f"{KERNEL_MAX_ABS}; fp32: the fp32 walker's, max |W-B| <= {AB_F32_MAX_REL} x max |B|)")
 
 
 def f32_ae_phase(device, card: str) -> dict:
@@ -2264,14 +2286,15 @@ def f32_ae_phase(device, card: str) -> dict:
 
 def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     """Kernels-line entries of #10-#13 (times at the recorded bf16 shape, C =
-    3072, N = 256, B = 64; #10 the D2 arm, every arm beside it; #11 and #13
-    in bf16 with their device times, the q/k prologue they run first, and
-    the walker instances' registers, spills and blocks an SM), of the fp32
-    instances of #11 and #13 (times at the recorded fp32 shape, N = 64, B =
-    256), of the mma.sync forward #10 and #12 share a body with (times at the
-    512p main shape, as #1's), and of the fp32 instance of #1 (the recorded
-    fp32 shape); launches from the A/B entry points' runs, the fp32
-    instance's from the fp32 AE."""
+    3072, N = 256, B = 64; #10 the D2 arm, every arm beside it; #10, #11 and
+    #13 in bf16 with their device times, the walkers alone on the prologue's
+    k, the q/k prologue they run first, and the walker instances' registers,
+    spills and blocks an SM), of #10 and #11 in fp32 on the fp32 walker and
+    of #13's fp32 instance (times at the recorded fp32 shape, N = 64, B =
+    256), of the mma.sync forward #12 shares a body with (times at the 512p
+    main shape, as #1's), and of the fp32 instance of #1 (the recorded fp32
+    shape); launches from the A/B entry points' runs, the fp32 instance's
+    from the fp32 AE."""
     bf = next(r for r in abkern["rows"] if r["shape"] == "5B@256t bf16")
     f32 = next(r for r in abkern["rows"] if r["shape"] == "5B@64t fp32")
     errs = {}
@@ -2279,12 +2302,17 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
         for k, v in r["max_abs_err"].items():
             errs[k] = max(errs.get(k, 0.0), v)
     launches = ab_runs["launches"]
-    src, src_sm90 = "vitok_torch/csrc/fused_attention_ab.cu", "vitok_torch/csrc/fused_attention_ab_sm90.cu"
-    bb, pack, pack32 = bf["arms"]["D2"], bf["arms"]["P2"], f32["arms"]["P2"]
+    src = "vitok_torch/csrc/fused_attention_ab.cu"
+    src_sm90, src_f32 = "vitok_torch/csrc/fused_attention_ab_sm90.cu", "vitok_torch/csrc/fused_attention_ab_f32_sm90.cu"
+    bb, pack, bb32, pack32 = bf["arms"]["D2"], bf["arms"]["P2"], f32["arms"]["D2"], f32["arms"]["P2"]
     head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
     walker = dict(prologue_k_ms=bf["prologue_k_ms"], prologue_qk_ms=bf["prologue_qk_ms"],
                   redesigned_forward_ms=bf["redesigned_ms"], redesigned_forward_device_ms=bf["redesigned_device_ms"],
                   redesigned_kernel_ms=bf["redesigned_kernel_ms"], library_device_ms=bf["library_device_ms"])
+    attributes = lambda kind: {k: a for k, a in abkern["sm90_attributes"].items() if k.startswith(kind + " ")}
+    arm_entry = lambda arm, row: {
+        "ms": arm["ms"], "device_ms": arm["device_ms"], "kernel_ms": arm["kernel_ms"], "plain_ms": arm["plain_ms"],
+        "bound_ms": arm["bound_ms"], "bound_by": arm["bound_by"], "library_ms": row["library_ms"]}
     return [{
         "name": "fused_attention_mma", "route": "cuda", "source": "vitok_torch/csrc/fused_attention.cu",
         "replaces": "vitok_tpu/ops/fused_attention.py:317", "launches": launches["fused_attention_mma"],
@@ -2292,26 +2320,27 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "ab_bf16_ms": bf["fused_ms"], "ab_bf16_redesigned_ms": bf["redesigned_ms"],
     }, {
-        "name": "fused_attention_bb", "route": "cuda", "source": src,
+        "name": "fused_attention_bb", "route": "cuda", "source": src_sm90,
         "replaces": "benchmarks/ab_batch_block.py:78", "launches": launches["fused_attention_bb"],
-        "max_abs_err": errs["fused_attention_bb"], "ms": bb["ms"], "plain_ms": bf["fused_plain_ms"],
-        "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
+        "max_abs_err": errs["fused_attention_bb"], **arm_entry(bb, bf), **walker,
         "arm": "D2 (bb=2, cg=1536)", "arms_ms": {k: a["ms"] for k, a in bf["arms"].items()},
-        "fp32_arms_ms": {k: a["ms"] for k, a in f32["arms"].items()},
-        "max_abs_err_f32": errs["fused_attention_bb_f32"],
+        "attributes": attributes("bb"),
+    }, {
+        "name": "fused_attention_bb_f32", "route": "cuda", "source": src_f32,
+        "replaces": "benchmarks/ab_batch_block.py:78", "launches": launches["fused_attention_bb_f32"],
+        "max_abs_err": errs["fused_attention_bb_f32"], **arm_entry(bb32, f32),
+        "arm": "D2 (bb=2, cg=1536)", "arms_ms": {k: a["ms"] for k, a in f32["arms"].items()},
+        "max_abs_vs_fused_attention_f32": f32["walker_max_abs_vs_mma"], "attributes": attributes("bb_f32"),
     }, {
         "name": "fused_attention_pack", "route": "cuda", "source": src_sm90,
         "replaces": "benchmarks/ab_batch_block.py:105", "launches": launches["fused_attention_pack"],
-        "max_abs_err": errs["fused_attention_pack"], "ms": pack["ms"], "device_ms": pack["device_ms"],
-        "kernel_ms": pack["kernel_ms"],
-        "plain_ms": pack["plain_ms"], "bound_ms": pack["bound_ms"], "bound_by": pack["bound_by"],
-        "library_ms": bf["library_ms"], **walker,
-        "attributes": {k: a for k, a in abkern["sm90_attributes"].items() if k.startswith("pack")},
+        "max_abs_err": errs["fused_attention_pack"], **arm_entry(pack, bf), **walker,
+        "attributes": attributes("pack"),
     }, {
-        "name": "fused_attention_pack_f32", "route": "cuda", "source": src,
+        "name": "fused_attention_pack_f32", "route": "cuda", "source": src_f32,
         "replaces": "benchmarks/ab_batch_block.py:105", "launches": launches["fused_attention_pack_f32"],
-        "max_abs_err": errs["fused_attention_pack_f32"], "ms": pack32["ms"], "plain_ms": pack32["plain_ms"],
-        "bound_ms": pack32["bound_ms"], "bound_by": pack32["bound_by"], "library_ms": f32["library_ms"],
+        "max_abs_err": errs["fused_attention_pack_f32"], **arm_entry(pack32, f32),
+        "attributes": attributes("pack_f32"),
     }, {
         "name": "fused_attention_q8in", "route": "cuda", "source": src,
         "replaces": "benchmarks/ab_q8_input.py:64", "launches": launches["fused_attention_q8in"],
@@ -2325,7 +2354,7 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
         "kernel_ms": bf["contig_kernel_ms"],
         "plain_ms": bf["fused_plain_ms"], "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
         "library_ms": bf["library_ms"], **walker,
-        "attributes": {k: a for k, a in abkern["sm90_attributes"].items() if k.startswith("contig")},
+        "attributes": attributes("contig"),
     }, {
         "name": "fused_attention_contig_f32", "route": "cuda", "source": src,
         "replaces": "benchmarks/ab_q8_input.py:164", "launches": launches["fused_attention_contig_f32"],
@@ -2357,9 +2386,10 @@ PORT_KERNEL_GROUPS = {
     "ffn_int8_gemm_kernel": "ffn_int8",
     "ffn_int8_quant_kernel": "ffn_int8",
     "silu_quant_kernel": "silu_quant",
-    "fused_attention_bb_kernel": "fused_attention_bb",
+    "fused_attention_bb_sm90_kernel": "fused_attention_bb",
+    "fused_attention_bb_f32_sm90_kernel": "fused_attention_bb_f32",
     "fused_attention_pack_sm90_kernel": "fused_attention_pack",
-    "fused_attention_pack_kernel": "fused_attention_pack_f32",
+    "fused_attention_pack_f32_sm90_kernel": "fused_attention_pack_f32",
     "fused_attention_q8in_kernel": "fused_attention_q8in",
     "fused_attention_contig_sm90_kernel": "fused_attention_contig",
     "fused_attention_contig_kernel": "fused_attention_contig_f32",
@@ -2512,7 +2542,7 @@ def main() -> int:
     t0 = time.time()
     _build.build(["fused_attention_sm90", "fused_attention", "fused_attention_bwd", "flash_attention",
                   "flash_attention_bwd", "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_ab",
-                  "fused_attention_ab_sm90"])
+                  "fused_attention_ab_sm90", "fused_attention_ab_f32_sm90"])
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 

@@ -140,6 +140,59 @@ class TestPlainAgainstJax:
                                    rtol=0, atol=0)
 
 
+class TestSplitTwin:
+    """The fp32 walker's arithmetic (``fused_attention_bb_split_plain``): each
+    fp32 operand split exactly into three bf16 pieces, the six products of
+    pieces small terms first, accumulated in fp32. Within 1e-5 of the largest
+    entry of the fp32 function (the plain version and the JAX kernels in
+    interpret mode): the dropped terms are about 2^-24 of a product."""
+
+    def test_pieces_sum_to_the_value_exactly(self):
+        rng = np.random.default_rng(9)
+        x = (10.0 ** rng.uniform(-30, 30, 100_000) * rng.choice([-1.0, 1.0], 100_000)).astype(np.float32)
+        fed = [make_inputs(d, n=n)[0].ravel() for d in (64, 128) for n in (64, 200)]
+        for values in [x, *fed]:
+            t = torch.from_numpy(values)
+            hi, mid, lo = t_bb.split_bf16(t)
+            assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+            assert torch.equal(hi.double() + mid.double() + lo.double(), t.double())
+            assert torch.equal(mid, (t - hi.float()).bfloat16())  # each piece is the rounded rest
+
+    @pytest.mark.parametrize("pack,sw", [(False, None), (False, 24), (True, None)])
+    def test_twin_is_the_fp32_function(self, pack, sw):
+        port, _ = both(make_inputs(128, n=200), "float32")
+        kw = dict(num_heads=H, bb=2, cg=H * 128, sliding_window=sw, pack=pack)
+        want = t_bb.fused_attention_bb_plain(*port, **kw)
+        got = t_bb.fused_attention_bb_split_plain(*port, **kw)
+        assert got.dtype == torch.float32
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+    @pytest.mark.parametrize("d,n,bb,sw", [(64, 64, 1, None), (64, 200, 2, 24), (128, 64, 2, None),
+                                           (128, 200, 1, 40)])
+    def test_twin_matches_kernel_bb(self, d, n, bb, sw):
+        port, jax_args = both(make_inputs(d, n=n), "float32")
+        got = t_bb.fused_attention_bb_split_plain(*port, num_heads=H, bb=bb, cg=H * d, sliding_window=sw)
+        want = np.asarray(j_bb.fused_attention_bb(*jax_args, num_heads=H, bb=bb, cg=H * d, sliding_window=sw,
+                                                  interpret=True))
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+    @pytest.mark.parametrize("d,n", [(64, 200), (128, 64)])
+    def test_twin_matches_kernel_pack(self, d, n):
+        port, jax_args = both(make_inputs(d, n=n), "float32")
+        got = t_bb.fused_attention_bb_split_plain(*port, num_heads=H, bb=2, cg=H * d, pack=True)
+        want = np.asarray(j_bb.fused_attention_bb(*jax_args, num_heads=H, bb=2, cg=H * d, pack=True,
+                                                  interpret=True))
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+        # image 3 (no valid key): the mean of v over its pack of two
+        mean_pack = port[0][2:4, :, 2 * H * d:].reshape(-1, H * d).mean(0)
+        assert (got[3] - mean_pack).abs().max().item() <= 1e-5 * np.abs(want).max()
+
+    def test_twin_refuses_bf16(self):
+        port, _ = both(make_inputs(64), "bfloat16")
+        with pytest.raises(TypeError, match="float32"):
+            t_bb.fused_attention_bb_split_plain(*port, num_heads=H, bb=1, cg=64)
+
+
 class TestWrappers:
     def test_refused_splits_raise_value_error_up_front(self):
         port, _ = both(make_inputs(64), "float32")
@@ -175,21 +228,26 @@ class TestEntryPoints:
         for name in names:
             assert f"\n{name} (" in out and "ms/call" in out
             if name != "B":
-                # P2 in bf16 runs the redesigned forward's (wgmma) body: held to it (X)
-                ref = "X" if name == "P2" else "B"
-                assert f"numeric {name}: max|{name}-{ref}| = 0.000000 (expect 0.0)" in out
-                assert result["references"][name].startswith(f"{ref}: ")
+                # in bf16 every arm but B runs the redesigned forward's (wgmma) body: held to it (X)
+                assert f"numeric {name}: max|{name}-X| = 0.000000 (expect 0.0)" in out
+                assert result["references"][name].startswith("X: ")
                 assert f"delta {name}/B = " in out
         assert all(v == 0.0 for v in result["numeric"].values())
         assert "redesigned forward" in result["references"]["P2"]
-        assert set(result["references"]) == set(result["numeric"])
+        assert set(result["references"]) == set(result["numeric"]) == set(names) - {"B"}
+        assert "numeric redesigned: max|X-B|" in out and "walker_f32" not in result
 
     def test_batch_block_main_holds_the_fp32_pack_to_arm_b(self, capsys):
         result = t_bb.main(["--c", "1536", "--heads", "12", "--tokens", "64", "--batch", "2", "--dtype", "float32",
                             "--iters", "1", "--layers", "1", "--device", "cpu"])
         out = capsys.readouterr().out
-        assert "numeric P2: max|P2-B| = 0.000000 (expect 0.0)" in out
-        assert all(r.startswith("B: ") for r in result["references"].values())
+        # in fp32 every arm but B runs the fp32 walker: held to its one-cell-a-block arm (W), and W to B
+        assert {"P2", "D2", "C128"} <= set(result["numeric"])
+        for name in result["numeric"]:
+            assert f"numeric {name}: max|{name}-W| = 0.000000 (expect 0.0)" in out
+        assert all(r.startswith("W: the fp32 walker") for r in result["references"].values())
+        assert "numeric fp32 walker: max|W-B| = 0.000e+00" in out
+        assert result["walker_f32"]["max_abs_vs_B"] == 0.0 and result["walker_f32"]["max_abs_B"] > 0
         assert "redesigned" not in result and all(v == 0.0 for v in result["numeric"].values())
 
     def test_q8_input_main_prints_every_arm(self, capsys):

@@ -704,12 +704,15 @@ class TestFp32ForwardOnCard:
 
 @pytest.mark.cuda
 class TestABKernelsOnCard:
-    """The A/B kernels hold the bits of the forward whose body they run: #10,
-    #12 (on the assembled tensor) and the fp32 instances of #11 and #13 the
-    mma.sync forward's (``csrc/fused_attention_ab.cu``, body
-    ``fused_attend.cuh``); #11 (on images with a valid key) and #13 in bf16
-    the redesigned forward's (``csrc/fused_attention_ab_sm90.cu``, the wgmma
-    body of ``fused_attend_sm90.cuh``, after the q/k prologue). Each is
+    """The A/B kernels hold the bits of the forward whose body they run: #12
+    (on the assembled tensor) and #13 in fp32 the mma.sync forward's
+    (``csrc/fused_attention_ab.cu``, body ``fused_attend.cuh``); #10, #11
+    (on images with a valid key) and #13 in bf16 the redesigned forward's
+    (``csrc/fused_attention_ab_sm90.cu``, the wgmma body of
+    ``fused_attend_sm90.cuh``, after the q/k prologue); #10 and #11 in fp32
+    those of the fp32 walker with one cell a block
+    (``csrc/fused_attention_ab_f32_sm90.cu``, ``fused_attend_f32_sm90.cuh``),
+    which is within 1e-5 of the largest entry of the FMA forward. Each is
     within the forward's limits of its plain version (bf16: max 2e-2, mean
     2e-3 on valid rows, a dead image's rows included; fp32: 1e-5 of the
     largest entry)."""
@@ -721,6 +724,12 @@ class TestABKernelsOnCard:
     @staticmethod
     def _redesigned(qkv, rest, heads, sw=None):
         return t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
+
+    @staticmethod
+    def _one_cell(qkv, rest, heads, sw=None):
+        """The fp32 walker with one cell (one image, one head) a block."""
+        d = qkv.shape[-1] // 3 // heads
+        return t_bb.fused_attention_bb(qkv, *rest, num_heads=heads, bb=1, cg=d, sliding_window=sw)
 
     @staticmethod
     def _assert_bf16_close(got, want, mask):
@@ -735,14 +744,19 @@ class TestABKernelsOnCard:
     @pytest.mark.parametrize("sw", [None, 24])
     def test_batch_block_equals_the_forward_kernel(self, cuda_device, no_tf32, dtype, d, heads, bb, hpb, sw):
         qkv, *rest = ab_inputs(cuda_device, dtype, d=d, heads=heads)
-        before = dict(t_bb.LAUNCHES)
+        f32 = dtype == torch.float32
+        name = "fused_attention_bb_f32" if f32 else "fused_attention_bb"
+        before, fa_before = dict(t_bb.LAUNCHES), counts()
         got = t_bb.fused_attention_bb(qkv, *rest, num_heads=heads, bb=bb, cg=hpb * d, sliding_window=sw)
-        assert t_bb.LAUNCHES == {**before, "fused_attention_bb": before["fused_attention_bb"] + 1}
-        assert torch.equal(got, self._forward(qkv, rest, heads, sw))
+        assert t_bb.LAUNCHES == {**before, name: before[name] + 1}
+        assert counts() == added(fa_before, prologue=0 if f32 else 1)
+        reference = (self._one_cell if f32 else self._redesigned)(qkv, rest, heads, sw)
+        assert torch.equal(got, reference)
         want = t_bb.fused_attention_bb_plain(qkv, *rest, num_heads=heads, bb=bb, cg=hpb * d, sliding_window=sw)
         torch.cuda.synchronize()
-        if dtype == torch.float32:
+        if f32:
             assert_fp32_close(got, want)
+            assert_fp32_close(reference, self._forward(qkv, rest, heads, sw))
         else:
             err = (got.float() - want.float()).abs()[rest[-1]]
             assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
@@ -756,7 +770,7 @@ class TestABKernelsOnCard:
         before, prologue = t_bb.LAUNCHES[name], t_fa.PROLOGUE_LAUNCHES
         got = t_bb.fused_attention_bb(qkv, *rest, num_heads=heads, bb=2, cg=heads * d, pack=True)
         assert t_bb.LAUNCHES[name] == before + 1 and t_fa.PROLOGUE_LAUNCHES == prologue + (0 if f32 else 1)
-        forward = self._forward if f32 else self._redesigned
+        forward = self._one_cell if f32 else self._redesigned
         assert torch.equal(got[:3], forward(qkv, rest, heads)[:3])
         want = t_bb.fused_attention_bb_plain(qkv, *rest, num_heads=heads, bb=2, cg=heads * d, pack=True)
         if f32:
@@ -766,6 +780,26 @@ class TestABKernelsOnCard:
             self._assert_bf16_close(got, want, None)
         mean_pack = qkv.float()[2:4, :, 2 * heads * d:].reshape(-1, heads * d).mean(0)
         assert (got[3].float() - mean_pack).abs().max().item() <= (1e-5 if f32 else 2e-2)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n", [60, 64, 200, 1024])
+    @pytest.mark.parametrize("case", ["none", "tail+dead"])
+    @pytest.mark.parametrize("bb,hpb,pack", [(2, 2, False), (4, 1, False), (2, 1, True), (4, 2, True)])
+    def test_fp32_walker_splits_equal_one_cell_a_block(self, cuda_device, no_tf32, d, n, case, bb, hpb, pack):
+        """Every split of the fp32 walker gives a row the bits of the split
+        with one cell a block (the pack on images with a valid key; a dead
+        image in a pack the mean of v over the pack), within 1e-5 of the
+        plain version; and one cell a block within 1e-5 of the FMA forward.
+        N = 60 is ragged (the fp32 walker takes any N)."""
+        qkv, *rest = ab_inputs(cuda_device, torch.float32, n=n, heads=2, d=d, case=case)
+        one = self._one_cell(qkv, rest, 2)
+        got = t_bb.fused_attention_bb(qkv, *rest, num_heads=2, bb=bb, cg=hpb * d, pack=pack)
+        live = slice(0, 3) if pack and case != "none" else slice(None)
+        assert torch.equal(got[live], one[live])
+        want = t_bb.fused_attention_bb_plain(qkv, *rest, num_heads=2, bb=bb, cg=hpb * d, pack=pack)
+        torch.cuda.synchronize()
+        assert_fp32_close(got, want)
+        assert_fp32_close(one, self._forward(qkv, rest, 2))
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("d,heads", [(64, 16), (128, 3)])
@@ -820,11 +854,11 @@ class TestABKernelsOnCard:
         self._assert_bf16_close(got, want, rest[-1])
 
     def test_walkers_report_their_attributes(self, cuda_device):
-        from vitok_torch.benchmarks import sm90_attributes
+        from vitok_torch.benchmarks import WALKER_KINDS, sm90_attributes
 
         for d in (64, 128):
-            for pack in (True, False):
-                a = sm90_attributes(d, pack, bb=2)
+            for kind in WALKER_KINDS:
+                a = sm90_attributes(d, kind, bb=2)
                 assert 0 < a["registers"] <= 255 and a["blocks_per_sm"] >= 1 and a["smem_bytes"] > 0
 
     @pytest.mark.parametrize("d,heads", [(64, 4), (128, 2)])
@@ -853,6 +887,10 @@ class TestABKernelsOnCard:
         with pytest.raises(TypeError, match="bfloat16"):
             t_ab8.fused_attention_contig(qkv.half(), *rest, num_heads=2)
         ragged, *rrest = ab_inputs(cuda_device, torch.bfloat16, n=60)
-        with pytest.raises(ValueError, match="multiple of 8"):
-            t_bb.fused_attention_bb(ragged[:, :58].contiguous(), rrest[0], rrest[1], rrest[2][:, :58].contiguous(),
-                                    rrest[3][:, :58].contiguous(), None, num_heads=2, bb=2, cg=128, pack=True)
+        ragged_args = (ragged[:, :58].contiguous(), rrest[0], rrest[1], rrest[2][:, :58].contiguous(),
+                       rrest[3][:, :58].contiguous(), None)
+        before, fa_before = dict(t_bb.LAUNCHES), counts()
+        for pack in (True, False):  # bf16 #11 and #10: refused before anything launches
+            with pytest.raises(ValueError, match="multiple of 8"):
+                t_bb.fused_attention_bb(*ragged_args, num_heads=2, bb=2, cg=128, pack=pack)
+        assert t_bb.LAUNCHES == before and counts() == fa_before

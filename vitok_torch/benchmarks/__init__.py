@@ -2,11 +2,13 @@
 
 ``benchmarks/ab_batch_block.py`` and ``benchmarks/ab_q8_input.py`` (JAX)
 time variants of the fused attention kernel against it. Here each variant
-is a hand-written Hopper kernel in ``vitok_torch/csrc/fused_attention_ab.cu``
-(the pack and contig variants in bf16: ``fused_attention_ab_sm90.cu``)
-beside its plain PyTorch version, and each module's ``main()`` takes the JAX
-script's flags (plus ``--device``) and builds, checks and times the same
-arms:
+is a hand-written Hopper kernel beside its plain PyTorch version: in bf16 the
+batch-block, pack and contig variants run the wgmma walker
+(``vitok_torch/csrc/fused_attention_ab_sm90.cu``), in fp32 the batch-block
+and pack variants the fp32 walker (``fused_attention_ab_f32_sm90.cu``), and
+the int8-input variant and fp32 contig the mma.sync / FMA body
+(``fused_attention_ab.cu``). Each module's ``main()`` takes the JAX script's
+flags (plus ``--device``) and builds, checks and times the same arms:
 
     python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 24 --tokens 256 --batch 64 --layers 256 --iters 6
     python -m vitok_torch.benchmarks.ab_q8_input --c 3072 --heads 24 --tokens 256 --batch 64
@@ -55,7 +57,6 @@ def kernel_lib() -> ctypes.CDLL:
     lib = _build.load("fused_attention_ab")
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
-        (lib.vitok_fused_attention_bb, [ptr] * 7 + [i] * 9 + [ptr]),
         (lib.vitok_fused_attention_contig_f32, [ptr] * 7 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_q8in, [ptr] * 8 + [i] * 5 + [ptr]),
     ):
@@ -66,12 +67,13 @@ def kernel_lib() -> ctypes.CDLL:
 
 
 def sm90_lib() -> ctypes.CDLL:
-    """``csrc/fused_attention_ab_sm90.cu`` (the bf16 pack and contig
-    kernels on the wgmma body), built on first use."""
+    """``csrc/fused_attention_ab_sm90.cu`` (the bf16 batch-block, pack and
+    contig kernels on the wgmma walker), built on first use."""
     lib = _build.load("fused_attention_ab_sm90")
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
         (lib.vitok_fused_attention_pack_sm90, [ptr] * 7 + [i] * 6 + [ptr]),
+        (lib.vitok_fused_attention_bb_sm90, [ptr] * 7 + [i] * 7 + [ptr]),
         (lib.vitok_fused_attention_contig_sm90, [ptr] * 7 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_ab_sm90_attributes, [i] * 3 + [ptr]),
     ):
@@ -81,14 +83,31 @@ def sm90_lib() -> ctypes.CDLL:
     return lib
 
 
+def f32_lib() -> ctypes.CDLL:
+    """``csrc/fused_attention_ab_f32_sm90.cu`` (the fp32 batch-block and pack
+    kernels on the fp32 walker), built on first use."""
+    lib = _build.load("fused_attention_ab_f32_sm90")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+        (lib.vitok_fused_attention_walk_f32, [ptr] * 7 + [i] * 8 + [ptr]),
+        (lib.vitok_fused_attention_ab_f32_sm90_attributes, [i] * 3 + [ptr]),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def walk_sm90(qkv: torch.Tensor, kn: torch.Tensor, q_scale: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-              mask: Optional[torch.Tensor], num_heads: int, *, sw: int = -1, bb: int = 0,
-              hpb: int = 0) -> torch.Tensor:
+              mask: Optional[torch.Tensor], num_heads: int, *, sw: int = -1, bb: int = 0, hpb: int = 0,
+              pack: bool = False) -> torch.Tensor:
     """One launch of a bf16 wgmma walker on ``kn``, the q/k prologue's
-    normed k (``[B, N, C]``): with ``bb`` > 0 the pack kernel (``bb`` images
-    x ``hpb`` heads a block), else the contig kernel (window ``sw``, -1 for
-    none). The other arguments as ``fused_attention._check_cuda_args``
-    returns them. Counts nothing: its callers count."""
+    normed k (``[B, N, C]``): with ``bb`` > 0 the pack kernel (``pack``; no
+    window) or the batch-block kernel (window ``sw``, -1 for none), ``bb``
+    images x ``hpb`` heads a block; with ``bb`` = 0 the contig kernel (all
+    heads of a sample a block, window ``sw``). The other arguments as
+    ``fused_attention._check_cuda_args`` returns them. Counts nothing: its
+    callers count."""
     b, n, c3 = qkv.shape
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lib = sm90_lib()
@@ -96,23 +115,55 @@ def walk_sm90(qkv: torch.Tensor, kn: torch.Tensor, q_scale: torch.Tensor, cos: t
     ptrs = (kn.data_ptr(), qkv.data_ptr(), q_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    kind = "contig" if bb == 0 else ("pack" if pack else "bb")
     with torch.cuda.device(qkv.device):
-        if bb > 0:
+        if kind == "pack":
             err = lib.vitok_fused_attention_pack_sm90(*ptrs, b, n, num_heads, d, bb, hpb, stream)
+        elif kind == "bb":
+            err = lib.vitok_fused_attention_bb_sm90(*ptrs, b, n, num_heads, d, bb, hpb, sw, stream)
         else:
             err = lib.vitok_fused_attention_contig_sm90(*ptrs, b, n, num_heads, d, sw, stream)
-    _build.check(lib, err, "fused_attention_" + ("pack" if bb > 0 else "contig") + "_sm90 launch")
+    _build.check(lib, err, f"fused_attention_{kind}_sm90 launch")
     return out
 
 
-def sm90_attributes(d: int, pack: bool, bb: int = 1) -> dict:
+def walk_f32(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, cos: torch.Tensor,
+             sin: torch.Tensor, mask: Optional[torch.Tensor], num_heads: int, *, bb: int, hpb: int, sw: int = -1,
+             pack: bool = False) -> torch.Tensor:
+    """One launch of the fp32 walker on an fp32 ``qkv`` (q and k normed in
+    the kernel): ``bb`` images x ``hpb`` heads a block, packed (``pack``; no
+    window) or each its own softmax (window ``sw``, -1 for none). The other
+    arguments as ``fused_attention._check_cuda_args`` returns them. Counts
+    nothing: its callers count."""
+    b, n, c3 = qkv.shape
+    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lib = f32_lib()
+    with torch.cuda.device(qkv.device):
+        err = lib.vitok_fused_attention_walk_f32(
+            qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), b, n, num_heads, c3 // 3 // num_heads, bb,
+            hpb, sw, int(pack), torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(lib, err, "fused_attention_" + ("pack" if pack else "bb") + "_f32_sm90 launch")
+    return out
+
+
+WALKER_KINDS = ("contig", "pack", "bb", "pack_f32", "bb_f32")
+
+
+def sm90_attributes(d: int, kind: str, bb: int = 1) -> dict:
     """Registers and local memory (spills) a thread, blocks an SM and shared
-    memory a block of the pack (``bb`` images a block) or contig kernel at
-    head dim ``d``, as the compiler and the card report them."""
-    lib = sm90_lib()
+    memory a block of one walker instance at head dim ``d``, as the compiler
+    and the card report them: ``kind`` one of ``WALKER_KINDS`` (the bf16
+    contig, pack and batch-block kernels, the fp32 pack and batch-block
+    kernels), ``bb`` images a block."""
     out = (ctypes.c_int * 4)()
-    _build.check(lib, lib.vitok_fused_attention_ab_sm90_attributes(d, int(pack), bb, out),
-                 "fused_attention_ab_sm90 attributes")
+    if kind.endswith("_f32"):
+        lib = f32_lib()
+        err = lib.vitok_fused_attention_ab_f32_sm90_attributes(d, int(kind == "pack_f32"), bb, out)
+    else:
+        lib = sm90_lib()
+        err = lib.vitok_fused_attention_ab_sm90_attributes(d, ("contig", "pack", "bb").index(kind), bb, out)
+    _build.check(lib, err, f"{kind} walker attributes")
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
@@ -187,5 +238,6 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor, rows: Optional[torch.Tensor] 
     return float((d if rows is None else d[rows]).max())
 
 
-__all__ = ["pick_group_channels", "kernel_lib", "sm90_lib", "walk_sm90", "sm90_attributes", "check_device",
-           "card_line", "resolve_device", "rope_inputs", "chained_ms", "max_abs_diff"]
+__all__ = ["pick_group_channels", "kernel_lib", "sm90_lib", "f32_lib", "walk_sm90", "walk_f32", "WALKER_KINDS",
+           "sm90_attributes", "check_device", "card_line", "resolve_device", "rope_inputs", "chained_ms",
+           "max_abs_diff"]

@@ -5,24 +5,25 @@ groups, packed images), the port's counterpart of
 On the TPU the question was whether a fixed per-grid-cell cost dominates the
 fused kernel, asked by giving a cell ``bb`` batch items of ``cg`` channels.
 On the card a block of :func:`fused_attention_bb` walks ``bb`` samples x
-``cg / d`` heads of one 64-query tile (``csrc/fused_attention_ab.cu``,
-replacing ``_kernel_bb``), and with ``pack=True`` the ``bb`` samples are
-images packed along the token axis of one score tile (``_kernel_pack``):
-the same question of a block's fixed cost against its serial work. Every arm
-computes the fused forward's function on the body of one of its kernels, so
-on the card it equals that kernel bit for bit, and each numeric leg names
-the kernel it is held to. The #10 arms run the mma.sync body of
-``csrc/fused_attend.cuh`` and are held to arm B (the mma.sync forward,
-:func:`fused_qkv_attention_mma`). P2 in bf16 runs the wgmma body of
-``csrc/fused_attend_sm90.cuh`` in a block that walks its cells on one tile
-ring (``csrc/fused_attention_ab_sm90.cu``) and is held to the redesigned
-forward (:func:`fused_qkv_attention`: the q/k prologue and the wgmma kernel;
-X in the printed lines), on images with a valid key; in fp32 it runs the
-FMA body and is held to B. In bf16 one more row times the redesigned
-forward beside the arms, with its delta and its largest distance from B.
+``cg / d`` heads of one 64-query tile (replacing ``_kernel_bb``), and with
+``pack=True`` the ``bb`` samples are images packed along the token axis of
+one score tile (``_kernel_pack``): the same question of a block's fixed cost
+against its serial work. Both run on a walker, a block that takes its cells
+on one tile ring: in bf16 the wgmma body of ``csrc/fused_attend_sm90.cuh``
+after the q/k prologue (``csrc/fused_attention_ab_sm90.cu``), in fp32 the
+fp32 walker of ``csrc/fused_attend_f32_sm90.cuh``, whose products run on the
+tensor cores at fp32 accuracy (``csrc/fused_attention_ab_f32_sm90.cu``). A
+cell's result does not depend on the split, so each numeric leg reads 0
+against the reference it names: in bf16 the redesigned forward
+(:func:`fused_qkv_attention`: the q/k prologue and the wgmma kernel; X in
+the printed lines), on images with a valid key for the pack; in fp32 the
+fp32 walker with one cell a block (W). Arm B is the mma.sync forward
+(:func:`fused_qkv_attention_mma`; its FMA instance in fp32); one more line
+gives the reference's largest distance from it, and in bf16 one more row
+times the redesigned forward beside the arms.
 
-Arms: B (the mma.sync forward), G (the largest 128-aligned group below C), S2,
-D2, D4, C768 ... C128 and P2, as in JAX. Recorded invocations:
+Arms: B, G (the largest 128-aligned group below C), S2, D2, D4, C768 ...
+C128 and P2, as in JAX. Recorded invocations:
 
     python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 24 --tokens 256 --batch 64 --layers 256 --iters 6
     python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 24 --tokens 64 --batch 256 --dtype float32 --layers 256 --iters 6
@@ -38,20 +39,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vitok_torch.benchmarks import (card_line, chained_ms, check_device, kernel_lib, max_abs_diff,
-                                    pick_group_channels, resolve_device, rope_inputs, walk_sm90)
-from vitok_torch.ops import _build
+from vitok_torch.benchmarks import (card_line, chained_ms, check_device, max_abs_diff, pick_group_channels,
+                                    resolve_device, rope_inputs, walk_f32, walk_sm90)
 from vitok_torch.ops import fused_attention as fa
 
-# Launches of each kernel since its count was last set to 0: #10 (bf16 and
-# fp32), #11 in bf16 (the wgmma walker; its q/k prologue counts in
-# ``fused_attention.PROLOGUE_LAUNCHES``) and #11's fp32 instance.
-LAUNCHES = {"fused_attention_bb": 0, "fused_attention_pack": 0, "fused_attention_pack_f32": 0}
+# Launches of each kernel since its count was last set to 0: #10 and #11 in
+# bf16 (the wgmma walker; their q/k prologue counts in
+# ``fused_attention.PROLOGUE_LAUNCHES``) and in fp32 (the fp32 walker).
+LAUNCHES = {"fused_attention_bb": 0, "fused_attention_pack": 0, "fused_attention_bb_f32": 0,
+            "fused_attention_pack_f32": 0}
 
 
 # The references a numeric leg is held to, by the symbol its line prints.
-REFERENCES = {"B": "B: the mma.sync forward (fused_qkv_attention_mma)",
-              "X": "X: the redesigned forward (fused_qkv_attention: q/k prologue + wgmma kernel)"}
+REFERENCES = {"B": "B: the mma.sync forward (fused_qkv_attention_mma; its FMA instance in fp32)",
+              "X": "X: the redesigned forward (fused_qkv_attention: q/k prologue + wgmma kernel)",
+              "W": "W: the fp32 walker with one cell a block (fused_attention_bb, bb=1, one head)"}
 
 
 def check_arm(shape, num_heads: int, bb: int, cg: int, sliding_window=None, pack: bool = False):
@@ -123,6 +125,76 @@ def fused_attention_bb_plain(
                                         num_heads=num_heads, sliding_window=sliding_window)
 
 
+# The six products of the fp32 walker's split, small terms first: the pieces
+# (0 hi, 1 mid, 2 lo) of the two operands.
+SPLIT_PRODUCTS = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def split_bf16(x: torch.Tensor):
+    """An fp32 tensor as three bf16 pieces whose sum is ``x`` exactly:
+    ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+def split_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, a, b)`` of two fp32 tensors as the fp32 walker forms it:
+    the six products of their pieces (:data:`SPLIT_PRODUCTS`), each exact
+    products summed in fp32, added in that order."""
+    pa, pb = split_bf16(a), split_bf16(b)
+    out = None
+    for i, j in SPLIT_PRODUCTS:
+        term = torch.einsum(eq, pa[i].float(), pb[j].float())
+        out = term if out is None else out + term
+    return out
+
+
+def fused_attention_bb_split_plain(
+    qkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    patch_mask: Optional[torch.Tensor] = None,
+    *,
+    num_heads: int,
+    bb: int,
+    cg: int,
+    sliding_window: Optional[int] = None,
+    pack: bool = False,
+) -> torch.Tensor:
+    """The fp32 walker's arithmetic in plain PyTorch, on an fp32 ``qkv``:
+    the fp32 function of :func:`fused_attention_bb_plain` (packed with
+    ``pack``) with both products (S = Q K^T and P V) formed by
+    :func:`split_einsum` and P not rounded. The kernel is held to
+    :func:`fused_attention_bb_plain`; this twin shows that the split itself
+    computes that function."""
+    check_arm(qkv.shape, num_heads, bb, cg, sliding_window, pack)
+    if qkv.dtype != torch.float32:
+        raise TypeError(f"the fp32 walker takes float32 qkv, got {qkv.dtype}")
+    b, n, c3 = qkv.shape
+    q, k, v = fa._split_qkv(qkv, num_heads)
+    d = q.shape[-1]
+    q, k = fa._qk_norm_rope(q, k, q_scale, k_scale, cos, sin)
+    g = bb if pack else 1  # images in one score tile
+    nn = g * n
+    q, k, v = (t.reshape(b // g, nn, num_heads, d) for t in (q, k, v))
+    image = torch.arange(nn, device=qkv.device) // n
+    keep = (image[:, None] == image[None, :])[None]
+    if patch_mask is not None:
+        keep = keep & patch_mask.bool().reshape(b // g, 1, nn)
+    if sliding_window is not None:
+        idx = torch.arange(n, device=qkv.device)
+        keep = keep & ((idx[:, None] - idx[None, :]).abs() <= sliding_window)[None]
+    s = split_einsum("gqhd,gkhd->ghqk", q, k) * (1.0 / d ** 0.5 * fa._LOG2E)
+    s = s.masked_fill(~keep[:, None], fa._NEG_FILL)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    o = split_einsum("ghqk,gkhd->gqhd", p, v) / p.sum(-1).transpose(1, 2)[..., None]
+    return o.reshape(b, n, c3 // 3)
+
+
 def fused_attention_bb(
     qkv: torch.Tensor,
     q_scale: torch.Tensor,
@@ -142,11 +214,14 @@ def fused_attention_bb(
 
     ``qkv`` is ``[B, N, 3C]`` bf16 or fp32; the other arguments are those of
     :func:`~vitok_torch.ops.fused_attention.fused_qkv_attention`. A split the
-    kernels do not take raises ValueError before anything runs. On a CUDA
-    tensor it launches ``fused_attention_bb_kernel`` (bf16 and fp32), or
-    with ``pack`` in bf16 the q/k prologue and then
-    ``fused_attention_pack_sm90_kernel`` (the wgmma body; N a multiple of 8),
-    in fp32 ``fused_attention_pack_kernel``; or raises. On a CPU tensor it
+    kernels do not take raises ValueError before anything runs, as does in
+    bf16 an N that is not a multiple of 8. On a CUDA tensor it launches, in
+    bf16, the q/k prologue and then ``fused_attention_bb_sm90_kernel`` or
+    with ``pack`` ``fused_attention_pack_sm90_kernel`` (the wgmma walker,
+    ``csrc/fused_attention_ab_sm90.cu``); in fp32
+    ``fused_attention_bb_f32_sm90_kernel`` or
+    ``fused_attention_pack_f32_sm90_kernel`` (the fp32 walker,
+    ``csrc/fused_attention_ab_f32_sm90.cu``); or raises. On a CPU tensor it
     runs :func:`fused_attention_bb_plain`.
     """
     check_arm(qkv.shape, num_heads, bb, cg, sliding_window, pack)
@@ -157,22 +232,15 @@ def fused_attention_bb(
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = fa._check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
         dtypes=(torch.bfloat16, torch.float32))
-    if pack and qkv.dtype == torch.bfloat16:  # the wgmma walker, after the q/k prologue
+    split = dict(bb=bb, hpb=cg // d, sw=sw, pack=pack)
+    if qkv.dtype == torch.bfloat16:  # the wgmma walker, after the q/k prologue
         fa._check_rows(n)
         kn, _ = fa._prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=False)
-        out = walk_sm90(qkv, kn, q_scale, cos, sin, mask, num_heads, bb=bb, hpb=cg // d)
-        LAUNCHES["fused_attention_pack"] += 1
+        out = walk_sm90(qkv, kn, q_scale, cos, sin, mask, num_heads, **split)
+        LAUNCHES["fused_attention_pack" if pack else "fused_attention_bb"] += 1
         return out
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-    lib = kernel_lib()
-    with torch.cuda.device(qkv.device):
-        err = lib.vitok_fused_attention_bb(
-            qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            fa._ptr(mask), out.data_ptr(), b, n, num_heads, d, bb, cg // d, sw, int(pack),
-            int(qkv.dtype == torch.float32), torch.cuda.current_stream(qkv.device).cuda_stream)
-    name = "fused_attention_pack_f32" if pack else "fused_attention_bb"
-    _build.check(lib, err, f"{name} launch")
-    LAUNCHES[name] += 1
+    out = walk_f32(qkv, q_scale, k_scale, cos, sin, mask, num_heads, **split)
+    LAUNCHES["fused_attention_pack_f32" if pack else "fused_attention_bb_f32"] += 1
     return out
 
 
@@ -229,11 +297,17 @@ def main(argv=None) -> dict:
         return lambda cos_: fused_attention_bb(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h,
                                                bb=bb, cg=cg, pack=pack)
 
-    new_call = new_out = None
-    if dtype == torch.bfloat16:  # the redesigned forward: bf16 only
+    # The numeric legs' reference: in bf16 the redesigned forward (X), whose
+    # body every arm but B runs; in fp32 the fp32 walker with one cell a
+    # block (W), timed as arm C128 where d = 128.
+    f32 = dtype == torch.float32
+    if f32:
+        new_call = lambda cos_: fused_attention_bb(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h, bb=1, cg=d)
+    else:
         new_call = lambda cos_: fa.fused_qkv_attention(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h,
                                                        impl="fused")
-        new_out = new_call(cos)
+    new_out = new_call(cos)
+    ref = "W" if f32 else "X"
     arms, numeric, references, skipped = [], {}, {}, {}
     ref_out = None
     for name, bb, cg, desc in arm_defs(c, d, n, b, h):
@@ -254,28 +328,27 @@ def main(argv=None) -> dict:
         if ref_out is None:
             ref_out = out
         else:
-            # The arm's reference is the forward whose body it runs: the bf16 pack
-            # runs the redesigned forward's (wgmma), every other arm B's (mma.sync).
-            ref = "X" if pack and new_out is not None else "B"
-            numeric[name] = max_abs_diff(out, new_out if ref == "X" else ref_out)
+            numeric[name] = max_abs_diff(out, new_out)
             references[name] = ref
             print(f"numeric {name}: max|{name}-{ref}| = {numeric[name]:.6f} (expect 0.0)")
         chained_ms(call, cos, layers, 0.0)  # warm the chained run
         arms.append((name, call, desc))
-    new_diff = None
-    if new_out is not None:
-        new_diff = max_abs_diff(new_out, ref_out)
+    new_diff = max_abs_diff(new_out, ref_out)
+    if f32:
+        top = float(ref_out.abs().max())
+        print(f"numeric fp32 walker: max|W-B| = {new_diff:.3e} (another kernel: within 1e-5 of B's largest entry "
+              f"{top:.3f}, not 0)")
+    else:
         print(f"numeric redesigned: max|X-B| = {new_diff:.6f} (another kernel: within #1's limits, not 0)")
         chained_ms(new_call, cos, layers, 0.0)
         redesigned = ("redesigned", new_call, "the redesigned forward: q/k prologue + wgmma kernel")
     del out, new_out, ref_out
 
-    times = {name: [] for name, _, _ in arms}
-    if new_diff is not None:
-        times["redesigned"] = []
+    timed = arms + ([] if f32 else [redesigned])
+    times = {name: [] for name, _, _ in timed}
     t = 1.0
     for _ in range(args.iters):
-        for name, call, _ in arms + ([redesigned] if new_diff is not None else []):
+        for name, call, _ in timed:
             times[name].append(chained_ms(call, cos, layers, t))
             t += 1.0
 
@@ -283,20 +356,20 @@ def main(argv=None) -> dict:
     byts = b * n * (3 * c * isz + c * isz)  # qkv in + attn out
     result = {"device": card_line(device), "arms": {}, "numeric": numeric,
               "references": {k: REFERENCES[v] for k, v in references.items()}, "skipped": skipped}
-    for name, _, desc in arms:
+    for name, _, desc in timed:
         ms = np.array(times[name])
-        result["arms"][name] = {"ms": float(ms.mean()), "min_ms": float(ms.min()), "n": len(ms), "desc": desc}
+        row = {"ms": float(ms.mean()), "min_ms": float(ms.min()), "n": len(ms), "desc": desc}
+        if name == "redesigned":
+            result["redesigned"] = {**row, "max_abs_vs_B": new_diff}
+        else:
+            result["arms"][name] = row
         print(f"{name} ({desc}): {ms.mean():.3f} ms/call (min {ms.min():.3f}, n={len(ms)}) "
               f"eff-BW {byts / ms.mean() / 1e6:.0f} GB/s")
-    if new_diff is not None:
-        ms = np.array(times["redesigned"])
-        result["redesigned"] = {"ms": float(ms.mean()), "min_ms": float(ms.min()), "n": len(ms),
-                                "max_abs_vs_B": new_diff}
-        print(f"redesigned ({redesigned[2]}): {ms.mean():.3f} ms/call (min {ms.min():.3f}, n={len(ms)}) "
-              f"eff-BW {byts / ms.mean() / 1e6:.0f} GB/s")
+    if f32:
+        result["walker_f32"] = {"max_abs_vs_B": new_diff, "max_abs_B": top}
     if times.get("B"):
         bmean = np.mean(times["B"])
-        for name in [a[0] for a in arms] + (["redesigned"] if new_diff is not None else []):
+        for name, _, _ in timed:
             if name != "B":
                 r = np.mean(times[name]) / bmean
                 (result["arms"].get(name) or result["redesigned"])["delta"] = float(r)

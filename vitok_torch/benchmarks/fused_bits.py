@@ -2,26 +2,27 @@
 
 Runs the fused forward (#1), its int8 epilogue (#2) and its backward (#3)
 of the ``vitok_torch`` under ``--root`` on seeded inputs at the 350M and 5B
-widths (with and without a tail mask and a window), and at the 350M width
-and the recorded A/B shape (B 64, N 256) the A/B kernels #11 (the pack,
-P2's split: two images a pack, half the heads a block; no window) and #13
-(all heads of a tile), bf16; times #1, #3, #11 and #13 there
-(CUDA events, 20 calls after 3; #3 given the forward's output and
-log-sum-exp where its checkout takes them, so that the time is the
-backward's alone), saves the outputs, and with ``--against``
-compares them with a file an earlier run saved: #2 bit for bit; #1, #3,
-#11 and #13, which a checkout may compute on another kernel with the same
-rounding points, by their largest distance (valid rows) and rel L2 against
-the limits ``chip_smoke.py`` holds #1 and #3 to against their plain
-versions (#1, #11, #13: 2e-2 absolute; #3: 4e-2 of each gradient's largest
-entry, 3e-2 for the gains); and says whether #1 is bit for bit the earlier
-run's. Run by path, once per checkout, in turns (parent, change, change,
-parent):
+widths (with and without a tail mask and a window); at the 350M width and
+the recorded A/B shape (B 64, N 256) the A/B kernels #10 (arm D2's split:
+two images and half the heads a block, with the window), #11 (the pack,
+P2's split; no window) and #13 (all heads of a tile), bf16; and at the
+recorded fp32 A/B shape (B 256, N 64, C 3072) the fp32 instances of #1 and
+#13 and #10 (D2) and #11 (P2) in fp32. It times each (CUDA events, 20 calls
+after 3; #3 given the forward's output and log-sum-exp where its checkout
+takes them, so that the time is the backward's alone), saves the outputs,
+and with ``--against`` compares them with a file an earlier run saved: #2
+bit for bit; the rest, which a checkout may compute on another kernel with
+the same rounding points, by their largest distance (valid rows) and rel L2
+against the limits ``chip_smoke.py`` holds them to against their plain
+versions (bf16 #1, #10, #11, #13: 2e-2 absolute; #3: 4e-2 of each
+gradient's largest entry, 3e-2 for the gains; fp32: 1e-5 of the largest
+entry); and says which are bit for bit the earlier run's. Run by path, once
+per checkout, in turns (parent, change, change, parent):
 
     python vitok_torch/benchmarks/fused_bits.py --root PARENT --save /tmp/p.pt
     python vitok_torch/benchmarks/fused_bits.py --root . --save /tmp/c.pt --against /tmp/p.pt
 
-Exits 1 if #2 differs or #1, #3, #11 or #13 is past its limit. Needs a card.
+Exits 1 if #2 differs or any other output is past its limit. Needs a card.
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ import inspect
 import sys
 
 SHAPES = ((64, 256, 1024, 16), (16, 1024, 1024, 16), (64, 256, 3072, 24))  # B, N, C, H
-AB_SHAPES = (SHAPES[0], SHAPES[2])  # #11 and #13: the 350M width and the recorded A/B shape
+AB_SHAPES = (SHAPES[0], SHAPES[2])  # #10, #11 and #13: the 350M width and the recorded A/B shape
+F32_SHAPE = (256, 64, 3072, 24)     # the recorded fp32 A/B shape
 FWD_MAX_ABS = 2e-2   # chip_smoke.py's KERNEL_MAX_ABS
+F32_MAX_REL = 1e-5   # chip_smoke.py's AB_F32_MAX_REL
 BWD_MAX_REL = 4e-2   # chip_smoke.py's FUSED_BWD_MAX_REL
 GAIN_MAX_REL = 3e-2  # chip_smoke.py's FUSED_BWD_GAIN_REL
 
@@ -53,20 +56,45 @@ def _time_ms(fn) -> float:
 
 def _distances(key, new, old, mask):
     """(max |new - old| over valid rows, relative to the old tensor's largest
-    entry for the backward; rel L2; limit) per output tensor."""
+    entry for the backward and fp32; rel L2; limit) per output tensor."""
+    import torch
+
     out = []
     for i, (a, b) in enumerate(zip(new, old)):
+        f32 = a.dtype == torch.float32
         a, b = a.float(), b.float()
         err = (a - b).abs()
         if mask is not None and a.dim() == 3:
             err = err[mask]
         rel_l2 = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
-        if not key.endswith("bwd"):  # #1, #11, #13
+        top = b.abs().max().clamp(min=1e-30).item()
+        if key.endswith("bwd"):
+            out.append((err.max().item() / top, rel_l2, BWD_MAX_REL if i == 0 else GAIN_MAX_REL))
+        elif f32:
+            out.append((err.max().item() / top, rel_l2, F32_MAX_REL))
+        else:  # #1, #10, #11, #13 in bf16
             out.append((err.max().item(), rel_l2, FWD_MAX_ABS))
-        else:
-            out.append((err.max().item() / b.abs().max().clamp(min=1e-30).item(), rel_l2,
-                        BWD_MAX_REL if i == 0 else GAIN_MAX_REL))
     return out
+
+
+def _inputs(b, n, c, h, case, dtype):
+    """Seeded qkv (N(0, 1)), gains U(0.5, 1.5), tables U(0, 1); with a case
+    other than "none" a tail mask (another valid count per sample) and
+    window 64."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(b * n + c)
+    d = c // h
+    qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda").to(dtype)
+    qs = 0.5 + torch.rand(d, generator=gen, device="cuda")
+    ks = 0.5 + torch.rand(d, generator=gen, device="cuda")
+    cos = torch.rand(b, n, d // 2, generator=gen, device="cuda")
+    sin = torch.rand(b, n, d // 2, generator=gen, device="cuda")
+    mask, sw = None, None
+    if case != "none":
+        valid = torch.tensor([n - (i * n) // (b + 2) for i in range(b)], device="cuda")
+        mask, sw = torch.arange(n, device="cuda")[None] < valid[:, None], 64
+    return (qkv, qs, ks, cos, sin, mask), sw, gen
 
 
 def main(argv=None) -> int:
@@ -83,26 +111,17 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
     outputs, times, masks = {}, {}, {}
     for b, n, c, h in SHAPES:
         for case in ("none", "tail+sw"):
-            gen = torch.Generator(device="cuda").manual_seed(b * n + c)
-            d = c // h
-            qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda").bfloat16()
-            qs = 0.5 + torch.rand(d, generator=gen, device="cuda")
-            ks = 0.5 + torch.rand(d, generator=gen, device="cuda")
-            cos = torch.rand(b, n, d // 2, generator=gen, device="cuda")
-            sin = torch.rand(b, n, d // 2, generator=gen, device="cuda")
-            mask, sw = None, None
-            if case != "none":
-                valid = torch.tensor([n - (i * n) // (b + 2) for i in range(b)], device="cuda")
-                mask, sw = torch.arange(n, device="cuda")[None] < valid[:, None], 64
+            fwd_args, sw, gen = _inputs(b, n, c, h, case, torch.bfloat16)
             key = f"{b}x{n}x{c} {case}"
-            masks[key] = mask
-            fwd_args = (qkv, qs, ks, cos, sin, mask)
+            masks[key] = fwd_args[-1]
             fwd = lambda: fa.fused_qkv_attention(*fwd_args, num_heads=h, sliding_window=sw, impl="fused")
+            q8 = lambda: fa.fused_qkv_attention_q8(*fwd_args, num_heads=h, sliding_window=sw)
             outputs[key + " fwd"] = fwd()
-            outputs[key + " q8"] = fa.fused_qkv_attention_q8(*fwd_args, num_heads=h, sliding_window=sw)
+            outputs[key + " q8"] = q8()
             dout = torch.randn(b, n, c, generator=gen, device="cuda").bfloat16()
             saved = {}
             if "lse" in inspect.signature(fa.fused_qkv_attention_bwd).parameters:
@@ -111,36 +130,59 @@ def main(argv=None) -> int:
             bwd = lambda: fa.fused_qkv_attention_bwd(*fwd_args, dout, num_heads=h, sliding_window=sw, **saved)
             outputs[key + " bwd"] = bwd()
             times[key + " #1"] = _time_ms(fwd)
+            times[key + " #2"] = _time_ms(q8)
             times[key + " #3"] = _time_ms(bwd)
             if (b, n, c, h) in AB_SHAPES:
-                pack = lambda: abb.fused_attention_bb(*fwd_args, num_heads=h, bb=2, cg=c // 2, pack=True)
-                contig = lambda: ab8.fused_attention_contig(*fwd_args, num_heads=h, sliding_window=sw)
-                outputs[key + " pack"], outputs[key + " contig"] = pack(), contig()
-                times[key + " #11"], times[key + " #13"] = _time_ms(pack), _time_ms(contig)
+                legs = {
+                    "bb": ("#10", lambda: abb.fused_attention_bb(*fwd_args, num_heads=h, bb=2, cg=c // 2,
+                                                                 sliding_window=sw)),
+                    "pack": ("#11", lambda: abb.fused_attention_bb(*fwd_args, num_heads=h, bb=2, cg=c // 2,
+                                                                   pack=True)),
+                    "contig": ("#13", lambda: ab8.fused_attention_contig(*fwd_args, num_heads=h, sliding_window=sw)),
+                }
+                for leg, (num, call) in legs.items():
+                    outputs[f"{key} {leg}"] = call()
+                    times[f"{key} {num}"] = _time_ms(call)
+    b, n, c, h = F32_SHAPE
+    for case in ("none", "tail+sw"):
+        fwd_args, sw, _ = _inputs(b, n, c, h, case, torch.float32)
+        key = f"{b}x{n}x{c} {case} f32"
+        masks[key] = fwd_args[-1]
+        legs = {
+            "fwd": ("#1", lambda: fa.fused_qkv_attention(*fwd_args, num_heads=h, sliding_window=sw, impl="fused")),
+            "contig": ("#13", lambda: ab8.fused_attention_contig(*fwd_args, num_heads=h, sliding_window=sw)),
+            "bb": ("#10", lambda: abb.fused_attention_bb(*fwd_args, num_heads=h, bb=2, cg=c // 2, sliding_window=sw)),
+            "pack": ("#11", lambda: abb.fused_attention_bb(*fwd_args, num_heads=h, bb=2, cg=c // 2, pack=True)),
+        }
+        for leg, (num, call) in legs.items():
+            outputs[f"{key} {leg}"] = call()
+            times[f"{key} {num}"] = _time_ms(call)
     torch.save(outputs, args.save)
     print(f"{args.root}: ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
     if args.against:
         old = torch.load(args.against)
         as_tuple = lambda x: x if isinstance(x, (tuple, list)) else (x,)
-        bad, same_fwd = [], []
+        bad, same = [], {}
         for k in outputs:
             new_t, old_t = as_tuple(outputs[k]), as_tuple(old[k])
-            same = all(torch.equal(a, b) for a, b in zip(new_t, old_t))
+            same[k] = all(torch.equal(a, b) for a, b in zip(new_t, old_t))
             if k.endswith("q8"):
-                print(f"  {k}: bit-identical {same}", flush=True)
-                bad += [] if same else [k]
+                print(f"  {k}: bit-identical {same[k]}", flush=True)
+                bad += [] if same[k] else [k]
                 continue
-            same_fwd += [same] if k.endswith("fwd") else []
             dist = _distances(k, new_t, old_t, masks[k.rsplit(" ", 1)[0]])
             print(f"  {k}: " + "; ".join(f"max {m:.3e} (limit {lim}) rel L2 {r:.3e}" for m, r, lim in dist)
-                  + f"; bit-identical {same}", flush=True)
+                  + f"; bit-identical {same[k]}", flush=True)
             bad += [k] if any(m > lim for m, _, lim in dist) else []
-        earlier = [k for k in outputs if k.rsplit(" ", 1)[1] in ("fwd", "q8", "bwd")]
-        ab = [k for k in outputs if k not in earlier]
-        print(f"against {args.against}: {sum(k not in bad for k in earlier)} of {len(earlier)} outputs of #1-#3 "
-              f"within their limits (#2 bit for bit); #1 bit-identical at {sum(same_fwd)} of {len(same_fwd)}; "
-              f"#11/#13 {sum(k not in bad for k in ab)} of {len(ab)} within #1's limits; past them: {bad}",
-              flush=True)
+        groups = {"#1": " fwd", "#3": " bwd", "#2": " q8", "#10": " bb", "#11": " pack", "#13": " contig"}
+        summary = []
+        for kind, f32 in (("bf16", False), ("fp32", True)):
+            for num, suffix in groups.items():
+                keys = [k for k in outputs if k.endswith(suffix) and k.endswith(" f32" + suffix) == f32]
+                if keys:
+                    summary.append(f"{num} {kind}: bit-identical at {sum(same[k] for k in keys)} of {len(keys)}, "
+                                   f"within its limit at {sum(k not in bad for k in keys)}")
+        print(f"against {args.against}: " + "; ".join(summary) + f"; past a limit: {bad}", flush=True)
         return 1 if bad else 0
     return 0
 

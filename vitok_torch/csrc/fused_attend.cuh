@@ -2,9 +2,8 @@
 // one 64-query tile of one head of one sample, read straight from the flat
 // [B, N, 3C] QKV projection output. Every kernel of the family runs it:
 // fused_attention.cu (the forward in bf16 and fp32, and the int8-epilogue
-// instance) and fused_attention_ab.cu (the A/B kernels: batch blocks and int8
-// input, and in fp32 packs and all heads of a tile), so their results are
-// the same bits.
+// instance) and fused_attention_ab.cu (the A/B kernels: int8 input, and in
+// fp32 all heads of a tile), so their results are the same bits.
 //
 // Rounding points of the TPU kernel (vitok_tpu/ops/fused_attention.py,
 // _attend_cell and _norm_rope_half):
@@ -97,9 +96,13 @@ __device__ __forceinline__ void block_setup(const float* __restrict__ q_scale,
 // as raw codes, v = bf16(code * scale)).
 //
 // `pack` > 1 makes the sample image `self` of a pack of images that lie one
-// after another (fused_attention_pack_kernel): their keys are in every row's
-// softmax, masked. They add exact zeros to a row that has a valid key, so
-// only a row with none walks them, and averages v over the whole pack.
+// after another: their keys are in every row's softmax, masked. They add
+// exact zeros to a row that has a valid key, so only a row with none walks
+// them, and averages v over the whole pack. No kernel passes a pack since
+// the A/B pack moved to the walkers (fused_attention_ab_sm90.cu,
+// fused_attention_ab_f32_sm90.cu); the path stays because removing it
+// changes the code the compiler makes of the mma.sync kernels
+// (fused_attention.cu), whose times must hold.
 template <int D, typename T, typename Src>
 __device__ __forceinline__ void attend_tile(
     unsigned char* smem, const int* sKvEnd, const Src* __restrict__ qkv_b,

@@ -1,9 +1,12 @@
 // The wgmma body of the fused attention on Hopper: one 64-query tile of one
 // head (a "cell") against 64-key tiles streamed through a cp.async ring of
-// 128-byte-swizzled tiles (sm90.cuh). Two kernels run it:
+// 128-byte-swizzled tiles (sm90.cuh). Two files' kernels run it:
 // fused_attention_sm90.cu (the forward on the main path, one cell a block)
-// and fused_attention_ab_sm90.cu (the A/B kernels #11 and #13, a block that
-// walks many cells on one ring), so their results on a row are the same bits.
+// and fused_attention_ab_sm90.cu (the A/B kernels #10, #11 and #13 in bf16,
+// a block that walks many cells on one ring), so their results on a row are
+// the same bits. The fp32 walker (fused_attend_f32_sm90.cuh) shares its
+// thread layout, online softmax and the walk of a block's cells (the end of
+// this file).
 //
 // Rounding points (those of the TPU kernel, vitok_tpu/ops/fused_attention.py
 // _attend_cell): logits in fp32 (bf16 products, fp32 accumulation) times
@@ -95,11 +98,20 @@ __device__ __forceinline__ int rest_tile(int i, const KeyTiles& kt) {
   return i < kt.lo_tile ? i : i + kt.main_tiles;
 }
 
+// Each key's state of tile [k0, k0 + 64) in st: 2 past N; 1 masked (a key
+// at or past kv_end, a zero byte of mask_b, or any key of another image of
+// a pack: `foreign`); 0 valid.
+__device__ __forceinline__ void key_states(unsigned char* st, int k0, int N, const unsigned char* mask_b, int kv_end,
+                                           bool foreign, int tid) {
+  if (tid < kTile) {
+    const int j = k0 + tid;
+    st[tid] = j >= N ? 2 : ((foreign || j >= kv_end || (mask_b && !mask_b[j])) ? 1 : 0);
+  }
+}
+
 // Starts the copies of key tile [k0, k0 + 64) into one ring slot: K from
 // k_src (row stride k_stride; with read_k false zero-filled and not read),
-// V from v_src, and each key's state in st: 2 past N; 1 masked (a key at or
-// past kv_end, a zero byte of mask_b, or any key of another image of a
-// pack: `foreign`); 0 valid.
+// V from v_src, and the keys' states in st (key_states).
 template <int D>
 __device__ __forceinline__ void issue_kv_tile(unsigned char* kt, unsigned char* vt, unsigned char* st,
                                               const __nv_bfloat16* k_src, long long k_stride,
@@ -108,30 +120,19 @@ __device__ __forceinline__ void issue_kv_tile(unsigned char* kt, unsigned char* 
                                               int tid) {
   load_tile_sw128<kTile, D, kThreads>(kt, k_src, k_stride, k0, read_k ? N : 0, nullptr, tid);
   load_tile_sw128<kTile, D, kThreads>(vt, v_src, v_stride, k0, N, nullptr, tid);
-  if (tid < kTile) {
-    const int j = k0 + tid;
-    st[tid] = j >= N ? 2 : ((foreign || j >= kv_end || (mask_b && !mask_b[j])) ? 1 : 0);
-  }
+  key_states(st, k0, N, mask_b, kv_end, foreign, tid);
 }
 
-// One key tile's products and online-softmax update for this thread's rows:
-// sQ the cell's normed Q tile, kt / vt / st the slot's K, V and key states,
-// k0 the tile's first key.
+// The online-softmax update of one key tile for this thread's rows, given
+// its logits s (the C fragment of S = Q K^T, fp32): scaled, filled where a
+// key is masked, past N or outside the window, the running max moved, o and
+// the row sums rescaled; leaves the tile's probabilities p = exp2(s - max)
+// in s, unrounded. st: the tile's key states; k0 its first key.
 template <int D>
-__device__ __forceinline__ void attend_kv_tile(CellRows<D>& r, const unsigned char* sQ, const unsigned char* kt,
-                                               const unsigned char* vt, const unsigned char* st, int k0, int qrow0,
-                                               int sw, float score_scale) {
+__device__ __forceinline__ void softmax_tile(CellRows<D>& r, float (&s)[32], const unsigned char* st, int k0,
+                                             int qrow0, int sw, float score_scale) {
   const int t = threadIdx.x & 3;
   const int qrow1 = qrow0 + 8;
-  float s[32];
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(s, kmajor_desc<kTile>(sQ, kk), kmajor_desc<kTile>(kt, kk), kk > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(s);
-
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int nt = 0; nt < kTile / 8; ++nt) {
@@ -162,7 +163,6 @@ __device__ __forceinline__ void attend_kv_tile(CellRows<D>& r, const unsigned ch
   r.m0 = mn0;
   r.m1 = mn1;
   float ls0 = 0.f, ls1 = 0.f;
-  uint32_t pa[kTile / 16][4];
 #pragma unroll
   for (int nt = 0; nt < kTile / 8; ++nt) {
     const float p0 = exp2f(__fsub_rn(s[4 * nt], mn0));
@@ -171,9 +171,10 @@ __device__ __forceinline__ void attend_kv_tile(CellRows<D>& r, const unsigned ch
     const float p3 = exp2f(__fsub_rn(s[4 * nt + 3], mn1));
     ls0 += p0 + p1;
     ls1 += p2 + p3;
-    // C fragment of key tiles (2j, 2j+1) is the A fragment of k-step j.
-    pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-    pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+    s[4 * nt] = p0;
+    s[4 * nt + 1] = p1;
+    s[4 * nt + 2] = p2;
+    s[4 * nt + 3] = p3;
   }
   r.l0 = r.l0 * a0 + ls0;
   r.l1 = r.l1 * a1 + ls1;
@@ -183,6 +184,32 @@ __device__ __forceinline__ void attend_kv_tile(CellRows<D>& r, const unsigned ch
     r.o[4 * dt + 1] *= a0;
     r.o[4 * dt + 2] *= a1;
     r.o[4 * dt + 3] *= a1;
+  }
+}
+
+// One key tile's products and online-softmax update for this thread's rows:
+// sQ the cell's normed Q tile, kt / vt / st the slot's K, V and key states,
+// k0 the tile's first key.
+template <int D>
+__device__ __forceinline__ void attend_kv_tile(CellRows<D>& r, const unsigned char* sQ, const unsigned char* kt,
+                                               const unsigned char* vt, const unsigned char* st, int k0, int qrow0,
+                                               int sw, float score_scale) {
+  float s[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(s, kmajor_desc<kTile>(sQ, kk), kmajor_desc<kTile>(kt, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax_tile<D>(r, s, st, k0, qrow0, sw, score_scale);
+  // P rounded to bf16: the C fragment of key tiles (2j, 2j+1) is the A
+  // fragment of k-step j.
+  uint32_t pa[kTile / 16][4];
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) {
+    pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(s[4 * nt], s[4 * nt + 1]);
+    pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(s[4 * nt + 2], s[4 * nt + 3]);
   }
   wgmma_fence();
 #pragma unroll
@@ -219,6 +246,19 @@ __device__ __forceinline__ void store_rows(const CellRows<D>& r, __nv_bfloat16* 
     if (qrow0 + 8 < N)
       *reinterpret_cast<__nv_bfloat162*>(out1 + col) =
           __floats2bfloat162_rn(r.o[4 * dt + 2] / r.l1, r.o[4 * dt + 3] / r.l1);
+  }
+}
+
+// The same in fp32 (the fp32 walker's output).
+template <int D>
+__device__ __forceinline__ void store_rows(const CellRows<D>& r, float* out0, float* out1, int qrow0, int N) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (qrow0 < N) *reinterpret_cast<float2*>(out0 + col) = make_float2(r.o[4 * dt] / r.l0, r.o[4 * dt + 1] / r.l0);
+    if (qrow0 + 8 < N)
+      *reinterpret_cast<float2*>(out1 + col) = make_float2(r.o[4 * dt + 2] / r.l1, r.o[4 * dt + 3] / r.l1);
   }
 }
 
@@ -292,6 +332,87 @@ __device__ __forceinline__ void walk_cell(const KeyTiles& kt, const CellRows<D>&
   cp_async_ring<kStages>(kt.main_tiles, [&](int i) { return kt.lo_tile + i; }, issue, compute);
   if (__syncthreads_or(r.dead(qrow0, N)))
     cp_async_ring<kStages>(kt.n_tiles - kt.main_tiles, [&](int i) { return rest_tile(i, kt); }, issue, compute);
+}
+
+// ---------------------------------------------------------------------------
+// A block that walks many cells (the A/B kernels of fused_attention_ab_sm90.cu
+// and the fp32 walker of fused_attend_f32_sm90.cuh): a cell is one (image,
+// head) pair of the block's query tile, and the block flattens its cells x
+// key tiles into one sequence of steps.
+// ---------------------------------------------------------------------------
+
+// What a block knows of sample i before its walk (sInfo[i]): x the first
+// tile of pass 0, y pass 0's tile count, z the tiles of each of its cells
+// (pass 0 and, where some row may see no valid key, pass 1), w the key end
+// where its valid keys are a prefix [0, w), else -1 (read the mask).
+// THREADS: the block's threads.
+template <int THREADS = kThreads>
+__device__ __forceinline__ void sample_setup(int4* sInfo, const unsigned char* __restrict__ mask, int b0, int nb,
+                                             int q0, int N, int sw, bool pack, int tid) {
+  for (int i = tid; i < nb; i += THREADS) sInfo[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  if (mask) {  // w: one past the last valid key; z: the count of valid keys
+    for (int i = 0; i < nb; ++i) {
+      const unsigned char* m = mask + (long long)(b0 + i) * N;
+      int last = 0, count = 0;
+      for (int j = tid; j < N; j += THREADS)
+        if (m[j]) {
+          last = j + 1;
+          ++count;
+        }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        last = max(last, __shfl_xor_sync(kFull, last, off));
+        count += __shfl_xor_sync(kFull, count, off);
+      }
+      if ((tid & 31) == 0) {
+        atomicMax(&sInfo[i].w, last);
+        atomicAdd(&sInfo[i].z, count);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nb; i += THREADS) {
+    const int kv_end = mask ? sInfo[i].w : N;
+    const bool prefix = !mask || sInfo[i].z == kv_end;
+    const KeyTiles kt = key_tiles(q0, N, kv_end, sw);
+    const int q_last = min(q0 + kTile, N) - 1;
+    bool rest = kv_end == 0;
+    if (sw >= 0) rest = rest || !prefix || q_last - sw >= kv_end;
+    const int rest_tiles = (kt.n_tiles - kt.main_tiles) + (pack ? (nb - 1) * kt.n_tiles : 0);
+    sInfo[i] = make_int4(kt.lo_tile, kt.main_tiles, kt.main_tiles + (rest ? rest_tiles : 0), prefix ? kv_end : -1);
+  }
+  __syncthreads();
+}
+
+// Where the walk stands: cell (i, hl) (image i of the block, head hl), its
+// t-th tile, and the cell's number in the walk.
+struct Cursor {
+  int i, hl, t, cell;
+
+  __device__ __forceinline__ void next(const int4* sInfo, int nh) {
+    if (++t == sInfo[i].z) {
+      t = 0;
+      ++cell;
+      if (++hl == nh) {
+        hl = 0;
+        ++i;
+      }
+    }
+  }
+};
+
+// The key tile of step t of a cell of the block's image i (its sample's
+// sInfo entry `info`; n_tiles key tiles a sample), and in *src the block
+// image whose keys it holds: i, but for pass 1 of a pack the other images,
+// in order.
+__device__ __forceinline__ int step_tile(const int4& info, int t, int n_tiles, int i, int* src) {
+  *src = i;
+  if (t < info.y) return info.x + t;
+  if (t < n_tiles) return rest_tile(t - info.y, KeyTiles{info.x, info.y, n_tiles});
+  const int f = (t - n_tiles) / n_tiles;
+  *src = f < i ? f : f + 1;
+  return (t - n_tiles) % n_tiles;
 }
 
 }  // namespace

@@ -1,27 +1,14 @@
-// The four attention kernels of the JAX project's A/B experiments
-// (benchmarks/ab_batch_block.py and benchmarks/ab_q8_input.py), as Hopper
-// kernels around the fused attention body (attend_tile, fused_attend.cuh):
-// #10 and #12, and the fp32 instances of #11 and #13, whose bf16 instances
-// run the wgmma body in fused_attention_ab_sm90.cu.
-// Each computes the function of the fused forward (fused_attention.cu; TPU
-// _fused_kernel) on its own work split, so their results on a row are the
-// bits the forward writes there: the A/B question each asks is one of cost.
+// Two attention kernels of the JAX project's A/B experiments
+// (benchmarks/ab_q8_input.py), as Hopper kernels around the mma.sync / FMA
+// body of the fused forward (attend_tile, fused_attend.cuh), whose fp32
+// instance (the forward's family: fused_attention.cu) this file's fp32
+// kernel shares. #10 and #11 run on the walkers of
+// fused_attention_ab_sm90.cu (bf16, the wgmma body) and
+// fused_attention_ab_f32_sm90.cu (fp32, products on the tensor cores), #13
+// in bf16 on the former. Each kernel here computes the function of the
+// fused forward (fused_attention.cu; TPU _fused_kernel) on its own work
+// split, so its result on a row is the bits the forward writes there.
 //
-// * fused_attention_bb_kernel replaces benchmarks/ab_batch_block.py
-//   _kernel_bb: a TPU grid cell takes `bb` batch items x `cg` channels in a
-//   static loop. Here a block walks `bb` samples x `cg / d` heads of one
-//   64-query tile, one attend_tile each: the arms' (bb, cg) become the work a
-//   block does, so the trade (a block's fixed cost against its serial work)
-//   is measured on this card. bf16 and fp32.
-// * fused_attention_pack_kernel replaces _kernel_pack: `bb` images packed
-//   along the token axis of one [bb*N, bb*N] score tile, cross-image and
-//   masked keys filled with -1e30, no window. A block owns its query tile of
-//   every image of a pack and its heads. The cross-image keys add exact
-//   zeros to a row with a valid key, so those rows walk only their own
-//   image's tiles and equal the forward's bits; a row whose image has no
-//   valid key averages v over all bb*N keys of the pack (the TPU kernel's
-//   full-row softmax over the pack), and only such a row walks the other
-//   images' V tiles. fp32 here.
 // * fused_attention_q8in_kernel replaces benchmarks/ab_q8_input.py
 //   _kernel_q8in: the input is int8 QKV codes [B, N, 3C] and a per-token fp32
 //   scale [B, N, 1]. q and k are normed as raw codes (exact in bf16; the
@@ -29,20 +16,17 @@
 //   from 16-byte loads of codes on the way into shared memory. Its result is
 //   the forward's on the assembled bf16 tensor [q codes | k codes | v * scale],
 //   bit for bit. bf16 out, as in JAX.
-// * fused_attention_contig_kernel replaces _kernel_contig: one block per
-//   (sample, query tile) walks all H heads, so a block sweeps its tokens'
+// * fused_attention_contig_kernel replaces _kernel_contig in fp32: one block
+//   per (sample, query tile) walks all H heads, so a block sweeps its tokens'
 //   whole 3C-wide rows (the TPU arm reads them as one contiguous region).
-//   fp32 here.
 //
 // What bounds them on an H100: the forward's work, (3C + C) * B * N bytes of
 // the element type against 4 * B * H * N^2 * d products; #12 reads
 // 3C + 4 bytes a token instead of 6C. At the recorded shapes (C = 3072,
-// d = 128, N = 256, B = 64 bf16; N = 64, B = 256 fp32) that is bytes: 0.120 ms
-// (bf16), 0.075 ms (int8 input), 0.24 ms (fp32). Like the forward they run
-// mma.sync (the fp32 instances FMA loops), recompute each K tile's norm per
-// query tile and overlap only a tile's V copy with its K norm, so none is
-// near its bound; a block that walks more cells trades occupancy for fewer
-// blocks, which is the question the arms ask.
+// d = 128, N = 256, B = 64 int8 input; N = 64, B = 256 fp32) that is bytes:
+// 0.075 ms (int8 input), 0.24 ms (fp32). Like the forward they run mma.sync
+// (fp32: FMA loops), recompute each K tile's norm per query tile and overlap
+// only a tile's V copy with its K norm, so neither is near its bound.
 //
 // Build: as fused_attention.cu (vitok_torch/ops/_build.py); plain C entry
 // points bound with ctypes, asynchronous on the caller's stream, each
@@ -53,62 +37,31 @@
 #include <stdint.h>
 
 #include <cmath>
-#include <type_traits>
 
 #include "fused_attend.cuh"
 
 namespace {
 
-// The cells of one block: samples [b0, b0 + nb) x heads [h0, h0 + nh) of the
-// 64-query tile blockIdx.x. With `pack` the nb samples are one pack.
+// The cells of one block: heads [h0, h0 + nh) of sample b's 64-query tile
+// blockIdx.x.
 template <int D, typename T, typename Src>
 __device__ __forceinline__ void walk_cells(
     unsigned char* smem, int* sKvEnd, const Src* __restrict__ qkv, const float* __restrict__ tok_scale,
     const float* __restrict__ q_scale, const float* __restrict__ k_scale,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-    const unsigned char* __restrict__ mask, T* __restrict__ out, int N, int H, int b0, int nb,
-    int h0, int nh, int sw, float score_scale, bool pack) {
+    const unsigned char* __restrict__ mask, T* __restrict__ out, int N, int H, int b,
+    int h0, int nh, int sw, float score_scale) {
   using S = Smem<D, T>;
   const int q0 = blockIdx.x * kTile;
   const int C = H * D;
-  for (int i = 0; i < nb; ++i) {
-    const int b = b0 + i;
-    const unsigned char* mask_b = mask ? mask + (long long)b * N : nullptr;
-    if (i) __syncthreads();  // every thread has read the last sample's key end
-    block_setup<D>(q_scale, k_scale, mask_b, N, reinterpret_cast<float*>(smem + S::kGainQ),
-                   reinterpret_cast<float*>(smem + S::kGainK), sKvEnd, threadIdx.x);
-    for (int hl = 0; hl < nh; ++hl)
-      attend_tile<D>(smem, sKvEnd, qkv + (long long)b * N * 3 * C, cos_t + (long long)b * N * (D / 2),
-                     sin_t + (long long)b * N * (D / 2), mask_b, q0, h0 + hl, N, H, sw, score_scale,
-                     out + ((long long)b * N + q0) * C + (h0 + hl) * D, C,
-                     tok_scale ? tok_scale + (long long)b * N : nullptr, pack ? nb : 1, i);
-  }
-}
-
-// grid (N / 64, H / hpb, B / bb)
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_attention_bb_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
-                          const float* __restrict__ k_scale, const float* __restrict__ cos_t,
-                          const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
-                          T* __restrict__ out, int N, int H, int bb, int hpb, int sw, float score_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int sKvEnd;
-  walk_cells<D, T, T>(smem, &sKvEnd, qkv, nullptr, q_scale, k_scale, cos_t, sin_t, mask, out, N, H,
-                      blockIdx.z * bb, bb, blockIdx.y * hpb, hpb, sw, score_scale, false);
-}
-
-// grid (N / 64, H / hpb, B / bb); no window
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_attention_pack_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
-                            const float* __restrict__ k_scale, const float* __restrict__ cos_t,
-                            const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
-                            T* __restrict__ out, int N, int H, int bb, int hpb, float score_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int sKvEnd;
-  walk_cells<D, T, T>(smem, &sKvEnd, qkv, nullptr, q_scale, k_scale, cos_t, sin_t, mask, out, N, H,
-                      blockIdx.z * bb, bb, blockIdx.y * hpb, hpb, -1, score_scale, true);
+  const unsigned char* mask_b = mask ? mask + (long long)b * N : nullptr;
+  block_setup<D>(q_scale, k_scale, mask_b, N, reinterpret_cast<float*>(smem + S::kGainQ),
+                 reinterpret_cast<float*>(smem + S::kGainK), sKvEnd, threadIdx.x);
+  for (int hl = 0; hl < nh; ++hl)
+    attend_tile<D>(smem, sKvEnd, qkv + (long long)b * N * 3 * C, cos_t + (long long)b * N * (D / 2),
+                   sin_t + (long long)b * N * (D / 2), mask_b, q0, h0 + hl, N, H, sw, score_scale,
+                   out + ((long long)b * N + q0) * C + (h0 + hl) * D, C,
+                   tok_scale ? tok_scale + (long long)b * N : nullptr);
 }
 
 // grid (N / 64, B)
@@ -121,7 +74,7 @@ fused_attention_contig_kernel(const T* __restrict__ qkv, const float* __restrict
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sKvEnd;
   walk_cells<D, T, T>(smem, &sKvEnd, qkv, nullptr, q_scale, k_scale, cos_t, sin_t, mask, out, N, H,
-                      blockIdx.y, 1, 0, H, sw, score_scale, false);
+                      blockIdx.y, 0, H, sw, score_scale);
 }
 
 // grid (N / 64, H, B)
@@ -135,7 +88,7 @@ fused_attention_q8in_kernel(const int8_t* __restrict__ qkv8, const float* __rest
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sKvEnd;
   walk_cells<D, __nv_bfloat16, int8_t>(smem, &sKvEnd, qkv8, tok_scale, q_scale, k_scale, cos_t, sin_t,
-                                       mask, out, N, H, blockIdx.z, 1, blockIdx.y, 1, sw, score_scale, false);
+                                       mask, out, N, H, blockIdx.z, blockIdx.y, 1, sw, score_scale);
 }
 
 // (1 / sqrt(d)) * log2(e), rounded once to fp32 as the forward's launch does.
@@ -150,27 +103,6 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream, A
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
-}
-
-template <int D, typename T>
-cudaError_t launch_bb(const void* qkv, const void* qs, const void* ks, const void* cos_t,
-                      const void* sin_t, const void* mask, void* out, int B, int N, int H, int bb,
-                      int hpb, int sw, bool pack, cudaStream_t s) {
-  const dim3 grid((N + kTile - 1) / kTile, H / hpb, B / bb);
-  const auto* q = static_cast<const T*>(qkv);
-  const auto* fq = static_cast<const float*>(qs);
-  const auto* fk = static_cast<const float*>(ks);
-  const auto* c = static_cast<const float*>(cos_t);
-  const auto* sn = static_cast<const float*>(sin_t);
-  const auto* m = static_cast<const unsigned char*>(mask);
-  auto* o = static_cast<T*>(out);
-  if constexpr (std::is_same<T, float>::value) {
-    if (pack)
-      return launch(fused_attention_pack_kernel<D, T>, Smem<D, T>::kBytes, grid, s, q, fq, fk, c, sn, m, o,
-                    N, H, bb, hpb, score_scale<D>());
-  }
-  return launch(fused_attention_bb_kernel<D, T>, Smem<D, T>::kBytes, grid, s, q, fq, fk, c, sn, m, o, N,
-                H, bb, hpb, sw, score_scale<D>());
 }
 
 template <int D, typename T>
@@ -200,31 +132,9 @@ cudaError_t launch_q8in(const void* qkv8, const void* tok, const void* qs, const
 
 extern "C" {
 
-// qkv [B, N, 3*H*D] (bf16, or fp32 when fp32 != 0); q_scale, k_scale [D] f32;
-// cos, sin [B, N, D/2] f32; mask [B, N] bool bytes or null; out [B, N, H*D] in
-// qkv's type. A block takes bb samples x hpb heads (bb divides B, hpb
-// divides H). pack != 0: the bb samples of a block are one pack
-// (_kernel_pack; fp32 only, sw must be < 0). sw < 0: no window.
-int vitok_fused_attention_bb(const void* qkv, const void* q_scale, const void* k_scale,
-                             const void* cos_t, const void* sin_t, const void* mask, void* out, int B,
-                             int N, int H, int D, int bb, int hpb, int sw, int pack, int fp32,
-                             void* stream) {
-  if (bb < 1 || hpb < 1 || B % bb || H % hpb || (pack && (sw >= 0 || !fp32))) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool pk = pack != 0;
-  if (D == 64 && !fp32)
-    return launch_bb<64, __nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, pk, s);
-  if (D == 128 && !fp32)
-    return launch_bb<128, __nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, pk, s);
-  if (D == 64)
-    return launch_bb<64, float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, pk, s);
-  if (D == 128)
-    return launch_bb<128, float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, pk, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// As vitok_fused_attention_bb in fp32 with one block per (64-query tile,
-// sample) walking all H heads.
+// qkv [B, N, 3*H*D] fp32; q_scale, k_scale [D] f32; cos, sin [B, N, D/2]
+// f32; mask [B, N] bool bytes or null; out [B, N, H*D] fp32. One block per
+// (64-query tile, sample) walks all H heads; sw < 0: no window.
 int vitok_fused_attention_contig_f32(const void* qkv, const void* q_scale, const void* k_scale,
                                      const void* cos_t, const void* sin_t, const void* mask, void* out,
                                      int B, int N, int H, int D, int sw, void* stream) {
@@ -235,7 +145,8 @@ int vitok_fused_attention_contig_f32(const void* qkv, const void* q_scale, const
 }
 
 // qkv8 [B, N, 3*H*D] int8 codes; tok_scale [B, N] f32; the rest as
-// vitok_fused_attention_bb; out [B, N, H*D] bf16.
+// vitok_fused_attention_contig_f32; out [B, N, H*D] bf16. One block per
+// (64-query tile, head, sample).
 int vitok_fused_attention_q8in(const void* qkv8, const void* tok_scale, const void* q_scale,
                                const void* k_scale, const void* cos_t, const void* sin_t,
                                const void* mask, void* out, int B, int N, int H, int D, int sw,

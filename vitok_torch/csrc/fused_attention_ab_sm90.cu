@@ -1,12 +1,18 @@
-// Two A/B attention kernels of the JAX project (benchmarks/ab_batch_block.py
-// _kernel_pack, benchmarks/ab_q8_input.py _kernel_contig) in bf16, on the
-// wgmma body of the main path's forward (fused_attend_sm90.cuh), with a
-// block that walks many cells on one tile ring. The fp32 instances stay on
-// the FMA body of fused_attention_ab.cu.
+// Three A/B attention kernels of the JAX project (benchmarks/ab_batch_block.py
+// _kernel_bb and _kernel_pack, benchmarks/ab_q8_input.py _kernel_contig) in
+// bf16, on the wgmma body of the main path's forward (fused_attend_sm90.cuh),
+// with a block that walks many cells on one tile ring. Their fp32 instances
+// run elsewhere: #10 and #11 on the fp32 walker
+// (fused_attention_ab_f32_sm90.cu), #13 on the FMA body
+// (fused_attention_ab.cu).
 //
 // * fused_attention_contig_sm90_kernel replaces _kernel_contig: a block per
 //   (64-query tile, sample) takes all H heads of its tile, the arm's split
 //   (the TPU arm reads a sample's whole [N, 3C] rows as one region).
+// * fused_attention_bb_sm90_kernel replaces _kernel_bb (a TPU grid cell
+//   takes `bb` batch items x `cg` channels in a static loop): a block takes
+//   its query tile of bb images x hpb heads, each image its own softmax,
+//   with the window, so the arms' (bb, cg) become the work a block walks.
 // * fused_attention_pack_sm90_kernel replaces _kernel_pack: `bb` images
 //   packed along the token axis of one [bb*N, bb*N] score tile, cross-image
 //   and masked keys filled with -1e30, no window. A block takes its query
@@ -16,7 +22,7 @@
 //   valid key averages v over all bb*N keys of the pack (the TPU kernel's
 //   full-row softmax over the pack): its cell walks every image's tiles.
 //
-// Both compute the forward's function (fused_attention_sm90.cu), with the
+// All three compute the forward's function (fused_attention_sm90.cu), with the
 // same body and rounding points, so a row's result is the bits the forward
 // writes there. k comes normed and rotated from the forward's prologue
 // (fused_qk_prologue_kernel, parts = 1), as for the forward. A cell's raw q
@@ -83,65 +89,6 @@ struct WalkSmem {
   static constexpr size_t bytes(int nb) { return kSample + nb * sizeof(int4) + 1024; }  // + alignment slack
 };
 
-// What a block knows of sample i before its walk (sInfo[i]): x the first
-// tile of pass 0, y pass 0's tile count, z the tiles of each of its cells
-// (pass 0 and, where some row may see no valid key, pass 1), w the key end
-// where its valid keys are a prefix [0, w), else -1 (read the mask).
-__device__ __forceinline__ void sample_setup(int4* sInfo, const unsigned char* __restrict__ mask, int b0, int nb,
-                                             int q0, int N, int sw, bool pack, int tid) {
-  for (int i = tid; i < nb; i += kThreads) sInfo[i] = make_int4(0, 0, 0, 0);
-  __syncthreads();
-  if (mask) {  // w: one past the last valid key; z: the count of valid keys
-    for (int i = 0; i < nb; ++i) {
-      const unsigned char* m = mask + (long long)(b0 + i) * N;
-      int last = 0, count = 0;
-      for (int j = tid; j < N; j += kThreads)
-        if (m[j]) {
-          last = j + 1;
-          ++count;
-        }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        last = max(last, __shfl_xor_sync(kFull, last, off));
-        count += __shfl_xor_sync(kFull, count, off);
-      }
-      if ((tid & 31) == 0) {
-        atomicMax(&sInfo[i].w, last);
-        atomicAdd(&sInfo[i].z, count);
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < nb; i += kThreads) {
-    const int kv_end = mask ? sInfo[i].w : N;
-    const bool prefix = !mask || sInfo[i].z == kv_end;
-    const KeyTiles kt = key_tiles(q0, N, kv_end, sw);
-    const int q_last = min(q0 + kTile, N) - 1;
-    bool rest = kv_end == 0;
-    if (sw >= 0) rest = rest || !prefix || q_last - sw >= kv_end;
-    const int rest_tiles = (kt.n_tiles - kt.main_tiles) + (pack ? (nb - 1) * kt.n_tiles : 0);
-    sInfo[i] = make_int4(kt.lo_tile, kt.main_tiles, kt.main_tiles + (rest ? rest_tiles : 0), prefix ? kv_end : -1);
-  }
-  __syncthreads();
-}
-
-// Where the walk stands: cell (i, hl) (image i of the block, head hl), its
-// t-th tile, and the cell's number in the walk.
-struct Cursor {
-  int i, hl, t, cell;
-
-  __device__ __forceinline__ void next(const int4* sInfo, int nh) {
-    if (++t == sInfo[i].z) {
-      t = 0;
-      ++cell;
-      if (++hl == nh) {
-        hl = 0;
-        ++i;
-      }
-    }
-  }
-};
-
 // The cells of one block: query tile blockIdx.x of images [b0, b0 + nb) x
 // heads [h0, h0 + nh), image by image. With `pack` the nb images are one
 // pack. kn [B, N, C]: k normed and rotated; qkv [B, N, 3C] (q, v).
@@ -171,6 +118,7 @@ __device__ __forceinline__ void walk_cells(const __nv_bfloat16* __restrict__ kn,
   int steps = 0;
   for (int i = 0; i < nb; ++i) steps += nh * sInfo[i].z;
 
+  const int n_tiles = (N + kTile - 1) / kTile;
   Cursor in = {0, 0, 0, 0};   // the next tile to issue
   Cursor at = {0, 0, 0, 0};   // the next tile to compute
   auto issue = [&](int, int stage) {
@@ -180,22 +128,13 @@ __device__ __forceinline__ void walk_cells(const __nv_bfloat16* __restrict__ kn,
     if (in.t == 0)  // the cell's raw Q tile, with its first key tile
       load_tile_sw128<kTile, D, kThreads>(sQ + (in.cell % kStages) * S::kTileBytes,
                                           qkv + (long long)b * N * 3 * C + h * D, 3LL * C, q0, N, nullptr, tid);
-    KeyTiles kt = {info.x, info.y, (N + kTile - 1) / kTile};
-    int tile, src = b;  // the key tile and the image it belongs to
-    if (in.t < kt.main_tiles) {
-      tile = kt.lo_tile + in.t;
-    } else if (in.t < kt.n_tiles) {
-      tile = rest_tile(in.t - kt.main_tiles, kt);
-    } else {  // another image of the pack, in order
-      const int f = (in.t - kt.n_tiles) / kt.n_tiles;
-      tile = (in.t - kt.n_tiles) % kt.n_tiles;
-      src = b0 + (f < in.i ? f : f + 1);
-    }
-    const __nv_bfloat16* v_src = qkv + (long long)src * N * 3 * C + 2 * C + h * D;
+    int src;  // the block image the key tile belongs to
+    const int tile = step_tile(info, in.t, n_tiles, in.i, &src);
+    const __nv_bfloat16* v_src = qkv + (long long)(b0 + src) * N * 3 * C + 2 * C + h * D;
     const unsigned char* mask_b = (mask && info.w < 0) ? mask + (long long)b * N : nullptr;
     issue_kv_tile<D>(sK + stage * S::kTileBytes, sV + stage * S::kTileBytes, sState + stage * kTile,
                      kn + (long long)b * N * C + h * D, C, v_src, 3LL * C, tile * kTile, N,
-                     in.t < kt.main_tiles, mask_b, info.w < 0 ? N : info.w, src != b, tid);
+                     in.t < info.y, mask_b, info.w < 0 ? N : info.w, src != in.i, tid);
     in.next(sInfo, nh);
   };
 
@@ -215,14 +154,8 @@ __device__ __forceinline__ void walk_cells(const __nv_bfloat16* __restrict__ kn,
       __syncthreads();
       r.reset();
     }
-    const int n_tiles = (N + kTile - 1) / kTile;
-    int tile;
-    if (at.t < info.y)
-      tile = info.x + at.t;
-    else if (at.t < n_tiles)
-      tile = rest_tile(at.t - info.y, KeyTiles{info.x, info.y, n_tiles});
-    else
-      tile = (at.t - n_tiles) % n_tiles;
+    int src;
+    const int tile = step_tile(info, at.t, n_tiles, at.i, &src);
     attend_kv_tile<D>(r, q_tile, sK + stage * S::kTileBytes, sV + stage * S::kTileBytes, sState + stage * kTile,
                       tile * kTile, qrow0, sw, score_scale);
     if (at.t == info.z - 1) {  // the cell's last tile: its rows are done
@@ -251,6 +184,17 @@ fused_attention_contig_sm90_kernel(const __nv_bfloat16* __restrict__ kn, const _
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
+fused_attention_bb_sm90_kernel(const __nv_bfloat16* __restrict__ kn, const __nv_bfloat16* __restrict__ qkv,
+                               const float* __restrict__ q_scale, const float* __restrict__ cos_t,
+                               const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
+                               __nv_bfloat16* __restrict__ out, int N, int H, int bb, int hpb, int sw,
+                               float score_scale) {
+  walk_cells<D>(kn, qkv, q_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb, blockIdx.y * hpb, hpb, sw,
+                score_scale, false);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
 fused_attention_pack_sm90_kernel(const __nv_bfloat16* __restrict__ kn, const __nv_bfloat16* __restrict__ qkv,
                                  const float* __restrict__ q_scale, const float* __restrict__ cos_t,
                                  const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
@@ -274,15 +218,24 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream, A
   return cudaGetLastError();
 }
 
+// The pack kernel (pack) or the batch-block kernel (window sw).
 template <int D>
-cudaError_t launch_pack(const void* kn, const void* qkv, const void* q_scale, const void* cos_t, const void* sin_t,
-                        const void* mask, void* out, int B, int N, int H, int bb, int hpb, cudaStream_t s) {
-  return launch(fused_attention_pack_sm90_kernel<D>, WalkSmem<D>::bytes(bb),
-                dim3((N + kTile - 1) / kTile, H / hpb, B / bb), s, static_cast<const __nv_bfloat16*>(kn),
-                static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(q_scale),
-                static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-                static_cast<const unsigned char*>(mask), static_cast<__nv_bfloat16*>(out), N, H, bb, hpb,
-                score_scale<D>());
+cudaError_t launch_blocks(const void* kn, const void* qkv, const void* q_scale, const void* cos_t, const void* sin_t,
+                          const void* mask, void* out, int B, int N, int H, int bb, int hpb, int sw, bool pack,
+                          cudaStream_t s) {
+  const dim3 grid((N + kTile - 1) / kTile, H / hpb, B / bb);
+  const auto* k = static_cast<const __nv_bfloat16*>(kn);
+  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  const auto* g = static_cast<const float*>(q_scale);
+  const auto* c = static_cast<const float*>(cos_t);
+  const auto* sn = static_cast<const float*>(sin_t);
+  const auto* m = static_cast<const unsigned char*>(mask);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (pack)
+    return launch(fused_attention_pack_sm90_kernel<D>, WalkSmem<D>::bytes(bb), grid, s, k, q, g, c, sn, m, o, N, H,
+                  bb, hpb, score_scale<D>());
+  return launch(fused_attention_bb_sm90_kernel<D>, WalkSmem<D>::bytes(bb), grid, s, k, q, g, c, sn, m, o, N, H, bb,
+                hpb, sw, score_scale<D>());
 }
 
 template <int D>
@@ -323,8 +276,20 @@ int vitok_fused_attention_pack_sm90(const void* kn, const void* qkv, const void*
                                     int bb, int hpb, void* stream) {
   if (bb < 1 || hpb < 1 || B % bb || H % hpb || N % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_pack<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, s);
-  if (D == 128) return launch_pack<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, s);
+  if (D == 64) return launch_blocks<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, -1, true, s);
+  if (D == 128) return launch_blocks<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, -1, true, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As vitok_fused_attention_pack_sm90 with the bb images of a block apart
+// (_kernel_bb: each its own softmax) and window sw (< 0: none).
+int vitok_fused_attention_bb_sm90(const void* kn, const void* qkv, const void* q_scale, const void* cos_t,
+                                  const void* sin_t, const void* mask, void* out, int B, int N, int H, int D, int bb,
+                                  int hpb, int sw, void* stream) {
+  if (bb < 1 || hpb < 1 || B % bb || H % hpb || N % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_blocks<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, false, s);
+  if (D == 128) return launch_blocks<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, false, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -340,18 +305,24 @@ int vitok_fused_attention_contig_sm90(const void* kn, const void* qkv, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// What the compiler and the card make of one instance (pack != 0: the pack
-// kernel with bb samples a block; else contig): out[0] registers a thread,
+// What the compiler and the card make of one instance (kind 0 contig, 1
+// pack, 2 batch block; bb images a block): out[0] registers a thread,
 // out[1] local memory a thread in bytes (spills), out[2] blocks an SM,
 // out[3] dynamic shared memory a block in bytes.
-int vitok_fused_attention_ab_sm90_attributes(int D, int pack, int bb, int* out) {
-  if (bb < 1) return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return pack ? attributes(fused_attention_pack_sm90_kernel<64>, WalkSmem<64>::bytes(bb), out)
-                : attributes(fused_attention_contig_sm90_kernel<64>, WalkSmem<64>::bytes(1), out);
-  if (D == 128)
-    return pack ? attributes(fused_attention_pack_sm90_kernel<128>, WalkSmem<128>::bytes(bb), out)
-                : attributes(fused_attention_contig_sm90_kernel<128>, WalkSmem<128>::bytes(1), out);
+int vitok_fused_attention_ab_sm90_attributes(int D, int kind, int bb, int* out) {
+  if (bb < 1 || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  if (D == 64) {
+    const size_t smem = WalkSmem<64>::bytes(kind == 0 ? 1 : bb);
+    if (kind == 0) return attributes(fused_attention_contig_sm90_kernel<64>, smem, out);
+    if (kind == 1) return attributes(fused_attention_pack_sm90_kernel<64>, smem, out);
+    return attributes(fused_attention_bb_sm90_kernel<64>, smem, out);
+  }
+  if (D == 128) {
+    const size_t smem = WalkSmem<128>::bytes(kind == 0 ? 1 : bb);
+    if (kind == 0) return attributes(fused_attention_contig_sm90_kernel<128>, smem, out);
+    if (kind == 1) return attributes(fused_attention_pack_sm90_kernel<128>, smem, out);
+    return attributes(fused_attention_bb_sm90_kernel<128>, smem, out);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -168,11 +168,39 @@ __device__ __forceinline__ void st_f4x2(float* p, const float (&v)[8]) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
+// One thread's piece of a row in fp32: raw channels a ([8p, 8p + 8)) and
+// their rotate-half partners b, the row's fp32 tables c, s at those channels
+// and the gains of the two halves (gr, gi); the sum of squares in
+// norm_rope_piece's order, reduced over the D/16 neighbouring threads that
+// hold the row. The normed value times the gain and the rotation stay in
+// fp32, each product and sum rounded once (as the plain version's separate
+// tensor operations round them): vr, vi.
+template <int D>
+__device__ __forceinline__ void norm_rope_piece_f32(const float (&a)[8], const float (&b)[8], const float (&c)[8],
+                                                    const float (&s)[8], const float* gr, const float* gi,
+                                                    float (&vr)[8], float (&vi)[8]) {
+  constexpr int kPieces = D / 16;
+  float ss = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
+    ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
+  }
+#pragma unroll
+  for (int off = 1; off < kPieces; off <<= 1) ss += __shfl_xor_sync(kNrFull, ss, off);
+  const float r = rsqrtf(__fadd_rn(ss / D, kNrEps));
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float yr = __fmul_rn(__fmul_rn(a[e], r), gr[e]);
+    const float yi = __fmul_rn(__fmul_rn(b[e], r), gi[e]);
+    vr[e] = __fsub_rn(__fmul_rn(yr, c[e]), __fmul_rn(yi, s[e]));  // xr*cos - xi*sin
+    vi[e] = __fadd_rn(__fmul_rn(yr, s[e]), __fmul_rn(yi, c[e]));  // xr*sin + xi*cos
+  }
+}
+
 // The fp32 instance of norm_rope_tile: the same rows, thread layout and
-// order of the sum of squares; the normed value times the gain and the
-// rotation stay in fp32 (each product and sum rounded once, as the plain
-// version's separate tensor operations round them). `dst` has row stride
-// D + 4 floats.
+// order of the sum of squares, norm_rope_piece_f32's arithmetic. `dst` has
+// row stride D + 4 floats.
 template <int D, int THREADS>
 __device__ __forceinline__ void norm_rope_tile_f32(
     const float* __restrict__ src, long long row_stride, int r0, int N,
@@ -200,25 +228,8 @@ __device__ __forceinline__ void norm_rope_tile_f32(
       ld_f4x2(c, cp);
       ld_f4x2(s, sp);
     }
-    float ss = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
-      ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
-    }
-#pragma unroll
-    for (int off = 1; off < kPieces; off <<= 1) ss += __shfl_xor_sync(kNrFull, ss, off);
-    const float r = rsqrtf(__fadd_rn(ss / D, kNrEps));
-    const float* gr = gain + c0;
-    const float* gi = gain + kHalf + c0;
     float vr[8], vi[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float yr = __fmul_rn(__fmul_rn(a[e], r), gr[e]);
-      const float yi = __fmul_rn(__fmul_rn(b[e], r), gi[e]);
-      vr[e] = __fsub_rn(__fmul_rn(yr, c[e]), __fmul_rn(yi, s[e]));  // xr*cos - xi*sin
-      vi[e] = __fadd_rn(__fmul_rn(yr, s[e]), __fmul_rn(yi, c[e]));  // xr*sin + xi*cos
-    }
+    norm_rope_piece_f32<D>(a, b, c, s, gain + c0, gain + kHalf + c0, vr, vi);
     float* d = dst + row * kRow + c0;
     st_f4x2(d, vr);
     st_f4x2(d + kHalf, vi);

@@ -193,6 +193,18 @@ __device__ __forceinline__ void cp_async_ring(int count, TileAt tile_at, Issue i
   cp_async_wait<0>();
 }
 
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads of
+// the block: bar_sync waits until all have arrived, bar_arrive counts this
+// thread and goes on. Both order this thread's earlier shared-memory
+// accesses before the barrier completes.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // The first 1024-byte boundary at or after `p` (dynamic shared memory is
 // only 16-byte aligned; the launch asks for 1 KB more).
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
