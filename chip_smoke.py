@@ -53,14 +53,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    with the 350M decoder, repeats a call after ``DiT.quantize()``; and
    takes three flow-matching training steps of DiT-L on the fused kernels;
 8. holds the A/B kernels of ``vitok_torch.benchmarks`` (batch blocks,
-   packs, int8 input, all heads of a tile) against the forward whose body
-   each runs (the mma.sync forward; for packs and all heads of a tile in
-   bf16, the wgmma walker's, the redesigned forward), bit for bit, and
-   against their plain versions, and the forward's fp32
-   instance against its plain version, at the JAX A/B scripts' recorded
-   shapes and at the 350M width with a dead image; runs the 350M AE in fp32
-   on the fp32 instance against the unfused composition; and runs both A/B
-   entry points at the recorded shapes with fewer timed calls;
+   packs, int8 input, all heads of a tile) and the fp32 forward against the
+   forward whose body each runs (int8 input: the mma.sync forward; bf16: the
+   redesigned forward; fp32: the fp32 walker with one cell a block), bit for
+   bit, and against their plain versions, the mma.sync forward's bf16 and
+   FMA fp32 instances too, at the JAX A/B scripts' recorded shapes and at
+   the 350M width with a dead image; runs the 350M AE in fp32 on the fp32
+   forward against the unfused composition; and runs both A/B entry points
+   at the recorded shapes with fewer timed calls;
 9. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -139,18 +139,12 @@ def device_ms(fn, runs: int = 5) -> float:
     """Device time of a call of ``fn()``: the CUDA kernels' times that
     ``torch.profiler`` records over ``runs`` calls, summed, per call. Host
     time between the kernels does not count (``time_ms`` counts it where the
-    host is the slower side); 0.0 where the profiler records no device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    host is the slower side); 0.0 where the profiler records no device time.
+    Late in this script the profiler keeps only some of the records, or none
+    (PERF.md section 7): the fp32 walker's rows take ``host_ahead_ms``."""
+    from vitok_torch.benchmarks import profiler_records
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3 / runs
+    return sum(profiler_records(fn, runs)) / runs
 
 
 def card_line() -> str:
@@ -583,6 +577,7 @@ def launch_counts() -> dict:
     return {"fused_attention": fa.LAUNCHES, "fused_qk_prologue": fa.PROLOGUE_LAUNCHES,
             "fused_attention_bwd": fa.BWD_LAUNCHES, "fused_attention_q8": fa.Q8_LAUNCHES,
             "fused_attention_mma": fa.MMA_LAUNCHES, "fused_attention_f32": fa.F32_LAUNCHES,
+            "fused_attention_mma_f32": fa.F32_MMA_LAUNCHES,
             "flash_attention": fl.LAUNCHES,
             "flash_attention_dq": fl.DQ_LAUNCHES, "flash_attention_dkv": fl.DKV_LAUNCHES,
             **quant.LAUNCHES, **abb.LAUNCHES, **ab8.LAUNCHES}
@@ -596,7 +591,7 @@ def reset_counts() -> None:
     from vitok_torch.ops import quant
 
     fa.LAUNCHES = fa.PROLOGUE_LAUNCHES = fa.BWD_LAUNCHES = fa.Q8_LAUNCHES = 0
-    fa.MMA_LAUNCHES = fa.F32_LAUNCHES = 0
+    fa.MMA_LAUNCHES = fa.F32_LAUNCHES = fa.F32_MMA_LAUNCHES = 0
     fl.LAUNCHES = fl.DQ_LAUNCHES = fl.DKV_LAUNCHES = 0
     for counts in (quant.LAUNCHES, abb.LAUNCHES, ab8.LAUNCHES):
         for k in counts:
@@ -1921,7 +1916,7 @@ AB_F32_MAX_REL = 1e-5  # fp32 kernels against their plain version (tf32 off): of
 AB_ENTRY = (3072, 24, (("bfloat16", 256, 64), ("float32", 64, 256)))  # C, H, (dtype, N, B) recorded
 AB_ENTRY_ARGS = ("--iters", "2", "--layers", "16")
 F32_AE = ("256p", 256, 16, RESOLUTIONS[0][3])
-F32_MODEL_REL_L2 = 1e-4  # fp32 AE on the fp32 instance against the unfused composition
+F32_MODEL_REL_L2 = 1e-4  # fp32 AE on the fp32 forward against the unfused composition
 
 
 def _ab_inputs(gen, b, n, c, h, dtype, mask_kind, device):
@@ -1945,16 +1940,20 @@ def _ab_inputs(gen, b, n, c, h, dtype, mask_kind, device):
     return qkv, qs, ks, cos, sin, idx[None, :] < valid[:, None]
 
 
-def _ab_bound(b, n, c, h, mask, isz, in_bytes=None, pairs=None):
+def _ab_bound(b, n, c, h, mask, isz, in_bytes=None, pairs=None, split=False):
     """Least time: qkv read (``in_bytes`` a token; 3C elements of ``isz``
     bytes by default), out written, tables, gains and mask read once; or the
     needed QK^T and PV products over the peak for the type (bf16 tensor
-    cores, fp32 FMA)."""
+    cores, fp32 FMA; with ``split``, the fp32 walker's, six bf16 products on
+    the tensor cores for each fp32 one)."""
     d = c // h
     in_bytes = 3 * c * isz if in_bytes is None else in_bytes
     nbytes = b * n * (in_bytes + c * isz) + 2 * b * n * (d // 2) * 4 + 2 * d * 4 + b * n
     pairs = _needed_pairs(b, mask, n, None) if pairs is None else pairs
-    return _bound_ms(nbytes, 4.0 * h * d * pairs, FP32_OPS_PER_S if isz == 4 else BF16_FLOPS_PER_S)
+    ops = 4.0 * h * d * pairs
+    if split:
+        return _bound_ms(nbytes, 6 * ops, BF16_FLOPS_PER_S)
+    return _bound_ms(nbytes, ops, FP32_OPS_PER_S if isz == 4 else BF16_FLOPS_PER_S)
 
 
 def _pack_pairs(mask, n, bb) -> int:
@@ -1982,12 +1981,12 @@ def _check_ab(what, got, want, rows, f32) -> float:
     return max_abs
 
 
-def _one_launch(counts: dict, name: str, fn):
-    """``fn()`` with ``counts[name]`` going up by exactly one."""
-    before = counts[name]
+def _one_launch(name: str, fn):
+    """``fn()`` with the launch count ``name`` going up by exactly one."""
+    before = launch_counts()[name]
     out = fn()
-    if counts[name] != before + 1:
-        raise AssertionError(f"{name}: {counts[name] - before} launches counted for one call")
+    if launch_counts()[name] != before + 1:
+        raise AssertionError(f"{name}: {launch_counts()[name] - before} launches counted for one call")
     return out
 
 
@@ -1995,29 +1994,38 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
     """#10 (every arm of ab_batch_block), #11, #12 and #13 against the
     forward whose body each runs, bit for bit: #10 and #11 (on images with a
     valid key) in bf16 and #13 in bf16 the redesigned forward (the wgmma
-    body); #10 and #11 in fp32 the fp32 walker with one cell a block, itself
-    within AB_F32_MAX_REL of the fp32 instance of the mma.sync forward; #12
-    (on the assembled tensor) and #13 in fp32 the mma.sync forward (its fp32
-    instance in fp32). Each against its plain version; the fp32 instance of
-    #1 against its plain version; times beside bounds, SDPA and, in bf16, the
-    redesigned forward, with device times, the walkers alone (bf16: on the
+    body); #1, #10, #11 and #13 in fp32 the fp32 walker with one cell a block
+    (W), itself within AB_F32_MAX_REL of the fp32 instance of the mma.sync
+    forward (FMA, kept off the main path); #12 (on the assembled tensor) the
+    mma.sync forward. Each against its plain version, the mma.sync forward
+    too; times beside bounds, SDPA and the redesigned forward (bf16) or the
+    FMA instance (fp32), with device times, the walkers alone (bf16: on the
     prologue's k) for #10's arm D2, #11 and #13, and the q/k prologue's (k
     alone, as #1, #10, #11 and #13 run it; q and k, the walkers' rejected
     feed). Where the shape refuses arm P2 (C = 1024), the pack runs at bb = 2
-    with half the heads ("P2h")."""
+    with half the heads ("P2h"). The device times of #1 and #13 in fp32 are
+    CUDA events with the host ahead (``host_ahead_ms``), beside the
+    profiler's reading and how many of its five kernel records it kept."""
     import torch
     import torch.nn.functional as F
     from vitok_torch.benchmarks import ab_batch_block as abb
     from vitok_torch.benchmarks import ab_q8_input as ab8
-    from vitok_torch.benchmarks import walk_f32, walk_sm90
+    from vitok_torch.benchmarks import host_ahead_ms, profiler_records, walk_f32, walk_sm90
     from vitok_torch.ops import fused_attention as fa
+
+    def fp32_device(call, key, row):
+        """``row[key]``: host_ahead_ms; ``row[key + "_profiler"]``: the
+        profiler's ms and its record count over five calls of one launch."""
+        records = profiler_records(call)
+        row[key] = host_ahead_ms(call)
+        row[key + "_profiler"] = (sum(records) / 5, len(records))
 
     gen = torch.Generator(device=device).manual_seed(10)
     rows = []
     log("kernel phase: A/B kernels (fused_attention_ab_sm90.cu for #10, #11 and #13 in bf16, "
-        "fused_attention_ab_f32_sm90.cu for #10 and #11 in fp32, fused_attention_ab.cu for #12 and #13 in fp32) vs "
-        "the forward whose body each runs (bit for bit) and vs their plain versions; the fp32 instance of the "
-        "forward vs its plain version")
+        "fused_attention_ab_f32_sm90.cu for #1, #10, #11 and #13 in fp32, fused_attention_ab.cu for #12) vs "
+        "the forward whose body each runs (bit for bit) and vs their plain versions; the mma.sync forward's "
+        "instances vs their plain version")
     for label, b, n, c, h, dtype, mask_kind in shapes:
         qkv, qs, ks, cos, sin, mask = _ab_inputs(gen, b, n, c, h, dtype, mask_kind, device)
         d, f32 = c // h, dtype == "float32"
@@ -2031,12 +2039,17 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         # rows held to #1's limits: valid rows, and every row of an image with
         # no valid key (each is the mean of v there: over N, or over the pack)
         valid = mask | ~live[:, None]
-        errs = {"fused_attention_f32" if f32 else "fused_attention_mma": _check_ab(f"#1 {label}", ref, plain, valid,
-                                                                                  f32)}
-        if f32:  # the fp32 walker with one cell a block: every fp32 #10 arm's bits, within 1e-5 of #1's instance
-            new_ref = _one_launch(abb.LAUNCHES, "fused_attention_bb_f32",
+        errs = {"fused_attention_mma_f32" if f32 else "fused_attention_mma": _check_ab(f"#1 mma.sync {label}", ref,
+                                                                                      plain, valid, f32)}
+        if f32:  # the fp32 walker with one cell a block (W): every fp32 walker's bits, within 1e-5 of the FMA forward
+            new_ref = _one_launch("fused_attention_bb_f32",
                                   lambda: abb.fused_attention_bb(*args, num_heads=h, bb=1, cg=d))
-            walker_vs_b = _check_ab(f"fp32 walker vs #1 {label}", new_ref, ref, valid, True)
+            walker_vs_b = _check_ab(f"fp32 walker vs #1 mma.sync {label}", new_ref, ref, valid, True)
+            got = _one_launch("fused_attention_f32", new)  # #1 in fp32 at the split f32_walk_split picks
+            if not torch.equal(got, new_ref):
+                raise AssertionError(f"#1 fp32 at {label}: not bit-identical to the fp32 walker with one cell a block")
+            errs["fused_attention_f32"] = _check_ab(f"#1 fp32 {label}", got, plain, valid, True)
+            del got
         else:
             new_ref = new()
         q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)
@@ -2046,13 +2059,21 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
         library_dev_ms = device_ms(library)
         del q, k, v
         plain_ms = time_ms(lambda: fa.fused_qkv_attention_plain(*args, num_heads=h), runs=3, warmup=1)
-        bound = _ab_bound(b, n, c, h, mask, isz)
+        bound = _ab_bound(b, n, c, h, mask, isz, split=f32)  # fp32: the walker's products
         row = dict(shape=label, B=b, N=n, C=c, H=h, dtype=dtype, mask=mask_kind, fused_ms=time_ms(fwd),
                    fused_plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_dev_ms,
                    bound_ms=bound[0], bound_by=bound[1], arms={})
         if f32:
             row["walker_max_abs_vs_mma"] = walker_vs_b
+            row["fused_bound_ms"], row["fused_bound_by"] = _ab_bound(b, n, c, h, mask, isz)  # FMA products
+            sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 132
+            row["f32_split"] = fa.f32_walk_split(b, n, h, d, sms)
+            row["f32_ms"] = time_ms(new)
+            fp32_device(new, "f32_device_ms", row)
             walk = lambda **kw: walk_f32(qkv, qs.float(), ks.float(), cos.float(), sin.float(), mask, h, **kw)
+            # the forward's kernel alone at every split of up to four images: what f32_walk_split is held to
+            row["f32_splits_ms"] = {f"{bb}x{hpb}": time_ms(lambda: walk(bb=bb, hpb=hpb, kind="fwd"))
+                                    for bb in (1, 2, 4) if b % bb == 0 for hpb in range(1, h + 1) if h % hpb == 0}
         else:  # the redesigned forward, its prologue and its wgmma kernel alone beside the arms
             row["redesigned_max_abs_vs_mma"] = (new_ref.float() - ref.float()).abs()[valid].max().item()
             row.update(redesigned_ms=time_ms(new), redesigned_device_ms=device_ms(new))
@@ -2076,7 +2097,7 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
                 continue
             kname = ("fused_attention_pack" if pack else "fused_attention_bb") + ("_f32" if f32 else "")
             call = lambda: abb.fused_attention_bb(*args, num_heads=h, bb=bb, cg=cg, pack=pack)
-            got = _one_launch(abb.LAUNCHES, kname, call)
+            got = _one_launch(kname, call)
             rows_eq = live if pack else slice(None)
             if not torch.equal(got[rows_eq], new_ref[rows_eq]):
                 raise AssertionError(f"{kname} {name} at {label}: not bit-identical to the "
@@ -2086,25 +2107,28 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
             errs[kname] = max(errs.get(kname, 0.0), err)
             arm = dict(bb=bb, cg=cg, ms=time_ms(call), max_abs_err=err)
             if pack or name == "D2":  # #11 and #10's recorded arm: device time, the walker alone, plain, bound
-                arm["device_ms"] = device_ms(call)
+                arm["device_ms"] = host_ahead_ms(call) if f32 else device_ms(call)
                 arm["kernel_ms"] = time_ms(lambda: walk(bb=bb, hpb=cg // d, pack=pack))
                 arm["plain_ms"] = plain_ms if not pack else time_ms(
                     lambda: abb.fused_attention_bb_plain(*args, num_heads=h, bb=bb, cg=cg, pack=True), runs=3,
                     warmup=1)
-                arm["bound_ms"], arm["bound_by"] = (bound if not pack else
-                                                    _ab_bound(b, n, c, h, mask, isz, pairs=_pack_pairs(mask, n, bb)))
+                arm["bound_ms"], arm["bound_by"] = (bound if not pack else _ab_bound(
+                    b, n, c, h, mask, isz, pairs=_pack_pairs(mask, n, bb), split=f32))
             row["arms"][name] = arm
             del got
         # #13
         kname = "fused_attention_contig_f32" if f32 else "fused_attention_contig"
         call = lambda: ab8.fused_attention_contig(*args, num_heads=h)
-        got = _one_launch(ab8.LAUNCHES, kname, call)
-        if not torch.equal(got, ref if f32 else new_ref):
+        got = _one_launch(kname, call)
+        if not torch.equal(got, new_ref):
             raise AssertionError(f"{kname} at {label}: not bit-identical to the "
-                                 f"{'mma.sync' if f32 else 'redesigned'} forward")
+                                 f"{'fp32 walker with one cell a block' if f32 else 'redesigned forward'}")
         errs[kname] = _check_ab(f"contig {label}", got, plain, valid, f32)
-        row.update(contig_ms=time_ms(call), contig_device_ms=device_ms(call))
-        if not f32:
+        row["contig_ms"] = time_ms(call)
+        if f32:
+            fp32_device(call, "contig_device_ms", row)
+        else:
+            row["contig_device_ms"] = device_ms(call)
             row["contig_kernel_ms"] = time_ms(lambda: walk())
             del kn
         # #12, bf16 only
@@ -2112,7 +2136,7 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
             codes, scale = ab8.quantize_qkv(qkv)
             q8args = (codes, scale, qs, ks, cos, sin, mask)
             call = lambda: ab8.fused_attention_q8in(*q8args, num_heads=h)
-            got = _one_launch(ab8.LAUNCHES, "fused_attention_q8in", call)
+            got = _one_launch("fused_attention_q8in", call)
             assembled = ab8.assemble_q8in(codes, scale)
             chain = lambda: fa.fused_qkv_attention_mma(ab8.assemble_q8in(codes, scale), qs, ks, cos, sin, mask,
                                                        num_heads=h)
@@ -2136,10 +2160,16 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
             + (f", redesigned {row['redesigned_ms']:.4f} (dev {row['redesigned_device_ms']:.4f}, wgmma kernel alone "
                f"{row['redesigned_kernel_ms']:.4f}; max |diff| {row['redesigned_max_abs_vs_mma']:.2e}; prologue k "
                f"{row['prologue_k_ms']:.4f}, q+k {row['prologue_qk_ms']:.4f})" if not f32 else
-               f", fp32 walker (one cell a block) max |diff| {row['walker_max_abs_vs_mma']:.2e}")
+               f" (bound {row['fused_bound_ms']:.5f}, {row['fused_bound_by']}), fp32 walker (one cell a block) "
+               f"max |diff| {row['walker_max_abs_vs_mma']:.2e}; #1 fp32 on the walker {row['f32_ms']:.4f} (split bb, "
+               f"hpb {row['f32_split']}; dev {row['f32_device_ms']:.4f}, profiler {row['f32_device_ms_profiler'][0]:.4f} "
+               f"from {row['f32_device_ms_profiler'][1]} of 5 records); its kernel alone by split bbxhpb ("
+               + ", ".join(f"{k} {v:.4f}" for k, v in sorted(row["f32_splits_ms"].items(), key=lambda kv: kv[1])) + ")")
             + f", plain {plain_ms:.4f}, SDPA {library_ms:.4f} (dev {library_dev_ms:.4f}), bound {bound[0]:.5f} "
             f"({bound[1]}); contig {row['contig_ms']:.4f} (dev {row['contig_device_ms']:.4f}"
-            + (f", walker alone {row['contig_kernel_ms']:.4f}" if not f32 else "") + f"); arms (ms): {arms}"
+            + (f", walker alone {row['contig_kernel_ms']:.4f}" if not f32 else
+               f", profiler {row['contig_device_ms_profiler'][0]:.4f} from {row['contig_device_ms_profiler'][1]} of 5 "
+               f"records") + f"); arms (ms): {arms}"
             + (f"; q8in {row['q8in_ms']:.4f} (plain {row['q8in_plain_ms']:.4f}, dequantize + fused "
                f"{row['dequantize_plus_fused_ms']:.4f}, bound {row['q8in_bound_ms']:.5f})" if not f32 else ""))
         log(f"    max |err| vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
@@ -2213,7 +2243,7 @@ def ab_entry_phase(device) -> dict:
         torch.cuda.synchronize()
         del qkv
     launches = launch_counts()
-    # per ab_batch_block run: B on the mma.sync forward (its fp32 instance in fp32), nine arms on #10
+    # per ab_batch_block run: B on the mma.sync forward (its FMA instance in fp32), nine arms on #10
     # and P2 on #11 (bf16: the wgmma walker after the q/k prologue; fp32: the fp32 walker), and the
     # reference: in bf16 the redesigned forward's row, in fp32 one call of the fp32 walker with one
     # cell a block; ab_q8_input: one arm each (C after the prologue), the mma.sync forward once more
@@ -2225,7 +2255,7 @@ def ab_entry_phase(device) -> dict:
                      fused_attention_bb_f32=f32_bb_runs * (9 * per_arm + 1),
                      fused_attention_pack_f32=f32_bb_runs * per_arm,
                      fused_attention_mma=bf16_runs * per_arm + per_arm + 1,
-                     fused_attention_f32=f32_bb_runs * per_arm,
+                     fused_attention_mma_f32=f32_bb_runs * per_arm,
                      fused_attention=(bf16_runs + 1) * per_arm, fused_attention_q8in=per_arm,
                      fused_attention_contig=per_arm, fused_attention_contig_f32=len(f32_runs) * layers,
                      fused_qk_prologue=(bf16_runs + 1) * per_arm + walkers)
@@ -2251,9 +2281,10 @@ def _check_reference_row(what, res, bf16: bool) -> None:
 
 
 def f32_ae_phase(device, card: str) -> dict:
-    """350M in fp32 at 256p: every block's attention on the fp32 instance of
-    the fused forward, decoded patches within F32_MODEL_REL_L2 of the same
-    weights on the unfused composition."""
+    """350M in fp32 at 256p: every block's attention on the fp32 forward (the
+    fp32 walker), by the launch count and by the kernels the profiler
+    records in one forward, decoded patches within F32_MODEL_REL_L2 of the
+    same weights on the unfused composition."""
     import torch
     from vitok_torch import AE, decode_variant
 
@@ -2277,11 +2308,23 @@ def f32_ae_phase(device, card: str) -> dict:
         raise AssertionError(f"fp32 AE: rel L2 vs the unfused composition {rel:.3e} > {F32_MODEL_REL_L2}")
     ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=3, warmup=1)
     ref_ms = time_ms(lambda: reference.decode(reference.encode(inputs)), runs=3, warmup=1)
-    log(f"  {depth} launches of the fp32 instance a forward; rel L2 vs unfused {rel:.3e} (limit "
+    log(f"  {depth} launches of the fp32 forward a forward; rel L2 vs unfused {rel:.3e} (limit "
         f"{F32_MODEL_REL_L2}); encode+decode {ms / batch:.4f} ms/img (unfused {ref_ms / batch:.4f}) on {card}")
+    # The profiler may keep only some of a session's kernel records (PERF.md section 7): no attention
+    # kernel but the fp32 forward's may appear, and one of three profiles must show all its launches.
+    for _ in range(3):
+        profiled = profile_step(f"fp32 {name}", lambda: model.decode(model.encode(inputs)))
+        attention = {g: k for g, k in profiled.items() if g.startswith("fused_attention")}
+        if set(attention) - {"fused_attention_f32"}:
+            raise AssertionError(f"fp32 AE: the profiler recorded the attention kernels {attention} in one forward")
+        if attention == {"fused_attention_f32": depth}:
+            break
+    else:
+        raise AssertionError(f"fp32 AE: no profile recorded fused_attention_f32_sm90_kernel {depth} times in one "
+                             f"forward (last: {attention})")
     del model, reference
     return dict(launches=launches["fused_attention_f32"], rel_l2=rel, ms_per_img=ms / batch,
-                unfused_ms_per_img=ref_ms / batch)
+                unfused_ms_per_img=ref_ms / batch, profiled_launches=attention)
 
 
 def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
@@ -2289,14 +2332,16 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     3072, N = 256, B = 64; #10 the D2 arm, every arm beside it; #10, #11 and
     #13 in bf16 with their device times, the walkers alone on the prologue's
     k, the q/k prologue they run first, and the walker instances' registers,
-    spills and blocks an SM), of #10 and #11 in fp32 on the fp32 walker and
-    of #13's fp32 instance (times at the recorded fp32 shape, N = 64, B =
-    256), of the mma.sync forward #12 shares a body with (times at the 512p
-    main shape, as #1's), and of the fp32 instance of #1 (the recorded fp32
-    shape); launches from the A/B entry points' runs, the fp32 instance's
-    from the fp32 AE."""
+    spills and blocks an SM), of #10, #11 and #13 in fp32 on the fp32 walker
+    (times at the recorded fp32 shape, N = 64, B = 256), of the mma.sync
+    forward #12 shares a body with (times at the 512p main shape, as #1's),
+    of the fp32 forward #1 on the fp32 walker (the recorded fp32 shape, and
+    the 350M fp32 shape beside it) and of the kept FMA instance of the
+    mma.sync forward (the same shapes); launches from the A/B entry points'
+    runs, the fp32 forward's from the fp32 AE."""
     bf = next(r for r in abkern["rows"] if r["shape"] == "5B@256t bf16")
     f32 = next(r for r in abkern["rows"] if r["shape"] == "5B@64t fp32")
+    f32_350m = next(r for r in abkern["rows"] if r["shape"] == "350M@256t fp32")
     errs = {}
     for r in abkern["rows"]:
         for k, v in r["max_abs_err"].items():
@@ -2356,15 +2401,35 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
         "library_ms": bf["library_ms"], **walker,
         "attributes": attributes("contig"),
     }, {
-        "name": "fused_attention_contig_f32", "route": "cuda", "source": src,
+        "name": "fused_attention_contig_f32", "route": "cuda", "source": src_f32,
         "replaces": "benchmarks/ab_q8_input.py:164", "launches": launches["fused_attention_contig_f32"],
-        "max_abs_err": errs["fused_attention_contig_f32"], "ms": f32["contig_ms"], "plain_ms": f32["fused_plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+        "max_abs_err": errs["fused_attention_contig_f32"], "ms": f32["contig_ms"],
+        "device_ms": f32["contig_device_ms"], "profiler_ms_records": f32["contig_device_ms_profiler"],
+        "plain_ms": f32["fused_plain_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"], "fma_forward_ms": f32["fused_ms"], "attributes": attributes("contig_f32"),
+        "ms_350m": f32_350m["contig_ms"],
     }, {
-        "name": "fused_attention_f32", "route": "cuda", "source": "vitok_torch/csrc/fused_attention.cu",
+        "name": "fused_attention_f32", "route": "cuda", "source": src_f32,
         "replaces": "vitok_tpu/ops/fused_attention.py:317", "launches": f32_ae["launches"],
-        "max_abs_err": errs["fused_attention_f32"], "ms": f32["fused_ms"], "plain_ms": f32["fused_plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+        "profiled_launches": f32_ae["profiled_launches"],
+        "max_abs_err": errs["fused_attention_f32"], "ms": f32["f32_ms"], "device_ms": f32["f32_device_ms"],
+        "profiler_ms_records": f32["f32_device_ms_profiler"], "split": f32["f32_split"],
+        "plain_ms": f32["fused_plain_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"], "fma_forward_ms": f32["fused_ms"],
+        "fastest_arm_ms": min(a["ms"] for k, a in f32["arms"].items() if not k.startswith("P")),
+        "attributes": attributes("fwd_f32"),
+        "splits_ms": f32["f32_splits_ms"], "splits_ms_350m": f32_350m["f32_splits_ms"],
+        "ms_350m": f32_350m["f32_ms"], "split_350m": f32_350m["f32_split"],
+        "device_ms_350m": f32_350m["f32_device_ms"], "bound_ms_350m": f32_350m["bound_ms"],
+        "bound_by_350m": f32_350m["bound_by"], "plain_ms_350m": f32_350m["fused_plain_ms"],
+        "library_ms_350m": f32_350m["library_ms"], "fma_forward_ms_350m": f32_350m["fused_ms"],
+        "ae_ms_per_img": f32_ae["ms_per_img"], "ae_unfused_ms_per_img": f32_ae["unfused_ms_per_img"],
+    }, {
+        "name": "fused_attention_mma_f32", "route": "cuda", "source": "vitok_torch/csrc/fused_attention.cu",
+        "replaces": "vitok_tpu/ops/fused_attention.py:317", "launches": launches["fused_attention_mma_f32"],
+        "max_abs_err": errs["fused_attention_mma_f32"], "ms": f32["fused_ms"], "plain_ms": f32["fused_plain_ms"],
+        "bound_ms": f32["fused_bound_ms"], "bound_by": f32["fused_bound_by"], "library_ms": f32["library_ms"],
+        "ms_350m": f32_350m["fused_ms"], "bound_ms_350m": f32_350m["fused_bound_ms"],
     }]
 
 
@@ -2374,7 +2439,8 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
 PORT_KERNEL_GROUPS = {
     "fused_attention_sm90_kernel": "fused_attention",
     "fused_qk_prologue_kernel": "fused_qk_prologue",
-    "fused_attention_kernel": "fused_attention_mma",  # the mma.sync forward, bf16 or fp32
+    "fused_attention_kernel": "fused_attention_mma",  # the mma.sync forward, bf16 or fp32 (FMA)
+    "fused_attention_f32_sm90_kernel": "fused_attention_f32",
     "fused_attention_q8_kernel": "fused_attention_q8",
     "fused_bwd_dq_kernel": "fused_attention_bwd",
     "fused_bwd_dkv_kernel": "fused_attention_bwd",
@@ -2392,7 +2458,7 @@ PORT_KERNEL_GROUPS = {
     "fused_attention_pack_f32_sm90_kernel": "fused_attention_pack_f32",
     "fused_attention_q8in_kernel": "fused_attention_q8in",
     "fused_attention_contig_sm90_kernel": "fused_attention_contig",
-    "fused_attention_contig_kernel": "fused_attention_contig_f32",
+    "fused_attention_contig_f32_sm90_kernel": "fused_attention_contig_f32",
 }
 MATMUL_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "matmul", "imma")
 
@@ -2411,11 +2477,12 @@ def kernel_group(name: str) -> str:
     return "matmul" if any(w in name.lower() for w in MATMUL_MARKERS) else "other"
 
 
-def profile_step(name: str, step) -> None:
+def profile_step(name: str, step) -> dict:
     """Where one encode+decode spends the card's time: device kernel time by
     group (each port kernel, matrix products, everything else) from
     ``torch.profiler``, and the device's busy share of the step's wall time
-    (CUDA events around the profiled step)."""
+    (CUDA events around the profiled step). Returns the kernels the profiler
+    recorded, counted by group ({} where it recorded no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2428,13 +2495,16 @@ def profile_step(name: str, step) -> None:
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
     by_name: dict = {}
+    launches: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+            group = kernel_group(e.name)
+            launches[group] = launches.get(group, 0) + 1
     total = sum(by_name.values())
     if total <= 0:
         log(f"  {name} profile: the profiler recorded no device time (not measured)")
-        return
+        return {}
     groups = dict.fromkeys([*dict.fromkeys(PORT_KERNEL_GROUPS.values()), "matmul", "other"], 0.0)
     for kname, t in by_name.items():
         groups[kernel_group(kname)] += t
@@ -2443,6 +2513,7 @@ def profile_step(name: str, step) -> None:
         f"(busy {total / wall_ms:.1%}): {shares}")
     for kname, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {t:9.3f} ms  [{kernel_group(kname)}] {kname[:110]}")
+    return launches
 
 
 def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres) -> list:
@@ -2542,7 +2613,7 @@ def main() -> int:
     t0 = time.time()
     _build.build(["fused_attention_sm90", "fused_attention", "fused_attention_bwd", "flash_attention",
                   "flash_attention_bwd", "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_ab",
-                  "fused_attention_ab_sm90", "fused_attention_ab_f32_sm90"])
+                  "fused_attention_ab_sm90", "fused_attention_ab_f32_sm90"])  # the last: the fp32 walker
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 

@@ -176,6 +176,18 @@ class TestSplitTwin:
                                                   interpret=True))
         assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
+    @pytest.mark.parametrize("d,n,sw", [(64, 64, None), (64, 200, 24), (128, 64, None), (128, 128, 40)])
+    def test_twin_matches_kernel_contig(self, d, n, sw):
+        """#13 in fp32 runs the fp32 walker with one image x all heads a
+        block (bb = 1, hpb = H): its arithmetic against ``_kernel_contig``."""
+        port, jax_args = both(make_inputs(d, n=n), "float32")
+        got = t_bb.fused_attention_bb_split_plain(*port, num_heads=H, bb=1, cg=H * d, sliding_window=sw)
+        want = np.asarray(j_q8.fused_attention_contig(*jax_args, num_heads=H, sliding_window=sw, interpret=True))
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+        # image 3 (no valid key): the mean of v over its own tokens
+        mean_v = port[0][3, :, 2 * H * d:].mean(0)
+        assert (got[3] - mean_v).abs().max().item() <= 1e-5 * np.abs(want).max()
+
     @pytest.mark.parametrize("d,n", [(64, 200), (128, 64)])
     def test_twin_matches_kernel_pack(self, d, n):
         port, jax_args = both(make_inputs(d, n=n), "float32")

@@ -46,7 +46,7 @@ CASES = [("none", False, None), ("tail", True, None), ("sw", False, 12), ("tail+
 def counts():
     """The fused attention kernels' launch counts."""
     return dict(fwd=t_fa.LAUNCHES, prologue=t_fa.PROLOGUE_LAUNCHES, bwd=t_fa.BWD_LAUNCHES, q8=t_fa.Q8_LAUNCHES,
-                mma=t_fa.MMA_LAUNCHES, f32=t_fa.F32_LAUNCHES)
+                mma=t_fa.MMA_LAUNCHES, f32=t_fa.F32_LAUNCHES, f32_mma=t_fa.F32_MMA_LAUNCHES)
 
 
 def added(before, **more):
@@ -180,14 +180,16 @@ class TestKernelOnCard:
 
     def test_kernel_rejects_fp32(self, cuda_device):
         """fp32 has an instance of the forward only: a gradient through it
-        raises in the backward, and fp16 has no instance at all."""
+        raises in the forward, before anything launches, and fp16 has no
+        instance at all."""
         qkv, *rest = make_inputs(cuda_device)
         with pytest.raises(TypeError, match="bfloat16"):
             t_fa.fused_qkv_attention(qkv.half(), *rest, num_heads=2, impl="fused")
         x = qkv.float().requires_grad_()
-        out = t_fa.fused_qkv_attention(x, *rest, num_heads=2, impl="fused")
+        before = counts()
         with pytest.raises(TypeError, match="bfloat16"):
-            out.sum().backward()
+            t_fa.fused_qkv_attention(x, *rest, num_heads=2, impl="fused")
+        assert counts() == before
 
     def test_kernel_rejects_ragged_rows(self, cuda_device):
         """N must be a multiple of 8 (the gate's own condition)."""
@@ -666,8 +668,21 @@ def no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def one_cell_f32(qkv, rest, heads, sw=None):
+    """The fp32 walker with one cell (one image, one head) a block (W): the
+    bits of every split of every fp32 walker kernel."""
+    d = qkv.shape[-1] // 3 // heads
+    return t_bb.fused_attention_bb(qkv, *rest, num_heads=heads, bb=1, cg=d, sliding_window=sw)
+
+
 @pytest.mark.cuda
 class TestFp32ForwardOnCard:
+    """The fp32 forward (#1 on the fp32 walker, ``fused_attention_f32_sm90_kernel``
+    of ``csrc/fused_attention_ab_f32_sm90.cu``): the bits of W at every
+    split ``f32_walk_split`` can return, within 1e-5 of the plain version's
+    largest entry; the FMA instance it replaced stays behind
+    ``fused_qkv_attention_mma``."""
+
     @pytest.mark.parametrize("d", [64, 128])
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 12), ("none", 40)])
     def test_fp32_instance_matches_plain(self, cuda_device, no_tf32, d, case, sw):
@@ -675,9 +690,56 @@ class TestFp32ForwardOnCard:
         before = counts()
         got = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=sw, impl="fused")
         assert counts() == added(before, f32=1)
+        assert torch.equal(got, one_cell_f32(qkv, rest, 2, sw))
         want = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=2, sliding_window=sw)
         torch.cuda.synchronize()
         assert_fp32_close(got, want)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n", [60, 64, 200, 1024])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 24)])
+    def test_every_split_of_the_fp32_forward_equals_one_cell_a_block(self, cuda_device, no_tf32, d, n, case, sw):
+        """Each split ``f32_walk_split`` returns for this shape on a card of
+        1 to 132 SMs, launched on the forward's kernel, gives the bits of W
+        (N = 60 is ragged), within 1e-5 of the plain version."""
+        heads, b = 4, 4
+        qkv, *rest = ab_inputs(cuda_device, torch.float32, b=b, n=n, heads=heads, d=d, case=case)
+        one = one_cell_f32(qkv, rest, heads, sw)
+        want = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
+        _, _, _, _, qs, ks, cos, sin, mask, swi = t_fa._check_cuda_args(qkv, *rest, heads, sw, dtypes=(torch.float32,))
+        splits = {t_fa.f32_walk_split(b, n, heads, d, sms) for sms in (1, 2, 4, 8, 16, 64, 132)}
+        assert len(splits) > 1 or n > 128
+        for bb, hpb in sorted(splits):
+            got = t_fa._walk_f32_cuda(qkv, qs, ks, cos, sin, mask, heads, bb=bb, hpb=hpb, sw=swi, kind="fwd")
+            assert torch.equal(got, one), (bb, hpb)
+        torch.cuda.synchronize()
+        assert_fp32_close(one, want)
+
+    def test_fp32_under_autograd_raises_before_any_launch(self, cuda_device):
+        """A gradient through the fp32 forward would need an fp32 backward
+        kernel (#3), which does not exist: the forward raises TypeError naming
+        it before anything launches, whether qkv or only a gain asks for the
+        gradient."""
+        qkv, qs, ks, cos, sin, mask = ab_inputs(cuda_device, torch.float32)
+        before = counts()
+        for args in ((qkv.requires_grad_(), qs, ks), (qkv.detach(), qs.requires_grad_(), ks)):
+            with pytest.raises(TypeError, match=r"backward kernel \(#3\) has no fp32 instance"):
+                t_fa.fused_qkv_attention(*args, cos, sin, mask, num_heads=2, impl="fused")
+        assert counts() == before
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_fma_instance_stays_off_the_main_path(self, cuda_device, no_tf32, d):
+        """The mma.sync forward's fp32 instance (FMA products) launches only
+        behind ``fused_qkv_attention_mma``, counted apart, within 1e-5 of the
+        plain version; W is within 1e-5 of it."""
+        qkv, *rest = ab_inputs(cuda_device, torch.float32, d=d)
+        before = counts()
+        got = t_fa.fused_qkv_attention_mma(qkv, *rest, num_heads=2)
+        assert counts() == added(before, f32_mma=1)
+        want = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=2)
+        torch.cuda.synchronize()
+        assert_fp32_close(got, want)
+        assert_fp32_close(one_cell_f32(qkv, rest, 2), got)
 
     def test_fp32_model_routes_through_the_instance(self, cuda_device, no_tf32):
         """A small fp32 AE on the card: one fp32 launch per block, decoded
@@ -692,9 +754,9 @@ class TestFp32ForwardOnCard:
         model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=cuda_device, compute_dtype=torch.float32)
         reference = t_ae.AE(**{**dataclasses.asdict(cfg), "attn_impl": "xla"}, state_dict=model.state_dict(),
                             device=cuda_device, compute_dtype=torch.float32)
-        before = t_fa.F32_LAUNCHES
+        before = counts()
         got = model(batch)["patches"]
-        assert t_fa.F32_LAUNCHES - before == cfg.encoder_depth + cfg.decoder_depth
+        assert counts() == added(before, f32=cfg.encoder_depth + cfg.decoder_depth)
         want = reference(batch)["patches"]
         valid = batch["patch_mask"]
         a, r = got[valid], want[valid]
@@ -705,12 +767,12 @@ class TestFp32ForwardOnCard:
 @pytest.mark.cuda
 class TestABKernelsOnCard:
     """The A/B kernels hold the bits of the forward whose body they run: #12
-    (on the assembled tensor) and #13 in fp32 the mma.sync forward's
+    (on the assembled tensor) the mma.sync forward's
     (``csrc/fused_attention_ab.cu``, body ``fused_attend.cuh``); #10, #11
     (on images with a valid key) and #13 in bf16 the redesigned forward's
     (``csrc/fused_attention_ab_sm90.cu``, the wgmma body of
-    ``fused_attend_sm90.cuh``, after the q/k prologue); #10 and #11 in fp32
-    those of the fp32 walker with one cell a block
+    ``fused_attend_sm90.cuh``, after the q/k prologue); #10, #11 and #13 in
+    fp32 those of the fp32 walker with one cell a block
     (``csrc/fused_attention_ab_f32_sm90.cu``, ``fused_attend_f32_sm90.cuh``),
     which is within 1e-5 of the largest entry of the FMA forward. Each is
     within the forward's limits of its plain version (bf16: max 2e-2, mean
@@ -725,11 +787,7 @@ class TestABKernelsOnCard:
     def _redesigned(qkv, rest, heads, sw=None):
         return t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
 
-    @staticmethod
-    def _one_cell(qkv, rest, heads, sw=None):
-        """The fp32 walker with one cell (one image, one head) a block."""
-        d = qkv.shape[-1] // 3 // heads
-        return t_bb.fused_attention_bb(qkv, *rest, num_heads=heads, bb=1, cg=d, sliding_window=sw)
+    _one_cell = staticmethod(one_cell_f32)
 
     @staticmethod
     def _assert_bf16_close(got, want, mask):
@@ -811,7 +869,7 @@ class TestABKernelsOnCard:
         before = t_ab8.LAUNCHES[name]
         got = t_ab8.fused_attention_contig(qkv, *rest, num_heads=heads, sliding_window=sw)
         assert t_ab8.LAUNCHES[name] == before + 1
-        assert torch.equal(got, (self._forward if f32 else self._redesigned)(qkv, rest, heads, sw))
+        assert torch.equal(got, (self._one_cell if f32 else self._redesigned)(qkv, rest, heads, sw))
         want = t_ab8.fused_attention_contig_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
         if f32:
             torch.cuda.synchronize()
@@ -852,6 +910,24 @@ class TestABKernelsOnCard:
         assert torch.equal(got, self._redesigned(qkv, rest, heads, sw))
         want = t_ab8.fused_attention_contig_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
         self._assert_bf16_close(got, want, rest[-1])
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n", [60, 64, 200, 1024])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 24)])
+    def test_fp32_contig_walker_equals_one_cell_a_block(self, cuda_device, no_tf32, d, n, case, sw):
+        """#13 in fp32 on the fp32 walker (``fused_attention_contig_f32_sm90_kernel``):
+        the bits of W on every row (N = 60 is ragged), within 1e-5 of the
+        plain version; nothing else launches."""
+        heads = 3
+        qkv, *rest = ab_inputs(cuda_device, torch.float32, n=n, heads=heads, d=d, case=case)
+        before, fa_before = dict(t_ab8.LAUNCHES), counts()
+        got = t_ab8.fused_attention_contig(qkv, *rest, num_heads=heads, sliding_window=sw)
+        assert t_ab8.LAUNCHES == {**before, "fused_attention_contig_f32": before["fused_attention_contig_f32"] + 1}
+        assert counts() == fa_before
+        assert torch.equal(got, self._one_cell(qkv, rest, heads, sw))
+        want = t_ab8.fused_attention_contig_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
+        torch.cuda.synchronize()
+        assert_fp32_close(got, want)
 
     def test_walkers_report_their_attributes(self, cuda_device):
         from vitok_torch.benchmarks import WALKER_KINDS, sm90_attributes

@@ -149,7 +149,8 @@ class TestImportBoundary:
         assert REPO / "vitok_torch" / module in _port_files()
 
     @pytest.mark.parametrize("module", [
-        "benchmarks/__init__.py", "benchmarks/ab_batch_block.py", "benchmarks/ab_q8_input.py"])
+        "benchmarks/__init__.py", "benchmarks/ab_batch_block.py", "benchmarks/ab_q8_input.py",
+        "benchmarks/device_time.py"])
     def test_ab_benchmark_modules_are_inside_the_boundary(self, module):
         """The A/B entry points and their kernel wrappers are among the files the import check reads."""
         assert REPO / "vitok_torch" / module in _port_files()
@@ -176,6 +177,54 @@ class TestImportBoundary:
                     assert not target.strip('<>"').startswith(("torch/", "ATen/", "c10/")), f"{path}: {line}"
                     if target.startswith('"'):
                         assert (csrc / target.strip('"')).is_file(), f"{path}: {line}"
+
+    def test_ctypes_bindings_match_the_c_entry_points(self, monkeypatch):
+        """Every argument list a loader binds with ctypes has the types, in
+        order, of the C entry point it calls (pointers, int, long long,
+        float): a binding one argument short raises only on the card. The
+        loaders run against a stand-in for ``_build.load``; the entry points
+        are read from ``csrc/*.cu``."""
+        import ctypes
+        import re
+
+        from vitok_torch import benchmarks
+        from vitok_torch.ops import _build, flash_attention, fused_attention, quant
+
+        class FakeLib:
+            def __init__(self):
+                self.fns = {}
+
+            def __getattr__(self, name):
+                if name.startswith("vitok_"):
+                    return self.fns.setdefault(name, type("Fn", (), {"argtypes": None, "restype": None})())
+                raise AttributeError(name)
+
+        libs = {}
+        monkeypatch.setattr(_build, "load", lambda name: libs.setdefault(name, FakeLib()))
+        for loader in (fused_attention._kernel_lib, fused_attention._sm90_lib, fused_attention._f32_lib,
+                       fused_attention._bwd_kernel_lib, flash_attention._kernel_lib, flash_attention._bwd_kernel_lib,
+                       benchmarks.kernel_lib, benchmarks.sm90_lib):
+            loader()
+        for name in sorted({lib for lib, _ in quant._ARGTYPES.values()}):
+            quant._lib(name)
+        kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_longlong: "l", ctypes.c_float: "f"}
+        bound = {(lib, fn): "".join(kinds[t] for t in f.argtypes) for lib, fake in libs.items()
+                 for fn, f in fake.fns.items()}
+
+        def c_kind(param):
+            param = param.strip()
+            if "*" in param:
+                return "p"
+            return {"long long": "l", "float": "f", "int": "i"}[param.rsplit(" ", 1)[0].replace("const ", "")]
+
+        csrc = REPO / "vitok_torch" / "csrc"
+        declared = {}
+        for path in csrc.glob("*.cu"):
+            for fn, params in re.findall(r"^int (vitok_\w+)\(([^)]*)\)", path.read_text(), re.M):
+                declared[(path.stem, fn)] = "".join(c_kind(x) for x in params.split(","))
+        assert len(bound) >= 18 and ("fused_attention_ab_f32_sm90", "vitok_fused_attention_walk_f32") in bound
+        for key, sig in bound.items():
+            assert declared.get(key) == sig, f"{key}: bound {sig}, declared {declared.get(key)}"
 
     def test_port_imports_no_jax(self):
         """No file of the port, nor chip_smoke.py, imports jax, jaxlib, flax

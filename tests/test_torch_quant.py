@@ -248,6 +248,27 @@ class TestWeightsAcross:
         for key, w in want.items():
             np.testing.assert_array_equal(got[key].numpy(), w.numpy(), err_msg=key)
 
+    def test_bf16_model_from_the_quantized_fp32_state_has_fp32_codes(self):
+        """For int8 serving of fp32 checkpoints in a bf16 model, quantize the
+        fp32 state dict first (``quantize_state_dict``): its codes are
+        ``quantize_block_params``' bit for bit, on weights bf16 cannot
+        represent, where ``quantize()`` on the bf16-held model quantizes the
+        bf16-rounded weights."""
+        cfg = j_ae.AEConfig.from_variant(SMALL)
+        params = jax_params(cfg)
+        fp32_sd = from_jax_params(params, cfg)
+        linears = {k: w for k, w in fp32_sd.items() if k.endswith("proj.weight") or ".mlp.fc" in k}
+        assert linears and all(not torch.equal(w, w.bfloat16().float()) for w in linears.values())
+        want = _int8_entries(from_jax_params(
+            jax.tree_util.tree_map(np.asarray, j_q.quantize_block_params(params)), cfg))
+        got = _port(cfg, t_q.quantize_state_dict(fp32_sd), dtype=torch.bfloat16).state_dict()
+        assert set(want) <= set(got)
+        for key, w in want.items():
+            assert got[key].dtype == w.dtype, key
+            np.testing.assert_array_equal(got[key].numpy(), w.numpy(), err_msg=key)
+        held = _port(cfg, fp32_sd, dtype=torch.bfloat16).quantize().state_dict()
+        assert any(not torch.equal(held[k], w) for k, w in want.items() if k.endswith(".weight_int8"))
+
     def test_quantize_is_idempotent_and_replaces_the_block_linears(self):
         cfg = j_ae.AEConfig.from_variant(SMALL)
         model = _port(cfg, from_jax_params(jax_params(cfg), cfg))

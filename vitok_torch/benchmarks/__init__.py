@@ -4,17 +4,18 @@
 time variants of the fused attention kernel against it. Here each variant
 is a hand-written Hopper kernel beside its plain PyTorch version: in bf16 the
 batch-block, pack and contig variants run the wgmma walker
-(``vitok_torch/csrc/fused_attention_ab_sm90.cu``), in fp32 the batch-block
-and pack variants the fp32 walker (``fused_attention_ab_f32_sm90.cu``), and
-the int8-input variant and fp32 contig the mma.sync / FMA body
-(``fused_attention_ab.cu``). Each module's ``main()`` takes the JAX script's
-flags (plus ``--device``) and builds, checks and times the same arms:
+(``vitok_torch/csrc/fused_attention_ab_sm90.cu``), in fp32 the fp32 walker
+(``fused_attention_ab_f32_sm90.cu``, which the fp32 forward runs too), and
+the int8-input variant the mma.sync body (``fused_attention_ab.cu``). Each
+module's ``main()`` takes the JAX script's flags (plus ``--device``) and
+builds, checks and times the same arms:
 
     python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 24 --tokens 256 --batch 64 --layers 256 --iters 6
     python -m vitok_torch.benchmarks.ab_q8_input --c 3072 --heads 24 --tokens 256 --batch 64
 
 Shared here: the kernel libraries' bindings, the JAX package's head-group
-pick (for the arms' descriptions), the inputs and the chained timing.
+pick (for the arms' descriptions), the inputs and the timing (chained calls,
+calls with the host ahead, the profiler's kernel records).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Callable, Optional
 import torch
 
 from vitok_torch.ops import _build
+from vitok_torch.ops import fused_attention as fa
 
 _VMEM_BUDGET = 13 * 1024 * 1024  # the JAX package's per-cell budget (bytes)
 
@@ -53,16 +55,13 @@ def pick_group_channels(c: int, d: int, n: int) -> int:
 
 
 def kernel_lib() -> ctypes.CDLL:
-    """``csrc/fused_attention_ab.cu``, built on first use."""
+    """``csrc/fused_attention_ab.cu`` (the int8-input kernel), built on first
+    use."""
     lib = _build.load("fused_attention_ab")
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    for fn, argtypes in (
-        (lib.vitok_fused_attention_contig_f32, [ptr] * 7 + [i] * 5 + [ptr]),
-        (lib.vitok_fused_attention_q8in, [ptr] * 8 + [i] * 5 + [ptr]),
-    ):
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    fn = lib.vitok_fused_attention_q8in
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -76,21 +75,6 @@ def sm90_lib() -> ctypes.CDLL:
         (lib.vitok_fused_attention_bb_sm90, [ptr] * 7 + [i] * 7 + [ptr]),
         (lib.vitok_fused_attention_contig_sm90, [ptr] * 7 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_ab_sm90_attributes, [i] * 3 + [ptr]),
-    ):
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
-
-
-def f32_lib() -> ctypes.CDLL:
-    """``csrc/fused_attention_ab_f32_sm90.cu`` (the fp32 batch-block and pack
-    kernels on the fp32 walker), built on first use."""
-    lib = _build.load("fused_attention_ab_f32_sm90")
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    for fn, argtypes in (
-        (lib.vitok_fused_attention_walk_f32, [ptr] * 7 + [i] * 8 + [ptr]),
-        (lib.vitok_fused_attention_ab_f32_sm90_attributes, [i] * 3 + [ptr]),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
@@ -129,40 +113,35 @@ def walk_sm90(qkv: torch.Tensor, kn: torch.Tensor, q_scale: torch.Tensor, cos: t
 
 def walk_f32(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, cos: torch.Tensor,
              sin: torch.Tensor, mask: Optional[torch.Tensor], num_heads: int, *, bb: int, hpb: int, sw: int = -1,
-             pack: bool = False) -> torch.Tensor:
+             pack: bool = False, kind: Optional[str] = None) -> torch.Tensor:
     """One launch of the fp32 walker on an fp32 ``qkv`` (q and k normed in
-    the kernel): ``bb`` images x ``hpb`` heads a block, packed (``pack``; no
-    window) or each its own softmax (window ``sw``, -1 for none). The other
-    arguments as ``fused_attention._check_cuda_args`` returns them. Counts
-    nothing: its callers count."""
-    b, n, c3 = qkv.shape
-    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-    lib = f32_lib()
-    with torch.cuda.device(qkv.device):
-        err = lib.vitok_fused_attention_walk_f32(
-            qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(), b, n, num_heads, c3 // 3 // num_heads, bb,
-            hpb, sw, int(pack), torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(lib, err, "fused_attention_" + ("pack" if pack else "bb") + "_f32_sm90 launch")
-    return out
+    the kernel), through the one C entry of the library the fp32 forward
+    loads (``fused_attention._walk_f32_cuda``): ``bb`` images x ``hpb`` heads
+    a block, packed (``pack``; no window) or each its own softmax (window
+    ``sw``, -1 for none), on the batch-block or pack kernel, or on the kernel
+    ``kind`` names (one of ``fused_attention.F32_WALK_KINDS``: ``"fwd"`` the
+    fp32 forward, ``"contig"`` with ``bb`` 1 and ``hpb`` all heads). The
+    other arguments as ``fused_attention._check_cuda_args`` returns them.
+    Counts nothing: its callers count."""
+    kind = kind or ("pack" if pack else "bb")
+    return fa._walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, bb=bb, hpb=hpb, sw=sw, kind=kind)
 
 
-WALKER_KINDS = ("contig", "pack", "bb", "pack_f32", "bb_f32")
+# The walker kernels: the bf16 contig, pack and batch-block kernels, and the
+# fp32 ones (the fp32 forward's, then #10, #11 and #13 in fp32).
+WALKER_KINDS = ("contig", "pack", "bb") + tuple(k + "_f32" for k in fa.F32_WALK_KINDS)
 
 
 def sm90_attributes(d: int, kind: str, bb: int = 1) -> dict:
     """Registers and local memory (spills) a thread, blocks an SM and shared
     memory a block of one walker instance at head dim ``d``, as the compiler
-    and the card report them: ``kind`` one of ``WALKER_KINDS`` (the bf16
-    contig, pack and batch-block kernels, the fp32 pack and batch-block
-    kernels), ``bb`` images a block."""
-    out = (ctypes.c_int * 4)()
+    and the card report them: ``kind`` one of ``WALKER_KINDS``, ``bb``
+    images a block."""
     if kind.endswith("_f32"):
-        lib = f32_lib()
-        err = lib.vitok_fused_attention_ab_f32_sm90_attributes(d, int(kind == "pack_f32"), bb, out)
-    else:
-        lib = sm90_lib()
-        err = lib.vitok_fused_attention_ab_sm90_attributes(d, ("contig", "pack", "bb").index(kind), bb, out)
+        return fa.f32_walk_attributes(d, kind[:-len("_f32")], bb)
+    out = (ctypes.c_int * 4)()
+    lib = sm90_lib()
+    err = lib.vitok_fused_attention_ab_sm90_attributes(d, ("contig", "pack", "bb").index(kind), bb, out)
     _build.check(lib, err, f"{kind} walker attributes")
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
@@ -233,11 +212,55 @@ def chained_ms(call: Callable[[torch.Tensor], torch.Tensor], cos: torch.Tensor, 
     return ms / layers
 
 
+def host_ahead_ms(fn: Callable[[], object], runs: int = 5, hold_cycles: int = 20_000_000) -> float:
+    """Device milliseconds a call of ``fn()`` takes when the card never waits
+    for the host: a spin kernel (``torch.cuda._sleep``, ``hold_cycles`` clock
+    cycles, about 10 ms) holds the stream while the host enqueues ``runs``
+    calls, each between two CUDA events; the mean of the events' distances.
+    A call's kernels and the device's gaps between them count, the host's
+    time does not. Raises if the host needed longer than the hold to enqueue
+    the calls (the card would then have waited for it)."""
+    fn()
+    torch.cuda.synchronize()
+    hold = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+    hold[0].record()
+    torch.cuda._sleep(hold_cycles)
+    hold[1].record()
+    t0 = time.perf_counter()
+    for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms >= hold[0].elapsed_time(hold[1]):
+        raise RuntimeError(f"the host took {host_ms:.3f} ms to enqueue {runs} calls, longer than the "
+                           f"{hold[0].elapsed_time(hold[1]):.3f} ms hold: raise hold_cycles")
+    return sum(start.elapsed_time(end) for start, end in marks) / runs
+
+
+def profiler_records(fn: Callable[[], object], runs: int = 5) -> list:
+    """The CUDA kernel records ``torch.profiler`` keeps over ``runs`` calls
+    of ``fn()`` (after one call outside the session): one duration in ms per
+    record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return [e.device_time_total / 1e3 for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor, rows: Optional[torch.Tensor] = None) -> float:
     d = (a.float() - b.float()).abs()
     return float((d if rows is None else d[rows]).max())
 
 
-__all__ = ["pick_group_channels", "kernel_lib", "sm90_lib", "f32_lib", "walk_sm90", "walk_f32", "WALKER_KINDS",
+__all__ = ["pick_group_channels", "kernel_lib", "sm90_lib", "walk_sm90", "walk_f32", "WALKER_KINDS",
            "sm90_attributes", "check_device", "card_line", "resolve_device", "rope_inputs", "chained_ms",
-           "max_abs_diff"]
+           "host_ahead_ms", "profiler_records", "max_abs_diff"]

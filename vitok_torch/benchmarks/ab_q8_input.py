@@ -13,7 +13,8 @@ forward there bit for bit. Arm B: the mma.sync forward
 (:func:`fused_qkv_attention_mma`) on the bf16 qkv. Arm C,
 :func:`fused_attention_contig` (replacing ``_kernel_contig``): the forward's
 function with one block per (sample, 64-query tile) walking all heads; in
-bf16 on the wgmma body (``csrc/fused_attention_ab_sm90.cu``), so it is held
+bf16 on the wgmma body (``csrc/fused_attention_ab_sm90.cu``; in fp32 on the
+fp32 walker, ``csrc/fused_attention_ab_f32_sm90.cu``), so it is held
 to the redesigned forward (:func:`fused_qkv_attention`: the q/k prologue and
 the wgmma kernel; X in the printed lines), which one more row times with its
 delta and its distance from B. Each numeric leg names its reference.
@@ -32,13 +33,13 @@ import numpy as np
 import torch
 
 from vitok_torch.benchmarks import (card_line, chained_ms, check_device, kernel_lib, max_abs_diff,
-                                    resolve_device, rope_inputs, walk_sm90)
+                                    resolve_device, rope_inputs, walk_f32, walk_sm90)
 from vitok_torch.ops import _build
 from vitok_torch.ops import fused_attention as fa
 
 # Launches of each kernel since its count was last set to 0: #12, #13 in
 # bf16 (the wgmma walker; its q/k prologue counts in
-# ``fused_attention.PROLOGUE_LAUNCHES``) and #13's fp32 instance.
+# ``fused_attention.PROLOGUE_LAUNCHES``) and in fp32 (the fp32 walker).
 LAUNCHES = {"fused_attention_q8in": 0, "fused_attention_contig": 0, "fused_attention_contig_f32": 0}
 
 
@@ -129,8 +130,9 @@ def fused_attention_contig(
     """The fused forward with one block per (sample, 64-query tile) walking
     all heads (bf16 or fp32 qkv). On a CUDA tensor it launches, in bf16, the
     q/k prologue and then ``fused_attention_contig_sm90_kernel`` (the wgmma
-    body; N a multiple of 8), in fp32 ``fused_attention_contig_kernel``; or
-    raises. On a CPU tensor it runs :func:`fused_attention_contig_plain`."""
+    body; N a multiple of 8), in fp32 ``fused_attention_contig_f32_sm90_kernel``
+    (the fp32 walker, ``csrc/fused_attention_ab_f32_sm90.cu``); or raises. On
+    a CPU tensor it runs :func:`fused_attention_contig_plain`."""
     check_device(qkv)
     if not qkv.is_cuda:
         return fused_attention_contig_plain(qkv, q_scale, k_scale, cos, sin, patch_mask,
@@ -144,15 +146,8 @@ def fused_attention_contig(
         out = walk_sm90(qkv, kn, q_scale, cos, sin, mask, num_heads, sw=sw)
         LAUNCHES["fused_attention_contig"] += 1
         return out
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-    lib = kernel_lib()
-    with torch.cuda.device(qkv.device):
-        err = lib.vitok_fused_attention_contig_f32(
-            qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            fa._ptr(mask), out.data_ptr(), b, n, num_heads, d, sw, torch.cuda.current_stream(qkv.device).cuda_stream)
-    name = "fused_attention_contig_f32"
-    _build.check(lib, err, f"{name} launch")
-    LAUNCHES[name] += 1
+    out = walk_f32(qkv, q_scale, k_scale, cos, sin, mask, num_heads, bb=1, hpb=num_heads, sw=sw, kind="contig")
+    LAUNCHES["fused_attention_contig_f32"] += 1
     return out
 
 

@@ -1,6 +1,7 @@
 // The fp32 walker: the fused attention's fp32 function with its products on
 // the tensor cores at fp32 accuracy, for a block that walks many cells
-// (fused_attention_ab_f32_sm90.cu: the A/B kernels #10 and #11 in fp32).
+// (fused_attention_ab_f32_sm90.cu: the fp32 forward #1 and the A/B kernels
+// #10, #11 and #13 in fp32).
 //
 // Rounding points are those of the fp32 body (fused_attend.cuh): q/k RMSNorm
 // and the rotate-half RoPE in fp32 (norm_rope_piece_f32, the arithmetic of

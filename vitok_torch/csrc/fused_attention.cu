@@ -1,12 +1,15 @@
 // Fused QK-RMSNorm + rotate-half 2D RoPE + masked (optionally sliding-window)
 // attention, read straight from the flat [B, N, 3C] QKV projection output:
 // the mma.sync family of the forward. The bf16 main path runs the Hopper
-// redesign in fused_attention_sm90.cu (same function and rounding points);
-// this file keeps the mma.sync kernels built:
+// redesign in fused_attention_sm90.cu (same function and rounding points),
+// the fp32 main path the fp32 walker (fused_attention_ab_f32_sm90.cu); this
+// file keeps the mma.sync kernels built:
 //   * vitok_fused_attention_mma_bf16, the mma.sync bf16 forward: arm B of the
 //     A/B entry points (vitok_torch/benchmarks), and the reference the int8
 //     epilogue below is held to bit for bit (both run attend_tile);
-//   * vitok_fused_attention_f32, the fp32 instance (the TPU kernel's f32 case);
+//   * vitok_fused_attention_f32, the fp32 instance (the TPU kernel's f32 case
+//     on FMA products): arm B of the fp32 A/B legs and the closest fp32
+//     reference to the plain version;
 //   * vitok_fused_attention_q8_bf16, the int8-epilogue kernel.
 //
 // Replaces the TPU kernel vitok_tpu/ops/fused_attention.py::_fused_kernel

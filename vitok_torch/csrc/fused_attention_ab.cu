@@ -1,13 +1,11 @@
-// Two attention kernels of the JAX project's A/B experiments
-// (benchmarks/ab_q8_input.py), as Hopper kernels around the mma.sync / FMA
-// body of the fused forward (attend_tile, fused_attend.cuh), whose fp32
-// instance (the forward's family: fused_attention.cu) this file's fp32
-// kernel shares. #10 and #11 run on the walkers of
-// fused_attention_ab_sm90.cu (bf16, the wgmma body) and
-// fused_attention_ab_f32_sm90.cu (fp32, products on the tensor cores), #13
-// in bf16 on the former. Each kernel here computes the function of the
-// fused forward (fused_attention.cu; TPU _fused_kernel) on its own work
-// split, so its result on a row is the bits the forward writes there.
+// An attention kernel of the JAX project's A/B experiments
+// (benchmarks/ab_q8_input.py) as a Hopper kernel around the mma.sync body of
+// the fused forward (attend_tile, fused_attend.cuh). The other A/B kernels
+// run on the walkers: #10, #11 and #13 in bf16 on the wgmma body
+// (fused_attention_ab_sm90.cu), in fp32 on the fp32 walker
+// (fused_attention_ab_f32_sm90.cu). The kernel here computes the function of
+// the mma.sync forward (fused_attention.cu; TPU _fused_kernel) on its own
+// input, so its result on a row is the bits that forward writes there.
 //
 // * fused_attention_q8in_kernel replaces benchmarks/ab_q8_input.py
 //   _kernel_q8in: the input is int8 QKV codes [B, N, 3C] and a per-token fp32
@@ -15,22 +13,18 @@
 //   RMSNorm cancels the scale up to eps), v is bf16(code * scale), converted
 //   from 16-byte loads of codes on the way into shared memory. Its result is
 //   the forward's on the assembled bf16 tensor [q codes | k codes | v * scale],
-//   bit for bit. bf16 out, as in JAX.
-// * fused_attention_contig_kernel replaces _kernel_contig in fp32: one block
-//   per (sample, query tile) walks all H heads, so a block sweeps its tokens'
-//   whole 3C-wide rows (the TPU arm reads them as one contiguous region).
+//   bit for bit. bf16 out, as in JAX. One block per (64-query tile, head,
+//   sample).
 //
-// What bounds them on an H100: the forward's work, (3C + C) * B * N bytes of
-// the element type against 4 * B * H * N^2 * d products; #12 reads
-// 3C + 4 bytes a token instead of 6C. At the recorded shapes (C = 3072,
-// d = 128, N = 256, B = 64 int8 input; N = 64, B = 256 fp32) that is bytes:
-// 0.075 ms (int8 input), 0.24 ms (fp32). Like the forward they run mma.sync
-// (fp32: FMA loops), recompute each K tile's norm per query tile and overlap
-// only a tile's V copy with its K norm, so neither is near its bound.
+// What bounds it on an H100: the forward's work with 3C + 4 bytes a token
+// read instead of 6C, against 4 * B * H * N^2 * d products. At the recorded
+// shape (C = 3072, d = 128, N = 256, B = 64) that is bytes: 0.075 ms. Like
+// the mma.sync forward it recomputes each K tile's norm per query tile and
+// overlaps only a tile's V copy with its K norm, so it is not near its bound.
 //
-// Build: as fused_attention.cu (vitok_torch/ops/_build.py); plain C entry
-// points bound with ctypes, asynchronous on the caller's stream, each
-// returning cudaGetLastError().
+// Build: as fused_attention.cu (vitok_torch/ops/_build.py); a plain C entry
+// point bound with ctypes, asynchronous on the caller's stream, returning
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,19 +58,6 @@ __device__ __forceinline__ void walk_cells(
                    tok_scale ? tok_scale + (long long)b * N : nullptr);
 }
 
-// grid (N / 64, B)
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_attention_contig_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
-                              const float* __restrict__ k_scale, const float* __restrict__ cos_t,
-                              const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
-                              T* __restrict__ out, int N, int H, int sw, float score_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int sKvEnd;
-  walk_cells<D, T, T>(smem, &sKvEnd, qkv, nullptr, q_scale, k_scale, cos_t, sin_t, mask, out, N, H,
-                      blockIdx.y, 0, H, sw, score_scale);
-}
-
 // grid (N / 64, H, B)
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -105,17 +86,6 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream, A
   return cudaGetLastError();
 }
 
-template <int D, typename T>
-cudaError_t launch_contig(const void* qkv, const void* qs, const void* ks, const void* cos_t,
-                          const void* sin_t, const void* mask, void* out, int B, int N, int H, int sw,
-                          cudaStream_t s) {
-  return launch(fused_attention_contig_kernel<D, T>, Smem<D, T>::kBytes,
-                dim3((N + kTile - 1) / kTile, B), s, static_cast<const T*>(qkv),
-                static_cast<const float*>(qs), static_cast<const float*>(ks),
-                static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-                static_cast<const unsigned char*>(mask), static_cast<T*>(out), N, H, sw, score_scale<D>());
-}
-
 template <int D>
 cudaError_t launch_q8in(const void* qkv8, const void* tok, const void* qs, const void* ks,
                         const void* cos_t, const void* sin_t, const void* mask, void* out, int B, int N,
@@ -132,21 +102,9 @@ cudaError_t launch_q8in(const void* qkv8, const void* tok, const void* qs, const
 
 extern "C" {
 
-// qkv [B, N, 3*H*D] fp32; q_scale, k_scale [D] f32; cos, sin [B, N, D/2]
-// f32; mask [B, N] bool bytes or null; out [B, N, H*D] fp32. One block per
-// (64-query tile, sample) walks all H heads; sw < 0: no window.
-int vitok_fused_attention_contig_f32(const void* qkv, const void* q_scale, const void* k_scale,
-                                     const void* cos_t, const void* sin_t, const void* mask, void* out,
-                                     int B, int N, int H, int D, int sw, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_contig<64, float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
-  if (D == 128) return launch_contig<128, float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// qkv8 [B, N, 3*H*D] int8 codes; tok_scale [B, N] f32; the rest as
-// vitok_fused_attention_contig_f32; out [B, N, H*D] bf16. One block per
-// (64-query tile, head, sample).
+// qkv8 [B, N, 3*H*D] int8 codes; tok_scale [B, N] f32; q_scale, k_scale [D]
+// f32; cos, sin [B, N, D/2] f32; mask [B, N] bool bytes or null; out [B, N,
+// H*D] bf16. One block per (64-query tile, head, sample); sw < 0: no window.
 int vitok_fused_attention_q8in(const void* qkv8, const void* tok_scale, const void* q_scale,
                                const void* k_scale, const void* cos_t, const void* sin_t,
                                const void* mask, void* out, int B, int N, int H, int D, int sw,

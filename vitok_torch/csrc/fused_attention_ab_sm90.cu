@@ -2,9 +2,7 @@
 // _kernel_bb and _kernel_pack, benchmarks/ab_q8_input.py _kernel_contig) in
 // bf16, on the wgmma body of the main path's forward (fused_attend_sm90.cuh),
 // with a block that walks many cells on one tile ring. Their fp32 instances
-// run elsewhere: #10 and #11 on the fp32 walker
-// (fused_attention_ab_f32_sm90.cu), #13 on the FMA body
-// (fused_attention_ab.cu).
+// run on the fp32 walker (fused_attention_ab_f32_sm90.cu).
 //
 // * fused_attention_contig_sm90_kernel replaces _kernel_contig: a block per
 //   (64-query tile, sample) takes all H heads of its tile, the arm's split

@@ -474,6 +474,12 @@ class AE(nn.Module):
         first, as ``quantize_block_params`` does; embeds and heads keep the
         compute dtype. Converts layer by layer on the model's device and drops
         each full-precision weight as it goes. Idempotent; returns ``self``.
+
+        It quantizes the weights the model holds: a bf16 model's are rounded
+        to bf16 first, so codes may differ by one step from those of the fp32
+        weights. For int8 serving of fp32 checkpoints (the released ones),
+        quantize the fp32 state dict (``ops/quant.py::quantize_state_dict``)
+        before building the bf16 model instead.
         """
         for blk in [*getattr(self, "encoder_blocks", ()), *getattr(self, "decoder_blocks", ())]:
             for path in q8.QUANT_LINEARS:

@@ -8,9 +8,12 @@ output the flat ``[B, N, C]`` attention result. On a bf16 CUDA tensor
 kernel ``_fused_kernel``): :func:`fused_qk_prologue`, which normalises and
 rotates k once into a bf16 scratch, and the wgmma attention kernel, which
 normalises its own q tile. On
-an fp32 CUDA tensor it launches the fp32 instance of ``csrc/fused_attention.cu``;
-on a CPU tensor it runs :func:`fused_qkv_attention_plain`, the same function
-in plain PyTorch. The CUDA path never falls back.
+an fp32 CUDA tensor it launches ``fused_attention_f32_sm90_kernel`` of
+``csrc/fused_attention_ab_f32_sm90.cu``, the fp32 walker (products on the
+tensor cores at fp32 accuracy, a block walking the cells
+:func:`f32_walk_split` gives it); on a CPU tensor it runs
+:func:`fused_qkv_attention_plain`, the same function in plain PyTorch. The
+CUDA path never falls back.
 
 Under autograd the forward also writes each row's log-sum-exp, and the
 backward is a kernel too (:func:`fused_qkv_attention_bwd`: the prologue, then
@@ -20,8 +23,8 @@ the forward's output and log-sum-exp. :func:`fused_qkv_attention_q8`
 ``_fused_kernel_q8``) is the forward with a per-token int8 quantize as its
 epilogue, for the int8 block's out-projection; it shares its attention body
 with :func:`fused_qkv_attention_mma`, the mma.sync forward kept beside the
-redesign (the A/B entry points' arm B). Each kernel has its plain version
-beside it and its own launch count.
+redesign (the A/B entry points' arm B), in bf16 and, on FMA products, in
+fp32. Each kernel has its plain version beside it and its own launch count.
 
 Masking is key-side only, as in the TPU kernel: padded query rows attend to
 the valid keys. The unfused composition (:func:`unfused_qkv_attention`)
@@ -31,6 +34,7 @@ masks two-sided, so the two agree on valid rows.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 from typing import Optional, Tuple
@@ -53,14 +57,19 @@ _RMS_EPS = 1e-6
 
 # Launches of each CUDA kernel since its count was last set to 0: the bf16
 # forward (wgmma), the q/k prologue it and the backward run first, the
-# backward, the forward with the int8 epilogue, and the mma.sync forward's
-# bf16 and fp32 instances.
+# backward, the forward with the int8 epilogue, the fp32 forward (the fp32
+# walker), and the mma.sync forward's bf16 and fp32 instances.
 LAUNCHES = 0
 PROLOGUE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 Q8_LAUNCHES = 0
-MMA_LAUNCHES = 0
 F32_LAUNCHES = 0
+MMA_LAUNCHES = 0
+F32_MMA_LAUNCHES = 0
+
+# The fp32 walker's kernels by the kind its C entry takes: the forward (#1)
+# and the A/B kernels batch block (#10), pack (#11) and contig (#13).
+F32_WALK_KINDS = ("fwd", "bb", "pack", "contig")
 
 # The int8 epilogue is opt-in, as in the JAX package (``VITOK_Q8_EPILOGUE``).
 _ENABLE_Q8 = os.environ.get("VITOK_Q8_EPILOGUE", "0") not in ("", "0")
@@ -301,10 +310,14 @@ def fused_qk_prologue(
 
 def _fused_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
     """The redesigned forward on a bf16 tensor (the prologue, then the wgmma
-    kernel): ``(out, lse or None)``; an fp32 tensor takes the fp32 instance,
-    which writes no lse."""
+    kernel): ``(out, lse or None)``; an fp32 tensor takes the fp32 walker,
+    which writes no lse: asked for one (under autograd), it raises before
+    anything launches, since the backward has no fp32 instance."""
     if qkv.dtype == torch.float32:
-        return _mma_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window), None
+        if want_lse:
+            raise TypeError("fused_qkv_attention under autograd takes bfloat16 qkv on a CUDA tensor: the backward "
+                            "kernel (#3) has no fp32 instance (ROADMAP.md Queue 3), got torch.float32")
+        return _attend_f32(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window), None
     _check_rows(qkv.shape[1])
     kn, _ = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=False)
     return _attend_sm90(qkv, kn, q_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse)
@@ -334,10 +347,104 @@ def _attend_sm90(qkv, kn, q_scale, cos, sin, patch_mask, num_heads, sliding_wind
     return out, lse
 
 
+def f32_walk_split(b: int, n: int, h: int, d: int, sms: int) -> Tuple[int, int]:
+    """``(bb, hpb)``: the images and heads of a 64-query tile that one block
+    of the fp32 forward walks, for ``b`` images of ``n`` tokens and ``h``
+    heads of ``d`` channels on a card of ``sms`` SMs. ``bb`` divides ``b``
+    and ``hpb`` divides ``h``; images are never packed (the pack is #11's
+    function, not #1's). The split changes only the speed: a cell's result
+    does not depend on the block it runs in.
+
+    The rule, from the fp32 walker's splits measured on an H100 (PERF.md).
+    A block runs one step (one key tile of one cell) while its producer
+    prepares the next, and what it overlaps is its own steps and, where an SM
+    holds two blocks (the forward's kernel at d = 64), the other block's:
+
+    - where a cell is one or two key tiles (``n`` <= 128), a block takes
+      about 24 steps (12 with two blocks an SM): at the 5B fp32 shape (d 128,
+      N 64, B 256, H 24) two images x 12 heads (D2, 0.4548 ms) and
+      12 heads (G, 0.4652) read fastest of the unpacked splits, one cell a
+      block 0.7627;
+    - a longer cell overlaps within itself, so a block takes about 8 steps (4
+      with two blocks an SM), at least one cell: at the 350M width (d 64, N
+      256, B 16, a tail and a dead image) one block an SM read two heads a
+      block fastest (C128, 0.1240 ms, against 4 heads 0.1325 and 8 0.1379,
+      whose fewer blocks left SMs idle while short images finished early),
+      two blocks an SM one cell a block (``chip_smoke.py``'s sweep);
+    - heads first, at most half of them (no split of more was measured),
+      then images;
+    - while the grid has fewer blocks than the card holds at once, images and
+      then heads are given back.
+    """
+    if min(b, n, h, d, sms) < 1:
+        raise ValueError(f"b, n, h, d and sms must be positive, got {(b, n, h, d, sms)}")
+    per_sm = 2 if d == 64 else 1  # blocks an SM of the forward's kernel
+    tiles = -(-n // 64)
+    cells = max(1, (24 if tiles <= 2 else 8) // per_sm // tiles)
+    divisors = lambda x, most: [v for v in range(1, x + 1) if x % v == 0 and v <= most]
+    hpb = divisors(h, min(cells, max(1, h // 2)))[-1]
+    bb = divisors(b, cells // hpb)[-1]
+    while tiles * (h // hpb) * (b // bb) < sms * per_sm and bb * hpb > 1:
+        if bb > 1:
+            bb = divisors(b, bb - 1)[-1]
+        else:
+            hpb = divisors(h, hpb - 1)[-1]
+    return bb, hpb
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, *, bb, hpb, sw=-1, kind="fwd"):
+    """One launch of an fp32 walker kernel (``kind`` one of
+    ``F32_WALK_KINDS``) on an fp32 ``qkv``, q and k normed in the kernel:
+    ``bb`` images x ``hpb`` heads a block, each image its own softmax with
+    window ``sw`` (-1 for none; the pack: one softmax over its ``bb``
+    images, no window). The other arguments as :func:`_check_cuda_args`
+    returns them. Counts nothing: its callers count."""
+    b, n, c3 = qkv.shape
+    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lib = _f32_lib()
+    with torch.cuda.device(qkv.device):
+        err = lib.vitok_fused_attention_walk_f32(
+            qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(), _ptr(mask),
+            out.data_ptr(), b, n, num_heads, c3 // 3 // num_heads, bb, hpb, sw, F32_WALK_KINDS.index(kind),
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(lib, err, f"fp32 walker ({kind}) launch")
+    return out
+
+
+def f32_walk_attributes(d: int, kind: str, bb: int = 1) -> dict:
+    """Registers and local memory (spills) a thread, blocks an SM and shared
+    memory a block of one fp32 walker kernel (``kind`` one of
+    ``F32_WALK_KINDS``) at head dim ``d`` with ``bb`` images a block, as the
+    compiler and the card report them."""
+    out = (ctypes.c_int * 4)()
+    lib = _f32_lib()
+    _build.check(lib, lib.vitok_fused_attention_walk_f32_attributes(d, F32_WALK_KINDS.index(kind), bb, out),
+                 f"fp32 walker ({kind}) attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
+
+
+def _attend_f32(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
+    """The fp32 forward: ``fused_attention_f32_sm90_kernel`` at the split
+    :func:`f32_walk_split` picks for this shape and card."""
+    global F32_LAUNCHES
+    b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
+        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, dtypes=(torch.float32,)
+    )
+    bb, hpb = f32_walk_split(b, n, num_heads, d, _sm_count(qkv.device.index))
+    out = _walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, bb=bb, hpb=hpb, sw=sw, kind="fwd")
+    F32_LAUNCHES += 1
+    return out
+
+
 def _mma_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
     """The mma.sync forward of ``csrc/fused_attention.cu``: its bf16
-    instance, or its fp32 one."""
-    global MMA_LAUNCHES, F32_LAUNCHES
+    instance, or its fp32 one (FMA products)."""
+    global MMA_LAUNCHES, F32_MMA_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
         dtypes=(torch.bfloat16, torch.float32),
@@ -355,7 +462,7 @@ def _mma_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_wi
         )
     _build.check(lib, err, "fused_attention_mma launch")
     if f32:
-        F32_LAUNCHES += 1
+        F32_MMA_LAUNCHES += 1
     else:
         MMA_LAUNCHES += 1
     return out
@@ -373,9 +480,10 @@ def fused_qkv_attention_mma(
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """The forward on the mma.sync kernel of ``csrc/fused_attention.cu``
-    (bf16 or fp32), kept beside the redesign: the A/B entry points' arm B,
-    whose body the A/B kernels and the int8 epilogue share bit for bit. On a
-    CUDA tensor it launches that kernel or raises; on a CPU tensor it runs
+    (bf16, or fp32 on FMA products), kept beside the redesigns: the A/B entry
+    points' arm B, whose body the int8 epilogue and #12 share bit for bit,
+    and in fp32 the closest reference to the plain version. On a CUDA tensor
+    it launches that kernel or raises; on a CPU tensor it runs
     :func:`fused_qkv_attention_plain`."""
     args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
     if qkv.is_cuda:
@@ -405,6 +513,21 @@ def _sm90_lib() -> ctypes.CDLL:
     for fn, argtypes in (
         (lib.vitok_fused_qk_prologue_bf16, [ptr] * 9 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_sm90_bf16, [ptr] * 8 + [i] * 5 + [ptr]),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _f32_lib() -> ctypes.CDLL:
+    """``csrc/fused_attention_ab_f32_sm90.cu``: the fp32 walker's kernels
+    (the fp32 forward and the A/B kernels #10, #11, #13 in fp32)."""
+    lib = _build.load("fused_attention_ab_f32_sm90")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+        (lib.vitok_fused_attention_walk_f32, [ptr] * 7 + [i] * 8 + [ptr]),
+        (lib.vitok_fused_attention_walk_f32_attributes, [i] * 3 + [ptr]),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
@@ -611,7 +734,8 @@ def fused_qkv_attention_bwd(
 
 def _fused_forward(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
     """The kernels on a CUDA tensor, the plain version on a CPU tensor:
-    ``(out, lse)``, lse None unless asked for (and on the fp32 instance)."""
+    ``(out, lse)``, lse None unless asked for (which an fp32 CUDA tensor
+    refuses: the backward has no fp32 instance)."""
     args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
     if qkv.is_cuda:
         return _fused_cuda(*args, num_heads, sliding_window, want_lse)
@@ -821,8 +945,9 @@ def fused_qkv_attention(
 
     Under autograd (grad enabled and ``qkv`` or a gain requiring it),
     ``"fused"`` runs the kernel with :func:`fused_qkv_attention_bwd` as its
-    backward on both devices, and ``"auto"`` takes the unfused composition,
-    as the JAX package's blocks do in training.
+    backward on both devices (on the card in bf16 only: an fp32 CUDA tensor
+    raises TypeError before anything launches), and ``"auto"`` takes the
+    unfused composition, as the JAX package's blocks do in training.
 
     Returns:
         ``[B, N, C]`` in qkv's dtype.
@@ -858,5 +983,6 @@ __all__ = [
     "can_fuse",
     "can_fuse_bwd",
     "can_fuse_q8",
+    "f32_walk_split",
     "MAX_FUSED_TOKENS",
 ]

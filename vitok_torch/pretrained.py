@@ -60,6 +60,12 @@ def load_pretrained_params(
 
     ``component`` of ``"encoder"`` or ``"decoder"`` loads that half only.
     Build the model with ``AE(state_dict=sd, **dataclasses.asdict(cfg))``.
+
+    The released weights are fp32. For int8 serving, quantize this fp32
+    state dict (``vitok_torch.ops.quant.quantize_state_dict``) before building
+    a bf16 model from it: its codes are then those of the JAX package's
+    ``quantize_block_params``. ``AE.quantize()`` on a bf16-held model
+    quantizes the bf16-rounded weights, which may differ by one code step.
     """
     from safetensors.torch import load_file
 
