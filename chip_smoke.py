@@ -12,7 +12,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    call for the same function (for the fused FFN: ``torch._int_mm`` on its
    fc1 product alone); the fused forward is the q/k prologue and the wgmma
    kernel (with its row log-sum-exp against the plain one), timed beside the
-   kept mma.sync forward;
+   kept mma.sync forward; the flash forward is also timed against
+   FlexAttention (a yardstick built here, never called by the port), and
+   the fold from the flat QKV (the q/k prologue, then the flash kernel)
+   against its plain version and the eager route it replaces;
 3. drives the main path, preprocess -> AE.encode -> AE.decode -> postprocess,
    for 350M-f16x64 (``Ld4-Ld24/1x16x64``) at full width and depth with
    random weights from a seed, at 256p (batch 64) and 512p (batch 16), in
@@ -29,8 +32,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    kernels launched;
 5. drives the high-resolution path: 350M with a sliding window of 1024 at
    1024p (batch 2) and 2048p (batch 1), bf16 and int8, where every block's
-   attention takes the flash kernel; bf16 against the unfused composition
-   at 1024p and against the flash kernel's plain version at 2048p, int8
+   attention takes the fold (the q/k prologue, then the flash kernel); bf16
+   against the unfused composition at 1024p and against the fold's plain
+   version at 2048p (both references launch no attention kernel), int8
    against its plain quantize kernels; then both once at 4096p;
 6. holds the two flash backward kernels (dq, dk/dv) against their plain
    version on the forward kernel's shapes, and trains: 350M at full width
@@ -499,16 +503,122 @@ def _flash_pairs(valid, n, sw) -> int:
     return total
 
 
+# FlexAttention (a library yardstick, timed beside #4-#6 and called nowhere
+# in the port) at these rows, and the fold (the q/k prologue, then #4, from
+# the flat QKV) against its plain version and the route it replaces (the
+# eager q/k norm and rotation, then #4) at these.
+FLEX_ROWS = (("350M@1024p", "tail+sw1024"), ("350M@2048p", "sw1024"), ("350M@2048p", "tail+sw1024"),
+             ("5B width", "tail+sw1024"))
+FOLD_ROWS = (("350M@1024p", "tail+sw1024"), ("350M@2048p", "sw1024"), ("350M@2048p", "tail+sw1024"))
+
+
+def _flex_call(q, k, v, mask, sw):
+    """``torch.compile``d FlexAttention on q, k, v ``[B, N, H, D]`` with a
+    block mask built once from the key validity (a key below its sample's
+    valid count: the NaFlex tail mask, asserted) and ``|i - j| <= sw``:
+    returns a call that gives ``[B, H, N, D]`` (and, under grad, a graph).
+    Each shape, window and grad mode compiles once (no dynamic shapes; the
+    recompile limit raised so that no row falls back to eager)."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    global _FLEX
+    if "_FLEX" not in globals():
+        torch._dynamo.config.recompile_limit = max(64, torch._dynamo.config.recompile_limit)
+        _FLEX = torch.compile(flex_attention, dynamic=False)
+    b, n = q.shape[:2]
+    idx = torch.arange(n, device=q.device)
+    kv_len = torch.full((b,), n, device=q.device) if mask is None else mask.sum(1)
+    if mask is not None and not torch.equal(mask, idx[None] < kv_len[:, None]):
+        raise ValueError("FlexAttention's yardstick takes a tail-suffix mask")
+    reach = n if sw is None else sw
+
+    def mask_mod(bi, hi, qi, ki):
+        return (ki < kv_len[bi]) & ((qi - ki).abs() <= reach)
+
+    block_mask = create_block_mask(mask_mod, b, None, n, n, device=q.device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: _FLEX(qt, kt, vt, block_mask=block_mask)
+
+
+def _check_flash_rows(what, got, want, mask):
+    """Valid rows within the flash limits; padded rows exactly 0 on both
+    sides. Returns (max, mean) abs error on valid rows."""
+    err = (got.float() - want.float()).abs()
+    if mask is not None:
+        if got[~mask].any() or want[~mask].any():
+            raise AssertionError(f"{what}: padded rows are not exactly 0")
+        err = err[mask]
+    max_abs, mean_abs = err.max().item(), err.mean().item()
+    if not (max_abs <= FLASH_MAX_ABS and mean_abs <= FLASH_MEAN_ABS):
+        raise AssertionError(f"{what}: valid rows max {max_abs:.3e} mean {mean_abs:.3e} (limits "
+                             f"{FLASH_MAX_ABS}, {FLASH_MEAN_ABS})")
+    return max_abs, mean_abs
+
+
+def _eager_route(qkv, qs, ks, cos, sin, mask, h, sw):
+    """The route the fold replaces: q and k normed and rotated by eager
+    PyTorch (``unfused_qkv_attention``'s glue), then the flash kernel."""
+    from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops.norms import rms_norm
+    from vitok_torch.ops.rope import apply_rotary_emb
+
+    b, n, c3 = qkv.shape
+    q, k, v = qkv.view(b, n, 3, h, -1).unbind(2)
+    q, k = apply_rotary_emb(rms_norm(q, qs), rms_norm(k, ks), cos, sin, convention="half")
+    return fl.flash_attention(q, k, v, mask, sw).reshape(b, n, c3 // 3)
+
+
+def _fold_row(label, b, n, h, d, masked, sw, device) -> dict:
+    """The fold from flat QKV against its plain version (valid rows within
+    the flash limits, padded rows 0), timed beside the prologue alone, the
+    eager route it replaces and its bound: the flat QKV, the RoPE tables and
+    the mask read and the output written, or the pairs' products, whichever
+    is larger."""
+    from vitok_torch.benchmarks import host_ahead_ms
+    from vitok_torch.ops import fused_attention as fa
+
+    qkv, qs, ks, cos, sin, mask = _attention_inputs(np.random.default_rng(9), b, n, h * d, h, masked, device)
+    args = (qkv, qs, ks, cos, sin, mask)
+    kw = dict(num_heads=h, sliding_window=sw)
+    got = fa.flash_qkv_attention(*args, **kw)
+    want = fa.flash_qkv_attention_plain(*args, **kw)
+    max_abs, mean_abs = _check_flash_rows(f"fold {label} sw={sw} masked={masked}", got, want, mask)
+    del got, want
+    ms = time_ms(lambda: fa.flash_qkv_attention(*args, **kw))
+    dev_ms = host_ahead_ms(lambda: fa.flash_qkv_attention(*args, **kw))
+    prologue_ms = time_ms(lambda: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, with_q=True))
+    eager_ms = time_ms(lambda: _eager_route(*args, h, sw))
+    eager_dev_ms = host_ahead_ms(lambda: _eager_route(*args, h, sw))
+    plain_ms = time_ms(lambda: fa.flash_qkv_attention_plain(*args, **kw), runs=2, warmup=1)
+    valid = [n] * b if mask is None else mask.sum(1).tolist()
+    tensor = b * n * h * d * 2
+    nbytes = 3 * tensor + tensor + 2 * b * n * (d // 2) * 4 + (0 if mask is None else b * n)
+    bound, bound_by = _bound_ms(nbytes, 4.0 * h * d * _flash_pairs(valid, n, sw), BF16_FLOPS_PER_S)
+    return dict(fold_max_abs_err=max_abs, fold_mean_abs_err=mean_abs, fold_ms=ms, fold_dev_ms=dev_ms,
+                fold_prologue_ms=prologue_ms, eager_route_ms=eager_ms, eager_route_dev_ms=eager_dev_ms,
+                fold_plain_ms=plain_ms, fold_bound_ms=bound, fold_bound_by=bound_by)
+
+
 def flash_kernel_phase(device) -> dict:
+    """#4 against ``flash_attention_plain`` at every ``FLASH_SHAPES`` case,
+    timed beside its plain version, SDPA with the boolean mask and, at
+    ``FLEX_ROWS``, FlexAttention (held to the same limits on valid rows);
+    at ``FOLD_ROWS`` the fold from flat QKV (``_fold_row``). ``dev_ms``: the
+    card's time with the host ahead (``host_ahead_ms``), where ``ms`` (chained
+    calls) may read the host's."""
     import torch
     import torch.nn.functional as F
+    from vitok_torch.benchmarks import host_ahead_ms
     from vitok_torch.ops import flash_attention as fl
 
     gen = torch.Generator(device=device).manual_seed(3)
     rows, worst = [], 0.0
-    log("kernel phase: flash_attention (CUDA) vs flash_attention_plain, bf16")
+    log("kernel phase: flash_attention (CUDA) vs flash_attention_plain, bf16; FlexAttention and the fold "
+        "(prologue + #4 from flat QKV) at some rows")
     log(f"{'shape':12s} {'B':>2s} {'N':>6s} {'H':>3s} {'D':>4s} {'case':12s} {'max_abs':>9s} "
-        f"{'mean_abs':>9s} {'lse_err':>9s} {'ms':>8s} {'plain_ms':>9s} {'sdpa_ms':>8s} {'bound_ms':>9s}")
+        f"{'mean_abs':>9s} {'lse_err':>9s} {'ms':>8s} {'dev_ms':>8s} {'plain_ms':>9s} {'sdpa_ms':>8s} "
+        f"{'flex_ms':>8s} {'flex_dev':>8s} {'flex_err':>9s} {'bound_ms':>9s}")
     for label, b, n, h, d, cases in FLASH_SHAPES:
         for case in cases:
             q, k, v, mask, valid = _flash_inputs(gen, b, n, h, d, "tail" in case, device)
@@ -516,38 +626,52 @@ def flash_kernel_phase(device) -> dict:
             got, lse = fl.flash_attention(q, k, v, mask, sw, return_lse=True)
             want, want_lse = fl.flash_attention_plain(q, k, v, mask, sw, return_lse=True)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            if mask is not None:
-                if got[~mask].any() or want[~mask].any():
-                    raise AssertionError(f"flash {label} {case}: padded rows are not exactly 0")
-                err = err[mask]
+            what = f"flash kernel vs its plain version at {label} B={b} N={n} H={h} D={d} {case}"
+            max_abs, mean_abs = _check_flash_rows(what, got, want, mask)
             live = want_lse < 1e29
             lse_err = (lse[live] - want_lse[live]).abs().max().item() if live.any() else 0.0
             dead_ok = torch.equal(lse < 1e29, live) and bool((lse[~live] == 1e30).all())
-            max_abs, mean_abs = err.max().item(), err.mean().item()
-            if not (max_abs <= FLASH_MAX_ABS and mean_abs <= FLASH_MEAN_ABS
-                    and lse_err <= LSE_ATOL and dead_ok):
-                raise AssertionError(
-                    f"flash kernel disagrees with its plain version at {label} B={b} N={n} H={h} "
-                    f"D={d} {case}: valid rows max {max_abs:.3e} mean {mean_abs:.3e} (limits "
-                    f"{FLASH_MAX_ABS}, {FLASH_MEAN_ABS}); lse {lse_err:.3e} (limit {LSE_ATOL}), "
-                    f"dead rows +1e30 on both sides: {dead_ok}")
-            del got, lse, want, want_lse, err
-            # Library yardstick: SDPA with the equivalent boolean mask.
+            if not (lse_err <= LSE_ATOL and dead_ok):
+                raise AssertionError(f"{what}: lse {lse_err:.3e} (limit {LSE_ATOL}), dead rows +1e30 on both "
+                                     f"sides: {dead_ok}")
+            flex = flex_ms = flex_err = None
+            if (label, case) in FLEX_ROWS:
+                flex = _flex_call(q, k, v, mask, sw)
+                flex_err, _ = _check_flash_rows(f"FlexAttention vs the plain version at {label} {case}",
+                                                flex().transpose(1, 2) * (1 if mask is None else mask[..., None, None]),
+                                                want, mask)
+            del got, lse, want, want_lse
+            # Library yardsticks: SDPA with the equivalent boolean mask, FlexAttention.
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             am = _sdpa_mask(mask, n, sw, device)
             ms = time_ms(lambda: fl.flash_attention(q, k, v, mask, sw))
+            dev_ms = host_ahead_ms(lambda: fl.flash_attention(q, k, v, mask, sw))
             plain_ms = time_ms(lambda: fl.flash_attention_plain(q, k, v, mask, sw), runs=3, warmup=1)
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), runs=3)
-            del qt, kt, vt, am
+            flex_dev_ms = None
+            if flex is not None:
+                flex_ms = time_ms(flex)
+                flex_dev_ms = host_ahead_ms(flex)
+            del qt, kt, vt, am, flex
             nbytes = 4 * b * n * h * d * 2 + (0 if mask is None else b * n)
             bound, bound_by = _bound_ms(nbytes, 4.0 * h * d * _flash_pairs(valid, n, sw), BF16_FLOPS_PER_S)
             worst = max(worst, max_abs)
-            rows.append(dict(shape=label, B=b, N=n, H=h, D=d, case=case, max_abs_err=max_abs,
-                             mean_abs_err=mean_abs, lse_max_abs_err=lse_err, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+            row = dict(shape=label, B=b, N=n, H=h, D=d, case=case, max_abs_err=max_abs, mean_abs_err=mean_abs,
+                       lse_max_abs_err=lse_err, ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       flex_ms=flex_ms, flex_dev_ms=flex_dev_ms, flex_max_abs_err=flex_err, bound_ms=bound,
+                       bound_by=bound_by)
+            fmt = lambda x, w, p: f"{x:{w}.{p}}" if x is not None else f"{'-':>{w}s}"
             log(f"{label:12s} {b:2d} {n:6d} {h:3d} {d:4d} {case:12s} {max_abs:9.2e} {mean_abs:9.2e} "
-                f"{lse_err:9.2e} {ms:8.4f} {plain_ms:9.4f} {lib_ms:8.4f} {bound:9.5f}")
+                f"{lse_err:9.2e} {ms:8.4f} {dev_ms:8.4f} {plain_ms:9.4f} {lib_ms:8.4f} {fmt(flex_ms, 8, '4f')} "
+                f"{fmt(flex_dev_ms, 8, '4f')} {fmt(flex_err, 9, '2e')} {bound:9.5f}")
+            if (label, case) in FOLD_ROWS:
+                row.update(_fold_row(label, b, n, h, d, "tail" in case, sw, device))
+                log(f"  fold (prologue + #4 from flat QKV): max {row['fold_max_abs_err']:.2e} mean "
+                    f"{row['fold_mean_abs_err']:.2e} vs its plain version; {row['fold_ms']:.4f} ms (dev "
+                    f"{row['fold_dev_ms']:.4f}; the prologue alone {row['fold_prologue_ms']:.4f}), the eager route it "
+                    f"replaces {row['eager_route_ms']:.4f} (dev {row['eager_route_dev_ms']:.4f}), plain "
+                    f"{row['fold_plain_ms']:.4f}, bound {row['fold_bound_ms']:.5f} ({row['fold_bound_by']})")
+            rows.append(row)
     return dict(rows=rows, max_abs_err=worst)
 
 
@@ -810,23 +934,28 @@ SERVING_SIZES = [  # (width, height): four in the 64-token bucket, three in 256 
 
 @contextlib.contextmanager
 def plain_flash_kernel():
-    """The attention router's flash wrapper swapped for its plain version:
-    the bf16 reference run beyond ``UNFUSED_REF_MAX_TOKENS``."""
+    """The attention router's flash wrapper and the fold swapped for their
+    plain versions: the bf16 reference run beyond ``UNFUSED_REF_MAX_TOKENS``
+    launches no kernel of the attention."""
     from vitok_torch.ops import attention
     from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops import fused_attention as fa
 
-    saved = attention.flash_attention
+    saved = attention.flash_attention, fa.flash_qkv_attention
     attention.flash_attention = fl.flash_attention_plain
+    fa.flash_qkv_attention = fa.flash_qkv_attention_plain
     try:
         yield
     finally:
-        attention.flash_attention = saved
+        attention.flash_attention, fa.flash_qkv_attention = saved
 
 
 def highres_phase(device, card: str) -> dict:
     """350M-f16x64 with ``sw=FLASH_SW`` at 1024p and 2048p, and at 4096p
     without a reference, bf16 and int8: every block's attention goes to the
-    flash kernel."""
+    fold (the q/k prologue, then the flash kernel). The counted runs go under
+    ``torch.inference_mode()``, the usual serving context; the references
+    launch no kernel of the attention."""
     import torch
     from vitok_torch import AE, decode_variant
 
@@ -836,20 +965,26 @@ def highres_phase(device, card: str) -> dict:
     depth = model.cfg.encoder_depth + model.cfg.decoder_depth
     cases = main_path_cases(device, HIGHRES, seed=2)
     log(f"high-resolution path: {VARIANT}, sw={FLASH_SW}, bf16, {depth} blocks")
-    outs, launches = _run_counted(model, cases, _expect(flash_attention=depth), "bf16 high-res")
+    expect = _expect(flash_attention=depth, fused_qk_prologue=depth)
+    with torch.inference_mode():
+        outs, launches = _run_counted(model, cases, expect, "bf16 high-res")
 
     rows = []
     for (name, max_tokens, batch, images, inputs), out in zip(cases, outs):
         _check_output(name, max_tokens, batch, images, inputs, out)
+        before = launch_counts()
         if max_tokens <= UNFUSED_REF_MAX_TOKENS:
             what = "unfused attention"
             reference = AE(**{**cfg_kw, "attn_impl": "xla"}, state_dict=model.state_dict(), device=device)
             ref = reference.decode(reference.encode(inputs))
             del reference
         else:
-            what = "flash plain version"
+            what = "fold's plain version"
             with plain_flash_kernel():
                 ref = model.decode(model.encode(inputs))
+        torch.cuda.synchronize()
+        if launch_counts() != before:
+            raise AssertionError(f"bf16 {name}: the reference run launched kernels: {launch_counts()} vs {before}")
         rel = _valid_rel_l2(out, ref, inputs)
         del ref
         if not rel <= MODEL_REL_L2:
@@ -864,14 +999,15 @@ def highres_phase(device, card: str) -> dict:
     del outs
 
     (big,) = main_path_cases(device, [HIGHRES_MAX], seed=3)
-    rows.append(_largest_run(model, big, _expect(flash_attention=depth), "bf16", card))
+    rows.append(_largest_run(model, big, expect, "bf16", card))
 
     qmodel = AE(**cfg_kw, state_dict=model.state_dict(), device=device).quantize()
     del model
     torch.cuda.empty_cache()
     log(f"high-resolution path: {VARIANT}, sw={FLASH_SW}, int8 after AE.quantize()")
-    expect = _expect(flash_attention=depth, rmsnorm_quant=depth, ffn_int8=depth)
-    outs, int8_launches = _run_counted(qmodel, cases, expect, "int8 high-res")
+    expect = _expect(flash_attention=depth, fused_qk_prologue=depth, rmsnorm_quant=depth, ffn_int8=depth)
+    with torch.inference_mode():
+        outs, int8_launches = _run_counted(qmodel, cases, expect, "int8 high-res")
     for (name, max_tokens, batch, images, inputs), out in zip(cases, outs):
         _check_output(name, max_tokens, batch, images, inputs, out)
         with plain_quant_kernels():  # the flash kernel stays: see PERF.md
@@ -1007,6 +1143,13 @@ def flash_bwd_kernel_phase(device) -> dict:
             with torch.no_grad():
                 fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), runs=3)
             lib_ms = time_ms(sdpa_step, runs=3) - fwd_ms
+            flex_ms = None
+            if (label, case) in FLEX_ROWS:  # FlexAttention forward + backward, minus its forward
+                flex = _flex_call(*(t.transpose(1, 2) for t in (qt, kt, vt)), mask, sw)
+                with torch.no_grad():
+                    flex_fwd_ms = time_ms(flex, runs=3)
+                flex_ms = time_ms(lambda: torch.autograd.grad(flex(), (qt, kt, vt), gt), runs=3) - flex_fwd_ms
+                del flex
             del qt, kt, vt, gt, am
             pairs = _flash_pairs(valid, n, sw)
             tensor, vec = b * n * h * d * 2, b * h * n * 4
@@ -1021,13 +1164,16 @@ def flash_bwd_kernel_phase(device) -> dict:
                              **{f"{name}_max_rel_err": e[0] for name, e in errs.items()},
                              **{f"{name}_mean_rel_err": e[1] for name, e in errs.items()},
                              **{f"{name}_max_abs_err": e[2] for name, e in errs.items()},
-                             dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms, library_ms=lib_ms, flex_ms=flex_ms,
                              dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
                              dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1]))
             rel = lambda name: f"{errs[name][0]:8.2e}/{errs[name][1]:8.2e}"
             log(f"{label:12s} {b:2d} {n:6d} {h:3d} {d:4d} {case:12s} {rel('dq')} {rel('dk')} {rel('dv')} "
                 f"{dq_ms:8.4f} {dkv_ms:8.4f} {plain_ms:9.4f} {lib_ms:9.4f} {dq_bound[0]:9.5f} {dkv_bound[0]:9.5f}")
     log("  (plain_ms: dq, dk and dv together; sdpa_bwd: SDPA forward + backward minus its forward)")
+    for r in rows:
+        if r["flex_ms"] is not None:
+            log(f"  {r['shape']} {r['case']}: FlexAttention forward + backward minus its forward {r['flex_ms']:.4f} ms")
     return dict(rows=rows, max_abs_err=worst)
 
 
@@ -1136,10 +1282,11 @@ def training_phase(device, card: str) -> dict:
         f"max |EMA - params| {ema_gap:.3e} on {card}")
     profile_step(f"train {name}", lambda: train_step(state, inputs, 3))
 
-    # Every block recomputed in the backward: twice the forward launches, the same loss.
-    with torch.no_grad():
-        want_loss, _ = compute_loss(model, inputs, loss_cfg,
-                                    torch.Generator(device=device).manual_seed(3 * 1_000_003 + state.step))
+    # Every block recomputed in the backward: twice the forward launches, the
+    # same loss. The loss to match is taken under grad, as the step takes it
+    # (without grad the blocks would take the inference fold).
+    want_loss = compute_loss(model, inputs, loss_cfg,
+                             torch.Generator(device=device).manual_seed(3 * 1_000_003 + state.step))[0].detach()
     _with_checkpoint(model, 1)
     torch.cuda.reset_peak_memory_stats()
     before = launch_counts()
@@ -1198,6 +1345,7 @@ def flash_bwd_entries(bkern: dict, training: dict) -> list:
             "bound_ms": row[f"{key}_bound_ms"],
             "bound_by": row[f"{key}_bound_by"],
             "library_ms": row["library_ms"],  # SDPA's whole backward (dq, dk and dv)
+            "flex_ms": row["flex_ms"],        # FlexAttention's whole backward, the same inputs
         })
     return entries
 
@@ -2550,6 +2698,7 @@ def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
         "differ_share": max(r["prologue_differ_share"] for r in kern["rows"]),
     }]
     flash = next(r for r in fkern["rows"] if r["shape"] == "350M@2048p" and r["case"] == "sw1024")
+    tail = next(r for r in fkern["rows"] if r["shape"] == "350M@2048p" and r["case"] == "tail+sw1024")
     entries.append({
         "name": "flash_attention",
         "route": "cuda",
@@ -2561,7 +2710,19 @@ def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"],
+        "library_ms": flash["library_ms"],  # SDPA with the boolean mask
+        "dev_ms": flash["dev_ms"],          # the card's time, the host ahead
+        "flex_ms": flash["flex_ms"],        # FlexAttention with the block mask, the same inputs
+        "flex_dev_ms": flash["flex_dev_ms"],
+        "flex_max_abs_err": max(r["flex_max_abs_err"] for r in fkern["rows"] if r["flex_max_abs_err"] is not None),
+        "tail_ms": tail["ms"],
+        "tail_dev_ms": tail["dev_ms"],
+        "tail_bound_ms": tail["bound_ms"],
+        "tail_flex_dev_ms": tail["flex_dev_ms"],
+        "fold_ms": flash["fold_ms"],            # the prologue and #4 from the flat QKV
+        "fold_dev_ms": flash["fold_dev_ms"],
+        "fold_max_abs_err": max(r["fold_max_abs_err"] for r in fkern["rows"] if "fold_max_abs_err" in r),
+        "eager_route_dev_ms": flash["eager_route_dev_ms"],  # the eager q/k norm and rotation, then #4
     })
     for name, replaces, shape, launches in (
         ("rmsnorm_quant", "vitok_tpu/ops/quant.py:385", "350M@512p main", int8_path["launches"]),

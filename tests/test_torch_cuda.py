@@ -165,12 +165,13 @@ class TestKernelOnCard:
         assert (got[-1].float() - mean_v).abs().max().item() <= 2e-2
 
     def test_long_sequence_routes_through_flash(self, cuda_device):
-        """At N = 2048 the fused kernel's gate refuses: q and k are normed and
-        rotated, and the flash kernel takes them with v as a view of qkv."""
+        """At N = 2048 the fused kernel's gate refuses: the prologue norms and
+        rotates q and k, and the flash kernel takes them with v as a view of
+        qkv (the fold)."""
         qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=1, n=2048, heads=1, d=64)
-        fused, flash = t_fa.LAUNCHES, t_fl.LAUNCHES
+        fused, flash, prologue = t_fa.LAUNCHES, t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES
         got = t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, num_heads=1)
-        assert (t_fa.LAUNCHES, t_fl.LAUNCHES) == (fused, flash + 1)
+        assert (t_fa.LAUNCHES, t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES) == (fused, flash + 1, prologue + 1)
         q, k, v = qkv.view(1, 2048, 3, 1, 64).unbind(2)
         q, k = apply_rotary_emb(rms_norm(q, qs), rms_norm(k, ks), cos, sin, convention="half")
         want = t_fl.flash_attention_plain(q, k, v).reshape(got.shape).float()
@@ -273,6 +274,39 @@ class TestFlashKernelOnCard:
         assert torch.equal(lse < 1e29, live) and (lse[~live] == 1e30).all()
         assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-3
 
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n", [300, 2100])
+    @pytest.mark.parametrize("sw", [None, 64, 1024])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_redesigned_kernel_within_the_flash_limits(self, cuda_device, d, n, sw, masked):
+        """The wgmma kernel (two warpgroups of 64 query rows a block) at
+        ragged N, with a tail and an all-padding sample, against the plain
+        version under ``chip_smoke.py``'s flash limits: valid rows max 8e-3,
+        mean 2e-4; lse 1e-3 on live rows, +1e30 on dead rows on both sides;
+        padded rows exactly 0."""
+        q, k, v, mask = flash_inputs(cuda_device, n=n, d=d, masked=masked, seed=n + d)
+        got, lse = t_fl.flash_attention(q, k, v, mask, sw, return_lse=True)
+        want, want_lse = t_fl.flash_attention_plain(q, k, v, mask, sw, return_lse=True)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if mask is not None:
+            assert not got[~mask].any() and not want[~mask].any()
+            err = err[mask]
+        assert err.max().item() <= 8e-3 and err.mean().item() <= 2e-4
+        live = want_lse < 1e29
+        assert torch.equal(lse < 1e29, live) and (lse[~live] == 1e30).all()
+        assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-3
+        if masked:  # the all-padding sample has no live row
+            assert not live[2].any()
+
+    def test_kernel_reads_strided_views(self, cuda_device):
+        """q and k as views of a [B, N, 2C] scratch and v of a [B, N, 3C]
+        tensor (what the fold hands over) give the bits of contiguous copies."""
+        q, k, v, mask = flash_inputs(cuda_device, n=2100, masked=True)
+        got = t_fl.flash_attention(q, k, v, mask, 256)
+        want = t_fl.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, 256)
+        assert torch.equal(got, want)
+
     def test_kernel_rejects_fp32(self, cuda_device):
         q, k, v, _ = flash_inputs(cuda_device)
         with pytest.raises(TypeError, match="bfloat16"):
@@ -282,6 +316,136 @@ class TestFlashKernelOnCard:
         q, k, v, _ = flash_inputs(cuda_device, d=32)
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+class TestFlashFoldOnCard:
+    """The fold (the q/k prologue, then the flash kernel, from the flat QKV)
+    against its plain version under the flash limits, and its routing."""
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("sw", [None, 256])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_fold_matches_plain(self, cuda_device, d, sw, masked):
+        qkv, qs, ks, cos, sin, mask = make_inputs(cuda_device, b=3, n=2100, heads=2, d=d, masked=masked)
+        before = (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES, t_fa.LAUNCHES)
+        got = t_fa.flash_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=sw)
+        assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES, t_fa.LAUNCHES) == (before[0] + 1, before[1] + 1, before[2])
+        want = t_fa.flash_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=sw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if mask is not None:
+            assert not got[~mask].any() and not want[~mask].any()
+            err = err[mask]
+        assert err.max().item() <= 8e-3 and err.mean().item() <= 2e-4
+
+    def test_unfused_branch_takes_the_fold_without_grad_only(self, cuda_device):
+        qkv, *rest = make_inputs(cuda_device, b=2, n=2048, heads=2, d=64, masked=True)
+        before = (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES)
+        with torch.no_grad():
+            t_fa.unfused_qkv_attention(qkv, *rest, 2, 300)
+        assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        x = qkv.detach().clone().requires_grad_(True)
+        out = t_fa.unfused_qkv_attention(x, *rest, 2, 300)  # the composition: the flash kernel's Function
+        out.float().square().sum().backward()
+        assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES) == (before[0] + 2, before[1] + 1)
+        assert torch.isfinite(x.grad).all()
+        with pytest.raises(RuntimeError, match="inference path"):
+            t_fa.flash_qkv_attention(x, *rest, num_heads=2)
+
+
+@pytest.mark.cuda
+class TestInferenceModeOnCard:
+    """Under ``torch.inference_mode()``, the usual serving context, every
+    tensor made is an inference tensor, which tracks no version: the flash
+    kernel, the fold and a 2048-token AE give the bits they give under
+    ``torch.no_grad()``, with the same launches."""
+
+    def test_flash_kernel_and_fold(self, cuda_device):
+        q, k, v, mask = flash_inputs(cuda_device, n=2100, masked=True)
+        qkv, qs, ks, cos, sin, fold_mask = make_inputs(cuda_device, b=3, n=2100, heads=2, d=64, masked=True)
+        fold = lambda m: t_fa.flash_qkv_attention(qkv, qs, ks, cos, sin, m, num_heads=2, sliding_window=256)
+        with torch.no_grad():
+            want, want_fold = t_fl.flash_attention(q, k, v, mask, 256), fold(fold_mask)
+        with torch.inference_mode():
+            mask, fold_mask = mask.clone(), fold_mask.clone()
+            assert mask.is_inference() and fold_mask.is_inference()
+            before = (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES)
+            got, got_fold = t_fl.flash_attention(q, k, v, mask, 256), fold(fold_mask)
+            assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES) == (before[0] + 2, before[1] + 1)
+        assert torch.equal(got, want) and torch.equal(got_fold, want_fold)
+
+    def test_ae_at_2048_tokens(self, cuda_device):
+        cfg = t_ae.AEConfig.from_variant("w128_d2_h2-w128_d2_h2/1x16x8")
+        gen = torch.Generator().manual_seed(0)
+        n, grids = 2048, [(48, 40), (32, 32)]
+        batch = {
+            "patches": torch.randn(2, n, 768, generator=gen),
+            "patch_mask": torch.zeros(2, n, dtype=torch.bool),
+            "row_idx": torch.zeros(2, n, dtype=torch.int32),
+            "col_idx": torch.zeros(2, n, dtype=torch.int32),
+        }
+        for i, (gr, gc) in enumerate(grids):
+            batch["patch_mask"][i, : gr * gc] = True
+            batch["row_idx"][i, : gr * gc] = torch.arange(gr * gc) // gc
+            batch["col_idx"][i, : gr * gc] = torch.arange(gr * gc) % gc
+        batch = {k: v.to(cuda_device) for k, v in batch.items()}
+        model = t_ae.AE(**{**dataclasses.asdict(cfg), "sw": 256}, device=cuda_device)
+        depth = cfg.encoder_depth + cfg.decoder_depth
+        with torch.no_grad():
+            want = model.decode(model.encode(batch))["patches"]
+        with torch.inference_mode():
+            before = (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES)
+            z = model.encode(batch)
+            assert z["z"].is_inference()
+            got = model.decode(z)["patches"]
+            assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES) == (before[0] + depth, before[1] + depth)
+        assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+class TestWideHeadsOnCard:
+    """Head dims the kernels have no instance for (192, 256) take the
+    unfused composition on the card, where the JAX package's gates (a
+    multiple of 64) would open: the same function, no kernel launched."""
+
+    @pytest.mark.parametrize("n,grids", [(256, [(16, 16), (12, 15)]), (2048, [(48, 40), (32, 32)])])
+    def test_d256_ae_matches_its_plain_path(self, cuda_device, n, grids):
+        cfg = t_ae.AEConfig.from_variant("w1024_d2_h4-w1024_d2_h4/1x16x64")
+        assert cfg.encoder_width // cfg.encoder_heads == 256
+        gen = torch.Generator().manual_seed(0)
+        batch = {
+            "patches": torch.randn(2, n, 768, generator=gen),
+            "patch_mask": torch.zeros(2, n, dtype=torch.bool),
+            "row_idx": torch.zeros(2, n, dtype=torch.int32),
+            "col_idx": torch.zeros(2, n, dtype=torch.int32),
+        }
+        for i, (gr, gc) in enumerate(grids):
+            batch["patch_mask"][i, : gr * gc] = True
+            batch["row_idx"][i, : gr * gc] = torch.arange(gr * gc) // gc
+            batch["col_idx"][i, : gr * gc] = torch.arange(gr * gc) % gc
+        batch = {k: v.to(cuda_device) for k, v in batch.items()}
+        model = t_ae.AE(**dataclasses.asdict(cfg), device=cuda_device)
+        reference = t_ae.AE(**{**dataclasses.asdict(cfg), "attn_impl": "xla"},
+                            state_dict=model.state_dict(), device=cuda_device)
+        before = (counts(), t_fl.LAUNCHES)
+        got = model(batch)["patches"]
+        torch.cuda.synchronize()
+        assert (counts(), t_fl.LAUNCHES) == before
+        want = reference(batch)["patches"]
+        valid = batch["patch_mask"]
+        a, r = got[valid].float(), want[valid].float()
+        assert torch.isfinite(a).all()
+        assert ((a - r).norm() / r.norm()).item() <= 2e-2
+
+    def test_gates_close_and_forced_kernels_raise(self, cuda_device):
+        qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=1, n=256, heads=1, d=256)
+        assert not t_fa.can_fuse(256, 256, 1, cuda=True) and t_fa.can_fuse(256, 256, 1)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, num_heads=1, impl="fused")
+        q = qkv[..., :256].view(1, 256, 1, 256)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_fl.flash_attention(q, q, q)
 
 
 def _bwd_case(device, n, d, case, sw):

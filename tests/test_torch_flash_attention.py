@@ -115,6 +115,18 @@ class TestSemantics:
         np.testing.assert_allclose(got[mask].numpy(), want[mask].numpy(), atol=ATOL, rtol=0)
         assert not got[~mask].any()
 
+    def test_kernels_counts_under_inference_mode(self):
+        """The wrappers' mask and key counts from a mask made under
+        ``torch.inference_mode()`` (an inference tensor, which tracks no
+        version), a fresh count for each mask."""
+        with torch.inference_mode():
+            mask = torch.tensor([[1, 1, 1, 0, 0], [1, 1, 1, 1, 1]]).bool()
+            assert mask.is_inference()
+            got, counts = t_fl._mask_and_counts(mask, 2, 5, mask.device)
+            assert torch.equal(got, mask) and counts.tolist() == [[3, 5], [3, 5]]
+            mask[0, 3] = True
+            assert t_fl._mask_and_counts(mask, 2, 5, mask.device)[1].tolist() == [[4, 5], [4, 5]]
+
     def test_other_devices_raise(self):
         q = torch.empty((1, 8, 1, 64), device="meta")
         with pytest.raises(RuntimeError, match="no flash attention kernel"):

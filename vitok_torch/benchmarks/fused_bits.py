@@ -7,7 +7,13 @@ the recorded A/B shape (B 64, N 256) the A/B kernels #10 (arm D2's split:
 two images and half the heads a block, with the window), #11 (the pack,
 P2's split; no window) and #13 (all heads of a tile), bf16; and at the
 recorded fp32 A/B shape (B 256, N 64, C 3072) the fp32 instances of #1 and
-#13 and #10 (D2) and #11 (P2) in fp32. It times each (CUDA events, 20 calls
+#13 and #10 (D2) and #11 (P2) in fp32; and at the high-resolution flash
+shapes (350M at 1024p and 2048p, the 5B width; no mask, or a tail and
+window 1024) the flash forward #4 (output and log-sum-exp) and the
+unfused branch's attention from the flat QKV under no grad
+(``unfused_qkv_attention`` with ``attn_impl="flash"``: the eager q/k norm
+and rotation, then #4, in a tree without the fold; the q/k prologue, then
+#4, in one with it). It times each (CUDA events, 20 calls
 after 3; #3 given the forward's output and log-sum-exp where its checkout
 takes them, so that the time is the backward's alone), saves the outputs,
 and with ``--against`` compares them with a file an earlier run saved: #2
@@ -16,7 +22,9 @@ the same rounding points, by their largest distance (valid rows) and rel L2
 against the limits ``chip_smoke.py`` holds them to against their plain
 versions (bf16 #1, #10, #11, #13: 2e-2 absolute; #3: 4e-2 of each
 gradient's largest entry, 3e-2 for the gains; fp32: 1e-5 of the largest
-entry); and says which are bit for bit the earlier run's. Run by path, once
+entry; #4 and the fold: the flash limits, 8e-3 max and 2e-4 mean absolute
+on valid rows, the log-sum-exp within 1e-3 on live rows and +1e30 on the
+same dead rows); and says which are bit for bit the earlier run's. Run by path, once
 per checkout, in turns (parent, change, change, parent):
 
     python vitok_torch/benchmarks/fused_bits.py --root PARENT --save /tmp/p.pt
@@ -34,6 +42,11 @@ import sys
 SHAPES = ((64, 256, 1024, 16), (16, 1024, 1024, 16), (64, 256, 3072, 24))  # B, N, C, H
 AB_SHAPES = (SHAPES[0], SHAPES[2])  # #10, #11 and #13: the 350M width and the recorded A/B shape
 F32_SHAPE = (256, 64, 3072, 24)     # the recorded fp32 A/B shape
+FLASH_SHAPES = ((2, 4096, 16, 64), (1, 16384, 16, 64), (1, 4096, 24, 128))  # B, N, H, D
+FLASH_SW = 1024
+FLASH_MAX_ABS = 8e-3   # chip_smoke.py's FLASH_MAX_ABS
+FLASH_MEAN_ABS = 2e-4  # chip_smoke.py's FLASH_MEAN_ABS
+LSE_ATOL = 1e-3        # chip_smoke.py's LSE_ATOL
 FWD_MAX_ABS = 2e-2   # chip_smoke.py's KERNEL_MAX_ABS
 F32_MAX_REL = 1e-5   # chip_smoke.py's AB_F32_MAX_REL
 BWD_MAX_REL = 4e-2   # chip_smoke.py's FUSED_BWD_MAX_REL
@@ -97,6 +110,44 @@ def _inputs(b, n, c, h, case, dtype):
     return (qkv, qs, ks, cos, sin, mask), sw, gen
 
 
+def _flash_inputs(b, n, h, d, case):
+    """Seeded q, k, v (N(0, 1), views of one [B, N, 3, H, D] tensor), the
+    flat QKV with gains U(0.5, 1.5) and tables U(0, 1) for the unfused
+    branch, and with "tail+sw" a tail mask (a quarter of each sample's
+    tokens padding, more in later samples) and window ``FLASH_SW``."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(b * n + h * d)
+    qkv5 = torch.randn(b, n, 3, h, d, generator=gen, device="cuda").bfloat16()
+    qs = 0.5 + torch.rand(d, generator=gen, device="cuda")
+    ks = 0.5 + torch.rand(d, generator=gen, device="cuda")
+    cos = torch.rand(b, n, d // 2, generator=gen, device="cuda")
+    sin = torch.rand(b, n, d // 2, generator=gen, device="cuda")
+    mask, sw = None, None
+    if case != "none":
+        valid = torch.tensor([n - n // 4 - (i * n) // (b + 2) for i in range(b)], device="cuda")
+        mask, sw = torch.arange(n, device="cuda")[None] < valid[:, None], FLASH_SW
+    return qkv5, (qkv5.view(b, n, 3 * h * d), qs, ks, cos, sin, mask), sw
+
+
+def _flash_distances(new, old, mask):
+    """(max |new - old|, mean |new - old|) on valid rows of the output, the
+    log-sum-exp's largest distance on live rows (0 without one), and whether
+    the two agree on which rows are dead; the output is [B, N, H, D] or
+    [B, N, C]."""
+    import torch
+
+    err = (new[0].float() - old[0].float()).abs()
+    if mask is not None:
+        err = err[mask]
+    lse_err, dead_same = 0.0, True
+    if len(new) > 1:
+        live = old[1] < 1e29
+        dead_same = torch.equal(new[1] < 1e29, live)
+        lse_err = (new[1][live] - old[1][live]).abs().max().item() if live.any() else 0.0
+    return err.max().item(), err.mean().item(), lse_err, dead_same
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the checkout whose vitok_torch runs")
@@ -157,6 +208,22 @@ def main(argv=None) -> int:
         for leg, (num, call) in legs.items():
             outputs[f"{key} {leg}"] = call()
             times[f"{key} {num}"] = _time_ms(call)
+    from vitok_torch.ops import flash_attention as fl
+
+    for b, n, h, d in FLASH_SHAPES:
+        for case in ("none", "tail+sw"):
+            qkv5, flat, sw = _flash_inputs(b, n, h, d, case)
+            q, k, v = qkv5.unbind(2)
+            key = f"{b}x{n}x{h * d} {case}"
+            masks[key] = flat[-1]
+            flash = lambda: fl.flash_attention(q, k, v, flat[-1], sw, return_lse=True)
+            outputs[key + " flash"] = flash()
+            times[key + " #4"] = _time_ms(flash)
+            with torch.no_grad():
+                fold = lambda: fa.unfused_qkv_attention(*flat, h, sw, attn_impl="flash")
+                outputs[key + " fold"] = fold()
+                times[key + " fold"] = _time_ms(fold)
+            del qkv5, q, k, v, flat
     torch.save(outputs, args.save)
     print(f"{args.root}: ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
     if args.against:
@@ -170,11 +237,20 @@ def main(argv=None) -> int:
                 print(f"  {k}: bit-identical {same[k]}", flush=True)
                 bad += [] if same[k] else [k]
                 continue
+            if k.endswith((" flash", " fold")):
+                mx, mean, lse_err, dead_same = _flash_distances(new_t, old_t, masks[k.rsplit(" ", 1)[0]])
+                print(f"  {k}: max {mx:.3e} mean {mean:.3e} (limits {FLASH_MAX_ABS}, {FLASH_MEAN_ABS}); lse "
+                      f"{lse_err:.3e} (limit {LSE_ATOL}), the same dead rows {dead_same}; bit-identical {same[k]}",
+                      flush=True)
+                bad += [] if (mx <= FLASH_MAX_ABS and mean <= FLASH_MEAN_ABS and lse_err <= LSE_ATOL
+                              and dead_same) else [k]
+                continue
             dist = _distances(k, new_t, old_t, masks[k.rsplit(" ", 1)[0]])
             print(f"  {k}: " + "; ".join(f"max {m:.3e} (limit {lim}) rel L2 {r:.3e}" for m, r, lim in dist)
                   + f"; bit-identical {same[k]}", flush=True)
             bad += [k] if any(m > lim for m, _, lim in dist) else []
-        groups = {"#1": " fwd", "#3": " bwd", "#2": " q8", "#10": " bb", "#11": " pack", "#13": " contig"}
+        groups = {"#1": " fwd", "#3": " bwd", "#2": " q8", "#10": " bb", "#11": " pack", "#13": " contig",
+                  "#4": " flash", "fold": " fold"}
         summary = []
         for kind, f32 in (("bf16", False), ("fp32", True)):
             for num, suffix in groups.items():

@@ -6,7 +6,8 @@
 // a block that walks many cells on one ring), so their results on a row are
 // the same bits. The fp32 walker (fused_attend_f32_sm90.cuh) shares its
 // thread layout, online softmax and the walk of a block's cells (the end of
-// this file).
+// this file). The flash forward (flash_attention.cu) runs its own softmax
+// on this file's cell layout, descriptors and row epilogue.
 //
 // Rounding points (those of the TPU kernel, vitok_tpu/ops/fused_attention.py
 // _attend_cell): logits in fp32 (bf16 products, fp32 accumulation) times

@@ -308,10 +308,10 @@ class Block(nn.Module):
         fused = (
             attn_impl in ("auto", "fused")
             and (deterministic or attn_impl == "fused")
-            and can_fuse(n, c, self.heads)
+            and can_fuse(n, c, self.heads, cuda=qkv.is_cuda)
         )
         args = (qkv, self.attn.norm_q.weight, self.attn.norm_k.weight, rope[0], rope[1], patch_mask)
-        if fused and int8 and deterministic and fa.can_fuse_q8(n, c, self.heads):
+        if fused and int8 and deterministic and fa.can_fuse_q8(n, c, self.heads, cuda=qkv.is_cuda):
             # The kernel's epilogue quantizes per token, so the out-projection
             # reads int8 codes and the bf16 attention output is never written.
             aq, a_scale = fa.fused_qkv_attention_q8(*args, num_heads=self.heads,

@@ -162,7 +162,7 @@ class DiTBlock(Block):
         if (
             attn_impl in ("auto", "fused")
             and (deterministic or attn_impl == "fused")
-            and can_fuse(n, c, self.heads)
+            and can_fuse(n, c, self.heads, cuda=qkv.is_cuda)
         ):
             attn = fused_qkv_attention(*args, num_heads=self.heads, impl="fused")
         else:

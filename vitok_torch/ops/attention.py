@@ -4,7 +4,9 @@ Layout ``[B, N, H, D]``. One interface takes the patch mask and a sliding
 window together. Routing follows the JAX package: the flash kernel
 (``ops/flash_attention.py``) serves ``N >= FLASH_MIN_TOKENS`` at head dims
 that are a multiple of 64; below that, and at other head dims, the unfused
-composition here runs.
+composition here runs. On a CUDA tensor the head dim must also be one the
+kernels have an instance for (``KERNEL_HEAD_DIMS``): a head dim of 192 or
+256 takes the unfused composition there, the same function.
 """
 
 from __future__ import annotations
@@ -13,9 +15,23 @@ from typing import Optional
 
 import torch
 
-from vitok_torch.ops.flash_attention import flash_attention
+from vitok_torch.ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
 FLASH_MIN_TOKENS = 2048
+
+
+def head_dim_routes(d: int, cuda: bool) -> bool:
+    """Whether a kernel's gate opens at head dim ``d``: the JAX package's
+    multiple of 64, and on a CUDA tensor (``cuda``) a head dim the CUDA
+    kernels have an instance for (``KERNEL_HEAD_DIMS``)."""
+    return d % 64 == 0 and (not cuda or d in KERNEL_HEAD_DIMS)
+
+
+def flash_route(n: int, d: int, impl: str, cuda: bool) -> bool:
+    """Whether :func:`dot_product_attention` takes the flash kernel for
+    ``N = n`` tokens of head dim ``d``: ``"flash"`` always, ``"auto"`` from
+    ``FLASH_MIN_TOKENS`` tokens where :func:`head_dim_routes` opens."""
+    return impl == "flash" or (impl == "auto" and n >= FLASH_MIN_TOKENS and head_dim_routes(d, cuda))
 
 
 def make_attention_mask(
@@ -87,9 +103,9 @@ def dot_product_attention(
     n, d = q.shape[1], q.shape[-1]
     if impl not in ("auto", "flash", "xla"):
         raise ValueError(f"Unknown attention impl: {impl!r}. Use 'auto', 'flash' or 'xla'.")
-    if impl == "flash" or (impl == "auto" and n >= FLASH_MIN_TOKENS and d % 64 == 0):
+    if flash_route(n, d, impl, q.is_cuda):
         return flash_attention(q, k, v, patch_mask=patch_mask, sliding_window=sliding_window)
     return _xla_attention(q, k, v, make_attention_mask(patch_mask, n, sliding_window, q.device))
 
 
-__all__ = ["dot_product_attention", "make_attention_mask", "FLASH_MIN_TOKENS"]
+__all__ = ["dot_product_attention", "make_attention_mask", "flash_route", "head_dim_routes", "FLASH_MIN_TOKENS"]

@@ -26,6 +26,12 @@ with :func:`fused_qkv_attention_mma`, the mma.sync forward kept beside the
 redesign (the A/B entry points' arm B), in bf16 and, on FMA products, in
 fp32. Each kernel has its plain version beside it and its own launch count.
 
+From ``FLASH_MIN_TOKENS`` tokens the model's unfused composition hands an
+inference call on a bf16 CUDA tensor to :func:`flash_qkv_attention`: the
+prologue writes q and k normed and rotated, and the flash kernel (#4,
+``csrc/flash_attention.cu``) reads them as views of that scratch, with v a
+view of ``qkv`` (:func:`takes_flash_fold` is its gate).
+
 Masking is key-side only, as in the TPU kernel: padded query rows attend to
 the valid keys. The unfused composition (:func:`unfused_qkv_attention`)
 masks two-sided, so the two agree on valid rows.
@@ -42,7 +48,8 @@ from typing import Optional, Tuple
 import torch
 
 from vitok_torch.ops import _build
-from vitok_torch.ops.attention import dot_product_attention
+from vitok_torch.ops import flash_attention as fl
+from vitok_torch.ops.attention import dot_product_attention, flash_route, head_dim_routes
 from vitok_torch.ops.norms import rms_norm
 from vitok_torch.ops.quant import quantize_activation
 from vitok_torch.ops.rope import apply_rotary_emb
@@ -79,18 +86,19 @@ _Q8_BUDGET = 13 * 1024 * 1024
 _SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
 
 
-def can_fuse(n: int, c: int, num_heads: int) -> bool:
+def can_fuse(n: int, c: int, num_heads: int, *, cuda: bool = False) -> bool:
     """Whether a block at this shape routes to the fused kernel.
 
     The JAX package's gate (``fused_attention.py:979-989``): at most
     ``MAX_FUSED_TOKENS`` tokens, ``n % 8 == 0``, head dim a multiple of 64
-    and a 128-lane head group dividing C.
+    and a 128-lane head group dividing C. For a CUDA tensor (``cuda``) the
+    head dim must also be in ``KERNEL_HEAD_DIMS`` (``head_dim_routes``).
     """
     if c % num_heads:
         return False
     d = c // num_heads
     group = d * 128 // math.gcd(d, 128)
-    return n <= MAX_FUSED_TOKENS and n % 8 == 0 and d % 64 == 0 and c % group == 0
+    return n <= MAX_FUSED_TOKENS and n % 8 == 0 and head_dim_routes(d, cuda) and c % group == 0
 
 
 def _rms_inv(x32: torch.Tensor) -> torch.Tensor:
@@ -119,6 +127,11 @@ def _qk_norm_rope(q, k, q_scale, k_scale, cos, sin):
     the input dtype) and the rotate-half RoPE in that dtype."""
     norm = lambda x, scale: ((x.float() * _rms_inv(x.float())) * scale.float()).to(x.dtype)
     return apply_rotary_emb(norm(q, q_scale), norm(k, k_scale), cos, sin, convention="half")
+
+
+def _asks_grad(qkv, q_scale, k_scale) -> bool:
+    """Whether autograd would want a gradient of this call."""
+    return torch.is_grad_enabled() and (qkv.requires_grad or q_scale.requires_grad or k_scale.requires_grad)
 
 
 def _split_qkv(qkv, num_heads):
@@ -550,11 +563,11 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 
-def can_fuse_bwd(n: int, c: int, num_heads: int) -> bool:
+def can_fuse_bwd(n: int, c: int, num_heads: int, *, cuda: bool = False) -> bool:
     """Whether the backward kernel takes this shape: wherever the forward
     kernel does. (The JAX package's gate is tighter, on the TPU's VMEM; it
     falls back to the unfused VJP at 1024 tokens. ROADMAP.md Queue 3.)"""
-    return can_fuse(n, c, num_heads)
+    return can_fuse(n, c, num_heads, cuda=cuda)
 
 
 def _rotate_half_bwd(dz: torch.Tensor, cos32: torch.Tensor, sin32: torch.Tensor) -> torch.Tensor:
@@ -800,15 +813,16 @@ def _pick_group_channels_q8(c: int, d: int, n: int) -> int:
     return best
 
 
-def can_fuse_q8(n: int, c: int, num_heads: int) -> bool:
+def can_fuse_q8(n: int, c: int, num_heads: int, *, cuda: bool = False) -> bool:
     """Whether an int8 block at this shape takes
     :func:`fused_qkv_attention_q8`: the JAX package's shape gate without its
-    backend check, behind the same opt-in ``VITOK_Q8_EPILOGUE``."""
+    backend check, behind the same opt-in ``VITOK_Q8_EPILOGUE``; for a CUDA
+    tensor (``cuda``) a head dim in ``KERNEL_HEAD_DIMS``."""
     if not _ENABLE_Q8 or c % num_heads:
         return False
     d = c // num_heads
     return (
-        n <= MAX_FUSED_TOKENS and n % 8 == 0 and d % 64 == 0
+        n <= MAX_FUSED_TOKENS and n % 8 == 0 and head_dim_routes(d, cuda)
         and _pick_group_channels_q8(c, d, n) > 0
     )
 
@@ -896,6 +910,94 @@ def fused_qkv_attention_q8(
     return fused_qkv_attention_q8_plain(*args, num_heads=num_heads, sliding_window=sliding_window)
 
 
+# ---------------------------------------------------------------------------
+# The high-resolution fold: the q/k prologue, then the flash kernel (#4)
+# ---------------------------------------------------------------------------
+
+
+def flash_qkv_attention_plain(
+    qkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    patch_mask: Optional[torch.Tensor] = None,
+    *,
+    num_heads: int,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """The fold's function in plain PyTorch: :func:`fused_qk_prologue_plain`
+    (q and k normalised and rotated, ``_rms_inv``'s sum order), then
+    ``flash_attention_plain`` on q, k and v. The same function as
+    :func:`unfused_qkv_attention` on the flash route, up to the order of the
+    RMSNorm sum. Returns ``[B, N, C]`` in qkv's dtype, padded rows 0."""
+    b, n, c3 = qkv.shape
+    qk, _ = fused_qk_prologue_plain(qkv, q_scale, k_scale, cos, sin, num_heads=num_heads)
+    q, k = qk.view(b, n, 2, num_heads, -1).unbind(2)
+    v = _split_qkv(qkv, num_heads)[2]
+    return fl.flash_attention_plain(q, k, v, patch_mask, sliding_window).reshape(b, n, c3 // 3)
+
+
+def _flash_fold_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
+    if _asks_grad(qkv, q_scale, k_scale):
+        raise RuntimeError("flash_qkv_attention is an inference path: on a CUDA tensor it computes no gradient "
+                           "(under autograd the unfused composition runs the flash kernel's autograd Function)")
+    b, n, c3 = qkv.shape
+    qk, _ = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=True)
+    q, k = qk.view(b, n, 2, num_heads, -1).unbind(2)
+    v = _split_qkv(qkv, num_heads)[2]
+    return fl._flash_cuda(q, k, v, patch_mask, sliding_window, False).reshape(b, n, c3 // 3)
+
+
+def flash_qkv_attention(
+    qkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    patch_mask: Optional[torch.Tensor] = None,
+    *,
+    num_heads: int,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """QK-norm + rotate-half RoPE + flash attention from flat QKV, for
+    inference at high resolution (``vitok_tpu``'s ``unfused_qkv_attention``
+    on its flash route, whose XLA glue the prologue replaces).
+
+    On a CUDA tensor (bf16, head dim 64 or 128) two launches: the q/k
+    prologue (:func:`fused_qk_prologue` with ``with_q``: q and k normed and
+    rotated into a ``[B, N, 2C]`` scratch), then the flash kernel on q and k
+    as strided views of that scratch and v as a view of ``qkv``. It computes
+    no gradient there, and raises if one is asked for. On a CPU tensor it
+    runs :func:`flash_qkv_attention_plain`. Returns ``[B, N, C]``, padded
+    query rows 0.
+    """
+    args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
+    if qkv.is_cuda:
+        return _flash_fold_cuda(*args, num_heads, sliding_window)
+    if qkv.device.type != "cpu":
+        raise RuntimeError(f"no fused attention kernel for device {qkv.device}")
+    return flash_qkv_attention_plain(*args, num_heads=num_heads, sliding_window=sliding_window)
+
+
+def takes_flash_fold(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, num_heads: int,
+                     attn_impl: str) -> bool:
+    """Whether :func:`unfused_qkv_attention` hands this call to
+    :func:`flash_qkv_attention`: a contiguous bf16 tensor on the card, no
+    gradient asked for, a call bound for the flash kernel (``"auto"`` from
+    ``FLASH_MIN_TOKENS`` tokens, or ``"flash"``) and a head dim in
+    ``KERNEL_HEAD_DIMS``. Under autograd the composition keeps the flash
+    kernel's autograd Function; on the CPU nothing changes."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    if not qkv.is_cuda or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous() or c % num_heads:
+        return False
+    if _asks_grad(qkv, q_scale, k_scale):
+        return False
+    d = c // num_heads
+    return d in KERNEL_HEAD_DIMS and flash_route(n, d, attn_impl, cuda=True)
+
+
 def unfused_qkv_attention(
     qkv: torch.Tensor,
     q_scale: torch.Tensor,
@@ -907,7 +1009,13 @@ def unfused_qkv_attention(
     sliding_window: Optional[int],
     attn_impl: str = "auto",
 ) -> torch.Tensor:
-    """The unfused composition the kernel replaces (two-sided mask)."""
+    """The unfused composition the kernel replaces (two-sided mask). Where
+    :func:`takes_flash_fold` opens, :func:`flash_qkv_attention` computes it
+    instead (the prologue and the flash kernel: the same function on valid
+    rows, up to the order of the RMSNorm sum)."""
+    if takes_flash_fold(qkv, q_scale, k_scale, num_heads, attn_impl):
+        return flash_qkv_attention(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads=num_heads,
+                                   sliding_window=sliding_window)
     b, n, c3 = qkv.shape
     q, k, v = _split_qkv(qkv, num_heads)
     q, k = apply_rotary_emb(rms_norm(q, q_scale), rms_norm(k, k_scale), cos, sin, convention="half")
@@ -939,7 +1047,8 @@ def fused_qkv_attention(
         num_heads: head count H (``D = C // H``).
         sliding_window: optional half-width ``|i-j| <= sw``.
         impl: ``"auto"`` (the fused kernel where :func:`can_fuse` and no
-            gradient is asked for, else the unfused composition), ``"fused"``
+            gradient is asked for, else the unfused composition, which
+            :func:`takes_flash_fold` may hand to :func:`flash_qkv_attention`), ``"fused"``
             (force the kernel), or an attention impl name for the unfused
             path (``"flash"``, ``"xla"``).
 
@@ -954,10 +1063,8 @@ def fused_qkv_attention(
     """
     n, c = qkv.shape[1], qkv.shape[-1] // 3
     needs_grad = torch.is_grad_enabled() and qkv.requires_grad
-    if impl == "fused" or (impl == "auto" and not needs_grad and can_fuse(n, c, num_heads)):
-        if torch.is_grad_enabled() and (
-            qkv.requires_grad or q_scale.requires_grad or k_scale.requires_grad
-        ):
+    if impl == "fused" or (impl == "auto" and not needs_grad and can_fuse(n, c, num_heads, cuda=qkv.is_cuda)):
+        if _asks_grad(qkv, q_scale, k_scale):
             return _FusedAttention.apply(
                 qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
             )
@@ -979,6 +1086,9 @@ __all__ = [
     "fused_qk_prologue_plain",
     "fused_qkv_attention_q8",
     "fused_qkv_attention_q8_plain",
+    "flash_qkv_attention",
+    "flash_qkv_attention_plain",
+    "takes_flash_fold",
     "unfused_qkv_attention",
     "can_fuse",
     "can_fuse_bwd",
