@@ -1080,16 +1080,101 @@ def serving_phase(device, card: str, model) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# The fold's backward (the q/k prologue, then #5 and #6 in their fold
+# instances) at these rows, against its plain version and the route it
+# replaces under autograd. Limits: #3's (FUSED_BWD_*), whose function and
+# rounding points these are.
+FOLD_BWD_ROWS = (("350M@1024p", "tail+sw1024"), ("350M@2048p", "sw1024"), ("5B width", "tail+sw1024"))
+
+
+def _fold_bwd_row(label, b, n, h, d, masked, sw, device) -> dict:
+    """``_FlashQKVAttention`` forward + backward (``torch.autograd.grad``)
+    against ``flash_qkv_attention_bwd_plain`` given the kernels' forward
+    output and log-sum-exp: dqkv within ``FUSED_BWD_MAX_REL`` /
+    ``FUSED_BWD_MEAN_REL`` of its largest entry on valid rows (padded rows
+    exactly 0), the gains' gradients within ``FUSED_BWD_GAIN_REL``, two runs
+    bit for bit. Timed: the fold's backward alone beside its plain version
+    and bound, and forward + backward beside the route it replaces (the
+    eager q/k norm and rotation, then ``_FlashAttention``, and their autograd
+    backward) on the same inputs, in the same call."""
+    import torch
+    from vitok_torch.benchmarks import host_ahead_ms
+    from vitok_torch.ops import fused_attention as fa
+
+    qkv, qs, ks, cos, sin, mask = _attention_inputs(np.random.default_rng(10), b, n, h * d, h, masked, device)
+    gen = torch.Generator(device=device).manual_seed(11)
+    dout = torch.randn((b, n, h * d), generator=gen, device=device).to(torch.bfloat16)
+    kw = dict(num_heads=h, sliding_window=sw)
+
+    def grads(route):
+        x, a, k = (t.detach().clone().requires_grad_(True) for t in (qkv, qs, ks))
+        if route == "fold":
+            out = fa.flash_qkv_attention(x, a, k, cos, sin, mask, **kw)
+        else:
+            out = _eager_route(x, a, k, cos, sin, mask, h, sw)
+        return torch.autograd.grad(out, (x, a, k), dout)
+
+    got, again = grads("fold"), grads("fold")
+    out, lse = fa._flash_fold_cuda(qkv, qs, ks, cos, sin, mask, h, sw, want_lse=True)
+    want = fa.flash_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, mask, dout, out=out, lse=lse, **kw)
+    torch.cuda.synchronize()
+    what = f"fold backward {label} {'tail+' if masked else ''}sw={sw}"
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{what}: two runs differ")
+    rows_ok = None if mask is None else mask[..., None].expand_as(qkv)
+    if rows_ok is not None and (got[0][~rows_ok].any() or want[0][~rows_ok].any()):
+        raise AssertionError(f"{what}: padded rows of dqkv are not exactly 0")
+    err = (got[0].float() - want[0].float()).abs()
+    scale = want[0].float().abs().max().item()
+    err = err if rows_ok is None else err[rows_ok]
+    max_rel, mean_rel = err.max().item() / scale, err.mean().item() / scale
+    gain_rel = max(((a - r).abs().max() / r.abs().max()).item() for a, r in zip(got[1:], want[1:]))
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    if not (finite and max_rel <= FUSED_BWD_MAX_REL and mean_rel <= FUSED_BWD_MEAN_REL
+            and gain_rel <= FUSED_BWD_GAIN_REL):
+        raise AssertionError(f"{what}: dqkv max/mean rel {max_rel:.3e}/{mean_rel:.3e} (limits {FUSED_BWD_MAX_REL}, "
+                             f"{FUSED_BWD_MEAN_REL}), gains {gain_rel:.3e} (limit {FUSED_BWD_GAIN_REL}), "
+                             f"finite {finite}")
+    del got, again, want
+    hold = 200_000_000  # cycles (about 0.1 s): the host enqueues five autograd steps of the eager route
+    bwd = lambda: fa.flash_qkv_attention_bwd(qkv, qs, ks, cos, sin, mask, dout, out=out, lse=lse, **kw)
+    bwd_ms, bwd_dev = time_ms(bwd), host_ahead_ms(bwd, hold_cycles=hold)
+    plain_ms = time_ms(lambda: fa.flash_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, mask, dout, out=out,
+                                                                lse=lse, **kw), runs=2, warmup=1)
+    step_ms, step_dev = time_ms(lambda: grads("fold")), host_ahead_ms(lambda: grads("fold"), hold_cycles=hold)
+    eager_ms, eager_dev = time_ms(lambda: grads("eager")), host_ahead_ms(lambda: grads("eager"), hold_cycles=hold)
+    valid = [n] * b if mask is None else mask.sum(1).tolist()
+    tensor = b * n * h * d * 2
+    # qkv, out, dO and the RoPE tables read, dqkv written; seven products a pair (dq three, dk/dv four).
+    nbytes = 3 * tensor + 2 * tensor + 3 * tensor + 2 * b * n * (d // 2) * 4 + b * h * n * 4
+    bound, bound_by = _bound_ms(nbytes, 7 * 2.0 * h * d * _flash_pairs(valid, n, sw), BF16_FLOPS_PER_S)
+    log(f"  fold backward (prologue + #5 + #6 fold instances): dqkv max/mean rel {max_rel:.2e}/{mean_rel:.2e}, "
+        f"gains {gain_rel:.2e} vs its plain version; {bwd_ms:.4f} ms (dev {bwd_dev:.4f}), plain {plain_ms:.4f}, "
+        f"bound {bound:.5f} ({bound_by}); forward + backward {step_ms:.4f} (dev {step_dev:.4f}) against the "
+        f"eager route it replaces {eager_ms:.4f} (dev {eager_dev:.4f})")
+    return dict(fold_bwd_max_rel_err=max_rel, fold_bwd_mean_rel_err=mean_rel, fold_bwd_gain_rel_err=gain_rel,
+                fold_bwd_ms=bwd_ms, fold_bwd_dev_ms=bwd_dev, fold_bwd_plain_ms=plain_ms, fold_bwd_bound_ms=bound,
+                fold_bwd_bound_by=bound_by, fold_step_ms=step_ms, fold_step_dev_ms=step_dev,
+                eager_step_ms=eager_ms, eager_step_dev_ms=eager_dev)
+
+
 def flash_bwd_kernel_phase(device) -> dict:
     """The dq and dk/dv kernels against ``flash_attention_bwd_plain`` on the
-    forward phase's shapes; the library yardstick is SDPA's backward with
-    the boolean mask (forward + backward, minus the forward)."""
+    forward phase's shapes; the library yardsticks are SDPA's backward with
+    the boolean mask and, at ``FLEX_ROWS``, FlexAttention's (forward +
+    backward, minus the forward). ``dev``: the kernel's time with the host
+    ahead (``host_ahead_ms``). At ``FOLD_BWD_ROWS`` also the fold's
+    backward (``_fold_bwd_row``)."""
     import torch
     import torch.nn.functional as F
+    from vitok_torch.benchmarks import host_ahead_ms
     from vitok_torch.ops import flash_attention as fl
 
     gen = torch.Generator(device=device).manual_seed(5)
     rows, worst = [], {"dq": 0.0, "dkv": 0.0}
+    for which in ("dq", "dkv"):
+        for d in (64, 128):
+            log(f"  {which} kernel at d = {d}: {fl.flash_bwd_attributes(which, d)}")
     log("kernel phase: flash attention backward, dq and dk/dv (CUDA) vs flash_attention_bwd_plain, bf16")
     log(f"{'shape':12s} {'B':>2s} {'N':>6s} {'H':>3s} {'D':>4s} {'case':12s} {'dq max/mean rel':>17s} "
         f"{'dk max/mean rel':>17s} {'dv max/mean rel':>17s} {'dq_ms':>8s} {'dkv_ms':>8s} {'plain_ms':>9s} "
@@ -1128,6 +1213,8 @@ def flash_bwd_kernel_phase(device) -> dict:
             del again, want, dq, dk, dv
             dq_ms = time_ms(lambda: fl.flash_dq_cuda(q, k, v, out, lse, g, mask, sw))
             dkv_ms = time_ms(lambda: fl.flash_dkv_cuda(q, k, v, lse, delta, g, mask, sw))
+            dq_dev = host_ahead_ms(lambda: fl.flash_dq_cuda(q, k, v, out, lse, g, mask, sw))
+            dkv_dev = host_ahead_ms(lambda: fl.flash_dkv_cuda(q, k, v, lse, delta, g, mask, sw))
             plain_ms = time_ms(lambda: fl.flash_attention_bwd_plain(q, k, v, out, lse, g, mask, sw),
                                runs=2, warmup=1)
             # Library yardstick: SDPA forward + backward with the equivalent
@@ -1164,13 +1251,18 @@ def flash_bwd_kernel_phase(device) -> dict:
                              **{f"{name}_max_rel_err": e[0] for name, e in errs.items()},
                              **{f"{name}_mean_rel_err": e[1] for name, e in errs.items()},
                              **{f"{name}_max_abs_err": e[2] for name, e in errs.items()},
-                             dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms, library_ms=lib_ms, flex_ms=flex_ms,
+                             dq_ms=dq_ms, dkv_ms=dkv_ms, dq_dev_ms=dq_dev, dkv_dev_ms=dkv_dev, plain_ms=plain_ms,
+                             library_ms=lib_ms, flex_ms=flex_ms,
                              dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
                              dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1]))
             rel = lambda name: f"{errs[name][0]:8.2e}/{errs[name][1]:8.2e}"
             log(f"{label:12s} {b:2d} {n:6d} {h:3d} {d:4d} {case:12s} {rel('dq')} {rel('dk')} {rel('dv')} "
-                f"{dq_ms:8.4f} {dkv_ms:8.4f} {plain_ms:9.4f} {lib_ms:9.4f} {dq_bound[0]:9.5f} {dkv_bound[0]:9.5f}")
-    log("  (plain_ms: dq, dk and dv together; sdpa_bwd: SDPA forward + backward minus its forward)")
+                f"{dq_ms:8.4f} {dkv_ms:8.4f} {plain_ms:9.4f} {lib_ms:9.4f} {dq_bound[0]:9.5f} {dkv_bound[0]:9.5f}"
+                f"  dev {dq_dev:.4f} / {dkv_dev:.4f}")
+            if (label, case) in FOLD_BWD_ROWS:
+                rows[-1].update(_fold_bwd_row(label, b, n, h, d, "tail" in case, sw, device))
+    log("  (plain_ms: dq, dk and dv together; sdpa_bwd: SDPA forward + backward minus its forward; dev: dq / "
+        "dk/dv with the host ahead)")
     for r in rows:
         if r["flex_ms"] is not None:
             log(f"  {r['shape']} {r['case']}: FlexAttention forward + backward minus its forward {r['flex_ms']:.4f} ms")
@@ -1179,16 +1271,19 @@ def flash_bwd_kernel_phase(device) -> dict:
 
 @contextlib.contextmanager
 def plain_flash_backward():
-    """The autograd Function's backward swapped for the plain version (the
-    forward kernel stays): the reference for the training gradients."""
+    """The autograd Functions' backwards swapped for their plain versions
+    (the flash kernel's and the fold's; the forward kernels stay): the
+    reference for the training gradients."""
     from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops import fused_attention as fa
 
-    saved = fl.flash_attention_bwd
+    saved = fl.flash_attention_bwd, fa.flash_qkv_attention_bwd
     fl.flash_attention_bwd = fl.flash_attention_bwd_plain
+    fa.flash_qkv_attention_bwd = fa.flash_qkv_attention_bwd_plain
     try:
         yield
     finally:
-        fl.flash_attention_bwd = saved
+        fl.flash_attention_bwd, fa.flash_qkv_attention_bwd = saved
 
 
 TRAIN = ("1024p", 4096, 2, [(1024, 1024), (960, 800)])  # the high-resolution run's first batch shape
@@ -1205,7 +1300,10 @@ def _with_checkpoint(model, every: int) -> None:
 def training_phase(device, card: str) -> dict:
     """Train 350M-f16x64 at full width and depth with ``sw=FLASH_SW``: fp32
     master weights, bf16 compute, 4096-token batches, Charbonnier 1.0 + SSIM
-    0.1 on two 256-tiles, AdamW + EMA, every activation stored."""
+    0.1 on two 256-tiles, AdamW + EMA, every activation stored. Every block's
+    attention takes the fold under autograd: the q/k prologue and #4
+    forward, the prologue again and #5 and #6 in their fold instances
+    backward; no eager q/k norm or rotation."""
     import torch
     from vitok_torch import AE, decode_variant
     from vitok_torch.train_lib import (LossConfig, compute_loss, create_optimizer, create_schedule,
@@ -1250,7 +1348,8 @@ def training_phase(device, card: str) -> dict:
     tx = create_optimizer(create_schedule("constant", TRAIN_LR, TRAIN_STEPS, warmup_frac=0.0))
     state = create_train_state(model, tx)
     train_step = make_train_step(tx, loss_cfg)
-    per_step = _expect(flash_attention=depth, flash_attention_dq=depth, flash_attention_dkv=depth)
+    per_step = _expect(flash_attention=depth, fused_qk_prologue=2 * depth, flash_attention_dq=depth,
+                       flash_attention_dkv=depth)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the training path's run
     losses, step_ms = [], []
@@ -1282,9 +1381,9 @@ def training_phase(device, card: str) -> dict:
         f"max |EMA - params| {ema_gap:.3e} on {card}")
     profile_step(f"train {name}", lambda: train_step(state, inputs, 3))
 
-    # Every block recomputed in the backward: twice the forward launches, the
-    # same loss. The loss to match is taken under grad, as the step takes it
-    # (without grad the blocks would take the inference fold).
+    # Every block recomputed in the backward: twice the forward launches (#4
+    # and its prologue), the same loss. The loss to match is taken under
+    # grad, as the step takes it.
     want_loss = compute_loss(model, inputs, loss_cfg,
                              torch.Generator(device=device).manual_seed(3 * 1_000_003 + state.step))[0].detach()
     _with_checkpoint(model, 1)
@@ -1295,7 +1394,8 @@ def training_phase(device, card: str) -> dict:
     torch.cuda.synchronize()
     remat_ms = (time.perf_counter() - t0) * 1e3
     got = {k: v - before[k] for k, v in launch_counts().items()}
-    expect = _expect(flash_attention=2 * depth, flash_attention_dq=depth, flash_attention_dkv=depth)
+    expect = _expect(flash_attention=2 * depth, fused_qk_prologue=3 * depth, flash_attention_dq=depth,
+                     flash_attention_dkv=depth)
     if got != expect or float(metrics["loss/total"]) != want_loss.item():
         raise AssertionError(f"training with checkpoint=1: launches {got} (expected {expect}), loss "
                              f"{float(metrics['loss/total'])} vs {want_loss.item()} with every activation stored")
@@ -1346,6 +1446,7 @@ def flash_bwd_entries(bkern: dict, training: dict) -> list:
             "bound_by": row[f"{key}_bound_by"],
             "library_ms": row["library_ms"],  # SDPA's whole backward (dq, dk and dv)
             "flex_ms": row["flex_ms"],        # FlexAttention's whole backward, the same inputs
+            "dev_ms": row[f"{key}_dev_ms"],
         })
     return entries
 

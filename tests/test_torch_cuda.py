@@ -340,18 +340,23 @@ class TestFlashFoldOnCard:
         assert err.max().item() <= 8e-3 and err.mean().item() <= 2e-4
 
     def test_unfused_branch_takes_the_fold_without_grad_only(self, cuda_device):
+        """The unfused branch takes the fold without grad and, since the
+        fold has a backward, under grad too (the name is kept from when it
+        took it without grad only): the prologue and #4 forward, the
+        prologue again and the dq and dk/dv kernels backward, no eager q/k
+        norm or rotation."""
         qkv, *rest = make_inputs(cuda_device, b=2, n=2048, heads=2, d=64, masked=True)
-        before = (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES)
+        before = (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES, t_fl.DQ_LAUNCHES, t_fl.DKV_LAUNCHES)
         with torch.no_grad():
             t_fa.unfused_qkv_attention(qkv, *rest, 2, 300)
         assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES) == (before[0] + 1, before[1] + 1)
         x = qkv.detach().clone().requires_grad_(True)
-        out = t_fa.unfused_qkv_attention(x, *rest, 2, 300)  # the composition: the flash kernel's Function
+        out = t_fa.unfused_qkv_attention(x, *rest, 2, 300)  # the fold's autograd Function
+        assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES) == (before[0] + 2, before[1] + 2)
         out.float().square().sum().backward()
-        assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES) == (before[0] + 2, before[1] + 1)
-        assert torch.isfinite(x.grad).all()
-        with pytest.raises(RuntimeError, match="inference path"):
-            t_fa.flash_qkv_attention(x, *rest, num_heads=2)
+        assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES, t_fl.DQ_LAUNCHES, t_fl.DKV_LAUNCHES) == (
+            before[0] + 2, before[1] + 3, before[2] + 1, before[3] + 1)
+        assert torch.isfinite(x.grad).all() and x.grad.any()
 
 
 @pytest.mark.cuda
@@ -529,6 +534,98 @@ class TestFlashBackwardOnCard:
         out, lse = t_fl.flash_attention(q, k, v, return_lse=True)
         with pytest.raises(TypeError, match="bfloat16"):
             t_fl.flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse, out.float())
+
+
+@pytest.mark.cuda
+class TestFlashFoldBackwardOnCard:
+    """The fold's backward (the q/k prologue, then the dq and dk/dv kernels'
+    fold instances, which end in the norm and rotation backward) through its
+    autograd Function, against ``flash_qkv_attention_bwd_plain`` given the
+    same forward output and log-sum-exp. Limits: the fused backward's (#3's
+    function and rounding points): dqkv max 4e-2 and mean 1.5e-3 of its
+    largest entry on valid rows, the gains' gradients 3e-2."""
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("sw", [None, 256])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_function_matches_plain(self, cuda_device, d, sw, masked):
+        qkv, qs, ks, cos, sin, mask = make_inputs(cuda_device, b=3, n=2100, heads=2, d=d, masked=masked)
+        dout = torch.from_numpy(np.random.default_rng(5).standard_normal((3, 2100, 2 * d), dtype=np.float32))
+        dout = dout.to(cuda_device).bfloat16()
+
+        def grads():
+            x, a, k = (t.detach().clone().requires_grad_(True) for t in (qkv, qs, ks))
+            out = t_fa.flash_qkv_attention(x, a, k, cos, sin, mask, num_heads=2, sliding_window=sw)
+            return torch.autograd.grad(out, (x, a, k), dout)
+
+        before = (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES, t_fl.DQ_LAUNCHES, t_fl.DKV_LAUNCHES, t_fa.LAUNCHES)
+        got = grads()
+        assert (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES, t_fl.DQ_LAUNCHES, t_fl.DKV_LAUNCHES, t_fa.LAUNCHES) == (
+            before[0] + 1, before[1] + 2, before[2] + 1, before[3] + 1, before[4])
+        again = grads()
+        out, lse = t_fa._flash_fold_cuda(qkv, qs, ks, cos, sin, mask, 2, sw, want_lse=True)
+        want = t_fa.flash_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, mask, dout, num_heads=2,
+                                                  sliding_window=sw, out=out, lse=lse)
+        torch.cuda.synchronize()
+        for a, a2 in zip(got, again):
+            assert torch.equal(a, a2), "two runs differ"
+        dqkv, ref = got[0].float(), want[0].float()
+        assert got[0].shape == qkv.shape and got[0].dtype == torch.bfloat16 and torch.isfinite(dqkv).all()
+        err, scale = (dqkv - ref).abs(), ref.abs().max().item()
+        if mask is not None:
+            assert not dqkv[~mask].any() and not ref[~mask].any()
+            err = err[mask]
+        assert err.max().item() <= 4e-2 * scale and err.mean().item() <= 1.5e-3 * scale
+        for a, r in zip(got[1:], want[1:]):
+            assert a.dtype == torch.float32 and (a - r).abs().max().item() <= 3e-2 * r.abs().max().item()
+
+    def test_training_blocks_launch_the_fold(self, cuda_device):
+        """A training forward + backward at 2048 tokens: per block one
+        prologue and #4 forward, one prologue, dq and dk/dv backward (with
+        ``checkpoint=1`` a second prologue and #4 per block); the parameter
+        gradients within rel L2 2e-2 of the same step with the plain
+        backwards, and the recomputed step's loss the stored one's."""
+        cfg = t_ae.AEConfig.from_variant("w128_d1_h2-w128_d2_h2/1x16x8")
+        model = t_ae.AE(**{**dataclasses.asdict(cfg), "sw": 256}, seed=0, device=cuda_device,
+                        param_dtype=torch.float32, trainable=True)
+        depth = cfg.encoder_depth + cfg.decoder_depth
+        n, rng = 2048, np.random.default_rng(0)
+        batch = {"patches": torch.from_numpy(rng.standard_normal((2, n, 768), dtype=np.float32)),
+                 "patch_mask": torch.from_numpy(np.arange(n)[None, :] < np.array([[n], [1500]])),
+                 "row_idx": torch.from_numpy(np.tile(np.arange(n) // 64, (2, 1))),
+                 "col_idx": torch.from_numpy(np.tile(np.arange(n) % 64, (2, 1)))}
+        batch = {k: v.to(cuda_device) for k, v in batch.items()}
+        params = list(model.parameters())
+
+        def grads():  # the same drop-path uniforms every call
+            gen = torch.Generator(device=cuda_device).manual_seed(3)
+            out = model(batch, deterministic=False, generator=gen)["patches"]
+            loss = out.float().square().mean()
+            return loss.detach(), torch.autograd.grad(loss, params)
+
+        names = ("flash", "prologue", "dq", "dkv", "fused")
+        counts_now = lambda: dict(zip(names, (t_fl.LAUNCHES, t_fa.PROLOGUE_LAUNCHES, t_fl.DQ_LAUNCHES,
+                                              t_fl.DKV_LAUNCHES, t_fa.LAUNCHES)))
+        before = counts_now()
+        loss, kernel = grads()
+        assert counts_now() == {k: v + {"flash": depth, "prologue": 2 * depth, "dq": depth, "dkv": depth}.get(k, 0)
+                                for k, v in before.items()}
+        saved = t_fl.flash_attention_bwd, t_fa.flash_qkv_attention_bwd
+        t_fl.flash_attention_bwd, t_fa.flash_qkv_attention_bwd = (t_fl.flash_attention_bwd_plain,
+                                                                   t_fa.flash_qkv_attention_bwd_plain)
+        try:
+            _, plain = grads()
+        finally:
+            t_fl.flash_attention_bwd, t_fa.flash_qkv_attention_bwd = saved
+        num = sum((a.double() - b.double()).square().sum() for a, b in zip(kernel, plain))
+        den = sum(b.double().square().sum() for b in plain)
+        assert all(torch.isfinite(g).all() for g in kernel) and (num / den).sqrt().item() <= 2e-2
+        model.cfg = dataclasses.replace(model.cfg, checkpoint=1)
+        before = counts_now()
+        remat_loss, _ = grads()
+        assert counts_now() == {k: v + {"flash": 2 * depth, "prologue": 3 * depth, "dq": depth,
+                                        "dkv": depth}.get(k, 0) for k, v in before.items()}
+        assert remat_loss.item() == loss.item()
 
 
 def _fused_bwd_case(device, d, case, n=200, sw=12):

@@ -9,12 +9,15 @@ two differ only in the order of the RMSNorm sum. Its routing and the gates
 are checked with the kernels' launches replaced by recorders that run the
 plain versions, on tensors that say they lie on the card (a ``Tensor``
 subclass whose ``is_cuda`` is True): the fold is taken for a bf16 call
-bound for the flash kernel with no gradient asked for, and not under
-autograd, in fp32, at a head dim the kernels have no instance for, or below
-``FLASH_MIN_TOKENS`` with ``"auto"``; a head dim of 192 or 256 takes the
-unfused composition on the card where the JAX package's gate (a multiple of
-64) would open. The kernels themselves are held to their plain versions in
-``tests/test_torch_cuda.py``.
+bound for the flash kernel, with or without a gradient asked for (under
+autograd its backward runs the prologue again, then the dq and dk/dv
+kernels' fold instances), and not in fp32 (under grad too), at a head dim
+the kernels have no instance for, or below ``FLASH_MIN_TOKENS`` with
+``"auto"``; a head dim of 192 or 256 takes the unfused composition on the
+card where the JAX package's gate (a multiple of 64) would open. The
+kernels themselves are held to their plain versions in
+``tests/test_torch_cuda.py``; the fold's backward against the JAX package in
+``tests/test_torch_flash_fold_bwd.py``.
 """
 
 import numpy as np
@@ -104,16 +107,47 @@ class TestFoldAgainstJax:
             t_fa.flash_qkv_attention(qkv, qkv[0, 0, :64], qkv[0, 0, :64], qkv, qkv, num_heads=1)
 
 
+def _fold_bwd_recorder(calls, name, plane):
+    """A recorder for one of the fold's backward launches: from what the
+    launch is given, the plain versions' dqrot (``plane`` 0) or dkrot and dv
+    (``plane`` 1) through the norm and rotation backward into their planes
+    of dqkv, and the gain's gradient as its first partial (the others 0)."""
+
+    def launch(qkv, qk, gain, cos, sin, mask, counts, dout, lse, delta, dqkv, part, num_heads, sw):
+        calls.append(name)
+        qkv, dqkv, dout = plain(qkv), plain(dqkv), plain(dout)
+        b, n, c3 = qkv.shape
+        heads = lambda t: t.reshape(b, n, num_heads, -1)
+        qrot, krot = qk.view(b, n, 2, num_heads, -1).unbind(2)
+        x = t_fa._split_qkv(qkv, num_heads)
+        dqrot, dkrot, dv = t_fl.flash_attention_bwd_plain(
+            qrot, krot, x[2], heads(dout), lse, heads(dout), mask, None if sw < 0 else sw, delta=delta,
+            round_qk=False)
+        cos32, sin32 = (t.to(qkv.dtype).float()[:, :, None, :] for t in (cos, sin))
+        x32 = x[plane].float()
+        dx, dgain = t_fa._norm_rope_bwd((dqrot, dkrot)[plane], x32, t_fa._rms_inv(x32), gain, cos32, sin32)
+        planes = dqkv.view(b, n, 3, num_heads, -1)
+        planes[:, :, plane] = dx.to(qkv.dtype)
+        if plane == 1:
+            planes[:, :, 2] = dv
+        part.zero_()
+        part[0, 0, 0] = dgain
+
+    return launch
+
+
 @pytest.fixture
 def recorders(monkeypatch):
-    """The fold's two launches and the fused forward replaced by recorders
-    that run the plain versions; returns the list of launches made."""
+    """The fold's launches (the prologue and #4; under autograd the prologue
+    and the dq and dk/dv kernels' fold instances) and the fused forward
+    replaced by recorders that run the plain versions; returns the list of
+    launches made."""
     calls = []
 
     def prologue(qkv, q_scale, k_scale, cos, sin, num_heads, out=None, dout=None, with_q=True):
         calls.append("prologue")
         return t_fa.fused_qk_prologue_plain(plain(qkv), q_scale, k_scale, cos, sin, num_heads=num_heads,
-                                            with_q=with_q)
+                                            out=plain(out), dout=plain(dout), with_q=with_q)
 
     def flash(q, k, v, patch_mask, sliding_window, return_lse):
         calls.append("flash")
@@ -126,8 +160,26 @@ def recorders(monkeypatch):
 
     monkeypatch.setattr(t_fa, "_prologue_cuda", prologue)
     monkeypatch.setattr(t_fl, "_flash_cuda", flash)
+    monkeypatch.setattr(t_fl, "flash_dq_fold_cuda", _fold_bwd_recorder(calls, "dq", 0))
+    monkeypatch.setattr(t_fl, "flash_dkv_fold_cuda", _fold_bwd_recorder(calls, "dkv", 1))
     monkeypatch.setattr(t_fa, "_fused_cuda", fused)
     return calls
+
+
+def _assert_grads_are_the_plain_backward(qkv, qs, ks, cos, sin, mask, heads, sw, out):
+    """The gradients of ``sum(out * w)`` of a card-posing call equal
+    ``flash_qkv_attention_bwd_plain`` given the plain forward's output and
+    log-sum-exp, bit for bit."""
+    w = torch.linspace(-1.0, 1.0, out.numel()).reshape(out.shape).to(out.dtype)
+    wrt = (qkv, qs) if qs.requires_grad else (qkv,)
+    got = torch.autograd.grad((plain(out) * w).sum(), wrt) + (None,)
+    base = (plain(qkv).detach(), qs.detach(), ks.detach(), cos, sin, mask)
+    fwd, lse = t_fa.flash_qkv_attention_plain(*base, num_heads=heads, sliding_window=sw, return_lse=True)
+    dqkv, dqs, _ = t_fa.flash_qkv_attention_bwd_plain(*base, w, num_heads=heads, sliding_window=sw, out=fwd,
+                                                      lse=lse)
+    torch.testing.assert_close(plain(got[0]), dqkv, rtol=0, atol=0)
+    if got[1] is not None:
+        torch.testing.assert_close(got[1], dqs, rtol=0, atol=0)
 
 
 def _card_args(b, n, heads, d, dtype=torch.bfloat16, masked=True):
@@ -149,21 +201,41 @@ class TestFoldRouting:
         assert recorders == ["prologue", "flash"]
 
     def test_not_taken_under_grad(self, recorders):
+        """Under autograd the fold is taken too (the name is kept from when
+        it was not): its Function's forward launches the prologue and #4,
+        its backward the prologue again, then the dq and dk/dv kernels'
+        fold instances, and the gradients are the plain backward's."""
         qkv, *rest = _card_args(1, 2048, 2, 64)
         qkv.requires_grad_()
-        assert not t_fa.takes_flash_fold(qkv, rest[0], rest[1], 2, "auto")
-        t_fa.unfused_qkv_attention(qkv, *rest, 2, 300)
-        assert recorders == ["flash"]  # the composition's flash kernel, through its autograd Function
+        assert t_fa.takes_flash_fold(qkv, rest[0], rest[1], 2, "auto")
+        out = t_fa.unfused_qkv_attention(qkv, *rest, 2, 300)
+        assert recorders == ["prologue", "flash"] and out.grad_fn is not None
+        _assert_grads_are_the_plain_backward(qkv, *rest, 2, 300, out)
+        assert recorders == ["prologue", "flash", "prologue", "dq", "dkv"]
 
-    def test_not_taken_for_a_gain_that_needs_grad(self):
-        qkv, qs, ks, *_ = _card_args(1, 2048, 2, 64)
-        assert not t_fa.takes_flash_fold(qkv, qs.requires_grad_(), ks, 2, "auto")
+    def test_not_taken_for_a_gain_that_needs_grad(self, recorders):
+        """A gain that needs a gradient takes the fold as well (the name is
+        kept from when it did not), and gets the plain backward's gradient."""
+        qkv, qs, ks, *rest = _card_args(1, 2048, 2, 64)
+        assert t_fa.takes_flash_fold(qkv, qs.requires_grad_(), ks, 2, "auto")
         with torch.no_grad():
             assert t_fa.takes_flash_fold(qkv, qs, ks, 2, "auto")
+        out = t_fa.unfused_qkv_attention(qkv.requires_grad_(), qs, ks, *rest, 2, 300)
+        _assert_grads_are_the_plain_backward(qkv, qs, ks, *rest, 2, 300, out)
+        assert recorders == ["prologue", "flash", "prologue", "dq", "dkv"]
 
     def test_not_taken_in_fp32(self):
         qkv, qs, ks, *_ = _card_args(1, 2048, 2, 64, dtype=torch.float32)
         assert not t_fa.takes_flash_fold(qkv, qs, ks, 2, "auto")
+
+    def test_not_taken_in_fp32_under_grad(self, recorders):
+        """fp32 on the card under grad keeps the composition (the flash
+        kernel's Function, which has no fp32 instance on the card)."""
+        qkv, qs, ks, *rest = _card_args(1, 2048, 2, 64, dtype=torch.float32)
+        qkv.requires_grad_()
+        assert not t_fa.takes_flash_fold(qkv, qs, ks, 2, "auto")
+        t_fa.unfused_qkv_attention(qkv, qs, ks, *rest, 2, 300)
+        assert recorders == ["flash"]
 
     @pytest.mark.parametrize("d", [192, 256])
     def test_not_taken_at_other_head_dims(self, recorders, d):
@@ -186,10 +258,18 @@ class TestFoldRouting:
         t_fa.unfused_qkv_attention(qkv, qs, ks, cos, sin, mask, 2, 300)
         assert recorders == []
 
-    def test_fold_refuses_a_gradient_on_the_card(self):
-        qkv, *rest = _card_args(1, 64, 1, 64)
-        with pytest.raises(RuntimeError, match="inference path"):
-            t_fa.flash_qkv_attention(qkv.requires_grad_(), *rest, num_heads=1)
+    def test_fold_refuses_a_gradient_on_the_card(self, recorders):
+        """The fold's autograd Function on a card-posing tensor (the name is
+        kept from when the fold refused a gradient there): one prologue and
+        #4 forward, one prologue, dq and dk/dv backward, the plain
+        backward's gradients, and the saved output and log-sum-exp reach
+        the backward without a second forward."""
+        qkv, *rest = _card_args(3, 136, 1, 64)
+        out = t_fa.flash_qkv_attention(qkv.requires_grad_(), *rest, num_heads=1, sliding_window=40)
+        assert out.grad_fn is not None and type(out.grad_fn).__name__.startswith("_FlashQKVAttention")
+        assert recorders == ["prologue", "flash"]
+        _assert_grads_are_the_plain_backward(qkv, *rest, 1, 40, out)
+        assert recorders == ["prologue", "flash", "prologue", "dq", "dkv"]
 
 
 class TestHeadDimGates:

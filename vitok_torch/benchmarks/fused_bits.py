@@ -9,23 +9,29 @@ P2's split; no window) and #13 (all heads of a tile), bf16; and at the
 recorded fp32 A/B shape (B 256, N 64, C 3072) the fp32 instances of #1 and
 #13 and #10 (D2) and #11 (P2) in fp32; and at the high-resolution flash
 shapes (350M at 1024p and 2048p, the 5B width; no mask, or a tail and
-window 1024) the flash forward #4 (output and log-sum-exp) and the
-unfused branch's attention from the flat QKV under no grad
-(``unfused_qkv_attention`` with ``attn_impl="flash"``: the eager q/k norm
-and rotation, then #4, in a tree without the fold; the q/k prologue, then
-#4, in one with it). It times each (CUDA events, 20 calls
-after 3; #3 given the forward's output and log-sum-exp where its checkout
-takes them, so that the time is the backward's alone), saves the outputs,
-and with ``--against`` compares them with a file an earlier run saved: #2
-bit for bit; the rest, which a checkout may compute on another kernel with
-the same rounding points, by their largest distance (valid rows) and rel L2
-against the limits ``chip_smoke.py`` holds them to against their plain
-versions (bf16 #1, #10, #11, #13: 2e-2 absolute; #3: 4e-2 of each
-gradient's largest entry, 3e-2 for the gains; fp32: 1e-5 of the largest
-entry; #4 and the fold: the flash limits, 8e-3 max and 2e-4 mean absolute
-on valid rows, the log-sum-exp within 1e-3 on live rows and +1e30 on the
-same dead rows); and says which are bit for bit the earlier run's. Run by path, once
-per checkout, in turns (parent, change, change, parent):
+window 1024) the flash forward #4 (output and log-sum-exp), its backward #5
+and #6 (``flash_attention_bwd`` given that output), and the unfused
+branch's attention from the flat QKV (``unfused_qkv_attention`` with
+``attn_impl="flash"``), under no grad and, for its gradients, under grad: in
+a tree without the fold the eager q/k norm and rotation, then #4 (under
+grad the flash kernel's autograd Function, whose backward is #5 and #6); in
+one with it the q/k prologue, then #4 (under grad the fold's Function, whose
+backward is the prologue and #5 and #6 in their fold instances). It times
+each (CUDA events, 20 calls after 3; #3 given the forward's output and
+log-sum-exp where its checkout takes them, so that the time is the
+backward's alone), saves the outputs, and with ``--against`` compares them
+with a file an earlier run saved: #2 bit for bit; the rest, which a
+checkout may compute on another kernel with the same rounding points, by
+their largest distance (valid rows) and rel L2 against the limits
+``chip_smoke.py`` holds them to against their plain versions (bf16 #1,
+#10, #11, #13: 2e-2 absolute; #3 and the unfused branch's gradients: 4e-2
+of each gradient's largest entry, 3e-2 for the gains; fp32: 1e-5 of the
+largest entry; #4 and the fold: the flash limits, 8e-3 max and 2e-4 mean
+absolute on valid rows, the log-sum-exp within 1e-3 on live rows and +1e30
+on the same dead rows; #5 and #6: 1e-2 max and 6e-6 mean of each
+gradient's largest entry, valid rows); and says which are bit for bit the
+earlier run's. Run by path, once per checkout, in turns (parent, change,
+change, parent):
 
     python vitok_torch/benchmarks/fused_bits.py --root PARENT --save /tmp/p.pt
     python vitok_torch/benchmarks/fused_bits.py --root . --save /tmp/c.pt --against /tmp/p.pt
@@ -47,6 +53,8 @@ FLASH_SW = 1024
 FLASH_MAX_ABS = 8e-3   # chip_smoke.py's FLASH_MAX_ABS
 FLASH_MEAN_ABS = 2e-4  # chip_smoke.py's FLASH_MEAN_ABS
 LSE_ATOL = 1e-3        # chip_smoke.py's LSE_ATOL
+FLASH_BWD_MAX_REL = 1e-2   # chip_smoke.py's FLASH_BWD_MAX_REL
+FLASH_BWD_MEAN_REL = 6e-6  # chip_smoke.py's FLASH_BWD_MEAN_REL
 FWD_MAX_ABS = 2e-2   # chip_smoke.py's KERNEL_MAX_ABS
 F32_MAX_REL = 1e-5   # chip_smoke.py's AB_F32_MAX_REL
 BWD_MAX_REL = 4e-2   # chip_smoke.py's FUSED_BWD_MAX_REL
@@ -223,7 +231,21 @@ def main(argv=None) -> int:
                 fold = lambda: fa.unfused_qkv_attention(*flat, h, sw, attn_impl="flash")
                 outputs[key + " fold"] = fold()
                 times[key + " fold"] = _time_ms(fold)
-            del qkv5, q, k, v, flat
+            gen = torch.Generator(device="cuda").manual_seed(b * n + h * d + 1)
+            dout = torch.randn(b, n, h * d, generator=gen, device="cuda").bfloat16()
+            out, lse = outputs[key + " flash"]
+            fbwd = lambda: fl.flash_attention_bwd(q, k, v, out, lse, dout.view(b, n, h, d), flat[-1], sw)
+            outputs[key + " fbwd"] = fbwd()
+            times[key + " #5+#6"] = _time_ms(fbwd)
+
+            def branch_grads():
+                x, a, kk = (t.detach().requires_grad_(True) for t in flat[:3])
+                o = fa.unfused_qkv_attention(x, a, kk, *flat[3:], h, sw, attn_impl="flash")
+                return torch.autograd.grad(o, (x, a, kk), dout)
+
+            outputs[key + " foldbwd"] = branch_grads()
+            times[key + " fold fwd+bwd"] = _time_ms(branch_grads)
+            del qkv5, q, k, v, flat, dout, out, lse
     torch.save(outputs, args.save)
     print(f"{args.root}: ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
     if args.against:
@@ -236,6 +258,19 @@ def main(argv=None) -> int:
             if k.endswith("q8"):
                 print(f"  {k}: bit-identical {same[k]}", flush=True)
                 bad += [] if same[k] else [k]
+                continue
+            if k.endswith(" fbwd"):
+                mask = masks[k.rsplit(" ", 1)[0]]
+                dist = []
+                for a, b in zip(new_t, old_t):
+                    err = (a.float() - b.float()).abs()
+                    err = err if mask is None else err[mask]
+                    top = b.float().abs().max().clamp(min=1e-30).item()
+                    dist.append((err.max().item() / top, err.mean().item() / top))
+                print(f"  {k}: " + "; ".join(f"max {m:.3e} mean {mean:.3e}" for m, mean in dist)
+                      + f" (limits {FLASH_BWD_MAX_REL}, {FLASH_BWD_MEAN_REL} of the largest entry); "
+                      f"bit-identical {same[k]}", flush=True)
+                bad += [] if all(m <= FLASH_BWD_MAX_REL and mean <= FLASH_BWD_MEAN_REL for m, mean in dist) else [k]
                 continue
             if k.endswith((" flash", " fold")):
                 mx, mean, lse_err, dead_same = _flash_distances(new_t, old_t, masks[k.rsplit(" ", 1)[0]])
@@ -250,7 +285,7 @@ def main(argv=None) -> int:
                   + f"; bit-identical {same[k]}", flush=True)
             bad += [k] if any(m > lim for m, _, lim in dist) else []
         groups = {"#1": " fwd", "#3": " bwd", "#2": " q8", "#10": " bb", "#11": " pack", "#13": " contig",
-                  "#4": " flash", "fold": " fold"}
+                  "#4": " flash", "fold": " fold", "#5+#6": " fbwd", "fold bwd": " foldbwd"}
         summary = []
         for kind, f32 in (("bf16", False), ("fp32", True)):
             for num, suffix in groups.items():

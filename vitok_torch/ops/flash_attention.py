@@ -145,19 +145,25 @@ def flash_attention_bwd_plain(
     grad_out: torch.Tensor,
     patch_mask: Optional[torch.Tensor] = None,
     sliding_window: Optional[int] = None,
+    *,
+    delta: Optional[torch.Tensor] = None,
+    round_qk: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function in plain PyTorch (``_dq_kernel``,
     ``_dkv_kernel``).
 
     The cotangent is zeroed on padded query rows; ``qs`` is q prescaled in
     its own dtype; ``p = exp(qs k^T - lse)`` in fp32, 0 for masked keys and
-    pairs outside the window; ``delta = sum_d dO * O`` in fp32;
+    pairs outside the window; ``delta = sum_d dO * O`` in fp32 (or the given
+    ``delta [B, H, N]``, formed so from a cotangent zeroed on padded rows);
     ``ds = p * (dO v^T - delta)``; p and ds are cast to the input dtype
     before ``dv = p^T dO``, ``dq = scale * ds k`` and ``dk = scale * ds^T q``
     (the unscaled q); fp32 accumulators, cast on the way out. Queries go in
     blocks, so memory stays O(block * N).
 
-    Returns ``(dq, dk, dv)``, each ``[B, N, H, D]`` in its input's dtype.
+    Returns ``(dq, dk, dv)``, each ``[B, N, H, D]`` in its input's dtype;
+    without ``round_qk`` dq and dk stay fp32 (the fold's norm and rotation
+    backward reads them so).
     """
     b, n, h, d = q.shape
     sw = sliding_window
@@ -175,7 +181,8 @@ def flash_attention_bwd_plain(
     qt = q.transpose(1, 2)                                          # [B, H, N, D]
     qst = (q.float() * scale).to(dt).transpose(1, 2)
     kt, vt, gt = k.transpose(1, 2).float(), v.transpose(1, 2).float(), g.transpose(1, 2)
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2)       # [B, H, N]
+    if delta is None:
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2)   # [B, H, N]
     dq = torch.zeros((b, h, n, d), dtype=torch.float32, device=dev)
     dk = torch.zeros((b, h, n, d), dtype=torch.float32, device=dev)
     dv = torch.zeros((b, h, n, d), dtype=torch.float32, device=dev)
@@ -204,7 +211,10 @@ def flash_attention_bwd_plain(
         dq[:, :, q0:q1] = scale * torch.einsum("bhqk,bhkd->bhqd", ds, kb)
         dv[:, :, lo:hi] += torch.einsum("bhqk,bhqd->bhkd", p, gb)
         dk[:, :, lo:hi] += scale * torch.einsum("bhqk,bhqd->bhkd", ds, qt[:, :, q0:q1].float())
-    return (dq.transpose(1, 2).to(dt), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
+    dq, dk = dq.transpose(1, 2), dk.transpose(1, 2)
+    if round_qk:
+        dq, dk = dq.to(dt), dk.to(k.dtype)
+    return dq, dk, dv.transpose(1, 2).to(v.dtype)
 
 
 def _check_strides(name: str, t: torch.Tensor) -> None:
@@ -288,7 +298,24 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
         lib.vitok_flash_bwd_dq_bf16.restype = ctypes.c_int
         lib.vitok_flash_bwd_dkv_bf16.argtypes = [ptr] * 4 + [ll] * 12 + [ptr] * 6 + [i] * 5 + [ptr]
         lib.vitok_flash_bwd_dkv_bf16.restype = ctypes.c_int
+        for fn in (lib.vitok_flash_bwd_dq_fold_bf16, lib.vitok_flash_bwd_dkv_fold_bf16):
+            fn.argtypes = [ptr] * 12 + [i] * 5 + [ptr]
+            fn.restype = ctypes.c_int
+        lib.vitok_flash_bwd_attributes.argtypes = [i] * 3 + [ptr]
+        lib.vitok_flash_bwd_attributes.restype = ctypes.c_int
     return lib
+
+
+def flash_bwd_attributes(which: str, d: int, fold: bool = False) -> dict:
+    """Registers and local memory (spills) a thread, blocks an SM and shared
+    memory a block of the dq (``which="dq"``) or dk/dv (``"dkv"``) kernel at
+    head dim ``d`` (``fold``: its fold instance), as the compiler and the
+    card report them."""
+    out = (ctypes.c_int * 4)()
+    lib = _bwd_kernel_lib()
+    _build.check(lib, lib.vitok_flash_bwd_attributes(("dq", "dkv").index(which), d, int(fold), out),
+                 f"flash backward ({which}) attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
 def _kernel_layout(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -323,9 +350,9 @@ def _flash_bwd_inputs(q, k, v, out, lse, grad_out, patch_mask):
 
 
 def flash_dq_cuda(q, k, v, out, lse, grad_out, patch_mask=None, sliding_window=None):
-    """The dq kernel (with the delta prologue) on CUDA tensors: returns dq
-    ``[B, N, H, D]`` and ``delta = sum_d dO * O`` (fp32 ``[B, H, N]``, 0 on
-    padded query rows), which the dk/dv kernel reads."""
+    """The dq kernel on CUDA tensors: returns dq ``[B, N, H, D]`` and
+    ``delta = sum_d dO * O`` (fp32 ``[B, H, N]``, 0 on padded query rows),
+    which the kernel forms for its own rows and the dk/dv kernel reads."""
     global DQ_LAUNCHES
     out, grad_out, mask, counts = _flash_bwd_inputs(q, k, v, out, lse, grad_out, patch_mask)
     b, n, h, d = q.shape
@@ -372,6 +399,42 @@ def flash_dkv_cuda(q, k, v, lse, delta, grad_out, patch_mask=None, sliding_windo
     _build.check(lib, err, "flash_attention dk/dv launch")
     DKV_LAUNCHES += 1
     return dk, dv
+
+
+def _fold_bwd_launch(entry: str, qkv, qk, gain, cos, sin, mask, counts, dout, lse, delta, dqkv, part,
+                     num_heads, sw):
+    b, n, c3 = qkv.shape
+    lib = _bwd_kernel_lib()
+    with torch.cuda.device(qkv.device):
+        err = getattr(lib, entry)(
+            qkv.data_ptr(), qk.data_ptr(), gain.data_ptr(), cos.data_ptr(), sin.data_ptr(), _ptr(mask),
+            _ptr(counts), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), part.data_ptr(),
+            b, n, num_heads, c3 // 3 // num_heads, sw, torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    _build.check(lib, err, f"flash_attention {entry} launch")
+
+
+def flash_dq_fold_cuda(qkv, qk, q_scale, cos, sin, mask, counts, dout, lse, delta, dqkv, part_q, num_heads, sw):
+    """The dq kernel's fold instance: from the flat ``qkv [B, N, 3C]``, the
+    q/k prologue's ``qk [B, N, 2C]`` and ``delta``, the cotangent ``dout
+    [B, N, C]`` (zero on padded rows) and the forward's ``lse``, writes
+    dqkv's q plane (the norm and rotation backward of dqrot) and the q gain's
+    partials ``part_q [B, H, ceil(N / 64), D]``. The caller has checked and
+    laid out every argument (``ops.fused_attention``)."""
+    global DQ_LAUNCHES
+    _fold_bwd_launch("vitok_flash_bwd_dq_fold_bf16", qkv, qk, q_scale, cos, sin, mask, counts, dout, lse, delta,
+                     dqkv, part_q, num_heads, sw)
+    DQ_LAUNCHES += 1
+
+
+def flash_dkv_fold_cuda(qkv, qk, k_scale, cos, sin, mask, counts, dout, lse, delta, dqkv, part_k, num_heads, sw):
+    """The dk/dv kernel's fold instance: as :func:`flash_dq_fold_cuda`, for
+    dqkv's k plane (through the norm and rotation backward), its v plane and
+    the k gain's partials."""
+    global DKV_LAUNCHES
+    _fold_bwd_launch("vitok_flash_bwd_dkv_fold_bf16", qkv, qk, k_scale, cos, sin, mask, counts, dout, lse, delta,
+                     dqkv, part_k, num_heads, sw)
+    DKV_LAUNCHES += 1
 
 
 def flash_attention_bwd(

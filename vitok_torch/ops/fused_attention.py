@@ -26,11 +26,14 @@ with :func:`fused_qkv_attention_mma`, the mma.sync forward kept beside the
 redesign (the A/B entry points' arm B), in bf16 and, on FMA products, in
 fp32. Each kernel has its plain version beside it and its own launch count.
 
-From ``FLASH_MIN_TOKENS`` tokens the model's unfused composition hands an
-inference call on a bf16 CUDA tensor to :func:`flash_qkv_attention`: the
-prologue writes q and k normed and rotated, and the flash kernel (#4,
+From ``FLASH_MIN_TOKENS`` tokens the model's unfused composition hands a
+call on a bf16 CUDA tensor to :func:`flash_qkv_attention`: the prologue
+writes q and k normed and rotated, and the flash kernel (#4,
 ``csrc/flash_attention.cu``) reads them as views of that scratch, with v a
-view of ``qkv`` (:func:`takes_flash_fold` is its gate).
+view of ``qkv`` (:func:`takes_flash_fold` is its gate). Under autograd its
+backward (:func:`flash_qkv_attention_bwd`) runs the prologue again, then
+the flash backward kernels #5 and #6 (``csrc/flash_attention_bwd.cu``) in
+their fold instances, which end in the q/k norm and rotation backward.
 
 Masking is key-side only, as in the TPU kernel: padded query rows attend to
 the valid keys. The unfused composition (:func:`unfused_qkv_attention`)
@@ -577,6 +580,21 @@ def _rotate_half_bwd(dz: torch.Tensor, cos32: torch.Tensor, sin32: torch.Tensor)
     return torch.cat([dzr * cos32 + dzi * sin32, dzi * cos32 - dzr * sin32], dim=-1)
 
 
+def _norm_rope_bwd(dz, x32, r, scale, cos32, sin32):
+    """The rotation's transpose and the RMSNorm backward in fp32 (the
+    kernels' ``norm_rope_bwd_tile``): from the fp32 gradient ``dz`` of the
+    normed, rotated rows ``[B, N, H, D]``, the raw rows ``x32``, their
+    ``r = _rms_inv(x32)``, the gain and the tables ``[B, N, 1, D/2]`` (fp32
+    values of the rounded tables), ``(dx, dscale)``: the raw rows' gradient
+    and the gain's, summed over rows, heads and samples."""
+    d = x32.shape[-1]
+    dy = _rotate_half_bwd(dz, cos32, sin32)
+    dscale = (dy * x32 * r).sum((0, 1, 2))
+    gy = dy * scale.float()
+    dx = gy * r - x32 * (r * r * r / d) * (gy * x32).sum(-1, keepdim=True)
+    return dx, dscale
+
+
 def fused_qkv_attention_bwd_plain(
     qkv: torch.Tensor,
     q_scale: torch.Tensor,
@@ -654,16 +672,8 @@ def fused_qkv_attention_bwd_plain(
     dkrot = torch.einsum("bhqk,bqhd->bkhd", dsb, qrot)
 
     cos32, sin32 = cos_b.float(), sin_b.float()
-
-    def norm_bwd(dz, x32, r, scale):
-        dy = _rotate_half_bwd(dz, cos32, sin32)
-        dscale = (dy * x32 * r).sum((0, 1, 2))
-        gy = dy * scale.float()
-        dx = gy * r - x32 * (r * r * r / d) * (gy * x32).sum(-1, keepdim=True)
-        return dx, dscale
-
-    dq, dqs = norm_bwd(dqrot, q32, rq, q_scale)
-    dk, dks = norm_bwd(dkrot, k32, rk, k_scale)
+    dq, dqs = _norm_rope_bwd(dqrot, q32, rq, q_scale, cos32, sin32)
+    dk, dks = _norm_rope_bwd(dkrot, k32, rk, k_scale, cos32, sin32)
     dqkv = torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)], dim=2).reshape(b, n, c3)
     return dqkv, dqs, dks
 
@@ -925,28 +935,176 @@ def flash_qkv_attention_plain(
     *,
     num_heads: int,
     sliding_window: Optional[int] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The fold's function in plain PyTorch: :func:`fused_qk_prologue_plain`
     (q and k normalised and rotated, ``_rms_inv``'s sum order), then
     ``flash_attention_plain`` on q, k and v. The same function as
     :func:`unfused_qkv_attention` on the flash route, up to the order of the
-    RMSNorm sum. Returns ``[B, N, C]`` in qkv's dtype, padded rows 0."""
+    RMSNorm sum. Returns ``[B, N, C]`` in qkv's dtype, padded rows 0, and
+    with ``return_lse`` also the flash forward's natural-log row
+    log-sum-exp ``[B, H, N]`` (what the backward reads)."""
     b, n, c3 = qkv.shape
     qk, _ = fused_qk_prologue_plain(qkv, q_scale, k_scale, cos, sin, num_heads=num_heads)
     q, k = qk.view(b, n, 2, num_heads, -1).unbind(2)
     v = _split_qkv(qkv, num_heads)[2]
-    return fl.flash_attention_plain(q, k, v, patch_mask, sliding_window).reshape(b, n, c3 // 3)
+    res = fl.flash_attention_plain(q, k, v, patch_mask, sliding_window, return_lse=return_lse)
+    if return_lse:
+        return res[0].reshape(b, n, c3 // 3), res[1]
+    return res.reshape(b, n, c3 // 3)
 
 
-def _flash_fold_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
-    if _asks_grad(qkv, q_scale, k_scale):
-        raise RuntimeError("flash_qkv_attention is an inference path: on a CUDA tensor it computes no gradient "
-                           "(under autograd the unfused composition runs the flash kernel's autograd Function)")
+def flash_qkv_attention_bwd_plain(
+    qkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    patch_mask: Optional[torch.Tensor],
+    dout: torch.Tensor,
+    *,
+    num_heads: int,
+    sliding_window: Optional[int] = None,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fold's backward in plain PyTorch, given the forward's output
+    ``out [B, N, C]`` and natural-log ``lse [B, H, N]``: the cotangent
+    zeroed on padded rows; :func:`fused_qk_prologue_plain` (qrot, krot and
+    ``delta = sum dO * O``); ``flash_attention_bwd_plain`` on those views
+    with dqrot and dkrot kept in fp32; then the rotation's transpose and the
+    RMSNorm backward in fp32 on the raw q and k (``_norm_rope_bwd``, the
+    fused backward's). The JAX package's autodiff of ``unfused_qkv_attention``
+    on its flash route rounds dqrot and dkrot to the input dtype first
+    (ROADMAP.md Queue 3). Returns ``(dqkv [B, N, 3C] in qkv.dtype,
+    dq_scale [D], dk_scale [D])`` with the gain gradients in fp32."""
+    b, n, c3 = qkv.shape
+    dt = qkv.dtype
+    g = dout if patch_mask is None else dout * patch_mask.to(dout.dtype)[..., None]
+    g = g.to(dt)
+    qk, delta = fused_qk_prologue_plain(qkv, q_scale, k_scale, cos, sin, num_heads=num_heads, out=out, dout=g)
+    qrot, krot = qk.view(b, n, 2, num_heads, -1).unbind(2)
+    q, k, v = _split_qkv(qkv, num_heads)
+    heads = lambda t: t.reshape(b, n, num_heads, -1)
+    dqrot, dkrot, dv = fl.flash_attention_bwd_plain(qrot, krot, v, heads(out), lse, heads(g), patch_mask,
+                                                    sliding_window, delta=delta, round_qk=False)
+    cos32 = cos.to(dt).float()[:, :, None, :]
+    sin32 = sin.to(dt).float()[:, :, None, :]
+    q32, k32 = q.float(), k.float()
+    dq, dqs = _norm_rope_bwd(dqrot, q32, _rms_inv(q32), q_scale, cos32, sin32)
+    dk, dks = _norm_rope_bwd(dkrot, k32, _rms_inv(k32), k_scale, cos32, sin32)
+    dqkv = torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)], dim=2).reshape(b, n, c3)
+    return dqkv, dqs, dks
+
+
+def _flash_fold_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
+    """The prologue (q and k), then #4 on strided views: ``(out, lse or None)``."""
     b, n, c3 = qkv.shape
     qk, _ = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=True)
     q, k = qk.view(b, n, 2, num_heads, -1).unbind(2)
     v = _split_qkv(qkv, num_heads)[2]
-    return fl._flash_cuda(q, k, v, patch_mask, sliding_window, False).reshape(b, n, c3 // 3)
+    res = fl._flash_cuda(q, k, v, patch_mask, sliding_window, want_lse)
+    out, lse = res if want_lse else (res, None)
+    return out.reshape(b, n, c3 // 3), lse
+
+
+def _flash_fold_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_heads, sliding_window, out, lse):
+    """The fold's backward on the card: the prologue (qrot, krot, delta),
+    then the dq and dk/dv kernels' fold instances into one dqkv, then the
+    gains' partials summed in a fixed order (no atomics)."""
+    b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
+        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
+    )
+    dev = qkv.device
+    if dout.device != dev or tuple(dout.shape) != (b, n, c) or dout.dtype != qkv.dtype:
+        raise ValueError(f"dout must be {(b, n, c)} {qkv.dtype} on {dev}, got {tuple(dout.shape)} {dout.dtype}")
+    if tuple(lse.shape) != (b, num_heads, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous {(b, num_heads, n)} float32 tensor")
+    if mask is not None:
+        dout = dout * mask.to(dout.dtype)[..., None]
+    dout = dout.contiguous()
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
+    qk, delta = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, out.contiguous(), dout)
+    counts = None if mask is None else fl.key_counts(mask)
+    dqkv = torch.empty_like(qkv)
+    parts = torch.empty((2, b, num_heads, (n + 63) // 64, d), dtype=torch.float32, device=dev)
+    fl.flash_dq_fold_cuda(qkv, qk, q_scale, cos, sin, mask, counts, dout, lse, delta, dqkv, parts[0], num_heads, sw)
+    fl.flash_dkv_fold_cuda(qkv, qk, k_scale, cos, sin, mask, counts, dout, lse, delta, dqkv, parts[1], num_heads, sw)
+    dqs, dks = parts.sum((1, 2, 3))
+    return dqkv, dqs, dks
+
+
+def flash_qkv_attention_bwd(
+    qkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    patch_mask: Optional[torch.Tensor],
+    dout: torch.Tensor,
+    *,
+    num_heads: int,
+    sliding_window: Optional[int] = None,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`flash_qkv_attention`: ``(dqkv, dq_scale,
+    dk_scale)`` from the forward's inputs, its output ``out [B, N, C]`` and
+    log-sum-exp ``lse``, and the cotangent ``dout [B, N, C]``.
+
+    On a CUDA tensor (bf16, head dim 64 or 128) four launches and a sum: the
+    q/k prologue with ``out`` and ``dout`` (qrot, krot and delta), the dq and
+    dk/dv kernels' fold instances (``flash_dq_fold_cuda``,
+    ``flash_dkv_fold_cuda``; their epilogues run the norm and rotation
+    backward into dqkv), and the gains' partials summed; it raises on what
+    the kernels do not take. On a CPU tensor it runs
+    :func:`flash_qkv_attention_bwd_plain`. The gain gradients are fp32."""
+    args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
+    if qkv.is_cuda:
+        return _flash_fold_bwd_cuda(*args, dout, num_heads, sliding_window, out, lse)
+    if qkv.device.type != "cpu":
+        raise RuntimeError(f"no fused attention kernel for device {qkv.device}")
+    return flash_qkv_attention_bwd_plain(*args, dout, num_heads=num_heads, sliding_window=sliding_window,
+                                         out=out, lse=lse)
+
+
+def _flash_fold_forward(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
+    """The fold's kernels on a CUDA tensor, its plain version on a CPU
+    tensor: ``(out, lse or None)``."""
+    args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
+    if qkv.is_cuda:
+        return _flash_fold_cuda(*args, num_heads, sliding_window, want_lse)
+    if qkv.device.type != "cpu":
+        raise RuntimeError(f"no fused attention kernel for device {qkv.device}")
+    res = flash_qkv_attention_plain(*args, num_heads=num_heads, sliding_window=sliding_window,
+                                    return_lse=want_lse)
+    return res if want_lse else (res, None)
+
+
+class _FlashQKVAttention(torch.autograd.Function):
+    """The fold with :func:`flash_qkv_attention_bwd` as its backward (looked
+    up at call time). Saves its inputs, its output and the rows'
+    log-sum-exp, not the prologue's ``[B, N, 2C]`` scratch: the backward runs
+    the prologue again. cos/sin get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
+        out, lse = _flash_fold_forward(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
+                                       want_lse=True)
+        ctx.save_for_backward(qkv, q_scale, k_scale, cos, sin, patch_mask, out, lse)
+        ctx.num_heads = num_heads
+        ctx.sliding_window = sliding_window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, q_scale, k_scale, cos, sin, patch_mask, out, lse = ctx.saved_tensors
+        dqkv, dqs, dks = flash_qkv_attention_bwd(
+            qkv, q_scale, k_scale, cos, sin, patch_mask, dout,
+            num_heads=ctx.num_heads, sliding_window=ctx.sliding_window, out=out, lse=lse,
+        )
+        return dqkv, dqs.to(q_scale.dtype), dks.to(k_scale.dtype), None, None, None, None, None
 
 
 def flash_qkv_attention(
@@ -960,39 +1118,38 @@ def flash_qkv_attention(
     num_heads: int,
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
-    """QK-norm + rotate-half RoPE + flash attention from flat QKV, for
-    inference at high resolution (``vitok_tpu``'s ``unfused_qkv_attention``
-    on its flash route, whose XLA glue the prologue replaces).
+    """QK-norm + rotate-half RoPE + flash attention from flat QKV, at high
+    resolution (``vitok_tpu``'s ``unfused_qkv_attention`` on its flash
+    route, whose XLA glue the prologue replaces).
 
     On a CUDA tensor (bf16, head dim 64 or 128) two launches: the q/k
     prologue (:func:`fused_qk_prologue` with ``with_q``: q and k normed and
     rotated into a ``[B, N, 2C]`` scratch), then the flash kernel on q and k
-    as strided views of that scratch and v as a view of ``qkv``. It computes
-    no gradient there, and raises if one is asked for. On a CPU tensor it
-    runs :func:`flash_qkv_attention_plain`. Returns ``[B, N, C]``, padded
-    query rows 0.
+    as strided views of that scratch and v as a view of ``qkv``. On a CPU
+    tensor it runs :func:`flash_qkv_attention_plain`. Under autograd (grad
+    enabled and ``qkv`` or a gain requiring it) the call goes through an
+    autograd Function, on both devices, whose forward also keeps the rows'
+    log-sum-exp and whose backward is :func:`flash_qkv_attention_bwd`.
+    Returns ``[B, N, C]``, padded query rows 0.
     """
     args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
-    if qkv.is_cuda:
-        return _flash_fold_cuda(*args, num_heads, sliding_window)
-    if qkv.device.type != "cpu":
-        raise RuntimeError(f"no fused attention kernel for device {qkv.device}")
-    return flash_qkv_attention_plain(*args, num_heads=num_heads, sliding_window=sliding_window)
+    if _asks_grad(qkv, q_scale, k_scale):
+        return _FlashQKVAttention.apply(*args, num_heads, sliding_window)
+    return _flash_fold_forward(*args, num_heads, sliding_window)[0]
 
 
 def takes_flash_fold(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, num_heads: int,
                      attn_impl: str) -> bool:
     """Whether :func:`unfused_qkv_attention` hands this call to
-    :func:`flash_qkv_attention`: a contiguous bf16 tensor on the card, no
-    gradient asked for, a call bound for the flash kernel (``"auto"`` from
-    ``FLASH_MIN_TOKENS`` tokens, or ``"flash"``) and a head dim in
-    ``KERNEL_HEAD_DIMS``. Under autograd the composition keeps the flash
-    kernel's autograd Function; on the CPU nothing changes."""
+    :func:`flash_qkv_attention`: a contiguous bf16 tensor on the card, a
+    call bound for the flash kernel (``"auto"`` from ``FLASH_MIN_TOKENS``
+    tokens, or ``"flash"``) and a head dim in ``KERNEL_HEAD_DIMS``, with or
+    without a gradient asked for. On the CPU, and in fp32 on the card,
+    nothing changes: the composition runs (under autograd through the flash
+    kernel's autograd Function)."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     if not qkv.is_cuda or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous() or c % num_heads:
-        return False
-    if _asks_grad(qkv, q_scale, k_scale):
         return False
     d = c // num_heads
     return d in KERNEL_HEAD_DIMS and flash_route(n, d, attn_impl, cuda=True)
@@ -1011,8 +1168,9 @@ def unfused_qkv_attention(
 ) -> torch.Tensor:
     """The unfused composition the kernel replaces (two-sided mask). Where
     :func:`takes_flash_fold` opens, :func:`flash_qkv_attention` computes it
-    instead (the prologue and the flash kernel: the same function on valid
-    rows, up to the order of the RMSNorm sum)."""
+    instead (the prologue and the flash kernel, and under autograd their
+    backward: the same function on valid rows, up to the order of the
+    RMSNorm sum and, in the backward, of rounding, ROADMAP.md Queue 3)."""
     if takes_flash_fold(qkv, q_scale, k_scale, num_heads, attn_impl):
         return flash_qkv_attention(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads=num_heads,
                                    sliding_window=sliding_window)
@@ -1088,6 +1246,8 @@ __all__ = [
     "fused_qkv_attention_q8_plain",
     "flash_qkv_attention",
     "flash_qkv_attention_plain",
+    "flash_qkv_attention_bwd",
+    "flash_qkv_attention_bwd_plain",
     "takes_flash_fold",
     "unfused_qkv_attention",
     "can_fuse",
