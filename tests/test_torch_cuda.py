@@ -14,7 +14,7 @@ version's (full-row for the fused kernel, 512-key blocks for the flash
 kernel). The flash kernel's padded rows are exactly 0 on both sides, and its
 log-sum-exp agrees within 1e-3 on live rows (+1e30 on dead rows). The quantize kernels: codes within one step in
 at most 0.1% of the entries and scales within rtol 1e-5 (on the H100 they
-agree bit for bit); pad columns exactly 0. Small int8 models: rel L2 2e-2
+agree bit for bit; the fused FFN kernel is held to that), pad columns exactly 0. Small int8 models: rel L2 2e-2
 against the same model on the plain versions. The fused forward's
 log-sum-exp agrees within 1e-3 on valid rows (1e30 on padded rows), and its
 q/k prologue with the plain version's normed q/k to one bf16 step in at most
@@ -733,20 +733,22 @@ class TestFusedBackwardOnCard:
 
 @pytest.mark.cuda
 class TestQ8OnCard:
-    """The int8-epilogue kernel: its codes and scales are
-    ``quantize_activation`` of the mma.sync forward's output bit for bit (one
-    attention body, the same IEEE divisions); against the plain version its
+    """The int8-epilogue kernel (after the q/k prologue): its codes and
+    scales are ``quantize_activation`` of the redesigned forward's output
+    (``impl="fused"``) bit for bit (one attention body, the same IEEE
+    divisions), in portable clusters and, at d = 128, in clusters of H / 2
+    (12 and 16 blocks are not portable); against the plain version its
     dequantized values are held to the forward kernel's limits plus half a
     quantization step (max 3e-2, mean 3e-3)."""
 
-    @pytest.mark.parametrize("heads,d", [(2, 64), (16, 64), (3, 128), (24, 128), (7, 64)])
+    @pytest.mark.parametrize("heads,d", [(2, 64), (16, 64), (3, 128), (24, 128), (32, 128), (7, 64)])
     @pytest.mark.parametrize("case,masked,sw", CASES)
     def test_codes_equal_quantized_forward(self, cuda_device, heads, d, case, masked, sw):
         qkv, *rest = make_inputs(cuda_device, heads=heads, d=d, masked=masked)
-        before = (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES)
+        before = counts()
         codes, scales = t_fa.fused_qkv_attention_q8(qkv, *rest, num_heads=heads, sliding_window=sw)
-        assert (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES) == (before[0], before[1] + 1)
-        fwd = t_fa.fused_qkv_attention_mma(qkv, *rest, num_heads=heads, sliding_window=sw)
+        assert counts() == added(before, q8=1, prologue=1)
+        fwd = t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
         want_codes, want_scales = t_q.quantize_activation(fwd)
         torch.cuda.synchronize()
         assert codes.dtype == torch.int8 and scales.shape == (*qkv.shape[:2], 1)
@@ -767,9 +769,10 @@ class TestQ8OnCard:
             t_fa.fused_qkv_attention_q8(qkv, *rest, num_heads=13)
 
     def test_int8_blocks_take_the_epilogue_when_opted_in(self, cuda_device, monkeypatch):
-        """With the opt-in each int8 block launches the epilogue kernel and no
-        forward; the output equals the opt-in off on the mma.sync forward,
-        whose attention body the epilogue kernel shares."""
+        """With the opt-in each int8 block launches the prologue and the
+        epilogue kernel and no forward; the output equals the opt-in off (the
+        redesigned forward and the eager quantize), whose attention body the
+        epilogue kernel shares."""
         cfg = t_ae.AEConfig.from_variant("w256_d1_h4-w256_d2_h4/1x16x8")
         model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=cuda_device).quantize()
         rng = np.random.default_rng(0)
@@ -777,14 +780,12 @@ class TestQ8OnCard:
                  "patch_mask": torch.from_numpy(np.arange(64)[None, :] < np.array([[64], [40]])),
                  "row_idx": torch.from_numpy(np.tile(np.arange(64) // 8, (2, 1))),
                  "col_idx": torch.from_numpy(np.tile(np.arange(64) % 8, (2, 1)))}
-        with monkeypatch.context() as m:
-            m.setattr(t_fa, "_fused_cuda", lambda *a: (t_fa._mma_cuda(*a[:8]), None))  # no lse in inference
-            off = model(batch)["patches"]
+        off = model(batch)["patches"]
         monkeypatch.setattr(t_fa, "_ENABLE_Q8", True)
-        before = (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES)
+        before = counts()
         on = model(batch)["patches"]
         torch.cuda.synchronize()
-        assert (t_fa.LAUNCHES, t_fa.Q8_LAUNCHES) == (before[0], before[1] + 3)
+        assert counts() == added(before, q8=3, prologue=3)
         assert torch.equal(on, off)
 
 
@@ -832,15 +833,39 @@ class TestQuantKernelsOnCard:
         assert t_q.LAUNCHES["silu_quant"] == before + 1
         assert_codes_close(got, t_q.fused_silu_quant_plain(hid), pad_from=f)
 
-    @pytest.mark.parametrize("m,c,f", [(200, 1024, 2736), (24, 256, 136)])
+    @pytest.mark.parametrize("m,c,f", [
+        (200, 1024, 2736),    # a ragged last row tile (200 = 128 + 72) and a padded F
+        (24, 256, 136),       # F' 256: a cluster of four one-tile blocks, 64 rows
+        (16384, 1024, 2736),  # the 350M main path: C 1024, F' 2816
+        (256, 3072, 8208),    # the 5B width: F' 8320, 64 rows a cluster
+        (256, 4096, 10944),   # the E width: F' 11008, a cluster of 16
+        (8, 256, 100),        # F' 128 and M 8
+        (1000, 1024, 2736),   # ragged M
+    ])
     def test_ffn_int8_matches_plain(self, cuda_device, m, c, f):
-        """A ragged last row tile (200 = 128 + 72) and a padded F."""
+        """Codes and scales equal the plain version's bit for bit, pad
+        columns 0. Below 17 rows the plain version (``torch._int_mm`` takes
+        M > 16 on the card) runs on the rows padded with zeros to 24, each
+        row's result its own."""
         *_, hq, hs, w, ws = _quant_inputs(cuda_device, m, c, f)
         before = t_q.LAUNCHES["ffn_int8"]
         got = t_q.fused_ffn_int8(hq, hs, w, ws)
         assert t_q.LAUNCHES["ffn_int8"] == before + 1
         assert got[0].shape == (m, t_q.pad_ffn_dim(f)) and got[1].shape == (m, 1)
-        assert_codes_close(got, t_q.fused_ffn_int8_plain(hq, hs, w, ws), pad_from=f)
+        rows = max(m, 24)
+        pad = lambda t: torch.cat([t, t.new_zeros((rows - m, *t.shape[1:]))])
+        want = [t[:m] for t in t_q.fused_ffn_int8_plain(pad(hq), pad(hs), w, ws)]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert not got[0][:, f:].any().item()
+
+    @pytest.mark.parametrize("m,c,fp", [(16384, 1024, 2816), (4096, 3072, 8320), (4096, 4096, 11008),
+                                        (24, 256, 256)])
+    def test_ffn_int8_plan_launches(self, cuda_device, m, c, fp):
+        """The plan's kernel instance: no spills, and at least one cluster
+        resident at once."""
+        attrs = t_q.ffn_int8_attributes(t_q.ffn_int8_plan(m, c, fp), fp)
+        assert attrs["spill_bytes"] == 0 and attrs["max_active_clusters"] >= 1
 
     def test_kernels_reject_what_they_do_not_take(self, cuda_device):
         x, gain, hid, hq, hs, w, ws = _quant_inputs(cuda_device, 24, 256, 136)

@@ -19,6 +19,7 @@ its probabilities in another order): one flip moves these latents by about
 7e-4, and seeds 0-3 read 2e-4 to 2.9e-3, the decoder 2e-7 at every one.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -121,13 +122,66 @@ class TestGate:
             if t_fa.can_fuse_q8(n, c, h):
                 assert t_fa.can_fuse(n, c, h)
 
-    def test_cluster_size(self):
-        assert t_fa._q8_cluster_size(16, 64) == 8    # 350M: two heads a block
-        assert t_fa._q8_cluster_size(24, 128) == 8   # 5B: three heads a block
-        assert t_fa._q8_cluster_size(4, 64) == 4
-        assert t_fa._q8_cluster_size(7, 64) == 7
-        with pytest.raises(ValueError):
-            t_fa._q8_cluster_size(13, 128)  # 13 heads of 128 in one block do not fit
+    @pytest.mark.parametrize("h,d,want", [
+        (16, 64, 4),     # 350M: four heads a block, 68,224 bytes of shared memory
+        (24, 128, 12),   # 5B: two heads a block (non-portable), 101,248 bytes
+        (32, 128, 16),   # E: two heads a block
+        (16, 128, 8),
+        (3, 128, 3),     # d 128 with an odd H: the portable rule
+        (4, 64, 4),
+        (7, 64, 7),      # 7 and 1 are as near 4: the larger
+        (2, 128, 1),
+        (12, 64, 4),
+        (13, 64, 1),     # 13 heads of 64 in one block fit
+        (13, 128, None),  # 13 heads of 128 in one block do not fit beside the tiles
+    ])
+    def test_cluster_size(self, h, d, want):
+        """The cluster of the int8-epilogue kernel and its shared memory: the
+        forward kernel's tiles, then the slab of the block's heads but the
+        last, which goes over the K slots."""
+        if want is None:
+            with pytest.raises(ValueError, match="cluster"):
+                t_fa._q8_cluster_size(h, d)
+            return
+        assert t_fa._q8_cluster_size(h, d) == want
+        tile = 64 * d * 2
+        forward = 5 * tile + 128 + 4 * d  # Q, two K and two V tiles, key states, gain
+        slab = 2 * 64 * ((h // want - 1) * d + 8)
+        assert t_fa._q8_smem_bytes(h // want, d) == forward + slab + 256 + 1024 <= t_fa._SMEM_LIMIT
+
+    def test_launches_the_prologue_then_the_kernel(self, monkeypatch):
+        """On a card tensor the wrapper runs the k prologue, then the epilogue
+        kernel in clusters of ``_q8_cluster_size`` blocks, four at d 64 (a
+        recorder in place of each launch)."""
+        qkv, qs, ks, cos, sin, mask, _ = make_case(b=2, n=64, heads=16, d=64, valid=[64, 40])
+        t = lambda a: torch.from_numpy(np.array(a))
+
+        class Card(torch.Tensor):
+            @property
+            def is_cuda(self):
+                return True
+
+        calls = []
+
+        def prologue(qkv_, q_scale, k_scale, cos_, sin_, num_heads, out=None, dout=None, with_q=True):
+            calls.append(("prologue", with_q))
+            return torch.empty(2, 64, 1024, dtype=qkv_.dtype), None
+
+        def kernel(*args):
+            calls.append(("q8", args[8:14]))
+            return 0
+
+        monkeypatch.setattr(t_fa, "_prologue_cuda", prologue)
+        monkeypatch.setattr(t_fa, "_sm90_lib", lambda: type("Lib", (), {
+            "vitok_fused_attention_q8_sm90_bf16": staticmethod(kernel)}))
+        monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: type("S", (), {"cuda_stream": 0}))
+        monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+        before = t_fa.Q8_LAUNCHES
+        codes, scales = t_fa.fused_qkv_attention_q8(
+            t(qkv).bfloat16().as_subclass(Card), t(qs), t(ks), t(cos), t(sin), t(mask), num_heads=16)
+        assert calls == [("prologue", False), ("q8", (2, 64, 16, 64, 4, -1))]
+        assert t_fa.Q8_LAUNCHES == before + 1
+        assert codes.shape == (2, 64, 1024) and codes.dtype == torch.int8 and scales.shape == (2, 64, 1)
 
 
 class TestModelRouting:

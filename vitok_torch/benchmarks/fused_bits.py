@@ -1,6 +1,8 @@
-"""Hold the fused attention kernels of two checkouts against each other.
+"""Hold the fused attention kernels and the fused int8 FFN of two checkouts
+against each other.
 
-Runs the fused forward (#1), its int8 epilogue (#2) and its backward (#3)
+Runs the fused forward (#1), its int8 epilogue (#2), its backward (#3) and
+the mma.sync forward kept beside #1 (the A/B entry points' arm B, "1 mma")
 of the ``vitok_torch`` under ``--root`` on seeded inputs at the 350M and 5B
 widths (with and without a tail mask and a window); at the 350M width and
 the recorded A/B shape (B 64, N 256) the A/B kernels #10 (arm D2's split:
@@ -16,15 +18,20 @@ branch's attention from the flat QKV (``unfused_qkv_attention`` with
 a tree without the fold the eager q/k norm and rotation, then #4 (under
 grad the flash kernel's autograd Function, whose backward is #5 and #6); in
 one with it the q/k prologue, then #4 (under grad the fold's Function, whose
-backward is the prologue and #5 and #6 in their fold instances). It times
+backward is the prologue and #5 and #6 in their fold instances); and the
+fused int8 FFN #7 at the 350M, 5B and E widths. It times
 each (CUDA events, 20 calls after 3; #3 given the forward's output and
 log-sum-exp where its checkout takes them, so that the time is the
 backward's alone), saves the outputs, and with ``--against`` compares them
-with a file an earlier run saved: #2 bit for bit; the rest, which a
+with a file an earlier run saved: #2's codes and scales bit for bit with
+``quantize_activation`` of the earlier run's #1 output (#2 runs #1's body
+since PR 13; a checkout from before then ran the mma.sync body and fails
+this against a later one); #7's codes and scales bit for bit with the
+earlier run's (both are the plain version's exactly); the rest, which a
 checkout may compute on another kernel with the same rounding points, by
 their largest distance (valid rows) and rel L2 against the limits
 ``chip_smoke.py`` holds them to against their plain versions (bf16 #1,
-#10, #11, #13: 2e-2 absolute; #3 and the unfused branch's gradients: 4e-2
+#10, #11, #13 and 1 mma: 2e-2 absolute; #3 and the unfused branch's gradients: 4e-2
 of each gradient's largest entry, 3e-2 for the gains; fp32: 1e-5 of the
 largest entry; #4 and the fold: the flash limits, 8e-3 max and 2e-4 mean
 absolute on valid rows, the log-sum-exp within 1e-3 on live rows and +1e30
@@ -36,7 +43,8 @@ change, parent):
     python vitok_torch/benchmarks/fused_bits.py --root PARENT --save /tmp/p.pt
     python vitok_torch/benchmarks/fused_bits.py --root . --save /tmp/c.pt --against /tmp/p.pt
 
-Exits 1 if #2 differs or any other output is past its limit. Needs a card.
+Exits 1 if #2 differs from the quantized #1, #7 from the earlier run's, or
+any other output is past its limit. Needs a card.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ AB_SHAPES = (SHAPES[0], SHAPES[2])  # #10, #11 and #13: the 350M width and the r
 F32_SHAPE = (256, 64, 3072, 24)     # the recorded fp32 A/B shape
 FLASH_SHAPES = ((2, 4096, 16, 64), (1, 16384, 16, 64), (1, 4096, 24, 128))  # B, N, H, D
 FLASH_SW = 1024
+FFN_SHAPES = ((16384, 1024, 2816), (4096, 3072, 8320), (4096, 4096, 11008))  # M, C, F': 350M, 5B and E widths
 FLASH_MAX_ABS = 8e-3   # chip_smoke.py's FLASH_MAX_ABS
 FLASH_MEAN_ABS = 2e-4  # chip_smoke.py's FLASH_MEAN_ABS
 LSE_ATOL = 1e-3        # chip_smoke.py's LSE_ATOL
@@ -179,8 +188,10 @@ def main(argv=None) -> int:
             masks[key] = fwd_args[-1]
             fwd = lambda: fa.fused_qkv_attention(*fwd_args, num_heads=h, sliding_window=sw, impl="fused")
             q8 = lambda: fa.fused_qkv_attention_q8(*fwd_args, num_heads=h, sliding_window=sw)
+            mma = lambda: fa.fused_qkv_attention_mma(*fwd_args, num_heads=h, sliding_window=sw)
             outputs[key + " fwd"] = fwd()
             outputs[key + " q8"] = q8()
+            outputs[key + " mma"] = mma()
             dout = torch.randn(b, n, c, generator=gen, device="cuda").bfloat16()
             saved = {}
             if "lse" in inspect.signature(fa.fused_qkv_attention_bwd).parameters:
@@ -190,6 +201,7 @@ def main(argv=None) -> int:
             outputs[key + " bwd"] = bwd()
             times[key + " #1"] = _time_ms(fwd)
             times[key + " #2"] = _time_ms(q8)
+            times[key + " 1 mma"] = _time_ms(mma)
             times[key + " #3"] = _time_ms(bwd)
             if (b, n, c, h) in AB_SHAPES:
                 legs = {
@@ -246,6 +258,17 @@ def main(argv=None) -> int:
             outputs[key + " foldbwd"] = branch_grads()
             times[key + " fold fwd+bwd"] = _time_ms(branch_grads)
             del qkv5, q, k, v, flat, dout, out, lse
+    from vitok_torch.ops import quant
+
+    for m, c, fp in FFN_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(m + c + fp)
+        hq, hs = quant.quantize_activation(torch.randn(m, c, generator=gen, device="cuda"))
+        w, ws = quant.quantize_weight(0.05 * torch.randn(2 * fp, c, generator=gen, device="cuda"))
+        ffn = lambda: quant.fused_ffn_int8(hq, hs, w, ws)
+        key = f"{m}x{c}x{fp}"
+        outputs[key + " ffn"] = ffn()
+        times[key + " #7"] = _time_ms(ffn)
+        del hq, hs, w, ws
     torch.save(outputs, args.save)
     print(f"{args.root}: ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
     if args.against:
@@ -255,7 +278,16 @@ def main(argv=None) -> int:
         for k in outputs:
             new_t, old_t = as_tuple(outputs[k]), as_tuple(old[k])
             same[k] = all(torch.equal(a, b) for a, b in zip(new_t, old_t))
-            if k.endswith("q8"):
+            if k.endswith(" q8"):
+                from vitok_torch.ops.quant import quantize_activation
+
+                want = quantize_activation(old[k[: -len(" q8")] + " fwd"])
+                held = all(torch.equal(a, b) for a, b in zip(new_t, want))
+                print(f"  {k}: bit-identical to quantize_activation of the earlier run's #1 {held}; to the "
+                      f"earlier run's #2 {same[k]}", flush=True)
+                bad += [] if held else [k]
+                continue
+            if k.endswith(" ffn"):
                 print(f"  {k}: bit-identical {same[k]}", flush=True)
                 bad += [] if same[k] else [k]
                 continue
@@ -284,8 +316,9 @@ def main(argv=None) -> int:
             print(f"  {k}: " + "; ".join(f"max {m:.3e} (limit {lim}) rel L2 {r:.3e}" for m, r, lim in dist)
                   + f"; bit-identical {same[k]}", flush=True)
             bad += [k] if any(m > lim for m, _, lim in dist) else []
-        groups = {"#1": " fwd", "#3": " bwd", "#2": " q8", "#10": " bb", "#11": " pack", "#13": " contig",
-                  "#4": " flash", "fold": " fold", "#5+#6": " fbwd", "fold bwd": " foldbwd"}
+        groups = {"#1": " fwd", "#3": " bwd", "#2": " q8", "1 mma": " mma", "#10": " bb", "#11": " pack",
+                  "#13": " contig",
+                  "#4": " flash", "fold": " fold", "#5+#6": " fbwd", "fold bwd": " foldbwd", "#7": " ffn"}
         summary = []
         for kind, f32 in (("bf16", False), ("fp32", True)):
             for num, suffix in groups.items():

@@ -1,9 +1,9 @@
 // The body of the fused QK-RMSNorm + rotate-half RoPE + masked attention:
 // one 64-query tile of one head of one sample, read straight from the flat
-// [B, N, 3C] QKV projection output. Every kernel of the family runs it:
-// fused_attention.cu (the forward in bf16 and fp32, and the int8-epilogue
-// instance) and fused_attention_ab.cu (the A/B kernels: int8 input, and in
-// fp32 all heads of a tile), so their results are the same bits.
+// [B, N, 3C] QKV projection output. Every kernel of the mma.sync family
+// runs it: fused_attention.cu (the forward in bf16 and fp32) and
+// fused_attention_ab.cu (the A/B kernels: int8 input, and in fp32 all heads
+// of a tile), so their results are the same bits.
 //
 // Rounding points of the TPU kernel (vitok_tpu/ops/fused_attention.py,
 // _attend_cell and _norm_rope_half):
@@ -44,7 +44,6 @@ namespace {
 constexpr int kTile = 64;      // query rows per block and keys per tile
 constexpr int kWarps = 4;      // 16 query rows per warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;        // bf16 row padding: conflict-free fragment loads
 constexpr float kNegFill = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 

@@ -66,11 +66,15 @@
 // queueing a tile's S product behind the previous tile's P V in a deeper
 // ring measured slower than waiting for each tile's products (PERF.md).
 //
+// The int8-epilogue kernel (fused_attention_q8_sm90_kernel, further down)
+// replaces the TPU kernel _fused_kernel_q8 on this kernel's body; see there.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry points, bound
 // with ctypes; asynchronous on the caller's stream, each returns
 // cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -279,6 +283,240 @@ cudaError_t launch_attention(const void* kn, const void* qkv, const void* q_scal
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The int8-epilogue kernel: replaces the TPU kernel
+// vitok_tpu/ops/fused_attention.py::_fused_kernel_q8. After the prologue (k
+// normed once), a block runs, for each of its heads, the body of
+// fused_attention_sm90_kernel above (Q normed here, walk_cell over the
+// cp.async ring, sum_rows), so each bf16 value is the bits that kernel
+// would write; stage_rows puts the rows into shared memory instead of device
+// memory: the heads before the last into a [64, (heads - 1) * D] bf16 slab
+// past the Q, K and V slots (the next head reuses those), the last head's
+// into the K slots, which its finished walk leaves free (four heads of 64
+// then take 68,224 bytes, three blocks an SM). The epilogue is quantize_activation over
+// the C channels of a token: scale = max(absmax / 127, 1e-12) (IEEE
+// division), code = clip(rint(x / scale), -127, 127). The absmax runs over
+// every head of a row: the heads of a (64-query tile, sample) are shared out
+// over a thread block cluster of `cs` blocks along grid y (cs divides H;
+// _q8_cluster_size in vitok_torch/ops/fused_attention.py takes two heads a
+// block at D = 128 and four blocks at D = 64, which read fastest on an
+// H100); each block takes its own row maxima and reads the other blocks' through
+// distributed shared memory between two cluster barriers, then quantizes its
+// slab, and rank 0 writes the scales. The bf16 result never reaches device
+// memory.
+//
+// The body is written out here rather than shared with the forward kernel
+// through a switch in its store: a template switch in the shared body slowed
+// the forward and the walkers (PERF.md, PR 11).
+// ---------------------------------------------------------------------------
+
+constexpr int kSlabPad = 8;  // bf16 padding of a slab row: conflict-free fragment stores
+
+// The forward kernel's layout, then the slab of the W = (heads - 1) * D
+// channels of a block's heads before the last, and the row maxima. The
+// last head's [64, D + pad] rows go over the K slots.
+template <int D>
+struct Q8Smem {
+  static constexpr int kSlab = FwdSmem<D>::kGain + D * 4;
+  static constexpr int kLast = FwdSmem<D>::kK;
+  static_assert(kTile * (D + kSlabPad) * 2 <= kStages * FwdSmem<D>::kTileBytes, "the last head fits over the K slots");
+  __host__ __device__ static int row_max(int W) { return kSlab + 2 * kTile * (W + kSlabPad); }
+  __host__ __device__ static int bytes(int W) { return row_max(W) + 4 * kTile + 1024; }  // + alignment slack
+};
+
+// o / l of this thread's rows (after sum_rows) as bf16, the arithmetic of
+// store_rows: row0 and row1 point at the head's first channel of the slab
+// rows of qrow0 and qrow0 + 8.
+template <int D>
+__device__ __forceinline__ void stage_rows(const CellRows<D>& r, __nv_bfloat16* row0, __nv_bfloat16* row1) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(row0 + col) = __floats2bfloat162_rn(r.o[4 * dt] / r.l0, r.o[4 * dt + 1] / r.l0);
+    *reinterpret_cast<__nv_bfloat162*>(row1 + col) =
+        __floats2bfloat162_rn(r.o[4 * dt + 2] / r.l1, r.o[4 * dt + 3] / r.l1);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
+fused_attention_q8_sm90_kernel(const __nv_bfloat16* __restrict__ kn,   // [B, N, C] normed k
+                               const __nv_bfloat16* __restrict__ qkv,  // [B, N, 3C]: q, v
+                               const float* __restrict__ q_scale, const float* __restrict__ cos_t,
+                               const float* __restrict__ sin_t,
+                               const unsigned char* __restrict__ mask,  // [B, N] or null
+                               int8_t* __restrict__ out_q,              // [B, N, C]
+                               float* __restrict__ out_scale,           // [B, N]
+                               int N, int H, int heads_per_block, int sw, float score_scale) {
+  namespace cg = cooperative_groups;
+  using S = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int sKvEnd;
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sQ = smem + S::kQ;
+  unsigned char* sK = smem + S::kK;
+  unsigned char* sV = smem + S::kV;
+  unsigned char* sState = smem + S::kState;
+  float* sGain = reinterpret_cast<float*>(smem + S::kGain);
+  const int W = (heads_per_block - 1) * D;  // the slab's channels
+  const int slab_row = W + kSlabPad;
+  constexpr int kLastRow = D + kSlabPad;
+  __nv_bfloat16* sO = reinterpret_cast<__nv_bfloat16*>(smem + Q8Smem<D>::kSlab);
+  __nv_bfloat16* sLast = reinterpret_cast<__nv_bfloat16*>(smem + Q8Smem<D>::kLast);
+  float* sRowMax = reinterpret_cast<float*>(smem + Q8Smem<D>::row_max(W));
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * kTile;
+  const int h0 = blockIdx.y * heads_per_block;
+  const int b = blockIdx.z;
+  const int C = H * D;
+  const __nv_bfloat16* qkv_b = qkv + (long long)b * N * 3 * C;
+  const unsigned char* mask_b = mask ? mask + (long long)b * N : nullptr;
+
+  for (int i = tid; i < D; i += kThreads) sGain[i] = q_scale[i];
+  block_last_valid<kThreads>(mask_b, N, &sKvEnd, tid);
+  const int kv_end = sKvEnd;
+  const KeyTiles tiles = key_tiles(q0, N, kv_end, sw);
+  const int qrow0 = cell_row0(q0);  // this thread's two query rows: qrow0 and qrow0 + 8
+
+  for (int hl = 0; hl < heads_per_block; ++hl) {
+    const int h = h0 + hl;
+    const __nv_bfloat16* k_src = kn + (long long)b * N * C + h * D;
+    const __nv_bfloat16* v_src = qkv_b + 2 * C + h * D;
+    {
+      constexpr int kRow = D + kNrPad;
+      const __nv_bfloat16* normed = reinterpret_cast<const __nv_bfloat16*>(smem + S::kNormed);
+      norm_rope_tile<D, kThreads, __nv_bfloat16, true>(qkv_b + h * D, 3LL * C, q0, N, sGain,
+                                                        cos_t + (long long)b * N * (D / 2),
+                                                        sin_t + (long long)b * N * (D / 2),
+                                                        reinterpret_cast<__nv_bfloat16*>(smem + S::kNormed), tid);
+      __syncthreads();
+      for (int i = tid; i < kTile * D / 8; i += kThreads) {
+        const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+        *reinterpret_cast<uint4*>(sQ + sw128_offset<kTile>(row, col)) =
+            *reinterpret_cast<const uint4*>(normed + row * kRow + col);
+      }
+      __syncthreads();
+    }
+    CellRows<D> r;
+    r.reset();
+    auto issue = [&](int kt, int stage) {
+      issue_kv_tile<D>(sK + stage * S::kTileBytes, sV + stage * S::kTileBytes, sState + stage * kTile, k_src, C,
+                       v_src, 3LL * C, kt * kTile, N, true, mask_b, kv_end, false, tid);
+    };
+    auto compute = [&](int kt, int stage) {
+      attend_kv_tile<D>(r, sQ, sK + stage * S::kTileBytes, sV + stage * S::kTileBytes, sState + stage * kTile,
+                        kt * kTile, qrow0, sw, score_scale);
+    };
+    walk_cell<D>(tiles, r, qrow0, N, issue, compute);
+    sum_rows<D>(r);
+    const bool last = hl == heads_per_block - 1;
+    const int stride = last ? kLastRow : slab_row;
+    __nv_bfloat16* row0 = (last ? sLast : sO + hl * D) + (qrow0 - q0) * stride;
+    stage_rows<D>(r, row0, row0 + 8 * stride);
+  }
+  __syncthreads();
+
+  // The 16 bytes of row rr at channel 8 ch of the block's heads.
+  auto staged = [&](int rr, int ch) {
+    const __nv_bfloat16* p = ch * 8 < W ? sO + rr * slab_row + ch * 8 : sLast + rr * kLastRow + (ch * 8 - W);
+    return *reinterpret_cast<const uint4*>(p);
+  };
+  // Row maxima of this block's heads: warp w takes rows w, w + 4, ...
+  constexpr int kWarps = kThreads / 32;
+  const int chunks = heads_per_block * D / 8;
+  for (int rr = warp; rr < kTile; rr += kWarps) {
+    float amax = 0.f;
+    if (q0 + rr < N) {
+      for (int ch = lane; ch < chunks; ch += 32) {
+        const uint4 u = staged(rr, ch);
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h2[e]);
+          amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+        }
+      }
+    }
+    amax = warp_max(amax);
+    if (lane == 0) sRowMax[rr] = amax;
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's maxima are written
+  const unsigned ranks = cluster.num_blocks();
+  for (int rr = warp; rr < kTile; rr += kWarps) {
+    const int n = q0 + rr;
+    if (n >= N) continue;
+    float amax = 0.f;
+    for (unsigned k = 0; k < ranks; ++k) amax = fmaxf(amax, cluster.map_shared_rank(sRowMax, k)[rr]);
+    const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
+    int8_t* dst = out_q + ((long long)b * N + n) * C + h0 * D;
+    for (int ch = lane; ch < chunks; ch += 32) {
+      const uint4 u = staged(rr, ch);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        const float qx = fminf(fmaxf(rintf(__fdiv_rn(f.x, scale)), -127.f), 127.f);
+        const float qy = fminf(fmaxf(rintf(__fdiv_rn(f.y, scale)), -127.f), 127.f);
+        w[e >> 1] |= (uint32_t)(uint8_t)(int8_t)qx << (16 * (e & 1));
+        w[e >> 1] |= (uint32_t)(uint8_t)(int8_t)qy << (16 * (e & 1) + 8);
+      }
+      *reinterpret_cast<uint2*>(dst + ch * 8) = make_uint2(w[0], w[1]);
+    }
+    if (lane == 0 && cluster.block_rank() == 0) out_scale[(long long)b * N + n] = scale;
+  }
+  cluster.sync();  // no block leaves while another may still read its maxima
+}
+
+template <int D>
+cudaError_t launch_q8(const void* kn, const void* qkv, const void* q_scale, const void* cos_t, const void* sin_t,
+                      const void* mask, void* out_q, void* out_scale, int B, int N, int H, int cs, int sw,
+                      cudaStream_t stream) {
+  if (cs < 1 || cs > 16 || H % cs) return cudaErrorInvalidValue;
+  const int heads_per_block = H / cs;
+  const int smem = Q8Smem<D>::bytes((heads_per_block - 1) * D);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(fused_attention_q8_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (cs > 8) {  // clusters of 9-16 blocks are not portable: ask for them
+    err = cudaFuncSetAttribute(fused_attention_q8_sm90_kernel<D>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  const float score_scale = (float)(1.0 / std::sqrt((double)D) * 1.4426950408889634);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kTile - 1) / kTile, cs, B);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cs;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_attention_q8_sm90_kernel<D>, static_cast<const __nv_bfloat16*>(kn),
+                           static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(q_scale),
+                           static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+                           static_cast<const unsigned char*>(mask), static_cast<int8_t*>(out_q),
+                           static_cast<float*>(out_scale), N, H, heads_per_block, sw, score_scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -311,6 +549,20 @@ int vitok_fused_attention_sm90_bf16(const void* kn, const void* qkv, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_attention<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out, lse, B, N, H, sw, s);
   if (D == 128) return launch_attention<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out, lse, B, N, H, sw, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As vitok_fused_attention_sm90_bf16 (kn from the prologue, parts = 1), with
+// the per-token int8 quantize over all H*D channels as the epilogue: out_q
+// [B, N, H*D] int8, out_scale [B, N] f32. `cs` blocks of a cluster share a
+// row's heads (cs divides H, 1 <= cs <= 16; above 8 a non-portable cluster),
+// and the slab of H / cs heads must fit in shared memory beside the tiles.
+int vitok_fused_attention_q8_sm90_bf16(const void* kn, const void* qkv, const void* q_scale, const void* cos_t,
+                                       const void* sin_t, const void* mask, void* out_q, void* out_scale, int B,
+                                       int N, int H, int D, int cs, int sw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_q8<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out_q, out_scale, B, N, H, cs, sw, s);
+  if (D == 128) return launch_q8<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out_q, out_scale, B, N, H, cs, sw, s);
   return (int)cudaErrorInvalidValue;
 }
 

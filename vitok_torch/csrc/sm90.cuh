@@ -1,12 +1,16 @@
-// Hopper (sm_90a) building blocks for the fused attention kernels
-// (fused_attention_sm90.cu, fused_attention_bwd.cu), as inline PTX:
+// Hopper (sm_90a) building blocks for the port's wgmma kernels (the fused
+// and flash attention kernels, and the int8 fc1 kernel ffn_int8.cu), as
+// inline PTX:
 //   * wgmma.mma_async m64nNk16, bf16 inputs, fp32 accumulators: N = 64 with
 //     A and B from shared memory (the logits' products), N in {64, 128} with
 //     A from registers and B from shared memory (the products into d);
+//   * wgmma.mma_async m64nNk32, int8 inputs, int32 accumulators, N in
+//     {64, 128}, A and B from shared memory, both K-major;
 //   * the shared-memory matrix descriptor for the 128-byte swizzle, and
 //     wgmma.fence / commit_group / wait_group;
 //   * the tile layout that descriptor reads, written by 16-byte cp.async
-//     copies, and the proxy fence that orders those copies before wgmma.
+//     copies, and the proxy fence that orders those copies before wgmma;
+//   * mbarriers and the 2D TMA tile load that signals one (ffn_int8.cu).
 // vitok_torch/ops/_build.py hashes every header in csrc/ into every
 // library's cache key, so an edit here rebuilds them all.
 //
@@ -24,9 +28,9 @@
 //     the transpose flag): k-step j (16 rows) starts at byte j * 2048 of
 //     block 0; SBO = 1024 (next eight rows), LBO = R * 128 (next 64 channels).
 //
-// The tiles here are filled by cp.async rather than TMA: every tile is a
-// strided plane of [B, N, k*C] (no tensor map to encode per call), and rows
-// past N or masked rows are zero-filled by the copy itself. cp.async writes
+// The attention kernels fill their tiles by cp.async rather than TMA: every
+// tile is a strided plane of [B, N, k*C] (no tensor map to encode per call),
+// and rows past N or masked rows are zero-filled by the copy itself. cp.async writes
 // through the generic proxy and wgmma reads through the async proxy, so the
 // writer fences (fence.proxy.async) after its copies land and before the
 // barrier that hands the tile to wgmma.
@@ -165,6 +169,95 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     wgmma_rs_n64(d, a, desc_b, accumulate);
   else
     wgmma_rs_n128(d, a, desc_b, accumulate);
+}
+
+// int8 products: d (+)= A * B, m64nNk32, s8 x s8 -> s32, A and B from shared
+// memory (descriptors), both K-major (the only major 8-bit operands take).
+// In the 128-byte swizzle a k-step is 32 bytes of a 128-byte row, so
+// kmajor_desc<R>(tile, kk) addresses k-step kk of an int8 tile as well.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// The N = 64 or N = 128 instance.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 64)
+    wgmma_s8_n64(d, desc_a, desc_b, accumulate);
+  else
+    wgmma_s8_n128(d, desc_a, desc_b, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// mbarriers in shared memory (64-bit words). A phase completes when `count`
+// arrivals have been made and every byte announced with expect_tx has
+// landed; mbar_wait(bar, parity) returns once the phase of that parity has
+// completed (parity 1 before the first phase: at once).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised mbarriers visible to the async proxy (TMA) and the
+// cluster; the block synchronises after it.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA transfers to land.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 along the inner dimension, c1 along the outer) of the
+// 2D tensor map `tmap` (a __grid_constant__ kernel parameter) into `dst` in
+// this block's shared memory, its bytes counted on `bar`. Elements outside
+// the tensor are zero-filled.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 // A ring of STAGES tile slots filled by cp.async, over `count` tiles:

@@ -19,10 +19,11 @@ Under autograd the forward also writes each row's log-sum-exp, and the
 backward is a kernel too (:func:`fused_qkv_attention_bwd`: the prologue, then
 ``csrc/fused_attention_bwd.cu``, replacing ``_fused_bwd_kernel``); it takes
 the forward's output and log-sum-exp. :func:`fused_qkv_attention_q8`
-(``fused_attention_q8_kernel`` in ``csrc/fused_attention.cu``, replacing
-``_fused_kernel_q8``) is the forward with a per-token int8 quantize as its
-epilogue, for the int8 block's out-projection; it shares its attention body
-with :func:`fused_qkv_attention_mma`, the mma.sync forward kept beside the
+(the prologue, then ``fused_attention_q8_sm90_kernel`` in
+``csrc/fused_attention_sm90.cu``, replacing ``_fused_kernel_q8``) is the
+forward with a per-token int8 quantize as its epilogue, for the int8 block's
+out-projection; it runs the redesigned forward's attention body.
+:func:`fused_qkv_attention_mma` is the mma.sync forward kept beside the
 redesign (the A/B entry points' arm B), in bf16 and, on FMA products, in
 fp32. Each kernel has its plain version beside it and its own launch count.
 
@@ -515,7 +516,6 @@ def _kernel_lib() -> ctypes.CDLL:
     for fn, argtypes in (
         (lib.vitok_fused_attention_mma_bf16, [ptr] * 7 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_f32, [ptr] * 7 + [i] * 5 + [ptr]),
-        (lib.vitok_fused_attention_q8_bf16, [ptr] * 8 + [i] * 6 + [ptr]),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
@@ -529,6 +529,7 @@ def _sm90_lib() -> ctypes.CDLL:
     for fn, argtypes in (
         (lib.vitok_fused_qk_prologue_bf16, [ptr] * 9 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_sm90_bf16, [ptr] * 8 + [i] * 5 + [ptr]),
+        (lib.vitok_fused_attention_q8_sm90_bf16, [ptr] * 8 + [i] * 6 + [ptr]),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
@@ -837,17 +838,32 @@ def can_fuse_q8(n: int, c: int, num_heads: int, *, cuda: bool = False) -> bool:
     )
 
 
+# The int8-epilogue kernel's shared memory (``Q8Smem`` of
+# ``csrc/fused_attention_sm90.cu``): the forward kernel's Q tile, two-stage K
+# and V ring, key states and gain, then the bf16 slab of a block's heads but
+# the last (64 rows of ``(heads - 1) * d + 8``; the last head's rows go over
+# the K slots), the row maxima, and 1 KB of alignment slack.
+def _q8_smem_bytes(heads: int, d: int) -> int:
+    tile = 64 * d * 2
+    return 5 * tile + 2 * 64 + 4 * d + 2 * 64 * ((heads - 1) * d + 8) + 4 * 64 + 1024
+
+
 def _q8_cluster_size(num_heads: int, d: int) -> int:
-    """Blocks of a cluster that share a row's heads: the largest divisor of
-    H up to 8 whose slab of ``H / cs`` heads fits in shared memory beside the
-    kernel's three tiles."""
-    tiles = (3 * 2 * 64 * (d + 8) + 8 * d + 64 + 15) // 16 * 16
-    for cs in range(min(8, num_heads), 0, -1):
-        if num_heads % cs == 0:
-            slab = 2 * 64 * (num_heads // cs * d + 8) + 4 * 64
-            if tiles + slab <= _SMEM_LIMIT:
-                return cs
-    raise ValueError(f"no cluster of at most 8 blocks hosts {num_heads} heads of {d} channels")
+    """Blocks of a cluster that share a row's heads. At d = 128, where a
+    block of three or more heads fills an SM alone, two heads a block (a
+    cluster of H / 2, non-portable above 8) where H is even and H / 2 <= 16;
+    else the divisor of H up to 8 nearest 4 (the larger of two) whose
+    ``H / cs`` heads fit in shared memory beside the forward's tiles, a
+    portable cluster. On an H100, 4 read fastest at the 350M width against
+    2, 8 and one head a block, and two heads a block (12) faster than 4 at
+    the 5B width (PERF.md, PR 13)."""
+    if d == 128 and num_heads % 2 == 0 and num_heads // 2 <= 16:
+        return num_heads // 2
+    fits = [cs for cs in range(1, min(8, num_heads) + 1)
+            if num_heads % cs == 0 and _q8_smem_bytes(num_heads // cs, d) <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"no cluster of at most 8 blocks hosts {num_heads} heads of {d} channels")
+    return min(fits, key=lambda cs: (abs(cs - 4), -cs))
 
 
 def fused_qkv_attention_q8_plain(
@@ -873,20 +889,24 @@ def fused_qkv_attention_q8_plain(
 
 
 def _fused_q8_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
+    """The prologue (k), then the int8-epilogue kernel in clusters of
+    :func:`_q8_cluster_size` blocks: ``(codes, scales)``."""
     global Q8_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
     )
     dev = qkv.device
+    _check_rows(n)
     cs = _q8_cluster_size(num_heads, d)
+    kn, _ = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=False)
     out_q = torch.empty((b, n, c), dtype=torch.int8, device=dev)
     out_scale = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
-    lib = _kernel_lib()
+    lib = _sm90_lib()
     with torch.cuda.device(dev):
-        err = lib.vitok_fused_attention_q8_bf16(
-            qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(),
-            sin.data_ptr(), _ptr(mask), out_q.data_ptr(), out_scale.data_ptr(),
-            b, n, num_heads, d, cs, sw, torch.cuda.current_stream(dev).cuda_stream,
+        err = lib.vitok_fused_attention_q8_sm90_bf16(
+            kn.data_ptr(), qkv.data_ptr(), q_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(), _ptr(mask),
+            out_q.data_ptr(), out_scale.data_ptr(), b, n, num_heads, d, cs, sw,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "fused_attention_q8 launch")
     Q8_LAUNCHES += 1
@@ -908,9 +928,11 @@ def fused_qkv_attention_q8(
     kernel's epilogue: ``(q_int8 [B, N, C], scale [B, N, 1] fp32)`` for
     ``ops.quant.int8_matmul_prequant``; the attention output never reaches
     device memory in bf16. Inference only (no gradient). On the card the
-    codes equal ``quantize_activation`` of the forward kernel's output bit for
-    bit: both kernels run one attention body. On a CUDA tensor it launches
-    the kernel or raises; on a CPU tensor it runs the plain version.
+    codes and scales equal ``quantize_activation`` of
+    ``fused_qkv_attention(..., impl="fused")`` (the redesigned forward) bit
+    for bit: both run the q/k prologue and one wgmma attention body. On a
+    CUDA tensor it launches the prologue and the kernel or raises; on a CPU
+    tensor it runs the plain version.
     """
     args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
     if qkv.is_cuda:

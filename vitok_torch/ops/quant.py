@@ -19,8 +19,9 @@ with its plain PyTorch version beside it:
 * :func:`fused_rmsnorm_quant` (``rmsnorm_quant.cu``, replaces
   ``_rmsnorm_quant_kernel``): fp32 RMSNorm x gain, then per-token int8;
 * :func:`fused_ffn_int8` (``ffn_int8.cu``, replaces ``_ffn_int8_kernel``):
-  the int8 fc1 product over both SwiGLU halves, dequantize, f32
-  ``silu(g) * v``, exact per-token requantization;
+  the int8 fc1 product over both SwiGLU halves on wgmma, dequantize, f32
+  ``silu(g) * v``, exact per-token requantization, with ``t`` kept in the
+  shared memory of a thread-block cluster (:func:`ffn_int8_plan`);
 * :func:`fused_silu_quant` (``silu_quant.cu``, replaces
   ``_silu_quant_kernel``): f32 ``silu(g) * v`` over the bf16 fc1 output,
   then per-token int8.
@@ -32,7 +33,7 @@ launches its kernel or raises, and adds one to its entry of ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -291,6 +292,82 @@ def fused_ffn_int8_plain(
     return tq, t_scale
 
 
+# The plan of ffn_int8.cu: 64 t-columns a tile (64 v and 64 g rows of W),
+# 128 int8 channels a ring stage, a cluster of 8 blocks (portable) or, where
+# 8 cannot stage t beside three ring stages, 16 (non-portable), at least
+# three ring stages and at most four.
+_FFN_TILE_COLS = 64
+_FFN_BK = 128
+_FFN_CLUSTERS = (8, 16)
+_FFN_MIN_STAGES = 3
+_FFN_MAX_STAGES = 4
+_SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
+
+
+class FfnPlan(NamedTuple):
+    """How ``ffn_int8.cu`` cuts one call: ``rows`` token rows a cluster (64 or
+    128: one or two m64 products a k-step for each consumer warpgroup),
+    ``cluster`` blocks a cluster, each
+    owning the t-columns ``col_ranges[rank]`` (``[lo, hi)``, whole 64-column
+    tiles), ``stages`` ring slots, and ``smem_bytes`` of dynamic shared
+    memory a block."""
+
+    rows: int
+    cluster: int
+    stages: int
+    col_ranges: Tuple[Tuple[int, int], ...]
+    smem_bytes: int
+
+
+def _ffn_smem_bytes(rows: int, cluster: int, stages: int, fp: int) -> int:
+    """``FfnSmem(rows, cs, stages, Fp).bytes`` of ``ffn_int8.cu``: the ring
+    (an hq box and a 128-row W tile a stage), the staged bf16 t of the most
+    tiles a rank owns (rows padded by 16 bytes), the two consumer
+    warpgroups' row maxima and the rows' reciprocals, two mbarriers a stage,
+    and 1 KB of alignment slack."""
+    tiles = fp // _FFN_TILE_COLS
+    per = -(-tiles // cluster)
+    stage = rows * _FFN_BK + 2 * _FFN_TILE_COLS * _FFN_BK
+    return stages * stage + rows * (per * _FFN_TILE_COLS * 2 + 16) + 3 * rows * 4 + 2 * stages * 8 + 1024
+
+
+def ffn_int8_plan(m: int, c: int, fp: int) -> FfnPlan:
+    """The tiling of :func:`fused_ffn_int8` for ``m`` token rows, width ``c``
+    and ``fp`` SwiGLU columns: a cluster of ``min(8, fp / 64)`` blocks, or
+    of ``min(16, fp / 64)`` where 8 cannot host the shape, splits the
+    ``fp / 64`` tiles of a row tile between them (rank r owns tiles
+    ``[r T / cs, (r + 1) T / cs)``, as the kernel computes them); 128 rows
+    where three ring stages fit beside the staged t, else 64 (and 64
+    whenever ``m <= 64``); as many stages as fit, three or four. Raises
+    ``ValueError`` for a shape no plan hosts."""
+    if m <= 0 or m % 8 or c <= 0 or c % _FFN_BK or fp <= 0 or fp % 128:
+        raise ValueError(f"ffn_int8 takes M a positive multiple of 8 and C, F' multiples of 128; "
+                         f"got M={m}, C={c}, F'={fp}")
+    tiles = fp // _FFN_TILE_COLS
+    for cluster in sorted({min(cs, tiles) for cs in _FFN_CLUSTERS}):
+        for rows in (64,) if m <= 64 else (128, 64):
+            fits = [s for s in range(_FFN_MIN_STAGES, _FFN_MAX_STAGES + 1)
+                    if _ffn_smem_bytes(rows, cluster, s, fp) <= _SMEM_LIMIT]
+            if fits:
+                stages = fits[-1]
+                ranges = tuple((r * tiles // cluster * _FFN_TILE_COLS, (r + 1) * tiles // cluster * _FFN_TILE_COLS)
+                               for r in range(cluster))
+                return FfnPlan(rows, cluster, stages, ranges, _ffn_smem_bytes(rows, cluster, stages, fp))
+    raise ValueError(f"ffn_int8: F'={fp} is too wide for one cluster of {_FFN_CLUSTERS[-1]} blocks to keep t in "
+                     f"shared memory ({_SMEM_LIMIT} bytes a block)")
+
+
+def ffn_int8_attributes(plan: FfnPlan, fp: int) -> dict:
+    """The kernel instance of ``plan`` on the card: registers and spill
+    bytes a thread, clusters that can be resident at once, and shared
+    memory a block."""
+    out = (ctypes.c_int * 4)()
+    lib = _lib("ffn_int8")
+    _build.check(lib, lib.vitok_ffn_int8_attributes(plan.rows, plan.cluster, plan.stages, fp, out),
+                 "ffn_int8 attributes")
+    return dict(registers=out[0], spill_bytes=out[1], max_active_clusters=out[2], smem_bytes=out[3])
+
+
 def fused_ffn_int8(
     hq: torch.Tensor, h_scale: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor
 ):
@@ -327,15 +404,14 @@ def fused_ffn_int8(
     hs = _on(h_scale.reshape(-1), dev, (m,), "h_scale").float().contiguous()
     ws = _aligned(_on(w_scale, dev, (f2,), "w_scale").float().contiguous())
     fp = f2 // 2
-    t = torch.empty((m, fp), dtype=torch.bfloat16, device=dev)  # staged silu(g) * v
-    amax = torch.zeros((m,), dtype=torch.int32, device=dev)     # row absmax, float bits
+    plan = ffn_int8_plan(m, c, fp)
     tq = torch.empty((m, fp), dtype=torch.int8, device=dev)
     t_scale = torch.empty((m, 1), dtype=torch.float32, device=dev)
     lib = _lib("ffn_int8")
     with torch.cuda.device(dev):
         err = lib.vitok_ffn_int8(
-            hq.data_ptr(), hs.data_ptr(), w_int8.data_ptr(), ws.data_ptr(), t.data_ptr(),
-            amax.data_ptr(), tq.data_ptr(), t_scale.data_ptr(), m, c, fp, _stream(hq),
+            hq.data_ptr(), hs.data_ptr(), w_int8.data_ptr(), ws.data_ptr(), tq.data_ptr(),
+            t_scale.data_ptr(), m, c, fp, plan.rows, plan.cluster, plan.stages, _stream(hq),
         )
     _build.check(lib, err, "ffn_int8 launch")
     LAUNCHES["ffn_int8"] += 1
@@ -400,7 +476,8 @@ _MAX_ROW_CHUNKS = 8
 
 _ARGTYPES = {  # C entry point: (library, argument types)
     "vitok_rmsnorm_quant_bf16": ("rmsnorm_quant", "ppppiifp"),
-    "vitok_ffn_int8": ("ffn_int8", "ppppppppiiip"),
+    "vitok_ffn_int8": ("ffn_int8", "ppppppiiiiiip"),
+    "vitok_ffn_int8_attributes": ("ffn_int8", "iiiip"),
     "vitok_silu_quant_bf16": ("silu_quant", "pppiip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
