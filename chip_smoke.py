@@ -10,8 +10,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    shapes its path gives it, at the 5B width and at a ragged size, and times
    the kernel, the plain version and, where there is one, a PyTorch library
    call for the same function (for the fused FFN: ``torch._int_mm`` on its
-   fc1 product alone, and the FFN kernel's codes and scales must equal the
-   plain version's bit for bit); the fused forward is the q/k prologue and the wgmma
+   fc1 product alone; the FFN kernel's codes and scales, and those of the
+   two row kernels (RMSNorm + quantize, SwiGLU + quantize) in bf16 and in
+   fp32, must equal the plain versions' bit for bit, and the row kernels are
+   timed chained, with the host ahead and on the host's clock, beside their
+   plans, registers and resident blocks); the fused forward is the q/k prologue and the wgmma
    kernel (with its row log-sum-exp against the plain one), timed beside the
    kept mma.sync forward; the flash forward is also timed against
    FlexAttention (a yardstick built here, never called by the port), and
@@ -22,7 +25,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    random weights from a seed, at 256p (batch 64) and 512p (batch 16), in
    bf16 and then int8 (``AE.quantize()``), and an int8 run at a width the
    fused FFN refuses (``Gd2-Gd2/1x16x64``), which takes the SwiGLU +
-   quantize kernel. Each run sets every launch count to 0 before it and
+   quantize kernel, in bf16 and again in fp32. Each run sets every launch count to 0 before it and
    reads them after it; each checks the output, compares it with the same
    model on the plain path (unfused attention for bf16, the quantize
    kernels' plain versions for int8), is timed, and has one step profiled
@@ -65,7 +68,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    bit, and against their plain versions, the mma.sync forward's bf16 and
    FMA fp32 instances too, at the JAX A/B scripts' recorded shapes and at
    the 350M width with a dead image; runs the 350M AE in fp32 on the fp32
-   forward against the unfused composition; and runs both A/B entry points
+   forward against the unfused composition, and the same AE ``quantize()``d
+   (the fp32 forward, the fp32 RMSNorm + quantize and the fused FFN a block)
+   against its run on the quantize kernels' plain versions; and runs both A/B entry points
    at the recorded shapes with fewer timed calls;
 9. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -103,8 +108,6 @@ KERNEL_MEAN_ABS = 2e-3  # softmax rescales at running maxima, in another order
 PROLOGUE_MAX_ABS = 2 ** -5
 PROLOGUE_DIFFER_SHARE = 1e-3
 MODEL_REL_L2 = 2e-2     # decoded patches, fused kernel vs unfused path, bf16
-CODE_SHARE = 1e-3       # quantize kernels: codes differ by <= 1 step in <= 0.1% of entries
-SCALE_RTOL = 1e-5       # ... and per-token scales agree to this
 
 VARIANT = "Ld4-Ld24/1x16x64"  # 350M-f16x64
 SILU_VARIANT = "Gd2-Gd2/1x16x64"  # width 1728: the fused FFN's gate refuses it
@@ -369,21 +372,37 @@ def _bound_ms(nbytes: float, ops: float, ops_per_s: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _compare_codes(what, got, want, pad_from=None) -> dict:
-    """Codes within one step in at most CODE_SHARE of the entries, scales
-    within SCALE_RTOL, and pad columns exactly 0."""
+def _exact_codes(what, got, want, pad_from=None) -> dict:
+    """Codes and per-token scales equal to the plain version's bit for bit,
+    and pad columns exactly 0 (the rule #7, #8 and #9 are held to)."""
     (q, s), (q_ref, s_ref) = got, want
-    diff = (q.int() - q_ref.int()).abs()
-    max_diff = int(diff.max().item())
-    share = (diff > 0).float().mean().item()
-    rel = ((s - s_ref).abs() / s_ref.abs()).max().item()
+    n_codes, n_scales = int((q != q_ref).sum().item()), int((s != s_ref).sum().item())
     pad_zero = pad_from is None or not q[..., pad_from:].any().item()
-    if not (max_diff <= 1 and share <= CODE_SHARE and rel <= SCALE_RTOL and pad_zero):
-        raise AssertionError(
-            f"{what}: kernel disagrees with its plain version: max code diff {max_diff}, "
-            f"share {share:.2e} (limits 1, {CODE_SHARE}), scale rel err {rel:.2e} "
-            f"(limit {SCALE_RTOL}), pad columns zero: {pad_zero}")
-    return dict(max_abs_err=max_diff, code_mismatch_share=share, scale_max_rel_err=rel)
+    if n_codes or n_scales or not pad_zero:
+        raise AssertionError(f"{what}: {n_codes} codes and {n_scales} scales differ from the plain version "
+                             f"(expected 0); pad columns zero: {pad_zero}")
+    return dict(max_abs_err=0, code_mismatch_share=0.0, scale_max_rel_err=0.0, codes_differ=0, scales_differ=0)
+
+
+def _row_kernel_row(kernel, n, dtype, m, kernel_fn, plain_fn, nbytes, elems, src) -> dict:
+    """Times of one #9 or #8 call (chained, ``dev`` with the host ahead, the
+    wrapper's host microseconds), its plan, its instance's registers, spills
+    and resident blocks, and, as the rate this card moves such bytes at, the
+    card's time for a copy of the input ``src`` (``copy_``: its bytes read
+    and written; not the same function, so no library column)."""
+    import torch
+    from vitok_torch.benchmarks import host_ahead_ms, host_us
+    from vitok_torch.ops import quant
+
+    plan = quant.row_quant_plan(kernel, m, n, dtype, src.device)
+    attrs = quant.row_quant_attributes(kernel, plan, n, dtype)
+    bound = _bound_ms(nbytes, ROW_KERNEL_OPS * elems, FP32_OPS_PER_S)
+    dst = torch.empty_like(src)
+    copy_ms = host_ahead_ms(lambda: dst.copy_(src))
+    return dict(ms=time_ms(kernel_fn), dev_ms=host_ahead_ms(kernel_fn), host_us=host_us(kernel_fn),
+                plain_ms=time_ms(plain_fn), bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                copy_dev_ms=copy_ms, copy_tb_per_s=2 * src.numel() * src.element_size() / copy_ms / 1e9,
+                plan=plan._asdict(), **attrs)
 
 
 def quant_kernel_phase(device) -> dict:
@@ -394,43 +413,52 @@ def quant_kernel_phase(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(2)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=device)
     rows = {"rmsnorm_quant": [], "ffn_int8": [], "silu_quant": []}
-    log("kernel phase: rmsnorm_quant, ffn_int8, silu_quant (CUDA) vs their plain versions")
-    log(f"{'kernel':14s} {'shape':16s} {'M':>6s} {'C':>5s} {'Fp':>5s} {'code_err':>8s} {'share':>9s} "
-        f"{'scale_rel':>9s} {'ms':>8s} {'plain_ms':>9s} {'bound_ms':>9s} {'int_mm_ms':>9s}")
+    log("kernel phase: rmsnorm_quant, ffn_int8, silu_quant (CUDA) vs their plain versions; #9 and #8 in bf16 and "
+        "fp32, codes and scales bit for bit")
+    log(f"{'kernel':14s} {'shape':16s} {'dtype':8s} {'M':>6s} {'C':>5s} {'Fp':>5s} {'code_err':>8s} {'ms':>8s} "
+        f"{'dev_ms':>8s} {'host_us':>8s} {'plain_ms':>9s} {'bound_ms':>9s} {'int_mm_ms':>9s}")
 
-    def record(kernel, label, m, c, fp, err, ms, plain_ms, bound, extra=None):
-        row = dict(shape=label, M=m, C=c, Fp=fp, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                   bound_by=bound[1], library_ms=None, **err, **(extra or {}))
+    def record(kernel, label, dtype, m, c, fp, err, row):
+        row = dict(shape=label, dtype=str(dtype).replace("torch.", ""), M=m, C=c, Fp=fp, **err, **row)
         rows[kernel].append(row)
-        lib = (extra or {}).get("int_mm_fc1_ms")
-        log(f"{kernel:14s} {label:16s} {m:6d} {c:5d} {fp:5d} {err['max_abs_err']:8d} "
-            f"{err['code_mismatch_share']:9.2e} {err['scale_max_rel_err']:9.2e} {ms:8.4f} "
-            f"{plain_ms:9.4f} {bound[0]:9.5f} {'' if lib is None else f'{lib:9.4f}'}")
+        lib = row.get("int_mm_fc1_ms")
+        log(f"{kernel:14s} {label:16s} {row['dtype']:8s} {m:6d} {c:5d} {fp:5d} {err['max_abs_err']:8d} "
+            f"{row['ms']:8.4f} {row['dev_ms']:8.4f} {row.get('host_us', float('nan')):8.2f} {row['plain_ms']:9.4f} "
+            f"{row['bound_ms']:9.5f} {'' if lib is None else f'{lib:9.4f}'}")
+        if "plan" in row:
+            plan = row["plan"]
+            log(f"{'':14s} {label:16s} plan: {plan['lanes']} lanes a row, {plan['per']} chunks of {plan['vec']} a "
+                f"lane, {plan['rows_per_block']} rows a block of {plan['threads']}, {plan['stages']} slots, grid "
+                f"{plan['grid']} ({plan['blocks_per_sm']} an SM), {plan['smem_bytes']} shared bytes; "
+                f"{row['registers']} registers, {row['spill_bytes']} spilled, {row['blocks_per_sm']} blocks an SM; "
+                f"copy_ of the input {row['copy_dev_ms']:.4f} ms dev, {row['copy_tb_per_s']:.3f} TB/s")
 
     for label, b, n, c, f in (SILU_MAIN,) + QUANT_SHAPES:
         m, fp = b * n, quant.pad_ffn_dim(f)
-        # #9: the residual stream [B, N, C] -> int8 + per-token scales.
-        x = (randn(b, n, c) * 2).to(torch.bfloat16)
-        gain = 0.5 + torch.rand(c, generator=gen, device=device)
-        err = _compare_codes(f"rmsnorm_quant {label}", quant.fused_rmsnorm_quant(x, gain),
-                             quant.fused_rmsnorm_quant_plain(x, gain))
-        record("rmsnorm_quant", label, m, c, c, err,
-               time_ms(lambda: quant.fused_rmsnorm_quant(x, gain)),
-               time_ms(lambda: quant.fused_rmsnorm_quant_plain(x, gain)),
-               _bound_ms(m * c * 2 + c * 4 + m * c + m * 4, ROW_KERNEL_OPS * m * c, FP32_OPS_PER_S))
-        del x
+        for dtype in (torch.bfloat16, torch.float32):
+            # #9: the residual stream [B, N, C] -> int8 + per-token scales.
+            x = (randn(b, n, c) * 2).to(dtype)
+            gain = 0.5 + torch.rand(c, generator=gen, device=device)
+            err = _exact_codes(f"rmsnorm_quant {label} {dtype}", quant.fused_rmsnorm_quant(x, gain),
+                               quant.fused_rmsnorm_quant_plain(x, gain))
+            isz = x.element_size()
+            record("rmsnorm_quant", label, dtype, m, c, c, err, _row_kernel_row(
+                "rmsnorm_quant", c, dtype, m,
+                lambda: quant.fused_rmsnorm_quant(x, gain), lambda: quant.fused_rmsnorm_quant_plain(x, gain),
+                m * c * isz + c * 4 + m * c + m * 4, m * c, x))
+            del x
 
-        # #8: the bf16 fc1 output [M, 2F'] (pad columns of both halves 0).
-        hid = torch.zeros(m, 2 * fp, dtype=torch.bfloat16, device=device)
-        hid[:, :f] = randn(m, f).to(torch.bfloat16)
-        hid[:, fp:fp + f] = (2 * randn(m, f)).to(torch.bfloat16)
-        err = _compare_codes(f"silu_quant {label}", quant.fused_silu_quant(hid),
-                             quant.fused_silu_quant_plain(hid), pad_from=f)
-        record("silu_quant", label, m, c, fp, err,
-               time_ms(lambda: quant.fused_silu_quant(hid)),
-               time_ms(lambda: quant.fused_silu_quant_plain(hid)),
-               _bound_ms(m * 2 * fp * 2 + m * fp + m * 4, ROW_KERNEL_OPS * m * fp, FP32_OPS_PER_S))
-        del hid
+            # #8: the fc1 output [M, 2F'] (pad columns of both halves 0).
+            hid = torch.zeros(m, 2 * fp, dtype=dtype, device=device)
+            hid[:, :f] = randn(m, f).to(dtype)
+            hid[:, fp:fp + f] = (2 * randn(m, f)).to(dtype)
+            err = _exact_codes(f"silu_quant {label} {dtype}", quant.fused_silu_quant(hid),
+                               quant.fused_silu_quant_plain(hid), pad_from=f)
+            record("silu_quant", label, dtype, m, c, fp, err, _row_kernel_row(
+                "silu_quant", fp, dtype, m,
+                lambda: quant.fused_silu_quant(hid), lambda: quant.fused_silu_quant_plain(hid),
+                m * 2 * fp * isz + m * fp + m * 4, m * fp, hid))
+            del hid
 
         if not quant.can_fuse_ffn(m, c, 2 * fp):
             continue  # the G width: its path takes silu_quant instead
@@ -440,29 +468,24 @@ def quant_kernel_phase(device) -> dict:
         hq, hs = quant.quantize_activation(randn(m, c))
         w, ws = quant.quantize_weight(quant.pad_fc1_weight(0.05 * randn(2 * f, c)))
         got, want = quant.fused_ffn_int8(hq, hs, w, ws), quant.fused_ffn_int8_plain(hq, hs, w, ws)
-        err = _compare_codes(f"ffn_int8 {label}", got, want, pad_from=f)
-        n_codes, n_scales = int((got[0] != want[0]).sum().item()), int((got[1] != want[1]).sum().item())
-        if n_codes or n_scales:
-            raise AssertionError(f"ffn_int8 {label}: {n_codes} codes and {n_scales} scales differ from the plain "
-                                 f"version (expected 0)")
+        err = _exact_codes(f"ffn_int8 {label}", got, want, pad_from=f)
         del got, want
         plan = quant.ffn_int8_plan(m, c, fp)
         attrs = quant.ffn_int8_attributes(plan, fp)
         kernel = lambda: quant.fused_ffn_int8(hq, hs, w, ws)
         nbytes = m * c + m * 4 + 2 * fp * c + 2 * fp * 4 + m * fp + m * 4
-        record("ffn_int8", label, m, c, fp, err, time_ms(kernel),
-               time_ms(lambda: quant.fused_ffn_int8_plain(hq, hs, w, ws)),
-               _bound_ms(nbytes, 2.0 * m * c * 2 * fp, INT8_OPS_PER_S),
-               dict(int_mm_fc1_ms=time_ms(lambda: torch._int_mm(hq, w.t())), dev_ms=host_ahead_ms(kernel),
-                    codes_differ=n_codes, scales_differ=n_scales, rows=plan.rows, cluster=plan.cluster,
-                    stages=plan.stages, **attrs))
-        log(f"{'':14s} {label:16s} dev {rows['ffn_int8'][-1]['dev_ms']:.4f} ms; plan: {plan.rows} rows, a cluster "
-            f"of {plan.cluster}, {plan.stages} stages, {attrs['smem_bytes']} bytes of shared memory; "
-            f"{attrs['registers']} registers, {attrs['spill_bytes']} spilled, {attrs['max_active_clusters']} "
-            f"clusters resident")
+        bound = _bound_ms(nbytes, 2.0 * m * c * 2 * fp, INT8_OPS_PER_S)
+        record("ffn_int8", label, torch.int8, m, c, fp, err, dict(
+            ms=time_ms(kernel), dev_ms=host_ahead_ms(kernel),
+            plain_ms=time_ms(lambda: quant.fused_ffn_int8_plain(hq, hs, w, ws)), bound_ms=bound[0],
+            bound_by=bound[1], library_ms=None, int_mm_fc1_ms=time_ms(lambda: torch._int_mm(hq, w.t())),
+            rows=plan.rows, cluster=plan.cluster, stages=plan.stages, **attrs))
+        log(f"{'':14s} {label:16s} ffn_int8 plan: {plan.rows} rows, a cluster of {plan.cluster}, {plan.stages} "
+            f"stages, {attrs['smem_bytes']} bytes of shared memory; {attrs['registers']} registers, "
+            f"{attrs['spill_bytes']} spilled, {attrs['max_active_clusters']} clusters resident")
         del hq, hs, w, ws
-    log("  (int_mm_ms: torch._int_mm on the fc1 product only, no SwiGLU or requantize; ffn_int8 dev: the card's time "
-        "with the host ahead)")
+    log("  (ms: chained through the wrapper; dev_ms: the card's time with the host ahead; host_us: the wrapper's host "
+        "time a call; int_mm_ms: torch._int_mm on the fc1 product only, no SwiGLU or requantize)")
     return rows
 
 
@@ -904,30 +927,34 @@ def int8_path_phase(device, card: str, cases, bf16: dict) -> dict:
     return dict(rows=rows, launches=launches)
 
 
-def silu_path_phase(device, card: str) -> dict:
+def silu_path_phase(device, card: str, dtype: str = "bfloat16") -> dict:
     """An int8 model at a width the fused FFN's gate refuses (C % 128 != 0):
     its blocks take the int8 fc1 product and then the SwiGLU + quantize
-    kernel. Head dim 72, so attention takes the unfused composition."""
+    kernel, in ``dtype`` (bf16, or fp32, #8's and #9's fp32 instances). Head
+    dim 72, so attention takes the unfused composition."""
+    import torch
     from vitok_torch import AE, decode_variant
 
-    model = AE(**decode_variant(SILU_VARIANT), seed=0, device=device)
+    model = AE(**decode_variant(SILU_VARIANT), seed=0, device=device, compute_dtype=getattr(torch, dtype))
     _random_gates(model, device)
     model.quantize()
     depth = model.cfg.encoder_depth + model.cfg.decoder_depth
     name, max_tokens, _, sizes = RESOLUTIONS[0]
     cases = main_path_cases(device, [(name, max_tokens, SILU_BATCH, sizes)], seed=1)
-    log(f"int8 SwiGLU-quantize path: {SILU_VARIANT} after AE.quantize(), {depth} blocks, "
+    log(f"int8 SwiGLU-quantize path: {SILU_VARIANT} after AE.quantize(), {dtype}, {depth} blocks, "
         f"{name} batch {SILU_BATCH}")
     expect = _expect(rmsnorm_quant=depth, silu_quant=depth)
-    (out,), launches = _run_counted(model, cases, expect, "int8 G")
+    (out,), launches = _run_counted(model, cases, expect, f"int8 G {dtype}")
     name, max_tokens, batch, images, inputs = cases[0]
     _check_output(name, max_tokens, batch, images, inputs, out)
+    if out["patches"].dtype != model.compute_dtype:
+        raise AssertionError(f"int8 G {dtype}: decoded {out['patches'].dtype}")
     with plain_quant_kernels():
         rel = _valid_rel_l2(out, model.decode(model.encode(inputs)), inputs)
     if not rel <= MODEL_REL_L2:
-        raise AssertionError(f"int8 G {name}: rel L2 vs the plain versions {rel:.3e} > {MODEL_REL_L2}")
+        raise AssertionError(f"int8 G {dtype} {name}: rel L2 vs the plain versions {rel:.3e} > {MODEL_REL_L2}")
     ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=5, warmup=1)
-    log(f"  int8 G {name}: rel L2 vs plain versions {rel:.3e}; encode+decode {ms / batch:.4f} "
+    log(f"  int8 G {dtype} {name}: rel L2 vs plain versions {rel:.3e}; encode+decode {ms / batch:.4f} "
         f"ms/img on {card}")
     return dict(launches=launches, rel_l2_vs_plain=rel, ms_per_img=ms / batch)
 
@@ -2571,6 +2598,41 @@ def f32_ae_phase(device, card: str) -> dict:
                 unfused_ms_per_img=ref_ms / batch, profiled_launches=attention)
 
 
+def f32_int8_phase(device, card: str, f32_ae: dict) -> dict:
+    """350M with fp32 compute, ``AE.quantize()``d, at the fp32 AE's cell: each
+    block one fp32 forward (#1 on the fp32 walker), one RMSNorm + quantize
+    (#9's fp32 instance) and one fused FFN (#7, int8 in and out); decoded
+    patches within MODEL_REL_L2 of the same model on the quantize kernels'
+    plain versions."""
+    import torch
+    from vitok_torch import AE, decode_variant
+
+    name, max_tokens, batch, sizes = F32_AE
+    cases = main_path_cases(device, resolutions=(F32_AE,), seed=3)
+    model = AE(**decode_variant(VARIANT), seed=0, device=device, compute_dtype=torch.float32)
+    _random_gates(model, device)
+    model.quantize()
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    log(f"fp32 int8 path: {VARIANT} with compute_dtype float32 after AE.quantize(), {name} batch {batch}")
+    expect = _expect(fused_attention_f32=depth, rmsnorm_quant=depth, ffn_int8=depth)
+    (out,), launches = _run_counted(model, cases, expect, "fp32 int8")
+    inputs = cases[0][4]
+    if out["patches"].dtype != torch.float32:
+        raise AssertionError(f"fp32 int8 AE decoded {out['patches'].dtype}")
+    _check_output(name, max_tokens, batch, cases[0][3], inputs, out)
+    with plain_quant_kernels():
+        rel = _valid_rel_l2(out, model.decode(model.encode(inputs)), inputs)
+    if not rel <= MODEL_REL_L2:
+        raise AssertionError(f"fp32 int8 AE: rel L2 vs the plain versions {rel:.3e} > {MODEL_REL_L2}")
+    ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=3, warmup=1)
+    log(f"  fp32 int8 {name}: {depth} launches each of the fp32 forward, rmsnorm_quant and ffn_int8 a forward; rel "
+        f"L2 vs plain versions {rel:.3e}; encode+decode {ms / batch:.4f} ms/img (the fp32 AE "
+        f"{f32_ae['ms_per_img']:.4f}) on {card}")
+    profile_step(f"fp32 int8 {name}", lambda: model.decode(model.encode(inputs)))
+    del model
+    return dict(launches=launches, rel_l2_vs_plain=rel, ms_per_img=ms / batch, f32_ms_per_img=f32_ae["ms_per_img"])
+
+
 def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     """Kernels-line entries of #10-#13 (times at the recorded bf16 shape, C =
     3072, N = 256, B = 64; #10 the D2 arm, every arm beside it; #10, #11 and
@@ -2759,7 +2821,7 @@ def profile_step(name: str, step) -> dict:
     return launches
 
 
-def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres) -> list:
+def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres, f32_int8, f32_silu) -> list:
     """The kernels line: one entry per kernel, its launches from its path's run."""
     head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
     entries = [{
@@ -2825,7 +2887,7 @@ def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
         ("silu_quant", "vitok_tpu/ops/quant.py:317", SILU_MAIN[0], silu_path["launches"]),
     ):
         rows = qkern[name]
-        row = next(r for r in rows if r["shape"] == shape)
+        row = next(r for r in rows if r["shape"] == shape and r["dtype"] in ("bfloat16", "int8"))
         entry = {
             "name": name,
             "route": "cuda",
@@ -2838,12 +2900,18 @@ def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
-            "code_mismatch_share": max(r["code_mismatch_share"] for r in rows),
+            "dev_ms": row["dev_ms"],  # the card's time, the host ahead
+            "codes_differ": max(r["codes_differ"] + r["scales_differ"] for r in rows),
         }
         if "int_mm_fc1_ms" in row:
             entry["int_mm_fc1_ms"] = row["int_mm_fc1_ms"]  # torch._int_mm, the fc1 product only
-            entry["dev_ms"] = row["dev_ms"]  # the card's time, the host ahead
-            entry["codes_differ"] = max(r["codes_differ"] + r["scales_differ"] for r in rows)
+        else:  # #9 and #8: the wrapper's host time, the plan's instance, and the fp32 instance's times
+            f32 = next(r for r in rows if r["shape"] == shape and r["dtype"] == "float32")
+            entry.update(host_us=row["host_us"], copy_dev_ms=row["copy_dev_ms"], registers=row["registers"],
+                         spill_bytes=row["spill_bytes"],
+                         blocks_per_sm=row["blocks_per_sm"], plan=row["plan"], fp32_ms=f32["ms"],
+                         fp32_dev_ms=f32["dev_ms"], fp32_bound_ms=f32["bound_ms"],
+                         fp32_launches=(f32_int8 if name == "rmsnorm_quant" else f32_silu)["launches"][name])
         entries.append(entry)
     return entries
 
@@ -2882,6 +2950,7 @@ def main() -> int:
     main_path = main_path_phase(device, card, cases)
     int8_path = int8_path_phase(device, card, cases, main_path)
     silu_path = silu_path_phase(device, card)
+    f32_silu = silu_path_phase(device, card, "float32")
     serving_phase(device, card, main_path["model"])
     del cases, main_path["model"], main_path["outputs"]
     highres = highres_phase(device, card)
@@ -2905,10 +2974,13 @@ def main() -> int:
     f32_ae = f32_ae_phase(device, card)
     log(f"fp32 path: {time.time() - t0:.1f} s")
     t0 = time.time()
+    f32_int8 = f32_int8_phase(device, card, f32_ae)
+    log(f"fp32 int8 path: {time.time() - t0:.1f} s")
+    t0 = time.time()
     ab_runs = ab_entry_phase(device)
     log(f"A/B entry points: {time.time() - t0:.1f} s")
 
-    entries = kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres)
+    entries = kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres, f32_int8, f32_silu)
     entries[2:2] = flash_bwd_entries(bkern, training)
     entries[1:1] = fused_family_entries(q8kern, q8_path, fbkern, fused_training)
     entries += ab_entries(abkern, ab_runs, f32_ae, kern)

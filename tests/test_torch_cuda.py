@@ -14,7 +14,8 @@ version's (full-row for the fused kernel, 512-key blocks for the flash
 kernel). The flash kernel's padded rows are exactly 0 on both sides, and its
 log-sum-exp agrees within 1e-3 on live rows (+1e30 on dead rows). The quantize kernels: codes within one step in
 at most 0.1% of the entries and scales within rtol 1e-5 (on the H100 they
-agree bit for bit; the fused FFN kernel is held to that), pad columns exactly 0. Small int8 models: rel L2 2e-2
+agree bit for bit; the fused FFN kernel and the row kernels, in bf16 and
+fp32, are held to that), pad columns exactly 0. Small int8 models: rel L2 2e-2
 against the same model on the plain versions. The fused forward's
 log-sum-exp agrees within 1e-3 on valid rows (1e30 on padded rows), and its
 q/k prologue with the plain version's normed q/k to one bf16 step in at most
@@ -869,14 +870,121 @@ class TestQuantKernelsOnCard:
 
     def test_kernels_reject_what_they_do_not_take(self, cuda_device):
         x, gain, hid, hq, hs, w, ws = _quant_inputs(cuda_device, 24, 256, 136)
-        with pytest.raises(TypeError, match="bfloat16"):
-            t_q.fused_rmsnorm_quant(x.float(), gain)
-        with pytest.raises(TypeError, match="bfloat16"):
-            t_q.fused_silu_quant(hid.float())
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            t_q.fused_rmsnorm_quant(x.half(), gain)
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            t_q.fused_silu_quant(hid.half())
         with pytest.raises(ValueError, match="can_fuse_ffn"):
             t_q.fused_ffn_int8(hq[:20], hs[:20], w, ws)  # 20 rows: not a multiple of 8
         with pytest.raises(ValueError, match="M > 16"):
             t_q.int8_matmul_prequant(hq[:8], hs[:8], w, ws, torch.bfloat16)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("kernel,m,n", [
+        ("rmsnorm_quant", 16384, 1024), ("rmsnorm_quant", 40, 1024), ("rmsnorm_quant", 200, 1728),
+        ("rmsnorm_quant", 1000, 1024), ("rmsnorm_quant", 256, 4096), ("rmsnorm_quant", 7, 136),
+        ("rmsnorm_quant", 3, 64), ("rmsnorm_quant", 5, 8192), ("rmsnorm_quant", 9, 8184),
+        ("silu_quant", 16384, 2816), ("silu_quant", 40, 2816), ("silu_quant", 200, 4608),
+        ("silu_quant", 1000, 2816), ("silu_quant", 64, 8320), ("silu_quant", 7, 136), ("silu_quant", 3, 64),
+        ("silu_quant", 3, 16384), ("silu_quant", 5, 16376),
+    ])
+    def test_row_kernels_equal_plain_bit_for_bit(self, cuda_device, kernel, m, n, dtype):
+        """#9 (n = C) and #8 (n = F') in bf16 and fp32: codes and scales the
+        plain version's bit for bit, at the main paths' rows, ragged M, narrow
+        rows, rows over several warps and the domain's edges."""
+        gen = torch.Generator(device=cuda_device).manual_seed(m + n)
+        before = dict(t_q.LAUNCHES)
+        if kernel == "rmsnorm_quant":
+            x = (2 * torch.randn(m, n, generator=gen, device=cuda_device)).to(dtype)
+            gain = 0.5 + torch.rand(n, generator=gen, device=cuda_device)
+            got, want = t_q.fused_rmsnorm_quant(x, gain), t_q.fused_rmsnorm_quant_plain(x, gain)
+        else:
+            hid = torch.randn(m, 2 * n, generator=gen, device=cuda_device)
+            hid[:, n:] *= 2
+            hid = hid.to(dtype)
+            got, want = t_q.fused_silu_quant(hid), t_q.fused_silu_quant_plain(hid)
+        assert t_q.LAUNCHES[kernel] == before[kernel] + 1
+        torch.cuda.synchronize()
+        assert got[0].shape == want[0].shape and got[1].shape == want[1].shape == (m, 1)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("kernel,limit", [("rmsnorm_quant", 8192), ("silu_quant", 16384)])
+    def test_every_width_equals_plain(self, cuda_device, kernel, limit, dtype):
+        """Every width the wrapper takes, three rows each, bit for bit; gate
+        values from -100 to 100 reach the sigmoid's extremes."""
+        gen = torch.Generator(device=cuda_device).manual_seed(limit)
+        bad = []
+        for n in range(8, limit + 1, 8):
+            if kernel == "rmsnorm_quant":
+                x = (2 * torch.randn(3, n, generator=gen, device=cuda_device)).to(dtype)
+                gain = 0.5 + torch.rand(n, generator=gen, device=cuda_device)
+                got, want = t_q.fused_rmsnorm_quant(x, gain), t_q.fused_rmsnorm_quant_plain(x, gain)
+            else:
+                g = torch.linspace(-100.0, 100.0, n, device=cuda_device).expand(3, n)
+                hid = torch.cat([torch.randn(3, n, generator=gen, device=cuda_device), g], 1).to(dtype)
+                got, want = t_q.fused_silu_quant(hid), t_q.fused_silu_quant_plain(hid)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                bad.append(n)
+        assert bad == []
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_codes_at_rounding_ties_follow_the_division(self, cuda_device, dtype):
+        """#8 on rows whose t / scale are exact half-integers (g = 32, so
+        sigmoid(g) = 1 and t = 32 v; v = k + 1/2 and one |v| = 127, so the
+        scale is 32): every chunk takes the quantize's division, rounding half
+        to even as the plain version does."""
+        v = torch.cat([torch.arange(-127, 127, device=cuda_device) + 0.5,
+                       torch.tensor([127.0, -127.0], device=cuda_device)]).repeat(64, 1)
+        hid = torch.cat([v, torch.full_like(v, 32.0)], 1).to(dtype)
+        got, want = t_q.fused_silu_quant(hid), t_q.fused_silu_quant_plain(hid)
+        assert torch.equal(want[1], torch.full_like(want[1], 32.0))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0][0, :4].cpu(), torch.tensor([-126, -126, -124, -124], dtype=torch.int8))
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("c", [1024, 1728, 4096, 8192])
+    def test_norm_adds_squares_in_the_plain_versions_order(self, cuda_device, c, dtype):
+        """#9 on rows whose variance the order of the additions decides (1
+        and 2^-12, then four 2^-27 in the same lane or in the next one: the
+        two orders give variances an fp32 step apart, and at C 4096 scales
+        apart) and on fp32 rows whose squares span 2^-60 to 2^60: codes and
+        scales the plain version's bit for bit."""
+        rows = torch.zeros(2, c, dtype=torch.float64)
+        rows[:, 0], rows[:, 1] = 1.0, 2.0 ** -12
+        rows[0, 2:6] = rows[1, 16:20] = 2.0 ** -27
+        gen = torch.Generator(device=cuda_device).manual_seed(c)
+        wide = torch.randn(512, c, generator=gen, device=cuda_device, dtype=torch.float64)
+        wide = wide * torch.exp2(60 * torch.rand(512, c, generator=gen, device=cuda_device, dtype=torch.float64) - 30)
+        x = (torch.cat([rows.to(cuda_device), wide]) if dtype == torch.float32 else rows.to(cuda_device)).to(dtype)
+        gain = torch.ones(c, device=cuda_device)
+        got, want = t_q.fused_rmsnorm_quant(x, gain), t_q.fused_rmsnorm_quant_plain(x, gain)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert c != 4096 or got[1][0, 0] != got[1][1, 0]
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("kernel,limit", [("rmsnorm_quant", 8192), ("silu_quant", 16384)])
+    def test_row_plans_fit_the_card(self, cuda_device, kernel, limit, dtype):
+        """Every plan over the domain: its instance fits the card (one block
+        an SM at least), with the plan's shared bytes, and the wrapper's plan
+        is one wave of the blocks the card hosts."""
+        plan_fn = t_q.rmsnorm_quant_plan if kernel == "rmsnorm_quant" else t_q.silu_quant_plan
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for n in range(8, limit + 1, 8):
+            attrs = t_q.row_quant_attributes(kernel, plan_fn(1, n, dtype), n, dtype)
+            plan = t_q.row_quant_plan(kernel, 16384, n, dtype, torch.device("cuda", torch.cuda.current_device()))
+            assert attrs["smem_bytes"] == plan.smem_bytes and attrs["blocks_per_sm"] >= 1, (n, attrs)
+            assert plan.blocks_per_sm == attrs["blocks_per_sm"] and plan.grid <= sms * plan.blocks_per_sm, n
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("kernel,n", [("rmsnorm_quant", c) for c in (1024, 1728, 3072, 4096)]
+                             + [("silu_quant", f) for f in (2816, 4608, 8320, 11008)])
+    def test_row_plans_have_no_spills(self, cuda_device, kernel, n, dtype):
+        """The instances the model widths' plans take (the 350M, G, 5B and E
+        widths): no local memory, so no spilled register."""
+        plan = t_q.row_quant_plan(kernel, 16384, n, dtype, torch.device("cuda", torch.cuda.current_device()))
+        attrs = t_q.row_quant_attributes(kernel, plan, n, dtype)
+        assert attrs["spill_bytes"] == 0 and attrs["blocks_per_sm"] == plan.blocks_per_sm, (plan, attrs)
 
     @pytest.mark.parametrize("variant,route", [
         ("w1024_d1_h16-w1024_d1_h16/1x16x8", "ffn_int8"),    # the 350M width

@@ -240,6 +240,28 @@ def host_ahead_ms(fn: Callable[[], object], runs: int = 5, hold_cycles: int = 20
     return sum(start.elapsed_time(end) for start, end in marks) / runs
 
 
+def host_us(fn: Callable[[], object], runs: int = 200, hold_cycles: int = 200_000_000) -> float:
+    """Host microseconds a call of ``fn()`` takes to enqueue its work: a spin
+    kernel (``hold_cycles`` clock cycles, about 100 ms) holds the stream, so
+    the host never waits for the card, while the host makes ``runs`` calls
+    on the host's clock. Raises if the hold ended first."""
+    fn()
+    torch.cuda.synchronize()
+    hold = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    hold[0].record()
+    torch.cuda._sleep(hold_cycles)
+    hold[1].record()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms >= hold[0].elapsed_time(hold[1]):
+        raise RuntimeError(f"the host took {host_ms:.3f} ms for {runs} calls, longer than the "
+                           f"{hold[0].elapsed_time(hold[1]):.3f} ms hold: raise hold_cycles")
+    return host_ms / runs * 1e3
+
+
 def profiler_records(fn: Callable[[], object], runs: int = 5) -> list:
     """The CUDA kernel records ``torch.profiler`` keeps over ``runs`` calls
     of ``fn()`` (after one call outside the session): one duration in ms per
@@ -263,4 +285,4 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor, rows: Optional[torch.Tensor] 
 
 __all__ = ["pick_group_channels", "kernel_lib", "sm90_lib", "walk_sm90", "walk_f32", "WALKER_KINDS",
            "sm90_attributes", "check_device", "card_line", "resolve_device", "rope_inputs", "chained_ms",
-           "host_ahead_ms", "profiler_records", "max_abs_diff"]
+           "host_ahead_ms", "host_us", "profiler_records", "max_abs_diff"]

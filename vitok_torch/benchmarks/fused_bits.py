@@ -18,16 +18,19 @@ branch's attention from the flat QKV (``unfused_qkv_attention`` with
 a tree without the fold the eager q/k norm and rotation, then #4 (under
 grad the flash kernel's autograd Function, whose backward is #5 and #6); in
 one with it the q/k prologue, then #4 (under grad the fold's Function, whose
-backward is the prologue and #5 and #6 in their fold instances); and the
-fused int8 FFN #7 at the 350M, 5B and E widths. It times
+backward is the prologue and #5 and #6 in their fold instances); the
+fused int8 FFN #7 at the 350M, 5B and E widths; and the row kernels in bf16,
+the RMSNorm + quantize #9 at the 350M, 5B, E and G widths and at a ragged
+M, and the SwiGLU + quantize #8 at the 350M, 5B and G widths (each also by
+``dev``, with the host ahead). It times
 each (CUDA events, 20 calls after 3; #3 given the forward's output and
 log-sum-exp where its checkout takes them, so that the time is the
 backward's alone), saves the outputs, and with ``--against`` compares them
 with a file an earlier run saved: #2's codes and scales bit for bit with
 ``quantize_activation`` of the earlier run's #1 output (#2 runs #1's body
 since PR 13; a checkout from before then ran the mma.sync body and fails
-this against a later one); #7's codes and scales bit for bit with the
-earlier run's (both are the plain version's exactly); the rest, which a
+this against a later one); #7's, #8's and #9's codes and scales bit for bit
+with the earlier run's (each is its plain version's exactly); the rest, which a
 checkout may compute on another kernel with the same rounding points, by
 their largest distance (valid rows) and rel L2 against the limits
 ``chip_smoke.py`` holds them to against their plain versions (bf16 #1,
@@ -43,8 +46,8 @@ change, parent):
     python vitok_torch/benchmarks/fused_bits.py --root PARENT --save /tmp/p.pt
     python vitok_torch/benchmarks/fused_bits.py --root . --save /tmp/c.pt --against /tmp/p.pt
 
-Exits 1 if #2 differs from the quantized #1, #7 from the earlier run's, or
-any other output is past its limit. Needs a card.
+Exits 1 if #2 differs from the quantized #1, #7, #8 or #9 from the
+earlier run's, or any other output is past its limit. Needs a card.
 """
 
 from __future__ import annotations
@@ -59,6 +62,9 @@ F32_SHAPE = (256, 64, 3072, 24)     # the recorded fp32 A/B shape
 FLASH_SHAPES = ((2, 4096, 16, 64), (1, 16384, 16, 64), (1, 4096, 24, 128))  # B, N, H, D
 FLASH_SW = 1024
 FFN_SHAPES = ((16384, 1024, 2816), (4096, 3072, 8320), (4096, 4096, 11008))  # M, C, F': 350M, 5B and E widths
+# M, C of #9: 350M, 5B and E widths, the G width (its silu path's M) and ragged M
+NORM_SHAPES = ((16384, 1024), (4096, 3072), (4096, 4096), (2048, 1728), (1000, 1024))
+SILU_SHAPES = ((16384, 2816), (4096, 8320), (2048, 4608))  # M, F' of #8: 350M, 5B and G widths
 FLASH_MAX_ABS = 8e-3   # chip_smoke.py's FLASH_MAX_ABS
 FLASH_MEAN_ABS = 2e-4  # chip_smoke.py's FLASH_MEAN_ABS
 LSE_ATOL = 1e-3        # chip_smoke.py's LSE_ATOL
@@ -258,6 +264,7 @@ def main(argv=None) -> int:
             outputs[key + " foldbwd"] = branch_grads()
             times[key + " fold fwd+bwd"] = _time_ms(branch_grads)
             del qkv5, q, k, v, flat, dout, out, lse
+    from vitok_torch.benchmarks import host_ahead_ms
     from vitok_torch.ops import quant
 
     for m, c, fp in FFN_SHAPES:
@@ -269,6 +276,24 @@ def main(argv=None) -> int:
         outputs[key + " ffn"] = ffn()
         times[key + " #7"] = _time_ms(ffn)
         del hq, hs, w, ws
+    for m, c in NORM_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(m + c)
+        x = (2 * torch.randn(m, c, generator=gen, device="cuda")).bfloat16()
+        gain = 0.5 + torch.rand(c, generator=gen, device="cuda")
+        norm = lambda: quant.fused_rmsnorm_quant(x, gain)
+        outputs[f"{m}x{c} norm"] = norm()
+        times[f"{m}x{c} #9"] = _time_ms(norm)
+        times[f"{m}x{c} #9 dev"] = host_ahead_ms(norm)
+    for m, fp in SILU_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(m + fp)
+        hid = torch.randn(m, 2 * fp, generator=gen, device="cuda")
+        hid[:, fp:] *= 2
+        hid = hid.bfloat16()
+        silu = lambda: quant.fused_silu_quant(hid)
+        outputs[f"{m}x{fp} silu"] = silu()
+        times[f"{m}x{fp} #8"] = _time_ms(silu)
+        times[f"{m}x{fp} #8 dev"] = host_ahead_ms(silu)
+    del x, gain, hid
     torch.save(outputs, args.save)
     print(f"{args.root}: ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
     if args.against:
@@ -287,7 +312,7 @@ def main(argv=None) -> int:
                       f"earlier run's #2 {same[k]}", flush=True)
                 bad += [] if held else [k]
                 continue
-            if k.endswith(" ffn"):
+            if k.endswith((" ffn", " norm", " silu")):
                 print(f"  {k}: bit-identical {same[k]}", flush=True)
                 bad += [] if same[k] else [k]
                 continue
@@ -318,7 +343,8 @@ def main(argv=None) -> int:
             bad += [k] if any(m > lim for m, _, lim in dist) else []
         groups = {"#1": " fwd", "#3": " bwd", "#2": " q8", "1 mma": " mma", "#10": " bb", "#11": " pack",
                   "#13": " contig",
-                  "#4": " flash", "fold": " fold", "#5+#6": " fbwd", "fold bwd": " foldbwd", "#7": " ffn"}
+                  "#4": " flash", "fold": " fold", "#5+#6": " fbwd", "fold bwd": " foldbwd", "#7": " ffn",
+                  "#8": " silu", "#9": " norm"}
         summary = []
         for kind, f32 in (("bf16", False), ("fp32", True)):
             for num, suffix in groups.items():

@@ -17,14 +17,19 @@ Three block kernels are hand-written for Hopper (``vitok_torch/csrc``), each
 with its plain PyTorch version beside it:
 
 * :func:`fused_rmsnorm_quant` (``rmsnorm_quant.cu``, replaces
-  ``_rmsnorm_quant_kernel``): fp32 RMSNorm x gain, then per-token int8;
+  ``_rmsnorm_quant_kernel``): fp32 RMSNorm x gain, then per-token int8,
+  on bf16 or fp32 rows;
 * :func:`fused_ffn_int8` (``ffn_int8.cu``, replaces ``_ffn_int8_kernel``):
   the int8 fc1 product over both SwiGLU halves on wgmma, dequantize, f32
   ``silu(g) * v``, exact per-token requantization, with ``t`` kept in the
   shared memory of a thread-block cluster (:func:`ffn_int8_plan`);
 * :func:`fused_silu_quant` (``silu_quant.cu``, replaces
-  ``_silu_quant_kernel``): f32 ``silu(g) * v`` over the bf16 fc1 output,
-  then per-token int8.
+  ``_silu_quant_kernel``): f32 ``silu(g) * v`` over the bf16 or fp32 fc1
+  output, then per-token int8.
+
+The two row kernels share one design (``csrc/row_stream.cuh``): a persistent
+grid of row groups that stream their rows through shared memory, cut by
+:func:`rmsnorm_quant_plan` and :func:`silu_quant_plan`.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises, and adds one to its entry of ``LAUNCHES``.
@@ -33,6 +38,7 @@ launches its kernel or raises, and adds one to its entry of ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
@@ -210,20 +216,47 @@ def _silu(g: torch.Tensor) -> torch.Tensor:
     return g * torch.sigmoid(g)
 
 
+def _sum_squares(x32: torch.Tensor) -> torch.Tensor:
+    """``sum(x^2)`` over the last axis in fp64 (``[..., 1]``), added in the
+    order of ``rmsnorm_quant.cu`` wherever it takes the width: each lane's
+    chunks (``lane + lanes * i``) and their channels in turn, then the
+    butterfly over each warp (offsets 16 to 1), then the warps' partials in
+    warp order. The squares of fp32 values are exact in fp64 and their sum
+    is not, so the order can decide a rounding; other widths take ``sum``."""
+    c = x32.shape[-1]
+    sq = x32.double().square()
+    if c % 8 or not 8 <= c <= _MAX_NORM_C:
+        return sq.sum(-1, keepdim=True)
+    lanes, vec, per = _row_split(c, _NORM_X_WORDS)
+    sq = torch.nn.functional.pad(sq, (0, per * lanes * vec - c)).unflatten(-1, (per, lanes, vec))
+    ss = torch.zeros(sq.shape[:-3] + (lanes,), dtype=torch.float64, device=sq.device)
+    for i in range(per):
+        for e in range(vec):
+            ss = ss + sq[..., i, :, e]
+    ss = ss.unflatten(-1, (lanes // 32, 32))
+    lane = torch.arange(32, device=ss.device)
+    for off in (16, 8, 4, 2, 1):
+        ss = ss + ss[..., lane ^ off]
+    total = ss[..., 0, 0]
+    for w in range(1, lanes // 32):
+        total = total + ss[..., w, 0]
+    return total.unsqueeze(-1)
+
+
 def fused_rmsnorm_quant_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     """``_rmsnorm_quant_kernel`` in plain PyTorch: ``var = mean(x^2)``,
     ``y = x * rsqrt(var + eps) * gain`` in fp32, per-token absmax scale,
     then ``round(y / scale)``. The fp32 normed value is quantized directly
     (no round trip through the compute dtype).
 
-    The sum of squares is taken in fp64, which holds it exactly for these
-    inputs, and rounded once to fp32; rsqrt is an IEEE square root and
-    division. The kernel does the same, so both give the same bits: one
-    code in a million off by a step is enough to move a 28-block int8
-    model's output by a few percent (PERF.md).
+    The sum of squares is taken in fp64 in the kernel's order
+    (:func:`_sum_squares`) and rounded once to fp32; rsqrt is an IEEE square
+    root and division. The kernel does the same, so both give the same
+    bits: one code in a million off by a step is enough to move a 28-block
+    int8 model's output by a few percent (PERF.md).
     """
     x32 = x.float()
-    var = _div(x32.double().square().sum(-1, keepdim=True), x.shape[-1]).float()
+    var = _div(_sum_squares(x32), x.shape[-1]).float()
     y = x32 * torch.reciprocal(torch.sqrt(var + eps)) * scale.float()
     a_scale = _absmax_scale(y)
     q = torch.clamp(torch.round(y / a_scale), -127, 127).to(torch.int8)
@@ -234,7 +267,7 @@ def fused_rmsnorm_quant(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6)
     """``quantize_activation(rms_norm(x, scale))`` in one pass over x.
 
     Args:
-        x: ``[..., C]`` residual stream (bf16 on the card).
+        x: ``[..., C]`` residual stream (bf16 or fp32 on the card).
         scale: ``[C]`` norm gain.
 
     Returns:
@@ -243,24 +276,26 @@ def fused_rmsnorm_quant(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6)
     if not x.is_cuda:
         _require_cpu(x, "rmsnorm_quant")
         return fused_rmsnorm_quant_plain(x, scale, eps)
-    c = x.shape[-1]
-    _require_bf16_rows(x, "rmsnorm_quant")
-    if c % 8 or c > _MAX_ROW_CHUNKS * 8 * _NORM_THREADS:
-        raise ValueError(f"rmsnorm_quant takes C a multiple of 8 up to "
-                         f"{_MAX_ROW_CHUNKS * 8 * _NORM_THREADS}, got {c}")
-    gain = _aligned(_on(scale, x.device, (c,), "scale").float().contiguous())
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    a_scale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
-    rows = x.numel() // c
-    lib = _lib("rmsnorm_quant")
-    with torch.cuda.device(x.device):
-        err = lib.vitok_rmsnorm_quant_bf16(
-            x.data_ptr(), gain.data_ptr(), q.data_ptr(), a_scale.data_ptr(),
-            rows, c, float(eps), _stream(x),
-        )
-    _build.check(lib, err, "rmsnorm_quant launch")
-    LAUNCHES["rmsnorm_quant"] += 1
+    _require_rows(x, "rmsnorm_quant")
+    c, dev = x.shape[-1], x.device
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    a_scale = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=dev)
+    if x.numel():
+        plan = row_quant_plan("rmsnorm_quant", x.numel() // c, c, x.dtype, dev)
+        _rmsnorm_quant_cuda(x, _gain(scale, dev, c), q, a_scale, plan, eps)
     return q, a_scale
+
+
+def _rmsnorm_quant_cuda(x, gain, q, a_scale, plan: RowPlan, eps: float) -> None:
+    """The launch of ``rmsnorm_quant.cu`` on ``plan``."""
+    c = x.shape[-1]
+    err = _fn("vitok_rmsnorm_quant")(
+        x.data_ptr(), gain.data_ptr(), q.data_ptr(), a_scale.data_ptr(), x.numel() // c, c, eps,
+        _DTYPE_CODES[x.dtype], plan.lanes, plan.vec, plan.per, plan.stages, plan.grid, x.device.index,
+        _stream(x),
+    )
+    _check(err, "rmsnorm_quant", "launch")
+    LAUNCHES["rmsnorm_quant"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +473,8 @@ def fused_silu_quant(hid: torch.Tensor):
     """``quantize_activation(silu(g) * v)`` in one pass over the fc1 output.
 
     Args:
-        hid: ``[..., 2F']`` (v in the first F' channels, g in the rest).
+        hid: ``[..., 2F']`` (v in the first F' channels, g in the rest; bf16
+            or fp32 on the card).
 
     Returns:
         ``(q [..., F'] int8, scale [..., 1] fp32)``.
@@ -446,41 +482,198 @@ def fused_silu_quant(hid: torch.Tensor):
     if not hid.is_cuda:
         _require_cpu(hid, "silu_quant")
         return fused_silu_quant_plain(hid)
-    _require_bf16_rows(hid, "silu_quant")
+    _require_rows(hid, "silu_quant")
     f2 = hid.shape[-1]
     fp = f2 // 2
-    if f2 % 16 or fp > _MAX_ROW_CHUNKS * 8 * _SILU_THREADS:
-        raise ValueError(f"silu_quant takes 2F' a multiple of 16 with F' up to "
-                         f"{_MAX_ROW_CHUNKS * 8 * _SILU_THREADS}, got 2F'={f2}")
-    q = torch.empty((*hid.shape[:-1], fp), dtype=torch.int8, device=hid.device)
-    scale = torch.empty((*hid.shape[:-1], 1), dtype=torch.float32, device=hid.device)
-    lib = _lib("silu_quant")
-    with torch.cuda.device(hid.device):
-        err = lib.vitok_silu_quant_bf16(
-            hid.data_ptr(), q.data_ptr(), scale.data_ptr(), hid.numel() // f2, fp, _stream(hid)
-        )
-    _build.check(lib, err, "silu_quant launch")
-    LAUNCHES["silu_quant"] += 1
+    if f2 % 16 or not 0 < fp <= _MAX_SILU_FP:
+        raise ValueError(f"silu_quant takes 2F' a multiple of 16 with F' up to {_MAX_SILU_FP}, got 2F'={f2}")
+    rows, dev = hid.numel() // f2, hid.device
+    q = torch.empty((*hid.shape[:-1], fp), dtype=torch.int8, device=dev)
+    scale = torch.empty((*hid.shape[:-1], 1), dtype=torch.float32, device=dev)
+    if rows:
+        _silu_quant_cuda(hid, q, scale, row_quant_plan("silu_quant", rows, fp, hid.dtype, dev))
     return q, scale
+
+
+def _silu_quant_cuda(hid, q, scale, plan: RowPlan) -> None:
+    """The launch of ``silu_quant.cu`` on ``plan``."""
+    fp = hid.shape[-1] // 2
+    err = _fn("vitok_silu_quant")(
+        hid.data_ptr(), q.data_ptr(), scale.data_ptr(), hid.numel() // (2 * fp), fp, _DTYPE_CODES[hid.dtype],
+        plan.lanes, plan.vec, plan.per, plan.stages, plan.grid, hid.device.index, _stream(hid),
+    )
+    _check(err, "silu_quant", "launch")
+    LAUNCHES["silu_quant"] += 1
+
+
+# ---------------------------------------------------------------------------
+# The row kernels' plan (#9 and #8): persistent row streaming
+# ---------------------------------------------------------------------------
+
+# The rules of csrc/row_stream.cuh, rmsnorm_quant.cu and silu_quant.cu.
+_ROW_LANES = (32, 64, 128, 256)  # lanes a row: one warp, or 2-8 warps joined by a named barrier
+_NORM_X_WORDS = 48      # y values a lane holds in fp32 registers (#9, kXWords)
+_SILU_T_WORDS = 64      # t values a lane holds in fp32 registers (#8, kTWords)
+_MAX_NORM_C = 8192
+_MAX_SILU_FP = 16384
+H100_SMS = 132
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+class RowPlan(NamedTuple):
+    """How ``rmsnorm_quant.cu`` or ``silu_quant.cu`` cuts one call.
+
+    ``lanes`` lanes hold a row (``warps_per_row`` warps). A lane owns
+    ``per`` chunks of ``vec`` adjacent channels (chunk ``lane + lanes * i``),
+    the same in every row, and stores each chunk's codes in one ``vec``-byte
+    store. A block of ``threads`` threads holds ``rows_per_block`` row
+    groups and ``smem_bytes`` of dynamic shared memory (#9: with the gain);
+    ``grid`` blocks (``blocks_per_sm`` on each SM, so one wave), and group
+    ``g`` walks rows ``g, g + G, ...`` (``G = grid * rows_per_block``), each
+    row copied into a ring of ``stages`` row slots (2: one row ahead; 1 where
+    two rows do not fit a block).
+    """
+
+    lanes: int
+    warps_per_row: int
+    vec: int
+    per: int
+    threads: int
+    rows_per_block: int
+    stages: int
+    smem_bytes: int
+    blocks_per_sm: int
+    grid: int
+
+
+def _row_itemsize(dtype: torch.dtype, what: str) -> int:
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the {what} CUDA kernel takes bfloat16 or float32, got {dtype}")
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def _row_split(n: int, words: int) -> Tuple[int, int, int]:
+    """(lanes a row, channels a chunk, chunks a lane) for rows of ``n``
+    channels: chunks of 16 (8 where ``n % 16 == 8``), and the fewest lanes
+    from a warp up that hold the row in at most ``words`` values a lane."""
+    vec = 16 if n % 16 == 0 else 8
+    units = n // vec
+    for lanes in _ROW_LANES:
+        per = -(-units // lanes)
+        if per <= words // vec:
+            return lanes, vec, per
+    raise ValueError(f"{n} channels: wider than the row kernels' limits")
+
+
+def _row_smem(kernel: str, n: int, itemsize: int, lanes: int, vec: int, per: int, stages: int) -> int:
+    """Dynamic shared bytes of a block (``NormSmem`` / ``silu_smem_bytes``):
+    the groups' rings, #9's gain, and each group's partials where a row
+    spans several warps (fp64 and fp32 for #9, fp32 for #8)."""
+    groups = max(128, lanes) // lanes
+    red_warps = lanes // 32 if lanes > 32 else 0
+    if kernel == "rmsnorm_quant":
+        return groups * (stages * n * itemsize + red_warps * 12) + per * vec * lanes * 4
+    return groups * (stages * 2 * n * itemsize + red_warps * 4)
+
+
+def _row_plan(kernel: str, m: int, n: int, itemsize: int, words: int, sms: int, blocks_per_sm: int) -> RowPlan:
+    lanes, vec, per = _row_split(n, words)
+    threads = max(128, lanes)
+    for stages in (2, 1):
+        smem = _row_smem(kernel, n, itemsize, lanes, vec, per, stages)
+        if smem <= _SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"{kernel}: a row of {n} channels does not fit one block's shared memory")
+    if blocks_per_sm < 1:
+        raise ValueError(f"{kernel}: the instance for {n} channels fits no SM")
+    groups = threads // lanes
+    grid = min(-(-m // groups), sms * blocks_per_sm)
+    return RowPlan(lanes, lanes // 32, vec, per, threads, groups, stages, smem, blocks_per_sm, grid)
+
+
+@functools.lru_cache(maxsize=512)
+def rmsnorm_quant_plan(m: int, c: int, dtype: torch.dtype = torch.bfloat16, sms: int = H100_SMS,
+                       blocks_per_sm: int = 1) -> RowPlan:
+    """The plan of :func:`fused_rmsnorm_quant` for ``m`` rows of width ``c``
+    in ``dtype`` on a card of ``sms`` SMs that each host ``blocks_per_sm``
+    blocks of the plan's instance (the wrapper reads both from the card:
+    :func:`row_quant_plan`). A warp a row while a lane holds at most 48
+    values of x (C 1536), wider rows over more warps; the gain in shared
+    memory. The split (lanes, vec, per) depends on ``c`` alone, and so does
+    the order in which the kernel and :func:`fused_rmsnorm_quant_plain` add
+    the squares. Raises ``ValueError`` outside C a multiple of 8 up to 8192,
+    ``TypeError`` for another dtype."""
+    itemsize = _row_itemsize(dtype, "rmsnorm_quant")
+    if m < 1 or c < 8 or c % 8 or c > _MAX_NORM_C:
+        raise ValueError(f"rmsnorm_quant takes M >= 1 and C a multiple of 8 up to {_MAX_NORM_C}, got M={m}, C={c}")
+    return _row_plan("rmsnorm_quant", m, c, itemsize, _NORM_X_WORDS, sms, blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=512)
+def silu_quant_plan(m: int, fp: int, dtype: torch.dtype = torch.bfloat16, sms: int = H100_SMS,
+                    blocks_per_sm: int = 1) -> RowPlan:
+    """The plan of :func:`fused_silu_quant` for ``m`` rows of ``2 fp``
+    inputs in ``dtype`` on a card of ``sms`` SMs that each host
+    ``blocks_per_sm`` blocks of the plan's instance (as
+    :func:`rmsnorm_quant_plan`): a warp a row while a lane holds at most 64
+    values of t (F' 2048), wider rows over more warps. Raises ``ValueError``
+    outside F' a multiple of 8 up to 16384, ``TypeError`` for another
+    dtype."""
+    itemsize = _row_itemsize(dtype, "silu_quant")
+    if m < 1 or fp < 8 or fp % 8 or fp > _MAX_SILU_FP:
+        raise ValueError(f"silu_quant takes M >= 1 and F' a multiple of 8 up to {_MAX_SILU_FP}, got M={m}, F'={fp}")
+    return _row_plan("silu_quant", m, fp, itemsize, _SILU_T_WORDS, sms, blocks_per_sm)
+
+
+_ROW_PLANS = {"rmsnorm_quant": rmsnorm_quant_plan, "silu_quant": silu_quant_plan}
+_OCCUPANCY: Dict[tuple, Tuple[int, int]] = {}
+
+
+def _occupancy(kernel: str, n: int, dtype: torch.dtype, dev: torch.device) -> Tuple[int, int]:
+    """(SMs, blocks of the instance one SM hosts) on ``dev``, asked of the
+    card once per instance and card."""
+    key = (kernel, n, dtype, dev.index)
+    occ = _OCCUPANCY.get(key)
+    if occ is None:
+        with torch.cuda.device(dev):
+            blocks = row_quant_attributes(kernel, _ROW_PLANS[kernel](1, n, dtype), n, dtype)["blocks_per_sm"]
+            occ = _OCCUPANCY[key] = (torch.cuda.get_device_properties(dev).multi_processor_count, blocks)
+    return occ
+
+
+def row_quant_plan(kernel: str, m: int, n: int, dtype: torch.dtype, dev: torch.device) -> RowPlan:
+    """The plan the wrapper of ``kernel`` ("rmsnorm_quant" with ``n = C``,
+    or "silu_quant" with ``n = F'``) launches for ``m`` rows on the card
+    ``dev``: one wave of the blocks its instance fits there."""
+    return _ROW_PLANS[kernel](m, n, dtype, *_occupancy(kernel, n, dtype, dev))
+
+
+def row_quant_attributes(kernel: str, plan: RowPlan, n: int, dtype: torch.dtype) -> dict:
+    """The kernel instance of ``plan`` (``kernel`` "rmsnorm_quant" with
+    ``n = C``, or "silu_quant" with ``n = F'``) on the current card:
+    registers and spill bytes a thread, blocks one SM hosts, and shared
+    memory a block."""
+    out = (ctypes.c_int * 4)()
+    err = _fn(f"vitok_{kernel}_attributes")(n, _DTYPE_CODES[dtype], plan.lanes, plan.vec, plan.per, plan.stages, out)
+    _check(err, kernel, "attributes")
+    return dict(registers=out[0], spill_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
 # ---------------------------------------------------------------------------
 # Launch helpers
 # ---------------------------------------------------------------------------
 
-# Row kernels: threads per row and the most 8-element chunks a thread holds
-# (the sources' kNormThreads / kSiluThreads and their largest instance).
-_NORM_THREADS = 128
-_SILU_THREADS = 256
-_MAX_ROW_CHUNKS = 8
-
 _ARGTYPES = {  # C entry point: (library, argument types)
-    "vitok_rmsnorm_quant_bf16": ("rmsnorm_quant", "ppppiifp"),
+    "vitok_rmsnorm_quant": ("rmsnorm_quant", "ppppiifiiiiiiip"),
+    "vitok_rmsnorm_quant_attributes": ("rmsnorm_quant", "iiiiiip"),
     "vitok_ffn_int8": ("ffn_int8", "ppppppiiiiiip"),
     "vitok_ffn_int8_attributes": ("ffn_int8", "iiiip"),
-    "vitok_silu_quant_bf16": ("silu_quant", "pppiip"),
+    "vitok_silu_quant": ("silu_quant", "pppiiiiiiiiip"),
+    "vitok_silu_quant_attributes": ("silu_quant", "iiiiiip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_FNS: Dict[str, object] = {}
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -494,8 +687,22 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _fn(fn_name: str):
+    """A C entry point, its argument types set, looked up once."""
+    fn = _FNS.get(fn_name)
+    if fn is None:
+        fn = _FNS[fn_name] = getattr(_lib(_ARGTYPES[fn_name][0]), fn_name)
+    return fn
+
+
+def _check(err: int, lib_name: str, what: str) -> None:
+    if err:
+        _build.check(_lib(lib_name), err, f"{lib_name} {what}")
+
+
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _require_cpu(t: torch.Tensor, what: str) -> None:
@@ -503,11 +710,20 @@ def _require_cpu(t: torch.Tensor, what: str) -> None:
         raise RuntimeError(f"no {what} kernel for device {t.device}")
 
 
-def _require_bf16_rows(x: torch.Tensor, what: str) -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the {what} CUDA kernel takes bfloat16, got {x.dtype}")
+def _require_rows(x: torch.Tensor, what: str) -> None:
+    """The row kernels' input: bf16 or fp32, contiguous, 16-byte aligned."""
+    _row_itemsize(x.dtype, what)
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: input must be contiguous and 16-byte aligned")
+
+
+def _gain(scale: torch.Tensor, dev: torch.device, c: int) -> torch.Tensor:
+    """#9's gain as the kernel reads it: the tensor itself where it already
+    is a contiguous, 16-byte aligned fp32 ``[C]`` on ``dev``."""
+    if (scale.dtype == torch.float32 and scale.device == dev and scale.shape == (c,) and scale.is_contiguous()
+            and scale.data_ptr() % 16 == 0):
+        return scale
+    return _aligned(_on(scale, dev, (c,), "scale").float().contiguous())
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
