@@ -2268,7 +2268,10 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
     body); #1, #10, #11 and #13 in fp32 the fp32 walker with one cell a block
     (W), itself within AB_F32_MAX_REL of the fp32 instance of the mma.sync
     forward (FMA, kept off the main path); #12 (on the assembled tensor) the
-    mma.sync forward. Each against its plain version, the mma.sync forward
+    redesigned forward, with its own times (with the host ahead, the kernel
+    alone at its plan's split and at every split of up to four images, the
+    int8 prologue alone, the chain it replaces: assemble + the redesigned
+    forward). Each against its plain version, the mma.sync forward
     too; times beside bounds, SDPA and the redesigned forward (bf16) or the
     FMA instance (fp32), with device times, the walkers alone (bf16: on the
     prologue's k) for #10's arm D2, #11 and #13, and the q/k prologue's (k
@@ -2294,7 +2297,7 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
     gen = torch.Generator(device=device).manual_seed(10)
     rows = []
     log("kernel phase: A/B kernels (fused_attention_ab_sm90.cu for #10, #11 and #13 in bf16, "
-        "fused_attention_ab_f32_sm90.cu for #1, #10, #11 and #13 in fp32, fused_attention_ab.cu for #12) vs "
+        "fused_attention_ab_f32_sm90.cu for #1, #10, #11 and #13 in fp32, fused_attention_q8in_sm90.cu for #12) vs "
         "the forward whose body each runs (bit for bit) and vs their plain versions; the mma.sync forward's "
         "instances vs their plain version")
     for label, b, n, c, h, dtype, mask_kind in shapes:
@@ -2347,7 +2350,8 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
                                     for bb in (1, 2, 4) if b % bb == 0 for hpb in range(1, h + 1) if h % hpb == 0}
         else:  # the redesigned forward, its prologue and its wgmma kernel alone beside the arms
             row["redesigned_max_abs_vs_mma"] = (new_ref.float() - ref.float()).abs()[valid].max().item()
-            row.update(redesigned_ms=time_ms(new), redesigned_device_ms=device_ms(new))
+            row.update(redesigned_ms=time_ms(new), redesigned_device_ms=device_ms(new),
+                       redesigned_host_ahead_ms=host_ahead_ms(new))  # #12's yardstick: both by the same clock
             # the prologue as #1, #10, #11 and #13 run it (k alone), and with q, the rejected way to feed the walkers
             prologue = lambda with_q: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, with_q=with_q)
             row.update(prologue_qk_ms=time_ms(lambda: prologue(True)), prologue_k_ms=time_ms(lambda: prologue(False)))
@@ -2402,23 +2406,34 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
             row["contig_device_ms"] = device_ms(call)
             row["contig_kernel_ms"] = time_ms(lambda: walk())
             del kn
-        # #12, bf16 only
+        # #12, bf16 only: the int8 prologue (k), then the walk over int8 q and v tiles
         if not f32:
             codes, scale = ab8.quantize_qkv(qkv)
             q8args = (codes, scale, qs, ks, cos, sin, mask)
             call = lambda: ab8.fused_attention_q8in(*q8args, num_heads=h)
-            got = _one_launch("fused_attention_q8in", call)
-            assembled = ab8.assemble_q8in(codes, scale)
-            chain = lambda: fa.fused_qkv_attention_mma(ab8.assemble_q8in(codes, scale), qs, ks, cos, sin, mask,
-                                                       num_heads=h)
-            if not torch.equal(got, fa.fused_qkv_attention_mma(assembled, qs, ks, cos, sin, mask, num_heads=h)):
-                raise AssertionError(f"fused_attention_q8in at {label}: not bit-identical to the mma.sync forward "
+            got = _one_launch("fused_attention_q8in_prologue", lambda: _one_launch("fused_attention_q8in", call))
+            # the chain it replaces: assemble the bf16 tensor, then the redesigned forward (X)
+            chain = lambda: fa.fused_qkv_attention(ab8.assemble_q8in(codes, scale), qs, ks, cos, sin, mask,
+                                                   num_heads=h, impl="fused")
+            if not torch.equal(got, chain()):
+                raise AssertionError(f"fused_attention_q8in at {label}: not bit-identical to the redesigned forward "
                                      "on the assembled tensor")
             q8plain = lambda: ab8.fused_attention_q8in_plain(*q8args, num_heads=h)
             errs["fused_attention_q8in"] = _check_ab(f"q8in {label}", got, q8plain(), valid, False)
-            del got, assembled
-            row.update(q8in_ms=time_ms(call), q8in_plain_ms=time_ms(q8plain, runs=3, warmup=1),
-                       dequantize_plus_fused_ms=time_ms(chain))
+            del got
+            split = ab8.q8in_plan(b, n, c, h, fa._sm_count(device.index) if device.type == "cuda" else 132)
+            prologue8 = lambda: ab8.q8in_k_prologue(codes, ks, cos, sin, num_heads=h)
+            kn8 = prologue8()
+            walk8 = lambda bb, hpb: ab8.walk_q8in(codes, scale, kn8, qs.float(), cos.float(), sin.float(), mask, h,
+                                                  bb=bb, hpb=hpb)
+            row.update(q8in_ms=time_ms(call), q8in_device_ms=host_ahead_ms(call),
+                       q8in_kernel_ms=time_ms(lambda: walk8(*split)), q8in_prologue_ms=time_ms(prologue8),
+                       q8in_plain_ms=time_ms(q8plain, runs=3, warmup=1), q8in_chain_ms=time_ms(chain),
+                       q8in_split=split)
+            # the kernel alone at every split of up to four images: what q8in_plan is held to
+            row["q8in_splits_ms"] = {f"{bb}x{hpb}": time_ms(lambda: walk8(bb, hpb))
+                                     for bb in (1, 2, 4) if b % bb == 0 for hpb in range(1, h + 1) if h % hpb == 0}
+            del kn8
             row["q8in_bound_ms"], row["q8in_bound_by"] = _ab_bound(b, n, c, h, mask, 2, in_bytes=3 * c + 4)
         row["max_abs_err"] = errs
         rows.append(row)
@@ -2441,8 +2456,13 @@ def ab_kernel_phase(device, shapes=AB_SHAPES) -> dict:
             + (f", walker alone {row['contig_kernel_ms']:.4f}" if not f32 else
                f", profiler {row['contig_device_ms_profiler'][0]:.4f} from {row['contig_device_ms_profiler'][1]} of 5 "
                f"records") + f"); arms (ms): {arms}"
-            + (f"; q8in {row['q8in_ms']:.4f} (plain {row['q8in_plain_ms']:.4f}, dequantize + fused "
-               f"{row['dequantize_plus_fused_ms']:.4f}, bound {row['q8in_bound_ms']:.5f})" if not f32 else ""))
+            + (f"; q8in {row['q8in_ms']:.4f} (dev {row['q8in_device_ms']:.4f}, kernel alone at split bb, hpb "
+               f"{row['q8in_split']} {row['q8in_kernel_ms']:.4f}, int8 prologue {row['q8in_prologue_ms']:.4f}, plain "
+               f"{row['q8in_plain_ms']:.4f}, assemble + redesigned {row['q8in_chain_ms']:.4f}, the redesigned "
+               f"forward with the host ahead {row['redesigned_host_ahead_ms']:.4f}, bound "
+               f"{row['q8in_bound_ms']:.5f}; kernel alone by split bbxhpb: "
+               + ", ".join(f"{k} {v:.4f}" for k, v in sorted(row["q8in_splits_ms"].items(), key=lambda kv: kv[1]))
+               + ")" if not f32 else ""))
         log(f"    max |err| vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
         del qkv, plain, ref, new_ref
         torch.cuda.empty_cache()
@@ -2464,7 +2484,7 @@ def ab_entry_phase(device) -> dict:
     timed runs (``AB_ENTRY_ARGS``): every arm builds, every numeric leg reads
     0 against the reference it names (in bf16 every arm but B the redesigned
     forward, X, as C of ab_q8_input; in fp32 the fp32 walker with one cell a
-    block, W; A the mma.sync forward on the assembled tensor), the
+    block, W; A X on the assembled tensor), the
     reference's row is within its limit of arm B (X: #1's; W: AB_F32_MAX_REL
     of B's largest entry), and each kernel is launched exactly as often as
     the runs call it. Neither entry point runs #13 in fp32 (ab_q8_input is
@@ -2498,7 +2518,7 @@ def ab_entry_phase(device) -> dict:
     log(f"entry point: python -m vitok_torch.benchmarks.ab_q8_input {' '.join(flags)}")
     res = ab8.main([*flags, "--device", device.type])
     if (res["numeric"]["A_assembled"] != 0.0 or res["numeric"]["C"] != 0.0
-            or not res["references"]["C"].startswith("X")):
+            or not res["references"]["C"].startswith("X") or not res["references"]["A_assembled"].startswith("X")):
         raise AssertionError(f"ab_q8_input numeric legs {res['numeric']}, references {res['references']}")
     _check_reference_row("ab_q8_input", res, True)
     runs["ab_q8_input"] = res
@@ -2517,19 +2537,21 @@ def ab_entry_phase(device) -> dict:
     # per ab_batch_block run: B on the mma.sync forward (its FMA instance in fp32), nine arms on #10
     # and P2 on #11 (bf16: the wgmma walker after the q/k prologue; fp32: the fp32 walker), and the
     # reference: in bf16 the redesigned forward's row, in fp32 one call of the fp32 walker with one
-    # cell a block; ab_q8_input: one arm each (C after the prologue), the mma.sync forward once more
-    # on the assembled tensor, and the redesigned forward's row; then #13 in fp32
+    # cell a block; ab_q8_input: one arm each (A after its int8 prologue, C after the prologue), the
+    # redesigned forward once more on the assembled tensor, and the redesigned forward's row; then
+    # #13 in fp32
     bf16_runs = sum(dtype == "bfloat16" for dtype, _, _ in runs_at)
     f32_bb_runs = len(runs_at) - bf16_runs
     walkers = bf16_runs * 10 * per_arm + per_arm  # the bf16 #10, #11 and #13 launches, each after a prologue
     expect = _expect(fused_attention_bb=bf16_runs * 9 * per_arm, fused_attention_pack=bf16_runs * per_arm,
                      fused_attention_bb_f32=f32_bb_runs * (9 * per_arm + 1),
                      fused_attention_pack_f32=f32_bb_runs * per_arm,
-                     fused_attention_mma=bf16_runs * per_arm + per_arm + 1,
+                     fused_attention_mma=bf16_runs * per_arm + per_arm,
                      fused_attention_mma_f32=f32_bb_runs * per_arm,
-                     fused_attention=(bf16_runs + 1) * per_arm, fused_attention_q8in=per_arm,
+                     fused_attention=(bf16_runs + 1) * per_arm + 1, fused_attention_q8in=per_arm,
+                     fused_attention_q8in_prologue=per_arm,
                      fused_attention_contig=per_arm, fused_attention_contig_f32=len(f32_runs) * layers,
-                     fused_qk_prologue=(bf16_runs + 1) * per_arm + walkers)
+                     fused_qk_prologue=(bf16_runs + 1) * per_arm + 1 + walkers)
     if launches != expect:
         raise AssertionError(f"A/B entry points: launches {launches}, expected {expect}")
     log(f"  launches: {dict((k, v) for k, v in launches.items() if v)}")
@@ -2639,8 +2661,11 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     #13 in bf16 with their device times, the walkers alone on the prologue's
     k, the q/k prologue they run first, and the walker instances' registers,
     spills and blocks an SM), of #10, #11 and #13 in fp32 on the fp32 walker
-    (times at the recorded fp32 shape, N = 64, B = 256), of the mma.sync
-    forward #12 shares a body with (times at the 512p main shape, as #1's),
+    (times at the recorded fp32 shape, N = 64, B = 256), of #12 (the int8
+    prologue and the walk over int8 q and v tiles: its device time, the
+    kernel alone at its plan's split and at every split, the prologue alone,
+    the chain it replaces as its library column, the 350M width beside it),
+    of the mma.sync forward (arm B; times at the 512p main shape, as #1's),
     of the fp32 forward #1 on the fp32 walker (the recorded fp32 shape, and
     the 350M fp32 shape beside it) and of the kept FMA instance of the
     mma.sync forward (the same shapes); launches from the A/B entry points'
@@ -2648,12 +2673,13 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     bf = next(r for r in abkern["rows"] if r["shape"] == "5B@256t bf16")
     f32 = next(r for r in abkern["rows"] if r["shape"] == "5B@64t fp32")
     f32_350m = next(r for r in abkern["rows"] if r["shape"] == "350M@256t fp32")
+    q8_350m = next(r for r in abkern["rows"] if r["shape"] == "350M@256t bf16")
     errs = {}
     for r in abkern["rows"]:
         for k, v in r["max_abs_err"].items():
             errs[k] = max(errs.get(k, 0.0), v)
     launches = ab_runs["launches"]
-    src = "vitok_torch/csrc/fused_attention_ab.cu"
+    src = "vitok_torch/csrc/fused_attention_q8in_sm90.cu"
     src_sm90, src_f32 = "vitok_torch/csrc/fused_attention_ab_sm90.cu", "vitok_torch/csrc/fused_attention_ab_f32_sm90.cu"
     bb, pack, bb32, pack32 = bf["arms"]["D2"], bf["arms"]["P2"], f32["arms"]["D2"], f32["arms"]["P2"]
     head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
@@ -2695,9 +2721,20 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     }, {
         "name": "fused_attention_q8in", "route": "cuda", "source": src,
         "replaces": "benchmarks/ab_q8_input.py:64", "launches": launches["fused_attention_q8in"],
-        "max_abs_err": errs["fused_attention_q8in"], "ms": bf["q8in_ms"], "plain_ms": bf["q8in_plain_ms"],
-        "bound_ms": bf["q8in_bound_ms"], "bound_by": bf["q8in_bound_by"], "library_ms": None,
-        "dequantize_plus_fused_ms": bf["dequantize_plus_fused_ms"],  # #1 on the assembled tensor
+        "prologue_launches": launches["fused_attention_q8in_prologue"],  # the q/k prologue's int8 instance
+        "max_abs_err": errs["fused_attention_q8in"], "ms": bf["q8in_ms"], "device_ms": bf["q8in_device_ms"],
+        "kernel_ms": bf["q8in_kernel_ms"], "prologue_ms": bf["q8in_prologue_ms"], "split": bf["q8in_split"],
+        "splits_ms": bf["q8in_splits_ms"], "plain_ms": bf["q8in_plain_ms"],
+        "bound_ms": bf["q8in_bound_ms"], "bound_by": bf["q8in_bound_by"],
+        "library_ms": bf["q8in_chain_ms"],  # no one library call: assemble + the redesigned forward, which it replaces
+        "redesigned_forward_ms": bf["redesigned_ms"], "redesigned_forward_device_ms": bf["redesigned_host_ahead_ms"],
+        "attributes": attributes("q8in"),
+        **{k + "_350m": q8_350m[k2] for k, k2 in (("ms", "q8in_ms"), ("device_ms", "q8in_device_ms"),
+                                                 ("kernel_ms", "q8in_kernel_ms"), ("prologue_ms", "q8in_prologue_ms"),
+                                                 ("library_ms", "q8in_chain_ms"), ("bound_ms", "q8in_bound_ms"),
+                                                 ("redesigned_forward_ms", "redesigned_ms"),
+                                                 ("redesigned_forward_device_ms", "redesigned_host_ahead_ms"),
+                                                 ("split", "q8in_split"), ("splits_ms", "q8in_splits_ms"))},
     }, {
         "name": "fused_attention_contig", "route": "cuda", "source": src_sm90,
         "replaces": "benchmarks/ab_q8_input.py:164", "launches": launches["fused_attention_contig"],
@@ -2761,7 +2798,7 @@ PORT_KERNEL_GROUPS = {
     "fused_attention_bb_f32_sm90_kernel": "fused_attention_bb_f32",
     "fused_attention_pack_sm90_kernel": "fused_attention_pack",
     "fused_attention_pack_f32_sm90_kernel": "fused_attention_pack_f32",
-    "fused_attention_q8in_kernel": "fused_attention_q8in",
+    "fused_attention_q8in_sm90_kernel": "fused_attention_q8in",
     "fused_attention_contig_sm90_kernel": "fused_attention_contig",
     "fused_attention_contig_f32_sm90_kernel": "fused_attention_contig_f32",
 }
@@ -2938,7 +2975,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
     _build.build(["fused_attention_sm90", "fused_attention", "fused_attention_bwd", "flash_attention",
-                  "flash_attention_bwd", "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_ab",
+                  "flash_attention_bwd", "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_q8in_sm90",
                   "fused_attention_ab_sm90", "fused_attention_ab_f32_sm90"])  # the last: the fp32 walker
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")

@@ -266,15 +266,18 @@ class TestEntryPoints:
         result = t_q8.main(["--c", "256", "--heads", "2", "--tokens", "64", "--batch", "2",
                             "--iters", "1", "--layers", "1", "--device", "cpu"])
         out = capsys.readouterr().out
-        assert "max|A-B(assembled)|=0.000000" in out and "max|C-X|=0.000000" in out
+        assert "max|A-X(assembled)|=0.000000" in out and "max|C-X|=0.000000" in out
         assert result["numeric"]["A_assembled"] == 0.0 and result["numeric"]["C"] == 0.0
-        # C runs the redesigned forward's body and is held to it; A to the mma.sync forward
+        # A and C run the redesigned forward's body and are held to it (A on the assembled tensor); A's
+        # quantization leg to the mma.sync forward on the bf16 qkv
         assert result["references"]["C"].startswith("X: the redesigned forward")
+        assert result["references"]["A_assembled"].startswith("X on the assembled tensor")
         assert result["references"]["A"].startswith("B: ") and set(result["references"]) == set(result["numeric"])
         assert 0.0 < result["numeric"]["A"] < 0.1  # the input quantization
         for name in ("A", "B", "C"):
             assert f"\n{name} (" in out
-        assert "delta A/B" in out and "delta C/B" in out
+        assert "delta A/B" in out and "delta C/B" in out and "delta A/redesigned" in out
+        assert result["arms"]["A"]["delta_vs_redesigned"] > 0
 
     def test_a_split_the_kernels_refuse_is_skipped(self, capsys):
         result = t_bb.main(["--c", "256", "--heads", "4", "--tokens", "64", "--batch", "2",

@@ -1160,12 +1160,13 @@ class TestFp32ForwardOnCard:
 
 @pytest.mark.cuda
 class TestABKernelsOnCard:
-    """The A/B kernels hold the bits of the forward whose body they run: #12
-    (on the assembled tensor) the mma.sync forward's
-    (``csrc/fused_attention_ab.cu``, body ``fused_attend.cuh``); #10, #11
-    (on images with a valid key) and #13 in bf16 the redesigned forward's
-    (``csrc/fused_attention_ab_sm90.cu``, the wgmma body of
-    ``fused_attend_sm90.cuh``, after the q/k prologue); #10, #11 and #13 in
+    """The A/B kernels hold the bits of the forward whose body they run: #10,
+    #11 (on images with a valid key) and #13 in bf16 the redesigned
+    forward's (``csrc/fused_attention_ab_sm90.cu``, the wgmma body of
+    ``fused_attend_sm90.cuh``, after the q/k prologue), and so does #12 on
+    the assembled tensor (``csrc/fused_attention_q8in_sm90.cu``, a walk of
+    that body over int8 q and v tiles, after the q/k prologue's int8
+    instance); #10, #11 and #13 in
     fp32 those of the fp32 walker with one cell a block
     (``csrc/fused_attention_ab_f32_sm90.cu``, ``fused_attend_f32_sm90.cuh``),
     which is within 1e-5 of the largest entry of the FMA forward. Each is
@@ -1332,21 +1333,59 @@ class TestABKernelsOnCard:
                 assert 0 < a["registers"] <= 255 and a["blocks_per_sm"] >= 1 and a["smem_bytes"] > 0
 
     @pytest.mark.parametrize("d,heads", [(64, 4), (128, 2)])
+    @pytest.mark.parametrize("n", [64, 200, 256, 1024])
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 24)])
-    def test_int8_input_equals_the_forward_on_the_assembled_tensor(self, cuda_device, d, heads, case, sw):
-        qkv, *rest = ab_inputs(cuda_device, torch.bfloat16, d=d, heads=heads, case=case)
+    def test_int8_input_equals_the_forward_on_the_assembled_tensor(self, cuda_device, d, heads, n, case, sw):
+        """#12: the int8 prologue, then the walk over int8 q and v tiles, at
+        ``q8in_plan``'s split; the redesigned forward's bits on the assembled
+        tensor on every row, and within #1's limits of the plain version."""
+        qkv, *rest = ab_inputs(cuda_device, torch.bfloat16, n=n, d=d, heads=heads, case=case)
         codes, scale = t_ab8.quantize_qkv(qkv)
-        before = t_ab8.LAUNCHES["fused_attention_q8in"]
+        before, fa_before = dict(t_ab8.LAUNCHES), counts()
         got = t_ab8.fused_attention_q8in(codes, scale, *rest, num_heads=heads, sliding_window=sw)
-        assert t_ab8.LAUNCHES["fused_attention_q8in"] == before + 1
+        assert t_ab8.LAUNCHES == {**before, "fused_attention_q8in": before["fused_attention_q8in"] + 1,
+                                  "fused_attention_q8in_prologue": before["fused_attention_q8in_prologue"] + 1}
+        assert counts() == fa_before
         assembled = t_ab8.assemble_q8in(codes, scale)
-        assert torch.equal(got, self._forward(assembled, rest, heads, sw))
+        assert torch.equal(got, self._redesigned(assembled, rest, heads, sw))
         want = t_ab8.fused_attention_q8in_plain(codes, scale, *rest, num_heads=heads, sliding_window=sw)
+        self._assert_bf16_close(got, want, rest[-1])
+
+    @pytest.mark.parametrize("d,heads", [(64, 4), (128, 2)])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", 24)])
+    @pytest.mark.parametrize("bb,hpb", [(1, 1), (2, 2), (4, 1), (1, 2)])
+    def test_int8_input_splits_equal_the_forward(self, cuda_device, d, heads, case, sw, bb, hpb):
+        """Every split of the int8-input kernel gives the redesigned forward's
+        bits on the assembled tensor; the int8 prologue gives the bf16
+        prologue's bits on bf16(code)."""
+        qkv, *rest = ab_inputs(cuda_device, torch.bfloat16, n=200, d=d, heads=heads, case=case)
+        codes, scale = t_ab8.quantize_qkv(qkv)
+        qs, ks, cos, sin, mask = rest
+        kn = t_ab8.q8in_k_prologue(codes, ks, cos, sin, num_heads=heads)
+        assembled = t_ab8.assemble_q8in(codes, scale)
+        kn_bf16, _ = t_fa.fused_qk_prologue(assembled, qs, ks, cos, sin, num_heads=heads, with_q=False)
+        assert torch.equal(kn, kn_bf16)
+        got = t_ab8.walk_q8in(codes, scale, kn, qs, cos, sin, mask, heads, bb=bb, hpb=hpb,
+                              sw=-1 if sw is None else sw)
+        assert torch.equal(got, self._redesigned(assembled, rest, heads, sw))
+
+    def test_int8_input_refuses_n_not_a_multiple_of_8(self, cuda_device):
+        qkv, *rest = ab_inputs(cuda_device, torch.bfloat16, n=60)
+        codes, scale = t_ab8.quantize_qkv(qkv)
+        before, fa_before = dict(t_ab8.LAUNCHES), counts()
+        with pytest.raises(ValueError, match="multiple of 8"):
+            t_ab8.fused_attention_q8in(codes, scale, *rest, num_heads=2)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        if rest[-1] is not None:
-            err = err[rest[-1]]
-        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+        assert t_ab8.LAUNCHES == before and counts() == fa_before
+
+    def test_int8_input_kernel_fits_two_blocks_an_sm_without_spills(self, cuda_device):
+        from vitok_torch.benchmarks import sm90_attributes
+
+        for d, blocks in ((64, 3), (128, 2)):
+            for bb in (1, 4):
+                a = sm90_attributes(d, "q8in", bb=bb)
+                assert a["smem_bytes"] == t_ab8.q8in_smem_bytes(d, bb)
+                assert a["blocks_per_sm"] >= blocks and a["local_bytes"] == 0, (d, bb, a)
 
     def test_kernels_refuse_what_they_do_not_take(self, cuda_device):
         qkv, *rest = ab_inputs(cuda_device, torch.bfloat16)

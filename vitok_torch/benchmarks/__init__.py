@@ -6,7 +6,8 @@ is a hand-written Hopper kernel beside its plain PyTorch version: in bf16 the
 batch-block, pack and contig variants run the wgmma walker
 (``vitok_torch/csrc/fused_attention_ab_sm90.cu``), in fp32 the fp32 walker
 (``fused_attention_ab_f32_sm90.cu``, which the fp32 forward runs too), and
-the int8-input variant the mma.sync body (``fused_attention_ab.cu``). Each
+the int8-input variant a walk of its own over the same wgmma body, its q and
+v tiles arriving as codes (``fused_attention_q8in_sm90.cu``). Each
 module's ``main()`` takes the JAX script's flags (plus ``--device``) and
 builds, checks and times the same arms:
 
@@ -54,14 +55,18 @@ def pick_group_channels(c: int, d: int, n: int) -> int:
     return best
 
 
-def kernel_lib() -> ctypes.CDLL:
-    """``csrc/fused_attention_ab.cu`` (the int8-input kernel), built on first
-    use."""
-    lib = _build.load("fused_attention_ab")
-    fn = lib.vitok_fused_attention_q8in
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+def q8in_lib() -> ctypes.CDLL:
+    """``csrc/fused_attention_q8in_sm90.cu`` (the int8-input kernel on the
+    wgmma body), built on first use."""
+    lib = _build.load("fused_attention_q8in_sm90")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+        (lib.vitok_fused_attention_q8in_sm90, [ptr] * 8 + [i] * 7 + [ptr]),
+        (lib.vitok_fused_attention_q8in_sm90_attributes, [i] * 2 + [ptr]),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -127,9 +132,10 @@ def walk_f32(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, co
     return fa._walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, bb=bb, hpb=hpb, sw=sw, kind=kind)
 
 
-# The walker kernels: the bf16 contig, pack and batch-block kernels, and the
-# fp32 ones (the fp32 forward's, then #10, #11 and #13 in fp32).
-WALKER_KINDS = ("contig", "pack", "bb") + tuple(k + "_f32" for k in fa.F32_WALK_KINDS)
+# The walker kernels: the bf16 contig, pack and batch-block kernels, the
+# int8-input kernel, and the fp32 ones (the fp32 forward's, then #10, #11 and
+# #13 in fp32).
+WALKER_KINDS = ("contig", "pack", "bb", "q8in") + tuple(k + "_f32" for k in fa.F32_WALK_KINDS)
 
 
 def sm90_attributes(d: int, kind: str, bb: int = 1) -> dict:
@@ -140,8 +146,12 @@ def sm90_attributes(d: int, kind: str, bb: int = 1) -> dict:
     if kind.endswith("_f32"):
         return fa.f32_walk_attributes(d, kind[:-len("_f32")], bb)
     out = (ctypes.c_int * 4)()
-    lib = sm90_lib()
-    err = lib.vitok_fused_attention_ab_sm90_attributes(d, ("contig", "pack", "bb").index(kind), bb, out)
+    if kind == "q8in":
+        lib = q8in_lib()
+        err = lib.vitok_fused_attention_q8in_sm90_attributes(d, bb, out)
+    else:
+        lib = sm90_lib()
+        err = lib.vitok_fused_attention_ab_sm90_attributes(d, ("contig", "pack", "bb").index(kind), bb, out)
     _build.check(lib, err, f"{kind} walker attributes")
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
@@ -283,6 +293,6 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor, rows: Optional[torch.Tensor] 
     return float((d if rows is None else d[rows]).max())
 
 
-__all__ = ["pick_group_channels", "kernel_lib", "sm90_lib", "walk_sm90", "walk_f32", "WALKER_KINDS",
+__all__ = ["pick_group_channels", "q8in_lib", "sm90_lib", "walk_sm90", "walk_f32", "WALKER_KINDS",
            "sm90_attributes", "check_device", "card_line", "resolve_device", "rope_inputs", "chained_ms",
            "host_ahead_ms", "host_us", "profiler_records", "max_abs_diff"]

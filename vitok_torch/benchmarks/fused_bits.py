@@ -7,7 +7,12 @@ of the ``vitok_torch`` under ``--root`` on seeded inputs at the 350M and 5B
 widths (with and without a tail mask and a window); at the 350M width and
 the recorded A/B shape (B 64, N 256) the A/B kernels #10 (arm D2's split:
 two images and half the heads a block, with the window), #11 (the pack,
-P2's split; no window) and #13 (all heads of a tile), bf16; and at the
+P2's split; no window) and #13 (all heads of a tile), bf16, and the
+int8-input kernel #12 on the codes and scales of the same qkv (each tree's
+#12 also against that tree's own redesigned forward and mma.sync forward on
+the assembled tensor: a #12 on the wgmma body holds the redesigned
+forward's bits, one on the mma.sync body the mma.sync forward's, so across
+such trees its bits differ by design); and at the
 recorded fp32 A/B shape (B 256, N 64, C 3072) the fp32 instances of #1 and
 #13 and #10 (D2) and #11 (P2) in fp32; and at the high-resolution flash
 shapes (350M at 1024p and 2048p, the 5B width; no mask, or a tail and
@@ -34,7 +39,7 @@ with the earlier run's (each is its plain version's exactly); the rest, which a
 checkout may compute on another kernel with the same rounding points, by
 their largest distance (valid rows) and rel L2 against the limits
 ``chip_smoke.py`` holds them to against their plain versions (bf16 #1,
-#10, #11, #13 and 1 mma: 2e-2 absolute; #3 and the unfused branch's gradients: 4e-2
+#10, #11, #12, #13 and 1 mma: 2e-2 absolute; #3 and the unfused branch's gradients: 4e-2
 of each gradient's largest entry, 3e-2 for the gains; fp32: 1e-5 of the
 largest entry; #4 and the fold: the flash limits, 8e-3 max and 2e-4 mean
 absolute on valid rows, the log-sum-exp within 1e-3 on live rows and +1e30
@@ -47,7 +52,8 @@ change, parent):
     python vitok_torch/benchmarks/fused_bits.py --root . --save /tmp/c.pt --against /tmp/p.pt
 
 Exits 1 if #2 differs from the quantized #1, #7, #8 or #9 from the
-earlier run's, or any other output is past its limit. Needs a card.
+earlier run's, #12 from both of its tree's forwards on the assembled tensor,
+or any other output is past its limit. Needs a card.
 """
 
 from __future__ import annotations
@@ -187,6 +193,7 @@ def main(argv=None) -> int:
         raise SystemExit("no CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     outputs, times, masks = {}, {}, {}
+    own = {}  # #12 bit for bit (this tree's redesigned forward, its mma.sync forward) on the assembled tensor
     for b, n, c, h in SHAPES:
         for case in ("none", "tail+sw"):
             fwd_args, sw, gen = _inputs(b, n, c, h, case, torch.bfloat16)
@@ -220,6 +227,16 @@ def main(argv=None) -> int:
                 for leg, (num, call) in legs.items():
                     outputs[f"{key} {leg}"] = call()
                     times[f"{key} {num}"] = _time_ms(call)
+                codes, scale = ab8.quantize_qkv(fwd_args[0])
+                q8in = lambda: ab8.fused_attention_q8in(codes, scale, *fwd_args[1:], num_heads=h, sliding_window=sw)
+                got = outputs[f"{key} q8in"] = q8in()
+                assembled = ab8.assemble_q8in(codes, scale)
+                own[key] = (torch.equal(got, fa.fused_qkv_attention(assembled, *fwd_args[1:], num_heads=h,
+                                                                    sliding_window=sw, impl="fused")),
+                            torch.equal(got, fa.fused_qkv_attention_mma(assembled, *fwd_args[1:], num_heads=h,
+                                                                        sliding_window=sw)))
+                times[f"{key} #12"] = _time_ms(q8in)
+                del codes, scale, got, assembled
     b, n, c, h = F32_SHAPE
     for case in ("none", "tail+sw"):
         fwd_args, sw, _ = _inputs(b, n, c, h, case, torch.float32)
@@ -296,6 +313,11 @@ def main(argv=None) -> int:
     del x, gain, hid
     torch.save(outputs, args.save)
     print(f"{args.root}: ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    for key, (x, mma) in own.items():
+        print(f"  {key} q8in: bit-identical to this tree's redesigned forward on the assembled tensor {x}, to its "
+              f"mma.sync forward there {mma} (#12 holds the bits of the forward whose body it runs, so between a "
+              "tree on the mma.sync body and one on the wgmma body its bits differ by design)", flush=True)
+    bad_own = [f"{key} q8in" for key, held in own.items() if not any(held)]
     if args.against:
         old = torch.load(args.against)
         as_tuple = lambda x: x if isinstance(x, (tuple, list)) else (x,)
@@ -342,7 +364,7 @@ def main(argv=None) -> int:
                   + f"; bit-identical {same[k]}", flush=True)
             bad += [k] if any(m > lim for m, _, lim in dist) else []
         groups = {"#1": " fwd", "#3": " bwd", "#2": " q8", "1 mma": " mma", "#10": " bb", "#11": " pack",
-                  "#13": " contig",
+                  "#12": " q8in", "#13": " contig",
                   "#4": " flash", "fold": " fold", "#5+#6": " fbwd", "fold bwd": " foldbwd", "#7": " ffn",
                   "#8": " silu", "#9": " norm"}
         summary = []
@@ -353,8 +375,8 @@ def main(argv=None) -> int:
                     summary.append(f"{num} {kind}: bit-identical at {sum(same[k] for k in keys)} of {len(keys)}, "
                                    f"within its limit at {sum(k not in bad for k in keys)}")
         print(f"against {args.against}: " + "; ".join(summary) + f"; past a limit: {bad}", flush=True)
-        return 1 if bad else 0
-    return 0
+        return 1 if bad or bad_own else 0
+    return 1 if bad_own else 0
 
 
 if __name__ == "__main__":

@@ -1,9 +1,8 @@
 // The body of the fused QK-RMSNorm + rotate-half RoPE + masked attention:
 // one 64-query tile of one head of one sample, read straight from the flat
-// [B, N, 3C] QKV projection output. Every kernel of the mma.sync family
-// runs it: fused_attention.cu (the forward in bf16 and fp32) and
-// fused_attention_ab.cu (the A/B kernels: int8 input, and in fp32 all heads
-// of a tile), so their results are the same bits.
+// [B, N, 3C] QKV projection output. The kernels of the mma.sync family run
+// it: fused_attention.cu (the forward in bf16 and fp32, kept off the main
+// path).
 //
 // Rounding points of the TPU kernel (vitok_tpu/ops/fused_attention.py,
 // _attend_cell and _norm_rope_half):
@@ -91,8 +90,7 @@ __device__ __forceinline__ void block_setup(const float* __restrict__ q_scale,
 // `cos_b`, `sin_b`, `mask_b` point at that sample): the result of row q0 + r
 // goes to out_rows[r * out_stride + channel], rows at or past N are not
 // written. T is the compute and output type (bf16 or fp32); Src the input
-// type: T, or int8 codes with their per-token scales `tok_b` (q and k normed
-// as raw codes, v = bf16(code * scale)).
+// type, T.
 //
 // `pack` > 1 makes the sample image `self` of a pack of images that lie one
 // after another: their keys are in every row's softmax, masked. They add
@@ -107,13 +105,9 @@ __device__ __forceinline__ void attend_tile(
     unsigned char* smem, const int* sKvEnd, const Src* __restrict__ qkv_b,
     const float* __restrict__ cos_b, const float* __restrict__ sin_b,
     const unsigned char* __restrict__ mask_b, int q0, int h, int N, int H, int sw,
-    float score_scale, T* out_rows, long long out_stride,
-    const float* __restrict__ tok_b = nullptr, int pack = 1, int self = 0) {
+    float score_scale, T* out_rows, long long out_stride, int pack = 1, int self = 0) {
   constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr bool kCodes = std::is_same<Src, int8_t>::value;
-  static_assert(kF32 ? std::is_same<Src, float>::value
-                     : (std::is_same<Src, __nv_bfloat16>::value || kCodes),
-                "bf16 reads bf16 or int8 codes; fp32 reads fp32");
+  static_assert(std::is_same<Src, T>::value, "bf16 reads bf16; fp32 reads fp32");
   using S = Smem<D, T>;
   constexpr int kRow = S::kRow;
   T* sQ = reinterpret_cast<T*>(smem + S::kQ);
@@ -207,59 +201,26 @@ __device__ __forceinline__ void attend_tile(
       }
       const int k0 = kt * kTile;
       __syncthreads();  // previous tile's sK / sV reads are done
-      if constexpr (kCodes) {
-        // V codes, 16 a thread; converted to bf16(code * scale) once K is normed.
-        constexpr int kChunks = D / 16;
-        constexpr int kPer = kTile * kChunks / kThreads;
-        uint4 vc[kPer];
-        float vs[kPer];
+      // V tile, row-major, 16-byte copies in flight while K is normalised.
+      constexpr int kPer = 16 / (int)sizeof(T);  // elements a copy
+      constexpr int kChunks = D / kPer;
 #pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int i = tid + u * kThreads;
-          const int j = k0 + i / kChunks;
-          vc[u] = make_uint4(0, 0, 0, 0);
-          vs[u] = 0.f;
-          if (j < N) {
-            vc[u] = *reinterpret_cast<const uint4*>(src_b + (long long)j * row_stride + 2 * C + h * D +
-                                                    (i % kChunks) * 16);
-            vs[u] = tok_b[j];
-          }
-        }
-        norm_rope_tile<D, kThreads>(src_b + C + h * D, row_stride, k0, N, sGainK, cos_b, sin_b, sK, tid);
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int i = tid + u * kThreads;
-          const int8_t* code = reinterpret_cast<const int8_t*>(&vc[u]);
-          uint32_t w[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            w[e] = pack_bf16(__fmul_rn((float)code[2 * e], vs[u]), __fmul_rn((float)code[2 * e + 1], vs[u]));
-          __nv_bfloat16* dst = sV + (i / kChunks) * kRow + (i % kChunks) * 16;
-          *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-          *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
-        }
-      } else {
-        // V tile, row-major, 16-byte copies in flight while K is normalised.
-        constexpr int kPer = 16 / (int)sizeof(T);  // elements a copy
-        constexpr int kChunks = D / kPer;
-#pragma unroll
-        for (int u = 0; u < kTile * kChunks / kThreads; ++u) {
-          const int i = tid + u * kThreads;
-          const int row = i / kChunks;
-          const int ch = (i % kChunks) * kPer;
-          const int j = k0 + row;
-          T* dst = sV + row * kRow + ch;
-          if (j < N)
-            cp_async16(dst, src_b + (long long)j * row_stride + 2 * C + h * D + ch);
-          else
-            *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-        }
-        if (!foreign) {  // another image's keys are masked: its K is never read
-          if constexpr (kF32)
-            norm_rope_tile_f32<D, kThreads>(src_b + C + h * D, row_stride, k0, N, sGainK, cos_b, sin_b, sK, tid);
-          else
-            norm_rope_tile<D, kThreads>(src_b + C + h * D, row_stride, k0, N, sGainK, cos_b, sin_b, sK, tid);
-        }
+      for (int u = 0; u < kTile * kChunks / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        const int row = i / kChunks;
+        const int ch = (i % kChunks) * kPer;
+        const int j = k0 + row;
+        T* dst = sV + row * kRow + ch;
+        if (j < N)
+          cp_async16(dst, src_b + (long long)j * row_stride + 2 * C + h * D + ch);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+      if (!foreign) {  // another image's keys are masked: its K is never read
+        if constexpr (kF32)
+          norm_rope_tile_f32<D, kThreads>(src_b + C + h * D, row_stride, k0, N, sGainK, cos_b, sin_b, sK, tid);
+        else
+          norm_rope_tile<D, kThreads>(src_b + C + h * D, row_stride, k0, N, sGainK, cos_b, sin_b, sK, tid);
       }
       if (tid < kTile) {
         const int j = k0 + tid;

@@ -1,10 +1,11 @@
 // The wgmma body of the fused attention on Hopper: one 64-query tile of one
 // head (a "cell") against 64-key tiles streamed through a cp.async ring of
-// 128-byte-swizzled tiles (sm90.cuh). Two files' kernels run it:
-// fused_attention_sm90.cu (the forward on the main path, one cell a block)
-// and fused_attention_ab_sm90.cu (the A/B kernels #10, #11 and #13 in bf16,
-// a block that walks many cells on one ring), so their results on a row are
-// the same bits. The fp32 walker (fused_attend_f32_sm90.cuh) shares its
+// 128-byte-swizzled tiles (sm90.cuh). Three files' kernels run it:
+// fused_attention_sm90.cu (the forward on the main path, one cell a block),
+// fused_attention_ab_sm90.cu (the A/B kernels #10, #11 and #13 in bf16,
+// a block that walks many cells on one ring) and, through its pieces,
+// fused_attention_q8in_sm90.cu (#12, a walk of its own over int8 q and v
+// tiles), so their results on a row are the same bits. The fp32 walker (fused_attend_f32_sm90.cuh) shares its
 // thread layout, online softmax and the walk of a block's cells (the end of
 // this file). The flash forward (flash_attention.cu) runs its own softmax
 // on this file's cell layout, descriptors and row epilogue.
@@ -337,7 +338,8 @@ __device__ __forceinline__ void walk_cell(const KeyTiles& kt, const CellRows<D>&
 
 // ---------------------------------------------------------------------------
 // A block that walks many cells (the A/B kernels of fused_attention_ab_sm90.cu
-// and the fp32 walker of fused_attend_f32_sm90.cuh): a cell is one (image,
+// and fused_attention_q8in_sm90.cu, and the fp32 walker of
+// fused_attend_f32_sm90.cuh): a cell is one (image,
 // head) pair of the block's query tile, and the block flattens its cells x
 // key tiles into one sequence of steps.
 // ---------------------------------------------------------------------------

@@ -52,8 +52,7 @@
 // O += P V run on mma.sync m16n8k16 bf16 -> fp32, with V's B fragments read
 // by ldmatrix.trans.
 //
-// The body (attend_tile) lives in fused_attend.cuh, shared with the A/B
-// kernels of fused_attention_ab.cu. The fp32 instance of
+// The body (attend_tile) lives in fused_attend.cuh. The fp32 instance of
 // fused_attention_kernel (vitok_fused_attention_f32) is the TPU kernel's f32
 // case: fp32 norm and rotation, fp32 FMA products (no tensor cores, no tf32),
 // P kept in fp32; it is bound by its 4-byte reads at N <= 256 and by the

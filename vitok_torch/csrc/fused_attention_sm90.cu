@@ -93,9 +93,12 @@ constexpr float kDeadLse = 1e30f;  // a padded query row: p = exp2(x - 1e30) = 0
 // optionally the backward's delta = sum_c dO * O.
 // ---------------------------------------------------------------------------
 
-template <int D>
+// Src: bf16, or int8 codes (the int8-input A/B kernel's k, parts = 1, no
+// delta; fused_attention_q8in_sm90.cu), which are exact in bf16: the int8
+// instance writes the bits the bf16 instance writes for bf16(code).
+template <int D, typename Src>
 __global__ void __launch_bounds__(kThreads)
-fused_qk_prologue_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ q_scale,
+fused_qk_prologue_kernel(const Src* __restrict__ qkv, const float* __restrict__ q_scale,
                          const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                          const float* __restrict__ sin_t,
                          const __nv_bfloat16* __restrict__ out,   // [B, N, C] or null
@@ -112,7 +115,7 @@ fused_qk_prologue_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __r
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int C = H * D;
-  const __nv_bfloat16* qkv_b = qkv + (long long)b * N * 3 * C;
+  const Src* qkv_b = qkv + (long long)b * N * 3 * C;
   const float* cos_b = cos_t + (long long)b * N * (D / 2);
   const float* sin_b = sin_t + (long long)b * N * (D / 2);
   __nv_bfloat16* qk_b = qk + (long long)b * N * parts * C;
@@ -122,8 +125,8 @@ fused_qk_prologue_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __r
   }
   __syncthreads();
   for (int part = 2 - parts; part < 2; ++part) {  // q, then k
-    norm_rope_tile<D, kThreads, __nv_bfloat16, true>(qkv_b + part * C + h * D, 3LL * C, r0, N, sGain[part],
-                                                      cos_b, sin_b, sT, tid);
+    norm_rope_tile<D, kThreads, Src, true>(qkv_b + part * C + h * D, 3LL * C, r0, N, sGain[part], cos_b, sin_b, sT,
+                                            tid);
     __syncthreads();
     __nv_bfloat16* dst = qk_b + (part - (2 - parts)) * C + h * D;
     for (int i = tid; i < kTile * kChunks; i += kThreads) {
@@ -252,13 +255,13 @@ fused_attention_sm90_kernel(const __nv_bfloat16* __restrict__ kn,   // [B, N, C]
   }
 }
 
-template <int D>
+template <int D, typename Src = __nv_bfloat16>
 cudaError_t launch_prologue(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                             const void* sin_t, const void* out, const void* dout, void* qk, void* delta,
                             int B, int N, int H, int parts, cudaStream_t stream) {
   dim3 grid((N + kTile - 1) / kTile, H, B);
-  fused_qk_prologue_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(q_scale),
+  fused_qk_prologue_kernel<D, Src><<<grid, kThreads, 0, stream>>>(
+      static_cast<const Src*>(qkv), static_cast<const float*>(q_scale),
       static_cast<const float*>(k_scale), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
       static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(dout),
       static_cast<__nv_bfloat16*>(qk), static_cast<float*>(delta), N, H, parts);
@@ -536,6 +539,23 @@ int vitok_fused_qk_prologue_bf16(const void* qkv, const void* q_scale, const voi
     return launch_prologue<64>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   if (D == 128)
     return launch_prologue<128>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The prologue's int8 instance: qkv8 [B, N, 3*H*D] int8 codes; k_scale [D]
+// f32; cos, sin [B, N, D/2] f32. Writes kn [B, N, H*D] bf16, the k codes
+// normed and rotated (parts = 1): the bits the bf16 instance writes for
+// bf16(code). The int8-input A/B kernel (fused_attention_q8in_sm90.cu) runs it
+// first.
+int vitok_fused_k_prologue_q8(const void* qkv8, const void* k_scale, const void* cos_t, const void* sin_t, void* kn,
+                              int B, int N, int H, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);  // parts = 1 reads only k's gain
+  if (D == 64)
+    return launch_prologue<64, int8_t>(qkv8, k_scale, k_scale, cos_t, sin_t, nullptr, nullptr, kn, nullptr, B, N, H,
+                                       1, s);
+  if (D == 128)
+    return launch_prologue<128, int8_t>(qkv8, k_scale, k_scale, cos_t, sin_t, nullptr, nullptr, kn, nullptr, B, N,
+                                        H, 1, s);
   return (int)cudaErrorInvalidValue;
 }
 

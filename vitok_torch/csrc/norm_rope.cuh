@@ -1,8 +1,10 @@
 // QK-RMSNorm + rotate-half RoPE on a 64-row tile of one head's channels, and
 // its backward, shared by the fused attention kernels (fused_attention.cu:
 // the forward, its int8-epilogue and fp32 instances; fused_attention_bwd.cu;
-// fused_attention_ab.cu, which also reads int8 codes; the wgmma body of
-// fused_attend_sm90.cuh, whose in-place q norm shares norm_rope_piece).
+// fused_attention_sm90.cu, whose q/k prologue also reads int8 codes for the
+// int8-input kernel; the wgmma body of fused_attend_sm90.cuh, whose in-place
+// q norm shares norm_rope_piece, as does the int8-input kernel's q norm in
+// fused_attention_q8in_sm90.cu).
 //
 // A row of D channels is cut into D/16 pieces, one thread each: channels
 // [8p, 8p + 8) and their rotate-half partners [D/2 + 8p, D/2 + 8p + 8), so

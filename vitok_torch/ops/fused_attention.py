@@ -528,6 +528,7 @@ def _sm90_lib() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
         (lib.vitok_fused_qk_prologue_bf16, [ptr] * 9 + [i] * 5 + [ptr]),
+        (lib.vitok_fused_k_prologue_q8, [ptr] * 5 + [i] * 4 + [ptr]),
         (lib.vitok_fused_attention_sm90_bf16, [ptr] * 8 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_q8_sm90_bf16, [ptr] * 8 + [i] * 6 + [ptr]),
     ):
