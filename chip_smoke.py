@@ -78,7 +78,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (the fp32 forward, the fp32 RMSNorm + quantize and the fused FFN a block)
    against its run on the quantize kernels' plain versions; and runs both A/B entry points
    at the recorded shapes with fewer timed calls;
-10. prints a JSON line describing each kernel, the card's name and power
+10. runs the eval CLI's ``main`` (``vitok_torch.scripts.eval_vae``) in this
+   process on 256 seeded images up to 256 px: 350M-f16x64 with random
+   weights at full width and depth, batch 64, SSIM, PSNR, FID (the full
+   InceptionV3 at 299²) and FDD (the full DINO ViT-B/16 at 512²), in bf16
+   and with ``--quant``, then a ``--buckets 64,256,1024`` run over 32 images
+   up to 512 px: each batch's launches (#1 and its prologue, and #9 and #7
+   in int8), finite statistics, a few images' features against the same
+   backbones on the CPU, the references' FID against themselves, the int8
+   SSIM beside the bf16 one; and takes three 350M training steps with the
+   DINO perceptual term (a random ViT-S on 256² tiles) on #1 and #3, the
+   first step's gradients against the plain backward's;
+11. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -2784,6 +2795,291 @@ def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     }]
 
 
+# ---------------------------------------------------------------------------
+# Eval: the eval CLI in-process, and the perceptual training step
+# ---------------------------------------------------------------------------
+
+EVAL_MODEL = "350M-f16x64"  # the released name; its variant is VARIANT, with random weights
+EVAL_IMAGES = 256
+EVAL_BATCH = 64
+EVAL_SIZES = [(256, 256), (240, 200), (192, 256), (256, 160), (100, 130), (224, 224), (256, 96), (180, 256)]
+EVAL_BUCKET_IMAGES = 32  # a second folder, sizes up to 512 px: every bucket of 64, 256 and 1024 tokens
+EVAL_BUCKET_SIZES = [(512, 512), (480, 360), (304, 512), (200, 330), (256, 256), (100, 130), (64, 64), (48, 80)]
+EVAL_ARGS = ("--random-weights", "--metrics", "ssim,psnr,fid,fdd")
+EVAL_FEATURE_CHECK = 4  # images whose InceptionV3 and DINO features are held against the CPU's
+FEATURE_REL_L2 = 1e-4   # fp32 features, TF32 off: card against host
+# The references' FID against themselves, over the trace of their covariance: the
+# fp64 sqrtm of the square of a rank-255 covariance in 2048 dimensions leaves about
+# 1e-6 of the trace (-1.06e-6 on the host for these images' random-init features).
+SELF_FID_REL = 1e-5
+INT8_SSIM_GAP = 1e-2    # int8 run's SSIM against its references, beside the bf16 run's
+PERCEPTUAL = ("256p", 256, 8, RESOLUTIONS[0][3])  # 350M trainer, 2048 tokens a step
+PERCEPTUAL_STEPS = 3
+
+
+def _write_folder(root: str, n: int, sizes, seed: int) -> str:
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    for i, img in enumerate(_images(np.random.default_rng(seed), sizes, n)):
+        img.save(os.path.join(root, f"img_{i:04d}.png"))
+    return root
+
+
+@contextlib.contextmanager
+def _eval_instruments(rec: dict):
+    """Records, for one eval run: the launch counts of each batch (encode to
+    decode), each backbone's feature seconds and images, and ``gather()``'s
+    seconds and the calculator (a switch of this script, not of the package)."""
+    import torch
+    from vitok_torch import eval_features as ef
+    from vitok_torch import metrics
+    from vitok_torch.models.ae import AE
+
+    saved = AE.encode, AE.decode, ef.inception_feature_fn, ef.dino_feature_fn, metrics.MetricCalculator.gather
+    enc, dec, inc, dino, gather = saved
+    before: list = []
+
+    def encode(self, d):
+        torch.cuda.synchronize()
+        before[:] = [launch_counts()]
+        return enc(self, d)
+
+    def decode(self, d):
+        out = dec(self, d)
+        torch.cuda.synchronize()
+        rec["batches"].append({k: v - before[0][k] for k, v in launch_counts().items()})
+        return out
+
+    def timed(name, factory):
+        def make(*a, **kw):
+            fn = factory(*a, **kw)
+
+            def features(images):
+                t0 = time.perf_counter()
+                out = fn(images)  # numpy: the card has finished
+                seconds, count = rec["features"].get(name, (0.0, 0))
+                rec["features"][name] = (seconds + time.perf_counter() - t0, count + len(images))
+                return out
+            return features
+        return make
+
+    def timed_gather(self):
+        t0 = time.perf_counter()
+        out = gather(self)
+        rec["gather_s"], rec["calc"] = time.perf_counter() - t0, self
+        return out
+
+    rec.update(batches=[], features={})
+    AE.encode, AE.decode = encode, decode
+    ef.inception_feature_fn, ef.dino_feature_fn = timed("inception", inc), timed("dino", dino)
+    metrics.MetricCalculator.gather = timed_gather
+    try:
+        yield rec
+    finally:
+        AE.encode, AE.decode, ef.inception_feature_fn, ef.dino_feature_fn, metrics.MetricCalculator.gather = saved
+
+
+def _eval_run(what: str, argv: list, per_batch: dict, card: str) -> dict:
+    """One ``eval_vae.main(argv)``: every count 0 before it, each batch's
+    launches ``per_batch``, finite statistics; logs the rates and segments."""
+    from vitok_torch.scripts import eval_vae
+
+    rec: dict = {}
+    reset_counts()  # the eval path's run
+    t0 = time.perf_counter()
+    with _eval_instruments(rec):
+        stats = eval_vae.main(argv)
+    seconds = time.perf_counter() - t0
+    bad = [i for i, got in enumerate(rec["batches"]) if got != per_batch]
+    if bad or not rec["batches"]:
+        raise AssertionError(f"eval {what}: launches of batch {bad[:1]}: "
+                             f"{rec['batches'][bad[0]] if bad else 'no batch'}, expected {per_batch}")
+    numbers = {k: v for k, v in stats.items() if k in ("ssim", "psnr", "fid", "fdd")}
+    if not all(np.isfinite(v) for v in numbers.values()):
+        raise AssertionError(f"eval {what}: statistics {numbers} must be finite")
+    feats = ", ".join(f"{name} {s / n * 1e3:.4f} ms/img ({n} images)" for name, (s, n) in rec["features"].items())
+    log(f"  eval {what}: {int(stats['n_images'])} images in {len(rec['batches'])} batches, "
+        + ", ".join(f"{k} {v:.6g}" for k, v in numbers.items())
+        + f"; device {stats['throughput_img_per_sec']:.1f} img/s, wall {stats['wall_img_per_sec']:.1f} img/s "
+        f"(steady {stats['steady_img_per_sec'] or float('nan'):.1f}); segments: data {stats['host_data_time_s']:.3f} s, "
+        f"device {stats['device_time_s']:.3f} s, post {stats['host_post_time_s']:.3f} s of {stats['wall_time_s']:.3f} s; "
+        f"features: {feats}; gather() {rec['gather_s']:.3f} s; main() {seconds:.1f} s on {card}")
+    return dict(stats=stats, batches=len(rec["batches"]), launches=launch_counts(), calc=rec["calc"],
+                features={k: s / n * 1e3 for k, (s, n) in rec["features"].items()}, gather_s=rec["gather_s"],
+                seconds=seconds)
+
+
+def _features_vs_cpu(folder: str, device, card: str) -> dict:
+    """The first images' InceptionV3 and DINO ViT-B/16 features on the card
+    against the same modules and weights on the CPU (TF32 off)."""
+    import torch
+    import warnings
+    from PIL import Image
+    from vitok_torch import eval_features as ef
+
+    names = sorted(os.listdir(folder))[:EVAL_FEATURE_CHECK]
+    images = [torch.from_numpy(np.asarray(Image.open(os.path.join(folder, n)), np.float32)
+                               .transpose(2, 0, 1) / 127.5 - 1.0) for n in names]
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-init warnings, logged once by the eval runs
+        for name, factory in (("inception", ef.inception_feature_fn), ("dino", ef.dino_feature_fn)):
+            got = factory(device=device)([x.to(device) for x in images])
+            want = factory(device="cpu")(images)
+            rel = float(np.linalg.norm(got.astype(np.float64) - want) / np.linalg.norm(want))
+            if not rel <= FEATURE_REL_L2:
+                raise AssertionError(f"eval {name} features, card vs CPU: rel L2 {rel:.3e} > {FEATURE_REL_L2}")
+            out[name] = rel
+    log(f"  features of {len(images)} images, card vs CPU (fp32, TF32 off): "
+        + ", ".join(f"{k} rel L2 {v:.3e}" for k, v in out.items()) + f" on {card}")
+    return out
+
+
+def eval_phase(device, card: str) -> dict:
+    """``vitok_torch.scripts.eval_vae.main`` in this process: the full-width
+    350M model (random weights) over 256 seeded images at 256p, batch 64,
+    with SSIM, PSNR, FID (the full InceptionV3) and FDD (the full DINO
+    ViT-B/16 at 512²), in bf16 and with ``--quant``; then a ``--buckets``
+    run over 32 images that takes #1 at 64, 256 and 1024 tokens."""
+    import tempfile
+    from vitok_torch import AEConfig
+    from vitok_torch.metrics import calculate_frechet_distance
+
+    from vitok_torch.pretrained import get_pretrained_info
+
+    cfg = AEConfig.from_variant(get_pretrained_info(EVAL_MODEL)[2] if EVAL_MODEL[0].isdigit() else EVAL_MODEL)
+    depth = cfg.encoder_depth + cfg.decoder_depth
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = _write_folder(os.path.join(tmp, "eval"), EVAL_IMAGES, EVAL_SIZES, seed=21)
+        bucket_folder = _write_folder(os.path.join(tmp, "buckets"), EVAL_BUCKET_IMAGES, EVAL_BUCKET_SIZES, seed=22)
+        log(f"eval path: {EVAL_IMAGES} images up to 256 px, 350M-f16x64 ({VARIANT}) random weights, "
+            f"batch {EVAL_BATCH}, SSIM/PSNR/FID/FDD (InceptionV3 at 299², DINO ViT-B/16 at 512², random inits); "
+            f"wrote the images in {time.time() - t0:.1f} s")
+        base = ["--model", EVAL_MODEL, "--data", folder, *EVAL_ARGS, "--max-size", "256",
+                "--batch-size", str(EVAL_BATCH), "--device", str(device)]
+        bf16 = _eval_run("bf16", base, _expect(fused_attention=depth), card)
+        int8 = _eval_run("int8", [*base, "--quant"],
+                         _expect(fused_attention=depth, rmsnorm_quant=depth, ffn_int8=depth), card)
+        buckets = _eval_run("buckets", ["--model", EVAL_MODEL, "--data", bucket_folder, "--random-weights",
+                                        "--metrics", "ssim,psnr,fdd", "--buckets", "64,256,1024",
+                                        "--max-size", "512", "--batch-size", str(EVAL_BATCH),
+                                        "--device", str(device)],
+                            _expect(fused_attention=depth), card)
+        feature_rel = _features_vs_cpu(folder, device, card)
+
+    for run in (bf16, int8):
+        if run["stats"]["n_images"] != EVAL_IMAGES:
+            raise AssertionError(f"eval: {run['stats']['n_images']} images, expected {EVAL_IMAGES}")
+    if buckets["stats"]["n_images"] != EVAL_BUCKET_IMAGES or buckets["batches"] != 3:
+        raise AssertionError(f"eval --buckets: {buckets['stats']['n_images']} images in {buckets['batches']} "
+                             f"batches, expected {EVAL_BUCKET_IMAGES} in 3 (one per bucket)")
+    t1 = time.perf_counter()
+    mu, cov = bf16["calc"]._frechet["fid"][0].finalize()
+    self_fid = calculate_frechet_distance(mu, cov, mu, cov)
+    self_fid_s = time.perf_counter() - t1
+    if not abs(self_fid) <= SELF_FID_REL * np.trace(cov):
+        raise AssertionError(f"eval: FID of the references against themselves {self_fid:.3e} > "
+                             f"{SELF_FID_REL} x trace {np.trace(cov):.3e}")
+    gap = abs(int8["stats"]["ssim"] - bf16["stats"]["ssim"])
+    if not gap <= INT8_SSIM_GAP:
+        raise AssertionError(f"eval: int8 SSIM {int8['stats']['ssim']:.5f} vs bf16 {bf16['stats']['ssim']:.5f}")
+    log(f"  references' FID against themselves {self_fid:.3e} (trace of their covariance {np.trace(cov):.3e}; "
+        f"{self_fid_s:.3f} s); int8 SSIM {int8['stats']['ssim']:.6f} vs bf16 {bf16['stats']['ssim']:.6f}")
+    for run in (bf16, int8, buckets):
+        del run["calc"]
+    return dict(bf16=bf16, int8=int8, buckets=buckets, feature_rel_l2=feature_rel, self_fid=self_fid,
+                seconds=time.time() - t0)
+
+
+@contextlib.contextmanager
+def plain_fused_backward():
+    """The fused autograd Function's backward swapped for its plain version
+    (the forward kernel stays): the reference for the gradients."""
+    from vitok_torch.ops import fused_attention as fa
+
+    saved = fa.fused_qkv_attention_bwd
+    fa.fused_qkv_attention_bwd = lambda *a, lse=None, **kw: fa.fused_qkv_attention_bwd_plain(*a, **kw)
+    try:
+        yield
+    finally:
+        fa.fused_qkv_attention_bwd = saved
+
+
+def perceptual_phase(device, card: str) -> dict:
+    """The 350M trainer with the DINO perceptual term: 256 tokens, batch 8,
+    ``attn_impl="fused"``, Charbonnier + SSIM 0.1 + perceptual 500 on 256²
+    tiles through a random DINO ViT-S, three steps."""
+    import torch
+    import warnings
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.models.vit_features import load_dino_backbone, make_dino_feature_fn
+    from vitok_torch.train_lib import (LossConfig, compute_loss, create_optimizer, create_schedule,
+                                       create_train_state, make_train_step)
+
+    t0 = time.time()
+    model = AE(**{**decode_variant(VARIANT), "attn_impl": "fused"}, seed=0, device=device,
+               param_dtype=torch.float32, trainable=True)
+    _random_gates(model, device)
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    params = list(model.parameters())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dino = load_dino_backbone(None, size="S", device=device)
+    feature_fn = make_dino_feature_fn(dino, target_size=256)
+    (case,) = main_path_cases(device, [PERCEPTUAL], seed=9)
+    name, max_tokens, batch, _, inputs = case
+    side = int(max_tokens ** 0.5)
+    loss_cfg = LossConfig(ssim_weight=0.1, perceptual_weight=500.0, tile_size=256, n_tiles=2, ssim_grid=(side, side))
+    log(f"perceptual training: {VARIANT}, fp32 master weights, bf16 compute, {name} batch {batch}, "
+        f"attn_impl='fused', Charbonnier 1.0 + SSIM 0.1 + perceptual 500 (DINO ViT-S/16 random init, fp32, 256² tiles)")
+
+    def grads_of():
+        gen = torch.Generator(device=device).manual_seed(13)
+        loss, metrics = compute_loss(model, inputs, loss_cfg, gen, feature_fn=feature_fn)
+        return loss.detach(), metrics, torch.autograd.grad(loss, params)
+
+    def rel_l2(got, want):
+        num = sum((a.double() - b.double()).square().sum() for a, b in zip(got, want))
+        return (num / sum(b.double().square().sum() for b in want)).sqrt().item()
+
+    reset_counts()
+    loss_k, metrics_k, g_kernel = grads_of()
+    first = launch_counts()
+    with plain_fused_backward():
+        loss_p, _, g_plain = grads_of()
+    torch.cuda.synchronize()
+    grad_rel = rel_l2(g_kernel, g_plain)
+    want = _expect(fused_attention=depth, fused_attention_bwd=depth)
+    frozen = all(p.grad is None and not p.requires_grad for p in dino.parameters())
+    if not (first == want and grad_rel <= TRAIN_GRAD_REL_L2 and frozen and float(metrics_k["loss/perceptual"]) > 0
+            and abs(loss_k.item() - loss_p.item()) <= 1e-6 * abs(loss_p.item())):
+        raise AssertionError(
+            f"perceptual training: launches {first} (expected {want}), gradients vs the plain backward rel L2 "
+            f"{grad_rel:.3e} (limit {TRAIN_GRAD_REL_L2}), DINO frozen {frozen}, perceptual "
+            f"{float(metrics_k['loss/perceptual'])}, loss {loss_k.item()} vs {loss_p.item()}")
+    del g_kernel, g_plain
+    log(f"  first-step gradients, kernels vs plain backward: rel L2 {grad_rel:.3e}; loss {loss_k.item():.5f} "
+        f"(perceptual {float(metrics_k['loss/perceptual']):.6f}); no DINO parameter has a gradient")
+
+    tx = create_optimizer(create_schedule("constant", TRAIN_LR, PERCEPTUAL_STEPS, warmup_frac=0.0))
+    train_step = make_train_step(tx, loss_cfg, feature_fn=feature_fn)
+    reset_counts()  # the perceptual training path's run
+    state, metrics, step_ms, per_step = _timed_steps(train_step, create_train_state(model, tx), inputs,
+                                                     PERCEPTUAL_STEPS)
+    if any(got != want for got in per_step):
+        raise AssertionError(f"perceptual training: launches per step {per_step}, expected {want}")
+    if not all(np.isfinite(list(m.values())).all() and m["loss/perceptual"] > 0 for m in metrics):
+        raise AssertionError(f"perceptual training: metrics {metrics} must be finite, with a perceptual term > 0")
+    log(f"  {PERCEPTUAL_STEPS} steps: loss " + " -> ".join(f"{m['loss/total']:.5f}" for m in metrics)
+        + ", perceptual " + " -> ".join(f"{m['loss/perceptual']:.6f}" for m in metrics)
+        + f"; {float(np.median(step_ms[1:])):.3f} ms/step (host clock, median of steps 2-{PERCEPTUAL_STEPS}; "
+        f"first {step_ms[0]:.3f}) on {card}; phase {time.time() - t0:.1f} s")
+    return dict(launches=launch_counts(), grad_rel_l2=grad_rel, losses=[m["loss/total"] for m in metrics],
+                ms_per_step=float(np.median(step_ms[1:])))
+
+
 def profile_step(name: str, step) -> dict:
     """Where one encode+decode spends the card's time: device kernel time by
     group (each port kernel, matrix products, everything else) from
@@ -2984,14 +3280,32 @@ def main() -> int:
     t0 = time.time()
     ab_runs = ab_entry_phase(device)
     log(f"A/B entry points: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    evals = eval_phase(device, card)
+    torch.cuda.empty_cache()
+    perceptual = perceptual_phase(device, card)
+    torch.cuda.empty_cache()
+    log(f"eval and perceptual phases: {time.time() - t0:.1f} s")
+    log("eval summary: " + json.dumps({
+        run: {k: evals[run]["stats"][k] for k in ("n_images", "ssim", "psnr", "fid", "fdd", "throughput_img_per_sec",
+                                                  "wall_img_per_sec", "steady_img_per_sec", "host_data_time_s",
+                                                  "device_time_s", "host_post_time_s", "wall_time_s")
+              if k in evals[run]["stats"]}
+        | {"feature_ms_per_img": evals[run]["features"], "gather_s": evals[run]["gather_s"]}
+        for run in ("bf16", "int8", "buckets")} | {"card": card}))
 
     entries = kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres, f32_int8, f32_silu)
     entries[2:2] = flash_bwd_entries(bkern, training)
     entries[1:1] = fused_family_entries(q8kern, q8_path, fbkern, fused_training)
     entries += ab_entries(abkern, ab_runs, f32_ae, kern)
-    for e in entries:  # the 5B run's launches beside each path's own
+    for e in entries:  # the 5B run's, the eval runs' and the perceptual steps' launches beside each path's own
         if bench_5b["launches"].get(e["name"]):
             e["launches_5b_bench"] = bench_5b["launches"][e["name"]]
+        eval_launches = sum(evals[run]["launches"].get(e["name"], 0) for run in ("bf16", "int8", "buckets"))
+        if eval_launches:
+            e["launches_eval"] = eval_launches
+        if perceptual["launches"].get(e["name"]):
+            e["launches_perceptual"] = perceptual["launches"][e["name"]]
     log(f"chip_smoke.py ran for {time.time() - started:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -128,8 +128,10 @@ class TestTrainerCli:
 
     def test_refuses_what_is_not_ported_and_a_missing_card(self, image_folder, tmp_path):
         base = [*self.ARGS, "--data", image_folder, "--output-dir", str(tmp_path / "o"), "--steps", "1"]
-        with pytest.raises(NotImplementedError, match="DINO"):
-            train_vae.main([*base, "--perceptual-weight", "500"])
+        # the DINO perceptual term is ported: its flags parse (a step with it: tests/test_torch_vit_features.py)
+        args = train_vae.build_parser().parse_args([*base, "--perceptual-weight", "500", "--dino-size", "B"])
+        assert (args.perceptual_weight, args.dino_size, args.dino_weights) == (500.0, "B", None)
+        assert train_vae.build_parser().parse_args(base).dino_size == "S"
         with pytest.raises(NotImplementedError, match="Muon"):
             train_vae.main([*base, "--optimizer", "muon"])
         if not torch.cuda.is_available():

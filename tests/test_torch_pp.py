@@ -163,6 +163,13 @@ class TestImportBoundary:
         assert REPO / "vitok_torch" / module in _port_files()
 
     @pytest.mark.parametrize("module", [
+        "metrics.py", "eval_features.py", "models/inception.py", "models/vit_features.py", "scripts/eval_vae.py"])
+    def test_eval_modules_are_inside_the_boundary(self, module):
+        """The eval slice's modules (metrics, feature extractors, their
+        backbones and the eval CLI) are among the files the import check reads."""
+        assert REPO / "vitok_torch" / module in _port_files()
+
+    @pytest.mark.parametrize("module", [
         "ops/fused_attention.py", "ops/_build.py", "benchmarks/fused_bits.py"])
     def test_fused_attention_modules_are_inside_the_boundary(self, module):
         """The fused attention's wrappers (the q/k prologue, the wgmma forward

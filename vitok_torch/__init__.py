@@ -8,7 +8,9 @@ single-device tokenizer training (``train_lib``, ``losses``, ``data``,
 ``python -m vitok_torch.scripts.train_vae``); and the generation family:
 the ``DiT`` over ViTok latents, the UniPC flow sampler (``unipc``),
 ``python -m vitok_torch.scripts.generate`` and
-``python -m vitok_torch.scripts.train_dit``. The fused QK-norm + RoPE +
+``python -m vitok_torch.scripts.train_dit``; and eval: rFID/rFDD/SSIM/PSNR
+(``metrics``, ``eval_features``, the FID InceptionV3 and the DINO ViT under
+``models``, ``python -m vitok_torch.scripts.eval_vae``). The fused QK-norm + RoPE +
 masked attention (up to 1024 tokens), its backward and its int8-epilogue
 instance, the flash attention forward and its two backward kernels (2048
 tokens and up) and the int8 block's RMSNorm + quantize, fused fc1 + SwiGLU +

@@ -4,9 +4,10 @@ The counterpart of the JAX package's ``scripts/train_vae.py`` with its flags
 and defaults: variant, data, pp string, loss stack (masked Charbonnier +
 SSIM tiles), schedule, AdamW with clipping and EMA, gradient accumulation,
 activation checkpointing, resume, periodic and on-preemption checkpoints,
-and a safetensors export at the end. Left out: the sharding mesh
-(``--mesh``, ``--pipe-microbatches``), ``--wandb``, and the DINO perceptual
-backbone (``--dino-*``; ``--perceptual-weight`` must stay 0).
+and a safetensors export at the end, and the DINO perceptual term
+(``--perceptual-weight``, ``--dino-size``, ``--dino-weights``: a frozen DINO
+ViT on the SSIM tiles). Left out: the sharding mesh (``--mesh``,
+``--pipe-microbatches``) and ``--wandb``.
 
     python -m vitok_torch.scripts.train_vae --variant Ld4-Ld24/1x16x64 \\
         --data /imgs --max-tokens 4096 --sw 1024 --bs 2 --steps 1000
@@ -68,9 +69,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--charbonnier-weight", type=float, default=1.0)
     ap.add_argument("--ssim-weight", type=float, default=0.1)
     ap.add_argument("--perceptual-weight", type=float, default=0.0,
-                    help="feature loss weight; needs the DINO backbone, which is not ported")
+                    help="DINO feature loss weight (the reference uses 500.0)")
     ap.add_argument("--tile-size", type=int, default=256)
     ap.add_argument("--n-tiles", type=int, default=2)
+    ap.add_argument("--dino-weights", default=None,
+                    help="timm-named DINO ViT state dict (.pth/.safetensors); defaults to $VITOK_DINO_WEIGHTS, "
+                         "else random init")
+    ap.add_argument("--dino-size", default="S", choices=["S", "B"])
     ap.add_argument("--drop-path", type=float, default=0.0)
     # io / cadence
     ap.add_argument("--output-dir", default="./output")
@@ -114,11 +119,6 @@ def main(argv=None) -> None:
     from vitok_torch.utils.device import resolve_device
     from vitok_torch.utils.preemption import PreemptionGuard
 
-    if args.perceptual_weight:
-        raise NotImplementedError(
-            "--perceptual-weight needs the DINO perceptual backbone (vitok_tpu/models/vit_features.py), "
-            "which is not ported: ROADMAP.md Queue 1 item 10"
-        )
     device = resolve_device(args.device)
     print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
 
@@ -166,7 +166,17 @@ def main(argv=None) -> None:
         patch=args.patch,
         ssim_grid=(grid_side, grid_side) if (args.ssim_weight or args.perceptual_weight) else None,
     )
-    train_step = make_train_step(tx, loss_cfg, ema_decay=args.ema_decay, grad_accum=args.grad_accum)
+    # DINO perceptual backbone: frozen, fp32, on the SSIM tiles resized to --tile-size.
+    feature_fn = None
+    if args.perceptual_weight:
+        from vitok_torch.models.vit_features import load_dino_backbone, make_dino_feature_fn
+
+        src = args.dino_weights or os.environ.get("VITOK_DINO_WEIGHTS")
+        dino = load_dino_backbone(src, size=args.dino_size, device=device)
+        feature_fn = make_dino_feature_fn(dino, target_size=args.tile_size)
+        print(f"DINO perceptual: ViT-{args.dino_size} ({'weights=' + src if src else 'RANDOM INIT'})")
+    train_step = make_train_step(tx, loss_cfg, ema_decay=args.ema_decay, feature_fn=feature_fn,
+                                 grad_accum=args.grad_accum)
 
     # --- loop ------------------------------------------------------------
     guard = PreemptionGuard()

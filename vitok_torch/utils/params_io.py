@@ -19,6 +19,11 @@ A DiT's pytree (:func:`dit_from_jax_params`, :func:`dit_to_jax_params`) has
 the same block entries plus the adaLN ``mod`` linear with its bias; both
 packages keep a DiT's q/k channels in rotate-half order, so nothing is
 permuted. Int8 pytrees go both ways.
+
+The eval backbones' pytrees go one way, into the port's modules:
+:func:`inception_from_jax_params` (the BN-folded FID InceptionV3, HWIO
+kernels) and :func:`vit_from_jax_params` (the DINO ViT, stacked depth-leading,
+to timm's flat names).
 """
 
 from __future__ import annotations
@@ -214,6 +219,57 @@ def dit_to_jax_params(state: Mapping[str, Any]) -> Dict[str, Any]:
     return params
 
 
+def inception_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's folded FID-Inception pytree (``{conv: {"w": HWIO,
+    "b": [O]}}``, numpy leaves) -> ``InceptionV3`` state dict (OIHW, fp32)."""
+    state: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        state[f"{name}.weight"] = _tensor(np.asarray(node["w"]).transpose(3, 2, 0, 1))
+        state[f"{name}.bias"] = _tensor(node["b"])
+    return state
+
+
+# (timm suffix in block i, pytree path under "blocks", transpose?)
+_VIT_BLOCK_ENTRIES = [
+    ("norm1.weight", ("norm1", "scale"), False),
+    ("norm1.bias", ("norm1", "bias"), False),
+    ("attn.qkv.weight", ("qkv", "kernel"), True),
+    ("attn.qkv.bias", ("qkv", "bias"), False),
+    ("attn.proj.weight", ("proj", "kernel"), True),
+    ("attn.proj.bias", ("proj", "bias"), False),
+    ("norm2.weight", ("norm2", "scale"), False),
+    ("norm2.bias", ("norm2", "bias"), False),
+    ("mlp.fc1.weight", ("fc1", "kernel"), True),
+    ("mlp.fc1.bias", ("fc1", "bias"), False),
+    ("mlp.fc2.weight", ("fc2", "kernel"), True),
+    ("mlp.fc2.bias", ("fc2", "bias"), False),
+]
+
+
+def vit_from_jax_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The JAX package's DINO ViT pytree (numpy leaves, ``blocks`` stacked
+    depth-leading, kernels ``[in, out]``) -> ``DinoViT`` state dict under
+    timm's flat names: the inverse of the JAX ``torch_vit_state_to_pytree``.
+    ``cfg`` (a ``ViTCfg``) gives the width and patch of the patch embed and
+    checks the depth."""
+    pe_kernel = np.asarray(params["patch_embed"]["kernel"])  # [3 * P * P, D], (c, ph, pw) order
+    state = {
+        "patch_embed.proj.weight": _tensor(pe_kernel.T.reshape(cfg.width, 3, cfg.patch, cfg.patch)),
+        "patch_embed.proj.bias": _tensor(params["patch_embed"]["bias"]),
+        "cls_token": _tensor(params["cls_token"]),
+        "pos_embed": _tensor(params["pos_embed"]),
+        "norm.weight": _tensor(params["norm"]["scale"]),
+        "norm.bias": _tensor(params["norm"]["bias"]),
+    }
+    for suffix, path, transpose in _VIT_BLOCK_ENTRIES:
+        arr = np.asarray(_node(params["blocks"], path))
+        if arr.shape[0] != cfg.depth:
+            raise ValueError(f"blocks.{'.'.join(path)}: params depth {arr.shape[0]} != config {cfg.depth}")
+        for i in range(cfg.depth):
+            state[f"blocks.{i}.{suffix}"] = _tensor(arr[i].T if transpose else arr[i])
+    return state
+
+
 def _to_numpy(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().float().numpy()
@@ -262,6 +318,8 @@ __all__ = [
     "to_jax_params",
     "dit_from_jax_params",
     "dit_to_jax_params",
+    "inception_from_jax_params",
+    "vit_from_jax_params",
     "released_state_to_module_state",
     "module_state_to_released_state",
 ]
