@@ -76,8 +76,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the 350M width with a dead image; runs the 350M AE in fp32 on the fp32
    forward against the unfused composition, and the same AE ``quantize()``d
    (the fp32 forward, the fp32 RMSNorm + quantize and the fused FFN a block)
-   against its run on the quantize kernels' plain versions; and runs both A/B entry points
-   at the recorded shapes with fewer timed calls;
+   against its run on the quantize kernels' plain versions; holds the fp32
+   instances of #4, #5 and #6 (plain and fold), the q/k prologue, the fp32
+   forward's lse instance and #3 against their plain versions (TF32 off) at
+   the high-resolution and 256/1024-token shapes, timed beside SDPA in fp32;
+   runs the 350M AE in fp32 at 1024p on them against the unfused
+   composition and trains it in fp32 compute (1024p on the fold's fp32
+   instances, 256 tokens with ``attn_impl="fused"`` on the lse instance and
+   #3); and runs both A/B entry points at the recorded shapes with fewer
+   timed calls;
 10. runs the eval CLI's ``main`` (``vitok_torch.scripts.eval_vae``) in this
    process on 256 seeded images up to 256 px: 350M-f16x64 with random
    weights at full width and depth, batch 64, SSIM, PSNR, FID (the full
@@ -733,9 +740,12 @@ def launch_counts() -> dict:
     return {"fused_attention": fa.LAUNCHES, "fused_qk_prologue": fa.PROLOGUE_LAUNCHES,
             "fused_attention_bwd": fa.BWD_LAUNCHES, "fused_attention_q8": fa.Q8_LAUNCHES,
             "fused_attention_mma": fa.MMA_LAUNCHES, "fused_attention_f32": fa.F32_LAUNCHES,
-            "fused_attention_mma_f32": fa.F32_MMA_LAUNCHES,
+            "fused_attention_mma_f32": fa.F32_MMA_LAUNCHES, "fused_attention_f32_lse": fa.F32_LSE_LAUNCHES,
+            "fused_qk_prologue_f32": fa.PROLOGUE_F32_LAUNCHES, "fused_attention_bwd_f32": fa.BWD_F32_LAUNCHES,
             "flash_attention": fl.LAUNCHES,
             "flash_attention_dq": fl.DQ_LAUNCHES, "flash_attention_dkv": fl.DKV_LAUNCHES,
+            "flash_attention_f32": fl.F32_LAUNCHES, "flash_attention_dq_f32": fl.DQ_F32_LAUNCHES,
+            "flash_attention_dkv_f32": fl.DKV_F32_LAUNCHES,
             **quant.LAUNCHES, **abb.LAUNCHES, **ab8.LAUNCHES}
 
 
@@ -748,7 +758,9 @@ def reset_counts() -> None:
 
     fa.LAUNCHES = fa.PROLOGUE_LAUNCHES = fa.BWD_LAUNCHES = fa.Q8_LAUNCHES = 0
     fa.MMA_LAUNCHES = fa.F32_LAUNCHES = fa.F32_MMA_LAUNCHES = 0
+    fa.F32_LSE_LAUNCHES = fa.PROLOGUE_F32_LAUNCHES = fa.BWD_F32_LAUNCHES = 0
     fl.LAUNCHES = fl.DQ_LAUNCHES = fl.DKV_LAUNCHES = 0
+    fl.F32_LAUNCHES = fl.DQ_F32_LAUNCHES = fl.DKV_F32_LAUNCHES = 0
     for counts in (quant.LAUNCHES, abb.LAUNCHES, ab8.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -756,9 +768,11 @@ def reset_counts() -> None:
 
 def _expect(**counts) -> dict:
     """Expected launches of one run: the named counts, every other kernel 0.
-    The q/k prologue runs before every launch of the wgmma forward and of the
-    backward, unless its count is named."""
-    counts.setdefault("fused_qk_prologue", counts.get("fused_attention", 0) + counts.get("fused_attention_bwd", 0))
+    The q/k prologue runs before every launch of the wgmma forward and before
+    every backward (two launches: dq, then dk/dv), unless its count is
+    named."""
+    counts.setdefault("fused_qk_prologue",
+                      counts.get("fused_attention", 0) + counts.get("fused_attention_bwd", 0) // 2)
     return {k: counts.get(k, 0) for k in launch_counts()}
 
 
@@ -1790,7 +1804,7 @@ def fused_training_phase(device, card: str) -> dict:
     grad_rel = rel_l2(g_fused, g_auto)
     finite = all(bool(torch.isfinite(g).all()) for g in g_fused)
     loss_gap = abs(loss_f.item() - loss_a.item()) / abs(loss_a.item())
-    want_first = _expect(fused_attention=depth, fused_attention_bwd=depth)
+    want_first = _expect(fused_attention=depth, fused_attention_bwd=2 * depth)
     if not (finite and first == want_first and launch_counts() == want_first
             and grad_rel <= TRAIN_GRAD_REL_L2 and loss_gap <= 1e-2):
         raise AssertionError(
@@ -1827,7 +1841,7 @@ def fused_training_phase(device, card: str) -> dict:
     _with_checkpoint(model, 1)
     torch.cuda.reset_peak_memory_stats()
     state, remat_metrics, remat_ms, remat_launches = _timed_steps(train_step, state, inputs, 1)
-    expect = _expect(fused_attention=2 * depth, fused_attention_bwd=depth)
+    expect = _expect(fused_attention=2 * depth, fused_attention_bwd=2 * depth)
     if remat_launches[0] != expect or not np.isfinite(remat_metrics[0]["loss/total"]):
         raise AssertionError(f"fused training with checkpoint=1: launches {remat_launches[0]} (expected {expect}), "
                              f"loss {remat_metrics[0]['loss/total']}")
@@ -2101,7 +2115,7 @@ def dit_training_phase(device, card: str) -> dict:
     losses, step_ms, per_step = run(DIT_TRAIN_STEPS)
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = _expect(fused_attention=depth, fused_attention_bwd=depth)
+    want = _expect(fused_attention=depth, fused_attention_bwd=2 * depth)
     if any(got != want for got in per_step) or not np.isfinite(losses).all():
         raise AssertionError(f"DiT training: launches per step {per_step} (expected {want}), losses {losses}")
     ms = float(np.median(step_ms[1:]))
@@ -2283,12 +2297,12 @@ def _check_ab(what, got, want, rows, f32) -> float:
     return max_abs
 
 
-def _one_launch(name: str, fn):
-    """``fn()`` with the launch count ``name`` going up by exactly one."""
+def _one_launch(name: str, fn, times: int = 1):
+    """``fn()`` with the launch count ``name`` going up by exactly ``times``."""
     before = launch_counts()[name]
     out = fn()
-    if launch_counts()[name] != before + 1:
-        raise AssertionError(f"{name}: {launch_counts()[name] - before} launches counted for one call")
+    if launch_counts()[name] != before + times:
+        raise AssertionError(f"{name}: {launch_counts()[name] - before} launches counted for one call, not {times}")
     return out
 
 
@@ -2686,6 +2700,501 @@ def f32_int8_phase(device, card: str, f32_ae: dict) -> dict:
     return dict(launches=launches, rel_l2_vs_plain=rel, ms_per_img=ms / batch, f32_ms_per_img=f32_ae["ms_per_img"])
 
 
+# ---------------------------------------------------------------------------
+# The fp32 instances: #4, #5 and #6 (plain and fold), the q/k prologue, the
+# fp32 walker's lse instance (#1 under autograd) and #3; the fp32 AE at
+# 1024p and fp32-compute training on them
+# ---------------------------------------------------------------------------
+
+F32_FLASH_ROWS = (  # (label, B, N, H, D, masked, sw): the fp32 AE's high-resolution shapes
+    ("350M@1024p", 2, 4096, 16, 64, True, FLASH_SW),
+    ("5B width", 1, 2048, 24, 128, False, FLASH_SW),
+)
+F32_FUSED_ROWS = (  # (label, B, N, C, H, masked): #3's rows in PERF.md, no window
+    ("350M@256p", 32, 256, 1024, 16, True),
+    ("350M@1024", 8, 1024, 1024, 16, False),
+)
+F32_OUT_REL = 1e-5   # fp32 outputs against their plain versions (TF32 off), of the largest entry
+F32_GRAD_REL = 1e-4  # fp32 gradients against their plain versions, of each one's largest entry
+F32_F64_FACTOR = 2.0  # #4-#6's error against float64 within this times their plain versions'
+F32_TRAIN = ("1024p", 4096, 1, [(1024, 1024)])
+F32_FUSED_TRAIN = ("256p", 256, 32, RESOLUTIONS[0][3])
+F32_TRAIN_STEPS = 3
+F32_TRAIN_GRAD_REL_L2 = 1e-3  # all parameter gradients, kernels against the plain backward, fp32 compute
+
+
+def _f32_inputs(seed, b, n, c, h, masked, device):
+    """``_attention_inputs``' gains, tables and tail mask with an fp32 qkv
+    drawn in fp32 (bf16 values would leave the split's second and third
+    pieces 0)."""
+    import torch
+
+    _, qs, ks, cos, sin, mask = _attention_inputs(np.random.default_rng(seed), b, n, c, h, masked, device)
+    qkv = np.random.default_rng(seed + 100).standard_normal((b, n, 3 * c), dtype=np.float32)
+    return torch.from_numpy(qkv).to(device), qs, ks, cos, sin, mask
+
+
+def _f32_err(what, got, want, limit) -> tuple:
+    """(max abs error, its share of want's largest entry), within ``limit``
+    of that entry and finite, or raise."""
+    import torch
+
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if got.dtype != torch.float32 or not (bool(torch.isfinite(got).all()) and err <= limit * top):
+        raise AssertionError(f"{what}: {got.dtype} max |err| {err:.3e} > {limit} x {top:.3e}")
+    return err, err / top
+
+
+def _f32_timed(row: dict, key: str, fn, plain=None) -> None:
+    """``row[key + "ms"]`` (chained CUDA events) and ``[key + "dev_ms"]`` (the
+    host ahead), and the plain version's ``[key + "plain_ms"]``."""
+    from vitok_torch.benchmarks import host_ahead_ms
+
+    row[f"{key}ms"], row[f"{key}dev_ms"] = time_ms(fn), host_ahead_ms(fn)
+    if plain is not None:
+        row[f"{key}plain_ms"] = time_ms(plain, runs=2, warmup=1)
+
+
+def _sdpa_bwd_ms(q, k, v, am, g) -> float:
+    """SDPA's backward alone (fp32, the boolean mask) on ``[B, N, H, D]``."""
+    import torch
+    import torch.nn.functional as F
+
+    xs = [t.transpose(1, 2).detach().clone().requires_grad_() for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*xs, attn_mask=am)
+    gt = g.transpose(1, 2)
+    ms = time_ms(lambda: torch.autograd.grad(o, xs, gt, retain_graph=True), runs=3, warmup=1)
+    del o, xs
+    return ms
+
+
+def _attention_f64(q, k, v, mask, sw, g) -> tuple:
+    """``(out, dq, dk, dv)`` of attention over ``[B, N, H, D]`` in float64
+    with autograd, a sample at a time: scale 1/sqrt(d), keys outside the mask
+    or the window |i - j| <= sw take no weight, the cotangent ``g`` zeroed
+    on padded query rows. A query row with no live key (padding past the
+    window) attends to itself: its output is not compared and its zero
+    cotangent moves nothing."""
+    import torch
+
+    b, n, h, d = q.shape
+    idx = torch.arange(n, device=q.device)
+    near = None if sw is None else (idx[:, None] - idx[None, :]).abs() <= sw
+    res = []
+    for i in range(b):
+        x = [t[i].double().transpose(0, 1).detach().requires_grad_() for t in (q, k, v)]  # [H, N, D]
+        live = torch.ones((n, n), dtype=torch.bool, device=q.device) if mask is None else mask[i][None, :].expand(n, n)
+        live = live if near is None else live & near
+        live = live | (~live.any(1, keepdim=True) & torch.eye(n, dtype=torch.bool, device=q.device))
+        s = (x[0] @ x[1].transpose(1, 2) / d ** 0.5).masked_fill(~live, float("-inf"))
+        o = torch.softmax(s, -1) @ x[2]
+        gi = g[i].double().transpose(0, 1)
+        if mask is not None:
+            gi = gi * mask[i][None, :, None]
+        grads = torch.autograd.grad(o, x, gi)
+        res.append([o.detach().transpose(0, 1)] + [t.transpose(0, 1) for t in grads])
+        del x, s, o, grads
+    return tuple(torch.stack(z) for z in zip(*res))
+
+
+def _f32_flash_row(label, b, n, h, d, masked, sw, device, flex) -> dict:
+    """The q/k prologue's fp32 instance, #4 on its views, #5 and #6 (plain
+    instances) and the fold's backward (the prologue, then #5 and #6 in
+    their fold instances) against their plain versions, each timed beside
+    its plain version, its bound and SDPA (fp32, the boolean mask; with
+    ``flex`` FlexAttention's forward too); #4-#6 and their plain versions
+    also against float64 (``_attention_f64``), each kernel within
+    F32_F64_FACTOR of its plain version's error there."""
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops import fused_attention as fa
+
+    c = h * d
+    qkv, qs, ks, cos, sin, mask = _f32_inputs(20, b, n, c, h, masked, device)
+    what = f"fp32 {label} {'tail+' if masked else ''}sw={sw}"
+    valid = [n] * b if mask is None else mask.sum(1).tolist()
+    pairs = _flash_pairs(valid, n, sw)
+    tensor, rows = b * n * c * 4, b * h * n * 4  # one fp32 [B, N, C] tensor; one fp32 [B, H, N]
+    tables, mbytes = 2 * b * n * (d // 2) * 4, (0 if mask is None else b * n)
+    pair_flops = 2.0 * h * d * pairs  # one product over the live pairs
+    row = dict(shape=label, case=f"{'tail+' if masked else ''}sw{sw}")
+
+    prologue = lambda: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h)
+    qk, _ = _one_launch("fused_qk_prologue_f32", prologue)
+    want = fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h)[0]
+    row["prologue_max_abs_err"], row["prologue_rel_err"] = _f32_err(f"{what} prologue", qk, want, F32_OUT_REL)
+    del want
+    _f32_timed(row, "prologue_", prologue, lambda: fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h))
+    row["prologue_bound_ms"], row["prologue_bound_by"] = _bound_ms(4 * tensor + tables + 2 * d * 4, 0.0,
+                                                                   BF16_FLOPS_PER_S)
+
+    q, k = qk.view(b, n, 2, h, d).unbind(2)  # what the fold hands #4: views of the prologue's scratch
+    v = qkv.view(b, n, 3, h, d)[:, :, 2]
+    fwd = lambda: fl.flash_attention(q, k, v, mask, sw, return_lse=True)
+    out, lse = _one_launch("flash_attention_f32", fwd)
+    want, want_lse = fl.flash_attention_plain(q, k, v, mask, sw, return_lse=True)
+    row["max_abs_err"], row["rel_err"] = _f32_err(f"{what} #4", out, want, F32_OUT_REL)
+    live = want_lse < 1e29
+    row["lse_max_abs_err"] = (lse[live] - want_lse[live]).abs().max().item()
+    if not (row["lse_max_abs_err"] <= LSE_ATOL and torch.equal(lse >= 1e29, ~live)):
+        raise AssertionError(f"{what} #4: lse max |err| {row['lse_max_abs_err']:.3e} (limit {LSE_ATOL}) or dead rows")
+    if mask is not None and out[~mask].any():
+        raise AssertionError(f"{what} #4: padded rows are not exactly 0")
+    del want, want_lse
+    _f32_timed(row, "", fwd, lambda: fl.flash_attention_plain(q, k, v, mask, sw, return_lse=True))
+    row["bound_ms"], row["bound_by"] = _bound_ms(4 * tensor + mbytes + rows, 6 * 2 * pair_flops, BF16_FLOPS_PER_S)
+    am = _sdpa_mask(mask, n, sw, device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), runs=3, warmup=1)
+    row["flex_ms"] = row["flex_rel_err"] = None
+    if flex:
+        call = _flex_call(q, k, v, mask, sw)
+        got = call().transpose(1, 2).float()
+        ref = fl.flash_attention_plain(q, k, v, mask, sw)
+        keep = torch.ones((b, n), dtype=torch.bool, device=device) if mask is None else mask
+        row["flex_rel_err"] = ((got - ref)[keep].abs().max() / ref[keep].abs().max()).item()
+        row["flex_ms"] = time_ms(call)
+        del got, ref
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    g = torch.randn((b, n, h, d), generator=gen, device=device)
+    dq_call = lambda: fl.flash_dq_cuda(q, k, v, out, lse, g, mask, sw)
+    dq, delta = _one_launch("flash_attention_dq_f32", dq_call)
+    dkv_call = lambda: fl.flash_dkv_cuda(q, k, v, lse, delta, g, mask, sw)
+    dk, dv = _one_launch("flash_attention_dkv_f32", dkv_call)
+    want = fl.flash_attention_bwd_plain(q, k, v, out, lse, g, mask, sw)
+    errs = [_f32_err(f"{what} {name}", a, r, F32_GRAD_REL) for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+    row["dq_max_abs_err"], row["dq_rel_err"] = errs[0]
+    row["dkv_max_abs_err"], row["dkv_rel_err"] = max(errs[1][0], errs[2][0]), max(errs[1][1], errs[2][1])
+    # The kernels' and the plain versions' own errors: each against float64 (its max |err| of the largest entry).
+    ref = _attention_f64(q, k, v, mask, sw, g)
+    keep = slice(None) if mask is None else mask
+    top = lambda a, r: ((a[keep].double() - r[keep]).abs().max() / r[keep].abs().max()).item()
+    row["f64_rel_err"] = top(out, ref[0])
+    row["f64_plain_rel_err"] = top(fl.flash_attention_plain(q, k, v, mask, sw), ref[0])
+    for key, got_, want_, ref_ in (("dq_", (dq,), want[:1], ref[1:2]), ("dkv_", (dk, dv), want[1:], ref[2:])):
+        rel = [(top(a, r), top(p, r)) for a, p, r in zip(got_, want_, ref_)]
+        row[f"{key}f64_rel_err"], row[f"{key}f64_plain_rel_err"] = max(x[0] for x in rel), max(x[1] for x in rel)
+    for key, name in (("", "#4"), ("dq_", "#5"), ("dkv_", "#6")):
+        if not row[f"{key}f64_rel_err"] <= F32_F64_FACTOR * row[f"{key}f64_plain_rel_err"]:
+            raise AssertionError(f"{what} {name}: {row[f'{key}f64_rel_err']:.3e} of the largest entry from float64, "
+                                 f"over {F32_F64_FACTOR} x its plain version's {row[f'{key}f64_plain_rel_err']:.3e}")
+    del want, dq, dk, dv, ref
+    _f32_timed(row, "dq_", dq_call)
+    _f32_timed(row, "dkv_", dkv_call, lambda: fl.flash_attention_bwd_plain(q, k, v, out, lse, g, mask, sw))
+    row["bwd_plain_ms"] = row.pop("dkv_plain_ms")  # dq, dk and dv together
+    row["dq_bound_ms"], row["dq_bound_by"] = _bound_ms(6 * tensor + 2 * rows + mbytes, 6 * 3 * pair_flops,
+                                                       BF16_FLOPS_PER_S)
+    row["dkv_bound_ms"], row["dkv_bound_by"] = _bound_ms(6 * tensor + 2 * rows + mbytes, 6 * 4 * pair_flops,
+                                                         BF16_FLOPS_PER_S)
+    row["bwd_library_ms"] = _sdpa_bwd_ms(q, k, v, am, g)
+    del out, lse, am
+
+    # The fold's backward: the prologue (qrot, krot, delta), then #5 and #6 in their fold instances.
+    args, kw = (qkv, qs, ks, cos, sin, mask), dict(num_heads=h, sliding_window=sw)
+    fout, flse = fa._flash_fold_cuda(*args, h, sw, want_lse=True)
+    dout = g.reshape(b, n, c) if mask is None else g.reshape(b, n, c) * mask[..., None]
+    bwd = lambda: fa.flash_qkv_attention_bwd(*args, dout, out=fout, lse=flse, **kw)
+    before = launch_counts()
+    got, again = bwd(), bwd()
+    moved = {k_: v_ - before[k_] for k_, v_ in launch_counts().items() if v_ != before[k_]}
+    if moved != {"fused_qk_prologue_f32": 2, "flash_attention_dq_f32": 2, "flash_attention_dkv_f32": 2}:
+        raise AssertionError(f"{what} fold backward: launches {moved} for two calls")
+    want = fa.flash_qkv_attention_bwd_plain(*args, dout, out=fout, lse=flse, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{what} fold backward: two runs differ")
+    errs = [_f32_err(f"{what} fold {name}", a, r, F32_GRAD_REL) for name, a, r in zip(("dqkv", "dq_scale", "dk_scale"),
+                                                                                     got, want)]
+    row["fold_bwd_max_abs_err"], row["fold_bwd_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
+    del got, again, want
+    _f32_timed(row, "fold_bwd_", bwd, lambda: fa.flash_qkv_attention_bwd_plain(*args, dout, out=fout, lse=flse, **kw))
+    row["fold_bwd_bound_ms"], row["fold_bwd_bound_by"] = _bound_ms(
+        8 * tensor + tables + rows + mbytes, 6 * 7 * pair_flops, BF16_FLOPS_PER_S)
+    # The fold instances alone, on the prologue's scratch and delta.
+    qk2, delta2 = fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, out=fout, dout=dout)
+    maskb = None if mask is None else mask.bool().contiguous()
+    counts = None if maskb is None else fl.key_counts(maskb)
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((b, h, -(-n // 64), d), dtype=torch.float32, device=device)
+    swi = -1 if sw is None else sw
+    fold_call = lambda fn, gain: lambda: fn(qkv, qk2, gain, cos, sin, maskb, counts, dout, flse, delta2, dqkv, part, h,
+                                            swi)
+    _f32_timed(row, "fold_dq_", fold_call(fl.flash_dq_fold_cuda, qs))
+    _f32_timed(row, "fold_dkv_", fold_call(fl.flash_dkv_fold_cuda, ks))
+    log(f"  fp32 {label} {row['case']}: prologue {row['prologue_ms']:.4f} ms (plain {row['prologue_plain_ms']:.4f}, "
+        f"bound {row['prologue_bound_ms']:.4f}); #4 {row['ms']:.4f} ms (dev {row['dev_ms']:.4f}, plain "
+        f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} {row['bound_by']}, SDPA {row['library_ms']:.4f}, flex "
+        f"{row['flex_ms']}), rel err {row['rel_err']:.2e}, lse {row['lse_max_abs_err']:.2e}; #5 {row['dq_ms']:.4f} "
+        f"(bound {row['dq_bound_ms']:.4f}), #6 {row['dkv_ms']:.4f} (bound {row['dkv_bound_ms']:.4f}), plain "
+        f"{row['bwd_plain_ms']:.4f}, SDPA bwd {row['bwd_library_ms']:.4f}, rel err {row['dq_rel_err']:.2e}/"
+        f"{row['dkv_rel_err']:.2e}; against float64: #4 {row['f64_rel_err']:.2e} (plain "
+        f"{row['f64_plain_rel_err']:.2e}), #5 {row['dq_f64_rel_err']:.2e} ({row['dq_f64_plain_rel_err']:.2e}), #6 "
+        f"{row['dkv_f64_rel_err']:.2e} ({row['dkv_f64_plain_rel_err']:.2e}); fold bwd {row['fold_bwd_ms']:.4f} ms "
+        f"(#5 {row['fold_dq_ms']:.4f}, #6 "
+        f"{row['fold_dkv_ms']:.4f}; plain {row['fold_bwd_plain_ms']:.4f}, bound {row['fold_bwd_bound_ms']:.4f}), "
+        f"rel err {row['fold_bwd_rel_err']:.2e}")
+    return row
+
+
+def _f32_fused_row(label, b, n, c, h, masked, device) -> dict:
+    """The fp32 walker's lse instance (#1 under autograd) and #3's fp32
+    instance (the prologue, then the fp32 dq and dk/dv fold instances at
+    the walker's log2 lse) against their plain versions, timed beside them,
+    their bounds and SDPA (fp32, the boolean mask, on q and k normed and
+    rotated)."""
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.ops import fused_attention as fa
+
+    d = c // h
+    qkv, qs, ks, cos, sin, mask = _f32_inputs(30, b, n, c, h, masked, device)
+    args = (qkv, qs, ks, cos, sin, mask)
+    what = f"fp32 fused {label} {'tail' if masked else 'none'}"
+    valid = [n] * b if mask is None else mask.sum(1).tolist()
+    tensor, rows = b * n * c * 4, b * h * n * 4
+    tables, mbytes = 2 * b * n * (d // 2) * 4, (0 if mask is None else b * n)
+    row = dict(shape=label, case="tail" if masked else "none")
+
+    fwd = lambda: fa._fused_cuda(*args, h, None, want_lse=True)
+    out, lse = _one_launch("fused_attention_f32_lse", fwd)
+    want, want_lse = fa.fused_qkv_attention_plain(*args, num_heads=h, return_lse=True)
+    row["max_abs_err"], row["rel_err"] = _f32_err(f"{what} #1 lse instance", out, want, F32_OUT_REL)
+    keep = (torch.ones((b, n), dtype=torch.bool, device=device) if mask is None else mask)[:, None, :].expand_as(lse)
+    row["lse_max_abs_err"] = (lse[keep] - want_lse[keep]).abs().max().item()
+    if not (row["lse_max_abs_err"] <= LSE_ATOL and bool((lse[~keep] == 1e30).all())):
+        raise AssertionError(f"{what}: lse max |err| {row['lse_max_abs_err']:.3e} (limit {LSE_ATOL}) or padded rows")
+    del want, want_lse
+    _f32_timed(row, "", fwd, lambda: fa.fused_qkv_attention_plain(*args, num_heads=h, return_lse=True))
+    row["bound_ms"], row["bound_by"] = _bound_ms(4 * tensor + tables + mbytes + rows + 2 * d * 4,
+                                                 6 * 4.0 * h * d * _needed_pairs(b, mask, n, None),
+                                                 BF16_FLOPS_PER_S)
+    qn, kn, vn = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)  # [B, H, N, D]
+    am = _sdpa_mask(mask, n, None, device)
+    row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qn, kn, vn, attn_mask=am), runs=3, warmup=1)
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    dout = torch.randn((b, n, c), generator=gen, device=device)
+    bwd = lambda: fa.fused_qkv_attention_bwd(*args, dout, num_heads=h, out=out, lse=lse)
+    got = _one_launch("fused_attention_bwd_f32", bwd, times=2)  # its dq and dk/dv launches
+    again = bwd()
+    want = fa.fused_qkv_attention_bwd_plain(*args, dout, num_heads=h, out=out)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{what} #3: two runs differ")
+    errs = [_f32_err(f"{what} #3 {name}", a, r, F32_GRAD_REL) for name, a, r in zip(("dqkv", "dq_scale", "dk_scale"),
+                                                                                   got, want)]
+    row["bwd_max_abs_err"], row["bwd_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
+    del got, again, want
+    _f32_timed(row, "bwd_", bwd, lambda: fa.fused_qkv_attention_bwd_plain(*args, dout, num_heads=h, out=out))
+    row["bwd_bound_ms"], row["bwd_bound_by"] = _bound_ms(8 * tensor + tables + rows + mbytes,
+                                                         6 * 7 * 2.0 * h * d * _flash_pairs(valid, n, None),
+                                                         BF16_FLOPS_PER_S)
+    g = dout.view(b, n, h, d) if mask is None else (dout * mask[..., None]).view(b, n, h, d)
+    row["bwd_library_ms"] = _sdpa_bwd_ms(*(t.transpose(1, 2) for t in (qn, kn, vn)), am, g)
+    log(f"  fp32 fused {label} B {b} {row['case']}: #1 lse instance {row['ms']:.4f} ms (dev {row['dev_ms']:.4f}, plain "
+        f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} {row['bound_by']}, SDPA {row['library_ms']:.4f}), rel err "
+        f"{row['rel_err']:.2e}, lse {row['lse_max_abs_err']:.2e}; #3 {row['bwd_ms']:.4f} ms (dev "
+        f"{row['bwd_dev_ms']:.4f}, plain {row['bwd_plain_ms']:.4f}, bound {row['bwd_bound_ms']:.4f} "
+        f"{row['bwd_bound_by']}, SDPA bwd {row['bwd_library_ms']:.4f}), rel err {row['bwd_rel_err']:.2e}")
+    return row
+
+
+def _f32_first_grads(model, inputs, loss_cfg, reference, device) -> float:
+    """rel L2 over all parameters of the first step's gradients, the kernels
+    against the same step with the backward swapped for its plain version
+    (``reference``: a context manager); the losses must agree exactly."""
+    import torch
+    from vitok_torch.train_lib import compute_loss
+
+    params = list(model.parameters())
+
+    def grads():
+        gen = torch.Generator(device=device).manual_seed(11)
+        loss, _ = compute_loss(model, inputs, loss_cfg, gen)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    loss_k, got = grads()
+    with reference():
+        loss_p, want = grads()
+    torch.cuda.synchronize()
+    num = sum((a.double() - b.double()).square().sum() for a, b in zip(got, want))
+    rel = (num / sum(b.double().square().sum() for b in want)).sqrt().item()
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    if not (finite and loss_k.item() == loss_p.item() and rel <= F32_TRAIN_GRAD_REL_L2):
+        raise AssertionError(f"fp32 training: first-step gradients rel L2 {rel:.3e} (limit {F32_TRAIN_GRAD_REL_L2}), "
+                             f"finite {finite}, loss {loss_k.item()} vs {loss_p.item()}")
+    return rel
+
+
+def _f32_steps(what, train_step, state, inputs, steps, per_step, card) -> tuple:
+    """``steps`` steps from counts set to 0: each must launch ``per_step``;
+    losses finite and falling. Returns (state, result dict)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # this path's run
+    state, metrics, step_ms, launches = _timed_steps(train_step, state, inputs, steps)
+    counted = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(got != per_step for got in launches):
+        raise AssertionError(f"{what}: launches per step {launches}, expected {per_step}")
+    totals = [m["loss/total"] for m in metrics]
+    if not (all(np.isfinite(list(m.values())).all() for m in metrics) and totals[-1] < totals[0]):
+        raise AssertionError(f"{what}: losses {totals} must be finite and fall")
+    ms = float(np.median(step_ms[1:]))
+    log(f"  {what}: {steps} steps, loss " + " -> ".join(f"{t:.5f}" for t in totals)
+        + f"; {ms:.3f} ms/step (median of steps 2-{steps}; first {step_ms[0]:.3f}), peak memory {peak_gb:.3f} GB; "
+        f"launches a step {_nonzero(per_step)} on {card}")
+    return state, dict(launches=counted, losses=totals, ms_per_step=ms, first_ms=step_ms[0], peak_gb=peak_gb)
+
+
+def f32_training_phase(device, card: str) -> dict:
+    """The fp32 instances end to end. (a) Each against its plain version on
+    the card with TF32 off (``F32_FLASH_ROWS``, ``F32_FUSED_ROWS``); (b) the
+    350M AE in fp32 at 1024p with sw 1024: every block one fp32 prologue and
+    one fp32 #4, decoded patches within F32_MODEL_REL_L2 of the unfused
+    composition; (c) fp32-compute training of that model through
+    ``make_train_step`` with AdamW: at 1024p (the prologue and #4 forward,
+    the prologue, #5 and #6 fold instances backward; then ``checkpoint=1``)
+    and at 256 tokens, batch 32, with ``attn_impl="fused"`` (the walker's
+    lse instance forward, #3 backward), each step's launches counted, losses
+    finite and falling, the first step's gradients within
+    F32_TRAIN_GRAD_REL_L2 of the plain backward's."""
+    import torch
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.train_lib import LossConfig, create_optimizer, create_schedule, create_train_state, make_train_step
+
+    t0 = time.time()
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        flash = [_f32_flash_row(*r, device, flex=i == 0) for i, r in enumerate(F32_FLASH_ROWS)]
+        fused = [_f32_fused_row(*r, device) for r in F32_FUSED_ROWS]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    torch.cuda.empty_cache()
+    log(f"  fp32 kernel rows: {time.time() - t0:.1f} s")
+
+    cfg_kw = {**decode_variant(VARIANT), "sw": FLASH_SW}
+    model = AE(**cfg_kw, seed=0, device=device, compute_dtype=torch.float32, param_dtype=torch.float32,
+               trainable=True)
+    _random_gates(model, device)
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    (case,) = main_path_cases(device, [F32_TRAIN], seed=8)
+    name, max_tokens, batch, images, inputs = case
+    reference = AE(**{**cfg_kw, "attn_impl": "xla"}, state_dict=model.state_dict(), device=device,
+                   compute_dtype=torch.float32)
+    log(f"fp32 training path: {VARIANT} with fp32 compute and master weights, sw={FLASH_SW}, {name} batch {batch}")
+    with torch.no_grad():
+        (out,), ae_launches = _run_counted(model, [case], _expect(flash_attention_f32=depth,
+                                                                   fused_qk_prologue_f32=depth), "fp32 AE")
+        _check_output(name, max_tokens, batch, images, inputs, out)
+        rel = _valid_rel_l2(out, reference.decode(reference.encode(inputs)), inputs)
+        if not (out["patches"].dtype == torch.float32 and rel <= F32_MODEL_REL_L2):
+            raise AssertionError(f"fp32 AE {name}: rel L2 vs the unfused composition {rel:.3e} > {F32_MODEL_REL_L2}")
+        ae_ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=3, warmup=1)
+        ref_ms = time_ms(lambda: reference.decode(reference.encode(inputs)), runs=2, warmup=1)
+    del reference, out
+    torch.cuda.empty_cache()
+    log(f"  fp32 AE {name}: {depth} launches each of the fp32 prologue and #4 a forward; rel L2 vs unfused "
+        f"{rel:.3e} (limit {F32_MODEL_REL_L2}); encode+decode {ae_ms / batch:.3f} ms/img (unfused "
+        f"{ref_ms / batch:.3f}) on {card}")
+
+    side = int(max_tokens ** 0.5)
+    loss_cfg = LossConfig(ssim_weight=0.1, tile_size=256, n_tiles=2, ssim_grid=(side, side))
+    grad_rel = _f32_first_grads(model, inputs, loss_cfg, plain_flash_backward, device)
+    log(f"  fp32 {name} first-step gradients, kernels vs plain backward: rel L2 {grad_rel:.3e} over all parameters")
+    tx = create_optimizer(create_schedule("constant", TRAIN_LR, 2 * F32_TRAIN_STEPS + 1, warmup_frac=0.0))
+    state = create_train_state(model, tx)
+    train_step = make_train_step(tx, loss_cfg)
+    per_step = _expect(flash_attention_f32=depth, fused_qk_prologue_f32=2 * depth, flash_attention_dq_f32=depth,
+                       flash_attention_dkv_f32=depth)
+    state, flash_run = _f32_steps(f"fp32 train {name}", train_step, state, inputs, F32_TRAIN_STEPS, per_step, card)
+    _with_checkpoint(model, 1)
+    torch.cuda.reset_peak_memory_stats()
+    state, _, remat_ms, remat_launches = _timed_steps(train_step, state, inputs, 1)
+    remat_expect = _expect(flash_attention_f32=2 * depth, fused_qk_prologue_f32=3 * depth,
+                           flash_attention_dq_f32=depth, flash_attention_dkv_f32=depth)
+    if remat_launches[0] != remat_expect:
+        raise AssertionError(f"fp32 training with checkpoint=1: launches {remat_launches[0]}, expected {remat_expect}")
+    remat_peak = torch.cuda.max_memory_allocated() / 1e9
+    _with_checkpoint(model, 0)
+    log(f"  fp32 train {name}, checkpoint=1: launches {_nonzero(remat_launches[0])}; {remat_ms[0]:.3f} ms (one "
+        f"step), peak memory {remat_peak:.3f} GB on {card}")
+
+    (fcase,) = main_path_cases(device, [F32_FUSED_TRAIN], seed=7)
+    fname, ftokens, fbatch, _, finputs = fcase
+    fside = int(ftokens ** 0.5)
+    floss = LossConfig(ssim_weight=0.1, tile_size=256, n_tiles=2, ssim_grid=(fside, fside))
+    _set_attn_impl(model, "fused")
+    fused_rel = _f32_first_grads(model, finputs, floss, plain_fused_backward, device)
+    log(f"  fp32 'fused' {fname} batch {fbatch} first-step gradients, #3 vs its plain version: rel L2 "
+        f"{fused_rel:.3e} over all parameters")
+    fused_step = make_train_step(tx, floss)
+    fused_expect = _expect(fused_attention_f32_lse=depth, fused_attention_bwd_f32=2 * depth,
+                           fused_qk_prologue_f32=depth)
+    state, fused_run = _f32_steps(f"fp32 train 'fused' {fname} batch {fbatch}", fused_step, state, finputs,
+                                  F32_TRAIN_STEPS, fused_expect, card)
+    del model, state
+    torch.cuda.empty_cache()
+    log(f"fp32 training phase: {time.time() - t0:.1f} s")
+    return dict(flash_rows=flash, fused_rows=fused, ae_launches=ae_launches, ae_rel_l2=rel,
+                ae_ms_per_img=ae_ms / batch, ae_unfused_ms_per_img=ref_ms / batch, grad_rel_l2=grad_rel,
+                fused_grad_rel_l2=fused_rel, flash_run=flash_run, fused_run=fused_run, remat_ms=remat_ms[0],
+                remat_peak_gb=remat_peak, seconds=time.time() - t0)
+
+
+def f32_training_entries(f32t: dict) -> list:
+    """Kernels-line entries of the fp32 instances: launches from the fp32
+    training runs (#4-#6 and the prologue at 1024p, the walker's lse
+    instance and #3 at 256 tokens); times at the 350M 1024p row (#4-#6, the
+    prologue) and the 256-token row (the lse instance, #3), the other rows'
+    times beside them."""
+    flash, fused = f32t["flash_rows"], f32t["fused_rows"]
+    main, top = flash[0], fused[0]
+    fl_run, fu_run = f32t["flash_run"]["launches"], f32t["fused_run"]["launches"]
+    src_fl, src_sm90 = "vitok_torch/csrc/flash_attention_f32.cu", "vitok_torch/csrc/fused_attention_sm90.cu"
+    others = lambda rows, *keys: [{"shape": r["shape"], "case": r["case"], **{k: r[k] for k in keys}} for r in rows]
+
+    def entry(name, source, replaces, launches, row, key, err, library, plain=None, **more):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+                "max_abs_err": row[err], "ms": row[f"{key}ms"], "plain_ms": row[plain or f"{key}plain_ms"],
+                "bound_ms": row[f"{key}bound_ms"], "bound_by": row[f"{key}bound_by"],
+                "library_ms": None if library is None else row[library], "dev_ms": row[f"{key}dev_ms"], **more}
+
+    return [
+        entry("flash_attention_f32", src_fl, "vitok_tpu/ops/flash_attention.py:67", fl_run["flash_attention_f32"],
+              main, "", "max_abs_err", "library_ms", flex_ms=main["flex_ms"], flex_rel_err=main["flex_rel_err"],
+              lse_max_abs_err=max(r["lse_max_abs_err"] for r in flash),
+              rows=others(flash, "ms", "dev_ms", "plain_ms", "bound_ms", "library_ms", "f64_rel_err",
+                          "f64_plain_rel_err")),
+        entry("flash_attention_dq_f32", src_fl, "vitok_tpu/ops/flash_attention.py:427",
+              fl_run["flash_attention_dq_f32"], main, "dq_", "dq_max_abs_err", "bwd_library_ms", plain="bwd_plain_ms",
+              fold_ms=main["fold_dq_ms"], fold_dev_ms=main["fold_dq_dev_ms"],
+              rows=others(flash, "dq_ms", "dq_dev_ms", "fold_dq_ms", "bwd_plain_ms", "dq_bound_ms", "bwd_library_ms",
+                          "dq_f64_rel_err", "dq_f64_plain_rel_err")),
+        entry("flash_attention_dkv_f32", src_fl, "vitok_tpu/ops/flash_attention.py:556",
+              fl_run["flash_attention_dkv_f32"], main, "dkv_", "dkv_max_abs_err", "bwd_library_ms",
+              plain="bwd_plain_ms", fold_ms=main["fold_dkv_ms"], fold_dev_ms=main["fold_dkv_dev_ms"],
+              fold_bwd_ms=main["fold_bwd_ms"], fold_bwd_plain_ms=main["fold_bwd_plain_ms"],
+              fold_bwd_bound_ms=main["fold_bwd_bound_ms"], fold_bwd_max_abs_err=main["fold_bwd_max_abs_err"],
+              rows=others(flash, "dkv_ms", "dkv_dev_ms", "fold_dkv_ms", "dkv_bound_ms", "fold_bwd_ms",
+                          "dkv_f64_rel_err", "dkv_f64_plain_rel_err")),
+        entry("fused_qk_prologue_f32", src_sm90, "vitok_tpu/ops/fused_attention.py:124",
+              fl_run["fused_qk_prologue_f32"] + fu_run["fused_qk_prologue_f32"], main, "prologue_",
+              "prologue_max_abs_err", None,
+              rows=others(flash, "prologue_ms", "prologue_dev_ms", "prologue_plain_ms", "prologue_bound_ms")),
+        entry("fused_attention_f32_lse", "vitok_torch/csrc/fused_attention_ab_f32_sm90.cu",
+              "vitok_tpu/ops/fused_attention.py:317", fu_run["fused_attention_f32_lse"], top, "", "max_abs_err",
+              "library_ms", lse_max_abs_err=max(r["lse_max_abs_err"] for r in fused),
+              rows=others(fused, "ms", "dev_ms", "plain_ms", "bound_ms", "library_ms")),
+        entry("fused_attention_bwd_f32", src_fl, "vitok_tpu/ops/fused_attention.py:645",
+              fu_run["fused_attention_bwd_f32"], top, "bwd_", "bwd_max_abs_err", "bwd_library_ms",
+              rows=others(fused, "bwd_ms", "bwd_dev_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_library_ms")),
+    ]
+
+
 def ab_entries(abkern: dict, ab_runs: dict, f32_ae: dict, kern: dict) -> list:
     """Kernels-line entries of #10-#13 (times at the recorded bf16 shape, C =
     3072, N = 256, B = 64; #10 the D2 arm, every arm beside it; #10, #11 and
@@ -3063,7 +3572,7 @@ def perceptual_phase(device, card: str) -> dict:
         loss_p, _, g_plain = grads_of()
     torch.cuda.synchronize()
     grad_rel = rel_l2(g_kernel, g_plain)
-    want = _expect(fused_attention=depth, fused_attention_bwd=depth)
+    want = _expect(fused_attention=depth, fused_attention_bwd=2 * depth)
     frozen = all(p.grad is None and not p.requires_grad for p in dino.parameters())
     if not (first == want and grad_rel <= TRAIN_GRAD_REL_L2 and frozen and float(metrics_k["loss/perceptual"]) > 0
             and abs(loss_k.item() - loss_p.item()) <= 1e-6 * abs(loss_p.item())):
@@ -3499,7 +4008,7 @@ def dit_muon_phase(device, card: str, tmp: str) -> dict:
     logs = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
     losses = [entry["loss"] for entry in logs]
     launches = launch_counts()
-    want = _expect(fused_attention=DIT_MUON_STEPS * depth, fused_attention_bwd=DIT_MUON_STEPS * depth)
+    want = _expect(fused_attention=DIT_MUON_STEPS * depth, fused_attention_bwd=2 * DIT_MUON_STEPS * depth)
     if launches != want or len(losses) != DIT_MUON_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"DiT Muon: launches {launches} (expected {want}), losses {losses}")
     log(f"  train_dit.main: DiT-{DIT_VARIANT}, {DIT_TRAIN_BATCH} seeded latents of {DIT_TOKENS}x{DIT_CODE_WIDTH}, "
@@ -3739,7 +4248,8 @@ def main() -> int:
     t0 = time.time()
     _build.build(["fused_attention_sm90", "fused_attention", "fused_attention_bwd", "flash_attention",
                   "flash_attention_bwd", "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_q8in_sm90",
-                  "fused_attention_ab_sm90", "fused_attention_ab_f32_sm90"])  # the last: the fp32 walker
+                  "fused_attention_ab_sm90", "fused_attention_ab_f32_sm90",  # the fp32 walker
+                  "flash_attention_f32"])  # the fp32 instances of #4-#6 (and #3's)
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 
@@ -3780,6 +4290,8 @@ def main() -> int:
     t0 = time.time()
     f32_int8 = f32_int8_phase(device, card, f32_ae)
     log(f"fp32 int8 path: {time.time() - t0:.1f} s")
+    f32_train = f32_training_phase(device, card)
+    torch.cuda.empty_cache()
     t0 = time.time()
     ab_runs = ab_entry_phase(device)
     log(f"A/B entry points: {time.time() - t0:.1f} s")
@@ -3802,6 +4314,7 @@ def main() -> int:
     entries[2:2] = flash_bwd_entries(bkern, training)
     entries[1:1] = fused_family_entries(q8kern, q8_path, fbkern, fused_training)
     entries += ab_entries(abkern, ab_runs, f32_ae, kern)
+    entries += f32_training_entries(f32_train)
     for e in entries:  # the 5B run's, the eval runs' and the perceptual steps' launches beside each path's own
         if bench_5b["launches"].get(e["name"]):
             e["launches_5b_bench"] = bench_5b["launches"][e["name"]]

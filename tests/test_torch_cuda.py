@@ -47,7 +47,8 @@ CASES = [("none", False, None), ("tail", True, None), ("sw", False, 12), ("tail+
 def counts():
     """The fused attention kernels' launch counts."""
     return dict(fwd=t_fa.LAUNCHES, prologue=t_fa.PROLOGUE_LAUNCHES, bwd=t_fa.BWD_LAUNCHES, q8=t_fa.Q8_LAUNCHES,
-                mma=t_fa.MMA_LAUNCHES, f32=t_fa.F32_LAUNCHES, f32_mma=t_fa.F32_MMA_LAUNCHES)
+                mma=t_fa.MMA_LAUNCHES, f32=t_fa.F32_LAUNCHES, f32_mma=t_fa.F32_MMA_LAUNCHES,
+                f32_lse=t_fa.F32_LSE_LAUNCHES, prologue_f32=t_fa.PROLOGUE_F32_LAUNCHES, bwd_f32=t_fa.BWD_F32_LAUNCHES)
 
 
 def added(before, **more):
@@ -180,18 +181,23 @@ class TestKernelOnCard:
         err = (got.float() - want).abs()
         assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
-    def test_kernel_rejects_fp32(self, cuda_device):
-        """fp32 has an instance of the forward only: a gradient through it
-        raises in the forward, before anything launches, and fp16 has no
-        instance at all."""
-        qkv, *rest = make_inputs(cuda_device)
+    def test_kernel_rejects_fp32(self, cuda_device, no_tf32):
+        """fp16 has no instance and raises; fp32 under a gradient (refused
+        until its backward was written; the name is kept) runs the fp32
+        walker's lse instance forward and #3's fp32 instance backward, and
+        gives the plain backward's gradients within 1e-4 of the largest."""
+        qkv, *rest = make_inputs(cuda_device, masked=True)
         with pytest.raises(TypeError, match="bfloat16"):
             t_fa.fused_qkv_attention(qkv.half(), *rest, num_heads=2, impl="fused")
         x = qkv.float().requires_grad_()
         before = counts()
-        with pytest.raises(TypeError, match="bfloat16"):
-            t_fa.fused_qkv_attention(x, *rest, num_heads=2, impl="fused")
-        assert counts() == before
+        out = t_fa.fused_qkv_attention(x, *rest, num_heads=2, impl="fused")
+        (got,) = torch.autograd.grad(out, x, out.detach())
+        assert counts() == added(before, f32_lse=1, prologue_f32=1, bwd_f32=2)
+        plain_out = t_fa.fused_qkv_attention_plain(qkv.float(), *rest, num_heads=2)
+        want = t_fa.fused_qkv_attention_bwd_plain(qkv.float(), *rest, out.detach(), num_heads=2, out=plain_out)[0]
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
     def test_kernel_rejects_ragged_rows(self, cuda_device):
         """N must be a multiple of 8 (the gate's own condition)."""
@@ -308,10 +314,20 @@ class TestFlashKernelOnCard:
         want = t_fl.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, 256)
         assert torch.equal(got, want)
 
-    def test_kernel_rejects_fp32(self, cuda_device):
-        q, k, v, _ = flash_inputs(cuda_device)
-        with pytest.raises(TypeError, match="bfloat16"):
-            t_fl.flash_attention(q.float(), k.float(), v.float())
+    def test_kernel_rejects_fp32(self, cuda_device, no_tf32):
+        """fp32 runs #4's fp32 instance (refused until it was written; the
+        name is kept), within 1e-5 of the plain version's largest entry;
+        fp16 raises before a launch."""
+        q, k, v, mask = flash_inputs(cuda_device, masked=True)
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            t_fl.flash_attention(q.half(), k.half(), v.half())
+        q, k, v = (t.float() for t in (q, k, v))
+        before = (t_fl.LAUNCHES, t_fl.F32_LAUNCHES)
+        got = t_fl.flash_attention(q, k, v, mask, 40)
+        assert (t_fl.LAUNCHES, t_fl.F32_LAUNCHES) == (before[0], before[1] + 1)
+        want = t_fl.flash_attention_plain(q, k, v, mask, 40)
+        torch.cuda.synchronize()
+        assert_fp32_close(got, want)
 
     def test_kernel_rejects_unsupported_head_dim(self, cuda_device):
         q, k, v, _ = flash_inputs(cuda_device, d=32)
@@ -523,18 +539,30 @@ class TestFlashBackwardOnCard:
         before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES)
         out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, impl="fused")
         out.float().square().sum().backward()
-        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
         fused_grad, qkv.grad = qkv.grad, None
         out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2)
         out.float().square().sum().backward()
-        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
         assert torch.isfinite(qkv.grad).all() and qkv.grad.any() and torch.isfinite(fused_grad).all()
 
-    def test_backward_rejects_fp32(self, cuda_device):
+    def test_backward_rejects_fp32(self, cuda_device, no_tf32):
+        """fp32 runs #5's and #6's fp32 instances (refused until they were
+        written; the name is kept), within 1e-4 of each gradient's largest
+        entry; fp16 raises before a launch."""
         q, k, v, _ = flash_inputs(cuda_device)
         out, lse = t_fl.flash_attention(q, k, v, return_lse=True)
-        with pytest.raises(TypeError, match="bfloat16"):
-            t_fl.flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse, out.float())
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            t_fl.flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, out.half())
+        q, k, v = (t.float() for t in (q, k, v))
+        out, lse = t_fl.flash_attention(q, k, v, return_lse=True)
+        before = (t_fl.DQ_F32_LAUNCHES, t_fl.DKV_F32_LAUNCHES)
+        got = t_fl.flash_attention_bwd(q, k, v, out, lse, out)
+        assert (t_fl.DQ_F32_LAUNCHES, t_fl.DKV_F32_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        want = t_fl.flash_attention_bwd_plain(q, k, v, out, lse, out)
+        torch.cuda.synchronize()
+        for a, r in zip(got, want):
+            assert a.dtype == torch.float32 and (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -659,7 +687,7 @@ class TestFusedBackwardOnCard:
         out, lse = t_fa._fused_cuda(*args, 2, sw, want_lse=True)
         before = counts()
         got = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw, out=out, lse=lse)
-        assert counts() == added(before, bwd=1, prologue=1)
+        assert counts() == added(before, bwd=2, prologue=1)
         again = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw, out=out, lse=lse)
         want = t_fa.fused_qkv_attention_bwd_plain(*args, g, num_heads=2, sliding_window=sw, out=out)
         torch.cuda.synchronize()
@@ -687,17 +715,29 @@ class TestFusedBackwardOnCard:
         out = t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=sw, impl="fused")
         dqkv, dqs, dks = torch.autograd.grad(out, (qkv, qs, ks), g)
         torch.cuda.synchronize()
-        assert counts() == added(before, fwd=1, bwd=1, prologue=2)
+        assert counts() == added(before, fwd=1, bwd=2, prologue=2)
         # Without out and lse the backward runs the forward first: the same bits.
         want = t_fa.fused_qkv_attention_bwd(qkv.detach(), qs.detach(), ks.detach(), cos, sin, mask, g,
                                             num_heads=2, sliding_window=sw)
         assert torch.equal(dqkv, want[0]) and torch.equal(dqs, want[1]) and torch.equal(dks, want[2])
         assert not dqkv[~mask].any()
 
-    def test_backward_rejects_fp32_and_other_head_dims(self, cuda_device):
+    def test_backward_rejects_fp32_and_other_head_dims(self, cuda_device, no_tf32):
+        """fp32 runs #3's fp32 instance (refused until it was written; the
+        name is kept) within 1e-4 of the plain version's largest entry; fp16,
+        a head dim of 32 and a cotangent of another shape raise."""
         args, g, _ = _fused_bwd_case(cuda_device, 64, "none")
         with pytest.raises(TypeError, match="bfloat16"):
-            t_fa.fused_qkv_attention_bwd(args[0].float(), *args[1:], g.float(), num_heads=2)
+            t_fa.fused_qkv_attention_bwd(args[0].half(), *args[1:], g.half(), num_heads=2)
+        f32 = (args[0].float(), *args[1:])
+        before = counts()
+        got = t_fa.fused_qkv_attention_bwd(*f32, g.float(), num_heads=2)
+        assert counts() == added(before, f32_lse=1, prologue_f32=1, bwd_f32=2)
+        out = t_fa.fused_qkv_attention_plain(*f32, num_heads=2)
+        want = t_fa.fused_qkv_attention_bwd_plain(*f32, g.float(), num_heads=2, out=out)
+        torch.cuda.synchronize()
+        for a, r in zip(got, want):
+            assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()
         with pytest.raises(ValueError, match="head_dim"):
             t_fa.fused_qkv_attention_bwd(*args, g, num_heads=4)  # d = 32
         with pytest.raises(ValueError, match="dout"):
@@ -723,10 +763,10 @@ class TestFusedBackwardOnCard:
 
         before = (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES)
         fused = grads()
-        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 3, before[1] + 3)
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 3, before[1] + 6)
         model.cfg = dataclasses.replace(model.cfg, attn_impl="auto")
         auto = grads()
-        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 3, before[1] + 3)
+        assert (t_fa.LAUNCHES, t_fa.BWD_LAUNCHES) == (before[0] + 3, before[1] + 6)
         num = sum((a.double() - b.double()).square().sum() for a, b in zip(fused, auto))
         den = sum(b.double().square().sum() for b in auto)
         assert (num / den).sqrt().item() <= 2e-2
@@ -1109,17 +1149,25 @@ class TestFp32ForwardOnCard:
         torch.cuda.synchronize()
         assert_fp32_close(one, want)
 
-    def test_fp32_under_autograd_raises_before_any_launch(self, cuda_device):
-        """A gradient through the fp32 forward would need an fp32 backward
-        kernel (#3), which does not exist: the forward raises TypeError naming
-        it before anything launches, whether qkv or only a gain asks for the
-        gradient."""
+    def test_fp32_under_autograd_raises_before_any_launch(self, cuda_device, no_tf32):
+        """A gradient through the fp32 forward (refused until #3's fp32
+        instance was written; the name is kept) runs the walker's instance
+        that writes the log-sum-exp, whether qkv or only a gain asks for the
+        gradient: its output the bits of the inference instance's, its lse
+        within 1e-3 of the plain version's on valid rows, 1e30 on padded
+        rows."""
         qkv, qs, ks, cos, sin, mask = ab_inputs(cuda_device, torch.float32)
-        before = counts()
-        for args in ((qkv.requires_grad_(), qs, ks), (qkv.detach(), qs.requires_grad_(), ks)):
-            with pytest.raises(TypeError, match=r"backward kernel \(#3\) has no fp32 instance"):
-                t_fa.fused_qkv_attention(*args, cos, sin, mask, num_heads=2, impl="fused")
-        assert counts() == before
+        want = t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=2, impl="fused")
+        out, lse = t_fa._fused_cuda(qkv, qs, ks, cos, sin, mask, 2, None, want_lse=True)
+        plain_lse = t_fa.fused_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, num_heads=2, return_lse=True)[1]
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        valid = mask[:, None, :].expand_as(lse)
+        assert (lse[valid] - plain_lse[valid]).abs().max().item() <= 1e-3 and (lse[~valid] == 1e30).all()
+        for args in ((qkv.detach().requires_grad_(), qs, ks), (qkv.detach(), qs.detach().requires_grad_(), ks)):
+            before = counts()
+            t_fa.fused_qkv_attention(*args, cos, sin, mask, num_heads=2, impl="fused")
+            assert counts() == added(before, f32_lse=1)
 
     @pytest.mark.parametrize("d", [64, 128])
     def test_fma_instance_stays_off_the_main_path(self, cuda_device, no_tf32, d):
@@ -1403,3 +1451,166 @@ class TestABKernelsOnCard:
             with pytest.raises(ValueError, match="multiple of 8"):
                 t_bb.fused_attention_bb(*ragged_args, num_heads=2, bb=2, cg=128, pack=pack)
         assert t_bb.LAUNCHES == before and counts() == fa_before
+
+
+def assert_rel(got, want, limit, mask=None):
+    """Each fp32 gradient within ``limit`` of its largest entry on valid rows
+    (padded rows exactly 0 on both sides where ``mask`` is given)."""
+    assert got.dtype == torch.float32 and got.shape == want.shape and torch.isfinite(got).all()
+    err = (got - want).abs()
+    if mask is not None:
+        rows = mask.reshape(*mask.shape, *([1] * (got.dim() - 2))).expand_as(got)
+        assert not got[~rows].any() and not want[~rows].any()
+        err = err[rows]
+    assert err.max().item() <= limit * want.abs().max().item(), (err.max().item(), want.abs().max().item())
+
+
+@pytest.mark.cuda
+class TestFp32InstancesOnCard:
+    """The fp32 instances of #4, #5 and #6 (``csrc/flash_attention_f32.cu``,
+    plain and fold), the q/k prologue's (``csrc/fused_attention_sm90.cu``)
+    and #3's (the fold instances at the walker's log2 lse), against their
+    plain versions on the card with TF32 off: every product six bf16
+    products of exact three-piece splits (the dropped terms about 2^-24 of a
+    product), sums in another order, exp2 of a fused multiply-add. Limits:
+    outputs within 1e-5 of the largest entry, log-sum-exp within 1e-3 on live
+    rows, gradients within 1e-4 of each one's largest entry; padded rows
+    exactly 0; two runs bit for bit."""
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n,sw", [(300, 40), (2100, 256)])
+    @pytest.mark.parametrize("case", ["none", "tail", "sw", "tail+sw"])
+    def test_flash_forward_matches_plain(self, cuda_device, no_tf32, d, n, sw, case):
+        q, k, v, mask = flash_inputs(cuda_device, n=n, d=d, masked="tail" in case)
+        q, k, v = (t.float() for t in (q, k, v))
+        sw = sw if "sw" in case else None
+        before = t_fl.F32_LAUNCHES
+        out, lse = t_fl.flash_attention(q, k, v, mask, sw, return_lse=True)
+        assert t_fl.F32_LAUNCHES == before + 1
+        want, want_lse = t_fl.flash_attention_plain(q, k, v, mask, sw, return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, t_fl.flash_attention(q, k, v, mask, sw))
+        assert_fp32_close(out, want)
+        if mask is not None:
+            assert not out[~mask].any()
+        live = want_lse < 1e29
+        assert torch.equal(lse >= 1e29, ~live)
+        assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-3
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n,sw", [(300, 40), (2100, 256)])
+    @pytest.mark.parametrize("case", ["none", "tail", "tail+sw", "hole+sw"])
+    def test_flash_backward_matches_plain(self, cuda_device, no_tf32, d, n, sw, case):
+        q, k, v, mask, sw, _, _, g = _bwd_case(cuda_device, n, d, case, sw)
+        q, k, v, g = (t.float() for t in (q, k, v, g))
+        out, lse = t_fl.flash_attention(q, k, v, mask, sw, return_lse=True)
+        before = (t_fl.DQ_F32_LAUNCHES, t_fl.DKV_F32_LAUNCHES, t_fl.DQ_LAUNCHES)
+        got = t_fl.flash_attention_bwd(q, k, v, out, lse, g, mask, sw)
+        assert (t_fl.DQ_F32_LAUNCHES, t_fl.DKV_F32_LAUNCHES, t_fl.DQ_LAUNCHES) == (
+            before[0] + 1, before[1] + 1, before[2])
+        again = t_fl.flash_attention_bwd(q, k, v, out, lse, g, mask, sw)
+        want = t_fl.flash_attention_bwd_plain(q, k, v, out, lse, g, mask, sw)
+        torch.cuda.synchronize()
+        for a, a2, r in zip(got, again, want):
+            assert torch.equal(a, a2)
+            assert_rel(a, r, 1e-4, mask)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_prologue_matches_plain(self, cuda_device, d):
+        qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=2, n=200, d=d)
+        qkv = qkv.float()
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        out, g = (torch.randn((2, 200, 2 * d), generator=gen, device=cuda_device) for _ in range(2))
+        before = (t_fa.PROLOGUE_F32_LAUNCHES, t_fa.PROLOGUE_LAUNCHES)
+        qk, delta = t_fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=2, out=out, dout=g)
+        assert (t_fa.PROLOGUE_F32_LAUNCHES, t_fa.PROLOGUE_LAUNCHES) == (before[0] + 1, before[1])
+        want, want_delta = t_fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=2, out=out, dout=g)
+        k_only, _ = t_fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=2, with_q=False)
+        torch.cuda.synchronize()
+        assert qk.dtype == torch.float32 and torch.equal(k_only, qk[..., 2 * d:])
+        assert_fp32_close(qk, want)
+        assert_fp32_close(delta, want_delta)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail", 256), ("tail", None)])
+    def test_fold_forward_and_backward_match_plain(self, cuda_device, no_tf32, d, case, sw):
+        qkv, qs, ks, cos, sin, mask = make_inputs(cuda_device, b=3, n=2100, d=d, masked=case == "tail")
+        qkv = qkv.float()
+        x, a = qkv.clone().requires_grad_(), qs.clone().requires_grad_()
+        before = (t_fa.PROLOGUE_F32_LAUNCHES, t_fl.F32_LAUNCHES, t_fl.DQ_F32_LAUNCHES, t_fl.DKV_F32_LAUNCHES)
+        out = t_fa.unfused_qkv_attention(x, a, ks, cos, sin, mask, 2, sw)
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        g = torch.randn(out.shape, generator=gen, device=cuda_device)
+        dx, da = torch.autograd.grad(out, (x, a), g)
+        assert (t_fa.PROLOGUE_F32_LAUNCHES, t_fl.F32_LAUNCHES, t_fl.DQ_F32_LAUNCHES, t_fl.DKV_F32_LAUNCHES) == (
+            before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 1)
+        want, lse = t_fa.flash_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=sw,
+                                                   return_lse=True)
+        want_dx, want_da, _ = t_fa.flash_qkv_attention_bwd_plain(qkv, qs, ks, cos, sin, mask, g, num_heads=2,
+                                                                 sliding_window=sw, out=out.detach(), lse=lse)
+        torch.cuda.synchronize()
+        assert_fp32_close(out.detach(), want)
+        assert_rel(dx, want_dx, 1e-4, mask)
+        assert_rel(da, want_da, 1e-4)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n", [256, 1000])
+    @pytest.mark.parametrize("case", ["none", "tail+sw", "tail+sw+dead"])
+    def test_fused_backward_matches_plain(self, cuda_device, no_tf32, d, n, case):
+        args, g, sw = _fused_bwd_case(cuda_device, d, case, n=n, sw=64)
+        args = (args[0].float(), *args[1:])
+        g = g.float()
+        out, lse = t_fa._fused_cuda(*args, 2, sw, want_lse=True)
+        before = counts()
+        got = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw, out=out, lse=lse)
+        assert counts() == added(before, prologue_f32=1, bwd_f32=2)
+        again = t_fa.fused_qkv_attention_bwd(*args, g, num_heads=2, sliding_window=sw, out=out, lse=lse)
+        want = t_fa.fused_qkv_attention_bwd_plain(*args, g, num_heads=2, sliding_window=sw, out=out)
+        torch.cuda.synchronize()
+        for a, a2, r in zip(got, again, want):
+            assert torch.equal(a, a2)
+        assert_rel(got[0], want[0], 1e-4, args[5])
+        assert_rel(got[1], want[1], 1e-4)
+        assert_rel(got[2], want[2], 1e-4)
+
+    def test_kernels_fit_without_spills(self, cuda_device):
+        for d in (64, 128):
+            for which in t_fl.F32_KERNELS:
+                a = t_fl.flash_f32_attributes(which, d)
+                assert a["blocks_per_sm"] >= 1 and a["local_bytes"] == 0, (which, d, a)
+
+    def test_fp32_ae_at_2048_tokens(self, cuda_device, no_tf32):
+        """An fp32 AE of two blocks a side at 2048 tokens: every block's
+        attention takes the fold's fp32 instances (one prologue and one #4 a
+        block), within rel L2 1e-4 of the same weights on the unfused
+        composition."""
+        cfg = t_ae.AEConfig.from_variant("w128_d2_h2-w128_d2_h2/1x16x8")
+        gen = torch.Generator().manual_seed(0)
+        n, grids = 2048, [(48, 40), (32, 32)]
+        batch = {
+            "patches": torch.randn(2, n, 768, generator=gen),
+            "patch_mask": torch.zeros(2, n, dtype=torch.bool),
+            "row_idx": torch.zeros(2, n, dtype=torch.int32),
+            "col_idx": torch.zeros(2, n, dtype=torch.int32),
+        }
+        for i, (gr, gc) in enumerate(grids):
+            batch["patch_mask"][i, : gr * gc] = True
+            batch["row_idx"][i, : gr * gc] = torch.arange(gr * gc) // gc
+            batch["col_idx"][i, : gr * gc] = torch.arange(gr * gc) % gc
+        batch = {k: v.to(cuda_device) for k, v in batch.items()}
+        kw = {**dataclasses.asdict(cfg), "sw": 256}
+        model = t_ae.AE(**kw, device=cuda_device, compute_dtype=torch.float32)
+        reference = t_ae.AE(**{**kw, "attn_impl": "xla"}, state_dict=model.state_dict(), device=cuda_device,
+                            compute_dtype=torch.float32)
+        depth = cfg.encoder_depth + cfg.decoder_depth
+        before = (t_fa.PROLOGUE_F32_LAUNCHES, t_fl.F32_LAUNCHES, counts()["prologue"], t_fl.LAUNCHES)
+        with torch.no_grad():
+            got = model(batch)["patches"]
+        assert (t_fa.PROLOGUE_F32_LAUNCHES, t_fl.F32_LAUNCHES, counts()["prologue"], t_fl.LAUNCHES) == (
+            before[0] + depth, before[1] + depth, before[2], before[3])
+        with torch.no_grad():
+            want = reference(batch)["patches"]
+        valid = batch["patch_mask"]
+        a, r = got[valid], want[valid]
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert ((a - r).norm() / r.norm()).item() <= 1e-4

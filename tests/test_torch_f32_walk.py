@@ -103,16 +103,33 @@ class TestWrapperRouting:
         monkeypatch.setattr(t_fa, "_sm_count", lambda index: SMS)
         monkeypatch.setattr(t_fa, "F32_LAUNCHES", 0)
         args = [torch.tensor(np.asarray(a)) for a in make_inputs(16, 256, 16, 64)]
-        out = t_fa._attend_f32(*args, 16, 40)
-        assert out.shape == (16, 256, 1024)
-        assert calls == [dict(bb=1, hpb=1, sw=40, kind="fwd")]
+        out, lse = t_fa._attend_f32(*args, 16, 40)
+        assert out.shape == (16, 256, 1024) and lse is None
+        assert calls == [dict(bb=1, hpb=1, sw=40, kind="fwd", lse=None)]
         assert t_fa.F32_LAUNCHES == 1
 
     def test_fp32_under_autograd_is_refused_before_the_forward(self, monkeypatch):
-        monkeypatch.setattr(t_fa, "_attend_f32", lambda *a, **k: pytest.fail("the forward ran"))
+        """Under autograd (``want_lse``) an fp32 call takes the walker's
+        instance that writes the rows' log-sum-exp (the name is kept from when
+        it was refused): one launch at the rule's split, handed a ``[B, H, N]``
+        fp32 lse, counted apart from the inference instance."""
+        calls = []
+
+        def record(qkv, q_scale, k_scale, cos, sin, mask, num_heads, **kw):
+            calls.append(kw)
+            return torch.zeros(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3)
+
+        monkeypatch.setattr(t_fa, "_walk_f32_cuda", record)
+        monkeypatch.setattr(t_fa, "_sm_count", lambda index: SMS)
+        monkeypatch.setattr(t_fa, "F32_LAUNCHES", 0)
+        monkeypatch.setattr(t_fa, "F32_LSE_LAUNCHES", 0)
         args = [torch.tensor(np.asarray(a)) for a in make_inputs(4, 64, 2, 64)]
-        with pytest.raises(TypeError, match=r"backward kernel \(#3\) has no fp32 instance"):
-            t_fa._fused_cuda(*args, 2, None, want_lse=True)
+        out, lse = t_fa._fused_cuda(*args, 2, None, want_lse=True)
+        assert out.shape == (4, 64, 128) and lse.shape == (4, 2, 64) and lse.dtype == torch.float32
+        (kw,) = calls
+        assert kw["lse"] is lse and {k: kw[k] for k in ("bb", "hpb", "sw", "kind")} == dict(
+            zip(("bb", "hpb"), t_fa.f32_walk_split(4, 64, 2, 64, SMS))) | dict(sw=-1, kind="fwd")
+        assert (t_fa.F32_LAUNCHES, t_fa.F32_LSE_LAUNCHES) == (0, 1)
 
     def test_cpu_keeps_the_plain_version_under_autograd(self):
         args = [torch.tensor(np.asarray(a)) for a in make_inputs(4, 64, 2, 64)]

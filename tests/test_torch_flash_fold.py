@@ -11,7 +11,7 @@ plain versions, on tensors that say they lie on the card (a ``Tensor``
 subclass whose ``is_cuda`` is True): the fold is taken for a bf16 call
 bound for the flash kernel, with or without a gradient asked for (under
 autograd its backward runs the prologue again, then the dq and dk/dv
-kernels' fold instances), and not in fp32 (under grad too), at a head dim
+kernels' fold instances), in fp32 as in bf16, and not at a head dim
 the kernels have no instance for, or below ``FLASH_MIN_TOKENS`` with
 ``"auto"``; a head dim of 192 or 256 takes the unfused composition on the
 card where the JAX package's gate (a multiple of 64) would open. The
@@ -224,18 +224,28 @@ class TestFoldRouting:
         _assert_grads_are_the_plain_backward(qkv, qs, ks, *rest, 2, 300, out)
         assert recorders == ["prologue", "flash", "prologue", "dq", "dkv"]
 
-    def test_not_taken_in_fp32(self):
-        qkv, qs, ks, *_ = _card_args(1, 2048, 2, 64, dtype=torch.float32)
-        assert not t_fa.takes_flash_fold(qkv, qs, ks, 2, "auto")
+    def test_not_taken_in_fp32(self, recorders):
+        """fp32 on the card takes the fold too (the name is kept from when it
+        did not): the prologue's and #4's fp32 instances."""
+        args = _card_args(1, 2048, 2, 64, dtype=torch.float32)
+        assert t_fa.takes_flash_fold(args[0], args[1], args[2], 2, "auto")
+        got = t_fa.unfused_qkv_attention(*args, 2, 300)
+        assert recorders == ["prologue", "flash"]
+        want = t_fa.flash_qkv_attention_plain(*map(plain, args), num_heads=2, sliding_window=300)
+        torch.testing.assert_close(plain(got), want, rtol=0, atol=0)
 
     def test_not_taken_in_fp32_under_grad(self, recorders):
-        """fp32 on the card under grad keeps the composition (the flash
-        kernel's Function, which has no fp32 instance on the card)."""
+        """fp32 on the card under grad takes the fold's autograd Function (the
+        name is kept from when it kept the composition): the prologue and #4
+        forward, the prologue, dq and dk/dv fold instances backward, and the
+        plain backward's gradients."""
         qkv, qs, ks, *rest = _card_args(1, 2048, 2, 64, dtype=torch.float32)
         qkv.requires_grad_()
-        assert not t_fa.takes_flash_fold(qkv, qs, ks, 2, "auto")
-        t_fa.unfused_qkv_attention(qkv, qs, ks, *rest, 2, 300)
-        assert recorders == ["flash"]
+        assert t_fa.takes_flash_fold(qkv, qs, ks, 2, "auto")
+        out = t_fa.unfused_qkv_attention(qkv, qs, ks, *rest, 2, 300)
+        assert recorders == ["prologue", "flash"]
+        _assert_grads_are_the_plain_backward(qkv, qs, ks, *rest, 2, 300, out)
+        assert recorders == ["prologue", "flash", "prologue", "dq", "dkv"]
 
     @pytest.mark.parametrize("d", [192, 256])
     def test_not_taken_at_other_head_dims(self, recorders, d):

@@ -225,6 +225,7 @@ class TestImportBoundary:
         monkeypatch.setattr(_build, "load", lambda name: libs.setdefault(name, FakeLib()))
         for loader in (fused_attention._kernel_lib, fused_attention._sm90_lib, fused_attention._f32_lib,
                        fused_attention._bwd_kernel_lib, flash_attention._kernel_lib, flash_attention._bwd_kernel_lib,
+                       flash_attention._f32_kernel_lib,
                        benchmarks.q8in_lib, benchmarks.sm90_lib):
             loader()
         for name in sorted({lib for lib, _ in quant._ARGTYPES.values()}):

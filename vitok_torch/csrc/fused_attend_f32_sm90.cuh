@@ -236,13 +236,19 @@ constexpr int kFullKQ = 1, kEmptyKQ = 2, kProducer = 3, kConsumer = 4;
 // their pieces while the consumer runs step i's softmax and P V. The
 // consumer (threads 0-127) copies each step's raw V a step ahead, splits it
 // after the step's S = Q K^T, and runs the products and the online softmax.
-template <int D>
+// With kLse (the forward under autograd) the consumer also writes each row's
+// log-sum-exp in log2 units, m + log2(l), to lse [B, H, N], and kDeadLseF32
+// on a padded query row, as the bf16 forward (fused_attention_sm90.cu) does
+// for the backward; the other instances compile without it.
+constexpr float kDeadLseF32 = 1e30f;
+
+template <int D, bool kLse = false>
 __device__ __forceinline__ void walk_cells_f32(const float* __restrict__ qkv, const float* __restrict__ q_scale,
                                                const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                                                const float* __restrict__ sin_t,
                                                const unsigned char* __restrict__ mask, float* __restrict__ out,
                                                int N, int H, int b0, int nb, int h0, int nh, int sw,
-                                               float score_scale, bool pack) {
+                                               float score_scale, bool pack, float* __restrict__ lse = nullptr) {
   using S = WalkSmemF32<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -352,6 +358,15 @@ __device__ __forceinline__ void walk_cells_f32(const float* __restrict__ qkv, co
       sum_rows<D>(r);
       float* out0 = out + ((long long)(b0 + at.i) * N + qrow0) * C + (h0 + at.hl) * D;
       store_rows<D>(r, out0, out0 + 8LL * C, qrow0, N);
+      if constexpr (kLse) {
+        if ((tid & 3) == 0) {
+          float* lse_bh = lse + ((long long)(b0 + at.i) * H + h0 + at.hl) * N;
+          const unsigned char* mask_i = mask ? mask + (long long)(b0 + at.i) * N : nullptr;
+          const int qrow1 = qrow0 + 8;
+          if (qrow0 < N) lse_bh[qrow0] = (mask_i == nullptr || mask_i[qrow0]) ? r.m0 + log2f(r.l0) : kDeadLseF32;
+          if (qrow1 < N) lse_bh[qrow1] = (mask_i == nullptr || mask_i[qrow1]) ? r.m1 + log2f(r.l1) : kDeadLseF32;
+        }
+      }
     }
     at.next(sInfo, nh);
   }

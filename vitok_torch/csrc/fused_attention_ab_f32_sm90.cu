@@ -7,7 +7,10 @@
 // * fused_attention_f32_sm90_kernel replaces vitok_tpu/ops/fused_attention.py
 //   _fused_kernel on f32 (one TPU grid cell per sample and head group): a
 //   block takes its 64-query tile of bb images x hpb heads with the window,
-//   the split chosen by the wrapper (fused_attention.f32_walk_split).
+//   the split chosen by the wrapper (fused_attention.f32_walk_split). Its
+//   kLse instance, the forward under autograd, also writes each row's
+//   log-sum-exp for the fp32 backward (#3, flash_attention_f32.cu), as
+//   _fused_op_fwd hands _fused_kernel's to the VJP.
 // * fused_attention_bb_f32_sm90_kernel replaces benchmarks/ab_batch_block.py
 //   _kernel_bb (a TPU grid cell takes `bb` batch items x `cg` channels in a
 //   static loop): the same walk, the split given by the arm.
@@ -57,14 +60,15 @@ namespace {
 // forward's at d = 64 takes two: held to 128 registers a thread, so that two
 // blocks' walks interleave on an SM (the A/B kernels keep one, and their
 // machine code).
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kF32Threads, D == 64 ? 2 : 1)
 fused_attention_f32_sm90_kernel(const float* __restrict__ qkv, const float* __restrict__ q_scale,
                                 const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                                 const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
-                                float* __restrict__ out, int N, int H, int bb, int hpb, int sw, float score_scale) {
-  walk_cells_f32<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb, blockIdx.y * hpb, hpb,
-                    sw, score_scale, false);
+                                float* __restrict__ out, float* __restrict__ lse, int N, int H, int bb, int hpb,
+                                int sw, float score_scale) {
+  walk_cells_f32<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb,
+                          blockIdx.y * hpb, hpb, sw, score_scale, false, lse);
 }
 
 template <int D>
@@ -117,8 +121,8 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, int threads, cudaStrea
 
 template <int D>
 cudaError_t launch_walk(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
-                        const void* sin_t, const void* mask, void* out, int B, int N, int H, int bb, int hpb, int sw,
-                        int kind, cudaStream_t s) {
+                        const void* sin_t, const void* mask, void* out, void* lse, int B, int N, int H, int bb,
+                        int hpb, int sw, int kind, cudaStream_t s) {
   const dim3 grid((N + kTile - 1) / kTile, H / hpb, B / bb);
   const size_t smem = WalkSmemF32<D>::bytes(bb);
   const auto* q = static_cast<const float*>(qkv);
@@ -130,8 +134,11 @@ cudaError_t launch_walk(const void* qkv, const void* q_scale, const void* k_scal
   auto* o = static_cast<float*>(out);
   switch (kind) {
     case kForward:
-      return launch(fused_attention_f32_sm90_kernel<D>, smem, grid, kF32Threads, s, q, gq, gk, c, sn, m, o, N, H, bb,
-                    hpb, sw, score_scale<D>());
+      if (lse != nullptr)
+        return launch(fused_attention_f32_sm90_kernel<D, true>, smem, grid, kF32Threads, s, q, gq, gk, c, sn, m, o,
+                      static_cast<float*>(lse), N, H, bb, hpb, sw, score_scale<D>());
+      return launch(fused_attention_f32_sm90_kernel<D, false>, smem, grid, kF32Threads, s, q, gq, gk, c, sn, m, o,
+                    static_cast<float*>(nullptr), N, H, bb, hpb, sw, score_scale<D>());
     case kBatchBlock:
       return launch(fused_attention_bb_f32_sm90_kernel<D>, smem, grid, kF32Threads, s, q, gq, gk, c, sn, m, o, N, H,
                     bb, hpb, sw, score_scale<D>());
@@ -162,7 +169,7 @@ template <int D>
 cudaError_t kind_attributes(int kind, int bb, int* out) {
   const size_t smem = WalkSmemF32<D>::bytes(bb);
   switch (kind) {
-    case kForward: return attributes(fused_attention_f32_sm90_kernel<D>, smem, out);
+    case kForward: return attributes(fused_attention_f32_sm90_kernel<D, false>, smem, out);
     case kBatchBlock: return attributes(fused_attention_bb_f32_sm90_kernel<D>, smem, out);
     case kPack: return attributes(fused_attention_pack_f32_sm90_kernel<D>, smem, out);
     case kContig: return attributes(fused_attention_contig_f32_sm90_kernel<D>, smem, out);
@@ -180,17 +187,21 @@ extern "C" {
 // divides B, hpb divides H), each image its own softmax with window sw (< 0:
 // none), on the kernel of `kind`: 0 the forward (#1), 1 the batch block
 // (#10), 2 the pack (#11: the bb images are one pack, no window), 3 contig
-// (#13: bb = 1, hpb = H).
+// (#13: bb = 1, hpb = H). lse [B, H, N] f32 or null: with the forward
+// (kind 0) its instance that also writes each row's log-sum-exp in log2
+// units (1e30 on a padded query row), for the backward; the other kinds
+// take null.
 int vitok_fused_attention_walk_f32(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
-                                   const void* sin_t, const void* mask, void* out, int B, int N, int H, int D, int bb,
-                                   int hpb, int sw, int kind, void* stream) {
+                                   const void* sin_t, const void* mask, void* out, void* lse, int B, int N, int H,
+                                   int D, int bb, int hpb, int sw, int kind, void* stream) {
   if (bb < 1 || hpb < 1 || B % bb || H % hpb || kind < kForward || kind > kContig || (kind == kPack && sw >= 0) ||
-      (kind == kContig && (bb != 1 || hpb != H)))
+      (kind == kContig && (bb != 1 || hpb != H)) || (lse != nullptr && kind != kForward))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_walk<64>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, kind, s);
+  if (D == 64)
+    return launch_walk<64>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
   if (D == 128)
-    return launch_walk<128>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, kind, s);
+    return launch_walk<128>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
   return (int)cudaErrorInvalidValue;
 }
 

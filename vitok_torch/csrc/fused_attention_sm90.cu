@@ -160,6 +160,87 @@ fused_qk_prologue_kernel(const Src* __restrict__ qkv, const float* __restrict__ 
   }
 }
 
+// The prologue's fp32 instance (the fp32 AE's high-resolution fold and its
+// backward, and the fp32 fused backward): q and k normed and rotated in fp32
+// with norm_rope_piece_f32 (the fp32 walker's arithmetic, no rounding to
+// bf16: _norm_rope_half on f32), written as fp32 qk [B, N, parts * C];
+// with out and dout (fp32) also delta = sum_c dO * O. Each thread's piece
+// goes straight to device memory, so no tile is staged.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fused_qk_prologue_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ q_scale,
+                             const float* __restrict__ k_scale, const float* __restrict__ cos_t,
+                             const float* __restrict__ sin_t,
+                             const float* __restrict__ out,   // [B, N, C] or null
+                             const float* __restrict__ dout,  // [B, N, C] or null
+                             float* __restrict__ qk,          // [B, N, parts * C]
+                             float* __restrict__ delta,       // [B, H, N] or null
+                             int N, int H, int parts) {
+  constexpr int kHalf = D / 2;
+  constexpr int kPieces = D / 16;  // threads per row
+  constexpr int kRowsPerPass = kThreads / kPieces;
+  constexpr int kChunks = D / 8;
+  __shared__ float sGain[2][D];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int C = H * D;
+  const float* qkv_b = qkv + (long long)b * N * 3 * C;
+  const float* cos_b = cos_t + (long long)b * N * kHalf;
+  const float* sin_b = sin_t + (long long)b * N * kHalf;
+  float* qk_b = qk + (long long)b * N * parts * C;
+  for (int i = tid; i < D; i += kThreads) {
+    sGain[0][i] = q_scale[i];
+    sGain[1][i] = k_scale[i];
+  }
+  __syncthreads();
+  const int c0 = (tid % kPieces) * 8;
+  for (int part = 2 - parts; part < 2; ++part) {  // q, then k
+    const float* gain = sGain[part];
+#pragma unroll 2
+    for (int p = 0; p < kTile / kRowsPerPass; ++p) {
+      const int n = r0 + p * kRowsPerPass + tid / kPieces;
+      float a[8], bv[8], c[8], sn[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) a[e] = bv[e] = c[e] = sn[e] = 0.f;
+      if (n < N) {
+        const float* x = qkv_b + (long long)n * 3 * C + part * C + h * D + c0;
+        ld_f4x2(a, x);
+        ld_f4x2(bv, x + kHalf);
+        ld_f4x2(c, cos_b + (long long)n * kHalf + c0);
+        ld_f4x2(sn, sin_b + (long long)n * kHalf + c0);
+      }
+      float vr[8], vi[8];
+      norm_rope_piece_f32<D>(a, bv, c, sn, gain + c0, gain + kHalf + c0, vr, vi);  // every thread: shuffles
+      if (n < N) {
+        float* dst = qk_b + (long long)n * parts * C + (part - (2 - parts)) * C + h * D + c0;
+        st_f4x2(dst, vr);
+        st_f4x2(dst + kHalf, vi);
+      }
+    }
+  }
+  if (delta != nullptr) {
+    // Row r's D channels over kChunks neighbouring threads, 8 each.
+    const int ch = tid % kChunks;
+    for (int row = tid / kChunks; row < kTile; row += kThreads / kChunks) {
+      const int n = r0 + row;
+      float acc = 0.f;
+      if (n < N) {
+        const long long at = ((long long)b * N + n) * C + h * D + ch * 8;
+        float o[8], g[8];
+        ld_f4x2(o, out + at);
+        ld_f4x2(g, dout + at);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc += o[e] * g[e];
+      }
+#pragma unroll
+      for (int off = 1; off < kChunks; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
+      if (ch == 0 && n < N) delta[((long long)b * H + h) * N + n] = acc;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The attention kernel
 // ---------------------------------------------------------------------------
@@ -265,6 +346,18 @@ cudaError_t launch_prologue(const void* qkv, const void* q_scale, const void* k_
       static_cast<const float*>(k_scale), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
       static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(dout),
       static_cast<__nv_bfloat16*>(qk), static_cast<float*>(delta), N, H, parts);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_prologue_f32(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
+                                const void* sin_t, const void* out, const void* dout, void* qk, void* delta, int B,
+                                int N, int H, int parts, cudaStream_t stream) {
+  dim3 grid((N + kTile - 1) / kTile, H, B);
+  fused_qk_prologue_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), static_cast<const float*>(out),
+      static_cast<const float*>(dout), static_cast<float*>(qk), static_cast<float*>(delta), N, H, parts);
   return cudaGetLastError();
 }
 
@@ -539,6 +632,22 @@ int vitok_fused_qk_prologue_bf16(const void* qkv, const void* q_scale, const voi
     return launch_prologue<64>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   if (D == 128)
     return launch_prologue<128>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The prologue's fp32 instance: qkv [B, N, 3*H*D] f32, out and dout [B, N,
+// H*D] f32 or both null, qk [B, N, parts*H*D] f32, delta [B, H, N] f32 or
+// null, the rest as above.
+int vitok_fused_qk_prologue_f32(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
+                                const void* sin_t, const void* out, const void* dout, void* qk, void* delta,
+                                int B, int N, int H, int D, int parts, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((out == nullptr) != (dout == nullptr) || (out == nullptr) != (delta == nullptr) || parts < 1 || parts > 2)
+    return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return launch_prologue_f32<64>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
+  if (D == 128)
+    return launch_prologue_f32<128>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   return (int)cudaErrorInvalidValue;
 }
 

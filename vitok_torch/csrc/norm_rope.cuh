@@ -243,18 +243,21 @@ __device__ __forceinline__ void norm_rope_tile_f32(
 // Applies the rotation's transpose (cos/sin rounded to bf16, then fp32
 // arithmetic) and the RMSNorm backward on the raw rows re-read from `src`,
 // and writes the bf16 gradient of the raw rows to `dst` (same layout as
-// `src`); rows at or past N are not touched. The gain's gradient, summed
+// `src`); rows at or past N are not touched. With T = float (the fp32
+// instance of norm_rope_tile_f32) the raw rows and the gradient are fp32
+// and the tables are not rounded. The gain's gradient, summed
 // over the tile's rows in a fixed order, goes to gain_grad[0 .. D): `part`
 // is a [THREADS / (D/16), D] fp32 scratch in shared memory that must not
 // overlap `dz`. Ends with the block synchronised.
 //   y = x * r * gain, r = rsqrt(mean(x^2) + eps)
 //   dgain = sum_rows dy * x * r
 //   dx = dy * gain * r - x * (r^3 / D) * sum_d(dy * gain * x)
-template <int D, int THREADS>
+template <int D, int THREADS, typename T>
 __device__ __forceinline__ void norm_rope_bwd_tile(
-    const float* dz, const __nv_bfloat16* __restrict__ src, long long row_stride, int r0, int N,
+    const float* dz, const T* __restrict__ src, long long row_stride, int r0, int N,
     const float* gain, const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-    __nv_bfloat16* __restrict__ dst, float* part, float* __restrict__ gain_grad, int tid) {
+    T* __restrict__ dst, float* part, float* __restrict__ gain_grad, int tid) {
+  constexpr bool kF32 = sizeof(T) == 4;
   constexpr int kStage = D + 4;
   constexpr int kHalf = D / 2;
   constexpr int kPieces = D / 16;
@@ -271,30 +274,35 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
     const int row = p * kRowsPerPass + tid / kPieces;
     const int n = r0 + row;
     const bool live = n < N;
-    uint4 xr = make_uint4(0, 0, 0, 0), xi = make_uint4(0, 0, 0, 0);
-    float c[8], s[8];
+    float a[8], b[8], c[8], s[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) c[e] = s[e] = 0.f;
+    for (int e = 0; e < 8; ++e) a[e] = b[e] = c[e] = s[e] = 0.f;
     if (live) {
-      const __nv_bfloat16* x = src + (long long)n * row_stride + c0;
-      xr = *reinterpret_cast<const uint4*>(x);
-      xi = *reinterpret_cast<const uint4*>(x + kHalf);
+      const T* x = src + (long long)n * row_stride + c0;
       const float* cp = cos_t + (long long)n * kHalf + c0;
       const float* sp = sin_t + (long long)n * kHalf + c0;
+      if constexpr (kF32) {
+        ld_f4x2(a, x);
+        ld_f4x2(b, x + kHalf);
+        ld_f4x2(c, cp);
+        ld_f4x2(s, sp);
+      } else {
+        const uint4 xr = *reinterpret_cast<const uint4*>(x);
+        const uint4 xi = *reinterpret_cast<const uint4*>(x + kHalf);
+        const __nv_bfloat16* hr = reinterpret_cast<const __nv_bfloat16*>(&xr);
+        const __nv_bfloat16* hi = reinterpret_cast<const __nv_bfloat16*>(&xi);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        c[e] = __bfloat162float(__float2bfloat16_rn(cp[e]));
-        s[e] = __bfloat162float(__float2bfloat16_rn(sp[e]));
+        for (int e = 0; e < 8; ++e) {
+          a[e] = __bfloat162float(hr[e]);
+          b[e] = __bfloat162float(hi[e]);
+          c[e] = __bfloat162float(__float2bfloat16_rn(cp[e]));
+          s[e] = __bfloat162float(__float2bfloat16_rn(sp[e]));
+        }
       }
     }
-    const __nv_bfloat16* hr = reinterpret_cast<const __nv_bfloat16*>(&xr);
-    const __nv_bfloat16* hi = reinterpret_cast<const __nv_bfloat16*>(&xi);
-    float a[8], b[8];
     float ss = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      a[e] = __bfloat162float(hr[e]);
-      b[e] = __bfloat162float(hi[e]);
       ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
       ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
     }
@@ -317,7 +325,18 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
     }
 #pragma unroll
     for (int off = 1; off < kPieces; off <<= 1) dot += __shfl_xor_sync(kNrFull, dot, off);
-    if (live) {
+    if (live && kF32) {
+      const float w = r * r * r / D * dot;
+      float out_r[8], out_i[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        out_r[e] = g_r[e] * r - a[e] * w;
+        out_i[e] = g_i[e] * r - b[e] * w;
+      }
+      float* d = reinterpret_cast<float*>(dst + (long long)n * row_stride + c0);
+      st_f4x2(d, out_r);
+      st_f4x2(d + kHalf, out_i);
+    } else if (live) {
       const float w = r * r * r / D * dot;
       uint32_t out_r[4], out_i[4];
 #pragma unroll
@@ -329,7 +348,7 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
         out_r[e / 2] = *reinterpret_cast<const uint32_t*>(&dr);
         out_i[e / 2] = *reinterpret_cast<const uint32_t*>(&di);
       }
-      __nv_bfloat16* d = dst + (long long)n * row_stride + c0;
+      __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst + (long long)n * row_stride + c0);
       *reinterpret_cast<uint4*>(d) = make_uint4(out_r[0], out_r[1], out_r[2], out_r[3]);
       *reinterpret_cast<uint4*>(d + kHalf) = make_uint4(out_i[0], out_i[1], out_i[2], out_i[3]);
     }

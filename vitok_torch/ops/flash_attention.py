@@ -7,7 +7,10 @@ tied together by a ``torch.autograd.Function`` as the JAX package ties them
 with a custom vjp. Layout ``[B, N, H, D]`` in and out. On CUDA tensors
 :func:`flash_attention` and :func:`flash_attention_bwd` launch the
 hand-written Hopper kernels in ``vitok_torch/csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu``; on CPU tensors they run
+``csrc/flash_attention_bwd.cu`` (bf16), or their fp32 instances in
+``csrc/flash_attention_f32.cu`` (products on the tensor cores at fp32
+accuracy: each operand split into three bf16 pieces, six products a
+product); on CPU tensors they run
 :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`, the same
 functions in plain PyTorch. The CUDA paths never fall back.
 
@@ -31,16 +34,24 @@ import torch
 from vitok_torch.ops import _build
 
 KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _NEG_FILL = -1e30
 _DEAD_LSE = 1e30
+LOG2E = 1.4426950408889634  # times a natural-log lse: the exponent in log2 units
 _DEFAULT_BLOCK_K = 512  # the TPU kernel's key block, which sets where p is rounded
 _PLAIN_BLOCK_Q = 1024   # query rows per step of the plain version (memory only)
 
 # Launches of each CUDA kernel since its count was last set to 0: the
-# forward, the dq kernel and the dk/dv kernel.
+# forward, the dq kernel and the dk/dv kernel, and their fp32 instances.
 LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+F32_LAUNCHES = 0
+DQ_F32_LAUNCHES = 0
+DKV_F32_LAUNCHES = 0
+
+# The fp32 library's kernels by the index its attributes entry takes.
+F32_KERNELS = ("fwd", "dq", "dkv", "dq_fold", "dkv_fold")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -233,10 +244,10 @@ def _check_qkv(q, k, v):
     d = q.shape[-1]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the flash CUDA kernels take head_dim in {KERNEL_HEAD_DIMS}, got {d}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"the flash CUDA kernels take bfloat16 q, k, v, got {q.dtype}, {k.dtype}, {v.dtype} "
-            "(fp32 has no kernel instance yet: ROADMAP.md Queue 3)"
+            f"the flash CUDA kernels take bfloat16 or float32 q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+            f"{v.dtype}"
         )
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must lie on one device")
@@ -267,16 +278,22 @@ def _flash_cuda(q, k, v, patch_mask, sliding_window, return_lse):
     out = torch.empty((b, n, h, d), dtype=v.dtype, device=dev)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=dev) if return_lse else None
 
-    lib = _kernel_lib()
+    global F32_LAUNCHES
+    f32 = q.dtype == torch.float32
+    lib = _f32_kernel_lib() if f32 else _kernel_lib()
+    entry = lib.vitok_flash_attention_f32 if f32 else lib.vitok_flash_attention_bf16
     with torch.cuda.device(dev):  # the C entry launches on the current device
-        err = lib.vitok_flash_attention_bf16(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             _ptr(mask), _ptr(counts), out.data_ptr(), _ptr(lse),
             b, n, h, d, sw, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "flash_attention launch")
-    LAUNCHES += 1
+    if f32:
+        F32_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return (out, lse) if return_lse else out
 
 
@@ -304,6 +321,35 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
         lib.vitok_flash_bwd_attributes.argtypes = [i] * 3 + [ptr]
         lib.vitok_flash_bwd_attributes.restype = ctypes.c_int
     return lib
+
+
+def _f32_kernel_lib() -> ctypes.CDLL:
+    """``csrc/flash_attention_f32.cu``: the fp32 instances of #4-#6 (and the
+    fold instances the fused backward's fp32 instance runs)."""
+    lib = _build.load("flash_attention_f32")
+    ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn, argtypes in (
+        (lib.vitok_flash_attention_f32, [ptr] * 3 + [ll] * 9 + [ptr] * 4 + [i] * 5 + [ptr]),
+        (lib.vitok_flash_bwd_dq_f32, [ptr] * 5 + [ll] * 15 + [ptr] * 5 + [i] * 5 + [ptr]),
+        (lib.vitok_flash_bwd_dkv_f32, [ptr] * 4 + [ll] * 12 + [ptr] * 6 + [i] * 5 + [ptr]),
+        (lib.vitok_flash_bwd_fold_f32, [i, ctypes.c_float] + [ptr] * 12 + [i] * 5 + [ptr]),
+        (lib.vitok_flash_f32_attributes, [i] * 2 + [ptr]),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_f32_attributes(which: str, d: int) -> dict:
+    """Registers and local memory (spills) a thread, blocks an SM and shared
+    memory a block of one fp32 kernel (``which`` one of ``F32_KERNELS``) at
+    head dim ``d``, as the compiler and the card report them."""
+    out = (ctypes.c_int * 4)()
+    lib = _f32_kernel_lib()
+    _build.check(lib, lib.vitok_flash_f32_attributes(F32_KERNELS.index(which), d, out),
+                 f"flash fp32 ({which}) attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
 def flash_bwd_attributes(which: str, d: int, fold: bool = False) -> dict:
@@ -339,8 +385,8 @@ def _flash_bwd_inputs(q, k, v, out, lse, grad_out, patch_mask):
     b, n, h, d = q.shape
     dev = q.device
     for name, t in (("out", out), ("grad_out", grad_out)):
-        if tuple(t.shape) != (b, n, h, d) or t.dtype != torch.bfloat16 or t.device != dev:
-            raise ValueError(f"{name} must be bfloat16 {(b, n, h, d)} on {dev}, got {t.dtype} "
+        if tuple(t.shape) != (b, n, h, d) or t.dtype != q.dtype or t.device != dev:
+            raise ValueError(f"{name} must be {q.dtype} {(b, n, h, d)} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     _check_row_values("lse", lse, (b, h, n), dev)
     out = _kernel_layout("out", out)
@@ -353,16 +399,18 @@ def flash_dq_cuda(q, k, v, out, lse, grad_out, patch_mask=None, sliding_window=N
     """The dq kernel on CUDA tensors: returns dq ``[B, N, H, D]`` and
     ``delta = sum_d dO * O`` (fp32 ``[B, H, N]``, 0 on padded query rows),
     which the kernel forms for its own rows and the dk/dv kernel reads."""
-    global DQ_LAUNCHES
+    global DQ_LAUNCHES, DQ_F32_LAUNCHES
     out, grad_out, mask, counts = _flash_bwd_inputs(q, k, v, out, lse, grad_out, patch_mask)
     b, n, h, d = q.shape
     dev = q.device
     sw = -1 if sliding_window is None else int(sliding_window)
     dq = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)
-    lib = _bwd_kernel_lib()
+    f32 = q.dtype == torch.float32
+    lib = _f32_kernel_lib() if f32 else _bwd_kernel_lib()
+    entry = lib.vitok_flash_bwd_dq_f32 if f32 else lib.vitok_flash_bwd_dq_bf16
     with torch.cuda.device(dev):
-        err = lib.vitok_flash_bwd_dq_bf16(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *grad_out.stride()[:3],
             *out.stride()[:3],
@@ -370,16 +418,21 @@ def flash_dq_cuda(q, k, v, out, lse, grad_out, patch_mask=None, sliding_window=N
             b, n, h, d, sw, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "flash_attention dq launch")
-    DQ_LAUNCHES += 1
+    if f32:
+        DQ_F32_LAUNCHES += 1
+    else:
+        DQ_LAUNCHES += 1
     return dq, delta
 
 
 def flash_dkv_cuda(q, k, v, lse, delta, grad_out, patch_mask=None, sliding_window=None):
     """The dk/dv kernel on CUDA tensors, given the delta of :func:`flash_dq_cuda`."""
-    global DKV_LAUNCHES
+    global DKV_LAUNCHES, DKV_F32_LAUNCHES
     _check_qkv(q, k, v)
     b, n, h, d = q.shape
     dev = q.device
+    if grad_out.dtype != q.dtype:
+        raise ValueError(f"grad_out must be {q.dtype}, got {grad_out.dtype}")
     grad_out = _kernel_layout("grad_out", grad_out)
     _check_row_values("lse", lse, (b, h, n), dev)
     _check_row_values("delta", delta, (b, h, n), dev)
@@ -387,9 +440,11 @@ def flash_dkv_cuda(q, k, v, lse, delta, grad_out, patch_mask=None, sliding_windo
     sw = -1 if sliding_window is None else int(sliding_window)
     dk = torch.empty((b, n, h, d), dtype=k.dtype, device=dev)
     dv = torch.empty((b, n, h, d), dtype=v.dtype, device=dev)
-    lib = _bwd_kernel_lib()
+    f32 = q.dtype == torch.float32
+    lib = _f32_kernel_lib() if f32 else _bwd_kernel_lib()
+    entry = lib.vitok_flash_bwd_dkv_f32 if f32 else lib.vitok_flash_bwd_dkv_bf16
     with torch.cuda.device(dev):
-        err = lib.vitok_flash_bwd_dkv_bf16(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *grad_out.stride()[:3],
             lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(counts),
@@ -397,44 +452,66 @@ def flash_dkv_cuda(q, k, v, lse, delta, grad_out, patch_mask=None, sliding_windo
             b, n, h, d, sw, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "flash_attention dk/dv launch")
-    DKV_LAUNCHES += 1
+    if f32:
+        DKV_F32_LAUNCHES += 1
+    else:
+        DKV_LAUNCHES += 1
     return dk, dv
 
 
-def _fold_bwd_launch(entry: str, qkv, qk, gain, cos, sin, mask, counts, dout, lse, delta, dqkv, part,
-                     num_heads, sw):
+def fold_bwd_launch(which: int, qkv, qk, gain, cos, sin, mask, counts, dout, lse, delta, dqkv, part, num_heads,
+                    sw, lse_factor: float = LOG2E):
+    """One launch of a fold instance, ``which`` 0 dq, 1 dk/dv: bf16 from
+    ``csrc/flash_attention_bwd.cu``, fp32 from ``csrc/flash_attention_f32.cu``.
+    ``lse_factor`` times the stored lse is the exponent in log2 units:
+    ``LOG2E`` for the flash forward's natural-log lse; the fp32 instances
+    also take 1, the fp32 fused walker's log2 lse, as the fused backward
+    (#3) launches them. Arguments as :func:`flash_dq_fold_cuda` takes them.
+    Counts nothing: its callers count."""
     b, n, c3 = qkv.shape
-    lib = _bwd_kernel_lib()
-    with torch.cuda.device(qkv.device):
-        err = getattr(lib, entry)(
-            qkv.data_ptr(), qk.data_ptr(), gain.data_ptr(), cos.data_ptr(), sin.data_ptr(), _ptr(mask),
+    args = (qkv.data_ptr(), qk.data_ptr(), gain.data_ptr(), cos.data_ptr(), sin.data_ptr(), _ptr(mask),
             _ptr(counts), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), part.data_ptr(),
-            b, n, num_heads, c3 // 3 // num_heads, sw, torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    _build.check(lib, err, f"flash_attention {entry} launch")
+            b, n, num_heads, c3 // 3 // num_heads, sw, torch.cuda.current_stream(qkv.device).cuda_stream)
+    if qkv.dtype == torch.float32:
+        lib = _f32_kernel_lib()
+        with torch.cuda.device(qkv.device):
+            err = lib.vitok_flash_bwd_fold_f32(which, lse_factor, *args)
+    else:
+        if lse_factor != LOG2E:
+            raise ValueError(f"the bf16 fold instances take a natural-log lse, got lse_factor {lse_factor}")
+        lib = _bwd_kernel_lib()
+        entry = ("vitok_flash_bwd_dq_fold_bf16", "vitok_flash_bwd_dkv_fold_bf16")[which]
+        with torch.cuda.device(qkv.device):
+            err = getattr(lib, entry)(*args)
+    _build.check(lib, err, f"flash_attention {('dq', 'dk/dv')[which]} fold launch ({qkv.dtype})")
 
 
 def flash_dq_fold_cuda(qkv, qk, q_scale, cos, sin, mask, counts, dout, lse, delta, dqkv, part_q, num_heads, sw):
-    """The dq kernel's fold instance: from the flat ``qkv [B, N, 3C]``, the
-    q/k prologue's ``qk [B, N, 2C]`` and ``delta``, the cotangent ``dout
-    [B, N, C]`` (zero on padded rows) and the forward's ``lse``, writes
-    dqkv's q plane (the norm and rotation backward of dqrot) and the q gain's
-    partials ``part_q [B, H, ceil(N / 64), D]``. The caller has checked and
-    laid out every argument (``ops.fused_attention``)."""
-    global DQ_LAUNCHES
-    _fold_bwd_launch("vitok_flash_bwd_dq_fold_bf16", qkv, qk, q_scale, cos, sin, mask, counts, dout, lse, delta,
-                     dqkv, part_q, num_heads, sw)
-    DQ_LAUNCHES += 1
+    """The dq kernel's fold instance (bf16 or fp32, as ``qkv``): from the
+    flat ``qkv [B, N, 3C]``, the q/k prologue's ``qk [B, N, 2C]`` and
+    ``delta``, the cotangent ``dout [B, N, C]`` (zero on padded rows) and the
+    forward's ``lse``, writes dqkv's q plane (the norm and rotation backward
+    of dqrot) and the q gain's partials ``part_q [B, H, ceil(N / 64), D]``.
+    The caller has checked and laid out every argument
+    (``ops.fused_attention``)."""
+    global DQ_LAUNCHES, DQ_F32_LAUNCHES
+    fold_bwd_launch(0, qkv, qk, q_scale, cos, sin, mask, counts, dout, lse, delta, dqkv, part_q, num_heads, sw)
+    if qkv.dtype == torch.float32:
+        DQ_F32_LAUNCHES += 1
+    else:
+        DQ_LAUNCHES += 1
 
 
 def flash_dkv_fold_cuda(qkv, qk, k_scale, cos, sin, mask, counts, dout, lse, delta, dqkv, part_k, num_heads, sw):
     """The dk/dv kernel's fold instance: as :func:`flash_dq_fold_cuda`, for
     dqkv's k plane (through the norm and rotation backward), its v plane and
     the k gain's partials."""
-    global DKV_LAUNCHES
-    _fold_bwd_launch("vitok_flash_bwd_dkv_fold_bf16", qkv, qk, k_scale, cos, sin, mask, counts, dout, lse, delta,
-                     dqkv, part_k, num_heads, sw)
-    DKV_LAUNCHES += 1
+    global DKV_LAUNCHES, DKV_F32_LAUNCHES
+    fold_bwd_launch(1, qkv, qk, k_scale, cos, sin, mask, counts, dout, lse, delta, dqkv, part_k, num_heads, sw)
+    if qkv.dtype == torch.float32:
+        DKV_F32_LAUNCHES += 1
+    else:
+        DKV_LAUNCHES += 1
 
 
 def flash_attention_bwd(
@@ -450,8 +527,8 @@ def flash_attention_bwd(
     """Backward of :func:`flash_attention`: ``(dq, dk, dv)`` from the inputs,
     the forward's output and log-sum-exp, and the output's cotangent.
 
-    On CUDA tensors (bf16, head dim 64 or 128) the dq and dk/dv kernels; on
-    CPU tensors :func:`flash_attention_bwd_plain`.
+    On CUDA tensors (bf16 or fp32, head dim 64 or 128) the dq and dk/dv
+    kernels; on CPU tensors :func:`flash_attention_bwd_plain`.
     """
     if q.is_cuda:
         dq, delta = flash_dq_cuda(q, k, v, out, lse, grad_out, patch_mask, sliding_window)
@@ -506,7 +583,7 @@ def flash_attention(
     is :func:`flash_attention_bwd`, on both devices.
 
     Args:
-        q, k, v: ``[B, N, H, D]``. On the card: bf16, head dim 64 or 128,
+        q, k, v: ``[B, N, H, D]``. On the card: bf16 or fp32, head dim 64 or 128,
             unit channel stride (v may be a strided view, e.g. into the flat
             QKV output).
         patch_mask: optional ``[B, N]`` bool, True = valid token.

@@ -18,7 +18,11 @@ CUDA path never falls back.
 Under autograd the forward also writes each row's log-sum-exp, and the
 backward is a kernel too (:func:`fused_qkv_attention_bwd`: the prologue, then
 ``csrc/fused_attention_bwd.cu``, replacing ``_fused_bwd_kernel``); it takes
-the forward's output and log-sum-exp. :func:`fused_qkv_attention_q8`
+the forward's output and log-sum-exp. In fp32 the forward is the fp32
+walker's instance that writes the log-sum-exp, and the backward the
+prologue's fp32 instance, then the fold instances of the fp32 dq and dk/dv
+kernels of ``csrc/flash_attention_f32.cu`` at the walker's log2 lse (two
+launches, ``BWD_F32_LAUNCHES`` counting each). :func:`fused_qkv_attention_q8`
 (the prologue, then ``fused_attention_q8_sm90_kernel`` in
 ``csrc/fused_attention_sm90.cu``, replacing ``_fused_kernel_q8``) is the
 forward with a per-token int8 quantize as its epilogue, for the int8 block's
@@ -28,13 +32,15 @@ redesign (the A/B entry points' arm B), in bf16 and, on FMA products, in
 fp32. Each kernel has its plain version beside it and its own launch count.
 
 From ``FLASH_MIN_TOKENS`` tokens the model's unfused composition hands a
-call on a bf16 CUDA tensor to :func:`flash_qkv_attention`: the prologue
+call on a bf16 or fp32 CUDA tensor to :func:`flash_qkv_attention`: the prologue
 writes q and k normed and rotated, and the flash kernel (#4,
 ``csrc/flash_attention.cu``) reads them as views of that scratch, with v a
 view of ``qkv`` (:func:`takes_flash_fold` is its gate). Under autograd its
 backward (:func:`flash_qkv_attention_bwd`) runs the prologue again, then
 the flash backward kernels #5 and #6 (``csrc/flash_attention_bwd.cu``) in
-their fold instances, which end in the q/k norm and rotation backward.
+their fold instances, which end in the q/k norm and rotation backward. In
+fp32 every one of these launches takes its fp32 instance (the prologue's in
+``csrc/fused_attention_sm90.cu``, #4-#6 in ``csrc/flash_attention_f32.cu``).
 
 Masking is key-side only, as in the TPU kernel: padded query rows attend to
 the valid keys. The unfused composition (:func:`unfused_qkv_attention`)
@@ -68,13 +74,19 @@ _RMS_EPS = 1e-6
 
 # Launches of each CUDA kernel since its count was last set to 0: the bf16
 # forward (wgmma), the q/k prologue it and the backward run first, the
-# backward, the forward with the int8 epilogue, the fp32 forward (the fp32
-# walker), and the mma.sync forward's bf16 and fp32 instances.
+# backward (its dq and dk/dv kernels, each counted), the forward with the
+# int8 epilogue, the fp32 forward (the fp32 walker) and its instance that
+# writes the log-sum-exp (under autograd), the prologue's and the
+# backward's fp32 instances, and the mma.sync forward's bf16 and fp32
+# instances.
 LAUNCHES = 0
 PROLOGUE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 Q8_LAUNCHES = 0
 F32_LAUNCHES = 0
+F32_LSE_LAUNCHES = 0
+PROLOGUE_F32_LAUNCHES = 0
+BWD_F32_LAUNCHES = 0
 MMA_LAUNCHES = 0
 F32_MMA_LAUNCHES = 0
 
@@ -208,9 +220,7 @@ def _check_cuda_args(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sli
         raise ValueError(f"the fused CUDA kernels take head_dim in {KERNEL_HEAD_DIMS}, got {d}")
     if qkv.dtype not in dtypes:
         names = " or ".join(str(t).replace("torch.", "") for t in dtypes)
-        why = "" if torch.float32 in dtypes or torch.int8 in dtypes else (
-            " (fp32 has an instance of the forward kernel only: ROADMAP.md Queue 3)")
-        raise TypeError(f"this fused CUDA kernel takes {names} qkv, got {qkv.dtype}{why}")
+        raise TypeError(f"this fused CUDA kernel takes {names} qkv, got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     dev = qkv.device
@@ -270,9 +280,9 @@ def fused_qk_prologue_plain(
 
 
 def _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, out=None, dout=None, with_q=True):
-    global PROLOGUE_LAUNCHES
+    global PROLOGUE_LAUNCHES, PROLOGUE_F32_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, _, _ = _check_cuda_args(
-        qkv, q_scale, k_scale, cos, sin, None, num_heads, None
+        qkv, q_scale, k_scale, cos, sin, None, num_heads, None, dtypes=(torch.bfloat16, torch.float32)
     )
     dev = qkv.device
     parts = 2 if with_q else 1
@@ -286,14 +296,19 @@ def _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, out=None, dout=No
                 raise ValueError(f"{name} must be 16-byte aligned")
         delta = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev)
     lib = _sm90_lib()
+    f32 = qkv.dtype == torch.float32
+    entry = lib.vitok_fused_qk_prologue_f32 if f32 else lib.vitok_fused_qk_prologue_bf16
     with torch.cuda.device(dev):  # the C entry launches on the current device
-        err = lib.vitok_fused_qk_prologue_bf16(
+        err = entry(
             qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             _ptr(out), _ptr(dout), qk.data_ptr(), _ptr(delta), b, n, num_heads, d, parts,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "fused_qk_prologue launch")
-    PROLOGUE_LAUNCHES += 1
+    if f32:
+        PROLOGUE_F32_LAUNCHES += 1
+    else:
+        PROLOGUE_LAUNCHES += 1
     return qk, delta
 
 
@@ -313,8 +328,8 @@ def fused_qk_prologue(
     ``[B, N, C]``, without ``with_q``), and with ``out``/``dout`` the
     backward's ``delta``: the prologue the redesigned forward (k alone) and
     backward (q, k and delta) run first. On a CUDA tensor this launches the
-    prologue kernel (bf16, head dim 64 or 128) or raises; on a CPU tensor it
-    runs :func:`fused_qk_prologue_plain`."""
+    prologue kernel (bf16, or its fp32 instance; head dim 64 or 128) or
+    raises; on a CPU tensor it runs :func:`fused_qk_prologue_plain`."""
     if (out is None) != (dout is None):
         raise ValueError("give both out and dout, or neither")
     args = (qkv, q_scale, k_scale, cos, sin)
@@ -327,14 +342,10 @@ def fused_qk_prologue(
 
 def _fused_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
     """The redesigned forward on a bf16 tensor (the prologue, then the wgmma
-    kernel): ``(out, lse or None)``; an fp32 tensor takes the fp32 walker,
-    which writes no lse: asked for one (under autograd), it raises before
-    anything launches, since the backward has no fp32 instance."""
+    kernel): ``(out, lse or None)``; an fp32 tensor takes the fp32 walker
+    (asked for the lse, under autograd, its instance that writes it)."""
     if qkv.dtype == torch.float32:
-        if want_lse:
-            raise TypeError("fused_qkv_attention under autograd takes bfloat16 qkv on a CUDA tensor: the backward "
-                            "kernel (#3) has no fp32 instance (ROADMAP.md Queue 3), got torch.float32")
-        return _attend_f32(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window), None
+        return _attend_f32(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse)
     _check_rows(qkv.shape[1])
     kn, _ = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=False)
     return _attend_sm90(qkv, kn, q_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse)
@@ -414,21 +425,23 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, *, bb, hpb, sw=-1, kind="fwd"):
+def _walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, *, bb, hpb, sw=-1, kind="fwd", lse=None):
     """One launch of an fp32 walker kernel (``kind`` one of
     ``F32_WALK_KINDS``) on an fp32 ``qkv``, q and k normed in the kernel:
     ``bb`` images x ``hpb`` heads a block, each image its own softmax with
     window ``sw`` (-1 for none; the pack: one softmax over its ``bb``
-    images, no window). The other arguments as :func:`_check_cuda_args`
-    returns them. Counts nothing: its callers count."""
+    images, no window). With ``lse`` (fp32 ``[B, H, N]``, the forward only)
+    the forward's instance that also writes each row's log-sum-exp there.
+    The other arguments as :func:`_check_cuda_args` returns them. Counts
+    nothing: its callers count."""
     b, n, c3 = qkv.shape
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lib = _f32_lib()
     with torch.cuda.device(qkv.device):
         err = lib.vitok_fused_attention_walk_f32(
             qkv.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(), _ptr(mask),
-            out.data_ptr(), b, n, num_heads, c3 // 3 // num_heads, bb, hpb, sw, F32_WALK_KINDS.index(kind),
-            torch.cuda.current_stream(qkv.device).cuda_stream)
+            out.data_ptr(), _ptr(lse), b, n, num_heads, c3 // 3 // num_heads, bb, hpb, sw,
+            F32_WALK_KINDS.index(kind), torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(lib, err, f"fp32 walker ({kind}) launch")
     return out
 
@@ -445,17 +458,25 @@ def f32_walk_attributes(d: int, kind: str, bb: int = 1) -> dict:
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
-def _attend_f32(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
+def _attend_f32(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
     """The fp32 forward: ``fused_attention_f32_sm90_kernel`` at the split
-    :func:`f32_walk_split` picks for this shape and card."""
-    global F32_LAUNCHES
+    :func:`f32_walk_split` picks for this shape and card, ``(out, lse or
+    None)``; with ``want_lse`` its instance that writes the rows'
+    log-sum-exp in log2 units (1e30 on padded query rows), as the bf16
+    forward does for the backward."""
+    global F32_LAUNCHES, F32_LSE_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, dtypes=(torch.float32,)
     )
     bb, hpb = f32_walk_split(b, n, num_heads, d, _sm_count(qkv.device.index))
-    out = _walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, bb=bb, hpb=hpb, sw=sw, kind="fwd")
-    F32_LAUNCHES += 1
-    return out
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device) if want_lse else None
+    out = _walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, bb=bb, hpb=hpb, sw=sw, kind="fwd",
+                         lse=lse)
+    if want_lse:
+        F32_LSE_LAUNCHES += 1
+    else:
+        F32_LAUNCHES += 1
+    return out, lse
 
 
 def _mma_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
@@ -528,6 +549,7 @@ def _sm90_lib() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
         (lib.vitok_fused_qk_prologue_bf16, [ptr] * 9 + [i] * 5 + [ptr]),
+        (lib.vitok_fused_qk_prologue_f32, [ptr] * 9 + [i] * 5 + [ptr]),
         (lib.vitok_fused_k_prologue_q8, [ptr] * 5 + [i] * 4 + [ptr]),
         (lib.vitok_fused_attention_sm90_bf16, [ptr] * 8 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_q8_sm90_bf16, [ptr] * 8 + [i] * 6 + [ptr]),
@@ -544,7 +566,7 @@ def _f32_lib() -> ctypes.CDLL:
     lib = _build.load("fused_attention_ab_f32_sm90")
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
-        (lib.vitok_fused_attention_walk_f32, [ptr] * 7 + [i] * 8 + [ptr]),
+        (lib.vitok_fused_attention_walk_f32, [ptr] * 8 + [i] * 8 + [ptr]),
         (lib.vitok_fused_attention_walk_f32_attributes, [i] * 3 + [ptr]),
     ):
         if fn.argtypes is None:
@@ -681,9 +703,10 @@ def fused_qkv_attention_bwd_plain(
 
 
 def _fused_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_heads, sliding_window, out, lse):
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_F32_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
-        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
+        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
+        dtypes=(torch.bfloat16, torch.float32),
     )
     dev = qkv.device
     _check_rows(n)
@@ -704,6 +727,17 @@ def _fused_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_heads
     dqkv = torch.empty_like(qkv)
     part_q = torch.empty((b, num_heads, tiles, d), dtype=torch.float32, device=dev)
     part_k = torch.empty((b, num_heads, tiles, d), dtype=torch.float32, device=dev)
+    if qkv.dtype == torch.float32:
+        # The fp32 instance: the fold instances of the flash family's fp32 dq
+        # and dk/dv kernels (the products #3 forms, p from the fp32 walker's
+        # log2 lse), into dqkv through the norm and rotation backward; two
+        # launches, each counted.
+        counts = None if mask is None else fl.key_counts(mask)
+        for which, gain, part in ((0, q_scale, part_q), (1, k_scale, part_k)):
+            fl.fold_bwd_launch(which, qkv, qk, gain, cos, sin, mask, counts, dout, lse, delta, dqkv, part,
+                               num_heads, sw, lse_factor=1.0)
+            BWD_F32_LAUNCHES += 1
+        return dqkv, part_q.sum((0, 1, 2)), part_k.sum((0, 1, 2))
     lib = _bwd_kernel_lib()
     with torch.cuda.device(dev):
         err = lib.vitok_fused_attention_bwd_bf16(
@@ -713,7 +747,7 @@ def _fused_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_heads
             b, n, num_heads, d, sw, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "fused_attention_bwd launch")
-    BWD_LAUNCHES += 1
+    BWD_LAUNCHES += 2  # the entry launches the dq and the dk/dv kernel
     # The blocks' partials, summed in a fixed order (no atomics).
     return dqkv, part_q.sum((0, 1, 2)), part_k.sum((0, 1, 2))
 
@@ -739,8 +773,8 @@ def fused_qkv_attention_bwd(
     (``fused_qkv_attention_plain(..., return_lse=True)`` or the kernel's);
     without them the forward runs first. The cotangent is zeroed on padded
     query rows first, as the JAX package's ``_fused_op_bwd`` does. On a CUDA
-    tensor this launches the prologue and the backward kernel (bf16, head dim
-    64 or 128) or raises; on a CPU tensor it runs
+    tensor this launches the prologue and the backward kernel (bf16, or their
+    fp32 instances; head dim 64 or 128) or raises; on a CPU tensor it runs
     :func:`fused_qkv_attention_bwd_plain` with ``out``. The gain gradients
     are fp32.
     """
@@ -759,8 +793,7 @@ def fused_qkv_attention_bwd(
 
 def _fused_forward(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
     """The kernels on a CUDA tensor, the plain version on a CPU tensor:
-    ``(out, lse)``, lse None unless asked for (which an fp32 CUDA tensor
-    refuses: the backward has no fp32 instance)."""
+    ``(out, lse)``, lse None unless asked for."""
     args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
     if qkv.is_cuda:
         return _fused_cuda(*args, num_heads, sliding_window, want_lse)
@@ -1036,7 +1069,8 @@ def _flash_fold_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_
     then the dq and dk/dv kernels' fold instances into one dqkv, then the
     gains' partials summed in a fixed order (no atomics)."""
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
-        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
+        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
+        dtypes=(torch.bfloat16, torch.float32),
     )
     dev = qkv.device
     if dout.device != dev or tuple(dout.shape) != (b, n, c) or dout.dtype != qkv.dtype:
@@ -1076,7 +1110,7 @@ def flash_qkv_attention_bwd(
     dk_scale)`` from the forward's inputs, its output ``out [B, N, C]`` and
     log-sum-exp ``lse``, and the cotangent ``dout [B, N, C]``.
 
-    On a CUDA tensor (bf16, head dim 64 or 128) four launches and a sum: the
+    On a CUDA tensor (bf16 or fp32, head dim 64 or 128) four launches and a sum: the
     q/k prologue with ``out`` and ``dout`` (qrot, krot and delta), the dq and
     dk/dv kernels' fold instances (``flash_dq_fold_cuda``,
     ``flash_dkv_fold_cuda``; their epilogues run the norm and rotation
@@ -1145,7 +1179,7 @@ def flash_qkv_attention(
     resolution (``vitok_tpu``'s ``unfused_qkv_attention`` on its flash
     route, whose XLA glue the prologue replaces).
 
-    On a CUDA tensor (bf16, head dim 64 or 128) two launches: the q/k
+    On a CUDA tensor (bf16 or fp32, head dim 64 or 128) two launches: the q/k
     prologue (:func:`fused_qk_prologue` with ``with_q``: q and k normed and
     rotated into a ``[B, N, 2C]`` scratch), then the flash kernel on q and k
     as strided views of that scratch and v as a view of ``qkv``. On a CPU
@@ -1164,15 +1198,15 @@ def flash_qkv_attention(
 def takes_flash_fold(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, num_heads: int,
                      attn_impl: str) -> bool:
     """Whether :func:`unfused_qkv_attention` hands this call to
-    :func:`flash_qkv_attention`: a contiguous bf16 tensor on the card, a
-    call bound for the flash kernel (``"auto"`` from ``FLASH_MIN_TOKENS``
-    tokens, or ``"flash"``) and a head dim in ``KERNEL_HEAD_DIMS``, with or
-    without a gradient asked for. On the CPU, and in fp32 on the card,
+    :func:`flash_qkv_attention`: a contiguous bf16 or fp32 tensor on the
+    card, a call bound for the flash kernel (``"auto"`` from
+    ``FLASH_MIN_TOKENS`` tokens, or ``"flash"``) and a head dim in
+    ``KERNEL_HEAD_DIMS``, with or without a gradient asked for. On the CPU
     nothing changes: the composition runs (under autograd through the flash
     kernel's autograd Function)."""
     b, n, c3 = qkv.shape
     c = c3 // 3
-    if not qkv.is_cuda or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous() or c % num_heads:
+    if not qkv.is_cuda or qkv.dtype not in fl.KERNEL_DTYPES or not qkv.is_contiguous() or c % num_heads:
         return False
     d = c // num_heads
     return d in KERNEL_HEAD_DIMS and flash_route(n, d, attn_impl, cuda=True)
@@ -1235,9 +1269,9 @@ def fused_qkv_attention(
 
     Under autograd (grad enabled and ``qkv`` or a gain requiring it),
     ``"fused"`` runs the kernel with :func:`fused_qkv_attention_bwd` as its
-    backward on both devices (on the card in bf16 only: an fp32 CUDA tensor
-    raises TypeError before anything launches), and ``"auto"`` takes the
-    unfused composition, as the JAX package's blocks do in training.
+    backward on both devices (on the card in bf16 and fp32), and ``"auto"``
+    takes the unfused composition, as the JAX package's blocks do in
+    training.
 
     Returns:
         ``[B, N, C]`` in qkv's dtype.

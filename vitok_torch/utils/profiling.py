@@ -250,6 +250,10 @@ PORT_KERNEL_GROUPS = {
     "flash_bwd_delta_kernel": "flash_attention_dq",  # dq's prologue
     "flash_bwd_dq_kernel": "flash_attention_dq",
     "flash_bwd_dkv_kernel": "flash_attention_dkv",
+    "fused_qk_prologue_f32_kernel": "fused_qk_prologue_f32",
+    "flash_attention_f32_kernel": "flash_attention_f32",
+    "flash_bwd_dq_f32_kernel": "flash_attention_dq_f32",  # also the fp32 #3's dq (the launch counters tell)
+    "flash_bwd_dkv_f32_kernel": "flash_attention_dkv_f32",  # and its dk/dv
     "rmsnorm_quant_kernel": "rmsnorm_quant",
     "ffn_int8_kernel": "ffn_int8",
     "silu_quant_kernel": "silu_quant",
