@@ -108,7 +108,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    Muon steps through ``train_dit.main``; and ``tokenize_data.main``
    encoding the shards in bf16 and int8 and decoding them back to PNGs at
    their sizes;
-12. prints a JSON line describing each kernel, the card's name and power
+12. holds #2's fp32 instance (the fp32 walker, then the row quantize)
+   against ``quantize_activation`` of the fp32 forward bit for bit, and the
+   instances past the widths of #7 (t through a device scratch, F' 20,480),
+   #8 (F' 20,480) and #9 (C 12,288) against their plain versions bit for
+   bit, each timed; runs the int8 350M model on fp32 compute at 256 tokens
+   with the epilogue on (#2 f32 in every block) and two int8 models wide
+   enough to take the wide instances (C 12,288 and C 6,208, one block each
+   side);
+13. runs the distributed slice as a world of one over NCCL: one 350M
+   training step at 256 tokens on the fused kernels under ``data=1``
+   (DDP), ``fsdp=1`` (FSDP2) and ``model=1`` (tensor parallelism), and one
+   token-sharded step at 1024p under ``seq=1`` (the halo route), each
+   against the unwrapped step (rel L2 1e-6); then ``data=2`` in two
+   processes on the one card over gloo, against the unwrapped step's two
+   microbatches;
+14. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -739,6 +754,7 @@ def launch_counts() -> dict:
 
     return {"fused_attention": fa.LAUNCHES, "fused_qk_prologue": fa.PROLOGUE_LAUNCHES,
             "fused_attention_bwd": fa.BWD_LAUNCHES, "fused_attention_q8": fa.Q8_LAUNCHES,
+            "fused_attention_q8_f32": fa.Q8_F32_LAUNCHES,
             "fused_attention_mma": fa.MMA_LAUNCHES, "fused_attention_f32": fa.F32_LAUNCHES,
             "fused_attention_mma_f32": fa.F32_MMA_LAUNCHES, "fused_attention_f32_lse": fa.F32_LSE_LAUNCHES,
             "fused_qk_prologue_f32": fa.PROLOGUE_F32_LAUNCHES, "fused_attention_bwd_f32": fa.BWD_F32_LAUNCHES,
@@ -756,7 +772,7 @@ def reset_counts() -> None:
     from vitok_torch.ops import fused_attention as fa
     from vitok_torch.ops import quant
 
-    fa.LAUNCHES = fa.PROLOGUE_LAUNCHES = fa.BWD_LAUNCHES = fa.Q8_LAUNCHES = 0
+    fa.LAUNCHES = fa.PROLOGUE_LAUNCHES = fa.BWD_LAUNCHES = fa.Q8_LAUNCHES = fa.Q8_F32_LAUNCHES = 0
     fa.MMA_LAUNCHES = fa.F32_LAUNCHES = fa.F32_MMA_LAUNCHES = 0
     fa.F32_LSE_LAUNCHES = fa.PROLOGUE_F32_LAUNCHES = fa.BWD_F32_LAUNCHES = 0
     fl.LAUNCHES = fl.DQ_LAUNCHES = fl.DKV_LAUNCHES = 0
@@ -3787,13 +3803,13 @@ def muon_training_phase(hr_pattern: str, device, card: str, tmp: str) -> dict:
         tx = orig_opt(*a, **k)
         update = tx.update
 
-        def timed_update(params, grads, state):
+        def timed_update(params, grads, state, **kw):
             first = rec["check"] is None
             if first:
                 rec["check"] = _muon_cpu_check(tx, rec["model"], params, grads)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            update(params, grads, state)
+            update(params, grads, state, **kw)
             end.record()
             rec["updates"].append((start, end))
             if first:
@@ -4131,6 +4147,438 @@ def profile_step(name: str, step) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# #2 in fp32, and the instances of #7, #8 and #9 past their widths
+# ---------------------------------------------------------------------------
+
+Q8_F32_SHAPE = ("350M@256p", 16, 256, 1024, 16)  # (label, B, N, C, H): the int8 fp32 path's blocks, a tail
+Q8_F32_PATH = ("256p", 256, 16, RESOLUTIONS[0][3])  # the int8 fp32-compute 350M forward, the epilogue on
+WIDE_M = 2048  # token rows of the wide instances: 8 images of 256 tokens
+WIDE_FP = 20480  # #7 and #8 (F' past 19,456 and 16,384)
+WIDE_FFN_C = 1024
+WIDE_NORM_C = 12288  # #9 (C past 8,192)
+# Int8 models whose blocks take the wide instances (depth cut to one block
+# each side, random int8 weights): C 12288 (96 heads of 128, F' 32,896) takes
+# #9 wide and #7's scratch instance; C 6208 (97 heads of 64, F' 16,640; C is
+# not a multiple of 128, so #7's gate closes) takes #8 wide after the int8
+# fc1 product.
+WIDE_MODELS = (("w12288_d1_h96-w12288_d1_h96/1x16x64", dict(rmsnorm_quant_wide=2, ffn_int8_wide=2,
+                                                              fused_attention=2)),
+               ("w6208_d1_h97-w6208_d1_h97/1x16x64", dict(rmsnorm_quant=2, silu_quant_wide=2)))
+WIDE_PATH = ("256p", 256, 8, [(256, 256)])
+
+
+def wide_kernel_phase(device, card: str) -> dict:
+    """#2's fp32 instance (the fp32 walker, then the row quantize) against
+    ``quantize_activation`` of the fp32 forward bit for bit and its plain
+    version within the forward's limits; #7's scratch instance and the wide
+    rows of #8 and #9 against their plain versions bit for bit; each timed
+    beside its bound and its plain version. Then the paths that launch them:
+    the int8 350M model on fp32 compute at 256 tokens with the epilogue on
+    (#2 f32 in every block, held to the run with the opt-in off), and the
+    two wide int8 models (held to themselves on the quantize kernels' plain
+    versions)."""
+    import torch
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.ops import fused_attention as fa
+    from vitok_torch.ops import quant
+
+    rows = {}
+    gen = torch.Generator(device=device).manual_seed(20)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    log("kernel phase: #2 fp32 (fp32 walker + row quantize), #7 scratch instance, #8 and #9 wide rows vs their "
+        f"references, on {card}")
+
+    # #2 f32 at the 350M width, 256 tokens, a tail mask.
+    label, b, n, c, h = Q8_F32_SHAPE
+    rng = np.random.default_rng(20)
+    qkv, qs, ks, cos, sin, mask = _attention_inputs(rng, b, n, c, h, True, device)
+    qkv = qkv.float()
+    args = (qkv, qs, ks, cos, sin, mask)
+    got = fa.fused_qkv_attention_q8(*args, num_heads=h)
+    want = quant.quantize_activation(fa.fused_qkv_attention(*args, num_heads=h, impl="fused"))
+    n_codes, n_scales = int((got[0] != want[0]).sum()), int((got[1] != want[1]).sum())
+    plain = fa.fused_qkv_attention_q8_plain(*args, num_heads=h)
+    deq = (got[0].float() * got[1] - plain[0].float() * plain[1]).abs()[mask]
+    if n_codes or n_scales or not deq.max().item() <= 2e-2:
+        raise AssertionError(f"#2 fp32 {label}: {n_codes} codes and {n_scales} scales differ from quantize_activation "
+                             f"of the fp32 forward (expected 0); dequantized vs plain max {deq.max().item():.3e}")
+    d = c // h
+    nbytes = b * n * 3 * c * 4 + b * n * c + b * n * 4 + 2 * b * n * (d // 2) * 4 + 2 * d * 4 + b * n
+    bound = _bound_ms(nbytes, 6 * 4.0 * h * d * _needed_pairs(b, mask, n, None), BF16_FLOPS_PER_S)
+    attrs = fa.quantize_rows_attributes(c, qkv.device)
+    rows["fused_attention_q8_f32"] = row = dict(
+        shape=label, max_abs_err=deq.max().item(), codes_differ=0,
+        ms=time_ms(lambda: fa.fused_qkv_attention_q8(*args, num_heads=h)),
+        walker_ms=time_ms(lambda: fa.fused_qkv_attention(*args, num_heads=h, impl="fused")),
+        plain_ms=time_ms(lambda: fa.fused_qkv_attention_q8_plain(*args, num_heads=h)),
+        bound_ms=bound[0], bound_by=bound[1], library_ms=None, quantize_registers=attrs["registers"],
+        quantize_spill_bytes=attrs["spill_bytes"])
+    log(f"  #2 fp32 {label}: codes and scales = quantize_activation(fp32 forward) bit for bit; dequantized vs plain "
+        f"max {row['max_abs_err']:.3e}; {row['ms']:.4f} ms (the walker alone {row['walker_ms']:.4f}), plain "
+        f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} ({row['bound_by']}); row quantize "
+        f"{attrs['registers']} registers, {attrs['spill_bytes']} local bytes")
+    del qkv, args, got, want, plain
+
+    # #7's scratch instance: C 1024, F' 20,480, M 2048.
+    m, c, fp = WIDE_M, WIDE_FFN_C, WIDE_FP
+    hq, hs = quant.quantize_activation(randn(m, c))
+    w, ws = quant.quantize_weight(0.05 * randn(2 * fp, c))
+    plan = quant.ffn_int8_plan(m, c, fp)
+    if not plan.scratch:
+        raise AssertionError(f"ffn_int8 at F' {fp}: expected the scratch instance, plan {plan}")
+    err = _exact_codes(f"ffn_int8 scratch F'={fp}", quant.fused_ffn_int8(hq, hs, w, ws),
+                       quant.fused_ffn_int8_plain(hq, hs, w, ws))
+    fattrs = quant.ffn_int8_attributes(plan, fp)
+    nbytes = m * c + m * 4 + 2 * fp * c + 2 * fp * 4 + m * fp + m * 4
+    bound = _bound_ms(nbytes, 2.0 * m * c * 2 * fp, INT8_OPS_PER_S)
+    rows["ffn_int8_wide"] = row = dict(
+        shape=f"M {m} C {c} F' {fp}", **err, ms=time_ms(lambda: quant.fused_ffn_int8(hq, hs, w, ws)),
+        plain_ms=time_ms(lambda: quant.fused_ffn_int8_plain(hq, hs, w, ws)), bound_ms=bound[0], bound_by=bound[1],
+        library_ms=None, int_mm_fc1_ms=time_ms(lambda: torch._int_mm(hq, w.t())), rows=plan.rows,
+        cluster=plan.cluster, stages=plan.stages, **fattrs)
+    log(f"  #7 scratch {row['shape']}: bit for bit; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, bound "
+        f"{row['bound_ms']:.5f} ({row['bound_by']}), torch._int_mm fc1 alone {row['int_mm_fc1_ms']:.4f}; plan "
+        f"{plan.rows} rows, a cluster of {plan.cluster}, {plan.stages} stages, {fattrs['smem_bytes']} shared bytes, "
+        f"{fattrs['registers']} registers, {fattrs['spill_bytes']} spilled")
+    del hq, hs, w, ws
+
+    # #8 and #9 wide rows, bf16 and fp32.
+    for kernel, n in (("silu_quant", WIDE_FP), ("rmsnorm_quant", WIDE_NORM_C)):
+        for dtype in (torch.bfloat16, torch.float32):
+            isz = torch.finfo(dtype).bits // 8
+            if kernel == "rmsnorm_quant":
+                x = (2 * randn(m, n)).to(dtype)
+                gain = 0.5 + torch.rand(n, generator=gen, device=device)
+                fn, pfn = (lambda: quant.fused_rmsnorm_quant(x, gain)), (lambda: quant.fused_rmsnorm_quant_plain(x, gain))
+                nbytes, elems, src = m * n * isz + n * 4 + m * n + m * 4, m * n, x
+            else:
+                x = randn(m, 2 * n)
+                x[:, n:] *= 2
+                x = x.to(dtype)
+                fn, pfn = (lambda: quant.fused_silu_quant(x)), (lambda: quant.fused_silu_quant_plain(x))
+                nbytes, elems, src = m * 2 * n * isz + m * n + m * 4, m * n, x
+            err = _exact_codes(f"{kernel} wide {n} {dtype}", fn(), pfn())
+            row = dict(shape=f"M {m} n {n}", dtype=str(dtype).replace("torch.", ""), **err,
+                       **_row_kernel_row(kernel, n, dtype, m, fn, pfn, nbytes, elems, src))
+            if not row["plan"]["wide"]:
+                raise AssertionError(f"{kernel} at {n}: expected the wide instance, plan {row['plan']}")
+            rows.setdefault(kernel + "_wide", []).append(row)
+            log(f"  #{8 if kernel == 'silu_quant' else 9} wide {row['shape']} {row['dtype']}: bit for bit; "
+                f"{row['ms']:.4f} ms ({row['dev_ms']:.4f} dev), plain {row['plain_ms']:.4f}, bound "
+                f"{row['bound_ms']:.5f} ({row['bound_by']}); {row['registers']} registers, {row['spill_bytes']} local "
+                f"bytes, {row['blocks_per_sm']} blocks an SM, grid {row['plan']['grid']}")
+            del x
+
+    # The int8 fp32-compute 350M forward with the epilogue on: #2 f32 a block.
+    model = AE(**decode_variant(VARIANT), seed=0, device=device, compute_dtype=torch.float32)
+    _random_gates(model, device)
+    model.quantize()
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    (case,) = main_path_cases(device, [Q8_F32_PATH], seed=20)
+    name, max_tokens, batch, images, inputs = case
+    with q8_epilogue(True):
+        if not fa.can_fuse_q8(max_tokens, model.cfg.encoder_width, model.cfg.encoder_heads, cuda=True):
+            raise AssertionError("the int8 epilogue's gate is closed at the 350M width and 256 tokens")
+        expect = _expect(fused_attention_q8_f32=depth, fused_attention_f32=depth, rmsnorm_quant=depth, ffn_int8=depth,
+                         fused_qk_prologue=0)
+        (out,), q8_launches = _run_counted(model, [case], expect, "int8 fp32 + epilogue")
+        ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=3, warmup=1)
+    _check_output(name, max_tokens, batch, images, inputs, out)
+    with q8_epilogue(False):
+        off = model.decode(model.encode(inputs))
+    if not torch.equal(out["patches"], off["patches"]):
+        raise AssertionError("int8 fp32 + epilogue: output differs from the opt-in off (the fp32 walker, then "
+                             "quantize_activation), which the epilogue must equal bit for bit")
+    log(f"  int8 fp32-compute {VARIANT} {name} batch {batch}, epilogue on: launches {_nonzero(q8_launches)}; output "
+        f"equal to the opt-in off bit for bit; {ms / batch:.4f} ms/img on {card}")
+    del model, out, off
+
+    wide_launches = {}
+    for variant, counts in WIDE_MODELS:
+        from vitok_torch.models.ae import AEConfig
+
+        cfg = AEConfig.from_variant(variant)
+        model = AE(**dataclasses.asdict(cfg), state_dict=quant.init_params_quantized(cfg, seed=1, device=device),
+                   device=device)
+        (case,) = main_path_cases(device, [WIDE_PATH], seed=21)
+        name, max_tokens, batch, images, inputs = case
+        expect = _expect(**counts)
+        (out,), launches = _run_counted(model, [case], expect, f"int8 {variant}")
+        ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=3, warmup=1)
+        if not torch.isfinite(out["patches"]).all():
+            raise AssertionError(f"int8 {variant}: non-finite output")
+        with plain_quant_kernels():
+            ref = model.decode(model.encode(inputs))
+        rel = _valid_rel_l2(out, ref, inputs)
+        same = bool(torch.equal(out["patches"], ref["patches"]))
+        if not rel <= MODEL_REL_L2:
+            raise AssertionError(f"int8 {variant}: rel L2 vs its plain quantize kernels {rel:.3e} > {MODEL_REL_L2}")
+        for k, v in launches.items():
+            if v:
+                wide_launches[k] = wide_launches.get(k, 0) + v
+        log(f"  int8 {variant} {name} batch {batch}: launches {_nonzero(launches)}; rel L2 vs the plain quantize "
+            f"kernels {rel:.3e} (bit for bit: {same}); {ms / batch:.4f} ms/img on {card}")
+        del model, out, ref
+        torch.cuda.empty_cache()
+    return dict(rows=rows, q8_f32_launches=q8_launches, wide_launches=wide_launches)
+
+
+def wide_kernel_entries(wide: dict) -> list:
+    """The kernels line's entries of #2 f32 and the wide instances."""
+    entries = []
+    q8 = wide["rows"]["fused_attention_q8_f32"]
+    entries.append(dict(name="fused_attention_q8_f32", route="cuda",
+                        source="vitok_torch/csrc/quantize_rows.cu",  # after csrc/fused_attention_ab_f32_sm90.cu
+                        replaces="vitok_tpu/ops/fused_attention.py:340", launches=wide["q8_f32_launches"][
+                            "fused_attention_q8_f32"], max_abs_err=q8["max_abs_err"], ms=q8["ms"],
+                        plain_ms=q8["plain_ms"], bound_ms=q8["bound_ms"], bound_by=q8["bound_by"], library_ms=None,
+                        walker_ms=q8["walker_ms"], codes_differ=0,
+                        walker_launches=wide["q8_f32_launches"]["fused_attention_f32"]))
+    ffn = wide["rows"]["ffn_int8_wide"]
+    entries.append(dict(name="ffn_int8_wide", route="cuda", source="vitok_torch/csrc/ffn_int8.cu",
+                        replaces="vitok_tpu/ops/quant.py:130", launches=wide["wide_launches"].get("ffn_int8_wide", 0),
+                        max_abs_err=0, ms=ffn["ms"], plain_ms=ffn["plain_ms"], bound_ms=ffn["bound_ms"],
+                        bound_by=ffn["bound_by"], library_ms=None, int_mm_fc1_ms=ffn["int_mm_fc1_ms"],
+                        spill_bytes=ffn["spill_bytes"]))
+    for name, replaces in (("silu_quant", "vitok_tpu/ops/quant.py:317"), ("rmsnorm_quant", "vitok_tpu/ops/quant.py:385")):
+        rows = wide["rows"][name + "_wide"]
+        row, f32 = rows[0], rows[1]
+        entries.append(dict(name=name + "_wide", route="cuda", source=f"vitok_torch/csrc/{name}.cu", replaces=replaces,
+                            launches=wide["wide_launches"].get(name + "_wide", 0), max_abs_err=0, ms=row["ms"],
+                            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                            library_ms=None, dev_ms=row["dev_ms"], fp32_ms=f32["ms"], fp32_bound_ms=f32["bound_ms"],
+                            registers=row["registers"], spill_bytes=row["spill_bytes"]))
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# The distributed slice: each layout as a world of one over NCCL
+# ---------------------------------------------------------------------------
+
+DIST_TRAIN = ("256p", 256, 8, RESOLUTIONS[0][3])  # the fused kernels (#1, #3) a block
+DIST_SP = ("1024p", 4096, 1, [(1024, 1024)])        # the halo route, unfused, sw 1024
+DIST_SW = 1024
+DIST_LR = 1e-4
+DIST_REL = 1e-6  # each step's loss and updated parameters against the unwrapped step
+DIST_DIT, DIST_DIT_BATCH = "Ld4/256", 8  # DiT-L's width (1024, 16 heads), four blocks, 256 tokens
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _params_rel(got: dict, want: dict) -> float:
+    num = sum((got[k].double() - want[k].double()).square().sum() for k in want)
+    return (num / sum(v.double().square().sum() for v in want.values())).sqrt().item()
+
+
+def distributed_phase(device, card: str) -> dict:
+    """350M at full width and depth laid over each mesh as a world of one
+    over NCCL (``initialize_distributed`` from torchrun's variables): one
+    AdamW step at 256 tokens, batch 8, ``attn_impl="fused"`` (#1 and #3 a
+    block) under ``data=1`` (DDP), ``fsdp=1`` (FSDP2), ``model=1`` (the
+    tensor-parallel plan) and ``fsdp=1`` under selective recomputation
+    (``remat_save``); one token-sharded step under ``seq=1`` at 1024p,
+    window 1024 (the halo route, unfused, fp32 compute); the int8 forward
+    under ``model=1`` (the row-parallel int8 out-projection); one DiT step
+    under ``model=1``; each held to the same work unwrapped, launches
+    included. Then two processes on the one card over gloo with ``data=2``
+    against the unwrapped step's two microbatches."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.parallel import create_mesh, initialize_distributed, shard_params
+    from vitok_torch.parallel.sequence import make_sp_train_step, place_batch_token_sharded
+    from vitok_torch.parallel.sharding import local
+    from vitok_torch.train_lib import LossConfig, create_optimizer, create_schedule, create_train_state, make_train_step
+
+    if not dist.is_initialized():
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(_free_port()))
+        initialize_distributed(device.type)
+    backend = dist.get_backend()
+    log(f"distributed phase: {VARIANT}, a world of {dist.get_world_size()} over {backend}; one step each under "
+        f"data=1, fsdp=1, model=1, fsdp=1 with remat_save and seq=1, the int8 forward and a DiT step under "
+        f"model=1, against the unwrapped runs, on {card}")
+    tx_of = lambda: create_optimizer(create_schedule("constant", DIST_LR, 10, warmup_frac=0.0))
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            if v:
+                total[k] = total.get(k, 0) + v
+
+    def fresh(**kw):
+        model = AE(**{**decode_variant(VARIANT), **kw}, seed=0, device=device, param_dtype=torch.float32,
+                   trainable=True)
+        _random_gates(model, device)
+        return model
+
+    def full_params(model, layout):
+        if layout is None:
+            return {n: p.detach().clone() for n, p in model.named_parameters()}
+        return {n: layout.full(i, local(p).detach()) for i, (n, p) in enumerate(model.named_parameters())}
+
+    (case,) = main_path_cases(device, [DIST_TRAIN], seed=9)
+    name, max_tokens, batch, _, inputs = case
+    loss_cfg = LossConfig(ssim_weight=0.0)
+    rows = {}
+
+    def step(model, layout, microbatches=1, batch=inputs):
+        tx = tx_of()
+        state = create_train_state(model, tx)
+        reset_counts()
+        state, metrics = make_train_step(tx, loss_cfg, grad_accum=microbatches)(state, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return float(metrics["loss/total"]), full_params(model, layout), launch_counts()
+
+    def held(label, loss, params, counts, want_loss, want_params, want_counts, wrapper):
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        rel = _params_rel(params, want_params)
+        if counts != want_counts or not (loss_rel <= DIST_REL and rel <= DIST_REL):
+            raise AssertionError(f"distributed {label}: loss rel {loss_rel:.3e}, params rel L2 {rel:.3e} (limit "
+                                 f"{DIST_REL}); launches {_nonzero(counts)}, expected {_nonzero(want_counts)}")
+        rows[label] = dict(loss_rel=loss_rel, params_rel_l2=rel, wrapper=wrapper, launches=_nonzero(counts))
+        add(counts)
+        log(f"  {label} ({wrapper}): loss rel {loss_rel:.3e}, params rel L2 {rel:.3e}"
+            f"{' (exact)' if rel == 0 and loss_rel == 0 else ''}; launches {_nonzero(counts)}")
+
+    ref_model = fresh(attn_impl="fused")
+    depth = ref_model.cfg.encoder_depth + ref_model.cfg.decoder_depth
+    want_launches = _expect(fused_attention=depth, fused_attention_bwd=2 * depth)
+    ref_loss, ref_params, ref_counts = step(ref_model, None)
+    if ref_counts != want_launches:
+        raise AssertionError(f"distributed reference step: launches {ref_counts}, expected {want_launches}")
+    init_state = {k: v.detach().cpu() for k, v in fresh(attn_impl="fused").state_dict().items()}
+    del ref_model
+    for axes in ({"data": 1}, {"fsdp": 1}, {"model": 1}):
+        model = fresh(attn_impl="fused")
+        layout = shard_params(model, create_mesh(axes, device=device.type))
+        label = ",".join(f"{k}={v}" for k, v in axes.items())
+        held(label, *step(model, layout), ref_loss, ref_params, want_launches,
+             type(layout.module).__name__ + (", the tensor-parallel plan" if layout.tp else ""))
+        del model, layout
+        torch.cuda.empty_cache()
+    del ref_params
+
+    # fsdp=1 under selective recomputation: the replay inside the block's call.
+    remat = dict(attn_impl="fused", checkpoint=1, remat_save=("qkv_out", "ffn_hid"))
+    want = step(fresh(**remat), None)
+    model = fresh(**remat)
+    layout = shard_params(model, create_mesh({"fsdp": 1}, device=device.type))
+    held("fsdp=1, remat_save", *step(model, layout), *want, "FSDP2, checkpoint 1 keeping qkv_out and ffn_hid")
+    del model, layout, want
+    torch.cuda.empty_cache()
+
+    # seq=1: the halo route (unfused) at 1024p against the unwrapped unfused step, fp32 compute.
+    (sp_case,) = main_path_cases(device, [DIST_SP], seed=10)
+    sp_inputs = sp_case[4]
+    sp_kw = dict(attn_impl="xla", sw=DIST_SW, checkpoint=1, compute_dtype=torch.float32)
+    want_sp_loss, want_sp, _ = step(fresh(**sp_kw), None, batch=sp_inputs)
+    mesh = create_mesh({"seq": 1}, device=device.type)
+    model = fresh(**{**sp_kw, "attn_impl": "auto"})
+    tx = tx_of()
+    state = create_train_state(model, tx)
+    reset_counts()
+    state, metrics = make_sp_train_step(tx, mesh)(state, place_batch_token_sharded(sp_inputs, mesh))
+    torch.cuda.synchronize()
+    held(f"seq=1 ({DIST_SP[0]}, sw {DIST_SW})", float(metrics["loss/total"]), full_params(model, None),
+         launch_counts(), want_sp_loss, want_sp, _expect(), "halo attention, unfused, fp32 compute, checkpoint 1")
+    del model, state, want_sp
+    torch.cuda.empty_cache()
+
+    # The int8 forward under model=1: qkv and out sliced, the FFN whole, the
+    # out-projection's int32 partial products all-reduced; bit for bit.
+    def int8_model():
+        model = AE(**decode_variant(VARIANT), seed=0, device=device)
+        _random_gates(model, device)
+        return model.quantize()
+
+    int8_expect = _expect(fused_attention=depth, rmsnorm_quant=depth, ffn_int8=depth)
+    (want,), want_counts = _run_counted(int8_model(), [case], int8_expect, "int8 unwrapped")
+    model = int8_model()
+    shard_params(model, create_mesh({"model": 1}, device=device.type))
+    (got,), counts = _run_counted(model, [case], int8_expect, "int8 model=1")
+    if not torch.equal(got["patches"], want["patches"]):
+        raise AssertionError("int8 model=1: the tensor-parallel int8 forward differs from the unwrapped one")
+    rows["int8 forward, model=1"] = dict(bit_for_bit=True, launches=_nonzero(counts))
+    add(counts)
+    log(f"  int8 forward, model=1 ({name}, batch {batch}): bit for bit the unwrapped forward; launches "
+        f"{_nonzero(counts)}")
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    # One DiT step under model=1 (#1 and #3 in its blocks, its adaLN mod whole).
+    from vitok_torch.models.dit import DiT, decode_variant as dit_variant
+    from vitok_torch.scripts.train_dit import make_dit_train_step
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    z = torch.randn((DIST_DIT_BATCH, 256, 16), generator=gen, device=device)
+    labels = torch.randint(0, 1000, (DIST_DIT_BATCH,), generator=gen, device=device)
+    draws = {"sigma": torch.rand(DIST_DIT_BATCH, generator=gen, device=device),
+             "eps": torch.randn(z.shape, generator=gen, device=device),
+             "drop": torch.rand(DIST_DIT_BATCH, generator=gen, device=device) < 0.1}
+
+    def dit_step(layout_axes):
+        model = DiT(**dit_variant(DIST_DIT), code_width=16, text_dim=1000, attn_impl="fused", seed=0,
+                    device=device, param_dtype=torch.float32, trainable=True)
+        with torch.no_grad():
+            for blk in model.blocks:  # adaLN-zero would gate every block off
+                blk.mod.weight.copy_(0.02 * torch.randn(blk.mod.weight.shape, generator=torch.Generator(
+                    device=device).manual_seed(12), device=device))
+        layout = shard_params(model, create_mesh(layout_axes, device=device.type)) if layout_axes else None
+        tx = tx_of()
+        state = create_train_state(model, tx, ema=True)
+        reset_counts()
+        state, loss = make_dit_train_step(tx, 1000)(state, z, labels, draws=draws)
+        torch.cuda.synchronize()
+        return float(loss), full_params(model, layout), launch_counts()
+
+    dit_depth = dit_variant(DIST_DIT)["depth"]
+    want = dit_step(None)
+    if want[2] != _expect(fused_attention=dit_depth, fused_attention_bwd=2 * dit_depth):
+        raise AssertionError(f"DiT reference step: launches {_nonzero(want[2])}, expected #1 and #3 a block")
+    held(f"DiT {DIST_DIT}, model=1", *dit_step({"model": 1}), *want, "the tensor-parallel plan, mod whole")
+    del want
+    torch.cuda.empty_cache()
+
+    # Two processes on the one card, gloo carrying CUDA tensors: data=2,
+    # each rank four of the eight images; the unwrapped step on the same
+    # two microbatches adds the same gradients.
+    model = fresh(attn_impl="fused")
+    model.load_state_dict({k: v.to(device) for k, v in init_state.items()})
+    want_loss, want_params, _ = step(model, None, microbatches=2)
+    del model
+    with tempfile.TemporaryDirectory() as wd:
+        torch.save({"state": init_state, "inputs": {k: v.cpu() if hasattr(v, "cpu") else v
+                                                    for k, v in inputs.items()},
+                    "variant": VARIANT, "lr": DIST_LR, "device": "cuda:0" if device.type == "cuda" else "cpu"},
+                   os.path.join(wd, "job.pt"))
+        from vitok_torch.scripts import dryrun_multiprocess as dm
+
+        dm.spawn("ddp_job", 2, wd)
+        out = torch.load(os.path.join(wd, "ddp_0.pt"), weights_only=True)
+    got = {k: v.to(device) for k, v in out["params"].items()}
+    loss_rel = abs(out["loss"] - want_loss) / abs(want_loss)
+    rel = _params_rel(got, want_params)
+    if not (loss_rel <= DIST_REL and rel <= DIST_REL):
+        raise AssertionError(f"two-process data=2 on one card (gloo): loss rel {loss_rel:.3e}, params rel L2 "
+                             f"{rel:.3e} (limit {DIST_REL})")
+    rows["data=2 (2 processes, gloo)"] = dict(loss_rel=loss_rel, params_rel_l2=rel, launches_rank0=out["launches"])
+    log(f"  data=2 over gloo, two processes on the one card: loss rel {loss_rel:.3e}, params rel L2 {rel:.3e} "
+        f"against the unwrapped step's two microbatches; rank 0's launches {_nonzero(out['launches'])}")
+    dist.destroy_process_group()
+    return dict(rows=rows, launches=total)
+
+
 def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres, f32_int8, f32_silu) -> list:
     """The kernels line: one entry per kernel, its launches from its path's run."""
     head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
@@ -4249,7 +4697,8 @@ def main() -> int:
     _build.build(["fused_attention_sm90", "fused_attention", "fused_attention_bwd", "flash_attention",
                   "flash_attention_bwd", "rmsnorm_quant", "ffn_int8", "silu_quant", "fused_attention_q8in_sm90",
                   "fused_attention_ab_sm90", "fused_attention_ab_f32_sm90",  # the fp32 walker
-                  "flash_attention_f32"])  # the fp32 instances of #4-#6 (and #3's)
+                  "flash_attention_f32",  # the fp32 instances of #4-#6 (and #3's)
+                  "quantize_rows"])  # #2 f32's row quantize
     log(f"built CUDA kernels in {time.time() - t0:.1f} s")
     device = torch.device("cuda")
 
@@ -4302,6 +4751,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"eval and perceptual phases: {time.time() - t0:.1f} s")
     data_slice = training_data_phase(device, card)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    wide = wide_kernel_phase(device, card)
+    torch.cuda.empty_cache()
+    log(f"#2 fp32 and the wide instances: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    distributed = distributed_phase(device, card)
+    torch.cuda.empty_cache()
+    log(f"distributed phase: {time.time() - t0:.1f} s")
     log("eval summary: " + json.dumps({
         run: {k: evals[run]["stats"][k] for k in ("n_images", "ssim", "psnr", "fid", "fdd", "throughput_img_per_sec",
                                                   "wall_img_per_sec", "steady_img_per_sec", "host_data_time_s",
@@ -4315,6 +4773,7 @@ def main() -> int:
     entries[1:1] = fused_family_entries(q8kern, q8_path, fbkern, fused_training)
     entries += ab_entries(abkern, ab_runs, f32_ae, kern)
     entries += f32_training_entries(f32_train)
+    entries += wide_kernel_entries(wide)
     for e in entries:  # the 5B run's, the eval runs' and the perceptual steps' launches beside each path's own
         if bench_5b["launches"].get(e["name"]):
             e["launches_5b_bench"] = bench_5b["launches"][e["name"]]
@@ -4325,6 +4784,8 @@ def main() -> int:
             e["launches_perceptual"] = perceptual["launches"][e["name"]]
         if data_slice["launches"].get(e["name"]):
             e["launches_training_data"] = data_slice["launches"][e["name"]]
+        if distributed["launches"].get(e["name"]):
+            e["launches_distributed"] = distributed["launches"][e["name"]]
     log(f"chip_smoke.py ran for {time.time() - started:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

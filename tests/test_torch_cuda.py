@@ -802,9 +802,11 @@ class TestQ8OnCard:
         assert err.max().item() <= 3e-2 and err.mean().item() <= 3e-3
 
     def test_rejects_fp32_and_thirteen_wide_heads(self, cuda_device):
+        """fp16 is refused (fp32 has its own instance since the fp32 walker
+        took #2: TestQ8Fp32OnCard), and 13 heads of 128 fit no cluster."""
         qkv, *rest = make_inputs(cuda_device)
         with pytest.raises(TypeError, match="bfloat16"):
-            t_fa.fused_qkv_attention_q8(qkv.float(), *rest, num_heads=2)
+            t_fa.fused_qkv_attention_q8(qkv.half(), *rest, num_heads=2)
         qkv, *rest = make_inputs(cuda_device, b=1, n=64, heads=13, d=128)
         with pytest.raises(ValueError, match="cluster"):
             t_fa.fused_qkv_attention_q8(qkv, *rest, num_heads=13)
@@ -1062,7 +1064,8 @@ class TestQuantKernelsOnCard:
         torch.cuda.synchronize()
         launched = {k: v - before[k] for k, v in t_q.LAUNCHES.items()}
         other = "silu_quant" if route == "ffn_int8" else "ffn_int8"
-        assert launched == {"rmsnorm_quant": depth, route: depth, other: 0}
+        assert launched == {"rmsnorm_quant": depth, route: depth, other: 0,
+                            "rmsnorm_quant_wide": 0, "ffn_int8_wide": 0, "silu_quant_wide": 0}
         assert t_fa.LAUNCHES - attn_before == (depth if route == "ffn_int8" else 0)
         for name in ("fused_rmsnorm_quant", "fused_ffn_int8", "fused_silu_quant"):
             monkeypatch.setattr(t_q, name, getattr(t_q, name + "_plain"))
@@ -1071,6 +1074,106 @@ class TestQuantKernelsOnCard:
         a, r = got[valid].float(), want[valid].float()
         assert torch.isfinite(a).all()
         assert ((a - r).norm() / r.norm()).item() <= 2e-2
+
+
+@pytest.mark.cuda
+class TestWideQuantOnCard:
+    """The instances past the staged and register widths: #7's scratch
+    instance (t through device memory), #8 and #9's wide-row instances. Codes
+    and scales the plain versions' bit for bit, as the narrow ones."""
+
+    def test_ffn_int8_scratch_instance(self, cuda_device):
+        m, c, fp = 2048, 1024, 20480
+        *_, hq, hs, w, ws = _quant_inputs(cuda_device, m, c, fp)
+        plan = t_q.ffn_int8_plan(m, c, fp)
+        assert plan.scratch
+        attrs = t_q.ffn_int8_attributes(plan, fp)
+        assert attrs["spill_bytes"] == 0 and attrs["max_active_clusters"] >= 1
+        before = dict(t_q.LAUNCHES)
+        got = t_q.fused_ffn_int8(hq, hs, w, ws)
+        assert t_q.LAUNCHES["ffn_int8_wide"] == before["ffn_int8_wide"] + 1
+        assert t_q.LAUNCHES["ffn_int8"] == before["ffn_int8"]
+        want = t_q.fused_ffn_int8_plain(hq, hs, w, ws)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("kernel,m,n", [
+        ("rmsnorm_quant", 2048, 12288), ("rmsnorm_quant", 7, 8200), ("rmsnorm_quant", 300, 16392),
+        ("silu_quant", 2048, 20480), ("silu_quant", 7, 16392), ("silu_quant", 300, 32776),
+    ])
+    def test_wide_rows_equal_plain_bit_for_bit(self, cuda_device, kernel, m, n, dtype):
+        gen = torch.Generator(device=cuda_device).manual_seed(m + n)
+        before = dict(t_q.LAUNCHES)
+        if kernel == "rmsnorm_quant":
+            x = (2 * torch.randn(m, n, generator=gen, device=cuda_device)).to(dtype)
+            gain = 0.5 + torch.rand(n, generator=gen, device=cuda_device)
+            got, want = t_q.fused_rmsnorm_quant(x, gain), t_q.fused_rmsnorm_quant_plain(x, gain)
+        else:
+            hid = torch.randn(m, 2 * n, generator=gen, device=cuda_device)
+            hid[:, n:] *= 2
+            hid = hid.to(dtype)
+            got, want = t_q.fused_silu_quant(hid), t_q.fused_silu_quant_plain(hid)
+        assert t_q.LAUNCHES[kernel + "_wide"] == before[kernel + "_wide"] + 1
+        assert t_q.LAUNCHES[kernel] == before[kernel]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    @pytest.mark.parametrize("kernel,n,local_bytes", [("rmsnorm_quant", 12288, 0), ("silu_quant", 20480, 16)])
+    def test_wide_instances_fit_the_card(self, cuda_device, kernel, n, local_bytes):
+        """Each wide instance fits an SM; #9's keeps everything in registers,
+        #8's has a 16-byte local frame (measured on the H100: the IEEE
+        reciprocal's slow path is a call, around which it saves registers)."""
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = t_q.row_quant_plan(kernel, 4096, n, dtype, cuda_device)
+            attrs = t_q.row_quant_attributes(kernel, plan, n, dtype)
+            assert plan.wide and attrs["spill_bytes"] <= local_bytes and attrs["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+class TestQ8Fp32OnCard:
+    """#2 on fp32 compute: the fp32 walker's forward, then the row quantize.
+    Codes and scales equal ``quantize_activation`` of the fp32 forward
+    (``impl="fused"``: the same walker) bit for bit."""
+
+    @pytest.mark.parametrize("n", [64, 256, 1024])
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_codes_equal_quantized_fp32_forward(self, cuda_device, no_tf32, n, d, masked):
+        qkv, *rest = make_inputs(cuda_device, b=2, n=n, heads=4, d=d, masked=masked)
+        qkv = qkv.float()
+        before, walks = t_fa.Q8_F32_LAUNCHES, t_fa.F32_LAUNCHES
+        codes, scales = t_fa.fused_qkv_attention_q8(qkv, *rest, num_heads=4)
+        assert t_fa.Q8_F32_LAUNCHES == before + 1 and t_fa.F32_LAUNCHES == walks + 1
+        fwd = t_fa.fused_qkv_attention(qkv, *rest, num_heads=4, impl="fused")
+        want = t_q.quantize_activation(fwd)
+        torch.cuda.synchronize()
+        assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])
+
+    def test_row_quantize_fits_without_spills(self, cuda_device):
+        attrs = t_fa.quantize_rows_attributes(1024, cuda_device)
+        assert attrs["spill_bytes"] == 0 and attrs["blocks_per_sm"] >= 1
+
+    def test_int8_fp32_model_takes_the_fp32_epilogue(self, cuda_device, no_tf32, monkeypatch):
+        """An int8 350M model on fp32 compute at 256 tokens with the opt-in:
+        every block (28) launches #2's fp32 instance (the walker and the row
+        quantize, one each), and the output equals
+        the opt-in off (the fp32 walker's forward and the eager quantize)."""
+        cfg = t_ae.AEConfig.from_variant("Ld4-Ld24/1x16x64")
+        model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=cuda_device,
+                        compute_dtype=torch.float32).quantize()
+        rng = np.random.default_rng(0)
+        batch = {"patches": torch.from_numpy(rng.standard_normal((2, 256, 768), dtype=np.float32)),
+                 "patch_mask": torch.from_numpy(np.arange(256)[None, :] < np.array([[256], [200]])),
+                 "row_idx": torch.from_numpy(np.tile(np.arange(256) // 16, (2, 1))),
+                 "col_idx": torch.from_numpy(np.tile(np.arange(256) % 16, (2, 1)))}
+        off = model(batch)["patches"]
+        monkeypatch.setattr(t_fa, "_ENABLE_Q8", True)
+        before, walks = t_fa.Q8_F32_LAUNCHES, t_fa.F32_LAUNCHES
+        on = model(batch)["patches"]
+        torch.cuda.synchronize()
+        assert t_fa.Q8_F32_LAUNCHES - before == 28 and t_fa.F32_LAUNCHES - walks == 28
+        assert torch.equal(on, off)
 
 
 def ab_inputs(device, dtype, b=4, n=200, heads=2, d=64, case="tail+dead", seed=0):
@@ -1614,3 +1717,86 @@ class TestFp32InstancesOnCard:
         a, r = got[valid], want[valid]
         assert a.dtype == torch.float32 and torch.isfinite(a).all()
         assert ((a - r).norm() / r.norm()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+class TestDistributedOnCard:
+    """Each layout of ``vitok_torch.parallel`` as a world of one over NCCL:
+    one AdamW step of a small AE (four heads of 64, 256 tokens,
+    ``attn_impl="fused"``: #1 and #3) under ``data=1`` (DDP), ``fsdp=1``
+    (FSDP2) and ``model=1`` (the tensor-parallel plan) equals the unwrapped
+    step bit for bit, and launches the same kernels; so does ``fsdp=1``
+    under selective recomputation (``remat_save``), and the int8 forward
+    under ``model=1`` (the row-parallel int8 out-projection)."""
+
+    @pytest.fixture
+    def world_of_one(self, cuda_device):
+        import torch.distributed as dist
+
+        from vitok_torch.parallel import create_mesh
+
+        create_mesh(device="cuda")  # a world of one in this process (no address needed)
+        assert dist.get_backend() == "nccl"
+        yield cuda_device
+        dist.destroy_process_group()
+
+    @staticmethod
+    def _batch():
+        rng = np.random.default_rng(0)
+        return {"patches": torch.from_numpy(rng.standard_normal((4, 256, 768), dtype=np.float32)),
+                "patch_mask": torch.from_numpy(np.arange(256)[None, :] < np.array([[256], [200], [256], [64]])),
+                "row_idx": torch.from_numpy(np.tile(np.arange(256) // 16, (4, 1))),
+                "col_idx": torch.from_numpy(np.tile(np.arange(256) % 16, (4, 1)))}
+
+    @classmethod
+    def _step(cls, device, axes=None, **overrides):
+        from vitok_torch import train_lib as tl
+        from vitok_torch.parallel import create_mesh, shard_params
+        from vitok_torch.parallel.sharding import local
+
+        cfg = t_ae.AEConfig.from_variant("w256_d1_h4-w256_d1_h4/1x16x64", attn_impl="fused", **overrides)
+        model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=device, param_dtype=torch.float32,
+                        trainable=True)
+        layout = None if axes is None else shard_params(model, create_mesh(axes, device="cuda"))
+        batch = cls._batch()
+        tx = tl.create_optimizer(tl.create_schedule("constant", 1e-3, 10, warmup_frac=0.0))
+        state = tl.create_train_state(model, tx)
+        before = counts()
+        state, metrics = tl.make_train_step(tx, tl.LossConfig(ssim_weight=0.0))(
+            state, {k: v.to(device) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        params = {n: (p if layout is None else layout.full(i, local(p))).detach().clone()
+                  for i, (n, p) in enumerate(model.named_parameters())}
+        return float(metrics["loss/total"]), params, launched
+
+    @pytest.mark.parametrize("axes", [{"data": 1}, {"fsdp": 1}, {"model": 1}])
+    def test_layout_step_equals_the_unwrapped_step(self, world_of_one, axes):
+        want_loss, want, want_launched = self._step(world_of_one)
+        loss, got, launched = self._step(world_of_one, axes)
+        assert want_launched == {"fwd": 2, "prologue": 4, "bwd": 4} and launched == want_launched
+        assert loss == want_loss
+        assert all(torch.equal(got[n], want[n]) for n in want)
+
+    def test_fsdp_remat_save_step_equals_the_unwrapped_step(self, world_of_one):
+        remat = dict(checkpoint=1, remat_save=("qkv_out", "ffn_hid"))
+        want_loss, want, want_launched = self._step(world_of_one, **remat)
+        loss, got, launched = self._step(world_of_one, {"fsdp": 1}, **remat)
+        assert launched == want_launched and loss == want_loss
+        assert all(torch.equal(got[n], want[n]) for n in want)
+
+    def test_int8_tensor_parallel_forward_is_the_unwrapped_one(self, world_of_one):
+        from vitok_torch.parallel import create_mesh, shard_params
+
+        def run(axes):
+            cfg = t_ae.AEConfig.from_variant("w256_d1_h4-w256_d1_h4/1x16x64")
+            model = t_ae.AE(**dataclasses.asdict(cfg), seed=0, device=world_of_one).quantize()
+            if axes:
+                shard_params(model, create_mesh(axes, device="cuda"))
+            before = counts()
+            out = model({k: v.to(world_of_one) for k, v in self._batch().items()})["patches"]
+            torch.cuda.synchronize()
+            return out, {k: v - before[k] for k, v in counts().items() if v != before[k]}
+
+        (want, want_launched), (got, launched) = run(None), run({"model": 1})
+        assert launched == want_launched and torch.equal(got, want)

@@ -320,3 +320,69 @@ class TestFused:
             t_fa.fused_qkv_attention_bwd(qkv, qs[:32], ks[:32], cos[..., :16], sin[..., :16], mask, g,
                                          num_heads=4, out=g, lse=torch.zeros((2, 4, 128)))
         assert entries == [] and counts() == only()
+
+
+class TestQ8Fp32:
+    """#2 on fp32 compute: the fp32 walker's forward into a scratch, then the
+    row quantize over each token's C channels (``csrc/quantize_rows.cu``):
+    one ``F32_LAUNCHES`` and one ``Q8_F32_LAUNCHES`` a call."""
+
+    @pytest.fixture(autouse=True)
+    def _quantize_rows(self, monkeypatch):
+        from vitok_torch.ops import quant as t_q
+
+        monkeypatch.setattr(t_q, "_FNS", {})
+        monkeypatch.setattr(t_fa, "_quantize_rows_blocks", lambda c, dev: 4)
+        monkeypatch.setattr(t_fa, "Q8_F32_LAUNCHES", 0)
+        monkeypatch.setattr(t_fa, "Q8_LAUNCHES", 0)
+
+    @pytest.mark.parametrize("n", [64, 256, 1024])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_fp32_is_the_walker_then_the_row_quantize(self, entries, n, d):
+        qkv, qs, ks, cos, sin, mask = qkv_inputs(n=n, d=d)
+        codes, scales = t_fa.fused_qkv_attention_q8(qkv, qs, ks, cos, sin, mask, num_heads=2)
+        assert codes.shape == (2, n, 2 * d) and codes.dtype == torch.int8
+        assert scales.shape == (2, n, 1) and scales.dtype == torch.float32
+        assert [(lib, fn) for lib, fn, _ in entries] == [
+            ("fused_attention_ab_f32_sm90", "vitok_fused_attention_walk_f32"),
+            ("quantize_rows", "vitok_quantize_rows_f32")]
+        (walk,) = entry_calls(entries, "vitok_fused_attention_walk_f32")
+        (quant,) = entry_calls(entries, "vitok_quantize_rows_f32")
+        bb, hpb = t_fa.f32_walk_split(2, n, 2, d, SMS)
+        assert walk[7] is None and walk[8:] == (2, n, 2, d, bb, hpb, -1, t_fa.F32_WALK_KINDS.index("fwd"), 7)
+        assert quant[0] == walk[6]  # the quantize reads the walker's output
+        assert quant[1] == codes.data_ptr() and quant[2] == scales.data_ptr()
+        assert quant[3:] == (2 * n, 2 * d, min(2 * n, SMS * 4), qkv.device.index, 7)
+        assert t_fa.Q8_F32_LAUNCHES == 1 and t_fa.Q8_LAUNCHES == 0 and counts() == only(fa_f32=1)
+
+    def test_window_reaches_the_walker(self, entries):
+        qkv, qs, ks, cos, sin, mask = qkv_inputs()
+        t_fa.fused_qkv_attention_q8(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=32)
+        (walk,) = entry_calls(entries, "vitok_fused_attention_walk_f32")
+        assert walk[14] == 32
+
+    def test_bf16_keeps_its_kernel(self, entries, monkeypatch):
+        monkeypatch.setattr(t_fa, "_q8_cluster_size", lambda h, d: 2)
+        qkv, qs, ks, cos, sin, mask = qkv_inputs(dtype=torch.bfloat16)
+        t_fa.fused_qkv_attention_q8(qkv, qs, ks, cos, sin, mask, num_heads=2)
+        assert [fn for _, fn, _ in entries] == ["vitok_fused_qk_prologue_bf16", "vitok_fused_attention_q8_sm90_bf16"]
+        assert t_fa.Q8_LAUNCHES == 1 and t_fa.Q8_F32_LAUNCHES == 0
+
+    def test_fp16_and_other_head_dims_raise_before_a_launch(self, entries):
+        qkv, qs, ks, cos, sin, mask = qkv_inputs()
+        with pytest.raises(TypeError, match="bfloat16"):
+            t_fa.fused_qkv_attention_q8(card(qkv.half()), qs, ks, cos, sin, mask, num_heads=2)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_fa.fused_qkv_attention_q8(qkv, qs[:32], ks[:32], cos[..., :16], sin[..., :16], mask, num_heads=4)
+        assert entries == [] and t_fa.Q8_F32_LAUNCHES == 0
+
+    def test_plain_version_is_quantize_activation_of_the_forward(self):
+        """The function the card holds the kernel to: ``quantize_activation``
+        of the fp32 forward, which the CPU path computes."""
+        from vitok_torch.ops.quant import quantize_activation
+
+        qkv, qs, ks, cos, sin, mask = qkv_inputs()
+        x = qkv.as_subclass(torch.Tensor)
+        codes, scales = t_fa.fused_qkv_attention_q8(x, qs, ks, cos, sin, mask, num_heads=2)
+        want = quantize_activation(t_fa.fused_qkv_attention_plain(x, qs, ks, cos, sin, mask, num_heads=2))
+        assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])

@@ -70,7 +70,7 @@ def test_plan_of_the_main_shapes(m, c, fp, want):
 
 
 @pytest.mark.parametrize("m,c,fp", [
-    (16384, 1024, 19584),  # 306 tiles: 20 a block of 16 do not fit beside three stages at 64 rows
+    (16384, 1024, 19648),  # F' not a multiple of 128, past the staged plans' widths
     (16384, 1000, 2816),   # C not a multiple of 128
     (16384, 1024, 2752),   # F' not a multiple of 128
     (1001, 1024, 2816),    # M not a multiple of 8
@@ -82,13 +82,41 @@ def test_plan_raises_where_nothing_fits(m, c, fp):
 
 
 def test_widest_hosted_width():
-    """The widest F' a plan hosts: 304 tiles (19 a block of a cluster of
-    16, three stages); a cluster of 8 hosts up to 152 tiles (19 a block)."""
+    """The widest F' whose t a cluster stages in shared memory: 304 tiles
+    (19 a block of a cluster of 16, three stages); a cluster of 8 hosts up
+    to 152 tiles (19 a block). Wider rows take the scratch instance."""
     assert tuple(t_q.ffn_int8_plan(64, 1024, 304 * 64)[1:3]) == (16, 3)
-    with pytest.raises(ValueError):
-        t_q.ffn_int8_plan(64, 1024, 306 * 64)
+    assert not t_q.ffn_int8_plan(64, 1024, 304 * 64).scratch
+    assert t_q.ffn_int8_plan(64, 1024, 306 * 64).scratch
     assert tuple(t_q.ffn_int8_plan(64, 1024, 152 * 64)[1:3]) == (8, 3)
     assert t_q.ffn_int8_plan(64, 1024, 154 * 64).cluster == 16
+
+
+@pytest.mark.parametrize("m,c,fp,rows", [
+    (2048, 1024, 20480, 128),   # the card test's shape
+    (16384, 1024, 19584, 128),  # 306 tiles: the first width past the staged plans
+    (64, 256, 32768, 64),       # M <= 64 takes 64 rows
+    (1000, 4096, 65536, 128),
+])
+def test_scratch_plan_beyond_the_staged_widths(m, c, fp, rows):
+    """Past 304 tiles the plan sends t through a device scratch: a cluster
+    of 8 splits the tiles, four stages, and shared memory holds the ring,
+    the row maxima and the barriers only."""
+    plan = t_q.ffn_int8_plan(m, c, fp)
+    assert plan.scratch and plan.cluster == 8 and plan.stages == 4 and plan.rows == rows
+    assert plan.smem_bytes == t_q._ffn_smem_bytes(rows, 8, 4, fp, scratch=True) <= SMEM_LIMIT
+    assert plan.smem_bytes == 4 * (rows * 128 + 2 * 64 * 128) + 3 * rows * 4 + 64 + 1024
+    edges = [lo for lo, _ in plan.col_ranges] + [plan.col_ranges[-1][1]]
+    assert edges[0] == 0 and edges[-1] == fp and all(lo % 64 == 0 for lo in edges)
+
+
+def test_every_gate_shape_has_a_plan():
+    """The JAX gate (``can_fuse_ffn``) admits any 128-aligned F': so does
+    the plan, staged or through the scratch."""
+    for fp in range(128, 40 * 1024 + 1, 128):
+        assert t_q.can_fuse_ffn(256, 1024, 2 * fp)
+        plan = t_q.ffn_int8_plan(256, 1024, fp)
+        assert plan.smem_bytes <= SMEM_LIMIT and plan.scratch == (fp > 304 * 64)
 
 
 class Card(torch.Tensor):
@@ -119,9 +147,45 @@ def test_wrapper_hands_the_plan_to_the_kernel(monkeypatch, m, c, f):
     fp = t_q.pad_ffn_dim(f)
     plan = t_q.ffn_int8_plan(m, c, fp)
     assert t_q.LAUNCHES["ffn_int8"] == before + 1
-    assert len(calls) == 1 and calls[0][6:12] == (m, c, fp, plan.rows, plan.cluster, plan.stages)
+    assert len(calls) == 1 and calls[0][7:13] == (m, c, fp, plan.rows, plan.cluster, plan.stages)
+    assert calls[0][6] is None  # no scratch: t staged in shared memory
     assert q.shape == (m, fp) and q.dtype == torch.int8 and scale.shape == (m, 1)
     assert calls[0][4] == q.data_ptr() and calls[0][5] == scale.data_ptr()
+
+
+def test_wide_wrapper_hands_a_scratch_to_the_kernel(monkeypatch):
+    """At F' 20,480 the wrapper allocates the bf16 scratch (rows rounded up
+    to the plan's row tile) and counts the scratch instance's launch."""
+    m, c, fp = 200, 256, 20480
+    gen = torch.Generator().manual_seed(1)
+    hq, hs = t_q.quantize_activation(torch.randn(m, c, generator=gen))
+    w, ws = t_q.quantize_weight(0.05 * torch.randn(2 * fp, c, generator=gen))
+    calls, scratch = [], []
+
+    def launch(*args):
+        calls.append(args)
+        return 0
+
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        t = real_empty(shape, **kw)
+        if kw.get("dtype") == torch.bfloat16:
+            scratch.append(t)
+        return t
+
+    monkeypatch.setattr(t_q, "_lib", lambda name: types.SimpleNamespace(vitok_ffn_int8=launch))
+    monkeypatch.setattr(t_q, "_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", _NullDevice)
+    monkeypatch.setattr(torch, "empty", empty)
+    before = dict(t_q.LAUNCHES)
+    t_q.fused_ffn_int8(hq.as_subclass(Card), hs, w, ws)
+    plan = t_q.ffn_int8_plan(m, c, fp)
+    assert plan.scratch and len(calls) == 1 and len(scratch) == 1
+    assert scratch[0].shape == (256, fp) and calls[0][6] == scratch[0].data_ptr()
+    assert calls[0][7:13] == (m, c, fp, plan.rows, plan.cluster, plan.stages)
+    assert t_q.LAUNCHES["ffn_int8_wide"] == before["ffn_int8_wide"] + 1
+    assert t_q.LAUNCHES["ffn_int8"] == before["ffn_int8"]
 
 
 class _NullDevice:

@@ -113,9 +113,9 @@ class TestPlans:
             assert plan.lanes == 32
 
     @pytest.mark.parametrize("kernel,n,why", [
-        ("rmsnorm_quant", 12, "multiple of 8"), ("rmsnorm_quant", 8200, "up to 8192"),
+        ("rmsnorm_quant", 12, "multiple of 8"), ("rmsnorm_quant", 8204, "multiple of 8"),
         ("rmsnorm_quant", 0, "C a multiple of 8"),
-        ("silu_quant", 12, "multiple of 8"), ("silu_quant", 16392, "up to 16384"),
+        ("silu_quant", 12, "multiple of 8"), ("silu_quant", 16388, "multiple of 8"),
     ])
     def test_widths_outside_the_domain_raise(self, kernel, n, why):
         with pytest.raises(ValueError, match=why):
@@ -129,6 +129,33 @@ class TestPlans:
             _plan(kernel, 64, 1024, torch.float16)
         with pytest.raises(ValueError, match="fits no SM"):
             _plan(kernel, 64, 1024, torch.bfloat16, blocks_per_sm=0)
+
+
+class TestWidePlans:
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("kernel,n", [("rmsnorm_quant", c) for c in (8200, 8208, 12288, 65536)]
+                             + [("silu_quant", f) for f in (16392, 16400, 20480, 65536)])
+    @pytest.mark.parametrize("m", [1, 7, 16384])
+    def test_wide_plan(self, kernel, n, dtype, m):
+        """A block of 256 lanes a row, no ring: a lane's chunks
+        ``lane + 256 i`` cover the row, and the grid is one wave of blocks
+        (at most one a row)."""
+        plan = _plan(kernel, m, n, dtype)
+        assert plan.wide and plan.lanes == plan.threads == 256 and plan.warps_per_row == 8
+        assert plan.vec == (16 if n % 16 == 0 else 8) and plan.rows_per_block == 1
+        units = n // plan.vec
+        assert 256 * (plan.per - 1) < units <= 256 * plan.per
+        assert plan.stages == 0 and plan.smem_bytes == 0
+        assert plan.grid == min(m, SMS * BLOCKS_PER_SM)
+
+    @pytest.mark.parametrize("kernel,n", [("rmsnorm_quant", 8192), ("silu_quant", 16384)])
+    def test_the_register_instances_keep_their_widths(self, kernel, n):
+        assert not _plan(kernel, 64, n, torch.bfloat16).wide
+        assert _plan(kernel, 64, n + 8, torch.bfloat16).wide
+
+    def test_wide_plan_needs_an_sm(self):
+        with pytest.raises(ValueError, match="fits no SM"):
+            _plan("silu_quant", 64, 20480, torch.bfloat16, blocks_per_sm=0)
 
 
 # ---------------------------------------------------------------------------
@@ -149,11 +176,11 @@ def _kernel_order_sum(row):
     % 16 == 8) channel by channel; each warp's 32 sums go through the
     butterfly (lane l adds lane l ^ off for off = 16 .. 1); the warps' sums
     are added in warp order. L: the fewest lanes from 32 that hold the row
-    in at most 48 values a lane."""
+    in at most 48 values a lane; above C 8192 the wide instance's 256."""
     c = len(row)
     vec = 16 if c % 16 == 0 else 8
     units = c // vec
-    lanes = next(n for n in (32, 64, 128, 256) if -(-units // n) <= 48 // vec)
+    lanes = 256 if c > 8192 else next(n for n in (32, 64, 128, 256) if -(-units // n) <= 48 // vec)
     acc = [0.0] * lanes
     for j in range(lanes):
         for u in range(j, units, lanes):
@@ -183,7 +210,7 @@ def _order_rows(c, dtype):
 
 
 class TestSumOrder:
-    @pytest.mark.parametrize("c", [8, 136, 1000, 1024, 1728, 3072, 4096, 8184, 8192])
+    @pytest.mark.parametrize("c", [8, 136, 1000, 1024, 1728, 3072, 4096, 8184, 8192, 8200, 12288, 16392])
     def test_sum_squares_adds_in_the_kernels_order(self, c):
         x = _wide_rows(3, c, c)
         got = t_q._sum_squares(torch.from_numpy(x)).squeeze(-1).tolist()
@@ -307,6 +334,25 @@ class TestDtypeGate:
         t_q.fused_rmsnorm_quant(x, gain)
         t_q.fused_rmsnorm_quant(x, gain.bfloat16())
         assert seen[0] is gain and seen[1].dtype == torch.float32 and torch.equal(seen[1], gain)
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("kernel,n", [("rmsnorm_quant", 12288), ("rmsnorm_quant", 8200),
+                                          ("silu_quant", 20480), ("silu_quant", 16392)])
+    def test_wide_rows_take_the_wide_instance(self, launches, kernel, n, dtype):
+        """Past the register instances' widths (C 8192, F' 16384) the wrapper
+        hands the wide-row plan to the launch, and the codes are the plain
+        version's (the recorders write them)."""
+        x = _rows((2, 8, n if kernel == "rmsnorm_quant" else 2 * n), dtype)
+        if kernel == "rmsnorm_quant":
+            gain = torch.from_numpy(np.random.default_rng(2).uniform(0.5, 1.5, n).astype(np.float32))
+            q, s = t_q.fused_rmsnorm_quant(x.as_subclass(Card), gain)
+            want = t_q.fused_rmsnorm_quant_plain(x, gain)
+        else:
+            q, s = t_q.fused_silu_quant(x.as_subclass(Card))
+            want = t_q.fused_silu_quant_plain(x)
+        plan = _plan(kernel, 16, n, dtype)
+        assert launches == [(kernel, dtype, plan)] and plan.wide
+        assert torch.equal(plain(q), want[0]) and torch.equal(plain(s), want[1])
 
     def test_no_rows_launch_nothing(self, launches):
         q, s = t_q.fused_silu_quant(torch.zeros(0, 4, 64, dtype=torch.bfloat16).as_subclass(Card))

@@ -25,7 +25,11 @@
 // memory; the row maxima go over distributed shared memory between two
 // cluster barriers; then every block quantizes its own columns from shared
 // memory, and rank 0 writes the scales. t never reaches device memory, and
-// there is one launch. ffn_int8_plan in vitok_torch/ops/quant.py picks BM,
+// there is one launch. Where even a cluster of 16 cannot stage t (F' above
+// about 19,456), the scratch instance sends each block's bf16 t tiles
+// through a device-memory scratch [M, F'] instead (L2-resident at these
+// sizes), with the same cluster exchange of row maxima and the same
+// quantize reading the scratch back: the JAX kernel takes any 128-aligned F'. ffn_int8_plan in vitok_torch/ops/quant.py picks BM,
 // the cluster size and the ring depth from the shared memory they need
 // (the smem_bytes formula below).
 //
@@ -78,18 +82,19 @@ constexpr int kMaxCluster = 16;  // above 8 a non-portable cluster
 constexpr int kSmemLimit = 232448;
 
 // Shared memory of a block (from the 1024-byte aligned base): the ring,
-// then the staged bf16 t ([BM, per * 64] with 16 bytes of row padding), the
-// two consumer warpgroups' row maxima and the rows' reciprocals, and the
-// ring's full and empty mbarriers.
+// then the staged bf16 t ([BM, per * 64] with 16 bytes of row padding; none
+// in the scratch instance, whose t goes to device memory), the two consumer
+// warpgroups' row maxima and the rows' reciprocals, and the ring's full and
+// empty mbarriers.
 struct FfnSmem {
   int a_bytes, stage_bytes, stride, t_off, max_off, bar_off, bytes;
 
-  __host__ __device__ FfnSmem(int rows, int cs, int stages, int Fp) {
+  __host__ __device__ FfnSmem(int rows, int cs, int stages, int Fp, bool scratch) {
     const int tiles = Fp / kTileCols;
     const int per = (tiles + cs - 1) / cs;  // the most tiles a rank owns
     a_bytes = rows * kBK;
     stage_bytes = a_bytes + 2 * kTileCols * kBK;
-    stride = per * kTileCols * 2 + 16;
+    stride = scratch ? 0 : per * kTileCols * 2 + 16;
     t_off = stages * stage_bytes;
     max_off = t_off + rows * stride;
     bar_off = max_off + 3 * rows * 4;
@@ -128,6 +133,7 @@ ffn_int8_kernel(const __grid_constant__ CUtensorMap hq_map,  // hq [M, C] int8, 
                 const float* __restrict__ ws,                // [2Fp]
                 int8_t* __restrict__ q,                      // [M, Fp]
                 float* __restrict__ t_scale,                 // [M]
+                unsigned char* __restrict__ t_scratch,       // [M rounded up to BM, Fp] bf16, or null
                 int M, int C, int Fp, int stages) {
   namespace cg = cooperative_groups;
   constexpr int kConsumers = 2 * 128;
@@ -137,7 +143,7 @@ ffn_int8_kernel(const __grid_constant__ CUtensorMap hq_map,  // hq [M, C] int8, 
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const FfnSmem L(BM, cs, stages, Fp);
+  const FfnSmem L(BM, cs, stages, Fp, t_scratch != nullptr);
   unsigned char* ring = smem;
   unsigned char* sT = smem + L.t_off;
   float* sRowMax = reinterpret_cast<float*>(smem + L.max_off);  // [2][BM]: one row a warpgroup
@@ -153,6 +159,11 @@ ffn_int8_kernel(const __grid_constant__ CUtensorMap hq_map,  // hq [M, C] int8, 
   const int tile_lo = rank * tiles / cs;
   const int tile_hi = (rank + 1) * tiles / cs;
   const int k_tiles = C / kBK;
+  // Where this block stages its bf16 t: shared memory, or in the scratch
+  // instance its own columns of the rows' scratch in device memory (L2).
+  unsigned char* const t_base =
+      t_scratch != nullptr ? t_scratch + ((long long)m0 * Fp + tile_lo * kTileCols) * 2 : sT;
+  const long long t_stride = t_scratch != nullptr ? (long long)Fp * 2 : L.stride;
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -244,8 +255,8 @@ ffn_int8_kernel(const __grid_constant__ CUtensorMap hq_map,  // hq [M, C] int8, 
       const int gcol = jt * kTileCols;
 #pragma unroll
       for (int u = 0; u < kSub; ++u) {
-        unsigned char* row0 = sT + (64 * u + lrow) * L.stride + (jt - tile_lo) * kTileCols * 2;
-        unsigned char* row1 = row0 + 8 * L.stride;
+        unsigned char* row0 = t_base + (64 * u + lrow) * t_stride + (jt - tile_lo) * kTileCols * 2;
+        unsigned char* row1 = row0 + 8 * t_stride;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = 8 * j + 2 * t4;
@@ -275,7 +286,7 @@ ffn_int8_kernel(const __grid_constant__ CUtensorMap hq_map,  // hq [M, C] int8, 
       }
   }
 
-  cluster.sync();  // every block's row maxima and staged t are written
+  cluster.sync();  // every block's row maxima and staged t are written (the barrier orders the scratch too)
   for (int r = tid; r < BM; r += kBlockThreads) {
     float amax = 0.f;
     for (int k = 0; k < cs; ++k) {
@@ -295,7 +306,7 @@ ffn_int8_kernel(const __grid_constant__ CUtensorMap hq_map,  // hq [M, C] int8, 
     const int ch = i % chunks;
     if (m0 + r >= M) continue;
     const float rcp = sRcp[r];
-    const uint4* src = reinterpret_cast<const uint4*>(sT + r * L.stride + ch * 32);
+    const uint4* src = reinterpret_cast<const uint4*>(t_base + r * t_stride + ch * 32);
     const uint4 u0 = src[0], u1 = src[1];
     const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&u0);
     const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&u1);
@@ -354,9 +365,10 @@ cudaLaunchConfig_t launch_config(int rows, int cs, int M, int smem, cudaStream_t
   return cfg;
 }
 
-bool plan_ok(int rows, int cs, int stages, int M, int C, int Fp) {
+bool plan_ok(int rows, int cs, int stages, int M, int C, int Fp, bool scratch) {
   return (rows == 64 || rows == 128) && cs >= 1 && cs <= kMaxCluster && cs <= Fp / kTileCols && stages >= 2 &&
-         M > 0 && C > 0 && C % kBK == 0 && Fp % kTileCols == 0 && FfnSmem(rows, cs, stages, Fp).bytes <= kSmemLimit;
+         M > 0 && C > 0 && C % kBK == 0 && Fp % kTileCols == 0 &&
+         FfnSmem(rows, cs, stages, Fp, scratch).bytes <= kSmemLimit;
 }
 
 // The kernel's dynamic shared memory, and clusters of 9-16 blocks, which are
@@ -369,11 +381,11 @@ cudaError_t set_attributes(int cs, int smem) {
 }
 
 template <int BM>
-cudaError_t launch(const void* hq, const void* hs, const void* w, const void* ws, void* q, void* t_scale, int M,
-                   int C, int Fp, int cs, int stages, cudaStream_t stream) {
+cudaError_t launch(const void* hq, const void* hs, const void* w, const void* ws, void* q, void* t_scale,
+                   void* t_scratch, int M, int C, int Fp, int cs, int stages, cudaStream_t stream) {
   CUtensorMap hq_map, w_map;
   if (!int8_map(&hq_map, hq, M, C, BM) || !int8_map(&w_map, w, 2 * Fp, C, kTileCols)) return cudaErrorInvalidValue;
-  const int smem = FfnSmem(BM, cs, stages, Fp).bytes;
+  const int smem = FfnSmem(BM, cs, stages, Fp, t_scratch != nullptr).bytes;
   cudaError_t err = set_attributes<BM>(cs, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -382,18 +394,19 @@ cudaError_t launch(const void* hq, const void* hs, const void* w, const void* ws
   const float* ws_f = static_cast<const float*>(ws);
   int8_t* q_i = static_cast<int8_t*>(q);
   float* scale_f = static_cast<float*>(t_scale);
-  void* args[] = {&hq_map, &w_map, &hs_f, &ws_f, &q_i, &scale_f, &M, &C, &Fp, &stages};
+  unsigned char* scratch_b = static_cast<unsigned char*>(t_scratch);
+  void* args[] = {&hq_map, &w_map, &hs_f, &ws_f, &q_i, &scale_f, &scratch_b, &M, &C, &Fp, &stages};
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(ffn_int8_kernel<BM>), args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int BM>
-cudaError_t attributes(int cs, int stages, int Fp, int* out) {
+cudaError_t attributes(int cs, int stages, int Fp, bool scratch, int* out) {
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, ffn_int8_kernel<BM>);
   if (err != cudaSuccess) return err;
-  const int smem = FfnSmem(BM, cs, stages, Fp).bytes;
+  const int smem = FfnSmem(BM, cs, stages, Fp, scratch).bytes;
   err = set_attributes<BM>(cs, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -413,25 +426,27 @@ cudaError_t attributes(int cs, int stages, int Fp, int* out) {
 extern "C" {
 
 // hq [M, C] int8; hs [M] f32; w [2Fp, C] int8 (v rows, then g rows); ws
-// [2Fp] f32; q [M, Fp] int8; t_scale [M] f32. The plan (rows 64 or 128, a
-// cluster of cs <= 16 blocks, `stages` ring slots) is ffn_int8_plan's in
-// vitok_torch/ops/quant.py. C a multiple of 128, Fp of 64; hq and w 16-byte
-// aligned. Returns the cudaError_t of the launch (0 = success).
-int vitok_ffn_int8(const void* hq, const void* hs, const void* w, const void* ws, void* q, void* t_scale, int M,
-                   int C, int Fp, int rows, int cs, int stages, void* stream) {
-  if (!plan_ok(rows, cs, stages, M, C, Fp)) return (int)cudaErrorInvalidValue;
+// [2Fp] f32; q [M, Fp] int8; t_scale [M] f32; t_scratch null, or for the
+// scratch instance [M rounded up to `rows`, Fp] bf16, 16-byte aligned. The
+// plan (rows 64 or 128, a cluster of cs <= 16 blocks, `stages` ring slots,
+// scratch or not) is ffn_int8_plan's in vitok_torch/ops/quant.py. C a
+// multiple of 128, Fp of 64; hq and w 16-byte aligned. Returns the
+// cudaError_t of the launch (0 = success).
+int vitok_ffn_int8(const void* hq, const void* hs, const void* w, const void* ws, void* q, void* t_scale,
+                   void* t_scratch, int M, int C, int Fp, int rows, int cs, int stages, void* stream) {
+  if (!plan_ok(rows, cs, stages, M, C, Fp, t_scratch != nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows == 128) return (int)launch<128>(hq, hs, w, ws, q, t_scale, M, C, Fp, cs, stages, s);
-  return (int)launch<64>(hq, hs, w, ws, q, t_scale, M, C, Fp, cs, stages, s);
+  if (rows == 128) return (int)launch<128>(hq, hs, w, ws, q, t_scale, t_scratch, M, C, Fp, cs, stages, s);
+  return (int)launch<64>(hq, hs, w, ws, q, t_scale, t_scratch, M, C, Fp, cs, stages, s);
 }
 
 // The kernel instance of a plan: out[0] registers a thread, out[1] local
 // (spill) bytes a thread, out[2] clusters that can be resident at once
 // (cudaOccupancyMaxActiveClusters), out[3] dynamic shared memory bytes.
-int vitok_ffn_int8_attributes(int rows, int cs, int stages, int Fp, int* out) {
-  if (!plan_ok(rows, cs, stages, rows, kBK, Fp)) return (int)cudaErrorInvalidValue;
-  if (rows == 128) return (int)attributes<128>(cs, stages, Fp, out);
-  return (int)attributes<64>(cs, stages, Fp, out);
+int vitok_ffn_int8_attributes(int rows, int cs, int stages, int Fp, int scratch, int* out) {
+  if (!plan_ok(rows, cs, stages, rows, kBK, Fp, scratch != 0)) return (int)cudaErrorInvalidValue;
+  if (rows == 128) return (int)attributes<128>(cs, stages, Fp, scratch != 0, out);
+  return (int)attributes<64>(cs, stages, Fp, scratch != 0, out);
 }
 
 const char* vitok_cuda_error_string(int err) {

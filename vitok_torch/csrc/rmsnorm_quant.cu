@@ -31,6 +31,10 @@
 // register array is live across the row's IEEE square root and divisions,
 // whose slow paths are calls.
 //
+// Above C 8192 a wide-row instance (rmsnorm_quant_wide_kernel below) streams
+// each row from device memory three times instead: the JAX kernel takes any
+// width, and a lane cannot hold such a row in registers.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry point, bound
 // with ctypes; the launch is asynchronous on the caller's stream and the
@@ -161,6 +165,86 @@ rmsnorm_quant_kernel(const T* __restrict__ x, const float* __restrict__ gain, in
   });
 }
 
+// The wide-row instance (C above kMaxC, any multiple of 8): a block of 256
+// threads (8 warps) takes one row at a time (rows blockIdx.x, + gridDim.x,
+// ...), each thread the chunks u = tid + 256 i of V channels, and reads the
+// row from device memory (L2 holds it between the passes) three times: the
+// fp64 sum of squares, then y = (x * r) * gain for the absmax, then y again
+// for the codes. The additions follow the narrow instances' order with 256
+// lanes (quant.py _sum_squares), and y, the scale and the codes are the same
+// ops, so the plain version gives the same bits here too. No register array
+// spans the row, so any width fits; the row is read three times where the
+// narrow instances read it once.
+template <typename T, int V>
+__global__ void __launch_bounds__(kWideThreads)
+rmsnorm_quant_wide_kernel(const T* __restrict__ x, const float* __restrict__ gain, int8_t* __restrict__ q,
+                          float* __restrict__ scale_out, int rows, int C, float eps) {
+  __shared__ double red_sum[kWideThreads / 32];
+  __shared__ float red_max[kWideThreads / 32];
+  const int tid = threadIdx.x;
+  const int units = C / V;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const unsigned char* xr = reinterpret_cast<const unsigned char*>(x + row * C);
+    double ss = 0.0;
+    for (int u = tid; u < units; u += kWideThreads) {
+      float f[V];
+      wide_chunk<T, V>(xr, u, f);
+#pragma unroll
+      for (int e = 0; e < V; ++e) ss += (double)f[e] * (double)f[e];
+    }
+    ss = group_sum<kWideThreads>(ss, red_sum, 0, tid);
+    const float var = __double2float_rn(ss / (double)C);
+    const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+    auto normed = [&](int u, float (&y)[V]) {
+      wide_chunk<T, V>(xr, u, y);
+#pragma unroll
+      for (int c = 0; c < V / 4; ++c) {
+        const float4 g = __ldg(reinterpret_cast<const float4*>(gain + u * V) + c);
+        y[4 * c] = __fmul_rn(__fmul_rn(y[4 * c], r), g.x);
+        y[4 * c + 1] = __fmul_rn(__fmul_rn(y[4 * c + 1], r), g.y);
+        y[4 * c + 2] = __fmul_rn(__fmul_rn(y[4 * c + 2], r), g.z);
+        y[4 * c + 3] = __fmul_rn(__fmul_rn(y[4 * c + 3], r), g.w);
+      }
+    };
+    float amax = 0.f;
+    for (int u = tid; u < units; u += kWideThreads) {
+      float y[V];
+      normed(u, y);
+#pragma unroll
+      for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(y[e]));
+    }
+    amax = group_max<kWideThreads>(amax, red_max, 0, tid);
+    const float scale = token_scale(amax);
+    const float rcp = faithful_rcp(scale);
+    for (int u = tid; u < units; u += kWideThreads) {
+      float y[V];
+      normed(u, y);
+      store_codes<V>(q + row * C + u * V, y, scale, rcp);
+    }
+    if (tid == 0) scale_out[row] = scale;
+  }
+}
+
+template <typename T, int V>
+cudaError_t wide_launch(const void* x, const void* gain, void* q, void* scale, int rows, int C, float eps, int grid,
+                        cudaStream_t stream, int* attrs) {
+  const auto kernel = rmsnorm_quant_wide_kernel<T, V>;
+  if (attrs) return row_attributes(kernel, kWideThreads, 0, attrs);
+  kernel<<<grid, kWideThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const float*>(gain),
+                                            static_cast<int8_t*>(q), static_cast<float*>(scale), rows, C, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t wide_dispatch(const void* x, const void* gain, void* q, void* scale, int rows, int C, float eps,
+                          int dtype, int vec, int grid, cudaStream_t stream, int* attrs) {
+  if (C <= kMaxC || C % vec || vec != (C % 16 == 0 ? 16 : 8)) return cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 16) return wide_launch<__nv_bfloat16, 16>(x, gain, q, scale, rows, C, eps, grid, stream, attrs);
+  if (dtype == 0 && vec == 8) return wide_launch<__nv_bfloat16, 8>(x, gain, q, scale, rows, C, eps, grid, stream, attrs);
+  if (dtype == 1 && vec == 16) return wide_launch<float, 16>(x, gain, q, scale, rows, C, eps, grid, stream, attrs);
+  if (dtype == 1 && vec == 8) return wide_launch<float, 8>(x, gain, q, scale, rows, C, eps, grid, stream, attrs);
+  return cudaErrorInvalidValue;
+}
+
 struct NormArgs {
   const void* x;
   const void* gain;
@@ -231,6 +315,24 @@ int vitok_rmsnorm_quant(const void* x, const void* gain, void* q, void* scale, i
 int vitok_rmsnorm_quant_attributes(int C, int dtype, int lanes, int vec, int per, int stages, int* out) {
   const NormArgs a{nullptr, nullptr, nullptr, nullptr, 1, C, 0.f, stages, 1, nullptr, out};
   return (int)dispatch(a, dtype, lanes, vec, per);
+}
+
+// The wide-row instance, C a multiple of 8 above 8192 (vec 16 where C % 16
+// == 0, else 8): `grid` blocks of 256 threads, each walking rows blockIdx.x,
+// + grid, ...; the other arguments as vitok_rmsnorm_quant's.
+int vitok_rmsnorm_quant_wide(const void* x, const void* gain, void* q, void* scale, int rows, int C, float eps,
+                             int dtype, int vec, int grid, int device, void* stream) {
+  if (rows < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  return (int)wide_dispatch(x, gain, q, scale, rows, C, eps, dtype, vec, grid, static_cast<cudaStream_t>(stream),
+                            nullptr);
+}
+
+// The wide instance's attributes on the current device, as
+// vitok_rmsnorm_quant_attributes reports them.
+int vitok_rmsnorm_quant_wide_attributes(int C, int dtype, int vec, int* out) {
+  return (int)wide_dispatch(nullptr, nullptr, nullptr, nullptr, 1, C, 0.f, dtype, vec, 1, nullptr, out);
 }
 
 const char* vitok_cuda_error_string(int err) {

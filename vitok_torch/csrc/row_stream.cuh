@@ -292,6 +292,20 @@ __device__ __forceinline__ void store_codes(int8_t* dst, const float (&y)[V], fl
   }
 }
 
+// The wide-row instances (#9 above C 8192, #8 above F' 16384, and #2's fp32
+// row quantize): a block of kWideThreads threads takes one row at a time and
+// reads it from device memory in every pass, thread tid the chunks
+// u = tid + kWideThreads * i (the split a group of kWideThreads lanes has).
+constexpr int kWideThreads = 256;
+
+// Chunk u of a row in device memory, as floats.
+template <typename T, int V>
+__device__ __forceinline__ void wide_chunk(const unsigned char* row, int u, float (&f)[V]) {
+  Chunk<T, V> c;
+  c.load(row + (long long)u * V * (int)sizeof(T));
+  c.to_float(f);
+}
+
 // The rows of group `gid` (rows gid, gid + ngroups, ...), each copied from
 // `src` (row_bytes a row) into the group's ring of `stages` slots (2: the
 // next row's copies in flight while this one is reduced; 1 where two rows do

@@ -25,6 +25,9 @@
 // warp shuffles; 16-byte int8 stores where a lane owns 16 adjacent channels
 // (F' % 16 == 0), else 8-byte stores.
 //
+// Above F' 16384 a wide-row instance (silu_quant_wide_kernel below) streams
+// each row from device memory twice instead: the JAX kernel takes any width.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry point, bound
 // with ctypes; the launch is asynchronous on the caller's stream and the
@@ -129,6 +132,69 @@ silu_quant_kernel(const T* __restrict__ hid, int8_t* __restrict__ q, float* __re
   });
 }
 
+// The wide-row instance (F' above kMaxFp, any multiple of 8): a block of 256
+// threads takes one row at a time, each thread the chunks u = tid + 256 i of
+// V t-columns, and reads v and g from device memory (L2 holds the row
+// between the passes) twice: t for the absmax, then t again for the codes.
+// t is the same ops in both passes (the checked reciprocal, the IEEE one
+// where the check refuses), so the codes are the plain version's.
+template <typename T, int V>
+__device__ __forceinline__ void swiglu_exact(const unsigned char* vp, const unsigned char* gp, float (&t)[V]) {
+  bool ok = true;
+  swiglu<T, V>(vp, gp, t, [&](float d) { return sigmoid_rcp(d, ok); });
+  if (!ok) swiglu<T, V>(vp, gp, t, [](float d) { return __frcp_rn(d); });
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kWideThreads)
+silu_quant_wide_kernel(const T* __restrict__ hid, int8_t* __restrict__ q, float* __restrict__ scale_out, int rows,
+                       int Fp) {
+  __shared__ float red[2][kWideThreads / 32];  // by the parity of the block's row: one barrier a row
+  const int tid = threadIdx.x;
+  const int units = Fp / V;
+  const int half = Fp * (int)sizeof(T);
+  int turn = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x, ++turn) {
+    const unsigned char* vrow = reinterpret_cast<const unsigned char*>(hid + row * 2 * Fp);
+    float amax = 0.f;
+    for (int u = tid; u < units; u += kWideThreads) {
+      float t[V];
+      swiglu_exact<T, V>(vrow + u * V * (int)sizeof(T), vrow + half + u * V * (int)sizeof(T), t);
+#pragma unroll
+      for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(t[e]));
+    }
+    amax = group_max<kWideThreads>(amax, red[turn & 1], 0, tid);
+    const float scale = token_scale(amax);
+    const float rcp = faithful_rcp(scale);
+    for (int u = tid; u < units; u += kWideThreads) {
+      float t[V];
+      swiglu_exact<T, V>(vrow + u * V * (int)sizeof(T), vrow + half + u * V * (int)sizeof(T), t);
+      store_codes<V>(q + row * Fp + u * V, t, scale, rcp);
+    }
+    if (tid == 0) scale_out[row] = scale;
+  }
+}
+
+template <typename T, int V>
+cudaError_t wide_launch(const void* hid, void* q, void* scale, int rows, int Fp, int grid, cudaStream_t stream,
+                        int* attrs) {
+  const auto kernel = silu_quant_wide_kernel<T, V>;
+  if (attrs) return row_attributes(kernel, kWideThreads, 0, attrs);
+  kernel<<<grid, kWideThreads, 0, stream>>>(static_cast<const T*>(hid), static_cast<int8_t*>(q),
+                                            static_cast<float*>(scale), rows, Fp);
+  return cudaGetLastError();
+}
+
+cudaError_t wide_dispatch(const void* hid, void* q, void* scale, int rows, int Fp, int dtype, int vec, int grid,
+                          cudaStream_t stream, int* attrs) {
+  if (Fp <= kMaxFp || Fp % vec || vec != (Fp % 16 == 0 ? 16 : 8)) return cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 16) return wide_launch<__nv_bfloat16, 16>(hid, q, scale, rows, Fp, grid, stream, attrs);
+  if (dtype == 0 && vec == 8) return wide_launch<__nv_bfloat16, 8>(hid, q, scale, rows, Fp, grid, stream, attrs);
+  if (dtype == 1 && vec == 16) return wide_launch<float, 16>(hid, q, scale, rows, Fp, grid, stream, attrs);
+  if (dtype == 1 && vec == 8) return wide_launch<float, 8>(hid, q, scale, rows, Fp, grid, stream, attrs);
+  return cudaErrorInvalidValue;
+}
+
 struct SiluArgs {
   const void* hid;
   void* q;
@@ -195,6 +261,23 @@ int vitok_silu_quant(const void* hid, void* q, void* scale, int rows, int Fp, in
 int vitok_silu_quant_attributes(int Fp, int dtype, int lanes, int vec, int per, int stages, int* out) {
   const SiluArgs a{nullptr, nullptr, nullptr, 1, Fp, stages, 1, nullptr, out};
   return (int)dispatch(a, dtype, lanes, vec, per);
+}
+
+// The wide-row instance, F' a multiple of 8 above 16384 (vec 16 where F' %
+// 16 == 0, else 8): `grid` blocks of 256 threads, each walking rows
+// blockIdx.x, + grid, ...; the other arguments as vitok_silu_quant's.
+int vitok_silu_quant_wide(const void* hid, void* q, void* scale, int rows, int Fp, int dtype, int vec, int grid,
+                          int device, void* stream) {
+  if (rows < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  return (int)wide_dispatch(hid, q, scale, rows, Fp, dtype, vec, grid, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The wide instance's attributes on the current device, as
+// vitok_silu_quant_attributes reports them.
+int vitok_silu_quant_wide_attributes(int Fp, int dtype, int vec, int* out) {
+  return (int)wide_dispatch(nullptr, nullptr, nullptr, 1, Fp, dtype, vec, 1, nullptr, out);
 }
 
 const char* vitok_cuda_error_string(int err) {

@@ -64,6 +64,7 @@ from vitok_torch.ops.fused_attention import can_fuse, fused_qkv_attention, unfus
 from vitok_torch.ops.mlp import round_hidden_dim, swiglu
 from vitok_torch.ops.norms import layer_norm, layer_scale, rms_norm
 from vitok_torch.ops.rope import compute_2d_freqs_cis
+from vitok_torch.parallel.comm import copy_to_group, reduce_from_group, row_parallel_int8
 from vitok_torch.utils.device import resolve_device
 
 ATTN_IMPLS = ("auto", "fused", "flash", "xla")
@@ -124,8 +125,8 @@ class AEConfig:
         unknown = set(self.remat_save) - set(REMAT_NAMES)
         if unknown:
             raise ValueError(f"remat_save: unknown names {sorted(unknown)}; the tagged ones are {REMAT_NAMES}")
-        if self.attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+        if self.attn_impl not in ATTN_IMPLS and not self.attn_impl.startswith("halo:"):
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS} or 'halo:<axis>', got {self.attn_impl!r}")
 
     @property
     def encoder_head_dim(self) -> int:
@@ -334,7 +335,10 @@ class _SelectiveRemat(torch.autograd.Function):
     the block (grad enabled, so every route is the one the plain forward
     takes, and nothing it would save is held) and keeps the block input
     and the named products; the backward runs the block again from them,
-    the kept products standing in for theirs, and differentiates it."""
+    the kept products standing in for theirs, and differentiates it.
+    It is applied inside the block's forward, so ``params`` are the ones
+    the forward sees (FSDP2's gathered parameters, which its pre-backward
+    hook gathers again before this backward runs)."""
 
     @staticmethod
     def forward(ctx, run, save, x, *params):  # the block's parameters are inputs for autograd to see
@@ -362,7 +366,18 @@ def _prequant(xq, a_scale, lin: Int8Linear, dtype) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """Parallel block: ``x + ls(attn(norm(x)) + mlp(norm(x)))``."""
+    """Parallel block: ``x + ls(attn(norm(x)) + mlp(norm(x)))``.
+
+    Under tensor parallelism (``tp_group`` set by
+    ``vitok_torch.parallel.sharding.apply_tensor_parallel``) the block holds
+    ``heads`` of the model's heads and the matching slices of its linears:
+    the normed input's gradient and the q/k gains' are summed over the group
+    in the backward, and the attention and FFN partial sums are all-reduced
+    once before the residual. An int8 block slices qkv and out only and
+    keeps its FFN whole (:func:`row_parallel_int8` for out)."""
+
+    tp_group = None
+    tp_size = 1
 
     def __init__(self, width, heads, ffn_dim, use_layer_scale, layer_scale_init, device, dtype):
         super().__init__()
@@ -384,28 +399,42 @@ class Block(nn.Module):
         deterministic: bool = True,
         drop_gate: Optional[torch.Tensor] = None,
         taps: _Taps = _PLAIN,
+        remat_save: Tuple[str, ...] = (),
     ) -> torch.Tensor:
         """``drop_gate``: per-sample stochastic-depth factor ``[B, 1, 1]``
         (``floor(keep + U) / keep``), or None for no drop path. ``taps``:
-        the named products of a selectively recomputed block
+        the named products of a selectively recomputed block.
+        ``remat_save``: run the block under selective recomputation
         (:meth:`remat_forward`)."""
+        if remat_save:
+            run = lambda x_, taps_: self.forward(x_, rope, patch_mask, sliding_window, attn_impl, deterministic,
+                                                 drop_gate, taps_)
+            return _SelectiveRemat.apply(run, remat_save, x, *self.parameters())
         int8 = isinstance(self.attn.qkv_proj, Int8Linear)
+        tp = self.tp_group
+        q_gain, k_gain = self.attn.norm_q.weight, self.attn.norm_k.weight
         if int8:
             qkv, hid = self._int8_qkv_fc1(x)
         else:
             h = rms_norm(x, self.norm1.weight)
+            if tp is not None:
+                h = copy_to_group(h, tp)
+                q_gain, k_gain = copy_to_group(q_gain, tp), copy_to_group(k_gain, tp)
             qkv = taps.linear("qkv_out", h, self.attn.qkv_proj.weight.to(h.dtype))
         # The fused kernel is an inference path (the JAX package's gate):
         # "auto" takes it only when deterministic, "fused" asks for it where
-        # its gate opens and degrades to auto routing elsewhere.
-        n, c = x.shape[1], x.shape[2]
+        # its gate opens and degrades to auto routing elsewhere. A
+        # tensor-parallel block holds heads / tp of the local qkv's width c;
+        # the gate reads the model's, so every layout routes as one device
+        # does (the kernels take any number of heads).
+        n, c = x.shape[1], qkv.shape[-1] // 3
         fused = (
             attn_impl in ("auto", "fused")
             and (deterministic or attn_impl == "fused")
-            and can_fuse(n, c, self.heads, cuda=qkv.is_cuda)
+            and can_fuse(n, c * self.tp_size, self.heads * self.tp_size, cuda=qkv.is_cuda)
         )
-        args = (qkv, self.attn.norm_q.weight, self.attn.norm_k.weight, rope[0], rope[1], patch_mask)
-        if fused and int8 and deterministic and fa.can_fuse_q8(n, c, self.heads, cuda=qkv.is_cuda):
+        args = (qkv, q_gain, k_gain, rope[0], rope[1], patch_mask)
+        if fused and int8 and deterministic and tp is None and fa.can_fuse_q8(n, c, self.heads, cuda=qkv.is_cuda):
             # The kernel's epilogue quantizes per token, so the out-projection
             # reads int8 codes and the bf16 attention output is never written.
             aq, a_scale = fa.fused_qkv_attention_q8(*args, num_heads=self.heads,
@@ -419,11 +448,13 @@ class Block(nn.Module):
             attn = unfused_qkv_attention(*args, self.heads, sliding_window,
                                          attn_impl="auto" if attn_impl == "fused" else attn_impl)
         if int8:
-            out = self.attn.out_proj(attn) + self._int8_mlp(hid, x)
+            out = self._int8_out(attn) + self._int8_mlp(hid, x)
         else:
             out = F.linear(attn, self.attn.out_proj.weight.to(attn.dtype)) + swiglu(
                 h, self.ffn.fc1.weight, self.ffn.fc2.weight, fc1=functools.partial(taps.linear, "ffn_hid")
             )
+            if tp is not None:
+                out = reduce_from_group(out, tp)
         return self._residual(x, out, drop_gate)
 
     def remat_forward(self, save: Tuple[str, ...], x: torch.Tensor, *args) -> torch.Tensor:
@@ -431,8 +462,9 @@ class Block(nn.Module):
         keeps the block input and the products named in ``save`` (of
         ``HELD_NAMES``), which the replay does not compute again, and
         recomputes the rest. ``args`` are :meth:`forward`'s after ``x``.
-        Gradients are the plain backward's, bit for bit on the CPU."""
-        return _SelectiveRemat.apply(lambda x_, taps: self(x_, *args, taps=taps), save, x, *self.parameters())
+        Gradients are the plain backward's, bit for bit on the CPU. It goes
+        through the module's call, so FSDP2's hooks gather the parameters."""
+        return self(x, *args, remat_save=save)
 
     def _residual(self, x, out, drop_gate):
         if self.layer_scale is not None:
@@ -458,6 +490,14 @@ class Block(nn.Module):
         else:
             hid = _prequant(hq, h_scale, fc1, x.dtype)
         return qkv, hid
+
+    def _int8_out(self, attn: torch.Tensor) -> torch.Tensor:
+        """The int8 out-projection; under tensor parallelism on the rank's
+        heads, summed over the group (:func:`row_parallel_int8`)."""
+        lin = self.attn.out_proj
+        if self.tp_group is None:
+            return lin(attn)
+        return row_parallel_int8(attn, lin.weight_int8, lin.scale, self.tp_group)
 
     def _int8_mlp(self, hid, x: torch.Tensor) -> torch.Tensor:
         """SwiGLU and the int8 fc2 product on what :meth:`_int8_qkv_fc1` gave."""
@@ -591,6 +631,8 @@ class AE(nn.Module):
         before building the bf16 model instead.
         """
         for blk in [*getattr(self, "encoder_blocks", ()), *getattr(self, "decoder_blocks", ())]:
+            if blk.tp_group is not None:
+                raise ValueError("quantize before tensor parallelism: the scales span whole rows")
             for path in q8.QUANT_LINEARS:
                 parent_name, name = path.split(".")
                 parent = getattr(blk, parent_name)

@@ -53,6 +53,7 @@ from vitok_torch.ops.fused_attention import can_fuse, fused_qkv_attention, unfus
 from vitok_torch.ops.mlp import round_hidden_dim, swiglu
 from vitok_torch.ops.norms import layer_scale, rms_norm
 from vitok_torch.ops.rope import compute_2d_freqs_cis
+from vitok_torch.parallel.comm import copy_to_group, reduce_from_group
 from vitok_torch.utils.device import resolve_device
 
 _T_EMBED_DIM = 256
@@ -127,7 +128,8 @@ def _filter_known(kw: Dict[str, Any]) -> Dict[str, Any]:
 class DiTBlock(Block):
     """Parallel DiT block with adaLN-zero conditioning:
     ``x + gate * ls(attn(h) + mlp(h))``, ``h = norm(x) * (1 + scale) + shift``,
-    with shift, scale and gate from ``mod(cond)``."""
+    with shift, scale and gate from ``mod(cond)``. Under tensor parallelism
+    it is sliced as the AE's block (:class:`Block`); ``mod`` stays whole."""
 
     def __init__(self, width, heads, ffn_dim, use_layer_scale, layer_scale_init, device, dtype):
         super().__init__(width, heads, ffn_dim, use_layer_scale, layer_scale_init, device, dtype)
@@ -141,6 +143,8 @@ class DiTBlock(Block):
         h = h * (1.0 + scale) + shift
 
         int8 = isinstance(self.attn.qkv_proj, Int8Linear)
+        tp = self.tp_group
+        q_gain, k_gain = self.attn.norm_q.weight, self.attn.norm_k.weight
         if int8:
             # The shift and scale sit between the norm and the products, so
             # the RMSNorm + quantize kernel does not apply: the modulated
@@ -154,26 +158,32 @@ class DiTBlock(Block):
             else:
                 hid = _prequant(hq, h_scale, fc1, h.dtype)
         else:
+            if tp is not None:
+                h = copy_to_group(h, tp)
+                q_gain, k_gain = copy_to_group(q_gain, tp), copy_to_group(k_gain, tp)
             qkv = F.linear(h, self.attn.qkv_proj.weight.to(h.dtype))
 
         # No padding in a DiT sequence: no mask (the JAX package hands its
-        # kernel an all-ones mask, which is the same function).
-        args = (qkv, self.attn.norm_q.weight, self.attn.norm_k.weight, rope[0], rope[1], None)
+        # kernel an all-ones mask, which is the same function). The gate
+        # reads the model's width and heads, as the AE's block does.
+        args = (qkv, q_gain, k_gain, rope[0], rope[1], None)
         if (
             attn_impl in ("auto", "fused")
             and (deterministic or attn_impl == "fused")
-            and can_fuse(n, c, self.heads, cuda=qkv.is_cuda)
+            and can_fuse(n, c, self.heads * self.tp_size, cuda=qkv.is_cuda)
         ):
             attn = fused_qkv_attention(*args, num_heads=self.heads, impl="fused")
         else:
             attn = unfused_qkv_attention(*args, self.heads, None,
                                          attn_impl="auto" if attn_impl == "fused" else attn_impl)
         if int8:
-            out = self.attn.out_proj(attn) + self._int8_mlp(hid, x)
+            out = self._int8_out(attn) + self._int8_mlp(hid, x)
         else:
             out = F.linear(attn, self.attn.out_proj.weight.to(attn.dtype)) + swiglu(
                 h, self.ffn.fc1.weight, self.ffn.fc2.weight
             )
+            if tp is not None:
+                out = reduce_from_group(out, tp)
         if self.layer_scale is not None:
             out = layer_scale(out, self.layer_scale.gamma)
         return x + gate * out
@@ -294,6 +304,8 @@ class DiT(nn.Module):
         adaLN ``mod``, norms, embeds and the final head stay as they are.
         Idempotent; returns ``self``."""
         for blk in self.blocks:
+            if blk.tp_group is not None:
+                raise ValueError("quantize before tensor parallelism: the scales span whole rows")
             for path in q8.QUANT_LINEARS:
                 parent_name, name = path.split(".")
                 parent = getattr(blk, parent_name)

@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 
+from vitok_torch.parallel.sharding import local
 from vitok_torch.train_lib import Schedule, adam_direction, clip_by_global_norm_
 
 # Quintic Newton-Schulz coefficients (the standard Muon constants).
@@ -81,11 +82,16 @@ def matrix_mask(model: nn.Module) -> Dict[str, bool]:
 
 
 def muon_directions(grads: List[torch.Tensor], momentum_buf: List[torch.Tensor], momentum: float = 0.95,
-                    nesterov: bool = True, ns_steps: int = 4) -> List[torch.Tensor]:
+                    nesterov: bool = True, ns_steps: int = 4, whole=None, part=None) -> List[torch.Tensor]:
     """``scale_by_muon``: advance the momentum ``m <- momentum * m + g`` in
     place (stored in the buffer's dtype, then read back) and return the
     unscaled-by-lr directions ``scale * NS(momentum * m + g)`` in the
-    gradients' dtype, ``scale = max(1, in / out) ** 0.5``."""
+    gradients' dtype, ``scale = max(1, in / out) ** 0.5``.
+
+    Sharded matrices (FSDP, tensor parallelism): ``whole(k, t)`` gives the
+    k-th matrix's whole tensor from this rank's part ``t`` and ``part(k,
+    full)`` takes this rank's part back; Newton-Schulz runs on the whole
+    matrix (the JAX package gets this from XLA)."""
     low = any(m.dtype != g.dtype for m, g in zip(momentum_buf, grads))
     mom = [m.to(g.dtype) for m, g in zip(momentum_buf, grads)] if low else momentum_buf
     torch._foreach_mul_(mom, momentum)
@@ -97,6 +103,8 @@ def muon_directions(grads: List[torch.Tensor], momentum_buf: List[torch.Tensor],
     if nesterov:
         mom = torch._foreach_mul(mom, momentum)
         torch._foreach_add_(mom, grads)
+    if whole is not None:
+        mom = [whole(k, m) for k, m in enumerate(mom)]
     by_shape: Dict[tuple, List[int]] = {}
     for i, m in enumerate(mom):
         by_shape.setdefault(tuple(m.shape), []).append(i)
@@ -106,7 +114,7 @@ def muon_directions(grads: List[torch.Tensor], momentum_buf: List[torch.Tensor],
         scale = torch.tensor(max(1.0, shape[-1] / shape[-2]) ** 0.5, dtype=torch.bfloat16, device=ortho.device)
         ortho = ortho * scale
         for k, i in enumerate(idx):
-            out[i] = ortho[k].to(grads[i].dtype)
+            out[i] = (ortho[k] if part is None else part(i, ortho[k])).to(grads[i].dtype)
     return out
 
 
@@ -132,7 +140,7 @@ class Muon:
         self.moment_dtype = moment_dtype
 
     def init(self, model: nn.Module) -> Dict[str, Any]:
-        return self.init_params(list(model.parameters()), list(matrix_mask(model).values()))
+        return self.init_params([local(p) for p in model.parameters()], list(matrix_mask(model).values()))
 
     def init_params(self, params: List[torch.Tensor], is_matrix: List[bool]) -> Dict[str, Any]:
         """The state of ``params`` (in ``update``'s order), with Muon on
@@ -148,9 +156,12 @@ class Muon:
         }
 
     @torch.no_grad()
-    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict[str, Any]) -> None:
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict[str, Any],
+               layout=None) -> None:
+        """``params`` and ``grads``: each rank's local tensors; ``layout``
+        (sharded ones) gives the global norm and the whole matrices."""
         if self.grad_clip:
-            clip_by_global_norm_(grads, self.grad_clip)
+            clip_by_global_norm_(grads, self.grad_clip, layout)
         lr = self.schedule(state["count"])
         state["count"] += 1
         mat_p = [p for p, m in zip(params, self._matrix) if m]
@@ -158,7 +169,13 @@ class Muon:
         rest_p = [p for p, m in zip(params, self._matrix) if not m]
         rest_g = [g for g, m in zip(grads, self._matrix) if not m]
         if mat_p:
-            dirs = muon_directions(mat_g, state["momentum"], self.momentum, self.nesterov, self.ns_steps)
+            whole = part = None
+            if layout is not None and (layout.fsdp or layout.tp):
+                index = [i for i, m in enumerate(self._matrix) if m]
+                whole = lambda k, t: layout.full(index[k], t)
+                part = lambda k, t: layout.local_of(index[k], t)
+            dirs = muon_directions(mat_g, state["momentum"], self.momentum, self.nesterov, self.ns_steps,
+                                   whole, part)
             torch._foreach_add_(mat_p, dirs, alpha=-lr)
         if rest_p:
             upd = adam_direction(rest_g, state["mu"], state["nu"], state["count"], self.b1, self.b2, self.eps)

@@ -94,15 +94,23 @@ def dot_product_attention(
         patch_mask: optional ``[B, N]`` bool, True = valid token.
         sliding_window: optional half-width; query i sees keys ``|i-j| <= sw``.
         impl: ``"auto"``, ``"flash"`` (the flash kernel at any N: the JAX
-            package's ``"pallas"``) or ``"xla"`` (the unfused composition,
-            named as in the JAX package).
+            package's ``"pallas"``), ``"xla"`` (the unfused composition,
+            named as in the JAX package) or ``"halo:<axis>"`` (a token shard
+            of a sequence-parallel forward: ``vitok_torch.parallel.sequence``'s
+            halo attention over the process group registered for ``axis``).
 
     Returns:
         ``[B, N, H, D]`` in the dtype of ``v``.
     """
     n, d = q.shape[1], q.shape[-1]
+    if impl.startswith("halo:"):
+        from vitok_torch.parallel.sequence import halo_attention
+
+        if sliding_window is None:
+            raise ValueError("halo attention requires a sliding window")
+        return halo_attention(q, k, v, patch_mask, sliding_window, axis=impl.split(":", 1)[1])
     if impl not in ("auto", "flash", "xla"):
-        raise ValueError(f"Unknown attention impl: {impl!r}. Use 'auto', 'flash' or 'xla'.")
+        raise ValueError(f"Unknown attention impl: {impl!r}. Use 'auto', 'flash', 'xla' or 'halo:<axis>'.")
     if flash_route(n, d, impl, q.is_cuda):
         return flash_attention(q, k, v, patch_mask=patch_mask, sliding_window=sliding_window)
     return _xla_attention(q, k, v, make_attention_mask(patch_mask, n, sliding_window, q.device))

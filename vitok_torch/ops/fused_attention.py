@@ -61,6 +61,7 @@ from vitok_torch.ops import _build
 from vitok_torch.ops import flash_attention as fl
 from vitok_torch.ops.attention import dot_product_attention, flash_route, head_dim_routes
 from vitok_torch.ops.norms import rms_norm
+from vitok_torch.ops import quant as q8
 from vitok_torch.ops.quant import quantize_activation
 from vitok_torch.ops.rope import apply_rotary_emb
 
@@ -78,11 +79,14 @@ _RMS_EPS = 1e-6
 # int8 epilogue, the fp32 forward (the fp32 walker) and its instance that
 # writes the log-sum-exp (under autograd), the prologue's and the
 # backward's fp32 instances, and the mma.sync forward's bf16 and fp32
-# instances.
+# instances. #2's fp32 instance is two launches a call: the fp32 walker's
+# forward (counted in ``F32_LAUNCHES``), then the row quantize
+# (``Q8_F32_LAUNCHES``).
 LAUNCHES = 0
 PROLOGUE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 Q8_LAUNCHES = 0
+Q8_F32_LAUNCHES = 0
 F32_LAUNCHES = 0
 F32_LSE_LAUNCHES = 0
 PROLOGUE_F32_LAUNCHES = 0
@@ -922,10 +926,55 @@ def fused_qkv_attention_q8_plain(
     return quantize_activation(out)
 
 
+def _fused_q8_f32_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
+    """#2 on fp32: the fp32 walker's forward at :func:`f32_walk_split`'s
+    split into an fp32 scratch, then ``csrc/quantize_rows.cu`` over each
+    token's C channels: ``(codes, scales)``, ``quantize_activation`` of the
+    walker's output bit for bit."""
+    global Q8_F32_LAUNCHES, F32_LAUNCHES
+    b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
+        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, dtypes=(torch.float32,)
+    )
+    dev = qkv.device
+    bb, hpb = f32_walk_split(b, n, num_heads, d, _sm_count(dev.index))
+    out = _walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, bb=bb, hpb=hpb, sw=sw, kind="fwd")
+    F32_LAUNCHES += 1
+    out_q = torch.empty((b, n, c), dtype=torch.int8, device=dev)
+    out_scale = torch.empty((b, n, 1), dtype=torch.float32, device=dev)
+    rows = b * n
+    if rows:
+        fn = q8._fn("vitok_quantize_rows_f32")
+        err = fn(out.data_ptr(), out_q.data_ptr(), out_scale.data_ptr(), rows, c,
+                 min(rows, _sm_count(dev.index) * _quantize_rows_blocks(c, dev)), dev.index,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        q8._check(err, "quantize_rows", "launch")
+        Q8_F32_LAUNCHES += 1
+    return out_q, out_scale
+
+
+@functools.lru_cache(maxsize=None)
+def _quantize_rows_blocks(c: int, dev: torch.device) -> int:
+    """Blocks of the row quantize's instance for width ``c`` that one SM of
+    ``dev`` hosts (the grid is one wave)."""
+    return quantize_rows_attributes(c, dev)["blocks_per_sm"]
+
+
+def quantize_rows_attributes(c: int, dev: torch.device) -> dict:
+    """Registers and spill bytes a thread, blocks an SM and shared bytes a
+    block of #2 f32's row quantize at width ``c`` on ``dev``."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(dev):
+        q8._check(q8._fn("vitok_quantize_rows_f32_attributes")(c, out), "quantize_rows", "attributes")
+    return dict(registers=out[0], spill_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
+
+
 def _fused_q8_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window):
     """The prologue (k), then the int8-epilogue kernel in clusters of
-    :func:`_q8_cluster_size` blocks: ``(codes, scales)``."""
+    :func:`_q8_cluster_size` blocks: ``(codes, scales)``. An fp32 ``qkv``
+    takes #2's fp32 instance (:func:`_fused_q8_f32_cuda`)."""
     global Q8_LAUNCHES
+    if qkv.dtype == torch.float32:
+        return _fused_q8_f32_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window)
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
     )
@@ -964,7 +1013,8 @@ def fused_qkv_attention_q8(
     device memory in bf16. Inference only (no gradient). On the card the
     codes and scales equal ``quantize_activation`` of
     ``fused_qkv_attention(..., impl="fused")`` (the redesigned forward) bit
-    for bit: both run the q/k prologue and one wgmma attention body. On a
+    for bit: in bf16 both run the q/k prologue and one wgmma attention body,
+    in fp32 both run the fp32 walker's forward (then the row quantize). On a
     CUDA tensor it launches the prologue and the kernel or raises; on a CPU
     tensor it runs the plain version.
     """

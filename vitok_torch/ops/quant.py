@@ -29,7 +29,11 @@ with its plain PyTorch version beside it:
 
 The two row kernels share one design (``csrc/row_stream.cuh``): a persistent
 grid of row groups that stream their rows through shared memory, cut by
-:func:`rmsnorm_quant_plan` and :func:`silu_quant_plan`.
+:func:`rmsnorm_quant_plan` and :func:`silu_quant_plan`; rows wider than a
+group holds in registers (C above 8192, F' above 16384) take each kernel's
+wide-row instance, which reads the row from device memory in every pass.
+Where t of a row tile does not fit one cluster's shared memory (F' above
+about 19,456), :func:`fused_ffn_int8` takes its scratch instance.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises, and adds one to its entry of ``LAUNCHES``.
@@ -54,7 +58,8 @@ _BLOCK_STACKS = ("encoder_blocks", "decoder_blocks")
 _SCALE_FLOOR = 1e-12
 
 # Kernel launches since each count was last set to 0.
-LAUNCHES: Dict[str, int] = {"rmsnorm_quant": 0, "ffn_int8": 0, "silu_quant": 0}
+LAUNCHES: Dict[str, int] = {"rmsnorm_quant": 0, "ffn_int8": 0, "silu_quant": 0,
+                             "rmsnorm_quant_wide": 0, "ffn_int8_wide": 0, "silu_quant_wide": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +98,13 @@ def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     dividing by the scale."""
     x32 = x.float()
     scale = _absmax_scale(x32)
-    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
+    return quantize_by(x32, scale), scale
+
+
+def quantize_by(x32: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x32 / scale), +-127)`` as int8: the codes of
+    :func:`quantize_activation` for a given per-token ``scale``."""
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
 
 
 def _int_mm(x2: torch.Tensor, w_int8: torch.Tensor) -> torch.Tensor:
@@ -131,8 +142,14 @@ def int8_matmul_prequant(
     """
     k = xq.shape[-1]
     acc = _int_mm(xq.reshape(-1, k), w_int8)
-    out = acc.float() * a_scale.reshape(-1, 1).float() * w_scale
-    return out.to(out_dtype).reshape(*xq.shape[:-1], w_int8.shape[0])
+    return dequantize_product(acc, a_scale, w_scale, out_dtype).reshape(*xq.shape[:-1], w_int8.shape[0])
+
+
+def dequantize_product(acc: torch.Tensor, a_scale: torch.Tensor, w_scale: torch.Tensor,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """``(acc * a_scale) * w_scale`` in fp32, cast to ``out_dtype``: the int32
+    product ``acc [M, N]`` of :func:`int8_matmul_prequant` scaled back."""
+    return (acc.float() * a_scale.reshape(-1, 1).float() * w_scale).to(out_dtype)
 
 
 def int8_linear(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
@@ -218,16 +235,17 @@ def _silu(g: torch.Tensor) -> torch.Tensor:
 
 def _sum_squares(x32: torch.Tensor) -> torch.Tensor:
     """``sum(x^2)`` over the last axis in fp64 (``[..., 1]``), added in the
-    order of ``rmsnorm_quant.cu`` wherever it takes the width: each lane's
-    chunks (``lane + lanes * i``) and their channels in turn, then the
-    butterfly over each warp (offsets 16 to 1), then the warps' partials in
-    warp order. The squares of fp32 values are exact in fp64 and their sum
+    order of ``rmsnorm_quant.cu`` wherever it takes the width (its wide
+    instance above C 8192 with 256 lanes): each lane's chunks
+    (``lane + lanes * i``) and their channels in turn, then the butterfly
+    over each warp (offsets 16 to 1), then the warps' partials in warp
+    order. The squares of fp32 values are exact in fp64 and their sum
     is not, so the order can decide a rounding; other widths take ``sum``."""
     c = x32.shape[-1]
     sq = x32.double().square()
-    if c % 8 or not 8 <= c <= _MAX_NORM_C:
+    if c % 8 or c < 8:
         return sq.sum(-1, keepdim=True)
-    lanes, vec, per = _row_split(c, _NORM_X_WORDS)
+    lanes, vec, per = _norm_split(c)
     sq = torch.nn.functional.pad(sq, (0, per * lanes * vec - c)).unflatten(-1, (per, lanes, vec))
     ss = torch.zeros(sq.shape[:-3] + (lanes,), dtype=torch.float64, device=sq.device)
     for i in range(per):
@@ -287,15 +305,21 @@ def fused_rmsnorm_quant(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6)
 
 
 def _rmsnorm_quant_cuda(x, gain, q, a_scale, plan: RowPlan, eps: float) -> None:
-    """The launch of ``rmsnorm_quant.cu`` on ``plan``."""
+    """The launch of ``rmsnorm_quant.cu`` on ``plan`` (its wide-row instance
+    where the plan is wide)."""
     c = x.shape[-1]
-    err = _fn("vitok_rmsnorm_quant")(
-        x.data_ptr(), gain.data_ptr(), q.data_ptr(), a_scale.data_ptr(), x.numel() // c, c, eps,
-        _DTYPE_CODES[x.dtype], plan.lanes, plan.vec, plan.per, plan.stages, plan.grid, x.device.index,
-        _stream(x),
-    )
+    if plan.wide:
+        err = _fn("vitok_rmsnorm_quant_wide")(
+            x.data_ptr(), gain.data_ptr(), q.data_ptr(), a_scale.data_ptr(), x.numel() // c, c, eps,
+            _DTYPE_CODES[x.dtype], plan.vec, plan.grid, x.device.index, _stream(x))
+    else:
+        err = _fn("vitok_rmsnorm_quant")(
+            x.data_ptr(), gain.data_ptr(), q.data_ptr(), a_scale.data_ptr(), x.numel() // c, c, eps,
+            _DTYPE_CODES[x.dtype], plan.lanes, plan.vec, plan.per, plan.stages, plan.grid, x.device.index,
+            _stream(x),
+        )
     _check(err, "rmsnorm_quant", "launch")
-    LAUNCHES["rmsnorm_quant"] += 1
+    LAUNCHES["rmsnorm_quant_wide" if plan.wide else "rmsnorm_quant"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -345,25 +369,33 @@ class FfnPlan(NamedTuple):
     ``cluster`` blocks a cluster, each
     owning the t-columns ``col_ranges[rank]`` (``[lo, hi)``, whole 64-column
     tiles), ``stages`` ring slots, and ``smem_bytes`` of dynamic shared
-    memory a block."""
+    memory a block. ``scratch``: the instance that stages t in a device
+    scratch ``[M rounded up to rows, F']`` instead of shared memory."""
 
     rows: int
     cluster: int
     stages: int
     col_ranges: Tuple[Tuple[int, int], ...]
     smem_bytes: int
+    scratch: bool = False
 
 
-def _ffn_smem_bytes(rows: int, cluster: int, stages: int, fp: int) -> int:
-    """``FfnSmem(rows, cs, stages, Fp).bytes`` of ``ffn_int8.cu``: the ring
-    (an hq box and a 128-row W tile a stage), the staged bf16 t of the most
-    tiles a rank owns (rows padded by 16 bytes), the two consumer
-    warpgroups' row maxima and the rows' reciprocals, two mbarriers a stage,
-    and 1 KB of alignment slack."""
+def _ffn_smem_bytes(rows: int, cluster: int, stages: int, fp: int, scratch: bool = False) -> int:
+    """``FfnSmem(rows, cs, stages, Fp, scratch).bytes`` of ``ffn_int8.cu``:
+    the ring (an hq box and a 128-row W tile a stage), the staged bf16 t of
+    the most tiles a rank owns (rows padded by 16 bytes; none with
+    ``scratch``), the two consumer warpgroups' row maxima and the rows'
+    reciprocals, two mbarriers a stage, and 1 KB of alignment slack."""
     tiles = fp // _FFN_TILE_COLS
     per = -(-tiles // cluster)
     stage = rows * _FFN_BK + 2 * _FFN_TILE_COLS * _FFN_BK
-    return stages * stage + rows * (per * _FFN_TILE_COLS * 2 + 16) + 3 * rows * 4 + 2 * stages * 8 + 1024
+    staged = 0 if scratch else rows * (per * _FFN_TILE_COLS * 2 + 16)
+    return stages * stage + staged + 3 * rows * 4 + 2 * stages * 8 + 1024
+
+
+def _ffn_ranges(tiles: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
+    return tuple((r * tiles // cluster * _FFN_TILE_COLS, (r + 1) * tiles // cluster * _FFN_TILE_COLS)
+                 for r in range(cluster))
 
 
 def ffn_int8_plan(m: int, c: int, fp: int) -> FfnPlan:
@@ -373,8 +405,12 @@ def ffn_int8_plan(m: int, c: int, fp: int) -> FfnPlan:
     ``fp / 64`` tiles of a row tile between them (rank r owns tiles
     ``[r T / cs, (r + 1) T / cs)``, as the kernel computes them); 128 rows
     where three ring stages fit beside the staged t, else 64 (and 64
-    whenever ``m <= 64``); as many stages as fit, three or four. Raises
-    ``ValueError`` for a shape no plan hosts."""
+    whenever ``m <= 64``); as many stages as fit, three or four. Where no
+    cluster of 16 stages t beside three stages (F' above 304 tiles, 19,456),
+    the scratch instance: a cluster of 8 blocks, 128 rows (64 where
+    ``m <= 64``) and four stages, t through device memory. Every shape of
+    the JAX gate (:func:`can_fuse_ffn`) has a plan; raises ``ValueError``
+    outside it."""
     if m <= 0 or m % 8 or c <= 0 or c % _FFN_BK or fp <= 0 or fp % 128:
         raise ValueError(f"ffn_int8 takes M a positive multiple of 8 and C, F' multiples of 128; "
                          f"got M={m}, C={c}, F'={fp}")
@@ -385,11 +421,11 @@ def ffn_int8_plan(m: int, c: int, fp: int) -> FfnPlan:
                     if _ffn_smem_bytes(rows, cluster, s, fp) <= _SMEM_LIMIT]
             if fits:
                 stages = fits[-1]
-                ranges = tuple((r * tiles // cluster * _FFN_TILE_COLS, (r + 1) * tiles // cluster * _FFN_TILE_COLS)
-                               for r in range(cluster))
-                return FfnPlan(rows, cluster, stages, ranges, _ffn_smem_bytes(rows, cluster, stages, fp))
-    raise ValueError(f"ffn_int8: F'={fp} is too wide for one cluster of {_FFN_CLUSTERS[-1]} blocks to keep t in "
-                     f"shared memory ({_SMEM_LIMIT} bytes a block)")
+                return FfnPlan(rows, cluster, stages, _ffn_ranges(tiles, cluster),
+                               _ffn_smem_bytes(rows, cluster, stages, fp))
+    rows, cluster = (64 if m <= 64 else 128), _FFN_CLUSTERS[0]
+    return FfnPlan(rows, cluster, _FFN_MAX_STAGES, _ffn_ranges(tiles, cluster),
+                   _ffn_smem_bytes(rows, cluster, _FFN_MAX_STAGES, fp, scratch=True), scratch=True)
 
 
 def ffn_int8_attributes(plan: FfnPlan, fp: int) -> dict:
@@ -398,7 +434,7 @@ def ffn_int8_attributes(plan: FfnPlan, fp: int) -> dict:
     memory a block."""
     out = (ctypes.c_int * 4)()
     lib = _lib("ffn_int8")
-    _build.check(lib, lib.vitok_ffn_int8_attributes(plan.rows, plan.cluster, plan.stages, fp, out),
+    _build.check(lib, lib.vitok_ffn_int8_attributes(plan.rows, plan.cluster, plan.stages, fp, int(plan.scratch), out),
                  "ffn_int8 attributes")
     return dict(registers=out[0], spill_bytes=out[1], max_active_clusters=out[2], smem_bytes=out[3])
 
@@ -442,14 +478,18 @@ def fused_ffn_int8(
     plan = ffn_int8_plan(m, c, fp)
     tq = torch.empty((m, fp), dtype=torch.int8, device=dev)
     t_scale = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    # The scratch instance's bf16 t, rows rounded up to the plan's row tile.
+    scratch = (torch.empty((-(-m // plan.rows) * plan.rows, fp), dtype=torch.bfloat16, device=dev)
+               if plan.scratch else None)
     lib = _lib("ffn_int8")
     with torch.cuda.device(dev):
         err = lib.vitok_ffn_int8(
             hq.data_ptr(), hs.data_ptr(), w_int8.data_ptr(), ws.data_ptr(), tq.data_ptr(),
-            t_scale.data_ptr(), m, c, fp, plan.rows, plan.cluster, plan.stages, _stream(hq),
+            t_scale.data_ptr(), None if scratch is None else scratch.data_ptr(), m, c, fp, plan.rows,
+            plan.cluster, plan.stages, _stream(hq),
         )
     _build.check(lib, err, "ffn_int8 launch")
-    LAUNCHES["ffn_int8"] += 1
+    LAUNCHES["ffn_int8_wide" if plan.scratch else "ffn_int8"] += 1
     return tq, t_scale
 
 
@@ -485,8 +525,8 @@ def fused_silu_quant(hid: torch.Tensor):
     _require_rows(hid, "silu_quant")
     f2 = hid.shape[-1]
     fp = f2 // 2
-    if f2 % 16 or not 0 < fp <= _MAX_SILU_FP:
-        raise ValueError(f"silu_quant takes 2F' a multiple of 16 with F' up to {_MAX_SILU_FP}, got 2F'={f2}")
+    if f2 % 16 or fp <= 0:
+        raise ValueError(f"silu_quant takes 2F' a positive multiple of 16, got 2F'={f2}")
     rows, dev = hid.numel() // f2, hid.device
     q = torch.empty((*hid.shape[:-1], fp), dtype=torch.int8, device=dev)
     scale = torch.empty((*hid.shape[:-1], 1), dtype=torch.float32, device=dev)
@@ -496,14 +536,20 @@ def fused_silu_quant(hid: torch.Tensor):
 
 
 def _silu_quant_cuda(hid, q, scale, plan: RowPlan) -> None:
-    """The launch of ``silu_quant.cu`` on ``plan``."""
+    """The launch of ``silu_quant.cu`` on ``plan`` (its wide-row instance
+    where the plan is wide)."""
     fp = hid.shape[-1] // 2
-    err = _fn("vitok_silu_quant")(
-        hid.data_ptr(), q.data_ptr(), scale.data_ptr(), hid.numel() // (2 * fp), fp, _DTYPE_CODES[hid.dtype],
-        plan.lanes, plan.vec, plan.per, plan.stages, plan.grid, hid.device.index, _stream(hid),
-    )
+    rows, dtype = hid.numel() // (2 * fp), _DTYPE_CODES[hid.dtype]
+    if plan.wide:
+        err = _fn("vitok_silu_quant_wide")(hid.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, fp, dtype, plan.vec,
+                                           plan.grid, hid.device.index, _stream(hid))
+    else:
+        err = _fn("vitok_silu_quant")(
+            hid.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, fp, dtype,
+            plan.lanes, plan.vec, plan.per, plan.stages, plan.grid, hid.device.index, _stream(hid),
+        )
     _check(err, "silu_quant", "launch")
-    LAUNCHES["silu_quant"] += 1
+    LAUNCHES["silu_quant_wide" if plan.wide else "silu_quant"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -514,8 +560,9 @@ def _silu_quant_cuda(hid, q, scale, plan: RowPlan) -> None:
 _ROW_LANES = (32, 64, 128, 256)  # lanes a row: one warp, or 2-8 warps joined by a named barrier
 _NORM_X_WORDS = 48      # y values a lane holds in fp32 registers (#9, kXWords)
 _SILU_T_WORDS = 64      # t values a lane holds in fp32 registers (#8, kTWords)
-_MAX_NORM_C = 8192
+_MAX_NORM_C = 8192      # the register instances' widest rows; wider ones take the wide instance
 _MAX_SILU_FP = 16384
+_WIDE_LANES = 256       # lanes (threads) a row of the wide-row instances (kWideThreads)
 H100_SMS = 132
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -532,6 +579,11 @@ class RowPlan(NamedTuple):
     ``g`` walks rows ``g, g + G, ...`` (``G = grid * rows_per_block``), each
     row copied into a ring of ``stages`` row slots (2: one row ahead; 1 where
     two rows do not fit a block).
+
+    ``wide``: the wide-row instance (rows wider than the register limits: C
+    above 8192, F' above 16384), a block of 256 lanes a row that reads the
+    row from device memory in each pass, no ring (``stages`` 0, no dynamic
+    shared memory); block ``b`` walks rows ``b, b + grid, ...``.
     """
 
     lanes: int
@@ -544,6 +596,7 @@ class RowPlan(NamedTuple):
     smem_bytes: int
     blocks_per_sm: int
     grid: int
+    wide: bool = False
 
 
 def _row_itemsize(dtype: torch.dtype, what: str) -> int:
@@ -576,6 +629,25 @@ def _row_smem(kernel: str, n: int, itemsize: int, lanes: int, vec: int, per: int
     return groups * (stages * 2 * n * itemsize + red_warps * 4)
 
 
+def _wide_split(n: int) -> Tuple[int, int, int]:
+    """(lanes, vec, per) of the wide-row instance: 256 lanes a row."""
+    vec = 16 if n % 16 == 0 else 8
+    return _WIDE_LANES, vec, -(-n // vec // _WIDE_LANES)
+
+
+def _norm_split(c: int) -> Tuple[int, int, int]:
+    """The split by which #9 adds a row's squares: its register instances'
+    up to C 8192, the wide instance's above."""
+    return _row_split(c, _NORM_X_WORDS) if c <= _MAX_NORM_C else _wide_split(c)
+
+
+def _wide_plan(m: int, n: int, sms: int, blocks_per_sm: int) -> RowPlan:
+    if blocks_per_sm < 1:
+        raise ValueError(f"the wide row instance for {n} channels fits no SM")
+    lanes, vec, per = _wide_split(n)
+    return RowPlan(lanes, lanes // 32, vec, per, lanes, 1, 0, 0, blocks_per_sm, min(m, sms * blocks_per_sm), True)
+
+
 def _row_plan(kernel: str, m: int, n: int, itemsize: int, words: int, sms: int, blocks_per_sm: int) -> RowPlan:
     lanes, vec, per = _row_split(n, words)
     threads = max(128, lanes)
@@ -602,11 +674,14 @@ def rmsnorm_quant_plan(m: int, c: int, dtype: torch.dtype = torch.bfloat16, sms:
     values of x (C 1536), wider rows over more warps; the gain in shared
     memory. The split (lanes, vec, per) depends on ``c`` alone, and so does
     the order in which the kernel and :func:`fused_rmsnorm_quant_plain` add
-    the squares. Raises ``ValueError`` outside C a multiple of 8 up to 8192,
-    ``TypeError`` for another dtype."""
+    the squares. Above C 8192 the wide-row instance (:class:`RowPlan`).
+    Raises ``ValueError`` outside C a positive multiple of 8, ``TypeError``
+    for another dtype."""
     itemsize = _row_itemsize(dtype, "rmsnorm_quant")
-    if m < 1 or c < 8 or c % 8 or c > _MAX_NORM_C:
-        raise ValueError(f"rmsnorm_quant takes M >= 1 and C a multiple of 8 up to {_MAX_NORM_C}, got M={m}, C={c}")
+    if m < 1 or c < 8 or c % 8:
+        raise ValueError(f"rmsnorm_quant takes M >= 1 and C a multiple of 8, got M={m}, C={c}")
+    if c > _MAX_NORM_C:
+        return _wide_plan(m, c, sms, blocks_per_sm)
     return _row_plan("rmsnorm_quant", m, c, itemsize, _NORM_X_WORDS, sms, blocks_per_sm)
 
 
@@ -617,12 +692,14 @@ def silu_quant_plan(m: int, fp: int, dtype: torch.dtype = torch.bfloat16, sms: i
     inputs in ``dtype`` on a card of ``sms`` SMs that each host
     ``blocks_per_sm`` blocks of the plan's instance (as
     :func:`rmsnorm_quant_plan`): a warp a row while a lane holds at most 64
-    values of t (F' 2048), wider rows over more warps. Raises ``ValueError``
-    outside F' a multiple of 8 up to 16384, ``TypeError`` for another
-    dtype."""
+    values of t (F' 2048), wider rows over more warps; above F' 16384 the
+    wide-row instance (:class:`RowPlan`). Raises ``ValueError`` outside F'
+    a positive multiple of 8, ``TypeError`` for another dtype."""
     itemsize = _row_itemsize(dtype, "silu_quant")
-    if m < 1 or fp < 8 or fp % 8 or fp > _MAX_SILU_FP:
-        raise ValueError(f"silu_quant takes M >= 1 and F' a multiple of 8 up to {_MAX_SILU_FP}, got M={m}, F'={fp}")
+    if m < 1 or fp < 8 or fp % 8:
+        raise ValueError(f"silu_quant takes M >= 1 and F' a multiple of 8, got M={m}, F'={fp}")
+    if fp > _MAX_SILU_FP:
+        return _wide_plan(m, fp, sms, blocks_per_sm)
     return _row_plan("silu_quant", m, fp, itemsize, _SILU_T_WORDS, sms, blocks_per_sm)
 
 
@@ -655,7 +732,11 @@ def row_quant_attributes(kernel: str, plan: RowPlan, n: int, dtype: torch.dtype)
     registers and spill bytes a thread, blocks one SM hosts, and shared
     memory a block."""
     out = (ctypes.c_int * 4)()
-    err = _fn(f"vitok_{kernel}_attributes")(n, _DTYPE_CODES[dtype], plan.lanes, plan.vec, plan.per, plan.stages, out)
+    if plan.wide:
+        err = _fn(f"vitok_{kernel}_wide_attributes")(n, _DTYPE_CODES[dtype], plan.vec, out)
+    else:
+        err = _fn(f"vitok_{kernel}_attributes")(n, _DTYPE_CODES[dtype], plan.lanes, plan.vec, plan.per, plan.stages,
+                                                 out)
     _check(err, kernel, "attributes")
     return dict(registers=out[0], spill_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
@@ -667,10 +748,16 @@ def row_quant_attributes(kernel: str, plan: RowPlan, n: int, dtype: torch.dtype)
 _ARGTYPES = {  # C entry point: (library, argument types)
     "vitok_rmsnorm_quant": ("rmsnorm_quant", "ppppiifiiiiiiip"),
     "vitok_rmsnorm_quant_attributes": ("rmsnorm_quant", "iiiiiip"),
-    "vitok_ffn_int8": ("ffn_int8", "ppppppiiiiiip"),
-    "vitok_ffn_int8_attributes": ("ffn_int8", "iiiip"),
+    "vitok_rmsnorm_quant_wide": ("rmsnorm_quant", "ppppiifiiiip"),
+    "vitok_rmsnorm_quant_wide_attributes": ("rmsnorm_quant", "iiip"),
+    "vitok_ffn_int8": ("ffn_int8", "pppppppiiiiiip"),
+    "vitok_ffn_int8_attributes": ("ffn_int8", "iiiiip"),
     "vitok_silu_quant": ("silu_quant", "pppiiiiiiiiip"),
     "vitok_silu_quant_attributes": ("silu_quant", "iiiiiip"),
+    "vitok_silu_quant_wide": ("silu_quant", "pppiiiiiip"),
+    "vitok_silu_quant_wide_attributes": ("silu_quant", "iiip"),
+    "vitok_quantize_rows_f32": ("quantize_rows", "pppiiiip"),
+    "vitok_quantize_rows_f32_attributes": ("quantize_rows", "ip"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _FNS: Dict[str, object] = {}

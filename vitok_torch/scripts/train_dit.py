@@ -1,4 +1,4 @@
-"""DiT flow-matching training over ViTok latents, on one device.
+"""DiT flow-matching training over ViTok latents, on one device or a mesh of them.
 
 The counterpart of the JAX package's ``scripts/train_dit.py`` with its flags
 and defaults: the rectified-flow objective
@@ -6,8 +6,12 @@ and defaults: the rectified-flow objective
 ``x_sigma = (1 - sigma) z + sigma eps``, uniform (optionally shifted) sigma,
 classifier-free-guidance label dropout to the null class, AdamW or Muon
 (``--optimizer muon``, momentum 0.95, as the JAX CLI passes only the name)
-with clipping (``train_lib``), EMA, resume and periodic checkpoints. Left
-out: the sharding mesh (``--mesh``).
+with clipping (``train_lib``), EMA, resume and periodic checkpoints, and the
+sharding mesh (``--mesh data=D,fsdp=F,model=M`` under ``torchrun``: DDP,
+FSDP2 and tensor parallelism over the DiT's blocks, their adaLN ``mod``
+whole, ``vitok_torch.parallel``; ``--bs`` is each data shard's batch, the
+latent files rank-strided, logs on the first process, checkpoints written
+whole by it). Pipeline parallelism is not ported yet: it raises.
 
 Latents come from a directory of precomputed ``.npy`` latent files (each a
 pickled dict with ``z [N, c]`` and ``label``), or on the fly from an image
@@ -54,7 +58,7 @@ def flow_matching_loss(
     ``shift * s / (1 + (shift - 1) * s)``; a dropped label becomes the null
     class ``num_classes``; the model sees ``t = 1000 * sigma``.
     """
-    dev = dit.device
+    dev = getattr(dit, "module", dit).device  # a DDP wrapper holds the DiT as .module
     z = torch.as_tensor(z, dtype=torch.float32).to(dev)
     labels = torch.as_tensor(labels).to(dev).long()
     b = z.shape[0]
@@ -86,19 +90,30 @@ def make_dit_train_step(tx, num_classes: int, cfg_dropout: float = 0.1, shift: f
     generator seeded from it and ``state.step``, so a resumed run repeats an
     uninterrupted one). Updates the model, optimizer state and EMA in place;
     the loss is a 0-d tensor on the model's device (nothing is read back).
+    Under a layout (``state.layout``: DDP, FSDP2, tensor parallelism) ``z``
+    and ``labels`` are this rank's rows, the wrapped model's backward
+    reduces the gradients, and the loss is the mean over the batch shards.
     """
+    from vitok_torch.parallel.sharding import local
     from vitok_torch.train_lib import update_ema
 
     def step(state, z, labels, rng=None, draws=None) -> Tuple[Any, torch.Tensor]:
-        model = state.model
+        model, layout = state.model, state.layout
         generator = rng
         if isinstance(rng, int):
-            generator = torch.Generator(device=model.device).manual_seed(rng * 1_000_003 + state.step)
+            shard = 0 if layout is None else layout.data_rank
+            generator = torch.Generator(device=model.device).manual_seed(rng * 1_000_003 + state.step + 7919 * shard)
         params = list(model.parameters())
-        loss = flow_matching_loss(model, z, labels, num_classes, cfg_dropout, shift,
-                                  generator=generator, draws=draws)
-        grads = torch.autograd.grad(loss, params)
-        tx.update(params, [g.to(p.dtype) for g, p in zip(grads, params)], state.opt_state)
+        loss = flow_matching_loss(model if layout is None else layout.module, z, labels, num_classes, cfg_dropout,
+                                  shift, generator=generator, draws=draws)
+        loss.backward()  # under DDP and FSDP2 this also reduces the gradients
+        grads = [local(p.grad) for p in params]
+        for p in params:
+            p.grad = None
+        tx.update([local(p) for p in params], [g.to(p.dtype) for g, p in zip(grads, params)], state.opt_state,
+                  layout=layout)
+        if layout is not None:
+            loss = layout.mean_over_data(loss)
         if state.ema_params is not None:
             update_ema(state.ema_params, dict(model.named_parameters()), ema_decay)
         state.step += 1
@@ -137,11 +152,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-freq", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--mesh", default=None,
+                    help="data=D,fsdp=F,model=M under torchrun (one -1 takes the processes left); default: all "
+                         "processes on data")
     return ap
 
 
-def _npy_batches(data: str, bs: int, seed: int):
-    files = sorted(os.path.join(data, f) for f in os.listdir(data) if f.endswith(".npy"))
+def _npy_batches(data: str, bs: int, seed: int, rank: int = 0, world: int = 1):
+    files = sorted(os.path.join(data, f) for f in os.listdir(data) if f.endswith(".npy"))[rank::world]
     if not files:
         raise SystemExit(
             f"--data {data} has no .npy latent files; pass --ae <name-or-variant> to train "
@@ -168,13 +186,15 @@ def _latent_width(data: str):
     return int(np.load(os.path.join(data, files[0]), allow_pickle=True).item()["z"].shape[-1]) if files else None
 
 
-def _encoder_batches(encoder, data: str, bs: int, seed: int, patch: int, max_tokens: int):
+def _encoder_batches(encoder, data: str, bs: int, seed: int, patch: int, max_tokens: int, rank: int = 0,
+                     world: int = 1):
     from vitok_torch.data import create_dataloader
 
     side = int(math.isqrt(max_tokens))
     pp = (f"center_crop({side * patch})|to_tensor|normalize(minus_one_to_one)|"
           f"patchify({patch}, {max_tokens})")
-    loader = create_dataloader(data, pp, batch_size=bs, seed=seed, repeat=True, return_labels=True)
+    loader = create_dataloader(data, pp, batch_size=bs, seed=seed, rank=rank, world=world, repeat=True,
+                               return_labels=True)
     for batch in loader:
         enc = encoder.encode({k: v for k, v in batch.items() if isinstance(v, np.ndarray)})
         yield enc["z"].float(), np.asarray(batch.get("labels", np.zeros(bs)), np.int64)
@@ -185,12 +205,16 @@ def main(argv=None) -> None:
 
     from vitok_torch.models.dit import DiT, decode_variant as dit_variant
     from vitok_torch.train_lib import create_optimizer, create_schedule, create_train_state
+    from vitok_torch.parallel import shard_params
+    from vitok_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS, MODEL_AXIS, cli_mesh
     from vitok_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from vitok_torch.utils.device import resolve_device
     from vitok_torch.utils.preemption import PreemptionGuard
 
-    device = resolve_device(args.device)
-    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+    mesh, rank, world, device = cli_mesh(args.mesh, args.device, allowed=(DATA_AXIS, FSDP_AXIS, MODEL_AXIS))
+    device = resolve_device(device)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
 
     # --- frozen AE encoder (optional) ------------------------------------
     encoder = None
@@ -211,6 +235,8 @@ def main(argv=None) -> None:
     dit = DiT(**dit_variant(args.dit), code_width=code_width or 32, text_dim=args.num_classes,
               checkpoint=args.checkpoint, seed=args.seed, device=device,
               param_dtype=torch.float32, trainable=True)
+    layout = shard_params(dit, mesh) if mesh is not None else None
+    shard, shards = (layout.data_rank, layout.data_size) if layout is not None else (0, 1)
 
     schedule = create_schedule(args.schedule, args.lr, args.steps, args.warmup_frac)
     tx = create_optimizer(schedule, weight_decay=args.wd, grad_clip=args.grad_clip,
@@ -222,13 +248,13 @@ def main(argv=None) -> None:
     ckpt_dir = os.path.join(os.path.abspath(args.output_dir), "last")
     if args.resume and os.path.exists(ckpt_dir):
         state = load_checkpoint(ckpt_dir, target=state)
-        print(f"resumed at step {state.step}")
+        say(f"resumed at step {state.step}")
 
     if encoder is None:
-        batches = _npy_batches(args.data, args.bs, args.seed)
+        batches = _npy_batches(args.data, args.bs, args.seed, shard, shards)
     else:
         batches = _encoder_batches(encoder, args.data, args.bs, args.seed, args.patch,
-                                   args.max_tokens)
+                                   args.max_tokens, shard, shards)
 
     guard = PreemptionGuard()
     t_log = time.perf_counter()
@@ -238,7 +264,7 @@ def main(argv=None) -> None:
         step = state.step
         if step % args.log_freq == 0:
             dt = time.perf_counter() - t_log
-            print(json.dumps({
+            say(json.dumps({
                 "step": step,
                 "loss": round(float(loss), 5),  # reads back: the step has finished
                 "lr": round(float(schedule(step)), 7),
@@ -247,10 +273,13 @@ def main(argv=None) -> None:
             t_log = time.perf_counter()
         if (args.save_freq and step % args.save_freq == 0) or guard.should_stop:
             save_checkpoint(state, ckpt_dir)
-            print(f"saved checkpoint at step {step}")
+            say(f"saved checkpoint at step {step}")
     guard.restore()
     save_checkpoint(state, ckpt_dir)
-    print("training done")
+    say("training done")
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

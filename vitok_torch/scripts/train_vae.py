@@ -1,4 +1,4 @@
-"""Training CLI: NaFlex tokenizer training on one device.
+"""Training CLI: NaFlex tokenizer training, on one device or a mesh of them.
 
 The counterpart of the JAX package's ``scripts/train_vae.py`` with its flags
 and defaults: variant, data, pp string, loss stack (masked Charbonnier +
@@ -8,11 +8,18 @@ saving (``--checkpoint 1 --remat-save qkv_out,ffn_hid,attn_out``), resume,
 periodic and on-preemption checkpoints, a safetensors export at the end,
 and the DINO perceptual term
 (``--perceptual-weight``, ``--dino-size``, ``--dino-weights``: a frozen DINO
-ViT on the SSIM tiles). Left out: the sharding mesh (``--mesh``,
-``--pipe-microbatches``) and ``--wandb``.
+ViT on the SSIM tiles), and the sharding mesh (``--mesh data=D,fsdp=F,model=M``
+under ``torchrun``: DDP, FSDP2 and tensor parallelism,
+``vitok_torch.parallel``; ``--bs`` is each data shard's batch, the loader
+rank-strided, logs, evals' prints and the safetensors export on the first
+process, checkpoints written whole by it). Left out: pipeline parallelism
+(``--mesh pipe=K``, ``--pipe-microbatches`` raise: not ported yet) and
+``--wandb``.
 
     python -m vitok_torch.scripts.train_vae --variant Ld4-Ld24/1x16x64 \\
         --data /imgs --max-tokens 4096 --sw 1024 --bs 2 --steps 1000
+    torchrun --standalone --nproc-per-node 4 -m vitok_torch.scripts.train_vae \\
+        --variant Ld4-Ld24/1x16x64 --data /imgs --bs 8 --mesh data=2,fsdp=2
 
 Runs on the card (``--device cuda``, the default; it raises without one);
 ``--device cpu`` trains on the host, for small models and tests.
@@ -89,6 +96,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-freq", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    # parallelism
+    ap.add_argument("--mesh", default=None,
+                    help="data=D,fsdp=F,model=M under torchrun (one -1 takes the processes left); default: "
+                         "all processes on data")
+    ap.add_argument("--pipe-microbatches", type=int, default=None,
+                    help="GPipe microbatches for --mesh pipe=K: not ported yet (raises)")
     return ap
 
 
@@ -119,12 +132,23 @@ def main(argv=None) -> None:
         make_train_step,
         unpatchify_dense_static,
     )
+    from vitok_torch.parallel import shard_params
+    from vitok_torch.parallel.mesh import cli_mesh
     from vitok_torch.utils.checkpoint import export_safetensors, load_checkpoint, save_checkpoint
     from vitok_torch.utils.device import resolve_device
     from vitok_torch.utils.preemption import PreemptionGuard
 
-    device = resolve_device(args.device)
-    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+    if args.pipe_microbatches is not None:
+        raise SystemExit("--pipe-microbatches: pipeline parallelism (vitok_tpu/parallel/pipeline.py) is not ported "
+                         "yet (ROADMAP.md, Queue 1 item 12)")
+    mesh, rank, world, device = cli_mesh(args.mesh, args.device,
+                                         hint="; sequence parallelism: vitok_torch.scripts.train_highres")
+    device = resolve_device(device)
+    is_main = rank == 0
+    say = print if is_main else (lambda *a, **k: None)
+    say(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+    if mesh is not None:
+        say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}, processes: {world}")
 
     # --- model + state ---------------------------------------------------
     cfg = AEConfig.from_variant(
@@ -142,6 +166,7 @@ def main(argv=None) -> None:
     model = AE(**dataclasses.asdict(cfg), state_dict=state_dict, seed=args.seed, device=device,
                param_dtype=torch.float32, trainable=True)
     n_params = sum(p.numel() for p in model.parameters())
+    layout = shard_params(model, mesh) if mesh is not None else None
 
     schedule = create_schedule(args.schedule, args.lr, args.steps, args.warmup_frac)
     tx = create_optimizer(
@@ -154,12 +179,14 @@ def main(argv=None) -> None:
     ckpt_dir = os.path.join(os.path.abspath(args.output_dir), "last")
     if args.resume and os.path.exists(ckpt_dir):
         state = load_checkpoint(ckpt_dir, target=state)
-        print(f"resumed at step {state.step}")
+        say(f"resumed at step {state.step}")
 
     # --- data ------------------------------------------------------------
     grid_side = int(math.isqrt(args.max_tokens))
     pp = args.pp or default_pp(args.patch, args.max_tokens)
-    loader = create_dataloader(args.data, pp, batch_size=args.bs, seed=args.seed, repeat=True)
+    shard, shards = (layout.data_rank, layout.data_size) if layout is not None else (0, 1)
+    loader = create_dataloader(args.data, pp, batch_size=args.bs, seed=args.seed, rank=shard, world=shards,
+                               repeat=True)
 
     loss_cfg = LossConfig(
         charbonnier_weight=args.charbonnier_weight,
@@ -178,7 +205,7 @@ def main(argv=None) -> None:
         src = args.dino_weights or os.environ.get("VITOK_DINO_WEIGHTS")
         dino = load_dino_backbone(src, size=args.dino_size, device=device)
         feature_fn = make_dino_feature_fn(dino, target_size=args.tile_size)
-        print(f"DINO perceptual: ViT-{args.dino_size} ({'weights=' + src if src else 'RANDOM INIT'})")
+        say(f"DINO perceptual: ViT-{args.dino_size} ({'weights=' + src if src else 'RANDOM INIT'})")
     train_step = make_train_step(tx, loss_cfg, ema_decay=args.ema_decay, feature_fn=feature_fn,
                                  grad_accum=args.grad_accum)
 
@@ -209,17 +236,18 @@ def main(argv=None) -> None:
             log = {k: float(v) for k, v in metrics.items()}  # reads back: the step has finished
             dt = time.perf_counter() - t_log
             steps_per_s = args.log_freq / dt
-            tokens_per_s = steps_per_s * args.bs * args.max_tokens
+            tokens_per_s = steps_per_s * args.bs * shards * args.max_tokens
             log.update({
                 "lr": float(schedule(step)),
                 "timing/steps_per_s": steps_per_s,
                 "timing/tokens_per_s": tokens_per_s,
                 "timing/data_ms_per_step": data_ms / args.log_freq,
-                "perf/samples_per_s": steps_per_s * args.bs,
+                "perf/samples_per_s": steps_per_s * args.bs * shards,
             })
             if device.type == "cuda":
-                log["perf/mfu"] = 6 * n_params * tokens_per_s / H100_BF16_PEAK_FLOPS
-            print(f"step {step}: " + json.dumps({k: round(v, 5) for k, v in log.items()}), flush=True)
+                log["perf/mfu"] = 6 * n_params * tokens_per_s / (H100_BF16_PEAK_FLOPS * world)
+            if is_main:
+                print(f"step {step}: " + json.dumps({k: round(v, 5) for k, v in log.items()}), flush=True)
             t_log = time.perf_counter()
             data_ms = 0.0
 
@@ -241,25 +269,41 @@ def main(argv=None) -> None:
             if ssim_vals:
                 ev = {"eval/ssim": sum(ssim_vals) / len(ssim_vals),
                       "eval/psnr": sum(psnr_vals) / len(psnr_vals)}
-                print(f"step {step} eval: " + json.dumps({k: round(v, 4) for k, v in ev.items()}), flush=True)
+                if is_main:
+                    print(f"step {step} eval: " + json.dumps({k: round(v, 4) for k, v in ev.items()}), flush=True)
 
         if args.save_freq and step % args.save_freq == 0:
             save_checkpoint(state, ckpt_dir)
-            print(f"saved checkpoint at step {step}")
+            say(f"saved checkpoint at step {step}")
 
         if guard.should_stop:
             # Preemption (SIGTERM) or Ctrl-C: save and exit cleanly.
             save_checkpoint(state, ckpt_dir)
-            print(f"preempted: checkpoint saved at step {step}")
+            say(f"preempted: checkpoint saved at step {step}")
             guard.restore()
+            _finish()
             return
 
     guard.restore()
     save_checkpoint(state, ckpt_dir)
     export_dir = os.path.join(os.path.abspath(args.output_dir), "safetensors")
-    written = export_safetensors(
-        state.ema_params if state.ema_params is not None else model.state_dict(), export_dir)
-    print("training done;", "exported:", written)
+    weights = state.ema_params if state.ema_params is not None else model.state_dict()
+    if layout is not None:  # whole tensors, gathered by every process
+        from vitok_torch.parallel.sharding import local
+
+        src = state.ema_params or {n: local(p).detach() for n, p in model.named_parameters()}
+        weights = {n: layout.full(layout.names.index(n), t) for n, t in src.items()}
+    if is_main:
+        written = export_safetensors(weights, export_dir)
+        print("training done;", "exported:", written)
+    _finish()
+
+
+def _finish() -> None:
+    """Every process leaves the group it joined."""
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,7 +16,11 @@ give the same steps:
 * cosine / linear / exponential / constant schedules with linear warm-up;
   the update of step ``t`` (0-based) uses ``schedule(t)``;
 * an fp32 EMA copy of the parameters, updated after each step;
-* gradient accumulation over microbatches in fp32 before one update.
+* gradient accumulation over microbatches in fp32 before one update;
+* under a mesh (``vitok_torch.parallel.shard_params``: DDP, FSDP2, tensor
+  parallelism) the step runs the wrapped model's backward, the optimizer and
+  the EMA work on each rank's local tensors, the gradient norm is the global
+  one, and the metrics are means over the batch shards.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.nn as nn
 
 from vitok_torch.losses import charbonnier_loss, perceptual_loss, ssim_loss
 from vitok_torch.models.ae import AE
+from vitok_torch.parallel.sharding import local
 from vitok_torch.pp.ops import sample_tiles
 
 Schedule = Callable[[int], float]
@@ -101,11 +106,19 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)).float())
 
 
+def layout_norm(grads: List[torch.Tensor], layout=None) -> torch.Tensor:
+    """The global norm of gradients whose local parts are ``grads``: over a
+    ``layout`` (``Layout.global_norm``: summed over the groups that shard
+    them), else :func:`global_norm`."""
+    return global_norm(grads) if layout is None else layout.global_norm(grads)
+
+
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, layout=None) -> None:
     """optax's ``clip_by_global_norm``, in place: ``t / norm * max_norm``
-    where the global norm reaches ``max_norm``, else ``t``."""
-    g_norm = global_norm(grads)
+    where the global norm (over ``layout``'s shards) reaches ``max_norm``,
+    else ``t``."""
+    g_norm = layout_norm(grads, layout)
     factor = torch.where(g_norm < max_norm, torch.ones_like(g_norm), max_norm / g_norm)
     torch._foreach_mul_(grads, factor)
 
@@ -145,7 +158,7 @@ class AdamW:
         self.moment_dtype = moment_dtype
 
     def init(self, model: nn.Module) -> Dict[str, Any]:
-        params = list(model.parameters())
+        params = [local(p) for p in model.parameters()]
         self._decayed = list(decay_mask(model).values())
         return {
             "count": 0,
@@ -154,9 +167,12 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict[str, Any]) -> None:
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict[str, Any],
+               layout=None) -> None:
+        """``params`` and ``grads``: each rank's local tensors; ``layout``
+        (sharded ones) gives the global norm for the clipping."""
         if self.grad_clip:
-            clip_by_global_norm_(grads, self.grad_clip)
+            clip_by_global_norm_(grads, self.grad_clip, layout)
         lr = self.schedule(state["count"])
         state["count"] += 1
         mu_store, nu = state["mu"], state["nu"]
@@ -210,28 +226,36 @@ def create_optimizer(
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters are the params), the optimizer state, the
-    fp32 EMA of the parameters (by name, or None) and the step count."""
+    fp32 EMA of the parameters (by name, or None) and the step count.
+    ``layout``: the model's ``vitok_torch.parallel.Layout`` where it is laid
+    over a mesh (then the optimizer state and the EMA hold this rank's local
+    tensors), else None."""
 
     step: int
     model: AE
     opt_state: Dict[str, Any]
     ema_params: Optional[Dict[str, torch.Tensor]]
+    layout: Any = None
 
 
 def create_train_state(model: AE, tx: Any, ema: bool = True) -> TrainState:
+    """The state of ``model`` (after ``shard_params`` where it is sharded:
+    the state then holds local tensors)."""
     return TrainState(
         step=0,
         model=model,
         opt_state=tx.init(model),
-        ema_params={n: p.detach().float().clone() for n, p in model.named_parameters()} if ema else None,
+        ema_params={n: local(p).detach().float().clone() for n, p in model.named_parameters()} if ema else None,
+        layout=getattr(model, "layout", None),
     )
 
 
 @torch.no_grad()
 def update_ema(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor], decay: float = 0.999) -> None:
-    """fp32 lerp EMA, in place: ``e = e * decay + p * (1 - decay)``."""
+    """fp32 lerp EMA, in place: ``e = e * decay + p * (1 - decay)``
+    (a sharded parameter's local part)."""
     es = list(ema.values())
-    ps = [params[n].detach().float() for n in ema]
+    ps = [local(params[n]).detach().float() for n in ema]
     torch._foreach_mul_(es, decay)
     torch._foreach_add_(es, ps, alpha=1.0 - decay)
 
@@ -285,7 +309,7 @@ def compute_loss(
     ``drop_uniforms`` ``[decoder_depth, B]`` and ``tile_indices``
     ``(start_y, start_x)`` replace the draws where given.
     """
-    dev = model.device
+    dev = getattr(model, "module", model).device  # a DDP wrapper holds the AE as .module
     batch = {k: (torch.as_tensor(v).to(dev) if hasattr(v, "shape") else v) for k, v in batch.items()}
     out = model(batch, deterministic=False, generator=generator, drop_uniforms=drop_uniforms)
     mask = batch.get("patch_mask")
@@ -350,16 +374,24 @@ def make_train_step(
     fp32 and takes one optimizer step on their mean; each microbatch's loss
     is its own masked mean. ``drop_uniforms`` and ``tile_indices`` (see
     :func:`compute_loss`) may be passed through for the whole batch.
+
+    Under a layout (``state.layout``) the batch is this rank's rows: the
+    step calls the wrapped model, runs its backward (DDP all-reduces, FSDP2
+    reduce-scatters), reads each parameter's local gradient, and reports the
+    means of the metrics over the batch shards; each batch shard draws from
+    its own stream of ``rng``.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def step(state: TrainState, batch: Dict[str, Any], rng=None, drop_uniforms=None, tile_indices=None):
-        model = state.model
+        model, layout = state.model, state.layout
         generator = rng
         if isinstance(rng, int):
-            generator = torch.Generator(device=model.device).manual_seed(rng * 1_000_003 + state.step)
+            shard = 0 if layout is None else layout.data_rank
+            generator = torch.Generator(device=model.device).manual_seed(rng * 1_000_003 + state.step + 7919 * shard)
         params = [p for p in model.parameters()]
+        forward = model if layout is None else layout.module
         b = len(batch["patches"])
         if b % grad_accum:
             raise ValueError(f"batch size {b} not divisible by grad_accum {grad_accum}")
@@ -368,12 +400,15 @@ def make_train_step(
         for i in range(grad_accum):
             lo, hi = i * mb, (i + 1) * mb
             loss, m = compute_loss(
-                model, batch if grad_accum == 1 else _slice_batch(batch, lo, hi), loss_cfg, generator,
+                forward, batch if grad_accum == 1 else _slice_batch(batch, lo, hi), loss_cfg, generator,
                 feature_fn=feature_fn,
                 drop_uniforms=None if drop_uniforms is None else torch.as_tensor(drop_uniforms)[:, lo:hi],
                 tile_indices=None if tile_indices is None else tuple(torch.as_tensor(t)[lo:hi] for t in tile_indices),
             )
-            g = [x.float() for x in torch.autograd.grad(loss, params)]
+            loss.backward()  # under DDP and FSDP2 this also reduces the gradients
+            g = [local(p.grad).float() for p in params]
+            for p in params:
+                p.grad = None
             if grads is None:
                 grads, metrics = g, m
             else:
@@ -383,8 +418,11 @@ def make_train_step(
         if grad_accum > 1:
             torch._foreach_div_(grads, float(grad_accum))
             metrics = {k: v / grad_accum for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)  # before clipping
-        tx.update(params, [g.to(p.dtype) for g, p in zip(grads, params)], state.opt_state)
+        if layout is not None:
+            metrics = {k: layout.mean_over_data(v) for k, v in metrics.items()}
+        params = [local(p) for p in params]
+        metrics["grad_norm"] = layout_norm(grads, layout)  # before clipping
+        tx.update(params, [g.to(p.dtype) for g, p in zip(grads, params)], state.opt_state, layout=layout)
         if state.ema_params is not None:
             update_ema(state.ema_params, dict(model.named_parameters()), ema_decay)
         state.step += 1
