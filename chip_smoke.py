@@ -123,7 +123,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    against the unwrapped step (rel L2 1e-6); then ``data=2`` in two
    processes on the one card over gloo, against the unwrapped step's two
    microbatches;
-14. prints a JSON line describing each kernel, the card's name and power
+14. runs pipeline parallelism at full width and depth: 350M ``pipe=1`` as a
+   world of one over NCCL (the decode at 256 tokens, B 16, in four
+   microbatches, and one training step on #1 and #3 with Charbonnier, SSIM
+   and a random DINO ViT-S term), then ``pipe=2`` as two processes on the
+   one card over gloo (the same decode, a training step, and the 5B decode
+   in bf16 and int8, 20 blocks a stage), each against the unwrapped model on
+   the same microbatches, every rank's launches read;
+15. runs the last entry points: ``bench_fused_ffn`` at the 350M and 5B
+   shapes (#7 and the unfused chain each bit for bit their plain versions,
+   both timed), ``ab_q8_epilogue`` at 350M, and ``entry()``;
+16. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -810,14 +820,11 @@ def plain_quant_kernels():
 
 
 def _random_gates(model, device) -> None:
-    """LayerScale gains ~ U(0.5, 1.5) from a seed: every block matters."""
-    import torch
+    """LayerScale gains ~ U(0.5, 1.5) from a seed: every block matters (the
+    same draws as the pipeline phase's stage processes)."""
+    from vitok_torch.scripts.dryrun_multiprocess import random_gates
 
-    gen = torch.Generator(device=device).manual_seed(1)
-    with torch.no_grad():
-        for blk in [*getattr(model, "encoder_blocks", ()), *getattr(model, "decoder_blocks", ())]:
-            g = blk.layer_scale.gamma
-            g.copy_(0.5 + torch.rand(g.shape, generator=gen, device=device))
+    random_gates(model, device)
 
 
 def main_path_cases(device, resolutions=RESOLUTIONS, seed=0) -> list:
@@ -4579,6 +4586,248 @@ def distributed_phase(device, card: str) -> dict:
     return dict(rows=rows, launches=total)
 
 
+PIPE_DECODE = ("256p", 256, 16, RESOLUTIONS[0][3])  # B 16 at 256 tokens: four microbatches of four
+PIPE_MICRO = 4
+PIPE_BIG = "Td4-T/1x16x64"  # 5B-f16x64: 40 decoder blocks, 20 a stage under pipe=2
+PIPE_LOSS = dict(ssim_weight=0.1, tile_size=256, n_tiles=1, patch=16, ssim_grid=(16, 16))
+PIPE_PERCEPTUAL = 0.5  # the world-of-one step's DINO term (a random-init ViT-S on the 256-px tiles)
+# Where the pipeline adds the microbatches' gradients in another order than
+# the reference (the encoder's over one call, not four), the parameters
+# after the step are held here; the loss and the outputs at DIST_REL.
+PIPE_PARAMS_REL = 1e-5
+
+
+def _decode_micro(model, enc: dict, m: int):
+    """The unwrapped model's decode of ``enc`` microbatch by microbatch: the
+    pipeline's microbatches, each through every block."""
+    import torch
+
+    mb = enc["z"].shape[0] // m
+    return torch.cat([model.decode({k: v[q * mb:(q + 1) * mb] for k, v in enc.items()})["patches"]
+                      for q in range(m)])
+
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def pipeline_phase(device, card: str) -> dict:
+    """Pipeline parallelism (``vitok_torch.parallel.pipeline``) at full
+    width and depth. A world of one over NCCL, ``pipe=1``: the 350M decode
+    at 256 tokens, B 16, in four microbatches, and one training step
+    (``attn_impl="fused"``; Charbonnier, SSIM and a random-init DINO ViT-S
+    perceptual term) against the unwrapped model on the same microbatches.
+    Then two processes on the one card over gloo, ``pipe=2`` (12 of the 24
+    decoder blocks a stage): the same decode, one training step
+    (Charbonnier + SSIM), and the 5B decode (20 of 40 blocks a stage) in
+    bf16 and after ``quantize()``, each against the unwrapped model on the
+    same microbatches. Every run's launches are read: #1 and its prologue a
+    block and microbatch on each stage, #3 under grad, #9 and #7 in int8."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.models.vit_features import load_dino_backbone, make_dino_feature_fn
+    from vitok_torch.parallel import (create_mesh, initialize_distributed, make_pipeline_train_step,
+                                      pipeline_parallel_decode, shard_params)
+    from vitok_torch.scripts import dryrun_multiprocess as dm
+    from vitok_torch.train_lib import LossConfig, create_optimizer, create_schedule, create_train_state, make_train_step
+
+    t_phase = time.time()
+    if not dist.is_initialized():
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(_free_port()))
+        initialize_distributed(device.type)
+    log(f"pipeline phase: {VARIANT} and {PIPE_BIG}, pipe=1 over {dist.get_backend()} and pipe=2 as two processes "
+        f"over gloo, {PIPE_MICRO} microbatches, on {card}")
+    rows, total, wall = {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            if v:
+                total[k] = total.get(k, 0) + v
+
+    init = AE(**decode_variant(VARIANT), seed=0, device=device, param_dtype=torch.float32)
+    _random_gates(init, device)
+    state = {k: v.detach() for k, v in init.state_dict().items()}
+    enc_depth, depth = init.cfg.encoder_depth, init.cfg.decoder_depth
+    del init
+    bf16 = lambda: AE(**decode_variant(VARIANT), state_dict=state, device=device)
+    fp32 = lambda: AE(**{**decode_variant(VARIANT), "attn_impl": "fused"}, state_dict=state, device=device,
+                      param_dtype=torch.float32, trainable=True)
+    (dec_case,) = main_path_cases(device, [PIPE_DECODE], seed=12)
+    (train_case,) = main_path_cases(device, [DIST_TRAIN], seed=13)
+    train_in = train_case[4]
+    tiles = (torch.zeros((DIST_TRAIN[2], 1), dtype=torch.int32, device=device),) * 2  # a 256-px tile of 256 px
+    ref = bf16()
+    enc = ref.encode(dec_case[4])
+    want_dec = _decode_micro(ref, enc, PIPE_MICRO)
+    del ref
+
+    def held(label, rel, limit, counts, want_counts, **extra):
+        if counts != {k: v for k, v in want_counts.items() if v} or not rel <= limit:
+            raise AssertionError(f"pipeline {label}: rel L2 {rel:.3e} (limit {limit}); launches {counts}, expected "
+                                 f"{_nonzero(want_counts)}")
+        rows[label] = dict(rel_l2=rel, launches=counts, **extra)
+        log(f"  {label}: rel L2 {rel:.3e}{' (exact)' if rel == 0 else ''}; launches {counts}"
+            + "".join(f", {k} {v:.3e}" for k, v in extra.items() if isinstance(v, float)))
+
+    # pipe=1, a world of one over NCCL.
+    t0 = time.time()
+    mesh = create_mesh({"pipe": 1}, device=device.type)
+    model = bf16()
+    shard_params(model, mesh)
+    reset_counts()
+    got = pipeline_parallel_decode(model, enc, PIPE_MICRO)["patches"]
+    torch.cuda.synchronize()
+    counts = _nonzero(launch_counts())
+    add(counts)
+    held("pipe=1 decode", _rel(got, want_dec), DIST_REL, counts, _expect(fused_attention=depth * PIPE_MICRO))
+    del model, got
+    dino = load_dino_backbone(None, size="S", device=device)
+    loss_cfg = LossConfig(**PIPE_LOSS, perceptual_weight=PIPE_PERCEPTUAL)
+    feature_fn = make_dino_feature_fn(dino, target_size=PIPE_LOSS["tile_size"])
+    tx = create_optimizer(create_schedule("constant", DIST_LR, 10, warmup_frac=0.0))
+    ref = fp32()
+    ref_state, ref_m = make_train_step(tx, loss_cfg, feature_fn=feature_fn, grad_accum=PIPE_MICRO)(
+        create_train_state(ref, tx), train_in, tile_indices=tiles)
+    want_params = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    del ref, ref_state
+    model = fp32()
+    layout = shard_params(model, mesh)
+    tx = create_optimizer(create_schedule("constant", DIST_LR, 10, warmup_frac=0.0))
+    step = make_pipeline_train_step(tx, loss_cfg, feature_fn=feature_fn, num_microbatches=PIPE_MICRO)
+    reset_counts()
+    st, m = step(create_train_state(model, tx), train_in, tile_indices=tiles)
+    torch.cuda.synchronize()
+    counts = _nonzero(launch_counts())
+    add(counts)
+    loss_rel = abs(float(m["loss/total"]) - float(ref_m["loss/total"])) / abs(float(ref_m["loss/total"]))
+    norm_rel = abs(float(m["grad_norm"]) - float(ref_m["grad_norm"])) / float(ref_m["grad_norm"])
+    if not (loss_rel <= DIST_REL and norm_rel <= DIST_REL) or sorted(m) != sorted(ref_m):
+        raise AssertionError(f"pipeline pipe=1 step: loss rel {loss_rel:.3e}, grad_norm rel {norm_rel:.3e} (limit "
+                             f"{DIST_REL}), metrics {sorted(m)}")
+    # On each microbatch: #1 and #3 in each encoder block, #1 twice (the
+    # forward, then the replay) and #3 in each decoder block.
+    train_expect = _expect(fused_attention=(enc_depth + 2 * depth) * PIPE_MICRO,
+                           fused_attention_bwd=2 * (enc_depth + depth) * PIPE_MICRO)
+    params = layout.full_named({n: p.detach() for n, p in model.named_parameters()})
+    held("pipe=1 step", _params_rel(params, want_params), PIPE_PARAMS_REL, counts, train_expect, loss_rel=loss_rel,
+         grad_norm_rel=norm_rel, loss_perceptual=float(m["loss/perceptual"]))
+    del model, st, params, want_params, dino, feature_fn
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    wall["pipe=1"] = time.time() - t0
+
+    # pipe=2: two processes on the one card over gloo, against the unwrapped
+    # runs here on the same microbatches.
+    t0 = time.time()
+    loss2 = LossConfig(**PIPE_LOSS)
+    tx = create_optimizer(create_schedule("constant", DIST_LR, 10, warmup_frac=0.0))
+    ref = fp32()
+    _, ref_m2 = make_train_step(tx, loss2, grad_accum=PIPE_MICRO)(create_train_state(ref, tx), train_in,
+                                                                   tile_indices=tiles)
+    want_params2 = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    del ref
+    big = AE(**decode_variant(PIPE_BIG), seed=0, device=device)
+    _random_gates(big, device)
+    big_depth = big.cfg.decoder_depth
+    big_in = big.encode(dec_case[4])
+    want_big = _decode_micro(big, big_in, PIPE_MICRO)
+    want_big8 = _decode_micro(big.quantize(), big_in, PIPE_MICRO)
+    del big
+    torch.cuda.empty_cache()
+    wall["pipe=2 references"] = time.time() - t0
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    with tempfile.TemporaryDirectory() as wd:
+        torch.save({"device": "cuda:0" if device.type == "cuda" else "cpu", "variant": VARIANT, "state": cpu(state),
+                    "decode": cpu(enc),
+                    "microbatches": PIPE_MICRO, "lr": DIST_LR, "loss": PIPE_LOSS, "train": cpu(train_in),
+                    "tiles": [t.cpu() for t in tiles], "big_variant": PIPE_BIG, "big_decode": cpu(big_in)},
+                   os.path.join(wd, "pipe_job.pt"))
+        t1 = time.time()
+        dm.spawn("pipe_card_job", 2, wd)
+        wall["pipe=2 processes"] = time.time() - t1
+        outs = [torch.load(os.path.join(wd, f"pipe_card_{r}.pt"), weights_only=True) for r in range(2)]
+    per = depth // 2
+    expect = {
+        "decode": _expect(fused_attention=per * PIPE_MICRO),
+        "train": _expect(fused_attention=(enc_depth + 4 * per) * PIPE_MICRO // 2,  # two microbatches a stage
+                         fused_attention_bwd=(enc_depth + 2 * per) * PIPE_MICRO),
+        "big_decode": _expect(fused_attention=big_depth // 2 * PIPE_MICRO),
+        "big_int8": _expect(fused_attention=big_depth // 2 * PIPE_MICRO, rmsnorm_quant=big_depth // 2 * PIPE_MICRO,
+                            ffn_int8=big_depth // 2 * PIPE_MICRO),
+    }
+    first = outs[0]
+    loss_rel = abs(first["loss"] - float(ref_m2["loss/total"])) / abs(float(ref_m2["loss/total"]))
+    norm_rel = abs(first["grad_norm"] - float(ref_m2["grad_norm"])) / float(ref_m2["grad_norm"])
+    if not (loss_rel <= DIST_REL and norm_rel <= DIST_REL):
+        raise AssertionError(f"pipeline pipe=2 step: loss rel {loss_rel:.3e}, grad_norm rel {norm_rel:.3e} (limit "
+                             f"{DIST_REL})")
+    results = {
+        "decode": (_rel(first["decode"].to(device), want_dec), DIST_REL, {}),
+        "train": (_params_rel({k: v.to(device) for k, v in first["params"].items()}, want_params2), PIPE_PARAMS_REL,
+                  {"loss_rel": loss_rel, "grad_norm_rel": norm_rel}),
+        "big_decode": (_rel(first["big_decode"].to(device), want_big), DIST_REL, {}),
+        "big_int8": (_rel(first["big_int8"].to(device), want_big8), DIST_REL, {}),
+    }
+    for run, (rel, limit, extra) in results.items():
+        for r, out in enumerate(outs):
+            counts = out["launches"][run]
+            add(counts)
+            if counts != {k: v for k, v in expect[run].items() if v}:
+                raise AssertionError(f"pipeline pipe=2 {run}, rank {r}: launches {counts}, expected "
+                                     f"{_nonzero(expect[run])}")
+        held(f"pipe=2 {run}", rel, limit, outs[1]["launches"][run], expect[run],
+             **{**extra, "launches_rank0": outs[0]["launches"][run]})
+    wall["phase"] = time.time() - t_phase
+    log(f"  pipeline phase wall times (s): " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    return dict(rows=rows, launches=total, wall_s=wall)
+
+
+def remainder_phase(device, card: str) -> dict:
+    """The port's last entry points at full size: ``bench_fused_ffn`` at the
+    350M and 5B shapes (M 16384 rows), #7 and the unfused chain (``_int_mm``,
+    then #8) each bit for bit their plain versions and within the JAX
+    script's limits of each other, both timed; ``ab_q8_epilogue`` once at
+    350M (256 tokens, B 64); and ``entry()`` run once."""
+    import torch
+    from vitok_torch.benchmarks import ab_q8_epilogue, bench_fused_ffn
+    from vitok_torch.entry import entry
+
+    t0 = time.time()
+    out = {"bench_fused_ffn": {}}
+    for label, c, f in (("350M", 1024, 2736), ("5B", 3072, 8208)):
+        res = bench_fused_ffn.run(16384, c, f, device=device)
+        if not res["ok"]:
+            raise AssertionError(f"bench_fused_ffn {label}: {res}")
+        out["bench_fused_ffn"][label] = res
+        log(f"  bench_fused_ffn {label} (M 16384, C {c}, F' {res['f_padded']}): fused {res['fused_ms']:.4f} ms, "
+            f"unfused {res['unfused_ms']:.4f} ms, bound {res['bound_ms']:.4f}; each bit for bit its plain version; "
+            f"codes apart by at most {res['code_max_diff']} (share > 1: {res['code_share_over_one']:.2e}), scales "
+            f"{res['scale_max_rel']:.2e} rel")
+    ab = ab_q8_epilogue.run("350M", tokens=256, batch=64, iters=3, device=device)
+    out["ab_q8_epilogue"] = ab
+    t = ab["timing"]
+    log(f"  ab_q8_epilogue 350M @256 tokens B 64: numeric rel {ab['numeric']['rel']:.5f} (rel L2 "
+        f"{ab['numeric']['rel_l2']:.3e}); A {t['A']['ms_per_img']:.4f} ms/img, B {t['B']['ms_per_img']:.4f}, A/B "
+        f"{t['a_over_b']:.4f} (chain {t['chain']})")
+    if not ab["numeric"]["rel_l2"] <= MODEL_REL_L2:  # the q8 path phase's limit between the same two routes
+        raise AssertionError(f"ab_q8_epilogue: the arms are {ab['numeric']['rel_l2']:.3e} apart (rel L2)")
+    fn, args = entry(device=device)
+    patches = fn(*args)["patches"]
+    torch.cuda.synchronize()
+    if tuple(patches.shape) != (2, 256, 768) or not torch.isfinite(patches).all():
+        raise AssertionError(f"entry(): bad output {tuple(patches.shape)}")
+    out["entry"] = {"shape": list(patches.shape), "finite": True}
+    del fn, args, patches
+    out["wall_s"] = time.time() - t0
+    log(f"  remainder phase: {out['wall_s']:.1f} s; entry() forward finite, (2, 256, 768)")
+    return out
+
+
 def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres, f32_int8, f32_silu) -> list:
     """The kernels line: one entry per kernel, its launches from its path's run."""
     head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
@@ -4760,6 +5009,10 @@ def main() -> int:
     distributed = distributed_phase(device, card)
     torch.cuda.empty_cache()
     log(f"distributed phase: {time.time() - t0:.1f} s")
+    pipeline = pipeline_phase(device, card)
+    torch.cuda.empty_cache()
+    remainder_phase(device, card)
+    torch.cuda.empty_cache()
     log("eval summary: " + json.dumps({
         run: {k: evals[run]["stats"][k] for k in ("n_images", "ssim", "psnr", "fid", "fdd", "throughput_img_per_sec",
                                                   "wall_img_per_sec", "steady_img_per_sec", "host_data_time_s",
@@ -4786,6 +5039,8 @@ def main() -> int:
             e["launches_training_data"] = data_slice["launches"][e["name"]]
         if distributed["launches"].get(e["name"]):
             e["launches_distributed"] = distributed["launches"][e["name"]]
+        if pipeline["launches"].get(e["name"]):
+            e["launches_pipeline"] = pipeline["launches"][e["name"]]
     log(f"chip_smoke.py ran for {time.time() - started:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

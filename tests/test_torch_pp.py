@@ -185,6 +185,15 @@ class TestImportBoundary:
         comparison are among the files the import check reads."""
         assert REPO / "vitok_torch" / module in _port_files()
 
+    @pytest.mark.parametrize("module", [
+        "parallel/pipeline.py", "benchmarks/bench_fused_ffn.py", "benchmarks/ab_q8_epilogue.py",
+        "scripts/inspect_checkpoint.py", "scripts/eval/__init__.py", "scripts/eval/baselines.py", "entry.py"])
+    def test_last_modules_are_inside_the_boundary(self, module):
+        """The pipeline, the last two benchmark scripts, the checkpoint
+        inspector, the baseline VAEs and the entry points are among the files
+        the import check reads."""
+        assert REPO / "vitok_torch" / module in _port_files()
+
     def test_kernel_sources_include_only_their_own_headers(self):
         """Every quoted include of a CUDA source is a header in csrc/ (the
         build hashes those into each library's key), and no source includes

@@ -606,7 +606,10 @@ class AE(nn.Module):
     @torch.no_grad()
     def _init_weights(self, seed: int) -> None:
         """Linear weights and biases ~ U(+-1/sqrt(fan_in)) (torch's nn.Linear
-        bound) from a generator seeded with ``seed``; gains stay as built."""
+        bound) from a generator seeded with ``seed``; gains stay as built. On
+        the meta device (shapes only) nothing is drawn."""
+        if self.device.type == "meta":
+            return
         gen = torch.Generator(device=self.device).manual_seed(seed)
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
@@ -622,7 +625,8 @@ class AE(nn.Module):
         per-output-channel scales, fc1/fc2 padded to 128-aligned SwiGLU halves
         first, as ``quantize_block_params`` does; embeds and heads keep the
         compute dtype. Converts layer by layer on the model's device and drops
-        each full-precision weight as it goes. Idempotent; returns ``self``.
+        each full-precision weight as it goes (a pipe stage its own blocks).
+        Idempotent; returns ``self``.
 
         It quantizes the weights the model holds: a bf16 model's are rounded
         to bf16 first, so codes may differ by one step from those of the fp32
@@ -631,6 +635,8 @@ class AE(nn.Module):
         before building the bf16 model instead.
         """
         for blk in [*getattr(self, "encoder_blocks", ()), *getattr(self, "decoder_blocks", ())]:
+            if not isinstance(blk, Block):  # a block another pipe stage holds
+                continue
             if blk.tp_group is not None:
                 raise ValueError("quantize before tensor parallelism: the scales span whole rows")
             for path in q8.QUANT_LINEARS:
@@ -752,4 +758,15 @@ class AE(nn.Module):
         return out
 
 
-__all__ = ["AE", "AEConfig", "Block", "HELD_NAMES", "Int8Linear", "REMAT_NAMES", "decode_variant"]
+def Model(**kw) -> AE:
+    """``AE(**kw)``: the JAX package's (and the reference's) factory name."""
+    return AE(**kw)
+
+
+def num_params(model: nn.Module) -> int:
+    """The parameter count of a module (its int8 codes and scales too)."""
+    return sum(t.numel() for t in [*model.parameters(), *model.buffers()])
+
+
+__all__ = ["AE", "AEConfig", "Block", "HELD_NAMES", "Int8Linear", "Model", "REMAT_NAMES", "decode_variant",
+           "num_params"]

@@ -6,12 +6,14 @@ from vitok_torch.ops.norms import layer_norm, layer_scale, rms_norm
 from vitok_torch.ops.rope import (
     apply_rotary_emb,
     compute_2d_freqs_cis,
+    compute_freqs_cis,
     compute_inv_freq,
     rope_half_permutation,
 )
 
 __all__ = [
     "compute_inv_freq",
+    "compute_freqs_cis",
     "compute_2d_freqs_cis",
     "apply_rotary_emb",
     "rope_half_permutation",

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
@@ -210,7 +211,11 @@ def quantize_block_linear(name: str, weight: torch.Tensor) -> Tuple[torch.Tensor
 
 def can_fuse_ffn(m: int, c: int, f2: int) -> bool:
     """Whether ``M`` token rows of width ``c`` with a padded fc1 of ``f2``
-    outputs take :func:`fused_ffn_int8` (``_ffn_shapes_fusable``)."""
+    outputs take :func:`fused_ffn_int8` (``_ffn_shapes_fusable``).
+    ``VITOK_DISABLE_FUSED_FFN`` set (read at each call, as the JAX package
+    reads it) routes every shape to the unfused chain, for A/B runs."""
+    if os.environ.get("VITOK_DISABLE_FUSED_FFN"):
+        return False
     fp = f2 // 2
     return f2 % 256 == 0 and fp % 128 == 0 and c % 128 == 0 and m % 8 == 0
 

@@ -29,6 +29,17 @@ def _axis_freqs(positions, dim, theta, inv_freq):
     return torch.cos(freqs), torch.sin(freqs)
 
 
+def compute_freqs_cis(
+    t: torch.Tensor,
+    dim: int = 768,
+    theta: float = 10000.0,
+    inv_freq: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1D rotary cos/sin for sequence positions ``t``: ``(cos, sin)`` of
+    shape ``t.shape + (dim // 2,)``, float32."""
+    return _axis_freqs(t, dim, theta, inv_freq)
+
+
 def compute_2d_freqs_cis(
     y_positions: torch.Tensor,
     x_positions: torch.Tensor,
@@ -118,6 +129,7 @@ def apply_rotary_emb(
 
 __all__ = [
     "compute_inv_freq",
+    "compute_freqs_cis",
     "compute_2d_freqs_cis",
     "apply_rotary_emb",
     "rope_half_permutation",

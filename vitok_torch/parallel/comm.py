@@ -15,12 +15,17 @@ model's layers need the Megatron pair and the halo exchange instead:
   back the other way (the JAX ``ppermute``'s VJP is the inverse
   permutation);
 * :func:`row_parallel_int8`: the int8 out-projection of a tensor-parallel
-  block, the single device's product bit for bit (inference only).
+  block, the single device's product bit for bit (inference only);
+* :func:`isend` / :func:`irecv`: the point-to-point transfers of the
+  pipeline schedule (``parallel/pipeline.py``).
+
+Under gloo a CUDA tensor crosses through host memory (gloo's ``send`` and
+``recv`` take host buffers only); NCCL gets the device tensor.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -30,6 +35,60 @@ def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous().clone()
     dist.all_reduce(t, group=group)
     return t
+
+
+class Pending:
+    """An issued point-to-point transfer: :meth:`wait` blocks until it is
+    done and returns the received tensor (None for a send)."""
+
+    def __init__(self, work, buf: torch.Tensor, out: Optional[torch.Tensor] = None):
+        self.work, self.buf, self.out = work, buf, out
+
+    def wait(self) -> Optional[torch.Tensor]:
+        self.work.wait()
+        if self.out is not None and self.out is not self.buf:
+            self.out.copy_(self.buf)
+        return self.out
+
+
+def _host_staged(t: torch.Tensor, group) -> bool:
+    """Whether a transfer of ``t`` over ``group`` goes through host memory:
+    a CUDA tensor under gloo, whose ``send``/``recv`` take host buffers."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _send_buffer(t: torch.Tensor, group) -> torch.Tensor:
+    """What goes on the wire for ``t``: a contiguous host copy under gloo
+    (for a CUDA tensor), else ``t`` itself, contiguous."""
+    t = t.detach().contiguous()
+    return t.cpu() if _host_staged(t, group) else t
+
+
+def _recv_buffer(out: torch.Tensor, group) -> torch.Tensor:
+    """Where a transfer into ``out`` lands: a host buffer under gloo (for a
+    CUDA ``out``), a contiguous one for a strided ``out``, else ``out``;
+    copy it into ``out`` once the transfer is done."""
+    if _host_staged(out, group):
+        return torch.empty(out.shape, dtype=out.dtype)
+    return out if out.is_contiguous() else torch.empty(out.shape, dtype=out.dtype, device=out.device)
+
+
+def isend(t: torch.Tensor, peer: int, group, tag: int = 0) -> Pending:
+    """Send ``t`` to rank ``peer`` of ``group``; wait on the result before
+    ``t`` changes. Under gloo a CUDA tensor is copied to host memory first
+    (gloo's point-to-point calls take host buffers only); NCCL sends the
+    device tensor. Errors propagate."""
+    buf = _send_buffer(t, group)
+    return Pending(dist.isend(buf, dist.get_global_rank(group, peer), group=group, tag=tag), buf)
+
+
+def irecv(out: torch.Tensor, peer: int, group, tag: int = 0) -> Pending:
+    """Receive into ``out`` from rank ``peer`` of ``group``; ``wait()``
+    returns ``out``. Under gloo a CUDA ``out`` is received into a host
+    buffer (and a strided one into a contiguous buffer) and copied over when
+    the transfer is done."""
+    buf = _recv_buffer(out, group)
+    return Pending(dist.irecv(buf, dist.get_global_rank(group, peer), group=group, tag=tag), buf, out)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -66,20 +125,24 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
 def _exchange(send_right: torch.Tensor, send_left: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank i sends ``send_right`` to rank i + 1 and ``send_left`` to rank
     i - 1 of ``group``; returns what it receives ``(from_left, from_right)``,
-    zeros at the group's edges."""
+    zeros at the group's edges. The four transfers are one group
+    (``batch_isend_irecv``: NCCL must not see two neighbours each send
+    first); under gloo a CUDA tensor's buffers are in host memory."""
     rank, size = dist.get_rank(group), dist.get_world_size(group)
-    send_right, send_left = send_right.contiguous(), send_left.contiguous()
     from_left, from_right = torch.zeros_like(send_right), torch.zeros_like(send_left)
-    ops = []
-    if rank + 1 < size:
-        peer = dist.get_global_rank(group, rank + 1)
-        ops += [dist.P2POp(dist.isend, send_right, peer, group), dist.P2POp(dist.irecv, from_right, peer, group)]
-    if rank > 0:
-        peer = dist.get_global_rank(group, rank - 1)
-        ops += [dist.P2POp(dist.isend, send_left, peer, group), dist.P2POp(dist.irecv, from_left, peer, group)]
+    ops, landed = [], []
+    for peer, send, out in ((rank + 1, send_right, from_right), (rank - 1, send_left, from_left)):
+        if 0 <= peer < size:
+            buf, g = _recv_buffer(out, group), dist.get_global_rank(group, peer)
+            ops += [dist.P2POp(dist.isend, _send_buffer(send, group), g, group),
+                    dist.P2POp(dist.irecv, buf, g, group)]
+            landed.append((out, buf))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    for out, buf in landed:
+        if buf is not out:
+            out.copy_(buf)
     return from_left, from_right
 
 
@@ -127,4 +190,4 @@ def row_parallel_int8(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tens
     return q8.dequantize_product(acc, scale, w_scale, x.dtype).reshape(*x.shape[:-1], w_int8.shape[0])
 
 
-__all__ = ["copy_to_group", "reduce_from_group", "halo_exchange", "row_parallel_int8"]
+__all__ = ["Pending", "copy_to_group", "reduce_from_group", "halo_exchange", "irecv", "isend", "row_parallel_int8"]

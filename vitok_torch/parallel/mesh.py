@@ -10,7 +10,8 @@ model and the batch are laid over the processes (one process a card, as
 * ``model``: tensor parallelism over attention heads and the FFN hidden;
 * ``seq``: token sharding for sequence parallelism
   (:mod:`vitok_torch.parallel.sequence`);
-* ``pipe``: pipeline stages (not ported yet).
+* ``pipe``: pipeline stages over the decoder blocks
+  (:mod:`vitok_torch.parallel.pipeline`).
 
 :func:`initialize_distributed` reads what ``torchrun`` sets (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) and starts
@@ -151,11 +152,8 @@ def cli_mesh(spec: Optional[str], device, allowed=(DATA_AXIS, FSDP_AXIS, MODEL_A
     ``(mesh or None, rank, world, device)``. ``device`` is the CLI's
     ``--device``; on the card each process takes ``cuda:LOCAL_RANK``. No
     mesh where one process runs without ``--mesh``. Axes outside ``allowed``
-    raise ``SystemExit`` (``pipe``: not ported yet)."""
+    raise ``SystemExit``."""
     axes = parse_mesh(spec)
-    if axes and PIPE_AXIS in axes:
-        raise SystemExit("--mesh pipe=K: pipeline parallelism (vitok_tpu/parallel/pipeline.py) is not ported yet "
-                         "(ROADMAP.md, Queue 1 item 12)")
     bad = sorted(set(axes or ()) - set(allowed))
     if bad:
         raise SystemExit(f"--mesh {spec}: this CLI takes the axes {list(allowed)}, not {bad}{hint}")

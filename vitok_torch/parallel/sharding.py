@@ -26,6 +26,9 @@ insert the collectives; here each axis of the mesh selects a PyTorch layer:
 * ``fsdp``: FSDP2, one ``fully_shard`` a block and then the root, over the
   ``(data, fsdp)`` mesh (HSDP where ``data`` is there too).
 * ``data`` alone: ``DistributedDataParallel``.
+* ``pipe`` (with ``data`` only): each process keeps its stage's slice of
+  the decoder blocks and the schedule of :mod:`vitok_torch.parallel.pipeline`
+  reduces the gradients itself.
 
 The optimizer, the EMA and the checkpoints work on each rank's local
 tensors (a DTensor's local shard, a tensor-parallel slice); :class:`Layout`
@@ -42,7 +45,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
-from vitok_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS, MODEL_AXIS, axis_size
+from vitok_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS, MODEL_AXIS, PIPE_AXIS, axis_size
 
 # The block linears that tensor parallelism slices, and how: "slab3" keeps
 # the rows of the rank's heads in each of the q, k and v slabs, "slab2" the
@@ -182,20 +185,29 @@ class Layout:
 
     def __init__(self, mesh, model: nn.Module):
         self.mesh = mesh
-        self.tp_size = axis_size(mesh, MODEL_AXIS)
+        self.pipe_size = axis_size(mesh, PIPE_AXIS)
+        self.pipe = self.pipe_size > 0
+        if self.pipe:  # only data composes with pipe; other axes of size 1 select nothing
+            from vitok_torch.parallel.pipeline import check_pipe_mesh
+
+            check_pipe_mesh(mesh)
+        self.stage = _coord(mesh, PIPE_AXIS)
+        self.pipe_group = mesh[PIPE_AXIS].get_group() if self.pipe else None
+        self.tp_size = 0 if self.pipe else axis_size(mesh, MODEL_AXIS)
         self.tp = self.tp_size > 0
         self.tp_rank = _coord(mesh, MODEL_AXIS)
         self.tp_group = mesh[MODEL_AXIS].get_group() if self.tp else None
-        self.fsdp_size = axis_size(mesh, FSDP_AXIS)
+        self.fsdp_size = 0 if self.pipe else axis_size(mesh, FSDP_AXIS)
         self.fsdp = self.fsdp_size > 0
         self.fsdp_rank = _coord(mesh, FSDP_AXIS)
         self.fsdp_group = mesh[FSDP_AXIS].get_group() if self.fsdp else None
-        self.ddp = axis_size(mesh, DATA_AXIS) > 0 and not self.fsdp
+        self.ddp = axis_size(mesh, DATA_AXIS) > 0 and not (self.fsdp or self.pipe)
         self.data_rank, self.data_size = data_rank(mesh)
         self.data_group = _groups_over(mesh, batch_specs(mesh))
         self.names = [n for n, _ in model.named_parameters()]
         self.kinds = [_tp_kind(n) if self.tp else None for n in self.names]
         self.shapes: List[torch.Size] = [p.shape for _, p in model.named_parameters()]  # full, set before slicing
+        self.local_names = list(self.names)  # those this process holds (a pipe stage drops the others' blocks)
         self.module: nn.Module = model
 
     # -- reductions -------------------------------------------------------
@@ -209,7 +221,15 @@ class Layout:
     def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The global norm of the gradients whose local parts are
         ``grads`` (in parameter order): the single-device norm where every
-        rank holds whole gradients (no FSDP, no tensor parallelism)."""
+        rank holds whole gradients (no FSDP, no tensor parallelism). On a
+        pipe mesh each stage holds its blocks' gradients, whose squares are
+        summed over the stages; the rest is whole on every rank."""
+        if self.pipe:
+            from vitok_torch.parallel.pipeline import is_block_param
+
+            sq = torch.stack([n.float() for n in torch._foreach_norm(grads)]).square()
+            staged = torch.tensor([is_block_param(n) for n in self.local_names], device=sq.device)
+            return (_all_sum(sq[staged].sum(), self.pipe_group) + sq[~staged].sum()).sqrt()
         if not (self.fsdp or self.tp):
             from vitok_torch.train_lib import global_norm
 
@@ -240,6 +260,16 @@ class Layout:
                 slabs = 3 if kind == "slab3" else 2
                 t = torch.cat([p.unflatten(0, (slabs, -1)) for p in parts], 1).flatten(0, 1)
         return t
+
+    def full_named(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole tensors, by parameter name, from this rank's local parts
+        (every rank takes part; on a pipe mesh every parameter's, each
+        block's from its stage: every parameter of the model)."""
+        if self.pipe:
+            from vitok_torch.parallel.pipeline import gather_staged
+
+            return gather_staged(self, tensors)
+        return {n: self.full(self.names.index(n), t) for n, t in tensors.items()}
 
     def local_of(self, i: int, full: torch.Tensor) -> torch.Tensor:
         """This rank's local part of parameter ``i``'s whole tensor ``full``
@@ -354,13 +384,21 @@ def shard_params(model: nn.Module, mesh, device=None) -> Layout:
     """Lay ``model`` over ``mesh``: tensor parallelism where the mesh has a
     ``model`` axis, FSDP2 where it has ``fsdp`` (one ``fully_shard`` a
     block, then the root, over the ``(data, fsdp)`` mesh), else DDP over
-    ``data``. An axis of size 1 still selects its layer. Every process must
-    hold the same weights first (the same seed, or :func:`place_on_mesh`).
+    ``data``. An axis of size 1 still selects its layer. On a mesh with
+    ``pipe`` (the counterpart of the JAX ``pipeline_param_specs``) the AE
+    keeps this stage's decoder blocks only
+    (:func:`vitok_torch.parallel.pipeline.stage_model`) and nothing is
+    wrapped. Every process must hold the same weights first (the same seed,
+    or :func:`place_on_mesh`).
 
     Returns the :class:`Layout`; ``layout.module`` is what to call (the DDP
     wrapper, or the model itself), and ``model.layout`` is set to it.
     """
     layout = Layout(mesh, model)
+    if layout.pipe:
+        from vitok_torch.parallel.pipeline import stage_model
+
+        stage_model(model, layout)
     if layout.tp:
         if not any(hasattr(model, stack) for stack in _BLOCK_STACKS):
             raise ValueError(f"tensor parallelism slices the blocks of {_BLOCK_STACKS}; {type(model).__name__} "

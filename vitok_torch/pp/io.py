@@ -101,4 +101,8 @@ def _convert_format(images: torch.Tensor, from_format: str, to_format: str) -> t
     return images
 
 
-__all__ = ["preprocess", "postprocess", "patch_collate_fn", "DEFAULT_PP"]
+# The JAX package's (and the reference module's) aliases.
+preprocess_images = preprocess
+postprocess_images = postprocess
+
+__all__ = ["preprocess", "postprocess", "patch_collate_fn", "DEFAULT_PP", "preprocess_images", "postprocess_images"]

@@ -30,6 +30,9 @@ _MODELS: Dict[str, Tuple[str, list, str]] = {
 }
 
 
+PRETRAINED_ALIASES = {name: name for name in _MODELS}
+
+
 def list_pretrained() -> list:
     return list(_MODELS)
 
@@ -53,6 +56,23 @@ def _local_file(name: str, filename: str) -> str:
     return path
 
 
+def load_pretrained(name: str, component: Optional[str] = None) -> dict:
+    """The raw released flat state dicts, as the JAX package returns them:
+    ``{"variant": str, "encoder": {...}, "decoder": {...}}`` (CPU tensors by
+    flat name, the interleaved q/k order of the released files), read from
+    ``$VITOK_PRETRAINED_DIR``. ``component`` of ``"encoder"`` or
+    ``"decoder"`` reads that half only."""
+    from safetensors.torch import load_file
+
+    _, filenames, variant = get_pretrained_info(name)
+    result: dict = {"variant": variant}
+    if component != "decoder":
+        result["encoder"] = load_file(_local_file(name, filenames[0]))
+    if component != "encoder":
+        result["decoder"] = load_file(_local_file(name, filenames[1]))
+    return result
+
+
 def load_pretrained_params(
     name: str, component: Optional[str] = None
 ) -> Tuple[AEConfig, Dict[str, torch.Tensor]]:
@@ -67,18 +87,13 @@ def load_pretrained_params(
     ``quantize_block_params``. ``AE.quantize()`` on a bf16-held model
     quantizes the bf16-rounded weights, which may differ by one code step.
     """
-    from safetensors.torch import load_file
-
-    _, filenames, variant = get_pretrained_info(name)
+    raw = load_pretrained(name, component)
     cfg = AEConfig.from_variant(
-        variant, encoder=component != "decoder", decoder=component != "encoder"
+        raw["variant"], encoder=component != "decoder", decoder=component != "encoder"
     )
-    flat: Dict[str, torch.Tensor] = {}
-    if component != "decoder":
-        flat.update(load_file(_local_file(name, filenames[0])))
-    if component != "encoder":
-        flat.update(load_file(_local_file(name, filenames[1])))
+    flat: Dict[str, torch.Tensor] = {**raw.get("encoder", {}), **raw.get("decoder", {})}
     return cfg, released_state_to_module_state(flat)
 
 
-__all__ = ["load_pretrained_params", "list_pretrained", "get_pretrained_info"]
+__all__ = ["load_pretrained", "load_pretrained_params", "list_pretrained", "get_pretrained_info",
+           "PRETRAINED_ALIASES"]

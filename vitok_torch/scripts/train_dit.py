@@ -11,7 +11,8 @@ sharding mesh (``--mesh data=D,fsdp=F,model=M`` under ``torchrun``: DDP,
 FSDP2 and tensor parallelism over the DiT's blocks, their adaLN ``mod``
 whole, ``vitok_torch.parallel``; ``--bs`` is each data shard's batch, the
 latent files rank-strided, logs on the first process, checkpoints written
-whole by it). Pipeline parallelism is not ported yet: it raises.
+whole by it). ``--mesh pipe=K`` exits: pipeline parallelism stages the AE's
+decoder (``train_vae``).
 
 Latents come from a directory of precomputed ``.npy`` latent files (each a
 pickled dict with ``z [N, c]`` and ``label``), or on the fly from an image

@@ -12,14 +12,20 @@ ViT on the SSIM tiles), and the sharding mesh (``--mesh data=D,fsdp=F,model=M``
 under ``torchrun``: DDP, FSDP2 and tensor parallelism,
 ``vitok_torch.parallel``; ``--bs`` is each data shard's batch, the loader
 rank-strided, logs, evals' prints and the safetensors export on the first
-process, checkpoints written whole by it). Left out: pipeline parallelism
-(``--mesh pipe=K``, ``--pipe-microbatches`` raise: not ported yet) and
+process, checkpoints written whole by it). ``--mesh pipe=K`` (or
+``data=D,pipe=K``) stages the decoder blocks over K processes and trains
+through the GPipe schedule of ``vitok_torch.parallel.pipeline`` with
+``--pipe-microbatches`` microbatches (default K); each data shard trains
+on its first stage's batch, which the step broadcasts over the stages (the
+default pp's random crops differ from process to process). Left out:
 ``--wandb``.
 
     python -m vitok_torch.scripts.train_vae --variant Ld4-Ld24/1x16x64 \\
         --data /imgs --max-tokens 4096 --sw 1024 --bs 2 --steps 1000
     torchrun --standalone --nproc-per-node 4 -m vitok_torch.scripts.train_vae \\
         --variant Ld4-Ld24/1x16x64 --data /imgs --bs 8 --mesh data=2,fsdp=2
+    torchrun --standalone --nproc-per-node 4 -m vitok_torch.scripts.train_vae \\
+        --variant Td4-T/1x16x64 --data /imgs --bs 8 --mesh pipe=4 --pipe-microbatches 8
 
 Runs on the card (``--device cuda``, the default; it raises without one);
 ``--device cpu`` trains on the host, for small models and tests.
@@ -98,10 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     # parallelism
     ap.add_argument("--mesh", default=None,
-                    help="data=D,fsdp=F,model=M under torchrun (one -1 takes the processes left); default: "
-                         "all processes on data")
+                    help="data=D,fsdp=F,model=M or data=D,pipe=K under torchrun (one -1 takes the processes left); "
+                         "default: all processes on data")
     ap.add_argument("--pipe-microbatches", type=int, default=None,
-                    help="GPipe microbatches for --mesh pipe=K: not ported yet (raises)")
+                    help="GPipe microbatches for --mesh pipe=K (default K; a multiple of K dividing --bs)")
     return ap
 
 
@@ -132,16 +138,25 @@ def main(argv=None) -> None:
         make_train_step,
         unpatchify_dense_static,
     )
-    from vitok_torch.parallel import shard_params
-    from vitok_torch.parallel.mesh import cli_mesh
+    from vitok_torch.parallel import make_pipeline_train_step, pipeline_parallel_decode, shard_params
+    from vitok_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS, MODEL_AXIS, PIPE_AXIS, cli_mesh, parse_mesh
     from vitok_torch.utils.checkpoint import export_safetensors, load_checkpoint, save_checkpoint
     from vitok_torch.utils.device import resolve_device
     from vitok_torch.utils.preemption import PreemptionGuard
 
-    if args.pipe_microbatches is not None:
-        raise SystemExit("--pipe-microbatches: pipeline parallelism (vitok_tpu/parallel/pipeline.py) is not ported "
-                         "yet (ROADMAP.md, Queue 1 item 12)")
-    mesh, rank, world, device = cli_mesh(args.mesh, args.device,
+    axes = parse_mesh(args.mesh) or {}
+    pipe = PIPE_AXIS in axes
+    if pipe:
+        others = {k: v for k, v in axes.items() if k not in (PIPE_AXIS, DATA_AXIS) and v != 1}
+        if others:
+            raise SystemExit(f"--mesh pipe=K composes with data=D only (data replicas of the pipe group), got extra "
+                             f"{others}")
+        if args.drop_path:
+            raise SystemExit("--drop-path needs a gate per microbatch and block inside the GPipe schedule; pipeline "
+                             "training runs with 0 (the reference's high-resolution finetune regime)")
+    elif args.pipe_microbatches is not None:
+        raise SystemExit("--pipe-microbatches needs --mesh pipe=K")
+    mesh, rank, world, device = cli_mesh(args.mesh, args.device, allowed=(DATA_AXIS, FSDP_AXIS, MODEL_AXIS, PIPE_AXIS),
                                          hint="; sequence parallelism: vitok_torch.scripts.train_highres")
     device = resolve_device(device)
     is_main = rank == 0
@@ -206,8 +221,17 @@ def main(argv=None) -> None:
         dino = load_dino_backbone(src, size=args.dino_size, device=device)
         feature_fn = make_dino_feature_fn(dino, target_size=args.tile_size)
         say(f"DINO perceptual: ViT-{args.dino_size} ({'weights=' + src if src else 'RANDOM INIT'})")
-    train_step = make_train_step(tx, loss_cfg, ema_decay=args.ema_decay, feature_fn=feature_fn,
-                                 grad_accum=args.grad_accum)
+    if pipe:  # loss_cfg as it is: --charbonnier-weight holds without the tiles too
+        train_step = make_pipeline_train_step(tx, loss_cfg, ema_decay=args.ema_decay, feature_fn=feature_fn,
+                                              grad_accum=args.grad_accum, num_microbatches=args.pipe_microbatches)
+    else:
+        train_step = make_train_step(tx, loss_cfg, ema_decay=args.ema_decay, feature_fn=feature_fn,
+                                     grad_accum=args.grad_accum)
+
+    def reconstruct(b):
+        if pipe:  # the encoder is whole on every stage; the decoder runs through the stages
+            return pipeline_parallel_decode(model, model.encode(b), num_microbatches=args.pipe_microbatches)
+        return model(b)
 
     # --- loop ------------------------------------------------------------
     guard = PreemptionGuard()
@@ -260,7 +284,7 @@ def main(argv=None) -> None:
                     eb = _to_device(next(eval_iter), device)
                 except StopIteration:
                     break
-                out = model(eb)
+                out = reconstruct(eb)
                 rec = unpatchify_dense_static(dict(out), grid_side, grid_side, args.patch)
                 ref_img = unpatchify_dense_static(dict(eb), grid_side, grid_side, args.patch)
                 ssim_vals.append(float(ssim_fn(ref_img, rec)))
@@ -291,8 +315,7 @@ def main(argv=None) -> None:
     if layout is not None:  # whole tensors, gathered by every process
         from vitok_torch.parallel.sharding import local
 
-        src = state.ema_params or {n: local(p).detach() for n, p in model.named_parameters()}
-        weights = {n: layout.full(layout.names.index(n), t) for n, t in src.items()}
+        weights = layout.full_named(state.ema_params or {n: local(p).detach() for n, p in model.named_parameters()})
     if is_main:
         written = export_safetensors(weights, export_dir)
         print("training done;", "exported:", written)

@@ -294,6 +294,16 @@ def unpatchify_dense_static(d: Dict[str, Any], grid_rows: int, grid_cols: int, p
     return x.permute(0, 3, 1, 4, 2, 5).reshape(b, c, grid_rows * patch, grid_cols * patch)
 
 
+def tile_shape(loss_cfg: LossConfig, feature_fn=None) -> Optional[Tuple[int, int]]:
+    """The ``(height, width)`` of the SSIM/perceptual tiles, or None where
+    ``loss_cfg`` takes no tiles (no ``ssim_grid``, or no term that uses them)."""
+    want = loss_cfg.ssim_weight or (loss_cfg.perceptual_weight and feature_fn is not None)
+    if not want or loss_cfg.ssim_grid is None:
+        return None
+    gr, gc = loss_cfg.ssim_grid
+    return min(loss_cfg.tile_size, gr * loss_cfg.patch), min(loss_cfg.tile_size, gc * loss_cfg.patch)
+
+
 def compute_loss(
     model: AE,
     batch: Dict[str, Any],
@@ -312,26 +322,40 @@ def compute_loss(
     dev = getattr(model, "module", model).device  # a DDP wrapper holds the AE as .module
     batch = {k: (torch.as_tensor(v).to(dev) if hasattr(v, "shape") else v) for k, v in batch.items()}
     out = model(batch, deterministic=False, generator=generator, drop_uniforms=drop_uniforms)
+    return loss_from_output(out, batch, loss_cfg, generator, feature_fn, tile_indices)
+
+
+def loss_from_output(
+    out: Dict[str, Any],
+    batch: Dict[str, Any],
+    loss_cfg: LossConfig,
+    generator: Optional[torch.Generator] = None,
+    feature_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    tile_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss stack of :func:`compute_loss` on a forward's output ``out``
+    (``patches`` and ``patch_mask``) against ``batch`` (``patches``,
+    ``patch_mask``, ``orig_height``/``orig_width``), on the device:
+    masked Charbonnier, then the SSIM and perceptual tiles. Returns
+    ``(loss, metrics)``."""
     mask = batch.get("patch_mask")
     l_char = charbonnier_loss(out["patches"], batch["patches"], mask, eps=loss_cfg.charbonnier_eps)
     loss = loss_cfg.charbonnier_weight * l_char
     metrics = {"loss/charbonnier": l_char.detach()}
 
-    want_tiles = loss_cfg.ssim_weight or (loss_cfg.perceptual_weight and feature_fn is not None)
-    if want_tiles and loss_cfg.ssim_grid is not None:
+    tile = tile_shape(loss_cfg, feature_fn)
+    if tile is not None:
         gr, gc = loss_cfg.ssim_grid
         recon = unpatchify_dense_static(out, gr, gc, loss_cfg.patch)
         target = unpatchify_dense_static(batch, gr, gc, loss_cfg.patch)
-        th = min(loss_cfg.tile_size, gr * loss_cfg.patch)
-        tw = min(loss_cfg.tile_size, gc * loss_cfg.patch)
         # Both branches are cropped at the same origins.
         tiles_r, idx = sample_tiles(
             recon, batch["orig_height"], batch["orig_width"], n_tiles=loss_cfg.n_tiles,
-            tile_size=(th, tw), indices=tile_indices, generator=generator,
+            tile_size=tile, indices=tile_indices, generator=generator,
         )
         tiles_t, _ = sample_tiles(
             target, batch["orig_height"], batch["orig_width"], n_tiles=loss_cfg.n_tiles,
-            tile_size=(th, tw), indices=idx,
+            tile_size=tile, indices=idx,
         )
         flat_r, flat_t = tiles_r.flatten(0, 1), tiles_t.flatten(0, 1)
         if loss_cfg.ssim_weight:
@@ -442,6 +466,8 @@ __all__ = [
     "update_ema",
     "LossConfig",
     "compute_loss",
+    "loss_from_output",
+    "tile_shape",
     "unpatchify_dense_static",
     "make_train_step",
 ]

@@ -9,7 +9,8 @@ read.
 
 A state laid over a mesh (``state.layout``) is saved as the same full
 single-device ``state.pt``: every rank takes part in gathering each tensor
-whole, and the mesh's first process writes. Loading slices each rank's part
+whole (on a pipe mesh each decoder block from its stage), and the mesh's
+first process writes. Loading slices each rank's part
 of the full tensors back, so a checkpoint moves between layouts.
 """
 
@@ -67,6 +68,10 @@ def save_checkpoint(state: Any, path: str) -> None:
             "opt_state": state.opt_state,
             "ema_params": state.ema_params,
         }
+    elif getattr(layout, "pipe", False):
+        from vitok_torch.parallel.pipeline import full_payload
+
+        payload = full_payload(state)
     else:
         payload = _full_payload(state)
     writer = layout is None or int(layout.mesh.mesh.flatten()[0]) == torch.distributed.get_rank()
@@ -88,6 +93,10 @@ def load_checkpoint(path: str, target: Optional[Any] = None) -> Any:
     if target is None:
         return payload
     layout = getattr(target, "layout", None)
+    if getattr(layout, "pipe", False):
+        from vitok_torch.parallel.pipeline import load_staged
+
+        return load_staged(target, payload)
     if layout is not None:
         return _load_sharded(target, payload)
     target.model.load_state_dict(payload["params"])

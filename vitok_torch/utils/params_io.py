@@ -313,7 +313,45 @@ def module_state_to_released_state(state: Mapping[str, Any]) -> Dict[str, torch.
     return _permute_qk(state, inverse=True)
 
 
+_HALVES = {"encoder": ("patch_embed", "to_code", "encoder_blocks"),
+           "decoder": ("decoder_embed", "to_pixels", "decoder_blocks")}
+
+
+def load_safetensors_params(paths, cfg=None) -> Dict[str, torch.Tensor]:
+    """``AE`` state dict from released-layout safetensors: one file (a full
+    model) or a mapping like ``{"encoder": path, "decoder": path}`` (the
+    released split artifacts). ``cfg`` (an ``AEConfig``), when given,
+    checks that the files hold its block stacks at its depths."""
+    from safetensors.torch import load_file
+
+    flat: Dict[str, torch.Tensor] = {}
+    for path in ([paths] if isinstance(paths, str) else list(paths.values())):
+        flat.update(load_file(path))
+    state = released_state_to_module_state(flat)
+    if cfg is not None:
+        for stack, depth, present in (("encoder_blocks", cfg.encoder_depth, cfg.encoder),
+                                      ("decoder_blocks", cfg.decoder_depth, cfg.decoder)):
+            got = 1 + max((int(k.split(".")[1]) for k in state if k.startswith(stack + ".")), default=-1)
+            if present and got != depth:
+                raise ValueError(f"{stack}: the files hold {got} blocks, the config {depth}")
+    return state
+
+
+def save_safetensors_params(state: Mapping[str, Any], path: str, component=None) -> None:
+    """Write an ``AE`` state dict (full precision) to one safetensors file
+    in the released flat layout (fp32). ``component`` of ``"encoder"`` or
+    ``"decoder"`` keeps that half only (the released split artifacts)."""
+    from safetensors.torch import save_file
+
+    flat = module_state_to_released_state(state)
+    if component in _HALVES:
+        flat = {k: v for k, v in flat.items() if k.startswith(_HALVES[component])}
+    save_file({k: v.contiguous() for k, v in flat.items()}, path)
+
+
 __all__ = [
+    "load_safetensors_params",
+    "save_safetensors_params",
     "from_jax_params",
     "to_jax_params",
     "dit_from_jax_params",
