@@ -133,7 +133,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 15. runs the last entry points: ``bench_fused_ffn`` at the 350M and 5B
    shapes (#7 and the unfused chain each bit for bit their plain versions,
    both timed), ``ab_q8_epilogue`` at 350M, and ``entry()``;
-16. prints a JSON line describing each kernel, the card's name and power
+16. runs head dims 192 and 256 at the 5B width (C 3072): the q/k prologue,
+   #1, #2 and #4 (plain and behind the prologue) in bf16 against their
+   plain versions at the paths' shapes, each timed beside its bound, its
+   plain version and a library call, #2's cluster layouts timed; then
+   ``Td4h12-Th12/1x16x64`` (12 heads of 256, 4 + 40 blocks) and
+   ``Td4h16-Td8h16/1x16x64`` (16 heads of 192, the decoder cut to 8 blocks)
+   through encode -> decode in bf16 at 256p and 512p (B 16) and at 1024p
+   with sw 1024 (the fold), against the unfused composition, and in int8 at
+   256p with the epilogue off and on; and a d = 256 forward and backward
+   under grad, which takes the unfused composition (no backward instance at
+   d 256) with the gradients of ``attn_impl="xla"``;
+17. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -4828,6 +4839,394 @@ def remainder_phase(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Head dims 192 and 256: the serving kernels' wide instances at the 5B width
+# ---------------------------------------------------------------------------
+
+WIDE_HEAD_MODELS = (  # (head dim, variant): width 3072, the 5B's blocks with wider heads
+    (256, "Td4h12-Th12/1x16x64"),     # 12 heads of 256, 4 + 40 blocks (the 5B's depth)
+    (192, "Td4h16-Td8h16/1x16x64"),   # 16 heads of 192, the decoder cut from 40 blocks to 8
+)
+WIDE_HEAD_PATHS = (  # bf16, no window; the int8 runs take the first
+    ("256p", 256, 16, RESOLUTIONS[0][3]),
+    ("512p", 1024, 16, RESOLUTIONS[1][3]),
+)
+WIDE_HEAD_HIGHRES = ("1024p", 4096, 1, [(1024, 1024)])  # bf16 with sw = FLASH_SW: the fold
+WIDE_HEAD_WIDTH = 3072
+WIDE_HEAD_KERNELS = ((16, 256), (16, 1024))  # (B, N) of #1 and the prologue, what the paths give them; #2 the first
+WIDE_HEAD_GRAD = ("w3072_d2_h12-w3072_d2_h12/1x16x64", ("256p", 256, 4, RESOLUTIONS[0][3]))
+WIDE_HEAD_GRAD_REL = 1e-6  # the same composition on both sides: bit for bit expected
+
+
+def _wide_kernel_rows(device, d: int) -> dict:
+    """The d-wide instances at the 5B width (``WIDE_HEAD_WIDTH``) against
+    their plain versions: the prologue and #1 at ``WIDE_HEAD_KERNELS`` (a
+    tail mask; at the first also no mask and a window of 64), #2 there (codes
+    and scales ``quantize_activation`` of #1 bit for bit; its cluster
+    candidates timed), and #4 behind the prologue (the fold) and on strided
+    views at B 1, N 4096, sw 1024 with a tail; each timed beside its bound,
+    its plain version and a library call."""
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.benchmarks import host_ahead_ms
+    from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops import fused_attention as fa
+    from vitok_torch.ops.quant import quantize_activation
+
+    c = WIDE_HEAD_WIDTH
+    h = c // d
+    rng = np.random.default_rng(22 + d)
+    rows = {"fused_attention": [], "fused_qk_prologue": []}
+    cases = [(b, n, case, masked, sw) for i, (b, n) in enumerate(WIDE_HEAD_KERNELS)
+             for case, masked, sw in KERNEL_CASES if i == 0 or case == "tail"]
+    for b, n, case, masked, sw in cases:
+        qkv, qs, ks, cos, sin, mask = _attention_inputs(rng, b, n, c, h, masked, device)
+        kw = dict(num_heads=h, sliding_window=sw)
+        kernel = lambda: fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, impl="fused", **kw)
+        plain = lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, **kw)
+        prologue = lambda: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, with_q=True)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        err_valid = err if mask is None else err[mask]
+        max_abs, mean_abs = err_valid.max().item(), err_valid.mean().item()
+        rel_all = (err / want.float().abs().clamp(min=1.0)).max().item()
+        if not (max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS and rel_all <= KERNEL_MAX_ABS):
+            raise AssertionError(f"#1 d {d} B {b} N {n} {case}: valid rows max {max_abs:.3e} mean {mean_abs:.3e}, "
+                                 f"all rows rel {rel_all:.3e} (limits {KERNEL_MAX_ABS}, {KERNEL_MEAN_ABS})")
+        qk, _ = prologue()
+        qk_want, _ = fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h, with_q=True)
+        perr = (qk.float() - qk_want.float()).abs()
+        pro_max, pro_share = perr.max().item(), (perr > 0).float().mean().item()
+        if not (pro_max <= PROLOGUE_MAX_ABS and pro_share <= PROLOGUE_DIFFER_SHARE):
+            raise AssertionError(f"prologue d {d} B {b} N {n}: max {pro_max:.3e} (limit {PROLOGUE_MAX_ABS}), "
+                                 f"{pro_share:.2e} of entries differ (limit {PROLOGUE_DIFFER_SHARE})")
+        del got, want, qk, qk_want, err, perr
+        q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)
+        am = _sdpa_mask(mask, n, sw, device)
+        kn, _ = fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, with_q=False)
+        bound = _bound(b, n, c, h, mask, sw)
+        row = dict(d=d, B=b, N=n, C=c, H=h, case=case, max_abs_err=max_abs, mean_abs_err=mean_abs,
+                   ms=time_ms(kernel), dev_ms=host_ahead_ms(kernel),
+                   kernel_ms=time_ms(lambda: fa._attend_sm90(qkv, kn, qs, cos, sin, mask, h, sw)),
+                   plain_ms=time_ms(plain, runs=3, warmup=1),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)),
+                   bound_ms=bound[0], bound_by=bound[1])
+        rows["fused_attention"].append(row)
+        if case == "tail":
+            pro_bound = _prologue_bound(b, n, c, d)
+            rows["fused_qk_prologue"].append(dict(
+                d=d, B=b, N=n, C=c, H=h, case=case, max_abs_err=pro_max, differ_share=pro_share,
+                ms=time_ms(lambda: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, with_q=False)),
+                plain_ms=time_ms(lambda: fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h,
+                                                                    with_q=False), runs=3, warmup=1),
+                bound_ms=pro_bound[0], bound_by=pro_bound[1]))
+        log(f"  #1 d {d} B {b} N {n} {case}: max {max_abs:.2e} mean {mean_abs:.2e}, prologue max {pro_max:.2e} "
+            f"share {pro_share:.1e}; {row['ms']:.4f} ms (dev {row['dev_ms']:.4f}; the wgmma kernel alone "
+            f"{row['kernel_ms']:.4f}), plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, bound "
+            f"{row['bound_ms']:.5f} ({row['bound_by']})")
+        del q, k, v, am, kn, qkv
+
+    # #2 at the first shape: bit for bit quantize_activation of #1; the cluster candidates
+    rows["fused_attention_q8"] = []
+    b, n = WIDE_HEAD_KERNELS[0]
+    for case in ("none", "tail"):
+        qkv, qs, ks, cos, sin, mask = _attention_inputs(rng, b, n, c, h, case == "tail", device)
+        kw = dict(num_heads=h)
+        kernel = lambda: fa.fused_qkv_attention_q8(qkv, qs, ks, cos, sin, mask, **kw)
+        chain = lambda: quantize_activation(fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, impl="fused", **kw))
+        codes, scales = kernel()
+        ref_codes, ref_scales = chain()
+        p_codes, p_scales = fa.fused_qkv_attention_q8_plain(qkv, qs, ks, cos, sin, mask, **kw)
+        torch.cuda.synchronize()
+        n_codes, n_scales = int((codes != ref_codes).sum()), int((scales != ref_scales).sum())
+        deq = (codes.float() * scales - p_codes.float() * p_scales).abs()
+        srel = (scales - p_scales).abs() / p_scales
+        if mask is not None:
+            deq, srel = deq[mask], srel[mask]
+        if not (n_codes == 0 and n_scales == 0 and deq.max().item() <= Q8_DEQUANT_MAX_ABS
+                and deq.mean().item() <= Q8_DEQUANT_MEAN_ABS and srel.max().item() <= Q8_SCALE_RTOL):
+            raise AssertionError(f"#2 d {d} {case}: {n_codes} codes and {n_scales} scales differ from "
+                                 f"quantize_activation of #1; dequantized vs plain max {deq.max().item():.3e} mean "
+                                 f"{deq.mean().item():.3e}, scales rel {srel.max().item():.3e}")
+        cluster = fa._q8_cluster_size(h, d)
+        sweep = {}
+        saved = fa._q8_cluster_size
+        try:
+            for hpb in (1, 2, 4):
+                if h % hpb or fa._q8_smem_bytes(hpb, d) > fa._SMEM_LIMIT:
+                    continue
+                fa._q8_cluster_size = lambda heads, dd, cs=h // hpb: cs
+                sweep[h // hpb] = time_ms(kernel)
+        finally:
+            fa._q8_cluster_size = saved
+        nbytes = (b * n * 3 * c * 2 + b * n * (c + 4) + 2 * b * n * (d // 2) * 4 + 2 * d * 4
+                  + (0 if mask is None else b * n))
+        bound = _bound_ms(nbytes, 4.0 * h * d * _needed_pairs(b, mask, n, None), BF16_FLOPS_PER_S)
+        row = dict(d=d, B=b, N=n, C=c, H=h, case=case, cluster=cluster, codes_differ=0, scales_differ=0,
+                   max_abs_err=deq.max().item(), mean_abs_err=deq.mean().item(), ms=time_ms(kernel),
+                   dev_ms=host_ahead_ms(kernel), library_ms=time_ms(chain),
+                   plain_ms=time_ms(lambda: fa.fused_qkv_attention_q8_plain(qkv, qs, ks, cos, sin, mask, **kw),
+                                    runs=3, warmup=1),
+                   bound_ms=bound[0], bound_by=bound[1], cluster_ms=sweep,
+                   **{f"kernel_{k}": v for k, v in fa.sm90_attributes("q8", d, h // cluster).items()})
+        rows["fused_attention_q8"].append(row)
+        log(f"  #2 d {d} B {b} N {n} {case}: codes and scales = quantize_activation(#1) bit for bit; dequantized vs "
+            f"plain max {row['max_abs_err']:.2e}; {row['ms']:.4f} ms (dev {row['dev_ms']:.4f}), #1 + eager quantize "
+            f"{row['library_ms']:.4f}, plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} ({row['bound_by']}); "
+            f"cluster {cluster} ({h // cluster} heads a block); ms by cluster {sweep}")
+        del qkv, codes, scales, ref_codes, ref_scales, p_codes, p_scales, deq, srel
+
+    # #4: behind the prologue (the fold), and on strided views, B 1, N 4096, sw 1024, a tail
+    rows["flash_attention"] = []
+    label, max_tokens, batch, _ = WIDE_HEAD_HIGHRES
+    for case, masked, sw in (("sw1024", False, FLASH_SW), ("tail+sw1024", True, FLASH_SW)):
+        qkv, qs, ks, cos, sin, mask = _attention_inputs(rng, batch, max_tokens, c, h, masked, device)
+        args = (qkv, qs, ks, cos, sin, mask)
+        kw = dict(num_heads=h, sliding_window=sw)
+        fold = lambda: fa.flash_qkv_attention(*args, **kw)
+        fmax, fmean = _check_flash_rows(f"fold d {d} {case}", fold(), fa.flash_qkv_attention_plain(*args, **kw),
+                                        mask)
+        qk, _ = fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, with_q=True)
+        q, k = qk.view(batch, max_tokens, 2, h, d).unbind(2)
+        v = qkv.view(batch, max_tokens, 3, h, d)[:, :, 2]
+        got, lse = fl.flash_attention(q, k, v, mask, sw, return_lse=True)
+        want, want_lse = fl.flash_attention_plain(q, k, v, mask, sw, return_lse=True)
+        max_abs, mean_abs = _check_flash_rows(f"#4 d {d} {case}", got, want, mask)
+        live = want_lse < 1e29
+        lse_err = (lse[live] - want_lse[live]).abs().max().item()
+        if not (lse_err <= LSE_ATOL and torch.equal(lse < 1e29, live)):
+            raise AssertionError(f"#4 d {d} {case}: lse {lse_err:.3e} (limit {LSE_ATOL})")
+        del got, want, lse, want_lse
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        am = _sdpa_mask(mask, max_tokens, sw, device)
+        valid = [max_tokens] * batch if mask is None else mask.sum(1).tolist()
+        tensor = batch * max_tokens * c * 2
+        pairs = _flash_pairs(valid, max_tokens, sw)
+        bound = _bound_ms(4 * tensor + (0 if mask is None else batch * max_tokens), 4.0 * c * pairs,
+                          BF16_FLOPS_PER_S)
+        fold_bound = _bound_ms(3 * tensor + tensor + 2 * batch * max_tokens * (d // 2) * 4
+                               + (0 if mask is None else batch * max_tokens), 4.0 * c * pairs, BF16_FLOPS_PER_S)
+        row = dict(d=d, B=batch, N=max_tokens, H=h, case=case, max_abs_err=max_abs, mean_abs_err=mean_abs,
+                   lse_max_abs_err=lse_err, ms=time_ms(lambda: fl.flash_attention(q, k, v, mask, sw)),
+                   dev_ms=host_ahead_ms(lambda: fl.flash_attention(q, k, v, mask, sw)),
+                   plain_ms=time_ms(lambda: fl.flash_attention_plain(q, k, v, mask, sw), runs=2, warmup=1),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), runs=3),
+                   bound_ms=bound[0], bound_by=bound[1], fold_max_abs_err=fmax, fold_mean_abs_err=fmean,
+                   fold_ms=time_ms(fold), fold_dev_ms=host_ahead_ms(fold),
+                   fold_plain_ms=time_ms(lambda: fa.flash_qkv_attention_plain(*args, **kw), runs=2, warmup=1),
+                   fold_bound_ms=fold_bound[0], fold_bound_by=fold_bound[1],
+                   **{f"kernel_{k_}": v_ for k_, v_ in fl.flash_attributes(d).items()})
+        if masked:
+            flex = _flex_call(q, k, v, mask, sw)
+            row["flex_ms"], row["flex_dev_ms"] = time_ms(flex), host_ahead_ms(flex)
+            del flex
+        rows["flash_attention"].append(row)
+        log(f"  #4 d {d} B {batch} N {max_tokens} {case}: max {max_abs:.2e} mean {mean_abs:.2e} (the fold {fmax:.2e}); "
+            f"{row['ms']:.4f} ms (dev {row['dev_ms']:.4f}), plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}"
+            + (f", FlexAttention {row['flex_ms']:.4f} (dev {row['flex_dev_ms']:.4f})" if masked else "")
+            + f", bound {row['bound_ms']:.5f} ({row['bound_by']}); the fold {row['fold_ms']:.4f} (dev "
+            f"{row['fold_dev_ms']:.4f}), plain {row['fold_plain_ms']:.4f}; {row['kernel_registers']} registers, "
+            f"{row['kernel_local_bytes']} local bytes")
+        del qkv, args, qk, q, k, v, qt, kt, vt, am
+    for which in ("prologue", "attention"):
+        rows[f"{which}_attributes"] = fa.sm90_attributes(which, d)
+    log(f"  d {d}: registers/local bytes/blocks an SM/shared bytes: prologue {rows['prologue_attributes']}, #1 "
+        f"{rows['attention_attributes']}")
+    return rows
+
+
+def wide_heads_phase(device, card: str) -> dict:
+    """Head dims 192 and 256 at the 5B width: each new instance (the q/k
+    prologue, #1, #2, #4) against its plain version, then both models through
+    encode -> decode on the main path: bf16 at 256p and 512p (B 16, held to
+    the unfused composition), bf16 at 1024p with sw = FLASH_SW (the fold),
+    int8 at 256p without and with the epilogue (held to the plain quantize
+    kernels, and to the opt-in off). Then a d = 256 forward and backward
+    under grad (``attn_impl="fused"``): no attention kernel launches, and
+    its gradients equal those of the unfused composition."""
+    import torch
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.ops import fused_attention as fa
+
+    t0 = time.time()
+    out = {"rows": {}, "launches": {}, "paths": []}
+    for d, variant in WIDE_HEAD_MODELS:
+        log(f"wide heads d {d}: kernel checks at the 5B width, on {card}")
+        out["rows"][d] = _wide_kernel_rows(device, d)
+        torch.cuda.empty_cache()
+        model = AE(**decode_variant(variant), seed=0, device=device)
+        _random_gates(model, device)
+        depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"wide heads d {d}: {variant} ({n_params / 1e9:.3f}B params, {depth} blocks), bf16")
+        launches = dict.fromkeys(launch_counts(), 0)
+
+        def add(counts):
+            for k_, v_ in counts.items():
+                launches[k_] += v_
+
+        cases = main_path_cases(device, WIDE_HEAD_PATHS, seed=22)
+        outs, counts = _run_counted(model, cases, _expect(fused_attention=depth), f"bf16 d {d}")
+        add(counts)
+        _set_attn_impl(model, "xla")
+        refs = [model.decode(model.encode(inputs)) for *_, inputs in cases]
+        _set_attn_impl(model, "auto")
+        for (name, max_tokens, batch, images, inputs), o, ref in zip(cases, outs, refs):
+            _check_output(name, max_tokens, batch, images, inputs, o)
+            rel = _valid_rel_l2(o, ref, inputs)
+            if not rel <= MODEL_REL_L2:
+                raise AssertionError(f"bf16 d {d} {name}: rel L2 vs the unfused composition {rel:.3e} > {MODEL_REL_L2}")
+            ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+            out["paths"].append(dict(d=d, dtype="bf16", res=name, batch=batch, rel_l2=rel, ms_per_img=ms / batch))
+            log(f"  bf16 d {d} {name} B {batch}: rel L2 vs the unfused composition {rel:.3e}; {ms / batch:.4f} ms/img "
+                f"on {card}")
+        del outs, refs
+
+        model.cfg = dataclasses.replace(model.cfg, sw=FLASH_SW)
+        (case,) = main_path_cases(device, [WIDE_HEAD_HIGHRES], seed=23)
+        name, max_tokens, batch, images, inputs = case
+        with torch.inference_mode():
+            (o,), counts = _run_counted(model, [case], _expect(flash_attention=depth, fused_qk_prologue=depth),
+                                        f"bf16 d {d} {name}")
+        add(counts)
+        _check_output(name, max_tokens, batch, images, inputs, o)
+        _set_attn_impl(model, "xla")
+        ref = model.decode(model.encode(inputs))
+        _set_attn_impl(model, "auto")
+        rel = _valid_rel_l2(o, ref, inputs)
+        if not rel <= MODEL_REL_L2:
+            raise AssertionError(f"bf16 d {d} {name}: rel L2 vs the unfused composition {rel:.3e} > {MODEL_REL_L2}")
+        ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+        out["paths"].append(dict(d=d, dtype="bf16", res=name, batch=batch, sw=FLASH_SW, rel_l2=rel, ms_per_img=ms))
+        log(f"  bf16 d {d} {name} sw {FLASH_SW} B {batch}: the fold in every block; rel L2 vs the unfused "
+            f"composition {rel:.3e}; {ms:.4f} ms/img on {card}")
+        model.cfg = dataclasses.replace(model.cfg, sw=None)
+        del o, ref
+
+        model.quantize()
+        torch.cuda.empty_cache()
+        (case,) = main_path_cases(device, WIDE_HEAD_PATHS[:1], seed=24)
+        name, max_tokens, batch, images, inputs = case
+        expect = dict(fused_attention=depth, rmsnorm_quant=depth, ffn_int8=depth)
+        (o,), counts = _run_counted(model, [case], _expect(**expect), f"int8 d {d}")
+        add(counts)
+        _check_output(name, max_tokens, batch, images, inputs, o)
+        with plain_quant_kernels():
+            rel = _valid_rel_l2(o, model.decode(model.encode(inputs)), inputs)
+        if not rel <= MODEL_REL_L2:
+            raise AssertionError(f"int8 d {d} {name}: rel L2 vs the plain quantize kernels {rel:.3e} > {MODEL_REL_L2}")
+        ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+        with q8_epilogue(True):
+            if not fa.can_fuse_q8(max_tokens, model.cfg.encoder_width, model.cfg.encoder_heads, cuda=True):
+                raise AssertionError(f"int8 d {d}: the epilogue's gate is closed at {max_tokens} tokens")
+            expect = dict(fused_attention_q8=depth, fused_qk_prologue=depth, rmsnorm_quant=depth, ffn_int8=depth)
+            (q8o,), counts = _run_counted(model, [case], _expect(**expect), f"int8 + epilogue d {d}")
+            q8_ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+        add(counts)
+        _check_output(name, max_tokens, batch, images, inputs, q8o)
+        q8_rel = _valid_rel_l2(q8o, o, inputs)
+        same = bool(torch.equal(q8o["patches"], o["patches"]))
+        if not q8_rel <= MODEL_REL_L2:
+            raise AssertionError(f"int8 + epilogue d {d}: rel L2 vs the opt-in off {q8_rel:.3e} > {MODEL_REL_L2}")
+        out["paths"].append(dict(d=d, dtype="int8", res=name, batch=batch, rel_l2_vs_plain=rel,
+                                 ms_per_img=ms / batch, epilogue_rel_l2_vs_off=q8_rel, epilogue_bit_for_bit=same,
+                                 epilogue_ms_per_img=q8_ms / batch))
+        log(f"  int8 d {d} {name} B {batch}: rel L2 vs the plain quantize kernels {rel:.3e}; {ms / batch:.4f} ms/img; "
+            f"with the epilogue {q8_ms / batch:.4f} ms/img, rel L2 vs the opt-in off {q8_rel:.3e} (bit for bit: "
+            f"{same}) on {card}")
+        out["launches"][d] = launches
+        log(f"  d {d} launches over its path's runs: {_nonzero(launches)}")
+        del model, o, q8o, cases
+        torch.cuda.empty_cache()
+
+    # Under grad at d 256: the composition, forward and backward; its gradients those of attn_impl="xla"
+    variant, res = WIDE_HEAD_GRAD
+    model = AE(**{**decode_variant(variant), "attn_impl": "fused"}, seed=0, device=device,
+               param_dtype=torch.float32, trainable=True)
+    _random_gates(model, device)
+    (case,) = main_path_cases(device, [res], seed=25)
+    inputs = case[4]
+    valid = inputs["patch_mask"]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        torch.manual_seed(0)
+        o = model(inputs, deterministic=False)
+        (o["patches"][valid].float() - inputs["patches"][valid].float()).square().mean().backward()
+        return {n_: p.grad.detach().clone() for n_, p in model.named_parameters() if p.grad is not None}
+
+    reset_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    step_launches = _nonzero(launch_counts())
+    if any(step_launches.get(k_) for k_ in ("fused_attention", "fused_qk_prologue", "fused_attention_bwd",
+                                             "flash_attention", "flash_attention_dq", "flash_attention_dkv")):
+        raise AssertionError(f"d 256 under grad: attention kernels launched {step_launches}")
+    _set_attn_impl(model, "xla")
+    want = grads()
+    rel = max(((got[k_] - w).norm() / w.norm().clamp(min=1e-30)).item() for k_, w in want.items())
+    same = all(torch.equal(got[k_], w) for k_, w in want.items())
+    if set(got) != set(want) or not rel <= WIDE_HEAD_GRAD_REL:
+        raise AssertionError(f"d 256 under grad: gradients {rel:.3e} rel from the composition's "
+                             f"(limit {WIDE_HEAD_GRAD_REL})")
+    out["grad"] = dict(variant=variant, tokens=res[1], batch=res[2], launches=step_launches, max_rel=rel,
+                       bit_for_bit=same, params=len(want))
+    log(f"  d 256 under grad ({variant}, {res[0]} B {res[2]}, attn_impl=fused): launches {step_launches} (no "
+        f"attention kernel); gradients of {len(want)} parameters vs the unfused composition max rel {rel:.3e} "
+        f"(bit for bit: {same})")
+    del model, got, want
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t0
+    log(f"wide heads phase: {out['wall_s']:.1f} s")
+    return out
+
+
+
+def wide_heads_entries(wide: dict, kern: dict, fkern: dict) -> list:
+    """The kernels line's entries of the d 192 and 256 instances, each with
+    the d 128 instance's time at the same 5B-width shape beside it."""
+    d128 = {
+        "fused_attention": next(r for r in kern["rows"] if r["shape"] == "5B@256p main" and r["case"] == "tail"),
+        "flash_attention": next(r for r in fkern["rows"] if r["shape"] == "5B width" and r["case"] == "tail+sw1024"),
+    }
+    entries = []
+    for d in sorted(wide["rows"]):
+        rows, launches = wide["rows"][d], wide["launches"][d]
+        first, second = WIDE_HEAD_KERNELS[0][1], WIDE_HEAD_KERNELS[1][1]
+        pick = lambda name, n=first, case="tail": next(r for r in rows[name] if r["N"] == n and r["case"] == case)
+        head, pro, q8 = pick("fused_attention"), pick("fused_qk_prologue"), pick("fused_attention_q8")
+        fl4 = pick("flash_attention", WIDE_HEAD_HIGHRES[1], "tail+sw1024")
+        common = lambda name, row: dict(route="cuda", max_abs_err=max(r["max_abs_err"] for r in rows[name]),
+                                        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                                        bound_by=row["bound_by"])
+        entries += [
+            dict(name=f"fused_attention_d{d}", source="vitok_torch/csrc/fused_attention_sm90.cu",
+                 replaces="vitok_tpu/ops/fused_attention.py:317", launches=launches["fused_attention"],
+                 **common("fused_attention", head), library_ms=head["library_ms"], dev_ms=head["dev_ms"],
+                 kernel_ms=head["kernel_ms"], d128_ms=d128["fused_attention"]["ms"],
+                 ms_1024=pick("fused_attention", second)["ms"], **{f"kernel_{k}": v for k, v in
+                                                                  rows["attention_attributes"].items()}),
+            dict(name=f"fused_qk_prologue_d{d}", source="vitok_torch/csrc/fused_attention_sm90.cu",
+                 replaces="vitok_tpu/ops/fused_attention.py:124", launches=launches["fused_qk_prologue"],
+                 **common("fused_qk_prologue", pro), library_ms=None,
+                 differ_share=max(r["differ_share"] for r in rows["fused_qk_prologue"]),
+                 d128_ms=d128["fused_attention"]["prologue_ms"]),
+            dict(name=f"fused_attention_q8_d{d}", source="vitok_torch/csrc/fused_attention_sm90.cu",
+                 replaces="vitok_tpu/ops/fused_attention.py:340", launches=launches["fused_attention_q8"],
+                 **common("fused_attention_q8", q8), library_ms=q8["library_ms"], dev_ms=q8["dev_ms"],
+                 codes_differ=0, cluster=q8["cluster"], cluster_ms=q8["cluster_ms"]),
+            dict(name=f"flash_attention_d{d}", source="vitok_torch/csrc/flash_attention.cu",
+                 replaces="vitok_tpu/ops/flash_attention.py:67", launches=launches["flash_attention"],
+                 **common("flash_attention", fl4), library_ms=fl4["library_ms"], dev_ms=fl4["dev_ms"],
+                 flex_ms=fl4.get("flex_ms"), flex_dev_ms=fl4.get("flex_dev_ms"), fold_ms=fl4["fold_ms"],
+                 fold_dev_ms=fl4["fold_dev_ms"], fold_bound_ms=fl4["fold_bound_ms"],
+                 d128_ms=d128["flash_attention"]["ms"], d128_dev_ms=d128["flash_attention"]["dev_ms"],
+                 **{k: v for k, v in fl4.items() if k.startswith("kernel_")}),
+        ]
+    return entries
+
+
 def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres, f32_int8, f32_silu) -> list:
     """The kernels line: one entry per kernel, its launches from its path's run."""
     head = next(r for r in kern["rows"] if r["shape"] == "350M@512p main" and r["case"] == "tail")
@@ -5013,6 +5412,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     remainder_phase(device, card)
     torch.cuda.empty_cache()
+    wide_heads = wide_heads_phase(device, card)
+    torch.cuda.empty_cache()
     log("eval summary: " + json.dumps({
         run: {k: evals[run]["stats"][k] for k in ("n_images", "ssim", "psnr", "fid", "fdd", "throughput_img_per_sec",
                                                   "wall_img_per_sec", "steady_img_per_sec", "host_data_time_s",
@@ -5027,6 +5428,7 @@ def main() -> int:
     entries += ab_entries(abkern, ab_runs, f32_ae, kern)
     entries += f32_training_entries(f32_train)
     entries += wide_kernel_entries(wide)
+    entries += wide_heads_entries(wide_heads, kern, fkern)
     for e in entries:  # the 5B run's, the eval runs' and the perceptual steps' launches beside each path's own
         if bench_5b["launches"].get(e["name"]):
             e["launches_5b_bench"] = bench_5b["launches"][e["name"]]

@@ -427,14 +427,61 @@ class TestInferenceModeOnCard:
 
 @pytest.mark.cuda
 class TestWideHeadsOnCard:
-    """Head dims the kernels have no instance for (192, 256) take the
-    unfused composition on the card, where the JAX package's gates (a
-    multiple of 64) would open: the same function, no kernel launched."""
+    """Head dims 192 and 256: the bf16 forward's instances (the q/k prologue,
+    #1, #2 and the fold's #4) against their plain versions on the card, at
+    the limits the d 64/128 instances meet; a call under grad and an fp32
+    call keep the unfused composition (the backward and the fp32 instances
+    have none at these head dims), and a forced kernel there raises."""
+
+    @pytest.mark.parametrize("d", [192, 256])
+    @pytest.mark.parametrize("case,masked,sw", CASES)
+    def test_forward_and_prologue_match_plain(self, cuda_device, d, case, masked, sw):
+        qkv, *rest = make_inputs(cuda_device, d=d, masked=masked)
+        before = counts()
+        got = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=sw, impl="fused")
+        assert counts() == added(before, fwd=1, prologue=1)
+        want = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=2, sliding_window=sw).float()
+        assert_forward_close(got, want, rest[-1])
+        qk, _ = t_fa.fused_qk_prologue(qkv, *rest[:4], num_heads=2, with_q=True)
+        qk_want, _ = t_fa.fused_qk_prologue_plain(qkv, *rest[:4], num_heads=2, with_q=True)
+        err = (qk.float() - qk_want.float()).abs()
+        assert err.max().item() <= 2 ** -5 and (err > 0).float().mean().item() <= 1e-3
+
+    @pytest.mark.parametrize("d,heads", [(192, 4), (256, 2)])
+    def test_q8_is_quantize_of_the_forward(self, cuda_device, d, heads):
+        qkv, *rest = make_inputs(cuda_device, b=2, n=64, heads=heads, d=d, masked=True)
+        before = counts()
+        codes, scales = t_fa.fused_qkv_attention_q8(qkv, *rest, num_heads=heads)
+        assert counts() == added(before, q8=1, prologue=1)
+        want = t_q.quantize_activation(t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, impl="fused"))
+        assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])
+
+    @pytest.mark.parametrize("d", [192, 256])
+    @pytest.mark.parametrize("masked,sw", [(False, None), (True, 300)])
+    def test_fold_matches_plain(self, cuda_device, d, masked, sw):
+        args = make_inputs(cuda_device, b=2, n=2048, heads=1, d=d, masked=masked)
+        assert t_fa.takes_flash_fold(args[0], args[1], args[2], 1, "auto")
+        before = (counts(), t_fl.LAUNCHES)
+        got = t_fa.unfused_qkv_attention(*args, 1, sw)
+        assert (counts(), t_fl.LAUNCHES) == (added(before[0], prologue=1), before[1] + 1)
+        want = t_fa.flash_qkv_attention_plain(*args, num_heads=1, sliding_window=sw)
+        torch.cuda.synchronize()
+        mask = args[-1]
+        err = (got.float() - want.float()).abs()
+        if mask is not None:
+            assert not got[~mask].any() and not want[~mask].any()
+            err = err[mask]
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
     @pytest.mark.parametrize("n,grids", [(256, [(16, 16), (12, 15)]), (2048, [(48, 40), (32, 32)])])
     def test_d256_ae_matches_its_plain_path(self, cuda_device, n, grids):
+        """A d = 256 AE (the name is kept from when it took the composition)
+        in bf16: #1 after the prologue in every block at 256 tokens, the fold
+        at 2048, within 2e-2 rel L2 of the same model on the unfused
+        composition."""
         cfg = t_ae.AEConfig.from_variant("w1024_d2_h4-w1024_d2_h4/1x16x64")
         assert cfg.encoder_width // cfg.encoder_heads == 256
+        depth = cfg.encoder_depth + cfg.decoder_depth
         gen = torch.Generator().manual_seed(0)
         batch = {
             "patches": torch.randn(2, n, 768, generator=gen),
@@ -453,21 +500,34 @@ class TestWideHeadsOnCard:
         before = (counts(), t_fl.LAUNCHES)
         got = model(batch)["patches"]
         torch.cuda.synchronize()
-        assert (counts(), t_fl.LAUNCHES) == before
+        fused = n <= t_fa.MAX_FUSED_TOKENS
+        assert (counts(), t_fl.LAUNCHES) == (added(before[0], fwd=depth if fused else 0, prologue=depth),
+                                             before[1] + (0 if fused else depth))
+        before = (counts(), t_fl.LAUNCHES)
         want = reference(batch)["patches"]
+        assert (counts(), t_fl.LAUNCHES) == before
         valid = batch["patch_mask"]
         a, r = got[valid].float(), want[valid].float()
         assert torch.isfinite(a).all()
         assert ((a - r).norm() / r.norm()).item() <= 2e-2
 
     def test_gates_close_and_forced_kernels_raise(self, cuda_device):
+        """The bf16 forward's gates open at d = 256 (the name is kept from
+        when they closed there); under grad and in fp32 they close, and a
+        forced kernel raises before it launches."""
         qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=1, n=256, heads=1, d=256)
-        assert not t_fa.can_fuse(256, 256, 1, cuda=True) and t_fa.can_fuse(256, 256, 1)
+        assert t_fa.can_fuse(256, 256, 1, cuda=True) and t_fa.can_fuse(256, 256, 1)
+        assert not t_fa.can_fuse_bwd(256, 256, 1, cuda=True)
+        assert not t_fa.can_fuse(256, 256, 1, cuda=True, dtype=torch.float32)
+        before = (counts(), t_fl.LAUNCHES)
         with pytest.raises(ValueError, match="head_dim"):
-            t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, num_heads=1, impl="fused")
-        q = qkv[..., :256].view(1, 256, 1, 256)
+            t_fa.fused_qkv_attention(qkv.requires_grad_(), qs, ks, cos, sin, num_heads=1, impl="fused")
+        with pytest.raises(ValueError, match="head_dim"):
+            t_fa.fused_qkv_attention(qkv.detach().float(), qs, ks, cos, sin, num_heads=1, impl="fused")
+        q = qkv.detach()[..., :256].view(1, 256, 1, 256).requires_grad_()
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, q, q)
+        assert (counts(), t_fl.LAUNCHES) == before
 
 
 def _bwd_case(device, n, d, case, sw):

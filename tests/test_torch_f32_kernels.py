@@ -8,7 +8,8 @@ replaced by recorders of the C entry points they call (``_build.load``) and
 the stream and device context by stand-ins. An fp32 call reaches the fp32
 instance's entry with the shape, window, strides and flags its plan sets,
 and counts a launch under the fp32 instance's name; an fp16 call, and a
-head dim outside ``KERNEL_HEAD_DIMS``, raise before anything launches. The
+head dim the fp32 instances lack (``F32_HEAD_DIMS``: 64 and 128), raise
+before anything launches. The
 arithmetic of the plain versions that these instances are held to on the
 card is held against the JAX package in ``tests/test_torch_train_lib.py``,
 ``test_torch_flash_*.py`` and ``test_torch_fused_*.py``; the kernels

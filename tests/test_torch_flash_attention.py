@@ -55,7 +55,7 @@ def _blocks(n):
 
 
 class TestPlainAgainstJax:
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("case", CASES)
     def test_matches_pallas_kernel_interpret_all_rows(self, d, case):
         args = make_inputs(700, d=d, masked="tail" in case)

@@ -67,8 +67,8 @@ def check_arm(shape, num_heads: int, bb: int, cg: int, sliding_window=None, pack
     if c % num_heads:
         raise ValueError(f"C={c} is not a multiple of num_heads={num_heads}")
     d = c // num_heads
-    if d not in fa.KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernels take head_dim in {fa.KERNEL_HEAD_DIMS}, got {d}")
+    if d not in fa.AB_HEAD_DIMS:
+        raise ValueError(f"the kernels take head_dim in {fa.AB_HEAD_DIMS}, got {d}")
     if bb < 1 or b % bb:
         raise ValueError(f"bb={bb} does not divide B={b}")
     if cg < d or c % cg or cg % d:
@@ -231,7 +231,7 @@ def fused_attention_bb(
                                         bb=bb, cg=cg, sliding_window=sliding_window, pack=pack)
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = fa._check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
-        dtypes=(torch.bfloat16, torch.float32))
+        dtypes=(torch.bfloat16, torch.float32), head_dims=fa.AB_HEAD_DIMS)
     split = dict(bb=bb, hpb=cg // d, sw=sw, pack=pack)
     if qkv.dtype == torch.bfloat16:  # the wgmma walker, after the q/k prologue
         fa._check_rows(n)

@@ -155,7 +155,7 @@ def q8in_k_prologue(qkv8: torch.Tensor, k_scale: torch.Tensor, cos: torch.Tensor
     if not qkv8.is_cuda:
         return q8in_k_prologue_plain(qkv8, k_scale, cos, sin, num_heads=num_heads)
     _, n, _, _, _, k_scale, cos, sin, _, _ = fa._check_cuda_args(qkv8, k_scale, k_scale, cos, sin, None, num_heads,
-                                                                 None, dtypes=(torch.int8,))
+                                                                 None, dtypes=(torch.int8,), head_dims=fa.AB_HEAD_DIMS)
     fa._check_rows(n)
     return _k_prologue_q8_cuda(qkv8, k_scale, cos, sin, num_heads)
 
@@ -211,7 +211,8 @@ def fused_attention_q8in(
         return fused_attention_q8in_plain(qkv8, tok_scale, q_scale, k_scale, cos, sin, patch_mask,
                                           num_heads=num_heads, sliding_window=sliding_window)
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = fa._check_cuda_args(
-        qkv8, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, dtypes=(torch.int8,))
+        qkv8, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, dtypes=(torch.int8,),
+        head_dims=fa.AB_HEAD_DIMS)
     fa._check_rows(n)
     bb, hpb = q8in_plan(b, n, c, num_heads, fa._sm_count(qkv8.device.index))
     tok = tok_scale.detach().float().contiguous()
@@ -251,7 +252,7 @@ def fused_attention_contig(
                                             num_heads=num_heads, sliding_window=sliding_window)
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = fa._check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
-        dtypes=(torch.bfloat16, torch.float32))
+        dtypes=(torch.bfloat16, torch.float32), head_dims=fa.AB_HEAD_DIMS)
     if qkv.dtype == torch.bfloat16:  # the wgmma walker, after the q/k prologue
         fa._check_rows(n)
         kn, _ = fa._prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=False)

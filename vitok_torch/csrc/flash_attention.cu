@@ -54,7 +54,15 @@
 // read through per-tensor strides, so q, k and v may be views (of the q/k
 // prologue's scratch, of the flat [B, N, 3C] QKV output) with no copy.
 // Shared memory: two Q tiles and three K/V stages, 65 KB at d = 64 (two
-// blocks an SM, at most 128 registers a thread), 129 KB at d = 128.
+// blocks an SM, at most 128 registers a thread), 129 KB at d = 128, 193 KB
+// at d = 192; at d = 256 three stages do not fit beside two Q tiles (257
+// KB), so the ring has two (193 KB): tile j + 1 is in flight while tile j's
+// products run. The other way out, one warpgroup of 64 query rows a block
+// on a three-stage ring (225 KB), would read each K/V tile from L2 once per
+// 64 query rows instead of 128 and lose the second warpgroup's softmax
+// beside the first's products, which measured faster at d = 64 and 128.
+// O += P V at d 192/256 is two wgmma products on V's column blocks
+// (sm90.cuh's wgmma_rs); o is D / 2 fp32 registers a thread.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry point, bound
@@ -74,19 +82,23 @@ namespace {
 constexpr int kGroups = 2;                         // consumer warpgroups a block
 constexpr int kBlockRows = kGroups * kTile;        // query rows a block
 constexpr int kBlockThreads = kGroups * kThreads;  // 256
-constexpr int kAhead = 2;                          // K/V tiles in flight ahead of the one computed
-constexpr int kRing = kAhead + 1;                  // and the one computed
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kDeadLse = 1e30f;
 
 template <int D>
 struct FlashSmem {
+  // K/V tiles in flight ahead of the one computed: two, but one at d = 256,
+  // where two Q tiles and a three-stage ring (64 + 192 KB) pass the 227 KB a
+  // block may have; two Q tiles and two stages take 192 KB.
+  static constexpr int kAhead = D == 256 ? 1 : 2;
+  static constexpr int kRing = kAhead + 1;                   // and the one computed
   static constexpr int kTileBytes = kTile * D * 2;           // one sw128 tile
   static constexpr int kQ = 0;                               // kGroups Q tiles
   static constexpr int kK = kQ + kGroups * kTileBytes;       // kRing K tiles
   static constexpr int kV = kK + kRing * kTileBytes;         // kRing V tiles
   static constexpr int kBytes = kV + kRing * kTileBytes + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
 
 struct Strides {  // elements between samples, tokens and heads
@@ -212,6 +224,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        int sw,  // < 0: no window
                        float q_scale) {
   using S = FlashSmem<D>;
+  constexpr int kAhead = S::kAhead, kRing = S::kRing;
   constexpr int kChunks = D / 8;  // 16-byte pieces of a row
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -375,7 +388,8 @@ extern "C" {
 // mask [B, N] bool bytes or null; counts [2, B] int32 (one past the last
 // valid key, then the number of leading valid keys) or null when mask is;
 // out [B, N, H, D] bf16 contiguous; lse [B, H, N] f32 or null. sw < 0: no
-// window. Returns the cudaError_t of the launch (0 = success).
+// window. D is 64, 128, 192 or 256. Returns the cudaError_t of the launch (0
+// = success).
 int vitok_flash_attention_bf16(const void* q, const void* k, const void* v,
                                long long q_sb, long long q_sn, long long q_sh,
                                long long k_sb, long long k_sn, long long k_sh,
@@ -386,7 +400,40 @@ int vitok_flash_attention_bf16(const void* q, const void* k, const void* v,
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
   if (D == 64) return launch<64>(q, k, v, qs, ks, vs, mask, counts, out, lse, B, N, H, sw, s);
   if (D == 128) return launch<128>(q, k, v, qs, ks, vs, mask, counts, out, lse, B, N, H, sw, s);
+  if (D == 192) return launch<192>(q, k, v, qs, ks, vs, mask, counts, out, lse, B, N, H, sw, s);
+  if (D == 256) return launch<256>(q, k, v, qs, ks, vs, mask, counts, out, lse, B, N, H, sw, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Registers and local memory (spills) a thread, blocks an SM and shared
+// memory a block of the forward kernel at head dim D: out[0..3].
+int vitok_flash_attention_attributes(int D, int* out) {
+  const void* fn = nullptr;
+  int smem = 0;
+#define VITOK_PICK(DD)                                  \
+  if (D == DD) {                                        \
+    fn = (const void*)flash_attention_kernel<DD>;       \
+    smem = FlashSmem<DD>::kBytes;                       \
+  }
+  VITOK_PICK(64)
+  VITOK_PICK(128)
+  VITOK_PICK(192)
+  VITOK_PICK(256)
+#undef VITOK_PICK
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBlockThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = smem + (int)attr.sharedSizeBytes;
+  return 0;
 }
 
 const char* vitok_cuda_error_string(int err) {

@@ -23,7 +23,9 @@
 // the same as mma.sync m16n8k16's). S = Q K^T is wgmma m64n64k16 with Q and
 // K from shared memory (K-major); O += P V is wgmma m64nDk16 with P from
 // registers (S's accumulator rounded to bf16 is the A fragment) and V from
-// shared memory, MN-major with the transpose flag.
+// shared memory, MN-major with the transpose flag (at D = 192 and 256 two
+// products on V's column blocks, sm90.cuh's wgmma_rs). o holds D / 2 fp32
+// registers a thread: 128 at D = 256, beside S's 32.
 //
 // Which key tiles a cell walks: pass 0 the tiles that hold a valid key inside
 // some row's window (key_tiles); a row that saw none there (a padded query
@@ -270,6 +272,7 @@ __device__ __forceinline__ void store_rows(const CellRows<D>& r, float* out0, fl
 template <int D>
 struct RopeRows {
   static constexpr int kPieces = D / 16;  // threads per row
+  static_assert(kPieces == nr_lanes<D>(), "the walkers' in-place q norm has instances at d 64 and 128");
   static constexpr int kRowsPerPass = kThreads / kPieces;
   static constexpr int kPasses = kTile / kRowsPerPass;
   __nv_bfloat162 ce[kPasses][4], se[kPasses][4];

@@ -69,6 +69,16 @@
 // The int8-epilogue kernel (fused_attention_q8_sm90_kernel, further down)
 // replaces the TPU kernel _fused_kernel_q8 on this kernel's body; see there.
 //
+// Head dims: the prologue, this kernel and the int8-epilogue kernel have
+// instances at D = 64, 128, 192 and 256 (the JAX gates take any multiple of
+// 64; the released models use 64 and 128). At D = 192 a row's q/k norm runs
+// on 16 lanes of which 12 hold its pieces (norm_rope.cuh), O += P V is two
+// wgmma products on V's column blocks (n128 + n64, or n128 twice at 256:
+// sm90.cuh's wgmma_rs), and o takes D / 2 fp32 registers a thread beside S's
+// 32: one block an SM (the tiles alone are 120 and 160 KB), up to 255
+// registers (what ptxas reports, and spills: PERF.md's kernel table). The prologue's
+// delta (the backward's) has instances at 64 and 128 only.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry points, bound
 // with ctypes; asynchronous on the caller's stream, each returns
@@ -108,6 +118,7 @@ fused_qk_prologue_kernel(const Src* __restrict__ qkv, const float* __restrict__ 
                          int N, int H, int parts) {               // 2: q | k, 1: k
   constexpr int kRow = D + kNrPad;
   constexpr int kChunks = D / 8;
+  constexpr bool kDelta = D == 64 || D == 128;  // the backward's head dims: delta's rows fill a warp's lanes
   __shared__ __align__(16) __nv_bfloat16 sT[kTile * kRow];
   __shared__ float sGain[2][D];
   const int tid = threadIdx.x;
@@ -138,7 +149,7 @@ fused_qk_prologue_kernel(const Src* __restrict__ qkv, const float* __restrict__ 
     }
     __syncthreads();
   }
-  if (delta != nullptr) {
+  if (kDelta && delta != nullptr) {
     // Row r's D channels over kChunks neighbouring threads, 8 each.
     const int ch = tid % kChunks;
     for (int row = tid / kChunks; row < kTile; row += kThreads / kChunks) {
@@ -396,7 +407,8 @@ cudaError_t launch_attention(const void* kn, const void* qkv, const void* q_scal
 // over a thread block cluster of `cs` blocks along grid y (cs divides H;
 // _q8_cluster_size in vitok_torch/ops/fused_attention.py takes two heads a
 // block at D = 128 and four blocks at D = 64, which read fastest on an
-// H100); each block takes its own row maxima and reads the other blocks' through
+// H100, and at D = 192 / 256 the portable cluster nearest 4 whose heads fit:
+// four heads of 192, two of 256 a block); each block takes its own row maxima and reads the other blocks' through
 // distributed shared memory between two cluster barriers, then quantizes its
 // slab, and rank 0 writes the scales. The bf16 result never reaches device
 // memory.
@@ -619,9 +631,11 @@ extern "C" {
 
 // qkv [B, N, 3*H*D] bf16; q_scale, k_scale [D] f32; cos, sin [B, N, D/2] f32.
 // Writes qk [B, N, parts*H*D] bf16: with parts = 2 q normed and rotated,
-// then k (the backward's scratch); with parts = 1 k alone (the forward's).
-// With out and dout ([B, N, H*D] bf16, both or neither) also delta
-// [B, H, N] f32, each row's sum over a head's channels of dout * out.
+// then k (the backward's scratch, and the fold's); with parts = 1 k alone
+// (the forward's). With out and dout ([B, N, H*D] bf16, both or neither)
+// also delta [B, H, N] f32, each row's sum over a head's channels of
+// dout * out. D is 64, 128, 192 or 256; delta only at 64 and 128 (the
+// backward's head dims).
 int vitok_fused_qk_prologue_bf16(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                                  const void* sin_t, const void* out, const void* dout, void* qk, void* delta,
                                  int B, int N, int H, int D, int parts, void* stream) {
@@ -632,6 +646,11 @@ int vitok_fused_qk_prologue_bf16(const void* qkv, const void* q_scale, const voi
     return launch_prologue<64>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   if (D == 128)
     return launch_prologue<128>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
+  if (out != nullptr) return (int)cudaErrorInvalidValue;  // d 192, 256: the forward's instances (no delta)
+  if (D == 192)
+    return launch_prologue<192>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
+  if (D == 256)
+    return launch_prologue<256>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -678,6 +697,8 @@ int vitok_fused_attention_sm90_bf16(const void* kn, const void* qkv, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_attention<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out, lse, B, N, H, sw, s);
   if (D == 128) return launch_attention<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out, lse, B, N, H, sw, s);
+  if (D == 192) return launch_attention<192>(kn, qkv, q_scale, cos_t, sin_t, mask, out, lse, B, N, H, sw, s);
+  if (D == 256) return launch_attention<256>(kn, qkv, q_scale, cos_t, sin_t, mask, out, lse, B, N, H, sw, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -692,7 +713,49 @@ int vitok_fused_attention_q8_sm90_bf16(const void* kn, const void* qkv, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_q8<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out_q, out_scale, B, N, H, cs, sw, s);
   if (D == 128) return launch_q8<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out_q, out_scale, B, N, H, cs, sw, s);
+  if (D == 192) return launch_q8<192>(kn, qkv, q_scale, cos_t, sin_t, mask, out_q, out_scale, B, N, H, cs, sw, s);
+  if (D == 256) return launch_q8<256>(kn, qkv, q_scale, cos_t, sin_t, mask, out_q, out_scale, B, N, H, cs, sw, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Registers and local memory (spills) a thread, blocks an SM and shared
+// memory a block of the bf16 prologue (which = 0), the attention kernel (1)
+// or the int8-epilogue kernel (2, at `heads` heads a block) at head dim D:
+// out[0..3].
+int vitok_fused_sm90_attributes(int which, int D, int heads, int* out) {
+  const void* fn = nullptr;
+  int smem = 0;
+#define VITOK_PICK(DD)                                                              \
+  if (D == DD) {                                                                    \
+    if (which == 0) {                                                               \
+      fn = (const void*)fused_qk_prologue_kernel<DD, __nv_bfloat16>;                \
+    } else if (which == 1) {                                                        \
+      fn = (const void*)fused_attention_sm90_kernel<DD>;                            \
+      smem = FwdSmem<DD>::kBytes;                                                   \
+    } else {                                                                        \
+      fn = (const void*)fused_attention_q8_sm90_kernel<DD>;                         \
+      smem = Q8Smem<DD>::bytes((heads - 1) * DD);                                   \
+    }                                                                               \
+  }
+  VITOK_PICK(64)
+  VITOK_PICK(128)
+  VITOK_PICK(192)
+  VITOK_PICK(256)
+#undef VITOK_PICK
+  if (fn == nullptr || heads < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = smem + (int)attr.sharedSizeBytes;
+  return 0;
 }
 
 const char* vitok_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -8,7 +8,16 @@
 //
 // A row of D channels is cut into D/16 pieces, one thread each: channels
 // [8p, 8p + 8) and their rotate-half partners [D/2 + 8p, D/2 + 8p + 8), so
-// the rotation stays in the thread and a row's sums take log2(D/16) shuffles.
+// the rotation stays in the thread. A row's threads are its lanes: D/16
+// rounded up to a power of two (nr_lanes), neighbouring threads of one
+// warp, so an xor butterfly over log2(lanes) shuffles reduces a row without
+// mixing rows. At d = 192 a row has 16 lanes, of which the first 12 hold
+// its pieces and the last 4 hold zeros (they read and write nothing). The
+// order of a row's sum of squares, which the plain version _rms_inv
+// (vitok_torch/ops/fused_attention.py) repeats: each thread adds its 8
+// channels' squares and their partners' in turn, then the lanes' sums are
+// added pairwise, neighbours first (the butterfly: the pieces padded with
+// zeros to the lane count, then halved). Every lane ends with the same sum.
 // Rounding points of the TPU kernels (vitok_tpu/ops/fused_attention.py,
 // _norm_rope_half and _fused_bwd_kernel): statistics in fp32 with eps 1e-6,
 // the normed value times the fp32 gain cast to bf16, the rotation in bf16
@@ -27,6 +36,22 @@ constexpr int kNrPad = 8;     // bf16 row padding of the shared-memory tiles
 constexpr float kNrEps = 1e-6f;
 constexpr unsigned kNrFull = 0xffffffffu;
 
+// A row's lanes: its D/16 pieces rounded up to a power of two.
+template <int D>
+__host__ __device__ constexpr int nr_lanes() {
+  int lanes = 1;
+  while (lanes < D / 16) lanes <<= 1;
+  return lanes;
+}
+
+// The sum of `v` over a row's lanes (the xor butterfly; every lane gets it).
+template <int D>
+__device__ __forceinline__ float nr_row_sum(float v) {
+#pragma unroll
+  for (int off = 1; off < nr_lanes<D>(); off <<= 1) v += __shfl_xor_sync(kNrFull, v, off);
+  return v;
+}
+
 // The rotation's tables at eight channels of a row, rounded to bf16 (the
 // rounding point of the rotation): four bf16 pairs each of cos and sin.
 __device__ __forceinline__ void rope_pairs(const float* c, const float* s, __nv_bfloat162 (&ce)[4],
@@ -41,21 +66,20 @@ __device__ __forceinline__ void rope_pairs(const float* c, const float* s, __nv_
 // One thread's piece of a row: channels [8p, 8p + 8) (raw values a) and
 // their rotate-half partners (b), with the row's cos / sin at those channels
 // (ce, se: rope_pairs) and the gains of the two halves (gr, gi). The row's
-// sum of squares is reduced over the D/16 neighbouring threads that hold its
-// pieces. Writes the normed, rotated bf16 values of both halves.
+// sum of squares is reduced over the row's lanes (nr_row_sum; a lane that
+// holds no piece passes zeros). Writes the normed, rotated bf16 values of
+// both halves.
 template <int D, bool RoundEach>
 __device__ __forceinline__ void norm_rope_piece(const float (&a)[8], const float (&b)[8],
                                                 const __nv_bfloat162 (&ce4)[4], const __nv_bfloat162 (&se4)[4],
                                                 const float* gr, const float* gi, uint4& out_r, uint4& out_i) {
-  constexpr int kPieces = D / 16;
   float ss = 0.f;
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
     ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
   }
-#pragma unroll
-  for (int off = 1; off < kPieces; off <<= 1) ss += __shfl_xor_sync(kNrFull, ss, off);
+  ss = nr_row_sum<D>(ss);
   const float r = rsqrtf(__fadd_rn(ss / D, kNrEps));
   uint32_t* o_r = reinterpret_cast<uint32_t*>(&out_r);
   uint32_t* o_i = reinterpret_cast<uint32_t*>(&out_i);
@@ -82,8 +106,8 @@ __device__ __forceinline__ void norm_rope_piece(const float (&a)[8], const float
 
 // Normalises and rotates rows [r0, r0 + 64) of one head's q or k channels
 // (`src` points at row 0, channel 0 of that head) into `dst` (row stride
-// D + 8). Rows at or past N become zeros. Two passes' loads are in flight at
-// once. `Src` is bf16, or int8 codes, which are exact in bf16 and are normed
+// D + 8). Rows at or past N become zeros. A lane past the row's pieces (d =
+// 192) reads and writes nothing. Two passes' loads are in flight at once. `Src` is bf16, or int8 codes, which are exact in bf16 and are normed
 // as they are (8-byte loads). With RoundEach the rotation's bf16 products
 // are rounded before their sum (__hmul2_rn: no contraction into an fma), as
 // the plain version's separate tensor operations round them; without it
@@ -97,12 +121,13 @@ __device__ __forceinline__ void norm_rope_tile(
   constexpr bool kCodes = sizeof(Src) == 1;
   constexpr int kRow = D + kNrPad;
   constexpr int kHalf = D / 2;
-  constexpr int kPieces = D / 16;                  // threads per row
-  constexpr int kRowsPerPass = THREADS / kPieces;
+  constexpr int kLanes = nr_lanes<D>();            // threads per row
+  constexpr int kRowsPerPass = THREADS / kLanes;
   constexpr int kPasses = kNrTile / kRowsPerPass;
   constexpr int kBatch = 2;
   static_assert(kPasses % kBatch == 0, "tile passes come in pairs");
-  const int c0 = (tid % kPieces) * 8;
+  const bool piece = tid % kLanes < D / 16;        // this lane holds a piece of its row
+  const int c0 = piece ? (tid % kLanes) * 8 : 0;
 #pragma unroll
   for (int p0 = 0; p0 < kPasses; p0 += kBatch) {
     uint4 xr[kBatch], xi[kBatch];
@@ -110,11 +135,11 @@ __device__ __forceinline__ void norm_rope_tile(
     int rows[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      rows[u] = (p0 + u) * kRowsPerPass + tid / kPieces;
+      rows[u] = (p0 + u) * kRowsPerPass + tid / kLanes;
       const int n = r0 + rows[u];
       xr[u] = xi[u] = make_uint4(0, 0, 0, 0);
       cs[u][0] = cs[u][1] = sn[u][0] = sn[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (n < N) {
+      if (piece && n < N) {
         const Src* x = src + (long long)n * row_stride + c0;
         const float* c = cos_t + (long long)n * kHalf + c0;
         const float* s = sin_t + (long long)n * kHalf + c0;
@@ -150,9 +175,11 @@ __device__ __forceinline__ void norm_rope_tile(
       rope_pairs(reinterpret_cast<const float*>(&cs[u][0]), reinterpret_cast<const float*>(&sn[u][0]), ce, se);
       uint4 yr, yi;
       norm_rope_piece<D, RoundEach>(a, b, ce, se, gain + c0, gain + kHalf + c0, yr, yi);
-      __nv_bfloat16* d = dst + rows[u] * kRow + c0;
-      *reinterpret_cast<uint4*>(d) = yr;
-      *reinterpret_cast<uint4*>(d + kHalf) = yi;
+      if (piece) {
+        __nv_bfloat16* d = dst + rows[u] * kRow + c0;
+        *reinterpret_cast<uint4*>(d) = yr;
+        *reinterpret_cast<uint4*>(d + kHalf) = yi;
+      }
     }
   }
 }
@@ -173,23 +200,20 @@ __device__ __forceinline__ void st_f4x2(float* p, const float (&v)[8]) {
 // One thread's piece of a row in fp32: raw channels a ([8p, 8p + 8)) and
 // their rotate-half partners b, the row's fp32 tables c, s at those channels
 // and the gains of the two halves (gr, gi); the sum of squares in
-// norm_rope_piece's order, reduced over the D/16 neighbouring threads that
-// hold the row. The normed value times the gain and the rotation stay in
+// norm_rope_piece's order, reduced over the row's lanes. The normed value times the gain and the rotation stay in
 // fp32, each product and sum rounded once (as the plain version's separate
 // tensor operations round them): vr, vi.
 template <int D>
 __device__ __forceinline__ void norm_rope_piece_f32(const float (&a)[8], const float (&b)[8], const float (&c)[8],
                                                     const float (&s)[8], const float* gr, const float* gi,
                                                     float (&vr)[8], float (&vi)[8]) {
-  constexpr int kPieces = D / 16;
   float ss = 0.f;
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
     ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
   }
-#pragma unroll
-  for (int off = 1; off < kPieces; off <<= 1) ss += __shfl_xor_sync(kNrFull, ss, off);
+  ss = nr_row_sum<D>(ss);
   const float r = rsqrtf(__fadd_rn(ss / D, kNrEps));
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
@@ -211,6 +235,7 @@ __device__ __forceinline__ void norm_rope_tile_f32(
   constexpr int kRow = D + 4;
   constexpr int kHalf = D / 2;
   constexpr int kPieces = D / 16;
+  static_assert(kPieces == nr_lanes<D>(), "the fp32 tile has instances where every lane holds a piece (d 64, 128)");
   constexpr int kRowsPerPass = THREADS / kPieces;
   constexpr int kPasses = kNrTile / kRowsPerPass;
   const int c0 = (tid % kPieces) * 8;
@@ -261,6 +286,7 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
   constexpr int kStage = D + 4;
   constexpr int kHalf = D / 2;
   constexpr int kPieces = D / 16;
+  static_assert(kPieces == nr_lanes<D>(), "the backward has instances where every lane holds a piece (d 64, 128)");
   constexpr int kRowsPerPass = THREADS / kPieces;
   constexpr int kPasses = kNrTile / kRowsPerPass;
   const int c0 = (tid % kPieces) * 8;
@@ -306,8 +332,7 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
       ss = __fadd_rn(ss, __fmul_rn(a[e], a[e]));
       ss = __fadd_rn(ss, __fmul_rn(b[e], b[e]));
     }
-#pragma unroll
-    for (int off = 1; off < kPieces; off <<= 1) ss += __shfl_xor_sync(kNrFull, ss, off);
+    ss = nr_row_sum<D>(ss);
     const float r = rsqrtf(__fadd_rn(ss / D, kNrEps));
     const float* zr = dz + row * kStage + c0;
     const float* zi = zr + kHalf;

@@ -3,7 +3,8 @@
 // inline PTX:
 //   * wgmma.mma_async m64nNk16, bf16 inputs, fp32 accumulators: N = 64 with
 //     A and B from shared memory (the logits' products), N in {64, 128} with
-//     A from registers and B from shared memory (the products into d);
+//     A from registers and B from shared memory (the products into d; N 192
+//     and 256 as two of them on B's column blocks);
 //   * wgmma.mma_async m64nNk32, int8 inputs, int32 accumulators, N in
 //     {64, 128}, A and B from shared memory, both K-major;
 //   * the shared-memory matrix descriptor for the 128-byte swizzle, and
@@ -160,15 +161,40 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
-// The N = 64 or N = 128 instance.
+// The columns [64 j, ...) of an MN-major sw128 operand: its descriptor
+// moved by j column blocks (the leading byte offset, LBO, apart). The start
+// address is the descriptor's low 14 bits in 16-byte units; a shared-memory
+// address stays below 2^18 bytes, so the sum does not carry out of them.
+__device__ __forceinline__ uint64_t mnmajor_columns(uint64_t desc, int j) {
+  return desc + (uint64_t)j * ((desc >> 16) & 0x3FFF);
+}
+
+// The C fragment of columns [64 j, 64 j + W) of an m64nN accumulator: an
+// accumulator holds its columns in groups of eight, four registers a group,
+// so a column slice is a run of W / 2 registers.
+template <int W, int N>
+__device__ __forceinline__ float (&acc_columns(float (&d)[N / 2], int j))[W / 2] {
+  return *reinterpret_cast<float(*)[W / 2]>(&d[32 * j]);
+}
+
+// The N = 64, 128, 192 or 256 instance. N = 192 and 256 (head dims 192 and
+// 256) are issued as n128 + n64 and n128 + n128 products on the column
+// blocks of B: the same sums in the same registers, two instructions.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
                                          int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma width");
-  if constexpr (N == 64)
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma width");
+  if constexpr (N == 64) {
     wgmma_rs_n64(d, a, desc_b, accumulate);
-  else
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, desc_b, accumulate);
+  } else {
+    wgmma_rs_n128(acc_columns<128, N>(d, 0), a, desc_b, accumulate);
+    if constexpr (N == 192)
+      wgmma_rs_n64(acc_columns<64, N>(d, 2), a, mnmajor_columns(desc_b, 2), accumulate);
+    else
+      wgmma_rs_n128(acc_columns<128, N>(d, 2), a, mnmajor_columns(desc_b, 2), accumulate);
+  }
 }
 
 // int8 products: d (+)= A * B, m64nNk32, s8 x s8 -> s32, A and B from shared

@@ -426,15 +426,18 @@ class Block(nn.Module):
         # its gate opens and degrades to auto routing elsewhere. A
         # tensor-parallel block holds heads / tp of the local qkv's width c;
         # the gate reads the model's, so every layout routes as one device
-        # does (the kernels take any number of heads).
+        # does (the kernels take any number of heads). A call that asks for
+        # a gradient reads the backward's gate (its head dims on the card).
         n, c = x.shape[1], qkv.shape[-1] // 3
+        fuse_gate = fa.can_fuse_bwd if fa.asks_grad(qkv, q_gain, k_gain) else can_fuse
         fused = (
             attn_impl in ("auto", "fused")
             and (deterministic or attn_impl == "fused")
-            and can_fuse(n, c * self.tp_size, self.heads * self.tp_size, cuda=qkv.is_cuda)
+            and fuse_gate(n, c * self.tp_size, self.heads * self.tp_size, cuda=qkv.is_cuda, dtype=qkv.dtype)
         )
         args = (qkv, q_gain, k_gain, rope[0], rope[1], patch_mask)
-        if fused and int8 and deterministic and tp is None and fa.can_fuse_q8(n, c, self.heads, cuda=qkv.is_cuda):
+        if (fused and int8 and deterministic and tp is None
+                and fa.can_fuse_q8(n, c, self.heads, cuda=qkv.is_cuda, dtype=qkv.dtype)):
             # The kernel's epilogue quantizes per token, so the out-projection
             # reads int8 codes and the bf16 attention output is never written.
             aq, a_scale = fa.fused_qkv_attention_q8(*args, num_heads=self.heads,

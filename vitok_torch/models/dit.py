@@ -49,7 +49,8 @@ from vitok_torch.models.ae import (
     _prequant,
 )
 from vitok_torch.ops import quant as q8
-from vitok_torch.ops.fused_attention import can_fuse, fused_qkv_attention, unfused_qkv_attention
+from vitok_torch.ops.fused_attention import (asks_grad, can_fuse, can_fuse_bwd, fused_qkv_attention,
+                                             unfused_qkv_attention)
 from vitok_torch.ops.mlp import round_hidden_dim, swiglu
 from vitok_torch.ops.norms import layer_scale, rms_norm
 from vitok_torch.ops.rope import compute_2d_freqs_cis
@@ -165,12 +166,14 @@ class DiTBlock(Block):
 
         # No padding in a DiT sequence: no mask (the JAX package hands its
         # kernel an all-ones mask, which is the same function). The gate
-        # reads the model's width and heads, as the AE's block does.
+        # reads the model's width and heads, as the AE's block does, and a
+        # call that asks for a gradient the backward's.
         args = (qkv, q_gain, k_gain, rope[0], rope[1], None)
+        fuse_gate = can_fuse_bwd if asks_grad(qkv, q_gain, k_gain) else can_fuse
         if (
             attn_impl in ("auto", "fused")
             and (deterministic or attn_impl == "fused")
-            and can_fuse(n, c, self.heads * self.tp_size, cuda=qkv.is_cuda)
+            and fuse_gate(n, c, self.heads * self.tp_size, cuda=qkv.is_cuda, dtype=qkv.dtype)
         ):
             attn = fused_qkv_attention(*args, num_heads=self.heads, impl="fused")
         else:

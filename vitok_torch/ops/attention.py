@@ -4,9 +4,11 @@ Layout ``[B, N, H, D]``. One interface takes the patch mask and a sliding
 window together. Routing follows the JAX package: the flash kernel
 (``ops/flash_attention.py``) serves ``N >= FLASH_MIN_TOKENS`` at head dims
 that are a multiple of 64; below that, and at other head dims, the unfused
-composition here runs. On a CUDA tensor the head dim must also be one the
-kernels have an instance for (``KERNEL_HEAD_DIMS``): a head dim of 192 or
-256 takes the unfused composition there, the same function.
+composition here runs. On a CUDA tensor the head dim must also be one at
+which every kernel the call runs has an instance (``kernel_head_dims``): in
+bf16 64, 128, 192 or 256, but only 64 or 128 where a gradient is asked for
+(the backward's) or in fp32. Elsewhere the unfused composition runs there,
+the same function.
 """
 
 from __future__ import annotations
@@ -15,23 +17,25 @@ from typing import Optional
 
 import torch
 
-from vitok_torch.ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
+from vitok_torch.ops.flash_attention import flash_attention, kernel_head_dims
 
 FLASH_MIN_TOKENS = 2048
 
 
-def head_dim_routes(d: int, cuda: bool) -> bool:
+def head_dim_routes(d: int, cuda: bool, dtype: torch.dtype = torch.bfloat16, grad: bool = False) -> bool:
     """Whether a kernel's gate opens at head dim ``d``: the JAX package's
-    multiple of 64, and on a CUDA tensor (``cuda``) a head dim the CUDA
-    kernels have an instance for (``KERNEL_HEAD_DIMS``)."""
-    return d % 64 == 0 and (not cuda or d in KERNEL_HEAD_DIMS)
+    multiple of 64, and on a CUDA tensor (``cuda``) a head dim at which the
+    kernels of a call in ``dtype`` have instances (``kernel_head_dims``;
+    ``grad``: a gradient is asked for, so the backward's too)."""
+    return d % 64 == 0 and (not cuda or d in kernel_head_dims(dtype, grad))
 
 
-def flash_route(n: int, d: int, impl: str, cuda: bool) -> bool:
+def flash_route(n: int, d: int, impl: str, cuda: bool, dtype: torch.dtype = torch.bfloat16,
+                grad: bool = False) -> bool:
     """Whether :func:`dot_product_attention` takes the flash kernel for
     ``N = n`` tokens of head dim ``d``: ``"flash"`` always, ``"auto"`` from
     ``FLASH_MIN_TOKENS`` tokens where :func:`head_dim_routes` opens."""
-    return impl == "flash" or (impl == "auto" and n >= FLASH_MIN_TOKENS and head_dim_routes(d, cuda))
+    return impl == "flash" or (impl == "auto" and n >= FLASH_MIN_TOKENS and head_dim_routes(d, cuda, dtype, grad))
 
 
 def make_attention_mask(
@@ -111,7 +115,8 @@ def dot_product_attention(
         return halo_attention(q, k, v, patch_mask, sliding_window, axis=impl.split(":", 1)[1])
     if impl not in ("auto", "flash", "xla"):
         raise ValueError(f"Unknown attention impl: {impl!r}. Use 'auto', 'flash', 'xla' or 'halo:<axis>'.")
-    if flash_route(n, d, impl, q.is_cuda):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if flash_route(n, d, impl, q.is_cuda, q.dtype, grad):
         return flash_attention(q, k, v, patch_mask=patch_mask, sliding_window=sliding_window)
     return _xla_attention(q, k, v, make_attention_mask(patch_mask, n, sliding_window, q.device))
 

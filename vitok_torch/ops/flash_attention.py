@@ -33,7 +33,12 @@ import torch
 
 from vitok_torch.ops import _build
 
-KERNEL_HEAD_DIMS = (64, 128)
+# Head dims each family of CUDA kernels has instances for. The gates open no
+# other head dim on the card, and the wrappers raise on one.
+FWD_HEAD_DIMS = (64, 128, 192, 256)  # the bf16 forward: the q/k prologue, #1, #2 and #4 (plain and fold)
+BWD_HEAD_DIMS = (64, 128)            # the backward: #3, #5, #6 and the prologue's delta
+F32_HEAD_DIMS = (64, 128)            # every fp32 instance
+AB_HEAD_DIMS = (64, 128)             # the A/B kernels #10-#13 and the kept mma.sync forward
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _NEG_FILL = -1e30
 _DEAD_LSE = 1e30
@@ -52,6 +57,21 @@ DKV_F32_LAUNCHES = 0
 
 # The fp32 library's kernels by the index its attributes entry takes.
 F32_KERNELS = ("fwd", "dq", "dkv", "dq_fold", "dkv_fold")
+
+
+def kernel_head_dims(dtype: torch.dtype, grad: bool = False) -> Tuple[int, ...]:
+    """The head dims at which a call in ``dtype`` finds every kernel it runs
+    on the card: in fp32 those of the fp32 instances; in bf16 those of the
+    forward, or with a gradient asked for (``grad``) of the backward too."""
+    if dtype == torch.float32:
+        return F32_HEAD_DIMS
+    return BWD_HEAD_DIMS if grad else FWD_HEAD_DIMS
+
+
+def check_head_dim(d: int, dims: Tuple[int, ...], what: str) -> None:
+    """Raise unless head dim ``d`` is one of ``dims`` (a kernel family's)."""
+    if d not in dims:
+        raise ValueError(f"{what} take head_dim in {dims}, got {d}")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -236,14 +256,15 @@ def _check_strides(name: str, t: torch.Tensor) -> None:
                          f"are multiples of 8 elements, got strides {t.stride()}")
 
 
-def _check_qkv(q, k, v):
-    """Shape, head dim, dtype, device and strides the CUDA kernels take."""
+def _check_qkv(q, k, v, grad=False):
+    """Shape, head dim, dtype, device and strides the CUDA kernels take;
+    ``grad``: the backward's head dims."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be [B, N, H, D] of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    d = q.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash CUDA kernels take head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    check_head_dim(q.shape[-1], kernel_head_dims(q.dtype, grad),
+                   f"the flash CUDA kernels in {str(q.dtype).replace('torch.', '')}"
+                   + (" with their backward" if grad else ""))
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"the flash CUDA kernels take bfloat16 or float32 q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
@@ -304,7 +325,19 @@ def _kernel_lib() -> ctypes.CDLL:
         ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [ptr] * 3 + [ll] * 9 + [ptr] * 4 + [i] * 5 + [ptr]
         fn.restype = ctypes.c_int
+        lib.vitok_flash_attention_attributes.argtypes = [i, ptr]
+        lib.vitok_flash_attention_attributes.restype = ctypes.c_int
     return lib
+
+
+def flash_attributes(d: int) -> dict:
+    """Registers and local memory (spills) a thread, blocks an SM and shared
+    memory a block of the bf16 forward kernel at head dim ``d``, as the
+    compiler and the card report them."""
+    out = (ctypes.c_int * 4)()
+    lib = _kernel_lib()
+    _build.check(lib, lib.vitok_flash_attention_attributes(d, out), "flash forward attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
 def _bwd_kernel_lib() -> ctypes.CDLL:
@@ -381,7 +414,7 @@ def _check_row_values(name: str, t: torch.Tensor, shape, dev) -> None:
 
 
 def _flash_bwd_inputs(q, k, v, out, lse, grad_out, patch_mask):
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, grad=True)
     b, n, h, d = q.shape
     dev = q.device
     for name, t in (("out", out), ("grad_out", grad_out)):
@@ -428,7 +461,7 @@ def flash_dq_cuda(q, k, v, out, lse, grad_out, patch_mask=None, sliding_window=N
 def flash_dkv_cuda(q, k, v, lse, delta, grad_out, patch_mask=None, sliding_window=None):
     """The dk/dv kernel on CUDA tensors, given the delta of :func:`flash_dq_cuda`."""
     global DKV_LAUNCHES, DKV_F32_LAUNCHES
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, grad=True)
     b, n, h, d = q.shape
     dev = q.device
     if grad_out.dtype != q.dtype:
@@ -539,8 +572,12 @@ def flash_attention_bwd(
     return flash_attention_bwd_plain(q, k, v, out, lse, grad_out, patch_mask, sliding_window)
 
 
-def _flash_forward(q, k, v, patch_mask, sliding_window, return_lse):
+def _flash_forward(q, k, v, patch_mask, sliding_window, return_lse, grad=False):
+    """The kernel, or its plain version on a CPU tensor; ``grad``: the
+    backward follows, so a head dim it has no instance for raises first."""
     if q.is_cuda:
+        if grad:
+            check_head_dim(q.shape[-1], kernel_head_dims(q.dtype, True), "the flash CUDA kernels' backward")
         return _flash_cuda(q, k, v, patch_mask, sliding_window, return_lse)
     if q.device.type != "cpu":
         raise RuntimeError(f"no flash attention kernel for device {q.device}")
@@ -553,7 +590,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, patch_mask, sliding_window):
-        out, lse = _flash_forward(q, k, v, patch_mask, sliding_window, True)
+        out, lse = _flash_forward(q, k, v, patch_mask, sliding_window, True, grad=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.patch_mask = patch_mask
         ctx.sliding_window = sliding_window
@@ -583,8 +620,9 @@ def flash_attention(
     is :func:`flash_attention_bwd`, on both devices.
 
     Args:
-        q, k, v: ``[B, N, H, D]``. On the card: bf16 or fp32, head dim 64 or 128,
-            unit channel stride (v may be a strided view, e.g. into the flat
+        q, k, v: ``[B, N, H, D]``. On the card: bf16 (head dim 64, 128,
+            192 or 256; 64 or 128 under autograd) or fp32 (64 or 128), unit
+            channel stride (v may be a strided view, e.g. into the flat
             QKV output).
         patch_mask: optional ``[B, N]`` bool, True = valid token.
         sliding_window: optional half-width; query i sees keys ``|i-j| <= sw``.

@@ -42,6 +42,12 @@ their fold instances, which end in the q/k norm and rotation backward. In
 fp32 every one of these launches takes its fp32 instance (the prologue's in
 ``csrc/fused_attention_sm90.cu``, #4-#6 in ``csrc/flash_attention_f32.cu``).
 
+Head dims: each kernel family has instances at the head dims
+``kernel_head_dims`` gives (``ops/flash_attention.py``): the bf16 forward
+(the prologue, #1, #2 and the fold's #4) at 64, 128, 192 and 256; the
+backward, the fp32 instances and the A/B kernels at 64 and 128. The gates
+open nothing else on a CUDA tensor, and the wrappers raise on it.
+
 Masking is key-side only, as in the TPU kernel: padded query rows attend to
 the valid keys. The unfused composition (:func:`unfused_qkv_attention`)
 masks two-sided, so the two agree on valid rows.
@@ -60,13 +66,13 @@ import torch
 from vitok_torch.ops import _build
 from vitok_torch.ops import flash_attention as fl
 from vitok_torch.ops.attention import dot_product_attention, flash_route, head_dim_routes
+from vitok_torch.ops.flash_attention import AB_HEAD_DIMS, check_head_dim, kernel_head_dims
 from vitok_torch.ops.norms import rms_norm
 from vitok_torch.ops import quant as q8
 from vitok_torch.ops.quant import quantize_activation
 from vitok_torch.ops.rope import apply_rotary_emb
 
 MAX_FUSED_TOKENS = 1024
-KERNEL_HEAD_DIMS = (64, 128)
 _NEG_FILL = -1e30
 _DEAD_LSE = 1e30  # the log-sum-exp of a padded query row: the backward's p is 0 there
 _LOG2E = 1.4426950408889634
@@ -106,28 +112,34 @@ _Q8_BUDGET = 13 * 1024 * 1024
 _SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
 
 
-def can_fuse(n: int, c: int, num_heads: int, *, cuda: bool = False) -> bool:
+def can_fuse(n: int, c: int, num_heads: int, *, cuda: bool = False, dtype: torch.dtype = torch.bfloat16,
+             grad: bool = False) -> bool:
     """Whether a block at this shape routes to the fused kernel.
 
     The JAX package's gate (``fused_attention.py:979-989``): at most
     ``MAX_FUSED_TOKENS`` tokens, ``n % 8 == 0``, head dim a multiple of 64
-    and a 128-lane head group dividing C. For a CUDA tensor (``cuda``) the
-    head dim must also be in ``KERNEL_HEAD_DIMS`` (``head_dim_routes``).
+    and a 128-lane head group dividing C. For a CUDA tensor (``cuda``) of
+    ``dtype`` the head dim must also be one at which its kernels have
+    instances (``head_dim_routes``: in bf16 64-256, but 64 or 128 with a
+    gradient asked for, ``grad``, or in fp32).
     """
     if c % num_heads:
         return False
     d = c // num_heads
     group = d * 128 // math.gcd(d, 128)
-    return n <= MAX_FUSED_TOKENS and n % 8 == 0 and head_dim_routes(d, cuda) and c % group == 0
+    return (n <= MAX_FUSED_TOKENS and n % 8 == 0 and head_dim_routes(d, cuda, dtype, grad)
+            and c % group == 0)
 
 
 def _rms_inv(x32: torch.Tensor) -> torch.Tensor:
     """``rsqrt(mean(x^2) + eps)`` over the last axis (fp32 ``[..., 1]``),
     summed in the order of the kernels' tile code (``csrc/norm_rope.cuh``):
     a thread's 8 channels and their rotate-half partners squared and added
-    in turn, then the D/16 threads' sums pairwise. So the plain versions
-    round q and k to bf16 where the kernels do; other head dims take
-    ``mean``."""
+    in turn, giving D/16 piece sums; those are padded with zeros to the next
+    power of two (the row's lanes: 16 at d = 192, of which 12 hold a piece)
+    and added pairwise, neighbours first, as the lanes' xor butterfly adds
+    them. So the plain versions round q and k to bf16 where the kernels do;
+    other head dims take ``mean``."""
     d = x32.shape[-1]
     if d % 16:
         return torch.rsqrt(x32.square().mean(-1, keepdim=True) + _RMS_EPS)
@@ -137,6 +149,8 @@ def _rms_inv(x32: torch.Tensor) -> torch.Tensor:
     for e in range(8):
         ss = ss + xr[..., e] * xr[..., e]
         ss = ss + xi[..., e] * xi[..., e]
+    lanes = 1 << (d // 16 - 1).bit_length()
+    ss = torch.nn.functional.pad(ss, (0, lanes - d // 16))
     while ss.shape[-1] > 1:
         ss = ss[..., 0::2] + ss[..., 1::2]
     return torch.rsqrt(ss / d + _RMS_EPS)
@@ -149,7 +163,7 @@ def _qk_norm_rope(q, k, q_scale, k_scale, cos, sin):
     return apply_rotary_emb(norm(q, q_scale), norm(k, k_scale), cos, sin, convention="half")
 
 
-def _asks_grad(qkv, q_scale, k_scale) -> bool:
+def asks_grad(qkv, q_scale, k_scale) -> bool:
     """Whether autograd would want a gradient of this call."""
     return torch.is_grad_enabled() and (qkv.requires_grad or q_scale.requires_grad or k_scale.requires_grad)
 
@@ -209,10 +223,12 @@ def fused_qkv_attention_plain(
 
 
 def _check_cuda_args(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
-                     dtypes=(torch.bfloat16,)):
+                     dtypes=(torch.bfloat16,), grad=False, head_dims=None):
     """Validates a CUDA call and returns ``(b, n, c, d, q_scale, k_scale, cos,
     sin, mask, sw)`` in the types and layouts the kernels read. ``dtypes``:
-    the qkv types the kernel has instances for."""
+    the qkv types the kernel has instances for; ``head_dims``: its family's
+    head dims, by default ``kernel_head_dims(qkv.dtype, grad)`` (``grad``: a
+    backward runs, or will run, on this call)."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, N, 3C], got {tuple(qkv.shape)}")
     b, n, c3 = qkv.shape
@@ -220,11 +236,12 @@ def _check_cuda_args(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sli
     if c % num_heads:
         raise ValueError(f"C={c} is not a multiple of num_heads={num_heads}")
     d = c // num_heads
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the fused CUDA kernels take head_dim in {KERNEL_HEAD_DIMS}, got {d}")
     if qkv.dtype not in dtypes:
         names = " or ".join(str(t).replace("torch.", "") for t in dtypes)
         raise TypeError(f"this fused CUDA kernel takes {names} qkv, got {qkv.dtype}")
+    check_head_dim(d, head_dims or kernel_head_dims(qkv.dtype, grad),
+                   f"the fused CUDA kernels in {str(qkv.dtype).replace('torch.', '')}"
+                   + (" with their backward" if grad else ""))
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     dev = qkv.device
@@ -252,6 +269,15 @@ def _check_rows(n: int) -> None:
 
 def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
+
+
+def _check_backward_head_dim(qkv: torch.Tensor, num_heads: int) -> None:
+    """Before a forward whose backward follows (autograd asked for the lse):
+    raise, before anything launches, on a head dim the backward kernels have
+    no instance for."""
+    c = qkv.shape[-1] // 3
+    if c % num_heads == 0:
+        check_head_dim(c // num_heads, kernel_head_dims(qkv.dtype, True), "the fused CUDA kernels' backward")
 
 
 def fused_qk_prologue_plain(
@@ -286,7 +312,8 @@ def fused_qk_prologue_plain(
 def _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, out=None, dout=None, with_q=True):
     global PROLOGUE_LAUNCHES, PROLOGUE_F32_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, _, _ = _check_cuda_args(
-        qkv, q_scale, k_scale, cos, sin, None, num_heads, None, dtypes=(torch.bfloat16, torch.float32)
+        qkv, q_scale, k_scale, cos, sin, None, num_heads, None, dtypes=(torch.bfloat16, torch.float32),
+        grad=out is not None,  # delta: the backward's instances
     )
     dev = qkv.device
     parts = 2 if with_q else 1
@@ -332,8 +359,9 @@ def fused_qk_prologue(
     ``[B, N, C]``, without ``with_q``), and with ``out``/``dout`` the
     backward's ``delta``: the prologue the redesigned forward (k alone) and
     backward (q, k and delta) run first. On a CUDA tensor this launches the
-    prologue kernel (bf16, or its fp32 instance; head dim 64 or 128) or
-    raises; on a CPU tensor it runs :func:`fused_qk_prologue_plain`."""
+    prologue kernel (bf16: head dim 64, 128, 192 or 256, with delta 64 or
+    128; or its fp32 instance, 64 or 128) or raises; on a CPU tensor it runs
+    :func:`fused_qk_prologue_plain`."""
     if (out is None) != (dout is None):
         raise ValueError("give both out and dout, or neither")
     args = (qkv, q_scale, k_scale, cos, sin)
@@ -347,10 +375,13 @@ def fused_qk_prologue(
 def _fused_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
     """The redesigned forward on a bf16 tensor (the prologue, then the wgmma
     kernel): ``(out, lse or None)``; an fp32 tensor takes the fp32 walker
-    (asked for the lse, under autograd, its instance that writes it)."""
+    (asked for the lse, under autograd, its instance that writes it). Asked
+    for the lse, the backward follows: the backward's head dims."""
     if qkv.dtype == torch.float32:
         return _attend_f32(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse)
     _check_rows(qkv.shape[1])
+    if want_lse:
+        _check_backward_head_dim(qkv, num_heads)
     kn, _ = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=False)
     return _attend_sm90(qkv, kn, q_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse)
 
@@ -450,6 +481,22 @@ def _walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, *, bb, hpb,
     return out
 
 
+SM90_KERNELS = ("prologue", "attention", "q8")  # by the index sm90_attributes' entry takes
+
+
+def sm90_attributes(which: str, d: int, heads: int = 1) -> dict:
+    """Registers and local memory (spills) a thread, blocks an SM and shared
+    memory a block of the bf16 prologue, the attention kernel or the
+    int8-epilogue kernel (``which`` one of ``SM90_KERNELS``; ``heads`` a
+    block for the last) at head dim ``d``, as the compiler and the card
+    report them."""
+    out = (ctypes.c_int * 4)()
+    lib = _sm90_lib()
+    _build.check(lib, lib.vitok_fused_sm90_attributes(SM90_KERNELS.index(which), d, heads, out),
+                 f"fused sm90 ({which}) attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
+
+
 def f32_walk_attributes(d: int, kind: str, bb: int = 1) -> dict:
     """Registers and local memory (spills) a thread, blocks an SM and shared
     memory a block of one fp32 walker kernel (``kind`` one of
@@ -489,7 +536,7 @@ def _mma_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_wi
     global MMA_LAUNCHES, F32_MMA_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
-        dtypes=(torch.bfloat16, torch.float32),
+        dtypes=(torch.bfloat16, torch.float32), head_dims=AB_HEAD_DIMS,
     )
     dev = qkv.device
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=dev)
@@ -557,6 +604,7 @@ def _sm90_lib() -> ctypes.CDLL:
         (lib.vitok_fused_k_prologue_q8, [ptr] * 5 + [i] * 4 + [ptr]),
         (lib.vitok_fused_attention_sm90_bf16, [ptr] * 8 + [i] * 5 + [ptr]),
         (lib.vitok_fused_attention_q8_sm90_bf16, [ptr] * 8 + [i] * 6 + [ptr]),
+        (lib.vitok_fused_sm90_attributes, [i] * 3 + [ptr]),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
@@ -594,11 +642,14 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 
-def can_fuse_bwd(n: int, c: int, num_heads: int, *, cuda: bool = False) -> bool:
+def can_fuse_bwd(n: int, c: int, num_heads: int, *, cuda: bool = False,
+                 dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the backward kernel takes this shape: wherever the forward
-    kernel does. (The JAX package's gate is tighter, on the TPU's VMEM; it
+    kernel does, at the backward's head dims on a CUDA tensor (64 or 128:
+    the forward's 192 and 256 have no backward instance yet, ROADMAP.md
+    Queue 2). (The JAX package's gate is tighter, on the TPU's VMEM; it
     falls back to the unfused VJP at 1024 tokens. ROADMAP.md Queue 3.)"""
-    return can_fuse(n, c, num_heads, cuda=cuda)
+    return can_fuse(n, c, num_heads, cuda=cuda, dtype=dtype, grad=True)
 
 
 def _rotate_half_bwd(dz: torch.Tensor, cos32: torch.Tensor, sin32: torch.Tensor) -> torch.Tensor:
@@ -710,7 +761,7 @@ def _fused_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_heads
     global BWD_LAUNCHES, BWD_F32_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
-        dtypes=(torch.bfloat16, torch.float32),
+        dtypes=(torch.bfloat16, torch.float32), grad=True,
     )
     dev = qkv.device
     _check_rows(n)
@@ -862,16 +913,18 @@ def _pick_group_channels_q8(c: int, d: int, n: int) -> int:
     return best
 
 
-def can_fuse_q8(n: int, c: int, num_heads: int, *, cuda: bool = False) -> bool:
+def can_fuse_q8(n: int, c: int, num_heads: int, *, cuda: bool = False,
+                dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether an int8 block at this shape takes
     :func:`fused_qkv_attention_q8`: the JAX package's shape gate without its
     backend check, behind the same opt-in ``VITOK_Q8_EPILOGUE``; for a CUDA
-    tensor (``cuda``) a head dim in ``KERNEL_HEAD_DIMS``."""
+    tensor (``cuda``) of ``dtype`` a head dim its forward has instances at
+    (``head_dim_routes``: bf16 64-256, fp32 64 or 128). Inference only."""
     if not _ENABLE_Q8 or c % num_heads:
         return False
     d = c // num_heads
     return (
-        n <= MAX_FUSED_TOKENS and n % 8 == 0 and head_dim_routes(d, cuda)
+        n <= MAX_FUSED_TOKENS and n % 8 == 0 and head_dim_routes(d, cuda, dtype)
         and _pick_group_channels_q8(c, d, n) > 0
     )
 
@@ -897,6 +950,10 @@ def _q8_cluster_size(num_heads: int, d: int) -> int:
     the 5B width (PERF.md, PR 13)."""
     if d == 128 and num_heads % 2 == 0 and num_heads // 2 <= 16:
         return num_heads // 2
+    # With wide heads at the 5B width the portable rule read fastest of the
+    # layouts that fit (PERF.md's kernel table, rows "2 d192" and "2 d256"):
+    # two heads of 256 a block (a cluster of 6) against one (12), four heads
+    # of 192 (4) against two (8) and one (16).
     fits = [cs for cs in range(1, min(8, num_heads) + 1)
             if num_heads % cs == 0 and _q8_smem_bytes(num_heads // cs, d) <= _SMEM_LIMIT]
     if not fits:
@@ -1104,8 +1161,11 @@ def flash_qkv_attention_bwd_plain(
 
 
 def _flash_fold_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, want_lse=False):
-    """The prologue (q and k), then #4 on strided views: ``(out, lse or None)``."""
+    """The prologue (q and k), then #4 on strided views: ``(out, lse or
+    None)``; asked for the lse, the backward follows (its head dims)."""
     b, n, c3 = qkv.shape
+    if want_lse:
+        _check_backward_head_dim(qkv, num_heads)
     qk, _ = _prologue_cuda(qkv, q_scale, k_scale, cos, sin, num_heads, with_q=True)
     q, k = qk.view(b, n, 2, num_heads, -1).unbind(2)
     v = _split_qkv(qkv, num_heads)[2]
@@ -1120,7 +1180,7 @@ def _flash_fold_bwd_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, dout, num_
     gains' partials summed in a fixed order (no atomics)."""
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
-        dtypes=(torch.bfloat16, torch.float32),
+        dtypes=(torch.bfloat16, torch.float32), grad=True,
     )
     dev = qkv.device
     if dout.device != dev or tuple(dout.shape) != (b, n, c) or dout.dtype != qkv.dtype:
@@ -1229,7 +1289,8 @@ def flash_qkv_attention(
     resolution (``vitok_tpu``'s ``unfused_qkv_attention`` on its flash
     route, whose XLA glue the prologue replaces).
 
-    On a CUDA tensor (bf16 or fp32, head dim 64 or 128) two launches: the q/k
+    On a CUDA tensor (bf16 at head dim 64, 128, 192 or 256, 64 or 128 under
+    autograd; fp32 at 64 or 128) two launches: the q/k
     prologue (:func:`fused_qk_prologue` with ``with_q``: q and k normed and
     rotated into a ``[B, N, 2C]`` scratch), then the flash kernel on q and k
     as strided views of that scratch and v as a view of ``qkv``. On a CPU
@@ -1240,7 +1301,7 @@ def flash_qkv_attention(
     Returns ``[B, N, C]``, padded query rows 0.
     """
     args = (qkv, q_scale, k_scale, cos, sin, patch_mask)
-    if _asks_grad(qkv, q_scale, k_scale):
+    if asks_grad(qkv, q_scale, k_scale):
         return _FlashQKVAttention.apply(*args, num_heads, sliding_window)
     return _flash_fold_forward(*args, num_heads, sliding_window)[0]
 
@@ -1250,16 +1311,18 @@ def takes_flash_fold(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Te
     """Whether :func:`unfused_qkv_attention` hands this call to
     :func:`flash_qkv_attention`: a contiguous bf16 or fp32 tensor on the
     card, a call bound for the flash kernel (``"auto"`` from
-    ``FLASH_MIN_TOKENS`` tokens, or ``"flash"``) and a head dim in
-    ``KERNEL_HEAD_DIMS``, with or without a gradient asked for. On the CPU
-    nothing changes: the composition runs (under autograd through the flash
+    ``FLASH_MIN_TOKENS`` tokens, or ``"flash"``) and a head dim at which
+    every kernel of the call has an instance (``kernel_head_dims``: bf16 at
+    64-256 without a gradient asked for, else 64 or 128). On the CPU nothing
+    changes: the composition runs (under autograd through the flash
     kernel's autograd Function)."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     if not qkv.is_cuda or qkv.dtype not in fl.KERNEL_DTYPES or not qkv.is_contiguous() or c % num_heads:
         return False
     d = c // num_heads
-    return d in KERNEL_HEAD_DIMS and flash_route(n, d, attn_impl, cuda=True)
+    dims = kernel_head_dims(qkv.dtype, asks_grad(qkv, q_scale, k_scale))
+    return d in dims and flash_route(n, d, attn_impl, cuda=True, dtype=qkv.dtype)
 
 
 def unfused_qkv_attention(
@@ -1328,8 +1391,9 @@ def fused_qkv_attention(
     """
     n, c = qkv.shape[1], qkv.shape[-1] // 3
     needs_grad = torch.is_grad_enabled() and qkv.requires_grad
-    if impl == "fused" or (impl == "auto" and not needs_grad and can_fuse(n, c, num_heads, cuda=qkv.is_cuda)):
-        if _asks_grad(qkv, q_scale, k_scale):
+    if impl == "fused" or (impl == "auto" and not needs_grad and can_fuse(
+            n, c, num_heads, cuda=qkv.is_cuda, dtype=qkv.dtype, grad=asks_grad(qkv, q_scale, k_scale))):
+        if asks_grad(qkv, q_scale, k_scale):
             return _FusedAttention.apply(
                 qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window
             )
