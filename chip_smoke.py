@@ -141,9 +141,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``Td4h16-Td8h16/1x16x64`` (16 heads of 192, the decoder cut to 8 blocks)
    through encode -> decode in bf16 at 256p and 512p (B 16) and at 1024p
    with sw 1024 (the fold), against the unfused composition, and in int8 at
-   256p with the epilogue off and on; and a d = 256 forward and backward
-   under grad, which takes the unfused composition (no backward instance at
-   d 256) with the gradients of ``attn_impl="xla"``;
+   256p with the epilogue off and on; then the backward's instances at these
+   head dims (the prologue with delta, #3 at 256 and 1024 tokens, #5 and #6
+   plain and fold at 4096 tokens with sw 1024) against their plain
+   versions, each timed beside its bound, its plain version and SDPA's (and
+   FlexAttention's) backward; and
+   training steps of ``Td2h12-Td4h12/1x16x64`` and ``Td2h16-Td4h16/1x16x64``
+   (3072 wide, about 0.7B parameters) at 256 tokens B 8 with
+   ``attn_impl="fused"`` (#1, then #3) and at 1024p B 1 with sw 1024 (the
+   fold, then #5/#6), the first step's gradients against the plain
+   backward's and each step's launches read;
 17. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1242,13 +1249,15 @@ def _fold_bwd_row(label, b, n, h, d, masked, sw, device) -> dict:
                 eager_step_ms=eager_ms, eager_step_dev_ms=eager_dev)
 
 
-def flash_bwd_kernel_phase(device) -> dict:
-    """The dq and dk/dv kernels against ``flash_attention_bwd_plain`` on the
-    forward phase's shapes; the library yardsticks are SDPA's backward with
-    the boolean mask and, at ``FLEX_ROWS``, FlexAttention's (forward +
-    backward, minus the forward). ``dev``: the kernel's time with the host
-    ahead (``host_ahead_ms``). At ``FOLD_BWD_ROWS`` also the fold's
-    backward (``_fold_bwd_row``)."""
+def flash_bwd_kernel_phase(device, shapes=FLASH_SHAPES, dims=(64, 128), flex_rows=FLEX_ROWS,
+                           fold_rows=FOLD_BWD_ROWS) -> dict:
+    """The dq and dk/dv kernels against ``flash_attention_bwd_plain`` at
+    ``shapes`` (the forward phase's), their instances at head dims ``dims``
+    described; the library yardsticks are SDPA's backward with the boolean
+    mask and, at ``flex_rows``, FlexAttention's (forward + backward, minus
+    the forward). ``dev``: the kernel's time with the host ahead
+    (``host_ahead_ms``). At ``fold_rows`` also the fold's backward
+    (``_fold_bwd_row``)."""
     import torch
     import torch.nn.functional as F
     from vitok_torch.benchmarks import host_ahead_ms
@@ -1257,13 +1266,13 @@ def flash_bwd_kernel_phase(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(5)
     rows, worst = [], {"dq": 0.0, "dkv": 0.0}
     for which in ("dq", "dkv"):
-        for d in (64, 128):
+        for d in dims:
             log(f"  {which} kernel at d = {d}: {fl.flash_bwd_attributes(which, d)}")
     log("kernel phase: flash attention backward, dq and dk/dv (CUDA) vs flash_attention_bwd_plain, bf16")
     log(f"{'shape':12s} {'B':>2s} {'N':>6s} {'H':>3s} {'D':>4s} {'case':12s} {'dq max/mean rel':>17s} "
         f"{'dk max/mean rel':>17s} {'dv max/mean rel':>17s} {'dq_ms':>8s} {'dkv_ms':>8s} {'plain_ms':>9s} "
         f"{'sdpa_bwd':>9s} {'dq_bound':>9s} {'dkv_bound':>9s}")
-    for label, b, n, h, d, cases in FLASH_SHAPES:
+    for label, b, n, h, d, cases in shapes:
         for case in cases:
             q, k, v, mask, valid = _flash_inputs(gen, b, n, h, d, "tail" in case, device)
             sw = FLASH_SW if "sw" in case else None
@@ -1315,7 +1324,7 @@ def flash_bwd_kernel_phase(device) -> dict:
                 fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), runs=3)
             lib_ms = time_ms(sdpa_step, runs=3) - fwd_ms
             flex_ms = None
-            if (label, case) in FLEX_ROWS:  # FlexAttention forward + backward, minus its forward
+            if (label, case) in flex_rows:  # FlexAttention forward + backward, minus its forward
                 flex = _flex_call(*(t.transpose(1, 2) for t in (qt, kt, vt)), mask, sw)
                 with torch.no_grad():
                     flex_fwd_ms = time_ms(flex, runs=3)
@@ -1343,7 +1352,7 @@ def flash_bwd_kernel_phase(device) -> dict:
             log(f"{label:12s} {b:2d} {n:6d} {h:3d} {d:4d} {case:12s} {rel('dq')} {rel('dk')} {rel('dv')} "
                 f"{dq_ms:8.4f} {dkv_ms:8.4f} {plain_ms:9.4f} {lib_ms:9.4f} {dq_bound[0]:9.5f} {dkv_bound[0]:9.5f}"
                 f"  dev {dq_dev:.4f} / {dkv_dev:.4f}")
-            if (label, case) in FOLD_BWD_ROWS:
+            if (label, case) in fold_rows:
                 rows[-1].update(_fold_bwd_row(label, b, n, h, d, "tail" in case, sw, device))
     log("  (plain_ms: dq, dk and dv together; sdpa_bwd: SDPA forward + backward minus its forward; dev: dq / "
         "dk/dv with the host ahead)")
@@ -4854,8 +4863,17 @@ WIDE_HEAD_PATHS = (  # bf16, no window; the int8 runs take the first
 WIDE_HEAD_HIGHRES = ("1024p", 4096, 1, [(1024, 1024)])  # bf16 with sw = FLASH_SW: the fold
 WIDE_HEAD_WIDTH = 3072
 WIDE_HEAD_KERNELS = ((16, 256), (16, 1024))  # (B, N) of #1 and the prologue, what the paths give them; #2 the first
-WIDE_HEAD_GRAD = ("w3072_d2_h12-w3072_d2_h12/1x16x64", ("256p", 256, 4, RESOLUTIONS[0][3]))
-WIDE_HEAD_GRAD_REL = 1e-6  # the same composition on both sides: bit for bit expected
+# The backward's instances at the 5B width: #3 at (B, N, cases), the first
+# the fused training step's shape; #5, #6 and the fold at the 1024p step's.
+WIDE_HEAD_BWD = ((8, 256, ("tail", "tail+sw")), (8, 1024, ("tail",)))
+WIDE_HEAD_FLASH_BWD = (1, 4096, "tail+sw1024")
+# Training at the 5B width: fp32 master weights, bf16
+# compute, AdamW. Depth cut: a 5B's fp32 weights, moments and gradients alone
+# are about 80 GB, so 2 + 4 blocks (about 0.7B parameters) of each head dim.
+WIDE_HEAD_TRAIN = ((256, "Td2h12-Td4h12/1x16x64"), (192, "Td2h16-Td4h16/1x16x64"))
+WIDE_HEAD_TRAIN_FUSED = ("256p", 256, 8, RESOLUTIONS[0][3])  # attn_impl="fused": #1, then #3
+WIDE_HEAD_TRAIN_FOLD = ("1024p", 4096, 1, [(1024, 1024)])    # sw = FLASH_SW: the fold, then #5/#6
+WIDE_HEAD_TRAIN_STEPS = 3
 
 
 def _wide_kernel_rows(device, d: int) -> dict:
@@ -5036,15 +5054,234 @@ def _wide_kernel_rows(device, d: int) -> dict:
     return rows
 
 
+def _bwd_errors(what, got, want, mask, c) -> dict:
+    """#3's (or the fold's) gradients against the plain version's: dq, dk and
+    dv (planes of dqkv) and the gains' within ``FUSED_BWD_*`` of each
+    gradient's largest entry on valid rows, padded rows exactly 0, finite."""
+    import torch
+
+    if mask is not None and (got[0][~mask].any() or want[0][~mask].any()):
+        raise AssertionError(f"{what}: padded rows of dqkv are not exactly 0")
+    errs = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        a, r = got[0][..., i * c:(i + 1) * c].float(), want[0][..., i * c:(i + 1) * c].float()
+        err = (a - r).abs() if mask is None else (a - r).abs()[mask]
+        scale = r.abs().max().item()
+        errs[name] = (err.max().item() / scale, err.mean().item() / scale, bool(torch.isfinite(a).all()))
+    for i, name in ((1, "dqs"), (2, "dks")):
+        errs[name] = (((got[i] - want[i]).abs().max() / want[i].abs().max()).item(), 0.0, True)
+    bad = {k: e for k, e in errs.items() if not (e[2] and e[0] <= (FUSED_BWD_GAIN_REL if k in ("dqs", "dks") else
+                                                                    FUSED_BWD_MAX_REL) and e[1] <= FUSED_BWD_MEAN_REL)}
+    if bad:
+        raise AssertionError(f"{what}: (max rel, mean rel, finite) {bad} against its plain version (limits dqkv "
+                             f"{FUSED_BWD_MAX_REL} / {FUSED_BWD_MEAN_REL}, gains {FUSED_BWD_GAIN_REL})")
+    return errs
+
+
+def _wide_bwd_rows(device, d: int) -> dict:
+    """The backward's d-wide instances at the 5B width against their plain
+    versions, at the limits the d 64/128 instances meet: the q/k prologue
+    with delta; #3 (the prologue, dq and dk/dv) at ``WIDE_HEAD_BWD``; #5 and
+    #6 plain (``flash_bwd_kernel_phase``, SDPA's and FlexAttention's
+    backward beside them) and fold at ``WIDE_HEAD_FLASH_BWD``, each fold
+    instance timed alone. Registers and local bytes of every instance."""
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.benchmarks import host_ahead_ms
+    from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops import fused_attention as fa
+
+    c = WIDE_HEAD_WIDTH
+    h = c // d
+    rng = np.random.default_rng(23 + d)
+    gen = torch.Generator(device=device).manual_seed(23 + d)
+    rows = {"fused_attention_bwd": [], "fused_qk_prologue_delta": []}
+    for b, n, cases in WIDE_HEAD_BWD:
+        for case in cases:
+            qkv, qs, ks, cos, sin, _ = _attention_inputs(rng, b, n, c, h, False, device)
+            mask, valid = _tail_mask(b, n, device, dead_last=False)
+            sw = FUSED_BWD_SW if "sw" in case else None
+            g = torch.randn((b, n, c), generator=gen, device=device).to(torch.bfloat16)
+            args, kw = (qkv, qs, ks, cos, sin, mask), dict(num_heads=h, sliding_window=sw)
+            out, lse = fa._fused_cuda(*args, h, sw, want_lse=True)
+            kernel = lambda: fa.fused_qkv_attention_bwd(*args, g, out=out, lse=lse, **kw)
+            plain = lambda: fa.fused_qkv_attention_bwd_plain(*args, g, out=out, **kw)
+            want = plain()
+            what = f"#3 d {d} B {b} N {n} {case}"
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{what}: two runs differ")
+            errs = _bwd_errors(what, got, want, mask, c)
+            del got, again, want
+            ms, dev = time_ms(kernel), host_ahead_ms(kernel)
+            plain_ms = time_ms(plain, runs=3, warmup=1)
+            q, k, v = (t.requires_grad_(True) for t in _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d))
+            gt, am = g.view(b, n, h, d).transpose(1, 2).contiguous(), _sdpa_mask(mask, n, sw, device)
+            lib_ms = time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(q, k, v, attn_mask=am),
+                                                         (q, k, v), gt), runs=5)
+            del q, k, v, gt, am
+            nbytes = 7 * b * n * c * 2 + 2 * b * n * (d // 2) * 4 + b * n
+            bound = _bound_ms(nbytes, 10.0 * h * d * _flash_pairs(valid, n, sw), BF16_FLOPS_PER_S)
+            rows["fused_attention_bwd"].append(dict(
+                d=d, B=b, N=n, C=c, H=h, case=case, ms=ms, dev_ms=dev, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound[0], bound_by=bound[1],
+                **{f"{k_}_max_rel_err": e[0] for k_, e in errs.items()},
+                **{f"{k_}_mean_rel_err": e[1] for k_, e in errs.items() if k_ in ("dq", "dk", "dv")}))
+            log(f"  #3 d {d} B {b} N {n} {case}: dq/dk/dv max rel {errs['dq'][0]:.2e}/{errs['dk'][0]:.2e}/"
+                f"{errs['dv'][0]:.2e}, gains {errs['dqs'][0]:.2e}/{errs['dks'][0]:.2e}; {ms:.4f} ms (dev {dev:.4f}), "
+                f"plain {plain_ms:.4f}, SDPA forward + backward on normed q/k {lib_ms:.4f}, bound {bound[0]:.5f} "
+                f"({bound[1]})")
+            if not rows["fused_qk_prologue_delta"]:  # the prologue with delta, as the backward launches it
+                gz = g * mask.to(g.dtype)[..., None]
+                pro = lambda: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, out=out, dout=gz)
+                pro_plain = lambda: fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h, out=out, dout=gz)
+                (qk, delta), (qk_want, delta_want) = pro(), pro_plain()
+                torch.cuda.synchronize()
+                derr = ((delta - delta_want).abs().max() / delta_want.abs().max()).item()
+                perr = (qk.float() - qk_want.float()).abs()
+                if not (derr <= 1e-5 and perr.max().item() <= PROLOGUE_MAX_ABS
+                        and (perr > 0).float().mean().item() <= PROLOGUE_DIFFER_SHARE):
+                    raise AssertionError(f"prologue with delta d {d}: delta rel {derr:.3e} (limit 1e-5), q/k max "
+                                         f"{perr.max().item():.3e}")
+                pbound = _bound_ms(6 * b * n * c * 2 + 2 * b * n * (d // 2) * 4 + b * h * n * 4, 0.0,
+                                   BF16_FLOPS_PER_S)
+                rows["fused_qk_prologue_delta"].append(dict(
+                    d=d, B=b, N=n, C=c, H=h, delta_max_rel_err=derr, max_abs_err=perr.max().item(),
+                    ms=time_ms(pro), dev_ms=host_ahead_ms(pro), plain_ms=time_ms(pro_plain, runs=3, warmup=1),
+                    bound_ms=pbound[0], bound_by=pbound[1]))
+                r_ = rows["fused_qk_prologue_delta"][-1]
+                log(f"  prologue with delta d {d} B {b} N {n}: delta rel {derr:.2e}, q/k max {r_['max_abs_err']:.2e}; "
+                    f"{r_['ms']:.4f} ms (dev {r_['dev_ms']:.4f}), plain {r_['plain_ms']:.4f}, bound "
+                    f"{r_['bound_ms']:.5f}")
+                del qk, delta, qk_want, delta_want
+            del qkv, out, lse, g
+    rows["fused_bwd_attributes"] = {w: fa.fused_bwd_attributes(w, d) for w in ("dq", "dkv")}
+    log(f"  #3 d {d}: registers/local bytes/blocks an SM/shared bytes {rows['fused_bwd_attributes']}")
+
+    # #5 and #6, plain (the flash kernel's backward) and fold, at the 1024p step's shape
+    b, n, case = WIDE_HEAD_FLASH_BWD
+    label = f"5B width d{d}"
+    bk = flash_bwd_kernel_phase(device, shapes=((label, b, n, h, d, (case,)),), dims=(d,),
+                                flex_rows=((label, case),), fold_rows=((label, case),))
+    row = bk["rows"][0]
+    qkv, qs, ks, cos, sin, mask = _attention_inputs(rng, b, n, c, h, True, device)
+    dout = torch.randn((b, n, c), generator=gen, device=device).to(torch.bfloat16) * mask[..., None]
+    out, lse = fa._flash_fold_cuda(qkv, qs, ks, cos, sin, mask, h, FLASH_SW, want_lse=True)
+    qk, delta = fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, out=out, dout=dout)
+    counts = fl.key_counts(mask)
+    dqkv = torch.empty_like(qkv)
+    parts = torch.empty((2, b, h, (n + 63) // 64, d), dtype=torch.float32, device=device)
+    fold = (mask, counts, dout, lse, delta, dqkv)
+    dq_fold = lambda: fl.flash_dq_fold_cuda(qkv, qk, qs, cos, sin, *fold, parts[0], h, FLASH_SW)
+    dkv_fold = lambda: fl.flash_dkv_fold_cuda(qkv, qk, ks, cos, sin, *fold, parts[1], h, FLASH_SW)
+    row.update(dq_fold_ms=time_ms(dq_fold), dq_fold_dev_ms=host_ahead_ms(dq_fold), dkv_fold_ms=time_ms(dkv_fold),
+               dkv_fold_dev_ms=host_ahead_ms(dkv_fold))
+    row["attributes"] = {f"{w}{'_fold' if f_ else ''}": fl.flash_bwd_attributes(w, d, f_)
+                         for w in ("dq", "dkv") for f_ in (False, True)}
+    log(f"  #5/#6 fold instances d {d}: dq {row['dq_fold_ms']:.4f} ms (dev {row['dq_fold_dev_ms']:.4f}), dk/dv "
+        f"{row['dkv_fold_ms']:.4f} (dev {row['dkv_fold_dev_ms']:.4f}); registers/local bytes/blocks/shared "
+        f"{row['attributes']}")
+    rows["flash_bwd"] = row
+    del qkv, qk, delta, dqkv, parts, out, lse, dout
+    return rows
+
+
+def _wide_train(device, card: str, d: int, variant: str) -> dict:
+    """Training steps of a 3072-wide AE with heads of ``d`` (``variant``,
+    ``WIDE_HEAD_TRAIN``'s cut depth): fp32 master weights, bf16 compute,
+    Charbonnier 1.0 + SSIM 0.1, AdamW + EMA. At 256 tokens B 8 with
+    ``attn_impl="fused"`` (#1 with its lse, then the prologue with delta and
+    #3's dq and dk/dv in every block) and at 1024p B 1 with sw = FLASH_SW
+    (the fold forward, then the prologue with delta and #5/#6's fold
+    instances): the first step's gradients against the same step on the
+    plain backward (within ``TRAIN_GRAD_REL_L2``), then timed steps, each
+    launching exactly those kernels."""
+    import torch
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.train_lib import (LossConfig, compute_loss, create_optimizer, create_schedule,
+                                       create_train_state, make_train_step)
+
+    model = AE(**{**decode_variant(variant), "attn_impl": "fused"}, seed=0, device=device,
+               param_dtype=torch.float32, trainable=True)
+    _random_gates(model, device)
+    depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    out = {}
+    for step, impl, sw, expect, reference in (
+        (WIDE_HEAD_TRAIN_FUSED, "fused", None, _expect(fused_attention=depth, fused_attention_bwd=2 * depth),
+         plain_fused_backward),
+        (WIDE_HEAD_TRAIN_FOLD, "auto", FLASH_SW, _expect(flash_attention=depth, fused_qk_prologue=2 * depth,
+                                                         flash_attention_dq=depth, flash_attention_dkv=depth),
+         plain_flash_backward),
+    ):
+        model.cfg = dataclasses.replace(model.cfg, attn_impl=impl, sw=sw)
+        (case,) = main_path_cases(device, [step], seed=26)
+        name, max_tokens, batch, _, inputs = case
+        side = int(max_tokens ** 0.5)
+        loss_cfg = LossConfig(ssim_weight=0.1, tile_size=256, n_tiles=2, ssim_grid=(side, side))
+        what = f"d {d} training {name} B {batch}"
+        log(f"{what}: {variant} ({n_params / 1e9:.3f}B fp32 master params, {depth} blocks), attn_impl={impl!r}, "
+            f"sw {sw}, bf16 compute, Charbonnier 1.0 + SSIM 0.1, AdamW lr {TRAIN_LR} + EMA")
+
+        def grads_of():
+            gen = torch.Generator(device=device).manual_seed(11)
+            loss, _ = compute_loss(model, inputs, loss_cfg, gen)
+            return loss.detach(), torch.autograd.grad(loss, params)
+
+        reset_counts()
+        loss_k, g_kernel = grads_of()
+        first = launch_counts()
+        with reference():
+            loss_p, g_plain = grads_of()
+        torch.cuda.synchronize()
+        num = sum((a.double() - r.double()).square().sum() for a, r in zip(g_kernel, g_plain))
+        rel = (num / sum(r.double().square().sum() for r in g_plain)).sqrt().item()
+        finite = all(bool(torch.isfinite(g_).all()) for g_ in g_kernel)
+        if not (finite and first == expect and loss_k.item() == loss_p.item() and rel <= TRAIN_GRAD_REL_L2):
+            raise AssertionError(f"{what}: gradients vs the plain backward rel L2 {rel:.3e} (limit "
+                                 f"{TRAIN_GRAD_REL_L2}), finite {finite}, loss {loss_k.item()} vs {loss_p.item()}, "
+                                 f"launches {_nonzero(first)} (expected {_nonzero(expect)})")
+        del g_kernel, g_plain
+        tx = create_optimizer(create_schedule("constant", TRAIN_LR, WIDE_HEAD_TRAIN_STEPS, warmup_frac=0.0))
+        state = create_train_state(model, tx)
+        train_step = make_train_step(tx, loss_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # the path's run
+        state, metrics, step_ms, per_step = _timed_steps(train_step, state, inputs, WIDE_HEAD_TRAIN_STEPS)
+        launches = launch_counts()
+        if any(got != expect for got in per_step):
+            raise AssertionError(f"{what}: launches per step {[_nonzero(x) for x in per_step]}, expected "
+                                 f"{_nonzero(expect)}")
+        totals = [m["loss/total"] for m in metrics]
+        if not all(np.isfinite(list(m.values())).all() for m in metrics):
+            raise AssertionError(f"{what}: losses {totals} are not finite")
+        ms = float(np.median(step_ms[1:]))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = dict(variant=variant, impl=impl, sw=sw, batch=batch, tokens=max_tokens, grad_rel_l2=rel,
+                         launches=_nonzero(launches), per_step=_nonzero(per_step[0]), ms_per_step=ms,
+                         first_ms=step_ms[0], peak_gb=peak_gb, losses=totals)
+        log(f"  {what}: first-step gradients vs the plain backward rel L2 {rel:.3e}; launches a step "
+            f"{_nonzero(per_step[0])}; loss " + " -> ".join(f"{t:.5f}" for t in totals)
+            + f"; {ms:.3f} ms/step (host clock, median of steps 2-{WIDE_HEAD_TRAIN_STEPS}; first {step_ms[0]:.3f}), "
+            f"{batch * max_tokens / ms * 1e3:.1f} tokens/s, peak {peak_gb:.3f} GB on {card}")
+        del state, tx, train_step, inputs
+        torch.cuda.empty_cache()
+    del model, params
+    return out
+
+
 def wide_heads_phase(device, card: str) -> dict:
-    """Head dims 192 and 256 at the 5B width: each new instance (the q/k
-    prologue, #1, #2, #4) against its plain version, then both models through
-    encode -> decode on the main path: bf16 at 256p and 512p (B 16, held to
-    the unfused composition), bf16 at 1024p with sw = FLASH_SW (the fold),
-    int8 at 256p without and with the epilogue (held to the plain quantize
-    kernels, and to the opt-in off). Then a d = 256 forward and backward
-    under grad (``attn_impl="fused"``): no attention kernel launches, and
-    its gradients equal those of the unfused composition."""
+    """Head dims 192 and 256 at the 5B width: each new forward instance (the
+    q/k prologue, #1, #2, #4) against its plain version, then both models
+    through encode -> decode on the main path: bf16 at 256p and 512p (B 16,
+    held to the unfused composition), bf16 at 1024p with sw = FLASH_SW (the
+    fold), int8 at 256p without and with the epilogue (held to the plain
+    quantize kernels, and to the opt-in off). Then each backward instance
+    (the prologue's delta, #3, #5 and #6, plain and fold) against its plain
+    version (``_wide_bwd_rows``), and training steps of a 3072-wide model at
+    each head dim through them (``_wide_train``)."""
     import torch
     from vitok_torch import AE, decode_variant
     from vitok_torch.ops import fused_attention as fa
@@ -5140,55 +5377,35 @@ def wide_heads_phase(device, card: str) -> dict:
         del model, o, q8o, cases
         torch.cuda.empty_cache()
 
-    # Under grad at d 256: the composition, forward and backward; its gradients those of attn_impl="xla"
-    variant, res = WIDE_HEAD_GRAD
-    model = AE(**{**decode_variant(variant), "attn_impl": "fused"}, seed=0, device=device,
-               param_dtype=torch.float32, trainable=True)
-    _random_gates(model, device)
-    (case,) = main_path_cases(device, [res], seed=25)
-    inputs = case[4]
-    valid = inputs["patch_mask"]
-
-    def grads():
-        model.zero_grad(set_to_none=True)
-        torch.manual_seed(0)
-        o = model(inputs, deterministic=False)
-        (o["patches"][valid].float() - inputs["patches"][valid].float()).square().mean().backward()
-        return {n_: p.grad.detach().clone() for n_, p in model.named_parameters() if p.grad is not None}
-
-    reset_counts()
-    got = grads()
-    torch.cuda.synchronize()
-    step_launches = _nonzero(launch_counts())
-    if any(step_launches.get(k_) for k_ in ("fused_attention", "fused_qk_prologue", "fused_attention_bwd",
-                                             "flash_attention", "flash_attention_dq", "flash_attention_dkv")):
-        raise AssertionError(f"d 256 under grad: attention kernels launched {step_launches}")
-    _set_attn_impl(model, "xla")
-    want = grads()
-    rel = max(((got[k_] - w).norm() / w.norm().clamp(min=1e-30)).item() for k_, w in want.items())
-    same = all(torch.equal(got[k_], w) for k_, w in want.items())
-    if set(got) != set(want) or not rel <= WIDE_HEAD_GRAD_REL:
-        raise AssertionError(f"d 256 under grad: gradients {rel:.3e} rel from the composition's "
-                             f"(limit {WIDE_HEAD_GRAD_REL})")
-    out["grad"] = dict(variant=variant, tokens=res[1], batch=res[2], launches=step_launches, max_rel=rel,
-                       bit_for_bit=same, params=len(want))
-    log(f"  d 256 under grad ({variant}, {res[0]} B {res[2]}, attn_impl=fused): launches {step_launches} (no "
-        f"attention kernel); gradients of {len(want)} parameters vs the unfused composition max rel {rel:.3e} "
-        f"(bit for bit: {same})")
-    del model, got, want
-    torch.cuda.empty_cache()
+    # The backward's instances, then training steps at the 5B width through them.
+    out["forward_s"] = time.time() - t0
+    for d, _ in WIDE_HEAD_MODELS:
+        log(f"wide heads d {d}: the backward's instances at the 5B width, on {card}")
+        t1 = time.time()
+        out["rows"][d].update(_wide_bwd_rows(device, d))
+        torch.cuda.empty_cache()
+        log(f"  d {d} backward instances: {time.time() - t1:.1f} s")
+    out["train"] = {}
+    for d, variant in WIDE_HEAD_TRAIN:
+        t1 = time.time()
+        out["train"][d] = _wide_train(device, card, d, variant)
+        torch.cuda.empty_cache()
+        log(f"  d {d} training steps: {time.time() - t1:.1f} s")
     out["wall_s"] = time.time() - t0
-    log(f"wide heads phase: {out['wall_s']:.1f} s")
+    log(f"wide heads phase: {out['wall_s']:.1f} s (the forward's instances and models {out['forward_s']:.1f} s)")
     return out
 
 
 
-def wide_heads_entries(wide: dict, kern: dict, fkern: dict) -> list:
+def wide_heads_entries(wide: dict, kern: dict, fkern: dict, fbkern: dict, bkern: dict) -> list:
     """The kernels line's entries of the d 192 and 256 instances, each with
     the d 128 instance's time at the same 5B-width shape beside it."""
+    flash_5b = next(r for r in bkern["rows"] if r["shape"] == "5B width" and r["case"] == "tail+sw1024")
     d128 = {
         "fused_attention": next(r for r in kern["rows"] if r["shape"] == "5B@256p main" and r["case"] == "tail"),
         "flash_attention": next(r for r in fkern["rows"] if r["shape"] == "5B width" and r["case"] == "tail+sw1024"),
+        "fused_attention_bwd": next(r for r in fbkern["rows"] if r["shape"] == "5B@256t" and r["case"] == "tail"),
+        "flash_attention_dq": flash_5b, "flash_attention_dkv": flash_5b,
     }
     entries = []
     for d in sorted(wide["rows"]):
@@ -5224,6 +5441,40 @@ def wide_heads_entries(wide: dict, kern: dict, fkern: dict) -> list:
                  d128_ms=d128["flash_attention"]["ms"], d128_dev_ms=d128["flash_attention"]["dev_ms"],
                  **{k: v for k, v in fl4.items() if k.startswith("kernel_")}),
         ]
+        # The backward's instances: launches from the training steps (#3 at 256 tokens, #5/#6's fold
+        # instances at 1024p), times at those steps' shapes.
+        fused_step = wide["train"][d][WIDE_HEAD_TRAIN_FUSED[0]]["launches"]
+        fold_step = wide["train"][d][WIDE_HEAD_TRAIN_FOLD[0]]["launches"]
+        b3 = next(r for r in rows["fused_attention_bwd"] if r["N"] == WIDE_HEAD_BWD[0][1] and r["case"] == "tail")
+        pd, fb = rows["fused_qk_prologue_delta"][0], rows["flash_bwd"]
+        bwd3 = rows["fused_attention_bwd"]
+        entries += [
+            dict(name=f"fused_attention_bwd_d{d}", route="cuda", source="vitok_torch/csrc/fused_attention_bwd.cu",
+                 replaces="vitok_tpu/ops/fused_attention.py:645", launches=fused_step["fused_attention_bwd"],
+                 max_abs_err=max(r[f"{k}_max_rel_err"] for r in bwd3 for k in ("dq", "dk", "dv")),
+                 ms=b3["ms"], dev_ms=b3["dev_ms"], plain_ms=b3["plain_ms"], bound_ms=b3["bound_ms"],
+                 bound_by=b3["bound_by"], library_ms=b3["library_ms"],
+                 ms_1024=next(r["ms"] for r in bwd3 if r["N"] == WIDE_HEAD_BWD[1][1]),
+                 d128_ms=d128["fused_attention_bwd"]["ms"],
+                 **{f"kernel_{k}": v for k, v in rows["fused_bwd_attributes"].items()}),
+            dict(name=f"fused_qk_prologue_delta_d{d}", route="cuda", source="vitok_torch/csrc/fused_attention_sm90.cu",
+                 replaces="vitok_tpu/ops/fused_attention.py:124",
+                 launches=fused_step["fused_qk_prologue"] + fold_step["fused_qk_prologue"],
+                 launches_with_delta=fused_step["fused_attention_bwd"] // 2 + fold_step["flash_attention_dq"],
+                 max_abs_err=pd["max_abs_err"], delta_max_rel_err=pd["delta_max_rel_err"], ms=pd["ms"],
+                 dev_ms=pd["dev_ms"], plain_ms=pd["plain_ms"], bound_ms=pd["bound_ms"], bound_by=pd["bound_by"],
+                 library_ms=None),
+        ]
+        for name, key, line in (("flash_attention_dq", "dq", 427), ("flash_attention_dkv", "dkv", 556)):
+            entries.append(dict(
+                name=f"{name}_d{d}", route="cuda", source="vitok_torch/csrc/flash_attention_bwd.cu",
+                replaces=f"vitok_tpu/ops/flash_attention.py:{line}", launches=fold_step[name],
+                max_abs_err=max(fb[f"{x}_max_abs_err"] for x in (("dq",) if key == "dq" else ("dk", "dv"))),
+                ms=fb[f"{key}_fold_ms"], dev_ms=fb[f"{key}_fold_dev_ms"], plain_instance_ms=fb[f"{key}_ms"],
+                plain_instance_dev_ms=fb[f"{key}_dev_ms"], plain_ms=fb["plain_ms"], bound_ms=fb[f"{key}_bound_ms"],
+                bound_by=fb[f"{key}_bound_by"], library_ms=fb["library_ms"], flex_ms=fb["flex_ms"],
+                d128_ms=d128[name][f"{key}_ms"], fold_bwd_ms=fb["fold_bwd_ms"], fold_bwd_dev_ms=fb["fold_bwd_dev_ms"],
+                **{f"kernel_{k}": v for k, v in fb["attributes"].items() if k.startswith(key)}))
     return entries
 
 
@@ -5428,7 +5679,7 @@ def main() -> int:
     entries += ab_entries(abkern, ab_runs, f32_ae, kern)
     entries += f32_training_entries(f32_train)
     entries += wide_kernel_entries(wide)
-    entries += wide_heads_entries(wide_heads, kern, fkern)
+    entries += wide_heads_entries(wide_heads, kern, fkern, fbkern, bkern)
     for e in entries:  # the 5B run's, the eval runs' and the perceptual steps' launches beside each path's own
         if bench_5b["launches"].get(e["name"]):
             e["launches_5b_bench"] = bench_5b["launches"][e["name"]]

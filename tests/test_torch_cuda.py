@@ -136,7 +136,7 @@ class TestKernelOnCard:
         assert (lse - want_lse).abs().transpose(1, 2)[valid].max().item() <= 1e-3
         assert (lse.transpose(1, 2)[~valid] == 1e30).all()
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("with_q", [True, False])
     def test_prologue_matches_plain(self, cuda_device, d, with_q):
         """q and k normed and rotated once (the forward's k alone), and the
@@ -429,9 +429,11 @@ class TestInferenceModeOnCard:
 class TestWideHeadsOnCard:
     """Head dims 192 and 256: the bf16 forward's instances (the q/k prologue,
     #1, #2 and the fold's #4) against their plain versions on the card, at
-    the limits the d 64/128 instances meet; a call under grad and an fp32
-    call keep the unfused composition (the backward and the fp32 instances
-    have none at these head dims), and a forced kernel there raises."""
+    the limits the d 64/128 instances meet (the backward's instances, #3,
+    #5 and #6, plain and fold, at every case of the backward classes below,
+    the prologue's delta in TestKernelOnCard); an fp32 call keeps
+    the unfused composition (the fp32 instances have none at these head
+    dims), and a forced fp32 kernel there raises."""
 
     @pytest.mark.parametrize("d", [192, 256])
     @pytest.mark.parametrize("case,masked,sw", CASES)
@@ -512,19 +514,18 @@ class TestWideHeadsOnCard:
         assert ((a - r).norm() / r.norm()).item() <= 2e-2
 
     def test_gates_close_and_forced_kernels_raise(self, cuda_device):
-        """The bf16 forward's gates open at d = 256 (the name is kept from
-        when they closed there); under grad and in fp32 they close, and a
-        forced kernel raises before it launches."""
+        """The bf16 gates open at d = 256, under grad too (the name is kept
+        from when they closed there); in fp32 they close, and a forced fp32
+        kernel raises before it launches."""
         qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=1, n=256, heads=1, d=256)
         assert t_fa.can_fuse(256, 256, 1, cuda=True) and t_fa.can_fuse(256, 256, 1)
-        assert not t_fa.can_fuse_bwd(256, 256, 1, cuda=True)
+        assert t_fa.can_fuse_bwd(256, 256, 1, cuda=True)
         assert not t_fa.can_fuse(256, 256, 1, cuda=True, dtype=torch.float32)
+        assert not t_fa.can_fuse_bwd(256, 256, 1, cuda=True, dtype=torch.float32)
         before = (counts(), t_fl.LAUNCHES)
         with pytest.raises(ValueError, match="head_dim"):
-            t_fa.fused_qkv_attention(qkv.requires_grad_(), qs, ks, cos, sin, num_heads=1, impl="fused")
-        with pytest.raises(ValueError, match="head_dim"):
             t_fa.fused_qkv_attention(qkv.detach().float(), qs, ks, cos, sin, num_heads=1, impl="fused")
-        q = qkv.detach()[..., :256].view(1, 256, 1, 256).requires_grad_()
+        q = qkv.detach()[..., :256].view(1, 256, 1, 256).float().requires_grad_()
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, q, q)
         assert (counts(), t_fl.LAUNCHES) == before
@@ -552,7 +553,7 @@ class TestFlashBackwardOnCard:
     kernel takes exp2 of a fused multiply-add. Limits relative to each
     gradient's largest entry: max 2e-2, mean 2e-3."""
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("n,sw", [(300, 40), (2100, 256)])
     @pytest.mark.parametrize("case", ["none", "tail", "sw", "tail+sw", "hole+sw"])
     def test_kernels_match_plain_bf16(self, cuda_device, d, n, sw, case):
@@ -634,7 +635,7 @@ class TestFlashFoldBackwardOnCard:
     function and rounding points): dqkv max 4e-2 and mean 1.5e-3 of its
     largest entry on valid rows, the gains' gradients 3e-2."""
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("sw", [None, 256])
     @pytest.mark.parametrize("masked", [False, True])
     def test_function_matches_plain(self, cuda_device, d, sw, masked):
@@ -738,7 +739,7 @@ class TestFusedBackwardOnCard:
     largest entry: dq, dk, dv max 4e-2 and mean 1.5e-3, the gain gradients
     3e-2 (about three times the readings on an H100)."""
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("n", [200, 1000])
     @pytest.mark.parametrize("case", ["none", "tail", "sw", "tail+sw", "tail+sw+dead"])
     def test_kernel_matches_plain_bf16(self, cuda_device, d, n, case):

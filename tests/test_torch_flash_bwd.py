@@ -15,6 +15,8 @@ products that contract them, at other block boundaries): max error within
 2e-2 and mean within 2e-3 of each gradient's largest entry.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -56,6 +58,15 @@ def make_case(n, h, d, mask_kind, seed=0):
     return q, k, v, g, mask
 
 
+@functools.lru_cache(maxsize=None)
+def jax_case_grads(n, h, d, mask_kind, sw, dtype):
+    """``jax_grads`` of ``make_case(n, h, d, mask_kind)``, once per module:
+    the plain and autograd paths of a case share it (the interpreted Pallas
+    kernels are most of this file's time)."""
+    q, k, v, g, mask = make_case(n, h, d, mask_kind)
+    return jax_grads(q, k, v, g, mask, sw, dtype)
+
+
 def jax_grads(q, k, v, g, mask, sw, dtype):
     jm = None if mask is None else jnp.asarray(mask)
     cot = jnp.asarray(g)
@@ -66,7 +77,8 @@ def jax_grads(q, k, v, g, mask, sw, dtype):
         return jnp.sum(out.astype(jnp.float32) * cot)
 
     args = [jnp.asarray(x, dtype) for x in (q, k, v)]
-    return [np.asarray(x.astype(jnp.float32)) for x in jax.grad(loss, argnums=(0, 1, 2))(*args)]
+    grad = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))  # one compile, not one per operation
+    return [np.asarray(x.astype(jnp.float32)) for x in grad(*args)]
 
 
 def port_grads_plain(q, k, v, g, mask, sw, dtype):
@@ -94,6 +106,8 @@ CASES = [  # (name, N, H, D, mask kind, window)
     ("empty-sample", 256, 1, 64, "empty", 40),
     ("d128", 256, 1, 128, "tail", 40),
     ("ragged-N", 300, 1, 64, "tail", 40),
+    ("d192", 256, 1, 192, "tail", 40),
+    ("d256", 256, 1, 256, "tail", 40),
 ]
 
 
@@ -103,7 +117,7 @@ class TestAgainstPallasBackward:
     @pytest.mark.parametrize("name,n,h,d,mask_kind,sw", CASES, ids=[c[0] for c in CASES])
     def test_float32(self, path, name, n, h, d, mask_kind, sw):
         q, k, v, g, mask = make_case(n, h, d, mask_kind)
-        want = jax_grads(q, k, v, g, mask, sw, jnp.float32)
+        want = jax_case_grads(n, h, d, mask_kind, sw, jnp.float32)
         port = port_grads_plain if path == "plain" else port_grads_autograd
         got = port(q, k, v, g, mask, sw, torch.float32)
         for what, a, r in zip(("dq", "dk", "dv"), got, want):
@@ -114,7 +128,8 @@ class TestAgainstPallasBackward:
             np.testing.assert_allclose(a, r, atol=ATOL_F32, rtol=0, err_msg=what)
 
     @pytest.mark.parametrize("name,n,h,d,mask_kind,sw",
-                             [c for c in CASES if c[0] in ("tail+sw", "d128")], ids=["tail+sw", "d128"])
+                             [c for c in CASES if c[0] in ("tail+sw", "d128", "d192", "d256")],
+                             ids=["tail+sw", "d128", "d192", "d256"])
     def test_bfloat16(self, name, n, h, d, mask_kind, sw):
         q, k, v, g, mask = make_case(n, h, d, mask_kind)
         want = jax_grads(q, k, v, g, mask, sw, jnp.bfloat16)

@@ -253,9 +253,9 @@ class TestFoldRouting:
     @pytest.mark.parametrize("d", [192, 256])
     def test_not_taken_at_other_head_dims(self, recorders, d):
         """Head dims 192 and 256 (the name is kept from when the fold was not
-        taken there): a bf16 call without a gradient takes the fold; under
-        grad, where the backward kernels have no instance at these head dims,
-        and in fp32 the unfused composition runs, with no launch."""
+        taken there): a bf16 call takes the fold, without a gradient and
+        under grad (the backward's fold instances, with the plain backward's
+        gradients); in fp32 the unfused composition runs, with no launch."""
         args = _card_args(1, 2048, 1, d, masked=False)
         assert t_fa.takes_flash_fold(args[0], args[1], args[2], 1, "auto")
         got = t_fa.unfused_qkv_attention(*args, 1, 300)
@@ -263,16 +263,16 @@ class TestFoldRouting:
         want = t_fa.flash_qkv_attention_plain(*map(plain, args), num_heads=1, sliding_window=300)
         torch.testing.assert_close(plain(got), want, rtol=0, atol=0)
         qkv = card(plain(args[0]).clone()).requires_grad_()
-        assert not t_fa.takes_flash_fold(qkv, args[1], args[2], 1, "auto")
+        assert t_fa.takes_flash_fold(qkv, args[1], args[2], 1, "auto")
         got = t_fa.unfused_qkv_attention(qkv, *args[1:], 1, 300)
-        plain(got).float().sum().backward()
-        assert qkv.grad is not None
+        torch.testing.assert_close(plain(got).detach(), want, rtol=0, atol=0)
+        _assert_grads_are_the_plain_backward(qkv, *args[1:], 1, 300, got)
+        launched = ["prologue", "flash"] * 2 + ["prologue", "dq", "dkv"]
+        assert recorders == launched
         f32 = _card_args(1, 2048, 1, d, dtype=torch.float32, masked=False)
         assert not t_fa.takes_flash_fold(f32[0], f32[1], f32[2], 1, "auto")
         got32 = t_fa.unfused_qkv_attention(*f32, 1, 300)
-        assert recorders == ["prologue", "flash"]  # the unfused composition: no further launches
-        want = t_fa.unfused_qkv_attention(*map(plain, args), 1, 300, attn_impl="xla")
-        torch.testing.assert_close(plain(got).detach(), want, rtol=0, atol=0)
+        assert recorders == launched  # the unfused composition: no further launches
         want32 = t_fa.unfused_qkv_attention(*map(plain, f32), 1, 300, attn_impl="xla")
         torch.testing.assert_close(plain(got32), want32, rtol=0, atol=0)
 
@@ -306,27 +306,30 @@ class TestHeadDimGates:
     @pytest.mark.parametrize("d,ok_cpu,ok_card", [(64, True, True), (128, True, True), (192, True, False),
                                                   (256, True, False), (72, False, False)])
     def test_gates_follow_the_kernel_head_dims_on_the_card(self, monkeypatch, d, ok_cpu, ok_card):
-        """On the card the bf16 forward's gates open wherever the JAX
-        package's do (``ok_cpu``: 64, 128, 192 and 256); ``ok_card`` is now
-        where the gates of a call under grad (the backward's head dims) and of
-        an fp32 call open on the card: 64 and 128."""
+        """On the card the bf16 gates open wherever the JAX package's do
+        (``ok_cpu``: 64, 128, 192 and 256), a call under grad too (the
+        backward's head dims are the forward's since it has instances at 192
+        and 256); ``ok_card`` is where the gates of an fp32 call open on the
+        card: 64 and 128."""
         monkeypatch.setattr(t_fa, "_ENABLE_Q8", True)
         c = 4 * d if d != 72 else 1728
         h = c // d
         f32 = torch.float32
         assert t_attn.head_dim_routes(d, cuda=False) is ok_cpu
         assert t_attn.head_dim_routes(d, cuda=True) is ok_cpu
-        assert t_attn.head_dim_routes(d, cuda=True, grad=True) is ok_card
+        assert t_attn.head_dim_routes(d, cuda=True, grad=True) is ok_cpu
         assert t_attn.head_dim_routes(d, cuda=True, dtype=f32) is ok_card
+        assert t_attn.head_dim_routes(d, cuda=True, dtype=f32, grad=True) is ok_card
         assert t_attn.flash_route(2048, d, "auto", cuda=False) is ok_cpu
         assert t_attn.flash_route(2048, d, "auto", cuda=True) is ok_cpu
-        assert t_attn.flash_route(2048, d, "auto", cuda=True, grad=True) is ok_card
+        assert t_attn.flash_route(2048, d, "auto", cuda=True, grad=True) is ok_cpu
         assert t_attn.flash_route(2048, d, "auto", cuda=True, dtype=f32) is ok_card
         assert t_attn.flash_route(2048, d, "flash", cuda=True)  # asked for: it raises where no instance is
         assert t_fa.can_fuse(256, c, h) is (ok_cpu and c % 128 == 0)
         assert t_fa.can_fuse(256, c, h, cuda=True) is (ok_cpu and c % 128 == 0)
         assert t_fa.can_fuse(256, c, h, cuda=True, dtype=f32) is (ok_card and c % 128 == 0)
-        assert t_fa.can_fuse_bwd(256, c, h, cuda=True) is (ok_card and c % 128 == 0)
+        assert t_fa.can_fuse_bwd(256, c, h, cuda=True) is (ok_cpu and c % 128 == 0)
+        assert t_fa.can_fuse_bwd(256, c, h, cuda=True, dtype=f32) is (ok_card and c % 128 == 0)
         assert t_fa.can_fuse_bwd(256, c, h) == t_fa.can_fuse(256, c, h)
         if ok_cpu:
             assert t_fa.can_fuse_q8(256, c, h) and t_fa.can_fuse_q8(256, c, h, cuda=True)
@@ -337,9 +340,11 @@ class TestHeadDimGates:
         """A d = 256 block (``w1024_d2_h4``'s heads) at 256 and 2048 tokens
         (the name is kept from when both took the composition): in bf16
         without a gradient the fused kernel at 256 tokens and the fold at
-        2048, each equal to its plain version; under grad the fused gate
-        and the flash route close on the card, and the composition computes
-        what it computes on the CPU."""
+        2048, each equal to its plain version. Under grad ``"auto"`` keeps
+        the composition at 256 tokens (the JAX package's training gate) and
+        takes the fold at 2048, forward and backward (the backward's fold
+        instances, since they have d 256), with the plain backward's
+        gradients."""
         args = _card_args(1, n, 2, 256, masked=False)
         got = t_fa.fused_qkv_attention(*args, num_heads=2, sliding_window=100)
         kernels = ["fused"] if n == 256 else ["prologue", "flash"]
@@ -349,21 +354,29 @@ class TestHeadDimGates:
         torch.testing.assert_close(plain(got), want, rtol=0, atol=0)
         qkv = card(plain(args[0]).clone()).requires_grad_()
         got = t_fa.fused_qkv_attention(qkv, *args[1:], num_heads=2, sliding_window=100)
-        assert recorders == kernels
-        want = t_fa.unfused_qkv_attention(*map(plain, args), 2, 100, attn_impl="xla")
-        torch.testing.assert_close(plain(got).detach(), want, rtol=0, atol=0)
+        if n == 256:
+            assert recorders == kernels
+            want = t_fa.unfused_qkv_attention(*map(plain, args), 2, 100, attn_impl="xla")
+            torch.testing.assert_close(plain(got).detach(), want, rtol=0, atol=0)
+        else:
+            assert recorders == kernels * 2
+            torch.testing.assert_close(plain(got).detach(), want, rtol=0, atol=0)
+            _assert_grads_are_the_plain_backward(qkv, *args[1:], 2, 100, got)
+            assert recorders == kernels * 2 + ["prologue", "dq", "dkv"]
 
     def test_dot_product_attention_keeps_wide_heads_off_the_flash_kernel(self, recorders):
         """Wide heads (the name is kept from when the flash kernel never took
-        them) go to the flash kernel in bf16 without a gradient, and stay off
-        it under grad and in fp32; heads of 128 go to it under grad."""
+        them) go to the flash kernel in bf16, without a gradient and under
+        grad (the backward has d 256 instances), and stay off it in fp32;
+        heads of 128 go to it under grad."""
         x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 2048, 1, 256), dtype=np.float32))
         q = card(x.bfloat16())
         t_attn.dot_product_attention(q, q, q, sliding_window=64)
         assert recorders == ["flash"]
         qg = card(x.bfloat16().requires_grad_())
         t_attn.dot_product_attention(qg, qg, qg, sliding_window=64)
-        t_attn.dot_product_attention(card(x), card(x), card(x), sliding_window=64)
-        assert recorders == ["flash"]
-        t_attn.dot_product_attention(q[..., :128], q[..., :128], q[..., :128], sliding_window=64)
         assert recorders == ["flash", "flash"]
+        t_attn.dot_product_attention(card(x), card(x), card(x), sliding_window=64)
+        assert recorders == ["flash", "flash"]
+        t_attn.dot_product_attention(q[..., :128], q[..., :128], q[..., :128], sliding_window=64)
+        assert recorders == ["flash", "flash", "flash"]

@@ -7,13 +7,15 @@ the CPU) and its unfused composition's VJP, and through the port:
 ``fused_qkv_attention(impl="fused")`` (which on CPU tensors runs the plain
 forward and the plain backward, so the wiring is the one the card uses).
 Cases as ``tests/test_fused_attention.py::TestPallasBwdKernel``: no mask,
-tail mask, window, both, head dims 64 and 128, an all-padding sample.
+tail mask, window, both, head dims 64, 128, 192 and 256, an all-padding sample.
 
 Tolerances, the JAX tests' own for this kernel: float32 dqkv and both gain
 gradients within atol = rtol = 1e-4; bfloat16 within 5e-2 (both sides round
 p and ds to bf16 before the products that contract them). Padded query rows
 are exactly 0 on both sides.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -54,8 +56,9 @@ def jax_kernel_bwd(case, heads, sw, dtype):
     gj = jnp.asarray(g, dtype)
     if jm is not None:
         gj = gj * jm.astype(gj.dtype)[..., None]
-    out = j_fa._fused_bwd(jnp.asarray(qkv, dtype), jnp.asarray(qs), jnp.asarray(ks), jnp.asarray(cos),
-                          jnp.asarray(sin), jm, gj, heads, sw, interpret=True)
+    bwd = jax.jit(j_fa._fused_bwd, static_argnums=(7, 8), static_argnames=("interpret",))
+    out = bwd(jnp.asarray(qkv, dtype), jnp.asarray(qs), jnp.asarray(ks), jnp.asarray(cos), jnp.asarray(sin), jm, gj,
+              heads, sw, interpret=True)
     return [np.asarray(t, np.float32) for t in out]
 
 
@@ -70,8 +73,11 @@ def jax_unfused_vjp(case, heads, sw):
         return j_fa.unfused_qkv_attention(qkv_, qs_, ks_, jnp.asarray(cos), jnp.asarray(sin), jm,
                                           heads, sw, attn_impl="xla")
 
-    _, vjp = jax.vjp(f, jnp.asarray(qkv), jnp.asarray(qs), jnp.asarray(ks))
-    return [np.asarray(t, np.float32) for t in vjp(gj)]
+    @jax.jit  # one compile, not one per operation
+    def vjp_of(qkv_, qs_, ks_, g_):
+        return jax.vjp(f, qkv_, qs_, ks_)[1](g_)
+
+    return [np.asarray(t, np.float32) for t in vjp_of(jnp.asarray(qkv), jnp.asarray(qs), jnp.asarray(ks), gj)]
 
 
 def torch_args(case, dtype=torch.float32):
@@ -107,6 +113,8 @@ CASES = {
     "d64": dict(b=1, n=32, heads=2, d=64),
     "d128": dict(b=1, n=32, heads=2, d=128),
     "all_padding_sample": dict(b=3, n=40, heads=2, d=64, valid=[40, 17, 0], sw=6),
+    "d192": dict(b=1, n=32, heads=2, d=192),
+    "d256_mask_window": dict(b=2, n=64, heads=2, d=256, valid=[64, 23], sw=9),
 }
 
 
@@ -116,32 +124,43 @@ def _split(name):
     return make_case(**kw), kw["heads"], sw
 
 
+@functools.lru_cache(maxsize=None)
+def jax_reference(name, kind, dtype=jnp.float32):
+    """The JAX package's gradients of case ``name``, once per module (the
+    tests of a case share them): ``"kernel"`` the interpreted Pallas
+    backward, ``"unfused"`` the composition's VJP."""
+    case, heads, sw = _split(name)
+    if kind == "kernel":
+        return jax_kernel_bwd(case, heads, sw, dtype)
+    return jax_unfused_vjp(case, heads, sw)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 class TestPlainBackward:
     def test_matches_pallas_kernel_f32(self, name):
         case, heads, sw = _split(name)
-        assert_close(port_plain(case, heads, sw), jax_kernel_bwd(case, heads, sw, jnp.float32), 1e-4)
+        assert_close(port_plain(case, heads, sw), jax_reference(name, "kernel"), 1e-4)
 
     def test_matches_unfused_vjp_f32(self, name):
         case, heads, sw = _split(name)
-        assert_close(port_plain(case, heads, sw), jax_unfused_vjp(case, heads, sw), 1e-4)
+        assert_close(port_plain(case, heads, sw), jax_reference(name, "unfused"), 1e-4)
 
     def test_autograd_function_f32(self, name):
         """``fused_qkv_attention(impl="fused")`` under autograd runs the same
         backward, on the cotangent zeroed at padded query rows."""
         case, heads, sw = _split(name)
         got = port_autograd(case, heads, sw)
-        assert_close(got, jax_kernel_bwd(case, heads, sw, jnp.float32), 1e-4)
+        assert_close(got, jax_reference(name, "kernel"), 1e-4)
         mask = case[5]
         if mask is not None:
             assert not got[0][~mask].any(), "padded rows of dqkv are exactly 0"
 
 
-@pytest.mark.parametrize("name", ["no_mask", "tail_mask", "mask_window", "d64", "d128"])
+@pytest.mark.parametrize("name", ["no_mask", "tail_mask", "mask_window", "d64", "d128", "d192", "d256_mask_window"])
 def test_matches_pallas_kernel_bf16(name):
     case, heads, sw = _split(name)
     got = port_plain(case, heads, sw, torch.bfloat16)
-    assert_close(got, jax_kernel_bwd(case, heads, sw, jnp.bfloat16), 5e-2)
+    assert_close(got, jax_reference(name, "kernel", jnp.bfloat16), 5e-2)
 
 
 class TestWiring:
@@ -165,7 +184,7 @@ class TestWiring:
         qs.requires_grad_(True)
         out = t_fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=4, impl="fused")
         (dqs,) = torch.autograd.grad(out, (qs,), g)
-        want = jax_kernel_bwd(_split("no_mask")[0], 4, None, jnp.float32)[1]
+        want = jax_reference("no_mask", "kernel")[1]
         np.testing.assert_allclose(dqs.numpy(), want, atol=1e-4, rtol=1e-4)
 
     def test_auto_under_grad_takes_the_unfused_composition(self):
@@ -182,9 +201,16 @@ class TestWiring:
         np.testing.assert_allclose(dqkv.numpy(), port_plain(case, heads, sw)[0], atol=1e-4, rtol=1e-4)
 
     def test_gate_follows_the_forward(self):
+        """The backward's gate is the forward's, on the card too since the
+        backward has instances at head dims 192 and 256 (the 5B width with
+        16 heads of 192 and 12 of 256); fp32 on the card keeps 64 and 128."""
         for n, c, h in [(256, 1024, 16), (1024, 1024, 16), (256, 3072, 24), (1024, 3072, 24),
-                        (252, 1024, 16), (256, 96 * 16, 16), (2048, 1024, 16)]:
+                        (252, 1024, 16), (256, 96 * 16, 16), (2048, 1024, 16), (256, 3072, 16),
+                        (1024, 3072, 12)]:
             assert t_fa.can_fuse_bwd(n, c, h) == t_fa.can_fuse(n, c, h)
+            assert t_fa.can_fuse_bwd(n, c, h, cuda=True) == t_fa.can_fuse(n, c, h, cuda=True)
+            f32 = dict(cuda=True, dtype=torch.float32)
+            assert t_fa.can_fuse_bwd(n, c, h, **f32) == (t_fa.can_fuse(n, c, h) and c // h in (64, 128))
 
     def test_no_kernel_on_other_devices(self):
         (qkv, qs, ks, cos, sin, mask), g = torch_args(_split("no_mask")[0])

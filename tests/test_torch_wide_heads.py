@@ -1,24 +1,30 @@
-"""Head dims 192 and 256 on the serving kernels, on the CPU.
+"""Head dims 192 and 256 on the serving and training kernels, on the CPU.
 
 The plain q/k norm's statistics (``_rms_inv``, the kernels' order of the
 sum of squares: at d = 192 the 12 piece sums padded with zeros to the row's
 16 lanes, then added pairwise) against ``mean`` at every head dim that is a
-multiple of 64 up to 512. The plain versions of the int8-epilogue forward
-(#2) against the JAX Pallas kernel interpreted, and of the fold (the q/k
-prologue, then #4) against the JAX composition on its flash route (Pallas
-interpreted), at d 192 and 256. Small autoencoders at head dims 192 and 256
-through both packages, the JAX parameters carried across by
-``from_jax_params``: fp32 within 1e-4, int8 within rel L2 1e-3.
+multiple of 64 up to 512, and its backward (``_norm_rope_bwd``, what
+``norm_rope_bwd_tile`` computes) against float64 autograd of the forward at
+d 192 and 256. The plain versions of the int8-epilogue forward (#2) against
+the JAX Pallas kernel interpreted, and of the fold (the q/k prologue, then
+#4) against the JAX composition on its flash route (Pallas interpreted), at
+d 192 and 256. Small autoencoders at head dims 192 and 256 through both
+packages, the JAX parameters carried across by ``from_jax_params``: fp32
+within 1e-4, int8 within rel L2 1e-3; and one fp32 training step at each
+head dim through the fused attention's autograd Function (#3's plain
+versions) against ``jax.grad``, the parameters carried by the JAX package's
+``pytree_to_torch_state``: gradients within rel L2 1e-4.
 
 Then the routing on the card at these head dims, on tensors that say they
 lie there (a ``Tensor`` subclass whose ``is_cuda`` is True) with the CUDA
 libraries replaced by recorders of their C entry points: a bf16 forward
 reaches the d 192/256 instances (the prologue, #1, #2 in its cluster, #4
-after the prologue); a call under grad (the backward has no instance at
-these head dims) and an fp32 call take the unfused composition and launch
-nothing, and a forced kernel raises before a launch; an AE training step at
-d 256 takes the composition. The kernels themselves are held to their plain
-versions on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+after the prologue), and a bf16 call under grad the backward's (the prologue
+with delta, then #3, or #5/#6's fold instances); an fp32 call takes the
+unfused composition and launches nothing, and a forced fp32 or A/B kernel
+raises before a launch; an AE training step at d 256 launches #1 and #3 in
+every block. The kernels themselves are held to their plain versions on the
+card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import contextlib
@@ -33,20 +39,24 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from vitok_tpu import train_lib as j_tl
 from vitok_tpu.models import ae as j_ae
 from vitok_tpu.ops import fused_attention as j_fa
 from vitok_tpu.ops import quant as j_q
+from vitok_tpu.utils.params_io import pytree_to_torch_state
+from vitok_torch import train_lib as t_tl
 from vitok_torch.models import ae as t_ae
 from vitok_torch.ops import _build
 from vitok_torch.ops import flash_attention as t_fl
 from vitok_torch.ops import fused_attention as t_fa
-from vitok_torch.utils.params_io import from_jax_params
+from vitok_torch.utils.params_io import from_jax_params, released_state_to_module_state, to_jax_params
 
 from tests.test_torch_ae import jax_params, make_batch
 from tests.test_torch_flash_fold import make_inputs as fold_inputs
 from tests.test_torch_fused_bwd import make_case
 from tests.test_torch_fused_q8 import check as check_q8
 from tests.test_torch_quant import jax_tpu_routing, rel_l2
+from tests.test_torch_train_lib import assert_trees_close, jax_tile_indices, port_grads
 
 torch.set_num_threads(1)
 
@@ -62,6 +72,32 @@ class TestRmsInv:
         got = t_fa._rms_inv(x)
         want = torch.rsqrt(x.double().square().mean(-1, keepdim=True) + 1e-6).float()
         torch.testing.assert_close(got, want, rtol=2e-6, atol=0)
+
+
+class TestNormRopeBackward:
+    @pytest.mark.parametrize("d", [192, 256])
+    def test_matches_autograd_of_the_forward(self, d):
+        """``_norm_rope_bwd`` (what ``norm_rope_bwd_tile`` computes: the
+        rotation's transpose, then the RMSNorm backward on the raw rows) at
+        d = 192, where a row's 12 pieces sum over 16 lanes, and at 256,
+        against float64 autograd of the forward it inverts: ``_rms_inv``'s
+        statistics in the kernels' order, the gain, the rotate-half rotation
+        with the tables rounded to bf16. rtol 1e-5 of each gradient's
+        largest entry."""
+        rng = np.random.default_rng(d)
+        t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        x, dz, scale = t(2, 24, 3, d) * 2, t(2, 24, 3, d), 1 + 0.1 * t(d)
+        ang = t(2, 24, 1, d // 2) * 3
+        cos32, sin32 = ang.cos().bfloat16().float(), ang.sin().bfloat16().float()
+        dx, dscale = t_fa._norm_rope_bwd(dz, x, t_fa._rms_inv(x), scale, cos32, sin32)
+        x64, s64 = x.double().requires_grad_(), scale.double().requires_grad_()
+        y = x64 * t_fa._rms_inv(x64) * s64
+        yr, yi = y[..., : d // 2], y[..., d // 2:]
+        c64, n64 = cos32.double(), sin32.double()
+        rot = torch.cat([yr * c64 - yi * n64, yr * n64 + yi * c64], dim=-1)
+        want_dx, want_ds = torch.autograd.grad(rot, (x64, s64), dz.double())
+        for got, want in ((dx, want_dx), (dscale, want_ds)):
+            assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 class TestPlainAgainstJax:
@@ -89,13 +125,20 @@ SMALL_AE = {  # name: (variant, tokens, per-sample grids)
 
 
 @functools.lru_cache(maxsize=None)
+def small_params(name):
+    """``jax_params`` of the small AE ``name`` (its JAX init runs op by op,
+    seconds a call): once per module, shared by every test of the model."""
+    return jax_params(j_ae.AEConfig.from_variant(SMALL_AE[name][0]))
+
+
+@functools.lru_cache(maxsize=None)
 def jax_model(name, sw, int8):
     """(cfg, params, batch, z, decode(z) patches) of the JAX model at fp32;
     ``int8``: its blocks quantized (``quantize_block_params``), the Pallas
     kernels interpreted as they are routed on the TPU."""
     variant, n, grids = SMALL_AE[name]
     cfg = j_ae.AEConfig.from_variant(variant, sw=sw)
-    params = jax_params(cfg)
+    params = small_params(name)
     if int8:
         params = jax.tree_util.tree_map(np.asarray, j_q.quantize_block_params(params))
     batch = make_batch(len(grids), n, 16, grids)
@@ -133,6 +176,41 @@ class TestSmallModels:
         assert rel_l2(model.encode(tb)["z"].numpy()[valid], z_want[valid]) <= MODEL_REL_L2
         dec = model.decode({**tb, "z": torch.from_numpy(z_want)})["patches"].numpy()
         assert rel_l2(dec[valid], p_want[valid]) <= MODEL_REL_L2
+
+
+class TestTrainingStep:
+    @pytest.mark.parametrize("name", list(SMALL_AE))
+    def test_gradients_match_jax_grad(self, name):
+        """One fp32 training step's loss (Charbonnier + SSIM) and parameter
+        gradients at head dims 192 and 256, the JAX parameters carried across
+        by ``pytree_to_torch_state`` (the released layout) and
+        ``released_state_to_module_state``: ``attn_impl="fused"`` trains
+        through the fused attention's autograd Function (#3's plain forward
+        and backward on the CPU), against ``jax.grad`` of the JAX package's
+        loss. Loss 1e-5, every gradient rel L2 1e-4."""
+        variant, n, grids = SMALL_AE[name]
+        cfg = j_ae.AEConfig.from_variant(variant)
+        params = small_params(name)
+        batch = make_batch(len(grids), n, 16, grids)
+        loss = dict(ssim_weight=0.1, tile_size=32, n_tiles=1, patch=16, ssim_grid=(4, 8))
+        rng = jax.random.key(23)
+        grad_fn = jax.jit(jax.value_and_grad(j_tl.compute_loss, has_aux=True), static_argnums=(2, 3, 5, 6))
+        (want, _), want_g = grad_fn(jax.tree_util.tree_map(jnp.asarray, params),
+                                    {k: jnp.asarray(v) for k, v in batch.items()}, cfg, j_tl.LossConfig(**loss), rng,
+                                    None, jnp.float32)
+        state = released_state_to_module_state(pytree_to_torch_state(params))
+        kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(t_ae.AEConfig)}
+        model = t_ae.AE(**{**kw, "attn_impl": "fused"}, state_dict=state, compute_dtype=torch.float32,
+                        device="cpu", param_dtype=torch.float32, trainable=True)
+        calls = []
+        bwd = t_fa.fused_qkv_attention_bwd_plain
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(t_fa, "fused_qkv_attention_bwd_plain", lambda *a, **k: calls.append(1) or bwd(*a, **k))
+            got, _, grads = port_grads(model, batch, t_tl.LossConfig(**loss),
+                                       tile_indices=jax_tile_indices(batch, j_tl.LossConfig(**loss), rng))
+        assert len(calls) == cfg.encoder_depth + cfg.decoder_depth
+        assert abs(got - float(want)) <= 1e-5
+        assert_trees_close(to_jax_params(grads), want_g, 1e-4, "grad")
 
 
 # ---------------------------------------------------------------------------
@@ -234,40 +312,58 @@ class TestCardRouting:
         assert launches() == only(fl=1, prologue=1)
 
     def test_grad_and_fp32_keep_the_composition(self, entries, d):
-        for n in (256, 2048):
+        """Under grad in bf16 (the name is kept from when such a call took the
+        composition) a d 192/256 call reaches the backward's C entries: at 256
+        tokens with ``impl="fused"`` #1 with its log-sum-exp, then the
+        prologue with delta and #3's entry; at 2048 tokens the fold, then the
+        prologue with delta and #5's and #6's fold instances. An fp32 call
+        keeps the composition and launches nothing."""
+        fold = ["vitok_fused_qk_prologue_bf16", "vitok_flash_attention_bf16", "vitok_fused_qk_prologue_bf16",
+                "vitok_flash_bwd_dq_fold_bf16", "vitok_flash_bwd_dkv_fold_bf16"]
+        fused = ["vitok_fused_qk_prologue_bf16", "vitok_fused_attention_sm90_bf16", "vitok_fused_qk_prologue_bf16",
+                 "vitok_fused_attention_bwd_bf16"]
+        for n, impl, want in ((256, "fused", fused), (2048, "auto", fold)):
+            entries.clear()
             qkv, *rest = qkv_inputs(1, n, 2, d)
             qkv.requires_grad_()
-            assert not t_fa.takes_flash_fold(qkv, rest[0], rest[1], 2, "auto")
-            out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=40)
+            assert t_fa.takes_flash_fold(qkv, rest[0], rest[1], 2, "auto") is (n == 2048)
+            out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=40, impl=impl)
             out.as_subclass(torch.Tensor).float().sum().backward()
-            assert qkv.grad is not None
+            assert qkv.grad is not None and names(entries) == want
+            prologue = entries[2][1]  # the backward's: out given (delta), q and k
+            assert prologue[5] is not None and prologue[9:14] == (1, n, 2, d, 2)
+            assert entries[-1][1][-6:-1] == (1, n, 2, d, 40)  # B, N, H, D, window
+        entries.clear()
+        for n in (256, 2048):
             args = qkv_inputs(1, n, 2, d, dtype=torch.float32)
             assert not t_fa.takes_flash_fold(args[0], args[1], args[2], 2, "auto")
             t_fa.fused_qkv_attention(*args, num_heads=2, sliding_window=40)
-        assert entries == [] and launches() == only()
+        assert entries == [] and launches() == only(fa=1, prologue=4, bwd=2, fl=1, dq=1, dkv=1)
 
     def test_forced_kernels_raise_before_a_launch(self, entries, d):
-        qkv, *rest = qkv_inputs(1, 256, 2, d)
-        with pytest.raises(ValueError, match="head_dim"):
-            t_fa.fused_qkv_attention(qkv.requires_grad_(), *rest, num_heads=2, impl="fused")
+        """fp32 (its instances stop at 128) and the A/B kernels' wrappers
+        raise before a launch; bf16 under grad no longer does (the backward
+        has d 192/256 instances)."""
         with pytest.raises(ValueError, match="head_dim"):
             t_fa.fused_qkv_attention(*qkv_inputs(1, 256, 2, d, dtype=torch.float32), num_heads=2, impl="fused")
-        q = card(torch.zeros((1, 256, 2, d), dtype=torch.bfloat16, requires_grad=True))
+        q = card(torch.zeros((1, 256, 2, d), dtype=torch.float32, requires_grad=True))
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, q, q)
-        g = card(torch.zeros((1, 64, 2 * d), dtype=torch.bfloat16))
-        with pytest.raises(ValueError, match="head_dim"):  # delta: the backward's prologue
-            t_fa.fused_qk_prologue(*qkv_inputs(1, 64, 2, d)[:5], num_heads=2, out=g, dout=g)
+        g = card(torch.zeros((1, 64, 2 * d), dtype=torch.float32))
+        with pytest.raises(ValueError, match="head_dim"):  # delta: the backward's fp32 prologue
+            t_fa.fused_qk_prologue(*qkv_inputs(1, 64, 2, d, dtype=torch.float32)[:5], num_heads=2, out=g, dout=g)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_fa.fused_qkv_attention_mma(*qkv_inputs(1, 64, 2, d), num_heads=2)
         assert entries == [] and launches() == only()
 
 
 def test_ae_training_step_at_d256_takes_the_composition(entries, monkeypatch):
     """A bf16 AE with 256-channel heads on the card (every tensor says it
-    lies there): ``attn_impl="fused"`` trains on the unfused composition
-    (the backward kernels have no instance at d = 256), so its step launches
-    no kernel of the attention, forward or backward; the same model under
-    ``no_grad`` takes the forward kernels (#1 after the prologue) in every
-    block."""
+    lies there; the name is kept from when its step took the composition):
+    ``attn_impl="fused"`` trains on the fused kernels, so its step launches
+    in every block #1 after the prologue forward and the prologue with delta
+    and #3's dq and dk/dv kernels backward; the same model under
+    ``no_grad`` takes the forward kernels in every block."""
     cfg = t_ae.AEConfig.from_variant("w512_d1_h2-w512_d1_h2/1x16x8")
     model = t_ae.AE(**{**dataclasses.asdict(cfg), "attn_impl": "fused"}, param_dtype=torch.float32,
                     compute_dtype=torch.bfloat16, trainable=True, device="cpu")
@@ -276,8 +372,10 @@ def test_ae_training_step_at_d256_takes_the_composition(entries, monkeypatch):
     out = model(batch, deterministic=False)
     out["patches"].float().square().mean().backward()
     assert all(p.grad is not None for p in model.parameters() if p.requires_grad)
-    assert entries == [] and launches() == only()
+    depth = cfg.encoder_depth + cfg.decoder_depth
+    assert launches() == only(fa=depth, prologue=2 * depth, bwd=2 * depth)
+    assert set(names(entries)) == {"vitok_fused_qk_prologue_bf16", "vitok_fused_attention_sm90_bf16",
+                                   "vitok_fused_attention_bwd_bf16"}
     with torch.no_grad():
         model.decode(model.encode(batch))
-    depth = cfg.encoder_depth + cfg.decoder_depth
-    assert launches() == only(fa=depth, prologue=depth)
+    assert launches() == only(fa=2 * depth, prologue=3 * depth, bwd=2 * depth)

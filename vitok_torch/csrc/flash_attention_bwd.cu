@@ -76,6 +76,20 @@
 //     "easy" tile (every key valid, every pair inside the window) selects
 //     nothing; any other tile selects from a 64-bit mask of its live
 //     columns: no branch per element.
+//   * Head dims 192 and 256 (the JAX kernels take any multiple of 64): one
+//     sw128 tile is 24 / 32 KB, so the rings are shallower. dq: two
+//     warpgroups on a two-stage ring at d = 192, one on two stages at
+//     d = 256 (192 KB either way; DqSmem), dQ += dS K two wgmma products on
+//     K's column blocks (sm90.cuh's wgmma_rs). dk/dv: dk and dv together are
+//     D fp32 registers a thread, 256 before S^T and dP^T, so no warpgroup
+//     holds both: one 64-key tile a block, two warpgroups, warpgroup 0
+//     holding dv and warpgroup 1 dk (flash_bwd_dkv_split_kernel), on a
+//     two-stage Q / dO ring. Warpgroup 1 takes p^T from warpgroup 0 through
+//     shared memory and a named barrier: four products a pair, as at d 64 /
+//     128 (forming S^T again in warpgroup 1, five, or splitting the columns
+//     of both accumulators, six, measured 3-19% slower on an H100, PERF.md).
+//     At d = 256 1/sqrt(d) = 1/16, so as at d = 64 S^T reads Q as it came.
+//     The fold's epilogue of a dk tile then runs over both warpgroups.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry points, bound
@@ -95,8 +109,7 @@ namespace {
 
 constexpr int kTile = 64;      // rows of every tile, on both axes
 constexpr int kThreads = 128;  // one warpgroup
-constexpr int kAhead = 2;      // streamed tiles in flight ahead of the one computed
-constexpr int kRing = kAhead + 1;
+constexpr int kBarP = 1;       // named barrier of the dk/dv split's p^T handoff
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kDeadLse = 1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -171,36 +184,72 @@ __device__ __forceinline__ void live_range(int r0, int r_end, int valid, int sw,
   }
 }
 
-// The fold's epilogue for one warpgroup's 64-row tile starting at r0: its
-// fp32 gradient of the rotated rows, acc * scale (the wgmma C fragment),
-// through the rotation's transpose and the RMSNorm backward on the raw rows
-// into the plane of dqkv, and the gain's partial into tile `tile` of the
-// partials (or `spare`, shared memory, for a tile at or past N). `stage` and
-// `part`: this warpgroup's fp32 scratch in shared memory. Every warpgroup
-// of the block calls it (norm_rope_bwd_tile synchronises the block).
-template <int D>
-__device__ __forceinline__ void fold_epilogue(const float (&acc)[D / 2], float scale, const Fold& f, float* stage,
-                                              float* part, float* spare, int b, int h, int H, int N, int r0,
-                                              int tile) {
+// The fold's epilogue for a 64-row tile starting at r0: the fp32 gradient
+// of the rotated rows, acc * scale (a warpgroup's wgmma C fragment, staged by
+// the threads with `staged`), through the rotation's transpose and the
+// RMSNorm backward on the raw rows into the plane of dqkv, and the gain's
+// partial into tile `tile` of the partials (or `spare`, shared memory, for a
+// tile at or past N), over THREADS threads (a warpgroup's, or the block's
+// when one warpgroup holds the tile). `stage` and `part`: fp32 scratch in
+// shared memory. Every thread of the block calls it (norm_rope_bwd_tile
+// synchronises the block).
+template <int D, int THREADS>
+__device__ __forceinline__ void fold_epilogue(const float (&acc)[D / 2], bool staged, float scale, const Fold& f,
+                                              float* stage, float* part, float* spare, int b, int h, int H, int N,
+                                              int r0, int tile) {
   constexpr int kRow = D + 4;
   const int wtid = threadIdx.x % kThreads;
   const int row = (wtid >> 5) * 16 + ((wtid & 31) >> 2);
   const int t = wtid & 3;
+  if (staged) {
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    *reinterpret_cast<float2*>(stage + row * kRow + col) =
-        make_float2(__fmul_rn(acc[4 * dt], scale), __fmul_rn(acc[4 * dt + 1], scale));
-    *reinterpret_cast<float2*>(stage + (row + 8) * kRow + col) =
-        make_float2(__fmul_rn(acc[4 * dt + 2], scale), __fmul_rn(acc[4 * dt + 3], scale));
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const int col = dt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(stage + row * kRow + col) =
+          make_float2(__fmul_rn(acc[4 * dt], scale), __fmul_rn(acc[4 * dt + 1], scale));
+      *reinterpret_cast<float2*>(stage + (row + 8) * kRow + col) =
+          make_float2(__fmul_rn(acc[4 * dt + 2], scale), __fmul_rn(acc[4 * dt + 3], scale));
+    }
   }
   __syncthreads();
   const int tiles = (N + kTile - 1) / kTile;
   float* gain_grad = tile < tiles ? f.part + (((long long)b * H + h) * tiles + tile) * D : spare;
   const long long plane = (long long)b * N * f.row_stride + h * D;
-  norm_rope_bwd_tile<D, kThreads>(stage, f.raw + plane, f.row_stride, r0, N, f.gain,
-                                  f.cos_t + (long long)b * N * (D / 2), f.sin_t + (long long)b * N * (D / 2),
-                                  f.dst + plane, part, gain_grad, wtid);
+  norm_rope_bwd_tile<D, THREADS>(stage, f.raw + plane, f.row_stride, r0, N, f.gain,
+                                 f.cos_t + (long long)b * N * (D / 2), f.sin_t + (long long)b * N * (D / 2),
+                                 f.dst + plane, part, gain_grad, threadIdx.x % THREADS);
+}
+
+// The delta = sum_d dO * O of rows [r0, r0 + ROWS) of one (sample, head),
+// 0 on padded rows, over THREADS threads: a row's D channels over lanes
+// neighbouring threads, 8 each, D/8 rounded up to a power of two so that
+// the xor butterfly stays inside the row (d = 192: 32 lanes, 24 live). Into
+// sDelta[0 .. ROWS) and delta[row_base + n] for rows n < N.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void row_delta(const __nv_bfloat16* o_b, long long o_sn, const __nv_bfloat16* g_b,
+                                          long long g_sn, const unsigned char* mask_b, int r0, int N,
+                                          float* sDelta, float* delta, long long row_base, int tid) {
+  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
+  constexpr int kLanes = pow2_at_least(kChunks);
+  const int lane = tid % kLanes;
+  for (int row = tid / kLanes; row < ROWS; row += THREADS / kLanes) {
+    const int n = r0 + row;
+    float acc = 0.f;
+    if (lane < kChunks && n < N && (mask_b == nullptr || mask_b[n])) {
+      const uint4 o8 = *reinterpret_cast<const uint4*>(o_b + n * o_sn + lane * 8);
+      const uint4 g8 = *reinterpret_cast<const uint4*>(g_b + n * g_sn + lane * 8);
+      const __nv_bfloat16* o = reinterpret_cast<const __nv_bfloat16*>(&o8);
+      const __nv_bfloat16* g = reinterpret_cast<const __nv_bfloat16*>(&g8);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(__bfloat162float(g[e]), __bfloat162float(o[e]), acc);
+    }
+#pragma unroll
+    for (int off = 1; off < kLanes; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
+    if (lane == 0) {
+      sDelta[row] = acc;
+      if (n < N) delta[row_base + n] = acc;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -212,8 +261,15 @@ struct DqSmem {
   // Consumer warpgroups a block and the blocks an SM the launch bounds ask
   // for: at d = 64 one warpgroup a block, three an SM (163 registers), read
   // faster on an H100 than two a block, one an SM; at d = 128 two (PERF.md).
-  static constexpr int kGroups = D == 64 ? 1 : 2;
+  // The ring: three stages (two tiles in flight) at d 64 and 128. At d 192
+  // two warpgroups on two stages (eight 24 KB tiles, 192 KB: two warpgroups
+  // keep eight warps on the SM, where one on three stages, the same bytes,
+  // keeps four); at d 256 one warpgroup on two stages (six 32 KB tiles: two
+  // Q and dO pairs beside a two-stage ring would be 256 KB).
+  static constexpr int kGroups = (D == 64 || D == 256) ? 1 : 2;
   static constexpr int kMinBlocks = D == 64 ? 3 : 1;
+  static constexpr int kAhead = D <= 128 ? 2 : 1;  // streamed tiles in flight ahead of the one computed
+  static constexpr int kRing = kAhead + 1;
   static constexpr int kTB = kTile * D * 2;          // one sw128 tile
   static constexpr int kQ = 0;                       // kGroups prescaled Q tiles
   static constexpr int kG = kQ + kGroups * kTB;      // kGroups dO tiles
@@ -224,8 +280,9 @@ struct DqSmem {
   // The fold's epilogue reuses the tiles: per warpgroup an fp32 stage of
   // 64 rows and norm_rope_bwd_tile's partials.
   static constexpr int kStage = kTile * (D + 4) * 4;
-  static constexpr int kPart = kThreads / (D / 16) * D * 4;
+  static constexpr int kPart = nr_bwd_part_bytes<D, kThreads>();
   static_assert(kGroups * (kStage + kPart) <= kEnd, "the fold's epilogue fits over the tiles");
+  static_assert(kBytes <= 232448, "fits an SM's shared memory");
 };
 
 // One key tile's products for this warpgroup's 64 query rows: S = Qs K^T and
@@ -285,6 +342,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     int B, int N, int H, int sw, float scale) {
   using S = DqSmem<D>;
   constexpr int kGroups = S::kGroups;
+  constexpr int kAhead = S::kAhead;
+  constexpr int kRing = S::kRing;
   constexpr int kBlockThreads = kGroups * kThreads;
   constexpr int kChunks = D / 8;  // 16-byte pieces of a row
   extern __shared__ unsigned char smem_raw[];
@@ -372,29 +431,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     d0 = qrow0 < N ? delta[row_base + qrow0] : 0.f;
     d1 = qrow1 < N ? delta[row_base + qrow1] : 0.f;
   } else {
-    // delta = sum_d dO * O of the block's rows, 0 on padded rows, for this
-    // kernel and the dk/dv kernel: a row's D channels over kChunks
-    // neighbouring threads, 8 each.
-    const __nv_bfloat16* o_b = out + b * os.b + h * os.h;
-    const int ch = (tid % kChunks) * 8;
-    for (int row = tid / kChunks; row < kGroups * kTile; row += kBlockThreads / kChunks) {
-      const int n = q0 + row;
-      float acc = 0.f;
-      if (n < N && (mask_b == nullptr || mask_b[n])) {
-        const uint4 o8 = *reinterpret_cast<const uint4*>(o_b + n * os.n + ch);
-        const uint4 g8 = *reinterpret_cast<const uint4*>(g_b + n * gs.n + ch);
-        const __nv_bfloat16* o = reinterpret_cast<const __nv_bfloat16*>(&o8);
-        const __nv_bfloat16* g = reinterpret_cast<const __nv_bfloat16*>(&g8);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc = fmaf(__bfloat162float(g[e]), __bfloat162float(o[e]), acc);
-      }
-#pragma unroll
-      for (int off = 1; off < kChunks; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
-      if (tid % kChunks == 0) {
-        sDelta[row] = acc;
-        if (n < N) delta[row_base + n] = acc;
-      }
-    }
+    // delta of the block's rows, for this kernel and the dk/dv kernel.
+    row_delta<D, kGroups * kTile, kBlockThreads>(out + b * os.b + h * os.h, os.n, g_b, gs.n, mask_b, q0, N,
+                                                 sDelta, delta, row_base, tid);
     __syncthreads();
     d0 = sDelta[qrow0 - q0];
     d1 = sDelta[qrow1 - q0];
@@ -434,8 +473,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   if constexpr (kFold) {
     __syncthreads();  // every warpgroup is done with the tiles the epilogue overwrites
     float* stage = reinterpret_cast<float*>(smem + wg * (S::kStage + S::kPart));
-    fold_epilogue<D>(acc, scale, fold, stage, stage + S::kStage / 4, sSpare[wg], b, h, H, N, wq0,
-                     blockIdx.x * kGroups + wg);
+    fold_epilogue<D, kThreads>(acc, true, scale, fold, stage, stage + S::kStage / 4, sSpare[wg], b, h, H, N, wq0,
+                               blockIdx.x * kGroups + wg);
   } else {
     const int t = tid & 3;
 #pragma unroll
@@ -461,6 +500,8 @@ struct DkvSmem {
   // at d = 128): faster on an H100 than one a block, three an SM, which
   // spills at d = 64 (PERF.md).
   static constexpr int kGroups = 2;
+  static constexpr int kAhead = 2;
+  static constexpr int kRing = kAhead + 1;
   static constexpr bool kPrescale = D != 64;  // d = 64: the scale folds into the exponent exactly
   static constexpr int kTB = kTile * D * 2;
   static constexpr int kK = 0;                          // kGroups K tiles
@@ -473,7 +514,7 @@ struct DkvSmem {
   static constexpr int kEnd = kDelta + kRing * kTile * 4;
   static constexpr int kBytes = kEnd + 1024;
   static constexpr int kStage = kTile * (D + 4) * 4;
-  static constexpr int kPart = kThreads / (D / 16) * D * 4;
+  static constexpr int kPart = nr_bwd_part_bytes<D, kThreads>();
   static_assert(kGroups * (kStage + kPart) <= kEnd, "the fold's epilogue fits over the tiles");
 };
 
@@ -544,6 +585,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      int B, int N, int H, int sw, float scale) {
   using S = DkvSmem<D>;
   constexpr int kGroups = S::kGroups;
+  constexpr int kAhead = S::kAhead;
+  constexpr int kRing = S::kRing;
   constexpr int kBlockThreads = kGroups * kThreads;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -678,8 +721,261 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   if constexpr (kFold) {
     __syncthreads();  // every warpgroup is done with the tiles the epilogue overwrites
     float* stage = reinterpret_cast<float*>(smem + wg * (S::kStage + S::kPart));
-    fold_epilogue<D>(dka, scale, fold, stage, stage + S::kStage / 4, sSpare[wg], b, h, H, N, wk0,
-                     blockIdx.x * kGroups + wg);
+    fold_epilogue<D, kThreads>(dka, true, scale, fold, stage, stage + S::kStage / 4, sSpare[wg], b, h, H, N, wk0,
+                               blockIdx.x * kGroups + wg);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk, dv at d = 192 and 256: two warpgroups on one key tile
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DkvSplitSmem {
+  // One 64-key tile a block (dk and dv together are D fp32 registers a
+  // thread, 256 before S^T and dP^T: no warpgroup holds both), a two-stage
+  // ring of Q / dO tiles (three do not fit beside K, V and p^T).
+  static constexpr int kAhead = 1;
+  static constexpr int kRing = kAhead + 1;
+  // 1/sqrt(256) = 1/16 is a power of two, so at d = 256 (as at 64) the scale
+  // folds into the exponent exactly and S^T reads Q as it came.
+  static constexpr bool kPrescale = D != 256;
+  static constexpr int kTB = kTile * D * 2;
+  static constexpr int kK = 0;                              // the block's K tile
+  static constexpr int kV = kK + kTB;                       // and its V tile
+  static constexpr int kQ = kV + kTB;                       // kRing Q tiles, as they came
+  static constexpr int kG = kQ + kRing * kTB;               // kRing dO tiles
+  static constexpr int kQs = kG + kRing * kTB;              // the current Q tile, prescaled
+  static constexpr int kPT = kQs + (kPrescale ? kTB : 0);   // warpgroup 0's p^T, 32 floats a thread
+  static constexpr int kLse = kPT + 32 * kThreads * 4;      // kRing x 64 lse
+  static constexpr int kDelta = kLse + kRing * kTile * 4;   // kRing x 64 delta
+  static constexpr int kEnd = kDelta + kRing * kTile * 4;
+  static constexpr int kBytes = kEnd + 1024;
+  static constexpr int kStage = kTile * (D + 4) * 4;
+  static constexpr int kPart = nr_bwd_part_bytes<D, 2 * kThreads>();
+  static_assert(kStage + kPart <= kEnd, "the fold's epilogue fits over the tiles");
+  static_assert(kBytes <= 232448, "fits an SM's shared memory");
+};
+
+// One query tile's products for the block's 64 key rows, split between its
+// warpgroups: warpgroup 0 forms S^T = K Qs^T and p^T = exp(s - lse) where
+// live(nt, e), and dV += P^T dO; warpgroup 1 forms dP^T = V dO^T, ds^T = p^T
+// (dp^T - delta) and dK += dS^T Q, taking p^T (fp32) from warpgroup 0 over
+// `sPT` and a named barrier. Both round p and ds to bf16 where dkv_tile does.
+template <int D, typename Live>
+__device__ __forceinline__ void dkv_split_tile(float (&acc)[D / 2], int wg,
+                                               const unsigned char* kt, const unsigned char* vt,
+                                               const unsigned char* qs, const unsigned char* qt,
+                                               const unsigned char* gt, const float* sl, const float* sd, float c,
+                                               float* sPT, Live live) {
+  const int wtid = threadIdx.x % kThreads;
+  const int t = threadIdx.x & 3;
+  uint32_t xa[kTile / 16][4];
+  if (wg == 0) {
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, kmajor_desc<kTile>(kt, kk), kmajor_desc<kTile>(qs, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      const int col = nt * 8 + 2 * t;  // query inside the tile
+      const float nl[2] = {-__fmul_rn(sl[col], kLog2e), -__fmul_rn(sl[col + 1], kLog2e)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * nt + e] = live(nt, e) ? ex2_ftz(fmaf(s[4 * nt + e], c, nl[e & 1])) : 0.f;
+        sPT[(4 * nt + e) * kThreads + wtid] = s[4 * nt + e];
+      }
+      xa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(s[4 * nt + 0], s[4 * nt + 1]);
+      xa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(s[4 * nt + 2], s[4 * nt + 3]);
+    }
+    bar_arrive(kBarP, 2 * kThreads);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) wgmma_rs<D>(acc, xa[j], mnmajor_desc<kTile>(gt, j), 1);
+  } else {
+    float dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, kmajor_desc<kTile>(vt, kk), kmajor_desc<kTile>(gt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dp);
+    bar_sync(kBarP, 2 * kThreads);
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      const float dl[2] = {sd[col], sd[col + 1]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[4 * nt + e] = sPT[(4 * nt + e) * kThreads + wtid] * (dp[4 * nt + e] - dl[e & 1]);
+      xa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(dp[4 * nt + 0], dp[4 * nt + 1]);
+      xa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(dp[4 * nt + 2], dp[4 * nt + 3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) wgmma_rs<D>(acc, xa[j], mnmajor_desc<kTile>(qt, j), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// The dk/dv kernel at d = 192 and 256 (flash_bwd_dkv_kernel's arguments and
+// outputs): one block a 64-key tile, two warpgroups, warpgroup 0 holding dv
+// and warpgroup 1 dk (dkv_split_tile).
+template <int D, bool kFold>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+flash_bwd_dkv_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                           Strides qs, Strides ks, Strides vs, Strides gs,
+                           const float* __restrict__ lse,           // [B, H, N]
+                           const float* __restrict__ delta,         // [B, H, N]
+                           const unsigned char* __restrict__ mask,  // [B, N] or null
+                           const int* __restrict__ counts,          // [2, B] (valid, lead) or null
+                           __nv_bfloat16* __restrict__ dk, Strides dks,  // without kFold
+                           __nv_bfloat16* __restrict__ dv, Strides dvs,
+                           Fold fold,                                    // with kFold: dk through it
+                           int B, int N, int H, int sw, float scale) {
+  using S = DkvSplitSmem<D>;
+  constexpr int kAhead = S::kAhead;
+  constexpr int kRing = S::kRing;
+  constexpr int kBlockThreads = 2 * kThreads;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sK = smem + S::kK;
+  unsigned char* sV = smem + S::kV;
+  unsigned char* sQ = smem + S::kQ;
+  unsigned char* sG = smem + S::kG;
+  unsigned char* sQs = smem + S::kQs;
+  float* sPT = reinterpret_cast<float*>(smem + S::kPT);
+  float* sLse = reinterpret_cast<float*>(smem + S::kLse);
+  float* sDelta = reinterpret_cast<float*>(smem + S::kDelta);
+  __shared__ float sSpare[D];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kThreads;
+  const int wtid = tid % kThreads;
+  const int t = tid & 3;
+  const int k0 = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const __nv_bfloat16* q_b = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* k_b = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* v_b = v + b * vs.b + h * vs.h;
+  const __nv_bfloat16* g_b = dout + b * gs.b + h * gs.h;
+  const unsigned char* mask_b = mask ? mask + (long long)b * N : nullptr;
+  const float* lse_bh = lse + ((long long)b * H + h) * N;
+  const float* delta_bh = delta + ((long long)b * H + h) * N;
+
+  // Keys at or past `valid` are dead (dk = dv = 0); query rows at or past it
+  // carry no cotangent and are never walked.
+  const int valid = counts ? counts[b] : N;
+  const int lead = counts ? counts[B + b] : N;
+  int lo, hi;
+  live_range(k0, min(min(k0 + kTile, N), valid), valid, sw, &lo, &hi);
+  const int lo_tile = lo / kTile;
+  const int n_tiles = hi > lo ? (hi + kTile - 1) / kTile - lo_tile : 0;
+
+  const int krow0 = k0 + (wtid >> 5) * 16 + ((wtid & 31) >> 2);  // this thread's two key rows
+  const int krow1 = krow0 + 8;
+  const bool kok0 = krow0 < valid && (krow0 < lead || mask_b[krow0]);
+  const bool kok1 = krow1 < valid && (krow1 < lead || mask_b[krow1]);
+
+  // Starts the copies of the walk's i-th query tile: Q as it came, dO with
+  // padded rows zeroed, its lse and delta (rows past N: zeros, which with
+  // their zero dO add nothing).
+  auto issue = [&](int i) {
+    const int slot = i % kRing;
+    const int qt0 = (lo_tile + i) * kTile;
+    load_tile_sw128<kTile, D, kBlockThreads>(sQ + slot * S::kTB, q_b, qs.n, qt0, N, nullptr, tid);
+    load_tile_sw128<kTile, D, kBlockThreads>(sG + slot * S::kTB, g_b, gs.n, qt0, N, mask_b, tid);
+    if (tid < 2 * kTile) {
+      const int r = tid % kTile;
+      const bool in = qt0 + r < N;
+      const float* src = (tid < kTile ? lse_bh : delta_bh) + (in ? qt0 + r : 0);
+      cp_async4((tid < kTile ? sLse : sDelta) + slot * kTile + r, src, in);
+    }
+  };
+  if (n_tiles > 0) {  // the block's K and V tiles, in one group with the first query tile
+    load_tile_sw128<kTile, D, kBlockThreads>(sK, k_b, ks.n, k0, N, nullptr, tid);
+    load_tile_sw128<kTile, D, kBlockThreads>(sV, v_b, vs.n, k0, N, nullptr, tid);
+  }
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (s < n_tiles) issue(s);
+    cp_async_commit();
+  }
+
+  // The exponent's factor: s^T from the prescaled Q, or at d = 256 from Q as
+  // it came, (q k) / 16 = bf16(q / 16) k exactly.
+  const float c = S::kPrescale ? kLog2e : __fmul_rn(kLog2e, scale);
+
+  // Warpgroup 0 holds dv, warpgroup 1 dk.
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // One barrier a tile: after it every thread's copies of tile `it` have
+  // landed and both warpgroups are done with tile it - 1 (its slot, its
+  // prescaled Q and its p^T), which the copies of tile it + kAhead refill.
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    if (it + kAhead < n_tiles) issue(it + kAhead);
+    cp_async_commit();
+    const int slot = it % kRing;
+    const unsigned char* qt = sQ + slot * S::kTB;
+    const unsigned char* gt = sG + slot * S::kTB;
+    if constexpr (S::kPrescale) {
+      // bf16(float(q) * scale), position by position (the layouts agree).
+      for (int i = tid; i < S::kTB / 16; i += kBlockThreads)
+        reinterpret_cast<uint4*>(sQs)[i] = scale_bf16x8(reinterpret_cast<const uint4*>(qt)[i], scale);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    const int qt0 = (lo_tile + it) * kTile;
+    const unsigned char* qst = S::kPrescale ? sQs : qt;
+    const float* sl = sLse + slot * kTile;
+    const float* sd = sDelta + slot * kTile;
+    if (k0 + kTile <= lead && (sw < 0 || (qt0 + kTile - 1 - k0 <= sw && k0 + kTile - 1 - qt0 <= sw))) {
+      dkv_split_tile<D>(acc, wg, sK, sV, qst, qt, gt, sl, sd, c, sPT, [](int, int) { return true; });
+    } else {
+      const uint64_t live0 = kok0 ? live_columns(~0ull, krow0 - qt0, sw) : 0;
+      const uint64_t live1 = kok1 ? live_columns(~0ull, krow1 - qt0, sw) : 0;
+      dkv_split_tile<D>(acc, wg, sK, sV, qst, qt, gt, sl, sd, c, sPT, [&](int nt, int e) {
+        return (((e < 2 ? live0 : live1) >> (nt * 8 + (e & 1))) & 1) != 0;
+      });
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int krow = rr ? krow1 : krow0;
+    if (krow >= N) continue;
+    if (wg == 0) {
+      __nv_bfloat16* dvp = dv + b * dvs.b + krow * dvs.n + h * dvs.h + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(dvp + dt * 8) =
+            __floats2bfloat162_rn(acc[4 * dt + 2 * rr], acc[4 * dt + 2 * rr + 1]);
+    } else if constexpr (!kFold) {
+      __nv_bfloat16* dkp = dk + b * dks.b + krow * dks.n + h * dks.h + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(dkp + dt * 8) = __floats2bfloat162_rn(
+            __fmul_rn(acc[4 * dt + 2 * rr], scale), __fmul_rn(acc[4 * dt + 2 * rr + 1], scale));
+    }
+  }
+  if constexpr (kFold) {
+    __syncthreads();  // both warpgroups are done with the tiles the epilogue overwrites
+    float* stage = reinterpret_cast<float*>(smem);
+    fold_epilogue<D, kBlockThreads>(acc, wg == 1, scale, fold, stage, stage + S::kStage / 4, sSpare, b, h, H, N, k0,
+                                    blockIdx.x);
   }
 }
 
@@ -708,23 +1004,47 @@ cudaError_t launch_dq_kernel(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
+// The dk/dv kernel at head dim D (kFold: its fold instance), its threads,
+// keys a block and dynamic shared memory: d 64 / 128 two warpgroups of 64
+// keys each; d 192 / 256 one 64-key tile shared by two.
+template <int D, bool kFold>
+void dkv_kernel_of(const void** fn, int* keys, int* smem) {
+  if constexpr (D <= 128) {
+    *fn = (const void*)flash_bwd_dkv_kernel<D, kFold>;
+    *keys = DkvSmem<D>::kGroups * kTile;
+    *smem = DkvSmem<D>::kBytes;
+  } else {
+    *fn = (const void*)flash_bwd_dkv_split_kernel<D, kFold>;
+    *keys = kTile;
+    *smem = DkvSplitSmem<D>::kBytes;
+  }
+}
+
 template <int D, bool kFold>
 cudaError_t launch_dkv_kernel(const void* q, const void* k, const void* v, const void* dout, Strides qs,
                               Strides ks, Strides vs, Strides gs, const void* lse, const void* delta,
                               const void* mask, const void* counts, void* dk, Strides dks, void* dv, Strides dvs,
                               const Fold& fold, int B, int N, int H, int sw, cudaStream_t stream) {
-  using S = DkvSmem<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kFold>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  const void* fn = nullptr;
+  int keys = 0, smem = 0;
+  dkv_kernel_of<D, kFold>(&fn, &keys, &smem);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + S::kGroups * kTile - 1) / (S::kGroups * kTile), H, B);
-  flash_bwd_dkv_kernel<D, kFold><<<grid, S::kGroups * kThreads, S::kBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), qs, ks, vs, gs,
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<const unsigned char*>(mask),
-      static_cast<const int*>(counts), static_cast<__nv_bfloat16*>(dk), dks, static_cast<__nv_bfloat16*>(dv), dvs,
-      fold, B, N, H, sw, q_scale_of(D));
-  return cudaGetLastError();
+  dim3 grid((N + keys - 1) / keys, H, B);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* gp = static_cast<const __nv_bfloat16*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dlp = static_cast<const float*>(delta);
+  const auto* mp = static_cast<const unsigned char*>(mask);
+  const auto* cp = static_cast<const int*>(counts);
+  auto* dkp = static_cast<__nv_bfloat16*>(dk);
+  auto* dvp = static_cast<__nv_bfloat16*>(dv);
+  float scale = q_scale_of(D);
+  void* args[] = {&qp, &kp, &vp, &gp, &qs, &ks, &vs, &gs, &lp, &dlp, &mp, &cp, &dkp, &dks, &dvp, &dvs,
+                  const_cast<Fold*>(&fold), &B, &N, &H, &sw, &scale};
+  return cudaLaunchKernel(fn, grid, dim3(2 * kThreads), args, smem, stream);
 }
 
 template <int D>
@@ -823,6 +1143,12 @@ int vitok_flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const v
   if (D == 128)
     return launch_dq<128>(q, k, v, dout, out, qs, ks, vs, gs, os, lse, mask, counts, delta, dq,
                           B, N, H, sw, s);
+  if (D == 192)
+    return launch_dq<192>(q, k, v, dout, out, qs, ks, vs, gs, os, lse, mask, counts, delta, dq,
+                          B, N, H, sw, s);
+  if (D == 256)
+    return launch_dq<256>(q, k, v, dout, out, qs, ks, vs, gs, os, lse, mask, counts, delta, dq,
+                          B, N, H, sw, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -844,6 +1170,12 @@ int vitok_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const 
                           H, sw, s);
   if (D == 128)
     return launch_dkv<128>(q, k, v, dout, qs, ks, vs, gs, lse, delta, mask, counts, dk, dv, B,
+                           N, H, sw, s);
+  if (D == 192)
+    return launch_dkv<192>(q, k, v, dout, qs, ks, vs, gs, lse, delta, mask, counts, dk, dv, B,
+                           N, H, sw, s);
+  if (D == 256)
+    return launch_dkv<256>(q, k, v, dout, qs, ks, vs, gs, lse, delta, mask, counts, dk, dv, B,
                            N, H, sw, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -867,6 +1199,12 @@ int vitok_flash_bwd_dq_fold_bf16(const void* qkv, const void* qk, const void* q_
   if (D == 128)
     return launch_dq_fold<128>(qkv, qk, q_scale, cos_t, sin_t, mask, counts, dout, lse, delta, dqkv, part_q, B, N,
                                H, sw, s);
+  if (D == 192)
+    return launch_dq_fold<192>(qkv, qk, q_scale, cos_t, sin_t, mask, counts, dout, lse, delta, dqkv, part_q, B, N,
+                               H, sw, s);
+  if (D == 256)
+    return launch_dq_fold<256>(qkv, qk, q_scale, cos_t, sin_t, mask, counts, dout, lse, delta, dqkv, part_q, B, N,
+                               H, sw, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -881,6 +1219,12 @@ int vitok_flash_bwd_dkv_fold_bf16(const void* qkv, const void* qk, const void* k
   if (D == 128)
     return launch_dkv_fold<128>(qkv, qk, k_scale, cos_t, sin_t, mask, counts, dout, lse, delta, dqkv, part_k, B,
                                 N, H, sw, s);
+  if (D == 192)
+    return launch_dkv_fold<192>(qkv, qk, k_scale, cos_t, sin_t, mask, counts, dout, lse, delta, dqkv, part_k, B,
+                                N, H, sw, s);
+  if (D == 256)
+    return launch_dkv_fold<256>(qkv, qk, k_scale, cos_t, sin_t, mask, counts, dout, lse, delta, dqkv, part_k, B,
+                                N, H, sw, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -890,7 +1234,7 @@ int vitok_flash_bwd_dkv_fold_bf16(const void* qkv, const void* qk, const void* k
 // them: out[0..3].
 int vitok_flash_bwd_attributes(int which, int D, int fold, int* out) {
   const void* fn = nullptr;
-  int threads = 0, smem = 0;
+  int threads = 0, smem = 0, keys = 0;
 #define VITOK_PICK(DD)                                                                                     \
   if (D == DD) {                                                                                           \
     if (which == 0) {                                                                                      \
@@ -898,13 +1242,17 @@ int vitok_flash_bwd_attributes(int which, int D, int fold, int* out) {
       threads = DqSmem<DD>::kGroups * kThreads;                                                            \
       smem = DqSmem<DD>::kBytes;                                                                           \
     } else {                                                                                               \
-      fn = fold ? (const void*)flash_bwd_dkv_kernel<DD, true> : (const void*)flash_bwd_dkv_kernel<DD, false>; \
-      threads = DkvSmem<DD>::kGroups * kThreads;                                                           \
-      smem = DkvSmem<DD>::kBytes;                                                                          \
+      if (fold)                                                                                            \
+        dkv_kernel_of<DD, true>(&fn, &keys, &smem);                                                        \
+      else                                                                                                 \
+        dkv_kernel_of<DD, false>(&fn, &keys, &smem);                                                       \
+      threads = 2 * kThreads;                                                                              \
     }                                                                                                      \
   }
   VITOK_PICK(64)
   VITOK_PICK(128)
+  VITOK_PICK(192)
+  VITOK_PICK(256)
 #undef VITOK_PICK
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -77,7 +77,8 @@
 // sm90.cuh's wgmma_rs), and o takes D / 2 fp32 registers a thread beside S's
 // 32: one block an SM (the tiles alone are 120 and 160 KB), up to 255
 // registers (what ptxas reports, and spills: PERF.md's kernel table). The prologue's
-// delta (the backward's) has instances at 64 and 128 only.
+// delta (the backward's) sums a row over 32 lanes at d = 192 and 256 (24
+// live at 192).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry points, bound
@@ -118,7 +119,6 @@ fused_qk_prologue_kernel(const Src* __restrict__ qkv, const float* __restrict__ 
                          int N, int H, int parts) {               // 2: q | k, 1: k
   constexpr int kRow = D + kNrPad;
   constexpr int kChunks = D / 8;
-  constexpr bool kDelta = D == 64 || D == 128;  // the backward's head dims: delta's rows fill a warp's lanes
   __shared__ __align__(16) __nv_bfloat16 sT[kTile * kRow];
   __shared__ float sGain[2][D];
   const int tid = threadIdx.x;
@@ -149,13 +149,16 @@ fused_qk_prologue_kernel(const Src* __restrict__ qkv, const float* __restrict__ 
     }
     __syncthreads();
   }
-  if (kDelta && delta != nullptr) {
-    // Row r's D channels over kChunks neighbouring threads, 8 each.
-    const int ch = tid % kChunks;
-    for (int row = tid / kChunks; row < kTile; row += kThreads / kChunks) {
+  if (delta != nullptr) {
+    // Row r's D channels over kLanes neighbouring threads, 8 each: D/8
+    // rounded up to a power of two, so the xor butterfly stays inside the
+    // row (at d = 192, 32 lanes of which 24 hold channels; the others add 0).
+    constexpr int kLanes = pow2_at_least(kChunks);
+    const int ch = tid % kLanes;
+    for (int row = tid / kLanes; row < kTile; row += kThreads / kLanes) {
       const int n = r0 + row;
       float acc = 0.f;
-      if (n < N) {
+      if (n < N && ch < kChunks) {
         const long long at = ((long long)b * N + n) * C + h * D + ch * 8;
         const uint4 o8 = *reinterpret_cast<const uint4*>(out + at);
         const uint4 g8 = *reinterpret_cast<const uint4*>(dout + at);
@@ -165,7 +168,7 @@ fused_qk_prologue_kernel(const Src* __restrict__ qkv, const float* __restrict__ 
         for (int e = 0; e < 8; ++e) acc += __bfloat162float(o[e]) * __bfloat162float(g[e]);
       }
 #pragma unroll
-      for (int off = 1; off < kChunks; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
+      for (int off = 1; off < kLanes; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
       if (ch == 0 && n < N) delta[((long long)b * H + h) * N + n] = acc;
     }
   }
@@ -634,8 +637,7 @@ extern "C" {
 // then k (the backward's scratch, and the fold's); with parts = 1 k alone
 // (the forward's). With out and dout ([B, N, H*D] bf16, both or neither)
 // also delta [B, H, N] f32, each row's sum over a head's channels of
-// dout * out. D is 64, 128, 192 or 256; delta only at 64 and 128 (the
-// backward's head dims).
+// dout * out. D is 64, 128, 192 or 256.
 int vitok_fused_qk_prologue_bf16(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                                  const void* sin_t, const void* out, const void* dout, void* qk, void* delta,
                                  int B, int N, int H, int D, int parts, void* stream) {
@@ -646,7 +648,6 @@ int vitok_fused_qk_prologue_bf16(const void* qkv, const void* q_scale, const voi
     return launch_prologue<64>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   if (D == 128)
     return launch_prologue<128>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
-  if (out != nullptr) return (int)cudaErrorInvalidValue;  // d 192, 256: the forward's instances (no delta)
   if (D == 192)
     return launch_prologue<192>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   if (D == 256)

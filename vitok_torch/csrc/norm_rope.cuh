@@ -36,12 +36,17 @@ constexpr int kNrPad = 8;     // bf16 row padding of the shared-memory tiles
 constexpr float kNrEps = 1e-6f;
 constexpr unsigned kNrFull = 0xffffffffu;
 
+// The least power of two at or above x.
+__host__ __device__ constexpr int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
 // A row's lanes: its D/16 pieces rounded up to a power of two.
 template <int D>
 __host__ __device__ constexpr int nr_lanes() {
-  int lanes = 1;
-  while (lanes < D / 16) lanes <<= 1;
-  return lanes;
+  return pow2_at_least(D / 16);
 }
 
 // The sum of `v` over a row's lanes (the xor butterfly; every lane gets it).
@@ -268,12 +273,15 @@ __device__ __forceinline__ void norm_rope_tile_f32(
 // Applies the rotation's transpose (cos/sin rounded to bf16, then fp32
 // arithmetic) and the RMSNorm backward on the raw rows re-read from `src`,
 // and writes the bf16 gradient of the raw rows to `dst` (same layout as
-// `src`); rows at or past N are not touched. With T = float (the fp32
-// instance of norm_rope_tile_f32) the raw rows and the gradient are fp32
-// and the tables are not rounded. The gain's gradient, summed
-// over the tile's rows in a fixed order, goes to gain_grad[0 .. D): `part`
-// is a [THREADS / (D/16), D] fp32 scratch in shared memory that must not
-// overlap `dz`. Ends with the block synchronised.
+// `src`); rows at or past N are not touched. The thread layout is
+// norm_rope_tile's: a row's lanes (nr_lanes), at d = 192 16 of which 12 hold
+// its pieces; the others read and write nothing and add zeros to the row's
+// sums, which go over the lanes' xor butterfly (nr_row_sum). With T = float
+// (the fp32 instance of norm_rope_tile_f32) the raw rows and the gradient are
+// fp32 and the tables are not rounded. The gain's gradient, summed over the
+// tile's rows in a fixed order, goes to gain_grad[0 .. D): `part` is a
+// [THREADS / nr_lanes, D] fp32 scratch in shared memory (nr_bwd_part_bytes)
+// that must not overlap `dz`. Ends with the block synchronised.
 //   y = x * r * gain, r = rsqrt(mean(x^2) + eps)
 //   dgain = sum_rows dy * x * r
 //   dx = dy * gain * r - x * (r^3 / D) * sum_d(dy * gain * x)
@@ -285,11 +293,11 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int kStage = D + 4;
   constexpr int kHalf = D / 2;
-  constexpr int kPieces = D / 16;
-  static_assert(kPieces == nr_lanes<D>(), "the backward has instances where every lane holds a piece (d 64, 128)");
-  constexpr int kRowsPerPass = THREADS / kPieces;
+  constexpr int kLanes = nr_lanes<D>();
+  constexpr int kRowsPerPass = THREADS / kLanes;
   constexpr int kPasses = kNrTile / kRowsPerPass;
-  const int c0 = (tid % kPieces) * 8;
+  const bool piece = tid % kLanes < D / 16;  // this lane holds a piece of its row
+  const int c0 = piece ? (tid % kLanes) * 8 : 0;
   const float* gr = gain + c0;
   const float* gi = gain + kHalf + c0;
   float pg_r[8], pg_i[8];
@@ -297,12 +305,12 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
   for (int e = 0; e < 8; ++e) pg_r[e] = pg_i[e] = 0.f;
 #pragma unroll
   for (int p = 0; p < kPasses; ++p) {
-    const int row = p * kRowsPerPass + tid / kPieces;
+    const int row = p * kRowsPerPass + tid / kLanes;
     const int n = r0 + row;
-    const bool live = n < N;
-    float a[8], b[8], c[8], s[8];
+    const bool live = piece && n < N;
+    float a[8], b[8], c[8], s[8], zr[8], zi[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) a[e] = b[e] = c[e] = s[e] = 0.f;
+    for (int e = 0; e < 8; ++e) a[e] = b[e] = c[e] = s[e] = zr[e] = zi[e] = 0.f;
     if (live) {
       const T* x = src + (long long)n * row_stride + c0;
       const float* cp = cos_t + (long long)n * kHalf + c0;
@@ -325,6 +333,11 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
           s[e] = __bfloat162float(__float2bfloat16_rn(sp[e]));
         }
       }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        zr[e] = dz[row * kStage + c0 + e];
+        zi[e] = dz[row * kStage + kHalf + c0 + e];
+      }
     }
     float ss = 0.f;
 #pragma unroll
@@ -334,8 +347,6 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
     }
     ss = nr_row_sum<D>(ss);
     const float r = rsqrtf(__fadd_rn(ss / D, kNrEps));
-    const float* zr = dz + row * kStage + c0;
-    const float* zi = zr + kHalf;
     float g_r[8], g_i[8];
     float dot = 0.f;
 #pragma unroll
@@ -348,8 +359,7 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
       g_i[e] = dyi * gi[e];
       dot += g_r[e] * a[e] + g_i[e] * b[e];
     }
-#pragma unroll
-    for (int off = 1; off < kPieces; off <<= 1) dot += __shfl_xor_sync(kNrFull, dot, off);
+    dot = nr_row_sum<D>(dot);
     if (live && kF32) {
       const float w = r * r * r / D * dot;
       float out_r[8], out_i[8];
@@ -378,20 +388,28 @@ __device__ __forceinline__ void norm_rope_bwd_tile(
       *reinterpret_cast<uint4*>(d + kHalf) = make_uint4(out_i[0], out_i[1], out_i[2], out_i[3]);
     }
   }
-  float* mine = part + (tid / kPieces) * D;
+  if (piece) {
+    float* mine = part + (tid / kLanes) * D;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    mine[c0 + e] = pg_r[e];
-    mine[kHalf + c0 + e] = pg_i[e];
+    for (int e = 0; e < 8; ++e) {
+      mine[c0 + e] = pg_r[e];
+      mine[kHalf + c0 + e] = pg_i[e];
+    }
   }
   __syncthreads();
-  if (tid < D) {
+  for (int ch = tid; ch < D; ch += THREADS) {
     float sum = 0.f;
 #pragma unroll 4
-    for (int j = 0; j < kRowsPerPass; ++j) sum += part[j * D + tid];
-    gain_grad[tid] = sum;
+    for (int j = 0; j < kRowsPerPass; ++j) sum += part[j * D + ch];
+    gain_grad[ch] = sum;
   }
   __syncthreads();
+}
+
+// Bytes of norm_rope_bwd_tile's `part` scratch for THREADS threads.
+template <int D, int THREADS>
+__host__ __device__ constexpr int nr_bwd_part_bytes() {
+  return THREADS / nr_lanes<D>() * D * 4;
 }
 
 }  // namespace

@@ -36,7 +36,7 @@ from vitok_torch.ops import _build
 # Head dims each family of CUDA kernels has instances for. The gates open no
 # other head dim on the card, and the wrappers raise on one.
 FWD_HEAD_DIMS = (64, 128, 192, 256)  # the bf16 forward: the q/k prologue, #1, #2 and #4 (plain and fold)
-BWD_HEAD_DIMS = (64, 128)            # the backward: #3, #5, #6 and the prologue's delta
+BWD_HEAD_DIMS = (64, 128, 192, 256)  # the bf16 backward: #3, #5, #6 (plain and fold) and the prologue's delta
 F32_HEAD_DIMS = (64, 128)            # every fp32 instance
 AB_HEAD_DIMS = (64, 128)             # the A/B kernels #10-#13 and the kept mma.sync forward
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -61,8 +61,9 @@ F32_KERNELS = ("fwd", "dq", "dkv", "dq_fold", "dkv_fold")
 
 def kernel_head_dims(dtype: torch.dtype, grad: bool = False) -> Tuple[int, ...]:
     """The head dims at which a call in ``dtype`` finds every kernel it runs
-    on the card: in fp32 those of the fp32 instances; in bf16 those of the
-    forward, or with a gradient asked for (``grad``) of the backward too."""
+    on the card: in fp32 those of the fp32 instances (64, 128); in bf16 those
+    of the forward, or with a gradient asked for (``grad``) of the backward
+    too (both 64-256)."""
     if dtype == torch.float32:
         return F32_HEAD_DIMS
     return BWD_HEAD_DIMS if grad else FWD_HEAD_DIMS
@@ -560,8 +561,9 @@ def flash_attention_bwd(
     """Backward of :func:`flash_attention`: ``(dq, dk, dv)`` from the inputs,
     the forward's output and log-sum-exp, and the output's cotangent.
 
-    On CUDA tensors (bf16 or fp32, head dim 64 or 128) the dq and dk/dv
-    kernels; on CPU tensors :func:`flash_attention_bwd_plain`.
+    On CUDA tensors (bf16 at head dim 64, 128, 192 or 256, or fp32 at 64 or
+    128) the dq and dk/dv kernels; on CPU tensors
+    :func:`flash_attention_bwd_plain`.
     """
     if q.is_cuda:
         dq, delta = flash_dq_cuda(q, k, v, out, lse, grad_out, patch_mask, sliding_window)
@@ -621,7 +623,7 @@ def flash_attention(
 
     Args:
         q, k, v: ``[B, N, H, D]``. On the card: bf16 (head dim 64, 128,
-            192 or 256; 64 or 128 under autograd) or fp32 (64 or 128), unit
+            192 or 256, under autograd too) or fp32 (64 or 128), unit
             channel stride (v may be a strided view, e.g. into the flat
             QKV output).
         patch_mask: optional ``[B, N]`` bool, True = valid token.

@@ -44,9 +44,10 @@ fp32 every one of these launches takes its fp32 instance (the prologue's in
 
 Head dims: each kernel family has instances at the head dims
 ``kernel_head_dims`` gives (``ops/flash_attention.py``): the bf16 forward
-(the prologue, #1, #2 and the fold's #4) at 64, 128, 192 and 256; the
-backward, the fp32 instances and the A/B kernels at 64 and 128. The gates
-open nothing else on a CUDA tensor, and the wrappers raise on it.
+(the prologue, #1, #2 and the fold's #4) and the bf16 backward (the
+prologue's delta, #3, and the fold's #5 and #6) at 64, 128, 192 and 256; the
+fp32 instances and the A/B kernels at 64 and 128. The gates open nothing
+else on a CUDA tensor, and the wrappers raise on it.
 
 Masking is key-side only, as in the TPU kernel: padded query rows attend to
 the valid keys. The unfused composition (:func:`unfused_qkv_attention`)
@@ -120,8 +121,8 @@ def can_fuse(n: int, c: int, num_heads: int, *, cuda: bool = False, dtype: torch
     ``MAX_FUSED_TOKENS`` tokens, ``n % 8 == 0``, head dim a multiple of 64
     and a 128-lane head group dividing C. For a CUDA tensor (``cuda``) of
     ``dtype`` the head dim must also be one at which its kernels have
-    instances (``head_dim_routes``: in bf16 64-256, but 64 or 128 with a
-    gradient asked for, ``grad``, or in fp32).
+    instances (``head_dim_routes``: in bf16 64-256, with a gradient asked
+    for (``grad``) too; in fp32 64 or 128).
     """
     if c % num_heads:
         return False
@@ -359,8 +360,8 @@ def fused_qk_prologue(
     ``[B, N, C]``, without ``with_q``), and with ``out``/``dout`` the
     backward's ``delta``: the prologue the redesigned forward (k alone) and
     backward (q, k and delta) run first. On a CUDA tensor this launches the
-    prologue kernel (bf16: head dim 64, 128, 192 or 256, with delta 64 or
-    128; or its fp32 instance, 64 or 128) or raises; on a CPU tensor it runs
+    prologue kernel (bf16: head dim 64, 128, 192 or 256, with delta too;
+    or its fp32 instance, 64 or 128) or raises; on a CPU tensor it runs
     :func:`fused_qk_prologue_plain`."""
     if (out is None) != (dout is None):
         raise ValueError("give both out and dout, or neither")
@@ -629,12 +630,26 @@ def _f32_lib() -> ctypes.CDLL:
 
 def _bwd_kernel_lib() -> ctypes.CDLL:
     lib = _build.load("fused_attention_bwd")
-    fn = lib.vitok_fused_attention_bwd_bf16
-    if fn.argtypes is None:
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 13 + [i] * 5 + [ptr]
-        fn.restype = ctypes.c_int
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+        (lib.vitok_fused_attention_bwd_bf16, [ptr] * 13 + [i] * 5 + [ptr]),
+        (lib.vitok_fused_bwd_attributes, [i] * 2 + [ptr]),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def fused_bwd_attributes(which: str, d: int) -> dict:
+    """Registers and local memory (spills) a thread, blocks an SM and shared
+    memory a block of #3's dq (``which="dq"``) or dk/dv (``"dkv"``) kernel
+    at head dim ``d``, as the compiler and the card report them."""
+    out = (ctypes.c_int * 4)()
+    lib = _bwd_kernel_lib()
+    _build.check(lib, lib.vitok_fused_bwd_attributes(("dq", "dkv").index(which), d, out),
+                 f"fused backward ({which}) attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
 # ---------------------------------------------------------------------------
@@ -645,10 +660,10 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
 def can_fuse_bwd(n: int, c: int, num_heads: int, *, cuda: bool = False,
                  dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the backward kernel takes this shape: wherever the forward
-    kernel does, at the backward's head dims on a CUDA tensor (64 or 128:
-    the forward's 192 and 256 have no backward instance yet, ROADMAP.md
-    Queue 2). (The JAX package's gate is tighter, on the TPU's VMEM; it
-    falls back to the unfused VJP at 1024 tokens. ROADMAP.md Queue 3.)"""
+    kernel does, at the backward's head dims on a CUDA tensor (bf16 64,
+    128, 192 and 256, as the forward; fp32 64 and 128). (The JAX package's
+    gate is tighter, on the TPU's VMEM; it falls back to the unfused VJP at
+    1024 tokens. ROADMAP.md Queue 3.)"""
     return can_fuse(n, c, num_heads, cuda=cuda, dtype=dtype, grad=True)
 
 
@@ -829,7 +844,8 @@ def fused_qkv_attention_bwd(
     without them the forward runs first. The cotangent is zeroed on padded
     query rows first, as the JAX package's ``_fused_op_bwd`` does. On a CUDA
     tensor this launches the prologue and the backward kernel (bf16, or their
-    fp32 instances; head dim 64 or 128) or raises; on a CPU tensor it runs
+    fp32 instances; head dim 64, 128, 192 or 256 in bf16, 64 or 128 in fp32)
+    or raises; on a CPU tensor it runs
     :func:`fused_qkv_attention_bwd_plain` with ``out``. The gain gradients
     are fp32.
     """
@@ -1220,7 +1236,8 @@ def flash_qkv_attention_bwd(
     dk_scale)`` from the forward's inputs, its output ``out [B, N, C]`` and
     log-sum-exp ``lse``, and the cotangent ``dout [B, N, C]``.
 
-    On a CUDA tensor (bf16 or fp32, head dim 64 or 128) four launches and a sum: the
+    On a CUDA tensor (bf16 at head dim 64, 128, 192 or 256, fp32 at 64 or
+    128) four launches and a sum: the
     q/k prologue with ``out`` and ``dout`` (qrot, krot and delta), the dq and
     dk/dv kernels' fold instances (``flash_dq_fold_cuda``,
     ``flash_dkv_fold_cuda``; their epilogues run the norm and rotation
@@ -1289,8 +1306,8 @@ def flash_qkv_attention(
     resolution (``vitok_tpu``'s ``unfused_qkv_attention`` on its flash
     route, whose XLA glue the prologue replaces).
 
-    On a CUDA tensor (bf16 at head dim 64, 128, 192 or 256, 64 or 128 under
-    autograd; fp32 at 64 or 128) two launches: the q/k
+    On a CUDA tensor (bf16 at head dim 64, 128, 192 or 256; fp32 at 64 or
+    128) two launches: the q/k
     prologue (:func:`fused_qk_prologue` with ``with_q``: q and k normed and
     rotated into a ``[B, N, 2C]`` scratch), then the flash kernel on q and k
     as strided views of that scratch and v as a view of ``qkv``. On a CPU
@@ -1313,7 +1330,7 @@ def takes_flash_fold(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Te
     card, a call bound for the flash kernel (``"auto"`` from
     ``FLASH_MIN_TOKENS`` tokens, or ``"flash"``) and a head dim at which
     every kernel of the call has an instance (``kernel_head_dims``: bf16 at
-    64-256 without a gradient asked for, else 64 or 128). On the CPU nothing
+    64-256, fp32 at 64 or 128). On the CPU nothing
     changes: the composition runs (under autograd through the flash
     kernel's autograd Function)."""
     b, n, c3 = qkv.shape
