@@ -151,7 +151,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``attn_impl="fused"`` (#1, then #3) and at 1024p B 1 with sw 1024 (the
    fold, then #5/#6), the first step's gradients against the plain
    backward's and each step's launches read;
-17. prints a JSON line describing each kernel, the card's name and power
+17. runs the fp32 forward at head dims 192 and 256 at the 5B width, TF32
+   off: the fp32 walker (#1 f32, its splits timed), #2 f32 (the walker, then
+   the row quantize: ``quantize_activation`` of #1 bit for bit), the fp32
+   q/k prologue and #4's fp32 instance (plain and behind the prologue, also
+   against float64) within 1e-5 of their plain versions' largest entry,
+   each timed beside its bound, its plain version and SDPA (and
+   FlexAttention) in fp32; then the two training models above with
+   ``compute_dtype=torch.float32`` through encode -> decode at 256p and
+   512p (B 16, the walker) and at 1024p with sw 1024 (the fp32 prologue and
+   #4), against the unfused composition, and ``quantize()``d at 256p with
+   the epilogue off and on (#2 f32);
+18. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -5573,6 +5584,404 @@ def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres,
     return entries
 
 
+# ---------------------------------------------------------------------------
+# fp32 at head dims 192 and 256: the fp32 forward's wide instances at the 5B width
+# ---------------------------------------------------------------------------
+
+# The fp32 models: the 3072-wide training models of the wide-heads phase (2 + 4
+# blocks, 0.686B parameters, cut from the 5B's 4 + 40: fp32 products run on
+# the CUDA cores with TF32 off), compute_dtype float32, random gates. Paths:
+# WIDE_HEAD_PATHS (the walker, one launch a block), WIDE_HEAD_HIGHRES with sw
+# = FLASH_SW (the fp32 prologue, then #4, one of each a block), and the
+# quantized model at the first path with the int8 epilogue off and on.
+WIDE_F32_MODELS = WIDE_HEAD_TRAIN
+# (bb, hpb) splits of the fp32 walker timed at each of #1's shapes (with the tail mask).
+WIDE_F32_SPLITS = ((1, 1), (1, 2), (1, 3), (1, 4), (2, 1), (2, 2), (4, 1))
+# Head dims at which FlexAttention, the yardstick beside #4 f32, is timed in fp32: at d 192 its kernels find no
+# configuration that fits a block (torch 2.11 on an H100 asked for 344,320 bytes of shared memory), and the failed
+# search takes about a minute.
+WIDE_F32_FLEX_DIMS = (256,)
+
+
+def _norm_rope_f64(qkv, qs, ks, cos, sin, h):
+    """q and k of a flat fp32 ``qkv`` normed (eps 1e-6), scaled by their gains and rotated (rotate-half) in
+    float64, as the prologue's ``[B, N, 2C]`` lays them out."""
+    import torch
+
+    b, n, c3 = qkv.shape
+    x = qkv.view(b, n, 3, h, -1)[:, :, :2].double()
+    gain = torch.stack([qs, ks]).double()[None, None, :, None, :]
+    y = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) * gain
+    half = y.shape[-1] // 2
+    c64, s64 = (t.double()[:, :, None, None, :] for t in (cos, sin))
+    yr, yi = y[..., :half], y[..., half:]
+    return torch.cat([yr * c64 - yi * s64, yr * s64 + yi * c64], -1).reshape(b, n, 2 * c3 // 3)
+
+
+def _wide_f32_rows(device, d: int) -> dict:
+    """The fp32 forward's d-wide instances at the 5B width against their plain
+    versions, TF32 off: #1 (the fp32 walker) at ``WIDE_HEAD_KERNELS`` within
+    F32_OUT_REL of the plain version's largest entry (its splits timed); #2
+    (the walker, then the row quantize) at the first, codes and scales
+    ``quantize_activation`` of #1 bit for bit; the fp32 prologue and #4 on its
+    views at B 1, N 4096, sw 1024 (the fold), each within F32_OUT_REL, #4
+    also against float64 within F32_F64_FACTOR of its plain version's error
+    there (#1 with the tail mask and the prologue: their float64 errors and
+    their plain versions', recorded). Each timed beside its bound, its plain
+    version and SDPA (and FlexAttention for #4) in fp32."""
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.benchmarks import host_ahead_ms
+    from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops import fused_attention as fa
+    from vitok_torch.ops.quant import quantize_activation
+
+    c = WIDE_HEAD_WIDTH
+    h = c // d
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = {"fused_attention_f32": [], "fused_attention_q8_f32": [], "fused_qk_prologue_f32": [],
+            "flash_attention_f32": [], "wall_s": {}}
+    t0 = time.time()
+    cases = [(b, n, case, masked, sw) for i, (b, n) in enumerate(WIDE_HEAD_KERNELS)
+             for case, masked, sw in KERNEL_CASES if i == 0 or case == "tail"]
+    for b, n, case, masked, sw in cases:
+        qkv, qs, ks, cos, sin, mask = _f32_inputs(40 + d, b, n, c, h, masked, device)
+        kw = dict(num_heads=h, sliding_window=sw)
+        kernel = lambda: fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, impl="fused", **kw)
+        plain = lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, **kw)
+        got = _one_launch("fused_attention_f32", kernel)
+        want = plain()
+        err, rel = _f32_err(f"#1 f32 d {d} B {b} N {n} {case}", got, want, F32_OUT_REL)
+        f64 = {}
+        if case == "tail":  # both against float64 attention on the plain prologue's q and k, valid rows
+            qn, kn = fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h)[0].view(b, n, 2, h, d).unbind(2)
+            v4 = qkv.view(b, n, 3, h, d)[:, :, 2]
+            ref = _attention_f64(qn, kn, v4, mask, sw, torch.zeros_like(v4))[0].reshape(b, n, c)[mask]
+            top = lambda a: ((a[mask].double() - ref).abs().max() / ref.abs().max()).item()
+            f64 = dict(f64_rel_err=top(got), f64_plain_rel_err=top(want))
+            del qn, kn, v4, ref
+        del got, want
+        nbytes = 4 * b * n * c * 4 + 2 * b * n * (d // 2) * 4 + 2 * d * 4 + (0 if mask is None else b * n)
+        bound = _bound_ms(nbytes, 6 * 4.0 * h * d * _needed_pairs(b, mask, n, sw), BF16_FLOPS_PER_S)
+        qn, kn, vn = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)
+        am = _sdpa_mask(mask, n, sw, device)
+        row = dict(d=d, B=b, N=n, C=c, H=h, case=case, max_abs_err=err, rel_err=rel,
+                   split=fa.f32_walk_split(b, n, h, d, sms), ms=time_ms(kernel), dev_ms=host_ahead_ms(kernel),
+                   plain_ms=time_ms(plain, runs=2, warmup=1),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(qn, kn, vn, attn_mask=am), runs=3,
+                                      warmup=1), bound_ms=bound[0], bound_by=bound[1], **f64)
+        if case == "tail":  # the walker alone at each split: what f32_walk_split is held to
+            _, _, _, _, gq, gk, gc, gs, gm, swi = fa._check_cuda_args(qkv, qs, ks, cos, sin, mask, h, sw,
+                                                                       dtypes=(torch.float32,))
+            row["split_ms"] = {
+                f"{bb}x{hpb}": time_ms(lambda bb=bb, hpb=hpb: fa._walk_f32_cuda(qkv, gq, gk, gc, gs, gm, h, bb=bb,
+                                                                                 hpb=hpb, sw=swi, kind="fwd"))
+                for bb, hpb in WIDE_F32_SPLITS if b % bb == 0 and h % hpb == 0}
+        rows["fused_attention_f32"].append(row)
+        log(f"  #1 f32 d {d} B {b} N {n} {case}: {err:.2e} ({rel:.2e} of the largest entry) from the plain version"
+            + (f", {f64['f64_rel_err']:.2e} from float64 (plain {f64['f64_plain_rel_err']:.2e})" if f64 else "") + "; "
+            f"{row['ms']:.4f} ms (dev {row['dev_ms']:.4f}), split {row['split']}, plain {row['plain_ms']:.4f}, SDPA "
+            f"fp32 {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']})"
+            + (f"; walker alone by split {row['split_ms']}" if "split_ms" in row else ""))
+        del qkv, qn, kn, vn, am
+
+    rows["wall_s"]["#1"], t0 = time.time() - t0, time.time()
+
+    # #2 f32 at the first shape: the walker, then the row quantize
+    b, n = WIDE_HEAD_KERNELS[0]
+    for case in ("none", "tail"):
+        qkv, qs, ks, cos, sin, mask = _f32_inputs(50 + d, b, n, c, h, case == "tail", device)
+        kernel = lambda: fa.fused_qkv_attention_q8(qkv, qs, ks, cos, sin, mask, num_heads=h)
+        chain = lambda: quantize_activation(fa.fused_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=h,
+                                                                   impl="fused"))
+        codes, scales = _one_launch("fused_attention_q8_f32", kernel)
+        ref_codes, ref_scales = chain()
+        p_codes, p_scales = fa.fused_qkv_attention_q8_plain(qkv, qs, ks, cos, sin, mask, num_heads=h)
+        torch.cuda.synchronize()
+        n_codes, n_scales = int((codes != ref_codes).sum()), int((scales != ref_scales).sum())
+        deq = (codes.float() * scales - p_codes.float() * p_scales).abs()
+        srel = (scales - p_scales).abs() / p_scales
+        if mask is not None:
+            deq, srel = deq[mask], srel[mask]
+        if not (n_codes == 0 and n_scales == 0 and deq.max().item() <= Q8_DEQUANT_MAX_ABS
+                and deq.mean().item() <= Q8_DEQUANT_MEAN_ABS and srel.max().item() <= Q8_SCALE_RTOL):
+            raise AssertionError(f"#2 f32 d {d} {case}: {n_codes} codes and {n_scales} scales differ from "
+                                 f"quantize_activation of #1; dequantized vs plain max {deq.max().item():.3e} mean "
+                                 f"{deq.mean().item():.3e}, scales rel {srel.max().item():.3e}")
+        nbytes = (b * n * 3 * c * 4 + b * n * (c + 4) + 2 * b * n * (d // 2) * 4 + 2 * d * 4
+                  + (0 if mask is None else b * n))
+        bound = _bound_ms(nbytes, 6 * 4.0 * h * d * _needed_pairs(b, mask, n, None), BF16_FLOPS_PER_S)
+        row = dict(d=d, B=b, N=n, C=c, H=h, case=case, codes_differ=0, scales_differ=0,
+                   max_abs_err=deq.max().item(), mean_abs_err=deq.mean().item(), ms=time_ms(kernel),
+                   dev_ms=host_ahead_ms(kernel), library_ms=time_ms(chain),
+                   plain_ms=time_ms(lambda: fa.fused_qkv_attention_q8_plain(qkv, qs, ks, cos, sin, mask,
+                                                                            num_heads=h), runs=2, warmup=1),
+                   bound_ms=bound[0], bound_by=bound[1])
+        rows["fused_attention_q8_f32"].append(row)
+        log(f"  #2 f32 d {d} B {b} N {n} {case}: codes and scales = quantize_activation(#1) bit for bit; dequantized "
+            f"vs plain max {row['max_abs_err']:.2e}; {row['ms']:.4f} ms (dev {row['dev_ms']:.4f}), #1 + eager "
+            f"quantize {row['library_ms']:.4f}, plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']})")
+        del qkv, codes, scales, ref_codes, ref_scales, p_codes, p_scales, deq, srel
+
+    rows["wall_s"]["#2"], t0 = time.time() - t0, time.time()
+
+    # The fold's kernels: the fp32 prologue, then #4 on its views; B 1, N 4096, sw 1024
+    _, n, b, _ = WIDE_HEAD_HIGHRES
+    sw = FLASH_SW
+    for case, masked in (("sw1024", False), ("tail+sw1024", True)):
+        qkv, qs, ks, cos, sin, mask = _f32_inputs(60 + d, b, n, c, h, masked, device)
+        args, kw = (qkv, qs, ks, cos, sin, mask), dict(num_heads=h, sliding_window=sw)
+        valid = [n] * b if mask is None else mask.sum(1).tolist()
+        tensor, tables, mbytes = b * n * c * 4, 2 * b * n * (d // 2) * 4, (0 if mask is None else b * n)
+        pair_flops = 2.0 * h * d * _flash_pairs(valid, n, sw)
+
+        prologue = lambda: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h)
+        pro_plain = lambda: fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h)
+        qk, _ = _one_launch("fused_qk_prologue_f32", prologue)
+        qk_plain = pro_plain()[0]
+        perr, prel = _f32_err(f"fp32 prologue d {d} {case}", qk, qk_plain, F32_OUT_REL)
+        qk64 = _norm_rope_f64(qkv, qs, ks, cos, sin, h)
+        ptop = lambda a: ((a.double() - qk64).abs().max() / qk64.abs().max()).item()
+        pf64, pf64_plain = ptop(qk), ptop(qk_plain)
+        del qk_plain, qk64
+        pbound = _bound_ms(4 * tensor + tables + 2 * d * 4, 0.0, BF16_FLOPS_PER_S)
+        rows["fused_qk_prologue_f32"].append(dict(
+            d=d, B=b, N=n, C=c, H=h, case=case, max_abs_err=perr, rel_err=prel, f64_rel_err=pf64,
+            f64_plain_rel_err=pf64_plain, ms=time_ms(prologue),
+            dev_ms=host_ahead_ms(prologue), plain_ms=time_ms(pro_plain, runs=2, warmup=1), bound_ms=pbound[0],
+            bound_by=pbound[1]))
+
+        q, k = qk.view(b, n, 2, h, d).unbind(2)
+        v = qkv.view(b, n, 3, h, d)[:, :, 2]
+        fwd = lambda: fl.flash_attention(q, k, v, mask, sw)
+        plain = lambda: fl.flash_attention_plain(q, k, v, mask, sw)
+        out = _one_launch("flash_attention_f32", fwd)
+        want = plain()
+        err, rel = _f32_err(f"#4 f32 d {d} {case}", out, want, F32_OUT_REL)
+        if mask is not None and out[~mask].any():
+            raise AssertionError(f"#4 f32 d {d} {case}: padded rows are not exactly 0")
+        got_lse = fl.flash_attention(q, k, v, mask, sw, return_lse=True)[1]
+        want_lse = fl.flash_attention_plain(q, k, v, mask, sw, return_lse=True)[1]
+        live = want_lse < 1e29
+        lse_err = (got_lse[live] - want_lse[live]).abs().max().item()
+        if not (lse_err <= LSE_ATOL and torch.equal(got_lse >= 1e29, ~live)):
+            raise AssertionError(f"#4 f32 d {d} {case}: lse max |err| {lse_err:.3e} (limit {LSE_ATOL}) or dead rows")
+        ref = _attention_f64(q, k, v, mask, sw, torch.zeros_like(v))[0]
+        keep = slice(None) if mask is None else mask
+        top = lambda a: ((a[keep].double() - ref[keep]).abs().max() / ref[keep].abs().max()).item()
+        f64, f64_plain = top(out), top(want)
+        if not f64 <= F32_F64_FACTOR * f64_plain:
+            raise AssertionError(f"#4 f32 d {d} {case}: {f64:.3e} of the largest entry from float64, over "
+                                 f"{F32_F64_FACTOR} x its plain version's {f64_plain:.3e}")
+        fold = lambda: fa.flash_qkv_attention(*args, **kw)
+        fold_plain = lambda: fa.flash_qkv_attention_plain(*args, **kw)
+        ferr, frel = _f32_err(f"fold f32 d {d} {case}", fold(), fold_plain(), F32_OUT_REL)
+        del out, want, got_lse, want_lse, live, ref
+        bound = _bound_ms(4 * tensor + mbytes, 6 * 2 * pair_flops, BF16_FLOPS_PER_S)
+        fbound = _bound_ms(4 * tensor + tables + mbytes + 2 * d * 4, 6 * 2 * pair_flops, BF16_FLOPS_PER_S)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        am = _sdpa_mask(mask, n, sw, device)
+        row = dict(d=d, B=b, N=n, H=h, case=case, max_abs_err=err, rel_err=rel, lse_max_abs_err=lse_err,
+                   f64_rel_err=f64, f64_plain_rel_err=f64_plain, fold_max_abs_err=ferr, fold_rel_err=frel,
+                   ms=time_ms(fwd), dev_ms=host_ahead_ms(fwd), plain_ms=time_ms(plain, runs=2, warmup=1),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am), runs=3,
+                                      warmup=1),
+                   bound_ms=bound[0], bound_by=bound[1], fold_ms=time_ms(fold), fold_dev_ms=host_ahead_ms(fold),
+                   fold_plain_ms=time_ms(fold_plain, runs=2, warmup=1), fold_bound_ms=fbound[0],
+                   fold_bound_by=fbound[1])
+        row["flex_ms"] = None
+        if masked and d in WIDE_F32_FLEX_DIMS:  # the yardstick, compiled once a head dim
+            t1 = time.time()
+            flex = _flex_call(q, k, v, mask, sw)
+            row["flex_ms"] = time_ms(flex)
+            del flex
+            rows["wall_s"]["flex"] = time.time() - t1
+        rows["flash_attention_f32"].append(row)
+        log(f"  fp32 prologue d {d} B {b} N {n}: {perr:.2e} ({prel:.2e}; from float64 {pf64:.2e}, plain {pf64_plain:.2e}); "
+            f"{rows['fused_qk_prologue_f32'][-1]['ms']:.4f}"
+            f" ms, plain {rows['fused_qk_prologue_f32'][-1]['plain_ms']:.4f}, bound {pbound[0]:.4f}; #4 f32 {case}: "
+            f"{err:.2e} ({rel:.2e}), lse {lse_err:.2e}, against float64 {f64:.2e} (plain {f64_plain:.2e}); "
+            f"{row['ms']:.4f} ms (dev {row['dev_ms']:.4f}), plain {row['plain_ms']:.4f}, SDPA fp32 "
+            f"{row['library_ms']:.4f}, FlexAttention fp32 {row['flex_ms'] or 'not timed'}, bound "
+            f"{row['bound_ms']:.4f} "
+            f"({row['bound_by']}); the fold {row['fold_ms']:.4f} (dev {row['fold_dev_ms']:.4f}), {ferr:.2e} from "
+            f"its plain version ({row['fold_plain_ms']:.4f})")
+        del qkv, args, qk, q, k, v, qt, kt, vt, am
+    rows["wall_s"]["#4"] = time.time() - t0
+    split = fa.f32_walk_split(*WIDE_HEAD_KERNELS[0], h, d, sms)
+    rows["attributes"] = dict(walker=fa.f32_walk_attributes(d, "fwd", split[0]),
+                              prologue=fa.sm90_attributes("prologue_f32", d), flash=fl.flash_f32_attributes("fwd", d))
+    log(f"  d {d} fp32 (registers, local bytes, blocks an SM, shared bytes): {rows['attributes']}; seconds "
+        f"{ {k: round(v, 1) for k, v in rows['wall_s'].items()} } (#4's with FlexAttention's compile)")
+    return rows
+
+
+def wide_f32_phase(device, card: str) -> dict:
+    """fp32 at head dims 192 and 256: each of the fp32 forward's wide
+    instances against its plain version (``_wide_f32_rows``), then both
+    3072-wide models (``WIDE_F32_MODELS``) with compute_dtype float32 on the
+    main path: encode -> decode at 256p and 512p (the walker in every block)
+    and at 1024p with sw = FLASH_SW (the fp32 prologue and #4 in every block),
+    each within F32_MODEL_REL_L2 of the same weights on the unfused
+    composition; ``AE.quantize()``d at 256p with the int8 epilogue off (the
+    walker) and on (#2 f32), within MODEL_REL_L2 of the quantize kernels'
+    plain versions, the two bit for bit."""
+    import torch
+    from vitok_torch import AE, decode_variant
+    from vitok_torch.ops import fused_attention as fa
+
+    t0 = time.time()
+    out = {"rows": {}, "launches": {}, "paths": []}
+    for d, variant in WIDE_F32_MODELS:
+        log(f"fp32 wide heads d {d}: kernel checks at the 5B width, TF32 off, on {card}")
+        t1 = time.time()
+        out["rows"][d] = _wide_f32_rows(device, d)
+        torch.cuda.empty_cache()
+        log(f"  d {d} fp32 kernel rows: {time.time() - t1:.1f} s")
+        t1 = time.time()
+        model = AE(**decode_variant(variant), seed=0, device=device, compute_dtype=torch.float32)
+        _random_gates(model, device)
+        depth = model.cfg.encoder_depth + model.cfg.decoder_depth
+        log(f"fp32 wide heads d {d}: {variant} ({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params, "
+            f"{depth} blocks), compute_dtype float32")
+        launches = dict.fromkeys(launch_counts(), 0)
+
+        def add(counts):
+            for k_, v_ in counts.items():
+                launches[k_] += v_
+
+        def unfused_ms(inputs):
+            _set_attn_impl(model, "xla")
+            ref = model.decode(model.encode(inputs))
+            ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+            _set_attn_impl(model, "auto")
+            return ref, ms
+
+        cases = main_path_cases(device, WIDE_HEAD_PATHS, seed=25)
+        outs, counts = _run_counted(model, cases, _expect(fused_attention_f32=depth), f"fp32 d {d}")
+        add(counts)
+        for (name, max_tokens, batch, images, inputs), o in zip(cases, outs):
+            _check_output(name, max_tokens, batch, images, inputs, o)
+            ref, ref_ms = unfused_ms(inputs)
+            rel = _valid_rel_l2(o, ref, inputs)
+            if not rel <= F32_MODEL_REL_L2:
+                raise AssertionError(f"fp32 d {d} {name}: rel L2 vs the unfused composition {rel:.3e} > "
+                                     f"{F32_MODEL_REL_L2}")
+            ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+            out["paths"].append(dict(d=d, dtype="fp32", res=name, batch=batch, rel_l2=rel, ms_per_img=ms / batch,
+                                     unfused_ms_per_img=ref_ms / batch))
+            log(f"  fp32 d {d} {name} B {batch}: the walker in every block; rel L2 vs the unfused composition "
+                f"{rel:.3e}; {ms / batch:.4f} ms/img (unfused {ref_ms / batch:.4f}) on {card}")
+            del ref
+        del outs, cases
+
+        model.cfg = dataclasses.replace(model.cfg, sw=FLASH_SW)
+        (case,) = main_path_cases(device, [WIDE_HEAD_HIGHRES], seed=26)
+        name, max_tokens, batch, images, inputs = case
+        with torch.inference_mode():
+            (o,), counts = _run_counted(model, [case], _expect(flash_attention_f32=depth,
+                                                               fused_qk_prologue_f32=depth, fused_qk_prologue=0),
+                                        f"fp32 d {d} {name}")
+            add(counts)
+            _check_output(name, max_tokens, batch, images, inputs, o)
+            ref, ref_ms = unfused_ms(inputs)
+            rel = _valid_rel_l2(o, ref, inputs)
+            if not rel <= F32_MODEL_REL_L2:
+                raise AssertionError(f"fp32 d {d} {name}: rel L2 vs the unfused composition {rel:.3e} > "
+                                     f"{F32_MODEL_REL_L2}")
+            ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+        out["paths"].append(dict(d=d, dtype="fp32", res=name, batch=batch, sw=FLASH_SW, rel_l2=rel, ms_per_img=ms,
+                                 unfused_ms_per_img=ref_ms))
+        log(f"  fp32 d {d} {name} sw {FLASH_SW} B {batch}: the fp32 prologue and #4 in every block; rel L2 vs the "
+            f"unfused composition {rel:.3e}; {ms:.4f} ms/img (unfused {ref_ms:.4f}) on {card}")
+        model.cfg = dataclasses.replace(model.cfg, sw=None)
+        del o, ref
+
+        model.quantize()
+        torch.cuda.empty_cache()
+        (case,) = main_path_cases(device, WIDE_HEAD_PATHS[:1], seed=27)
+        name, max_tokens, batch, images, inputs = case
+        expect = dict(fused_attention_f32=depth, rmsnorm_quant=depth, ffn_int8=depth, fused_qk_prologue=0)
+        (o,), counts = _run_counted(model, [case], _expect(**expect), f"int8 fp32 d {d}")
+        add(counts)
+        _check_output(name, max_tokens, batch, images, inputs, o)
+        with plain_quant_kernels():
+            rel = _valid_rel_l2(o, model.decode(model.encode(inputs)), inputs)
+        if not rel <= MODEL_REL_L2:
+            raise AssertionError(f"int8 fp32 d {d} {name}: rel L2 vs the plain quantize kernels {rel:.3e} > "
+                                 f"{MODEL_REL_L2}")
+        ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+        with q8_epilogue(True):
+            if not fa.can_fuse_q8(max_tokens, model.cfg.encoder_width, model.cfg.encoder_heads, cuda=True,
+                                  dtype=torch.float32):
+                raise AssertionError(f"int8 fp32 d {d}: the epilogue's gate is closed at {max_tokens} tokens")
+            expect = dict(fused_attention_q8_f32=depth, fused_attention_f32=depth, rmsnorm_quant=depth,
+                          ffn_int8=depth, fused_qk_prologue=0)
+            (q8o,), counts = _run_counted(model, [case], _expect(**expect), f"int8 fp32 + epilogue d {d}")
+            q8_ms = time_ms(lambda: model.decode(model.encode(inputs)), runs=2, warmup=1)
+        add(counts)
+        _check_output(name, max_tokens, batch, images, inputs, q8o)
+        with plain_quant_kernels():
+            q8_rel = _valid_rel_l2(q8o, model.decode(model.encode(inputs)), inputs)
+        if not (q8_rel <= MODEL_REL_L2 and torch.equal(q8o["patches"], o["patches"])):
+            raise AssertionError(f"int8 fp32 + epilogue d {d}: rel L2 vs the plain quantize kernels {q8_rel:.3e} "
+                                 f"(limit {MODEL_REL_L2}), or not bit for bit the opt-in off")
+        out["paths"].append(dict(d=d, dtype="int8 fp32", res=name, batch=batch, rel_l2_vs_plain=rel,
+                                 ms_per_img=ms / batch, epilogue_rel_l2_vs_plain=q8_rel, epilogue_bit_for_bit=True,
+                                 epilogue_ms_per_img=q8_ms / batch))
+        log(f"  int8 fp32 d {d} {name} B {batch}: rel L2 vs the plain quantize kernels {rel:.3e}; "
+            f"{ms / batch:.4f} ms/img; with the epilogue (#2 f32) {q8_ms / batch:.4f} ms/img, rel L2 {q8_rel:.3e}, "
+            f"bit for bit the opt-in off, on {card}")
+        out["launches"][d] = launches
+        log(f"  fp32 d {d} launches over its path's runs: {_nonzero(launches)}; the models {time.time() - t1:.1f} s")
+        del model, o, q8o
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t0
+    log(f"fp32 wide heads phase: {out['wall_s']:.1f} s")
+    return out
+
+
+def wide_f32_entries(wide32: dict) -> list:
+    """The kernels line's entries of the fp32 forward's d 192 and 256
+    instances (#1, #2, the prologue and #4, at the first shape each row
+    set has), launches from the models' runs."""
+    entries = []
+    for d in sorted(wide32["rows"]):
+        rows, launches = wide32["rows"][d], wide32["launches"][d]
+        attrs = rows["attributes"]
+        pick = lambda name, case, n=None: next(r for r in rows[name] if r["case"] == case and (n is None or r["N"] == n))
+        first, second = WIDE_HEAD_KERNELS[0][1], WIDE_HEAD_KERNELS[1][1]
+        w, q8 = pick("fused_attention_f32", "tail", first), pick("fused_attention_q8_f32", "tail")
+        pro, f4 = pick("fused_qk_prologue_f32", "tail+sw1024"), pick("flash_attention_f32", "tail+sw1024")
+        common = lambda name, row: dict(route="cuda", max_abs_err=max(r["max_abs_err"] for r in rows[name]),
+                                        ms=row["ms"], dev_ms=row["dev_ms"], plain_ms=row["plain_ms"],
+                                        bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+        kernel = lambda key: {f"kernel_{k}": v for k, v in attrs[key].items()}
+        entries += [
+            dict(name=f"fused_attention_f32_d{d}", source="vitok_torch/csrc/fused_attention_ab_f32_sm90.cu",
+                 replaces="vitok_tpu/ops/fused_attention.py:317", launches=launches["fused_attention_f32"],
+                 **common("fused_attention_f32", w), library_ms=w["library_ms"], f64_rel_err=w["f64_rel_err"],
+                 f64_plain_rel_err=w["f64_plain_rel_err"], split=w["split"],
+                 split_ms=w["split_ms"], ms_1024=pick("fused_attention_f32", "tail", second)["ms"], **kernel("walker")),
+            dict(name=f"fused_attention_q8_f32_d{d}", source="vitok_torch/csrc/quantize_rows.cu",
+                 replaces="vitok_tpu/ops/fused_attention.py:340", launches=launches["fused_attention_q8_f32"],
+                 walker_launches=launches["fused_attention_f32"], **common("fused_attention_q8_f32", q8),
+                 library_ms=q8["library_ms"], codes_differ=0),
+            dict(name=f"fused_qk_prologue_f32_d{d}", source="vitok_torch/csrc/fused_attention_sm90.cu",
+                 replaces="vitok_tpu/ops/fused_attention.py:124", launches=launches["fused_qk_prologue_f32"],
+                 **common("fused_qk_prologue_f32", pro), library_ms=None, f64_rel_err=pro["f64_rel_err"],
+                 f64_plain_rel_err=pro["f64_plain_rel_err"], **kernel("prologue")),
+            dict(name=f"flash_attention_f32_d{d}", source="vitok_torch/csrc/flash_attention_f32.cu",
+                 replaces="vitok_tpu/ops/flash_attention.py:67", launches=launches["flash_attention_f32"],
+                 **common("flash_attention_f32", f4), library_ms=f4["library_ms"], flex_ms=f4["flex_ms"],
+                 f64_rel_err=f4["f64_rel_err"], f64_plain_rel_err=f4["f64_plain_rel_err"], fold_ms=f4["fold_ms"],
+                 fold_dev_ms=f4["fold_dev_ms"], fold_plain_ms=f4["fold_plain_ms"], fold_bound_ms=f4["fold_bound_ms"],
+                 **kernel("flash")),
+        ]
+    return entries
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "vitok_torch")):
         print("chip_smoke.py must run from a checkout of the repository (no vitok_torch/ here)",
@@ -5665,6 +6074,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide_heads = wide_heads_phase(device, card)
     torch.cuda.empty_cache()
+    wide32 = wide_f32_phase(device, card)
+    torch.cuda.empty_cache()
     log("eval summary: " + json.dumps({
         run: {k: evals[run]["stats"][k] for k in ("n_images", "ssim", "psnr", "fid", "fdd", "throughput_img_per_sec",
                                                   "wall_img_per_sec", "steady_img_per_sec", "host_data_time_s",
@@ -5680,6 +6091,7 @@ def main() -> int:
     entries += f32_training_entries(f32_train)
     entries += wide_kernel_entries(wide)
     entries += wide_heads_entries(wide_heads, kern, fkern, fbkern, bkern)
+    entries += wide_f32_entries(wide32)
     for e in entries:  # the 5B run's, the eval runs' and the perceptual steps' launches beside each path's own
         if bench_5b["launches"].get(e["name"]):
             e["launches_5b_bench"] = bench_5b["launches"][e["name"]]

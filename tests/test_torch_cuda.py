@@ -431,9 +431,12 @@ class TestWideHeadsOnCard:
     #1, #2 and the fold's #4) against their plain versions on the card, at
     the limits the d 64/128 instances meet (the backward's instances, #3,
     #5 and #6, plain and fold, at every case of the backward classes below,
-    the prologue's delta in TestKernelOnCard); an fp32 call keeps
-    the unfused composition (the fp32 instances have none at these head
-    dims), and a forced fp32 kernel there raises."""
+    the prologue's delta in TestKernelOnCard); the fp32 forward's instances
+    (the fp32 walker at every split ``f32_walk_split`` can return, the fp32
+    prologue and the fold's #4) within 1e-5 of their plain versions' largest
+    entry; an fp32 call under grad keeps the unfused composition (the fp32
+    backward has no instance at these head dims), and a forced fp32 kernel
+    under grad there raises."""
 
     @pytest.mark.parametrize("d", [192, 256])
     @pytest.mark.parametrize("case,masked,sw", CASES)
@@ -514,21 +517,74 @@ class TestWideHeadsOnCard:
         assert ((a - r).norm() / r.norm()).item() <= 2e-2
 
     def test_gates_close_and_forced_kernels_raise(self, cuda_device):
-        """The bf16 gates open at d = 256, under grad too (the name is kept
-        from when they closed there); in fp32 they close, and a forced fp32
-        kernel raises before it launches."""
+        """The bf16 gates open at d = 256, under grad too, and the fp32
+        forward's (the name is kept from when they closed there); in fp32
+        under grad they close, and a forced fp32 kernel under grad raises
+        before it launches."""
         qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=1, n=256, heads=1, d=256)
         assert t_fa.can_fuse(256, 256, 1, cuda=True) and t_fa.can_fuse(256, 256, 1)
         assert t_fa.can_fuse_bwd(256, 256, 1, cuda=True)
-        assert not t_fa.can_fuse(256, 256, 1, cuda=True, dtype=torch.float32)
+        assert t_fa.can_fuse(256, 256, 1, cuda=True, dtype=torch.float32)
         assert not t_fa.can_fuse_bwd(256, 256, 1, cuda=True, dtype=torch.float32)
         before = (counts(), t_fl.LAUNCHES)
         with pytest.raises(ValueError, match="head_dim"):
-            t_fa.fused_qkv_attention(qkv.detach().float(), qs, ks, cos, sin, num_heads=1, impl="fused")
+            t_fa.fused_qkv_attention(qkv.detach().float().requires_grad_(), qs, ks, cos, sin, num_heads=1,
+                                     impl="fused")
         q = qkv.detach()[..., :256].view(1, 256, 1, 256).float().requires_grad_()
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, q, q)
         assert (counts(), t_fl.LAUNCHES) == before
+
+    @pytest.mark.parametrize("d", [192, 256])
+    @pytest.mark.parametrize("n", [64, 200, 1024])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 24)])
+    def test_fp32_forward_matches_plain(self, cuda_device, no_tf32, d, n, case, sw):
+        """#1 on fp32 (the fp32 walker's wide layout): within 1e-5 of the
+        plain version, and every split ``f32_walk_split`` returns for this
+        shape on a card of 1 to 132 SMs the bits of one cell a block."""
+        heads, b = 4, 4
+        qkv, *rest = ab_inputs(cuda_device, torch.float32, b=b, n=n, heads=heads, d=d, case=case)
+        before = counts()
+        got = t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
+        assert counts() == added(before, f32=1)
+        want = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
+        _, _, _, _, qs, ks, cos, sin, mask, swi = t_fa._check_cuda_args(qkv, *rest, heads, sw, dtypes=(torch.float32,))
+        one = t_fa._walk_f32_cuda(qkv, qs, ks, cos, sin, mask, heads, bb=1, hpb=1, sw=swi, kind="fwd")
+        for bb, hpb in sorted({t_fa.f32_walk_split(b, n, heads, d, sms) for sms in (1, 2, 4, 8, 16, 64, 132)}):
+            split = t_fa._walk_f32_cuda(qkv, qs, ks, cos, sin, mask, heads, bb=bb, hpb=hpb, sw=swi, kind="fwd")
+            assert torch.equal(split, one), (bb, hpb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, one)
+        assert_fp32_close(got, want)
+
+    @pytest.mark.parametrize("d", [192, 256])
+    @pytest.mark.parametrize("masked,sw", [(False, None), (True, 300)])
+    def test_fp32_fold_matches_plain(self, cuda_device, no_tf32, d, masked, sw):
+        """The fold on fp32: the fp32 prologue (q and k) within 1e-5 of its
+        plain version, then #4's fp32 instance on its views within 1e-5 of
+        the plain fold, padded rows 0."""
+        qkv, *rest = ab_inputs(cuda_device, torch.float32, b=4, n=2048, heads=1, d=d,
+                               case="tail+dead" if masked else "none")
+        assert t_fa.takes_flash_fold(qkv, rest[0], rest[1], 1, "auto")
+        before = (counts(), t_fl.F32_LAUNCHES)
+        got = t_fa.unfused_qkv_attention(qkv, *rest, 1, sw)
+        assert (counts(), t_fl.F32_LAUNCHES) == (added(before[0], prologue_f32=1), before[1] + 1)
+        qk, _ = t_fa.fused_qk_prologue(qkv, *rest[:4], num_heads=1)
+        qk_want, _ = t_fa.fused_qk_prologue_plain(qkv, *rest[:4], num_heads=1)
+        want = t_fa.flash_qkv_attention_plain(qkv, *rest, num_heads=1, sliding_window=sw)
+        torch.cuda.synchronize()
+        assert_fp32_close(qk, qk_want)
+        assert_fp32_close(got, want)
+        if masked:
+            assert not got[~rest[-1]].any()
+
+    def test_fp32_wide_instances_report_their_attributes(self, cuda_device):
+        """The fp32 walker's, the fp32 prologue's and #4's fp32 wide
+        instances fit a block's shared memory, one block an SM at least."""
+        for d in (192, 256):
+            for attrs in (t_fa.f32_walk_attributes(d, "fwd", 2), t_fa.sm90_attributes("prologue_f32", d),
+                          t_fl.flash_f32_attributes("fwd", d)):
+                assert attrs["blocks_per_sm"] >= 1 and attrs["smem_bytes"] <= 232448, (d, attrs)
 
 
 def _bwd_case(device, n, d, case, sw):
@@ -1198,7 +1254,7 @@ class TestQ8Fp32OnCard:
     (``impl="fused"``: the same walker) bit for bit."""
 
     @pytest.mark.parametrize("n", [64, 256, 1024])
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("masked", [False, True])
     def test_codes_equal_quantized_fp32_forward(self, cuda_device, no_tf32, n, d, masked):
         qkv, *rest = make_inputs(cuda_device, b=2, n=n, heads=4, d=d, masked=masked)

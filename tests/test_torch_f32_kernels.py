@@ -7,9 +7,10 @@ Each wrapper runs as it does on the card, on tensors that say they lie there
 replaced by recorders of the C entry points they call (``_build.load``) and
 the stream and device context by stand-ins. An fp32 call reaches the fp32
 instance's entry with the shape, window, strides and flags its plan sets,
-and counts a launch under the fp32 instance's name; an fp16 call, and a
-head dim the fp32 instances lack (``F32_HEAD_DIMS``: 64 and 128), raise
-before anything launches. The
+and counts a launch under the fp32 instance's name, the forward's at head
+dims 64 to 256 (``F32_FWD_HEAD_DIMS``); an fp16 call, and a head dim the
+fp32 instances lack (the backward's ``F32_BWD_HEAD_DIMS``: 64 and 128, under
+a gradient), raise before anything launches. The
 arithmetic of the plain versions that these instances are held to on the
 card is held against the JAX package in ``tests/test_torch_train_lib.py``,
 ``test_torch_flash_*.py`` and ``test_torch_fused_*.py``; the kernels
@@ -126,7 +127,7 @@ def entry_calls(calls, fn):
 
 
 class TestFlashForward:
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("return_lse", [False, True])
     def test_fp32_reaches_its_instance(self, entries, d, return_lse):
         q, k, v = qkv_views(d=d)
@@ -154,7 +155,7 @@ class TestFlashForward:
         q, k, v = qkv_views()
         with pytest.raises(TypeError, match="one dtype"):
             t_fl.flash_attention(q, k, card(v.bfloat16()))
-        q, k, v = qkv_views(d=256)
+        q, k, v = (t.requires_grad_() for t in qkv_views(d=256))  # the backward's head dims: 64, 128
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, k, v)
         assert entries == [] and counts() == only()
@@ -212,9 +213,10 @@ class TestFold:
         assert not t_fa.takes_flash_fold(qkv, qs, ks, 2, "xla")
         assert not t_fa.takes_flash_fold(qkv.as_subclass(torch.Tensor), qs, ks, 2, "auto")
         qkv, qs, ks, *_ = qkv_inputs(1, 2048, heads=1, d=256, masked=False)
-        assert not t_fa.takes_flash_fold(qkv, qs, ks, 1, "auto")
+        assert t_fa.takes_flash_fold(qkv, qs, ks, 1, "auto")  # the fp32 forward has d 256
+        assert not t_fa.takes_flash_fold(qkv, qs.requires_grad_(), ks, 1, "auto")  # its backward has not
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     def test_forward_is_the_fp32_prologue_then_the_fp32_flash_kernel(self, entries, d):
         qkv, qs, ks, cos, sin, mask = qkv_inputs(d=d)
         out = t_fa.flash_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=2, sliding_window=40)
@@ -338,7 +340,7 @@ class TestQ8Fp32:
         monkeypatch.setattr(t_fa, "Q8_LAUNCHES", 0)
 
     @pytest.mark.parametrize("n", [64, 256, 1024])
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     def test_fp32_is_the_walker_then_the_row_quantize(self, entries, n, d):
         qkv, qs, ks, cos, sin, mask = qkv_inputs(n=n, d=d)
         codes, scales = t_fa.fused_qkv_attention_q8(qkv, qs, ks, cos, sin, mask, num_heads=2)

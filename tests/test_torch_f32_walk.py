@@ -56,7 +56,7 @@ def blocks(b, n, h, split):
 class TestSplitRule:
     @pytest.mark.parametrize("b,n,h", [(256, 64, 24), (16, 256, 16), (64, 256, 16), (16, 1024, 16), (4, 200, 2),
                                        (7, 128, 5), (1, 64, 1), (2, 1024, 24), (32, 8, 12)])
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("sms", [1, 8, 132])
     def test_divisors_of_b_and_h_and_never_a_pack(self, b, n, h, d, sms):
         split = t_fa.f32_walk_split(b, n, h, d, sms)
@@ -82,6 +82,18 @@ class TestSplitRule:
         assert t_fa.f32_walk_split(64, 512, 16, 128, SMS) == (1, 1)    # eight key tiles: one cell a block
         assert t_fa.f32_walk_split(64, 256, 16, 128, SMS) == (1, 2)    # four key tiles, one block an SM
         assert t_fa.f32_walk_split(1, 64, 24, 128, SMS) == (1, 1)      # a small grid gives its cells back
+
+    def test_wide_heads_take_the_fewest_waves(self):
+        """Heads of 192 and 256 (the wide layout, one block an SM): at most
+        four cells a block, the grid's waves times the cells a block as few
+        as may be, then the most cells, heads first; the 5B-width shapes of
+        the fp32 models' paths as the card read them fastest (PERF.md)."""
+        assert t_fa.f32_walk_split(16, 256, 12, 256, SMS) == (1, 3)   # 256 blocks: two waves
+        assert t_fa.f32_walk_split(16, 256, 16, 192, SMS) == (1, 4)
+        assert t_fa.f32_walk_split(16, 1024, 12, 256, SMS) == (1, 4)  # 16 key tiles: four cells still pay
+        assert t_fa.f32_walk_split(16, 1024, 16, 192, SMS) == (1, 4)
+        assert t_fa.f32_walk_split(2, 1024, 16, 192, SMS) == (1, 2)   # four heads a block would not fill the card
+        assert t_fa.f32_walk_split(1, 64, 12, 256, SMS) == (1, 1)     # a small grid: one cell a block
 
     def test_refuses_what_is_not_a_shape(self):
         with pytest.raises(ValueError, match="positive"):

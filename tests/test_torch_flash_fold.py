@@ -255,7 +255,9 @@ class TestFoldRouting:
         """Head dims 192 and 256 (the name is kept from when the fold was not
         taken there): a bf16 call takes the fold, without a gradient and
         under grad (the backward's fold instances, with the plain backward's
-        gradients); in fp32 the unfused composition runs, with no launch."""
+        gradients); in fp32 the fold without a gradient (the fp32 prologue and
+        #4's fp32 instance), and under grad the unfused composition, with no
+        launch."""
         args = _card_args(1, 2048, 1, d, masked=False)
         assert t_fa.takes_flash_fold(args[0], args[1], args[2], 1, "auto")
         got = t_fa.unfused_qkv_attention(*args, 1, 300)
@@ -270,11 +272,18 @@ class TestFoldRouting:
         launched = ["prologue", "flash"] * 2 + ["prologue", "dq", "dkv"]
         assert recorders == launched
         f32 = _card_args(1, 2048, 1, d, dtype=torch.float32, masked=False)
-        assert not t_fa.takes_flash_fold(f32[0], f32[1], f32[2], 1, "auto")
+        assert t_fa.takes_flash_fold(f32[0], f32[1], f32[2], 1, "auto")
         got32 = t_fa.unfused_qkv_attention(*f32, 1, 300)
-        assert recorders == launched  # the unfused composition: no further launches
-        want32 = t_fa.unfused_qkv_attention(*map(plain, f32), 1, 300, attn_impl="xla")
+        launched += ["prologue", "flash"]
+        assert recorders == launched
+        want32 = t_fa.flash_qkv_attention_plain(*map(plain, f32), num_heads=1, sliding_window=300)
         torch.testing.assert_close(plain(got32), want32, rtol=0, atol=0)
+        qkv32 = card(plain(f32[0]).clone()).requires_grad_()
+        assert not t_fa.takes_flash_fold(qkv32, f32[1], f32[2], 1, "auto")
+        got32 = t_fa.unfused_qkv_attention(qkv32, *f32[1:], 1, 300)
+        assert recorders == launched  # under grad the unfused composition: no further launches
+        want32 = t_fa.unfused_qkv_attention(*map(plain, f32), 1, 300, attn_impl="xla")
+        torch.testing.assert_close(plain(got32).detach(), want32, rtol=0, atol=0)
 
     def test_not_taken_below_the_flash_threshold(self, recorders):
         args = _card_args(1, 2040, 2, 64)
@@ -309,8 +318,9 @@ class TestHeadDimGates:
         """On the card the bf16 gates open wherever the JAX package's do
         (``ok_cpu``: 64, 128, 192 and 256), a call under grad too (the
         backward's head dims are the forward's since it has instances at 192
-        and 256); ``ok_card`` is where the gates of an fp32 call open on the
-        card: 64 and 128."""
+        and 256), and so do the gates of an fp32 call without a gradient (its
+        forward has instances at 192 and 256 too); ``ok_card`` is where the
+        gates of an fp32 call under grad open on the card: 64 and 128."""
         monkeypatch.setattr(t_fa, "_ENABLE_Q8", True)
         c = 4 * d if d != 72 else 1728
         h = c // d
@@ -318,22 +328,23 @@ class TestHeadDimGates:
         assert t_attn.head_dim_routes(d, cuda=False) is ok_cpu
         assert t_attn.head_dim_routes(d, cuda=True) is ok_cpu
         assert t_attn.head_dim_routes(d, cuda=True, grad=True) is ok_cpu
-        assert t_attn.head_dim_routes(d, cuda=True, dtype=f32) is ok_card
+        assert t_attn.head_dim_routes(d, cuda=True, dtype=f32) is ok_cpu
         assert t_attn.head_dim_routes(d, cuda=True, dtype=f32, grad=True) is ok_card
         assert t_attn.flash_route(2048, d, "auto", cuda=False) is ok_cpu
         assert t_attn.flash_route(2048, d, "auto", cuda=True) is ok_cpu
         assert t_attn.flash_route(2048, d, "auto", cuda=True, grad=True) is ok_cpu
-        assert t_attn.flash_route(2048, d, "auto", cuda=True, dtype=f32) is ok_card
+        assert t_attn.flash_route(2048, d, "auto", cuda=True, dtype=f32) is ok_cpu
+        assert t_attn.flash_route(2048, d, "auto", cuda=True, dtype=f32, grad=True) is ok_card
         assert t_attn.flash_route(2048, d, "flash", cuda=True)  # asked for: it raises where no instance is
         assert t_fa.can_fuse(256, c, h) is (ok_cpu and c % 128 == 0)
         assert t_fa.can_fuse(256, c, h, cuda=True) is (ok_cpu and c % 128 == 0)
-        assert t_fa.can_fuse(256, c, h, cuda=True, dtype=f32) is (ok_card and c % 128 == 0)
+        assert t_fa.can_fuse(256, c, h, cuda=True, dtype=f32) is (ok_cpu and c % 128 == 0)
         assert t_fa.can_fuse_bwd(256, c, h, cuda=True) is (ok_cpu and c % 128 == 0)
         assert t_fa.can_fuse_bwd(256, c, h, cuda=True, dtype=f32) is (ok_card and c % 128 == 0)
         assert t_fa.can_fuse_bwd(256, c, h) == t_fa.can_fuse(256, c, h)
         if ok_cpu:
             assert t_fa.can_fuse_q8(256, c, h) and t_fa.can_fuse_q8(256, c, h, cuda=True)
-            assert t_fa.can_fuse_q8(256, c, h, cuda=True, dtype=f32) is ok_card
+            assert t_fa.can_fuse_q8(256, c, h, cuda=True, dtype=f32)
 
     @pytest.mark.parametrize("n", [256, 2048])
     def test_wide_heads_take_the_unfused_composition_on_the_card(self, recorders, n):
@@ -367,8 +378,9 @@ class TestHeadDimGates:
     def test_dot_product_attention_keeps_wide_heads_off_the_flash_kernel(self, recorders):
         """Wide heads (the name is kept from when the flash kernel never took
         them) go to the flash kernel in bf16, without a gradient and under
-        grad (the backward has d 256 instances), and stay off it in fp32;
-        heads of 128 go to it under grad."""
+        grad (the backward has d 256 instances), and in fp32 without a
+        gradient; they stay off it in fp32 under grad; heads of 128 go to it
+        under grad."""
         x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 2048, 1, 256), dtype=np.float32))
         q = card(x.bfloat16())
         t_attn.dot_product_attention(q, q, q, sliding_window=64)
@@ -377,6 +389,9 @@ class TestHeadDimGates:
         t_attn.dot_product_attention(qg, qg, qg, sliding_window=64)
         assert recorders == ["flash", "flash"]
         t_attn.dot_product_attention(card(x), card(x), card(x), sliding_window=64)
-        assert recorders == ["flash", "flash"]
+        assert recorders == ["flash"] * 3
+        xg = card(x.clone().requires_grad_())
+        t_attn.dot_product_attention(xg, xg, xg, sliding_window=64)
+        assert recorders == ["flash"] * 3
         t_attn.dot_product_attention(q[..., :128], q[..., :128], q[..., :128], sliding_window=64)
-        assert recorders == ["flash", "flash", "flash"]
+        assert recorders == ["flash"] * 4

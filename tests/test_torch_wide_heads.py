@@ -20,11 +20,16 @@ lie there (a ``Tensor`` subclass whose ``is_cuda`` is True) with the CUDA
 libraries replaced by recorders of their C entry points: a bf16 forward
 reaches the d 192/256 instances (the prologue, #1, #2 in its cluster, #4
 after the prologue), and a bf16 call under grad the backward's (the prologue
-with delta, then #3, or #5/#6's fold instances); an fp32 call takes the
-unfused composition and launches nothing, and a forced fp32 or A/B kernel
-raises before a launch; an AE training step at d 256 launches #1 and #3 in
-every block. The kernels themselves are held to their plain versions on the
-card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+with delta, then #3, or #5/#6's fold instances); an fp32 call without a
+gradient reaches the fp32 forward's (the fp32 walker, the walker then the
+row quantize for #2, the fold's fp32 prologue then #4's fp32 instance),
+counted under their fp32 names; an fp32 call under grad takes the unfused
+composition and launches nothing, and a forced fp32 kernel under grad or an
+A/B kernel raises before a launch; an AE training step at d 256 launches #1
+and #3 in every block. The fp32 prologue's plain version is held to the JAX
+package's ``_norm_rope_half`` at d 192 and 256. The kernels themselves are
+held to their plain versions on the card by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
 """
 
 import contextlib
@@ -49,6 +54,7 @@ from vitok_torch.models import ae as t_ae
 from vitok_torch.ops import _build
 from vitok_torch.ops import flash_attention as t_fl
 from vitok_torch.ops import fused_attention as t_fa
+from vitok_torch.ops import quant as t_q
 from vitok_torch.utils.params_io import from_jax_params, released_state_to_module_state, to_jax_params
 
 from tests.test_torch_ae import jax_params, make_batch
@@ -63,6 +69,7 @@ torch.set_num_threads(1)
 ATOL = 2e-5        # attention, fp32
 MODEL_ATOL = 1e-4  # an fp32 model, 3 blocks
 MODEL_REL_L2 = 1e-3  # an int8 model (tests/test_torch_quant.py)
+SMS = 132  # an H100 SXM's SMs
 
 
 class TestRmsInv:
@@ -116,6 +123,25 @@ class TestPlainAgainstJax:
         want = j_fa.unfused_qkv_attention(j(qkv), j(qs), j(ks), j(cos), j(sin), j(mask), 2, sw, attn_impl="pallas")
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
         assert not got.numpy()[~mask].any()
+
+    @pytest.mark.parametrize("d", [192, 256])
+    def test_fp32_prologue_plain_matches_norm_rope_half(self, d):
+        """The fp32 q/k prologue's plain version (q, then k, normed and
+        rotated in fp32; at d = 192 the sum of squares over 16 lanes, 12 of
+        them live) against the JAX package's ``_norm_rope_half`` on f32, one
+        row a (sample, token, head): 1e-5."""
+        qkv, qs, ks, cos, sin, _ = fold_inputs(2, 24, 2, d, False)
+        b, n, c3 = qkv.shape
+        c = c3 // 3
+        t = torch.from_numpy
+        qk, _ = t_fa.fused_qk_prologue_plain(t(qkv), t(qs), t(ks), t(cos), t(sin), num_heads=2)
+        assert qk.dtype == torch.float32 and qk.shape == (b, n, 2 * c)
+        rows = lambda a: jnp.asarray(np.repeat(a[:, :, None], 2, 2).reshape(b * n * 2, -1))
+        want = np.concatenate([
+            np.asarray(j_fa._norm_rope_half(jnp.asarray(qkv[..., part * c:(part + 1) * c].reshape(-1, d)),
+                                            jnp.asarray(scale)[None], rows(cos), rows(sin))).reshape(b, n, c)
+            for part, scale in ((0, qs), (1, ks))], axis=-1)
+        np.testing.assert_allclose(qk.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
 SMALL_AE = {  # name: (variant, tokens, per-sample grids)
@@ -250,9 +276,13 @@ def entries(monkeypatch):
     monkeypatch.setattr(_build, "load", lambda name: libs.setdefault(name, Lib()))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: types.SimpleNamespace(cuda_stream=7))
-    for name in ("LAUNCHES", "PROLOGUE_LAUNCHES", "Q8_LAUNCHES", "BWD_LAUNCHES"):
+    monkeypatch.setattr(t_fa, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(t_fa, "_quantize_rows_blocks", lambda c, dev: 4)
+    monkeypatch.setattr(t_q, "_FNS", {})
+    for name in ("LAUNCHES", "PROLOGUE_LAUNCHES", "Q8_LAUNCHES", "BWD_LAUNCHES", "F32_LAUNCHES",
+                 "PROLOGUE_F32_LAUNCHES", "Q8_F32_LAUNCHES"):
         monkeypatch.setattr(t_fa, name, 0)
-    for name in ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"):
+    for name in ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "F32_LAUNCHES"):
         monkeypatch.setattr(t_fl, name, 0)
     return calls
 
@@ -270,7 +300,8 @@ def names(calls):
 
 def launches():
     return dict(fa=t_fa.LAUNCHES, prologue=t_fa.PROLOGUE_LAUNCHES, q8=t_fa.Q8_LAUNCHES, bwd=t_fa.BWD_LAUNCHES,
-                fl=t_fl.LAUNCHES, dq=t_fl.DQ_LAUNCHES, dkv=t_fl.DKV_LAUNCHES)
+                fl=t_fl.LAUNCHES, dq=t_fl.DQ_LAUNCHES, dkv=t_fl.DKV_LAUNCHES, fa_f32=t_fa.F32_LAUNCHES,
+                prologue_f32=t_fa.PROLOGUE_F32_LAUNCHES, q8_f32=t_fa.Q8_F32_LAUNCHES, fl_f32=t_fl.F32_LAUNCHES)
 
 
 def only(**named):
@@ -311,13 +342,64 @@ class TestCardRouting:
         assert flash[16:21] == (1, 2048, 1, d, 300)
         assert launches() == only(fl=1, prologue=1)
 
+    def test_fp32_forward_reaches_the_wide_walker(self, entries, d):
+        """fp32 without a gradient, ``"auto"`` and ``"fused"``, at 1024
+        tokens with a tail mask: the fp32 walker's forward at the split
+        ``f32_walk_split`` picks, counted under ``F32_LAUNCHES``."""
+        heads = 3072 // d
+        args = qkv_inputs(2, 1024, heads, d, dtype=torch.float32)
+        assert t_fa.can_fuse(1024, 3072, heads, cuda=True, dtype=torch.float32)
+        assert not t_fa.can_fuse(1024, 3072, heads, cuda=True, dtype=torch.float32, grad=True)
+        for impl in ("auto", "fused"):
+            out = t_fa.fused_qkv_attention(*args, num_heads=heads, impl=impl)
+            assert out.shape == (2, 1024, 3072) and out.dtype == torch.float32
+        bb, hpb = t_fa.f32_walk_split(2, 1024, heads, d, SMS)
+        assert names(entries) == ["vitok_fused_attention_walk_f32"] * 2
+        for _, walk in entries:
+            assert walk[5] is not None and walk[7] is None  # the mask; no lse
+            assert walk[8:] == (2, 1024, heads, d, bb, hpb, -1, t_fa.F32_WALK_KINDS.index("fwd"), 7)
+        assert launches() == only(fa_f32=2)
+
+    def test_fp32_q8_is_the_walker_then_the_row_quantize(self, entries, d, monkeypatch):
+        """#2 on fp32 at the 5B width: the fp32 walker's forward, then the row
+        quantize over the walker's output, one launch of each counted."""
+        monkeypatch.setattr(t_fa, "_ENABLE_Q8", True)
+        heads = 3072 // d
+        assert t_fa.can_fuse_q8(256, 3072, heads, cuda=True, dtype=torch.float32)
+        codes, scales = t_fa.fused_qkv_attention_q8(*qkv_inputs(1, 64, heads, d, dtype=torch.float32),
+                                                    num_heads=heads)
+        assert codes.dtype == torch.int8 and codes.shape == (1, 64, 3072) and scales.shape == (1, 64, 1)
+        assert names(entries) == ["vitok_fused_attention_walk_f32", "vitok_quantize_rows_f32"]
+        (_, walk), (_, quant) = entries
+        assert walk[8:12] == (1, 64, heads, d) and quant[0] == walk[6]  # the quantize reads the walker's output
+        assert quant[1:5] == (codes.data_ptr(), scales.data_ptr(), 64, 3072)
+        assert launches() == only(fa_f32=1, q8_f32=1)
+
+    def test_fp32_fold_reaches_the_wide_instances(self, entries, d):
+        """The fold on fp32 (``flash_qkv_attention``, a tail mask and a
+        window): the fp32 prologue writes q and k, then #4's fp32 instance
+        reads them as views of its scratch, v a view of qkv."""
+        qkv, qs, ks, cos, sin, mask = qkv_inputs(2, 2048, 1, d, dtype=torch.float32)
+        out = t_fa.flash_qkv_attention(qkv, qs, ks, cos, sin, mask, num_heads=1, sliding_window=1024)
+        assert out.shape == (2, 2048, d) and out.dtype == torch.float32
+        assert names(entries) == ["vitok_fused_qk_prologue_f32", "vitok_flash_attention_f32"]
+        (_, pro), (_, flash) = entries
+        assert pro[5:7] == (None, None) and pro[9:14] == (2, 2048, 1, d, 2)
+        assert flash[0] == pro[7] and flash[1] == pro[7] + 4 * d  # q, k: views of the fp32 scratch
+        assert flash[2] == qkv.data_ptr() + 4 * 2 * d and flash[12] is not None  # v, a view of qkv; the mask
+        assert flash[16:21] == (2, 2048, 1, d, 1024)
+        assert launches() == only(prologue_f32=1, fl_f32=1)
+
     def test_grad_and_fp32_keep_the_composition(self, entries, d):
         """Under grad in bf16 (the name is kept from when such a call took the
         composition) a d 192/256 call reaches the backward's C entries: at 256
         tokens with ``impl="fused"`` #1 with its log-sum-exp, then the
         prologue with delta and #3's entry; at 2048 tokens the fold, then the
         prologue with delta and #5's and #6's fold instances. An fp32 call
-        keeps the composition and launches nothing."""
+        without a gradient reaches the fp32 forward's entries (the walker at
+        256 tokens, the fp32 prologue and #4's fp32 instance at 2048); under
+        grad it keeps the composition and launches nothing, forward or
+        backward."""
         fold = ["vitok_fused_qk_prologue_bf16", "vitok_flash_attention_bf16", "vitok_fused_qk_prologue_bf16",
                 "vitok_flash_bwd_dq_fold_bf16", "vitok_flash_bwd_dkv_fold_bf16"]
         fused = ["vitok_fused_qk_prologue_bf16", "vitok_fused_attention_sm90_bf16", "vitok_fused_qk_prologue_bf16",
@@ -333,19 +415,40 @@ class TestCardRouting:
             prologue = entries[2][1]  # the backward's: out given (delta), q and k
             assert prologue[5] is not None and prologue[9:14] == (1, n, 2, d, 2)
             assert entries[-1][1][-6:-1] == (1, n, 2, d, 40)  # B, N, H, D, window
-        entries.clear()
+        fp32 = {256: ["vitok_fused_attention_walk_f32"],
+                2048: ["vitok_fused_qk_prologue_f32", "vitok_flash_attention_f32"]}
         for n in (256, 2048):
+            entries.clear()
             args = qkv_inputs(1, n, 2, d, dtype=torch.float32)
-            assert not t_fa.takes_flash_fold(args[0], args[1], args[2], 2, "auto")
+            assert t_fa.takes_flash_fold(args[0], args[1], args[2], 2, "auto") is (n == 2048)
             t_fa.fused_qkv_attention(*args, num_heads=2, sliding_window=40)
-        assert entries == [] and launches() == only(fa=1, prologue=4, bwd=2, fl=1, dq=1, dkv=1)
+            assert names(entries) == fp32[n]
+            if n == 256:  # no lse; B, N, H, D; the window and the forward's kind
+                walk = entries[0][1]
+                assert walk[7] is None and walk[8:12] == (1, n, 2, d) and walk[14:16] == (40, 0)
+            else:  # q and k, no delta; then #4 on their views with the window
+                assert entries[0][1][5] is None and entries[0][1][9:14] == (1, n, 2, d, 2)
+                assert entries[1][1][16:21] == (1, n, 2, d, 40)
+            entries.clear()
+            qkv, *rest = qkv_inputs(1, n, 2, d, dtype=torch.float32)
+            qkv.requires_grad_()
+            assert not t_fa.takes_flash_fold(qkv, rest[0], rest[1], 2, "auto")
+            out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=40)
+            out.as_subclass(torch.Tensor).sum().backward()
+            assert qkv.grad is not None and entries == []
+        assert launches() == only(fa=1, prologue=4, bwd=2, fl=1, dq=1, dkv=1, fa_f32=1, prologue_f32=1, fl_f32=1)
 
     def test_forced_kernels_raise_before_a_launch(self, entries, d):
-        """fp32 (its instances stop at 128) and the A/B kernels' wrappers
-        raise before a launch; bf16 under grad no longer does (the backward
-        has d 192/256 instances)."""
-        with pytest.raises(ValueError, match="head_dim"):
-            t_fa.fused_qkv_attention(*qkv_inputs(1, 256, 2, d, dtype=torch.float32), num_heads=2, impl="fused")
+        """fp32 under a gradient (its backward's instances stop at 128:
+        ``impl="fused"``, ``impl="flash"`` and the flash kernel), the fp32
+        prologue with delta and the A/B kernels' wrappers raise before a
+        launch; bf16 under grad no longer does (the backward has d 192/256
+        instances), nor fp32 without a gradient (its forward has them)."""
+        for n, impl in ((256, "fused"), (2048, "flash")):
+            qkv, *rest = qkv_inputs(1, n, 2, d, dtype=torch.float32)
+            qkv.requires_grad_()
+            with pytest.raises(ValueError, match="head_dim"):
+                t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, impl=impl)
         q = card(torch.zeros((1, 256, 2, d), dtype=torch.float32, requires_grad=True))
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, q, q)

@@ -48,7 +48,11 @@
 //     Q, dO (192 KB at d = 128);
 //   * forward and dq: one warpgroup of 64 query rows a block, walking the
 //     block's live key tiles: split K and V, S (and dP), the softmax (or p
-//     and ds), P V (or dS K), a block barrier a tile;
+//     and ds), P V (or dS K), a block barrier a tile; the forward at d = 192
+//     and 256 (whole Q, K and V pieces: 217 KB, and 289 KB past a block's
+//     227 KB) keeps V's pieces one 64-column slab at a time, P V a slab of
+//     O's columns at a time (accumulate_pv_slab: two block barriers a slab
+//     past the first);
 //   * dk/dv: one block of 64 key rows, two warpgroups that share its tiles:
 //     at d = 128 the two fp32 accumulators and the pieces of P^T and dS^T do
 //     not fit one thread's registers, so warpgroup 0 forms S^T, p^T and
@@ -106,27 +110,6 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Rows [r0, r0 + 64) of D fp32 channels (row stride `stride` floats) split
-// into three bf16 sw128 piece tiles at `pieces`; rows at or past N, and rows
-// whose byte of `rowmask` is 0, are zeros and are not read. THREADS threads.
-template <int D, int THREADS>
-__device__ __forceinline__ void split_rows(unsigned char* pieces, const float* src, long long stride, int r0, int N,
-                                           const unsigned char* rowmask, int tid) {
-  constexpr int kChunks = D / 8;
-  static_assert(kTile * kChunks % THREADS == 0, "whole chunks a thread");
-#pragma unroll 4
-  for (int u = 0; u < kTile * kChunks / THREADS; ++u) {
-    const int i = tid + u * THREADS;
-    const int row = i / kChunks, col = (i % kChunks) * 8;
-    const int n = r0 + row;
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = 0.f;
-    if (n < N && (rowmask == nullptr || rowmask[n])) ld_f4x2(v, src + (long long)n * stride + col);
-    store_split<D>(pieces, row, col, v);
-  }
 }
 
 // acc = A B^T contracted over D channels, A's and B's pieces K-major: the six
@@ -209,11 +192,15 @@ __device__ __forceinline__ bool live_at(uint64_t cols, int nt, int e, int row0, 
 // Forward
 // ---------------------------------------------------------------------------
 
+// Q's and K's pieces whole; V's whole up to d = 128, and at d = 192 and 256
+// one 64-column slab of them at a time (217 KB at d = 256 beside Q and K,
+// where whole V pieces would make 289 KB).
 template <int D>
 struct FwdSmem {
   static constexpr int kP = kTile * D * 2;  // one piece tile
+  static constexpr int kVCols = D > 128 ? 64 : D;
   static constexpr int kQ = 0, kK = 3 * kP, kV = 6 * kP;
-  static constexpr int kBytes = 9 * kP + 1024;  // + alignment slack
+  static constexpr int kBytes = kV + 3 * kTile * kVCols * 2 + 1024;  // + alignment slack
 };
 
 // One key tile's online-softmax update of this thread's rows from the raw
@@ -301,7 +288,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     const int k0 = (first + it) * kTile;
     __syncthreads();  // every warp is done with the last tile's pieces
     split_rows<D, kThreads>(sK, k_b, ks.n, k0, N, nullptr, tid);
-    split_rows<D, kThreads>(sV, v_b, vs.n, k0, N, nullptr, tid);
+    split_rows<S::kVCols, kThreads>(sV, v_b, vs.n, k0, N, nullptr, tid);  // wide heads: V's first slab
     key_bits(sKeyBits, k0, lead, valid, mask_b, tid);
     if (it + 1 < n_tiles) {
       prefetch_rows_l2<D, kThreads>(k_b, ks.n, k0 + kTile, N, tid);
@@ -319,7 +306,20 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     softmax_f32<D>(r, s, keys, qrow0 - k0, qrow1 - k0, sw, c);
     uint32_t pa[3][kTile / 16][4];
     split_p(s, pa);
-    rs_split_add<D, D>(r.o, pa, sV);
+    if constexpr (D <= 128) {
+      rs_split_add<D, D>(r.o, pa, sV);
+    } else {  // O's columns a 64-column slab of V at a time, each into a fresh accumulator
+#pragma unroll
+      for (int cs = 0; cs < D / 64; ++cs) {
+        if (cs > 0) {
+          __syncthreads();  // every warp's products have read slab cs - 1
+          split_rows<64, kThreads>(sV, v_b + cs * 64, vs.n, k0, N, nullptr, tid);
+          fence_proxy_async();
+          __syncthreads();
+        }
+        accumulate_pv_slab<D>(r.o, cs, pa, sV);
+      }
+    }
   }
 
   sum_rows<D>(r);
@@ -797,14 +797,19 @@ cudaError_t attributes(Kernel kernel, int threads, int smem, int* out) {
 
 template <int D>
 cudaError_t kernel_attributes(int which, int* out) {
-  switch (which) {
-    case 0: return attributes(flash_attention_f32_kernel<D>, kThreads, FwdSmem<D>::kBytes, out);
-    case 1: return attributes(flash_bwd_dq_f32_kernel<D, false>, kThreads, DqSmem<D>::kBytes, out);
-    case 2: return attributes(flash_bwd_dkv_f32_kernel<D, false>, 2 * kThreads, DkvSmem<D>::kBytes, out);
-    case 3: return attributes(flash_bwd_dq_f32_kernel<D, true>, kThreads, DqSmem<D>::kBytes, out);
-    case 4: return attributes(flash_bwd_dkv_f32_kernel<D, true>, 2 * kThreads, DkvSmem<D>::kBytes, out);
+  if constexpr (D > 128) {  // wide heads: the forward alone
+    if (which != 0) return cudaErrorInvalidValue;
+    return attributes(flash_attention_f32_kernel<D>, kThreads, FwdSmem<D>::kBytes, out);
+  } else {
+    switch (which) {
+      case 0: return attributes(flash_attention_f32_kernel<D>, kThreads, FwdSmem<D>::kBytes, out);
+      case 1: return attributes(flash_bwd_dq_f32_kernel<D, false>, kThreads, DqSmem<D>::kBytes, out);
+      case 2: return attributes(flash_bwd_dkv_f32_kernel<D, false>, 2 * kThreads, DkvSmem<D>::kBytes, out);
+      case 3: return attributes(flash_bwd_dq_f32_kernel<D, true>, kThreads, DqSmem<D>::kBytes, out);
+      case 4: return attributes(flash_bwd_dkv_f32_kernel<D, true>, 2 * kThreads, DkvSmem<D>::kBytes, out);
+    }
+    return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -816,8 +821,9 @@ extern "C" {
 // mask [B, N] bool bytes or null; counts [2, B] int32 (one past the last
 // valid key, then the number of leading valid keys) or null when mask is;
 // out [B, N, H, D] f32 contiguous; lse [B, H, N] f32 (natural log, 1e30 on
-// rows with no live key) or null. sw < 0: no window. Each entry returns the
-// cudaError_t of its launch (0 = success).
+// rows with no live key) or null. sw < 0: no window. D is 64, 128, 192 or
+// 256 for the forward, 64 or 128 for the backward's entries below. Each
+// entry returns the cudaError_t of its launch (0 = success).
 int vitok_flash_attention_f32(const void* q, const void* k, const void* v, long long q_sb, long long q_sn,
                               long long q_sh, long long k_sb, long long k_sn, long long k_sh, long long v_sb,
                               long long v_sn, long long v_sh, const void* mask, const void* counts, void* out,
@@ -833,6 +839,8 @@ int vitok_flash_attention_f32(const void* q, const void* k, const void* v, long 
   auto* l = static_cast<float*>(lse);
   if (D == 64) return launch_fwd<64>(qp, kp, vp, qs, ks, vs, m, n, o, l, B, N, H, sw, s);
   if (D == 128) return launch_fwd<128>(qp, kp, vp, qs, ks, vs, m, n, o, l, B, N, H, sw, s);
+  if (D == 192) return launch_fwd<192>(qp, kp, vp, qs, ks, vs, m, n, o, l, B, N, H, sw, s);
+  if (D == 256) return launch_fwd<256>(qp, kp, vp, qs, ks, vs, m, n, o, l, B, N, H, sw, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -910,11 +918,13 @@ int vitok_flash_bwd_fold_f32(int which, float lse_factor, const void* qkv, const
 
 // Registers and local memory (spills) a thread, blocks an SM and shared
 // memory a block of one kernel (which: 0 the forward, 1 dq, 2 dk/dv, 3 dq's
-// and 4 dk/dv's fold instances)
+// and 4 dk/dv's fold instances; at D 192 and 256 the forward alone)
 // at head dim D, as the compiler and the card report them: out[0..3].
 int vitok_flash_f32_attributes(int which, int D, int* out) {
   if (D == 64) return kernel_attributes<64>(which, out);
   if (D == 128) return kernel_attributes<128>(which, out);
+  if (D == 192) return kernel_attributes<192>(which, out);
+  if (D == 256) return kernel_attributes<256>(which, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -33,7 +33,8 @@
 // step ahead and norms and splits step i + 1's Q and K while step i's
 // softmax and P V run, and a consumer that copies V a step ahead, splits it
 // between S = Q K^T and the softmax, and runs the products. They hand Q's and
-// K's pieces over through named barriers.
+// K's pieces over through named barriers. The forward at d = 192 and 256 has
+// a layout of its own (walk_cells_f32_wide, at the end of this file).
 
 #pragma once
 
@@ -94,18 +95,19 @@ __device__ __forceinline__ void norm_rope_split(const float* src, long long stri
                                                 const float* __restrict__ cos_b, const float* __restrict__ sin_b,
                                                 unsigned char* pieces, int tid) {
   constexpr int kHalf = D / 2;
-  constexpr int kPieces = D / 16;  // threads per row
-  constexpr int kRowsPerPass = THREADS / kPieces;
+  constexpr int kLanes = nr_lanes<D>();  // threads per row (at d = 192 16, 12 of them with a piece)
+  constexpr int kRowsPerPass = THREADS / kLanes;
   constexpr int kPasses = kTile / kRowsPerPass;
-  const int c0 = (tid % kPieces) * 8;
+  const bool piece = nr_piece<D>(tid);
+  const int c0 = piece ? (tid % kLanes) * 8 : 0;
 #pragma unroll 2
   for (int p = 0; p < kPasses; ++p) {
-    const int row = p * kRowsPerPass + tid / kPieces;
+    const int row = p * kRowsPerPass + tid / kLanes;
     const int n = r0 + row;
     float a[8], b[8], c[8], s[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) a[e] = b[e] = c[e] = s[e] = 0.f;
-    if (n < N) {
+    if (piece && n < N) {
       ld_f4x2(a, src + row * stride + c0);
       ld_f4x2(b, src + row * stride + c0 + kHalf);
       ld_f4x2(c, cos_b + (long long)n * kHalf + c0);
@@ -113,8 +115,31 @@ __device__ __forceinline__ void norm_rope_split(const float* src, long long stri
     }
     float vr[8], vi[8];
     norm_rope_piece_f32<D>(a, b, c, s, gain + c0, gain + kHalf + c0, vr, vi);
-    store_split<D>(pieces, row, c0, vr);
-    store_split<D>(pieces, row, c0 + kHalf, vi);
+    if (piece) {
+      store_split<D>(pieces, row, c0, vr);
+      store_split<D>(pieces, row, c0 + kHalf, vi);
+    }
+  }
+}
+
+// Rows [r0, r0 + 64) of D fp32 channels (row stride `stride` floats) split
+// into three bf16 sw128 piece tiles at `pieces`; rows at or past N, and rows
+// whose byte of `rowmask` is 0, are zeros and are not read. THREADS threads.
+template <int D, int THREADS>
+__device__ __forceinline__ void split_rows(unsigned char* pieces, const float* src, long long stride, int r0, int N,
+                                           const unsigned char* rowmask, int tid) {
+  constexpr int kChunks = D / 8;
+  static_assert(kTile * kChunks % THREADS == 0, "whole chunks a thread");
+#pragma unroll 4
+  for (int u = 0; u < kTile * kChunks / THREADS; ++u) {
+    const int i = tid + u * THREADS;
+    const int row = i / kChunks, col = (i % kChunks) * 8;
+    const int n = r0 + row;
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = 0.f;
+    if (n < N && (rowmask == nullptr || rowmask[n])) ld_f4x2(v, src + (long long)n * stride + col);
+    store_split<D>(pieces, row, col, v);
   }
 }
 
@@ -203,6 +228,53 @@ __device__ __forceinline__ void accumulate_pv_split(CellRows<D>& r, const uint32
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(r.o);
+}
+
+// Wide heads (D = 192, 256): O's columns [64 cs, 64 cs + 64) += P V_cs, where
+// V_cs is the tile's 64-column slab cs (its three piece tiles at `slab`, of
+// 64 columns each): the tile's products summed into a fresh accumulator and
+// added to o on the CUDA cores, issued and waited. cs is a constant where
+// the caller's loop over slabs is unrolled.
+template <int D>
+__device__ __forceinline__ void accumulate_pv_slab(float (&o)[D / 2], int cs, const uint32_t (&pa)[3][kTile / 16][4],
+                                                   const unsigned char* slab) {
+  constexpr int kSlabPiece = kTile * 64 * 2;
+  float part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) part[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < 6; ++x)
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j)
+      wgmma_rs<64>(part, pa[split_a(x)][j], mnmajor_desc<kTile>(slab + split_b(x) * kSlabPiece, j), x > 0 || j > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(part);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[32 * cs + i] += part[i];
+}
+
+// The same summed in place, on the tensor cores across a cell's tiles as the
+// d 64/128 walker sums (accumulate_pv_split): the walker's d 192 instance,
+// where o, P's pieces and the products then fit a thread's registers (the
+// fresh accumulator spilled 160 bytes and read 13-16% slower on an H100; at
+// d 256 in place still spilled and read 4.5% slower at 1024 tokens).
+template <int D>
+__device__ __forceinline__ void accumulate_pv_slab_in_place(float (&o)[D / 2], int cs,
+                                                            const uint32_t (&pa)[3][kTile / 16][4],
+                                                            const unsigned char* slab) {
+  constexpr int kSlabPiece = kTile * 64 * 2;
+  float (&acc)[32] = acc_columns<64, D>(o, cs);
+  wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < 6; ++x)
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j)
+      wgmma_rs<64>(acc, pa[split_a(x)][j], mnmajor_desc<kTile>(slab + split_b(x) * kSlabPiece, j), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
 }
 
 template <int D>
@@ -367,6 +439,169 @@ __device__ __forceinline__ void walk_cells_f32(const float* __restrict__ qkv, co
           if (qrow1 < N) lse_bh[qrow1] = (mask_i == nullptr || mask_i[qrow1]) ? r.m1 + log2f(r.l1) : kDeadLseF32;
         }
       }
+    }
+    at.next(sInfo, nh);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Wide heads (D = 192, 256): the forward's walk on a layout that fits.
+// ---------------------------------------------------------------------------
+//
+// At d 192 and 256 the d 128 layout needs 321,536 and 428,032 bytes (three
+// pieces each of Q, K and V, 1152 D bytes, and the raw K/V landing slot,
+// 512 (D + 4)) against the 232,448 a block may have.
+// Here Q's and K's pieces stay whole, V streams through one slab of 64
+// columns, and nothing lands raw: the producer reads each step's K rows from
+// device memory (the L2 asked for them a step ahead) and norms and splits
+// them on the way into K's pieces, as it does Q's; the consumer splits each
+// 64-column slab of the step's V rows from device memory into the slab and
+// runs O's columns of that slab (at d 256 P V_cs into a fresh accumulator
+// added to o on the CUDA cores, accumulate_pv_slab; at d 192 in place).
+// 219 KB at d 256, 171 KB at d 192: one block an SM. The handoff of Q's
+// and K's pieces is the d 128 walker's (kFullKQ / kEmptyKQ); the consumer
+// orders its own V slab with kConsumer.
+template <int D>
+struct WalkSmemF32Wide {
+  static constexpr int kPieceBytes = kTile * D * 2;          // one bf16 sw128 tile of D columns
+  static constexpr int kSlabBytes = kTile * 64 * 2;          // one of 64 columns
+  static constexpr int kQ = 0;                               // Q's three pieces
+  static constexpr int kK = kQ + 3 * kPieceBytes;            // K's three pieces
+  static constexpr int kV = kK + 3 * kPieceBytes;            // one 64-column slab of V's three pieces
+  static constexpr int kState = kV + 3 * kSlabBytes;         // two tiles' key states
+  static constexpr int kGain = kState + 2 * kTile;           // q's gain, then k's: 2 x D floats
+  static constexpr int kSample = kGain + 2 * D * 4;          // an int4 per sample of the block
+  static constexpr size_t bytes(int nb) { return kSample + nb * sizeof(int4) + 1024; }  // + alignment slack
+};
+
+// The forward's cells of one block at D = 192 or 256 (walk_cells_f32's
+// arguments and order of the walk, no log-sum-exp): the producer (threads
+// 128-255) norms and splits each step's K (and at a cell's first step its Q)
+// while the consumer (threads 0-127) runs the last step's softmax and P V.
+template <int D>
+__device__ __forceinline__ void walk_cells_f32_wide(const float* __restrict__ qkv, const float* __restrict__ q_scale,
+                                                    const float* __restrict__ k_scale,
+                                                    const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                                                    const unsigned char* __restrict__ mask, float* __restrict__ out,
+                                                    int N, int H, int b0, int nb, int h0, int nh, int sw,
+                                                    float score_scale) {
+  static_assert(D == 192 || D == 256, "the wide layout's instances");
+  using S = WalkSmemF32Wide<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sQ = smem + S::kQ;
+  unsigned char* sK = smem + S::kK;
+  unsigned char* sV = smem + S::kV;
+  unsigned char* sState = smem + S::kState;
+  float* sGain = reinterpret_cast<float*>(smem + S::kGain);
+  int4* sInfo = reinterpret_cast<int4*>(smem + S::kSample);
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kTile;
+  const int C = H * D;
+  const long long row_stride = 3LL * C;
+  const int n_tiles = (N + kTile - 1) / kTile;
+  for (int i = tid; i < D; i += kF32Threads) {
+    sGain[i] = q_scale[i];
+    sGain[D + i] = k_scale[i];
+  }
+  sample_setup<kF32Threads>(sInfo, mask, b0, nb, q0, N, sw, false, tid);  // ends synchronised
+  int steps = 0;
+  for (int i = 0; i < nb; ++i) steps += nh * sInfo[i].z;
+  // plane 0 q, 1 k, 2 v of head h of image b
+  auto plane = [&](int b, int part, int h) { return qkv + (long long)b * N * row_stride + part * C + h * D; };
+  Cursor at = {0, 0, 0, 0};  // the step this warpgroup works on
+  Cursor in = {0, 0, 0, 0};  // the next step it prepares
+
+  if (tid >= kThreads) {  // the producer: Q and K
+    const int ptid = tid - kThreads;
+    // The L2 asked for the next step's K rows (pass 0 only: pass 1's scores
+    // are all filled, its K is not read) and at a cell's first step its Q.
+    auto ask_k = [&]() {
+      const int4 info = sInfo[in.i];
+      int src;
+      const int tile = step_tile(info, in.t, n_tiles, in.i, &src);
+      if (in.t < info.y) prefetch_rows_l2<D, kThreads>(plane(b0 + in.i, 1, h0 + in.hl), row_stride, tile * kTile, N,
+                                                       ptid);
+      if (in.t == 0) prefetch_rows_l2<D, kThreads>(plane(b0 + in.i, 0, h0 + in.hl), row_stride, q0, N, ptid);
+      in.next(sInfo, nh);
+    };
+    if (steps > 0) ask_k();
+    for (int it = 0; it < steps; ++it) {
+      const int4 info = sInfo[at.i];
+      const int b = b0 + at.i;
+      const int h = h0 + at.hl;
+      const float* cos_b = cos_t + (long long)b * N * (D / 2);
+      const float* sin_b = sin_t + (long long)b * N * (D / 2);
+      int src;
+      const int tile = step_tile(info, at.t, n_tiles, at.i, &src);
+      if (it + 1 < steps) ask_k();
+      if (it > 0) bar_sync(kEmptyKQ, kF32Threads);  // step it - 1's S has read Q and K
+      if (at.t == 0)
+        norm_rope_split<D, kThreads>(plane(b, 0, h) + q0 * row_stride, row_stride, q0, N, sGain, cos_b, sin_b, sQ,
+                                     ptid);
+      if (at.t < info.y)
+        norm_rope_split<D, kThreads>(plane(b, 1, h) + (long long)tile * kTile * row_stride, row_stride, tile * kTile,
+                                     N, sGain + D, cos_b, sin_b, sK, ptid);
+      fence_proxy_async();
+      bar_arrive(kFullKQ, kF32Threads);
+      at.next(sInfo, nh);
+    }
+    return;
+  }
+
+  // The consumer: V, the products and the softmax. This thread's two query
+  // rows are qrow0 and qrow0 + 8.
+  const int qrow0 = cell_row0(q0);
+  // The next step's key states (in the slot of its parity) and the L2 asked
+  // for its V rows.
+  auto prepare_v = [&](int step) {
+    const int4 info = sInfo[in.i];
+    int src;  // the block image the key tile belongs to
+    const int tile = step_tile(info, in.t, n_tiles, in.i, &src);
+    prefetch_rows_l2<D, kThreads>(plane(b0 + src, 2, h0 + in.hl), row_stride, tile * kTile, N, tid);
+    const unsigned char* mask_b = (mask && info.w < 0) ? mask + (long long)(b0 + in.i) * N : nullptr;
+    key_states(sState + (step & 1) * kTile, tile * kTile, N, mask_b, info.w < 0 ? N : info.w, src != in.i, tid);
+    in.next(sInfo, nh);
+  };
+  if (steps > 0) prepare_v(0);
+  CellRows<D> r;
+  for (int it = 0; it < steps; ++it) {
+    const int4 info = sInfo[at.i];
+    int src;
+    const int tile = step_tile(info, at.t, n_tiles, at.i, &src);
+    const float* v_tile = plane(b0 + src, 2, h0 + at.hl);
+    if (at.t == 0) r.reset();
+    float s[32];
+    // Past kFullKQ every consumer thread is done with step it - 1, its last
+    // V slab among it.
+    bar_sync(kFullKQ, kF32Threads);
+    split_rows<64, kThreads>(sV, v_tile, row_stride, tile * kTile, N, nullptr, tid);
+    fence_proxy_async();
+    scores_split<D>(s, sQ, sK);
+    if (it + 1 < steps) bar_arrive(kEmptyKQ, kF32Threads);
+    bar_sync(kConsumer, kThreads);  // V's first slab and this step's key states are written
+    softmax_tile<D>(r, s, sState + (it & 1) * kTile, tile * kTile, qrow0, sw, score_scale);
+    uint32_t pa[3][kTile / 16][4];
+    split_p(s, pa);
+#pragma unroll
+    for (int cs = 0; cs < D / 64; ++cs) {
+      if (cs > 0) {
+        bar_sync(kConsumer, kThreads);  // every thread's products have read slab cs - 1
+        split_rows<64, kThreads>(sV, v_tile + cs * 64, row_stride, tile * kTile, N, nullptr, tid);
+        fence_proxy_async();
+        bar_sync(kConsumer, kThreads);
+      }
+      if constexpr (D == 192)
+        accumulate_pv_slab_in_place<D>(r.o, cs, pa, sV);
+      else
+        accumulate_pv_slab<D>(r.o, cs, pa, sV);
+    }
+    if (it + 1 < steps) prepare_v(it + 1);
+    if (at.t == info.z - 1) {  // the cell's last tile: its rows are done
+      sum_rows<D>(r);
+      float* out0 = out + ((long long)(b0 + at.i) * N + qrow0) * C + (h0 + at.hl) * D;
+      store_rows<D>(r, out0, out0 + 8LL * C, qrow0, N);
     }
     at.next(sInfo, nh);
   }

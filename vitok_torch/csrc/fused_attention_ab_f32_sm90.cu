@@ -54,7 +54,8 @@
 namespace {
 
 // A consumer and a producer warpgroup a block (217 KB of shared memory at
-// d = 128, 108 KB at d = 64). Grid (N / 64, H / hpb, B / bb), or (N / 64,
+// d = 128, 108 KB at d = 64; the forward's wide instances 219 KB at d = 256,
+// 171 KB at d = 192). Grid (N / 64, H / hpb, B / bb), or (N / 64,
 // 1, B) for the contig kernel; four kernels over one walk, each with its own
 // name so that a profile tells them apart. One block an SM, but the
 // forward's at d = 64 takes two: held to 128 registers a thread, so that two
@@ -67,8 +68,14 @@ fused_attention_f32_sm90_kernel(const float* __restrict__ qkv, const float* __re
                                 const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
                                 float* __restrict__ out, float* __restrict__ lse, int N, int H, int bb, int hpb,
                                 int sw, float score_scale) {
-  walk_cells_f32<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb,
-                          blockIdx.y * hpb, hpb, sw, score_scale, false, lse);
+  if constexpr (D > 128) {  // wide heads: their own layout, no lse instance
+    static_assert(!kLse, "the wide instances write no log-sum-exp");
+    walk_cells_f32_wide<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb,
+                           blockIdx.y * hpb, hpb, sw, score_scale);
+  } else {
+    walk_cells_f32<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb,
+                            blockIdx.y * hpb, hpb, sw, score_scale, false, lse);
+  }
 }
 
 template <int D>
@@ -117,6 +124,29 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, int threads, cudaStrea
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// Shared memory a block of the walker at head dim D with nb images.
+template <int D>
+size_t walk_smem_bytes(int nb) {
+  if constexpr (D > 128)
+    return WalkSmemF32Wide<D>::bytes(nb);
+  else
+    return WalkSmemF32<D>::bytes(nb);
+}
+
+// The forward (kind 0) without the log-sum-exp at D = 192 and 256.
+template <int D>
+cudaError_t launch_walk_wide(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
+                             const void* sin_t, const void* mask, void* out, void* lse, int B, int N, int H, int bb,
+                             int hpb, int sw, int kind, cudaStream_t s) {
+  if (kind != kForward || lse != nullptr) return cudaErrorInvalidValue;
+  return launch(fused_attention_f32_sm90_kernel<D, false>, walk_smem_bytes<D>(bb),
+                dim3((N + kTile - 1) / kTile, H / hpb, B / bb), kF32Threads, s, static_cast<const float*>(qkv),
+                static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
+                static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+                static_cast<const unsigned char*>(mask), static_cast<float*>(out), static_cast<float*>(nullptr), N,
+                H, bb, hpb, sw, score_scale<D>());
 }
 
 template <int D>
@@ -190,7 +220,8 @@ extern "C" {
 // (#13: bb = 1, hpb = H). lse [B, H, N] f32 or null: with the forward
 // (kind 0) its instance that also writes each row's log-sum-exp in log2
 // units (1e30 on a padded query row), for the backward; the other kinds
-// take null.
+// take null. D is 64 or 128, or for the forward without lse also 192 or 256
+// (the wide layout of fused_attend_f32_sm90.cuh).
 int vitok_fused_attention_walk_f32(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                                    const void* sin_t, const void* mask, void* out, void* lse, int B, int N, int H,
                                    int D, int bb, int hpb, int sw, int kind, void* stream) {
@@ -202,6 +233,10 @@ int vitok_fused_attention_walk_f32(const void* qkv, const void* q_scale, const v
     return launch_walk<64>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
   if (D == 128)
     return launch_walk<128>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
+  if (D == 192)
+    return launch_walk_wide<192>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
+  if (D == 256)
+    return launch_walk_wide<256>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -213,6 +248,9 @@ int vitok_fused_attention_walk_f32_attributes(int D, int kind, int bb, int* out)
   if (bb < 1) return (int)cudaErrorInvalidValue;
   if (D == 64) return kind_attributes<64>(kind, bb, out);
   if (D == 128) return kind_attributes<128>(kind, bb, out);
+  if (kind != kForward) return (int)cudaErrorInvalidValue;  // d 192 and 256: the forward alone
+  if (D == 192) return attributes(fused_attention_f32_sm90_kernel<192, false>, walk_smem_bytes<192>(bb), out);
+  if (D == 256) return attributes(fused_attention_f32_sm90_kernel<256, false>, walk_smem_bytes<256>(bb), out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -178,8 +178,11 @@ fused_qk_prologue_kernel(const Src* __restrict__ qkv, const float* __restrict__ 
 // backward, and the fp32 fused backward): q and k normed and rotated in fp32
 // with norm_rope_piece_f32 (the fp32 walker's arithmetic, no rounding to
 // bf16: _norm_rope_half on f32), written as fp32 qk [B, N, parts * C];
-// with out and dout (fp32) also delta = sum_c dO * O. Each thread's piece
-// goes straight to device memory, so no tile is staged.
+// with out and dout (fp32) also delta = sum_c dO * O (at d 64 and 128: the
+// C entry refuses it wider). Each thread's piece goes straight to device
+// memory, so no tile is staged. A row's threads are its lanes (nr_lanes: at
+// d = 192 16, of which the first 12 hold its pieces and the others read and
+// write nothing and add zeros to its sum of squares).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 fused_qk_prologue_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ q_scale,
@@ -191,8 +194,8 @@ fused_qk_prologue_f32_kernel(const float* __restrict__ qkv, const float* __restr
                              float* __restrict__ delta,       // [B, H, N] or null
                              int N, int H, int parts) {
   constexpr int kHalf = D / 2;
-  constexpr int kPieces = D / 16;  // threads per row
-  constexpr int kRowsPerPass = kThreads / kPieces;
+  constexpr int kLanes = nr_lanes<D>();  // threads per row
+  constexpr int kRowsPerPass = kThreads / kLanes;
   constexpr int kChunks = D / 8;
   __shared__ float sGain[2][D];
   const int tid = threadIdx.x;
@@ -209,16 +212,17 @@ fused_qk_prologue_f32_kernel(const float* __restrict__ qkv, const float* __restr
     sGain[1][i] = k_scale[i];
   }
   __syncthreads();
-  const int c0 = (tid % kPieces) * 8;
+  const bool piece = nr_piece<D>(tid);
+  const int c0 = piece ? (tid % kLanes) * 8 : 0;
   for (int part = 2 - parts; part < 2; ++part) {  // q, then k
     const float* gain = sGain[part];
 #pragma unroll 2
     for (int p = 0; p < kTile / kRowsPerPass; ++p) {
-      const int n = r0 + p * kRowsPerPass + tid / kPieces;
+      const int n = r0 + p * kRowsPerPass + tid / kLanes;
       float a[8], bv[8], c[8], sn[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) a[e] = bv[e] = c[e] = sn[e] = 0.f;
-      if (n < N) {
+      if (piece && n < N) {
         const float* x = qkv_b + (long long)n * 3 * C + part * C + h * D + c0;
         ld_f4x2(a, x);
         ld_f4x2(bv, x + kHalf);
@@ -227,13 +231,14 @@ fused_qk_prologue_f32_kernel(const float* __restrict__ qkv, const float* __restr
       }
       float vr[8], vi[8];
       norm_rope_piece_f32<D>(a, bv, c, sn, gain + c0, gain + kHalf + c0, vr, vi);  // every thread: shuffles
-      if (n < N) {
+      if (piece && n < N) {
         float* dst = qk_b + (long long)n * parts * C + (part - (2 - parts)) * C + h * D + c0;
         st_f4x2(dst, vr);
         st_f4x2(dst + kHalf, vi);
       }
     }
   }
+  if constexpr (D > 128) return;  // no delta instance
   if (delta != nullptr) {
     // Row r's D channels over kChunks neighbouring threads, 8 each.
     const int ch = tid % kChunks;
@@ -657,7 +662,8 @@ int vitok_fused_qk_prologue_bf16(const void* qkv, const void* q_scale, const voi
 
 // The prologue's fp32 instance: qkv [B, N, 3*H*D] f32, out and dout [B, N,
 // H*D] f32 or both null, qk [B, N, parts*H*D] f32, delta [B, H, N] f32 or
-// null, the rest as above.
+// null, the rest as above. D is 64, 128, 192 or 256; delta only at 64 and
+// 128.
 int vitok_fused_qk_prologue_f32(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                                 const void* sin_t, const void* out, const void* dout, void* qk, void* delta,
                                 int B, int N, int H, int D, int parts, void* stream) {
@@ -668,6 +674,11 @@ int vitok_fused_qk_prologue_f32(const void* qkv, const void* q_scale, const void
     return launch_prologue_f32<64>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   if (D == 128)
     return launch_prologue_f32<128>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
+  if (out != nullptr) return (int)cudaErrorInvalidValue;  // delta: d 64 and 128
+  if (D == 192)
+    return launch_prologue_f32<192>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
+  if (D == 256)
+    return launch_prologue_f32<256>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -720,9 +731,9 @@ int vitok_fused_attention_q8_sm90_bf16(const void* kn, const void* qkv, const vo
 }
 
 // Registers and local memory (spills) a thread, blocks an SM and shared
-// memory a block of the bf16 prologue (which = 0), the attention kernel (1)
-// or the int8-epilogue kernel (2, at `heads` heads a block) at head dim D:
-// out[0..3].
+// memory a block of the bf16 prologue (which = 0), the attention kernel (1),
+// the int8-epilogue kernel (2, at `heads` heads a block) or the fp32
+// prologue (3) at head dim D: out[0..3].
 int vitok_fused_sm90_attributes(int which, int D, int heads, int* out) {
   const void* fn = nullptr;
   int smem = 0;
@@ -733,6 +744,8 @@ int vitok_fused_sm90_attributes(int which, int D, int heads, int* out) {
     } else if (which == 1) {                                                        \
       fn = (const void*)fused_attention_sm90_kernel<DD>;                            \
       smem = FwdSmem<DD>::kBytes;                                                   \
+    } else if (which == 3) {                                                        \
+      fn = (const void*)fused_qk_prologue_f32_kernel<DD>;                           \
     } else {                                                                        \
       fn = (const void*)fused_attention_q8_sm90_kernel<DD>;                         \
       smem = Q8Smem<DD>::bytes((heads - 1) * DD);                                   \

@@ -229,9 +229,17 @@ __device__ __forceinline__ void norm_rope_piece_f32(const float (&a)[8], const f
   }
 }
 
-// The fp32 instance of norm_rope_tile: the same rows, thread layout and
-// order of the sum of squares, norm_rope_piece_f32's arithmetic. `dst` has
-// row stride D + 4 floats.
+// Whether lane `tid` of a row's nr_lanes<D>() holds one of its D/16 pieces
+// (every lane but at d = 192, where 12 of 16 do).
+template <int D>
+__device__ __forceinline__ bool nr_piece(int tid) {
+  return nr_lanes<D>() == D / 16 || tid % nr_lanes<D>() < D / 16;
+}
+
+// The fp32 instance of norm_rope_tile: the same rows, thread layout (a row's
+// lanes; at d = 192 a lane past its pieces reads and writes nothing and adds
+// zeros) and order of the sum of squares, norm_rope_piece_f32's arithmetic.
+// `dst` has row stride D + 4 floats.
 template <int D, int THREADS>
 __device__ __forceinline__ void norm_rope_tile_f32(
     const float* __restrict__ src, long long row_stride, int r0, int N,
@@ -239,19 +247,19 @@ __device__ __forceinline__ void norm_rope_tile_f32(
     float* dst, int tid) {
   constexpr int kRow = D + 4;
   constexpr int kHalf = D / 2;
-  constexpr int kPieces = D / 16;
-  static_assert(kPieces == nr_lanes<D>(), "the fp32 tile has instances where every lane holds a piece (d 64, 128)");
-  constexpr int kRowsPerPass = THREADS / kPieces;
+  constexpr int kLanes = nr_lanes<D>();  // threads per row
+  constexpr int kRowsPerPass = THREADS / kLanes;
   constexpr int kPasses = kNrTile / kRowsPerPass;
-  const int c0 = (tid % kPieces) * 8;
+  const bool piece = nr_piece<D>(tid);
+  const int c0 = piece ? (tid % kLanes) * 8 : 0;
 #pragma unroll 2
   for (int p = 0; p < kPasses; ++p) {
-    const int row = p * kRowsPerPass + tid / kPieces;
+    const int row = p * kRowsPerPass + tid / kLanes;
     const int n = r0 + row;
     float a[8], b[8], c[8], s[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) a[e] = b[e] = c[e] = s[e] = 0.f;
-    if (n < N) {
+    if (piece && n < N) {
       const float* x = src + (long long)n * row_stride + c0;
       const float* cp = cos_t + (long long)n * kHalf + c0;
       const float* sp = sin_t + (long long)n * kHalf + c0;
@@ -262,9 +270,11 @@ __device__ __forceinline__ void norm_rope_tile_f32(
     }
     float vr[8], vi[8];
     norm_rope_piece_f32<D>(a, b, c, s, gain + c0, gain + kHalf + c0, vr, vi);
-    float* d = dst + row * kRow + c0;
-    st_f4x2(d, vr);
-    st_f4x2(d + kHalf, vi);
+    if (piece) {
+      float* d = dst + row * kRow + c0;
+      st_f4x2(d, vr);
+      st_f4x2(d + kHalf, vi);
+    }
   }
 }
 

@@ -46,8 +46,10 @@ Head dims: each kernel family has instances at the head dims
 ``kernel_head_dims`` gives (``ops/flash_attention.py``): the bf16 forward
 (the prologue, #1, #2 and the fold's #4) and the bf16 backward (the
 prologue's delta, #3, and the fold's #5 and #6) at 64, 128, 192 and 256; the
-fp32 instances and the A/B kernels at 64 and 128. The gates open nothing
-else on a CUDA tensor, and the wrappers raise on it.
+fp32 forward (the prologue, #1 on the fp32 walker, #2 and the fold's #4) at
+64-256 too; the fp32 backward (the walker's lse instance, the prologue's
+delta, #3, #5 and #6) and the A/B kernels at 64 and 128. The gates open
+nothing else on a CUDA tensor, and the wrappers raise on it.
 
 Masking is key-side only, as in the TPU kernel: padded query rows attend to
 the valid keys. The unfused composition (:func:`unfused_qkv_attention`)
@@ -121,8 +123,8 @@ def can_fuse(n: int, c: int, num_heads: int, *, cuda: bool = False, dtype: torch
     ``MAX_FUSED_TOKENS`` tokens, ``n % 8 == 0``, head dim a multiple of 64
     and a 128-lane head group dividing C. For a CUDA tensor (``cuda``) of
     ``dtype`` the head dim must also be one at which its kernels have
-    instances (``head_dim_routes``: in bf16 64-256, with a gradient asked
-    for (``grad``) too; in fp32 64 or 128).
+    instances (``head_dim_routes``: 64-256, and in fp32 with a gradient
+    asked for (``grad``) 64 or 128).
     """
     if c % num_heads:
         return False
@@ -361,7 +363,8 @@ def fused_qk_prologue(
     backward's ``delta``: the prologue the redesigned forward (k alone) and
     backward (q, k and delta) run first. On a CUDA tensor this launches the
     prologue kernel (bf16: head dim 64, 128, 192 or 256, with delta too;
-    or its fp32 instance, 64 or 128) or raises; on a CPU tensor it runs
+    or its fp32 instance, 64-256, with delta 64 or 128) or raises; on a CPU
+    tensor it runs
     :func:`fused_qk_prologue_plain`."""
     if (out is None) != (dout is None):
         raise ValueError("give both out and dout, or neither")
@@ -439,9 +442,25 @@ def f32_walk_split(b: int, n: int, h: int, d: int, sms: int) -> Tuple[int, int]:
       then images;
     - while the grid has fewer blocks than the card holds at once, images and
       then heads are given back.
+
+    Heads of 192 and 256 (the walker's wide layout, one block an SM) take
+    the split of at most four cells a block whose grid runs in the fewest
+    waves times cells, the most cells (heads first) among equals, and one
+    that fills the card unless it is one cell a block: on an H100 at the
+    5B width (B 16, a tail) the walker alone read 3.63 ms at N 1024 and d 256
+    with four heads a block against 4.07 with one, and at N 256 and d 256
+    0.40 with two or three heads a block against 0.44 with four (192 blocks
+    for 132 SMs) and 0.47 with one (``chip_smoke.py``'s sweep, PERF.md).
     """
     if min(b, n, h, d, sms) < 1:
         raise ValueError(f"b, n, h, d and sms must be positive, got {(b, n, h, d, sms)}")
+    if d > 128:
+        tiles = -(-n // 64)
+        splits = [(bb, hpb) for bb in range(1, 5) for hpb in range(1, 5)
+                  if b % bb == 0 and h % hpb == 0 and bb * hpb <= 4 and hpb <= max(1, h // 2)]
+        grid = lambda s: tiles * (h // s[1]) * (b // s[0])
+        fits = [s for s in splits if s == (1, 1) or grid(s) >= sms]
+        return min(fits, key=lambda s: (-(-grid(s) // sms) * s[0] * s[1], -s[0] * s[1], -s[1]))
     per_sm = 2 if d == 64 else 1  # blocks an SM of the forward's kernel
     tiles = -(-n // 64)
     cells = max(1, (24 if tiles <= 2 else 8) // per_sm // tiles)
@@ -482,14 +501,14 @@ def _walk_f32_cuda(qkv, q_scale, k_scale, cos, sin, mask, num_heads, *, bb, hpb,
     return out
 
 
-SM90_KERNELS = ("prologue", "attention", "q8")  # by the index sm90_attributes' entry takes
+SM90_KERNELS = ("prologue", "attention", "q8", "prologue_f32")  # by the index sm90_attributes' entry takes
 
 
 def sm90_attributes(which: str, d: int, heads: int = 1) -> dict:
     """Registers and local memory (spills) a thread, blocks an SM and shared
-    memory a block of the bf16 prologue, the attention kernel or the
-    int8-epilogue kernel (``which`` one of ``SM90_KERNELS``; ``heads`` a
-    block for the last) at head dim ``d``, as the compiler and the card
+    memory a block of the bf16 prologue, the attention kernel, the
+    int8-epilogue kernel (``heads`` a block) or the fp32 prologue (``which``
+    one of ``SM90_KERNELS``) at head dim ``d``, as the compiler and the card
     report them."""
     out = (ctypes.c_int * 4)()
     lib = _sm90_lib()
@@ -518,7 +537,8 @@ def _attend_f32(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_
     forward does for the backward."""
     global F32_LAUNCHES, F32_LSE_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
-        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, dtypes=(torch.float32,)
+        qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window, dtypes=(torch.float32,),
+        grad=want_lse,  # the lse instance: the backward's head dims
     )
     bb, hpb = f32_walk_split(b, n, num_heads, d, _sm_count(qkv.device.index))
     lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device) if want_lse else None
@@ -935,7 +955,7 @@ def can_fuse_q8(n: int, c: int, num_heads: int, *, cuda: bool = False,
     :func:`fused_qkv_attention_q8`: the JAX package's shape gate without its
     backend check, behind the same opt-in ``VITOK_Q8_EPILOGUE``; for a CUDA
     tensor (``cuda``) of ``dtype`` a head dim its forward has instances at
-    (``head_dim_routes``: bf16 64-256, fp32 64 or 128). Inference only."""
+    (``head_dim_routes``: 64-256). Inference only."""
     if not _ENABLE_Q8 or c % num_heads:
         return False
     d = c // num_heads
@@ -1306,8 +1326,8 @@ def flash_qkv_attention(
     resolution (``vitok_tpu``'s ``unfused_qkv_attention`` on its flash
     route, whose XLA glue the prologue replaces).
 
-    On a CUDA tensor (bf16 at head dim 64, 128, 192 or 256; fp32 at 64 or
-    128) two launches: the q/k
+    On a CUDA tensor (bf16 or fp32 at head dim 64, 128, 192 or 256; under
+    autograd fp32 at 64 or 128) two launches: the q/k
     prologue (:func:`fused_qk_prologue` with ``with_q``: q and k normed and
     rotated into a ``[B, N, 2C]`` scratch), then the flash kernel on q and k
     as strided views of that scratch and v as a view of ``qkv``. On a CPU
@@ -1329,8 +1349,8 @@ def takes_flash_fold(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Te
     :func:`flash_qkv_attention`: a contiguous bf16 or fp32 tensor on the
     card, a call bound for the flash kernel (``"auto"`` from
     ``FLASH_MIN_TOKENS`` tokens, or ``"flash"``) and a head dim at which
-    every kernel of the call has an instance (``kernel_head_dims``: bf16 at
-    64-256, fp32 at 64 or 128). On the CPU nothing
+    every kernel of the call has an instance (``kernel_head_dims``: 64-256;
+    fp32 with a gradient asked for 64 or 128). On the CPU nothing
     changes: the composition runs (under autograd through the flash
     kernel's autograd Function)."""
     b, n, c3 = qkv.shape
