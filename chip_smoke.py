@@ -161,8 +161,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``compute_dtype=torch.float32`` through encode -> decode at 256p and
    512p (B 16, the walker) and at 1024p with sw 1024 (the fp32 prologue and
    #4), against the unfused composition, and ``quantize()``d at 256p with
-   the epilogue off and on (#2 f32);
-18. prints a JSON line describing each kernel, the card's name and power
+   the epilogue off and on (#2 f32); #1 f32 with the tail mask within
+   twice its plain version's error from float64;
+18. runs the fp32 backward at head dims 192 and 256 at the 5B width, TF32
+   off: the fp32 walker's lse instance (also against float64), the fp32
+   prologue with delta and #3's fp32 instance at 256 and 1024 tokens, #4,
+   #5 and #6 plain (each against float64) and the fold's backward at B 1,
+   N 4096, sw 1024, each within its limit of its plain version and timed;
+   then trains the two models above in fp32 (compute and master weights)
+   three steps on each route, the first step's gradients against the
+   unfused composition and each step's launches read;
+19. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -171,6 +180,7 @@ outside a checkout of the repository, it exits non-zero at once.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -2770,7 +2780,7 @@ F32_FUSED_ROWS = (  # (label, B, N, C, H, masked): #3's rows in PERF.md, no wind
 )
 F32_OUT_REL = 1e-5   # fp32 outputs against their plain versions (TF32 off), of the largest entry
 F32_GRAD_REL = 1e-4  # fp32 gradients against their plain versions, of each one's largest entry
-F32_F64_FACTOR = 2.0  # #4-#6's error against float64 within this times their plain versions'
+F32_F64_FACTOR = 2.0  # #4-#6's (and at d 192/256 #1's) error against float64 within this times their plain versions'
 F32_TRAIN = ("1024p", 4096, 1, [(1024, 1024)])
 F32_FUSED_TRAIN = ("256p", 256, 32, RESOLUTIONS[0][3])
 F32_TRAIN_STEPS = 3
@@ -2852,12 +2862,13 @@ def _attention_f64(q, k, v, mask, sw, g) -> tuple:
     return tuple(torch.stack(z) for z in zip(*res))
 
 
-def _f32_flash_row(label, b, n, h, d, masked, sw, device, flex) -> dict:
+def _f32_flash_row(label, b, n, h, d, masked, sw, device, flex, flex_bwd=False) -> dict:
     """The q/k prologue's fp32 instance, #4 on its views, #5 and #6 (plain
     instances) and the fold's backward (the prologue, then #5 and #6 in
     their fold instances) against their plain versions, each timed beside
     its plain version, its bound and SDPA (fp32, the boolean mask; with
-    ``flex`` FlexAttention's forward too); #4-#6 and their plain versions
+    ``flex`` FlexAttention's forward too, with ``flex_bwd`` its backward:
+    forward + backward less the forward); #4-#6 and their plain versions
     also against float64 (``_attention_f64``), each kernel within
     F32_F64_FACTOR of its plain version's error there."""
     import torch
@@ -2944,6 +2955,14 @@ def _f32_flash_row(label, b, n, h, d, masked, sw, device, flex) -> dict:
     row["dkv_bound_ms"], row["dkv_bound_by"] = _bound_ms(6 * tensor + 2 * rows + mbytes, 6 * 4 * pair_flops,
                                                          BF16_FLOPS_PER_S)
     row["bwd_library_ms"] = _sdpa_bwd_ms(q, k, v, am, g)
+    row["bwd_flex_ms"] = None
+    if flex_bwd:
+        xs = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        call = _flex_call(*(t.transpose(1, 2) for t in xs), mask, sw)
+        with torch.no_grad():
+            flex_fwd_ms = time_ms(call, runs=3)
+        row["bwd_flex_ms"] = time_ms(lambda: torch.autograd.grad(call(), xs, g.transpose(1, 2)), runs=3) - flex_fwd_ms
+        del xs, call
     del out, lse, am
 
     # The fold's backward: the prologue (qrot, krot, delta), then #5 and #6 in their fold instances.
@@ -2982,7 +3001,8 @@ def _f32_flash_row(label, b, n, h, d, masked, sw, device, flex) -> dict:
         f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} {row['bound_by']}, SDPA {row['library_ms']:.4f}, flex "
         f"{row['flex_ms']}), rel err {row['rel_err']:.2e}, lse {row['lse_max_abs_err']:.2e}; #5 {row['dq_ms']:.4f} "
         f"(bound {row['dq_bound_ms']:.4f}), #6 {row['dkv_ms']:.4f} (bound {row['dkv_bound_ms']:.4f}), plain "
-        f"{row['bwd_plain_ms']:.4f}, SDPA bwd {row['bwd_library_ms']:.4f}, rel err {row['dq_rel_err']:.2e}/"
+        f"{row['bwd_plain_ms']:.4f}, SDPA bwd {row['bwd_library_ms']:.4f}, flex bwd {row['bwd_flex_ms']}, rel err "
+        f"{row['dq_rel_err']:.2e}/"
         f"{row['dkv_rel_err']:.2e}; against float64: #4 {row['f64_rel_err']:.2e} (plain "
         f"{row['f64_plain_rel_err']:.2e}), #5 {row['dq_f64_rel_err']:.2e} ({row['dq_f64_plain_rel_err']:.2e}), #6 "
         f"{row['dkv_f64_rel_err']:.2e} ({row['dkv_f64_plain_rel_err']:.2e}); fold bwd {row['fold_bwd_ms']:.4f} ms "
@@ -2992,12 +3012,14 @@ def _f32_flash_row(label, b, n, h, d, masked, sw, device, flex) -> dict:
     return row
 
 
-def _f32_fused_row(label, b, n, c, h, masked, device) -> dict:
+def _f32_fused_row(label, b, n, c, h, masked, device, f64=False) -> dict:
     """The fp32 walker's lse instance (#1 under autograd) and #3's fp32
     instance (the prologue, then the fp32 dq and dk/dv fold instances at
     the walker's log2 lse) against their plain versions, timed beside them,
     their bounds and SDPA (fp32, the boolean mask, on q and k normed and
-    rotated)."""
+    rotated); with ``f64`` the lse instance's output also against float64
+    attention on the plain prologue's q and k (valid rows), within
+    F32_F64_FACTOR of its plain version's error there."""
     import torch
     import torch.nn.functional as F
     from vitok_torch.ops import fused_attention as fa
@@ -3009,7 +3031,7 @@ def _f32_fused_row(label, b, n, c, h, masked, device) -> dict:
     valid = [n] * b if mask is None else mask.sum(1).tolist()
     tensor, rows = b * n * c * 4, b * h * n * 4
     tables, mbytes = 2 * b * n * (d // 2) * 4, (0 if mask is None else b * n)
-    row = dict(shape=label, case="tail" if masked else "none")
+    row = dict(shape=label, case="tail" if masked else "none", B=b, N=n)
 
     fwd = lambda: fa._fused_cuda(*args, h, None, want_lse=True)
     out, lse = _one_launch("fused_attention_f32_lse", fwd)
@@ -3019,6 +3041,17 @@ def _f32_fused_row(label, b, n, c, h, masked, device) -> dict:
     row["lse_max_abs_err"] = (lse[keep] - want_lse[keep]).abs().max().item()
     if not (row["lse_max_abs_err"] <= LSE_ATOL and bool((lse[~keep] == 1e30).all())):
         raise AssertionError(f"{what}: lse max |err| {row['lse_max_abs_err']:.3e} (limit {LSE_ATOL}) or padded rows")
+    if f64:
+        qn, kn = fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h)[0].view(b, n, 2, h, d).unbind(2)
+        v4 = qkv.view(b, n, 3, h, d)[:, :, 2]
+        rows_ = slice(None) if mask is None else mask
+        ref = _attention_f64(qn, kn, v4, mask, None, torch.zeros_like(v4))[0].reshape(b, n, c)[rows_]
+        top = lambda a: ((a[rows_].double() - ref).abs().max() / ref.abs().max()).item()
+        row["f64_rel_err"], row["f64_plain_rel_err"] = top(out), top(want)
+        del qn, kn, v4, ref
+        if not row["f64_rel_err"] <= F32_F64_FACTOR * row["f64_plain_rel_err"]:
+            raise AssertionError(f"{what} #1 lse instance: {row['f64_rel_err']:.3e} of the largest entry from float64, "
+                                 f"over {F32_F64_FACTOR} x its plain version's {row['f64_plain_rel_err']:.3e}")
     del want, want_lse
     _f32_timed(row, "", fwd, lambda: fa.fused_qkv_attention_plain(*args, num_heads=h, return_lse=True))
     row["bound_ms"], row["bound_by"] = _bound_ms(4 * tensor + tables + mbytes + rows + 2 * d * 4,
@@ -3046,9 +3079,11 @@ def _f32_fused_row(label, b, n, c, h, masked, device) -> dict:
                                                          BF16_FLOPS_PER_S)
     g = dout.view(b, n, h, d) if mask is None else (dout * mask[..., None]).view(b, n, h, d)
     row["bwd_library_ms"] = _sdpa_bwd_ms(*(t.transpose(1, 2) for t in (qn, kn, vn)), am, g)
-    log(f"  fp32 fused {label} B {b} {row['case']}: #1 lse instance {row['ms']:.4f} ms (dev {row['dev_ms']:.4f}, plain "
-        f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} {row['bound_by']}, SDPA {row['library_ms']:.4f}), rel err "
-        f"{row['rel_err']:.2e}, lse {row['lse_max_abs_err']:.2e}; #3 {row['bwd_ms']:.4f} ms (dev "
+    log(f"  fp32 fused {label} B {b} N {n} {row['case']}: #1 lse instance {row['ms']:.4f} ms (dev {row['dev_ms']:.4f}, "
+        f"plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} {row['bound_by']}, SDPA {row['library_ms']:.4f}), "
+        f"rel err {row['rel_err']:.2e}, lse {row['lse_max_abs_err']:.2e}"
+        + (f", from float64 {row['f64_rel_err']:.2e} (plain {row['f64_plain_rel_err']:.2e})" if f64 else "")
+        + f"; #3 {row['bwd_ms']:.4f} ms (dev "
         f"{row['bwd_dev_ms']:.4f}, plain {row['bwd_plain_ms']:.4f}, bound {row['bwd_bound_ms']:.4f} "
         f"{row['bwd_bound_by']}, SDPA bwd {row['bwd_library_ms']:.4f}), rel err {row['bwd_rel_err']:.2e}")
     return row
@@ -5198,43 +5233,67 @@ def _wide_bwd_rows(device, d: int) -> dict:
     return rows
 
 
-def _wide_train(device, card: str, d: int, variant: str) -> dict:
+@contextlib.contextmanager
+def unfused_composition(model):
+    """The model's attention on the unfused composition (``attn_impl="xla"``:
+    no kernel, forward or backward): the fp32 trainers' reference."""
+    saved = model.cfg
+    model.cfg = dataclasses.replace(model.cfg, attn_impl="xla")
+    try:
+        yield
+    finally:
+        model.cfg = saved
+
+
+def _wide_train(device, card: str, d: int, variant: str, compute_dtype=None) -> dict:
     """Training steps of a 3072-wide AE with heads of ``d`` (``variant``,
-    ``WIDE_HEAD_TRAIN``'s cut depth): fp32 master weights, bf16 compute,
-    Charbonnier 1.0 + SSIM 0.1, AdamW + EMA. At 256 tokens B 8 with
-    ``attn_impl="fused"`` (#1 with its lse, then the prologue with delta and
-    #3's dq and dk/dv in every block) and at 1024p B 1 with sw = FLASH_SW
-    (the fold forward, then the prologue with delta and #5/#6's fold
-    instances): the first step's gradients against the same step on the
-    plain backward (within ``TRAIN_GRAD_REL_L2``), then timed steps, each
-    launching exactly those kernels."""
+    ``WIDE_HEAD_TRAIN``'s cut depth): fp32 master weights, bf16 compute (or
+    ``compute_dtype``), Charbonnier 1.0 + SSIM 0.1, AdamW + EMA. At 256
+    tokens B 8 with ``attn_impl="fused"`` (#1 with its lse, then the prologue
+    with delta and #3's dq and dk/dv in every block) and at 1024p B 1 with
+    sw = FLASH_SW (the fold forward, then the prologue with delta and #5/#6's
+    fold instances): the first step's gradients against the same step on the
+    plain backward (within ``TRAIN_GRAD_REL_L2``; in fp32 on the unfused
+    composition, within ``F32_TRAIN_GRAD_REL_L2``, the losses within
+    F32_MODEL_REL_L2), then timed steps, each launching exactly those
+    kernels (fp32: their fp32 instances, the losses also falling)."""
     import torch
     from vitok_torch import AE, decode_variant
     from vitok_torch.train_lib import (LossConfig, compute_loss, create_optimizer, create_schedule,
                                        create_train_state, make_train_step)
 
+    f32 = compute_dtype == torch.float32
     model = AE(**{**decode_variant(variant), "attn_impl": "fused"}, seed=0, device=device,
-               param_dtype=torch.float32, trainable=True)
+               param_dtype=torch.float32, trainable=True, **({"compute_dtype": compute_dtype} if f32 else {}))
     _random_gates(model, device)
     depth = model.cfg.encoder_depth + model.cfg.decoder_depth
     params = list(model.parameters())
     n_params = sum(p.numel() for p in params)
     out = {}
-    for step, impl, sw, expect, reference in (
-        (WIDE_HEAD_TRAIN_FUSED, "fused", None, _expect(fused_attention=depth, fused_attention_bwd=2 * depth),
-         plain_fused_backward),
-        (WIDE_HEAD_TRAIN_FOLD, "auto", FLASH_SW, _expect(flash_attention=depth, fused_qk_prologue=2 * depth,
-                                                         flash_attention_dq=depth, flash_attention_dkv=depth),
-         plain_flash_backward),
-    ):
+    if f32:
+        routes = ((WIDE_HEAD_TRAIN_FUSED, "fused", None,
+                   _expect(fused_attention_f32_lse=depth, fused_qk_prologue_f32=depth,
+                           fused_attention_bwd_f32=2 * depth)),
+                  (WIDE_HEAD_TRAIN_FOLD, "auto", FLASH_SW,
+                   _expect(flash_attention_f32=depth, fused_qk_prologue_f32=2 * depth, flash_attention_dq_f32=depth,
+                           flash_attention_dkv_f32=depth)))
+        routes = [(*r, lambda: unfused_composition(model)) for r in routes]
+    else:
+        routes = ((WIDE_HEAD_TRAIN_FUSED, "fused", None, _expect(fused_attention=depth, fused_attention_bwd=2 * depth),
+                   plain_fused_backward),
+                  (WIDE_HEAD_TRAIN_FOLD, "auto", FLASH_SW, _expect(flash_attention=depth, fused_qk_prologue=2 * depth,
+                                                                   flash_attention_dq=depth, flash_attention_dkv=depth),
+                   plain_flash_backward))
+    grad_limit = F32_TRAIN_GRAD_REL_L2 if f32 else TRAIN_GRAD_REL_L2
+    for step, impl, sw, expect, reference in routes:
         model.cfg = dataclasses.replace(model.cfg, attn_impl=impl, sw=sw)
         (case,) = main_path_cases(device, [step], seed=26)
         name, max_tokens, batch, _, inputs = case
         side = int(max_tokens ** 0.5)
         loss_cfg = LossConfig(ssim_weight=0.1, tile_size=256, n_tiles=2, ssim_grid=(side, side))
-        what = f"d {d} training {name} B {batch}"
+        what = f"d {d}{' fp32' if f32 else ''} training {name} B {batch}"
         log(f"{what}: {variant} ({n_params / 1e9:.3f}B fp32 master params, {depth} blocks), attn_impl={impl!r}, "
-            f"sw {sw}, bf16 compute, Charbonnier 1.0 + SSIM 0.1, AdamW lr {TRAIN_LR} + EMA")
+            f"sw {sw}, {'fp32' if f32 else 'bf16'} compute, Charbonnier 1.0 + SSIM 0.1, AdamW lr {TRAIN_LR} + EMA")
 
         def grads_of():
             gen = torch.Generator(device=device).manual_seed(11)
@@ -5250,10 +5309,12 @@ def _wide_train(device, card: str, d: int, variant: str) -> dict:
         num = sum((a.double() - r.double()).square().sum() for a, r in zip(g_kernel, g_plain))
         rel = (num / sum(r.double().square().sum() for r in g_plain)).sqrt().item()
         finite = all(bool(torch.isfinite(g_).all()) for g_ in g_kernel)
-        if not (finite and first == expect and loss_k.item() == loss_p.item() and rel <= TRAIN_GRAD_REL_L2):
-            raise AssertionError(f"{what}: gradients vs the plain backward rel L2 {rel:.3e} (limit "
-                                 f"{TRAIN_GRAD_REL_L2}), finite {finite}, loss {loss_k.item()} vs {loss_p.item()}, "
-                                 f"launches {_nonzero(first)} (expected {_nonzero(expect)})")
+        same_loss = (abs(loss_k.item() - loss_p.item()) <= F32_MODEL_REL_L2 * abs(loss_p.item()) if f32
+                     else loss_k.item() == loss_p.item())
+        if not (finite and first == expect and same_loss and rel <= grad_limit):
+            raise AssertionError(f"{what}: gradients vs the {'unfused composition' if f32 else 'plain backward'} rel "
+                                 f"L2 {rel:.3e} (limit {grad_limit}), finite {finite}, loss {loss_k.item()} vs "
+                                 f"{loss_p.item()}, launches {_nonzero(first)} (expected {_nonzero(expect)})")
         del g_kernel, g_plain
         tx = create_optimizer(create_schedule("constant", TRAIN_LR, WIDE_HEAD_TRAIN_STEPS, warmup_frac=0.0))
         state = create_train_state(model, tx)
@@ -5266,15 +5327,16 @@ def _wide_train(device, card: str, d: int, variant: str) -> dict:
             raise AssertionError(f"{what}: launches per step {[_nonzero(x) for x in per_step]}, expected "
                                  f"{_nonzero(expect)}")
         totals = [m["loss/total"] for m in metrics]
-        if not all(np.isfinite(list(m.values())).all() for m in metrics):
-            raise AssertionError(f"{what}: losses {totals} are not finite")
+        if not (all(np.isfinite(list(m.values())).all() for m in metrics) and (not f32 or totals[-1] < totals[0])):
+            raise AssertionError(f"{what}: losses {totals} must be finite" + (" and fall" if f32 else ""))
         ms = float(np.median(step_ms[1:]))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         out[name] = dict(variant=variant, impl=impl, sw=sw, batch=batch, tokens=max_tokens, grad_rel_l2=rel,
-                         launches=_nonzero(launches), per_step=_nonzero(per_step[0]), ms_per_step=ms,
-                         first_ms=step_ms[0], peak_gb=peak_gb, losses=totals)
-        log(f"  {what}: first-step gradients vs the plain backward rel L2 {rel:.3e}; launches a step "
-            f"{_nonzero(per_step[0])}; loss " + " -> ".join(f"{t:.5f}" for t in totals)
+                         loss=loss_k.item(), reference_loss=loss_p.item(), launches=_nonzero(launches),
+                         per_step=_nonzero(per_step[0]), ms_per_step=ms, first_ms=step_ms[0], peak_gb=peak_gb,
+                         losses=totals)
+        log(f"  {what}: first-step gradients vs the {'unfused composition' if f32 else 'plain backward'} rel L2 "
+            f"{rel:.3e}; launches a step {_nonzero(per_step[0])}; loss " + " -> ".join(f"{t:.5f}" for t in totals)
             + f"; {ms:.3f} ms/step (host clock, median of steps 2-{WIDE_HEAD_TRAIN_STEPS}; first {step_ms[0]:.3f}), "
             f"{batch * max_tokens / ms * 1e3:.1f} tokens/s, peak {peak_gb:.3f} GB on {card}")
         del state, tx, train_step, inputs
@@ -5597,7 +5659,7 @@ def kernel_entries(kern, qkern, fkern, main_path, int8_path, silu_path, highres,
 WIDE_F32_MODELS = WIDE_HEAD_TRAIN
 # (bb, hpb) splits of the fp32 walker timed at each of #1's shapes (with the tail mask).
 WIDE_F32_SPLITS = ((1, 1), (1, 2), (1, 3), (1, 4), (2, 1), (2, 2), (4, 1))
-# Head dims at which FlexAttention, the yardstick beside #4 f32, is timed in fp32: at d 192 its kernels find no
+# Head dims at which FlexAttention, the yardstick beside #4-#6 f32, is timed in fp32: at d 192 its kernels find no
 # configuration that fits a block (torch 2.11 on an H100 asked for 344,320 bytes of shared memory), and the failed
 # search takes about a minute.
 WIDE_F32_FLEX_DIMS = (256,)
@@ -5624,11 +5686,11 @@ def _wide_f32_rows(device, d: int) -> dict:
     F32_OUT_REL of the plain version's largest entry (its splits timed); #2
     (the walker, then the row quantize) at the first, codes and scales
     ``quantize_activation`` of #1 bit for bit; the fp32 prologue and #4 on its
-    views at B 1, N 4096, sw 1024 (the fold), each within F32_OUT_REL, #4
-    also against float64 within F32_F64_FACTOR of its plain version's error
-    there (#1 with the tail mask and the prologue: their float64 errors and
-    their plain versions', recorded). Each timed beside its bound, its plain
-    version and SDPA (and FlexAttention for #4) in fp32."""
+    views at B 1, N 4096, sw 1024 (the fold), each within F32_OUT_REL; #4,
+    and #1 with the tail mask at both shapes, also against float64 within
+    F32_F64_FACTOR of their plain versions' error there (the prologue's
+    float64 error and its plain version's recorded). Each timed beside its
+    bound, its plain version and SDPA (and FlexAttention for #4) in fp32."""
     import torch
     import torch.nn.functional as F
     from vitok_torch.benchmarks import host_ahead_ms
@@ -5660,6 +5722,10 @@ def _wide_f32_rows(device, d: int) -> dict:
             top = lambda a: ((a[mask].double() - ref).abs().max() / ref.abs().max()).item()
             f64 = dict(f64_rel_err=top(got), f64_plain_rel_err=top(want))
             del qn, kn, v4, ref
+            if not f64["f64_rel_err"] <= F32_F64_FACTOR * f64["f64_plain_rel_err"]:
+                raise AssertionError(f"#1 f32 d {d} B {b} N {n} {case}: {f64['f64_rel_err']:.3e} of the largest entry "
+                                     f"from float64, over {F32_F64_FACTOR} x its plain version's "
+                                     f"{f64['f64_plain_rel_err']:.3e}")
         del got, want
         nbytes = 4 * b * n * c * 4 + 2 * b * n * (d // 2) * 4 + 2 * d * 4 + (0 if mask is None else b * n)
         bound = _bound_ms(nbytes, 6 * 4.0 * h * d * _needed_pairs(b, mask, n, sw), BF16_FLOPS_PER_S)
@@ -5982,6 +6048,153 @@ def wide_f32_entries(wide32: dict) -> list:
     return entries
 
 
+WIDE_F32_BWD_FUSED = ((8, 256), (8, 1024))  # (B, N) of the lse instance and #3: the 256-token route's B; the gate's most N
+
+
+def _wide_f32_bwd_rows(device, d: int) -> dict:
+    """The fp32 backward's d-wide instances at the 5B width against their
+    plain versions, TF32 off: the walker's lse instance and #3 (the prologue
+    with delta, then #5's and #6's fold instances at the walker's log2 lse)
+    at ``WIDE_F32_BWD_FUSED`` with the tail mask (``_f32_fused_row``; the
+    lse instance also against float64 within F32_F64_FACTOR of its plain
+    version's error); the fp32 prologue with delta alone at the first shape
+    (q/k and delta within F32_OUT_REL, delta's float64 error recorded); the
+    fold's kernels at the 1024p route's shape, B 1, N 4096, sw 1024, tail
+    (``_f32_flash_row``: the prologue, #4, #5 and #6 plain, each against
+    float64, and the fold's backward, each fold instance timed alone).
+    Registers, local bytes and shared bytes of every new instance."""
+    import torch
+    from vitok_torch.benchmarks import host_ahead_ms
+    from vitok_torch.ops import flash_attention as fl
+    from vitok_torch.ops import fused_attention as fa
+
+    c = WIDE_HEAD_WIDTH
+    h = c // d
+    label = f"5B width d{d}"
+    rows = {"fused": [_f32_fused_row(label, b, n, c, h, True, device, f64=True) for b, n in WIDE_F32_BWD_FUSED]}
+
+    b, n = WIDE_F32_BWD_FUSED[0]  # the prologue with delta, as #3 launches it
+    qkv, qs, ks, cos, sin, mask = _f32_inputs(70 + d, b, n, c, h, True, device)
+    out = fa.fused_qkv_attention_plain(qkv, qs, ks, cos, sin, mask, num_heads=h)
+    gen = torch.Generator(device=device).manual_seed(71)
+    dout = torch.randn((b, n, c), generator=gen, device=device) * mask[..., None]
+    pro = lambda: fa.fused_qk_prologue(qkv, qs, ks, cos, sin, num_heads=h, out=out, dout=dout)
+    pro_plain = lambda: fa.fused_qk_prologue_plain(qkv, qs, ks, cos, sin, num_heads=h, out=out, dout=dout)
+    qk, delta = _one_launch("fused_qk_prologue_f32", pro)
+    qk_want, delta_want = pro_plain()
+    qerr, qrel = _f32_err(f"fp32 prologue with delta d {d}: q/k", qk, qk_want, F32_OUT_REL)
+    derr, drel = _f32_err(f"fp32 prologue with delta d {d}: delta", delta, delta_want, F32_OUT_REL)
+    delta64 = (out.double() * dout.double()).view(b, n, h, d).sum(-1).transpose(1, 2)
+    dtop = lambda a: ((a.double() - delta64).abs().max() / delta64.abs().max()).item()
+    bound = _bound_ms(6 * b * n * c * 4 + 2 * b * n * (d // 2) * 4 + 2 * d * 4 + b * h * n * 4, 0.0,
+                      BF16_FLOPS_PER_S)
+    rows["prologue_delta"] = row = dict(
+        d=d, B=b, N=n, C=c, H=h, max_abs_err=max(qerr, derr), rel_err=max(qrel, drel), delta_rel_err=drel,
+        f64_rel_err=dtop(delta), f64_plain_rel_err=dtop(delta_want), ms=time_ms(pro), dev_ms=host_ahead_ms(pro),
+        plain_ms=time_ms(pro_plain, runs=2, warmup=1), bound_ms=bound[0], bound_by=bound[1])
+    log(f"  fp32 prologue with delta d {d} B {b} N {n}: q/k {qrel:.2e}, delta {drel:.2e} of the largest entry from "
+        f"the plain version, delta from float64 {row['f64_rel_err']:.2e} (plain {row['f64_plain_rel_err']:.2e}); "
+        f"{row['ms']:.4f} ms (dev {row['dev_ms']:.4f}), plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']})")
+    del qkv, out, dout, qk, delta, qk_want, delta_want, delta64
+
+    _, n, b, _ = WIDE_HEAD_HIGHRES  # the fold at the 1024p route's shape
+    rows["flash"] = _f32_flash_row(label, b, n, h, d, True, FLASH_SW, device, flex=False,
+                                   flex_bwd=d in WIDE_F32_FLEX_DIMS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    bb = fa.f32_walk_split(*WIDE_F32_BWD_FUSED[0], h, d, sms)[0]
+    rows["attributes"] = dict(walker_lse=fa.f32_walk_attributes(d, "fwd", bb, lse=True),
+                              prologue=fa.sm90_attributes("prologue_f32", d),
+                              **{w: fl.flash_f32_attributes(w, d) for w in fl.F32_KERNELS[1:]})
+    log(f"  d {d} fp32 backward (registers, local bytes, blocks an SM, shared bytes): {rows['attributes']}")
+    return rows
+
+
+def wide_f32_bwd_phase(device, card: str) -> dict:
+    """The fp32 backward at head dims 192 and 256, TF32 off: each new
+    instance against its plain version (``_wide_f32_bwd_rows``), then both
+    3072-wide models (``WIDE_F32_MODELS``) trained in fp32 (compute and
+    master weights) on both routes (``_wide_train``): at 256 tokens with
+    ``attn_impl="fused"`` the walker's lse instance forward, the fp32
+    prologue with delta and #3's fp32 instance backward; at 1024p with sw =
+    FLASH_SW the fp32 prologue and #4 forward, the prologue with delta and
+    #5's and #6's fold instances backward; every block's kernels counted."""
+    import torch
+
+    t0 = time.time()
+    out = {"rows": {}, "train": {}}
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for d, variant in WIDE_F32_MODELS:
+            log(f"fp32 backward d {d}: kernel checks at the 5B width, TF32 off, on {card}")
+            t1 = time.time()
+            out["rows"][d] = _wide_f32_bwd_rows(device, d)
+            torch.cuda.empty_cache()
+            log(f"  d {d} fp32 backward rows: {time.time() - t1:.1f} s")
+            t1 = time.time()
+            out["train"][d] = _wide_train(device, card, d, variant, compute_dtype=torch.float32)
+            torch.cuda.empty_cache()
+            log(f"  d {d} fp32 training: {time.time() - t1:.1f} s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    out["wall_s"] = time.time() - t0
+    log(f"fp32 backward phase: {out['wall_s']:.1f} s")
+    return out
+
+
+def wide_f32_bwd_entries(wide: dict) -> list:
+    """The kernels line's entries of the fp32 backward's d 192 and 256
+    instances (the walker's lse instance, the prologue with delta, #3, #5
+    and #6), launches from the fp32 training runs (the 256-token route's and
+    the 1024p route's three steps); times at the first row of each set."""
+    entries = []
+    src_fl, src_sm90 = "vitok_torch/csrc/flash_attention_f32.cu", "vitok_torch/csrc/fused_attention_sm90.cu"
+    for d in sorted(wide["rows"]):
+        rows, train = wide["rows"][d], wide["train"][d]
+        fused_run = collections.Counter(train[WIDE_HEAD_TRAIN_FUSED[0]]["launches"])  # nonzero counts
+        fold_run = collections.Counter(train[WIDE_HEAD_TRAIN_FOLD[0]]["launches"])
+        top, fl_row, pro, attrs = rows["fused"][0], rows["flash"], rows["prologue_delta"], rows["attributes"]
+        kernel = lambda *keys: {f"kernel_{k}": attrs[k] for k in keys}
+        fused_rows = lambda *keys: [{"N": r["N"], **{k: r[k] for k in keys}} for r in rows["fused"]]
+
+        def entry(name, source, replaces, launches, row, key, err, library, plain=None, **more):
+            return {"name": f"{name}_d{d}", "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches, "max_abs_err": row[err], "ms": row[f"{key}ms"],
+                    "plain_ms": row[plain or f"{key}plain_ms"], "bound_ms": row[f"{key}bound_ms"],
+                    "bound_by": row[f"{key}bound_by"], "library_ms": None if library is None else row[library],
+                    "dev_ms": row[f"{key}dev_ms"], **more}
+
+        entries += [
+            entry("fused_attention_f32_lse", "vitok_torch/csrc/fused_attention_ab_f32_sm90.cu",
+                  "vitok_tpu/ops/fused_attention.py:317", fused_run["fused_attention_f32_lse"], top, "", "max_abs_err",
+                  "library_ms", lse_max_abs_err=max(r["lse_max_abs_err"] for r in rows["fused"]),
+                  rows=fused_rows("ms", "dev_ms", "plain_ms", "bound_ms", "library_ms", "f64_rel_err",
+                                  "f64_plain_rel_err"), **kernel("walker_lse")),
+            entry("fused_qk_prologue_f32_delta", src_sm90, "vitok_tpu/ops/fused_attention.py:124",
+                  fused_run["fused_qk_prologue_f32"] + fold_run["fused_qk_prologue_f32"]
+                  - fold_run["flash_attention_f32"], pro, "", "max_abs_err", None, delta_rel_err=pro["delta_rel_err"],
+                  f64_rel_err=pro["f64_rel_err"], f64_plain_rel_err=pro["f64_plain_rel_err"], **kernel("prologue")),
+            entry("fused_attention_bwd_f32", src_fl, "vitok_tpu/ops/fused_attention.py:645",
+                  fused_run["fused_attention_bwd_f32"], top, "bwd_", "bwd_max_abs_err", "bwd_library_ms",
+                  rows=fused_rows("bwd_ms", "bwd_dev_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_library_ms"),
+                  **kernel("dq_fold", "dkv_fold")),
+            entry("flash_attention_dq_f32", src_fl, "vitok_tpu/ops/flash_attention.py:427",
+                  fold_run["flash_attention_dq_f32"], fl_row, "dq_", "dq_max_abs_err", "bwd_library_ms",
+                  plain="bwd_plain_ms", fold_ms=fl_row["fold_dq_ms"], fold_dev_ms=fl_row["fold_dq_dev_ms"],
+                  f64_rel_err=fl_row["dq_f64_rel_err"], f64_plain_rel_err=fl_row["dq_f64_plain_rel_err"],
+                  flex_ms=fl_row["bwd_flex_ms"], **kernel("dq", "dq_fold")),
+            entry("flash_attention_dkv_f32", src_fl, "vitok_tpu/ops/flash_attention.py:556",
+                  fold_run["flash_attention_dkv_f32"], fl_row, "dkv_", "dkv_max_abs_err", "bwd_library_ms",
+                  plain="bwd_plain_ms", fold_ms=fl_row["fold_dkv_ms"], fold_dev_ms=fl_row["fold_dkv_dev_ms"],
+                  fold_bwd_ms=fl_row["fold_bwd_ms"], fold_bwd_plain_ms=fl_row["fold_bwd_plain_ms"],
+                  fold_bwd_bound_ms=fl_row["fold_bwd_bound_ms"], fold_bwd_max_abs_err=fl_row["fold_bwd_max_abs_err"],
+                  f64_rel_err=fl_row["dkv_f64_rel_err"], f64_plain_rel_err=fl_row["dkv_f64_plain_rel_err"],
+                  flex_ms=fl_row["bwd_flex_ms"], **kernel("dkv", "dkv_fold")),
+        ]
+    return entries
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "vitok_torch")):
         print("chip_smoke.py must run from a checkout of the repository (no vitok_torch/ here)",
@@ -6076,6 +6289,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide32 = wide_f32_phase(device, card)
     torch.cuda.empty_cache()
+    wide32_bwd = wide_f32_bwd_phase(device, card)
+    torch.cuda.empty_cache()
     log("eval summary: " + json.dumps({
         run: {k: evals[run]["stats"][k] for k in ("n_images", "ssim", "psnr", "fid", "fdd", "throughput_img_per_sec",
                                                   "wall_img_per_sec", "steady_img_per_sec", "host_data_time_s",
@@ -6092,6 +6307,7 @@ def main() -> int:
     entries += wide_kernel_entries(wide)
     entries += wide_heads_entries(wide_heads, kern, fkern, fbkern, bkern)
     entries += wide_f32_entries(wide32)
+    entries += wide_f32_bwd_entries(wide32_bwd)
     for e in entries:  # the 5B run's, the eval runs' and the perceptual steps' launches beside each path's own
         if bench_5b["launches"].get(e["name"]):
             e["launches_5b_bench"] = bench_5b["launches"][e["name"]]

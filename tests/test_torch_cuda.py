@@ -432,11 +432,12 @@ class TestWideHeadsOnCard:
     the limits the d 64/128 instances meet (the backward's instances, #3,
     #5 and #6, plain and fold, at every case of the backward classes below,
     the prologue's delta in TestKernelOnCard); the fp32 forward's instances
-    (the fp32 walker at every split ``f32_walk_split`` can return, the fp32
-    prologue and the fold's #4) within 1e-5 of their plain versions' largest
-    entry; an fp32 call under grad keeps the unfused composition (the fp32
-    backward has no instance at these head dims), and a forced fp32 kernel
-    under grad there raises."""
+    (the fp32 walker at every split ``f32_walk_split`` can return, its lse
+    instance, the fp32 prologue and the fold's #4) within 1e-5 of their
+    plain versions' largest entry (the fp32 backward's, #3, #5 and #6 plain
+    and fold and the prologue's delta, in TestFp32InstancesOnCard); every
+    gate opens at these head dims under grad, and a forced fp32 kernel
+    under grad at a head dim with no instance raises."""
 
     @pytest.mark.parametrize("d", [192, 256])
     @pytest.mark.parametrize("case,masked,sw", CASES)
@@ -517,23 +518,24 @@ class TestWideHeadsOnCard:
         assert ((a - r).norm() / r.norm()).item() <= 2e-2
 
     def test_gates_close_and_forced_kernels_raise(self, cuda_device):
-        """The bf16 gates open at d = 256, under grad too, and the fp32
-        forward's (the name is kept from when they closed there); in fp32
-        under grad they close, and a forced fp32 kernel under grad raises
+        """The bf16 and fp32 gates open at d = 256, under grad too (the name
+        is kept from when fp32's closed there under grad); at d = 320, where
+        no kernel has an instance, a forced fp32 kernel under grad raises
         before it launches."""
-        qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=1, n=256, heads=1, d=256)
         assert t_fa.can_fuse(256, 256, 1, cuda=True) and t_fa.can_fuse(256, 256, 1)
         assert t_fa.can_fuse_bwd(256, 256, 1, cuda=True)
         assert t_fa.can_fuse(256, 256, 1, cuda=True, dtype=torch.float32)
-        assert not t_fa.can_fuse_bwd(256, 256, 1, cuda=True, dtype=torch.float32)
-        before = (counts(), t_fl.LAUNCHES)
+        assert t_fa.can_fuse_bwd(256, 256, 1, cuda=True, dtype=torch.float32)
+        assert not t_fa.can_fuse_bwd(256, 320, 1, cuda=True, dtype=torch.float32)
+        qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=1, n=256, heads=1, d=320)
+        before = (counts(), t_fl.LAUNCHES, t_fl.F32_LAUNCHES)
         with pytest.raises(ValueError, match="head_dim"):
             t_fa.fused_qkv_attention(qkv.detach().float().requires_grad_(), qs, ks, cos, sin, num_heads=1,
                                      impl="fused")
-        q = qkv.detach()[..., :256].view(1, 256, 1, 256).float().requires_grad_()
+        q = qkv.detach()[..., :320].view(1, 256, 1, 320).float().requires_grad_()
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, q, q)
-        assert (counts(), t_fl.LAUNCHES) == before
+        assert (counts(), t_fl.LAUNCHES, t_fl.F32_LAUNCHES) == before
 
     @pytest.mark.parametrize("d", [192, 256])
     @pytest.mark.parametrize("n", [64, 200, 1024])
@@ -578,12 +580,39 @@ class TestWideHeadsOnCard:
         if masked:
             assert not got[~rest[-1]].any()
 
+    @pytest.mark.parametrize("d", [192, 256])
+    @pytest.mark.parametrize("n", [64, 256, 1000])
+    @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 24)])
+    def test_fp32_lse_instance_matches_plain(self, cuda_device, no_tf32, d, n, case, sw):
+        """The fp32 walker's log-sum-exp instance (the forward under
+        autograd): its output the bits of the instance without it, the lse
+        within 1e-3 of the plain version's on valid rows (log2 units) and
+        1e30 on padded ones."""
+        heads, b = 4, 4
+        qkv, *rest = ab_inputs(cuda_device, torch.float32, b=b, n=n, heads=heads, d=d, case=case)
+        before = counts()
+        out, lse = t_fa._fused_cuda(qkv, *rest, heads, sw, want_lse=True)
+        assert counts() == added(before, f32_lse=1)
+        plain = t_fa.fused_qkv_attention(qkv, *rest, num_heads=heads, sliding_window=sw, impl="fused")
+        want, want_lse = t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=heads, sliding_window=sw,
+                                                        return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain)
+        assert_fp32_close(out, want)
+        keep = torch.ones((b, n), dtype=torch.bool, device=cuda_device) if rest[-1] is None else rest[-1]
+        keep = keep[:, None, :].expand_as(lse)
+        assert (lse[keep] - want_lse[keep]).abs().max().item() <= 1e-3
+        assert bool((lse[~keep] == 1e30).all())
+
     def test_fp32_wide_instances_report_their_attributes(self, cuda_device):
-        """The fp32 walker's, the fp32 prologue's and #4's fp32 wide
-        instances fit a block's shared memory, one block an SM at least."""
+        """The fp32 wide instances, the forward's (the walker and its lse
+        instance, the fp32 prologue, #4) and the backward's (#5 and #6,
+        plain and fold), fit a block's shared memory, one block an SM at
+        least."""
         for d in (192, 256):
-            for attrs in (t_fa.f32_walk_attributes(d, "fwd", 2), t_fa.sm90_attributes("prologue_f32", d),
-                          t_fl.flash_f32_attributes("fwd", d)):
+            for attrs in (t_fa.f32_walk_attributes(d, "fwd", 2), t_fa.f32_walk_attributes(d, "fwd", 1, lse=True),
+                          t_fa.sm90_attributes("prologue_f32", d),
+                          *(t_fl.flash_f32_attributes(which, d) for which in t_fl.F32_KERNELS)):
                 assert attrs["blocks_per_sm"] >= 1 and attrs["smem_bytes"] <= 232448, (d, attrs)
 
 
@@ -1717,7 +1746,7 @@ class TestFp32InstancesOnCard:
         assert torch.equal(lse >= 1e29, ~live)
         assert (lse[live] - want_lse[live]).abs().max().item() <= 1e-3
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("n,sw", [(300, 40), (2100, 256)])
     @pytest.mark.parametrize("case", ["none", "tail", "tail+sw", "hole+sw"])
     def test_flash_backward_matches_plain(self, cuda_device, no_tf32, d, n, sw, case):
@@ -1735,7 +1764,7 @@ class TestFp32InstancesOnCard:
             assert torch.equal(a, a2)
             assert_rel(a, r, 1e-4, mask)
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     def test_prologue_matches_plain(self, cuda_device, d):
         qkv, qs, ks, cos, sin, _ = make_inputs(cuda_device, b=2, n=200, d=d)
         qkv = qkv.float()
@@ -1751,7 +1780,7 @@ class TestFp32InstancesOnCard:
         assert_fp32_close(qk, want)
         assert_fp32_close(delta, want_delta)
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail", 256), ("tail", None)])
     def test_fold_forward_and_backward_match_plain(self, cuda_device, no_tf32, d, case, sw):
         qkv, qs, ks, cos, sin, mask = make_inputs(cuda_device, b=3, n=2100, d=d, masked=case == "tail")
@@ -1773,7 +1802,7 @@ class TestFp32InstancesOnCard:
         assert_rel(dx, want_dx, 1e-4, mask)
         assert_rel(da, want_da, 1e-4)
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("n", [256, 1000])
     @pytest.mark.parametrize("case", ["none", "tail+sw", "tail+sw+dead"])
     def test_fused_backward_matches_plain(self, cuda_device, no_tf32, d, n, case):

@@ -7,10 +7,10 @@ Each wrapper runs as it does on the card, on tensors that say they lie there
 replaced by recorders of the C entry points they call (``_build.load``) and
 the stream and device context by stand-ins. An fp32 call reaches the fp32
 instance's entry with the shape, window, strides and flags its plan sets,
-and counts a launch under the fp32 instance's name, the forward's at head
-dims 64 to 256 (``F32_FWD_HEAD_DIMS``); an fp16 call, and a head dim the
-fp32 instances lack (the backward's ``F32_BWD_HEAD_DIMS``: 64 and 128, under
-a gradient), raise before anything launches. The
+and counts a launch under the fp32 instance's name, at head dims 64 to 256
+forward and backward (``F32_FWD_HEAD_DIMS``, ``F32_BWD_HEAD_DIMS``); an fp16
+call, and a head dim the fp32 instances lack (past 256), raise before
+anything launches. The
 arithmetic of the plain versions that these instances are held to on the
 card is held against the JAX package in ``tests/test_torch_train_lib.py``,
 ``test_torch_flash_*.py`` and ``test_torch_fused_*.py``; the kernels
@@ -155,7 +155,7 @@ class TestFlashForward:
         q, k, v = qkv_views()
         with pytest.raises(TypeError, match="one dtype"):
             t_fl.flash_attention(q, k, card(v.bfloat16()))
-        q, k, v = (t.requires_grad_() for t in qkv_views(d=256))  # the backward's head dims: 64, 128
+        q, k, v = (t.requires_grad_() for t in qkv_views(d=320))  # the backward's head dims: 64-256
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, k, v)
         assert entries == [] and counts() == only()
@@ -168,7 +168,7 @@ class TestFlashForward:
 
 
 class TestFlashBackward:
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     def test_fp32_reaches_dq_then_dkv(self, entries, d):
         q, k, v = qkv_views(d=d)
         out, g = (card(torch.randn(q.shape)) for _ in range(2))
@@ -214,7 +214,9 @@ class TestFold:
         assert not t_fa.takes_flash_fold(qkv.as_subclass(torch.Tensor), qs, ks, 2, "auto")
         qkv, qs, ks, *_ = qkv_inputs(1, 2048, heads=1, d=256, masked=False)
         assert t_fa.takes_flash_fold(qkv, qs, ks, 1, "auto")  # the fp32 forward has d 256
-        assert not t_fa.takes_flash_fold(qkv, qs.requires_grad_(), ks, 1, "auto")  # its backward has not
+        assert t_fa.takes_flash_fold(qkv, qs.requires_grad_(), ks, 1, "auto")  # and its backward
+        qkv, qs, ks, *_ = qkv_inputs(1, 2048, heads=1, d=320, masked=False)
+        assert not t_fa.takes_flash_fold(qkv, qs, ks, 1, "auto")  # neither has d 320
 
     @pytest.mark.parametrize("d", [64, 128, 192, 256])
     def test_forward_is_the_fp32_prologue_then_the_fp32_flash_kernel(self, entries, d):
@@ -231,8 +233,9 @@ class TestFold:
         assert fwd[3:12] == (128 * 2 * c, 2 * c, d, 128 * 2 * c, 2 * c, d, 128 * 3 * c, 3 * c, d)
         assert counts() == only(prologue_f32=1, fl_f32=1)
 
-    def test_backward_is_the_prologue_then_the_fold_instances(self, entries):
-        qkv, qs, ks, cos, sin, mask = qkv_inputs()
+    @pytest.mark.parametrize("d", [64, 192, 256])
+    def test_backward_is_the_prologue_then_the_fold_instances(self, entries, d):
+        qkv, qs, ks, cos, sin, mask = qkv_inputs(d=d)
         x = qkv.requires_grad_()
         out = t_fa.unfused_qkv_attention(x, qs, ks, cos, sin, mask, 2, 40, attn_impl="flash")
         torch.autograd.grad(out.as_subclass(torch.Tensor).sum(), x)
@@ -244,7 +247,7 @@ class TestFold:
         dq, dkv = entry_calls(entries, "vitok_flash_bwd_fold_f32")
         assert dq[:2] == (0, t_fl.LOG2E) and dkv[:2] == (1, t_fl.LOG2E)  # dq, dk/dv; #4's natural-log lse
         assert dq[3] == dkv[3] == pro[7] and dq[11] == dkv[11] == pro[8]  # qk and delta from the prologue
-        assert dq[-6:] == dkv[-6:] == (2, 128, 2, 64, 40, 7)
+        assert dq[-6:] == dkv[-6:] == (2, 128, 2, d, 40, 7)
         assert dq[8] is not None  # the key counts of the mask
         assert counts() == only(prologue_f32=2, fl_f32=1, dq_f32=1, dkv_f32=1)
 
@@ -281,7 +284,7 @@ class TestFused:
         ((_, _, args),) = entries
         assert lse is None and args[7] is None and counts() == only(fa_f32=1)
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     def test_backward_is_the_prologue_then_the_fused_fold_instances(self, entries, d):
         qkv, qs, ks, cos, sin, mask = qkv_inputs(d=d)
         out = card(torch.randn((2, 128, 2 * d)))

@@ -13,10 +13,10 @@ bound for the flash kernel, with or without a gradient asked for (under
 autograd its backward runs the prologue again, then the dq and dk/dv
 kernels' fold instances), in fp32 as in bf16, and not at a head dim
 the kernels have no instance for, or below ``FLASH_MIN_TOKENS`` with
-``"auto"``. At a head dim of 192 or 256 the bf16 forward's gates open on
-the card as the JAX package's (a multiple of 64) do, and the fold and the
-fused kernel are taken without a gradient; under grad (the backward has no
-instance there) and in fp32 the unfused composition runs. The
+``"auto"``. At a head dim of 192 or 256 the gates open on the card as the
+JAX package's (a multiple of 64) do, in bf16 and fp32, with or without a
+gradient (every kernel family has instances there); past 256 the unfused
+composition runs. The
 kernels themselves are held to their plain versions in
 ``tests/test_torch_cuda.py``; the fold's backward against the JAX package in
 ``tests/test_torch_flash_fold_bwd.py``.
@@ -253,11 +253,9 @@ class TestFoldRouting:
     @pytest.mark.parametrize("d", [192, 256])
     def test_not_taken_at_other_head_dims(self, recorders, d):
         """Head dims 192 and 256 (the name is kept from when the fold was not
-        taken there): a bf16 call takes the fold, without a gradient and
-        under grad (the backward's fold instances, with the plain backward's
-        gradients); in fp32 the fold without a gradient (the fp32 prologue and
-        #4's fp32 instance), and under grad the unfused composition, with no
-        launch."""
+        taken there): a call takes the fold in bf16 and in fp32, without a
+        gradient and under grad (the backward's fold instances, with the
+        plain backward's gradients)."""
         args = _card_args(1, 2048, 1, d, masked=False)
         assert t_fa.takes_flash_fold(args[0], args[1], args[2], 1, "auto")
         got = t_fa.unfused_qkv_attention(*args, 1, 300)
@@ -279,11 +277,11 @@ class TestFoldRouting:
         want32 = t_fa.flash_qkv_attention_plain(*map(plain, f32), num_heads=1, sliding_window=300)
         torch.testing.assert_close(plain(got32), want32, rtol=0, atol=0)
         qkv32 = card(plain(f32[0]).clone()).requires_grad_()
-        assert not t_fa.takes_flash_fold(qkv32, f32[1], f32[2], 1, "auto")
+        assert t_fa.takes_flash_fold(qkv32, f32[1], f32[2], 1, "auto")
         got32 = t_fa.unfused_qkv_attention(qkv32, *f32[1:], 1, 300)
-        assert recorders == launched  # under grad the unfused composition: no further launches
-        want32 = t_fa.unfused_qkv_attention(*map(plain, f32), 1, 300, attn_impl="xla")
         torch.testing.assert_close(plain(got32).detach(), want32, rtol=0, atol=0)
+        _assert_grads_are_the_plain_backward(qkv32, *f32[1:], 1, 300, got32)
+        assert recorders == launched + ["prologue", "flash", "prologue", "dq", "dkv"]
 
     def test_not_taken_below_the_flash_threshold(self, recorders):
         args = _card_args(1, 2040, 2, 64)
@@ -312,15 +310,16 @@ class TestFoldRouting:
 
 
 class TestHeadDimGates:
-    @pytest.mark.parametrize("d,ok_cpu,ok_card", [(64, True, True), (128, True, True), (192, True, False),
-                                                  (256, True, False), (72, False, False)])
+    @pytest.mark.parametrize("d,ok_cpu,ok_card", [(64, True, True), (128, True, True), (192, True, True),
+                                                  (256, True, True), (72, False, False)])
     def test_gates_follow_the_kernel_head_dims_on_the_card(self, monkeypatch, d, ok_cpu, ok_card):
         """On the card the bf16 gates open wherever the JAX package's do
         (``ok_cpu``: 64, 128, 192 and 256), a call under grad too (the
         backward's head dims are the forward's since it has instances at 192
         and 256), and so do the gates of an fp32 call without a gradient (its
         forward has instances at 192 and 256 too); ``ok_card`` is where the
-        gates of an fp32 call under grad open on the card: 64 and 128."""
+        gates of an fp32 call under grad open on the card: 64-256 since its
+        backward has instances there too."""
         monkeypatch.setattr(t_fa, "_ENABLE_Q8", True)
         c = 4 * d if d != 72 else 1728
         h = c // d
@@ -377,10 +376,10 @@ class TestHeadDimGates:
 
     def test_dot_product_attention_keeps_wide_heads_off_the_flash_kernel(self, recorders):
         """Wide heads (the name is kept from when the flash kernel never took
-        them) go to the flash kernel in bf16, without a gradient and under
-        grad (the backward has d 256 instances), and in fp32 without a
-        gradient; they stay off it in fp32 under grad; heads of 128 go to it
-        under grad."""
+        them) go to the flash kernel in bf16 and in fp32, without a gradient
+        and under grad (both backwards have d 256 instances); heads of 320,
+        which no kernel has, stay off it in fp32 under grad; heads of 128 go
+        to it."""
         x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 2048, 1, 256), dtype=np.float32))
         q = card(x.bfloat16())
         t_attn.dot_product_attention(q, q, q, sliding_window=64)
@@ -392,6 +391,9 @@ class TestHeadDimGates:
         assert recorders == ["flash"] * 3
         xg = card(x.clone().requires_grad_())
         t_attn.dot_product_attention(xg, xg, xg, sliding_window=64)
-        assert recorders == ["flash"] * 3
-        t_attn.dot_product_attention(q[..., :128], q[..., :128], q[..., :128], sliding_window=64)
         assert recorders == ["flash"] * 4
+        x320 = card(torch.cat([x, x[..., :64]], -1).requires_grad_())
+        t_attn.dot_product_attention(x320, x320, x320, sliding_window=64)
+        assert recorders == ["flash"] * 4
+        t_attn.dot_product_attention(q[..., :128], q[..., :128], q[..., :128], sliding_window=64)
+        assert recorders == ["flash"] * 5

@@ -203,14 +203,18 @@ class TestWiring:
     def test_gate_follows_the_forward(self):
         """The backward's gate is the forward's, on the card too since the
         backward has instances at head dims 192 and 256 (the 5B width with
-        16 heads of 192 and 12 of 256); fp32 on the card keeps 64 and 128."""
+        16 heads of 192 and 12 of 256), in bf16 and, since the fp32 backward
+        has them too, in fp32; past 256 (20 heads of 320 at C 6400) it is
+        closed on the card in both."""
         for n, c, h in [(256, 1024, 16), (1024, 1024, 16), (256, 3072, 24), (1024, 3072, 24),
                         (252, 1024, 16), (256, 96 * 16, 16), (2048, 1024, 16), (256, 3072, 16),
-                        (1024, 3072, 12)]:
+                        (1024, 3072, 12), (256, 6400, 20)]:
             assert t_fa.can_fuse_bwd(n, c, h) == t_fa.can_fuse(n, c, h)
             assert t_fa.can_fuse_bwd(n, c, h, cuda=True) == t_fa.can_fuse(n, c, h, cuda=True)
             f32 = dict(cuda=True, dtype=torch.float32)
-            assert t_fa.can_fuse_bwd(n, c, h, **f32) == (t_fa.can_fuse(n, c, h) and c // h in (64, 128))
+            assert t_fa.can_fuse_bwd(n, c, h, **f32) == t_fa.can_fuse(n, c, h, **f32)
+            assert t_fa.can_fuse_bwd(n, c, h, cuda=True) == (t_fa.can_fuse(n, c, h) and c // h <= 256)
+            assert t_fa.can_fuse_bwd(n, c, h, **f32) == (t_fa.can_fuse(n, c, h) and c // h <= 256)
 
     def test_no_kernel_on_other_devices(self):
         (qkv, qs, ks, cos, sin, mask), g = torch_args(_split("no_mask")[0])

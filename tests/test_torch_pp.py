@@ -178,11 +178,11 @@ class TestImportBoundary:
         assert REPO / "vitok_torch" / module in _port_files()
 
     @pytest.mark.parametrize("module", [
-        "ops/fused_attention.py", "ops/_build.py", "benchmarks/fused_bits.py"])
+        "ops/fused_attention.py", "ops/_build.py", "benchmarks/fused_bits.py", "benchmarks/f32_bits.py"])
     def test_fused_attention_modules_are_inside_the_boundary(self, module):
         """The fused attention's wrappers (the q/k prologue, the wgmma forward
         and backward, the mma.sync forward), their build and the checkouts'
-        comparison are among the files the import check reads."""
+        comparisons are among the files the import check reads."""
         assert REPO / "vitok_torch" / module in _port_files()
 
     @pytest.mark.parametrize("module", [

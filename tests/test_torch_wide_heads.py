@@ -23,11 +23,17 @@ after the prologue), and a bf16 call under grad the backward's (the prologue
 with delta, then #3, or #5/#6's fold instances); an fp32 call without a
 gradient reaches the fp32 forward's (the fp32 walker, the walker then the
 row quantize for #2, the fold's fp32 prologue then #4's fp32 instance),
-counted under their fp32 names; an fp32 call under grad takes the unfused
-composition and launches nothing, and a forced fp32 kernel under grad or an
-A/B kernel raises before a launch; an AE training step at d 256 launches #1
-and #3 in every block. The fp32 prologue's plain version is held to the JAX
-package's ``_norm_rope_half`` at d 192 and 256. The kernels themselves are
+counted under their fp32 names, and under grad the fp32 backward's (the
+walker's lse instance, then the fp32 prologue with delta and #3's entry, or
+the fold, then the prologue with delta and #5/#6's fold instances); under
+grad with ``"auto"`` below 2048 tokens the unfused composition runs and
+launches nothing, and a forced kernel at a head dim past 256, in fp16, or
+an A/B kernel raises before a launch; an AE training step at d 256 launches
+#1 and #3 in every block, and in fp32 at d 192 and 256 the walker's lse
+instance, the fp32 prologue with delta and #3's fp32 entries. The fp32
+prologue's plain version is held to the JAX package's ``_norm_rope_half``,
+and its delta to sum dO * O in float64, at d 192 and 256. The kernels
+themselves are
 held to their plain versions on the card by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
@@ -142,6 +148,22 @@ class TestPlainAgainstJax:
                                             jnp.asarray(scale)[None], rows(cos), rows(sin))).reshape(b, n, c)
             for part, scale in ((0, qs), (1, ks))], axis=-1)
         np.testing.assert_allclose(qk.numpy(), want, atol=1e-5, rtol=1e-5)
+
+    @pytest.mark.parametrize("d", [192, 256])
+    def test_fp32_prologue_plain_delta_is_the_rows_sum(self, d):
+        """The fp32 prologue's plain delta (the backward's: each row's sum
+        over a head's channels of dO * O) against that sum in float64:
+        1e-5 of the largest entry."""
+        qkv, qs, ks, cos, sin, _ = fold_inputs(2, 24, 2, d, False)
+        b, n, c3 = qkv.shape
+        rng = np.random.default_rng(d)
+        out, dout = (rng.standard_normal((b, n, c3 // 3), dtype=np.float32) for _ in range(2))
+        t = torch.from_numpy
+        _, delta = t_fa.fused_qk_prologue_plain(t(qkv), t(qs), t(ks), t(cos), t(sin), num_heads=2, out=t(out),
+                                                dout=t(dout))
+        want = (out.astype(np.float64) * dout).reshape(b, n, 2, d).sum(-1).transpose(0, 2, 1)
+        assert delta.dtype == torch.float32 and delta.shape == (b, 2, n)
+        np.testing.assert_allclose(delta.numpy(), want, atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
 SMALL_AE = {  # name: (variant, tokens, per-sample grids)
@@ -280,9 +302,9 @@ def entries(monkeypatch):
     monkeypatch.setattr(t_fa, "_quantize_rows_blocks", lambda c, dev: 4)
     monkeypatch.setattr(t_q, "_FNS", {})
     for name in ("LAUNCHES", "PROLOGUE_LAUNCHES", "Q8_LAUNCHES", "BWD_LAUNCHES", "F32_LAUNCHES",
-                 "PROLOGUE_F32_LAUNCHES", "Q8_F32_LAUNCHES"):
+                 "PROLOGUE_F32_LAUNCHES", "Q8_F32_LAUNCHES", "F32_LSE_LAUNCHES", "BWD_F32_LAUNCHES"):
         monkeypatch.setattr(t_fa, name, 0)
-    for name in ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "F32_LAUNCHES"):
+    for name in ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "F32_LAUNCHES", "DQ_F32_LAUNCHES", "DKV_F32_LAUNCHES"):
         monkeypatch.setattr(t_fl, name, 0)
     return calls
 
@@ -301,7 +323,9 @@ def names(calls):
 def launches():
     return dict(fa=t_fa.LAUNCHES, prologue=t_fa.PROLOGUE_LAUNCHES, q8=t_fa.Q8_LAUNCHES, bwd=t_fa.BWD_LAUNCHES,
                 fl=t_fl.LAUNCHES, dq=t_fl.DQ_LAUNCHES, dkv=t_fl.DKV_LAUNCHES, fa_f32=t_fa.F32_LAUNCHES,
-                prologue_f32=t_fa.PROLOGUE_F32_LAUNCHES, q8_f32=t_fa.Q8_F32_LAUNCHES, fl_f32=t_fl.F32_LAUNCHES)
+                prologue_f32=t_fa.PROLOGUE_F32_LAUNCHES, q8_f32=t_fa.Q8_F32_LAUNCHES, fl_f32=t_fl.F32_LAUNCHES,
+                fa_f32_lse=t_fa.F32_LSE_LAUNCHES, bwd_f32=t_fa.BWD_F32_LAUNCHES, dq_f32=t_fl.DQ_F32_LAUNCHES,
+                dkv_f32=t_fl.DKV_F32_LAUNCHES)
 
 
 def only(**named):
@@ -349,7 +373,7 @@ class TestCardRouting:
         heads = 3072 // d
         args = qkv_inputs(2, 1024, heads, d, dtype=torch.float32)
         assert t_fa.can_fuse(1024, 3072, heads, cuda=True, dtype=torch.float32)
-        assert not t_fa.can_fuse(1024, 3072, heads, cuda=True, dtype=torch.float32, grad=True)
+        assert t_fa.can_fuse(1024, 3072, heads, cuda=True, dtype=torch.float32, grad=True)
         for impl in ("auto", "fused"):
             out = t_fa.fused_qkv_attention(*args, num_heads=heads, impl=impl)
             assert out.shape == (2, 1024, 3072) and out.dtype == torch.float32
@@ -391,30 +415,43 @@ class TestCardRouting:
         assert launches() == only(prologue_f32=1, fl_f32=1)
 
     def test_grad_and_fp32_keep_the_composition(self, entries, d):
-        """Under grad in bf16 (the name is kept from when such a call took the
-        composition) a d 192/256 call reaches the backward's C entries: at 256
-        tokens with ``impl="fused"`` #1 with its log-sum-exp, then the
-        prologue with delta and #3's entry; at 2048 tokens the fold, then the
-        prologue with delta and #5's and #6's fold instances. An fp32 call
-        without a gradient reaches the fp32 forward's entries (the walker at
-        256 tokens, the fp32 prologue and #4's fp32 instance at 2048); under
-        grad it keeps the composition and launches nothing, forward or
-        backward."""
+        """Under grad (the name is kept from when such a call took the
+        composition) a d 192/256 call reaches the backward's C entries, in
+        bf16 and in fp32: at 256 tokens with ``impl="fused"`` #1 with its
+        log-sum-exp (fp32: the walker's lse instance), then the prologue with
+        delta and #3's entry (fp32: #5's and #6's fold instances at the
+        walker's log2 lse, factor 1); at 2048 tokens the fold, then the
+        prologue with delta and #5's and #6's fold instances (fp32: at #4's
+        natural-log lse, factor log2(e)). An fp32 call without a gradient
+        reaches the fp32 forward's entries (the walker at 256 tokens, the
+        fp32 prologue and #4's fp32 instance at 2048); under grad with
+        ``"auto"`` at 256 tokens it keeps the composition and launches
+        nothing, forward or backward."""
         fold = ["vitok_fused_qk_prologue_bf16", "vitok_flash_attention_bf16", "vitok_fused_qk_prologue_bf16",
                 "vitok_flash_bwd_dq_fold_bf16", "vitok_flash_bwd_dkv_fold_bf16"]
         fused = ["vitok_fused_qk_prologue_bf16", "vitok_fused_attention_sm90_bf16", "vitok_fused_qk_prologue_bf16",
                  "vitok_fused_attention_bwd_bf16"]
-        for n, impl, want in ((256, "fused", fused), (2048, "auto", fold)):
+        fold32 = ["vitok_fused_qk_prologue_f32", "vitok_flash_attention_f32", "vitok_fused_qk_prologue_f32",
+                  "vitok_flash_bwd_fold_f32", "vitok_flash_bwd_fold_f32"]
+        fused32 = ["vitok_fused_attention_walk_f32", "vitok_fused_qk_prologue_f32", "vitok_flash_bwd_fold_f32",
+                   "vitok_flash_bwd_fold_f32"]
+        for dtype, n, impl, want in ((torch.bfloat16, 256, "fused", fused), (torch.bfloat16, 2048, "auto", fold),
+                                     (torch.float32, 256, "fused", fused32), (torch.float32, 2048, "auto", fold32)):
             entries.clear()
-            qkv, *rest = qkv_inputs(1, n, 2, d)
+            qkv, *rest = qkv_inputs(1, n, 2, d, dtype=dtype)
             qkv.requires_grad_()
             assert t_fa.takes_flash_fold(qkv, rest[0], rest[1], 2, "auto") is (n == 2048)
             out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=40, impl=impl)
             out.as_subclass(torch.Tensor).float().sum().backward()
             assert qkv.grad is not None and names(entries) == want
-            prologue = entries[2][1]  # the backward's: out given (delta), q and k
-            assert prologue[5] is not None and prologue[9:14] == (1, n, 2, d, 2)
+            prologue = entries[len(want) - (2 if dtype == torch.bfloat16 and n == 256 else 3)][1]
+            assert prologue[5] is not None and prologue[9:14] == (1, n, 2, d, 2)  # out given (delta); q and k
             assert entries[-1][1][-6:-1] == (1, n, 2, d, 40)  # B, N, H, D, window
+            if dtype == torch.float32:  # dq's then dk/dv's fold instance, at the forward's lse units
+                factor = 1.0 if n == 256 else t_fl.LOG2E
+                assert [args[:2] for _, args in entries[-2:]] == [(0, factor), (1, factor)]
+                if n == 256:
+                    assert entries[0][1][7] is not None  # the walker's lse instance
         fp32 = {256: ["vitok_fused_attention_walk_f32"],
                 2048: ["vitok_fused_qk_prologue_f32", "vitok_flash_attention_f32"]}
         for n in (256, 2048):
@@ -429,32 +466,37 @@ class TestCardRouting:
             else:  # q and k, no delta; then #4 on their views with the window
                 assert entries[0][1][5] is None and entries[0][1][9:14] == (1, n, 2, d, 2)
                 assert entries[1][1][16:21] == (1, n, 2, d, 40)
-            entries.clear()
-            qkv, *rest = qkv_inputs(1, n, 2, d, dtype=torch.float32)
-            qkv.requires_grad_()
-            assert not t_fa.takes_flash_fold(qkv, rest[0], rest[1], 2, "auto")
-            out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=40)
-            out.as_subclass(torch.Tensor).sum().backward()
-            assert qkv.grad is not None and entries == []
-        assert launches() == only(fa=1, prologue=4, bwd=2, fl=1, dq=1, dkv=1, fa_f32=1, prologue_f32=1, fl_f32=1)
+        entries.clear()
+        qkv, *rest = qkv_inputs(1, 256, 2, d, dtype=torch.float32)
+        qkv.requires_grad_()
+        out = t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, sliding_window=40)
+        out.as_subclass(torch.Tensor).sum().backward()
+        assert qkv.grad is not None and entries == []
+        assert launches() == only(fa=1, prologue=4, bwd=2, fl=1, dq=1, dkv=1, fa_f32=1, prologue_f32=4, fl_f32=2,
+                                  fa_f32_lse=1, bwd_f32=2, dq_f32=1, dkv_f32=1)
 
     def test_forced_kernels_raise_before_a_launch(self, entries, d):
-        """fp32 under a gradient (its backward's instances stop at 128:
-        ``impl="fused"``, ``impl="flash"`` and the flash kernel), the fp32
-        prologue with delta and the A/B kernels' wrappers raise before a
-        launch; bf16 under grad no longer does (the backward has d 192/256
-        instances), nor fp32 without a gradient (its forward has them)."""
+        """A forced kernel at a head dim no kernel has an instance for (d +
+        128: 320 or 384) raises before a launch: fp32 under a gradient
+        (``impl="fused"``, ``impl="flash"`` and the flash kernel) and the fp32
+        prologue with delta; so do an fp16 call under a gradient and the A/B
+        kernels' wrappers at d. bf16 and fp32, with or without a gradient, no
+        longer do at d (their instances reach 256)."""
+        bad = d + 128
         for n, impl in ((256, "fused"), (2048, "flash")):
-            qkv, *rest = qkv_inputs(1, n, 2, d, dtype=torch.float32)
+            qkv, *rest = qkv_inputs(1, n, 2, bad, dtype=torch.float32)
             qkv.requires_grad_()
             with pytest.raises(ValueError, match="head_dim"):
                 t_fa.fused_qkv_attention(qkv, *rest, num_heads=2, impl=impl)
-        q = card(torch.zeros((1, 256, 2, d), dtype=torch.float32, requires_grad=True))
+        qkv, *rest = qkv_inputs(1, 256, 2, d, dtype=torch.float16)
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            t_fa.fused_qkv_attention(qkv.requires_grad_(), *rest, num_heads=2, impl="fused")
+        q = card(torch.zeros((1, 256, 2, bad), dtype=torch.float32, requires_grad=True))
         with pytest.raises(ValueError, match="head_dim"):
             t_fl.flash_attention(q, q, q)
-        g = card(torch.zeros((1, 64, 2 * d), dtype=torch.float32))
+        g = card(torch.zeros((1, 64, 2 * bad), dtype=torch.float32))
         with pytest.raises(ValueError, match="head_dim"):  # delta: the backward's fp32 prologue
-            t_fa.fused_qk_prologue(*qkv_inputs(1, 64, 2, d, dtype=torch.float32)[:5], num_heads=2, out=g, dout=g)
+            t_fa.fused_qk_prologue(*qkv_inputs(1, 64, 2, bad, dtype=torch.float32)[:5], num_heads=2, out=g, dout=g)
         with pytest.raises(ValueError, match="head_dim"):
             t_fa.fused_qkv_attention_mma(*qkv_inputs(1, 64, 2, d), num_heads=2)
         assert entries == [] and launches() == only()
@@ -482,3 +524,34 @@ def test_ae_training_step_at_d256_takes_the_composition(entries, monkeypatch):
     with torch.no_grad():
         model.decode(model.encode(batch))
     assert launches() == only(fa=2 * depth, prologue=3 * depth, bwd=2 * depth)
+
+
+@pytest.mark.parametrize("variant,d", [("w384_d1_h2-w384_d1_h2/1x16x8", 192), ("w512_d1_h2-w512_d1_h2/1x16x8", 256)])
+def test_fp32_ae_training_step_takes_the_fp32_backward(entries, monkeypatch, variant, d):
+    """An fp32 AE (compute and parameters) with heads of ``d`` on the card
+    (every tensor says it lies there): ``attn_impl="fused"`` trains on the
+    fp32 kernels, so its step launches in every block the fp32 walker's lse
+    instance forward and the fp32 prologue with delta and #3's fp32 entries
+    (the dq and dk/dv fold instances at the walker's log2 lse) backward; the
+    same model under ``no_grad`` takes the walker's inference instance in
+    every block."""
+    cfg = t_ae.AEConfig.from_variant(variant)
+    assert cfg.encoder_width // cfg.encoder_heads == d
+    model = t_ae.AE(**{**dataclasses.asdict(cfg), "attn_impl": "fused"}, param_dtype=torch.float32,
+                    compute_dtype=torch.float32, trainable=True, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(2, 32, 16, [(5, 6), (3, 3)]).items()}
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    out = model(batch, deterministic=False)
+    out["patches"].float().square().mean().backward()
+    assert all(p.grad is not None for p in model.parameters() if p.requires_grad)
+    depth = cfg.encoder_depth + cfg.decoder_depth
+    assert launches() == only(fa_f32_lse=depth, prologue_f32=depth, bwd_f32=2 * depth)
+    assert names(entries) == ["vitok_fused_attention_walk_f32"] * depth + [
+        "vitok_fused_qk_prologue_f32", "vitok_flash_bwd_fold_f32", "vitok_flash_bwd_fold_f32"] * depth
+    walks = [args for fn, args in entries if fn == "vitok_fused_attention_walk_f32"]
+    assert all(args[7] is not None and args[11] == d for args in walks)  # the lse instance at head dim d
+    folds = [args for fn, args in entries if fn == "vitok_flash_bwd_fold_f32"]
+    assert [args[:2] for args in folds] == [(0, 1.0), (1, 1.0)] * depth and all(args[17] == d for args in folds)
+    with torch.no_grad():
+        model.decode(model.encode(batch))
+    assert launches() == only(fa_f32_lse=depth, fa_f32=depth, prologue_f32=depth, bwd_f32=2 * depth)

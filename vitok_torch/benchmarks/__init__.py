@@ -221,54 +221,63 @@ def chained_ms(call: Callable[[torch.Tensor], torch.Tensor], cos: torch.Tensor, 
     return ms / layers
 
 
+def _held(enqueue: Callable[[], None], hold_cycles: int, doublings: int = 4) -> float:
+    """Run ``enqueue()`` on the host while a spin kernel (``torch.cuda._sleep``,
+    ``hold_cycles`` clock cycles) holds the stream, so the card never waits for
+    the host; returns the host's milliseconds. Where the host needed longer than
+    the hold (the card would then have waited for it, and what ``enqueue``
+    recorded is not what it claims), the hold is doubled and ``enqueue`` run
+    again, at most ``doublings`` times; after that it raises."""
+    for _ in range(doublings + 1):
+        torch.cuda.synchronize()
+        hold = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        hold[0].record()
+        torch.cuda._sleep(hold_cycles)
+        hold[1].record()
+        t0 = time.perf_counter()
+        enqueue()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        hold_ms = hold[0].elapsed_time(hold[1])
+        if host_ms < hold_ms:
+            return host_ms
+        hold_cycles *= 2
+    raise RuntimeError(f"the host took {host_ms:.3f} ms to enqueue its calls, longer than the "
+                       f"{hold_ms:.3f} ms hold after {doublings} doublings: raise hold_cycles")
+
+
 def host_ahead_ms(fn: Callable[[], object], runs: int = 5, hold_cycles: int = 20_000_000) -> float:
     """Device milliseconds a call of ``fn()`` takes when the card never waits
-    for the host: a spin kernel (``torch.cuda._sleep``, ``hold_cycles`` clock
-    cycles, about 10 ms) holds the stream while the host enqueues ``runs``
-    calls, each between two CUDA events; the mean of the events' distances.
-    A call's kernels and the device's gaps between them count, the host's
-    time does not. Raises if the host needed longer than the hold to enqueue
-    the calls (the card would then have waited for it)."""
+    for the host: a spin kernel (``hold_cycles`` clock cycles, about 10 ms,
+    doubled where the host was slower, see ``_held``) holds the stream while
+    the host enqueues ``runs`` calls, each between two CUDA events; the mean
+    of the events' distances. A call's kernels and the device's gaps between
+    them count, the host's time does not."""
     fn()
-    torch.cuda.synchronize()
-    hold = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
-    hold[0].record()
-    torch.cuda._sleep(hold_cycles)
-    hold[1].record()
-    t0 = time.perf_counter()
-    for start, end in marks:
-        start.record()
-        fn()
-        end.record()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    if host_ms >= hold[0].elapsed_time(hold[1]):
-        raise RuntimeError(f"the host took {host_ms:.3f} ms to enqueue {runs} calls, longer than the "
-                           f"{hold[0].elapsed_time(hold[1]):.3f} ms hold: raise hold_cycles")
+
+    def enqueue():
+        for start, end in marks:
+            start.record()
+            fn()
+            end.record()
+
+    _held(enqueue, hold_cycles)
     return sum(start.elapsed_time(end) for start, end in marks) / runs
 
 
 def host_us(fn: Callable[[], object], runs: int = 200, hold_cycles: int = 200_000_000) -> float:
     """Host microseconds a call of ``fn()`` takes to enqueue its work: a spin
-    kernel (``hold_cycles`` clock cycles, about 100 ms) holds the stream, so
-    the host never waits for the card, while the host makes ``runs`` calls
-    on the host's clock. Raises if the hold ended first."""
+    kernel (``hold_cycles`` clock cycles, about 100 ms, doubled where the host
+    was slower, see ``_held``) holds the stream, so the host never waits for
+    the card, while the host makes ``runs`` calls on the host's clock."""
     fn()
-    torch.cuda.synchronize()
-    hold = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    hold[0].record()
-    torch.cuda._sleep(hold_cycles)
-    hold[1].record()
-    t0 = time.perf_counter()
-    for _ in range(runs):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    if host_ms >= hold[0].elapsed_time(hold[1]):
-        raise RuntimeError(f"the host took {host_ms:.3f} ms for {runs} calls, longer than the "
-                           f"{hold[0].elapsed_time(hold[1]):.3f} ms hold: raise hold_cycles")
-    return host_ms / runs * 1e3
+
+    def enqueue():
+        for _ in range(runs):
+            fn()
+
+    return _held(enqueue, hold_cycles) / runs * 1e3
 
 
 def make_batch(b: int, n: int, grid, pixels_per_token: int, seed: int = 0, patch: int = 16, device="cuda"):

@@ -68,7 +68,10 @@
 //   * the fold: q and k are the fp32 q/k prologue's qrot, krot (views of its
 //     [B, N, 2C] scratch), v, dqkv views of the flat [B, N, 3C]; dq's and
 //     dk's gradients of the rotated rows go through norm_rope_bwd_tile's
-//     fp32 instance into dqkv, the gains' partials to [B, H, tiles, D].
+//     fp32 instance into dqkv, the gains' partials to [B, H, tiles, D];
+//   * dq and dk/dv at d = 192 and 256 (DqWideSmem, DkvWideSmem) keep two
+//     operands' pieces whole and stream the other two through 64-column
+//     slabs; dk/dv forms p^T in both warpgroups (see WideSmem).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (vitok_torch/ops/_build.py). Plain C entry points, bound
@@ -79,6 +82,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "fused_attend_f32_sm90.cuh"
 
@@ -395,8 +399,102 @@ __device__ __forceinline__ void store_rows_f32(float* dst, Strides ds, int b, in
 }
 
 // ---------------------------------------------------------------------------
+// The backward's layouts at d = 192 and 256
+// ---------------------------------------------------------------------------
+//
+// The d 128 layouts hold four operands as three bf16 pieces each: 288 and
+// 384 KB at d 192 and 256 against the 227 KB a block may have. There each
+// kernel keeps whole the two operands that stay for its whole walk (dq its
+// Q and dO rows, dk/dv its K and V rows: 144 and 192 KB) and streams the
+// other two through 64-column slabs of pieces (24 KB: two slabs where they
+// fit, at d 192, one at d 256). The products that contract over D (S and dP,
+// or S^T and dP^T) sum a slab at a time, each slab's into a fresh accumulator
+// added on the CUDA cores (ss_slab); those whose columns are D's (dQ += dS K;
+// dV += P^T dO and dK += dS^T Q) take the slab of their columns so too
+// (accumulate_pv_slab), so a streamed operand is split twice a tile, the
+// second time from the L2 (but the slab still in a buffer). At d 256 p^T has
+// no room beside a slab (K, V, a slab and p^T: 232 KB), so in dk/dv both
+// warpgroups form S^T and p^T (the same products, the same bits) and
+// warpgroup 1 also dP^T: five products a tile pair where d 128 has four.
+
+template <int D>
+struct WideSmem {
+  static constexpr int kP = kTile * D * 2;      // one piece tile of D columns
+  static constexpr int kSlab = kTile * 64 * 2;  // one of a 64-column slab
+  static constexpr int kBuf = 6 * kP;           // after the two whole operands' pieces
+  static constexpr int kRows = 2 * kTile * 4;   // a tile's lse and delta
+  // Two slab buffers where they fit beside the rows and the alignment slack.
+  static constexpr int kBufs = kBuf + 6 * kSlab + kRows + 1024 <= 232448 - 1024 ? 2 : 1;
+  static constexpr int kSlabB = kBuf + (kBufs - 1) * 3 * kSlab;  // the second streamed operand's slab
+  static constexpr int kLse = kBuf + kBufs * 3 * kSlab;
+  static constexpr int kDelta = kLse + kTile * 4;
+  static constexpr int kEnd = kDelta + kTile * 4;
+  static constexpr int kBytes = kEnd + 1024;
+  static constexpr int kStage = kTile * (D + 4) * 4;
+  static_assert(kStage + nr_bwd_part_bytes<D, 2 * kThreads>() <= kEnd, "the fold's epilogue fits over the tiles");
+  static_assert(kBytes + 512 <= 232448, "a block's shared memory");
+};
+
+// acc (+)= A B^T over slab c's 64 channels: A's pieces whole (D columns,
+// its k-steps 4c to 4c + 3), B's the slab's three piece tiles, both K-major:
+// the slab's six products of pieces, small terms first, into a fresh
+// accumulator added to acc on the CUDA cores (first: acc is that sum);
+// issued and waited. Summed on the tensor cores across slabs, a slab's small
+// terms would meet the larger sum of the slabs before it: dq at d 256 read
+// 2.3 times its plain version's error from float64 on an H100 so (PERF.md).
+template <int D>
+__device__ __forceinline__ void ss_slab(float (&acc)[32], const unsigned char* a, int c, const unsigned char* slab,
+                                        bool first) {
+  constexpr int kP = kTile * D * 2, kSlab = kTile * 64 * 2;
+  float part[32];
+  wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < 6; ++x)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(part, kmajor_desc<kTile>(a + split_a(x) * kP, 4 * c + kk),
+                   kmajor_desc<kTile>(slab + split_b(x) * kSlab, kk), x > 0 || kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(part);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = first ? part[i] : acc[i] + part[i];
+}
+
+// ---------------------------------------------------------------------------
 // dq
 // ---------------------------------------------------------------------------
+
+// delta = sum_d dO * O of rows [q0, q0 + 64), 0 on padded rows, into sDelta
+// and delta_bh (the sample's and head's [N] row of delta): a row's D
+// channels over kLanes neighbouring threads of the warpgroup, 8 each (D/8
+// rounded up to a power of two: at d = 192 32 lanes, of which 24 hold
+// channels and the others add 0).
+template <int D>
+__device__ __forceinline__ void rows_delta(float* sDelta, float* delta_bh, const float* o_b, Strides os,
+                                           const float* g_b, Strides gs, const unsigned char* mask_b, int q0, int N,
+                                           int tid) {
+  constexpr int kChunks = D / 8;
+  constexpr int kLanes = pow2_at_least(kChunks);
+  const int lane = tid % kLanes, ch = lane * 8;
+  for (int row = tid / kLanes; row < kTile; row += kThreads / kLanes) {
+    const int n = q0 + row;
+    float acc = 0.f;
+    if (n < N && lane < kChunks && (mask_b == nullptr || mask_b[n])) {
+      float o[8], g[8];
+      ld_f4x2(o, o_b + n * os.n + ch);
+      ld_f4x2(g, g_b + n * gs.n + ch);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(g[e], o[e], acc);
+    }
+#pragma unroll
+    for (int off = 1; off < kLanes; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
+    if (lane == 0) {
+      sDelta[row] = acc;
+      if (n < N) delta_bh[n] = acc;
+    }
+  }
+}
 
 template <int D>
 struct DqSmem {
@@ -409,11 +507,23 @@ struct DqSmem {
   static_assert(kStage + kThreads / (D / 16) * D * 4 <= kEnd, "the fold's epilogue fits over the tiles");
 };
 
+// At d 192 and 256: Q's and dO's pieces whole, one 64-column slab each of
+// K's and V's (one buffer for both where two do not fit).
+template <int D>
+struct DqWideSmem : WideSmem<D> {
+  using W = WideSmem<D>;
+  static constexpr int kQ = 0, kG = 3 * W::kP, kK = W::kBuf, kV = W::kSlabB;
+};
+
+template <int D>
+using DqLayout = std::conditional_t<(D > 128), DqWideSmem<D>, DqSmem<D>>;
+
 // One warpgroup of 64 query rows a block. Without kFold: q, k, v, dout, out
 // views; writes delta [B, H, N] (0 on padded rows) for itself and dk/dv, and
 // dq. With kFold: delta given (the prologue's), dq through the fold.
 // lse_factor: the stored lse times it is the exponent's (log2e: natural log;
-// 1: log2 units).
+// 1: log2 units). At d 192 and 256 on DqWideSmem: S and dP, then dQ, a slab
+// at a time.
 template <int D, bool kFold>
 __device__ __forceinline__ void dq_body(const float* __restrict__ q, const float* __restrict__ k,
                                         const float* __restrict__ v, const float* __restrict__ dout, Strides qs,
@@ -422,8 +532,8 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ q, const float
                                         const int* __restrict__ counts, const float* __restrict__ out, Strides os,
                                         float* __restrict__ dq, Strides dqs, const Fold& fold, int B, int N, int H,
                                         int sw, float c, float lse_factor, float scale) {
-  using S = DqSmem<D>;
-  constexpr int kChunks = D / 8;
+  using S = DqLayout<D>;
+  constexpr int kSlabs = D / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sQ = smem + S::kQ;
@@ -460,27 +570,7 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ q, const float
     d0 = qrow0 < N ? delta[row_base + qrow0] : 0.f;
     d1 = qrow1 < N ? delta[row_base + qrow1] : 0.f;
   } else {
-    // delta = sum_d dO * O of the tile's rows, 0 on padded rows: a row's D
-    // channels over kChunks neighbouring threads, 8 each.
-    const float* o_b = out + b * os.b + h * os.h;
-    const int ch = (tid % kChunks) * 8;
-    for (int row = tid / kChunks; row < kTile; row += kThreads / kChunks) {
-      const int n = q0 + row;
-      float acc = 0.f;
-      if (n < N && (mask_b == nullptr || mask_b[n])) {
-        float o[8], g[8];
-        ld_f4x2(o, o_b + n * os.n + ch);
-        ld_f4x2(g, g_b + n * gs.n + ch);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc = fmaf(g[e], o[e], acc);
-      }
-#pragma unroll
-      for (int off = 1; off < kChunks; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
-      if (tid % kChunks == 0) {
-        sDelta[row] = acc;
-        if (n < N) delta[row_base + n] = acc;
-      }
-    }
+    rows_delta<D>(sDelta, delta + row_base, out + b * os.b + h * os.h, os, g_b, gs, mask_b, q0, N, tid);
     __syncthreads();
     d0 = sDelta[qrow0 - q0];
     d1 = sDelta[qrow1 - q0];
@@ -491,25 +581,53 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ q, const float
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = (first + it) * kTile;
-    __syncthreads();  // every warp is done with the last tile's pieces
-    split_rows<D, kThreads>(sK, k_b, ks.n, k0, N, nullptr, tid);
-    split_rows<D, kThreads>(sV, v_b, vs.n, k0, N, nullptr, tid);
-    key_bits(sKeyBits, k0, lead, valid, mask_b, tid);
-    if (it + 1 < n_tiles) {
-      prefetch_rows_l2<D, kThreads>(k_b, ks.n, k0 + kTile, N, tid);
-      prefetch_rows_l2<D, kThreads>(v_b, vs.n, k0 + kTile, N, tid);
-    }
-    fence_proxy_async();
-    __syncthreads();
-    const uint64_t keys = (uint64_t)sKeyBits[1] << 32 | sKeyBits[0];
     float s[32], dp[32];
-    wgmma_fence();
-    ss_split<D>(s, sQ, sK);
-    ss_split<D>(dp, sG, sV);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
+    uint64_t keys = 0;
+    if constexpr (D <= 128) {
+      __syncthreads();  // every warp is done with the last tile's pieces
+      split_rows<D, kThreads>(sK, k_b, ks.n, k0, N, nullptr, tid);
+      split_rows<D, kThreads>(sV, v_b, vs.n, k0, N, nullptr, tid);
+      key_bits(sKeyBits, k0, lead, valid, mask_b, tid);
+      if (it + 1 < n_tiles) {
+        prefetch_rows_l2<D, kThreads>(k_b, ks.n, k0 + kTile, N, tid);
+        prefetch_rows_l2<D, kThreads>(v_b, vs.n, k0 + kTile, N, tid);
+      }
+      fence_proxy_async();
+      __syncthreads();
+      keys = (uint64_t)sKeyBits[1] << 32 | sKeyBits[0];
+      wgmma_fence();
+      ss_split<D>(s, sQ, sK);
+      ss_split<D>(dp, sG, sV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+    } else {  // S = Q K^T and dP = dO V^T, a slab of channels at a time
+#pragma unroll
+      for (int cs = 0; cs < kSlabs; ++cs) {
+        __syncthreads();  // every warp's products have read the slabs
+        split_rows<64, kThreads>(sK, k_b + cs * 64, ks.n, k0, N, nullptr, tid);
+        if constexpr (S::kBufs == 2) split_rows<64, kThreads>(sV, v_b + cs * 64, vs.n, k0, N, nullptr, tid);
+        if (cs == 0) {
+          key_bits(sKeyBits, k0, lead, valid, mask_b, tid);
+          if (it + 1 < n_tiles) {
+            prefetch_rows_l2<D, kThreads>(k_b, ks.n, k0 + kTile, N, tid);
+            prefetch_rows_l2<D, kThreads>(v_b, vs.n, k0 + kTile, N, tid);
+          }
+        }
+        fence_proxy_async();
+        __syncthreads();
+        if (cs == 0) keys = (uint64_t)sKeyBits[1] << 32 | sKeyBits[0];
+        ss_slab<D>(s, sQ, cs, sK, cs == 0);
+        if constexpr (S::kBufs == 1) {
+          __syncthreads();
+          split_rows<64, kThreads>(sV, v_b + cs * 64, vs.n, k0, N, nullptr, tid);
+          fence_proxy_async();
+          __syncthreads();
+        }
+        ss_slab<D>(dp, sG, cs, sV, cs == 0);
+      }
+    }
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
@@ -520,7 +638,20 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ q, const float
       }
     uint32_t dsa[3][kTile / 16][4];
     split_p(s, dsa);
-    rs_split_add<D, D>(acc, dsa, sK);
+    if constexpr (D <= 128) {
+      rs_split_add<D, D>(acc, dsa, sK);
+    } else {  // dQ += dS K, a slab of dQ's columns at a time, the last first: with two buffers K's is still there
+#pragma unroll
+      for (int cs = kSlabs - 1; cs >= 0; --cs) {
+        if (S::kBufs == 1 || cs < kSlabs - 1) {
+          __syncthreads();
+          split_rows<64, kThreads>(sK, k_b + cs * 64, ks.n, k0, N, nullptr, tid);
+          fence_proxy_async();
+          __syncthreads();
+        }
+        accumulate_pv_slab<D>(acc, cs, dsa, sK);
+      }
+    }
   }
 
   if constexpr (kFold) {
@@ -551,9 +682,21 @@ struct DkvSmem {
   static_assert(kStage + 2 * kThreads / (D / 16) * D * 4 <= kEnd, "the fold's epilogue fits over the tiles");
 };
 
-// One block of 64 key rows, two warpgroups (see the top of the file). Without
-// kFold: writes dk and dv; with kFold dv to dqkv's v plane (`dv`, `dvs`) and
-// dk through the fold.
+// At d 192 and 256: K's and V's pieces whole, one 64-column slab each of
+// Q's and dO's (one buffer for both where two do not fit), no p^T.
+template <int D>
+struct DkvWideSmem : WideSmem<D> {
+  using W = WideSmem<D>;
+  static constexpr int kK = 0, kV = 3 * W::kP, kQ = W::kBuf, kG = W::kSlabB;
+};
+
+template <int D>
+using DkvLayout = std::conditional_t<(D > 128), DkvWideSmem<D>, DkvSmem<D>>;
+
+// One block of 64 key rows, two warpgroups (see the top of the file; at d
+// 192 and 256 on DkvWideSmem, both forming p^T). Without kFold: writes dk
+// and dv; with kFold dv to dqkv's v plane (`dv`, `dvs`) and dk through the
+// fold.
 template <int D, bool kFold>
 __device__ __forceinline__ void dkv_body(const float* __restrict__ q, const float* __restrict__ k,
                                          const float* __restrict__ v, const float* __restrict__ dout, Strides qs,
@@ -562,14 +705,14 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q, const floa
                                          const int* __restrict__ counts, float* __restrict__ dk, Strides dks,
                                          float* __restrict__ dv, Strides dvs, const Fold& fold, int B, int N, int H,
                                          int sw, float c, float lse_factor, float scale) {
-  using S = DkvSmem<D>;
+  using S = DkvLayout<D>;
+  constexpr int kSlabs = D / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sK = smem + S::kK;
   unsigned char* sV = smem + S::kV;
   unsigned char* sQ = smem + S::kQ;
   unsigned char* sG = smem + S::kG;
-  float* sPT = reinterpret_cast<float*>(smem + S::kPT);
   float* sLse = reinterpret_cast<float*>(smem + S::kLse);
   float* sDelta = reinterpret_cast<float*>(smem + S::kDelta);
 
@@ -597,15 +740,8 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q, const floa
   const int kr0 = k0 + (wtid >> 5) * 16 + ((wtid & 31) >> 2), kr1 = kr0 + 8;  // this thread's key rows
   const bool kok0 = kr0 < valid && (kr0 < lead || mask_b[kr0]);
   const bool kok1 = kr1 < valid && (kr1 < lead || mask_b[kr1]);
-
-  float acc[D / 2];  // warpgroup 0: dv; warpgroup 1: dk
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int qt0 = (first + it) * kTile;
-    __syncthreads();  // both warpgroups are done with the last tile's pieces and p^T
-    split_rows<D, 2 * kThreads>(sQ, q_b, qs.n, qt0, N, nullptr, tid);
-    split_rows<D, 2 * kThreads>(sG, g_b, gs.n, qt0, N, mask_b, tid);  // padded rows zeroed
+  // The query tile's lse and delta into shared memory (threads 0-127).
+  auto load_rows = [&](int qt0) {
     if (tid < kTile) {
       const int n = qt0 + tid;
       sLse[tid] = n < N ? lse[row_base + n] : kDeadLse;
@@ -613,51 +749,127 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q, const floa
       const int n = qt0 + tid - kTile;
       sDelta[tid - kTile] = n < N ? delta[row_base + n] : 0.f;
     }
-    if (it + 1 < n_tiles) {
-      prefetch_rows_l2<D, 2 * kThreads>(q_b, qs.n, qt0 + kTile, N, tid);
-      prefetch_rows_l2<D, 2 * kThreads>(g_b, gs.n, qt0 + kTile, N, tid);
-    }
-    fence_proxy_async();
-    __syncthreads();
+  };
+  // p^T of this thread's element e of column group nt from its S^T entry
+  // st: dead keys, the window and padded queries 0.
+  auto p_of = [&](float st, int qt0, int nt, int e) {
+    const int col = nt * 8 + 2 * t + (e & 1);  // the query inside the tile
+    const int krow = e < 2 ? kr0 : kr1;
+    const bool live = (e < 2 ? kok0 : kok1) && (sw < 0 || abs(qt0 + col - krow) <= sw);
+    return live ? ex2_ftz(fmaf(st, c, -__fmul_rn(sLse[col], lse_factor))) : 0.f;
+  };
+
+  float acc[D / 2];  // warpgroup 0: dv; warpgroup 1: dk
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int qt0 = (first + it) * kTile;
     uint32_t xa[3][kTile / 16][4];
-    if (wg == 0) {  // S^T = K Q^T, p^T; dV += P^T dO
-      float s[32];
-      wgmma_fence();
-      ss_split<D>(s, sK, sQ);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
+    if constexpr (D <= 128) {
+      float* sPT = reinterpret_cast<float*>(smem + S::kPT);
+      __syncthreads();  // both warpgroups are done with the last tile's pieces and p^T
+      split_rows<D, 2 * kThreads>(sQ, q_b, qs.n, qt0, N, nullptr, tid);
+      split_rows<D, 2 * kThreads>(sG, g_b, gs.n, qt0, N, mask_b, tid);  // padded rows zeroed
+      load_rows(qt0);
+      if (it + 1 < n_tiles) {
+        prefetch_rows_l2<D, 2 * kThreads>(q_b, qs.n, qt0 + kTile, N, tid);
+        prefetch_rows_l2<D, 2 * kThreads>(g_b, gs.n, qt0 + kTile, N, tid);
+      }
+      fence_proxy_async();
+      __syncthreads();
+      if (wg == 0) {  // S^T = K Q^T, p^T; dV += P^T dO
+        float s[32];
+        wgmma_fence();
+        ss_split<D>(s, sK, sQ);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+#pragma unroll
+        for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = p_of(s[4 * nt + e], qt0, nt, e);
+            s[4 * nt + e] = p;
+            sPT[(4 * nt + e) * kThreads + wtid] = p;
+          }
+        bar_arrive(kBarP, 2 * kThreads);
+        split_p(s, xa);
+        rs_split_add<D, 64>(acc, xa, sG);  // 64 columns a pass: a whole-width one spills at d = 128
+      } else {  // dP^T = V dO^T, ds^T = p^T (dp^T - delta); dK += dS^T Q
+        float dp[32];
+        wgmma_fence();
+        ss_split<D>(dp, sV, sG);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dp);
+        bar_sync(kBarP, 2 * kThreads);
+#pragma unroll
+        for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = nt * 8 + 2 * t + (e & 1);
+            dp[4 * nt + e] = sPT[(4 * nt + e) * kThreads + wtid] * (dp[4 * nt + e] - sDelta[col]);
+          }
+        split_p(dp, xa);
+        rs_split_add<D, 64>(acc, xa, sQ);
+      }
+    } else {
+      float s[32], dp[32];
+#pragma unroll
+      for (int cs = 0; cs < kSlabs; ++cs) {  // S^T = K Q^T (both) and dP^T = V dO^T (warpgroup 1), a slab at a time
+        __syncthreads();  // every warp's products have read the slabs, and the rows' lse and delta
+        split_rows<64, 2 * kThreads>(sQ, q_b + cs * 64, qs.n, qt0, N, nullptr, tid);
+        if constexpr (S::kBufs == 2) split_rows<64, 2 * kThreads>(sG, g_b + cs * 64, gs.n, qt0, N, mask_b, tid);
+        if (cs == 0) {
+          load_rows(qt0);
+          if (it + 1 < n_tiles) {
+            prefetch_rows_l2<D, 2 * kThreads>(q_b, qs.n, qt0 + kTile, N, tid);
+            prefetch_rows_l2<D, 2 * kThreads>(g_b, gs.n, qt0 + kTile, N, tid);
+          }
+        }
+        fence_proxy_async();
+        __syncthreads();
+        ss_slab<D>(s, sK, cs, sQ, cs == 0);
+        if constexpr (S::kBufs == 1) {
+          __syncthreads();
+          split_rows<64, 2 * kThreads>(sG, g_b + cs * 64, gs.n, qt0, N, mask_b, tid);  // padded rows zeroed
+          fence_proxy_async();
+          __syncthreads();
+        }
+        if (wg == 1) ss_slab<D>(dp, sV, cs, sG, cs == 0);
+      }
+      // p^T in both warpgroups; warpgroup 1 turns it into ds^T = p^T (dp^T - delta)
 #pragma unroll
       for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);  // the query inside the tile
-          const int krow = e < 2 ? kr0 : kr1;
-          const bool live = (e < 2 ? kok0 : kok1) && (sw < 0 || abs(qt0 + col - krow) <= sw);
-          const float p = live ? ex2_ftz(fmaf(s[4 * nt + e], c, -__fmul_rn(sLse[col], lse_factor))) : 0.f;
-          s[4 * nt + e] = p;
-          sPT[(4 * nt + e) * kThreads + wtid] = p;
+          const float p = p_of(s[4 * nt + e], qt0, nt, e);
+          s[4 * nt + e] = wg == 0 ? p : p * (dp[4 * nt + e] - sDelta[nt * 8 + 2 * t + (e & 1)]);
         }
-      bar_arrive(kBarP, 2 * kThreads);
       split_p(s, xa);
-      rs_split_add<D, 64>(acc, xa, sG);  // 64 columns a pass: a whole-width one spills at d = 128
-    } else {  // dP^T = V dO^T, ds^T = p^T (dp^T - delta); dK += dS^T Q
-      float dp[32];
-      wgmma_fence();
-      ss_split<D>(dp, sV, sG);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dp);
-      bar_sync(kBarP, 2 * kThreads);
+      // dV += P^T dO (warpgroup 0) and dK += dS^T Q (warpgroup 1), a slab of
+      // columns at a time, the last first: its dO slab (and with two buffers
+      // its Q slab) is still in a buffer.
 #pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          dp[4 * nt + e] = sPT[(4 * nt + e) * kThreads + wtid] * (dp[4 * nt + e] - sDelta[col]);
+      for (int cs = kSlabs - 1; cs >= 0; --cs) {
+        if (cs < kSlabs - 1) {
+          __syncthreads();
+          split_rows<64, 2 * kThreads>(sG, g_b + cs * 64, gs.n, qt0, N, mask_b, tid);
+          if constexpr (S::kBufs == 2) split_rows<64, 2 * kThreads>(sQ, q_b + cs * 64, qs.n, qt0, N, nullptr, tid);
+          fence_proxy_async();
+          __syncthreads();
         }
-      split_p(dp, xa);
-      rs_split_add<D, 64>(acc, xa, sQ);
+        if constexpr (S::kBufs == 2) {
+          accumulate_pv_slab<D>(acc, cs, xa, wg == 0 ? sG : sQ);
+        } else {
+          if (wg == 0) accumulate_pv_slab<D>(acc, cs, xa, sG);
+          __syncthreads();
+          split_rows<64, 2 * kThreads>(sQ, q_b + cs * 64, qs.n, qt0, N, nullptr, tid);
+          fence_proxy_async();
+          __syncthreads();
+          if (wg == 1) accumulate_pv_slab<D>(acc, cs, xa, sQ);
+        }
+      }
     }
   }
 
@@ -739,7 +951,7 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v, const floa
                       const unsigned char* mask, const int* counts, float* delta, float* dq, int B, int N, int H,
                       int sw, cudaStream_t s) {
   const Strides dqs{(long long)N * H * D, (long long)H * D, D};
-  return launch(flash_bwd_dq_f32_kernel<D, false>, DqSmem<D>::kBytes, tiles_grid(N, H, B), kThreads, s, q, k, v,
+  return launch(flash_bwd_dq_f32_kernel<D, false>, DqLayout<D>::kBytes, tiles_grid(N, H, B), kThreads, s, q, k, v,
                 dout, qs, ks, vs, gs, lse, delta, mask, counts, out, os, dq, dqs, Fold{}, B, N, H, sw, exponent_of(D),
                 kLog2e, scale_of(D));
 }
@@ -749,7 +961,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const flo
                        Strides vs, Strides gs, const float* lse, const float* delta, const unsigned char* mask,
                        const int* counts, float* dk, float* dv, int B, int N, int H, int sw, cudaStream_t s) {
   const Strides os{(long long)N * H * D, (long long)H * D, D};
-  return launch(flash_bwd_dkv_f32_kernel<D, false>, DkvSmem<D>::kBytes, tiles_grid(N, H, B), 2 * kThreads, s, q, k,
+  return launch(flash_bwd_dkv_f32_kernel<D, false>, DkvLayout<D>::kBytes, tiles_grid(N, H, B), 2 * kThreads, s, q, k,
                 v, dout, qs, ks, vs, gs, lse, delta, mask, counts, dk, os, dv, os, Fold{}, B, N, H, sw,
                 exponent_of(D), kLog2e, scale_of(D));
 }
@@ -770,12 +982,12 @@ cudaError_t launch_fold(int which, float lse_factor, const float* qkv, const flo
   const float c = exponent_of(D), sc = scale_of(D);
   if (which == 0) {
     const Fold f{qkv, gain, cos_t, sin_t, dqkv, part, 3 * C};
-    return launch(flash_bwd_dq_f32_kernel<D, true>, DqSmem<D>::kBytes, grid, kThreads, s, qn, kn, vv, dout, w.qs,
+    return launch(flash_bwd_dq_f32_kernel<D, true>, DqLayout<D>::kBytes, grid, kThreads, s, qn, kn, vv, dout, w.qs,
                   w.ks, w.vs, w.gs, lse, const_cast<float*>(delta), mask, counts, static_cast<const float*>(nullptr),
                   Strides{}, static_cast<float*>(nullptr), Strides{}, f, B, N, H, sw, c, lse_factor, sc);
   }
   const Fold f{qkv + C, gain, cos_t, sin_t, dqkv + C, part, 3 * C};
-  return launch(flash_bwd_dkv_f32_kernel<D, true>, DkvSmem<D>::kBytes, grid, 2 * kThreads, s, qn, kn, vv, dout, w.qs,
+  return launch(flash_bwd_dkv_f32_kernel<D, true>, DkvLayout<D>::kBytes, grid, 2 * kThreads, s, qn, kn, vv, dout, w.qs,
                 w.ks, w.vs, w.gs, lse, delta, mask, counts, static_cast<float*>(nullptr), Strides{}, dqkv + 2 * C,
                 w.dqkv, f, B, N, H, sw, c, lse_factor, sc);
 }
@@ -797,19 +1009,14 @@ cudaError_t attributes(Kernel kernel, int threads, int smem, int* out) {
 
 template <int D>
 cudaError_t kernel_attributes(int which, int* out) {
-  if constexpr (D > 128) {  // wide heads: the forward alone
-    if (which != 0) return cudaErrorInvalidValue;
-    return attributes(flash_attention_f32_kernel<D>, kThreads, FwdSmem<D>::kBytes, out);
-  } else {
-    switch (which) {
-      case 0: return attributes(flash_attention_f32_kernel<D>, kThreads, FwdSmem<D>::kBytes, out);
-      case 1: return attributes(flash_bwd_dq_f32_kernel<D, false>, kThreads, DqSmem<D>::kBytes, out);
-      case 2: return attributes(flash_bwd_dkv_f32_kernel<D, false>, 2 * kThreads, DkvSmem<D>::kBytes, out);
-      case 3: return attributes(flash_bwd_dq_f32_kernel<D, true>, kThreads, DqSmem<D>::kBytes, out);
-      case 4: return attributes(flash_bwd_dkv_f32_kernel<D, true>, 2 * kThreads, DkvSmem<D>::kBytes, out);
-    }
-    return cudaErrorInvalidValue;
+  switch (which) {
+    case 0: return attributes(flash_attention_f32_kernel<D>, kThreads, FwdSmem<D>::kBytes, out);
+    case 1: return attributes(flash_bwd_dq_f32_kernel<D, false>, kThreads, DqLayout<D>::kBytes, out);
+    case 2: return attributes(flash_bwd_dkv_f32_kernel<D, false>, 2 * kThreads, DkvLayout<D>::kBytes, out);
+    case 3: return attributes(flash_bwd_dq_f32_kernel<D, true>, kThreads, DqLayout<D>::kBytes, out);
+    case 4: return attributes(flash_bwd_dkv_f32_kernel<D, true>, 2 * kThreads, DkvLayout<D>::kBytes, out);
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -822,8 +1029,8 @@ extern "C" {
 // valid key, then the number of leading valid keys) or null when mask is;
 // out [B, N, H, D] f32 contiguous; lse [B, H, N] f32 (natural log, 1e30 on
 // rows with no live key) or null. sw < 0: no window. D is 64, 128, 192 or
-// 256 for the forward, 64 or 128 for the backward's entries below. Each
-// entry returns the cudaError_t of its launch (0 = success).
+// 256, here and in the backward's entries below. Each entry returns the
+// cudaError_t of its launch (0 = success).
 int vitok_flash_attention_f32(const void* q, const void* k, const void* v, long long q_sb, long long q_sn,
                               long long q_sh, long long k_sb, long long k_sn, long long k_sh, long long v_sb,
                               long long v_sn, long long v_sh, const void* mask, const void* counts, void* out,
@@ -865,6 +1072,8 @@ int vitok_flash_bwd_dq_f32(const void* q, const void* k, const void* v, const vo
       static_cast<float*>(delta), static_cast<float*>(dq), B, N, H, sw, s
   if (D == 64) return launch_dq<64>(VITOK_ARGS);
   if (D == 128) return launch_dq<128>(VITOK_ARGS);
+  if (D == 192) return launch_dq<192>(VITOK_ARGS);
+  if (D == 256) return launch_dq<256>(VITOK_ARGS);
 #undef VITOK_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -884,6 +1093,8 @@ int vitok_flash_bwd_dkv_f32(const void* q, const void* k, const void* v, const v
       static_cast<float*>(dk), static_cast<float*>(dv), B, N, H, sw, s
   if (D == 64) return launch_dkv<64>(VITOK_ARGS);
   if (D == 128) return launch_dkv<128>(VITOK_ARGS);
+  if (D == 192) return launch_dkv<192>(VITOK_ARGS);
+  if (D == 256) return launch_dkv<256>(VITOK_ARGS);
 #undef VITOK_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -912,14 +1123,16 @@ int vitok_flash_bwd_fold_f32(int which, float lse_factor, const void* qkv, const
       static_cast<float*>(part), B, N, H, sw, s
   if (D == 64) return launch_fold<64>(VITOK_ARGS);
   if (D == 128) return launch_fold<128>(VITOK_ARGS);
+  if (D == 192) return launch_fold<192>(VITOK_ARGS);
+  if (D == 256) return launch_fold<256>(VITOK_ARGS);
 #undef VITOK_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // Registers and local memory (spills) a thread, blocks an SM and shared
 // memory a block of one kernel (which: 0 the forward, 1 dq, 2 dk/dv, 3 dq's
-// and 4 dk/dv's fold instances; at D 192 and 256 the forward alone)
-// at head dim D, as the compiler and the card report them: out[0..3].
+// and 4 dk/dv's fold instances) at head dim D, as the compiler and the card
+// report them: out[0..3].
 int vitok_flash_f32_attributes(int which, int D, int* out) {
   if (D == 64) return kernel_attributes<64>(which, out);
   if (D == 128) return kernel_attributes<128>(which, out);

@@ -255,28 +255,6 @@ __device__ __forceinline__ void accumulate_pv_slab(float (&o)[D / 2], int cs, co
   for (int i = 0; i < 32; ++i) o[32 * cs + i] += part[i];
 }
 
-// The same summed in place, on the tensor cores across a cell's tiles as the
-// d 64/128 walker sums (accumulate_pv_split): the walker's d 192 instance,
-// where o, P's pieces and the products then fit a thread's registers (the
-// fresh accumulator spilled 160 bytes and read 13-16% slower on an H100; at
-// d 256 in place still spilled and read 4.5% slower at 1024 tokens).
-template <int D>
-__device__ __forceinline__ void accumulate_pv_slab_in_place(float (&o)[D / 2], int cs,
-                                                            const uint32_t (&pa)[3][kTile / 16][4],
-                                                            const unsigned char* slab) {
-  constexpr int kSlabPiece = kTile * 64 * 2;
-  float (&acc)[32] = acc_columns<64, D>(o, cs);
-  wgmma_fence();
-#pragma unroll
-  for (int x = 0; x < 6; ++x)
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j)
-      wgmma_rs<64>(acc, pa[split_a(x)][j], mnmajor_desc<kTile>(slab + split_b(x) * kSlabPiece, j), 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-}
-
 template <int D>
 struct WalkSmemF32 {
   static constexpr int kPieceBytes = kTile * D * 2;             // one bf16 sw128 tile
@@ -313,6 +291,21 @@ constexpr int kFullKQ = 1, kEmptyKQ = 2, kProducer = 3, kConsumer = 4;
 // on a padded query row, as the bf16 forward (fused_attention_sm90.cu) does
 // for the backward; the other instances compile without it.
 constexpr float kDeadLseF32 = 1e30f;
+
+// The lse of this consumer thread's two rows of a finished cell (sum_rows
+// done; qrow0 and qrow0 + 8 of image b, head h), written by one thread of
+// each row's quad.
+template <int D>
+__device__ __forceinline__ void store_lse_f32(const CellRows<D>& r, float* __restrict__ lse,
+                                              const unsigned char* __restrict__ mask, int b, int h, int H, int N,
+                                              int qrow0, int tid) {
+  if ((tid & 3) != 0) return;
+  float* lse_bh = lse + ((long long)b * H + h) * N;
+  const unsigned char* mask_i = mask ? mask + (long long)b * N : nullptr;
+  const int qrow1 = qrow0 + 8;
+  if (qrow0 < N) lse_bh[qrow0] = (mask_i == nullptr || mask_i[qrow0]) ? r.m0 + log2f(r.l0) : kDeadLseF32;
+  if (qrow1 < N) lse_bh[qrow1] = (mask_i == nullptr || mask_i[qrow1]) ? r.m1 + log2f(r.l1) : kDeadLseF32;
+}
 
 template <int D, bool kLse = false>
 __device__ __forceinline__ void walk_cells_f32(const float* __restrict__ qkv, const float* __restrict__ q_scale,
@@ -430,15 +423,7 @@ __device__ __forceinline__ void walk_cells_f32(const float* __restrict__ qkv, co
       sum_rows<D>(r);
       float* out0 = out + ((long long)(b0 + at.i) * N + qrow0) * C + (h0 + at.hl) * D;
       store_rows<D>(r, out0, out0 + 8LL * C, qrow0, N);
-      if constexpr (kLse) {
-        if ((tid & 3) == 0) {
-          float* lse_bh = lse + ((long long)(b0 + at.i) * H + h0 + at.hl) * N;
-          const unsigned char* mask_i = mask ? mask + (long long)(b0 + at.i) * N : nullptr;
-          const int qrow1 = qrow0 + 8;
-          if (qrow0 < N) lse_bh[qrow0] = (mask_i == nullptr || mask_i[qrow0]) ? r.m0 + log2f(r.l0) : kDeadLseF32;
-          if (qrow1 < N) lse_bh[qrow1] = (mask_i == nullptr || mask_i[qrow1]) ? r.m1 + log2f(r.l1) : kDeadLseF32;
-        }
-      }
+      if constexpr (kLse) store_lse_f32<D>(r, lse, mask, b0 + at.i, h0 + at.hl, H, N, qrow0, tid);
     }
     at.next(sInfo, nh);
   }
@@ -456,8 +441,10 @@ __device__ __forceinline__ void walk_cells_f32(const float* __restrict__ qkv, co
 // device memory (the L2 asked for them a step ahead) and norms and splits
 // them on the way into K's pieces, as it does Q's; the consumer splits each
 // 64-column slab of the step's V rows from device memory into the slab and
-// runs O's columns of that slab (at d 256 P V_cs into a fresh accumulator
-// added to o on the CUDA cores, accumulate_pv_slab; at d 192 in place).
+// runs O's columns of that slab (P V_cs into a fresh accumulator added to o
+// on the CUDA cores, accumulate_pv_slab; summed in place on the tensor cores
+// across a cell's tiles instead, as the d 64/128 walker sums, d 192 read 3.5
+// times its plain version's error from float64 at 1024 keys on an H100).
 // 219 KB at d 256, 171 KB at d 192: one block an SM. The handoff of Q's
 // and K's pieces is the d 128 walker's (kFullKQ / kEmptyKQ); the consumer
 // orders its own V slab with kConsumer.
@@ -475,16 +462,17 @@ struct WalkSmemF32Wide {
 };
 
 // The forward's cells of one block at D = 192 or 256 (walk_cells_f32's
-// arguments and order of the walk, no log-sum-exp): the producer (threads
-// 128-255) norms and splits each step's K (and at a cell's first step its Q)
-// while the consumer (threads 0-127) runs the last step's softmax and P V.
-template <int D>
+// arguments and order of the walk, and its kLse instance's log-sum-exp): the
+// producer (threads 128-255) norms and splits each step's K (and at a cell's
+// first step its Q) while the consumer (threads 0-127) runs the last step's
+// softmax and P V.
+template <int D, bool kLse = false>
 __device__ __forceinline__ void walk_cells_f32_wide(const float* __restrict__ qkv, const float* __restrict__ q_scale,
                                                     const float* __restrict__ k_scale,
                                                     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
                                                     const unsigned char* __restrict__ mask, float* __restrict__ out,
                                                     int N, int H, int b0, int nb, int h0, int nh, int sw,
-                                                    float score_scale) {
+                                                    float score_scale, float* __restrict__ lse = nullptr) {
   static_assert(D == 192 || D == 256, "the wide layout's instances");
   using S = WalkSmemF32Wide<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -592,16 +580,14 @@ __device__ __forceinline__ void walk_cells_f32_wide(const float* __restrict__ qk
         fence_proxy_async();
         bar_sync(kConsumer, kThreads);
       }
-      if constexpr (D == 192)
-        accumulate_pv_slab_in_place<D>(r.o, cs, pa, sV);
-      else
-        accumulate_pv_slab<D>(r.o, cs, pa, sV);
+      accumulate_pv_slab<D>(r.o, cs, pa, sV);
     }
     if (it + 1 < steps) prepare_v(it + 1);
     if (at.t == info.z - 1) {  // the cell's last tile: its rows are done
       sum_rows<D>(r);
       float* out0 = out + ((long long)(b0 + at.i) * N + qrow0) * C + (h0 + at.hl) * D;
       store_rows<D>(r, out0, out0 + 8LL * C, qrow0, N);
+      if constexpr (kLse) store_lse_f32<D>(r, lse, mask, b0 + at.i, h0 + at.hl, H, N, qrow0, tid);
     }
     at.next(sInfo, nh);
   }

@@ -68,10 +68,9 @@ fused_attention_f32_sm90_kernel(const float* __restrict__ qkv, const float* __re
                                 const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
                                 float* __restrict__ out, float* __restrict__ lse, int N, int H, int bb, int hpb,
                                 int sw, float score_scale) {
-  if constexpr (D > 128) {  // wide heads: their own layout, no lse instance
-    static_assert(!kLse, "the wide instances write no log-sum-exp");
-    walk_cells_f32_wide<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb,
-                           blockIdx.y * hpb, hpb, sw, score_scale);
+  if constexpr (D > 128) {  // wide heads: their own layout
+    walk_cells_f32_wide<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb,
+                                 blockIdx.y * hpb, hpb, sw, score_scale, lse);
   } else {
     walk_cells_f32<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb,
                             blockIdx.y * hpb, hpb, sw, score_scale, false, lse);
@@ -135,18 +134,19 @@ size_t walk_smem_bytes(int nb) {
     return WalkSmemF32<D>::bytes(nb);
 }
 
-// The forward (kind 0) without the log-sum-exp at D = 192 and 256.
+// The forward (kind 0) at D = 192 and 256, with lse its log-sum-exp
+// instance.
 template <int D>
 cudaError_t launch_walk_wide(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                              const void* sin_t, const void* mask, void* out, void* lse, int B, int N, int H, int bb,
                              int hpb, int sw, int kind, cudaStream_t s) {
-  if (kind != kForward || lse != nullptr) return cudaErrorInvalidValue;
-  return launch(fused_attention_f32_sm90_kernel<D, false>, walk_smem_bytes<D>(bb),
-                dim3((N + kTile - 1) / kTile, H / hpb, B / bb), kF32Threads, s, static_cast<const float*>(qkv),
-                static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
-                static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-                static_cast<const unsigned char*>(mask), static_cast<float*>(out), static_cast<float*>(nullptr), N,
-                H, bb, hpb, sw, score_scale<D>());
+  if (kind != kForward) return cudaErrorInvalidValue;
+  auto kernel = lse != nullptr ? fused_attention_f32_sm90_kernel<D, true> : fused_attention_f32_sm90_kernel<D, false>;
+  return launch(kernel, walk_smem_bytes<D>(bb), dim3((N + kTile - 1) / kTile, H / hpb, B / bb), kF32Threads, s,
+                static_cast<const float*>(qkv), static_cast<const float*>(q_scale),
+                static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
+                static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask), static_cast<float*>(out),
+                static_cast<float*>(lse), N, H, bb, hpb, sw, score_scale<D>());
 }
 
 template <int D>
@@ -196,15 +196,21 @@ cudaError_t attributes(Kernel kernel, size_t smem, int* out) {
 }
 
 template <int D>
-cudaError_t kind_attributes(int kind, int bb, int* out) {
-  const size_t smem = WalkSmemF32<D>::bytes(bb);
-  switch (kind) {
-    case kForward: return attributes(fused_attention_f32_sm90_kernel<D, false>, smem, out);
-    case kBatchBlock: return attributes(fused_attention_bb_f32_sm90_kernel<D>, smem, out);
-    case kPack: return attributes(fused_attention_pack_f32_sm90_kernel<D>, smem, out);
-    case kContig: return attributes(fused_attention_contig_f32_sm90_kernel<D>, smem, out);
+cudaError_t kind_attributes(int kind, int bb, bool lse, int* out) {
+  const size_t smem = walk_smem_bytes<D>(bb);
+  if (kind == kForward)
+    return lse ? attributes(fused_attention_f32_sm90_kernel<D, true>, smem, out)
+               : attributes(fused_attention_f32_sm90_kernel<D, false>, smem, out);
+  if constexpr (D > 128) {  // d 192 and 256: the forward alone
+    return cudaErrorInvalidValue;
+  } else {
+    switch (kind) {
+      case kBatchBlock: return attributes(fused_attention_bb_f32_sm90_kernel<D>, smem, out);
+      case kPack: return attributes(fused_attention_pack_f32_sm90_kernel<D>, smem, out);
+      case kContig: return attributes(fused_attention_contig_f32_sm90_kernel<D>, smem, out);
+    }
+    return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -220,8 +226,8 @@ extern "C" {
 // (#13: bb = 1, hpb = H). lse [B, H, N] f32 or null: with the forward
 // (kind 0) its instance that also writes each row's log-sum-exp in log2
 // units (1e30 on a padded query row), for the backward; the other kinds
-// take null. D is 64 or 128, or for the forward without lse also 192 or 256
-// (the wide layout of fused_attend_f32_sm90.cuh).
+// take null. D is 64 or 128, or for the forward (with or without lse) also
+// 192 or 256 (the wide layout of fused_attend_f32_sm90.cuh).
 int vitok_fused_attention_walk_f32(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                                    const void* sin_t, const void* mask, void* out, void* lse, int B, int N, int H,
                                    int D, int bb, int hpb, int sw, int kind, void* stream) {
@@ -241,16 +247,15 @@ int vitok_fused_attention_walk_f32(const void* qkv, const void* q_scale, const v
 }
 
 // What the compiler and the card make of one instance (`kind` as above; bb
-// images a block): out[0] registers a thread, out[1] local memory a thread
-// in bytes (spills), out[2] blocks an SM, out[3] dynamic shared memory a
-// block in bytes.
-int vitok_fused_attention_walk_f32_attributes(int D, int kind, int bb, int* out) {
-  if (bb < 1) return (int)cudaErrorInvalidValue;
-  if (D == 64) return kind_attributes<64>(kind, bb, out);
-  if (D == 128) return kind_attributes<128>(kind, bb, out);
-  if (kind != kForward) return (int)cudaErrorInvalidValue;  // d 192 and 256: the forward alone
-  if (D == 192) return attributes(fused_attention_f32_sm90_kernel<192, false>, walk_smem_bytes<192>(bb), out);
-  if (D == 256) return attributes(fused_attention_f32_sm90_kernel<256, false>, walk_smem_bytes<256>(bb), out);
+// images a block; lse != 0: the forward's log-sum-exp instance): out[0]
+// registers a thread, out[1] local memory a thread in bytes (spills), out[2]
+// blocks an SM, out[3] dynamic shared memory a block in bytes.
+int vitok_fused_attention_walk_f32_attributes(int D, int kind, int bb, int lse, int* out) {
+  if (bb < 1 || kind < kForward || kind > kContig || (lse && kind != kForward)) return (int)cudaErrorInvalidValue;
+  if (D == 64) return kind_attributes<64>(kind, bb, lse != 0, out);
+  if (D == 128) return kind_attributes<128>(kind, bb, lse != 0, out);
+  if (D == 192) return kind_attributes<192>(kind, bb, lse != 0, out);
+  if (D == 256) return kind_attributes<256>(kind, bb, lse != 0, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -178,11 +178,10 @@ fused_qk_prologue_kernel(const Src* __restrict__ qkv, const float* __restrict__ 
 // backward, and the fp32 fused backward): q and k normed and rotated in fp32
 // with norm_rope_piece_f32 (the fp32 walker's arithmetic, no rounding to
 // bf16: _norm_rope_half on f32), written as fp32 qk [B, N, parts * C];
-// with out and dout (fp32) also delta = sum_c dO * O (at d 64 and 128: the
-// C entry refuses it wider). Each thread's piece goes straight to device
-// memory, so no tile is staged. A row's threads are its lanes (nr_lanes: at
-// d = 192 16, of which the first 12 hold its pieces and the others read and
-// write nothing and add zeros to its sum of squares).
+// with out and dout (fp32) also delta = sum_c dO * O. Each thread's piece
+// goes straight to device memory, so no tile is staged. A row's threads are
+// its lanes (nr_lanes: at d = 192 16, of which the first 12 hold its pieces
+// and the others read and write nothing and add zeros to its sum of squares).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 fused_qk_prologue_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ q_scale,
@@ -238,14 +237,16 @@ fused_qk_prologue_f32_kernel(const float* __restrict__ qkv, const float* __restr
       }
     }
   }
-  if constexpr (D > 128) return;  // no delta instance
   if (delta != nullptr) {
-    // Row r's D channels over kChunks neighbouring threads, 8 each.
-    const int ch = tid % kChunks;
-    for (int row = tid / kChunks; row < kTile; row += kThreads / kChunks) {
+    // Row r's D channels over kDeltaLanes neighbouring threads, 8 each: D/8
+    // rounded up to a power of two, as the bf16 instance (at d = 192, 32
+    // lanes of which 24 hold channels; the others add 0).
+    constexpr int kDeltaLanes = pow2_at_least(kChunks);
+    const int ch = tid % kDeltaLanes;
+    for (int row = tid / kDeltaLanes; row < kTile; row += kThreads / kDeltaLanes) {
       const int n = r0 + row;
       float acc = 0.f;
-      if (n < N) {
+      if (n < N && ch < kChunks) {
         const long long at = ((long long)b * N + n) * C + h * D + ch * 8;
         float o[8], g[8];
         ld_f4x2(o, out + at);
@@ -254,7 +255,7 @@ fused_qk_prologue_f32_kernel(const float* __restrict__ qkv, const float* __restr
         for (int e = 0; e < 8; ++e) acc += o[e] * g[e];
       }
 #pragma unroll
-      for (int off = 1; off < kChunks; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
+      for (int off = 1; off < kDeltaLanes; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
       if (ch == 0 && n < N) delta[((long long)b * H + h) * N + n] = acc;
     }
   }
@@ -662,8 +663,7 @@ int vitok_fused_qk_prologue_bf16(const void* qkv, const void* q_scale, const voi
 
 // The prologue's fp32 instance: qkv [B, N, 3*H*D] f32, out and dout [B, N,
 // H*D] f32 or both null, qk [B, N, parts*H*D] f32, delta [B, H, N] f32 or
-// null, the rest as above. D is 64, 128, 192 or 256; delta only at 64 and
-// 128.
+// null, the rest as above. D is 64, 128, 192 or 256.
 int vitok_fused_qk_prologue_f32(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                                 const void* sin_t, const void* out, const void* dout, void* qk, void* delta,
                                 int B, int N, int H, int D, int parts, void* stream) {
@@ -674,7 +674,6 @@ int vitok_fused_qk_prologue_f32(const void* qkv, const void* q_scale, const void
     return launch_prologue_f32<64>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   if (D == 128)
     return launch_prologue_f32<128>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
-  if (out != nullptr) return (int)cudaErrorInvalidValue;  // delta: d 64 and 128
   if (D == 192)
     return launch_prologue_f32<192>(qkv, q_scale, k_scale, cos_t, sin_t, out, dout, qk, delta, B, N, H, parts, s);
   if (D == 256)

@@ -5,10 +5,9 @@ window together. Routing follows the JAX package: the flash kernel
 (``ops/flash_attention.py``) serves ``N >= FLASH_MIN_TOKENS`` at head dims
 that are a multiple of 64; below that, and at other head dims, the unfused
 composition here runs. On a CUDA tensor the head dim must also be one at
-which every kernel the call runs has an instance (``kernel_head_dims``): in
-bf16 64, 128, 192 or 256, forward and backward; in fp32 64-256 forward, 64
-or 128 with a gradient. Elsewhere the unfused composition runs there, the
-same function.
+which every kernel the call runs has an instance (``kernel_head_dims``): 64,
+128, 192 or 256, in bf16 and fp32, forward and backward. Elsewhere the
+unfused composition runs there, the same function.
 """
 
 from __future__ import annotations

@@ -38,7 +38,7 @@ from vitok_torch.ops import _build
 FWD_HEAD_DIMS = (64, 128, 192, 256)      # the bf16 forward: the q/k prologue, #1, #2 and #4 (plain and fold)
 BWD_HEAD_DIMS = (64, 128, 192, 256)      # the bf16 backward: #3, #5, #6 (plain and fold) and the prologue's delta
 F32_FWD_HEAD_DIMS = (64, 128, 192, 256)  # the fp32 forward: the q/k prologue, #1 (the fp32 walker), #2 and #4
-F32_BWD_HEAD_DIMS = (64, 128)            # the fp32 backward: the walker's lse instance, #3, #5, #6, the delta
+F32_BWD_HEAD_DIMS = (64, 128, 192, 256)  # the fp32 backward: the walker's lse instance, #3, #5, #6, the delta
 AB_HEAD_DIMS = (64, 128)                 # the A/B kernels #10-#13 and the kept mma.sync forward
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _NEG_FILL = -1e30
@@ -63,8 +63,8 @@ F32_KERNELS = ("fwd", "dq", "dkv", "dq_fold", "dkv_fold")
 def kernel_head_dims(dtype: torch.dtype, grad: bool = False) -> Tuple[int, ...]:
     """The head dims at which a call in ``dtype`` finds every kernel it runs
     on the card: those of the forward (bf16 and fp32: 64-256), or with a
-    gradient asked for (``grad``) of the backward too (bf16 64-256, fp32 64
-    and 128)."""
+    gradient asked for (``grad``) of the backward too (bf16 and fp32:
+    64-256)."""
     if dtype == torch.float32:
         return F32_BWD_HEAD_DIMS if grad else F32_FWD_HEAD_DIMS
     return BWD_HEAD_DIMS if grad else FWD_HEAD_DIMS
@@ -623,10 +623,9 @@ def flash_attention(
     is :func:`flash_attention_bwd`, on both devices.
 
     Args:
-        q, k, v: ``[B, N, H, D]``. On the card: bf16 (head dim 64, 128,
-            192 or 256, under autograd too) or fp32 (64-256; under
-            autograd 64 or 128), unit channel stride (v may be a strided
-            view, e.g. into the flat QKV output).
+        q, k, v: ``[B, N, H, D]``. On the card: bf16 or fp32 (head dim
+            64, 128, 192 or 256, under autograd too), unit channel stride (v
+            may be a strided view, e.g. into the flat QKV output).
         patch_mask: optional ``[B, N]`` bool, True = valid token.
         sliding_window: optional half-width; query i sees keys ``|i-j| <= sw``.
         return_lse: also return the fp32 log-sum-exp ``[B, H, N]``.

@@ -46,10 +46,10 @@ Head dims: each kernel family has instances at the head dims
 ``kernel_head_dims`` gives (``ops/flash_attention.py``): the bf16 forward
 (the prologue, #1, #2 and the fold's #4) and the bf16 backward (the
 prologue's delta, #3, and the fold's #5 and #6) at 64, 128, 192 and 256; the
-fp32 forward (the prologue, #1 on the fp32 walker, #2 and the fold's #4) at
-64-256 too; the fp32 backward (the walker's lse instance, the prologue's
-delta, #3, #5 and #6) and the A/B kernels at 64 and 128. The gates open
-nothing else on a CUDA tensor, and the wrappers raise on it.
+fp32 forward (the prologue, #1 on the fp32 walker, #2 and the fold's #4) and
+the fp32 backward (the walker's lse instance, the prologue's delta, #3, #5
+and #6) at 64-256 too; the A/B kernels at 64 and 128. The gates open nothing
+else on a CUDA tensor, and the wrappers raise on it.
 
 Masking is key-side only, as in the TPU kernel: padded query rows attend to
 the valid keys. The unfused composition (:func:`unfused_qkv_attention`)
@@ -123,8 +123,8 @@ def can_fuse(n: int, c: int, num_heads: int, *, cuda: bool = False, dtype: torch
     ``MAX_FUSED_TOKENS`` tokens, ``n % 8 == 0``, head dim a multiple of 64
     and a 128-lane head group dividing C. For a CUDA tensor (``cuda``) of
     ``dtype`` the head dim must also be one at which its kernels have
-    instances (``head_dim_routes``: 64-256, and in fp32 with a gradient
-    asked for (``grad``) 64 or 128).
+    instances (``head_dim_routes``: 64-256, with or without a gradient
+    asked for, ``grad``).
     """
     if c % num_heads:
         return False
@@ -362,9 +362,8 @@ def fused_qk_prologue(
     ``[B, N, C]``, without ``with_q``), and with ``out``/``dout`` the
     backward's ``delta``: the prologue the redesigned forward (k alone) and
     backward (q, k and delta) run first. On a CUDA tensor this launches the
-    prologue kernel (bf16: head dim 64, 128, 192 or 256, with delta too;
-    or its fp32 instance, 64-256, with delta 64 or 128) or raises; on a CPU
-    tensor it runs
+    prologue kernel (bf16, or its fp32 instance: head dim 64, 128, 192 or
+    256, with delta too) or raises; on a CPU tensor it runs
     :func:`fused_qk_prologue_plain`."""
     if (out is None) != (dout is None):
         raise ValueError("give both out and dout, or neither")
@@ -517,15 +516,17 @@ def sm90_attributes(which: str, d: int, heads: int = 1) -> dict:
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
-def f32_walk_attributes(d: int, kind: str, bb: int = 1) -> dict:
+def f32_walk_attributes(d: int, kind: str, bb: int = 1, lse: bool = False) -> dict:
     """Registers and local memory (spills) a thread, blocks an SM and shared
     memory a block of one fp32 walker kernel (``kind`` one of
-    ``F32_WALK_KINDS``) at head dim ``d`` with ``bb`` images a block, as the
-    compiler and the card report them."""
+    ``F32_WALK_KINDS``; with ``lse`` the forward's log-sum-exp instance) at
+    head dim ``d`` with ``bb`` images a block, as the compiler and the card
+    report them."""
     out = (ctypes.c_int * 4)()
     lib = _f32_lib()
-    _build.check(lib, lib.vitok_fused_attention_walk_f32_attributes(d, F32_WALK_KINDS.index(kind), bb, out),
-                 f"fp32 walker ({kind}) attributes")
+    _build.check(lib, lib.vitok_fused_attention_walk_f32_attributes(d, F32_WALK_KINDS.index(kind), bb, int(lse),
+                                                                     out),
+                 f"fp32 walker ({kind}{', lse' if lse else ''}) attributes")
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2], smem_bytes=out[3])
 
 
@@ -640,7 +641,7 @@ def _f32_lib() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
         (lib.vitok_fused_attention_walk_f32, [ptr] * 8 + [i] * 8 + [ptr]),
-        (lib.vitok_fused_attention_walk_f32_attributes, [i] * 3 + [ptr]),
+        (lib.vitok_fused_attention_walk_f32_attributes, [i] * 4 + [ptr]),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
@@ -680,8 +681,8 @@ def fused_bwd_attributes(which: str, d: int) -> dict:
 def can_fuse_bwd(n: int, c: int, num_heads: int, *, cuda: bool = False,
                  dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the backward kernel takes this shape: wherever the forward
-    kernel does, at the backward's head dims on a CUDA tensor (bf16 64,
-    128, 192 and 256, as the forward; fp32 64 and 128). (The JAX package's
+    kernel does, at the backward's head dims on a CUDA tensor (64, 128, 192
+    and 256 in bf16 and fp32, as the forward). (The JAX package's
     gate is tighter, on the TPU's VMEM; it falls back to the unfused VJP at
     1024 tokens. ROADMAP.md Queue 3.)"""
     return can_fuse(n, c, num_heads, cuda=cuda, dtype=dtype, grad=True)
@@ -864,7 +865,7 @@ def fused_qkv_attention_bwd(
     without them the forward runs first. The cotangent is zeroed on padded
     query rows first, as the JAX package's ``_fused_op_bwd`` does. On a CUDA
     tensor this launches the prologue and the backward kernel (bf16, or their
-    fp32 instances; head dim 64, 128, 192 or 256 in bf16, 64 or 128 in fp32)
+    fp32 instances; head dim 64, 128, 192 or 256)
     or raises; on a CPU tensor it runs
     :func:`fused_qkv_attention_bwd_plain` with ``out``. The gain gradients
     are fp32.
@@ -1326,8 +1327,8 @@ def flash_qkv_attention(
     resolution (``vitok_tpu``'s ``unfused_qkv_attention`` on its flash
     route, whose XLA glue the prologue replaces).
 
-    On a CUDA tensor (bf16 or fp32 at head dim 64, 128, 192 or 256; under
-    autograd fp32 at 64 or 128) two launches: the q/k
+    On a CUDA tensor (bf16 or fp32 at head dim 64, 128, 192 or 256, under
+    autograd too) two launches: the q/k
     prologue (:func:`fused_qk_prologue` with ``with_q``: q and k normed and
     rotated into a ``[B, N, 2C]`` scratch), then the flash kernel on q and k
     as strided views of that scratch and v as a view of ``qkv``. On a CPU
@@ -1349,8 +1350,8 @@ def takes_flash_fold(qkv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Te
     :func:`flash_qkv_attention`: a contiguous bf16 or fp32 tensor on the
     card, a call bound for the flash kernel (``"auto"`` from
     ``FLASH_MIN_TOKENS`` tokens, or ``"flash"``) and a head dim at which
-    every kernel of the call has an instance (``kernel_head_dims``: 64-256;
-    fp32 with a gradient asked for 64 or 128). On the CPU nothing
+    every kernel of the call has an instance (``kernel_head_dims``: 64-256,
+    with a gradient asked for too). On the CPU nothing
     changes: the composition runs (under autograd through the flash
     kernel's autograd Function)."""
     b, n, c3 = qkv.shape
