@@ -171,7 +171,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    then trains the two models above in fp32 (compute and master weights)
    three steps on each route, the first step's gradients against the
    unfused composition and each step's launches read;
-19. prints a JSON line describing each kernel, the card's name and power
+19. holds the A/B kernels #10-#13 at head dims 192 and 256 (C 3072, 16 and
+   12 heads) bit for bit against the reference of their own body: in bf16
+   #10, #11 and #13 #1 at that width, #12 #1 on the assembled tensor and
+   its int8 q/k prologue the bf16 one on bf16(code), in fp32 the fp32
+   walker with one cell a block; each within its limits of its plain
+   version and timed beside its bound and SDPA; then runs both A/B entry
+   points at each width, every arm built but the JAX entry's skipped ones,
+   every numeric leg 0, the launches counted;
+20. prints a JSON line describing each kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Without a CUDA device, or
@@ -6195,6 +6203,298 @@ def wide_f32_bwd_entries(wide: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The A/B kernels #10-#13 at head dims 192 and 256
+# ---------------------------------------------------------------------------
+
+WIDE_AB_WIDTH = 3072
+WIDE_AB_HEADS = ((192, 16), (256, 12))  # (head dim, heads) at C WIDE_AB_WIDTH
+WIDE_AB_SHAPES = (  # (dtype, N, B, masks): the recorded A/B shapes of each dtype
+    ("bfloat16", 256, 64, ("ones", "tail+dead")),
+    ("float32", 64, 256, ("tail+dead",)),
+)
+WIDE_AB_SKIPS = {192: {"C512", "C256", "C128"}, 256: {"C384", "C128"}}  # the JAX entry's "FAILED to build" arms
+
+
+def _wide_ab_rows(device, d: int, h: int) -> dict:
+    """Each new instance at head dim ``d`` (C WIDE_AB_WIDTH, ``h`` heads) on
+    WIDE_AB_SHAPES, bit for bit against the reference of its own body: in
+    bf16 #10 (every arm this width takes), #11 (on images with a valid key)
+    and #13 against #1 at that width (X), #12 against X on the assembled
+    tensor and the int8 prologue against the bf16 prologue on bf16(code); in
+    fp32 #10, #11 and #13 against the fp32 walker with one cell a block (W).
+    Each within its limits of its plain version (the pack's, with its dead
+    image averaged over the pack, ``_pack_plain``). Timed on the first mask
+    of each dtype: ms, dev (host ahead), plain, bound, SDPA on the normed
+    q/k."""
+    import torch
+    import torch.nn.functional as F
+    from vitok_torch.benchmarks import ab_batch_block as abb
+    from vitok_torch.benchmarks import ab_q8_input as ab8
+    from vitok_torch.benchmarks import host_ahead_ms, sm90_attributes
+    from vitok_torch.ops import fused_attention as fa
+
+    c = WIDE_AB_WIDTH
+    gen = torch.Generator(device=device).manual_seed(26 + d)
+    out = {"rows": [], "errs": {}, "attributes": {}}
+    errs = out["errs"]
+
+    def held(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for dtype, n, b, masks in WIDE_AB_SHAPES:
+        f32 = dtype == "float32"
+        sfx = "_f32" if f32 else ""
+        for mask_kind in masks:
+            qkv, qs, ks, cos, sin, mask = _ab_inputs(gen, b, n, c, h, dtype, mask_kind, device)
+            args = (qkv, qs, ks, cos, sin, mask)
+            isz = qkv.element_size()
+            live = mask.any(1)
+            valid = mask | ~live[:, None]  # rows held to the limits: valid rows, and a dead image's
+            plain = fa.fused_qkv_attention_plain(*args, num_heads=h)
+            if f32:  # W: the bits of every fp32 walker kernel
+                ref_name = "W (the fp32 walker, one cell a block)"
+                ref = _one_launch("fused_attention_bb_f32", lambda: abb.fused_attention_bb(*args, num_heads=h, bb=1,
+                                                                                           cg=d))
+            else:  # X: #1 at this width
+                ref_name = "X (#1 at this width)"
+                ref = _one_launch("fused_attention", lambda: fa.fused_qkv_attention(*args, num_heads=h, impl="fused"))
+            timed = mask_kind == masks[0]
+            row = dict(dtype=dtype, N=n, B=b, C=c, H=h, d=d, mask=mask_kind, reference=ref_name, kernels={})
+
+            def kernel(name, call, want, rows_eq=slice(None), pairs=None):
+                got = _one_launch(name, call)
+                if not torch.equal(got[rows_eq], ref[rows_eq]):
+                    raise AssertionError(f"{name} d {d} {dtype} {mask_kind}: not bit-identical to {ref_name}")
+                held(name, _check_ab(f"{name} d {d} {mask_kind}", got, want, valid, f32))
+                if timed:
+                    bound = _ab_bound(b, n, c, h, mask, isz, pairs=pairs, split=f32)
+                    row["kernels"][name] = dict(ms=time_ms(call), dev_ms=host_ahead_ms(call), bound_ms=bound[0],
+                                                bound_by=bound[1])
+                return got
+
+            # #10 at every arm this width takes; D2 (bb 2, cg 1536) timed
+            for arm, bb, cg, _ in abb.arm_defs(c, d, n, b, h):
+                if cg is None or arm.startswith("P") or cg % d:
+                    continue
+                call = lambda bb=bb, cg=cg: abb.fused_attention_bb(*args, num_heads=h, bb=bb, cg=cg)
+                if arm == "D2":
+                    kernel("fused_attention_bb" + sfx, call, plain)
+                else:
+                    got = _one_launch("fused_attention_bb" + sfx, call)
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"#10 arm {arm} d {d} {dtype}: not bit-identical to {ref_name}")
+            # #11, P2: X's (W's) bits on images with a valid key; a dead image the mean of v over its pack
+            pack = lambda: abb.fused_attention_bb(*args, num_heads=h, bb=2, cg=1536, pack=True)
+            pack_plain = abb.fused_attention_bb_plain(*args, num_heads=h, bb=2, cg=1536, pack=True)
+            kernel("fused_attention_pack" + sfx, pack, pack_plain, rows_eq=live, pairs=_pack_pairs(mask, n, 2))
+            # #13
+            kernel("fused_attention_contig" + sfx, lambda: ab8.fused_attention_contig(*args, num_heads=h), plain)
+            if timed:
+                row["plain_ms"] = time_ms(lambda: fa.fused_qkv_attention_plain(*args, num_heads=h), runs=3, warmup=1)
+                row["pack_plain_ms"] = time_ms(lambda: abb.fused_attention_bb_plain(*args, num_heads=h, bb=2, cg=1536,
+                                                                                   pack=True), runs=3, warmup=1)
+                q, k, v = _normed_qkv(qkv, qs, ks, cos, sin, b, n, h, d)
+                am = mask[:, None, None, :]
+                row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+                del q, k, v
+                row["reference_ms"] = time_ms(lambda: fa.fused_qkv_attention(*args, num_heads=h, impl="fused"))
+            if not f32:  # #12: the int8 prologue, then the walk over int8 q and v tiles
+                codes, scale = ab8.quantize_qkv(qkv)
+                assembled = ab8.assemble_q8in(codes, scale)
+                kn8 = _one_launch("fused_attention_q8in_prologue",
+                                  lambda: ab8.q8in_k_prologue(codes, ks, cos, sin, num_heads=h))
+                kn, _ = fa.fused_qk_prologue(assembled, qs, ks, cos, sin, num_heads=h, with_q=False)
+                if not torch.equal(kn8, kn):
+                    raise AssertionError(f"int8 prologue d {d} {mask_kind}: not the bf16 prologue's bits on bf16(code)")
+                prologue8 = lambda: ab8.q8in_k_prologue(codes, ks, cos, sin, num_heads=h)
+                prologue8_plain = lambda: ab8.q8in_k_prologue_plain(codes, ks, cos, sin, num_heads=h)
+                perr = (kn8.float() - prologue8_plain().float()).abs()
+                pro_max, pro_share = perr.max().item(), (perr > 0).float().mean().item()
+                if not (pro_max <= PROLOGUE_MAX_ABS and pro_share <= PROLOGUE_DIFFER_SHARE):
+                    raise AssertionError(f"int8 prologue d {d} {mask_kind}: max {pro_max:.3e} (limit "
+                                         f"{PROLOGUE_MAX_ABS}), {pro_share:.2e} of entries differ (limit "
+                                         f"{PROLOGUE_DIFFER_SHARE}) against its plain version")
+                held("fused_attention_q8in_prologue", pro_max)
+                if timed:  # k's codes read, its normed copy written, the tables and the gain read once
+                    bound = _bound_ms(b * n * c * 3 + 2 * b * n * (d // 2) * 4 + d * 4, 0.0, BF16_FLOPS_PER_S)
+                    row["kernels"]["fused_attention_q8in_prologue"] = dict(
+                        ms=time_ms(prologue8), dev_ms=host_ahead_ms(prologue8), bound_ms=bound[0], bound_by=bound[1],
+                        plain_ms=time_ms(prologue8_plain, runs=3, warmup=1), library_ms=None)
+                del kn8, kn, perr
+                x_assembled = fa.fused_qkv_attention(assembled, qs, ks, cos, sin, mask, num_heads=h, impl="fused")
+                q8args = (codes, scale, qs, ks, cos, sin, mask)
+                call = lambda: ab8.fused_attention_q8in(*q8args, num_heads=h)
+                got = _one_launch("fused_attention_q8in_prologue", lambda: _one_launch("fused_attention_q8in", call))
+                if not torch.equal(got, x_assembled):
+                    raise AssertionError(f"fused_attention_q8in d {d} {mask_kind}: not bit-identical to X on the "
+                                         "assembled tensor")
+                q8plain = lambda: ab8.fused_attention_q8in_plain(*q8args, num_heads=h)
+                held("fused_attention_q8in", _check_ab(f"q8in d {d} {mask_kind}", got, q8plain(), valid, False))
+                if timed:
+                    bound = _ab_bound(b, n, c, h, mask, 2, in_bytes=3 * c + 4)
+                    chain = lambda: fa.fused_qkv_attention(ab8.assemble_q8in(codes, scale), qs, ks, cos, sin, mask,
+                                                           num_heads=h, impl="fused")
+                    row["kernels"]["fused_attention_q8in"] = dict(
+                        ms=time_ms(call), dev_ms=host_ahead_ms(call), bound_ms=bound[0], bound_by=bound[1],
+                        plain_ms=time_ms(q8plain, runs=3, warmup=1), library_ms=time_ms(chain),
+                        split=ab8.q8in_plan(b, n, c, h, fa._sm_count(device.index) if device.type == "cuda" else 132))
+                del codes, scale, assembled, x_assembled, got
+            out["rows"].append(row)
+            if timed:
+                log(f"  d {d} {dtype} B={b} N={n} C={c} H={h} mask {mask_kind} (ms, dev, bound): "
+                    + "; ".join(f"{k} {r['ms']:.4f}, {r['dev_ms']:.4f}, {r['bound_ms']:.5f} ({r['bound_by']})"
+                                + (f", plain {r['plain_ms']:.4f}" if "plain_ms" in r else "")
+                                + (f", assemble + X {r['library_ms']:.4f}, split bb, hpb {r['split']}" if "split" in r
+                                   else "")
+                                for k, r in row["kernels"].items())
+                    + f"; {ref_name.split(' ')[0]} {row['reference_ms']:.4f}, plain {row['plain_ms']:.4f} "
+                    f"(pack's {row['pack_plain_ms']:.4f}), SDPA {row['library_ms']:.4f}")
+            del qkv, plain, pack_plain, ref
+            torch.cuda.empty_cache()
+    if device.type == "cuda":  # what the compiler and the card make of each new instance
+        for kind, bb in (("bb", 2), ("pack", 2), ("contig", 1), ("q8in", 1), ("bb_f32", 2), ("pack_f32", 2),
+                         ("contig_f32", 1)):
+            out["attributes"][kind] = sm90_attributes(d, kind, bb=bb)
+        log(f"  d {d} walkers (registers, local bytes a thread, blocks an SM, shared bytes a block): "
+            + "; ".join(f"{k} {a['registers']}, {a['local_bytes']}, {a['blocks_per_sm']}, {a['smem_bytes']}"
+                        for k, a in out["attributes"].items()))
+    log(f"  d {d} max |err| vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return out
+
+
+def _wide_ab_entries_run(device, d: int, h: int) -> dict:
+    """Both A/B entry points at ``--c WIDE_AB_WIDTH --heads h`` (head dim
+    ``d``) with ``AB_ENTRY_ARGS``: ab_batch_block in bf16 at N 256 B 64 and
+    in fp32 at N 64 B 256, ab_q8_input at N 256 B 64; then #13 in fp32
+    through its wrapper ``--layers`` times. Every arm but the JAX entry's
+    skipped ones (WIDE_AB_SKIPS, each with its reason) builds, every numeric
+    leg reads 0 (arm B is X here, so B's too), and each kernel is launched as
+    often as the runs call it: the counts set to 0 before, read after."""
+    import torch
+    from vitok_torch.benchmarks import ab_batch_block as abb
+    from vitok_torch.benchmarks import ab_q8_input as ab8
+    from vitok_torch.benchmarks import rope_inputs
+
+    iters, layers = int(AB_ENTRY_ARGS[1]), int(AB_ENTRY_ARGS[3])
+    per_arm = 1 + layers * (1 + iters)  # the numeric call, the warm-up run, the timed runs
+    c = WIDE_AB_WIDTH
+    shapes = {dtype: (n, b) for dtype, n, b, _ in WIDE_AB_SHAPES}
+    reset_counts()
+    runs, bb_arms = {}, {}
+    for dtype, (n, b) in shapes.items():
+        flags = ["--c", str(c), "--heads", str(h), "--tokens", str(n), "--batch", str(b), "--dtype", dtype,
+                 *AB_ENTRY_ARGS]
+        log(f"entry point: python -m vitok_torch.benchmarks.ab_batch_block {' '.join(flags)}")
+        res = abb.main([*flags, "--device", device.type])
+        ref = "X" if dtype == "bfloat16" else "W"
+        arms = set(res["arms"])
+        if (set(res["skipped"]) != WIDE_AB_SKIPS[d] or arms != {a for a, *_ in abb.arm_defs(c, d, n, b, h)} -
+                WIDE_AB_SKIPS[d] or any(v != 0.0 for v in res["numeric"].values())
+                or set(res["references"]) != arms - {"B"}
+                or any(not r.startswith(ref) for r in res["references"].values())
+                or not res["arm_B"].startswith("the shipped forward")):
+            raise AssertionError(f"ab_batch_block d {d} {dtype}: skipped {res['skipped']}, arms {sorted(arms)}, "
+                                 f"numeric {res['numeric']}, references {res['references']}, B {res['arm_B']}")
+        reference_row = res["redesigned"] if dtype == "bfloat16" else res["walker_f32"]
+        if reference_row["max_abs_vs_B"] != 0.0:
+            raise AssertionError(f"ab_batch_block d {d} {dtype}: B is not its reference's bits: {reference_row}")
+        runs[f"ab_batch_block {dtype}"] = res
+        bb_arms[dtype] = len(arms - {"B", "P2"})
+    n, b = shapes["bfloat16"]
+    flags = ["--c", str(c), "--heads", str(h), "--tokens", str(n), "--batch", str(b), *AB_ENTRY_ARGS]
+    log(f"entry point: python -m vitok_torch.benchmarks.ab_q8_input {' '.join(flags)}")
+    res = ab8.main([*flags, "--device", device.type])
+    if (res["numeric"]["A_assembled"] != 0.0 or res["numeric"]["C"] != 0.0 or res["redesigned"]["max_abs_vs_B"] != 0.0
+            or not res["references"]["C"].startswith("X") or not res["references"]["A_assembled"].startswith("X")):
+        raise AssertionError(f"ab_q8_input d {d}: numeric legs {res['numeric']}, references {res['references']}, "
+                             f"max |X-B| {res['redesigned']['max_abs_vs_B']}")
+    runs["ab_q8_input"] = res
+    n, b = shapes["float32"]
+    gen = torch.Generator().manual_seed(0)
+    qkv = torch.randn(b, n, 3 * c, generator=gen).to(device)
+    q_scale, k_scale, cos, sin = rope_inputs(b, n, d, device, gen)
+    mask = torch.ones(b, n, dtype=torch.bool, device=device)
+    log(f"#13 in fp32 through its wrapper, {layers} calls at C {c}, H {h}, N {n}, B {b}")
+    for _ in range(layers):
+        ab8.fused_attention_contig(qkv, q_scale, k_scale, cos, sin, mask, num_heads=h)
+    torch.cuda.synchronize()
+    del qkv
+    launches = launch_counts()
+    # ab_batch_block bf16: B and the redesigned row on #1 (each after the prologue), the arms on #10 and P2
+    # on #11 (each after the prologue); fp32: B on #1 f32 (the fp32 walker's forward), the arms on #10 f32
+    # and P2 on #11 f32, W once; ab_q8_input: A (after its int8 prologue), B, C and the redesigned row, X
+    # once more on the assembled tensor; then #13 in fp32
+    walkers = (bb_arms["bfloat16"] + 1) * per_arm + per_arm  # bf16 #10, #11, #13, each after a prologue
+    expect = _expect(fused_attention=4 * per_arm + 1, fused_qk_prologue=4 * per_arm + 1 + walkers,
+                     fused_attention_bb=bb_arms["bfloat16"] * per_arm, fused_attention_pack=per_arm,
+                     fused_attention_f32=per_arm, fused_attention_bb_f32=bb_arms["float32"] * per_arm + 1,
+                     fused_attention_pack_f32=per_arm, fused_attention_q8in=per_arm,
+                     fused_attention_q8in_prologue=per_arm, fused_attention_contig=per_arm,
+                     fused_attention_contig_f32=layers)
+    if launches != expect:
+        raise AssertionError(f"A/B entry points d {d}: launches {launches}, expected {expect}")
+    log(f"  d {d} launches: {dict((k, v) for k, v in launches.items() if v)}")
+    return dict(runs=runs, launches=launches)
+
+
+def wide_ab_phase(device, card: str) -> dict:
+    """The A/B kernels #10-#13 at head dims 192 and 256 on {card}: each new
+    instance against the reference of its own body (``_wide_ab_rows``), then
+    both entry points at each width (``_wide_ab_entries_run``)."""
+    import torch
+
+    t0 = time.time()
+    out = {}
+    for d, h in WIDE_AB_HEADS:
+        log(f"A/B kernels d {d} (C {WIDE_AB_WIDTH}, {h} heads) on {card}")
+        out[d] = dict(kernels=_wide_ab_rows(device, d, h), entries=_wide_ab_entries_run(device, d, h))
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t0
+    log(f"A/B kernels at d 192 and 256: {out['wall_s']:.1f} s")
+    return out
+
+
+def wide_ab_entries(wide_ab: dict) -> list:
+    """The kernels line's entries of #10-#13's d 192 and 256 instances and
+    #12's int8 q/k prologue: launches from the entry points' runs at that
+    width, times from the first mask of each dtype (bf16 N 256 B 64, fp32 N
+    64 B 256), the library column SDPA on the same normed q/k (#12's:
+    assemble + X, the chain it replaces, as at d 128; the prologue's none)."""
+    entries = []
+    src_sm90 = "vitok_torch/csrc/fused_attention_ab_sm90.cu"
+    src_f32 = "vitok_torch/csrc/fused_attention_ab_f32_sm90.cu"
+    src_q8 = "vitok_torch/csrc/fused_attention_q8in_sm90.cu"
+    src_prologue = "vitok_torch/csrc/fused_attention_sm90.cu"  # fused_qk_prologue_kernel<D, int8_t>
+    for d, h in WIDE_AB_HEADS:
+        rows, launches = wide_ab[d]["kernels"], wide_ab[d]["entries"]["launches"]
+        timed = {r["dtype"]: r for r in rows["rows"] if "plain_ms" in r}
+        for name, source, replaces, kind in (
+                ("fused_attention_bb", src_sm90, "benchmarks/ab_batch_block.py:78", "bb"),
+                ("fused_attention_pack", src_sm90, "benchmarks/ab_batch_block.py:105", "pack"),
+                ("fused_attention_contig", src_sm90, "benchmarks/ab_q8_input.py:164", "contig"),
+                ("fused_attention_q8in", src_q8, "benchmarks/ab_q8_input.py:64", "q8in"),
+                ("fused_attention_q8in_prologue", src_prologue, "benchmarks/ab_q8_input.py:64", None),
+                ("fused_attention_bb_f32", src_f32, "benchmarks/ab_batch_block.py:78", "bb_f32"),
+                ("fused_attention_pack_f32", src_f32, "benchmarks/ab_batch_block.py:105", "pack_f32"),
+                ("fused_attention_contig_f32", src_f32, "benchmarks/ab_q8_input.py:164", "contig_f32")):
+            row = timed["float32" if name.endswith("_f32") else "bfloat16"]
+            k = row["kernels"][name]
+            plain = k.get("plain_ms", row["pack_plain_ms"] if "pack" in name else row["plain_ms"])
+            entry = {"name": f"{name}_d{d}", "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": rows["errs"][name], "ms": k["ms"],
+                     "plain_ms": plain, "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                     "library_ms": k.get("library_ms", row["library_ms"]), "dev_ms": k["dev_ms"],
+                     "shape": f"B {row['B']} N {row['N']} C {row['C']} H {h} {row['dtype']} mask {row['mask']}",
+                     "reference_ms": row["reference_ms"], "attributes": rows["attributes"].get(kind)}
+            if name == "fused_attention_q8in":  # its library column: assemble + X, the chain it replaces
+                entry.update(split=k["split"], sdpa_ms=row["library_ms"])
+            if name == "fused_attention_bb" or name == "fused_attention_bb_f32":
+                entry["arm"] = "D2 (bb=2, cg=1536)"
+            entries.append(entry)
+    return entries
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "vitok_torch")):
         print("chip_smoke.py must run from a checkout of the repository (no vitok_torch/ here)",
@@ -6291,6 +6591,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide32_bwd = wide_f32_bwd_phase(device, card)
     torch.cuda.empty_cache()
+    wide_ab = wide_ab_phase(device, card)
+    torch.cuda.empty_cache()
     log("eval summary: " + json.dumps({
         run: {k: evals[run]["stats"][k] for k in ("n_images", "ssim", "psnr", "fid", "fdd", "throughput_img_per_sec",
                                                   "wall_img_per_sec", "steady_img_per_sec", "host_data_time_s",
@@ -6308,6 +6610,7 @@ def main() -> int:
     entries += wide_heads_entries(wide_heads, kern, fkern, fbkern, bkern)
     entries += wide_f32_entries(wide32)
     entries += wide_f32_bwd_entries(wide32_bwd)
+    entries += wide_ab_entries(wide_ab)
     for e in entries:  # the 5B run's, the eval runs' and the perceptual steps' launches beside each path's own
         if bench_5b["launches"].get(e["name"]):
             e["launches_5b_bench"] = bench_5b["launches"][e["name"]]

@@ -4,8 +4,8 @@ project's ``benchmarks/ab_batch_block.py`` and ``benchmarks/ab_q8_input.py``.
 On the CPU each wrapper runs its kernel's plain version. The JAX scripts are
 loaded from their files, unchanged, and their Pallas kernels run in
 interpret mode, on the same numpy inputs: B = 4 samples of N = 64 or 128
-tokens, 2 heads of 64 or 128 channels, a tail mask on sample 1 and no valid
-token in sample 3. Tolerances: fp32 2e-5 on every row. bf16: max 2e-2 and
+tokens, 2 heads of 64, 128, 192 or 256 channels, a tail mask on sample 1 and
+no valid token in sample 3. Tolerances: fp32 2e-5 on every row. bf16: max 2e-2 and
 mean 2e-3 on every row (outputs are O(1); both sides round P to bf16 and
 q/k to the bf16 grid, where one rounding flip moves a value by 2^-8 of its
 size, and the JAX kernel's d = 64 head pairs take a packed variance).
@@ -87,7 +87,7 @@ def assert_close(got, want, dtype):
 
 class TestPlainAgainstJax:
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("d,bb", [(64, 1), (64, 2), (128, 2)])
+    @pytest.mark.parametrize("d,bb", [(64, 1), (64, 2), (128, 2), (192, 2), (256, 2)])
     def test_batch_block_matches_kernel_bb(self, dtype, d, bb):
         port, jax_args = both(make_inputs(d), dtype)
         before = dict(t_bb.LAUNCHES)
@@ -98,7 +98,7 @@ class TestPlainAgainstJax:
         assert_close(got, want, dtype)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("d,bb,n", [(64, 2, 64), (128, 2, 64), (64, 4, 200)])
+    @pytest.mark.parametrize("d,bb,n", [(64, 2, 64), (128, 2, 64), (64, 4, 200), (192, 2, 64), (256, 2, 64)])
     def test_pack_matches_kernel_pack_and_averages_a_dead_image_over_its_pack(self, dtype, d, bb, n):
         args = make_inputs(d, n=n)
         port, jax_args = both(args, dtype)
@@ -116,14 +116,15 @@ class TestPlainAgainstJax:
         assert (got[3].float() - mean_pack).abs().max() <= tol
         assert (fused[3].float() - mean_pack).abs().max() > 0.1
 
-    @pytest.mark.parametrize("dtype,d,n", [("float32", 64, 64), ("bfloat16", 64, 64), ("float32", 128, 128)])
+    @pytest.mark.parametrize("dtype,d,n", [("float32", 64, 64), ("bfloat16", 64, 64), ("float32", 128, 128),
+                                           ("float32", 192, 64), ("bfloat16", 256, 64)])
     def test_contig_matches_kernel_contig(self, dtype, d, n):
         port, jax_args = both(make_inputs(d, n=n), dtype)
         got = t_q8.fused_attention_contig(*port, num_heads=H)
         want = j_q8.fused_attention_contig(*jax_args, num_heads=H, interpret=True)
         assert_close(got, want, dtype)
 
-    @pytest.mark.parametrize("d,n", [(64, 64), (128, 128)])
+    @pytest.mark.parametrize("d,n", [(64, 64), (128, 128), (192, 64), (256, 64)])
     def test_int8_input_matches_kernel_q8in_from_the_same_codes(self, d, n):
         qkv, *rest = make_inputs(d, n=n)
         rest_t = [torch.tensor(np.asarray(a)) for a in rest]
@@ -168,7 +169,7 @@ class TestSplitTwin:
         assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
     @pytest.mark.parametrize("d,n,bb,sw", [(64, 64, 1, None), (64, 200, 2, 24), (128, 64, 2, None),
-                                           (128, 200, 1, 40)])
+                                           (128, 200, 1, 40), (192, 64, 2, 24), (256, 64, 1, None)])
     def test_twin_matches_kernel_bb(self, d, n, bb, sw):
         port, jax_args = both(make_inputs(d, n=n), "float32")
         got = t_bb.fused_attention_bb_split_plain(*port, num_heads=H, bb=bb, cg=H * d, sliding_window=sw)
@@ -176,7 +177,8 @@ class TestSplitTwin:
                                                   interpret=True))
         assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
-    @pytest.mark.parametrize("d,n,sw", [(64, 64, None), (64, 200, 24), (128, 64, None), (128, 128, 40)])
+    @pytest.mark.parametrize("d,n,sw", [(64, 64, None), (64, 200, 24), (128, 64, None), (128, 128, 40),
+                                        (192, 64, None), (256, 64, 40)])
     def test_twin_matches_kernel_contig(self, d, n, sw):
         """#13 in fp32 runs the fp32 walker with one image x all heads a
         block (bb = 1, hpb = H): its arithmetic against ``_kernel_contig``."""
@@ -188,7 +190,7 @@ class TestSplitTwin:
         mean_v = port[0][3, :, 2 * H * d:].mean(0)
         assert (got[3] - mean_v).abs().max().item() <= 1e-5 * np.abs(want).max()
 
-    @pytest.mark.parametrize("d,n", [(64, 200), (128, 64)])
+    @pytest.mark.parametrize("d,n", [(64, 200), (128, 64), (192, 64), (256, 64)])
     def test_twin_matches_kernel_pack(self, d, n):
         port, jax_args = both(make_inputs(d, n=n), "float32")
         got = t_bb.fused_attention_bb_split_plain(*port, num_heads=H, bb=2, cg=H * d, pack=True)
@@ -278,6 +280,26 @@ class TestEntryPoints:
             assert f"\n{name} (" in out
         assert "delta A/B" in out and "delta C/B" in out and "delta A/redesigned" in out
         assert result["arms"]["A"]["delta_vs_redesigned"] > 0
+
+    @pytest.mark.parametrize("heads,skipped", [(16, {"C512", "C256", "C128"}), (12, {"C384", "C128"})])
+    def test_wide_heads_skip_the_arms_the_jax_entry_skips(self, capsys, heads, skipped):
+        """At C 3072 with heads of 192 (16) and 256 (12) channels every arm
+        runs but those whose group is not whole heads (``cg % d``), which
+        the JAX entry's assert fails to build; each prints its reason. Arm B
+        is the shipped forward there (the mma.sync forward has no instance),
+        so B reads 0 from X."""
+        result = t_bb.main(["--c", "3072", "--heads", str(heads), "--tokens", "16", "--batch", "4",
+                            "--iters", "1", "--layers", "1", "--device", "cpu"])
+        out = capsys.readouterr().out
+        d = 3072 // heads
+        assert set(result["skipped"]) == skipped
+        for name in skipped:
+            assert f"arm {name} skipped: cg=" in out and f"whole number of {d}-channel heads" in out
+        assert set(result["arms"]) == {"B", "G", "S2", "D2", "D4", "C768", "C512", "C384", "C256", "C128",
+                                       "P2"} - skipped
+        assert all(v == 0.0 for v in result["numeric"].values())
+        assert result["arm_B"] == f"the shipped forward (#1 at d {d})" and f"arm B: {result['arm_B']}" in out
+        assert result["redesigned"]["max_abs_vs_B"] == 0.0 and "(B is X: expect 0.0)" in out
 
     def test_a_split_the_kernels_refuse_is_skipped(self, capsys):
         result = t_bb.main(["--c", "256", "--heads", "4", "--tokens", "64", "--batch", "2",

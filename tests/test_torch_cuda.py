@@ -1464,7 +1464,8 @@ class TestABKernelsOnCard:
     the assembled tensor (``csrc/fused_attention_q8in_sm90.cu``, a walk of
     that body over int8 q and v tiles, after the q/k prologue's int8
     instance); #10, #11 and #13 in
-    fp32 those of the fp32 walker with one cell a block
+    fp32 those of the fp32 walker with one cell a block (at d 192 and 256
+    its wide layout)
     (``csrc/fused_attention_ab_f32_sm90.cu``, ``fused_attend_f32_sm90.cuh``),
     which is within 1e-5 of the largest entry of the FMA forward. Each is
     within the forward's limits of its plain version (bf16: max 2e-2, mean
@@ -1473,7 +1474,11 @@ class TestABKernelsOnCard:
 
     @staticmethod
     def _forward(qkv, rest, heads, sw=None):
-        return t_fa.fused_qkv_attention_mma(qkv, *rest, num_heads=heads, sliding_window=sw)
+        """The mma.sync forward where it has an instance (d 64 and 128); at
+        d 192 and 256 the plain version."""
+        if qkv.shape[-1] // 3 // heads in t_fa.MMA_HEAD_DIMS:
+            return t_fa.fused_qkv_attention_mma(qkv, *rest, num_heads=heads, sliding_window=sw)
+        return t_fa.fused_qkv_attention_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
 
     @staticmethod
     def _redesigned(qkv, rest, heads, sw=None):
@@ -1490,7 +1495,8 @@ class TestABKernelsOnCard:
         assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-    @pytest.mark.parametrize("d,heads,bb,hpb", [(64, 4, 1, 2), (64, 4, 2, 4), (128, 2, 4, 1), (128, 2, 2, 2)])
+    @pytest.mark.parametrize("d,heads,bb,hpb", [(64, 4, 1, 2), (64, 4, 2, 4), (128, 2, 4, 1), (128, 2, 2, 2),
+                                                (192, 2, 2, 1), (192, 4, 1, 4), (256, 2, 4, 2), (256, 2, 1, 1)])
     @pytest.mark.parametrize("sw", [None, 24])
     def test_batch_block_equals_the_forward_kernel(self, cuda_device, no_tf32, dtype, d, heads, bb, hpb, sw):
         qkv, *rest = ab_inputs(cuda_device, dtype, d=d, heads=heads)
@@ -1512,7 +1518,7 @@ class TestABKernelsOnCard:
             assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-    @pytest.mark.parametrize("d,heads,n", [(64, 4, 200), (128, 2, 64)])
+    @pytest.mark.parametrize("d,heads,n", [(64, 4, 200), (128, 2, 64), (192, 2, 200), (256, 2, 64)])
     def test_pack_equals_the_forward_where_an_image_has_a_valid_key(self, cuda_device, no_tf32, dtype, d, heads, n):
         qkv, *rest = ab_inputs(cuda_device, dtype, d=d, heads=heads, n=n)
         f32 = dtype == torch.float32
@@ -1531,7 +1537,7 @@ class TestABKernelsOnCard:
         mean_pack = qkv.float()[2:4, :, 2 * heads * d:].reshape(-1, heads * d).mean(0)
         assert (got[3].float() - mean_pack).abs().max().item() <= (1e-5 if f32 else 2e-2)
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("n", [60, 64, 200, 1024])
     @pytest.mark.parametrize("case", ["none", "tail+dead"])
     @pytest.mark.parametrize("bb,hpb,pack", [(2, 2, False), (4, 1, False), (2, 1, True), (4, 2, True)])
@@ -1552,7 +1558,7 @@ class TestABKernelsOnCard:
         assert_fp32_close(one, self._forward(qkv, rest, 2))
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-    @pytest.mark.parametrize("d,heads", [(64, 16), (128, 3)])
+    @pytest.mark.parametrize("d,heads", [(64, 16), (128, 3), (192, 4), (256, 3)])
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", 24)])
     def test_contig_equals_the_forward_kernel(self, cuda_device, no_tf32, dtype, d, heads, case, sw):
         qkv, *rest = ab_inputs(cuda_device, dtype, d=d, heads=heads, case=case)
@@ -1569,7 +1575,7 @@ class TestABKernelsOnCard:
         else:
             self._assert_bf16_close(got, want, rest[-1])
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("n", [200, 256, 1024])
     @pytest.mark.parametrize("case", ["none", "tail+dead"])
     @pytest.mark.parametrize("bb,hpb", [(1, 1), (2, 2), (4, 1), (4, 2)])
@@ -1586,7 +1592,7 @@ class TestABKernelsOnCard:
         want = t_bb.fused_attention_bb_plain(qkv, *rest, num_heads=2, bb=bb, cg=hpb * d, pack=True)
         self._assert_bf16_close(got, want, rest[-1])
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("n", [200, 256, 1024])
     @pytest.mark.parametrize("case", ["none", "tail+dead"])
     @pytest.mark.parametrize("sw", [None, 64])
@@ -1603,7 +1609,7 @@ class TestABKernelsOnCard:
         want = t_ab8.fused_attention_contig_plain(qkv, *rest, num_heads=heads, sliding_window=sw)
         self._assert_bf16_close(got, want, rest[-1])
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256])
     @pytest.mark.parametrize("n", [60, 64, 200, 1024])
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 24)])
     def test_fp32_contig_walker_equals_one_cell_a_block(self, cuda_device, no_tf32, d, n, case, sw):
@@ -1624,12 +1630,12 @@ class TestABKernelsOnCard:
     def test_walkers_report_their_attributes(self, cuda_device):
         from vitok_torch.benchmarks import WALKER_KINDS, sm90_attributes
 
-        for d in (64, 128):
+        for d in (64, 128, 192, 256):
             for kind in WALKER_KINDS:
                 a = sm90_attributes(d, kind, bb=2)
                 assert 0 < a["registers"] <= 255 and a["blocks_per_sm"] >= 1 and a["smem_bytes"] > 0
 
-    @pytest.mark.parametrize("d,heads", [(64, 4), (128, 2)])
+    @pytest.mark.parametrize("d,heads", [(64, 4), (128, 2), (192, 2), (256, 2)])
     @pytest.mark.parametrize("n", [64, 200, 256, 1024])
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", None), ("tail+dead", 24)])
     def test_int8_input_equals_the_forward_on_the_assembled_tensor(self, cuda_device, d, heads, n, case, sw):
@@ -1648,7 +1654,7 @@ class TestABKernelsOnCard:
         want = t_ab8.fused_attention_q8in_plain(codes, scale, *rest, num_heads=heads, sliding_window=sw)
         self._assert_bf16_close(got, want, rest[-1])
 
-    @pytest.mark.parametrize("d,heads", [(64, 4), (128, 2)])
+    @pytest.mark.parametrize("d,heads", [(64, 4), (128, 2), (192, 2), (256, 2)])
     @pytest.mark.parametrize("case,sw", [("none", None), ("tail+dead", 24)])
     @pytest.mark.parametrize("bb,hpb", [(1, 1), (2, 2), (4, 1), (1, 2)])
     def test_int8_input_splits_equal_the_forward(self, cuda_device, d, heads, case, sw, bb, hpb):
@@ -1683,6 +1689,23 @@ class TestABKernelsOnCard:
                 a = sm90_attributes(d, "q8in", bb=bb)
                 assert a["smem_bytes"] == t_ab8.q8in_smem_bytes(d, bb)
                 assert a["blocks_per_sm"] >= blocks and a["local_bytes"] == 0, (d, bb, a)
+
+    @pytest.mark.parametrize("d", [192, 256])
+    def test_wide_walkers_take_one_block_an_sm(self, cuda_device, d):
+        """At d 192 and 256 every walker instance (bf16 #10, #11, #13, #12
+        and the fp32 kinds) fits one block an SM, by its shared memory: the
+        bf16 walkers' ``WalkSmem``, #12's ``q8in_smem_bytes``, the fp32
+        walker's wide layout."""
+        from vitok_torch.benchmarks import WALKER_KINDS, sm90_attributes
+
+        for kind in WALKER_KINDS:
+            for bb in (1, 4):
+                a = sm90_attributes(d, kind, bb=bb)
+                assert a["blocks_per_sm"] == 1 and 0 < a["registers"] <= 255, (kind, bb, a)
+                assert a["smem_bytes"] <= 232448
+                if kind == "q8in":
+                    assert a["smem_bytes"] == t_ab8.q8in_smem_bytes(d, bb)
+                    assert t_ab8.q8in_blocks_per_sm(d) == a["blocks_per_sm"]
 
     def test_kernels_refuse_what_they_do_not_take(self, cuda_device):
         qkv, *rest = ab_inputs(cuda_device, torch.bfloat16)

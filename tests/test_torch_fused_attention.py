@@ -50,7 +50,7 @@ def _jax(args):
 
 
 class TestPlainAgainstJax:
-    @pytest.mark.parametrize("d", [64, 128, 192, 256])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384])
     @pytest.mark.parametrize("case,masked,sw", CASES)
     def test_matches_pallas_kernel_interpret_all_rows(self, d, case, masked, sw):
         args = make_inputs(d=d, masked=masked)
@@ -58,7 +58,7 @@ class TestPlainAgainstJax:
         want = j_fa.fused_qkv_attention(*_jax(args), num_heads=2, sliding_window=sw, interpret=True)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
-    @pytest.mark.parametrize("d", [64, 128, 192, 256])
+    @pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384])
     @pytest.mark.parametrize("case,masked,sw", CASES)
     def test_matches_unfused_on_valid_rows(self, d, case, masked, sw):
         args = make_inputs(d=d, masked=masked)

@@ -115,6 +115,7 @@ CASES = {
     "all_padding_sample": dict(b=3, n=40, heads=2, d=64, valid=[40, 17, 0], sw=6),
     "d192": dict(b=1, n=32, heads=2, d=192),
     "d256_mask_window": dict(b=2, n=64, heads=2, d=256, valid=[64, 23], sw=9),
+    "d320": dict(b=1, n=32, heads=2, d=320),
 }
 
 

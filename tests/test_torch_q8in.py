@@ -21,7 +21,8 @@ torch.set_num_threads(1)
 
 SMEM_PER_SM = 233472  # shared memory of one H100 SM; the runtime keeps 1 KB of it a block
 SMS = 132  # an H100's SMs
-AB_SHAPES = ((64, 256, 3072, 24), (16, 256, 1024, 16))  # B, N, C, H: chip_smoke.py's bf16 A/B shapes
+# B, N, C, H: chip_smoke.py's bf16 A/B shapes (d 128 and 64), then its wide ones (d 192 and 256)
+AB_SHAPES = ((64, 256, 3072, 24), (16, 256, 1024, 16), (64, 256, 3072, 16), (64, 256, 3072, 12))
 
 
 class Card(torch.Tensor):
@@ -52,23 +53,38 @@ class TestPlan:
     def test_plan_at_the_ab_shapes(self, b, n, c, h):
         bb, hpb = t_ab8.q8in_plan(b, n, c, h, SMS)
         # on an H100 (PERF.md): 5B all 24 heads a block, within 1.2% of the fastest split; 350M one
-        # cell a block, the fastest
-        assert (bb, hpb) == {24: (1, 24), 16: (1, 1)}[h]
+        # cell a block, the fastest; at d 192 and 256 (one block an SM) every split of at least a wave
+        # gives the busiest SM 32 and 24 cells, and the tie goes to all heads
+        assert (bb, hpb) == {(3072, 24): (1, 24), (1024, 16): (1, 1), (3072, 16): (1, 16),
+                             (3072, 12): (1, 12)}[c, h]
         assert b % bb == 0 and h % hpb == 0
-        # two blocks an SM at d = 128 (and four at d = 64), by shared memory
-        blocks = 2 if c // h == 128 else 4
+        # four blocks an SM at d = 64, two at 128 and one at 192 and 256, by shared memory
+        blocks = {64: 4, 128: 2, 192: 1, 256: 1}[c // h]
         assert blocks * (t_ab8.q8in_smem_bytes(c // h, bb) + 1024) <= SMEM_PER_SM
 
     @pytest.mark.parametrize("b", [1, 2, 3, 4, 16, 64, 256])
-    @pytest.mark.parametrize("n,c,h", [(64, 3072, 24), (256, 1024, 16), (1024, 1024, 16), (200, 256, 2)])
+    @pytest.mark.parametrize("n,c,h", [(64, 3072, 24), (256, 1024, 16), (1024, 1024, 16), (200, 256, 2),
+                                       (256, 3072, 16), (256, 3072, 12)])
     def test_plan_divides_the_shape(self, b, n, c, h):
         bb, hpb = t_ab8.q8in_plan(b, n, c, h, SMS)
         assert bb >= 1 and hpb >= 1 and b % bb == 0 and h % hpb == 0
+
+    @pytest.mark.parametrize("d,blocks,smem", [(64, 3, 51088), (128, 2, 100496), (192, 1, 149904),
+                                              (256, 1, 199312)])
+    def test_blocks_an_sm_follow_shared_memory(self, d, blocks, smem):
+        """The plan's blocks an SM: as many as shared memory fits (one
+        image a block, 1 KB kept by the runtime), at most the three the
+        launch bounds' registers allow (d = 64, where four would fit)."""
+        assert t_ab8.q8in_smem_bytes(d, 1) == smem
+        assert t_ab8.q8in_blocks_per_sm(d) == blocks
+        assert blocks * (smem + 1024) <= SMEM_PER_SM and (d == 64 or (blocks + 1) * (smem + 1024) > SMEM_PER_SM)
 
     def test_smem_bytes_are_the_kernels_layout(self):
         # Q8inSmem<D>: 4 bf16 tiles, 4 int8 tiles, 2 x 64 scales and key states, the gain, an int4 an image, slack
         assert t_ab8.q8in_smem_bytes(128, 1) == 4 * 16384 + 4 * 8192 + 512 + 128 + 512 + 16 + 1024 == 100496
         assert t_ab8.q8in_smem_bytes(64, 4) == 4 * 8192 + 4 * 4096 + 512 + 128 + 256 + 64 + 1024
+        assert t_ab8.q8in_smem_bytes(256, 1) == 4 * 32768 + 4 * 16384 + 512 + 128 + 1024 + 16 + 1024 == 199312
+        assert t_ab8.q8in_smem_bytes(192, 2) == 4 * 24576 + 4 * 12288 + 512 + 128 + 768 + 32 + 1024
 
 
 def _bf16_rne(x: np.ndarray) -> np.ndarray:
@@ -119,7 +135,7 @@ class TestAssembledV:
 
 
 class TestInt8Prologue:
-    @pytest.mark.parametrize("d,n", [(64, 64), (128, 200)])
+    @pytest.mark.parametrize("d,n", [(64, 64), (128, 200), (192, 64), (256, 64)])
     def test_plain_twin_is_the_bf16_prologue_on_bf16_codes(self, d, n):
         codes, scale, qs, ks, cos, sin, _ = make_inputs(2, n, 2, d)
         got = t_ab8.q8in_k_prologue(codes, ks, cos, sin, num_heads=2)
@@ -152,12 +168,13 @@ class TestWrapperOnCardTensors:
         monkeypatch.setattr(t_fa, "_sm_count", lambda index: SMS)
         return calls
 
-    def test_launches_the_prologue_then_the_walk_at_the_plan(self, recorders):
-        codes, scale, qs, ks, cos, sin, mask = make_inputs(4, 64, 2, 64)
+    @pytest.mark.parametrize("d", [64, 192, 256])
+    def test_launches_the_prologue_then_the_walk_at_the_plan(self, recorders, d):
+        codes, scale, qs, ks, cos, sin, mask = make_inputs(4, 64, 2, d)
         before = dict(t_ab8.LAUNCHES)
         t_ab8.fused_attention_q8in(codes.as_subclass(Card), scale, qs, ks, cos, sin, mask, num_heads=2,
                                    sliding_window=24)
-        assert recorders == [("prologue", codes.shape), ("walk", *t_ab8.q8in_plan(4, 64, 128, 2, SMS), 24)]
+        assert recorders == [("prologue", codes.shape), ("walk", *t_ab8.q8in_plan(4, 64, 2 * d, 2, SMS), 24)]
         assert t_ab8.LAUNCHES == {**before, "fused_attention_q8in": before["fused_attention_q8in"] + 1,
                                   "fused_attention_q8in_prologue": before["fused_attention_q8in_prologue"] + 1}
 

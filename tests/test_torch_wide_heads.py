@@ -479,9 +479,10 @@ class TestCardRouting:
         """A forced kernel at a head dim no kernel has an instance for (d +
         128: 320 or 384) raises before a launch: fp32 under a gradient
         (``impl="fused"``, ``impl="flash"`` and the flash kernel) and the fp32
-        prologue with delta; so do an fp16 call under a gradient and the A/B
-        kernels' wrappers at d. bf16 and fp32, with or without a gradient, no
-        longer do at d (their instances reach 256)."""
+        prologue with delta; so do an fp16 call under a gradient and the kept
+        mma.sync forward (``MMA_HEAD_DIMS``) at d. bf16 and fp32, with or
+        without a gradient, no longer do at d (their instances reach 256),
+        nor do the A/B kernels (``AB_HEAD_DIMS``)."""
         bad = d + 128
         for n, impl in ((256, "fused"), (2048, "flash")):
             qkv, *rest = qkv_inputs(1, n, 2, bad, dtype=torch.float32)

@@ -18,15 +18,25 @@ against the reference it names: in bf16 the redesigned forward
 (:func:`fused_qkv_attention`: the q/k prologue and the wgmma kernel; X in
 the printed lines), on images with a valid key for the pack; in fp32 the
 fp32 walker with one cell a block (W). Arm B is the mma.sync forward
-(:func:`fused_qkv_attention_mma`; its FMA instance in fp32); one more line
-gives the reference's largest distance from it, and in bf16 one more row
-times the redesigned forward beside the arms.
+(:func:`fused_qkv_attention_mma`; its FMA instance in fp32) at head dims 64
+and 128; at 192 and 256, where it has no instance, the JAX script's B, the
+shipped forward (:func:`fused_qkv_attention`: #1 at that width, in fp32 on
+the fp32 walker), so B is X there (W's bits in fp32). One more line gives
+the reference's largest distance from B, and in bf16 one more row times the
+redesigned forward beside the arms.
 
 Arms: B, G (the largest 128-aligned group below C), S2, D2, D4, C768 ...
-C128 and P2, as in JAX. Recorded invocations:
+C128 and P2, as in JAX; an arm whose group is not whole heads is skipped
+with its reason, as the JAX script's fails to build (at d 192 C512, C256 and
+C128; at d 256 C384 and C128). Recorded invocations:
 
     python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 24 --tokens 256 --batch 64 --layers 256 --iters 6
     python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 24 --tokens 64 --batch 256 --dtype float32 --layers 256 --iters 6
+
+and at head dims 192 and 256 (``--heads 16``, ``--heads 12``), both dtypes:
+
+    python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 16 --tokens 256 --batch 64 --iters 2 --layers 16
+    python -m vitok_torch.benchmarks.ab_batch_block --c 3072 --heads 12 --tokens 64 --batch 256 --dtype float32 --iters 2 --layers 16
 
 ``--device cpu`` runs the plain versions (host clock: no device time).
 """
@@ -51,15 +61,18 @@ LAUNCHES = {"fused_attention_bb": 0, "fused_attention_pack": 0, "fused_attention
 
 
 # The references a numeric leg is held to, by the symbol its line prints.
-REFERENCES = {"B": "B: the mma.sync forward (fused_qkv_attention_mma; its FMA instance in fp32)",
+REFERENCES = {"B": "B: the mma.sync forward (fused_qkv_attention_mma; its FMA instance in fp32) at head dims 64 "
+                   "and 128; at 192 and 256 the shipped forward (fused_qkv_attention: #1 at that width, the fp32 "
+                   "walker in fp32), so X there (W's bits in fp32)",
               "X": "X: the redesigned forward (fused_qkv_attention: q/k prologue + wgmma kernel)",
               "W": "W: the fp32 walker with one cell a block (fused_attention_bb, bb=1, one head)"}
 
 
 def check_arm(shape, num_heads: int, bb: int, cg: int, sliding_window=None, pack: bool = False):
     """``(b, n, c, d)``, or ValueError for a work split the kernels do not
-    take: ``bb`` must divide B, ``cg`` divide C and be whole heads of 64 or
-    128 channels; a pack takes no window."""
+    take: heads of ``fa.AB_HEAD_DIMS`` channels (64-256), ``bb`` dividing B,
+    ``cg`` dividing C and whole heads (the JAX script's assert); a pack
+    takes no window."""
     if len(shape) != 3 or shape[-1] % 3:
         raise ValueError(f"qkv must be [B, N, 3C], got {tuple(shape)}")
     b, n, c3 = shape
@@ -170,7 +183,9 @@ def fused_attention_bb_split_plain(
     ``pack``) with both products (S = Q K^T and P V) formed by
     :func:`split_einsum` and P not rounded. The kernel is held to
     :func:`fused_attention_bb_plain`; this twin shows that the split itself
-    computes that function."""
+    computes that function. At head dims past 128 P V follows the wide
+    layout's order (``walk_cells_f32_wide``): each 64-key tile's six products
+    summed apart, then the tiles added."""
     check_arm(qkv.shape, num_heads, bb, cg, sliding_window, pack)
     if qkv.dtype != torch.float32:
         raise TypeError(f"the fp32 walker takes float32 qkv, got {qkv.dtype}")
@@ -191,7 +206,14 @@ def fused_attention_bb_split_plain(
     s = split_einsum("gqhd,gkhd->ghqk", q, k) * (1.0 / d ** 0.5 * fa._LOG2E)
     s = s.masked_fill(~keep[:, None], fa._NEG_FILL)
     p = torch.exp2(s - s.amax(-1, keepdim=True))
-    o = split_einsum("ghqk,gkhd->gqhd", p, v) / p.sum(-1).transpose(1, 2)[..., None]
+    if d <= 128:
+        o = split_einsum("ghqk,gkhd->gqhd", p, v)
+    else:  # a fresh sum a key tile (each image's keys in tiles of 64), then the tiles added
+        o = None
+        for k0, k1 in ((i * n + t, i * n + min(t + 64, n)) for i in range(g) for t in range(0, n, 64)):
+            part = split_einsum("ghqk,gkhd->gqhd", p[..., k0:k1], v[:, k0:k1])
+            o = part if o is None else o + part
+    o = o / p.sum(-1).transpose(1, 2)[..., None]
     return o.reshape(b, n, c3 // 3)
 
 
@@ -244,6 +266,20 @@ def fused_attention_bb(
     return out
 
 
+def arm_b_forward(d: int) -> str:
+    """What arm B runs at head dim ``d``: the mma.sync forward where it has
+    an instance (``fa.MMA_HEAD_DIMS``), else the shipped forward (#1)."""
+    return "the mma.sync forward" if d in fa.MMA_HEAD_DIMS else f"the shipped forward (#1 at d {d})"
+
+
+def arm_b(qkv, q_scale, k_scale, cos, sin, mask, num_heads: int):
+    """Arm B's call (:func:`arm_b_forward`)."""
+    d = qkv.shape[-1] // 3 // num_heads
+    if d in fa.MMA_HEAD_DIMS:
+        return fa.fused_qkv_attention_mma(qkv, q_scale, k_scale, cos, sin, mask, num_heads=num_heads)
+    return fa.fused_qkv_attention(qkv, q_scale, k_scale, cos, sin, mask, num_heads=num_heads, impl="fused")
+
+
 def arm_defs(c: int, d: int, n: int, b: int, h: int):
     """``(name, bb, cg, description)`` of every arm, as in JAX; B's cg is
     None (the fused forward), G's None where no 128-aligned group below C
@@ -251,7 +287,7 @@ def arm_defs(c: int, d: int, n: int, b: int, h: int):
     auto_cg = pick_group_channels(c, d, n)
     tiles = -(-n // 64)
     return [
-        ("B", 1, None, f"the mma.sync forward: one block per (tile, head, sample), {tiles * h * b} blocks "
+        ("B", 1, None, f"{arm_b_forward(d)}: one block per (tile, head, sample), {tiles * h * b} blocks "
                        f"(TPU: bb=1 cg=auto({auto_cg}), {b * (c // max(auto_cg, 1))} cells)"),
         ("G", 1, max((cg for cg in range(d, c, d) if c % cg == 0 and cg % 128 == 0), default=None),
          "pinned large-group baseline"),
@@ -285,6 +321,7 @@ def main(argv=None) -> dict:
     c, h, n, b = args.c, args.heads, args.tokens, args.batch
     d = c // h
     dtype = getattr(torch, args.dtype)
+    print(f"arm B: {arm_b_forward(d)}", flush=True)
     gen = torch.Generator().manual_seed(0)
     qkv = torch.randn(b, n, 3 * c, generator=gen).to(dtype).to(device)
     q_scale, k_scale, cos, sin = rope_inputs(b, n, d, device, gen)
@@ -293,7 +330,7 @@ def main(argv=None) -> dict:
 
     def make_call(bb, cg, pack):
         if cg is None:
-            return lambda cos_: fa.fused_qkv_attention_mma(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h)
+            return lambda cos_: arm_b(qkv, q_scale, k_scale, cos_, sin, mask, h)
         return lambda cos_: fused_attention_bb(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h,
                                                bb=bb, cg=cg, pack=pack)
 
@@ -336,10 +373,13 @@ def main(argv=None) -> dict:
     new_diff = max_abs_diff(new_out, ref_out)
     if f32:
         top = float(ref_out.abs().max())
-        print(f"numeric fp32 walker: max|W-B| = {new_diff:.3e} (another kernel: within 1e-5 of B's largest entry "
-              f"{top:.3f}, not 0)")
+        expect = ("another kernel: within 1e-5 of B's largest entry, not 0" if d in fa.MMA_HEAD_DIMS
+                  else "B is the fp32 walker's forward: expect 0.0")
+        print(f"numeric fp32 walker: max|W-B| = {new_diff:.3e} ({expect}; max|B| {top:.3f})")
     else:
-        print(f"numeric redesigned: max|X-B| = {new_diff:.6f} (another kernel: within #1's limits, not 0)")
+        expect = ("another kernel: within #1's limits, not 0" if d in fa.MMA_HEAD_DIMS
+                  else "B is X: expect 0.0")
+        print(f"numeric redesigned: max|X-B| = {new_diff:.6f} ({expect})")
         chained_ms(new_call, cos, layers, 0.0)
         redesigned = ("redesigned", new_call, "the redesigned forward: q/k prologue + wgmma kernel")
     del out, new_out, ref_out
@@ -354,7 +394,7 @@ def main(argv=None) -> dict:
 
     isz = qkv.element_size()
     byts = b * n * (3 * c * isz + c * isz)  # qkv in + attn out
-    result = {"device": card_line(device), "arms": {}, "numeric": numeric,
+    result = {"device": card_line(device), "arm_B": arm_b_forward(d), "arms": {}, "numeric": numeric,
               "references": {k: REFERENCES[v] for k, v in references.items()}, "skipped": skipped}
     for name, _, desc in timed:
         ms = np.array(times[name])

@@ -13,7 +13,9 @@ walk of the wgmma body over int8 q and v tiles
 (``csrc/fused_attention_q8in_sm90.cu``, at :func:`q8in_plan`'s split), and
 equals the redesigned forward there bit for bit: the same body, int8 against
 bf16 input. Arm B: the mma.sync forward (:func:`fused_qkv_attention_mma`) on
-the bf16 qkv. Arm C, :func:`fused_attention_contig` (replacing
+the bf16 qkv at head dims 64 and 128; at 192 and 256, where it has no
+instance, the JAX script's B, the shipped forward (X;
+``ab_batch_block.arm_b``). Arm C, :func:`fused_attention_contig` (replacing
 ``_kernel_contig``): the forward's function with one block per (sample,
 64-query tile) walking all heads; in bf16 on the wgmma body
 (``csrc/fused_attention_ab_sm90.cu``; in fp32 on the fp32 walker,
@@ -23,6 +25,8 @@ X in the printed lines), which one more row times with its delta and its
 distance from B. Each numeric leg names its reference.
 
     python -m vitok_torch.benchmarks.ab_q8_input --c 3072 --heads 24 --tokens 256 --batch 64
+    python -m vitok_torch.benchmarks.ab_q8_input --c 3072 --heads 16 --tokens 256 --batch 64 --iters 2 --layers 16
+    python -m vitok_torch.benchmarks.ab_q8_input --c 3072 --heads 12 --tokens 256 --batch 64 --iters 2 --layers 16
 
 ``--device cpu`` runs the plain versions (host clock: no device time).
 """
@@ -37,6 +41,7 @@ import torch
 
 from vitok_torch.benchmarks import (card_line, chained_ms, check_device, max_abs_diff, q8in_lib, resolve_device,
                                     rope_inputs, walk_f32, walk_sm90)
+from vitok_torch.benchmarks.ab_batch_block import arm_b, arm_b_forward
 from vitok_torch.ops import _build
 from vitok_torch.ops import fused_attention as fa
 from vitok_torch.ops.rope import apply_rotary_emb
@@ -49,6 +54,8 @@ LAUNCHES = {"fused_attention_q8in": 0, "fused_attention_q8in_prologue": 0, "fuse
             "fused_attention_contig_f32": 0}
 
 _STAGES = 2  # key tiles in the ring (kStages of csrc/fused_attend_sm90.cuh)
+_SMEM_PER_SM = 233472  # shared memory of one H100 SM; the runtime keeps 1 KB of it a block
+_MAX_BLOCKS = 3  # what the launch bounds ask for at d = 64: up to 168 registers a thread
 
 
 def assemble_q8in(qkv8: torch.Tensor, tok_scale: torch.Tensor) -> torch.Tensor:
@@ -89,6 +96,14 @@ def q8in_smem_bytes(d: int, bb: int) -> int:
     return (2 + _STAGES) * tile + 2 * _STAGES * codes + _STAGES * 64 * (4 + 1) + 4 * d + 16 * bb + 1024
 
 
+def q8in_blocks_per_sm(d: int) -> int:
+    """Blocks of the int8-input kernel an H100 SM holds at head dim ``d``,
+    one image a block: as many as its shared memory fits
+    (:func:`q8in_smem_bytes` and the 1 KB the runtime keeps a block), at
+    most the three its launch bounds' registers allow."""
+    return min(_MAX_BLOCKS, _SMEM_PER_SM // (q8in_smem_bytes(d, 1) + 1024))
+
+
 def q8in_plan(b: int, n: int, c: int, h: int, sms: int) -> Tuple[int, int]:
     """``(bb, hpb)``: the images and heads of a 64-query tile that one block
     of the int8-input kernel walks, for ``b`` images of ``n`` tokens and
@@ -96,8 +111,9 @@ def q8in_plan(b: int, n: int, c: int, h: int, sms: int) -> Tuple[int, int]:
     divides ``b``, ``hpb`` divides ``h``.
 
     One image a block, and the heads that give the fewest cells to the SM
-    that runs the most: waves of the blocks the card holds at once (two an
-    SM at d = 128, three at d = 64) times the cells of a block; on a tie the
+    that runs the most: waves of the blocks the card holds at once
+    (:func:`q8in_blocks_per_sm`: three an SM at d = 64, two at 128, one at
+    192 and 256) times the cells of a block; on a tie the
     most heads, since a longer walk spends less on each block's setup and
     ring fill. On an H100 (PERF.md), at the 5B A/B shape (C 3072, H 24,
     N 256, B 64) every split of at least a wave ties and 1 x 24 read within
@@ -105,7 +121,7 @@ def q8in_plan(b: int, n: int, c: int, h: int, sms: int) -> Tuple[int, int]:
     shape (C 1024, H 16, N 256, B 16) one cell a block (three waves of one
     cell, against one wave of four) was the fastest, 16 heads a block (64
     blocks) 3.1x slower. More images a block gained no more than that 1.2%."""
-    slots = sms * (2 if c // h > 64 else 3)
+    slots = sms * q8in_blocks_per_sm(c // h)
     blocks = -(-n // 64) * b
 
     def cells_on_the_busiest_sm(hpb: int) -> int:
@@ -287,6 +303,7 @@ def main(argv=None) -> dict:
     print(f"device: {card_line(device)}", flush=True)
     c, h, n, b = args.c, args.heads, args.tokens, args.batch
     d = c // h
+    print(f"arm B: {arm_b_forward(d)}", flush=True)
     gen = torch.Generator().manual_seed(0)
     qkv = torch.randn(b, n, 3 * c, generator=gen).to(torch.bfloat16).to(device)
     qkv8, tok_scale = quantize_qkv(qkv)
@@ -297,7 +314,7 @@ def main(argv=None) -> dict:
     arms = (
         ("A", lambda cos_: fused_attention_q8in(qkv8, tok_scale, q_scale, k_scale, cos_, sin, mask,
                                                 num_heads=h)),
-        ("B", lambda cos_: fa.fused_qkv_attention_mma(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h)),
+        ("B", lambda cos_: arm_b(qkv, q_scale, k_scale, cos_, sin, mask, h)),
         ("C", lambda cos_: fused_attention_contig(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h)),
         ("redesigned", lambda cos_: fa.fused_qkv_attention(qkv, q_scale, k_scale, cos_, sin, mask, num_heads=h,
                                                            impl="fused")),
@@ -316,7 +333,8 @@ def main(argv=None) -> dict:
     dc = max_abs_diff(oc, onew)
     print(f"numeric C: max|C-X|={dc:.6f} (the redesigned forward's body, expect 0.0)")
     dn = max_abs_diff(onew, ob)
-    print(f"numeric redesigned: max|X-B|={dn:.6f} (another kernel: within #1's limits, not 0)")
+    expect = "another kernel: within #1's limits, not 0" if d in fa.MMA_HEAD_DIMS else "B is X: expect 0.0"
+    print(f"numeric redesigned: max|X-B|={dn:.6f} ({expect})")
     del oa, ob, oc, onew, assembled
 
     for _, fn in arms:  # warm the chained runs
@@ -330,11 +348,11 @@ def main(argv=None) -> dict:
 
     bytes_a = b * n * (3 * c * 1 + c * 2)  # int8 in, bf16 out
     bytes_b = b * n * (3 * c * 2 + c * 2)
-    labels = {"A": "int8-in strided", "B": "bf16-in strided", "C": "bf16-in contiguous",
+    labels = {"A": "int8-in strided", "B": f"bf16-in strided, {arm_b_forward(d)}", "C": "bf16-in contiguous",
               "redesigned": "bf16-in, q/k prologue + wgmma kernel"}
-    result = {"device": card_line(device), "arms": {},
+    result = {"device": card_line(device), "arm_B": arm_b_forward(d), "arms": {},
               "numeric": {"A": da, "A_assembled": dq, "C": dc},
-              "references": {"A": "B: the mma.sync forward (fused_qkv_attention_mma; A's input is quantized)",
+              "references": {"A": f"B: {arm_b_forward(d)} (A's input is quantized)",
                              "A_assembled": "X on the assembled tensor (assemble_q8in): the redesigned forward",
                              "C": "X: the redesigned forward (fused_qkv_attention: q/k prologue + wgmma kernel)"}}
     for name, byts in (("A", bytes_a), ("B", bytes_b), ("C", bytes_b), ("redesigned", bytes_b)):

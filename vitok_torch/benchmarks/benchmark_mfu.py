@@ -19,6 +19,7 @@ the H100 peak of the running dtype (``PEAK_FLOPS["h100"]`` in bf16,
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 
@@ -78,11 +79,17 @@ def run_train(variant: str, n_tokens: int, batch: int, iters: int, checkpoint: i
     then ``iters`` steps between two CUDA events. ``first_loss`` is the
     warm-up step's (the same initial weights under every recomputation
     policy), ``peak_gb`` the card's peak allocation over the steps (params,
-    optimizer state and EMA included; None on the host)."""
+    optimizer state and EMA included; None on the host). Garbage that an
+    earlier caller left in reference cycles is collected first: otherwise
+    its card memory counts towards this run's peak until the collector
+    happens to run, which varies from process to process."""
     from vitok_torch.train_lib import (LossConfig, create_optimizer, create_schedule, create_train_state,
                                        make_train_step)
 
     device = torch.device(device)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     kw = decode_variant(VARIANT_ALIASES.get(variant, variant))
     if sw:
         kw["sw"] = sw

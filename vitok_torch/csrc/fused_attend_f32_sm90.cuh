@@ -33,7 +33,7 @@
 // step ahead and norms and splits step i + 1's Q and K while step i's
 // softmax and P V run, and a consumer that copies V a step ahead, splits it
 // between S = Q K^T and the softmax, and runs the products. They hand Q's and
-// K's pieces over through named barriers. The forward at d = 192 and 256 has
+// K's pieces over through named barriers. At d = 192 and 256 every kind has
 // a layout of its own (walk_cells_f32_wide, at the end of this file).
 
 #pragma once
@@ -430,7 +430,7 @@ __device__ __forceinline__ void walk_cells_f32(const float* __restrict__ qkv, co
 }
 
 // ---------------------------------------------------------------------------
-// Wide heads (D = 192, 256): the forward's walk on a layout that fits.
+// Wide heads (D = 192, 256): the walk on a layout that fits.
 // ---------------------------------------------------------------------------
 //
 // At d 192 and 256 the d 128 layout needs 321,536 and 428,032 bytes (three
@@ -461,18 +461,19 @@ struct WalkSmemF32Wide {
   static constexpr size_t bytes(int nb) { return kSample + nb * sizeof(int4) + 1024; }  // + alignment slack
 };
 
-// The forward's cells of one block at D = 192 or 256 (walk_cells_f32's
-// arguments and order of the walk, and its kLse instance's log-sum-exp): the
-// producer (threads 128-255) norms and splits each step's K (and at a cell's
-// first step its Q) while the consumer (threads 0-127) runs the last step's
-// softmax and P V.
+// The cells of one block at D = 192 or 256 (walk_cells_f32's arguments and
+// order of the walk, with `pack` its pack, and its kLse instance's
+// log-sum-exp): the producer (threads 128-255) norms and splits each step's
+// K (and at a cell's first step its Q) while the consumer (threads 0-127)
+// runs the last step's softmax and P V. In a pack, pass 1 of an image with
+// no valid key reads the other images' V tiles (step_tile's src) and no K.
 template <int D, bool kLse = false>
 __device__ __forceinline__ void walk_cells_f32_wide(const float* __restrict__ qkv, const float* __restrict__ q_scale,
                                                     const float* __restrict__ k_scale,
                                                     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
                                                     const unsigned char* __restrict__ mask, float* __restrict__ out,
                                                     int N, int H, int b0, int nb, int h0, int nh, int sw,
-                                                    float score_scale, float* __restrict__ lse = nullptr) {
+                                                    float score_scale, bool pack, float* __restrict__ lse = nullptr) {
   static_assert(D == 192 || D == 256, "the wide layout's instances");
   using S = WalkSmemF32Wide<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -493,7 +494,7 @@ __device__ __forceinline__ void walk_cells_f32_wide(const float* __restrict__ qk
     sGain[i] = q_scale[i];
     sGain[D + i] = k_scale[i];
   }
-  sample_setup<kF32Threads>(sInfo, mask, b0, nb, q0, N, sw, false, tid);  // ends synchronised
+  sample_setup<kF32Threads>(sInfo, mask, b0, nb, q0, N, sw, pack, tid);  // ends synchronised
   int steps = 0;
   for (int i = 0; i < nb; ++i) steps += nh * sInfo[i].z;
   // plane 0 q, 1 k, 2 v of head h of image b
@@ -591,6 +592,31 @@ __device__ __forceinline__ void walk_cells_f32_wide(const float* __restrict__ qk
     }
     at.next(sInfo, nh);
   }
+}
+
+// The walk of one block at head dim D: the d 64/128 layout
+// (walk_cells_f32), or at d 192 and 256 the wide one (walk_cells_f32_wide).
+template <int D, bool kLse = false>
+__device__ __forceinline__ void walk_f32(const float* __restrict__ qkv, const float* __restrict__ q_scale,
+                                         const float* __restrict__ k_scale, const float* __restrict__ cos_t,
+                                         const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
+                                         float* __restrict__ out, int N, int H, int b0, int nb, int h0, int nh, int sw,
+                                         float score_scale, bool pack, float* __restrict__ lse = nullptr) {
+  if constexpr (D > 128)
+    walk_cells_f32_wide<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, b0, nb, h0, nh, sw,
+                                 score_scale, pack, lse);
+  else
+    walk_cells_f32<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, b0, nb, h0, nh, sw, score_scale,
+                            pack, lse);
+}
+
+// Shared memory a block of the walker at head dim D with nb images.
+template <int D>
+size_t walk_f32_smem_bytes(int nb) {
+  if constexpr (D > 128)
+    return WalkSmemF32Wide<D>::bytes(nb);
+  else
+    return WalkSmemF32<D>::bytes(nb);
 }
 
 }  // namespace

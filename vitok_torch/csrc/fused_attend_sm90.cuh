@@ -38,9 +38,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "norm_rope.cuh"
 #include "sm90.cuh"
@@ -266,30 +268,64 @@ __device__ __forceinline__ void store_rows(const CellRows<D>& r, float* out0, fl
   }
 }
 
-// The rotation tables a thread needs to norm a Q tile in place: for each of
-// its kPasses rows of [r0, r0 + 64) (norm_rope_tile's thread layout), the
-// bf16 pairs of cos and sin at its eight channels (zero past N).
+// The rotation tables a thread needs to norm a Q tile in place, in
+// norm_rope_tile's thread layout (a row's nr_lanes<D>() lanes; at d = 192
+// 16, of which the first 12 hold a piece): for each of its kPasses rows of
+// [r0, r0 + 64), the bf16 pairs of cos and sin at its eight channels (zero
+// past N and on a lane without a piece). At d = 64 and 128 (kHeld) load()
+// reads them once an image and the walk holds them in registers; at d = 192
+// and 256, where o alone takes 96 and 128 registers a thread, load() keeps
+// the image's tables and pass() reads a pass's pairs from them (the L2) as
+// each cell's Q is normed.
 template <int D>
 struct RopeRows {
-  static constexpr int kPieces = D / 16;  // threads per row
-  static_assert(kPieces == nr_lanes<D>(), "the walkers' in-place q norm has instances at d 64 and 128");
-  static constexpr int kRowsPerPass = kThreads / kPieces;
+  static constexpr int kLanes = nr_lanes<D>();  // threads per row
+  static constexpr int kRowsPerPass = kThreads / kLanes;
   static constexpr int kPasses = kTile / kRowsPerPass;
-  __nv_bfloat162 ce[kPasses][4], se[kPasses][4];
+  static constexpr bool kHeld = D <= 128;
+  __nv_bfloat162 ce[kHeld ? kPasses : 1][4], se[kHeld ? kPasses : 1][4];
+  const float* cos_b;
+  const float* sin_b;
+  int r0, n;
 
-  // Loads them from a sample's [N, D/2] fp32 tables.
-  __device__ __forceinline__ void load(const float* __restrict__ cos_t, const float* __restrict__ sin_t, int r0,
+  // Pass p's pairs read from a sample's [N, D/2] fp32 tables.
+  static __device__ __forceinline__ void fetch(const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                                               int r0, int N, int p, int tid, __nv_bfloat162 (&c2)[4],
+                                               __nv_bfloat162 (&s2)[4]) {
+    const int row = r0 + p * kRowsPerPass + tid / kLanes;
+    float c[8] = {}, s[8] = {};
+    if (nr_piece<D>(tid) && row < N) {
+      const int c0 = (tid % kLanes) * 8;
+      ld_f4x2(c, cos_t + (long long)row * (D / 2) + c0);
+      ld_f4x2(s, sin_t + (long long)row * (D / 2) + c0);
+    }
+    rope_pairs(c, s, c2, s2);
+  }
+
+  // Takes a sample's tables for rows [r0_, r0_ + 64) of N.
+  __device__ __forceinline__ void load(const float* __restrict__ cos_t, const float* __restrict__ sin_t, int r0_,
                                        int N, int tid) {
-    const int c0 = (tid % kPieces) * 8;
+    if constexpr (kHeld) {
 #pragma unroll
-    for (int p = 0; p < kPasses; ++p) {
-      const int n = r0 + p * kRowsPerPass + tid / kPieces;
-      float c[8] = {}, s[8] = {};
-      if (n < N) {
-        ld_f4x2(c, cos_t + (long long)n * (D / 2) + c0);
-        ld_f4x2(s, sin_t + (long long)n * (D / 2) + c0);
+      for (int p = 0; p < kPasses; ++p) fetch(cos_t, sin_t, r0_, N, p, tid, ce[p], se[p]);
+    } else {
+      cos_b = cos_t;
+      sin_b = sin_t;
+      r0 = r0_;
+      n = N;
+    }
+  }
+
+  // Pass p's pairs.
+  __device__ __forceinline__ void pass(int p, int tid, __nv_bfloat162 (&c2)[4], __nv_bfloat162 (&s2)[4]) const {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c2[e] = ce[p][e];
+        s2[e] = se[p][e];
       }
-      rope_pairs(c, s, ce[p], se[p]);
+    } else {
+      fetch(cos_b, sin_b, r0, n, p, tid, c2, s2);
     }
   }
 };
@@ -297,32 +333,40 @@ struct RopeRows {
 // Normalises and rotates, in place, an sw128 tile that holds the raw rows
 // [r0, r0 + 64) of one head's q (rows at or past N zero-filled): the thread
 // layout and arithmetic of norm_rope_tile<D, kThreads, bf16, true>, so its
-// bits. gain: the head's fp32 gain (shared memory); rope: the rows' tables.
-// A thread reads and writes only its own pieces; the caller orders the
-// writes before wgmma reads them.
+// bits (at d = 192 a lane without a piece adds zeros to its row's sum of
+// squares and writes nothing). gain: the head's fp32 gain (shared memory);
+// rope: the rows' tables. A thread reads and writes only its own pieces; the
+// caller orders the writes before wgmma reads them.
 template <int D>
 __device__ __forceinline__ void norm_rope_sw128(unsigned char* tile, const RopeRows<D>& rope, const float* gain,
                                                 int tid) {
   using R = RopeRows<D>;
   constexpr int kHalf = D / 2;
-  const int c0 = (tid % R::kPieces) * 8;
+  const bool piece = nr_piece<D>(tid);
+  const int c0 = piece ? (tid % R::kLanes) * 8 : 0;
 #pragma unroll
   for (int p = 0; p < R::kPasses; ++p) {
-    const int row = p * R::kRowsPerPass + tid / R::kPieces;
+    const int row = p * R::kRowsPerPass + tid / R::kLanes;
     unsigned char* lo = tile + sw128_offset<kTile>(row, c0);
     unsigned char* hi = tile + sw128_offset<kTile>(row, c0 + kHalf);
-    const uint4 xr = *reinterpret_cast<const uint4*>(lo);
-    const uint4 xi = *reinterpret_cast<const uint4*>(hi);
-    float a[8], b[8];
+    float a[8] = {}, b[8] = {};
+    if (piece) {
+      const uint4 xr = *reinterpret_cast<const uint4*>(lo);
+      const uint4 xi = *reinterpret_cast<const uint4*>(hi);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      a[e] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&xr)[e]);
-      b[e] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&xi)[e]);
+      for (int e = 0; e < 8; ++e) {
+        a[e] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&xr)[e]);
+        b[e] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&xi)[e]);
+      }
     }
+    __nv_bfloat162 ce[4], se[4];
+    rope.pass(p, tid, ce, se);
     uint4 yr, yi;
-    norm_rope_piece<D, true>(a, b, rope.ce[p], rope.se[p], gain + c0, gain + kHalf + c0, yr, yi);
-    *reinterpret_cast<uint4*>(lo) = yr;
-    *reinterpret_cast<uint4*>(hi) = yi;
+    norm_rope_piece<D, true>(a, b, ce, se, gain + c0, gain + kHalf + c0, yr, yi);
+    if (piece) {
+      *reinterpret_cast<uint4*>(lo) = yr;
+      *reinterpret_cast<uint4*>(hi) = yi;
+    }
   }
 }
 
@@ -419,6 +463,28 @@ __device__ __forceinline__ int step_tile(const int4& info, int t, int n_tiles, i
   const int f = (t - n_tiles) / n_tiles;
   *src = f < i ? f : f + 1;
   return (t - n_tiles) % n_tiles;
+}
+
+// Blocks an SM the bf16 walkers' launch bounds ask for at head dim D
+// (fused_attention_ab_sm90.cu, fused_attention_q8in_sm90.cu): one at d = 192
+// and 256, where one block's shared memory is 150-199 KB and o takes 96 and
+// 128 registers a thread.
+template <int D>
+constexpr int walk_min_blocks() {
+  return D == 64 ? 3 : (D == 128 ? 2 : 1);
+}
+
+// f(std::integral_constant<int, D>{}) for a walker's head dim D (64, 128,
+// 192 or 256); cudaErrorInvalidValue for another.
+template <typename F>
+cudaError_t with_head_dim(int D, F f) {
+  switch (D) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

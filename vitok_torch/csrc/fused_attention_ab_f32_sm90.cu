@@ -54,13 +54,13 @@
 namespace {
 
 // A consumer and a producer warpgroup a block (217 KB of shared memory at
-// d = 128, 108 KB at d = 64; the forward's wide instances 219 KB at d = 256,
-// 171 KB at d = 192). Grid (N / 64, H / hpb, B / bb), or (N / 64,
-// 1, B) for the contig kernel; four kernels over one walk, each with its own
-// name so that a profile tells them apart. One block an SM, but the
-// forward's at d = 64 takes two: held to 128 registers a thread, so that two
-// blocks' walks interleave on an SM (the A/B kernels keep one, and their
-// machine code).
+// d = 128, 108 KB at d = 64; the wide layout 219 KB at d = 256, 171 KB at
+// d = 192, every kind). Grid (N / 64, H / hpb, B / bb), or (N / 64, 1, B)
+// for the contig kernel; four kernels over one walk (walk_f32: the d 64/128
+// layout or the wide one), each with its own name so that a profile tells
+// them apart. One block an SM, but the forward's at d = 64 takes two: held
+// to 128 registers a thread, so that two blocks' walks interleave on an SM
+// (the A/B kernels keep one, and their machine code).
 template <int D, bool kLse>
 __global__ void __launch_bounds__(kF32Threads, D == 64 ? 2 : 1)
 fused_attention_f32_sm90_kernel(const float* __restrict__ qkv, const float* __restrict__ q_scale,
@@ -68,13 +68,8 @@ fused_attention_f32_sm90_kernel(const float* __restrict__ qkv, const float* __re
                                 const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
                                 float* __restrict__ out, float* __restrict__ lse, int N, int H, int bb, int hpb,
                                 int sw, float score_scale) {
-  if constexpr (D > 128) {  // wide heads: their own layout
-    walk_cells_f32_wide<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb,
-                                 blockIdx.y * hpb, hpb, sw, score_scale, lse);
-  } else {
-    walk_cells_f32<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb,
-                            blockIdx.y * hpb, hpb, sw, score_scale, false, lse);
-  }
+  walk_f32<D, kLse>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb, blockIdx.y * hpb, hpb,
+                    sw, score_scale, false, lse);
 }
 
 template <int D>
@@ -83,8 +78,8 @@ fused_attention_bb_f32_sm90_kernel(const float* __restrict__ qkv, const float* _
                                    const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                                    const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
                                    float* __restrict__ out, int N, int H, int bb, int hpb, int sw, float score_scale) {
-  walk_cells_f32<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb, blockIdx.y * hpb, hpb,
-                    sw, score_scale, false);
+  walk_f32<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb, blockIdx.y * hpb, hpb, sw,
+              score_scale, false);
 }
 
 template <int D>
@@ -93,8 +88,8 @@ fused_attention_pack_f32_sm90_kernel(const float* __restrict__ qkv, const float*
                                      const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                                      const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
                                      float* __restrict__ out, int N, int H, int bb, int hpb, float score_scale) {
-  walk_cells_f32<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb, blockIdx.y * hpb, hpb,
-                    -1, score_scale, true);
+  walk_f32<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z * bb, bb, blockIdx.y * hpb, hpb, -1,
+              score_scale, true);
 }
 
 template <int D>
@@ -103,8 +98,7 @@ fused_attention_contig_f32_sm90_kernel(const float* __restrict__ qkv, const floa
                                        const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                                        const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
                                        float* __restrict__ out, int N, int H, int sw, float score_scale) {
-  walk_cells_f32<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z, 1, 0, H, sw, score_scale,
-                    false);
+  walk_f32<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, N, H, blockIdx.z, 1, 0, H, sw, score_scale, false);
 }
 
 // The kernels by the kind the C entries take.
@@ -125,36 +119,12 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, int threads, cudaStrea
   return cudaGetLastError();
 }
 
-// Shared memory a block of the walker at head dim D with nb images.
-template <int D>
-size_t walk_smem_bytes(int nb) {
-  if constexpr (D > 128)
-    return WalkSmemF32Wide<D>::bytes(nb);
-  else
-    return WalkSmemF32<D>::bytes(nb);
-}
-
-// The forward (kind 0) at D = 192 and 256, with lse its log-sum-exp
-// instance.
-template <int D>
-cudaError_t launch_walk_wide(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
-                             const void* sin_t, const void* mask, void* out, void* lse, int B, int N, int H, int bb,
-                             int hpb, int sw, int kind, cudaStream_t s) {
-  if (kind != kForward) return cudaErrorInvalidValue;
-  auto kernel = lse != nullptr ? fused_attention_f32_sm90_kernel<D, true> : fused_attention_f32_sm90_kernel<D, false>;
-  return launch(kernel, walk_smem_bytes<D>(bb), dim3((N + kTile - 1) / kTile, H / hpb, B / bb), kF32Threads, s,
-                static_cast<const float*>(qkv), static_cast<const float*>(q_scale),
-                static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
-                static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask), static_cast<float*>(out),
-                static_cast<float*>(lse), N, H, bb, hpb, sw, score_scale<D>());
-}
-
 template <int D>
 cudaError_t launch_walk(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                         const void* sin_t, const void* mask, void* out, void* lse, int B, int N, int H, int bb,
                         int hpb, int sw, int kind, cudaStream_t s) {
   const dim3 grid((N + kTile - 1) / kTile, H / hpb, B / bb);
-  const size_t smem = WalkSmemF32<D>::bytes(bb);
+  const size_t smem = walk_f32_smem_bytes<D>(bb);
   const auto* q = static_cast<const float*>(qkv);
   const auto* gq = static_cast<const float*>(q_scale);
   const auto* gk = static_cast<const float*>(k_scale);
@@ -197,20 +167,16 @@ cudaError_t attributes(Kernel kernel, size_t smem, int* out) {
 
 template <int D>
 cudaError_t kind_attributes(int kind, int bb, bool lse, int* out) {
-  const size_t smem = walk_smem_bytes<D>(bb);
-  if (kind == kForward)
-    return lse ? attributes(fused_attention_f32_sm90_kernel<D, true>, smem, out)
-               : attributes(fused_attention_f32_sm90_kernel<D, false>, smem, out);
-  if constexpr (D > 128) {  // d 192 and 256: the forward alone
-    return cudaErrorInvalidValue;
-  } else {
-    switch (kind) {
-      case kBatchBlock: return attributes(fused_attention_bb_f32_sm90_kernel<D>, smem, out);
-      case kPack: return attributes(fused_attention_pack_f32_sm90_kernel<D>, smem, out);
-      case kContig: return attributes(fused_attention_contig_f32_sm90_kernel<D>, smem, out);
-    }
-    return cudaErrorInvalidValue;
+  const size_t smem = walk_f32_smem_bytes<D>(bb);
+  switch (kind) {
+    case kForward:
+      return lse ? attributes(fused_attention_f32_sm90_kernel<D, true>, smem, out)
+                 : attributes(fused_attention_f32_sm90_kernel<D, false>, smem, out);
+    case kBatchBlock: return attributes(fused_attention_bb_f32_sm90_kernel<D>, smem, out);
+    case kPack: return attributes(fused_attention_pack_f32_sm90_kernel<D>, smem, out);
+    case kContig: return attributes(fused_attention_contig_f32_sm90_kernel<D>, smem, out);
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -226,8 +192,8 @@ extern "C" {
 // (#13: bb = 1, hpb = H). lse [B, H, N] f32 or null: with the forward
 // (kind 0) its instance that also writes each row's log-sum-exp in log2
 // units (1e30 on a padded query row), for the backward; the other kinds
-// take null. D is 64 or 128, or for the forward (with or without lse) also
-// 192 or 256 (the wide layout of fused_attend_f32_sm90.cuh).
+// take null. D is 64, 128, 192 or 256 (at 192 and 256 every kind on the
+// wide layout of fused_attend_f32_sm90.cuh).
 int vitok_fused_attention_walk_f32(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                                    const void* sin_t, const void* mask, void* out, void* lse, int B, int N, int H,
                                    int D, int bb, int hpb, int sw, int kind, void* stream) {
@@ -235,15 +201,10 @@ int vitok_fused_attention_walk_f32(const void* qkv, const void* q_scale, const v
       (kind == kContig && (bb != 1 || hpb != H)) || (lse != nullptr && kind != kForward))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_walk<64>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
-  if (D == 128)
-    return launch_walk<128>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
-  if (D == 192)
-    return launch_walk_wide<192>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
-  if (D == 256)
-    return launch_walk_wide<256>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw, kind, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    return launch_walk<decltype(d)::value>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, lse, B, N, H, bb, hpb, sw,
+                                           kind, s);
+  });
 }
 
 // What the compiler and the card make of one instance (`kind` as above; bb
@@ -252,11 +213,7 @@ int vitok_fused_attention_walk_f32(const void* qkv, const void* q_scale, const v
 // blocks an SM, out[3] dynamic shared memory a block in bytes.
 int vitok_fused_attention_walk_f32_attributes(int D, int kind, int bb, int lse, int* out) {
   if (bb < 1 || kind < kForward || kind > kContig || (lse && kind != kForward)) return (int)cudaErrorInvalidValue;
-  if (D == 64) return kind_attributes<64>(kind, bb, lse != 0, out);
-  if (D == 128) return kind_attributes<128>(kind, bb, lse != 0, out);
-  if (D == 192) return kind_attributes<192>(kind, bb, lse != 0, out);
-  if (D == 256) return kind_attributes<256>(kind, bb, lse != 0, out);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) { return kind_attributes<decltype(d)::value>(kind, bb, lse != 0, out); });
 }
 
 const char* vitok_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -55,6 +55,15 @@
 // Key states come from the sample's key end where its valid keys are a
 // prefix, so the walk reads the mask only during setup.
 //
+// Head dims 64, 128, 192 and 256. At d = 192 and 256 the P V product is two
+// wgmma instructions on V's column blocks (n128 + n64, n128 + n128:
+// sm90.cuh wgmma_rs, as #1 issues it), the in-place q norm takes
+// norm_rope_tile's layout of 16 lanes a row (12 with a piece at d = 192, so
+// its butterfly and bits) and reads each cell's rotation pairs from the
+// tables (L2) as it norms, instead of holding them across the walk beside
+// o's 96 or 128 registers; a block's 150 or 199 KB of shared memory leaves
+// one block an SM.
+//
 // What bounds them on an H100: the forward's, about 8C bytes a token (qkv
 // read, out written) plus the prologue's k scratch, 2C written and 2C read,
 // against 4 * B * H * N^2 * d products: at the recorded A/B shape (C 3072,
@@ -170,9 +179,11 @@ __device__ __forceinline__ void walk_cells(const __nv_bfloat16* __restrict__ kn,
 // d = 128 (100 KB); the launch bounds leave d = 64 up to 168 registers (four
 // blocks' 128 spilled a few bytes and gained nothing clear). A ring of
 // three tiles leaves one block an SM at d = 128, which measured slower on an
-// H100, and gained nothing clear at d = 64.
+// H100, and gained nothing clear at d = 64. At d = 192 and 256 a block
+// takes 150 and 199 KB (WalkSmem), so one block an SM, with up to 255
+// registers a thread.
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, walk_min_blocks<D>())
 fused_attention_contig_sm90_kernel(const __nv_bfloat16* __restrict__ kn, const __nv_bfloat16* __restrict__ qkv,
                                    const float* __restrict__ q_scale, const float* __restrict__ cos_t,
                                    const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
@@ -181,7 +192,7 @@ fused_attention_contig_sm90_kernel(const __nv_bfloat16* __restrict__ kn, const _
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, walk_min_blocks<D>())
 fused_attention_bb_sm90_kernel(const __nv_bfloat16* __restrict__ kn, const __nv_bfloat16* __restrict__ qkv,
                                const float* __restrict__ q_scale, const float* __restrict__ cos_t,
                                const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
@@ -192,7 +203,7 @@ fused_attention_bb_sm90_kernel(const __nv_bfloat16* __restrict__ kn, const __nv_
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, walk_min_blocks<D>())
 fused_attention_pack_sm90_kernel(const __nv_bfloat16* __restrict__ kn, const __nv_bfloat16* __restrict__ qkv,
                                  const float* __restrict__ q_scale, const float* __restrict__ cos_t,
                                  const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
@@ -268,15 +279,16 @@ extern "C" {
 // qkv [B, N, 3*H*D] bf16 (q normed here, v read); q_scale [D] f32; cos, sin
 // [B, N, D/2] f32; mask [B, N] bool bytes or null; out [B, N, H*D] bf16. A
 // block takes its query tile of a pack of bb images x hpb heads (bb divides
-// B, hpb divides H). No window.
+// B, hpb divides H). No window. D is 64, 128, 192 or 256.
 int vitok_fused_attention_pack_sm90(const void* kn, const void* qkv, const void* q_scale, const void* cos_t,
                                     const void* sin_t, const void* mask, void* out, int B, int N, int H, int D,
                                     int bb, int hpb, void* stream) {
   if (bb < 1 || hpb < 1 || B % bb || H % hpb || N % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_blocks<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, -1, true, s);
-  if (D == 128) return launch_blocks<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, -1, true, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    return launch_blocks<decltype(d)::value>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, -1, true,
+                                             s);
+  });
 }
 
 // As vitok_fused_attention_pack_sm90 with the bb images of a block apart
@@ -286,9 +298,10 @@ int vitok_fused_attention_bb_sm90(const void* kn, const void* qkv, const void* q
                                   int hpb, int sw, void* stream) {
   if (bb < 1 || hpb < 1 || B % bb || H % hpb || N % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_blocks<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, false, s);
-  if (D == 128) return launch_blocks<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, false, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    return launch_blocks<decltype(d)::value>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, false,
+                                             s);
+  });
 }
 
 // As vitok_fused_attention_pack_sm90 with one block per (64-query tile,
@@ -298,9 +311,9 @@ int vitok_fused_attention_contig_sm90(const void* kn, const void* qkv, const voi
                                       int sw, void* stream) {
   if (N % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_contig<64>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
-  if (D == 128) return launch_contig<128>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    return launch_contig<decltype(d)::value>(kn, qkv, q_scale, cos_t, sin_t, mask, out, B, N, H, sw, s);
+  });
 }
 
 // What the compiler and the card make of one instance (kind 0 contig, 1
@@ -309,19 +322,13 @@ int vitok_fused_attention_contig_sm90(const void* kn, const void* qkv, const voi
 // out[3] dynamic shared memory a block in bytes.
 int vitok_fused_attention_ab_sm90_attributes(int D, int kind, int bb, int* out) {
   if (bb < 1 || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
-  if (D == 64) {
-    const size_t smem = WalkSmem<64>::bytes(kind == 0 ? 1 : bb);
-    if (kind == 0) return attributes(fused_attention_contig_sm90_kernel<64>, smem, out);
-    if (kind == 1) return attributes(fused_attention_pack_sm90_kernel<64>, smem, out);
-    return attributes(fused_attention_bb_sm90_kernel<64>, smem, out);
-  }
-  if (D == 128) {
-    const size_t smem = WalkSmem<128>::bytes(kind == 0 ? 1 : bb);
-    if (kind == 0) return attributes(fused_attention_contig_sm90_kernel<128>, smem, out);
-    if (kind == 1) return attributes(fused_attention_pack_sm90_kernel<128>, smem, out);
-    return attributes(fused_attention_bb_sm90_kernel<128>, smem, out);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    const size_t smem = WalkSmem<kD>::bytes(kind == 0 ? 1 : bb);
+    if (kind == 0) return attributes(fused_attention_contig_sm90_kernel<kD>, smem, out);
+    if (kind == 1) return attributes(fused_attention_pack_sm90_kernel<kD>, smem, out);
+    return attributes(fused_attention_bb_sm90_kernel<kD>, smem, out);
+  });
 }
 
 const char* vitok_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

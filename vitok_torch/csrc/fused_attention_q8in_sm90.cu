@@ -38,6 +38,11 @@
 // images x hpb heads of a 64-query tile) comes from the wrapper's plan
 // (vitok_torch/benchmarks/ab_q8_input.py q8in_plan).
 //
+// Head dims 64, 128, 192 and 256: at d = 192 and 256 P V is #1's two wgmma
+// products on V's column blocks and the q norm reads each cell's rotation
+// pairs from the tables as it norms (RopeRows, fused_attend_sm90.cuh), as in
+// the bf16 walkers.
+//
 // The walk is this file's own, not an int8 branch of the walk that #1, #10,
 // #11 and #13 instantiate: a template switch in a shared body slowed them by
 // up to 34% on an H100 (PERF.md).
@@ -112,27 +117,35 @@ __device__ __forceinline__ void load_codes(unsigned char* tile, const int8_t* sr
 // norm_rope_sw128 reading the raw rows as codes: normalises and rotates the
 // [64, D] code tile `codes` into the bf16 sw128 tile `tile`, with the thread
 // layout and arithmetic of norm_rope_sw128 (float(code) is what it reads for
-// bf16(code)), so its bits.
+// bf16(code); at d = 192 a lane without a piece adds zeros and writes
+// nothing), so its bits.
 template <int D>
 __device__ __forceinline__ void norm_rope_codes_sw128(unsigned char* tile, const unsigned char* codes,
                                                       const RopeRows<D>& rope, const float* gain, int tid) {
   using R = RopeRows<D>;
   constexpr int kHalf = D / 2;
-  const int c0 = (tid % R::kPieces) * 8;
+  const bool piece = nr_piece<D>(tid);
+  const int c0 = piece ? (tid % R::kLanes) * 8 : 0;
 #pragma unroll
   for (int p = 0; p < R::kPasses; ++p) {
-    const int row = p * R::kRowsPerPass + tid / R::kPieces;
-    const uint2 xr = *reinterpret_cast<const uint2*>(codes + row * D + c0);
-    const uint2 xi = *reinterpret_cast<const uint2*>(codes + row * D + c0 + kHalf);
-    float a[8], b[8];
-    codes_to_floats(xr.x, a);
-    codes_to_floats(xr.y, a + 4);
-    codes_to_floats(xi.x, b);
-    codes_to_floats(xi.y, b + 4);
+    const int row = p * R::kRowsPerPass + tid / R::kLanes;
+    float a[8] = {}, b[8] = {};
+    if (piece) {
+      const uint2 xr = *reinterpret_cast<const uint2*>(codes + row * D + c0);
+      const uint2 xi = *reinterpret_cast<const uint2*>(codes + row * D + c0 + kHalf);
+      codes_to_floats(xr.x, a);
+      codes_to_floats(xr.y, a + 4);
+      codes_to_floats(xi.x, b);
+      codes_to_floats(xi.y, b + 4);
+    }
+    __nv_bfloat162 ce[4], se[4];
+    rope.pass(p, tid, ce, se);
     uint4 yr, yi;
-    norm_rope_piece<D, true>(a, b, rope.ce[p], rope.se[p], gain + c0, gain + kHalf + c0, yr, yi);
-    *reinterpret_cast<uint4*>(tile + sw128_offset<kTile>(row, c0)) = yr;
-    *reinterpret_cast<uint4*>(tile + sw128_offset<kTile>(row, c0 + kHalf)) = yi;
+    norm_rope_piece<D, true>(a, b, ce, se, gain + c0, gain + kHalf + c0, yr, yi);
+    if (piece) {
+      *reinterpret_cast<uint4*>(tile + sw128_offset<kTile>(row, c0)) = yr;
+      *reinterpret_cast<uint4*>(tile + sw128_offset<kTile>(row, c0 + kHalf)) = yi;
+    }
   }
 }
 
@@ -281,11 +294,11 @@ __device__ __forceinline__ void walk_q8in(const int8_t* __restrict__ qkv8, const
   cp_async_ring<kStages>(steps, [](int s) { return s; }, issue, compute);
 }
 
-// Shared memory: 49.9 KB a block at d = 64, 98.1 KB at d = 128 (one image a
-// block), so four and two blocks an SM fit; the launch bounds are the bf16
-// walkers'.
+// Shared memory: 49.9 KB a block at d = 64, 98.1 KB at d = 128, 146.4 KB at
+// d = 192 and 194.6 KB at d = 256 (one image a block), so four, two, one and
+// one blocks an SM fit; the launch bounds are the bf16 walkers'.
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, walk_min_blocks<D>())
 fused_attention_q8in_sm90_kernel(const int8_t* __restrict__ qkv8, const float* __restrict__ tok,
                                  const __nv_bfloat16* __restrict__ kn, const float* __restrict__ q_scale,
                                  const float* __restrict__ cos_t, const float* __restrict__ sin_t,
@@ -343,17 +356,16 @@ extern "C" {
 // the forward's library); q_scale [D] f32; cos, sin [B, N, D/2] f32; mask
 // [B, N] bool bytes or null; out [B, N, H*D] bf16. A block takes its query
 // tile of bb images x hpb heads (bb divides B, hpb divides H); sw < 0: no
-// window. N a multiple of 8.
+// window. N a multiple of 8; D 64, 128, 192 or 256.
 int vitok_fused_attention_q8in_sm90(const void* qkv8, const void* tok_scale, const void* kn, const void* q_scale,
                                     const void* cos_t, const void* sin_t, const void* mask, void* out, int B, int N,
                                     int H, int D, int bb, int hpb, int sw, void* stream) {
   if (bb < 1 || hpb < 1 || B % bb || H % hpb || N % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_q8in<64>(qkv8, tok_scale, kn, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, s);
-  if (D == 128)
-    return launch_q8in<128>(qkv8, tok_scale, kn, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb, sw, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) {
+    return launch_q8in<decltype(d)::value>(qkv8, tok_scale, kn, q_scale, cos_t, sin_t, mask, out, B, N, H, bb, hpb,
+                                           sw, s);
+  });
 }
 
 // What the compiler and the card make of the instance at head dim D with bb
@@ -362,9 +374,7 @@ int vitok_fused_attention_q8in_sm90(const void* qkv8, const void* tok_scale, con
 // in bytes.
 int vitok_fused_attention_q8in_sm90_attributes(int D, int bb, int* out) {
   if (bb < 1) return (int)cudaErrorInvalidValue;
-  if (D == 64) return attributes<64>(bb, out);
-  if (D == 128) return attributes<128>(bb, out);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(D, [&](auto d) { return attributes<decltype(d)::value>(bb, out); });
 }
 
 const char* vitok_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

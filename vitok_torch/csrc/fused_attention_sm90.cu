@@ -685,7 +685,7 @@ int vitok_fused_qk_prologue_f32(const void* qkv, const void* q_scale, const void
 // f32; cos, sin [B, N, D/2] f32. Writes kn [B, N, H*D] bf16, the k codes
 // normed and rotated (parts = 1): the bits the bf16 instance writes for
 // bf16(code). The int8-input A/B kernel (fused_attention_q8in_sm90.cu) runs it
-// first.
+// first. D is 64, 128, 192 or 256.
 int vitok_fused_k_prologue_q8(const void* qkv8, const void* k_scale, const void* cos_t, const void* sin_t, void* kn,
                               int B, int N, int H, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);  // parts = 1 reads only k's gain
@@ -694,6 +694,12 @@ int vitok_fused_k_prologue_q8(const void* qkv8, const void* k_scale, const void*
                                        1, s);
   if (D == 128)
     return launch_prologue<128, int8_t>(qkv8, k_scale, k_scale, cos_t, sin_t, nullptr, nullptr, kn, nullptr, B, N,
+                                        H, 1, s);
+  if (D == 192)
+    return launch_prologue<192, int8_t>(qkv8, k_scale, k_scale, cos_t, sin_t, nullptr, nullptr, kn, nullptr, B, N,
+                                        H, 1, s);
+  if (D == 256)
+    return launch_prologue<256, int8_t>(qkv8, k_scale, k_scale, cos_t, sin_t, nullptr, nullptr, kn, nullptr, B, N,
                                         H, 1, s);
   return (int)cudaErrorInvalidValue;
 }

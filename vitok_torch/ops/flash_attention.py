@@ -39,7 +39,8 @@ FWD_HEAD_DIMS = (64, 128, 192, 256)      # the bf16 forward: the q/k prologue, #
 BWD_HEAD_DIMS = (64, 128, 192, 256)      # the bf16 backward: #3, #5, #6 (plain and fold) and the prologue's delta
 F32_FWD_HEAD_DIMS = (64, 128, 192, 256)  # the fp32 forward: the q/k prologue, #1 (the fp32 walker), #2 and #4
 F32_BWD_HEAD_DIMS = (64, 128, 192, 256)  # the fp32 backward: the walker's lse instance, #3, #5, #6, the delta
-AB_HEAD_DIMS = (64, 128)                 # the A/B kernels #10-#13 and the kept mma.sync forward
+AB_HEAD_DIMS = (64, 128, 192, 256)      # the A/B kernels #10-#13 and #12's int8 q/k prologue
+MMA_HEAD_DIMS = (64, 128)                # the kept mma.sync forward (arm B of the A/B entry points)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _NEG_FILL = -1e30
 _DEAD_LSE = 1e30

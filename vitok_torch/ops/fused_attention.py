@@ -69,7 +69,7 @@ import torch
 from vitok_torch.ops import _build
 from vitok_torch.ops import flash_attention as fl
 from vitok_torch.ops.attention import dot_product_attention, flash_route, head_dim_routes
-from vitok_torch.ops.flash_attention import AB_HEAD_DIMS, check_head_dim, kernel_head_dims
+from vitok_torch.ops.flash_attention import AB_HEAD_DIMS, MMA_HEAD_DIMS, check_head_dim, kernel_head_dims
 from vitok_torch.ops.norms import rms_norm
 from vitok_torch.ops import quant as q8
 from vitok_torch.ops.quant import quantize_activation
@@ -558,7 +558,7 @@ def _mma_cuda(qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_wi
     global MMA_LAUNCHES, F32_MMA_LAUNCHES
     b, n, c, d, q_scale, k_scale, cos, sin, mask, sw = _check_cuda_args(
         qkv, q_scale, k_scale, cos, sin, patch_mask, num_heads, sliding_window,
-        dtypes=(torch.bfloat16, torch.float32), head_dims=AB_HEAD_DIMS,
+        dtypes=(torch.bfloat16, torch.float32), head_dims=MMA_HEAD_DIMS,
     )
     dev = qkv.device
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=dev)
@@ -591,8 +591,8 @@ def fused_qkv_attention_mma(
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """The forward on the mma.sync kernel of ``csrc/fused_attention.cu``
-    (bf16, or fp32 on FMA products), kept beside the redesigns: the A/B entry
-    points' arm B, whose body the int8 epilogue and #12 share bit for bit,
+    (bf16, or fp32 on FMA products) at head dims ``MMA_HEAD_DIMS`` (64 and
+    128), kept beside the redesigns: the A/B entry points' arm B there,
     and in fp32 the closest reference to the plain version. On a CUDA tensor
     it launches that kernel or raises; on a CPU tensor it runs
     :func:`fused_qkv_attention_plain`."""
